@@ -1,0 +1,212 @@
+"""Correlative scan matcher.
+
+Counterpart of the gather path of gridmap_slam_tpu/ops/matcher.py
+(reference slam/GridMap.java:319-369): a multi-stage dense correlative
+search, a coarse grid over the whole window and then halving refinement
+grids around the running argmax, scored with bilinear lookups of a
+precomputed log-likelihood field.  Out-of-map and unknown cells score the
+uniform likelihood 1/max_range (see the JAX module's docstring for the two
+documented divergences from the reference).
+
+`correlative_match_batch` searches for all particles at once, with the
+schedule of the JAX package's `correlative_match`; its stages are scored by
+`ops.cuda.matcher.stage_scores_batch` (kernel K1 on the card).  Only
+`impl` "auto" and "gather" exist here: the JAX package's "matmul", "splat"
+and "pallas" backends are TPU workarounds and raise ValueError.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..types import Odom, Scan
+from .cuda.matcher import (_bilinear, _nearest, stage_scores_batch,
+                           stage_scores_batch_plain)
+from .geometry import scan_points, wrap_angle
+from .motion import noise_scales
+
+__all__ = ["effective_field", "log_likelihood_field", "score_pose",
+           "correlative_match_batch", "_bilinear", "_nearest",
+           "_stage_scores", "_prior_grid", "_argmax3"]
+
+IMPLS = ("auto", "gather")
+
+
+def effective_field(field, unknown, z_hit: float, max_range: float):
+    """Fold the unknown-cell uniform case into the field values so scoring is
+    a single fused formula."""
+    uniform = 1.0 / max_range
+    v_eq = (uniform - (1.0 - z_hit) * uniform) / z_hit
+    return torch.where(unknown, v_eq, field)
+
+
+def log_likelihood_field(field, unknown, z_hit: float, max_range: float):
+    """Per-cell log measurement likelihood, precomputed once per particle:
+    LL = log(z_hit * v' + (1-z_hit)/max_range) with v' the effective field."""
+    uniform = 1.0 / max_range
+    v = effective_field(field, unknown, z_hit, max_range)
+    return torch.log(z_hit * v + (1.0 - z_hit) * uniform)
+
+
+def _stage_scores(llfield, px, py, use, pose0, dxs, dys, dts, *,
+                  resolution, origin, z_hit, max_range, nearest=False):
+    """Score all (dt, dy, dx) pose offsets around one pose0 (3,) on one
+    (H, W) field: the plain stage scorer for a single particle.  Returns
+    (nt, ny, nx).  z_hit is unused, as in the JAX package (the field already
+    holds log-likelihoods)."""
+    del z_hit
+    return stage_scores_batch_plain(
+        llfield[None], px, py, use, pose0[None], dxs[None], dys[None],
+        dts[None], resolution=resolution, origin=origin, max_range=max_range,
+        nearest=nearest)[0]
+
+
+def _prior_grid(dxs, dys, dts, sd_c, sd_t, weight=1.0, bias=None):
+    """Motion log-prior over the offset grid, (..., nt, ny, nx) from
+    (..., nx), (..., ny), (..., nt) offsets.
+
+    `bias` (..., 3) shifts the prior's center: candidates live at
+    pose0 + offset, and the prior penalizes deviation from the deterministic
+    odometry pose x0 (+) u, so the deviation is bias + offset with
+    bias = pose0 - (x0 (+) u).  Without a bias the prior is centered at
+    pose0 itself."""
+    if bias is None:
+        bx = by = bt = 0.0
+    else:
+        bx, by, bt = bias[..., 0, None], bias[..., 1, None], bias[..., 2, None]
+    d2 = ((dys + by) ** 2)[..., :, None] + ((dxs + bx) ** 2)[..., None, :]
+    pt = -((dts + bt) ** 2) / (2.0 * sd_t * sd_t)
+    return weight * (pt[..., :, None, None]
+                     - d2[..., None, :, :] / (2.0 * sd_c * sd_c))
+
+
+def _take(values, index):
+    """values[..., index] for one index per leading position."""
+    return torch.gather(values, -1, index[..., None])[..., 0]
+
+
+def _argmax3(scores, dxs, dys, dts):
+    """First argmax of (..., nt, ny, nx) scores: the offsets there and the
+    flat index."""
+    nt, ny, nx = scores.shape[-3:]
+    flat = torch.argmax(scores.reshape(*scores.shape[:-3], nt * ny * nx), -1)
+    it = flat // (ny * nx)
+    iy = (flat % (ny * nx)) // nx
+    ix = flat % nx
+    return _take(dxs, ix), _take(dys, iy), _take(dts, it), flat
+
+
+def score_pose(llfield_b, scan: Scan, poses, *, z_hit, resolution, origin,
+               max_range):
+    """Measurement log-likelihoods (P,) of poses (P, 3) on their fields
+    (P, H, W), with no search.  z_hit is unused, as in the JAX package."""
+    del z_hit
+    px, py = scan_points(scan)
+    zero = torch.zeros((poses.shape[0], 1), dtype=torch.float32,
+                       device=poses.device)
+    return stage_scores_batch(llfield_b, px, py, scan.valid & scan.hit, poses,
+                              zero, zero, zero, resolution=resolution,
+                              origin=origin, max_range=max_range).reshape(-1)
+
+
+def _offsets(values, device):
+    return torch.as_tensor(np.asarray(values, np.float32), device=device)
+
+
+def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
+                            matcher_cfg, motion_cfg, resolution, origin,
+                            max_range, prior_center_b=None):
+    """For every particle, the pose maximizing
+    log p(z|x,m) + prior_weight * log p(x|x0,u) near pose0.
+
+    llfield_b: (P, H, W) log-likelihood fields; pose0_b: (P, 3) search
+    centers (the motion-sampled poses); prior_center_b: (P, 3) poses the
+    motion prior is centered at (the deterministic odometry poses), or None
+    to center it at pose0.  Same candidate schedule as the JAX package's
+    correlative_match: a coarse stage (optionally on a 2x2-mean-pooled
+    half-resolution field) over every `coarse_beam_stride`-th beam with its
+    prior scaled by the used-beam fraction, then 1 + extra_refine_stages
+    halving bilinear stages over all beams.
+
+    Returns (best_poses (P, 3), meas_logscores (P,)), the measurement-only
+    log-likelihood at the best pose (the reference's particle weight).
+    """
+    mc = matcher_cfg
+    impl = getattr(mc, "impl", "gather")
+    if impl not in IMPLS:
+        raise ValueError(f"matcher.impl={impl!r} is not ported (TPU-only "
+                         f"backend); use one of {IMPLS}")
+    pn = pose0_b.shape[0]
+    dev = pose0_b.device
+    ll_outside = math.log(1.0 / max_range)
+    px, py = scan_points(scan)
+    use = scan.valid & scan.hit
+    kw = dict(origin=origin, max_range=max_range)
+
+    sd_c, sd_t = noise_scales(odom, motion_cfg)
+    if prior_center_b is None:
+        bias_b = None
+    else:
+        bias_b = torch.stack(
+            [pose0_b[:, 0] - prior_center_b[:, 0],
+             pose0_b[:, 1] - prior_center_b[:, 1],
+             wrap_angle(pose0_b[:, 2] - prior_center_b[:, 2])], 1)
+
+    stride = max(int(mc.coarse_beam_stride), 1)
+    px_c, py_c, use_c = (a[::stride].contiguous() for a in (px, py, use))
+
+    wt = math.radians(mc.window_theta_deg)
+    c_dxs = _offsets(np.linspace(-mc.window_xy, mc.window_xy, mc.coarse_nxy),
+                     dev).expand(pn, -1).contiguous()
+    c_dts = _offsets(np.linspace(-wt, wt, mc.coarse_nt),
+                     dev).expand(pn, -1).contiguous()
+
+    if getattr(mc, "coarse_halfres", False):
+        # Basin-finding on the 2x2-mean-pooled field (odd edges padded with
+        # the out-of-map value), bilinear at twice the cell size.
+        h, w = llfield_b.shape[-2:]
+        lle = F.pad(llfield_b, (0, w & 1, 0, h & 1), value=ll_outside)
+        hll = lle.reshape(pn, lle.shape[1] // 2, 2, lle.shape[2] // 2,
+                          2).mean((2, 4))
+        meas = stage_scores_batch(hll, px_c, py_c, use_c, pose0_b, c_dxs,
+                                  c_dxs, c_dts, resolution=2.0 * resolution,
+                                  nearest=False, **kw)
+    else:
+        meas = stage_scores_batch(llfield_b, px_c, py_c, use_c, pose0_b,
+                                  c_dxs, c_dxs, c_dts, resolution=resolution,
+                                  nearest=bool(mc.coarse_nearest), **kw)
+    # prior in per-used-beam units must not change with the beam subset:
+    # scale the coarse prior by the coarse beam fraction.
+    n_all = torch.clamp(use.to(torch.float32).sum(), min=1.0)
+    n_c = torch.clamp(use_c.to(torch.float32).sum(), min=1.0)
+    total = meas + (n_c / n_all) * _prior_grid(
+        c_dxs, c_dxs, c_dts, sd_c, sd_t, mc.prior_weight, bias_b)
+    fx, fy, ft, flat = _argmax3(total, c_dxs, c_dxs, c_dts)
+    meas_best = (n_all / n_c) * _take(meas.reshape(pn, -1), flat)
+
+    # Refinement stages: halve the span around the running argmax.
+    step_xy = 2.0 * mc.window_xy / max(mc.coarse_nxy - 1, 1)
+    step_t = 2.0 * wt / max(mc.coarse_nt - 1, 1)
+    for _ in range(1 + mc.extra_refine_stages):
+        off_xy = _offsets(np.linspace(-step_xy, step_xy, mc.fine_nxy), dev)
+        off_t = _offsets(np.linspace(-step_t, step_t, mc.fine_nt), dev)
+        r_dxs = fx[:, None] + off_xy
+        r_dys = fy[:, None] + off_xy
+        r_dts = ft[:, None] + off_t
+        meas_r = stage_scores_batch(llfield_b, px, py, use, pose0_b, r_dxs,
+                                    r_dys, r_dts, resolution=resolution,
+                                    nearest=False, **kw)
+        total_r = meas_r + _prior_grid(r_dxs, r_dys, r_dts, sd_c, sd_t,
+                                       mc.prior_weight, bias_b)
+        fx, fy, ft, flat = _argmax3(total_r, r_dxs, r_dys, r_dts)
+        meas_best = _take(meas_r.reshape(pn, -1), flat)
+        step_xy = 2.0 * step_xy / max(mc.fine_nxy - 1, 1)
+        step_t = 2.0 * step_t / max(mc.fine_nt - 1, 1)
+
+    best = torch.stack([pose0_b[:, 0] + fx, pose0_b[:, 1] + fy,
+                        pose0_b[:, 2] + ft], 1)
+    return best, meas_best
