@@ -14,9 +14,27 @@ Phases, each printed on its own line:
 5. main   — the parity preset (bench.py --preset parity: 500 particles,
    particle_chunk 250, 180 beams in 192 slots, a 12-scan synthetic
    square-path log, seed 0) through RBPF(cfg, device="cuda").run_log,
-   with every kernel's launch count, the ATE and the scans/s of a warm run.
+   with every kernel's launch count, the ATE and the scans/s of a warm run;
+6. k3 radii — K3 against its plain version at blur radius 3, 12 and 30
+   (sigma 1, 4 and 10 cells), 500 maps of 120 x 120;
+7. surface ops — at the mega shapes (25 theta bins, a 405 x 405 endpoint
+   kernel, a 120 x 120 field): the FFT correlation on the card against the
+   same call on the CPU; the direct (conv2d) correlation with PyTorch's
+   default TF32 flag on, against the CPU and the FFT; the 8-tap and the
+   packed trilinear sample at 1M poses; times of the volume build, both
+   sample paths and the FFT at the exact, 5-smooth and power-of-two
+   lengths of the mega and city volumes;
+8. surface agree — one surface-mode step on the card against the same step
+   on the CPU, from the same state and draws, at 4096 particles;
+9. mega   — SharedMapSLAM(mega_config(), device="cuda").run_log: 1M
+   particles on the 120 x 120 map over the 12-scan log, then over the 40
+   scans of maps/room_loop_40.rec;
+10. city  — the same with city_config(): 1M particles on the 4000 x 4000
+   map, the volume over a 512-cell crop.
 
-Then one JSON line of kernels, and last {"ok": true, "device": {...}}.
+Each path (parity, mega, city) is run with every launch count set to 0
+just before it and read just after.  Then one JSON line of kernels, with
+their launches per path, and last {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no "ok" line.
 There is no CPU path: without a CUDA device it exits non-zero.
 
@@ -39,8 +57,15 @@ K1_NEAREST_MAX_FRAC = 1e-3         # nearest-cell rounding ties, see below
 K2_ATOL, K2_MAX_FRAC = 1e-5, 5e-3  # tests/test_pallas.py:124-126
 K3_ATOL = 1e-5                     # tests/test_pallas.py:91
 ATE_MAX_M = 0.10
+ROOM_LOOP_ATE_MAX_M = 0.25         # ROADMAP item 11: 40 scans at 1M
 N_SCANS = 12
 SEED = 0
+FFT_ATOL, FFT_MEAN = 5e-2, 5e-3    # tests/test_surface.py:223-224
+DIRECT_RTOL, DIRECT_ATOL = 1e-5, 1e-3
+TAPS_RTOL, TAPS_ATOL = 1e-6, 1e-5  # tests/test_surface.py:248-249
+SPLAT_RTOL = 1e-5                  # of the largest endpoint-image cell
+K3_RADII_SIGMAS = (1.0, 4.0, 10.0)
+AGREE_PARTICLES = 4096
 
 
 def say(phase: str, **fields) -> None:
@@ -298,12 +323,9 @@ def agree_phase(frames):
 def main_phase(cfg, frames, gt):
     from gridmap_slam_tpu_torch import RBPF
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
-    from gridmap_slam_tpu_torch.ops.cuda import grid_update, likelihood
-    from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
     from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
 
-    kernels = {"stage_scores": kmatch, "integrate_scan": grid_update,
-               "log_likelihood_field": likelihood}
+    kernels = _kernel_modules()
     eng = RBPF(cfg, device="cuda")
     batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
                              device="cuda")
@@ -351,6 +373,326 @@ def main_phase(cfg, frames, gt):
     return launches
 
 
+def _kernel_modules():
+    from gridmap_slam_tpu_torch.ops.cuda import grid_update, likelihood
+    from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
+    return {"stage_scores": kmatch, "integrate_scan": grid_update,
+            "log_likelihood_field": likelihood}
+
+
+def _test_maps(p, h, w, rng):
+    """Log-odds maps with free space, walls and unexplored cells in random
+    places, and an unexplored band on every other map."""
+    u = rng.uniform(size=(p, h, w))
+    lo = np.where(u < 0.3, -rng.uniform(0.1, 4.0, (p, h, w)),
+                  np.where(u < 0.4, rng.uniform(0.1, 4.0, (p, h, w)), 0.0))
+    lo[::2, :, :w // 2] = 0.0
+    return torch.as_tensor(lo.astype(np.float32), device="cuda")
+
+
+def k3_radii_phase(cfg):
+    """K3 against its plain version at the blur radii of surface-mode
+    relocalization (config.py: sigma 0.2-0.5 m is 4-10 cells at 5 cm)."""
+    from gridmap_slam_tpu_torch.ops.cuda import likelihood
+    from gridmap_slam_tpu_torch.ops.grid import gaussian_kernel
+
+    p, h, w = cfg.num_particles, cfg.map.cells_y, cfg.map.cells_x
+    logodds = _test_maps(p, h, w, np.random.default_rng(SEED + 1))
+    kw = dict(z_hit=cfg.matcher.z_hit, max_range=cfg.sensor.max_range)
+    for sigma in K3_RADII_SIGMAS:
+        radius = int(math.ceil(3 * sigma))
+        taps = torch.as_tensor(gaussian_kernel(sigma, radius), device="cuda")
+        got = likelihood.log_likelihood_field_batch_cuda(logodds, taps, **kw)
+        want = likelihood.log_likelihood_field_batch_plain(logodds, taps,
+                                                           **kw)
+        err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: likelihood.log_likelihood_field_batch_cuda(
+            logodds, taps, **kw), 20)
+        plain_ms = cuda_ms(lambda: likelihood.log_likelihood_field_batch_plain(
+            logodds, taps, **kw), 5)
+        say("k3_radius", sigma_cells=sigma, radius=radius,
+            tile=likelihood.tile(radius), shape=[p, h, w],
+            max_abs_err=err, atol=K3_ATOL, ms=ms,
+            plain_ms=plain_ms)
+        if not err <= K3_ATOL:
+            raise AssertionError(f"K3 at radius {radius}: max abs error "
+                                 f"{err} > {K3_ATOL}")
+
+
+def surface_setup(frames):
+    """A 4096-particle engine on the mega preset, run 3 scans on the card
+    so the shared map holds walls and free space; with the frames on both
+    devices."""
+    from gridmap_slam_tpu_torch import SharedMapSLAM, mega_config
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+
+    cfg = mega_config().replace(num_particles=AGREE_PARTICLES)
+    eng = SharedMapSLAM(cfg, device="cuda")
+    batches = {d: frames_to_device(frames, cfg.max_beams,
+                                   cfg.sensor.max_range, device=d)
+               for d in ("cuda", "cpu")}
+    state, _ = eng.run_log(
+        eng.init(), [frame_at(batches["cuda"], i) for i in range(3)],
+        torch.Generator(device="cuda").manual_seed(SEED))
+    return eng, batches, state
+
+
+def _smooth5(n: int) -> int:
+    """The smallest 2^a 3^b 5^c >= n."""
+    while True:
+        m = n
+        for f in (2, 3, 5):
+            while m % f == 0:
+                m //= f
+        if m == 1:
+            return n
+        n += 1
+
+
+def _close(got, want, rtol, atol):
+    diff = (got - want).abs()
+    return (float(diff.max()), float(diff.mean()),
+            bool((diff <= atol + rtol * want.abs()).all()))
+
+
+def surface_ops_phase(eng, batches, state):
+    """The surface ops at the mega shapes, on the card."""
+    import torch.nn.functional as F
+
+    from gridmap_slam_tpu_torch.io import frame_at
+    from gridmap_slam_tpu_torch.models.shared import surface_volume
+    from gridmap_slam_tpu_torch.ops import surface as sf
+    from gridmap_slam_tpu_torch.ops.cuda import likelihood
+    from gridmap_slam_tpu_torch.ops.geometry import deskew_scan, scan_points
+    from gridmap_slam_tpu_torch.ops.motion import apply_odometry
+    from gridmap_slam_tpu_torch.ops.resample import weighted_mean_pose
+
+    cfg = eng.config
+    mc = cfg.matcher
+    res, maxr = cfg.map.resolution, cfg.sensor.max_range
+    ll_out = math.log(1.0 / maxr)
+    f = frame_at(batches["cuda"], 3)
+    scan = deskew_scan(f.scan, f.odom)
+    center = apply_odometry(weighted_mean_pose(state.poses,
+                                               state.log_weights), f.odom)
+    volume_ms = cuda_ms(lambda: surface_volume(cfg, eng.taps, state.logodds,
+                                               scan, center), 10)
+    c_vol, kw, kc = surface_volume(cfg, eng.taps, state.logodds, scan, center)
+
+    # the pieces of the volume, to hold each mode against the CPU
+    llf = likelihood.log_likelihood_field_batch(
+        state.logodds[None], eng.taps, z_hit=mc.z_hit, max_range=maxr)[0]
+    px, py = scan_points(scan)
+    wgt = (scan.valid & scan.hit).to(torch.float32)
+    thetas = kw["theta0"] + kw["dtheta"] * torch.arange(
+        mc.surface_nt, dtype=torch.float32, device="cuda")
+    e = sf.splat_endpoint_kernels(px, py, wgt, thetas, kc, res)
+    fft_gpu = sf.scan_surface(llf, e, ll_out, fft=True)
+    fft_cpu = sf.scan_surface(llf.cpu(), e.cpu(), ll_out, fft=True)
+    fft_err, fft_mean, _ = _close(fft_gpu.cpu(), fft_cpu, 0.0, FFT_ATOL)
+    vol_err = float((c_vol - fft_gpu).abs().max())
+
+    # the direct correlation at a small shape, under PyTorch's default TF32
+    # flags: scan_surface and the splat must pin float32 themselves.  Only
+    # the beams inside the small kernel are weighted (a beam past it would
+    # clamp to the rim with bilinear weights far outside [0, 1]).
+    small_kc, small = 40, 64
+    llf_s = llf[:small, :small].contiguous()
+    wgt_s = wgt * (scan.dist < (small_kc - 2) * res).to(torch.float32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        e_s = sf.splat_endpoint_kernels(px, py, wgt_s, thetas, small_kc, res)
+        direct_gpu = sf.scan_surface(llf_s, e_s, ll_out)
+        fpad = F.pad(llf_s, (small_kc,) * 4, value=ll_out)
+        tf32_gpu = F.conv2d(fpad[None, None], e_s[:, None])[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    e_s_cpu = sf.splat_endpoint_kernels(px.cpu(), py.cpu(), wgt_s.cpu(),
+                                        thetas.cpu(), small_kc, res)
+    splat_max = float(e_s_cpu.abs().max())
+    splat_err = float((e_s.cpu() - e_s_cpu).abs().max())
+    direct_cpu = sf.scan_surface(llf_s.cpu(), e_s_cpu, ll_out)
+    fft_s = sf.scan_surface(llf_s, e_s, ll_out, fft=True)
+    d_err, _, d_ok = _close(direct_gpu.cpu(), direct_cpu, DIRECT_RTOL,
+                            DIRECT_ATOL)
+    df_err, df_mean, _ = _close(direct_gpu, fft_s, 0.0, FFT_ATOL)
+    tf32_err = float((tf32_gpu.cpu() - direct_cpu).abs().max())
+
+    # the two trilinear sample paths at 1M poses around the cloud, some
+    # past the volume's span
+    rng = np.random.default_rng(SEED + 2)
+    n = 1_000_000
+    noise = rng.uniform(-1, 1, (n, 3)) * np.array([1.0, 1.0, 0.6])
+    poses = center + torch.as_tensor(noise.astype(np.float32), device="cuda")
+    taps_kw = {k: v for k, v in kw.items() if k != "packed"}
+    s_taps = sf.sample_surface(c_vol, poses, **taps_kw)
+    s_pack = sf.sample_surface(c_vol, poses, **kw)
+    t_err, _, t_ok = _close(s_pack, s_taps, TAPS_RTOL, TAPS_ATOL)
+    taps_ms = cuda_ms(lambda: sf.sample_surface(c_vol, poses, **taps_kw), 10)
+    pack_ms = cuda_ms(lambda: sf.sample_surface(c_vol, poses, **kw), 10)
+    pack_build_ms = cuda_ms(lambda: sf.pack_neighborhoods(
+        c_vol, kw["wrap_theta"]), 10)
+
+    # the FFT at the exact, 5-smooth and power-of-two lengths of the mega
+    # (120-cell field) and city (512-cell crop) volumes
+    crop = torch.as_tensor(rng.uniform(-3.0, -1.0, (512, 512)).astype(
+        np.float32), device="cuda")
+    def fft_corr(fpad, n):
+        """scan_surface's FFT correlation at transform length n."""
+        f_hat = torch.fft.rfft2(fpad, s=(n, n))
+        e_hat = torch.fft.rfft2(e, s=(n, n))
+        return torch.fft.irfft2(f_hat[None] * torch.conj(e_hat), s=(n, n))
+
+    fft_ms = {}
+    for field in (llf, crop):
+        fpad = F.pad(field, (kc,) * 4, value=ll_out)
+        exact = fpad.shape[0]
+        for length in (exact, _smooth5(exact), 1 << (exact - 1).bit_length()):
+            fft_ms[str(length)] = cuda_ms(lambda: fft_corr(fpad, length), 5)
+    say("surface_ops", nt=mc.surface_nt, kernel=2 * kc + 1,
+        field=list(llf.shape), fft_len=sf._fft_size(llf.shape[0] + 2 * kc),
+        fft_vs_cpu_max_abs=fft_err, fft_vs_cpu_mean_abs=fft_mean,
+        volume_vs_fft_max_abs=vol_err, small_direct_kernel=2 * small_kc + 1,
+        small_field=small, splat_max_abs=splat_max,
+        splat_tf32_on_vs_cpu_max_abs=splat_err,
+        direct_tf32_on_vs_cpu_max_abs=d_err,
+        direct_vs_fft_max_abs=df_err, direct_vs_fft_mean_abs=df_mean,
+        raw_conv2d_tf32_vs_cpu_max_abs=tf32_err,
+        sample_poses=n, packed_vs_taps_max_abs=t_err,
+        volume_build_ms=volume_ms, sample_taps_ms=taps_ms,
+        sample_packed_ms=pack_ms, pack_build_ms=pack_build_ms,
+        fft_ms_by_length=fft_ms)
+    if not (fft_err <= FFT_ATOL and fft_mean < FFT_MEAN):
+        raise AssertionError(f"FFT volume card vs CPU: max {fft_err}, "
+                             f"mean {fft_mean}")
+    if not vol_err <= 1e-4:
+        raise AssertionError(f"surface_volume differs from its pieces by "
+                             f"{vol_err}")
+    # float32 sums in another order stay within a few ulps of the largest
+    # splat cell; TF32 (10-bit mantissa) would miss by ~1e-3 of it
+    if not (d_ok and splat_err <= SPLAT_RTOL * splat_max):
+        raise AssertionError(f"direct correlation not float32 with TF32 "
+                             f"flags on: {d_err} (splat {splat_err})")
+    if not (df_err <= FFT_ATOL and df_mean < FFT_MEAN):
+        raise AssertionError(f"direct vs FFT on the card: max {df_err}, "
+                             f"mean {df_mean}")
+    if not t_ok:
+        raise AssertionError(f"packed vs 8-tap sample: max {t_err}")
+
+
+def surface_agree_phase(eng, batches, state):
+    """One surface step on the card against the same step on the CPU, from
+    the same state and draws."""
+    from gridmap_slam_tpu_torch import SharedMapSLAM, SharedMapState
+    from gridmap_slam_tpu_torch.io import frame_at
+
+    cfg = eng.config
+    p = cfg.num_particles
+    engines = {"cuda": eng, "cpu": SharedMapSLAM(cfg, device="cpu")}
+    rng = np.random.default_rng(SEED)
+    normals = rng.standard_normal((p, 2)).astype(np.float32)
+    u0 = np.float32(rng.uniform(0, 1 / p))
+    out = {}
+    for d, e in engines.items():
+        st = SharedMapState(poses=state.poses.to(d),
+                            log_weights=state.log_weights.to(d),
+                            logodds=state.logodds.to(d), step=state.step.to(d),
+                            recov=state.recov.to(d))
+        draws = (torch.as_tensor(normals, device=d),
+                 torch.as_tensor(u0, device=d), None)
+        out[d] = e.step_surface(st, frame_at(batches[d], 3), draws=draws)
+    (sc, ic), (sp, ip) = out["cuda"], out["cpu"]
+    dpose = (sc.poses.cpu() - sp.poses).abs().amax(1)
+    pose_frac = float((dpose <= 1e-4).float().mean())
+    map_frac = float(((sc.logodds.cpu() - sp.logodds).abs()
+                      > K2_ATOL).float().mean())
+    say("surface_agree", particles=p, poses_within_1e4=pose_frac,
+        map_cells_beyond_atol=map_frac, neff_cuda=float(ic.neff),
+        neff_cpu=float(ip.neff), resampled=[bool(ic.resampled),
+                                            bool(ip.resampled)])
+    if not (pose_frac >= 0.9 and map_frac <= 0.05):
+        raise AssertionError("card and CPU surface steps disagree")
+
+
+def surface_path(preset, cfg, frames, gt, ate_max):
+    """Drive SharedMapSLAM(cfg, device="cuda").run_log over `frames` with
+    every launch count set to 0 just before; returns the counts."""
+    from gridmap_slam_tpu_torch import SharedMapSLAM
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
+
+    kernels = _kernel_modules()
+    eng = SharedMapSLAM(cfg, device="cuda")
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
+                             device="cuda")
+    seq = [frame_at(batch, i) for i in range(len(frames))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.launches = 0
+    state, infos = eng.run_log(
+        eng.init(), seq, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    traj = torch.stack([i.weighted_pose for i in infos]).cpu().numpy()
+    finite = bool(torch.isfinite(state.poses).all()
+                  and torch.isfinite(state.log_weights).all()
+                  and torch.isfinite(state.logodds).all()
+                  and np.isfinite(traj).all())
+    ate = ate_rmse(traj, gt[:len(frames)])
+    occ = int((state.logodds > 0).sum())
+    free = int((state.logodds < 0).sum())
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    again, _ = eng.run_log(eng.init(), seq,
+                           torch.Generator(device="cuda").manual_seed(SEED))
+    end.record()
+    torch.cuda.synchronize()
+    sec = start.elapsed_time(end) / 1e3
+    # the same seed again: is a run on the card bit-reproducible?
+    rerun_identical = bool(torch.equal(again.poses, state.poses)
+                           and torch.equal(again.logodds, state.logodds))
+    say("surface", preset=preset, particles=cfg.num_particles,
+        map=[cfg.map.cells_y, cfg.map.cells_x],
+        crop=cfg.matcher.surface_crop_cells, scans=len(seq),
+        launches=launches, ate_m=ate, ate_max_m=ate_max,
+        final_neff=float(infos[-1].neff),
+        resamples=int(sum(bool(i.resampled) for i in infos)),
+        map_occupied=occ, map_free=free, finite=finite,
+        rerun_identical=rerun_identical, peak_mem_bytes=peak,
+        warm_seconds=sec, scans_per_sec=len(seq) / sec)
+    if not finite:
+        raise AssertionError(f"{preset}: non-finite poses, weights or map")
+    if not (launches["log_likelihood_field"] > 0
+            and launches["integrate_scan"] > 0):
+        raise AssertionError(f"{preset}: K3 or K2 was not launched: "
+                             f"{launches}")
+    if not ate < ate_max:
+        raise AssertionError(f"{preset} ATE {ate} >= {ate_max}")
+    if not (occ > 50 and free > 1000):
+        raise AssertionError(f"{preset}: map too empty: {occ} occupied, "
+                             f"{free} free")
+    return launches
+
+
+def mega_phase(frames, gt):
+    from gridmap_slam_tpu_torch import mega_config
+    from gridmap_slam_tpu_torch.io import read_recording
+
+    launches = surface_path("mega", mega_config(), frames, gt, ATE_MAX_M)
+    surface_path("mega room_loop_40", mega_config(),
+                 read_recording("maps/room_loop_40.rec"),
+                 np.load("maps/room_loop_40_gt.npy"), ROOM_LOOP_ATE_MAX_M)
+    return launches
+
+
 def main() -> int:
     name = device_phase()
     build_phase()
@@ -358,12 +700,24 @@ def main() -> int:
     frames, gt = parity_log()
     rows = kernel_phase(cfg, frames)
     agree_phase(frames)
-    launches = main_phase(cfg, frames, gt)
+    by_path = {"parity": main_phase(cfg, frames, gt)}
+    k3_radii_phase(cfg)
+    eng, batches, state = surface_setup(frames)
+    surface_ops_phase(eng, batches, state)
+    surface_agree_phase(eng, batches, state)
+    del eng, batches, state
+    from gridmap_slam_tpu_torch import city_config
+    by_path["mega"] = mega_phase(frames, gt)
+    by_path["city"] = surface_path("city", city_config(), frames, gt,
+                                   ATE_MAX_M)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {k: v[row["name"]]
+                                   for k, v in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
-                             "launches", "max_abs_err", "ms", "plain_ms")}
+                             "launches", "launches_by_path", "max_abs_err",
+                             "ms", "plain_ms")}
         for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

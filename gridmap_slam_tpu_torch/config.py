@@ -366,3 +366,27 @@ def pr1_config() -> SlamConfig:
 def chip_config(num_particles: int = 10_000) -> SlamConfig:
     """Config 2: 10k particles vmapped on one chip."""
     return SlamConfig(num_particles=num_particles, particle_chunk=512)
+
+
+# Surface-mode presets of the port (bench.py --preset mega / city), not in
+# the JAX package's config.py.
+def mega_config() -> SlamConfig:
+    """1M particles in surface mode on the reference 6 x 6 m map at 5 cm
+    (120 x 120), 192 beam slots, no hill-climb refinement."""
+    return SlamConfig(
+        num_particles=1_000_000, max_beams=192, particle_chunk=0,
+        map=MapConfig(width_m=6.0, height_m=6.0, resolution=0.05,
+                      origin=(-3.0, -3.0)),
+    ).with_overrides({"matcher.surface_refine_steps": 0})
+
+
+def city_config() -> SlamConfig:
+    """Config 3: 1M particles in surface mode on a 200 x 200 m map at 5 cm
+    (4000 x 4000, 64 MB), the volume over a 512-cell crop around the
+    cloud."""
+    return SlamConfig(
+        num_particles=1_000_000, max_beams=192, particle_chunk=0,
+        map=MapConfig(width_m=200.0, height_m=200.0, resolution=0.05,
+                      origin=(-100.0, -100.0)),
+    ).with_overrides({"matcher.surface_refine_steps": 0,
+                      "matcher.surface_crop_cells": 512})

@@ -1,7 +1,8 @@
 """Carry configurations and filter state over from the JAX package.
 
-Both functions take plain Python and numpy values, so this module needs no
-jax: a caller converts a JAX `SlamState` with `np.asarray` on each field.
+Every function takes plain Python and numpy values, so this module needs no
+jax: a caller converts a JAX `SlamState` or `SharedMapState` with
+`np.asarray` on each field.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from .config import (MapConfig, MatcherConfig, MotionConfig, RobotConfig,
                      SensorConfig, SlamConfig)
+from .models.shared import SharedMapState
 from .types import SlamState
 
 _SECTIONS = {"robot": RobotConfig, "sensor": SensorConfig,
@@ -29,13 +31,28 @@ def config_from_jax(cfg) -> SlamConfig:
     return SlamConfig(**d)
 
 
+def _f32(a, device):
+    return torch.as_tensor(np.array(a, np.float32), device=device)
+
+
+def _i32(a, device):
+    return torch.as_tensor(np.array(a, np.int32), device=device)
+
+
 def state_from_jax_arrays(poses, log_weights, logodds, step,
                           device="cpu") -> SlamState:
     """The port's SlamState from the numpy arrays of a JAX SlamState (its
     PRNG key has no counterpart here)."""
-    def f32(a):
-        return torch.as_tensor(np.array(a, np.float32), device=device)
-    return SlamState(poses=f32(poses), log_weights=f32(log_weights),
-                     logodds=f32(logodds),
-                     step=torch.as_tensor(np.array(step, np.int32),
-                                          device=device))
+    return SlamState(poses=_f32(poses, device),
+                     log_weights=_f32(log_weights, device),
+                     logodds=_f32(logodds, device), step=_i32(step, device))
+
+
+def shared_state_from_jax_arrays(poses, log_weights, logodds, step, recov,
+                                 device="cpu") -> SharedMapState:
+    """The port's SharedMapState from the numpy arrays of a JAX
+    SharedMapState (its PRNG key has no counterpart here)."""
+    return SharedMapState(poses=_f32(poses, device),
+                          log_weights=_f32(log_weights, device),
+                          logodds=_f32(logodds, device),
+                          step=_i32(step, device), recov=_f32(recov, device))

@@ -10,13 +10,19 @@
 //
 // Bound on the H100: device memory.  The map is read once and the field
 // written once (8 bytes a cell); the two blurs are 4 * (2r + 1) flops a
-// cell.  Design: one block per (particle, 32-row tile, 32-column tile).
-// The block stages the tile plus its r-cell halo, thresholded, in shared
-// memory, runs the horizontal pass over the halo rows into shared memory,
-// then the vertical pass and the log epilogue straight to the output.  The
-// column tiling keeps shared memory at 29 KB for any map width (the TPU
-// kernel needed H % 8 == 0 and W % 128 == 0; this one takes any H x W).
-// Taps are summed in tap order with no atomics, so runs are bit-stable.
+// cell.  Design: one block per (particle, tile row, tile column) of a
+// T x T output tile.  The block stages the tile plus its r-cell halo in
+// shared memory as one byte a cell (0, 1, 2 for p = 0, 1/2, 1 and 3 for
+// a cell outside the map), runs the horizontal pass over the halo rows
+// into shared memory, then the vertical pass and the log epilogue straight
+// to the output.  Shared memory is sized from the radius at launch, as
+// dynamic shared memory (opted in above 48 KB): T is the largest of 32,
+// 16, ..., 1 whose (T + 2r)^2 bytes of codes and 2 (T + 2r) T floats of
+// the horizontal pass fit the card's per-block limit, so any radius up to
+// about 238 cells (227 KB at T = 1) runs.  The column tiling keeps shared
+// memory independent of the map width (the TPU kernel needed H % 8 == 0
+// and W % 128 == 0; this one takes any H x W).  Taps are summed in tap
+// order with no atomics, so runs are bit-stable.
 
 #include <cuda_runtime.h>
 
@@ -24,73 +30,102 @@
 
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kMaxRadius = 7;
-constexpr int kSpan = kTile + 2 * kMaxRadius;
+constexpr int kMaxTile = 32;
 constexpr int kThreads = 256;
+constexpr int kDefaultSmem = 48 * 1024;
+
+// Bytes of dynamic shared memory for a tile x tile output tile: taps, the
+// two horizontal-pass planes, then the staged codes.
+size_t smem_bytes(int tile, int radius) {
+  const size_t span = tile + 2 * static_cast<size_t>(radius);
+  const size_t taps = 2 * static_cast<size_t>(radius) + 1;
+  return (taps + 2 * span * tile) * sizeof(float) + span * span;
+}
 
 __global__ void __launch_bounds__(kThreads)
 ll_field_kernel(const float* __restrict__ lo, float* __restrict__ out,
-                const float* __restrict__ taps, int radius, int H, int W,
-                float z_hit, float c_rand, float v_eq) {
-  __shared__ float s_p[kSpan][kSpan];   // thresholded map, tile + halo
-  __shared__ float s_e[kSpan][kSpan];   // evidence indicator
-  __shared__ float h_p[kSpan][kTile];   // horizontal pass of s_p
-  __shared__ float h_e[kSpan][kTile];
-  __shared__ float s_taps[2 * kMaxRadius + 1];
+                const float* __restrict__ taps, int radius, int tile, int H,
+                int W, float z_hit, float c_rand, float v_eq) {
+  extern __shared__ float smem[];
+  const int n_taps = 2 * radius + 1;
+  const int span = tile + 2 * radius;
+  float* s_taps = smem;                              // (n_taps,)
+  float* h_p = s_taps + n_taps;                      // (span, tile)
+  float* h_e = h_p + span * tile;                    // (span, tile)
+  unsigned char* s_code =                            // (span, span)
+      reinterpret_cast<unsigned char*>(h_e + span * tile);
 
   const int p = blockIdx.x;
-  const int y0 = blockIdx.y * kTile;
-  const int x0 = blockIdx.z * kTile;
-  const int n_taps = 2 * radius + 1;
-  const int span = kTile + 2 * radius;
+  const int y0 = blockIdx.y * tile;
+  const int x0 = blockIdx.z * tile;
   const float* map = lo + static_cast<size_t>(p) * H * W;
   float* dst = out + static_cast<size_t>(p) * H * W;
 
-  if (threadIdx.x < n_taps) s_taps[threadIdx.x] = taps[threadIdx.x];
-  // Cells outside the map read 0 in both images: the zero boundary of
-  // ops/grid.blur_separable, for both passes.
+  for (int k = threadIdx.x; k < n_taps; k += blockDim.x) s_taps[k] = taps[k];
+  // Cells outside the map (code 3) read p = 0 with no evidence: the zero
+  // boundary of ops/grid.blur_separable, for both passes.
   for (int i = threadIdx.x; i < span * span; i += blockDim.x) {
     const int ry = i / span, rx = i % span;
     const int y = y0 - radius + ry, x = x0 - radius + rx;
-    float pv = 0.f, ev = 0.f;
+    unsigned char c = 3;
     if (y >= 0 && y < H && x >= 0 && x < W) {
       const float l = map[static_cast<size_t>(y) * W + x];
-      pv = l > 0.f ? 1.f : (l < 0.f ? 0.f : 0.5f);
-      ev = fabsf(pv - 0.5f) > 0.25f ? 1.f : 0.f;
+      c = l > 0.f ? 2 : (l < 0.f ? 0 : 1);
     }
-    s_p[ry][rx] = pv;
-    s_e[ry][rx] = ev;
+    s_code[i] = c;
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < span * kTile; i += blockDim.x) {
-    const int ry = i / kTile, cx = i % kTile;
+  for (int i = threadIdx.x; i < span * tile; i += blockDim.x) {
+    const int ry = i / tile, cx = i % tile;
+    const unsigned char* row = s_code + ry * span + cx;
     float ap = 0.f, ae = 0.f;
     for (int k = 0; k < n_taps; ++k) {
-      ap += s_taps[k] * s_p[ry][cx + k];
-      ae += s_taps[k] * s_e[ry][cx + k];
+      const int c = row[k];
+      ap += s_taps[k] * (c < 3 ? 0.5f * static_cast<float>(c) : 0.f);
+      ae += s_taps[k] * ((c & 1) == 0 ? 1.f : 0.f);   // evidence: p != 1/2
     }
-    h_p[ry][cx] = ap;
-    h_e[ry][cx] = ae;
+    h_p[i] = ap;
+    h_e[i] = ae;
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
-    const int cy = i / kTile, cx = i % kTile;
+  for (int i = threadIdx.x; i < tile * tile; i += blockDim.x) {
+    const int cy = i / tile, cx = i % tile;
     const int y = y0 + cy, x = x0 + cx;
     if (y >= H || x >= W) continue;
     float f = 0.f, e = 0.f;
     for (int k = 0; k < n_taps; ++k) {
-      f += s_taps[k] * h_p[cy + k][cx];
-      e += s_taps[k] * h_e[cy + k][cx];
+      f += s_taps[k] * h_p[(cy + k) * tile + cx];
+      e += s_taps[k] * h_e[(cy + k) * tile + cx];
     }
     const float v = e <= 0.f ? v_eq : f;
     dst[static_cast<size_t>(y) * W + x] = logf(z_hit * v + c_rand);
   }
 }
 
+int max_smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess) {
+    return kDefaultSmem;
+  }
+  return bytes;
+}
+
 }  // namespace
+
+// Output tile edge K3 uses at this blur radius on the current device: the
+// largest power of two <= 32 whose staged window fits; 0 if none does.
+extern "C" int gs_ll_field_tile(int radius) {
+  if (radius < 0) return 0;
+  const size_t limit = static_cast<size_t>(max_smem_optin());
+  for (int tile = kMaxTile; tile >= 1; tile /= 2) {
+    if (smem_bytes(tile, radius) <= limit) return tile;
+  }
+  return 0;
+}
 
 // lo, out: (P, H, W) float32; taps: (2 * radius + 1,) float32 on the card.
 // c_rand = (1 - z_hit) / max_range; v_eq = the effective field value of an
@@ -98,10 +133,18 @@ ll_field_kernel(const float* __restrict__ lo, float* __restrict__ out,
 extern "C" int gs_ll_field(const float* lo, float* out, const float* taps,
                            int radius, int P, int H, int W, float z_hit,
                            float c_rand, float v_eq, void* stream) {
-  if (radius < 0 || radius > kMaxRadius) return cudaErrorInvalidValue;
+  const int tile = gs_ll_field_tile(radius);
+  if (tile == 0) return cudaErrorInvalidValue;
   if (P == 0 || H == 0 || W == 0) return cudaSuccess;
-  const dim3 grid(P, (H + kTile - 1) / kTile, (W + kTile - 1) / kTile);
-  ll_field_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      lo, out, taps, radius, H, W, z_hit, c_rand, v_eq);
+  const size_t smem = smem_bytes(tile, radius);
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ll_field_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(P, (H + tile - 1) / tile, (W + tile - 1) / tile);
+  ll_field_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      lo, out, taps, radius, tile, H, W, z_hit, c_rand, v_eq);
   return static_cast<int>(cudaGetLastError());
 }

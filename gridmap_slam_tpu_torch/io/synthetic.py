@@ -13,8 +13,8 @@ Output is a list of `RecordedFrame` (writable into the reference on-disk
 format via io.recording.write_recording) plus the ground-truth trajectory for
 ATE evaluation.
 
-A copy of gridmap_slam_tpu/io/synthetic.py without `multi_room_world`;
-tests/test_torch_config_io.py holds the two generators equal.
+A copy of gridmap_slam_tpu/io/synthetic.py; tests/test_torch_config_io.py
+holds the two generators and worlds equal.
 """
 
 from __future__ import annotations
@@ -62,6 +62,29 @@ def default_world() -> np.ndarray:
     segs += box(0.8, 0.6, 1.6, 1.2)
     segs += box(-1.8, -1.5, -1.2, -0.8)
     segs += [(-0.5, 2.5, -0.5, 1.2)]          # a wall stub / doorway
+    return np.asarray(segs, np.float64)
+
+
+def multi_room_world(rooms_x: int = 3, rooms_y: int = 3,
+                     room: float = 6.0, door: float = 1.0) -> np.ndarray:
+    """Grid of connected rooms (BASELINE config 3's "multi-room synthetic
+    world"), centered at the origin."""
+    segs = []
+    w, h = rooms_x * room, rooms_y * room
+    x0, y0 = -w / 2, -h / 2
+    segs += box(x0, y0, x0 + w, y0 + h)
+    for i in range(1, rooms_x):
+        x = x0 + i * room
+        for j in range(rooms_y):
+            lo, hi = y0 + j * room, y0 + (j + 1) * room
+            mid = (lo + hi) / 2
+            segs += [(x, lo, x, mid - door / 2), (x, mid + door / 2, x, hi)]
+    for j in range(1, rooms_y):
+        y = y0 + j * room
+        for i in range(rooms_x):
+            lo, hi = x0 + i * room, x0 + (i + 1) * room
+            mid = (lo + hi) / 2
+            segs += [(lo, y, mid - door / 2, y), (mid + door / 2, y, hi, y)]
     return np.asarray(segs, np.float64)
 
 

@@ -1,5 +1,6 @@
 """SLAM engines."""
 
 from .rbpf import RBPF
+from .shared import SharedMapSLAM, SharedMapState
 
-__all__ = ["RBPF"]
+__all__ = ["RBPF", "SharedMapSLAM", "SharedMapState"]

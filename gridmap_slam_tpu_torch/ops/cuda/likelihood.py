@@ -28,7 +28,9 @@ def log_likelihood_field_batch_plain(logodds, taps, *, z_hit: float,
 def log_likelihood_field_batch_cuda(logodds, taps, *, z_hit: float,
                                     max_range: float):
     """The kernel.  logodds: (P, H, W) float32 on the card; taps: (2r+1,)
-    float32 on the same card, r <= 7.  Returns (P, H, W)."""
+    float32 on the same card, any radius r whose window fits one block's
+    shared memory (`tile(r)` > 0: r <= 238 on an H100).  Returns
+    (P, H, W)."""
     global launches
     fn = "log_likelihood_field_batch_cuda"
     if logodds.dim() != 3:
@@ -39,9 +41,11 @@ def log_likelihood_field_batch_cuda(logodds, taps, *, z_hit: float,
     n_taps = taps.shape[0] if taps.dim() == 1 else -1
     check_tensor(fn, "taps", taps, (n_taps,), dev)
     radius = (n_taps - 1) // 2
-    if n_taps % 2 != 1 or radius > 7:
-        raise ValueError(f"{fn}: need an odd tap count of at most 15, got "
-                         f"{n_taps}")
+    if n_taps % 2 != 1:
+        raise ValueError(f"{fn}: need an odd tap count, got {n_taps}")
+    if tile(radius) == 0:
+        raise ValueError(f"{fn}: a blur radius of {radius} cells does not "
+                         f"fit one block's shared memory on {dev}")
     p, h, w = logodds.shape
     uniform = 1.0 / max_range
     c_rand = (1.0 - z_hit) * uniform
@@ -54,6 +58,12 @@ def log_likelihood_field_batch_cuda(logodds, taps, *, z_hit: float,
     launches += 1
     _build.check("gs_ll_field", code)
     return out
+
+
+def tile(radius: int) -> int:
+    """Edge of the square output tile the kernel uses at this blur radius
+    on the current card (0 if the radius does not fit)."""
+    return _build.library().gs_ll_field_tile(radius)
 
 
 def log_likelihood_field_batch(logodds, taps, *, z_hit: float,

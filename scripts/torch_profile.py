@@ -1,15 +1,22 @@
-"""Where the time of the PyTorch port's parity step goes, on one NVIDIA GPU.
+"""Where the time of one of the PyTorch port's presets goes, on one NVIDIA GPU.
 
-Runs the parity preset (500 particles, 120 x 120 maps, particle_chunk 250,
-180 beams in 192 slots, the 12-scan synthetic square-path log of bench.py,
-seed 0) through gridmap_slam_tpu_torch's RBPF once to warm up, then once
-under torch.profiler.  Prints one JSON line: wall time of the run (host
-clock, ending in a synchronize), the summed device time of all kernels and
-its share of the wall time, the device events per scan, and the
-top operations by device time.  With --trace PATH the Chrome trace of the
-profiled run is written there.
+Runs a preset over the 12-scan synthetic square-path log of bench.py
+(seed 0) once to warm up, then once under torch.profiler:
 
-Usage: python scripts/torch_profile_parity.py [--trace PATH]   (needs a GPU)
+- parity: RBPF, 500 particles, 120 x 120 maps, particle_chunk 250;
+- mega:   SharedMapSLAM.step_surface, 1M particles, one 120 x 120 map;
+- city:   SharedMapSLAM.step_surface, 1M particles, one 4000 x 4000 map,
+          the volume over a 512-cell crop.
+
+Prints one JSON line: wall time of the run (host clock, ending in a
+synchronize), the summed device time of all kernels and its share of the
+wall time, the device events per scan, the host waits on the device per
+scan (CUDA runtime synchronize calls, the run's closing one left out), and
+the top operations by device time.  With --trace PATH the Chrome trace of
+the profiled run is written there.
+
+Usage: python scripts/torch_profile.py [--preset parity|mega|city]
+                                       [--trace PATH]      (needs a GPU)
 """
 
 import argparse
@@ -26,8 +33,12 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from chip_smoke import parity_config, parity_log  # noqa: E402
-from gridmap_slam_tpu_torch import RBPF  # noqa: E402
+from gridmap_slam_tpu_torch import (RBPF, SharedMapSLAM,  # noqa: E402
+                                    city_config, mega_config)
 from gridmap_slam_tpu_torch.io import frame_at, frames_to_device  # noqa: E402
+
+PRESETS = {"parity": (parity_config, RBPF), "mega": (mega_config, SharedMapSLAM),
+           "city": (city_config, SharedMapSLAM)}
 
 
 def _device_us(evt) -> float:
@@ -39,6 +50,7 @@ def _device_us(evt) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", choices=sorted(PRESETS), default="parity")
     ap.add_argument("--trace", type=Path, default=None,
                     help="write the profiled run's Chrome trace here")
     args = ap.parse_args()
@@ -47,9 +59,10 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
-    cfg = parity_config()
+    make_config, engine = PRESETS[args.preset]
+    cfg = make_config()
     frames, _ = parity_log()
-    eng = RBPF(cfg, device="cuda")
+    eng = engine(cfg, device="cuda")
     batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
                              device="cuda")
     seq = [frame_at(batch, i) for i in range(len(frames))]
@@ -72,8 +85,12 @@ def main() -> None:
         args.trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(args.trace))
 
-    kernels = [e for e in prof.events()
+    events = prof.events()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    syncs = sum(1 for e in events if e.name in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize")) - 1
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     avg = sorted(prof.key_averages(), key=_device_us, reverse=True)
     top = [{"name": e.key[:90], "count": e.count,
@@ -81,11 +98,14 @@ def main() -> None:
            if _device_us(e) > 0]
     n = len(seq)
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "scans": n,
+        "device": torch.cuda.get_device_name(0), "preset": args.preset,
+        "particles": cfg.num_particles, "scans": n,
         "wall_s_unprofiled": wall_plain, "scans_per_sec": n / wall_plain,
         "wall_s_profiled": wall, "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / wall,
         "device_events_per_scan": len(kernels) / n,
+        "host_syncs_per_scan": syncs / n,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "top_by_device_time": top}))
 
 

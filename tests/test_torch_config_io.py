@@ -20,6 +20,7 @@ import gridmap_slam_tpu_torch.config as tcfg
 from gridmap_slam_tpu.io import frames_to_device as j_frames_to_device
 from gridmap_slam_tpu.io.recording import read_recording as j_read_recording
 from gridmap_slam_tpu.io.synthetic import (default_world as j_world,
+                                           multi_room_world as j_multi_room,
                                            simulate_log as j_simulate,
                                            square_path_controls as j_square)
 from gridmap_slam_tpu.types import Scan as JScan
@@ -27,7 +28,9 @@ from gridmap_slam_tpu.utils import metrics as jmetrics
 from gridmap_slam_tpu_torch.convert import config_from_jax
 from gridmap_slam_tpu_torch.io import frame_at, frames_to_device, read_recording
 from gridmap_slam_tpu_torch.io.recording import write_recording
-from gridmap_slam_tpu_torch.io.synthetic import (default_world, simulate_log,
+from gridmap_slam_tpu_torch.io.synthetic import (default_world,
+                                                 multi_room_world,
+                                                 simulate_log,
                                                  square_path_controls)
 from gridmap_slam_tpu_torch.types import Scan
 from gridmap_slam_tpu_torch.utils import metrics as tmetrics
@@ -73,6 +76,31 @@ def test_simulate_log_copy_matches():
         np.testing.assert_array_equal(a.angle, b.angle)
         np.testing.assert_array_equal(a.dist, b.dist)
         np.testing.assert_array_equal(a.hit, b.hit)
+
+
+@pytest.mark.parametrize("rooms", [(2, 1, 6.0, 1.0), (3, 3, 6.0, 1.0),
+                                   (4, 2, 5.0, 0.8)])
+def test_multi_room_world_copy_matches(rooms):
+    np.testing.assert_array_equal(j_multi_room(*rooms),
+                                  multi_room_world(*rooms))
+    jf, jgt = j_simulate(j_multi_room(*rooms), j_square(2), seed=3)
+    tf, tgt = simulate_log(multi_room_world(*rooms), square_path_controls(2),
+                           seed=3)
+    np.testing.assert_array_equal(jgt, tgt)
+    for a, b in zip(jf, tf):
+        np.testing.assert_array_equal(a.dist, b.dist)
+
+
+@pytest.mark.parametrize("preset", ["mega", "city"])
+def test_surface_presets_match_bench(preset):
+    """mega_config / city_config carry the values bench.py --preset mega /
+    city gives the JAX engine (bench.py:124-128, :626-640)."""
+    import bench
+    size, crop = {"mega": (6.0, 0), "city": (200.0, 512)}[preset]
+    refine = 0 if preset == "mega" else -1     # city keeps the default
+    jcfg, _, _ = bench.make_engine(1_000_000, 0, size, "surface", crop=crop,
+                                   refine_steps=refine)
+    assert config_from_jax(jcfg) == getattr(tcfg, f"{preset}_config")()
 
 
 def test_read_recording_matches_python_parser(tmp_path):
@@ -128,6 +156,8 @@ def test_metrics_copy_matches():
 
 def test_port_imports_without_jax():
     code = ("import gridmap_slam_tpu_torch, gridmap_slam_tpu_torch.models.rbpf,"
+            " gridmap_slam_tpu_torch.models.shared,"
+            " gridmap_slam_tpu_torch.ops.surface,"
             " gridmap_slam_tpu_torch.ops.cuda.matcher,"
             " gridmap_slam_tpu_torch.ops.cuda.likelihood,"
             " gridmap_slam_tpu_torch.ops.cuda.grid_update,"
