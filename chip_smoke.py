@@ -16,7 +16,8 @@ Phases, each printed on its own line:
    square-path log, seed 0) through RBPF(cfg, device="cuda").run_log,
    with every kernel's launch count, the ATE and the scans/s of a warm run;
 6. k3 radii — K3 against its plain version at blur radius 3, 12 and 30
-   (sigma 1, 4 and 10 cells), 500 maps of 120 x 120;
+   (sigma 1, 4 and 10 cells), 60 (above the 48 KB shared-memory opt-in)
+   and 180 (the tile shrunk to 16), 500 maps of 120 x 120;
 7. surface ops — at the mega shapes (25 theta bins, a 405 x 405 endpoint
    kernel, a 120 x 120 field): the FFT correlation on the card against the
    same call on the CPU; the direct (conv2d) correlation with PyTorch's
@@ -28,9 +29,13 @@ Phases, each printed on its own line:
    on the CPU, from the same state and draws, at 4096 particles;
 9. mega   — SharedMapSLAM(mega_config(), device="cuda").run_log: 1M
    particles on the 120 x 120 map over the 12-scan log, then over the 40
-   scans of maps/room_loop_40.rec;
+   scans of maps/room_loop_40.rec; a second run with the same seed must
+   give bit-identical poses and map;
 10. city  — the same with city_config(): 1M particles on the 4000 x 4000
-   map, the volume over a 512-cell crop.
+   map, the volume over a 512-cell crop;
+11. city kernels — K3 and K2 against their plain versions on the arguments
+   one city step passes them: K3 on the (1, 518, 518) crop plus blur
+   radius, K2 on the 412 x 412 integration crop with its shifted origin.
 
 Each path (parity, mega, city) is run with every launch count set to 0
 just before it and read just after.  Then one JSON line of kernels, with
@@ -64,7 +69,7 @@ FFT_ATOL, FFT_MEAN = 5e-2, 5e-3    # tests/test_surface.py:223-224
 DIRECT_RTOL, DIRECT_ATOL = 1e-5, 1e-3
 TAPS_RTOL, TAPS_ATOL = 1e-6, 1e-5  # tests/test_surface.py:248-249
 SPLAT_RTOL = 1e-5                  # of the largest endpoint-image cell
-K3_RADII_SIGMAS = (1.0, 4.0, 10.0)
+K3_RADII_SIGMAS = (1.0, 4.0, 10.0, 20.0, 60.0)
 AGREE_PARTICLES = 4096
 
 
@@ -392,7 +397,9 @@ def _test_maps(p, h, w, rng):
 
 def k3_radii_phase(cfg):
     """K3 against its plain version at the blur radii of surface-mode
-    relocalization (config.py: sigma 0.2-0.5 m is 4-10 cells at 5 cm)."""
+    relocalization (config.py: sigma 0.2-0.5 m is 4-10 cells at 5 cm), and
+    at radius 60 and 180, where the kernel opts in to more than 48 KB of
+    shared memory and then shrinks its tile."""
     from gridmap_slam_tpu_torch.ops.cuda import likelihood
     from gridmap_slam_tpu_torch.ops.grid import gaussian_kernel
 
@@ -618,7 +625,8 @@ def surface_agree_phase(eng, batches, state):
 
 def surface_path(preset, cfg, frames, gt, ate_max):
     """Drive SharedMapSLAM(cfg, device="cuda").run_log over `frames` with
-    every launch count set to 0 just before; returns the counts."""
+    every launch count set to 0 just before, then again with the same seed;
+    returns (the counts, the engine, the first run's state, the frames)."""
     from gridmap_slam_tpu_torch import SharedMapSLAM
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
     from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
@@ -656,7 +664,7 @@ def surface_path(preset, cfg, frames, gt, ate_max):
     end.record()
     torch.cuda.synchronize()
     sec = start.elapsed_time(end) / 1e3
-    # the same seed again: is a run on the card bit-reproducible?
+    # the same seed again must give the same bits
     rerun_identical = bool(torch.equal(again.poses, state.poses)
                            and torch.equal(again.logodds, state.logodds))
     say("surface", preset=preset, particles=cfg.num_particles,
@@ -670,6 +678,9 @@ def surface_path(preset, cfg, frames, gt, ate_max):
         warm_seconds=sec, scans_per_sec=len(seq) / sec)
     if not finite:
         raise AssertionError(f"{preset}: non-finite poses, weights or map")
+    if not rerun_identical:
+        raise AssertionError(f"{preset}: a second run with seed {SEED} "
+                             f"gave other poses or another map")
     if not (launches["log_likelihood_field"] > 0
             and launches["integrate_scan"] > 0):
         raise AssertionError(f"{preset}: K3 or K2 was not launched: "
@@ -679,18 +690,88 @@ def surface_path(preset, cfg, frames, gt, ate_max):
     if not (occ > 50 and free > 1000):
         raise AssertionError(f"{preset}: map too empty: {occ} occupied, "
                              f"{free} free")
-    return launches
+    return launches, eng, state, seq
 
 
 def mega_phase(frames, gt):
     from gridmap_slam_tpu_torch import mega_config
     from gridmap_slam_tpu_torch.io import read_recording
 
-    launches = surface_path("mega", mega_config(), frames, gt, ATE_MAX_M)
+    launches = surface_path("mega", mega_config(), frames, gt, ATE_MAX_M)[0]
     surface_path("mega room_loop_40", mega_config(),
                  read_recording("maps/room_loop_40.rec"),
                  np.load("maps/room_loop_40_gt.npy"), ROOM_LOOP_ATE_MAX_M)
     return launches
+
+
+def city_kernels_phase(eng, state, frame):
+    """K3 and K2 against their plain versions on the very arguments one
+    city step passes them (recorded by wrapping the two calls of
+    models/shared.py): K3 on the volume crop plus blur radius, K2 on the
+    integration crop at its shifted origin."""
+    from gridmap_slam_tpu_torch.models import shared
+    from gridmap_slam_tpu_torch.ops.cuda import grid_update, likelihood
+
+    cfg = eng.config
+    seen = {}
+
+    def record(name, fn):
+        def call(*args, **kw):
+            seen[name] = (args, kw)
+            return fn(*args, **kw)
+        return call
+
+    real = (shared.log_likelihood_field_batch, shared.integrate_scan_batch)
+    shared.log_likelihood_field_batch = record("K3", real[0])
+    shared.integrate_scan_batch = record("K2", real[1])
+    try:
+        eng.step_surface(state, frame,
+                         torch.Generator(device="cuda").manual_seed(SEED))
+    finally:
+        shared.log_likelihood_field_batch, shared.integrate_scan_batch = real
+
+    args, kw = seen["K3"]
+    got = likelihood.log_likelihood_field_batch_cuda(*args, **kw)
+    want = likelihood.log_likelihood_field_batch_plain(*args, **kw)
+    err3 = float((got - want).abs().max())
+    ms3 = cuda_ms(lambda: likelihood.log_likelihood_field_batch_cuda(
+        *args, **kw), 50)
+    plain3 = cuda_ms(lambda: likelihood.log_likelihood_field_batch_plain(
+        *args, **kw), 20)
+    shape3 = list(args[0].shape)
+    unknown3 = float((args[0] == 0).float().mean())
+
+    args, kw = seen["K2"]
+    got = grid_update.integrate_scan_batch_cuda(*args, **kw)
+    want = grid_update.integrate_scan_batch_plain(*args, **kw)
+    diff = (got - want).abs()
+    frac2 = float((diff > K2_ATOL).float().mean())
+    changed = float((want != args[0]).float().mean())
+    ms2 = cuda_ms(lambda: grid_update.integrate_scan_batch_cuda(
+        *args, **kw), 50)
+    plain2 = cuda_ms(lambda: grid_update.integrate_scan_batch_plain(
+        *args, **kw), 20)
+    shape2, origin2 = list(args[0].shape), list(kw["origin"])
+    say("city_kernels", k3_shape=shape3, k3_unknown_frac=unknown3,
+        k3_max_abs_err=err3, k3_atol=K3_ATOL, k3_ms=ms3, k3_plain_ms=plain3,
+        k2_shape=shape2, k2_origin=origin2,
+        map_origin=list(cfg.map.origin), k2_cells_updated_frac=changed,
+        k2_frac_beyond_atol=frac2, k2_atol=K2_ATOL, k2_max_frac=K2_MAX_FRAC,
+        k2_max_abs_err=float(diff.max()), k2_ms=ms2, k2_plain_ms=plain2)
+    crop = cfg.matcher.surface_crop_cells
+    r = cfg.map.likelihood_radius
+    if shape3 != [1, crop + 2 * r, crop + 2 * r]:
+        raise AssertionError(f"city K3 ran at {shape3}, not the crop plus "
+                             f"radius")
+    if not err3 <= K3_ATOL:
+        raise AssertionError(f"city K3 max abs error {err3} > {K3_ATOL}")
+    if shape2[1:] == [cfg.map.cells_y, cfg.map.cells_x] or \
+            origin2 == list(cfg.map.origin):
+        raise AssertionError(f"city K2 ran on {shape2} at {origin2}, not "
+                             f"on a shifted crop")
+    if not (frac2 <= K2_MAX_FRAC and changed > 1e-3):
+        raise AssertionError(f"city K2: {frac2} of cells beyond {K2_ATOL} "
+                             f"(limit {K2_MAX_FRAC}); {changed} updated")
 
 
 def main() -> int:
@@ -708,8 +789,10 @@ def main() -> int:
     del eng, batches, state
     from gridmap_slam_tpu_torch import city_config
     by_path["mega"] = mega_phase(frames, gt)
-    by_path["city"] = surface_path("city", city_config(), frames, gt,
-                                   ATE_MAX_M)
+    by_path["city"], eng, state, seq = surface_path(
+        "city", city_config(), frames, gt, ATE_MAX_M)
+    city_kernels_phase(eng, state, seq[-1])
+    del eng, state, seq
     for row in rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}

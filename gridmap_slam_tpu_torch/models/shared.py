@@ -123,8 +123,7 @@ def surface_volume(cfg: SlamConfig, taps, logodds, scan: Scan, center):
                or (mc.surface_corr == "auto"
                    and nt * (2 * kc + 1) ** 2 * hc * wc > 2e10))
     c_vol = scan_surface(llf_crop, e_stack,
-                         math.log(1.0 / cfg.sensor.max_range),
-                         bf16=mc.surface_bf16, fft=use_fft)
+                         math.log(1.0 / cfg.sensor.max_range), fft=use_fft)
     tap_kw = dict(theta0=theta0, dtheta=dtheta, crop_iy0=iy0, crop_ix0=ix0,
                   resolution=res, origin=origin, wrap_theta=wrap_theta,
                   packed=pack_neighborhoods(c_vol, wrap_theta))
@@ -166,15 +165,13 @@ def _uniform_poses(m, u):
                         (u[:, 2] * 2.0 - 1.0) * math.pi], 1)
 
 
-def inject_uniform(cfg: SlamConfig, u, poses, p_inject, slot_offset=0):
+def inject_uniform(cfg: SlamConfig, u, poses, p_inject):
     """Replace resample slots [0, p_inject * P) with uniform poses over the
-    map extent x the full circle.  u: (k, 3) uniform draws in [0, 1);
-    poses: (k, 3), whose first slot is global slot `slot_offset`.
-    Returns (poses', mask)."""
-    k = poses.shape[0]
+    map extent x the full circle.  u: (P, 3) uniform draws in [0, 1);
+    poses: (P, 3).  Returns (poses', mask)."""
     uni = _uniform_poses(cfg.map, u)
-    gslot = slot_offset + torch.arange(k, device=poses.device)
-    take = gslot < p_inject * cfg.num_particles
+    slot = torch.arange(poses.shape[0], device=poses.device)
+    take = slot < p_inject * cfg.num_particles
     return torch.where(take[:, None], uni, poses), take
 
 

@@ -29,7 +29,7 @@ def log_likelihood_field_batch_cuda(logodds, taps, *, z_hit: float,
                                     max_range: float):
     """The kernel.  logodds: (P, H, W) float32 on the card; taps: (2r+1,)
     float32 on the same card, any radius r whose window fits one block's
-    shared memory (`tile(r)` > 0: r <= 238 on an H100).  Returns
+    shared memory (`tile(r)` > 0: r <= 236 on an H100).  Returns
     (P, H, W)."""
     global launches
     fn = "log_likelihood_field_batch_cuda"

@@ -15,7 +15,8 @@ the map operations around it (field build K3, map update K2) are.
 
 Both correlation modes are honest float32 on a CUDA device whatever the
 global TF32 flags say: the conv runs under a local cuDNN flag and the
-splat under a local matmul flag.  `surface_bf16` is not ported.
+splat under a local matmul flag.  `surface_bf16` is not ported
+(SharedMapSLAM refuses it).
 """
 
 from __future__ import annotations
@@ -124,8 +125,7 @@ def _fft_size(n: int) -> int:
     return p2 if s5 >= 0.875 * p2 else s5
 
 
-def scan_surface(llf_crop, e_stack, ll_outside: float, bf16: bool = False,
-                 fft: bool = False):
+def scan_surface(llf_crop, e_stack, ll_outside: float, fft: bool = False):
     """Correlate the cropped LL field with every theta bin's endpoint image.
 
     llf_crop: (Hc, Wc); e_stack: (nt, K, K) with K = 2*kc + 1.
@@ -134,9 +134,6 @@ def scan_surface(llf_crop, e_stack, ll_outside: float, bf16: bool = False,
     padded by kc with ll_outside, so endpoints past the crop read the
     out-of-map constant.  fft=True correlates by rfft2/irfft2 at the
     lengths of `_fft_size`; otherwise by an f32 conv2d."""
-    if bf16:
-        raise ValueError("surface_bf16 is not ported: a bf16 conv2d on CUDA "
-                         "does not give the f32-accumulated output it needs")
     kc = (e_stack.shape[-1] - 1) // 2
     fpad = F.pad(llf_crop, (kc, kc, kc, kc), value=ll_outside)
     hc, wc = llf_crop.shape

@@ -222,6 +222,25 @@ def test_systematic_indices_matches_jax_key_draw():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 1000, 1025, 4096, 100003])
+def test_blocked_cumsum_matches_cumsum(n):
+    """The card's fixed-order scan (rows of ~sqrt(n), then the row totals)
+    is the running sum: in float64 within 1e-12 of the total's magnitude,
+    and in float32 of weights summing to 1 within 1e-6 of JAX's cumsum."""
+    rng = np.random.default_rng(n)
+    x = rng.uniform(size=n)
+    got = tres.blocked_cumsum(torch.from_numpy(x))
+    assert got.shape == (n,)
+    np.testing.assert_allclose(got.numpy(), np.cumsum(x), rtol=0,
+                               atol=1e-12 * n)
+    w = (x / x.sum()).astype(np.float32)
+    np.testing.assert_allclose(tres.blocked_cumsum(_t(w)).numpy(),
+                               np.asarray(jnp.cumsum(jnp.asarray(w))),
+                               rtol=0, atol=1e-6)
+    # on the CPU the resampler keeps torch.cumsum itself
+    assert torch.equal(tres.cumsum_fixed_order(_t(w)), torch.cumsum(_t(w), 0))
+
+
 def test_neff_and_weighted_mean_pose_match():
     rng = np.random.default_rng(7)
     lw = rng.normal(-50, 3, 64).astype(np.float32)

@@ -198,17 +198,13 @@ def test_surface_helpers_match():
 
         poses = rng.normal(size=(200, 3)).astype(np.float32)
         key = jax.random.key(step)
-        u = np.array(jax.random.uniform(key, (120, 3)))
-        for offset in (0, 80):
-            jpz, jtake = js.inject_uniform(jcfg, key, jnp.asarray(
-                poses[offset:offset + 120]), jp, slot_offset=offset)
-            tpz, ttake = ts.inject_uniform(tcfg, torch.from_numpy(u),
-                                           torch.from_numpy(
-                                               poses[offset:offset + 120]),
-                                           tp, slot_offset=offset)
-            np.testing.assert_allclose(tpz.numpy(), np.asarray(jpz),
-                                       rtol=1e-6, atol=1e-6)
-            np.testing.assert_array_equal(ttake.numpy(), np.asarray(jtake))
+        u = np.array(jax.random.uniform(key, (200, 3)))
+        jpz, jtake = js.inject_uniform(jcfg, key, jnp.asarray(poses), jp)
+        tpz, ttake = ts.inject_uniform(tcfg, torch.from_numpy(u),
+                                       torch.from_numpy(poses), tp)
+        np.testing.assert_allclose(tpz.numpy(), np.asarray(jpz),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(ttake.numpy(), np.asarray(jtake))
 
     w, b = rng.normal(size=3).astype(np.float32), rng.normal(size=3).astype(
         np.float32)

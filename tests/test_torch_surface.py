@@ -139,9 +139,16 @@ def test_scan_surface_matches(fft):
 
 
 def test_scan_surface_bf16_refused():
+    """surface_bf16 is refused once, by the engine; scan_surface has only
+    the float32 path and no bf16 switch."""
+    cfg = config_from_jax(JSlamConfig().with_overrides(
+        {"matcher.surface_bf16": True}))
+    with pytest.raises(ValueError, match="surface_bf16 is not ported"):
+        ts.SharedMapSLAM(cfg)
     llf = _llf()
     e, _ = _splats(np.zeros(1, np.float32), 5)
-    with pytest.raises(ValueError, match="surface_bf16"):
+    assert tsf.scan_surface(_t(llf), e, LL_OUT).dtype == torch.float32
+    with pytest.raises(TypeError):
         tsf.scan_surface(_t(llf), e, LL_OUT, bf16=True)
 
 
