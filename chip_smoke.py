@@ -35,11 +35,50 @@ Phases, each printed on its own line:
    map, the volume over a 512-cell crop;
 11. city kernels — K3 and K2 against their plain versions on the arguments
    one city step passes them: K3 on the (1, 518, 518) crop plus blur
-   radius, K2 on the 412 x 412 integration crop with its shifted origin.
+   radius, K2 on the 412 x 412 integration crop with its shifted origin;
+12. grouped kernels — K1 with one shared 120 x 120 field for 2048
+   particles (the three stages of the default matcher), K1 with one field
+   and one scan a candidate for 32 closure candidates on 280 x 280 fields
+   (the closure window, 15 x 15 x 13, and a refinement stage), K2 with
+   cone fill and 32 bin tables at 280 x 280; each against its plain
+   version, with times;
+13. sync — one warm RBPF.step (parity preset) and one warm
+   SharedMapSLAM.step_blocked (4096 particles, blocks of 2048) under
+   torch.cuda.set_sync_debug_mode("error"): any call that waits on the
+   card fails the run;
+14. shared agree — one SharedMapSLAM.step at 4096 particles on the card
+   against the same step on the CPU, from the same state and draws;
+15. mega_blocked — bench.py's preset: 1M particles, each running the full
+   three-stage matcher against the shared 120 x 120 map, through
+   SharedMapSLAM.replay with the block of matcher_block_size (500 000),
+   over the 12-scan log, twice with one seed (bit-identical); ATE, scans/s
+   and peak memory beside the matcher workspace the block was sized for;
+16. multi — scripts/config5_demo.py's setup (2 robots, 14 x 8 m at 0.1 m,
+   96 beams, 20 revolutions) through MultiRobotSLAM.replay at 32 and at
+   10 000 particles a robot, each twice with one seed (bit-identical);
+   per-robot ATE;
+17. posegraph — the CLI's posegraph flow on maps/grand_tour_216.rec: the
+   RBPF at 200 particles on 14 x 14 m at 5 cm, keyframes, closure
+   detection (32 candidates both ways), 10 Gauss-Newton iterations (with
+   PyTorch's TF32 matmul flag on: the solve pins float32 itself) and the
+   map rebuild, twice (bit-identical); keyframes, closures, chi2 first and
+   last, ms per Gauss-Newton iteration at 216 keyframes and on synthetic
+   graphs of 1000 and 3000 keyframes, with its peak memory;
+18. chip — bench.py's chip preset: RBPF at 10 000 particles in chunks of
+   500 over the 12-scan log; ATE and scans/s.
 
-Each path (parity, mega, city) is run with every launch count set to 0
-just before it and read just after.  Then one JSON line of kernels, with
-their launches per path, and last {"ok": true, "device": {...}}.
+Each path (parity, mega, city, mega_blocked, multi at each particle count,
+the posegraph flow's three parts: the filter, closure detection, the
+rebuild; chip) is run with every launch count set to 0 just before it and
+read just after.  In phase 11 and on the paths of phases 15-18 the first
+run also records the arguments of the first kernel call of every call
+shape (CallRecorder), and a path_kernels line holds each kernel against
+its plain version on exactly those arguments (a call of more than 4096
+particles on its first and last 2048: each particle's output depends on
+its own rows only); a kernel that ran on a part but was not checked there
+fails the run.  Then
+one JSON line of kernels, with their launches per path, and last
+{"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no "ok" line.
 There is no CPU path: without a CUDA device it exits non-zero.
 
@@ -48,6 +87,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -71,6 +111,12 @@ TAPS_RTOL, TAPS_ATOL = 1e-6, 1e-5  # tests/test_surface.py:248-249
 SPLAT_RTOL = 1e-5                  # of the largest endpoint-image cell
 K3_RADII_SIGMAS = (1.0, 4.0, 10.0, 20.0, 60.0)
 AGREE_PARTICLES = 4096
+MEGA_PARTICLES = 1_000_000
+MULTI_PARTICLES = (32, 10_000)
+MULTI_REVS = 20
+GRAND_TOUR = "maps/grand_tour_216.rec"
+GN_LARGE_KEYFRAMES = (1000, 3000)
+CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
 
 
 def say(phase: str, **fields) -> None:
@@ -385,14 +431,14 @@ def _kernel_modules():
             "log_likelihood_field": likelihood}
 
 
-def _test_maps(p, h, w, rng):
+def _test_maps(p, h, w, rng, device="cuda"):
     """Log-odds maps with free space, walls and unexplored cells in random
     places, and an unexplored band on every other map."""
     u = rng.uniform(size=(p, h, w))
     lo = np.where(u < 0.3, -rng.uniform(0.1, 4.0, (p, h, w)),
                   np.where(u < 0.4, rng.uniform(0.1, 4.0, (p, h, w)), 0.0))
     lo[::2, :, :w // 2] = 0.0
-    return torch.as_tensor(lo.astype(np.float32), device="cuda")
+    return torch.as_tensor(lo.astype(np.float32), device=device)
 
 
 def k3_radii_phase(cfg):
@@ -704,74 +750,805 @@ def mega_phase(frames, gt):
     return launches
 
 
-def city_kernels_phase(eng, state, frame):
-    """K3 and K2 against their plain versions on the very arguments one
-    city step passes them (recorded by wrapping the two calls of
-    models/shared.py): K3 on the volume crop plus blur radius, K2 on the
-    integration crop at its shifted origin."""
-    from gridmap_slam_tpu_torch.models import shared
-    from gridmap_slam_tpu_torch.ops.cuda import grid_update, likelihood
+KERNEL_ROWS = {"K1": "stage_scores", "K2": "integrate_scan",
+               "K3": "log_likelihood_field"}
+_ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
+          "K2": ("grid_update", "integrate_scan_batch_cuda"),
+          "K3": ("likelihood", "log_likelihood_field_batch_cuda")}
+PATH_MAX_ERR = {row: 0.0 for row in KERNEL_ROWS.values()}
+FULL_MAX = 4096      # a recorded call of more particles is compared on
+SLICE = 2048         # its first and its last SLICE particles
 
-    cfg = eng.config
-    seen = {}
 
-    def record(name, fn):
+def _sig(x):
+    """What makes two calls the same call shape: the tensors' shapes and
+    dtypes and every other argument's value."""
+    if torch.is_tensor(x):
+        return ("tensor", tuple(x.shape), str(x.dtype))
+    if isinstance(x, (tuple, list)):
+        return tuple(_sig(v) for v in x)
+    if isinstance(x, dict):
+        return tuple((k, _sig(v)) for k, v in sorted(x.items()))
+    return repr(x)
+
+
+def _clone(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+def _entry(kernel):
+    import importlib
+    mod_name, attr = _ENTRY[kernel]
+    return (importlib.import_module(
+        f"gridmap_slam_tpu_torch.ops.cuda.{mod_name}"), attr)
+
+
+class CallRecorder:
+    """Records the arguments a path passes each kernel.  While it is
+    active, each kernel's `*_cuda` entry point (which the dispatching
+    function looks up at every call) is wrapped: the first call of every
+    call shape under the current `path` label is kept, its tensors cloned,
+    and the kernel then runs and counts its launch as before."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.calls = []            # (path, kernel, args, kw)
+        self._seen = set()
+        self._real = []
+
+    def __enter__(self):
+        for kernel in _ENTRY:
+            mod, attr = _entry(kernel)
+            real = getattr(mod, attr)
+            self._real.append((mod, attr, real))
+            setattr(mod, attr, self._wrap(kernel, real))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, real in self._real:
+            setattr(mod, attr, real)
+        self._real = []
+
+    def bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for _, _, args, kw in self.calls
+                   for t in (*args, *kw.values()) if torch.is_tensor(t))
+
+    def _wrap(self, kernel, real):
         def call(*args, **kw):
-            seen[name] = (args, kw)
-            return fn(*args, **kw)
+            key = (self.path, kernel, _sig(args), _sig(kw))
+            if key not in self._seen:
+                self._seen.add(key)
+                self.calls.append((self.path, kernel, _clone(args),
+                                   _clone(kw)))
+            return real(*args, **kw)
         return call
 
-    real = (shared.log_likelihood_field_batch, shared.integrate_scan_batch)
-    shared.log_likelihood_field_batch = record("K3", real[0])
-    shared.integrate_scan_batch = record("K2", real[1])
-    try:
+
+def _group_rows(t, p, a, n):
+    """The rows of a per-group tensor t (G, ...) that particles [a, a + n)
+    of p read, as a tensor those n particles read the same way."""
+    g = t.shape[0]
+    per = p // g
+    if g == 1:
+        return t
+    if per == 1:
+        return t[a:a + n]
+    if a // per == (a + n - 1) // per:
+        return t[a // per:a // per + 1]
+    if a % per == 0 and n % per == 0:
+        return t[a // per:(a + n) // per]
+    raise ValueError(f"particles [{a}, {a + n}) cut a group of {per}")
+
+
+def _particle_slice(kernel, args, a, n):
+    """A kernel call's arguments for its particles [a, a + n) alone (each
+    particle's output depends on its own rows only)."""
+    if kernel == "K1":
+        field, px, py, use, pose0, dxs, dys, dts = args
+        p = pose0.shape[0]
+        scan = [x if x.dim() == 1 else _group_rows(x, p, a, n)
+                for x in (px, py, use)]
+        return (_group_rows(field, p, a, n), *scan,
+                *(x[a:a + n] for x in (pose0, dxs, dys, dts)))
+    if kernel == "K2":
+        lo, poses, keep, *tables = args
+        p = lo.shape[0]
+        return (lo[a:a + n], poses[a:a + n], keep,
+                *(t if t.dim() == 1 else _group_rows(t, p, a, n)
+                  for t in tables))
+    lo, taps = args
+    return (lo[a:a + n], taps)
+
+
+def check_recorded(rec: CallRecorder, launches_by_path) -> list:
+    """Each recorded call again, on the kernel and on its plain version, on
+    the very arguments the path passed: whole up to FULL_MAX particles, else
+    the real call's first and last SLICE particles' rows against the plain
+    version on those particles.  Raises beyond the kernel's tolerance, or
+    where a kernel launched on a path (`launches_by_path`) has no recorded
+    call there.  Returns the checks, one dict a call."""
+    checks = []
+    for path, kernel, args, kw in rec.calls:
+        mod, attr = _entry(kernel)
+        cuda_fn = getattr(mod, attr)
+        plain_fn = getattr(mod, attr.replace("_cuda", "_plain"))
+        p = (args[4] if kernel == "K1" else args[0]).shape[0]
+        parts = [(0, p)] if p <= FULL_MAX else [(0, SLICE), (p - SLICE, SLICE)]
+        got_all = cuda_fn(*args, **kw)
+        err, beyond, changed, n_out = 0.0, 0, 0, 0
+        for a, n in parts:
+            sub = args if n == p else _particle_slice(kernel, args, a, n)
+            want = plain_fn(*sub, **kw)
+            got = got_all[a:a + n]
+            diff = (got - want).abs()
+            err = max(err, float(diff.max()))
+            n_out += diff.numel()
+            if kernel == "K1":
+                beyond += int((diff > K1_ATOL + K1_RTOL * want.abs()).sum())
+            elif kernel == "K2":
+                beyond += int((diff > K2_ATOL).sum())
+                changed += int((want != sub[0]).sum())
+            else:
+                beyond += int((diff > K3_ATOL).sum())
+        del got_all
+        first = args if parts[0][1] == p else _particle_slice(
+            kernel, args, *parts[0])
+        ms = cuda_ms(lambda: cuda_fn(*args, **kw), 20 if p <= FULL_MAX else 3)
+        plain_ms = cuda_ms(lambda: plain_fn(*first, **kw), 3)
+        frac = beyond / n_out
+        limit = {"K1": K1_NEAREST_MAX_FRAC if kw.get("nearest") else 0.0,
+                 "K2": K2_MAX_FRAC, "K3": 0.0}[kernel]
+        row = dict(path=path, kernel=kernel,
+                   shapes=[list(t.shape) for t in args if torch.is_tensor(t)],
+                   particles=p, compared=sum(n for _, n in parts),
+                   max_abs_err=err, frac_beyond_tol=frac, max_frac=limit,
+                   ms=ms, plain_ms=plain_ms, plain_particles=parts[0][1])
+        if kernel == "K1":
+            row.update(nearest=bool(kw.get("nearest")), rtol=K1_RTOL,
+                       atol=K1_ATOL)
+        else:
+            row.update(atol=K2_ATOL if kernel == "K2" else K3_ATOL)
+        if kernel == "K2":
+            row.update(cone_fill=bool(kw.get("cone_fill")),
+                       cells_updated_frac=changed / n_out)
+        checks.append(row)
+        name = KERNEL_ROWS[kernel]
+        PATH_MAX_ERR[name] = max(PATH_MAX_ERR[name], err)
+        if not frac <= limit:
+            say("path_kernels", calls=checks)
+            raise AssertionError(f"{path} {kernel}: {frac} beyond its "
+                                 f"tolerance (limit {limit}; max abs {err})")
+    say("path_kernels", paths=sorted({row["path"] for row in checks}),
+        recorded_bytes=rec.bytes(), calls=checks)
+    checked = {(row["path"], KERNEL_ROWS[row["kernel"]]) for row in checks}
+    for path, launches in launches_by_path.items():
+        for name, n in launches.items():
+            if n > 0 and (path, name) not in checked:
+                raise AssertionError(f"{path}: {name} ran but no call of "
+                                     f"it was checked")
+    return checks
+
+
+def city_kernels_phase(eng, state, frame):
+    """K3 and K2 against their plain versions on the very arguments one
+    city step passes them (CallRecorder): K3 on the volume crop plus blur
+    radius, K2 on the integration crop at its shifted origin."""
+    cfg = eng.config
+    kernels = _zero_launches()
+    with CallRecorder("city step") as rec:
         eng.step_surface(state, frame,
                          torch.Generator(device="cuda").manual_seed(SEED))
-    finally:
-        shared.log_likelihood_field_batch, shared.integrate_scan_batch = real
-
-    args, kw = seen["K3"]
-    got = likelihood.log_likelihood_field_batch_cuda(*args, **kw)
-    want = likelihood.log_likelihood_field_batch_plain(*args, **kw)
-    err3 = float((got - want).abs().max())
-    ms3 = cuda_ms(lambda: likelihood.log_likelihood_field_batch_cuda(
-        *args, **kw), 50)
-    plain3 = cuda_ms(lambda: likelihood.log_likelihood_field_batch_plain(
-        *args, **kw), 20)
-    shape3 = list(args[0].shape)
-    unknown3 = float((args[0] == 0).float().mean())
-
-    args, kw = seen["K2"]
-    got = grid_update.integrate_scan_batch_cuda(*args, **kw)
-    want = grid_update.integrate_scan_batch_plain(*args, **kw)
-    diff = (got - want).abs()
-    frac2 = float((diff > K2_ATOL).float().mean())
-    changed = float((want != args[0]).float().mean())
-    ms2 = cuda_ms(lambda: grid_update.integrate_scan_batch_cuda(
-        *args, **kw), 50)
-    plain2 = cuda_ms(lambda: grid_update.integrate_scan_batch_plain(
-        *args, **kw), 20)
-    shape2, origin2 = list(args[0].shape), list(kw["origin"])
-    say("city_kernels", k3_shape=shape3, k3_unknown_frac=unknown3,
-        k3_max_abs_err=err3, k3_atol=K3_ATOL, k3_ms=ms3, k3_plain_ms=plain3,
-        k2_shape=shape2, k2_origin=origin2,
-        map_origin=list(cfg.map.origin), k2_cells_updated_frac=changed,
-        k2_frac_beyond_atol=frac2, k2_atol=K2_ATOL, k2_max_frac=K2_MAX_FRAC,
-        k2_max_abs_err=float(diff.max()), k2_ms=ms2, k2_plain_ms=plain2)
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    calls = {kernel: (args, kw) for _, kernel, args, kw in rec.calls}
+    shape3 = list(calls["K3"][0][0].shape)
+    shape2 = list(calls["K2"][0][0].shape)
+    origin2 = list(calls["K2"][1]["origin"])
     crop = cfg.matcher.surface_crop_cells
     r = cfg.map.likelihood_radius
     if shape3 != [1, crop + 2 * r, crop + 2 * r]:
         raise AssertionError(f"city K3 ran at {shape3}, not the crop plus "
                              f"radius")
-    if not err3 <= K3_ATOL:
-        raise AssertionError(f"city K3 max abs error {err3} > {K3_ATOL}")
     if shape2[1:] == [cfg.map.cells_y, cfg.map.cells_x] or \
             origin2 == list(cfg.map.origin):
         raise AssertionError(f"city K2 ran on {shape2} at {origin2}, not "
                              f"on a shifted crop")
-    if not (frac2 <= K2_MAX_FRAC and changed > 1e-3):
-        raise AssertionError(f"city K2: {frac2} of cells beyond {K2_ATOL} "
-                             f"(limit {K2_MAX_FRAC}); {changed} updated")
+    for row in check_recorded(rec, {"city step": launches}):
+        if row["kernel"] == "K2" and not row["cells_updated_frac"] > 1e-3:
+            raise AssertionError(f"city K2 updated too few cells: {row}")
+
+
+def _k1_check(name, args, kw, rows_out, reps=20, plain_reps=3):
+    """K1 against its plain version on `args`; raises beyond tolerance.
+    Returns (max abs error, ms, plain ms)."""
+    from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
+    got = kmatch.stage_scores_batch_cuda(*args, **kw)
+    want = kmatch.stage_scores_batch_plain(*args, **kw)
+    diff = (got - want).abs()
+    err = float(diff.max())
+    frac = float((diff > K1_ATOL + K1_RTOL * want.abs()).float().mean())
+    ms = cuda_ms(lambda: kmatch.stage_scores_batch_cuda(*args, **kw), reps)
+    plain_ms = cuda_ms(lambda: kmatch.stage_scores_batch_plain(*args, **kw),
+                       plain_reps)
+    field, px, dxs, dys, dts = args[0], args[1], args[5], args[6], args[7]
+    row = dict(name=name, particles=int(args[4].shape[0]),
+               field=list(field.shape),
+               scans=list(px.shape), candidates=[dts.shape[1], dys.shape[1],
+                                                  dxs.shape[1]],
+               max_abs_err=err, rtol=K1_RTOL, atol=K1_ATOL,
+               frac_beyond_tol=frac, ms=ms, plain_ms=plain_ms)
+    rows_out.append(row)
+    if not frac == 0.0:
+        raise AssertionError(f"K1 {name}: {frac} of candidates beyond rtol "
+                             f"{K1_RTOL} / atol {K1_ATOL} (max abs {err})")
+    return err, ms, plain_ms
+
+
+def grouped_kernel_phase(cfg, frames, dev="cuda", n_shared=2048,
+                         n_closure=32, closure_cells=280):
+    """The new call shapes of K1 and K2 against their plain versions: one
+    field shared by every particle, one field and one scan a closure
+    candidate, and K2 with cone fill and one bin table a candidate."""
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.ops.cuda import grid_update, likelihood
+    from gridmap_slam_tpu_torch.ops.geometry import deskew_scan, scan_points
+    from gridmap_slam_tpu_torch.ops.grid import gaussian_kernel
+    from gridmap_slam_tpu_torch.ops.matcher import (_stage_offsets,
+                                                    half_resolution)
+    from gridmap_slam_tpu_torch.types import Scan
+
+    rng = np.random.default_rng(SEED + 3)
+    mc = cfg.matcher
+    res, maxr = cfg.map.resolution, cfg.sensor.max_range
+    ll_out = math.log(1.0 / maxr)
+    taps = torch.as_tensor(gaussian_kernel(cfg.map.likelihood_sigma,
+                                           cfg.map.likelihood_radius),
+                           device=dev)
+    kw3 = dict(z_hit=mc.z_hit, max_range=maxr)
+    batch = frames_to_device(frames, cfg.max_beams, maxr, device=dev)
+    scans = [deskew_scan(frame_at(batch, i).scan, frame_at(batch, i).odom)
+             for i in range(len(frames))]
+    stride = mc.coarse_beam_stride
+    rows = []
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def poses(n, half):
+        return t(np.stack([rng.uniform(-half, half, n),
+                           rng.uniform(-half, half, n),
+                           rng.uniform(-math.pi, math.pi, n)], 1))
+
+    def stages(llf, px, py, use, pose0, coarse, refine):
+        """(name, args, resolution) of the coarse stage on the pooled field
+        and the first refinement stage, around random argmax offsets."""
+        n = pose0.shape[0]
+        (c_xy, c_t) = coarse
+        cx = c_xy.expand(n, -1).contiguous()
+        ct = c_t.expand(n, -1).contiguous()
+        off_xy, off_t = refine[0]
+        center = t(rng.uniform(-1, 1, (n, 3))) * torch.stack(
+            [c_xy[-1], c_xy[-1], c_t[-1]])
+        return [("coarse", (half_resolution(llf, ll_out), px[..., ::stride]
+                            .contiguous(), py[..., ::stride].contiguous(),
+                            use[..., ::stride].contiguous(), pose0, cx, cx,
+                            ct), 2 * res),
+                ("fine", (llf, px, py, use, pose0,
+                          center[:, :1] + off_xy, center[:, 1:2] + off_xy,
+                          center[:, 2:] + off_t), res)]
+
+    # ---- K1, one shared 120 x 120 field for every particle (G_f = 1)
+    h, w = cfg.map.cells_y, cfg.map.cells_x
+    lo = _test_maps(1, h, w, rng, dev)
+    llf = likelihood.log_likelihood_field_batch(lo, taps, **kw3)
+    px, py = scan_points(scans[3])
+    use = scans[3].valid & scans[3].hit
+    coarse, refine = _stage_offsets(mc, torch.device(dev))
+    err_shared = 0.0
+    for name, args, r in stages(llf, px, py, use, poses(n_shared, 1.5),
+                                coarse, refine):
+        err_shared = max(err_shared, _k1_check(
+            f"shared field {name}", args, dict(
+                resolution=r, origin=cfg.map.origin, max_range=maxr),
+            rows)[0])
+
+    # ---- K1, one field and one scan a closure candidate (G_f = G_b = C):
+    # the frontend's closure window on 280 x 280 fields at 5 cm
+    c = n_closure
+    origin = (-closure_cells * res / 2,) * 2
+    lo = _test_maps(c, closure_cells, closure_cells, rng, dev)
+    llf_c = likelihood.log_likelihood_field_batch(lo, taps, **kw3)
+    pick = [scans[i % len(scans)] for i in range(c)]
+    stacked = Scan(*(torch.stack([getattr(sc, f) for sc in pick])
+                     for f in ("angle", "dist", "hit", "valid")))
+    pxc, pyc = scan_points(stacked)
+    usec = stacked.valid & stacked.hit
+    closure_mc = dataclasses.replace(
+        mc, window_xy=1.0, window_theta_deg=30.0, coarse_nxy=15,
+        coarse_nt=13, extra_refine_stages=3, prior_weight=0.0)
+    coarse_c, refine_c = _stage_offsets(closure_mc, torch.device(dev))
+    err_closure = 0.0
+    for name, args, r in stages(llf_c, pxc, pyc, usec, poses(c, 0.5),
+                                coarse_c, refine_c):
+        err_closure = max(err_closure, _k1_check(
+            f"closure {name}", args, dict(resolution=r, origin=origin,
+                                          max_range=maxr), rows)[0])
+
+    # ---- K2 with cone fill, one bin table a candidate, from zero maps
+    tables = grid_update.scan_bin_tables(stacked, cfg.beam_lut_bins)
+    zero = torch.zeros((c, closure_cells, closure_cells), device=dev)
+    pz = poses(c, 0.3)
+    one = torch.ones((), device=dev)
+    kw2 = dict(resolution=res, origin=origin, l_free=cfg.sensor.l_free,
+               l_occ=cfg.sensor.l_occ,
+               tol_cells=cfg.sensor.hit_tolerance_cells, cone_fill=True)
+    got = grid_update.integrate_scan_batch_cuda(zero, pz, one, *tables, **kw2)
+    want = grid_update.integrate_scan_batch_plain(zero, pz, one, *tables,
+                                                  **kw2)
+    diff = (got - want).abs()
+    frac2 = float((diff > K2_ATOL).float().mean())
+    changed = float((want != 0).float().mean())
+    ms2 = cuda_ms(lambda: grid_update.integrate_scan_batch_cuda(
+        zero, pz, one, *tables, **kw2), 20)
+    plain2 = cuda_ms(lambda: grid_update.integrate_scan_batch_plain(
+        zero, pz, one, *tables, **kw2), 5)
+    say("grouped_kernels", k1=rows, k2_cone_fill=dict(
+        shape=list(zero.shape), tables=list(tables[0].shape),
+        cells_updated_frac=changed, frac_beyond_atol=frac2, atol=K2_ATOL,
+        max_frac=K2_MAX_FRAC, max_abs_err=float(diff.max()), ms=ms2,
+        plain_ms=plain2))
+    if not (frac2 <= K2_MAX_FRAC and changed > 0.05):
+        raise AssertionError(f"K2 cone fill: {frac2} of cells beyond "
+                             f"{K2_ATOL} (limit {K2_MAX_FRAC}); {changed} "
+                             f"updated")
+    return max(err_shared, err_closure), float(diff.max())
+
+
+def sync_phase(cfg, frames, dev="cuda", shared_particles=AGREE_PARTICLES):
+    """A warm RBPF.step and a warm SharedMapSLAM.step_blocked under
+    torch.cuda.set_sync_debug_mode("error"): a call that waits on the card
+    (a read back to the host, a copy from pageable host memory) raises."""
+    from gridmap_slam_tpu_torch import RBPF, SharedMapSLAM
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rbpf = RBPF(cfg, device=dev)
+    shared = SharedMapSLAM(cfg.replace(num_particles=shared_particles,
+                                       particle_chunk=0), device=dev)
+    block = shared_particles // 2
+    st_r = rbpf.init()
+    st_s = shared.init()
+    for i in range(2):                 # warm: offsets cached, kernels loaded
+        st_r, _ = rbpf.step(st_r, frame_at(batch, i), gen)
+        st_s, _ = shared.step_blocked(st_s, frame_at(batch, i), block, gen)
+    f2 = frame_at(batch, 2)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        st_r, info_r = rbpf.step(st_r, f2, gen)
+        st_s, info_s = shared.step_blocked(st_s, f2, block, gen)
+    finally:
+        if dev == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    say("sync", rbpf_particles=cfg.num_particles,
+        shared_particles=shared_particles, block=block,
+        rbpf_neff=float(info_r.neff), shared_neff=float(info_s.neff),
+        synchronizing_calls=0)
+
+
+def shared_agree_phase(cfg, frames, dev="cuda", particles=AGREE_PARTICLES):
+    """One SharedMapSLAM.step on the card against the same step on the CPU,
+    from the same state and draws (blocks of 1024 on both, so the CPU's
+    plain matcher stays within memory)."""
+    from gridmap_slam_tpu_torch import SharedMapSLAM, SharedMapState
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+
+    cfg = cfg.replace(num_particles=particles,
+                      particle_chunk=min(1024, particles))
+    engines = {d: SharedMapSLAM(cfg, device=d) for d in (dev, "cpu")}
+    batches = {d: frames_to_device(frames, cfg.max_beams,
+                                   cfg.sensor.max_range, device=d)
+               for d in engines}
+    state, _ = engines[dev].replay(
+        engines[dev].init(), [frame_at(batches[dev], i) for i in range(3)],
+        torch.Generator(device=dev).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    normals = rng.standard_normal((particles, 2)).astype(np.float32)
+    u0 = np.float32(rng.uniform(0, 1 / particles))
+    out = {}
+    for d, e in engines.items():
+        st = SharedMapState(poses=state.poses.to(d),
+                            log_weights=state.log_weights.to(d),
+                            logodds=state.logodds.to(d), step=state.step.to(d),
+                            recov=state.recov.to(d))
+        draws = (torch.as_tensor(normals, device=d),
+                 torch.as_tensor(u0, device=d), None)
+        out[d] = e.step(st, frame_at(batches[d], 3), draws=draws)
+    (sc, ic), (sp, ip) = out[dev], out["cpu"]
+    dpose = (sc.poses.cpu() - sp.poses).abs().amax(1)
+    pose_frac = float((dpose <= 1e-4).float().mean())
+    map_beyond = int(((sc.logodds.cpu() - sp.logodds).abs() > K2_ATOL).sum())
+    say("shared_agree", particles=particles, poses_within_1e4=pose_frac,
+        max_pose_diff=float(dpose.max()), map_cells_beyond_atol=map_beyond,
+        map_cells_updated=int((sp.logodds != state.logodds.cpu()).sum()),
+        neff_card=float(ic.neff), neff_cpu=float(ip.neff),
+        resampled=[bool(ic.resampled), bool(ip.resampled)])
+    if not (pose_frac == 1.0 and map_beyond == 0):
+        raise AssertionError("card and CPU matcher steps disagree")
+
+
+def _timed(fn):
+    """(result, seconds) of fn() on the card, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / 1e3
+
+
+def _zero_launches():
+    kernels = _kernel_modules()
+    for mod in kernels.values():
+        mod.launches = 0
+    return kernels
+
+
+def mega_blocked_phase(frames, gt, particles=MEGA_PARTICLES, dev="cuda"):
+    """bench.py's mega_blocked preset (bench.py:641-644, :315-359): 1M
+    particles, each running the full three-stage matcher against the
+    shared map, in blocks of matcher_block_size."""
+    from gridmap_slam_tpu_torch import SharedMapSLAM
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.models.shared import (matcher_block_size,
+                                                      matcher_workspace_bytes)
+    from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = parity_config().replace(num_particles=particles, particle_chunk=0)
+    block = matcher_block_size(cfg)
+    eng = SharedMapSLAM(cfg, device=dev)
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
+                             device=dev)
+    seq = [frame_at(batch, i) for i in range(len(frames))]
+
+    def run():
+        return eng.replay(eng.init(), seq,
+                          torch.Generator(device=dev).manual_seed(SEED),
+                          block=block)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _zero_launches()
+    with CallRecorder("mega_blocked") as rec:
+        (state, infos), _ = _timed(run)
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    (again, _), sec = _timed(run)
+    traj = torch.stack([i.weighted_pose for i in infos]).cpu().numpy()
+    ate = ate_rmse(traj, gt[:len(frames)])
+    finite = bool(torch.isfinite(state.poses).all()
+                  and torch.isfinite(state.logodds).all()
+                  and np.isfinite(traj).all())
+    identical = bool(torch.equal(again.poses, state.poses)
+                     and torch.equal(again.logodds, state.logodds)
+                     and torch.equal(again.log_weights, state.log_weights))
+    del again
+    occ, free = int((state.logodds > 0).sum()), int((state.logodds < 0).sum())
+    say("mega_blocked", particles=particles, block=block,
+        blocks_per_scan=particles // block,
+        map=[cfg.map.cells_y, cfg.map.cells_x], scans=len(seq),
+        launches=launches, ate_m=ate, ate_max_m=ATE_MAX_M,
+        final_neff=float(infos[-1].neff),
+        resamples=int(sum(bool(i.resampled) for i in infos)),
+        map_occupied=occ, map_free=free, finite=finite,
+        rerun_identical=identical, peak_mem_bytes=peak,
+        recorded_args_bytes=rec.bytes(),
+        matcher_workspace_bytes=block * matcher_workspace_bytes(cfg),
+        state_bytes=particles * 4 * 4 + 4 * cfg.map.cells_x * cfg.map.cells_y,
+        warm_seconds=sec, scans_per_sec=len(seq) / sec)
+    if not (finite and identical):
+        raise AssertionError(f"mega_blocked: finite {finite}, rerun "
+                             f"identical {identical}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"mega_blocked: a kernel was not launched: "
+                             f"{launches}")
+    if not ate < ATE_MAX_M:
+        raise AssertionError(f"mega_blocked ATE {ate} >= {ATE_MAX_M}")
+    if not (occ > 50 and free > 1000):
+        raise AssertionError(f"mega_blocked: map too empty: {occ} occupied, "
+                             f"{free} free")
+    del state, infos
+    check_recorded(rec, {"mega_blocked": launches})
+    return launches
+
+
+def multi_phase(dev="cuda", particle_counts=MULTI_PARTICLES,
+                revs=MULTI_REVS):
+    """scripts/config5_demo.py:62-79 on MultiRobotSLAM: two robots from
+    opposite rooms through the door, 14 x 8 m at 0.1 m, 96 beams, noisy
+    encoders; each particle count run twice with one seed."""
+    from gridmap_slam_tpu_torch import MultiRobotSLAM, SlamConfig
+    from gridmap_slam_tpu_torch.config import MapConfig, SensorConfig
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.io.synthetic import (SimParams,
+                                                     multi_room_world,
+                                                     simulate_log)
+    from gridmap_slam_tpu_torch.models.multi import stack_frames
+    from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
+
+    world = multi_room_world(rooms_x=2, rooms_y=1, room=6.0, door=1.4)
+    params = SimParams(beams_per_rev=90, encoder_noise_sd=6.0)
+    starts = [(-5.2, -0.3, 0.0), (5.2, 0.3, math.pi)]
+    logs = [simulate_log(world, [(0.25, 0.0)] * revs, params=params,
+                         seed=11 + i, start_pose=starts[i]) for i in range(2)]
+    total = {}
+    for particles in particle_counts:
+        cfg = SlamConfig(num_particles=particles, max_beams=96,
+                         sensor=SensorConfig(max_range=8.0),
+                         map=MapConfig(width_m=14.0, height_m=8.0,
+                                       resolution=0.1, origin=(-7.0, -4.0)))
+        eng = MultiRobotSLAM(cfg, num_robots=2, device=dev)
+        batches = [frames_to_device(f, cfg.max_beams, cfg.sensor.max_range,
+                                    device=dev) for f, _ in logs]
+        ticks = [stack_frames([frame_at(b, i) for b in batches])
+                 for i in range(revs)]
+
+        def run():
+            return eng.replay(eng.init(starts), ticks,
+                              torch.Generator(device=dev).manual_seed(SEED))
+
+        kernels = _zero_launches()
+        with CallRecorder(f"multi {particles}") as rec:
+            (state, infos), _ = _timed(run)
+        launches = {k: mod.launches for k, mod in kernels.items()}
+        (again, _), sec = _timed(run)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        traj = torch.stack([i.weighted_pose for i in infos]).cpu().numpy()
+        ates = [ate_rmse(traj[:, r], logs[r][1]) for r in range(2)]
+        identical = bool(torch.equal(again.poses, state.poses)
+                         and torch.equal(again.logodds, state.logodds))
+        finite = bool(torch.isfinite(state.poses).all()
+                      and torch.isfinite(state.logodds).all())
+        say("multi", robots=2, particles_per_robot=particles, ticks=revs,
+            map=[cfg.map.cells_y, cfg.map.cells_x], launches=launches,
+            ate_m=ates, ate_max_m=ATE_MAX_M, jax_demo_cpu_ate_m=[0.0246,
+                                                                0.0297],
+            rerun_identical=identical, finite=finite, warm_seconds=sec,
+            ticks_per_sec=revs / sec)
+        if not (finite and identical):
+            raise AssertionError(f"multi at {particles}: finite {finite}, "
+                                 f"rerun identical {identical}")
+        if not all(n > 0 for n in launches.values()):
+            raise AssertionError(f"multi: a kernel was not launched: "
+                                 f"{launches}")
+        if not max(ates) < ATE_MAX_M:
+            raise AssertionError(f"multi at {particles}: ATE {ates}")
+        check_recorded(rec, {f"multi {particles}": launches})
+    return total
+
+
+def posegraph_phase(dev="cuda", particles=200, path=GRAND_TOUR, scans=None):
+    """app/cli.py:360-400 on the port: the RBPF over the log, keyframes,
+    closures, Gauss-Newton and the rebuilt map, twice with one seed."""
+    from gridmap_slam_tpu_torch import (RBPF, FrontendConfig, PoseGraphSLAM,
+                                        SlamConfig)
+    from gridmap_slam_tpu_torch.config import MapConfig
+    from gridmap_slam_tpu_torch.io import (frame_at, frames_to_device,
+                                           read_recording)
+    from gridmap_slam_tpu_torch.models import posegraph as PG
+    from gridmap_slam_tpu_torch.ops.geometry import deskew_scan
+    from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
+
+    frames = read_recording(path)[:scans]
+    gt = np.load(path.replace(".rec", "_gt.npy"))[:len(frames)]
+    # the CLI's defaults (360 beam slots, no chunk) on the map of
+    # docs/ate_parity_grand_tour_216.json
+    cfg = SlamConfig(num_particles=particles, max_beams=360, particle_chunk=0,
+                     map=MapConfig(width_m=14.0, height_m=14.0,
+                                   resolution=0.05, origin=(-7.0, -7.0)))
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
+                             device=dev)
+    seq = [frame_at(batch, i) for i in range(len(frames))]
+
+    def run(rec=None, counts=None):
+        """The flow.  Each of its three parts (the filter, the closures,
+        the solve and rebuild) starts with every launch count at 0; with
+        `counts`, each part's launches are kept under its name, and with
+        `rec`, its kernel calls are recorded under that name."""
+        kernels = _zero_launches()
+
+        def part_done(name, following):
+            if counts is not None:
+                counts[name] = {k: mod.launches
+                                for k, mod in kernels.items()}
+            for mod in kernels.values():
+                mod.launches = 0
+            if rec is not None:
+                rec.path = following
+
+        eng = RBPF(cfg, device=dev)
+        _, infos = eng.run_log(eng.init(), seq,
+                               torch.Generator(device=dev).manual_seed(SEED))
+        traj = torch.stack([i.weighted_pose for i in infos])
+        part_done("posegraph_rbpf", "posegraph_closures")
+        fe = PoseGraphSLAM(cfg, FrontendConfig(), device=dev)
+        for i, f in enumerate(seq):
+            fe.add(traj[i], deskew_scan(f.scan, f.odom))
+        n_closures = fe.detect_closures()
+        part_done("posegraph_closures", "posegraph_rebuild")
+        graph = fe.graph()
+        # the solve pins float32 itself: run it with TF32 allowed
+        torch.backends.cuda.matmul.allow_tf32 = dev == "cuda"
+        try:
+            opt, chi2 = fe.optimize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        rebuilt = fe.rebuild_map()
+        part_done("posegraph_rebuild", None)
+        return traj.cpu().numpy(), fe, n_closures, graph, opt, chi2, rebuilt
+
+    launches = {}
+    with CallRecorder("posegraph_rbpf") as rec:
+        (traj, fe, n_closures, graph, opt, chi2, rebuilt), sec = _timed(
+            lambda: run(rec, launches))
+    (_, _, n2, _, opt2, chi2_2, rebuilt2), _ = _timed(run)
+    identical = bool(n2 == n_closures and np.array_equal(opt, opt2)
+                     and np.array_equal(chi2, chi2_2)
+                     and torch.equal(rebuilt, rebuilt2))
+    # the same graph with TF32 off and on, and on the CPU
+    tf32 = {}
+    for flag in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = flag and dev == "cuda"
+        try:
+            tf32[flag] = PG.optimize(graph, iterations=10)[0].nodes
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_graph = PG.PoseGraph(*(getattr(graph, f.name).cpu()
+                               for f in dataclasses.fields(graph)))
+    cpu_nodes = PG.optimize(cpu_graph, iterations=10)[0].nodes
+    cpu_err = float((tf32[False].cpu() - cpu_nodes).abs().max())
+    (_, gn_sec) = _timed(lambda: PG.optimize(graph, iterations=10))
+    large = [gn_large_graph(PG, k, dev) for k in GN_LARGE_KEYFRAMES]
+    ate = ate_rmse(traj, gt)
+    say("posegraph", log=path, scans=len(seq), particles=particles,
+        map=[cfg.map.cells_y, cfg.map.cells_x], launches=launches,
+        online_ate_m=ate, keyframes=fe.num_keyframes,
+        edges=int(graph.edge_i.shape[0]), closures=n_closures,
+        chi2_first=float(chi2[0]), chi2_last=float(chi2[-1]),
+        jax_reference=dict(keyframes=216, closures=32, chi2_first=8.234,
+                           chi2_last=0.386),
+        gn_ms_per_iteration=gn_sec * 1e3 / 10, gn_large_graphs=large,
+        tf32_flag_changes_nothing=bool(torch.equal(tf32[False], tf32[True])),
+        card_vs_cpu_nodes_max_abs=cpu_err,
+        rebuilt_occupied=int((rebuilt > 0).sum()),
+        rebuilt_free=int((rebuilt < 0).sum()),
+        rerun_identical=identical, seconds=sec)
+    if not identical:
+        raise AssertionError("posegraph: a second run gave other results")
+    if not (np.isfinite(chi2).all() and chi2[-1] < chi2[0]):
+        raise AssertionError(f"posegraph: chi2 did not fall: {chi2}")
+    if not (torch.equal(tf32[False], tf32[True]) and cpu_err < 1e-3):
+        raise AssertionError(f"posegraph: Gauss-Newton not pinned to "
+                             f"float32 (card vs CPU {cpu_err})")
+    for g in large:
+        if not (g["finite"] and g["chi2_last"] < g["chi2_first"]):
+            raise AssertionError(f"posegraph: Gauss-Newton at "
+                                 f"{g['keyframes']} keyframes: {g}")
+    # every kernel in the filter and in closure verification, K2 in the
+    # rebuild (Gauss-Newton runs none)
+    for part, needed in (("posegraph_rbpf", KERNEL_ROWS.values()),
+                         ("posegraph_closures", KERNEL_ROWS.values()),
+                         ("posegraph_rebuild", ["integrate_scan"])):
+        if not all(launches[part][k] > 0 for k in needed):
+            raise AssertionError(f"{part}: a kernel was not launched: "
+                                 f"{launches[part]}")
+    del fe, graph, rebuilt, rebuilt2
+    check_recorded(rec, launches)
+    return launches
+
+
+def gn_large_graph(PG, k, dev, iterations=10):
+    """Gauss-Newton on a synthetic graph of k keyframes: a random-walk
+    trajectory, noisy odometry edges along it and k // 10 noisy closures
+    between keyframes at least 20 apart, started from dead reckoning.
+    Returns the timing, the peak memory and chi2 first and last."""
+    rng = np.random.default_rng(SEED + 4)
+    steps = rng.normal(0.0, 1.0, (k - 1, 3)) * [0.3, 0.05, 0.15]
+    truth = np.zeros((k, 3))
+    for i, (dx, dy, dt) in enumerate(steps):
+        x, y, t = truth[i]
+        truth[i + 1] = (x + math.cos(t) * dx - math.sin(t) * dy,
+                        y + math.sin(t) * dx + math.cos(t) * dy, t + dt)
+    ei, ej, ez, ew = PG.odometry_edges(truth, 200.0, 400.0)
+    ez = ez + rng.normal(0.0, 1.0, ez.shape).astype(np.float32) * [
+        0.01, 0.01, 0.005]
+    start = np.zeros_like(truth)
+    for i, (dx, dy, dt) in enumerate(ez):
+        x, y, t = start[i]
+        start[i + 1] = (x + math.cos(t) * dx - math.sin(t) * dy,
+                        y + math.sin(t) * dx + math.cos(t) * dy, t + dt)
+    ci = rng.integers(0, k - 20, k // 10)
+    cj = np.minimum(ci + rng.integers(20, k, k // 10), k - 1)
+    cz = np.stack([PG._relative_np(truth[i], truth[j])
+                   for i, j in zip(ci, cj)]).astype(np.float32)
+    graph = PG.PoseGraph(
+        nodes=torch.as_tensor(start, dtype=torch.float32, device=dev),
+        edge_i=torch.as_tensor(np.concatenate([ei, ci]), dtype=torch.int64,
+                               device=dev),
+        edge_j=torch.as_tensor(np.concatenate([ej, cj]), dtype=torch.int64,
+                               device=dev),
+        edge_z=torch.as_tensor(np.concatenate([ez, cz]), dtype=torch.float32,
+                               device=dev),
+        edge_w=torch.as_tensor(np.concatenate(
+            [ew, np.tile([400.0, 400.0, 800.0], (len(ci), 1))]),
+            dtype=torch.float32, device=dev))
+    PG.optimize(graph, iterations=1)           # warm: cuSOLVER, cuBLAS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (opt, chi2), sec = _timed(lambda: PG.optimize(graph,
+                                                  iterations=iterations))
+    return dict(keyframes=k, edges=int(graph.edge_i.shape[0]),
+                ms_per_iteration=sec * 1e3 / iterations,
+                peak_mem_bytes=torch.cuda.max_memory_allocated() - base,
+                chi2_first=float(chi2[0]), chi2_last=float(chi2[-1]),
+                finite=bool(torch.isfinite(opt.nodes).all()))
+
+
+def chip_phase(frames, gt, dev="cuda", particles=CHIP_PARTICLES,
+               chunk=CHIP_CHUNK):
+    """bench.py's chip preset (bench.py:623-625): the RBPF at 10 000
+    particles in chunks of 500 on the parity map and log."""
+    from gridmap_slam_tpu_torch import RBPF, chip_config
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = parity_config().replace(num_particles=particles,
+                                  particle_chunk=chunk)
+    eng = RBPF(cfg, device=dev)
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
+                             device=dev)
+    seq = [frame_at(batch, i) for i in range(len(frames))]
+
+    def run():
+        return eng.run_log(eng.init(), seq,
+                           torch.Generator(device=dev).manual_seed(SEED))
+
+    kernels = _zero_launches()
+    with CallRecorder("chip") as rec:
+        (state, infos), _ = _timed(run)
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    _, sec = _timed(run)
+    traj = torch.stack([i.weighted_pose for i in infos]).cpu().numpy()
+    ate = ate_rmse(traj, gt[:len(frames)])
+    finite = bool(torch.isfinite(state.poses).all()
+                  and torch.isfinite(state.logodds).all())
+    say("chip", particles=particles, particle_chunk=chunk,
+        chip_config_chunk=chip_config().particle_chunk,
+        map=[cfg.map.cells_y, cfg.map.cells_x], scans=len(seq),
+        launches=launches, ate_m=ate, ate_max_m=ATE_MAX_M,
+        final_neff=float(infos[-1].neff), finite=finite, warm_seconds=sec,
+        scans_per_sec=len(seq) / sec)
+    if not finite:
+        raise AssertionError("chip: non-finite poses or maps")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"chip: a kernel was not launched: {launches}")
+    if not ate < ATE_MAX_M:
+        raise AssertionError(f"chip ATE {ate} >= {ATE_MAX_M}")
+    check_recorded(rec, {"chip": launches})
+    return launches
 
 
 def main() -> int:
@@ -793,7 +1570,18 @@ def main() -> int:
         "city", city_config(), frames, gt, ATE_MAX_M)
     city_kernels_phase(eng, state, seq[-1])
     del eng, state, seq
+    k1_err, k2_err = grouped_kernel_phase(cfg, frames)
+    rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], k1_err)
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], k2_err)
+    sync_phase(cfg, frames)
+    shared_agree_phase(cfg, frames)
+    by_path["mega_blocked"] = mega_blocked_phase(frames, gt)
+    by_path["multi"] = multi_phase()
+    by_path.update(posegraph_phase())
+    by_path["chip"] = chip_phase(frames, gt)
     for row in rows:
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 PATH_MAX_ERR[row["name"]])
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

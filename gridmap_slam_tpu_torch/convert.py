@@ -1,8 +1,8 @@
 """Carry configurations and filter state over from the JAX package.
 
 Every function takes plain Python and numpy values, so this module needs no
-jax: a caller converts a JAX `SlamState` or `SharedMapState` with
-`np.asarray` on each field.
+jax: a caller converts a JAX `SlamState`, `SharedMapState`,
+`MultiRobotState` or `PoseGraph` with `np.asarray` on each field.
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ import torch
 
 from .config import (MapConfig, MatcherConfig, MotionConfig, RobotConfig,
                      SensorConfig, SlamConfig)
+from .models.frontend import FrontendConfig
+from .models.multi import MultiRobotState
+from .models.posegraph import PoseGraph
 from .models.shared import SharedMapState
 from .types import SlamState
 
@@ -56,3 +59,28 @@ def shared_state_from_jax_arrays(poses, log_weights, logodds, step, recov,
                           log_weights=_f32(log_weights, device),
                           logodds=_f32(logodds, device),
                           step=_i32(step, device), recov=_f32(recov, device))
+
+
+def multi_state_from_jax_arrays(poses, log_weights, logodds, step,
+                                device="cpu") -> MultiRobotState:
+    """The port's MultiRobotState from the numpy arrays of a JAX
+    MultiRobotState (its PRNG key has no counterpart here)."""
+    return MultiRobotState(poses=_f32(poses, device),
+                           log_weights=_f32(log_weights, device),
+                           logodds=_f32(logodds, device),
+                           step=_i32(step, device))
+
+
+def posegraph_from_jax_arrays(nodes, edge_i, edge_j, edge_z, edge_w,
+                              device="cpu") -> PoseGraph:
+    """The port's PoseGraph from the numpy arrays of a JAX PoseGraph (the
+    edge indices become int64, torch's index type)."""
+    idx = lambda a: torch.as_tensor(np.array(a, np.int64), device=device)
+    return PoseGraph(nodes=_f32(nodes, device), edge_i=idx(edge_i),
+                     edge_j=idx(edge_j), edge_z=_f32(edge_z, device),
+                     edge_w=_f32(edge_w, device))
+
+
+def frontend_config_from_jax(cfg) -> FrontendConfig:
+    """The port's FrontendConfig with every field of the JAX package's."""
+    return FrontendConfig(**dataclasses.asdict(cfg))

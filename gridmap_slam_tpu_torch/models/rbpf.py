@@ -11,8 +11,10 @@ systematically when Neff < P/2.
 On a CUDA device every kernel is the hand-written one; on the CPU each runs
 its plain PyTorch version.  The resample gate is a device-side select
 (identity indices when it does not fire), so a step never waits on the
-host.  Randomness comes from the `torch.Generator` passed to `step`, or
-from draws the caller injects.
+host: a warm step on the card makes no synchronizing call (chip_smoke.py
+runs one under torch.cuda.set_sync_debug_mode("error")).  Randomness comes
+from the `torch.Generator` passed to `step`, or from draws the caller
+injects.
 """
 
 from __future__ import annotations
@@ -153,7 +155,9 @@ class RBPF:
             log_weights = log_weights + state.log_weights
         n_eff = neff(log_weights)
         best_index = torch.argmax(log_weights)
-        best_pose = poses[best_index]
+        # indexing with a 1-element tensor, not the 0-dim one, keeps the
+        # index on the card (a 0-dim index is read back to the host)
+        best_pose = poses[best_index[None]][0]
         weighted = weighted_mean_pose(poses, log_weights)
 
         # Auto-resample when Neff < P/2 (app/GridMapApp.java:185-186), as a

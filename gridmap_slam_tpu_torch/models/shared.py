@@ -1,12 +1,26 @@
-"""Shared-map particle filter in surface mode, in PyTorch.
+"""Shared-map particle filter, in PyTorch.
 
-Counterpart of the surface half of gridmap_slam_tpu/models/shared.py: one
-log-odds map for the whole cloud, particles that carry only (pose,
-log-weight), and a measurement model that is a per-scan correlation volume
-(ops/surface.py) sampled at every particle's pose.  This is the engine's
-1M-particle mode (BASELINE config 3).
+Counterpart of gridmap_slam_tpu/models/shared.py: one log-odds map for the
+whole cloud, and particles that carry only (pose, log-weight).  Two
+measurement models:
 
-Per scan: the volume is centered on the odometry-propagated cloud mean; the
+- `step` / `step_blocked`: every particle runs the full three-stage
+  correlative matcher (ops/matcher.py, kernel K1) against the one shared
+  field, built once a scan (kernel K3 at batch 1), in blocks of
+  `particle_chunk` (or `block`) particles; the scan is then integrated into
+  the whole map (kernel K2 at batch 1) and the filter resamples when
+  Neff < resample_fraction * P.  `matcher_block_size` sizes the block from
+  the matcher's workspace on the card (the `mega_blocked` preset: 1M
+  particles in blocks of 500 000).
+- `step_surface`: the engine's 1M-particle surface mode (BASELINE config
+  3), a per-scan correlation volume (ops/surface.py) sampled at every
+  particle's pose.
+
+Both end in the same tail (`_finish`): weights, Neff, the integration pose,
+the map update, the resample as a select on the card and the AMCL recovery
+injection.
+
+Per surface scan: the volume is centered on the odometry-propagated cloud mean; the
 log-likelihood field is built over the volume's crop plus the blur radius
 (kernel K3 at batch 1); every particle samples the motion model and reads
 its score from the volume; weights, Neff and the integration pose follow;
@@ -16,16 +30,19 @@ filter resamples when Neff < surface_resample_fraction * P, as a select on
 the card, and the AMCL recovery injection replaces a fraction of the
 resampled slots with uniform poses.
 
-Host reads a scan: none when the integration crop covers the map (the
-`mega` preset); one, the crop's (iy0, ix0), when it does not (`city`): K2
-takes the crop's origin as a scalar argument.  The volume crop is sliced
-by index arithmetic on the card and needs no host read.
+Host reads a scan: none in `step`.  In surface mode none when the
+integration crop covers the map (the `mega` preset); one, the crop's
+(iy0, ix0), when it does not (`city`): K2 takes the crop's origin as a
+scalar argument.  The volume crop is sliced by index arithmetic on the
+card and needs no host read.
 
-Not ported here: SharedMapSLAM.step / step_blocked (the per-particle
-matcher on one shared field) and surface_bf16, which raises ValueError.
-The JAX package feeds the recovery EMAs the max log-weight after weight
-accumulation (models/shared.py:434); this engine refuses injection together
-with accumulate_weights=True instead of copying that.
+Not ported here: surface_bf16, which raises ValueError.  Faults of the JAX
+package not copied: it feeds the recovery EMAs the max log-weight after
+weight accumulation (models/shared.py:434), so this engine refuses
+injection together with accumulate_weights=True; and its step_blocked
+(models/shared.py:577-654) skips the recovery EMAs, never injects and
+ignores freeze_map, where this engine's step_blocked is `step` with
+particle_chunk = block.
 """
 
 from __future__ import annotations
@@ -42,12 +59,42 @@ from ..ops.cuda.grid_update import integrate_scan_batch, scan_bin_tables
 from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.geometry import deskew_scan, scan_points
 from ..ops.grid import gaussian_kernel
+from ..ops.matcher import correlative_match_batch, score_pose
 from ..ops.motion import apply_odometry, sample_motion
 from ..ops.resample import neff, systematic_indices, weighted_mean_pose
 from ..ops.surface import (crop_center_cells, pack_neighborhoods,
                            refine_on_surface, sample_surface, scan_surface,
                            splat_endpoint_kernels, theta_grid)
 from ..types import Frame, Scan, StepInfo
+
+
+def matcher_workspace_bytes(cfg: SlamConfig) -> int:
+    """Bytes a particle of correlative_match_batch holds on the card at its
+    peak: the K1 output of a stage, its prior grid and its total, each
+    nt * nxy^2 float32 values, for the larger of the coarse stage and a
+    refinement stage (the coarse buffers are freed before the refinement
+    stages start).  Default matcher: 3 * 11 * 81 * 4 = 10 692 bytes."""
+    mc = cfg.matcher
+    cells = max(mc.coarse_nt * mc.coarse_nxy ** 2,
+                mc.fine_nt * mc.fine_nxy ** 2)
+    return 3 * cells * 4
+
+
+def matcher_block_size(cfg: SlamConfig, budget_bytes: float = 10e9,
+                       granule: int = 256) -> int:
+    """Largest particle block whose matcher workspace fits `budget_bytes`
+    of device memory (the JAX package's rule, with the workspace of the
+    torch matcher, `matcher_workspace_bytes`, in place of the TPU matmul's):
+    the budget-derived size, at most num_particles, lowered to the largest
+    divisor of num_particles (step_blocked needs block | num_particles).
+    The default matcher at 1M particles gives 500 000.  `granule` is kept
+    for the JAX signature and unused, as there."""
+    del granule
+    block = max(1, int(budget_bytes / matcher_workspace_bytes(cfg)))
+    block = min(block, cfg.num_particles)
+    while cfg.num_particles % block:
+        block -= 1
+    return block
 
 
 @dataclasses.dataclass
@@ -183,9 +230,9 @@ def integration_pose(n_eff, num_particles: int, weighted, best_pose):
 
 
 class SharedMapSLAM:
-    """Shared-map particle filter in surface mode for a fixed `SlamConfig`
-    on one device.  On a CUDA device K3 and K2 are the hand-written
-    kernels; on the CPU their plain versions."""
+    """Shared-map particle filter for a fixed `SlamConfig` on one device.
+    On a CUDA device K1, K2 and K3 are the hand-written kernels; on the CPU
+    their plain versions."""
 
     def __init__(self, config: SlamConfig, device="cpu"):
         mc = config.matcher
@@ -251,6 +298,86 @@ class SharedMapSLAM:
         return state
 
     # ------------------------------------------------------------------- step
+    def _draws(self, generator, draws):
+        """(normals (P, 2), u0, injection uniforms (P, 3) or None): `draws`
+        as given, or drawn from `generator` on the engine's device."""
+        if draws is not None:
+            return draws
+        p = self.config.num_particles
+        dev = self.device
+        normals = torch.randn((p, 2), generator=generator, device=dev)
+        u0 = torch.rand((), generator=generator, device=dev) * (1.0 / p)
+        inj = (torch.rand((p, 3), generator=generator, device=dev)
+               if self.injects else None)
+        return normals, u0, inj
+
+    def _scan_inputs(self, frame: Frame):
+        """The deskewed scan, its bin tables and the map-update multiplier
+        (0 past the large-rotation skip, slam/SLAM.java:82, and always 0
+        with freeze_map)."""
+        cfg = self.config
+        scan = deskew_scan(frame.scan, frame.odom)
+        tables = scan_bin_tables(scan, cfg.beam_lut_bins)
+        keep = (torch.abs(frame.odom.d_theta)
+                <= math.radians(cfg.skip_update_dtheta_deg)).to(torch.float32)
+        if cfg.freeze_map:          # localization-only: map never changes
+            keep = keep * 0.0
+        return scan, tables, keep
+
+    def step(self, state: SharedMapState, frame: Frame,
+             generator: Optional[torch.Generator] = None,
+             draws=None) -> Tuple[SharedMapState, StepInfo]:
+        """One scan with the per-particle matcher against the shared map, in
+        blocks of `particle_chunk` particles (all at once when 0).  `draws`
+        as in step_surface."""
+        return self._matcher_step(state, frame, self.config.particle_chunk,
+                                  generator, draws)
+
+    def step_blocked(self, state: SharedMapState, frame: Frame, block: int,
+                     generator: Optional[torch.Generator] = None,
+                     draws=None) -> Tuple[SharedMapState, StepInfo]:
+        """`step` with particle_chunk = block (block must divide P; size it
+        with matcher_block_size): the same result bit for bit, recovery
+        EMAs, injection and freeze_map included."""
+        return self._matcher_step(state, frame, block, generator, draws)
+
+    def _matcher_step(self, state, frame, chunk, generator, draws):
+        cfg = self.config
+        p = cfg.num_particles
+        chunk = chunk if 0 < chunk < p else p
+        if p % chunk:
+            raise ValueError(f"num_particles {p} must be divisible by the "
+                             f"block {chunk}")
+        normals, u0, inj = self._draws(generator, draws)
+        scan, tables, keep = self._scan_inputs(frame)
+        odom = frame.odom
+        origin = (float(cfg.map.origin[0]), float(cfg.map.origin[1]))
+        kw = dict(resolution=float(cfg.map.resolution), origin=origin,
+                  max_range=cfg.sensor.max_range)
+        # the LL field, built once for the shared map (K3 at batch 1)
+        llf = log_likelihood_field_batch(
+            state.logodds[None], self.taps, z_hit=cfg.matcher.z_hit,
+            max_range=cfg.sensor.max_range)
+        poses, scores = [], []
+        for s in range(0, p, chunk):
+            pose = state.poses[s:s + chunk]
+            pose_s = sample_motion(pose, odom, cfg.motion,
+                                   normals[s:s + chunk])
+            if cfg.matcher.enabled:
+                best, score = correlative_match_batch(
+                    llf, scan, pose_s, odom, matcher_cfg=cfg.matcher,
+                    motion_cfg=cfg.motion,
+                    prior_center_b=apply_odometry(pose, odom), **kw)
+            else:
+                best, score = pose_s, score_pose(
+                    llf, scan, pose_s, z_hit=cfg.matcher.z_hit, **kw)
+            poses.append(best)
+            scores.append(score)
+        poses = torch.cat(poses) if len(poses) > 1 else poses[0]
+        scores = torch.cat(scores) if len(scores) > 1 else scores[0]
+        return self._finish(state, poses, scores, tables, keep, u0, inj,
+                            crop=0, resample_fraction=cfg.resample_fraction)
+
     def step_surface(self, state: SharedMapState, frame: Frame,
                      generator: Optional[torch.Generator] = None,
                      draws=None) -> Tuple[SharedMapState, StepInfo]:
@@ -262,24 +389,9 @@ class SharedMapSLAM:
         A generator must be on the engine's device."""
         cfg = self.config
         mc = cfg.matcher
-        p = cfg.num_particles
-        dev = self.device
-        if draws is None:
-            normals = torch.randn((p, 2), generator=generator, device=dev)
-            u0 = torch.rand((), generator=generator, device=dev) * (1.0 / p)
-            inj = (torch.rand((p, 3), generator=generator, device=dev)
-                   if self.injects else None)
-        else:
-            normals, u0, inj = draws
-
-        scan = deskew_scan(frame.scan, frame.odom)
+        normals, u0, inj = self._draws(generator, draws)
+        scan, tables, keep = self._scan_inputs(frame)
         odom = frame.odom
-        tables = scan_bin_tables(scan, cfg.beam_lut_bins)
-        # Large-rotation skip for map integration (slam/SLAM.java:82).
-        keep = (torch.abs(odom.d_theta)
-                <= math.radians(cfg.skip_update_dtheta_deg)).to(torch.float32)
-        if cfg.freeze_map:          # localization-only: map never changes
-            keep = keep * 0.0
 
         # Volume center: the previous cloud's weighted mean propagated by
         # this frame's odometry, so the theta span follows a turn.
@@ -292,7 +404,19 @@ class SharedMapSLAM:
         poses, scores = refine_on_surface(
             c_vol, pose_s, scores, steps=mc.surface_refine_steps, **kw)
         scores = surface_temper(mc, scan, scores)
+        # Integration only touches cells within max_range of the pose.
+        return self._finish(state, poses, scores, tables, keep, u0, inj,
+                            crop=2 * kc + 8,
+                            resample_fraction=mc.surface_resample_fraction)
 
+    def _finish(self, state, poses, scores, tables, keep, u0, inj, *,
+                crop: int, resample_fraction: float):
+        """The tail of every step: weights, Neff, the map update at the
+        integration pose (into a crop x crop window when that is smaller
+        than the map), the resample gate, the recovery EMAs and the
+        injection."""
+        cfg = self.config
+        p = cfg.num_particles
         log_weights = scores.to(state.log_weights.dtype)
         if cfg.accumulate_weights:
             log_weights = log_weights + state.log_weights
@@ -303,11 +427,10 @@ class SharedMapSLAM:
         best_pose = poses[best_index[None]][0]
         weighted = weighted_mean_pose(poses, log_weights)
         integ_pose = integration_pose(n_eff, p, weighted, best_pose)
-        # Integration only touches cells within max_range of the pose.
         logodds = self._integrate(state.logodds, integ_pose, tables, keep,
-                                  2 * kc + 8)
+                                  crop)
 
-        do_resample = n_eff < (p * mc.surface_resample_fraction)
+        do_resample = n_eff < (p * resample_fraction)
         recov, p_inject = recovery_update(cfg, state, log_weights.max())
         if p_inject is not None:
             # a kidnap makes every particle uniformly bad, so Neff rises and
@@ -317,7 +440,7 @@ class SharedMapSLAM:
         # Resample as a select on the card: identity indices when the gate
         # does not fire.
         idx = torch.where(do_resample, systematic_indices(log_weights, u0),
-                          torch.arange(p, device=dev))
+                          torch.arange(p, device=self.device))
         new_poses = poses[idx]
         if cfg.accumulate_weights:
             new_lw = torch.where(do_resample, torch.zeros_like(log_weights),
@@ -375,6 +498,20 @@ class SharedMapSLAM:
         infos = []
         for f in frames:
             state, info = self.step_surface(state, f, generator)
+            infos.append(info)
+        return state, infos
+
+    def replay(self, state: SharedMapState, frames: Iterable[Frame],
+               generator: Optional[torch.Generator] = None,
+               block: int = 0) -> Tuple[SharedMapState, List[StepInfo]]:
+        """Replay a sequence of frames through `step` (block 0) or
+        `step_blocked(block)`; returns (state, infos)."""
+        infos = []
+        for f in frames:
+            if block:
+                state, info = self.step_blocked(state, f, block, generator)
+            else:
+                state, info = self.step(state, f, generator)
             infos.append(info)
         return state, infos
 

@@ -39,14 +39,15 @@ SIGNATURES = {
     "gs_ll_field": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     # radius -> output tile edge (0: the radius does not fit)
     "gs_ll_field_tile": [_I],
-    # lo, out, poses, keep, bin_dist, bin_alpha, bin_code, n_bins, P, H, W,
-    # res, origin_x, origin_y, l_free, l_occ, tol_m, bin_scale, stream
-    "gs_grid_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _F, _F, _F, _F, _F, _F, _F, _P],
-    # field, px, py, use, pose0, dxs, dys, dts, out, P, H, W, B, nt, ny, nx,
-    # res, origin_x, origin_y, v_outside, nearest, stream
+    # lo, out, poses, keep, bin_dist, bin_alpha, bin_code, n_bins, G, P, H,
+    # W, res, origin_x, origin_y, l_free, l_occ, tol_m, bin_scale,
+    # cone_fill, stream
+    "gs_grid_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    # field, px, py, use, pose0, dxs, dys, dts, out, P, G_f, G_b, H, W, B,
+    # nt, ny, nx, res, origin_x, origin_y, v_outside, nearest, stream
     "gs_stage_scores": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _F, _F, _F, _F, _I, _P],
+                        _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
 }
 
 

@@ -51,14 +51,16 @@ def deskew_scan(scan: Scan, odom: Odom) -> Scan:
         x' = dist * cos(angle + dTheta*d_i) + dCenter*d_i
         y' = dist * sin(angle + dTheta*d_i)
     then re-expressed in polar form.  Padding beams keep d_i computed over
-    the count of valid beams, matching the reference's variable N.
+    the count of valid beams, matching the reference's variable N.  A batch
+    of scans (G, B) takes odometry of shape (G,), one revolution each.
     """
-    n = torch.clamp(scan.valid.sum(dtype=torch.int32), min=1).float()
+    n = torch.clamp(scan.valid.sum(-1, keepdim=True, dtype=torch.int32),
+                    min=1).float()
     i = torch.arange(scan.num_beams, dtype=torch.float32,
                      device=scan.angle.device)
     d_i = -(n - i) / n
-    dth = odom.d_theta * d_i
-    dx = odom.d_center * d_i
+    dth = odom.d_theta[..., None] * d_i
+    dx = odom.d_center[..., None] * d_i
     xa = scan.dist * torch.cos(scan.angle + dth) + dx
     ya = scan.dist * torch.sin(scan.angle + dth)
     return Scan(angle=torch.atan2(ya, xa), dist=torch.sqrt(xa * xa + ya * ya),
@@ -66,5 +68,5 @@ def deskew_scan(scan: Scan, odom: Odom) -> Scan:
 
 
 def scan_points(scan: Scan):
-    """Beam endpoints in the robot frame: (B,), (B,)."""
+    """Beam endpoints in the robot frame: (..., B), (..., B)."""
     return scan.dist * torch.cos(scan.angle), scan.dist * torch.sin(scan.angle)

@@ -64,3 +64,13 @@ def likelihood_field(logodds, kernel):
     explored = torch.abs(p - 0.5) > 0.25   # cells with any evidence
     evidence = blur_separable(explored.to(logodds.dtype), kernel)
     return field, evidence <= 0.0
+
+
+def beam_log_likelihood(field_vals, unknown, z_hit: float, max_range: float):
+    """Per-beam log p(z_b | x, m) from likelihood-field lookups
+    (slam/GridMap.java:261-294): uniform 1/max_range for unexplored cells,
+    else z_hit*field + (1-z_hit)/max_range."""
+    uniform = 1.0 / max_range
+    known_p = z_hit * field_vals + (1.0 - z_hit) * uniform
+    p = torch.where(unknown, uniform, known_p)
+    return torch.log(torch.clamp(p, min=1e-30))

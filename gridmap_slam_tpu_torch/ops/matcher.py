@@ -9,8 +9,11 @@ uniform likelihood 1/max_range (see the JAX module's docstring for the two
 documented divergences from the reference).
 
 `correlative_match_batch` searches for all particles at once, with the
-schedule of the JAX package's `correlative_match`; its stages are scored by
-`ops.cuda.matcher.stage_scores_batch` (kernel K1 on the card).  Only
+schedule of the JAX package's `correlative_match`, on grouped fields and
+scans (one map a particle, one shared map, one a closure candidate; one
+scan, or one a robot); its stages are scored by
+`ops.cuda.matcher.stage_scores_batch` (kernel K1 on the card).
+`correlative_match` and `score_pose` on a single pose are batches of one.  Only
 `impl` "auto" and "gather" exist here: the JAX package's "matmul", "splat"
 and "pallas" backends are TPU workarounds and raise ValueError.
 """
@@ -24,14 +27,15 @@ import torch
 import torch.nn.functional as F
 
 from ..types import Odom, Scan
-from .cuda.matcher import (_bilinear, _nearest, stage_scores_batch,
-                           stage_scores_batch_plain)
+from .cuda.matcher import (_bilinear, _nearest, per_particle,
+                           stage_scores_batch, stage_scores_batch_plain)
 from .geometry import scan_points, wrap_angle
 from .motion import noise_scales
 
 __all__ = ["effective_field", "log_likelihood_field", "score_pose",
-           "correlative_match_batch", "_bilinear", "_nearest",
-           "_stage_scores", "_prior_grid", "_argmax3"]
+           "correlative_match", "correlative_match_batch", "half_resolution",
+           "_bilinear", "_nearest", "_stage_scores", "_prior_grid",
+           "_argmax3"]
 
 IMPLS = ("auto", "gather")
 
@@ -65,9 +69,16 @@ def _stage_scores(llfield, px, py, use, pose0, dxs, dys, dts, *,
         nearest=nearest)[0]
 
 
+def _scale(x, trailing: int):
+    """A 0-dim or (P,) tensor shaped to broadcast against (P, ...) tensors
+    with `trailing` dimensions after P."""
+    return x if x.dim() == 0 else x.reshape(-1, *(1,) * trailing)
+
+
 def _prior_grid(dxs, dys, dts, sd_c, sd_t, weight=1.0, bias=None):
     """Motion log-prior over the offset grid, (..., nt, ny, nx) from
-    (..., nx), (..., ny), (..., nt) offsets.
+    (..., nx), (..., ny), (..., nt) offsets; the noise scales sd_c, sd_t are
+    scalars or one a particle (P,).
 
     `bias` (..., 3) shifts the prior's center: candidates live at
     pose0 + offset, and the prior penalizes deviation from the deterministic
@@ -78,6 +89,8 @@ def _prior_grid(dxs, dys, dts, sd_c, sd_t, weight=1.0, bias=None):
         bx = by = bt = 0.0
     else:
         bx, by, bt = bias[..., 0, None], bias[..., 1, None], bias[..., 2, None]
+    if torch.is_tensor(sd_c) and sd_c.dim() == 1:
+        sd_c, sd_t = _scale(sd_c, 3), _scale(sd_t, 1)
     d2 = ((dys + by) ** 2)[..., :, None] + ((dxs + bx) ** 2)[..., None, :]
     pt = -((dts + bt) ** 2) / (2.0 * sd_t * sd_t)
     return weight * (pt[..., :, None, None]
@@ -100,21 +113,81 @@ def _argmax3(scores, dxs, dys, dts):
     return _take(dxs, ix), _take(dys, iy), _take(dts, it), flat
 
 
-def score_pose(llfield_b, scan: Scan, poses, *, z_hit, resolution, origin,
+def _stage_offsets(mc, device):
+    """The matcher's candidate offsets on `device`, built once per (matcher
+    config, device) and cached: the coarse (dxs, dts) and, for each
+    refinement stage, its (off_xy, off_t) around the running argmax.
+    Copying numpy-built offsets to the card inside a step would stop the
+    host once a stage."""
+    key = (float(mc.window_xy), float(mc.window_theta_deg),
+           int(mc.coarse_nxy), int(mc.coarse_nt), int(mc.fine_nxy),
+           int(mc.fine_nt), int(mc.extra_refine_stages), str(device))
+    hit = _OFFSETS.get(key)
+    if hit is not None:
+        return hit
+
+    def dev(values):
+        return torch.as_tensor(np.asarray(values, np.float32), device=device)
+
+    wt = math.radians(mc.window_theta_deg)
+    coarse = (dev(np.linspace(-mc.window_xy, mc.window_xy, mc.coarse_nxy)),
+              dev(np.linspace(-wt, wt, mc.coarse_nt)))
+    step_xy = 2.0 * mc.window_xy / max(mc.coarse_nxy - 1, 1)
+    step_t = 2.0 * wt / max(mc.coarse_nt - 1, 1)
+    refine = []
+    for _ in range(1 + mc.extra_refine_stages):
+        refine.append((dev(np.linspace(-step_xy, step_xy, mc.fine_nxy)),
+                       dev(np.linspace(-step_t, step_t, mc.fine_nt))))
+        step_xy = 2.0 * step_xy / max(mc.fine_nxy - 1, 1)
+        step_t = 2.0 * step_t / max(mc.fine_nt - 1, 1)
+    _OFFSETS[key] = (coarse, tuple(refine))
+    return _OFFSETS[key]
+
+
+_OFFSETS: dict = {}
+
+
+def half_resolution(llfield_b, ll_outside: float):
+    """The 2x2-mean-pooled (G, H/2, W/2) fields of (G, H, W) fields, odd
+    edges padded with the out-of-map value: one pooled field a field."""
+    h, w = llfield_b.shape[-2:]
+    lle = F.pad(llfield_b, (0, w & 1, 0, h & 1), value=ll_outside)
+    return lle.reshape(lle.shape[0], lle.shape[1] // 2, 2, lle.shape[2] // 2,
+                       2).mean((2, 4))
+
+
+def score_pose(llfield, scan: Scan, pose, *, z_hit, resolution, origin,
                max_range):
-    """Measurement log-likelihoods (P,) of poses (P, 3) on their fields
-    (P, H, W), with no search.  z_hit is unused, as in the JAX package."""
+    """Measurement log-likelihood of poses with no search.  A single pose
+    (3,) on one (H, W) field gives a scalar (the JAX package's score_pose);
+    poses (P, 3) on grouped fields (G_f, H, W) and a scan (B,) or (G_b, B)
+    give (P,).  z_hit is unused, as in the JAX package."""
     del z_hit
+    if pose.dim() == 1:
+        return score_pose(llfield[None], scan, pose[None], z_hit=None,
+                          resolution=resolution, origin=origin,
+                          max_range=max_range)[0]
     px, py = scan_points(scan)
-    zero = torch.zeros((poses.shape[0], 1), dtype=torch.float32,
-                       device=poses.device)
-    return stage_scores_batch(llfield_b, px, py, scan.valid & scan.hit, poses,
+    zero = torch.zeros((pose.shape[0], 1), dtype=torch.float32,
+                       device=pose.device)
+    return stage_scores_batch(llfield, px, py, scan.valid & scan.hit, pose,
                               zero, zero, zero, resolution=resolution,
                               origin=origin, max_range=max_range).reshape(-1)
 
 
-def _offsets(values, device):
-    return torch.as_tensor(np.asarray(values, np.float32), device=device)
+def correlative_match(llfield, scan: Scan, pose0, odom: Odom, *,
+                      matcher_cfg, motion_cfg, resolution, origin, max_range,
+                      prior_center=None):
+    """The search for one particle: llfield (H, W), pose0 (3,), prior_center
+    (3,) or None.  Returns (best_pose (3,), meas_logscore), as the JAX
+    package's correlative_match (a batch of one of
+    correlative_match_batch)."""
+    best, score = correlative_match_batch(
+        llfield[None], scan, pose0[None], odom, matcher_cfg=matcher_cfg,
+        motion_cfg=motion_cfg, resolution=resolution, origin=origin,
+        max_range=max_range,
+        prior_center_b=None if prior_center is None else prior_center[None])
+    return best[0], score[0]
 
 
 def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
@@ -123,14 +196,20 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
     """For every particle, the pose maximizing
     log p(z|x,m) + prior_weight * log p(x|x0,u) near pose0.
 
-    llfield_b: (P, H, W) log-likelihood fields; pose0_b: (P, 3) search
-    centers (the motion-sampled poses); prior_center_b: (P, 3) poses the
-    motion prior is centered at (the deterministic odometry poses), or None
-    to center it at pose0.  Same candidate schedule as the JAX package's
-    correlative_match: a coarse stage (optionally on a 2x2-mean-pooled
-    half-resolution field) over every `coarse_beam_stride`-th beam with its
-    prior scaled by the used-beam fraction, then 1 + extra_refine_stages
-    halving bilinear stages over all beams.
+    llfield_b: (G_f, H, W) log-likelihood fields, particle p matching on
+    field p // (P // G_f): one a particle (the RBPF), one for all (the
+    shared-map filters) or one a group (closure candidates).  scan: (B,)
+    arrays, or (G_b, B) with odom of shape (G_b,), one scan and one odometry
+    a group of P // G_b particles (the robots of a multi-robot step).
+    pose0_b: (P, 3) search centers (the motion-sampled poses);
+    prior_center_b: (P, 3) poses the motion prior is centered at (the
+    deterministic odometry poses), or None to center it at pose0.  Same
+    candidate schedule as the JAX package's correlative_match: a coarse
+    stage (optionally on a 2x2-mean-pooled half-resolution field, pooled
+    once a field) over every `coarse_beam_stride`-th beam with its prior
+    scaled by the used-beam fraction, then 1 + extra_refine_stages halving
+    bilinear stages over all beams.  The offsets come from a cache on the
+    device, so a call reads nothing back to the host.
 
     Returns (best_poses (P, 3), meas_logscores (P,)), the measurement-only
     log-likelihood at the best pose (the reference's particle weight).
@@ -141,13 +220,14 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
         raise ValueError(f"matcher.impl={impl!r} is not ported (TPU-only "
                          f"backend); use one of {IMPLS}")
     pn = pose0_b.shape[0]
-    dev = pose0_b.device
     ll_outside = math.log(1.0 / max_range)
     px, py = scan_points(scan)
     use = scan.valid & scan.hit
     kw = dict(origin=origin, max_range=max_range)
+    (c_off_xy, c_off_t), refine = _stage_offsets(mc, pose0_b.device)
 
-    sd_c, sd_t = noise_scales(odom, motion_cfg)
+    sd_c, sd_t = (per_particle(sd, pn)
+                  for sd in noise_scales(odom, motion_cfg))
     if prior_center_b is None:
         bias_b = None
     else:
@@ -157,23 +237,16 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
              wrap_angle(pose0_b[:, 2] - prior_center_b[:, 2])], 1)
 
     stride = max(int(mc.coarse_beam_stride), 1)
-    px_c, py_c, use_c = (a[::stride].contiguous() for a in (px, py, use))
-
-    wt = math.radians(mc.window_theta_deg)
-    c_dxs = _offsets(np.linspace(-mc.window_xy, mc.window_xy, mc.coarse_nxy),
-                     dev).expand(pn, -1).contiguous()
-    c_dts = _offsets(np.linspace(-wt, wt, mc.coarse_nt),
-                     dev).expand(pn, -1).contiguous()
+    px_c, py_c, use_c = (a[..., ::stride].contiguous() for a in (px, py, use))
+    c_dxs = c_off_xy.expand(pn, -1).contiguous()
+    c_dts = c_off_t.expand(pn, -1).contiguous()
 
     if getattr(mc, "coarse_halfres", False):
-        # Basin-finding on the 2x2-mean-pooled field (odd edges padded with
-        # the out-of-map value), bilinear at twice the cell size.
-        h, w = llfield_b.shape[-2:]
-        lle = F.pad(llfield_b, (0, w & 1, 0, h & 1), value=ll_outside)
-        hll = lle.reshape(pn, lle.shape[1] // 2, 2, lle.shape[2] // 2,
-                          2).mean((2, 4))
-        meas = stage_scores_batch(hll, px_c, py_c, use_c, pose0_b, c_dxs,
-                                  c_dxs, c_dts, resolution=2.0 * resolution,
+        # Basin-finding on the 2x2-mean-pooled field, bilinear at twice the
+        # cell size.
+        meas = stage_scores_batch(half_resolution(llfield_b, ll_outside),
+                                  px_c, py_c, use_c, pose0_b, c_dxs, c_dxs,
+                                  c_dts, resolution=2.0 * resolution,
                                   nearest=False, **kw)
     else:
         meas = stage_scores_batch(llfield_b, px_c, py_c, use_c, pose0_b,
@@ -181,19 +254,20 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
                                   nearest=bool(mc.coarse_nearest), **kw)
     # prior in per-used-beam units must not change with the beam subset:
     # scale the coarse prior by the coarse beam fraction.
-    n_all = torch.clamp(use.to(torch.float32).sum(), min=1.0)
-    n_c = torch.clamp(use_c.to(torch.float32).sum(), min=1.0)
-    total = meas + (n_c / n_all) * _prior_grid(
+    n_all = per_particle(torch.clamp(use.to(torch.float32).sum(-1),
+                                      min=1.0), pn)
+    n_c = per_particle(torch.clamp(use_c.to(torch.float32).sum(-1),
+                                    min=1.0), pn)
+    total = meas + _scale(n_c / n_all, 3) * _prior_grid(
         c_dxs, c_dxs, c_dts, sd_c, sd_t, mc.prior_weight, bias_b)
     fx, fy, ft, flat = _argmax3(total, c_dxs, c_dxs, c_dts)
     meas_best = (n_all / n_c) * _take(meas.reshape(pn, -1), flat)
+    # the coarse stage's buffers go before the finer stages allocate theirs
+    # (models/shared.matcher_block_size counts the larger stage only)
+    del meas, total
 
     # Refinement stages: halve the span around the running argmax.
-    step_xy = 2.0 * mc.window_xy / max(mc.coarse_nxy - 1, 1)
-    step_t = 2.0 * wt / max(mc.coarse_nt - 1, 1)
-    for _ in range(1 + mc.extra_refine_stages):
-        off_xy = _offsets(np.linspace(-step_xy, step_xy, mc.fine_nxy), dev)
-        off_t = _offsets(np.linspace(-step_t, step_t, mc.fine_nt), dev)
+    for off_xy, off_t in refine:
         r_dxs = fx[:, None] + off_xy
         r_dys = fy[:, None] + off_xy
         r_dts = ft[:, None] + off_t
@@ -204,8 +278,7 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
                                        mc.prior_weight, bias_b)
         fx, fy, ft, flat = _argmax3(total_r, r_dxs, r_dys, r_dts)
         meas_best = _take(meas_r.reshape(pn, -1), flat)
-        step_xy = 2.0 * step_xy / max(mc.fine_nxy - 1, 1)
-        step_t = 2.0 * step_t / max(mc.fine_nt - 1, 1)
+        del meas_r, total_r
 
     best = torch.stack([pose0_b[:, 0] + fx, pose0_b[:, 1] + fy,
                         pose0_b[:, 2] + ft], 1)

@@ -4,7 +4,9 @@ Counterpart of gridmap_slam_tpu/ops/motion.py (reference
 slam/Odometry.java:60-96): one Gaussian sample for the traveled distance and
 one for the heading change, the heading noise applied BEFORE the translation.
 The standard normals are drawn by the caller, so a test can feed both
-implementations the same draws.
+implementations the same draws.  `motion_log_prior` is the Gaussian
+log-density of a candidate's deviation from the sampled pose (the intended
+spec of the reference's `probabiliyOf`, slam/Odometry.java:99-103).
 """
 
 from __future__ import annotations
@@ -46,3 +48,17 @@ def apply_odometry(pose, odom: Odom):
     x = pose[..., 0] + torch.cos(theta) * odom.d_center
     y = pose[..., 1] + torch.sin(theta) * odom.d_center
     return torch.stack([x, y, theta], -1)
+
+
+def motion_log_prior(candidate, sampled, odom: Odom, cfg):
+    """Log prior of a candidate pose given the motion-sampled pose.
+
+    Penalizes the candidate's deviation from the sampled pose with the same
+    noise scales the sampler used (the role the reference's BOBYQA objective
+    intended for `u.probabiliyOf`, slam/GridMap.java:356)."""
+    sd_c, sd_t = noise_scales(odom, cfg)
+    dx = candidate[..., 0] - sampled[..., 0]
+    dy = candidate[..., 1] - sampled[..., 1]
+    dt = wrap_angle(candidate[..., 2] - sampled[..., 2])
+    return (-(dx * dx + dy * dy) / (2.0 * sd_c * sd_c)
+            - (dt * dt) / (2.0 * sd_t * sd_t))

@@ -26,24 +26,29 @@ def build_beam_lut(scan: Scan, n_bins: int):
 
     Bins cover (-pi, pi]; each bin stores the index of the valid beam with the
     nearest angle (circular distance).  Invalid (padding) beams are never
-    selected.  Returns lut: (n_bins,) int32.
+    selected.  Returns lut: (n_bins,) int32, or (G, n_bins) for a batch of
+    G scans (G, B).
     """
     inf = torch.full_like(scan.angle, math.inf)
     ang = torch.where(scan.valid, wrap_angle(scan.angle), inf)
-    order = torch.argsort(ang, stable=True)
-    sorted_ang = ang[order]
-    n_valid = torch.clamp(scan.valid.sum(dtype=torch.int64), min=1)
+    order = torch.argsort(ang, dim=-1, stable=True)
+    sorted_ang = torch.gather(ang, -1, order)
+    n_valid = torch.clamp(scan.valid.sum(-1, keepdim=True, dtype=torch.int64),
+                          min=1)
 
     centers = -math.pi + (torch.arange(n_bins, dtype=torch.float32,
                                        device=ang.device) + 0.5) * (
         _TWO_PI / n_bins)
+    centers = centers.expand(*ang.shape[:-1], n_bins).contiguous()
     pos = torch.searchsorted(sorted_ang, centers)            # side left
     left = (pos - 1) % n_valid                               # Python-style mod
     right = pos % n_valid
-    d_left = torch.abs(wrap_angle(centers - sorted_ang[left]))
-    d_right = torch.abs(wrap_angle(centers - sorted_ang[right]))
+    d_left = torch.abs(wrap_angle(centers - torch.gather(sorted_ang, -1,
+                                                         left)))
+    d_right = torch.abs(wrap_angle(centers - torch.gather(sorted_ang, -1,
+                                                          right)))
     pick = torch.where(d_left <= d_right, left, right)
-    return order[pick].to(torch.int32)
+    return torch.gather(order, -1, pick).to(torch.int32)
 
 
 def bearing_bins(phi, n_bins: int):

@@ -21,12 +21,13 @@ splat under a local matmul flag.  `surface_bf16` is not ported
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .precision import f32_conv, f32_matmul
 
 
 def crop_center_cells(center_xy, crop_hw: Tuple[int, int],
@@ -54,25 +55,6 @@ def theta_grid(nt: int, span_rad: float):
     return 2.0 * span_rad / max(nt - 1, 1), False, -span_rad
 
 
-@contextlib.contextmanager
-def _f32_matmul():
-    """float32 matmuls inside the block, whatever the global TF32 flag."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
-def _f32_conv():
-    """cuDNN convolutions in float32 inside the block (cuDNN's default for
-    float32 is TF32); the other cuDNN flags keep their values."""
-    cudnn = torch.backends.cudnn
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
-
-
 def splat_endpoint_kernels(px, py, wgt, thetas, k_cells: int,
                            resolution: float):
     """(nt, K, K) stack of bilinearly-splatted endpoint images, one per
@@ -98,7 +80,7 @@ def splat_endpoint_kernels(px, py, wgt, thetas, k_cells: int,
            + torch.where(idx == y0i + 1, ty[..., None], zero))   # (nt, B, K)
     a_x = (torch.where(idx == x0i, 1.0 - tx[..., None], zero)
            + torch.where(idx == x0i + 1, tx[..., None], zero))
-    with _f32_matmul():
+    with f32_matmul():
         return torch.bmm((a_y * wgt[:, None]).transpose(1, 2), a_x)
 
 
@@ -144,7 +126,7 @@ def scan_surface(llf_crop, e_stack, ll_outside: float, fft: bool = False):
         out = torch.fft.irfft2(f_hat[None] * torch.conj(e_hat), s=(h2, w2))
         return out[:, :hc, :wc].to(torch.float32)
     # conv2d cross-correlates: out[t, y, x] = sum fpad[y+dy, x+dx] E[t, dy, dx]
-    with _f32_conv():
+    with f32_conv():
         out = F.conv2d(fpad[None, None], e_stack[:, None])
     return out[0]                                       # (nt, Hc, Wc)
 

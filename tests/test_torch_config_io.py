@@ -157,6 +157,9 @@ def test_metrics_copy_matches():
 def test_port_imports_without_jax():
     code = ("import gridmap_slam_tpu_torch, gridmap_slam_tpu_torch.models.rbpf,"
             " gridmap_slam_tpu_torch.models.shared,"
+            " gridmap_slam_tpu_torch.models.multi,"
+            " gridmap_slam_tpu_torch.models.posegraph,"
+            " gridmap_slam_tpu_torch.models.frontend,"
             " gridmap_slam_tpu_torch.ops.surface,"
             " gridmap_slam_tpu_torch.ops.cuda.matcher,"
             " gridmap_slam_tpu_torch.ops.cuda.likelihood,"

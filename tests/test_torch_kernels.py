@@ -130,6 +130,39 @@ def test_k2_plain_matches_xla(h, w, origin):
     assert (np.abs(got - want) > K2_ATOL).mean() <= K2_MAX_FRAC
 
 
+@pytest.mark.parametrize("cone_fill", [False, True])
+def test_k2_grouped_tables_match_xla(cone_fill):
+    """Three scans, two particles each, one bin table a scan (the layout of
+    the closure verifier's local maps and the multi-robot deltas), held to
+    the JAX integrate_scan of each particle's own scan, with and without
+    cone fill; same tolerance as above."""
+    s = JSlamConfig().sensor
+    scans = [_scans(n=70 + 5 * k, seed=k) for k in range(3)]
+    poses = np.asarray([[0.1, -0.05, 0.3], [-0.2, 0.15, -1.2],
+                        [0.0, 0.0, 0.0], [0.3, 0.1, 2.0],
+                        [-0.1, -0.3, -2.5], [0.05, 0.2, 1.0]], np.float32)
+    lo = (np.random.RandomState(3).normal(size=(6, 64, 72)) * 0.5).astype(
+        np.float32)
+    origin = (-1.6, -1.8)
+    want = np.stack([np.asarray(lo[p] + j_integrate_scan(
+        jnp.asarray(lo[p]), jnp.asarray(poses[p]), scans[p // 2][0],
+        j_build_beam_lut(scans[p // 2][0], 2048), resolution=RES,
+        origin=origin, l_free=s.l_free, l_occ=s.l_occ, cone_fill=cone_fill))
+        for p in range(6)])
+    stacked = Scan(*(torch.stack([getattr(ts, f) for _, ts in scans])
+                     for f in ("angle", "dist", "hit", "valid")))
+    tables = grid_update.scan_bin_tables(stacked, 2048)
+    assert tables[0].shape == (3, 2048)
+    for k, (_, ts) in enumerate(scans):     # a batch row is that scan's
+        for a, b in zip(tables, grid_update.scan_bin_tables(ts, 2048)):
+            assert torch.equal(a[k], b)
+    got = grid_update.integrate_scan_batch(
+        _t(lo), _t(poses), 1.0, *tables, resolution=RES, origin=origin,
+        l_free=s.l_free, l_occ=s.l_occ, cone_fill=cone_fill).numpy()
+    assert (want != lo).mean() > (0.2 if cone_fill else 0.05)
+    assert (np.abs(got - want) > K2_ATOL).mean() <= K2_MAX_FRAC
+
+
 def test_k2_keep_zero_is_identity():
     _, ts = _scans()
     lo = np.random.RandomState(2).normal(size=(2, 64, 128)).astype(np.float32)
@@ -202,6 +235,44 @@ def test_k1_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got, want, **K1_TOL)
 
 
+@pytest.mark.parametrize("g_f,g_b", [(1, 1), (1, 3), (6, 6), (2, 3)])
+def test_k1_grouped_plain_matches_gather(g_f, g_b):
+    """Six particles on G_f fields and G_b scans, particle p reading field
+    p // (6 // G_f) and scan p // (6 // G_b): held to JAX's per-particle
+    _stage_scores on that field and scan (K1 tolerance)."""
+    rng = np.random.default_rng(g_f * 10 + g_b)
+    llf = rng.normal(-1.5, 0.5, (g_f, 36, 44)).astype(np.float32)
+    b = 24
+    ang = rng.uniform(-np.pi, np.pi, (g_b, b))
+    dist = rng.uniform(0.2, 1.2, (g_b, b))
+    px = (dist * np.cos(ang)).astype(np.float32)
+    py = (dist * np.sin(ang)).astype(np.float32)
+    use = rng.uniform(size=(g_b, b)) > 0.2
+    poses = np.stack([rng.uniform(-0.6, 0.6, 6), rng.uniform(-0.6, 0.6, 6),
+                      rng.uniform(-np.pi, np.pi, 6)], -1).astype(np.float32)
+    poses[0] = [0.95, -0.95, 1.0]     # out-of-map taps on particle 0
+    dxs = rng.uniform(-0.1, 0.1, (6, 5)).astype(np.float32)
+    dys = rng.uniform(-0.1, 0.1, (6, 4)).astype(np.float32)
+    dts = rng.uniform(-0.1, 0.1, (6, 3)).astype(np.float32)
+    origin = (-1.0, -0.9)
+    want = np.stack([np.asarray(jm._stage_scores(
+        jnp.asarray(llf[p // (6 // g_f)]), jnp.asarray(px[p // (6 // g_b)]),
+        jnp.asarray(py[p // (6 // g_b)]), jnp.asarray(use[p // (6 // g_b)]),
+        jnp.asarray(poses[p]), jnp.asarray(dxs[p]), jnp.asarray(dys[p]),
+        jnp.asarray(dts[p]), resolution=RES, origin=origin, z_hit=ZHIT,
+        max_range=MAXR)) for p in range(6)])
+    got = kmatch.stage_scores_batch(
+        _t(llf), _t(px), _t(py), _t(use), _t(poses), _t(dxs), _t(dys),
+        _t(dts), resolution=RES, origin=origin, max_range=MAXR).numpy()
+    np.testing.assert_allclose(got, want, **K1_TOL)
+    if g_b == 1:        # a (B,) scan is the one-group case, bit for bit
+        flat = kmatch.stage_scores_batch(
+            _t(llf), _t(px[0]), _t(py[0]), _t(use[0]), _t(poses), _t(dxs),
+            _t(dys), _t(dts), resolution=RES, origin=origin,
+            max_range=MAXR).numpy()
+        np.testing.assert_array_equal(flat, got)
+
+
 def test_k1_all_invalid_scan_scores_zero():
     llf, px, py, _, poses = _problem(b=16, seed=5)
     offs = np.linspace(-0.1, 0.1, 3).astype(np.float32)
@@ -257,6 +328,65 @@ def test_correlative_match_batch_matches_vmapped(halfres):
     np.testing.assert_allclose(best_t.numpy(), np.asarray(best_j),
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(score_t.numpy(), np.asarray(score_j), **K1_TOL)
+
+
+def test_single_particle_match_and_score_match_jax():
+    """correlative_match and score_pose on one pose and one (H, W) field,
+    the thin wrappers of the batched search, against the JAX functions."""
+    llf, px, py, use, poses = _problem(p=1, b=20, seed=6)
+    origin = (-1.0, -1.0)
+    angle, dist = np.arctan2(py, px), np.hypot(px, py)
+    jscan = JScan(angle=jnp.asarray(angle), dist=jnp.asarray(dist),
+                  hit=jnp.asarray(use), valid=jnp.ones(20, bool))
+    tscan = Scan(angle=_t(angle), dist=_t(dist), hit=_t(use),
+                 valid=torch.ones(20, dtype=torch.bool))
+    cfg = dataclasses.replace(JSlamConfig().matcher, impl="gather")
+    kw = dict(matcher_cfg=cfg, motion_cfg=JSlamConfig().motion,
+              resolution=RES, origin=origin, max_range=MAXR)
+    prior = poses[0] + np.asarray([0.02, 0.01, -0.02], np.float32)
+    best_j, s_j = jm.correlative_match(
+        jnp.asarray(llf[0]), jscan, jnp.asarray(poses[0]),
+        JOdom(d_center=jnp.float32(0.1), d_theta=jnp.float32(-0.05)),
+        prior_center=jnp.asarray(prior), **kw)
+    best_t, s_t = tm.correlative_match(
+        _t(llf[0]), tscan, _t(poses[0]),
+        Odom(d_center=torch.tensor(0.1), d_theta=torch.tensor(-0.05)),
+        prior_center=_t(prior), **kw)
+    assert best_t.shape == (3,) and s_t.shape == ()
+    np.testing.assert_allclose(best_t.numpy(), np.asarray(best_j),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(s_t), float(s_j), **K1_TOL)
+    skw = dict(z_hit=ZHIT, resolution=RES, origin=origin, max_range=MAXR)
+    one = tm.score_pose(_t(llf[0]), tscan, _t(poses[0]), **skw)
+    assert one.shape == ()
+    np.testing.assert_allclose(float(one), float(jm.score_pose(
+        jnp.asarray(llf[0]), jscan, jnp.asarray(poses[0]), **skw)), **K1_TOL)
+
+
+def test_stage_offsets_are_cached_on_the_device():
+    """Two searches with one matcher config reuse the same offset tensors
+    (no numpy-to-device copy inside a step); another config builds its
+    own."""
+    mc = SlamConfig().matcher
+    tm._OFFSETS.clear()
+    first = tm._stage_offsets(mc, torch.device("cpu"))
+    llf, px, py, use, poses = _problem(p=2, b=20, seed=2)
+    scan = Scan(angle=_t(np.arctan2(py, px)), dist=_t(np.hypot(px, py)),
+                hit=_t(use), valid=torch.ones(20, dtype=torch.bool))
+    for _ in range(2):
+        tm.correlative_match_batch(
+            _t(llf), scan, _t(poses), Odom(torch.tensor(0.1),
+                                           torch.tensor(0.0)),
+            matcher_cfg=mc, motion_cfg=SlamConfig().motion, resolution=RES,
+            origin=(-1.0, -1.0), max_range=MAXR)
+    again = tm._stage_offsets(mc, torch.device("cpu"))
+    assert again is first and len(tm._OFFSETS) == 1
+    assert all(a is b for a, b in zip(again[0], first[0]))
+    wide = dataclasses.replace(mc, coarse_nxy=15)
+    assert tm._stage_offsets(wide, torch.device("cpu")) is not first
+    np.testing.assert_allclose(first[0][0].numpy(), np.linspace(
+        -mc.window_xy, mc.window_xy, mc.coarse_nxy), rtol=1e-6)
+    assert len(first[1]) == 1 + mc.extra_refine_stages
 
 
 # ------------------------------------------------------- dispatch rules

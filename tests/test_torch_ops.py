@@ -18,6 +18,7 @@ from gridmap_slam_tpu.ops import geometry as jgeo
 from gridmap_slam_tpu.ops import motion as jmotion
 from gridmap_slam_tpu.ops import raycast as jray
 from gridmap_slam_tpu.ops import resample as jres
+from gridmap_slam_tpu.ops.grid import beam_log_likelihood as j_beam_ll
 from gridmap_slam_tpu.ops.grid import likelihood_field as j_likelihood_field
 from gridmap_slam_tpu.types import Odom as JOdom
 from gridmap_slam_tpu.types import Scan as JScan
@@ -25,7 +26,8 @@ from gridmap_slam_tpu_torch.ops import geometry as tgeo
 from gridmap_slam_tpu_torch.ops import motion as tmotion
 from gridmap_slam_tpu_torch.ops import raycast as tray
 from gridmap_slam_tpu_torch.ops import resample as tres
-from gridmap_slam_tpu_torch.ops.grid import (gaussian_kernel, inv_log_odds,
+from gridmap_slam_tpu_torch.ops.grid import (beam_log_likelihood,
+                                             gaussian_kernel, inv_log_odds,
                                              likelihood_field)
 from gridmap_slam_tpu_torch.types import Odom, Scan
 
@@ -154,6 +156,55 @@ def test_build_beam_lut_exact(n, width, n_bins):
     np.testing.assert_array_equal(got.numpy(), want)
     if n:   # padded beams are never selected
         assert got.max() < n
+
+
+def test_batched_scan_ops_match_each_scan():
+    """deskew_scan and build_beam_lut on a batch of scans (G, B) with one
+    odometry a scan give, row by row, the JAX result of each scan (the lut
+    exactly, the deskew within ATOL)."""
+    pairs = [_scans(n=n, width=96, seed=n) for n in (80, 61, 1)]
+    odom = [(0.12, 0.4), (-0.05, -0.7), (0.0, 0.0)]
+    batch = Scan(*(torch.stack([getattr(t, f) for _, t in pairs])
+                   for f in ("angle", "dist", "hit", "valid")))
+    got = tgeo.deskew_scan(batch, Odom(
+        d_center=torch.tensor([c for c, _ in odom]),
+        d_theta=torch.tensor([t for _, t in odom])))
+    luts = tray.build_beam_lut(got, 512)
+    assert luts.shape == (3, 512)
+    for k, (js, _) in enumerate(pairs):
+        want = jgeo.deskew_scan(js, JOdom(d_center=jnp.float32(odom[k][0]),
+                                          d_theta=jnp.float32(odom[k][1])))
+        np.testing.assert_allclose(got.dist[k].numpy(), np.asarray(want.dist),
+                                   atol=ATOL)
+        np.testing.assert_array_equal(
+            luts[k].numpy(), np.asarray(jray.build_beam_lut(want, 512)))
+
+
+def test_motion_log_prior_and_beam_log_likelihood_match():
+    """ops/motion.motion_log_prior and ops/grid.beam_log_likelihood against
+    the JAX functions (rtol 1e-6: the same float32 formulas)."""
+    rng = np.random.default_rng(9)
+    cand = rng.normal(0, 0.3, (40, 3)).astype(np.float32)
+    samp = cand + rng.normal(0, 0.05, (40, 3)).astype(np.float32)
+    cand[:5, 2] = 3.1
+    samp[:5, 2] = -3.1                  # the heading wraps
+    cfg = MotionConfig()
+    for dc, dt in ((0.2, 0.1), (0.0, -0.6)):
+        want = jmotion.motion_log_prior(
+            jnp.asarray(cand), jnp.asarray(samp),
+            JOdom(d_center=jnp.float32(dc), d_theta=jnp.float32(dt)), cfg)
+        got = tmotion.motion_log_prior(
+            _t(cand), _t(samp), Odom(d_center=torch.tensor(dc),
+                                     d_theta=torch.tensor(dt)), cfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    vals = rng.uniform(0, 0.5, 200).astype(np.float32)
+    vals[:3] = 0.0
+    unknown = rng.uniform(size=200) > 0.7
+    for z_hit, max_range in ((0.9, 10.0), (1.0, 4.0)):
+        want = j_beam_ll(jnp.asarray(vals), jnp.asarray(unknown), z_hit,
+                         max_range)
+        got = beam_log_likelihood(_t(vals), _t(unknown), z_hit, max_range)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
 
 
 @pytest.mark.parametrize("cone_fill", [False, True])

@@ -1,5 +1,6 @@
-"""The port's shared-map filter in surface mode (models/shared.py), held to
-the JAX package's SharedMapSLAM.step_surface on the CPU.
+"""The port's shared-map filter (models/shared.py), held to the JAX
+package's SharedMapSLAM on the CPU: step_surface, and the per-particle
+matcher step, step and step_blocked.
 
 torch's generators cannot reproduce JAX's threefry draws, so step parity
 rebuilds JAX's exact draws from the state key and injects them into the
@@ -35,6 +36,7 @@ from gridmap_slam_tpu_torch.io.synthetic import (SimParams, default_world,
                                                  simulate_log,
                                                  square_path_controls)
 from gridmap_slam_tpu_torch.models import shared as ts
+from gridmap_slam_tpu_torch.ops import matcher as tm
 from gridmap_slam_tpu_torch.ops.geometry import deskew_scan
 from gridmap_slam_tpu_torch.ops.raycast import build_beam_lut, integrate_scan
 from gridmap_slam_tpu_torch.types import Scan
@@ -340,3 +342,190 @@ def test_amcl_recovery_injection_detects_kidnap():
     assert min(gaps1[len(fa):]) < -1.0, gaps1
     assert (x0 > 0.5).mean() < 0.05, (x0 > 0.5).mean()
     assert (x1 > 0.5).mean() > 0.2, (x1 > 0.5).mean()
+
+
+# ------------------------------------------------ the per-particle matcher
+P_MATCH, BLOCK = 32, 16
+
+
+def _matcher_config(case):
+    """6 x 6 m at 10 cm, 4 m range, the default matcher, 32 particles in
+    blocks of 16.  "inject": every step resamples and the recovery
+    injection is on; "frozen": freeze_map."""
+    cfg = JSlamConfig(num_particles=P_MATCH, max_beams=96,
+                      particle_chunk=BLOCK,
+                      sensor=JSensorConfig(max_range=4.0),
+                      map=JMapConfig(width_m=6.0, height_m=6.0,
+                                     resolution=0.1, origin=(-3.0, -3.0)))
+    if case == "inject":
+        cfg = cfg.with_overrides(dict(_INJECT, resample_fraction=1.0))
+    if case == "frozen":
+        cfg = cfg.replace(freeze_map=True)
+    return cfg
+
+
+def _port_state(jstate):
+    return shared_state_from_jax_arrays(
+        *(np.asarray(x) for x in (jstate.poses, jstate.log_weights,
+                                  jstate.logodds, jstate.step,
+                                  jstate.recov)))
+
+
+def _assert_step_matches(nxt, info, jnext, jinfo, jstate, moved=True):
+    """Poses within 1e-4, log-weights within 1e-3, the map within K2's
+    tolerance, the recovery EMAs, Neff and the weighted pose."""
+    np.testing.assert_allclose(nxt.poses.numpy(), np.asarray(jnext.poses),
+                               atol=1e-4)
+    np.testing.assert_allclose(nxt.log_weights.numpy(),
+                               np.asarray(jnext.log_weights), atol=1e-3)
+    lo_j = np.asarray(jnext.logodds)
+    assert (np.abs(nxt.logodds.numpy() - lo_j) > K2_ATOL).mean() \
+        <= K2_MAX_FRAC
+    assert ((lo_j != np.asarray(jstate.logodds)).mean() > 0.005) == moved
+    np.testing.assert_allclose(nxt.recov.numpy(), np.asarray(jnext.recov),
+                               atol=1e-4)
+    np.testing.assert_allclose(float(info.neff), float(jinfo.neff),
+                               rtol=1e-4)
+    np.testing.assert_allclose(info.weighted_pose.numpy(),
+                               np.asarray(jinfo.weighted_pose), atol=1e-4)
+    assert int(nxt.step) == int(jnext.step)
+
+
+@pytest.mark.parametrize("case", ["chunked", "inject", "frozen"])
+def test_step_parity_with_injected_draws(small_log, case):
+    """SharedMapSLAM.step against the JAX step from the same state with
+    JAX's draws, for 3 successive JAX states (tolerances of the module
+    docstring).  "inject" sets the recovery EMAs apart before each step
+    after the first, so 30 % of the slots are re-drawn uniformly."""
+    frames, _ = small_log
+    jcfg = _matcher_config(case)
+    jeng = js.SharedMapSLAM(jcfg)
+    eng = SharedMapSLAM(config_from_jax(jcfg))
+    jbatch = j_frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
+    batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
+    jstep = jax.jit(jeng.step)
+    jstate = jeng.init(jax.random.key(1))
+    for i in range(3):
+        if case == "inject" and i > 0:   # a collapsed fast EMA
+            jstate = jstate.replace(recov=jnp.asarray([0.0, -5.0]))
+        jnext, jinfo = jstep(jstate, j_frame_at(jbatch, i))
+        nxt, info = eng.step(_port_state(jstate), frame_at(batch, i),
+                             draws=_jax_draws(jstate.key, P_MATCH,
+                                              case == "inject"))
+        _assert_step_matches(nxt, info, jnext, jinfo, jstate,
+                             moved=case != "frozen")
+        assert bool(info.resampled) == bool(jinfo.resampled)
+        if float(jinfo.neff) < 0.95 * P_MATCH:
+            assert int(info.best_index) == int(jinfo.best_index)
+        if case == "inject" and i > 0:       # 30 % of slots, uniform
+            x = nxt.poses.numpy()
+            assert (np.abs(x[:int(0.3 * P_MATCH)]
+                           - x[int(0.3 * P_MATCH):].mean(0)).max(1)
+                    > 0.5).mean() > 0.5
+        jstate = jnext
+
+
+@pytest.mark.parametrize("case", ["chunked", "inject", "frozen"])
+def test_step_blocked_is_step_with_that_chunk(small_log, case):
+    """step_blocked(block) gives step's bits with particle_chunk = block,
+    the recovery EMAs, the injection and freeze_map included: the three
+    things the JAX step_blocked drops (gridmap_slam_tpu/models/shared.py:
+    577-654).  With freeze_map the JAX step_blocked changes the map where
+    the JAX step does not; the port's keeps it."""
+    frames, _ = small_log
+    jcfg = _matcher_config(case)
+    batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
+    chunked = SharedMapSLAM(config_from_jax(jcfg))
+    blocked = SharedMapSLAM(config_from_jax(jcfg.replace(particle_chunk=0)))
+    a = chunked.init(pose=(0.1, -0.2, 0.3))
+    b = blocked.init(pose=(0.1, -0.2, 0.3))
+    ga, gb = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+    for i in range(3):
+        if case == "inject" and i > 0:
+            a.recov = b.recov = torch.tensor([0.0, -5.0])
+        a, ia = chunked.step(a, frame_at(batch, i), ga)
+        b, ib = blocked.step_blocked(b, frame_at(batch, i), BLOCK, gb)
+        for f in ("poses", "log_weights", "logodds", "step", "recov"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        for f in ("neff", "weighted_pose", "best_pose", "resampled"):
+            assert torch.equal(getattr(ia, f), getattr(ib, f)), f
+    if case == "inject":
+        assert not torch.equal(a.recov, torch.tensor([0.0, -5.0]))
+    if case == "frozen":
+        assert torch.equal(b.logodds, torch.zeros_like(b.logodds))
+        jeng = js.SharedMapSLAM(jcfg)
+        jbatch = j_frames_to_device(frames, jcfg.max_beams,
+                                    jcfg.sensor.max_range)
+        j0 = jeng.init(jax.random.key(0))
+        j_step, _ = jax.jit(jeng.step)(j0, j_frame_at(jbatch, 0))
+        j_blocked, _ = jeng.step_blocked(j0, j_frame_at(jbatch, 0), BLOCK)
+        assert (np.asarray(j_step.logodds) == 0).all()
+        assert (np.asarray(j_blocked.logodds) != 0).mean() > 0.005
+
+
+def test_step_blocked_matches_jax_step_blocked(small_log):
+    """Where the JAX step_blocked agrees with its step (no injection, no
+    freeze_map), the port's step_blocked against it with JAX's draws."""
+    frames, _ = small_log
+    jcfg = _matcher_config("chunked").replace(particle_chunk=0)
+    jeng = js.SharedMapSLAM(jcfg)
+    eng = SharedMapSLAM(config_from_jax(jcfg))
+    jbatch = j_frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
+    batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
+    jstate = jeng.init(jax.random.key(2))
+    for i in range(2):
+        jnext, jinfo = jeng.step_blocked(jstate, j_frame_at(jbatch, i), BLOCK)
+        nxt, info = eng.step_blocked(_port_state(jstate), frame_at(batch, i),
+                                     BLOCK, draws=_jax_draws(jstate.key,
+                                                             P_MATCH, False))
+        _assert_step_matches(nxt, info, jnext, jinfo, jstate)
+        jstate = jnext
+
+
+def test_matcher_block_size():
+    """The workspace model of the torch matcher: K1 output, prior grid and
+    total of the larger stage, 3 * 11 * 81 * 4 bytes a particle with the
+    default matcher; the block is the largest divisor of P within the
+    budget."""
+    cfg = SlamConfig(num_particles=1_000_000)
+    assert ts.matcher_workspace_bytes(cfg) == 10_692
+    assert ts.matcher_block_size(cfg) == 500_000
+    assert ts.matcher_block_size(cfg, budget_bytes=1e8) == 8_000
+    assert ts.matcher_block_size(cfg.replace(num_particles=10_000)) == 10_000
+    assert ts.matcher_block_size(cfg.replace(num_particles=7),
+                                 budget_bytes=5e4) == 1
+    wide = cfg.with_overrides({"matcher.fine_nxy": 15, "matcher.fine_nt": 9})
+    assert ts.matcher_workspace_bytes(wide) == 3 * 9 * 225 * 4
+    with pytest.raises(ValueError, match="divisible"):
+        SharedMapSLAM(cfg.replace(num_particles=12)).step_blocked(
+            SharedMapSLAM(cfg.replace(num_particles=12)).init(), None, 5)
+
+
+def test_replay_ate_within_policy():
+    """Whole runs of the matcher step: SharedMapSLAM.replay (blocks of 16)
+    and the JAX replay on the 12-scan square path at 32 particles, both
+    ATEs under 0.15 m and within 0.06 m of each other; the offsets are
+    built once for the whole run."""
+    frames, gt = simulate_log(default_world(), square_path_controls(12),
+                              params=SimParams(beams_per_rev=90), seed=0)
+    jcfg = _matcher_config("chunked").with_overrides(
+        {"map.resolution": 0.05})
+    jeng = js.SharedMapSLAM(jcfg)
+    jbatch = j_frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
+    _, jinfo = jax.jit(jeng.replay)(jeng.init(jax.random.key(0)), jbatch)
+    jtraj = np.asarray(jinfo.weighted_pose)
+
+    eng = SharedMapSLAM(config_from_jax(jcfg))
+    batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
+    tm._OFFSETS.clear()
+    state, infos = eng.replay(eng.init(), [frame_at(batch, i)
+                                           for i in range(12)],
+                              torch.Generator().manual_seed(0), block=BLOCK)
+    assert len(tm._OFFSETS) == 1
+    ttraj = torch.stack([i.weighted_pose for i in infos]).numpy()
+    assert np.isfinite(ttraj).all() and torch.isfinite(state.logodds).all()
+    ate_j, ate_t = ate_rmse(jtraj, gt[:12]), ate_rmse(ttraj, gt[:12])
+    assert abs(ate_j - ate_t) <= 0.06, (ate_j, ate_t)
+    assert max(ate_j, ate_t) < 0.15, (ate_j, ate_t)
+    m = eng.best_map(state).numpy()
+    assert (m > 0).sum() > 50 and (m < 0).sum() > 1000
