@@ -4,11 +4,17 @@
 Phases, each printed on its own line:
 
 1. device — the card's name and power limit (nvidia-smi) and CUDA version;
-2. build  — compile gridmap_slam_tpu_torch/csrc/*.cu with nvcc;
+2. build  — compile gridmap_slam_tpu_torch/csrc/*.cu with nvcc; the
+   registers, shared memory and spills of each K1 instantiation (shared
+   and global variant) from `-Xptxas -v`;
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of the parity preset (500 particles, 120 x 120 maps,
-   2048 bearing bins, the three matcher stages), with its tolerance and
-   its time beside the plain version's (CUDA events, after warm-up);
+   2048 bearing bins, the three matcher stages, score_pose's single
+   candidate), with its tolerance, K1's variant, and its time beside the
+   plain version's (CUDA events, after warm-up) and beside its bound (the
+   larger of its float operations over the H100's FP32 peak and its bytes
+   over its HBM rate); then K1 in both variants where taps leave the map
+   (endpoints at cells -1, W, 200 cells off, and around them);
 4. agree  — one filter step on the card against the same step in plain
    PyTorch on the CPU, from the same state and draws, on a small input;
 5. main   — the parity preset (bench.py --preset parity: 500 particles,
@@ -77,7 +83,7 @@ its plain version on exactly those arguments (a call of more than 4096
 particles on its first and last 2048: each particle's output depends on
 its own rows only); a kernel that ran on a part but was not checked there
 fails the run.  Then
-one JSON line of kernels, with their launches per path, and last
+one JSON line of kernels, with their launches per path and bounds, and last
 {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no "ok" line.
 There is no CPU path: without a CUDA device it exits non-zero.
@@ -90,6 +96,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -117,6 +124,19 @@ MULTI_REVS = 20
 GRAND_TOUR = "maps/grand_tour_216.rec"
 GN_LARGE_KEYFRAMES = (1000, 3000)
 CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
+# The H100 SXM's published peaks (NVIDIA's data sheet, 700 W): FP32
+# outside the tensor cores and HBM3.  A kernel's bound is the larger of its
+# operations over the first and its bytes (each input read once, each
+# output written once) over the second.
+FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# Float operations (an FMA counted as two) a K1 sample: bilinear: 2
+# coordinate adds, 2 floors, 2 fraction subtractions, 3 lerps (a
+# subtraction and an FMA each), the add into the sum; nearest: 2 adds, 2
+# roundings, the add.
+K1_FLOPS = {False: 16, True: 5}
+# A K2 cell: range (5) and bearing (about 15, an atan2) from the pose, the
+# bin (3) and the footprint and return tests (about 7).
+K2_FLOPS_CELL = 30
 
 
 def say(phase: str, **fields) -> None:
@@ -158,15 +178,86 @@ def device_phase() -> str:
 
 def build_phase() -> None:
     """Compile csrc/*.cu afresh; nvcc's -Xptxas -v report (registers,
-    shared memory, spills per kernel) goes to stdout."""
+    shared memory, spills per kernel) goes to stdout, and K1's
+    instantiations (shared or global field, bilinear or nearest, runs of
+    1 to 5 dx candidates a thread) are summed up on the build line.  Their
+    shared memory is dynamic: a call's plan sets it."""
     from gridmap_slam_tpu_torch.ops.cuda import _build
+    from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
     t0 = time.perf_counter()
-    path = _build.build(verbose=True)
+    path, log = _build.build(verbose=True)
     _build.library()
+    k1 = []
+    for name, use in sorted(_build.ptxas_usage(log).items()):
+        m = re.search(r"stage_scores_kernelILb([01])ELb([01])ELi(\d)E", name)
+        if m:
+            k1.append(dict(variant="shared" if m.group(1) == "1" else
+                           "global", nearest=m.group(2) == "1",
+                           run=int(m.group(3)), **use))
     say("build", seconds=time.perf_counter() - t0,
         sources=[str(p.relative_to(_build.CSRC.parents[1]))
                  for p in _build.sources()],
-        library=path.name)
+        library=path.name, k1_registers_assumed=kmatch.REGISTERS,
+        k1_variants=k1)
+    if len(k1) != 4 * kmatch.MAX_RUN or any(
+            v["spill_stores"] or (v["run"] <= 3 and
+                                  v["registers"] > kmatch.REGISTERS)
+            for v in k1):
+        raise AssertionError(f"K1: expected {4 * kmatch.MAX_RUN} "
+                             f"instantiations without spills, runs of 1-3 "
+                             f"within {kmatch.REGISTERS} registers: {k1}")
+
+
+def _bound(flops: float, nbytes: float):
+    """(bound ms, "operations" or "bytes") of work on the H100."""
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t))
+
+
+def k1_bound(args, kw):
+    """K1's bound on these arguments: the samples this scan's used beams
+    need (every candidate of particle p samples each used beam of its scan
+    row once), and the inputs and the (P, nt, ny, nx) output."""
+    field, px, py, use, pose0, dxs, dys, dts = args
+    p = pose0.shape[0]
+    cands = dts.shape[1] * dys.shape[1] * dxs.shape[1]
+    rows = use.reshape(-1, use.shape[-1])
+    samples = float(rows.sum()) * (p // rows.shape[0]) * cands
+    return _bound(samples * K1_FLOPS[bool(kw.get("nearest"))],
+                  _nbytes(args) + p * cands * 4)
+
+
+def k2_bound(args, kw):
+    """K2's bound: K2_FLOPS_CELL a cell; the map read and written once,
+    the poses and tables read once."""
+    lo = args[0]
+    return _bound(K2_FLOPS_CELL * lo.numel(), _nbytes(args) + _nbytes([lo]))
+
+
+def k3_bound(args, kw=None):
+    """K3's bound: a cell's two blurred planes, each two passes of
+    2r + 1 FMAs (8 (2r + 1) operations), and 4 for the threshold and the
+    log epilogue (a log counted as one); the map read and the field
+    written once."""
+    lo, taps = args
+    return _bound(lo.numel() * (8 * taps.numel() + 4),
+                  _nbytes(args) + _nbytes([lo]))
+
+
+def k1_variant(args) -> str:
+    """The K1 variant launch_plan picks for these arguments."""
+    from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
+    field, px, _, _, pose0, dxs, dys, dts = args
+    return kmatch.launch_plan(
+        pose0.shape[0], field.shape[0], field.shape[1], field.shape[2],
+        px.shape[-1], dts.shape[1], dys.shape[1], dxs.shape[1],
+        **kmatch.device_limits(field.device.index)).variant
 
 
 def parity_config():
@@ -225,14 +316,17 @@ def kernel_phase(cfg, frames):
         logodds, taps, **kw3), 50)
     plain_ms = cuda_ms(lambda: likelihood.log_likelihood_field_batch_plain(
         logodds, taps, **kw3), 20)
+    bound, by = k3_bound((logodds, taps))
     say("kernel", name="K3 log_likelihood_field", shape=[p, h, w],
-        max_abs_err=err3, atol=K3_ATOL, ms=ms, plain_ms=plain_ms)
+        max_abs_err=err3, atol=K3_ATOL, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, share_of_bound=bound / ms)
     if not err3 <= K3_ATOL:
         raise AssertionError(f"K3 max abs error {err3} > {K3_ATOL}")
     rows.append(dict(name="log_likelihood_field", route="cuda",
                      source="gridmap_slam_tpu_torch/csrc/likelihood.cu",
                      replaces="gridmap_slam_tpu/ops/pallas/likelihood.py:62",
-                     max_abs_err=err3, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=err3, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound, bound_by=by, library_ms=None))
     llf = got
 
     # ---- K2: map update
@@ -253,17 +347,20 @@ def kernel_phase(cfg, frames):
         logodds, poses, keep, *tables, **kw2), 50)
     plain_ms = cuda_ms(lambda: grid_update.integrate_scan_batch_plain(
         logodds, poses, keep, *tables, **kw2), 20)
+    bound, by = k2_bound((logodds, poses, keep, *tables), kw2)
     say("kernel", name="K2 integrate_scan", shape=[p, h, w],
         bins=cfg.beam_lut_bins, cells_updated_frac=changed,
         frac_beyond_atol=frac2, atol=K2_ATOL, max_frac=K2_MAX_FRAC,
-        max_abs_err=err2, ms=ms, plain_ms=plain_ms)
+        max_abs_err=err2, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, share_of_bound=bound / ms)
     if not (frac2 <= K2_MAX_FRAC and changed > 0.01):
         raise AssertionError(f"K2: {frac2} of cells beyond {K2_ATOL} "
                              f"(limit {K2_MAX_FRAC}); {changed} updated")
     rows.append(dict(name="integrate_scan", route="cuda",
                      source="gridmap_slam_tpu_torch/csrc/grid_update.cu",
                      replaces="gridmap_slam_tpu/ops/pallas/grid_update.py:170",
-                     max_abs_err=err2, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=err2, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound, bound_by=by, library_ms=None))
 
     # ---- K1: the three matcher stages of the parity schedule
     mc = cfg.matcher
@@ -300,7 +397,13 @@ def kernel_phase(cfg, frames):
     # offsets one such tap moves a whole 9 x 9 block of candidates, so that
     # branch may miss the tolerance on at most K1_NEAREST_MAX_FRAC of them.
     stages.append(("coarse nearest", llf) + stages[0][2:-1] + (res,))
-    err1, ms1, plain1 = 0.0, 0.0, 0.0
+    # score_pose's single candidate (the matcher switched off): a map a
+    # particle takes the global variant, one shared map the shared one
+    zero = torch.zeros((p, 1), device=dev)
+    stages += [("score_pose", llf, px, py, use, zero, zero, zero, res),
+               ("score_pose shared map", llf[:1].contiguous(), px, py, use,
+                zero, zero, zero, res)]
+    err1, ms1, plain1, bound1, by_ops = 0.0, 0.0, 0.0, 0.0, 0.0
     for name, field, sx, sy, su, dxs, dys, dts, r in stages:
         args = (field, sx, sy, su, poses, dxs, dys, dts)
         nearest = name.endswith("nearest")
@@ -314,23 +417,93 @@ def kernel_phase(cfg, frames):
         ms = cuda_ms(lambda: kmatch.stage_scores_batch_cuda(*args, **kw1), 50)
         plain_ms = cuda_ms(
             lambda: kmatch.stage_scores_batch_plain(*args, **kw1), 10)
+        bound, by = k1_bound(args, kw1)
         limit = K1_NEAREST_MAX_FRAC if nearest else 0.0
-        say("kernel", name=f"K1 stage_scores {name}",
+        say("kernel", name=f"K1 stage_scores {name}", variant=k1_variant(args),
             field=list(field.shape), beams=int(sx.shape[0]),
             candidates=[dts.shape[1], dys.shape[1], dxs.shape[1]],
             max_abs_err=err, rtol=K1_RTOL, atol=K1_ATOL,
-            frac_beyond_tol=frac, max_frac=limit, ms=ms, plain_ms=plain_ms)
+            frac_beyond_tol=frac, max_frac=limit, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, share_of_bound=bound / ms)
         if not frac <= limit:
             raise AssertionError(f"K1 {name}: {frac} of candidates beyond "
                                  f"rtol {K1_RTOL} / atol {K1_ATOL} (limit "
                                  f"{limit}; max abs {err})")
-        if not nearest:            # the row covers the three parity stages
+        if name in ("coarse", "fine", "refine"):   # the parity stages
             err1, ms1, plain1 = max(err1, err), ms1 + ms, plain1 + plain_ms
+            bound1 += bound
+            by_ops += bound if by == "operations" else 0.0
+    err1 = max(err1, k1_ring_edges(cfg))
     rows.append(dict(name="stage_scores", route="cuda",
                      source="gridmap_slam_tpu_torch/csrc/matcher.cu",
                      replaces="gridmap_slam_tpu/ops/pallas/matcher.py:287",
-                     max_abs_err=err1, ms=ms1, plain_ms=plain1))
+                     max_abs_err=err1, ms=ms1, plain_ms=plain1,
+                     bound_ms=bound1,
+                     bound_by="operations" if 2 * by_ops >= bound1
+                     else "bytes", library_ms=None))
     return rows
+
+
+def k1_ring_edges(cfg, dev="cuda") -> float:
+    """K1 against its plain version where taps leave the map: a scan whose
+    endpoints sit at cell coordinates 200 cells below the map, at -2.6,
+    -2, -1.75, -1 (the low corner outside, the high one inside), -0.25, 0,
+    the middle, W - 1.25, W - 1, W - 0.75 (the high corner outside), W,
+    W + 1 (the ring's far cells) and 200 cells past W, in x and in y, for
+    64 particles jittered by a few hundredths of a cell; on one 120 x 120
+    field (the shared variant, whose ring of 2 cells the kernel clamps
+    into) and one 280 x 280 field (the global variant), bilinear and
+    nearest.  Returns the largest bilinear error."""
+    from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
+    rng = np.random.default_rng(SEED + 5)
+    res, maxr = cfg.map.resolution, cfg.sensor.max_range
+    n = 64
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device=dev)
+
+    worst = 0.0
+    for cells in (cfg.map.cells_x, 280):
+        origin = (-cells * res / 2,) * 2
+        field = t(rng.uniform(-8.0, -0.5, (1, cells, cells)))
+        at = np.array([-200.25, -2.6, -2.0, -1.75, -1.0, -0.25, 0.0,
+                       cells // 2, cells - 1.25, cells - 1.0, cells - 0.75,
+                       cells, cells + 1.0, cells + 200.75])
+        fx, fy = (a.ravel() for a in np.meshgrid(at, at))
+        # endpoints in the frame of a pose at the map's center
+        px, py = t((fx + 0.5 - cells / 2) * res), t((fy + 0.5 - cells / 2)
+                                                    * res)
+        use = torch.ones(px.shape, dtype=torch.bool, device=dev)
+        pose0 = t(np.concatenate([rng.uniform(-0.05, 0.05, (n, 2)) * res,
+                                  np.zeros((n, 1))], 1))
+        # offsets whose sums with the coordinates above avoid half cells
+        off = t(np.broadcast_to(np.array([-0.35, -0.1, 0.0, 0.15, 0.4])
+                                * res, (n, 5)))
+        dts = t(np.broadcast_to([0.0, 2e-4], (n, 2)))
+        args = (field, px, py, use, pose0, off, off, dts)
+        for nearest in (False, True):
+            kw = dict(resolution=res, origin=origin, max_range=maxr,
+                      nearest=nearest)
+            got = kmatch.stage_scores_batch_cuda(*args, **kw)
+            want = kmatch.stage_scores_batch_plain(*args, **kw)
+            diff = (got - want).abs()
+            err = float(diff.max())
+            frac = float((diff > K1_ATOL + K1_RTOL * want.abs())
+                         .float().mean())
+            limit = K1_NEAREST_MAX_FRAC if nearest else 0.0
+            say("kernel", name="K1 stage_scores ring edges",
+                variant=k1_variant(args), field=list(field.shape),
+                beams=int(px.shape[0]), nearest=nearest, max_abs_err=err,
+                rtol=K1_RTOL, atol=K1_ATOL, frac_beyond_tol=frac,
+                max_frac=limit)
+            if not frac <= limit:
+                raise AssertionError(f"K1 at the ring's edges ({cells} "
+                                     f"cells, nearest {nearest}): {frac} "
+                                     f"beyond tolerance (max abs {err})")
+            if not nearest:
+                worst = max(worst, err)
+    return worst
 
 
 def agree_phase(frames):
@@ -463,10 +636,12 @@ def k3_radii_phase(cfg):
             logodds, taps, **kw), 20)
         plain_ms = cuda_ms(lambda: likelihood.log_likelihood_field_batch_plain(
             logodds, taps, **kw), 5)
+        bound, by = k3_bound((logodds, taps))
         say("k3_radius", sigma_cells=sigma, radius=radius,
             tile=likelihood.tile(radius), shape=[p, h, w],
             max_abs_err=err, atol=K3_ATOL, ms=ms,
-            plain_ms=plain_ms)
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            share_of_bound=bound / ms)
         if not err <= K3_ATOL:
             raise AssertionError(f"K3 at radius {radius}: max abs error "
                                  f"{err} > {K3_ATOL}")
@@ -756,6 +931,7 @@ _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
           "K2": ("grid_update", "integrate_scan_batch_cuda"),
           "K3": ("likelihood", "log_likelihood_field_batch_cuda")}
 PATH_MAX_ERR = {row: 0.0 for row in KERNEL_ROWS.values()}
+BOUNDS = {"K1": k1_bound, "K2": k2_bound, "K3": k3_bound}
 FULL_MAX = 4096      # a recorded call of more particles is compared on
 SLICE = 2048         # its first and its last SLICE particles
 
@@ -905,13 +1081,16 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
         frac = beyond / n_out
         limit = {"K1": K1_NEAREST_MAX_FRAC if kw.get("nearest") else 0.0,
                  "K2": K2_MAX_FRAC, "K3": 0.0}[kernel]
+        bound, by = BOUNDS[kernel](args, kw)
         row = dict(path=path, kernel=kernel,
                    shapes=[list(t.shape) for t in args if torch.is_tensor(t)],
                    particles=p, compared=sum(n for _, n in parts),
                    max_abs_err=err, frac_beyond_tol=frac, max_frac=limit,
-                   ms=ms, plain_ms=plain_ms, plain_particles=parts[0][1])
+                   ms=ms, plain_ms=plain_ms, plain_particles=parts[0][1],
+                   bound_ms=bound, bound_by=by, share_of_bound=bound / ms)
         if kernel == "K1":
-            row.update(nearest=bool(kw.get("nearest")), rtol=K1_RTOL,
+            row.update(variant=k1_variant(args),
+                       nearest=bool(kw.get("nearest")), rtol=K1_RTOL,
                        atol=K1_ATOL)
         else:
             row.update(atol=K2_ATOL if kernel == "K2" else K3_ATOL)
@@ -977,12 +1156,14 @@ def _k1_check(name, args, kw, rows_out, reps=20, plain_reps=3):
     plain_ms = cuda_ms(lambda: kmatch.stage_scores_batch_plain(*args, **kw),
                        plain_reps)
     field, px, dxs, dys, dts = args[0], args[1], args[5], args[6], args[7]
-    row = dict(name=name, particles=int(args[4].shape[0]),
-               field=list(field.shape),
+    bound, by = k1_bound(args, kw)
+    row = dict(name=name, variant=k1_variant(args),
+               particles=int(args[4].shape[0]), field=list(field.shape),
                scans=list(px.shape), candidates=[dts.shape[1], dys.shape[1],
                                                   dxs.shape[1]],
                max_abs_err=err, rtol=K1_RTOL, atol=K1_ATOL,
-               frac_beyond_tol=frac, ms=ms, plain_ms=plain_ms)
+               frac_beyond_tol=frac, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=by, share_of_bound=bound / ms)
     rows_out.append(row)
     if not frac == 0.0:
         raise AssertionError(f"K1 {name}: {frac} of candidates beyond rtol "
@@ -1098,11 +1279,13 @@ def grouped_kernel_phase(cfg, frames, dev="cuda", n_shared=2048,
         zero, pz, one, *tables, **kw2), 20)
     plain2 = cuda_ms(lambda: grid_update.integrate_scan_batch_plain(
         zero, pz, one, *tables, **kw2), 5)
+    bound2, by2 = k2_bound((zero, pz, one, *tables), kw2)
     say("grouped_kernels", k1=rows, k2_cone_fill=dict(
         shape=list(zero.shape), tables=list(tables[0].shape),
         cells_updated_frac=changed, frac_beyond_atol=frac2, atol=K2_ATOL,
         max_frac=K2_MAX_FRAC, max_abs_err=float(diff.max()), ms=ms2,
-        plain_ms=plain2))
+        plain_ms=plain2, bound_ms=bound2, bound_by=by2,
+        share_of_bound=bound2 / ms2))
     if not (frac2 <= K2_MAX_FRAC and changed > 0.05):
         raise AssertionError(f"K2 cone fill: {frac2} of cells beyond "
                              f"{K2_ATOL} (limit {K2_MAX_FRAC}); {changed} "
@@ -1588,7 +1771,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "launches_by_path", "max_abs_err",
-                             "ms", "plain_ms")}
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}
         for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

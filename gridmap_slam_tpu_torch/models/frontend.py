@@ -77,11 +77,11 @@ def _stack_scans(scans) -> Scan:
 
 class PoseGraphSLAM:
     """Keyframe pose-graph layered over any pose source (SLAM filter or raw
-    odometry), on one device.  Feed (pose, deskewed scan) per processed
-    scan via `add`."""
+    odometry), on one device (the card unless `device="cpu"` is asked
+    for).  Feed (pose, deskewed scan) per processed scan via `add`."""
 
     def __init__(self, slam_config: SlamConfig,
-                 cfg: FrontendConfig = FrontendConfig(), device="cpu"):
+                 cfg: FrontendConfig = FrontendConfig(), device="cuda"):
         self.scfg = slam_config
         self.cfg = cfg
         self.device = torch.device(device)

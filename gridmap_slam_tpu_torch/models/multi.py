@@ -70,11 +70,11 @@ def stack_frames(frames: Sequence[Frame]) -> Frame:
 
 
 class MultiRobotSLAM:
-    """R-robot shared-map SLAM for a fixed `SlamConfig` on one device.  On
-    a CUDA device K1, K2 and K3 are the hand-written kernels; on the CPU
-    their plain versions."""
+    """R-robot shared-map SLAM for a fixed `SlamConfig` on one device (the
+    card unless `device="cpu"` is asked for).  On a CUDA device K1, K2 and
+    K3 are the hand-written kernels; on the CPU their plain versions."""
 
-    def __init__(self, config: SlamConfig, num_robots: int, device="cpu"):
+    def __init__(self, config: SlamConfig, num_robots: int, device="cuda"):
         if config.freeze_map:
             raise ValueError(
                 "freeze_map=True is refused: the JAX multi-robot step "

@@ -36,13 +36,14 @@ from ..types import Frame, Odom, Scan, SlamState, StepInfo
 
 
 class RBPF:
-    """Particle-filter SLAM engine for a fixed `SlamConfig` on one device.
+    """Particle-filter SLAM engine for a fixed `SlamConfig` on one device:
+    the card unless `device="cpu"` is asked for.
 
     The config's `use_pallas` field has no meaning here: on a CUDA device
     the kernels always run.
     """
 
-    def __init__(self, config: SlamConfig, device="cpu"):
+    def __init__(self, config: SlamConfig, device="cuda"):
         if config.matcher.impl not in IMPLS:
             raise ValueError(f"matcher.impl={config.matcher.impl!r} is not "
                              f"ported (TPU-only backend); use one of {IMPLS}")

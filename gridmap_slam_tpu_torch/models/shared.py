@@ -230,11 +230,12 @@ def integration_pose(n_eff, num_particles: int, weighted, best_pose):
 
 
 class SharedMapSLAM:
-    """Shared-map particle filter for a fixed `SlamConfig` on one device.
+    """Shared-map particle filter for a fixed `SlamConfig` on one device
+    (the card unless `device="cpu"` is asked for).
     On a CUDA device K1, K2 and K3 are the hand-written kernels; on the CPU
     their plain versions."""
 
-    def __init__(self, config: SlamConfig, device="cpu"):
+    def __init__(self, config: SlamConfig, device="cuda"):
         mc = config.matcher
         if config.dtype != "float32":
             raise ValueError(f"the kernels take float32, got {config.dtype}")

@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,9 +46,14 @@ SIGNATURES = {
     "gs_grid_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _I, _P],
     # field, px, py, use, pose0, dxs, dys, dts, out, P, G_f, G_b, H, W, B,
-    # nt, ny, nx, res, origin_x, origin_y, v_outside, nearest, stream
+    # nt, ny, nx, res, origin_x, origin_y, v_outside, nearest, then the
+    # launch plan: shared, pitch, pairs a tile, run, splits, threads, smem;
+    # stream
     "gs_stage_scores": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+                        _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _P],
+    # &sm_count, &smem_block, &smem_sm
+    "gs_device_limits": [_P, _P, _P],
 }
 
 
@@ -74,13 +80,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgridmap_kernels-{digest.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False) -> tuple[Path, str]:
     """Compile csrc/*.cu unless the library for these sources exists.
-    Returns its path.  verbose=True adds `-Xptxas -v` and prints nvcc's
-    output (registers, shared memory and spills per kernel)."""
+    Returns its path and nvcc's output.  verbose=True always compiles, adds
+    `-Xptxas -v` and prints that output (registers, shared memory and
+    spills per kernel)."""
     out = library_path()
     if out.exists() and not verbose:
-        return out
+        return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -91,16 +98,44 @@ def build(verbose: bool = False) -> Path:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    log = proc.stdout + proc.stderr
     if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
+        print(log, flush=True)
     os.replace(tmp, out)
-    return out
+    return out, log
+
+
+def ptxas_usage(log: str) -> dict:
+    """Each kernel's resources from a `-Xptxas -v` build log: its mangled
+    name -> registers, static shared memory, stack frame and spill bytes."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = dict(registers=0, smem_bytes=0, stack_bytes=0,
+                               spill_stores=0, spill_loads=0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            usage[name].update(stack_bytes=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[name]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return usage
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed (once per process)."""
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build()[0]))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -13,11 +13,21 @@ p // (P // G_f) and scan row p // (P // G_b).  G_f = P is the RBPF (a map a
 particle), G_f = 1 the shared-map filters, G_b = R the robots of a
 multi-robot step and G_f = G_b = C a batch of closure candidates.  Neither
 is ever expanded to one copy a particle.
+
+`launch_plan` chooses, from the shapes alone, how the kernel runs: the
+"shared" variant (the field and a 2-cell ring of the out-of-map value in
+shared memory) or the "global" one (the field read from device memory, for
+fields too large for one block or too little work to pay for staging), the
+(particle, heading) pairs a tile, the threads a block and the blocks that
+share one field's tiles.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -25,8 +35,140 @@ from . import _build, check_tensor, stream_handle
 
 launches = 0   # kernel launches since the count was last set to 0
 
-_MAX_BEAMS = 4096          # three (B,) arrays in 48 KB of shared memory
-_MAX_CANDIDATES_XY = 1024  # one thread per (dy, dx) candidate
+_MAX_BEAMS = 4096          # one pair's staged endpoints in 32 KB
+RING = 2                   # cells of out-of-map value around a staged field
+MAX_THREADS = 256          # threads a block (the kernel's launch bound)
+STAGE_BYTES = 48 * 1024    # most shared memory a tile's endpoints may take
+MAX_RUN = 5                # dx candidates a thread, at most
+REGISTERS = 64             # registers a thread (the kernel's cap, runs 1-3)
+SATURATING_WARPS = 8       # warps an SM past which the rate stops rising
+# Shared memory an SM is assumed to give its blocks, short of its total:
+# two blocks of 115 KB on an H100 (228 KB) measured as slow as one.
+SMEM_SM_MARGIN = 8 * 1024
+# Instructions a beam: a unit's endpoint load and y axis, and each of its
+# candidates' x axis, four taps, three lerps and add; instructions a staged
+# field cell.
+UNIT_COST, SAMPLE_COST, STAGE_COST = 8, 21, 4
+H100 = dict(sm_count=132, smem_block=232_448, smem_sm=233_472)
+
+
+class K1Plan(NamedTuple):
+    """How K1 runs at one call's shapes (csrc/matcher.cu).  Field group g
+    (of `groups`) holds `pairs_per_group` (particle, heading) pairs, cut
+    into tiles of `pairs_per_tile`; block b works group b // splits, the
+    (b % splits)-th of `splits` contiguous runs of its tiles; a block's
+    threads stride over a tile's units, pairs x dy x runs of `run` dx
+    candidates (a row's last run may be shorter)."""
+    variant: str           # "shared" or "global"
+    pitch: int             # floats a staged field row (0: global)
+    pairs_per_tile: int
+    run: int
+    splits: int
+    groups: int            # G_f (shared) or 1 (global)
+    pairs_per_group: int
+    threads: int
+    smem_bytes: int        # dynamic shared memory a block
+
+    @property
+    def grid(self) -> int:
+        return self.groups * self.splits
+
+    @property
+    def tiles_per_group(self) -> int:
+        return -(-self.pairs_per_group // self.pairs_per_tile)
+
+
+def _smem_bytes(field_bytes: int, k: int, b: int) -> int:
+    """A block's shared memory: the staged field, then k pairs' endpoints
+    (float2 slots, an odd count a pair) and their used-beam counts."""
+    return field_bytes + k * (b | 1) * 8 + k * 4
+
+
+def _field_bytes(h: int, pitch: int) -> int:
+    return -(-(h + 2 * RING) * pitch * 4 // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(p: int, g_f: int, h: int, w: int, b: int, nt: int, ny: int,
+                nx: int, *, sm_count: int = H100["sm_count"],
+                smem_block: int = H100["smem_block"],
+                smem_sm: int = H100["smem_sm"]) -> K1Plan:
+    """The launch of K1 for P particles on G_f fields of H x W cells, B
+    beam slots and nt x ny x nx candidates a particle, on a card with
+    `sm_count` SMs and the given shared memory a block (opt-in) and an SM.
+
+    The shared variant runs when the ringed field and one pair's endpoints
+    fit a block and either the field is shared by every particle (G_f = 1)
+    or a group's samples outnumber its cells.  The pairs a tile are those
+    of the least estimated time: the warps of units a tile needs over the
+    busy warps that run at once (whole blocks an SM from threads,
+    registers and shared memory, short of SMEM_SM_MARGIN; capped at
+    SATURATING_WARPS an SM), a unit of `run` candidates
+    costing UNIT_COST + run * SAMPLE_COST; of the plans within 1 % of the
+    best, the one of most threads a block (fewer copies of the field),
+    then of the smallest tile and run.  Staging the field costs
+    STAGE_COST a cell in every block that holds it.  A group's tiles are
+    split over enough blocks to fill the card: at G_f = 1 a persistent
+    grid, at G_f = P one block a particle."""
+    ring_w = w + 2 * RING
+    variant, pitch, field_bytes = "global", 0, 0
+    if g_f == 1 or (p // g_f) * nt * ny * nx * b >= h * w:
+        for pitch in (ring_w + (8 - ring_w % 16) % 16, ring_w):
+            field_bytes = _field_bytes(h, pitch)
+            if _smem_bytes(field_bytes, 1, b) <= smem_block:
+                variant = "shared"
+                break
+    if variant == "global":
+        pitch, field_bytes = 0, 0
+    groups = g_f if variant == "shared" else 1
+    ppg = p // groups * nt
+    room = min(STAGE_BYTES, smem_block - field_bytes)
+    k_cap = max(1, min(ppg, room // ((b | 1) * 8 + 4)))
+
+    staged = (h + 2 * RING) * ring_w if variant == "shared" else 0
+
+    def estimate(k, run):
+        units = ny * -(-nx // run)
+        # a block that stages a field of its own stages it with all threads
+        threads = (MAX_THREADS if variant == "shared" and groups > 1 else
+                   min(MAX_THREADS, -(-k * units // 32) * 32))
+        full, rem = divmod(ppg, k)
+        tiles = full + (rem > 0)
+        warp_rounds = groups * (full * -(-k * units // 32)
+                                + -(-rem * units // 32))
+        smem = _smem_bytes(field_bytes, k, b)
+        per_sm = min(2048 // threads, 32,
+                     (smem_sm - SMEM_SM_MARGIN) // (smem + 1024),
+                     65536 // (threads * REGISTERS))
+        splits = min(tiles, max(1, -(-sm_count * per_sm // groups)))
+        busy = min(threads, -(-k * units // 32) * 32) // 32   # warps a tile
+        warps = min(groups * tiles, sm_count * per_sm) * busy
+        work = (warp_rounds * (UNIT_COST + run * SAMPLE_COST) * b
+                + groups * splits * staged / 32 * STAGE_COST)
+        cost = work / min(warps, sm_count * SATURATING_WARPS)
+        return cost, threads, smem, splits
+
+    costs = {(k, run): estimate(k, run) for k in range(1, k_cap + 1)
+             for run in range(1, min(nx, MAX_RUN) + 1)}
+    best = min(cost for cost, *_ in costs.values())
+    k, run = min((key for key, (cost, *_) in costs.items()
+                  if cost <= 1.01 * best),
+                 key=lambda key: (-costs[key][1], key))
+    _, threads, smem, splits = costs[k, run]
+    return K1Plan(variant, pitch, k, run, splits, groups, ppg, threads,
+                  smem)
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> dict:
+    """launch_plan's card arguments for CUDA device `index`, read from the
+    card itself."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(index):
+        _build.check("gs_device_limits", _build.library().gs_device_limits(
+            *(ctypes.byref(v) for v in vals)))
+    return dict(zip(("sm_count", "smem_block", "smem_sm"),
+                    (v.value for v in vals)))
 
 
 def _taps(vfield, xi, yi, v_outside):
@@ -131,19 +273,20 @@ def stage_scores_batch_cuda(field, px, py, use, pose0, dxs, dys, dts, *,
     check_tensor(fn, "dxs", dxs, (p, nx), dev)
     check_tensor(fn, "dys", dys, (p, ny), dev)
     check_tensor(fn, "dts", dts, (p, nt), dev)
-    if b > _MAX_BEAMS or ny * nx > _MAX_CANDIDATES_XY or nt > 65535 \
-            or p * max(nt, ny, nx) >= 2 ** 31:
-        raise ValueError(f"{fn}: at most {_MAX_BEAMS} beams, "
-                         f"{_MAX_CANDIDATES_XY} (dy, dx) candidates, 65535 "
-                         f"headings and 2^31 offsets a call; got {b}, "
-                         f"{ny * nx}, {nt}, {p * max(nt, ny, nx)}")
+    if b > _MAX_BEAMS or p * max(nt, ny, nx) >= 2 ** 31:
+        raise ValueError(f"{fn}: at most {_MAX_BEAMS} beams and 2^31 "
+                         f"offsets a call; got {b}, {p * max(nt, ny, nx)}")
     out = torch.empty((p, nt, ny, nx), dtype=torch.float32, device=dev)
+    plan = launch_plan(p, g_f, h, w, b, nt, ny, nx,
+                       **device_limits(dev.index))
     lib = _build.library()
     code = lib.gs_stage_scores(
         field.data_ptr(), px.data_ptr(), py.data_ptr(), use.data_ptr(),
         pose0.data_ptr(), dxs.data_ptr(), dys.data_ptr(), dts.data_ptr(),
         out.data_ptr(), p, g_f, g_b, h, w, b, nt, ny, nx, resolution, origin[0],
         origin[1], math.log(1.0 / max_range), int(nearest),
+        int(plan.variant == "shared"), plan.pitch, plan.pairs_per_tile,
+        plan.run, plan.splits, plan.threads, plan.smem_bytes,
         stream_handle(dev))
     launches += 1
     _build.check("gs_stage_scores", code)

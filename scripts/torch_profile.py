@@ -6,17 +6,23 @@ Runs a preset over the 12-scan synthetic square-path log of bench.py
 - parity: RBPF, 500 particles, 120 x 120 maps, particle_chunk 250;
 - mega:   SharedMapSLAM.step_surface, 1M particles, one 120 x 120 map;
 - city:   SharedMapSLAM.step_surface, 1M particles, one 4000 x 4000 map,
-          the volume over a 512-cell crop.
+          the volume over a 512-cell crop;
+- mega_blocked: SharedMapSLAM.replay, 1M particles each running the full
+          matcher on one 120 x 120 map, in blocks of matcher_block_size;
+- chip:   RBPF, 10 000 particles in chunks of 500 on the parity map.
 
 Prints one JSON line: wall time of the run (host clock, ending in a
 synchronize), the summed device time of all kernels and its share of the
 wall time, the device events per scan, the host waits on the device per
 scan (CUDA runtime synchronize calls, the run's closing one left out), and
 the top operations by device time.  With --trace PATH the Chrome trace of
-the profiled run is written there.
+the profiled run is written there.  With --root DIR the package (and
+chip_smoke.py) of the checkout unpacked at DIR are profiled instead of this
+one's, to compare two commits on one card.
 
-Usage: python scripts/torch_profile.py [--preset parity|mega|city]
-                                       [--trace PATH]      (needs a GPU)
+Usage: python scripts/torch_profile.py
+           [--preset parity|mega|city|mega_blocked|chip] [--root DIR]
+           [--trace PATH]                                   (needs a GPU)
 """
 
 import argparse
@@ -32,13 +38,13 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import parity_config, parity_log  # noqa: E402
-from gridmap_slam_tpu_torch import (RBPF, SharedMapSLAM,  # noqa: E402
-                                    city_config, mega_config)
-from gridmap_slam_tpu_torch.io import frame_at, frames_to_device  # noqa: E402
-
-PRESETS = {"parity": (parity_config, RBPF), "mega": (mega_config, SharedMapSLAM),
-           "city": (city_config, SharedMapSLAM)}
+# preset -> (engine, the parity config's particles and chunk, or the
+# package's own config function)
+PRESETS = {"parity": ("RBPF", (500, 250)),
+           "mega": ("SharedMapSLAM", "mega_config"),
+           "city": ("SharedMapSLAM", "city_config"),
+           "mega_blocked": ("SharedMapSLAM", (1_000_000, 0)),  # bench.py:641
+           "chip": ("RBPF", (10_000, 500))}                   # bench.py:623
 
 
 def _device_us(evt) -> float:
@@ -51,6 +57,8 @@ def _device_us(evt) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", choices=sorted(PRESETS), default="parity")
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="profile the checkout unpacked here")
     ap.add_argument("--trace", type=Path, default=None,
                     help="write the profiled run's Chrome trace here")
     args = ap.parse_args()
@@ -59,20 +67,34 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
-    make_config, engine = PRESETS[args.preset]
-    cfg = make_config()
+    sys.path.insert(0, str(args.root.resolve()))
+    import gridmap_slam_tpu_torch as pkg
+    from chip_smoke import parity_config, parity_log
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+
+    engine, config = PRESETS[args.preset]
+    if isinstance(config, str):
+        cfg = getattr(pkg, config)()
+    else:
+        cfg = parity_config().replace(num_particles=config[0],
+                                      particle_chunk=config[1])
     frames, _ = parity_log()
-    eng = engine(cfg, device="cuda")
+    eng = getattr(pkg, engine)(cfg, device="cuda")
     batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
                              device="cuda")
     seq = [frame_at(batch, i) for i in range(len(frames))]
 
     def run():
         gen = torch.Generator(device="cuda").manual_seed(0)
-        eng.run_log(eng.init(), seq, gen)
+        if args.preset == "mega_blocked":
+            eng.replay(eng.init(), seq, gen,
+                       block=pkg.matcher_block_size(cfg))
+        else:
+            eng.run_log(eng.init(), seq, gen)
         torch.cuda.synchronize()
 
     run()                                   # builds the kernels, warms up
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run()
     wall_plain = time.perf_counter() - t0
@@ -99,6 +121,7 @@ def main() -> None:
     n = len(seq)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "preset": args.preset,
+        "root": str(args.root),
         "particles": cfg.num_particles, "scans": n,
         "wall_s_unprofiled": wall_plain, "scans_per_sec": n / wall_plain,
         "wall_s_profiled": wall, "device_busy_ms": busy_us / 1e3,

@@ -49,7 +49,8 @@ def frontends():
                                       resolution=0.1, origin=(-3.0, -3.0)))
     fcfg = JFrontendConfig(max_candidates=8, closure_min_gap=6)
     jfe = JPoseGraphSLAM(jcfg, fcfg)
-    tfe = PoseGraphSLAM(config_from_jax(jcfg), frontend_config_from_jax(fcfg))
+    tfe = PoseGraphSLAM(config_from_jax(jcfg), frontend_config_from_jax(fcfg),
+                        device="cpu")
     jb = j_frames_to_device(frames, 96, 10.0)
     tb = frames_to_device(frames, 96, 10.0)
     pose = torch.zeros(3)

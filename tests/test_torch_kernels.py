@@ -27,6 +27,7 @@ from gridmap_slam_tpu.ops.raycast import build_beam_lut as j_build_beam_lut
 from gridmap_slam_tpu.ops.raycast import integrate_scan as j_integrate_scan
 from gridmap_slam_tpu.types import Odom as JOdom
 from gridmap_slam_tpu.types import Scan as JScan
+import gridmap_slam_tpu_torch
 from gridmap_slam_tpu_torch import RBPF, SlamConfig
 from gridmap_slam_tpu_torch.ops import matcher as tm
 from gridmap_slam_tpu_torch.ops.cuda import grid_update, likelihood
@@ -273,6 +274,70 @@ def test_k1_grouped_plain_matches_gather(g_f, g_b):
         np.testing.assert_array_equal(flat, got)
 
 
+@pytest.mark.parametrize("shape,variant", [
+    # P, G_f, H, W, B, nt, ny, nx
+    ((500, 500, 60, 60, 48, 11, 9, 9), "shared"),      # parity coarse
+    ((500, 500, 120, 120, 192, 5, 5, 5), "shared"),    # parity fine
+    ((500_000, 1, 60, 60, 48, 11, 9, 9), "shared"),    # mega_blocked block
+    ((500_000, 1, 120, 120, 192, 5, 5, 5), "shared"),
+    ((20_000, 1, 40, 70, 24, 11, 9, 9), "shared"),     # multi, 140 x 80
+    ((20_000, 1, 80, 140, 96, 5, 5, 5), "shared"),
+    ((32, 32, 140, 140, 90, 13, 15, 15), "shared"),    # closures
+    ((32, 32, 280, 280, 360, 5, 5, 5), "global"),
+    ((200, 200, 280, 280, 360, 5, 5, 5), "global"),    # pose-graph filter
+    ((500, 500, 120, 120, 192, 1, 1, 1), "global"),    # score_pose, RBPF
+    ((4096, 1, 120, 120, 192, 1, 1, 1), "shared"),     # score_pose, shared
+])
+def test_k1_launch_plan_covers_every_candidate_once(shape, variant):
+    """K1's launch plan at the shapes the paths give it: the variant, the
+    shared memory within one H100 block's 232 448 bytes, and the kernel's
+    walk (blocks over the tiles of each field group, threads over a tile's
+    units, a unit a run of dx candidates of one pair and dy) covering every
+    candidate exactly once."""
+    p, g_f, h, w, b, nt, ny, nx = shape
+    plan = kmatch.launch_plan(*shape)
+    assert plan.variant == variant
+    assert plan.smem_bytes <= kmatch.H100["smem_block"]
+    if variant == "shared":
+        assert plan.pitch >= w + 2 * kmatch.RING
+        assert plan.smem_bytes >= (h + 2 * kmatch.RING) * plan.pitch * 4
+    assert 32 <= plan.threads <= kmatch.MAX_THREADS
+    assert plan.threads % 32 == 0
+    assert 1 <= plan.run <= min(nx, kmatch.MAX_RUN)
+    assert plan.groups == (g_f if variant == "shared" else 1)
+    assert plan.groups * plan.pairs_per_group == p * nt
+    assert 1 <= plan.splits <= plan.tiles_per_group
+    # blocks: group b // splits, tiles [part T / splits, (part+1) T / splits)
+    blocks = np.arange(plan.grid, dtype=np.int64)
+    group, part = blocks // plan.splits, blocks % plan.splits
+    t_len = plan.tiles_per_group
+    t0 = part * t_len // plan.splits
+    t1 = (part + 1) * t_len // plan.splits
+    assert (t1 > t0).all()
+    # tiles, in block order: pairs [g ppg + t k, min(.. + k, (g + 1) ppg))
+    counts = t1 - t0
+    tile_group = np.repeat(group, counts)
+    tile = np.repeat(t0, counts) + np.arange(counts.sum()) - np.repeat(
+        np.cumsum(counts) - counts, counts)
+    k, ppg = plan.pairs_per_tile, plan.pairs_per_group
+    q0 = tile_group * ppg + tile * k
+    q1 = np.minimum(q0 + k, (tile_group + 1) * ppg)
+    assert q0[0] == 0 and q1[-1] == p * nt
+    np.testing.assert_array_equal(q0[1:], q1[:-1])     # no gap, no overlap
+    assert ((q1 - q0 >= 1) & (q1 - q0 <= k)).all()
+    # threads j, j + threads, ... over the n x ny x runs units of a tile;
+    # unit u of pair s covers dy u // runs and the dx from (u % runs) run
+    runs = -(-nx // plan.run)
+    for n in {int(q1[0] - q0[0]), int(q1[-1] - q0[-1])}:
+        j = np.concatenate([np.arange(t, n * ny * runs, plan.threads)
+                            for t in range(plan.threads)])
+        pair, unit = j // (ny * runs), j % (ny * runs)
+        ix = (unit % runs)[:, None] * plan.run + np.arange(plan.run)
+        cand = (pair * ny * nx + (unit // runs) * nx)[:, None] + ix
+        seen = cand[ix < nx]
+        np.testing.assert_array_equal(np.sort(seen), np.arange(n * ny * nx))
+
+
 def test_k1_all_invalid_scan_scores_zero():
     llf, px, py, _, poses = _problem(b=16, seed=5)
     offs = np.linspace(-0.1, 0.1, 3).astype(np.float32)
@@ -395,7 +460,7 @@ def test_tpu_only_matcher_impls_raise(impl):
     cfg = SlamConfig(num_particles=2, max_beams=8).with_overrides(
         {"matcher.impl": impl})
     with pytest.raises(ValueError, match="not ported"):
-        RBPF(cfg)
+        RBPF(cfg, device="cpu")
     llf, px, py, use, poses = _problem()
     scan = Scan(angle=_t(np.arctan2(py, px)), dist=_t(np.hypot(px, py)),
                 hit=_t(use), valid=_t(np.ones(len(px), bool)))
@@ -405,6 +470,45 @@ def test_tpu_only_matcher_impls_raise(impl):
                                            torch.tensor(0.0)),
             matcher_cfg=cfg.matcher, motion_cfg=cfg.motion, resolution=RES,
             origin=(-1.0, -1.0), max_range=MAXR)
+
+
+@pytest.mark.parametrize("engine", ["RBPF", "SharedMapSLAM",
+                                    "MultiRobotSLAM", "PoseGraphSLAM"])
+def test_engines_default_to_the_card(engine):
+    """An engine built with no device asks for the card: where there is one
+    it runs there; where there is none PyTorch itself refuses, with no
+    fallback to the CPU."""
+    cfg = SlamConfig(num_particles=4, max_beams=8)
+    extra = {"MultiRobotSLAM": dict(num_robots=2)}.get(engine, {})
+    make = getattr(gridmap_slam_tpu_torch, engine)
+    if torch.cuda.is_available():
+        assert make(cfg, **extra).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError),
+                           match="CUDA|NVIDIA"):
+            make(cfg, **extra)
+
+
+def test_ptxas_usage_reads_each_kernel():
+    """The build report chip_smoke.py prints: registers, static shared
+    memory and spills of each kernel from nvcc's `-Xptxas -v` output."""
+    from gridmap_slam_tpu_torch.ops.cuda import _build
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1aILb1ELb0ELi3EEv' for 'sm_90a'
+ptxas info    : Function properties for _Z1aILb1ELb0ELi3EEv
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, 1024 bytes smem, 400 bytes cmem[0]
+"""
+    assert _build.ptxas_usage(log) == {
+        "_Z1aILb1ELb0ELi3EEv": dict(registers=48, smem_bytes=0,
+                                    stack_bytes=32, spill_stores=0,
+                                    spill_loads=0),
+        "_Z1bv": dict(registers=255, smem_bytes=1024, stack_bytes=0,
+                      spill_stores=8, spill_loads=12)}
 
 
 def test_cuda_entry_points_refuse_cpu_tensors():

@@ -81,7 +81,7 @@ def test_step_parity_with_injected_draws(resample_fraction):
     logs = _logs(4)
     jcfg = _config().replace(resample_fraction=resample_fraction)
     jeng = JMulti(jcfg, num_robots=R)
-    eng = MultiRobotSLAM(config_from_jax(jcfg), num_robots=R)
+    eng = MultiRobotSLAM(config_from_jax(jcfg), num_robots=R, device="cpu")
     jb = [j_frames_to_device(f, 96, 8.0) for f, _ in logs]
     jbatch = jax.tree.map(lambda a, b: jnp.stack([a, b], axis=1), *jb)
     tb = [frames_to_device(f, 96, 8.0) for f, _ in logs]
@@ -128,7 +128,7 @@ def test_replay_ate_within_policy():
                                               poses=STARTS), jbatch)
     jtraj = np.asarray(jinfo.weighted_pose)                 # (T, R, 3)
 
-    eng = MultiRobotSLAM(config_from_jax(jcfg), num_robots=R)
+    eng = MultiRobotSLAM(config_from_jax(jcfg), num_robots=R, device="cpu")
     tb = [frames_to_device(f, 96, 8.0) for f, _ in logs]
     ticks = [stack_frames([frame_at(b, i) for b in tb]) for i in range(revs)]
 
@@ -161,15 +161,17 @@ def test_configurations_jax_ignores_raise(bad):
         cfg = cfg.with_overrides({"matcher.enabled": False})
         match = "matcher.enabled=False"
     with pytest.raises(ValueError, match=match):
-        MultiRobotSLAM(cfg, num_robots=2)
+        MultiRobotSLAM(cfg, num_robots=2, device="cpu")
 
 
 def test_init_matches():
     jcfg = _config(particles=5)
     js = JMulti(jcfg, num_robots=R).init(jax.random.key(0), poses=STARTS)
-    ts = MultiRobotSLAM(config_from_jax(jcfg), num_robots=R).init(STARTS)
+    ts = MultiRobotSLAM(config_from_jax(jcfg), num_robots=R,
+                        device="cpu").init(STARTS)
     for f in ("poses", "log_weights", "logodds", "step"):
         np.testing.assert_allclose(getattr(ts, f).numpy(),
                                    np.asarray(getattr(js, f)), atol=1e-6)
-    zero = MultiRobotSLAM(config_from_jax(jcfg), num_robots=3).init()
+    zero = MultiRobotSLAM(config_from_jax(jcfg), num_robots=3,
+                          device="cpu").init()
     assert zero.poses.shape == (3, 5, 3) and not zero.poses.any()

@@ -67,7 +67,7 @@ def test_step_parity_with_injected_draws(small_log, resample_fraction):
                        map=JMapConfig(width_m=3.0, height_m=3.0,
                                       origin=(-1.5, -1.5)))
     jeng = JRBPF(jcfg)
-    eng = RBPF(config_from_jax(jcfg))
+    eng = RBPF(config_from_jax(jcfg), device="cpu")
     jbatch = j_frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
     batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
     jstep = jax.jit(jeng.step)
@@ -112,7 +112,7 @@ def test_replay_ate_bound(small_log, tmp_path):
 
     from gridmap_slam_tpu_torch import SlamConfig
     cfg = SlamConfig(num_particles=12, max_beams=96)
-    eng = RBPF(cfg)
+    eng = RBPF(cfg, device="cpu")
     batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range)
     state, infos = eng.run_log(eng.init(), [frame_at(batch, i)
                                             for i in range(len(frames))],
@@ -133,7 +133,7 @@ def test_init_from_map_matches():
         width_m=2.0, height_m=1.5, origin=(-1.0, -0.75)))
     lo = np.random.default_rng(0).normal(size=(30, 40)).astype(np.float32)
     js = JRBPF(jcfg).init_from_map(jax.random.key(0), lo, pose=(0.1, 0.2, 0.3))
-    eng = RBPF(config_from_jax(jcfg))
+    eng = RBPF(config_from_jax(jcfg), device="cpu")
     ts = eng.init_from_map(lo, pose=(0.1, 0.2, 0.3))
     for f in ("poses", "log_weights", "logodds", "step"):
         np.testing.assert_array_equal(getattr(ts, f).numpy(),
@@ -149,7 +149,7 @@ def test_determinism(small_log):
     cfg = SlamConfig(num_particles=6, max_beams=96)
 
     def run():
-        eng = RBPF(cfg)
+        eng = RBPF(cfg, device="cpu")
         batch = frames_to_device(frames[:4], cfg.max_beams,
                                  cfg.sensor.max_range)
         state, _ = eng.run_log(eng.init(), [frame_at(batch, i)
@@ -182,7 +182,7 @@ def test_cross_backend_ate_within_policy():
         jstate, info = step(jstate, j_frame_at(jbatch, i))
         jtraj.append(np.asarray(info.weighted_pose))
 
-    eng = RBPF(config_from_jax(jcfg))
+    eng = RBPF(config_from_jax(jcfg), device="cpu")
     batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
     _, infos = eng.run_log(eng.init(), [frame_at(batch, i)
                                         for i in range(n_scans)],

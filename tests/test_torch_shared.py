@@ -107,7 +107,7 @@ def test_step_surface_parity_with_injected_draws(small_log, case):
     frames, _ = small_log
     jcfg = _small_config(case)
     jeng = js.SharedMapSLAM(jcfg)
-    eng = SharedMapSLAM(config_from_jax(jcfg))
+    eng = SharedMapSLAM(config_from_jax(jcfg), device="cpu")
     jbatch = j_frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
     batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
     jstep = jax.jit(jeng.step_surface)
@@ -222,7 +222,7 @@ def test_init_matches():
     jcfg = JSlamConfig(num_particles=50, map=JMapConfig(
         width_m=2.0, height_m=1.5, origin=(-1.0, -0.75)))
     jeng = js.SharedMapSLAM(jcfg)
-    eng = SharedMapSLAM(config_from_jax(jcfg))
+    eng = SharedMapSLAM(config_from_jax(jcfg), device="cpu")
     lo = np.random.default_rng(0).normal(size=(30, 40)).astype(np.float32)
     key = jax.random.key(3)
     pairs = [(jeng.init(key, pose=(0.1, 0.2, 0.3)),
@@ -252,7 +252,7 @@ def test_unported_configurations_raise(bad):
         cfg = SlamConfig(accumulate_weights=True).with_overrides(_INJECT)
         match = "models/shared.py:434"
     with pytest.raises(ValueError, match=match):
-        SharedMapSLAM(cfg)
+        SharedMapSLAM(cfg, device="cpu")
 
 
 def test_bench_log_ate_within_policy():
@@ -272,7 +272,7 @@ def test_bench_log_ate_within_policy():
         jstate, jinfo = jstep(jstate, j_frame_at(jbatch, i))
         jtraj.append(np.asarray(jinfo.weighted_pose))
 
-    eng = SharedMapSLAM(config_from_jax(jcfg))
+    eng = SharedMapSLAM(config_from_jax(jcfg), device="cpu")
     batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
     state, infos = eng.run_log(eng.init(), [frame_at(batch, i)
                                             for i in range(12)],
@@ -327,7 +327,7 @@ def test_amcl_recovery_injection_detects_kidnap():
 
     def run(reinject):
         cfg = base.with_overrides(_INJECT) if reinject else base
-        eng = SharedMapSLAM(cfg)
+        eng = SharedMapSLAM(cfg, device="cpu")
         state = eng.init_from_map(lo, pose=tuple(ga[0]))
         batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range)
         gen = torch.Generator().manual_seed(5)
@@ -400,7 +400,7 @@ def test_step_parity_with_injected_draws(small_log, case):
     frames, _ = small_log
     jcfg = _matcher_config(case)
     jeng = js.SharedMapSLAM(jcfg)
-    eng = SharedMapSLAM(config_from_jax(jcfg))
+    eng = SharedMapSLAM(config_from_jax(jcfg), device="cpu")
     jbatch = j_frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
     batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
     jstep = jax.jit(jeng.step)
@@ -435,8 +435,9 @@ def test_step_blocked_is_step_with_that_chunk(small_log, case):
     frames, _ = small_log
     jcfg = _matcher_config(case)
     batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
-    chunked = SharedMapSLAM(config_from_jax(jcfg))
-    blocked = SharedMapSLAM(config_from_jax(jcfg.replace(particle_chunk=0)))
+    chunked = SharedMapSLAM(config_from_jax(jcfg), device="cpu")
+    blocked = SharedMapSLAM(config_from_jax(jcfg.replace(particle_chunk=0)),
+                            device="cpu")
     a = chunked.init(pose=(0.1, -0.2, 0.3))
     b = blocked.init(pose=(0.1, -0.2, 0.3))
     ga, gb = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
@@ -469,7 +470,7 @@ def test_step_blocked_matches_jax_step_blocked(small_log):
     frames, _ = small_log
     jcfg = _matcher_config("chunked").replace(particle_chunk=0)
     jeng = js.SharedMapSLAM(jcfg)
-    eng = SharedMapSLAM(config_from_jax(jcfg))
+    eng = SharedMapSLAM(config_from_jax(jcfg), device="cpu")
     jbatch = j_frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
     batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
     jstate = jeng.init(jax.random.key(2))
@@ -496,9 +497,9 @@ def test_matcher_block_size():
                                  budget_bytes=5e4) == 1
     wide = cfg.with_overrides({"matcher.fine_nxy": 15, "matcher.fine_nt": 9})
     assert ts.matcher_workspace_bytes(wide) == 3 * 9 * 225 * 4
+    twelve = SharedMapSLAM(cfg.replace(num_particles=12), device="cpu")
     with pytest.raises(ValueError, match="divisible"):
-        SharedMapSLAM(cfg.replace(num_particles=12)).step_blocked(
-            SharedMapSLAM(cfg.replace(num_particles=12)).init(), None, 5)
+        twelve.step_blocked(twelve.init(), None, 5)
 
 
 def test_replay_ate_within_policy():
@@ -515,7 +516,7 @@ def test_replay_ate_within_policy():
     _, jinfo = jax.jit(jeng.replay)(jeng.init(jax.random.key(0)), jbatch)
     jtraj = np.asarray(jinfo.weighted_pose)
 
-    eng = SharedMapSLAM(config_from_jax(jcfg))
+    eng = SharedMapSLAM(config_from_jax(jcfg), device="cpu")
     batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
     tm._OFFSETS.clear()
     state, infos = eng.replay(eng.init(), [frame_at(batch, i)

@@ -144,7 +144,7 @@ def test_scan_surface_bf16_refused():
     cfg = config_from_jax(JSlamConfig().with_overrides(
         {"matcher.surface_bf16": True}))
     with pytest.raises(ValueError, match="surface_bf16 is not ported"):
-        ts.SharedMapSLAM(cfg)
+        ts.SharedMapSLAM(cfg, device="cpu")
     llf = _llf()
     e, _ = _splats(np.zeros(1, np.float32), 5)
     assert tsf.scan_surface(_t(llf), e, LL_OUT).dtype == torch.float32
@@ -266,7 +266,7 @@ def test_surface_volume_matches(volume_map, case):
                                        jscan, jc)
 
     tcfg = config_from_jax(cfg)
-    teng = ts.SharedMapSLAM(tcfg)
+    teng = ts.SharedMapSLAM(tcfg, device="cpu")
     frame = frame_at(frames_to_device(frames, cfg.max_beams,
                                       cfg.sensor.max_range), 2)
     scan = deskew_scan(frame.scan, frame.odom)
