@@ -6,15 +6,23 @@ Phases, each printed on its own line:
 1. device — the card's name and power limit (nvidia-smi) and CUDA version;
 2. build  — compile gridmap_slam_tpu_torch/csrc/*.cu with nvcc; the
    registers, shared memory and spills of each K1 instantiation (shared
-   and global variant) from `-Xptxas -v`;
+   and global variant), of K2's two (four cells a thread, one cell) and of
+   K3's nine (radius 1 to 4 compiled in, each staging by 128-bit loads or
+   cell by cell, and any radius) from `-Xptxas -v`; a
+   spill in any of them fails the run;
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of the parity preset (500 particles, 120 x 120 maps,
    2048 bearing bins, the three matcher stages, score_pose's single
    candidate), with its tolerance, K1's variant, and its time beside the
    plain version's (CUDA events, after warm-up) and beside its bound (the
    larger of its float operations over the H100's FP32 peak and its bytes
-   over its HBM rate); then K1 in both variants where taps leave the map
-   (endpoints at cells -1, W, 200 cells off, and around them);
+   over its HBM rate), K3 with its launch plan; then K1 in both variants
+   where taps leave the map (endpoints at cells -1, W, 200 cells off, and
+   around them); then K2 and K3 at a width that is no multiple of 4 and on
+   a window whose address is no multiple of 16 bytes, K3 at every
+   compiled-in radius, at radius 0, across column tiles, and with taps
+   whose squares underflow (the exact evidence sum in place of the window
+   OR);
 4. agree  — one filter step on the card against the same step in plain
    PyTorch on the CPU, from the same state and draws, on a small input;
 5. main   — the parity preset (bench.py --preset parity: 500 particles,
@@ -22,8 +30,9 @@ Phases, each printed on its own line:
    square-path log, seed 0) through RBPF(cfg, device="cuda").run_log,
    with every kernel's launch count, the ATE and the scans/s of a warm run;
 6. k3 radii — K3 against its plain version at blur radius 3, 12 and 30
-   (sigma 1, 4 and 10 cells), 60 (above the 48 KB shared-memory opt-in)
-   and 180 (the tile shrunk to 16), 500 maps of 120 x 120;
+   (sigma 1, 4 and 10 cells), 60 and 180 (past the map: a block takes a
+   whole map, above the 48 KB shared-memory opt-in), 500 maps of
+   120 x 120, each with its launch plan;
 7. surface ops — at the mega shapes (25 theta bins, a 405 x 405 endpoint
    kernel, a 120 x 120 field): the FFT correlation on the card against the
    same call on the CPU; the direct (conv2d) correlation with PyTorch's
@@ -79,7 +88,8 @@ rebuild; chip) is run with every launch count set to 0 just before it and
 read just after.  In phase 11 and on the paths of phases 15-18 the first
 run also records the arguments of the first kernel call of every call
 shape (CallRecorder), and a path_kernels line holds each kernel against
-its plain version on exactly those arguments (a call of more than 4096
+its plain version on exactly those arguments, with K2's fraction of cells
+beyond its atol and K3's launch plan (a call of more than 4096
 particles on its first and last 2048: each particle's output depends on
 its own rows only); a kernel that ran on a part but was not checked there
 fails the run.  Then
@@ -137,6 +147,7 @@ K1_FLOPS = {False: 16, True: 5}
 # A K2 cell: range (5) and bearing (about 15, an atan2) from the pose, the
 # bin (3) and the footprint and return tests (about 7).
 K2_FLOPS_CELL = 30
+ODD_SHAPE = (37, 118, 123)         # a width that is no multiple of 4
 
 
 def say(phase: str, **fields) -> None:
@@ -180,25 +191,42 @@ def build_phase() -> None:
     """Compile csrc/*.cu afresh; nvcc's -Xptxas -v report (registers,
     shared memory, spills per kernel) goes to stdout, and K1's
     instantiations (shared or global field, bilinear or nearest, runs of
-    1 to 5 dx candidates a thread) are summed up on the build line.  Their
-    shared memory is dynamic: a call's plan sets it."""
+    1 to 5 dx candidates a thread), K2's (four cells a thread or one) and
+    K3's (radius 1 to 4 compiled in, staged by 128-bit loads or cell by
+    cell, and any radius) are summed up on the
+    build line.  K1's and K3's shared memory is dynamic: a call's plan sets
+    it.  A spill in any of them fails the run."""
     from gridmap_slam_tpu_torch.ops.cuda import _build
     from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
     t0 = time.perf_counter()
     path, log = _build.build(verbose=True)
     _build.library()
-    k1 = []
+    k1, k2, k3 = [], [], []
     for name, use in sorted(_build.ptxas_usage(log).items()):
         m = re.search(r"stage_scores_kernelILb([01])ELb([01])ELi(\d)E", name)
         if m:
             k1.append(dict(variant="shared" if m.group(1) == "1" else
                            "global", nearest=m.group(2) == "1",
                            run=int(m.group(3)), **use))
+        m = re.search(r"grid_update_kernelILb([01])E", name)
+        if m:
+            k2.append(dict(cells_per_thread=4 if m.group(1) == "1" else 1,
+                           **use))
+        m = re.search(r"ll_field_(smallILi(\d)ELb([01])E|generic)", name)
+        if m:
+            k3.append(dict(variant="generic" if m.group(2) is None else
+                           "small", radius=m.group(2) and int(m.group(2)),
+                           loads_128_bit=m.group(3) and m.group(3) == "1",
+                           **use))
     say("build", seconds=time.perf_counter() - t0,
         sources=[str(p.relative_to(_build.CSRC.parents[1]))
                  for p in _build.sources()],
         library=path.name, k1_registers_assumed=kmatch.REGISTERS,
-        k1_variants=k1)
+        k1_variants=k1, k2_variants=k2, k3_variants=k3)
+    if len(k2) != 2 or len(k3) != 9 or any(
+            v["spill_stores"] or v["spill_loads"] for v in k2 + k3):
+        raise AssertionError(f"K2: expected 2 instantiations, K3: 9, none "
+                             f"with spills: {k2} {k3}")
     if len(k1) != 4 * kmatch.MAX_RUN or any(
             v["spill_stores"] or (v["run"] <= 3 and
                                   v["registers"] > kmatch.REGISTERS)
@@ -240,14 +268,32 @@ def k2_bound(args, kw):
     return _bound(K2_FLOPS_CELL * lo.numel(), _nbytes(args) + _nbytes([lo]))
 
 
+def _taps_inside(n: int, r: int) -> int:
+    """The taps of a (2r + 1)-tap blur along an axis of n cells that fall
+    inside it, summed over its cells (a tap outside adds zero)."""
+    return sum(min(i + r, n - 1) - max(i - r, 0) + 1 for i in range(n))
+
+
 def k3_bound(args, kw=None):
-    """K3's bound: a cell's two blurred planes, each two passes of
-    2r + 1 FMAs (8 (2r + 1) operations), and 4 for the threshold and the
-    log epilogue (a log counted as one); the map read and the field
-    written once."""
+    """K3's bound: one blurred plane (the evidence mask is a window OR on
+    bits, counted as nothing), two passes of an FMA for each tap that falls
+    inside the map (4 (2r + 1) operations a cell away from the edges), and
+    4 for the threshold and the log epilogue (a log counted as one); the
+    map read and the field written once."""
     lo, taps = args
-    return _bound(lo.numel() * (8 * taps.numel() + 4),
-                  _nbytes(args) + _nbytes([lo]))
+    p, h, w = lo.shape
+    r = (taps.numel() - 1) // 2
+    fmas = p * (h * _taps_inside(w, r) + w * _taps_inside(h, r))
+    return _bound(2 * fmas + 4 * lo.numel(), _nbytes(args) + _nbytes([lo]))
+
+
+def k3_plan(args) -> dict:
+    """The launch plan K3 runs these arguments with."""
+    from gridmap_slam_tpu_torch.ops.cuda import likelihood
+    plan = likelihood.plan_for(*args)
+    return dict(variant=plan.variant, tile=[plan.tile_h, plan.tile_w],
+                grid=[args[0].shape[0], plan.bands, plan.tiles],
+                threads=plan.threads, smem_bytes=plan.smem_bytes)
 
 
 def k1_variant(args) -> str:
@@ -318,6 +364,7 @@ def kernel_phase(cfg, frames):
         logodds, taps, **kw3), 20)
     bound, by = k3_bound((logodds, taps))
     say("kernel", name="K3 log_likelihood_field", shape=[p, h, w],
+        plan=k3_plan((logodds, taps)),
         max_abs_err=err3, atol=K3_ATOL, ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, share_of_bound=bound / ms)
     if not err3 <= K3_ATOL:
@@ -434,6 +481,9 @@ def kernel_phase(cfg, frames):
             bound1 += bound
             by_ops += bound if by == "operations" else 0.0
     err1 = max(err1, k1_ring_edges(cfg))
+    err2, err3 = odd_shapes(cfg, scan, kw2, kw3)
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], err3)
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err2)
     rows.append(dict(name="stage_scores", route="cuda",
                      source="gridmap_slam_tpu_torch/csrc/matcher.cu",
                      replaces="gridmap_slam_tpu/ops/pallas/matcher.py:287",
@@ -442,6 +492,82 @@ def kernel_phase(cfg, frames):
                      bound_by="operations" if 2 * by_ops >= bound1
                      else "bytes", library_ms=None))
     return rows
+
+
+def odd_shapes(cfg, scan, kw2, kw3, dev="cuda"):
+    """K2 and K3 against their plain versions off the aligned path: maps
+    whose width is no multiple of 4 (K2 moves one cell a thread), a
+    120 x 120 window of a larger buffer that starts 4 bytes past a 16-byte
+    boundary (K2 falls back from 128-bit words), K3 at every compiled-in
+    radius and at radius 0, K3's generic variant over several column tiles,
+    and K3 with sigma 1 at radius 12, whose outer taps squared underflow,
+    so the kernel sums the evidence window exactly instead of taking the
+    window OR.  Returns (K2's, K3's) largest error."""
+    from gridmap_slam_tpu_torch.ops.cuda import grid_update, likelihood
+    from gridmap_slam_tpu_torch.ops.grid import gaussian_kernel
+
+    rng = np.random.default_rng(SEED + 6)
+    tables = grid_update.scan_bin_tables(scan, cfg.beam_lut_bins)
+    keep = torch.ones((), device=dev)
+    p, h, w = ODD_SHAPE
+    odd = _test_maps(p, h, w, rng, dev)
+    buf = torch.zeros(p * 120 * 120 + 1, device=dev)
+    buf[1:] = _test_maps(p, 120, 120, rng, dev).reshape(-1)
+    window = buf[1:].view(p, 120, 120)
+    assert window.is_contiguous() and window.data_ptr() % 16 == 4
+
+    def poses(n, half):
+        return torch.as_tensor(np.stack(
+            [rng.uniform(-half, half, n), rng.uniform(-half, half, n),
+             rng.uniform(-math.pi, math.pi, n)], 1).astype(np.float32),
+            device=dev)
+
+    err2 = err3 = 0.0
+    k2_rows, k3_rows = [], []
+    for name, lo in (("width 123", odd), ("offset window", window)):
+        ps = poses(lo.shape[0], 1.5)
+        for cone_fill in (False, True):
+            kw = dict(kw2, cone_fill=cone_fill)
+            got = grid_update.integrate_scan_batch_cuda(lo, ps, keep, *tables,
+                                                        **kw)
+            want = grid_update.integrate_scan_batch_plain(lo, ps, keep,
+                                                          *tables, **kw)
+            diff = (got - want).abs()
+            frac = float((diff > K2_ATOL).float().mean())
+            changed = float((want != lo).float().mean())
+            err2 = max(err2, float(diff.max()))
+            k2_rows.append(dict(name=name, shape=list(lo.shape),
+                                cone_fill=cone_fill, frac_beyond_atol=frac,
+                                cells_updated_frac=changed,
+                                max_abs_err=float(diff.max())))
+            if not (frac <= K2_MAX_FRAC and changed > 0.01):
+                raise AssertionError(f"K2 at {name}: {k2_rows[-1]}")
+
+    wide = _test_maps(3, 70, 1100, rng, dev)
+    cases = [(name, lo, float(r) / 3 if r else 1.0, r)
+             for name, lo in (("width 123", odd), ("offset window", window))
+             for r in (0, 1, 2, 3, 4, 12)]
+    cases += [("three column tiles", wide, 4.0, 12),
+              ("column tiles, radius 3", wide, 1.0, 3),
+              ("exact evidence sum", odd, 1.0, 12),
+              ("exact evidence sum, compiled-in radius", odd, 0.3, 4)]
+    for name, lo, sigma, r in cases:
+        taps = torch.as_tensor(gaussian_kernel(sigma, r), device=dev)
+        got = likelihood.log_likelihood_field_batch_cuda(lo, taps, **kw3)
+        want = likelihood.log_likelihood_field_batch_plain(lo, taps, **kw3)
+        err = float((got - want).abs().max())
+        err3 = max(err3, err)
+        k3_rows.append(dict(
+            name=name, shape=list(lo.shape), radius=r, sigma_cells=sigma,
+            window_or=likelihood.window_or_is_exact(taps),
+            plan=k3_plan((lo, taps)), max_abs_err=err))
+        if not err <= K3_ATOL:
+            raise AssertionError(f"K3 at {name}: {k3_rows[-1]}")
+    if [r["window_or"] for r in k3_rows[-2:]] != [False, False]:
+        raise AssertionError("K3: the exact evidence sum was not exercised")
+    say("odd_shapes", k2=k2_rows, k2_atol=K2_ATOL, k2_max_frac=K2_MAX_FRAC,
+        k3=k3_rows, k3_atol=K3_ATOL)
+    return err2, err3
 
 
 def k1_ring_edges(cfg, dev="cuda") -> float:
@@ -617,8 +743,8 @@ def _test_maps(p, h, w, rng, device="cuda"):
 def k3_radii_phase(cfg):
     """K3 against its plain version at the blur radii of surface-mode
     relocalization (config.py: sigma 0.2-0.5 m is 4-10 cells at 5 cm), and
-    at radius 60 and 180, where the kernel opts in to more than 48 KB of
-    shared memory and then shrinks its tile."""
+    at radius 60 and 180, which reach past the map: a block takes a whole
+    map and opts in to more than 48 KB of shared memory."""
     from gridmap_slam_tpu_torch.ops.cuda import likelihood
     from gridmap_slam_tpu_torch.ops.grid import gaussian_kernel
 
@@ -638,7 +764,7 @@ def k3_radii_phase(cfg):
             logodds, taps, **kw), 5)
         bound, by = k3_bound((logodds, taps))
         say("k3_radius", sigma_cells=sigma, radius=radius,
-            tile=likelihood.tile(radius), shape=[p, h, w],
+            plan=k3_plan((logodds, taps)), shape=[p, h, w],
             max_abs_err=err, atol=K3_ATOL, ms=ms,
             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             share_of_bound=bound / ms)
@@ -1096,7 +1222,10 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
             row.update(atol=K2_ATOL if kernel == "K2" else K3_ATOL)
         if kernel == "K2":
             row.update(cone_fill=bool(kw.get("cone_fill")),
+                       frac_beyond_atol=frac,
                        cells_updated_frac=changed / n_out)
+        if kernel == "K3":
+            row.update(plan=k3_plan(args))
         checks.append(row)
         name = KERNEL_ROWS[kernel]
         PATH_MAX_ERR[name] = max(PATH_MAX_ERR[name], err)

@@ -36,10 +36,10 @@ _F = ctypes.c_float
 
 # entry point -> argument types (the C signatures in csrc/*.cu)
 SIGNATURES = {
-    # lo, out, taps, radius, P, H, W, z_hit, c_rand, v_eq, stream
-    "gs_ll_field": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
-    # radius -> output tile edge (0: the radius does not fit)
-    "gs_ll_field_tile": [_I],
+    # lo, out, taps, radius, P, H, W, z_hit, c_rand, v_eq, then the launch
+    # plan: small, tile_h, tile_w, threads, smem; stream
+    "gs_ll_field": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I,
+                    _I, _P],
     # lo, out, poses, keep, bin_dist, bin_alpha, bin_code, n_bins, G, P, H,
     # W, res, origin_x, origin_y, l_free, l_occ, tol_m, bin_scale,
     # cone_fill, stream

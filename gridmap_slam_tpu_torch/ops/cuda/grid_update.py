@@ -76,6 +76,54 @@ def integrate_scan_batch_plain(logodds, poses, keep, bin_dist, bin_alpha,
     return logodds + keep * delta
 
 
+def integrate_scan_batch_rotated(logodds, poses, keep, bin_dist, bin_alpha,
+                                 bin_code, *, resolution: float, origin,
+                                 l_free: float, l_occ: float,
+                                 tol_cells: float = 2.0,
+                                 cone_fill: bool = False):
+    """The kernel's arithmetic in plain tensors (csrc/grid_update.cu); it
+    documents the kernel and is held to the plain version by the tests, and
+    no path calls it.  Only the bin needs an angle: the cell's offset is
+    turned into the robot frame with the heading's cos and sin, one atan2
+    of it is the bearing already in (-pi, pi], and r cos(dphi), r sin(dphi)
+    are that offset's components along and across the bin's beam.  The
+    range stays sqrt(dx^2 + dy^2) of the unrotated offset.  A cell whose
+    center is the pose (r = 0) takes the plain version's bearing -theta
+    and perpendicular distance 0."""
+    h, w = logodds.shape[-2:]
+    dev = poses.device
+    ix = torch.arange(w, dtype=torch.float32, device=dev)
+    iy = torch.arange(h, dtype=torch.float32, device=dev)
+    dx = origin[0] + (ix[None, :] + 0.5) * resolution - poses[:, 0, None, None]
+    dy = origin[1] + (iy[:, None] + 0.5) * resolution - poses[:, 1, None, None]
+    r = torch.sqrt(dx * dx + dy * dy)
+    c = torch.cos(poses[:, 2, None, None])
+    s = torch.sin(poses[:, 2, None, None])
+    at_pose = r == 0.0
+    xr = torch.where(at_pose, c, dx * c + dy * s)
+    yr = torch.where(at_pose, -s, dy * c - dx * s)
+    n_bins = bin_dist.shape[-1]
+    bins = torch.floor((torch.atan2(yr, xr) + math.pi) * (n_bins / math.tau))
+    read = _bin_reader(bin_dist, bins.to(torch.int64).clamp(0, n_bins - 1))
+    code, m, alpha = read(bin_code), read(bin_dist), read(bin_alpha)
+    ca, sa = torch.cos(alpha), torch.sin(alpha)
+    along = xr * ca + yr * sa                               # r cos(dphi)
+    perp = torch.where(at_pose, 0.0, yr * ca - xr * sa)     # r sin(dphi)
+    halfw = 0.5005 * (torch.abs(c * ca - s * sa)
+                      + torch.abs(s * ca + c * sa)) * resolution
+    on_ray = (along > 0.0) & (code > 0.5)
+    if not cone_fill:
+        on_ray = on_ray & (torch.abs(perp) <= halfw)
+    tol_m = 0.5 * tol_cells * resolution
+    zero = torch.zeros_like(r)
+    delta_hit = torch.where(r < m - tol_m, l_free,
+                            torch.where(r <= m + tol_m, l_occ, zero))
+    delta_miss = torch.where(r < m, l_free, zero)
+    delta = torch.where(on_ray, torch.where(code < 1.5, delta_hit,
+                                            delta_miss), zero)
+    return logodds + keep * delta
+
+
 def integrate_scan_batch_cuda(logodds, poses, keep, bin_dist, bin_alpha,
                               bin_code, *, resolution: float, origin,
                               l_free: float, l_occ: float,

@@ -9,7 +9,9 @@ Runs a preset over the 12-scan synthetic square-path log of bench.py
           the volume over a 512-cell crop;
 - mega_blocked: SharedMapSLAM.replay, 1M particles each running the full
           matcher on one 120 x 120 map, in blocks of matcher_block_size;
-- chip:   RBPF, 10 000 particles in chunks of 500 on the parity map.
+- chip:   RBPF, 10 000 particles in chunks of 500 on the parity map;
+- multi:  MultiRobotSLAM.replay, scripts/config5_demo.py's two robots on
+          14 x 8 m at 0.1 m, 96 beams, 20 ticks, 10 000 particles a robot.
 
 Prints one JSON line: wall time of the run (host clock, ending in a
 synchronize), the summed device time of all kernels and its share of the
@@ -21,7 +23,7 @@ chip_smoke.py) of the checkout unpacked at DIR are profiled instead of this
 one's, to compare two commits on one card.
 
 Usage: python scripts/torch_profile.py
-           [--preset parity|mega|city|mega_blocked|chip] [--root DIR]
+           [--preset parity|mega|city|mega_blocked|chip|multi] [--root DIR]
            [--trace PATH]                                   (needs a GPU)
 """
 
@@ -44,7 +46,8 @@ PRESETS = {"parity": ("RBPF", (500, 250)),
            "mega": ("SharedMapSLAM", "mega_config"),
            "city": ("SharedMapSLAM", "city_config"),
            "mega_blocked": ("SharedMapSLAM", (1_000_000, 0)),  # bench.py:641
-           "chip": ("RBPF", (10_000, 500))}                   # bench.py:623
+           "chip": ("RBPF", (10_000, 500)),                   # bench.py:623
+           "multi": ("MultiRobotSLAM", 10_000)}
 
 
 def _device_us(evt) -> float:
@@ -73,6 +76,8 @@ def main() -> None:
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
 
     engine, config = PRESETS[args.preset]
+    if args.preset == "multi":
+        return profile_run(args, *multi_run(pkg, config))
     if isinstance(config, str):
         cfg = getattr(pkg, config)()
     else:
@@ -93,6 +98,46 @@ def main() -> None:
             eng.run_log(eng.init(), seq, gen)
         torch.cuda.synchronize()
 
+    profile_run(args, run, cfg.num_particles, len(seq))
+
+
+def multi_run(pkg, particles):
+    """chip_smoke.py's multi path: (run, particles a robot, ticks)."""
+    import math
+
+    from gridmap_slam_tpu_torch.config import MapConfig, SensorConfig
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.io.synthetic import (SimParams,
+                                                     multi_room_world,
+                                                     simulate_log)
+    from gridmap_slam_tpu_torch.models.multi import stack_frames
+
+    revs = 20
+    world = multi_room_world(rooms_x=2, rooms_y=1, room=6.0, door=1.4)
+    params = SimParams(beams_per_rev=90, encoder_noise_sd=6.0)
+    starts = [(-5.2, -0.3, 0.0), (5.2, 0.3, math.pi)]
+    logs = [simulate_log(world, [(0.25, 0.0)] * revs, params=params,
+                         seed=11 + i, start_pose=starts[i]) for i in range(2)]
+    cfg = pkg.SlamConfig(num_particles=particles, max_beams=96,
+                         sensor=SensorConfig(max_range=8.0),
+                         map=MapConfig(width_m=14.0, height_m=8.0,
+                                       resolution=0.1, origin=(-7.0, -4.0)))
+    eng = pkg.MultiRobotSLAM(cfg, num_robots=2, device="cuda")
+    batches = [frames_to_device(f, cfg.max_beams, cfg.sensor.max_range,
+                                device="cuda") for f, _ in logs]
+    ticks = [stack_frames([frame_at(b, i) for b in batches])
+             for i in range(revs)]
+
+    def run():
+        eng.replay(eng.init(starts), ticks,
+                   torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+
+    return run, particles, revs
+
+
+def profile_run(args, run, particles, n):
+    """Warm up, time one run, profile one run, print the JSON line."""
     run()                                   # builds the kernels, warms up
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -118,11 +163,10 @@ def main() -> None:
     top = [{"name": e.key[:90], "count": e.count,
             "device_ms": _device_us(e) / 1e3} for e in avg[:15]
            if _device_us(e) > 0]
-    n = len(seq)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "preset": args.preset,
         "root": str(args.root),
-        "particles": cfg.num_particles, "scans": n,
+        "particles": particles, "scans": n,
         "wall_s_unprofiled": wall_plain, "scans_per_sec": n / wall_plain,
         "wall_s_profiled": wall, "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / wall,
