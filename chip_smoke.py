@@ -57,8 +57,10 @@ Phases, each printed on its own line:
    (the closure window, 15 x 15 x 13, and a refinement stage), K2 with
    cone fill and 32 bin tables at 280 x 280; each against its plain
    version, with times;
-13. sync — one warm RBPF.step (parity preset) and one warm
-   SharedMapSLAM.step_blocked (4096 particles, blocks of 2048) under
+13. sync — one warm RBPF.step (parity preset), one warm
+   SharedMapSLAM.step_blocked (4096 particles, blocks of 2048), one warm
+   city step_surface (K2's window placed on the card) and one warm
+   surface_sharded step (world of one over NCCL) under
    torch.cuda.set_sync_debug_mode("error"): any call that waits on the
    card fails the run;
 14. shared agree — one SharedMapSLAM.step at 4096 particles on the card
@@ -81,6 +83,29 @@ Phases, each printed on its own line:
    graphs of 1000 and 3000 keyframes, with its peak memory;
 18. chip — bench.py's chip preset: RBPF at 10 000 particles in chunks of
    500 over the 12-scan log; ATE and scans/s;
+18b. parallel — the distributed engines (gridmap_slam_tpu_torch/parallel/):
+   K1's tile variant against its plain version at tiles cut from a
+   4000 x 4000 city field (2 and 4 tiles: both edge tiles and one inside;
+   poses around the tile boundaries and the world's edges; the three
+   stages of the tiled schedule), the tiles summed against the untiled K1,
+   and its time at the tiled path's shapes; then, in a world of one rank
+   over NCCL in this process (mesh (1, 1)), on the 12-scan parity log:
+   shmap at 1M particles in blocks of matcher_block_size over 6 scans
+   (against SharedMapSLAM.step_blocked, bit for bit), shmap surface on
+   `mega` (against step_surface, bit for bit), tiled on the city map at
+   10 000 particles in chunks of 500 (against SharedMapSLAM.step with the
+   tiled coarse stage: poses and map within 1e-4), surface_sharded on
+   `city` (against step_surface: poses 2e-3, map 1e-3, Neff rtol 1e-3),
+   the sharded RBPF at the parity preset (against RBPF.step, bit for
+   bit), each twice with one seed (the same bits), with its launches a
+   scan, a warm step under the sync check, its peak memory and scans/s;
+   and the distributed Gauss-Newton on grand_tour_216's graph and the
+   1000 / 3000-keyframe synthetic graphs (against posegraph.optimize:
+   chi2 rtol 1e-3, nodes atol 1e-3, chi2 falling), ms an iteration;
+   then shmap (p = 2) on 2 gloo ranks on the one card (CUDA tensors; NCCL
+   refuses two ranks on one card) over 3 scans at the parity width: the
+   ranks agree, and equal the mesh (1, 1) run within the CPU tests'
+   tolerances;
 19. cli — the port's application layer, in this process on the card:
    `python -m gridmap_slam_tpu_torch.app.cli replay` at the parity width on
    maps/room_loop_40.rec (500 particles, chunk 250, 192 beam slots, with
@@ -93,12 +118,16 @@ Phases, each printed on its own line:
    log, checkpoints every 4 scans and a fault after scan 6's draws,
    bit-identical to an unbroken run (the generator's state restored with
    the checkpoint); SlamApplication fed 5 frames by the loopback robot
-   through RobotLink and SlamPipeline.
+   through RobotLink and SlamPipeline; replay --engine tiled (parity
+   width) and --engine surface-sharded (1M particles) on room_loop_40.rec
+   at a world of one, each with its launches a scan and ATE < 0.25 m.
 
 Each path (parity, mega, city, mega_blocked, multi at each particle count,
 the posegraph flow's three parts: the filter, closure detection, the
-rebuild; chip; the cli phase's six: cli_replay, cli_load_map, cli_surface,
-cli_posegraph, cli_recovery, cli_live) is run with every launch count set
+rebuild; chip; the parallel phase's five: shmap, shmap_surface, tiled,
+surface_sharded, sharded; the cli phase's eight: cli_replay,
+cli_load_map, cli_surface, cli_tiled, cli_surface_sharded, cli_posegraph,
+cli_recovery, cli_live) is run with every launch count set
 to 0 just before it and read just after.  In phase 11 and on the paths of phases 15-18 the first
 run also records the arguments of the first kernel call of every call
 shape (CallRecorder), and a path_kernels line holds each kernel against
@@ -166,6 +195,20 @@ K1_FLOPS = {False: 16, True: 5}
 # bin (3) and the footprint and return tests (about 7).
 K2_FLOPS_CELL = 30
 ODD_SHAPE = (37, 118, 123)         # a width that is no multiple of 4
+# the parallel phase: shmap at 1M particles over the first 6 scans; tiled
+# on the city map at the chip rung's 10 000 particles in chunks of 500;
+# K1's tile variant checked over 2 and 4 tiles
+PAR_SHMAP_SCANS = 6
+PAR_TILED_PARTICLES, PAR_TILED_CHUNK = 10_000, 500
+TILE_SHARDS = (2, 4)
+# A beam whose base column sits within an ulp of a tile boundary may fall to
+# either tile in the kernel's and the plain version's float order: one
+# tile's partial score then differs by that beam's whole term, the tiles'
+# sum does not (held with no candidate beyond).  As K1_NEAREST_MAX_FRAC.
+K1_TILE_MAX_FRAC = 1e-3
+TILED_ATOL = 1e-4          # poses and map against SharedMapSLAM.step
+SS_POSE_ATOL, SS_MAP_ATOL, SS_NEFF_RTOL = 2e-3, 1e-3, 1e-3  # tests/test_surface_sharded.py:66-73
+BA_CHI2_RTOL, BA_NODES_ATOL = 1e-3, 1e-3   # tests/test_ba.py:43-45
 
 
 def say(phase: str, **fields) -> None:
@@ -212,7 +255,8 @@ def build_phase() -> None:
     1 to 5 dx candidates a thread), K2's (four cells a thread or one) and
     K3's (radius 1 to 4 compiled in, staged by 128-bit loads or cell by
     cell, and any radius) are summed up on the
-    build line.  K1's and K3's shared memory is dynamic: a call's plan sets
+    build line; K1's untiled and tile variants, K2's whole-map and window
+    variants.  K1's and K3's shared memory is dynamic: a call's plan sets
     it.  A spill in any of them fails the run."""
     from gridmap_slam_tpu_torch.ops.cuda import _build
     from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
@@ -221,15 +265,17 @@ def build_phase() -> None:
     _build.library()
     k1, k2, k3 = [], [], []
     for name, use in sorted(_build.ptxas_usage(log).items()):
-        m = re.search(r"stage_scores_kernelILb([01])ELb([01])ELi(\d)E", name)
+        m = re.search(r"stage_scores_kernelILb([01])ELb([01])ELi(\d)ELb([01])E",
+                      name)
         if m:
             k1.append(dict(variant="shared" if m.group(1) == "1" else
                            "global", nearest=m.group(2) == "1",
-                           run=int(m.group(3)), **use))
-        m = re.search(r"grid_update_kernelILb([01])E", name)
+                           run=int(m.group(3)), tile=m.group(4) == "1",
+                           **use))
+        m = re.search(r"grid_update_kernelILb([01])ELb([01])E", name)
         if m:
             k2.append(dict(cells_per_thread=4 if m.group(1) == "1" else 1,
-                           **use))
+                           window=m.group(2) == "1", **use))
         m = re.search(r"ll_field_(smallILi(\d)ELb([01])E|generic)", name)
         if m:
             k3.append(dict(variant="generic" if m.group(2) is None else
@@ -241,15 +287,15 @@ def build_phase() -> None:
                  for p in _build.sources()],
         library=path.name, k1_registers_assumed=kmatch.REGISTERS,
         k1_variants=k1, k2_variants=k2, k3_variants=k3)
-    if len(k2) != 2 or len(k3) != 9 or any(
+    if len(k2) != 3 or len(k3) != 9 or any(
             v["spill_stores"] or v["spill_loads"] for v in k2 + k3):
-        raise AssertionError(f"K2: expected 2 instantiations, K3: 9, none "
+        raise AssertionError(f"K2: expected 3 instantiations, K3: 9, none "
                              f"with spills: {k2} {k3}")
-    if len(k1) != 4 * kmatch.MAX_RUN or any(
+    if len(k1) != 8 * kmatch.MAX_RUN or any(
             v["spill_stores"] or (v["run"] <= 3 and
                                   v["registers"] > kmatch.REGISTERS)
             for v in k1):
-        raise AssertionError(f"K1: expected {4 * kmatch.MAX_RUN} "
+        raise AssertionError(f"K1: expected {8 * kmatch.MAX_RUN} "
                              f"instantiations without spills, runs of 1-3 "
                              f"within {kmatch.REGISTERS} registers: {k1}")
 
@@ -284,6 +330,15 @@ def k2_bound(args, kw):
     the poses and tables read once."""
     lo = args[0]
     return _bound(K2_FLOPS_CELL * lo.numel(), _nbytes(args) + _nbytes([lo]))
+
+
+def k2w_bound(args, kw):
+    """K2's window variant's bound: K2_FLOPS_CELL a window cell; the map
+    read and the new map written once (the call returns a whole map),
+    the pose, its window's place and the tables read once."""
+    lo = args[0]
+    hw, ww = kw["size"]
+    return _bound(K2_FLOPS_CELL * hw * ww, _nbytes(args) + _nbytes([lo]))
 
 
 def _taps_inside(n: int, r: int) -> int:
@@ -731,7 +786,7 @@ def main_phase(cfg, frames, gt):
         warm_seconds=sec, scans_per_sec=len(seq) / sec)
     if not finite:
         raise AssertionError("non-finite poses or maps")
-    if not all(n > 0 for n in launches.values()):
+    if not all(launches[k] > 0 for k in BASE_ROWS):
         raise AssertionError(f"a kernel was not launched: {launches}")
     if not ate < ATE_MAX_M:
         raise AssertionError(f"parity ATE {ate} >= {ATE_MAX_M}")
@@ -741,11 +796,27 @@ def main_phase(cfg, frames, gt):
     return launches
 
 
+class _TileCount:
+    """K1's tile variant's launch count (ops/cuda/matcher.tile_launches)
+    read and set as a module's `launches`."""
+
+    @property
+    def launches(self):
+        from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
+        return kmatch.tile_launches
+
+    @launches.setter
+    def launches(self, n):
+        from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
+        kmatch.tile_launches = n
+
+
 def _kernel_modules():
     from gridmap_slam_tpu_torch.ops.cuda import grid_update, likelihood
     from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
     return {"stage_scores": kmatch, "integrate_scan": grid_update,
-            "log_likelihood_field": likelihood}
+            "log_likelihood_field": likelihood,
+            "stage_scores_tile": _TileCount()}
 
 
 def _test_maps(p, h, w, rng, device="cuda"):
@@ -1074,12 +1145,18 @@ def mega_phase(frames, gt):
 
 
 KERNEL_ROWS = {"K1": "stage_scores", "K2": "integrate_scan",
-               "K3": "log_likelihood_field"}
+               "K3": "log_likelihood_field", "K1t": "stage_scores_tile",
+               "K2w": "integrate_scan"}
+# the rows of the untiled paths (K1's tile variant runs on tiled maps only)
+BASE_ROWS = ("stage_scores", "integrate_scan", "log_likelihood_field")
 _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
+          "K1t": ("matcher", "stage_scores_tile_cuda"),
+          "K2w": ("grid_update", "integrate_scan_window_cuda"),
           "K2": ("grid_update", "integrate_scan_batch_cuda"),
           "K3": ("likelihood", "log_likelihood_field_batch_cuda")}
 PATH_MAX_ERR = {row: 0.0 for row in KERNEL_ROWS.values()}
-BOUNDS = {"K1": k1_bound, "K2": k2_bound, "K3": k3_bound}
+BOUNDS = {"K1": k1_bound, "K2": k2_bound, "K3": k3_bound, "K1t": k1_bound,
+          "K2w": k2w_bound}
 FULL_MAX = 4096      # a recorded call of more particles is compared on
 SLICE = 2048         # its first and its last SLICE particles
 
@@ -1174,7 +1251,7 @@ def _group_rows(t, p, a, n):
 def _particle_slice(kernel, args, a, n):
     """A kernel call's arguments for its particles [a, a + n) alone (each
     particle's output depends on its own rows only)."""
-    if kernel == "K1":
+    if kernel in ("K1", "K1t"):
         field, px, py, use, pose0, dxs, dys, dts = args
         p = pose0.shape[0]
         scan = [x if x.dim() == 1 else _group_rows(x, p, a, n)
@@ -1203,20 +1280,21 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
         mod, attr = _entry(kernel)
         cuda_fn = getattr(mod, attr)
         plain_fn = getattr(mod, attr.replace("_cuda", "_plain"))
-        p = (args[4] if kernel == "K1" else args[0]).shape[0]
+        p = (1 if kernel == "K2w" else
+             (args[4] if kernel in ("K1", "K1t") else args[0]).shape[0])
         parts = [(0, p)] if p <= FULL_MAX else [(0, SLICE), (p - SLICE, SLICE)]
         got_all = cuda_fn(*args, **kw)
         err, beyond, changed, n_out = 0.0, 0, 0, 0
         for a, n in parts:
             sub = args if n == p else _particle_slice(kernel, args, a, n)
             want = plain_fn(*sub, **kw)
-            got = got_all[a:a + n]
+            got = got_all if kernel == "K2w" else got_all[a:a + n]
             diff = (got - want).abs()
             err = max(err, float(diff.max()))
             n_out += diff.numel()
-            if kernel == "K1":
+            if kernel in ("K1", "K1t"):
                 beyond += int((diff > K1_ATOL + K1_RTOL * want.abs()).sum())
-            elif kernel == "K2":
+            elif kernel in ("K2", "K2w"):
                 beyond += int((diff > K2_ATOL).sum())
                 changed += int((want != sub[0]).sum())
             else:
@@ -1226,9 +1304,12 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
             kernel, args, *parts[0])
         ms = cuda_ms(lambda: cuda_fn(*args, **kw), 20 if p <= FULL_MAX else 3)
         plain_ms = cuda_ms(lambda: plain_fn(*first, **kw), 3)
+        if kernel == "K2w":        # the window's cells, not the map's
+            n_out = kw["size"][0] * kw["size"][1]
         frac = beyond / n_out
-        limit = {"K1": K1_NEAREST_MAX_FRAC if kw.get("nearest") else 0.0,
-                 "K2": K2_MAX_FRAC, "K3": 0.0}[kernel]
+        nearest_frac = K1_NEAREST_MAX_FRAC if kw.get("nearest") else 0.0
+        limit = {"K1": nearest_frac, "K1t": nearest_frac, "K2": K2_MAX_FRAC,
+                 "K2w": K2_MAX_FRAC, "K3": 0.0}[kernel]
         bound, by = BOUNDS[kernel](args, kw)
         row = dict(path=path, kernel=kernel,
                    shapes=[list(t.shape) for t in args if torch.is_tensor(t)],
@@ -1236,13 +1317,18 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
                    max_abs_err=err, frac_beyond_tol=frac, max_frac=limit,
                    ms=ms, plain_ms=plain_ms, plain_particles=parts[0][1],
                    bound_ms=bound, bound_by=by, share_of_bound=bound / ms)
-        if kernel == "K1":
+        if kernel in ("K1", "K1t"):
             row.update(variant=k1_variant(args),
                        nearest=bool(kw.get("nearest")), rtol=K1_RTOL,
                        atol=K1_ATOL)
         else:
-            row.update(atol=K2_ATOL if kernel == "K2" else K3_ATOL)
-        if kernel == "K2":
+            row.update(atol=K3_ATOL if kernel == "K3" else K2_ATOL)
+        if kernel == "K1t":
+            row.update(tile=dict(c0=kw["c0"], w_loc=kw["w_loc"],
+                                 n_m=kw["n_m"], ext=kw["ext"]))
+        if kernel == "K2w":
+            row.update(window=list(kw["size"]), col0=kw["col0"])
+        if kernel in ("K2", "K2w"):
             row.update(cone_fill=bool(kw.get("cone_fill")),
                        frac_beyond_atol=frac,
                        cells_updated_frac=changed / n_out)
@@ -1269,7 +1355,8 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
 def city_kernels_phase(eng, state, frame):
     """K3 and K2 against their plain versions on the very arguments one
     city step passes them (CallRecorder): K3 on the volume crop plus blur
-    radius, K2 on the integration crop at its shifted origin."""
+    radius, K2's window variant on the integration crop of the whole map,
+    placed on the card."""
     cfg = eng.config
     kernels = _zero_launches()
     with CallRecorder("city step") as rec:
@@ -1278,19 +1365,19 @@ def city_kernels_phase(eng, state, frame):
     launches = {k: mod.launches for k, mod in kernels.items()}
     calls = {kernel: (args, kw) for _, kernel, args, kw in rec.calls}
     shape3 = list(calls["K3"][0][0].shape)
-    shape2 = list(calls["K2"][0][0].shape)
-    origin2 = list(calls["K2"][1]["origin"])
+    shape2 = list(calls["K2w"][0][0].shape)
+    window = list(calls["K2w"][1]["size"])
     crop = cfg.matcher.surface_crop_cells
     r = cfg.map.likelihood_radius
     if shape3 != [1, crop + 2 * r, crop + 2 * r]:
         raise AssertionError(f"city K3 ran at {shape3}, not the crop plus "
                              f"radius")
-    if shape2[1:] == [cfg.map.cells_y, cfg.map.cells_x] or \
-            origin2 == list(cfg.map.origin):
-        raise AssertionError(f"city K2 ran on {shape2} at {origin2}, not "
-                             f"on a shifted crop")
+    if "K2" in calls or shape2 != [cfg.map.cells_y, cfg.map.cells_x] or \
+            not window[0] < cfg.map.cells_y:
+        raise AssertionError(f"city K2 ran on {shape2} in {window}, not in "
+                             f"a window of the whole map")
     for row in check_recorded(rec, {"city step": launches}):
-        if row["kernel"] == "K2" and not row["cells_updated_frac"] > 1e-3:
+        if row["kernel"] == "K2w" and not row["cells_updated_frac"] > 1e-3:
             raise AssertionError(f"city K2 updated too few cells: {row}")
 
 
@@ -1445,11 +1532,15 @@ def grouped_kernel_phase(cfg, frames, dev="cuda", n_shared=2048,
 
 
 def sync_phase(cfg, frames, dev="cuda", shared_particles=AGREE_PARTICLES):
-    """A warm RBPF.step and a warm SharedMapSLAM.step_blocked under
+    """A warm RBPF.step, a warm SharedMapSLAM.step_blocked, a warm city
+    step_surface and a warm surface_sharded step (world of one, NCCL) under
     torch.cuda.set_sync_debug_mode("error"): a call that waits on the card
     (a read back to the host, a copy from pageable host memory) raises."""
-    from gridmap_slam_tpu_torch import RBPF, SharedMapSLAM
+    from gridmap_slam_tpu_torch import RBPF, SharedMapSLAM, city_config
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.parallel.mesh import make_mesh
+    from gridmap_slam_tpu_torch.parallel.surface_sharded import (
+        init_surface_sharded, make_surface_sharded_step)
 
     batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
                              device=dev)
@@ -1473,10 +1564,31 @@ def sync_phase(cfg, frames, dev="cuda", shared_particles=AGREE_PARTICLES):
     finally:
         if dev == "cuda":
             torch.cuda.set_sync_debug_mode(0)
+    del rbpf, shared, st_r, st_s
+    # city: step_surface on the 4000 x 4000 map, K2's window placed on the
+    # card; surface_sharded: the same on a world of one over NCCL
+    city = SharedMapSLAM(city_config(), device=dev)
+    cb = frames_to_device(frames, city.config.max_beams,
+                          city.config.sensor.max_range, device=dev)
+    world = _world_of_one()
+    try:
+        mesh = make_mesh(1, device=dev)
+        ss_step = make_surface_sharded_step(city, mesh)
+        st_c, st_ss = city.init(), init_surface_sharded(city, mesh)
+        for i in range(2):
+            st_c, _ = city.step_surface(st_c, frame_at(cb, i), gen)
+            st_ss, _ = ss_step(st_ss, frame_at(cb, i), gen)
+        f2 = frame_at(cb, 2)
+        (st_c, info_c), (st_ss, info_ss) = _sync_free(lambda: (
+            city.step_surface(st_c, f2, gen), ss_step(st_ss, f2, gen)))
+    finally:
+        _close_world(world)
     say("sync", rbpf_particles=cfg.num_particles,
         shared_particles=shared_particles, block=block,
         rbpf_neff=float(info_r.neff), shared_neff=float(info_s.neff),
-        synchronizing_calls=0)
+        city_particles=city.config.num_particles,
+        city_neff=float(info_c.neff),
+        surface_sharded_neff=float(info_ss.neff), synchronizing_calls=0)
 
 
 def shared_agree_phase(cfg, frames, dev="cuda", particles=AGREE_PARTICLES):
@@ -1594,7 +1706,7 @@ def mega_blocked_phase(frames, gt, particles=MEGA_PARTICLES, dev="cuda"):
     if not (finite and identical):
         raise AssertionError(f"mega_blocked: finite {finite}, rerun "
                              f"identical {identical}")
-    if not all(n > 0 for n in launches.values()):
+    if not all(launches[k] > 0 for k in BASE_ROWS):
         raise AssertionError(f"mega_blocked: a kernel was not launched: "
                              f"{launches}")
     if not ate < ATE_MAX_M:
@@ -1664,7 +1776,7 @@ def multi_phase(dev="cuda", particle_counts=MULTI_PARTICLES,
         if not (finite and identical):
             raise AssertionError(f"multi at {particles}: finite {finite}, "
                                  f"rerun identical {identical}")
-        if not all(n > 0 for n in launches.values()):
+        if not all(launches[k] > 0 for k in BASE_ROWS):
             raise AssertionError(f"multi: a kernel was not launched: "
                                  f"{launches}")
         if not max(ates) < ATE_MAX_M:
@@ -1782,24 +1894,23 @@ def posegraph_phase(dev="cuda", particles=200, path=GRAND_TOUR, scans=None):
                                  f"{g['keyframes']} keyframes: {g}")
     # every kernel in the filter and in closure verification, K2 in the
     # rebuild (Gauss-Newton runs none)
-    for part, needed in (("posegraph_rbpf", KERNEL_ROWS.values()),
-                         ("posegraph_closures", KERNEL_ROWS.values()),
+    for part, needed in (("posegraph_rbpf", BASE_ROWS),
+                         ("posegraph_closures", BASE_ROWS),
                          ("posegraph_rebuild", ["integrate_scan"])):
         if not all(launches[part][k] > 0 for k in needed):
             raise AssertionError(f"{part}: a kernel was not launched: "
                                  f"{launches[part]}")
     first = dict(keyframes=fe.num_keyframes, closures=n_closures,
                  chi2_first=float(chi2[0]), chi2_last=float(chi2[-1]))
-    del fe, graph, rebuilt, rebuilt2
+    del fe, rebuilt, rebuilt2
     check_recorded(rec, launches)
-    return launches, first
+    return launches, first, graph
 
 
-def gn_large_graph(PG, k, dev, iterations=10):
-    """Gauss-Newton on a synthetic graph of k keyframes: a random-walk
-    trajectory, noisy odometry edges along it and k // 10 noisy closures
-    between keyframes at least 20 apart, started from dead reckoning.
-    Returns the timing, the peak memory and chi2 first and last."""
+def synthetic_graph(PG, k, dev):
+    """A synthetic pose graph of k keyframes: a random-walk trajectory,
+    noisy odometry edges along it and k // 10 noisy closures between
+    keyframes at least 20 apart, started from dead reckoning."""
     rng = np.random.default_rng(SEED + 4)
     steps = rng.normal(0.0, 1.0, (k - 1, 3)) * [0.3, 0.05, 0.15]
     truth = np.zeros((k, 3))
@@ -1830,6 +1941,13 @@ def gn_large_graph(PG, k, dev, iterations=10):
         edge_w=torch.as_tensor(np.concatenate(
             [ew, np.tile([400.0, 400.0, 800.0], (len(ci), 1))]),
             dtype=torch.float32, device=dev))
+    return graph
+
+
+def gn_large_graph(PG, k, dev, iterations=10):
+    """Gauss-Newton on synthetic_graph(k).  Returns the timing, the peak
+    memory and chi2 first and last."""
+    graph = synthetic_graph(PG, k, dev)
     PG.optimize(graph, iterations=1)           # warm: cuSOLVER, cuBLAS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1879,12 +1997,520 @@ def chip_phase(frames, gt, dev="cuda", particles=CHIP_PARTICLES,
         scans_per_sec=len(seq) / sec)
     if not finite:
         raise AssertionError("chip: non-finite poses or maps")
-    if not all(n > 0 for n in launches.values()):
+    if not all(launches[k] > 0 for k in BASE_ROWS):
         raise AssertionError(f"chip: a kernel was not launched: {launches}")
     if not ate < ATE_MAX_M:
         raise AssertionError(f"chip ATE {ate} >= {ATE_MAX_M}")
     check_recorded(rec, {"chip": launches})
     return launches
+
+
+# ------------------------------------------------------------------ parallel
+def _sync_free(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): any call that
+    waits on the card (a read back to the host) raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _world_of_one() -> str:
+    """A world of one rank over NCCL in this process (a file rendezvous in
+    a fresh directory, which is returned)."""
+    import tempfile
+    import torch.distributed as dist
+    d = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    dist.init_process_group("nccl", init_method=f"file://{d}/rendezvous",
+                            rank=0, world_size=1)
+    return d
+
+
+def _close_world(d: str) -> None:
+    import shutil
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("poses", "log_weights", "logodds"))
+
+
+def _ext_tile(field, j, n, fill):
+    """Column tile j of n of (G, H, W) fields with one column of each
+    neighbour, `fill` at the world's edges: K1's tile field."""
+    g, h, w = field.shape
+    w_loc = w // n
+    out = torch.full((g, h, w_loc + 2), fill, device=field.device)
+    out[..., 1:-1] = field[..., j * w_loc:(j + 1) * w_loc]
+    if j > 0:
+        out[..., 0] = field[..., j * w_loc - 1]
+    if j < n - 1:
+        out[..., -1] = field[..., (j + 1) * w_loc]
+    return out
+
+
+def k1_tile_phase(frames, particles=256, timed_particles=PAR_TILED_CHUNK):
+    """K1's tile variant on the card at tile shapes cut from the city map
+    (4000 x 4000 at 5 cm, a random map through K3): against its plain
+    version at n_m = 2 and 4 (both edge tiles and one inside), and the
+    tiles summed against the untiled K1 on the whole field, for the three
+    stages of the tiled schedule (coarse at full resolution over every
+    4th beam, fine, refine) at `particles` poses around the tile
+    boundaries and the world's edges; then the three stages timed at the
+    tiled row's shapes (one tile, 500 particles).  Returns the kernels
+    line's row."""
+    from gridmap_slam_tpu_torch import city_config
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.ops.cuda import likelihood
+    from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
+    from gridmap_slam_tpu_torch.ops.geometry import deskew_scan, scan_points
+    from gridmap_slam_tpu_torch.ops.grid import gaussian_kernel
+
+    dev = torch.device("cuda")
+    cfg = city_config()
+    mc = cfg.matcher
+    h, w = cfg.map.cells_y, cfg.map.cells_x
+    origin, res, maxr = cfg.map.origin, cfg.map.resolution, \
+        cfg.sensor.max_range
+    v_out = math.log(1.0 / maxr)
+    rng = np.random.default_rng(SEED + 7)
+    taps = torch.as_tensor(gaussian_kernel(cfg.map.likelihood_sigma,
+                                           cfg.map.likelihood_radius),
+                           device=dev)
+    field = likelihood.log_likelihood_field_batch_cuda(
+        _test_maps(1, h, w, rng), taps, z_hit=mc.z_hit, max_range=maxr)
+    batch = frames_to_device(frames, cfg.max_beams, maxr, device=dev)
+    scan = deskew_scan(frame_at(batch, 0).scan, frame_at(batch, 0).odom)
+    px, py = scan_points(scan)
+    use = scan.valid & scan.hit
+
+    def offs(a, n):
+        return torch.as_tensor(np.asarray(a, np.float32),
+                               device=dev).expand(n, -1).contiguous()
+
+    def stages(p):
+        wt = math.radians(mc.window_theta_deg)
+        c_xy = offs(np.linspace(-mc.window_xy, mc.window_xy, mc.coarse_nxy), p)
+        c_t = offs(np.linspace(-wt, wt, mc.coarse_nt), p)
+        step_xy = 2 * mc.window_xy / (mc.coarse_nxy - 1)
+        step_t = 2 * wt / (mc.coarse_nt - 1)
+        s = mc.coarse_beam_stride
+        out = [("coarse", px[::s].contiguous(), py[::s].contiguous(),
+                use[::s].contiguous(), c_xy, c_xy, c_t)]
+        for name, k in (("fine", 1.0), ("refine", 0.5)):
+            oxy = offs(np.linspace(-k * step_xy, k * step_xy, mc.fine_nxy), p)
+            ot = offs(np.linspace(-k * step_t, k * step_t, mc.fine_nt), p)
+            out.append((name, px, py, use, oxy, oxy, ot))
+        return out
+
+    # poses within 5 m of the 2- and 4-tile boundaries and of the world's
+    # west and east edges (beams past them are the edge tiles')
+    xs = np.concatenate([rng.uniform(-5, 5, particles // 4),
+                         rng.uniform(-55, -45, particles // 4),
+                         rng.uniform(-99.5, -95, particles // 4),
+                         rng.uniform(95, 99.5, particles - 3 * (
+                             particles // 4))])
+    poses = torch.as_tensor(np.stack(
+        [xs, rng.uniform(-20, 20, particles),
+         rng.uniform(-math.pi, math.pi, particles)], 1).astype(np.float32),
+        device=dev)
+    kw = dict(resolution=res, origin=origin, max_range=maxr)
+    checks, err = [], 0.0
+
+    def beyond(got, want, scale):
+        """Max |got - want| and the fraction beyond K1's tolerance, taken
+        relative to `scale`: a tile's partial score sums a part of the
+        candidate's terms, whose float error is the whole sum's."""
+        diff = (got - want).abs()
+        return (float(diff.max()),
+                float((diff > K1_ATOL + K1_RTOL * scale.abs()).float()
+                      .mean()))
+
+    for name, sx, sy, su, dxs, dys, dts in stages(particles):
+        args = (sx, sy, su, poses, dxs, dys, dts)
+        untiled = kmatch.stage_scores_batch_cuda(field, *args, **kw)
+        for n in TILE_SHARDS:
+            w_loc = w // n
+            total = torch.zeros_like(untiled)
+            plain_total = torch.zeros_like(untiled)
+            for j in range(n):
+                ext = _ext_tile(field, j, n, v_out)
+                tkw = dict(kw, c0=j * w_loc, w_loc=w_loc, n_m=n, ext=1)
+                got = kmatch.stage_scores_tile_cuda(ext, *args, **tkw)
+                want = kmatch.stage_scores_tile_plain(ext, *args, **tkw)
+                total += got
+                plain_total += want
+                if j in (0, 1, n - 1):
+                    e, frac = beyond(got, want,
+                                     torch.maximum(want.abs(), untiled.abs()))
+                    err = max(err, e)
+                    checks.append(dict(stage=name, n_m=n, tile=j,
+                                       max_abs_err=e, frac_beyond_tol=frac,
+                                       max_frac=K1_TILE_MAX_FRAC))
+            for what, a, b, limit in (
+                    ("sum vs plain sum", total, plain_total, 0.0),
+                    ("sum vs untiled", total, untiled, 0.0)):
+                e, frac = beyond(a, b, b)
+                checks.append(dict(stage=name, n_m=n, tile=what,
+                                   max_abs_err=e, frac_beyond_tol=frac,
+                                   max_frac=limit))
+            bad = [c for c in checks if c["frac_beyond_tol"] > c["max_frac"]]
+            if bad:
+                say("k1_tile", checks=checks)
+                raise AssertionError(f"K1 tile {name} over {n} tiles: {bad}")
+    # the tiled row's shapes: one tile of the whole map, 500 particles
+    p = timed_particles
+    ext = _ext_tile(field, 0, 1, v_out)
+    poses = poses[:1].expand(p, -1).contiguous()
+    ms = plain_ms = bound_total = by_ops = 0.0
+    times = []
+    for name, sx, sy, su, dxs, dys, dts in stages(p):
+        args = (ext, sx, sy, su, poses, dxs, dys, dts)
+        tkw = dict(kw, c0=0, w_loc=w, n_m=1, ext=1)
+        t = cuda_ms(lambda: kmatch.stage_scores_tile_cuda(*args, **tkw), 20)
+        tp = cuda_ms(lambda: kmatch.stage_scores_tile_plain(*args, **tkw), 3)
+        bound, by = k1_bound(args, tkw)
+        ms, plain_ms, bound_total = ms + t, plain_ms + tp, bound_total + bound
+        by_ops += bound if by == "operations" else 0.0
+        times.append(dict(stage=name, ms=t, plain_ms=tp, bound_ms=bound,
+                          bound_by=by, share_of_bound=bound / t,
+                          variant=k1_variant(args)))
+    say("k1_tile", field=[1, h, w], particles=particles,
+        rtol=K1_RTOL, atol=K1_ATOL, checks=checks, timed_particles=p,
+        timed=times)
+    return dict(name="stage_scores_tile", route="cuda",
+                source="gridmap_slam_tpu_torch/csrc/matcher.cu",
+                replaces="gridmap_slam_tpu/ops/pallas/matcher.py:287",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_total,
+                bound_by="operations" if 2 * by_ops >= bound_total
+                else "bytes", library_ms=None)
+
+
+def _par_path(path, seq, step, init, ref, compare, needed):
+    """One row of the parallel phase on the world of one: the distributed
+    path over `seq` from init() with a seeded generator, every launch
+    count at 0 before it and its kernel calls recorded; again with the
+    same seed (the same bits); a warm step under the sync check; then
+    the single-device reference `ref()` and `compare(state, infos,
+    ref_state, ref_infos)` -> dict with "ok".  Returns the launches."""
+    start = init()              # (a shard of the engine's init: set-up)
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        st, infos = start, []
+        for f in seq:
+            st, info = step(st, f, gen)
+            infos.append(info)
+        return st, infos
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _zero_launches()
+    with CallRecorder(path) as rec:
+        (state, infos), _ = _timed(run)
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    (again, _), sec = _timed(run)
+    identical = _same(state, again)
+    del again
+    _sync_free(lambda: step(state, seq[-1],
+                            torch.Generator(device="cuda").manual_seed(SEED)))
+    ref_state, ref_infos = ref()
+    cmp = compare(state, infos, ref_state, ref_infos)
+    del ref_state, ref_infos
+    say("parallel_path", path=path, mesh=[1, 1], backend="nccl",
+        scans=len(seq), particles=int(state.poses.shape[0]),
+        launches_a_scan={k: v / len(seq) for k, v in launches.items()},
+        host_syncs_warm_step=0, peak_mem_bytes=peak,
+        rerun_identical=identical, warm_seconds=sec,
+        scans_per_sec=len(seq) / sec, final_neff=float(infos[-1].neff),
+        **cmp)
+    if not (identical and cmp["ok"]):
+        raise AssertionError(f"{path}: rerun identical {identical}, "
+                             f"against its reference {cmp}")
+    if not all(launches[k] > 0 for k in needed):
+        raise AssertionError(f"{path}: a kernel was not launched: "
+                             f"{launches}")
+    del state, infos
+    check_recorded(rec, {path: launches})
+    return launches
+
+
+def _bitwise(state, infos, ref, ref_infos):
+    poses = float((state.poses - ref.poses).abs().max())
+    lmap = float((state.logodds - ref.logodds).abs().max())
+    same = _same(state, ref) and all(
+        torch.equal(a.weighted_pose, b.weighted_pose)
+        and torch.equal(a.neff, b.neff) for a, b in zip(infos, ref_infos))
+    return dict(reference_bits_equal=same, max_pose_diff=poses,
+                max_map_diff=lmap, ok=same)
+
+
+def _within(pose_atol, map_atol, neff_rtol=None):
+    def compare(state, infos, ref, ref_infos):
+        poses = float((state.poses - ref.poses).abs().max())
+        lmap = float((state.logodds - ref.logodds).abs().max())
+        wp = max(float((a.weighted_pose - b.weighted_pose).abs().max())
+                 for a, b in zip(infos, ref_infos))
+        neff = max(abs(float(a.neff) / float(b.neff) - 1.0)
+                   for a, b in zip(infos, ref_infos))
+        ok = (poses <= pose_atol and lmap <= map_atol and wp <= pose_atol
+              and (neff_rtol is None or neff <= neff_rtol))
+        return dict(reference_bits_equal=_same(state, ref),
+                    max_pose_diff=poses, max_map_diff=lmap,
+                    max_weighted_pose_diff=wp, max_neff_rel_diff=neff,
+                    pose_atol=pose_atol, map_atol=map_atol,
+                    neff_rtol=neff_rtol, ok=ok)
+    return compare
+
+
+def _ba_rows(mesh, pg_graph, dev="cuda", iterations=10):
+    """The distributed Gauss-Newton on the world of one against
+    models/posegraph.optimize, on grand_tour_216's graph and the synthetic
+    1000 / 3000-keyframe graphs."""
+    from gridmap_slam_tpu_torch.models import posegraph as PG
+    from gridmap_slam_tpu_torch.parallel.ba import (make_distributed_optimizer,
+                                                    pad_edges, shard_graph)
+
+    opt = make_distributed_optimizer(mesh, iterations=iterations)
+    rows = []
+    graphs = [("grand_tour_216", pg_graph)] + [
+        (f"synthetic_{k}", synthetic_graph(PG, k, dev))
+        for k in GN_LARGE_KEYFRAMES]
+    for name, graph in graphs:
+        arrays = [getattr(graph, f).cpu().numpy() for f in
+                  ("nodes", "edge_i", "edge_j", "edge_z", "edge_w")]
+        local = shard_graph((arrays[0],) + pad_edges(*arrays[1:], 1), mesh,
+                            device=dev)
+        opt(local)                               # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (got, chi2), sec = _timed(lambda: opt(local))
+        peak = torch.cuda.max_memory_allocated() - base
+        _sync_free(lambda: opt(local))
+        want, chi2_ref = PG.optimize(graph, iterations=iterations)
+        chi2_rel = float(((chi2 - chi2_ref).abs() / chi2_ref.abs()).max())
+        nodes = float((got.nodes - want.nodes).abs().max())
+        row = dict(graph=name, keyframes=int(graph.nodes.shape[0]),
+                   edges=int(graph.edge_i.shape[0]),
+                   ms_per_iteration=sec * 1e3 / iterations,
+                   peak_mem_bytes=peak, chi2_first=float(chi2[0]),
+                   chi2_last=float(chi2[-1]), max_chi2_rel_diff=chi2_rel,
+                   max_nodes_diff=nodes, host_syncs_an_iteration=0,
+                   reference_bits_equal=bool(torch.equal(got.nodes,
+                                                         want.nodes)))
+        rows.append(row)
+        if not (chi2_rel <= BA_CHI2_RTOL and nodes <= BA_NODES_ATOL
+                and float(chi2[-1]) < float(chi2[0])):
+            say("parallel_ba", graphs=rows)
+            raise AssertionError(f"distributed BA on {name}: {row}")
+    say("parallel_ba", mesh=[1, 1], backend="nccl", iterations=iterations,
+        chi2_rtol=BA_CHI2_RTOL, nodes_atol=BA_NODES_ATOL, graphs=rows)
+
+
+def parallel_phase(frames, pg_graph):
+    """The distributed engines (gridmap_slam_tpu_torch/parallel/) on the
+    card: K1's tile variant (k1_tile_phase), then each engine at mesh
+    (1, 1) over NCCL in a world of one in this process against its
+    single-device reference, then the distributed BA.  Returns (launches
+    by path, K1 tile's kernels row)."""
+    import dataclasses as dc
+    from gridmap_slam_tpu_torch import (RBPF, SharedMapSLAM, city_config,
+                                        mega_config)
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.models.shared import matcher_block_size
+    from gridmap_slam_tpu_torch.parallel import mesh as pmesh
+    from gridmap_slam_tpu_torch.parallel.sharded import (init_sharded,
+                                                         make_sharded_step)
+    from gridmap_slam_tpu_torch.parallel.shmap import (init_shmap,
+                                                       make_shmap_step)
+    from gridmap_slam_tpu_torch.parallel.surface_sharded import (
+        init_surface_sharded, make_surface_sharded_step)
+    from gridmap_slam_tpu_torch.parallel.tiled import (init_tiled,
+                                                       make_tiled_step)
+
+    t0 = time.perf_counter()
+    tile_row = k1_tile_phase(frames)
+    world = _world_of_one()
+    launches = {}
+    try:
+        mesh = pmesh.make_mesh(1, device="cuda")
+
+        def seq_of(cfg, n):
+            b = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
+                                 device="cuda")
+            return [frame_at(b, i) for i in range(min(n, len(frames)))]
+
+        def gen():
+            return torch.Generator(device="cuda").manual_seed(SEED)
+
+        # shmap: mega_blocked's config, blocks of matcher_block_size
+        cfg = parity_config().replace(num_particles=MEGA_PARTICLES,
+                                      particle_chunk=0)
+        block = matcher_block_size(cfg)
+        eng = SharedMapSLAM(cfg, device="cuda")
+        seq = seq_of(cfg, PAR_SHMAP_SCANS)
+        launches["shmap"] = _par_path(
+            "shmap", seq, make_shmap_step(eng, mesh),
+            lambda: init_shmap(eng, mesh),
+            lambda: eng.replay(eng.init(), seq, gen(), block=block),
+            _bitwise, BASE_ROWS)
+
+        eng = SharedMapSLAM(mega_config(), device="cuda")
+        seq = seq_of(eng.config, N_SCANS)
+        launches["shmap_surface"] = _par_path(
+            "shmap_surface", seq, make_shmap_step(eng, mesh, surface=True),
+            lambda: init_shmap(eng, mesh),
+            lambda: eng.run_log(eng.init(), seq, gen()), _bitwise,
+            ("log_likelihood_field", "integrate_scan"))
+
+        # tiled: the city map at the chip rung's particle count, against
+        # SharedMapSLAM.step with _match_tiled's coarse stage
+        cfg = city_config().replace(num_particles=PAR_TILED_PARTICLES,
+                                    particle_chunk=PAR_TILED_CHUNK)
+        eng = SharedMapSLAM(cfg, device="cuda")
+        ref_eng = SharedMapSLAM(cfg.replace(matcher=dc.replace(
+            cfg.matcher, coarse_halfres=False, coarse_nearest=False)),
+            device="cuda")
+        seq = seq_of(cfg, N_SCANS)
+        launches["tiled"] = _par_path(
+            "tiled", seq, make_tiled_step(eng, mesh),
+            lambda: init_tiled(eng, mesh),
+            lambda: ref_eng.replay(ref_eng.init(), seq, gen()),
+            _within(TILED_ATOL, TILED_ATOL),
+            ("stage_scores_tile", "integrate_scan", "log_likelihood_field"))
+        del ref_eng
+
+        eng = SharedMapSLAM(city_config(), device="cuda")
+        seq = seq_of(eng.config, N_SCANS)
+        launches["surface_sharded"] = _par_path(
+            "surface_sharded", seq, make_surface_sharded_step(eng, mesh),
+            lambda: init_surface_sharded(eng, mesh),
+            lambda: eng.run_log(eng.init(), seq, gen()),
+            _within(SS_POSE_ATOL, SS_MAP_ATOL, SS_NEFF_RTOL),
+            ("log_likelihood_field", "integrate_scan"))
+
+        eng = RBPF(parity_config(), device="cuda")
+        seq = seq_of(eng.config, N_SCANS)
+        launches["sharded"] = _par_path(
+            "sharded", seq, make_sharded_step(eng, mesh),
+            lambda: init_sharded(eng, mesh),
+            lambda: eng.run_log(eng.init(), seq, gen()), _bitwise,
+            ("stage_scores_tile", "integrate_scan", "log_likelihood_field"))
+        del eng
+
+        _ba_rows(mesh, pg_graph)
+    finally:
+        _close_world(world)
+    multi_rank_card_phase()
+    say("parallel", seconds=time.perf_counter() - t0,
+        paths=sorted(launches))
+    return launches, tile_row
+
+
+MULTI_RANK_SCANS = 3
+
+
+def _two_rank_runs(mesh_of, scans=MULTI_RANK_SCANS):
+    """shmap (p = 2 or 1) at the parity width over the first `scans` scans
+    of the parity log, seeded; returns the gathered global state and
+    infos (host arrays).  The tiled engine is not run on two ranks of one
+    card: its halos are point-to-point sends, and gloo refuses a CUDA
+    tensor there (PERF.md section 7)."""
+    from gridmap_slam_tpu_torch import SharedMapSLAM
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.parallel.mesh import gather_state
+    from gridmap_slam_tpu_torch.parallel.shmap import (init_shmap,
+                                                       make_shmap_step)
+
+    cfg = parity_config()
+    frames, _ = parity_log()
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
+                             device="cuda")
+    eng = SharedMapSLAM(cfg, device="cuda")
+    out = {}
+    for path, shards, make, init, tiled in (
+            ("shmap", 1, make_shmap_step, init_shmap, False),):
+        mesh = mesh_of(shards)
+        step = make(eng, mesh)
+        st = init(eng, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        infos = []
+        for i in range(scans):
+            st, info = step(st, frame_at(batch, i), gen)
+            infos.append([float(info.neff)]
+                         + info.weighted_pose.cpu().tolist())
+        g = gather_state(st, mesh, tiled)
+        out[path] = dict(poses=g.poses.cpu().numpy(),
+                         log_weights=g.log_weights.cpu().numpy(),
+                         logodds=g.logodds.cpu().numpy(),
+                         infos=np.asarray(infos))
+    return out
+
+
+def _two_rank_worker(payload: str, rank: int, n: int) -> None:
+    """Rank side of the multi-rank card phase (parallel/launch.run_ranks:
+    2 gloo ranks on the one card, CUDA tensors): writes this rank's
+    gathered results next to `payload`."""
+    import os
+    import pickle
+    from gridmap_slam_tpu_torch.parallel.mesh import make_mesh
+
+    out = _two_rank_runs(lambda m: make_mesh(n, map_shards=m,
+                                             device="cuda"))
+    with open(os.path.join(payload, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def multi_rank_card_phase():
+    """2 ranks on the one H100 over gloo with CUDA tensors (NCCL refuses
+    two ranks on one card): shmap (p = 2) at the parity width; both ranks
+    must agree on every replicated output, and the run must equal its
+    mesh (1, 1) run over NCCL within the CPU tests' tolerances (poses and
+    map atol 1e-4, weights rtol / atol 1e-5)."""
+    import pickle
+    import tempfile
+    from gridmap_slam_tpu_torch.parallel.launch import run_ranks
+    from gridmap_slam_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        run_ranks(2, "chip_smoke:_two_rank_worker", tmp, backend="gloo",
+                  device="cuda", timeout=300)
+        ranks = []
+        for r in range(2):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    world = _world_of_one()
+    try:
+        one = _two_rank_runs(lambda m: make_mesh(1, device="cuda"))
+    finally:
+        _close_world(world)
+    rows = {}
+    for path in ("shmap",):
+        a, b, ref = ranks[0][path], ranks[1][path], one[path]
+        agree = all(np.array_equal(a[k], b[k]) for k in a)
+        diffs = {k: float(np.abs(a[k] - ref[k]).max()) for k in a}
+        ok = (agree and diffs["poses"] <= 1e-4 and diffs["logodds"] <= 1e-4
+              and np.allclose(a["log_weights"], ref["log_weights"],
+                              rtol=1e-5, atol=1e-5)
+              and np.allclose(a["infos"], ref["infos"], rtol=1e-5,
+                              atol=1e-4))
+        rows[path] = dict(mesh=[2, 1],
+                          ranks_agree=agree, max_diff_vs_mesh_1x1=diffs,
+                          ok=bool(ok))
+    say("multi_rank", ranks=2, backend="gloo", tensors="cuda",
+        scans=MULTI_RANK_SCANS, paths=rows,
+        seconds=time.perf_counter() - t0)
+    if not all(r["ok"] for r in rows.values()):
+        raise AssertionError(f"multi-rank card phase: {rows}")
 
 
 def _cli(argv):
@@ -1923,6 +2549,7 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
     from gridmap_slam_tpu_torch.io import (frame_at, frames_to_device,
                                            read_map_checkpoint)
     from gridmap_slam_tpu_torch.io.synthetic import default_world
+    from gridmap_slam_tpu_torch.parallel.mesh import close_world
     from gridmap_slam_tpu_torch.utils.checkpoint import run_with_recovery
     from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
 
@@ -1990,6 +2617,31 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
             map_equal_phase_9=bool(np.array_equal(
                 s_state.logodds.cpu().numpy(), room_loop[1])))
         del s_state
+
+        # the mesh engines on a world of one (the CLI starts it)
+        for path, extra in (
+                ("cli_tiled", ["--engine", "tiled", "--particles",
+                               str(cfg.num_particles), "--chunk",
+                               str(cfg.particle_chunk)]),
+                ("cli_surface_sharded", [
+                    "--engine", "surface-sharded", "--particles",
+                    str(surface_particles), "--chunk", "0", "--set",
+                    "matcher.surface_refine_steps=0"])):
+            d = os.path.join(tmp, path)
+            (m_state, m_traj, m_metrics), printed = counted(path, lambda: _cli(
+                ["replay", "--log", CLI_LOG, "--max-beams", "192", "--seed",
+                 str(SEED), "--device", dev, "--out", d, *extra]))
+            out[path] = dict(
+                particles=int(m_state.poses.shape[0]),
+                ate_m=ate_rmse(m_traj, gt),
+                scans_per_sec=m_metrics["scans_per_sec"],
+                launches_a_scan={k: v / m_metrics["frames"]
+                                 for k, v in launches[path].items()},
+                printed_metrics_equal=printed == m_metrics,
+                finite=bool(np.isfinite(m_traj).all()
+                            and torch.isfinite(m_state.logodds).all()))
+            del m_state
+        close_world()
 
         d = os.path.join(tmp, "posegraph")
         summary, printed = counted("cli_posegraph", lambda: _cli(
@@ -2082,6 +2734,11 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
             and out["cli_surface"]["map_equal_phase_9"]):
         raise AssertionError(f"cli_surface differs from phase 9's room-loop "
                              f"run: {out['cli_surface']}")
+    for path in ("cli_tiled", "cli_surface_sharded"):
+        r = out[path]
+        if not (r["finite"] and r["ate_m"] < ROOM_LOOP_ATE_MAX_M
+                and r["printed_metrics_equal"]):
+            raise AssertionError(f"{path}: {r}")
     if not out["cli_posegraph"]["equal_phase_17"]:
         raise AssertionError(f"cli_posegraph {summary} != phase 17's "
                              f"{pg_first}")
@@ -2093,7 +2750,9 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
         raise AssertionError(f"cli_live: {out['cli_live']}")
     surface_kernels = ("log_likelihood_field", "integrate_scan")
     for path, counts in launches.items():
-        needed = surface_kernels if path == "cli_surface" else counts
+        needed = {"cli_surface": surface_kernels,
+                  "cli_tiled": ("stage_scores_tile", *surface_kernels),
+                  "cli_surface_sharded": surface_kernels}.get(path, BASE_ROWS)
         if not all(counts[k] > 0 for k in needed):
             raise AssertionError(f"{path}: a kernel was not launched: "
                                  f"{counts}")
@@ -2126,9 +2785,12 @@ def main() -> int:
     shared_agree_phase(cfg, frames)
     by_path["mega_blocked"] = mega_blocked_phase(frames, gt)
     by_path["multi"] = multi_phase()
-    pg_launches, pg_first = posegraph_phase()
+    pg_launches, pg_first, pg_graph = posegraph_phase()
     by_path.update(pg_launches)
     by_path["chip"] = chip_phase(frames, gt)
+    par_launches, tile_row = parallel_phase(frames, pg_graph)
+    by_path.update(par_launches)
+    rows.append(tile_row)
     by_path.update(cli_phase(cfg, frames, room_loop, pg_first))
     for row in rows:
         row["max_abs_err"] = max(row["max_abs_err"],

@@ -32,19 +32,81 @@ import numpy as np
 MESH_ENGINES = ("shmap", "shmap-surface", "tiled", "surface-sharded")
 
 
+class _MeshEngine:
+    """A distributed engine behind the single-device interface that
+    _run_frames consumes (.config, .device, .taps, .init, .init_from_map,
+    .step); `gather` gives the global state on every rank and `base` the
+    single-device engine that renders it."""
+
+    def __init__(self, base, mesh, step, tiled: bool):
+        self.base, self.config = base, base.config
+        self.device, self.taps = base.device, base.taps
+        self.step = step
+        self._mesh, self._tiled = mesh, tiled
+
+    def init(self):
+        from ..parallel.mesh import shard_state
+        return shard_state(self.base.init(), self._mesh, self._tiled,
+                           device=self.device)
+
+    def init_from_map(self, logodds):
+        from ..parallel.mesh import shard_state
+        return shard_state(self.base.init_from_map(logodds), self._mesh,
+                           self._tiled, device=self.device)
+
+    def gather(self, state):
+        from ..parallel.mesh import gather_state
+        return gather_state(state, self._mesh, self._tiled)
+
+
+def _mesh_engine(args, cfg, engine: str):
+    """The distributed engine `engine` on the world's mesh: a world of one
+    unless a launcher started the ranks.  Exits non-zero where --devices
+    is not the world's size or --map-shards does not divide it."""
+    import torch.distributed as dist
+    from ..models.shared import SharedMapSLAM
+    from ..parallel import mesh as pmesh
+
+    pmesh.init_world(args.device)
+    n = dist.get_world_size()
+    if args.devices and args.devices != n:
+        sys.exit(f"--devices {args.devices} needs a world of {args.devices} "
+                 f"ranks, one a card; this world has {n} (start the ranks "
+                 f"with a launcher, e.g. torchrun --nproc-per-node "
+                 f"{args.devices})")
+    tiled = engine in ("tiled", "surface-sharded")
+    if not tiled and args.map_shards != 1:
+        sys.exit(f"--engine {engine} replicates the map: --map-shards must "
+                 f"be 1, got {args.map_shards} (tiled and surface-sharded "
+                 f"split the map)")
+    if args.map_shards < 1 or n % args.map_shards:
+        sys.exit(f"--map-shards {args.map_shards} does not divide the world "
+                 f"of {n} ranks")
+    if getattr(args, "view", False) and n > 1:
+        sys.exit("--view draws rank 0's view; run it on a world of one")
+    base = SharedMapSLAM(cfg, device=args.device)
+    mesh = pmesh.make_mesh(n, map_shards=args.map_shards, device=args.device)
+    if engine == "tiled":
+        from ..parallel.tiled import make_tiled_step
+        step = make_tiled_step(base, mesh)
+    elif engine == "surface-sharded":
+        from ..parallel.surface_sharded import make_surface_sharded_step
+        step = make_surface_sharded_step(base, mesh)
+    else:
+        from ..parallel.shmap import make_shmap_step
+        step = make_shmap_step(base, mesh, surface=engine == "shmap-surface")
+    return _MeshEngine(base, mesh, step, tiled)
+
+
 def _engine(args):
     from .. import RBPF, SlamConfig
     from ..config import MapConfig
 
     engine = getattr(args, "engine", "rbpf")
-    if engine in MESH_ENGINES:
-        sys.exit(f"--engine {engine} is not in the PyTorch port yet (the "
-                 f"distributed engines of gridmap_slam_tpu/parallel/); use "
-                 f"rbpf, shared or surface")
-    if args.map_shards != 1 or args.devices:
+    if engine not in MESH_ENGINES and (args.map_shards != 1 or args.devices):
         sys.exit("--devices and --map-shards set the mesh of a distributed "
-                 "engine, which the PyTorch port does not have yet; the "
-                 f"{engine} engine runs on one device (--device)")
+                 f"engine; the {engine} engine runs on one device "
+                 "(--device)")
     cfg = SlamConfig(
         num_particles=args.particles,
         max_beams=args.max_beams,
@@ -55,7 +117,9 @@ def _engine(args):
     )
     if getattr(args, "set", None):
         cfg = cfg.with_overrides(SlamConfig.parse_overrides(args.set))
-    if engine in ("shared", "surface"):
+    if engine in MESH_ENGINES:
+        eng = _mesh_engine(args, cfg, engine)
+    elif engine in ("shared", "surface"):
         from ..models.shared import SharedMapSLAM
         eng = SharedMapSLAM(cfg, device=args.device)
         if engine == "surface":
@@ -116,6 +180,12 @@ def _run_frames(cfg, eng, state, frames, out_dir: Path, gt=None,
     if live_view is not None:
         live_view.finish()
     traj = np.stack(traj)
+    if isinstance(eng, _MeshEngine):
+        # every rank gathers the global state; rank 0 alone writes
+        import torch.distributed as dist
+        eng, state = eng.base, eng.gather(state)
+        if dist.get_rank() != 0:
+            return state, traj, {"frames": len(frames)}
 
     out_dir.mkdir(parents=True, exist_ok=True)
     metrics = {
@@ -405,17 +475,19 @@ def main(argv=None):
                             "surface: shared map + per-scan likelihood "
                             "volume (~8 taps/particle — the 1M mode); "
                             "shmap/shmap-surface/tiled/surface-sharded: "
-                            "the distributed engines, not in the PyTorch "
-                            "port yet (exit non-zero)")
+                            "the distributed engines (a world of one "
+                            "unless a launcher started the ranks)")
         p.add_argument("--device", default="cuda",
                        help="device the engine runs on: cuda (the default; "
                             "raises when there is no CUDA device) or cpu")
         p.add_argument("--devices", type=int, default=0,
-                       help="devices in the mesh (0 = all visible; "
+                       help="ranks in the mesh, one a card: must be the "
+                            "world's size (0 = the world's size; "
                             "distributed engines only)")
         p.add_argument("--map-shards", type=int, default=1,
                        help="map-column shards 'm' for tiled / "
-                            "surface-sharded (must divide --devices)")
+                            "surface-sharded (must divide the world's "
+                            "size; 1 for shmap and shmap-surface)")
         p.add_argument("--max-beams", type=int, default=360)
         p.add_argument("--chunk", type=int, default=0)
         p.add_argument("--map-size", type=float, default=6.0)

@@ -84,3 +84,28 @@ def posegraph_from_jax_arrays(nodes, edge_i, edge_j, edge_z, edge_w,
 def frontend_config_from_jax(cfg) -> FrontendConfig:
     """The port's FrontendConfig with every field of the JAX package's."""
     return FrontendConfig(**dataclasses.asdict(cfg))
+
+
+def shard_arrays(poses, log_weights, logodds, *, n_p: int, i_p: int,
+                 n_m: int = 1, i_m: int = 0, tiled: bool = False):
+    """Rank (i_p, i_m)'s shard of a global state's numpy arrays on an
+    (n_p, n_m) mesh: poses and log_weights sliced into the i_p-th of n_p
+    contiguous runs; logodds, a shared (H, W) map or (P, H, W) maps a
+    particle, sliced likewise over its particle axis and, with tiled=True,
+    into the i_m-th of n_m column tiles.  Returns float32 copies
+    (poses, log_weights, logodds)."""
+    p = poses.shape[0]
+    if p % n_p or not 0 <= i_p < n_p or not 0 <= i_m < n_m:
+        raise ValueError(f"{p} particles do not shard as {i_p} of {n_p}")
+    sl = slice(i_p * (p // n_p), (i_p + 1) * (p // n_p))
+    lo = np.asarray(logodds, np.float32)
+    if lo.ndim == 3:
+        lo = lo[sl]
+    if tiled:
+        w = lo.shape[-1]
+        if w % n_m:
+            raise ValueError(f"a map {w} cells wide does not split into "
+                             f"{n_m} column tiles")
+        lo = lo[..., i_m * (w // n_m):(i_m + 1) * (w // n_m)]
+    return (np.array(poses[sl], np.float32),
+            np.array(log_weights[sl], np.float32), np.array(lo))

@@ -47,6 +47,17 @@
 // atomics, results repeat bit for bit.  Rounding differs from the plain
 // version's only where a cell sits within an ulp of a bin's or a ray's
 // edge.  Any H x W: no tile padding.
+//
+// The window variant (gs_grid_update_window) updates only an Hw x Ww
+// window of one map, whose top-left cell (iy0, ix0) it reads from the card
+// (the crop around the pose that the shared-map engines integrate into,
+// placed by the cloud on the card), so the host never reads the window's
+// place.  The window's origin is origin + (col0 + ix0, iy0) * res, each
+// product and sum rounded once in float32 as the JAX engines compute it,
+// and a cell's center is taken from there as in the whole-map kernel, so
+// the window gives the bits of the whole-map kernel run on the window cut
+// out with that origin.  One cell a thread (the window's address is not
+// known on the host).
 
 #include <cuda_runtime.h>
 
@@ -64,6 +75,7 @@ struct Params {
   int n_bins, per_g, H, W;
   float res, origin_x, origin_y, l_free, l_occ, tol_m, bin_scale;
   int cone_fill;
+  int Hf, Wf, col0;   // the whole map and the window's column offset
 };
 
 // The update of the cell at offset (dx, dy) from a pose of heading
@@ -106,14 +118,15 @@ __device__ __forceinline__ float cell_delta(
   return delta;
 }
 
-template <bool kVec>
+template <bool kVec, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 grid_update_kernel(const float* __restrict__ lo, float* __restrict__ out,
                    const float* __restrict__ poses,
                    const float* __restrict__ keep_ptr,
                    const float* __restrict__ bin_dist,
                    const float* __restrict__ bin_alpha,
-                   const float* __restrict__ bin_code, Params k) {
+                   const float* __restrict__ bin_code,
+                   const long long* __restrict__ win, Params k) {
   constexpr int kCells = kVec ? 4 : 1;
   __shared__ float s_pose[4];                   // x, y, cos, sin
   const int g = blockIdx.z, p = g * k.per_g + blockIdx.x;
@@ -133,10 +146,19 @@ grid_update_kernel(const float* __restrict__ lo, float* __restrict__ out,
   bin_dist += t;
   bin_alpha += t;
   bin_code += t;
-  const size_t idx =
-      (static_cast<size_t>(p) * k.H + iy) * k.W + ix;
+  float origin_x = k.origin_x, origin_y = k.origin_y;
+  size_t idx;
+  if constexpr (kWindow) {
+    const int wy0 = static_cast<int>(win[0]), wx0 = static_cast<int>(win[1]);
+    origin_x = __fadd_rn(k.origin_x,
+                         __fmul_rn(static_cast<float>(k.col0 + wx0), k.res));
+    origin_y = __fadd_rn(k.origin_y, __fmul_rn(static_cast<float>(wy0), k.res));
+    idx = (static_cast<size_t>(p) * k.Hf + wy0 + iy) * k.Wf + wx0 + ix;
+  } else {
+    idx = (static_cast<size_t>(p) * k.H + iy) * k.W + ix;
+  }
 
-  const float cy = k.origin_y + (static_cast<float>(iy) + 0.5f) * k.res;
+  const float cy = origin_y + (static_cast<float>(iy) + 0.5f) * k.res;
   const float dy = cy - s_pose[1];
   if constexpr (kVec) {
     const float4 q = *reinterpret_cast<const float4*>(lo + idx);
@@ -144,14 +166,14 @@ grid_update_kernel(const float* __restrict__ lo, float* __restrict__ out,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float cx =
-          k.origin_x + (static_cast<float>(ix + i) + 0.5f) * k.res;
+          origin_x + (static_cast<float>(ix + i) + 0.5f) * k.res;
       v[i] += keep * cell_delta(cx - s_pose[0], dy, c, s, bin_dist, bin_alpha,
                                 bin_code, k);
     }
     *reinterpret_cast<float4*>(out + idx) =
         make_float4(v[0], v[1], v[2], v[3]);
   } else {
-    const float cx = k.origin_x + (static_cast<float>(ix) + 0.5f) * k.res;
+    const float cx = origin_x + (static_cast<float>(ix) + 0.5f) * k.res;
     out[idx] = lo[idx] + keep * cell_delta(cx - s_pose[0], dy, c, s, bin_dist,
                                            bin_alpha, bin_code, k);
   }
@@ -185,7 +207,7 @@ extern "C" int gs_grid_update(const float* lo, float* out, const float* poses,
   if (P == 0 || H == 0 || W == 0) return cudaSuccess;
   if (G <= 0 || G > 65535 || P % G) return cudaErrorInvalidValue;
   const Params k{n_bins, P / G, H, W, res, origin_x, origin_y, l_free,
-                 l_occ, tol_m, bin_scale, cone_fill};
+                 l_occ, tol_m, bin_scale, cone_fill, H, W, 0};
   const auto blocks_of = [&](int cells) {
     return (static_cast<long long>(H) * (W / cells) + kThreads - 1) / kThreads;
   };
@@ -198,11 +220,38 @@ extern "C" int gs_grid_update(const float* lo, float* out, const float* poses,
   const dim3 grid(P / G, static_cast<unsigned>(blocks), G);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec) {
-    grid_update_kernel<true><<<grid, kThreads, 0, st>>>(
-        lo, out, poses, keep, bin_dist, bin_alpha, bin_code, k);
+    grid_update_kernel<true, false><<<grid, kThreads, 0, st>>>(
+        lo, out, poses, keep, bin_dist, bin_alpha, bin_code, nullptr, k);
   } else {
-    grid_update_kernel<false><<<grid, kThreads, 0, st>>>(
-        lo, out, poses, keep, bin_dist, bin_alpha, bin_code, k);
+    grid_update_kernel<false, false><<<grid, kThreads, 0, st>>>(
+        lo, out, poses, keep, bin_dist, bin_alpha, bin_code, nullptr, k);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The window variant: lo, out: one (Hf, Wf) float32 map each (out a copy
+// of lo, whose window cells the kernel rewrites); win: two int64 on the
+// card, the window's top-left cell (iy0, ix0), which must keep the
+// Hw x Ww window inside the map; col0: the map's first column in a larger
+// map whose origin is (origin_x, origin_y) (a column tile; 0 for a whole
+// map); pose, keep and one table set (n_bins) as gs_grid_update.
+extern "C" int gs_grid_update_window(
+    const float* lo, float* out, const float* poses, const float* keep,
+    const float* bin_dist, const float* bin_alpha, const float* bin_code,
+    const long long* win, int n_bins, int Hf, int Wf, int Hw, int Ww,
+    int col0, float res, float origin_x, float origin_y, float l_free,
+    float l_occ, float tol_m, float bin_scale, int cone_fill, void* stream) {
+  if (Hw == 0 || Ww == 0) return cudaSuccess;
+  if (Hw < 0 || Ww < 0 || Hw > Hf || Ww > Wf || col0 < 0 || n_bins <= 0)
+    return cudaErrorInvalidValue;
+  const Params k{n_bins, 1, Hw, Ww, res, origin_x, origin_y, l_free,
+                 l_occ, tol_m, bin_scale, cone_fill, Hf, Wf, col0};
+  const long long blocks =
+      (static_cast<long long>(Hw) * Ww + kThreads - 1) / kThreads;
+  if (blocks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(1, static_cast<unsigned>(blocks), 1);
+  grid_update_kernel<false, true>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          lo, out, poses, keep, bin_dist, bin_alpha, bin_code, win, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,8 +58,23 @@
 // tile in shared memory.
 // The TPU kernel's bucket sort, slot planes, lane rotates and 124-cell
 // width limit worked around Mosaic's gathers and are not carried over.
+//
+// The tile variant (kTiled, gs_stage_scores_tile) scores one column tile of
+// a map that is split over several ranks: the field is the tile extended
+// by `ext` columns each side (the world-edge columns hold v_outside), and
+// the partial scores of the tiles sum to the whole map's.  Its arithmetic is
+// the JAX package's XLA function gridmap_slam_tpu/parallel/tiled.py::
+// _stage_scores_tiled.  A beam's base column x0 is the same magic-number
+// rounding of the GLOBAL cell coordinate as above, so every tile computes
+// the same x0 for a beam; the beam adds to the sum only on the tile that
+// owns x0 (clip(x0 / w_loc, 0, n_m - 1) == j: two integer compares, out-of-
+// world beams owned by the edge tiles), and its taps are read at x0 less
+// the tile's first extended column.  The untiled instantiations do not
+// change.
 
 #include <cuda_runtime.h>
+
+#include <climits>
 
 namespace {
 
@@ -76,6 +91,13 @@ struct Plan {
   int splits;    // blocks sharing one field group's tiles
   int ppg;       // pairs a field group
   int stride;    // float2 slots a staged pair (odd: no bank conflicts)
+};
+
+// A column tile of the map (tile variant only): local column = global
+// column - shift; a beam whose base column x0 has lo <= x0 < hi is this
+// tile's.
+struct Tile {
+  int shift, lo, hi;
 };
 
 // Bytes of dynamic shared memory: the ringed field (shared variant), the
@@ -118,7 +140,7 @@ __device__ __forceinline__ float tap(const float* __restrict__ f, int xr,
 // Runs of 1 to 3 are held to 64 registers a thread (four blocks of 256 an
 // SM), which measured faster; runs of 4 and 5 keep their accumulators in
 // more registers, which measured faster for them.
-template <bool kShared, bool kNearest, int kCw>
+template <bool kShared, bool kNearest, int kCw, bool kTiled>
 __global__ void __launch_bounds__(kMaxThreads, kCw <= 3 ? 4 : 1)
     stage_scores_kernel(
     const float* __restrict__ field, const float* __restrict__ px,
@@ -127,7 +149,7 @@ __global__ void __launch_bounds__(kMaxThreads, kCw <= 3 ? 4 : 1)
     const float* __restrict__ dys, const float* __restrict__ dts,
     float* __restrict__ out, int per_f, int per_b, int H, int W, int B,
     int nt, int ny, int nx, float inv_res, float origin_x, float origin_y,
-    float v_outside, Plan plan) {
+    float v_outside, Plan plan, Tile tile) {
   extern __shared__ float4 smem4[];
   float* s_field = reinterpret_cast<float*>(smem4);
   const size_t field_floats =
@@ -226,7 +248,17 @@ __global__ void __launch_bounds__(kMaxThreads, kCw <= 3 ? 4 : 1)
         for (int i = 0; i < kCw; ++i) {
           const float fx = e.x + cx[i];
           const float rx = fx + kMagic;
-          const int xr = ring_index(rx, W);
+          int xr;
+          bool own = true;
+          if constexpr (kTiled) {
+            const int x0 = __float_as_int(rx) - kMagicBits;  // global
+            own = x0 >= tile.lo && x0 < tile.hi;
+            xr = static_cast<int>(
+                min(static_cast<unsigned>(x0 - tile.shift + kRing),
+                    static_cast<unsigned>(W + kRing)));
+          } else {
+            xr = ring_index(rx, W);
+          }
           float v;
           if (kNearest) {
             v = kShared ? row[xr] : tap(f, xr, yr, H, W, v_outside);
@@ -248,7 +280,11 @@ __global__ void __launch_bounds__(kMaxThreads, kCw <= 3 ? 4 : 1)
             const float c = v01 + tx * (v11 - v01);
             v = a + ty * (c - a);
           }
-          acc[i] += v;
+          if constexpr (kTiled) {
+            acc[i] += own ? v : 0.f;
+          } else {
+            acc[i] += v;
+          }
         }
       }
       float* o = out + (static_cast<size_t>(q) * ny + iy) * nx + ix0;
@@ -263,25 +299,75 @@ __global__ void __launch_bounds__(kMaxThreads, kCw <= 3 ? 4 : 1)
 using Kernel = void (*)(const float*, const float*, const float*,
                         const unsigned char*, const float*, const float*,
                         const float*, const float*, float*, int, int, int, int,
-                        int, int, int, int, float, float, float, float, Plan);
+                        int, int, int, int, float, float, float, float, Plan,
+                        Tile);
 
-template <bool kShared, bool kNearest>
+template <bool kShared, bool kNearest, bool kTiled>
 Kernel kernel_for_run(int run) {
   switch (run) {
-    case 1: return stage_scores_kernel<kShared, kNearest, 1>;
-    case 2: return stage_scores_kernel<kShared, kNearest, 2>;
-    case 3: return stage_scores_kernel<kShared, kNearest, 3>;
-    case 4: return stage_scores_kernel<kShared, kNearest, 4>;
-    default: return stage_scores_kernel<kShared, kNearest, 5>;
+    case 1: return stage_scores_kernel<kShared, kNearest, 1, kTiled>;
+    case 2: return stage_scores_kernel<kShared, kNearest, 2, kTiled>;
+    case 3: return stage_scores_kernel<kShared, kNearest, 3, kTiled>;
+    case 4: return stage_scores_kernel<kShared, kNearest, 4, kTiled>;
+    default: return stage_scores_kernel<kShared, kNearest, 5, kTiled>;
   }
 }
 
+template <bool kTiled>
 Kernel kernel_for(bool shared, bool nearest, int run) {
   if (shared)
-    return nearest ? kernel_for_run<true, true>(run)
-                   : kernel_for_run<true, false>(run);
-  return nearest ? kernel_for_run<false, true>(run)
-                 : kernel_for_run<false, false>(run);
+    return nearest ? kernel_for_run<true, true, kTiled>(run)
+                   : kernel_for_run<true, false, kTiled>(run);
+  return nearest ? kernel_for_run<false, true, kTiled>(run)
+                 : kernel_for_run<false, false, kTiled>(run);
+}
+
+// Checks the shapes and the plan, opts in to the plan's shared memory and
+// launches; `tiled` picks the tile variant.
+int launch(const float* field, const float* px, const float* py,
+           const unsigned char* use, const float* pose0, const float* dxs,
+           const float* dys, const float* dts, float* out, int P, int G_f,
+           int G_b, int H, int W, int B, int nt, int ny, int nx, float res,
+           float origin_x, float origin_y, float v_outside, int nearest,
+           int shared, int pitch, int k, int run, int splits, int threads,
+           int smem, bool tiled, Tile tile, void* stream) {
+  if (P == 0 || nt == 0 || ny == 0 || nx == 0) return cudaSuccess;
+  if (G_f <= 0 || G_b <= 0 || P % G_f || P % G_b || B < 0 || H <= 0 ||
+      W <= 0 || H >= (1 << 22) || W >= (1 << 22))
+    return cudaErrorInvalidValue;
+  const long long n_max = nt > ny ? (nt > nx ? nt : nx) : (ny > nx ? ny : nx);
+  if (static_cast<long long>(P) * n_max > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int groups = shared ? G_f : 1;
+  Plan plan{shared ? pitch : 0, k, splits, P / groups * nt, B | 1};
+  if (k < 1 || run < 1 || run > kMaxRun || splits < 1 || threads < 32 ||
+      threads > kMaxThreads || threads % 32 ||
+      (shared && pitch < W + 2 * kRing) ||
+      static_cast<long long>(groups) * splits > 0x7fffffffLL ||
+      splits > (plan.ppg + k - 1) / k ||
+      static_cast<size_t>(smem) < smem_bytes(shared, H, pitch, k, plan.stride))
+    return cudaErrorInvalidValue;
+  const Kernel kernel = tiled ? kernel_for<true>(shared, nearest, run)
+                              : kernel_for<false>(shared, nearest, run);
+  // the opt-in above 48 KB, raised only when a launch needs more than was
+  // set on this device before
+  constexpr int kDevices = 64;
+  static int opted_in[kDevices][2][2][2][kMaxRun];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kDevices)
+    return cudaErrorInvalidDevice;
+  int& limit = opted_in[dev][tiled ? 1 : 0][shared ? 1 : 0][nearest ? 1 : 0]
+                       [run - 1];
+  if (smem > kDefaultSmem && smem > limit) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limit = smem;
+  }
+  kernel<<<groups * splits, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      field, px, py, use, pose0, dxs, dys, dts, out, P / G_f, P / G_b, H, W,
+      B, nt, ny, nx, 1.0f / res, origin_x, origin_y, v_outside, plan, tile);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -305,41 +391,34 @@ extern "C" int gs_stage_scores(const float* field, const float* px,
                                float v_outside, int nearest, int shared,
                                int pitch, int k, int run, int splits,
                                int threads, int smem, void* stream) {
-  if (P == 0 || nt == 0 || ny == 0 || nx == 0) return cudaSuccess;
-  if (G_f <= 0 || G_b <= 0 || P % G_f || P % G_b || B < 0 || H <= 0 ||
-      W <= 0 || H >= (1 << 22) || W >= (1 << 22))
+  return launch(field, px, py, use, pose0, dxs, dys, dts, out, P, G_f, G_b, H,
+                W, B, nt, ny, nx, res, origin_x, origin_y, v_outside, nearest,
+                shared, pitch, k, run, splits, threads, smem, false,
+                Tile{0, 0, 0}, stream);
+}
+
+// The tile variant: field is (G_f, H, W) with W = w_loc + 2 ext, the column
+// tile [c0, c0 + w_loc) of a map n_m * w_loc cells wide extended by ext
+// columns each side; everything else as gs_stage_scores.  Returns the
+// tile's partial scores: beams whose base column the tile owns.
+extern "C" int gs_stage_scores_tile(
+    const float* field, const float* px, const float* py,
+    const unsigned char* use, const float* pose0, const float* dxs,
+    const float* dys, const float* dts, float* out, int P, int G_f, int G_b,
+    int H, int W, int B, int nt, int ny, int nx, float res, float origin_x,
+    float origin_y, float v_outside, int nearest, int c0, int w_loc, int n_m,
+    int ext, int shared, int pitch, int k, int run, int splits, int threads,
+    int smem, void* stream) {
+  if (w_loc <= 0 || n_m <= 0 || ext < 1 || c0 < 0 || c0 % w_loc ||
+      c0 / w_loc >= n_m || W != w_loc + 2 * ext)
     return cudaErrorInvalidValue;
-  const long long n_max = nt > ny ? (nt > nx ? nt : nx) : (ny > nx ? ny : nx);
-  if (static_cast<long long>(P) * n_max > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  const int groups = shared ? G_f : 1;
-  Plan plan{shared ? pitch : 0, k, splits, P / groups * nt, B | 1};
-  if (k < 1 || run < 1 || run > kMaxRun || splits < 1 || threads < 32 ||
-      threads > kMaxThreads || threads % 32 ||
-      (shared && pitch < W + 2 * kRing) ||
-      static_cast<long long>(groups) * splits > 0x7fffffffLL ||
-      splits > (plan.ppg + k - 1) / k ||
-      static_cast<size_t>(smem) < smem_bytes(shared, H, pitch, k, plan.stride))
-    return cudaErrorInvalidValue;
-  const Kernel kernel = kernel_for(shared, nearest, run);
-  // the opt-in above 48 KB, raised only when a launch needs more than was
-  // set on this device before
-  constexpr int kDevices = 64;
-  static int opted_in[kDevices][2][2][kMaxRun];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kDevices)
-    return cudaErrorInvalidDevice;
-  int& limit = opted_in[dev][shared ? 1 : 0][nearest ? 1 : 0][run - 1];
-  if (smem > kDefaultSmem && smem > limit) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    limit = smem;
-  }
-  kernel<<<groups * splits, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      field, px, py, use, pose0, dxs, dys, dts, out, P / G_f, P / G_b, H, W,
-      B, nt, ny, nx, 1.0f / res, origin_x, origin_y, v_outside, plan);
-  return static_cast<int>(cudaGetLastError());
+  const int j = c0 / w_loc;
+  const Tile tile{c0 - ext, j == 0 ? INT_MIN : c0,
+                  j == n_m - 1 ? INT_MAX : c0 + w_loc};
+  return launch(field, px, py, use, pose0, dxs, dys, dts, out, P, G_f, G_b, H,
+                W, B, nt, ny, nx, res, origin_x, origin_y, v_outside, nearest,
+                shared, pitch, k, run, splits, threads, smem, true, tile,
+                stream);
 }
 
 // The current device's SM count, the shared memory one block may opt in

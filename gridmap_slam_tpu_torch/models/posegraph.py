@@ -124,42 +124,48 @@ def _dense_jacobian(ji, jj, edge_i, edge_j, k: int):
     return dense.reshape(3 * e_count, 3 * k)
 
 
-def gauss_newton_step(graph: PoseGraph, damping: float = 1e-6,
-                      anchor_w: float = 1e6):
-    """One damped Gauss-Newton update of all node poses.
-
-    Assembles the dense normal equations H dx = -b as J^T W J and J^T W e
-    (a fixed summation order, the same bits on every run) and solves by
-    Cholesky; node 0 is anchored with a strong prior (gauge fixing).
-    Returns (new_graph, chi2); a system that is not positive definite gives
-    NaN poses, as the JAX package's solve does.
-    """
-    nodes = graph.nodes
+def normal_equations(nodes, edge_i, edge_j, edge_z, edge_w):
+    """The normal equations of an edge set: H = J^T W J (3K, 3K),
+    b = J^T W e (3K,) and chi2, assembled as dense products (a fixed
+    summation order, the same bits on every run) in float32."""
     k = nodes.shape[0]
-    e, ji, jj = residuals_and_jacobians(nodes, graph.edge_i, graph.edge_j,
-                                        graph.edge_z)
-    w = graph.edge_w                                   # (E, 3)
-    chi2 = torch.sum(w * e * e)
-
-    jac = _dense_jacobian(ji, jj, graph.edge_i, graph.edge_j, k)
-    wj = w.reshape(-1, 1) * jac
+    e, ji, jj = residuals_and_jacobians(nodes, edge_i, edge_j, edge_z)
+    chi2 = torch.sum(edge_w * e * e)
+    jac = _dense_jacobian(ji, jj, edge_i, edge_j, k)
+    wj = edge_w.reshape(-1, 1) * jac
     with f32_matmul():
         h = jac.T @ wj
-        b = jac.T @ (w * e).reshape(-1)
-    # gauge anchor on node 0 + Levenberg damping
+        b = jac.T @ (edge_w * e).reshape(-1)
+    return h, b, chi2
+
+
+def damped_solve(nodes, h, b, damping: float = 1e-6, anchor_w: float = 1e6):
+    """nodes + dx for (H + diag) dx = -b, node 0 anchored by a strong prior
+    (gauge fixing) and the rest Levenberg-damped, solved by Cholesky;
+    angles wrapped.  A system that is not positive definite gives NaN
+    poses, as the JAX package's solve does."""
+    k = nodes.shape[0]
     diag = torch.cat([torch.full((3,), anchor_w, dtype=nodes.dtype,
                                  device=nodes.device),
                       torch.full((3 * (k - 1),), damping, dtype=nodes.dtype,
                                  device=nodes.device)])
     h = h + torch.diag(diag)
-
     chol, info = torch.linalg.cholesky_ex(h)
     with f32_matmul():
         dx = torch.cholesky_solve(-b[:, None], chol)[:, 0]
     dx = torch.where(info == 0, dx, torch.full_like(dx, math.nan))
     new_nodes = nodes + dx.reshape(k, 3)
-    new_nodes = torch.cat([new_nodes[:, :2],
-                           wrap_angle(new_nodes[:, 2:])], 1)
+    return torch.cat([new_nodes[:, :2], wrap_angle(new_nodes[:, 2:])], 1)
+
+
+def gauss_newton_step(graph: PoseGraph, damping: float = 1e-6,
+                      anchor_w: float = 1e6):
+    """One damped Gauss-Newton update of all node poses: the dense normal
+    equations (normal_equations) solved by Cholesky (damped_solve).
+    Returns (new_graph, chi2)."""
+    h, b, chi2 = normal_equations(graph.nodes, graph.edge_i, graph.edge_j,
+                                  graph.edge_z, graph.edge_w)
+    new_nodes = damped_solve(graph.nodes, h, b, damping, anchor_w)
     return dataclasses.replace(graph, nodes=new_nodes), chi2
 
 

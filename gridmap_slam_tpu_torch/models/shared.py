@@ -30,11 +30,9 @@ filter resamples when Neff < surface_resample_fraction * P, as a select on
 the card, and the AMCL recovery injection replaces a fraction of the
 resampled slots with uniform poses.
 
-Host reads a scan: none in `step`.  In surface mode none when the
-integration crop covers the map (the `mega` preset); one, the crop's
-(iy0, ix0), when it does not (`city`): K2 takes the crop's origin as a
-scalar argument.  The volume crop is sliced by index arithmetic on the
-card and needs no host read.
+Host reads a scan: none.  Where the integration crop is smaller than the
+map (`city`), K2's window variant reads the crop's top-left cell from the
+card; the volume crop is sliced by index arithmetic on the card.
 
 Not ported here: surface_bf16, which raises ValueError.  Faults of the JAX
 package not copied: it feeds the recovery EMAs the max log-weight after
@@ -51,11 +49,11 @@ import dataclasses
 import math
 from typing import Iterable, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..config import SlamConfig
-from ..ops.cuda.grid_update import integrate_scan_batch, scan_bin_tables
+from ..ops.cuda.grid_update import (integrate_scan_batch,
+                                   integrate_scan_window, scan_bin_tables)
 from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.geometry import deskew_scan, scan_points
 from ..ops.grid import gaussian_kernel
@@ -212,12 +210,14 @@ def _uniform_poses(m, u):
                         (u[:, 2] * 2.0 - 1.0) * math.pi], 1)
 
 
-def inject_uniform(cfg: SlamConfig, u, poses, p_inject):
-    """Replace resample slots [0, p_inject * P) with uniform poses over the
-    map extent x the full circle.  u: (P, 3) uniform draws in [0, 1);
-    poses: (P, 3).  Returns (poses', mask)."""
+def inject_uniform(cfg: SlamConfig, u, poses, p_inject, slot_offset=0):
+    """Replace the global resample slots [0, p_inject * P) with uniform
+    poses over the map extent x the full circle.  poses: (k, 3), the slots
+    [slot_offset, slot_offset + k) of the resampled population (a rank's
+    slice in the distributed engines); u: (k, 3) uniform draws in [0, 1).
+    Returns (poses', mask)."""
     uni = _uniform_poses(cfg.map, u)
-    slot = torch.arange(poses.shape[0], device=poses.device)
+    slot = slot_offset + torch.arange(poses.shape[0], device=poses.device)
     take = slot < p_inject * cfg.num_particles
     return torch.where(take[:, None], uni, poses), take
 
@@ -227,6 +227,35 @@ def integration_pose(n_eff, num_particles: int, weighted, best_pose):
     when the weights are near-uniform (Neff >= 0.95 P, e.g. the first scan
     into an empty map), where the weighted mean is used."""
     return torch.where(n_eff >= 0.95 * num_particles, weighted, best_pose)
+
+
+def match_particles(cfg: SlamConfig, llf, poses, normals, scan: Scan, odom,
+                    chunk: int, **match_kw):
+    """Motion-sample `poses` (k, 3) with `normals` (k, 2) and run the
+    matcher (K1) against the field(s) llf, in blocks of `chunk` particles.
+    `match_kw` goes to correlative_match_batch (the distributed engines
+    pass their tile scorer).  Returns (poses, measurement scores)."""
+    origin = (float(cfg.map.origin[0]), float(cfg.map.origin[1]))
+    kw = dict(resolution=float(cfg.map.resolution), origin=origin,
+              max_range=cfg.sensor.max_range)
+    k = poses.shape[0]
+    out_poses, scores = [], []
+    for s in range(0, k, chunk):
+        pose = poses[s:s + chunk]
+        pose_s = sample_motion(pose, odom, cfg.motion, normals[s:s + chunk])
+        if cfg.matcher.enabled:
+            best, score = correlative_match_batch(
+                llf, scan, pose_s, odom, matcher_cfg=cfg.matcher,
+                motion_cfg=cfg.motion,
+                prior_center_b=apply_odometry(pose, odom), **kw, **match_kw)
+        else:
+            best, score = pose_s, score_pose(
+                llf, scan, pose_s, z_hit=cfg.matcher.z_hit, **kw)
+        out_poses.append(best)
+        scores.append(score)
+    if len(out_poses) == 1:
+        return out_poses[0], scores[0]
+    return torch.cat(out_poses), torch.cat(scores)
 
 
 class SharedMapSLAM:
@@ -351,31 +380,12 @@ class SharedMapSLAM:
                              f"block {chunk}")
         normals, u0, inj = self._draws(generator, draws)
         scan, tables, keep = self._scan_inputs(frame)
-        odom = frame.odom
-        origin = (float(cfg.map.origin[0]), float(cfg.map.origin[1]))
-        kw = dict(resolution=float(cfg.map.resolution), origin=origin,
-                  max_range=cfg.sensor.max_range)
         # the LL field, built once for the shared map (K3 at batch 1)
         llf = log_likelihood_field_batch(
             state.logodds[None], self.taps, z_hit=cfg.matcher.z_hit,
             max_range=cfg.sensor.max_range)
-        poses, scores = [], []
-        for s in range(0, p, chunk):
-            pose = state.poses[s:s + chunk]
-            pose_s = sample_motion(pose, odom, cfg.motion,
-                                   normals[s:s + chunk])
-            if cfg.matcher.enabled:
-                best, score = correlative_match_batch(
-                    llf, scan, pose_s, odom, matcher_cfg=cfg.matcher,
-                    motion_cfg=cfg.motion,
-                    prior_center_b=apply_odometry(pose, odom), **kw)
-            else:
-                best, score = pose_s, score_pose(
-                    llf, scan, pose_s, z_hit=cfg.matcher.z_hit, **kw)
-            poses.append(best)
-            scores.append(score)
-        poses = torch.cat(poses) if len(poses) > 1 else poses[0]
-        scores = torch.cat(scores) if len(scores) > 1 else scores[0]
+        poses, scores = match_particles(cfg, llf, state.poses, normals,
+                                        scan, frame.odom, chunk)
         return self._finish(state, poses, scores, tables, keep, u0, inj,
                             crop=0, resample_fraction=cfg.resample_fraction)
 
@@ -465,7 +475,8 @@ class SharedMapSLAM:
     def _integrate(self, logodds, pose, tables, keep, crop: int):
         """The shared map with the scan integrated at `pose` (K2 at batch
         1): into a crop x crop window around the pose when that is smaller
-        than the map, else into the whole map."""
+        than the map (K2's window variant, placed on the card), else into
+        the whole map."""
         cfg = self.config
         s = cfg.sensor
         origin = (float(cfg.map.origin[0]), float(cfg.map.origin[1]))
@@ -476,19 +487,10 @@ class SharedMapSLAM:
         if not 0 < crop < min(h, w):
             return integrate_scan_batch(logodds[None], pose[None], keep,
                                         *tables, origin=origin, **kw)[0]
-        iy0, ix0 = crop_center_cells(pose[:2], (crop, crop), (h, w), res,
-                                     origin)
-        iy0, ix0 = torch.stack([iy0, ix0]).tolist()   # the scan's host read
-        # the crop's origin in float32, as the JAX engine computes it
-        f32 = np.float32
-        c_origin = (float(f32(origin[0]) + f32(ix0) * f32(res)),
-                    float(f32(origin[1]) + f32(iy0) * f32(res)))
-        win = (slice(iy0, iy0 + crop), slice(ix0, ix0 + crop))
-        upd = integrate_scan_batch(logodds[win].contiguous()[None], pose[None],
-                                   keep, *tables, origin=c_origin, **kw)[0]
-        out = logodds.clone()
-        out[win] = upd
-        return out
+        win = torch.stack(crop_center_cells(pose[:2], (crop, crop), (h, w),
+                                            res, origin))
+        return integrate_scan_window(logodds, win, pose, keep, *tables,
+                                     size=(crop, crop), origin=origin, **kw)
 
     # -------------------------------------------------------------- utilities
     def run_log(self, state: SharedMapState, frames: Iterable[Frame],

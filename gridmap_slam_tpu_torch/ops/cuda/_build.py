@@ -45,6 +45,12 @@ SIGNATURES = {
     # cone_fill, stream
     "gs_grid_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    # lo, out, pose, keep, bin_dist, bin_alpha, bin_code, win, n_bins, Hf,
+    # Wf, Hw, Ww, col0, res, origin_x, origin_y, l_free, l_occ, tol_m,
+    # bin_scale, cone_fill, stream
+    "gs_grid_update_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I,
+                              _P],
     # field, px, py, use, pose0, dxs, dys, dts, out, P, G_f, G_b, H, W, B,
     # nt, ny, nx, res, origin_x, origin_y, v_outside, nearest, then the
     # launch plan: shared, pitch, pairs a tile, run, splits, threads, smem;
@@ -52,6 +58,11 @@ SIGNATURES = {
     "gs_stage_scores": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I,
                         _I, _I, _I, _I, _P],
+    # gs_stage_scores's arguments up to `nearest`, then the tile: c0,
+    # w_loc, n_m, ext; then the launch plan and the stream as there
+    "gs_stage_scores_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # &sm_count, &smem_block, &smem_sm
     "gs_device_limits": [_P, _P, _P],
 }

@@ -8,6 +8,11 @@ tables of G scans, particle p reading table p // (P // G) (the robots of a
 multi-robot step, the closure candidates' local maps).  With cone_fill the
 update covers each beam's whole angular wedge instead of its ray footprint
 (single-scan local maps, ops/raycast.integrate_scan).
+
+`integrate_scan_window` is K2's window variant: one map, updated only in a
+window whose top-left cell is a tensor on the card (the shared-map
+engines' integration crop), so that placing it reads nothing back to the
+host.
 """
 
 from __future__ import annotations
@@ -176,3 +181,98 @@ def integrate_scan_batch(logodds, poses, keep, bin_dist, bin_alpha, bin_code,
     return fn(logodds, poses, keep, bin_dist, bin_alpha, bin_code,
               resolution=resolution, origin=origin, l_free=l_free,
               l_occ=l_occ, tol_cells=tol_cells, cone_fill=cone_fill)
+
+
+def _window_origin(win, col0: int, resolution: float, origin):
+    """The window's origin, origin + (col0 + ix0, iy0) * resolution, each
+    product and sum rounded once in float32 (the JAX engines' arithmetic),
+    as two 0-dim float32 tensors on win's device."""
+    f32 = torch.float32
+    res = torch.tensor(resolution, dtype=f32, device=win.device)
+    ox = torch.tensor(origin[0], dtype=f32, device=win.device)
+    oy = torch.tensor(origin[1], dtype=f32, device=win.device)
+    return ox + (win[1] + col0).to(f32) * res, oy + win[0].to(f32) * res
+
+
+def integrate_scan_window_plain(logodds, win, pose, keep, bin_dist,
+                                bin_alpha, bin_code, *, size, col0: int = 0,
+                                resolution: float, origin, l_free: float,
+                                l_occ: float, tol_cells: float = 2.0,
+                                cone_fill: bool = False):
+    """Plain version of the window variant: logodds (H, W) with the scan
+    integrated from `pose` (3,) into the size = (Hw, Ww) window whose
+    top-left cell is win = (iy0, ix0), an int64 tensor; the window's origin
+    is `_window_origin` (col0: the map's first column in the map whose
+    origin is `origin`).  The window is gathered and scattered by index, so
+    nothing is read back to the host.  Returns a new (H, W) map."""
+    hw, ww = size
+    rows = (win[0] + torch.arange(hw, device=win.device))[:, None]
+    cols = (win[1] + torch.arange(ww, device=win.device))[None, :]
+    w_origin = _window_origin(win, col0, resolution, origin)
+    upd = integrate_scan_batch_plain(
+        logodds[rows, cols][None], pose[None], keep, bin_dist, bin_alpha,
+        bin_code, resolution=resolution, origin=w_origin, l_free=l_free,
+        l_occ=l_occ, tol_cells=tol_cells, cone_fill=cone_fill)[0]
+    out = logodds.clone()
+    out[rows, cols] = upd
+    return out
+
+
+def integrate_scan_window_cuda(logodds, win, pose, keep, bin_dist, bin_alpha,
+                               bin_code, *, size, col0: int = 0,
+                               resolution: float, origin, l_free: float,
+                               l_occ: float, tol_cells: float = 2.0,
+                               cone_fill: bool = False):
+    """The window variant of the kernel.  logodds: (H, W) float32 on the
+    card; win: (2,) int64 on the card, inside the map for the window size;
+    pose: (3,); keep: a float or a scalar tensor on the card; bin_*:
+    (n_bins,).  Returns a new (H, W) map."""
+    global launches
+    fn = "integrate_scan_window_cuda"
+    if logodds.dim() != 2 or bin_dist.dim() != 1:
+        raise ValueError(f"{fn}: logodds must be (H, W) and the tables "
+                         f"(n_bins,), got {tuple(logodds.shape)}, "
+                         f"{tuple(bin_dist.shape)}")
+    dev = logodds.device
+    h, w = logodds.shape
+    hw, ww = size
+    if not (0 < hw <= h and 0 < ww <= w):
+        raise ValueError(f"{fn}: window {size} does not fit a "
+                         f"{tuple(logodds.shape)} map")
+    check_tensor(fn, "logodds", logodds, (h, w), dev)
+    check_tensor(fn, "win", win, (2,), dev, dtype=torch.int64)
+    check_tensor(fn, "pose", pose, (3,), dev)
+    for name, t in (("bin_dist", bin_dist), ("bin_alpha", bin_alpha),
+                    ("bin_code", bin_code)):
+        check_tensor(fn, name, t, bin_dist.shape, dev)
+    if not isinstance(keep, torch.Tensor):
+        keep = torch.tensor(float(keep), dtype=torch.float32, device=dev)
+    check_tensor(fn, "keep", keep, (), dev)
+    n_bins = bin_dist.shape[0]
+    out = logodds.clone()
+    lib = _build.library()
+    code = lib.gs_grid_update_window(
+        logodds.data_ptr(), out.data_ptr(), pose.data_ptr(), keep.data_ptr(),
+        bin_dist.data_ptr(), bin_alpha.data_ptr(), bin_code.data_ptr(),
+        win.data_ptr(), n_bins, h, w, hw, ww, col0, resolution, origin[0],
+        origin[1], l_free, l_occ, 0.5 * tol_cells * resolution,
+        n_bins / math.tau, int(cone_fill), stream_handle(dev))
+    launches += 1
+    _build.check("gs_grid_update_window", code)
+    return out
+
+
+def integrate_scan_window(logodds, win, pose, keep, bin_dist, bin_alpha,
+                          bin_code, *, size, col0: int = 0,
+                          resolution: float, origin, l_free: float,
+                          l_occ: float, tol_cells: float = 2.0,
+                          cone_fill: bool = False):
+    """The (H, W) map with the scan integrated from `pose` into its
+    size = (Hw, Ww) window at the cell win = (iy0, ix0), a tensor on the
+    map's device (see integrate_scan_window_plain)."""
+    fn = (integrate_scan_window_cuda if logodds.is_cuda
+          else integrate_scan_window_plain)
+    return fn(logodds, win, pose, keep, bin_dist, bin_alpha, bin_code,
+              size=size, col0=col0, resolution=resolution, origin=origin,
+              l_free=l_free, l_occ=l_occ, tol_cells=tol_cells,
+              cone_fill=cone_fill)

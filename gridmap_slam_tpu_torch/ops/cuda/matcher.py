@@ -20,6 +20,13 @@ shared memory) or the "global" one (the field read from device memory, for
 fields too large for one block or too little work to pay for staging), the
 (particle, heading) pairs a tile, the threads a block and the blocks that
 share one field's tiles.
+
+`stage_scores_tile` is K1's tile variant: the partial scores of one column
+tile of a map split over ranks (parallel/tiled.py, parallel/sharded.py),
+whose sum over the tiles is `stage_scores_batch` on the whole map.  Its
+plain version, `stage_scores_tile_plain`, is the JAX package's XLA
+function gridmap_slam_tpu/parallel/tiled.py::_stage_scores_tiled in
+PyTorch.  Its launches are counted in `tile_launches`.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 from . import _build, check_tensor, stream_handle
 
 launches = 0   # kernel launches since the count was last set to 0
+tile_launches = 0   # launches of the tile variant, likewise
 
 _MAX_BEAMS = 4096          # one pair's staged endpoints in 32 KB
 RING = 2                   # cells of out-of-map value around a staged field
@@ -112,17 +120,19 @@ def launch_plan(p: int, g_f: int, h: int, w: int, b: int, nt: int, ny: int,
     grid, at G_f = P one block a particle."""
     ring_w = w + 2 * RING
     variant, pitch, field_bytes = "global", 0, 0
+    # a block that stages the field must also fit an SM's budget
+    room_block = min(smem_block, smem_sm - SMEM_SM_MARGIN - 1024)
     if g_f == 1 or (p // g_f) * nt * ny * nx * b >= h * w:
         for pitch in (ring_w + (8 - ring_w % 16) % 16, ring_w):
             field_bytes = _field_bytes(h, pitch)
-            if _smem_bytes(field_bytes, 1, b) <= smem_block:
+            if _smem_bytes(field_bytes, 1, b) <= room_block:
                 variant = "shared"
                 break
     if variant == "global":
         pitch, field_bytes = 0, 0
     groups = g_f if variant == "shared" else 1
     ppg = p // groups * nt
-    room = min(STAGE_BYTES, smem_block - field_bytes)
+    room = min(STAGE_BYTES, room_block - field_bytes)
     k_cap = max(1, min(ppg, room // ((b | 1) * 8 + 4)))
 
     staged = (h + 2 * RING) * ring_w if variant == "shared" else 0
@@ -303,3 +313,146 @@ def stage_scores_batch(field, px, py, use, pose0, dxs, dys, dts, *,
     fn = stage_scores_batch_cuda if field.is_cuda else stage_scores_batch_plain
     return fn(field, px, py, use, pose0, dxs, dys, dts, resolution=resolution,
               origin=origin, max_range=max_range, nearest=nearest)
+
+
+def _owned(x0, c0: int, w_loc: int, n_m: int):
+    """Whether the tile [c0, c0 + w_loc) of n_m owns base column x0: the
+    tile of x0, clipped to [0, n_m - 1] (beams off the world's west side
+    belong to the first tile, off its east side to the last)."""
+    j = c0 // w_loc
+    return torch.clamp(torch.div(x0, w_loc, rounding_mode="floor"), 0,
+                       n_m - 1) == j
+
+
+def stage_scores_tile_plain(field, px, py, use, pose0, dxs, dys, dts, *,
+                            resolution: float, origin, max_range: float,
+                            c0: int, w_loc: int, n_m: int, ext: int = 1,
+                            nearest: bool = False):
+    """Plain version of the tile variant: the JAX package's
+    _stage_scores_tiled (gridmap_slam_tpu/parallel/tiled.py:104-158) for
+    every particle at once, on grouped fields and scans as
+    stage_scores_batch_plain.  field: (G_f, H, w_loc + 2 ext), the tile
+    [c0, c0 + w_loc) extended by ext columns each side, whose world-edge
+    columns hold log(1 / max_range).  A beam's base column is taken in
+    global cells from the unshifted origin; only the beams whose base
+    column the tile owns (`_owned`) add to the sum, with their taps read at
+    that column less c0 - ext.
+
+    The cell coordinates follow the kernel's arithmetic (1/res times the
+    rotated endpoint plus 1/res times the candidate's offset from the
+    origin, rounded to the nearest cell), where the JAX function divides
+    the world coordinate less the origin by res: 4000 cells from the
+    origin (the city map) a float32 coordinate is good to 2.4e-4 of a
+    cell, and the two orders then part by more than K1's tolerance.  The
+    interpolation is the kernel's two lerps.  Returns (P, nt, ny, nx)."""
+    ll_outside = math.log(1.0 / max_range)
+    p = pose0.shape[0]
+    if px.dim() == 2:              # one scan a group: (P, 1, B) rows
+        px, py, use = (per_particle(a, p)[:, None] for a in (px, py, use))
+        use = use[:, :, None, None, :]
+    # cell coordinates in the kernel's order: the rotated endpoint and the
+    # candidate's offset from the origin each times 1/res, then summed
+    f32 = torch.float32
+    inv_res = (torch.tensor(1.0, dtype=f32)
+               / torch.tensor(resolution, dtype=f32)).to(pose0.device)
+    c_off = 0.5 if nearest else 1.0
+    theta = pose0[:, 2, None] + dts                           # (P, nt)
+    c = torch.cos(theta)[:, :, None]
+    s = torch.sin(theta)[:, :, None]
+    sx = (px * c - py * s) * inv_res                          # (P, nt, B)
+    sy = (px * s + py * c) * inv_res
+    cx = (pose0[:, 0, None] + dxs - origin[0]) * inv_res - c_off   # (P, nx)
+    cy = (pose0[:, 1, None] + dys - origin[1]) * inv_res - c_off   # (P, ny)
+    fx = sx[:, :, None, :] + cx[:, None, :, None]             # (P, nt, nx, B)
+    fy = sy[:, :, None, :] + cy[:, None, :, None]             # (P, nt, ny, B)
+    # rounded to the nearest cell: the nearest cell's index, or (bilinear,
+    # a half cell lower) the base cell's
+    x0f, y0f = torch.round(fx), torch.round(fy)
+    x0 = x0f.to(torch.int64)
+    xl = (x0 - (c0 - ext))[:, :, None]
+    y0 = y0f.to(torch.int64)[:, :, :, None]
+    if nearest:
+        ll = _taps(field, xl, y0, ll_outside)
+    else:
+        tx = (fx - x0f + 0.5)[:, :, None]
+        ty = (fy - y0f + 0.5)[:, :, :, None]
+        v00 = _taps(field, xl, y0, ll_outside)
+        v10 = _taps(field, xl + 1, y0, ll_outside)
+        v01 = _taps(field, xl, y0 + 1, ll_outside)
+        v11 = _taps(field, xl + 1, y0 + 1, ll_outside)
+        a = v00 + tx * (v10 - v00)
+        ll = a + ty * (v01 + tx * (v11 - v01) - a)            # (P,nt,ny,nx,B)
+    mine = _owned(x0, c0, w_loc, n_m)[:, :, None]
+    return torch.where(use & mine, ll, 0.0).sum(-1)
+
+
+def _check_tile(fn, field, c0, w_loc, n_m, ext):
+    if w_loc <= 0 or n_m <= 0 or ext < 1 or c0 < 0 or c0 % w_loc \
+            or c0 // w_loc >= n_m or field.shape[-1] != w_loc + 2 * ext:
+        raise ValueError(f"{fn}: tile c0={c0}, w_loc={w_loc}, n_m={n_m}, "
+                         f"ext={ext} does not fit a field of width "
+                         f"{field.shape[-1]}")
+
+
+def stage_scores_tile_cuda(field, px, py, use, pose0, dxs, dys, dts, *,
+                           resolution: float, origin, max_range: float,
+                           c0: int, w_loc: int, n_m: int, ext: int = 1,
+                           nearest: bool = False):
+    """The tile variant of the kernel; arguments as stage_scores_batch_cuda
+    with the field (G_f, H, w_loc + 2 ext) and the tile c0, w_loc, n_m,
+    ext.  The launch plan is launch_plan's at the extended tile's shape."""
+    global tile_launches
+    fn = "stage_scores_tile_cuda"
+    if field.dim() != 3 or px.dim() not in (1, 2) or pose0.dim() != 2 \
+            or dxs.dim() != 2 or dys.dim() != 2 or dts.dim() != 2:
+        raise ValueError(f"{fn}: need field (G_f, H, W), px (G_b, B) or "
+                         f"(B,), pose0 (P, 3) and (P, n) offsets")
+    _check_tile(fn, field, c0, w_loc, n_m, ext)
+    dev = field.device
+    g_f, h, w = field.shape
+    p = pose0.shape[0]
+    g_b, b = (1,) * (2 - px.dim()) + tuple(px.shape)
+    nx, ny, nt = dxs.shape[1], dys.shape[1], dts.shape[1]
+    check_tensor(fn, "field", field, (g_f, h, w), dev)
+    check_tensor(fn, "px", px, px.shape, dev)
+    check_tensor(fn, "py", py, px.shape, dev)
+    check_tensor(fn, "use", use, px.shape, dev, dtype=torch.bool)
+    check_tensor(fn, "pose0", pose0, (p, 3), dev)
+    if g_f == 0 or g_b == 0 or p % g_f or p % g_b:
+        raise ValueError(f"{fn}: {g_f} fields and {g_b} scans must each "
+                         f"divide the {p} particles")
+    check_tensor(fn, "dxs", dxs, (p, nx), dev)
+    check_tensor(fn, "dys", dys, (p, ny), dev)
+    check_tensor(fn, "dts", dts, (p, nt), dev)
+    if b > _MAX_BEAMS or p * max(nt, ny, nx) >= 2 ** 31:
+        raise ValueError(f"{fn}: at most {_MAX_BEAMS} beams and 2^31 "
+                         f"offsets a call; got {b}, {p * max(nt, ny, nx)}")
+    out = torch.empty((p, nt, ny, nx), dtype=torch.float32, device=dev)
+    plan = launch_plan(p, g_f, h, w, b, nt, ny, nx,
+                       **device_limits(dev.index))
+    lib = _build.library()
+    code = lib.gs_stage_scores_tile(
+        field.data_ptr(), px.data_ptr(), py.data_ptr(), use.data_ptr(),
+        pose0.data_ptr(), dxs.data_ptr(), dys.data_ptr(), dts.data_ptr(),
+        out.data_ptr(), p, g_f, g_b, h, w, b, nt, ny, nx, resolution,
+        origin[0], origin[1], math.log(1.0 / max_range), int(nearest), c0,
+        w_loc, n_m, ext, int(plan.variant == "shared"), plan.pitch,
+        plan.pairs_per_tile, plan.run, plan.splits, plan.threads,
+        plan.smem_bytes, stream_handle(dev))
+    tile_launches += 1
+    _build.check("gs_stage_scores_tile", code)
+    return out
+
+
+def stage_scores_tile(field, px, py, use, pose0, dxs, dys, dts, *,
+                      resolution: float, origin, max_range: float, c0: int,
+                      w_loc: int, n_m: int, ext: int = 1,
+                      nearest: bool = False):
+    """(P, nt, ny, nx) partial measurement log-likelihoods of one column
+    tile (see stage_scores_tile_plain); summed over the n_m tiles they are
+    stage_scores_batch on the whole map."""
+    fn = (stage_scores_tile_cuda if field.is_cuda
+          else stage_scores_tile_plain)
+    return fn(field, px, py, use, pose0, dxs, dys, dts, resolution=resolution,
+              origin=origin, max_range=max_range, c0=c0, w_loc=w_loc,
+              n_m=n_m, ext=ext, nearest=nearest)

@@ -192,7 +192,8 @@ def correlative_match(llfield, scan: Scan, pose0, odom: Odom, *,
 
 def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
                             matcher_cfg, motion_cfg, resolution, origin,
-                            max_range, prior_center_b=None):
+                            max_range, prior_center_b=None, stage=None,
+                            pool=None):
     """For every particle, the pose maximizing
     log p(z|x,m) + prior_weight * log p(x|x0,u) near pose0.
 
@@ -211,9 +212,16 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
     bilinear stages over all beams.  The offsets come from a cache on the
     device, so a call reads nothing back to the host.
 
+    `stage` and `pool` replace stage_scores_batch and half_resolution for
+    a field split over ranks (parallel/tiled.py: llfield_b is then a tile
+    of the field, `stage` sums the tiles' partial scores and `pool` pools
+    the tiles); the schedule, the prior and the argmax are unchanged.
+
     Returns (best_poses (P, 3), meas_logscores (P,)), the measurement-only
     log-likelihood at the best pose (the reference's particle weight).
     """
+    stage = stage_scores_batch if stage is None else stage
+    pool = half_resolution if pool is None else pool
     mc = matcher_cfg
     impl = getattr(mc, "impl", "gather")
     if impl not in IMPLS:
@@ -244,14 +252,13 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
     if getattr(mc, "coarse_halfres", False):
         # Basin-finding on the 2x2-mean-pooled field, bilinear at twice the
         # cell size.
-        meas = stage_scores_batch(half_resolution(llfield_b, ll_outside),
-                                  px_c, py_c, use_c, pose0_b, c_dxs, c_dxs,
-                                  c_dts, resolution=2.0 * resolution,
-                                  nearest=False, **kw)
+        meas = stage(pool(llfield_b, ll_outside), px_c, py_c, use_c, pose0_b,
+                     c_dxs, c_dxs, c_dts, resolution=2.0 * resolution,
+                     nearest=False, **kw)
     else:
-        meas = stage_scores_batch(llfield_b, px_c, py_c, use_c, pose0_b,
-                                  c_dxs, c_dxs, c_dts, resolution=resolution,
-                                  nearest=bool(mc.coarse_nearest), **kw)
+        meas = stage(llfield_b, px_c, py_c, use_c, pose0_b, c_dxs, c_dxs,
+                     c_dts, resolution=resolution,
+                     nearest=bool(mc.coarse_nearest), **kw)
     # prior in per-used-beam units must not change with the beam subset:
     # scale the coarse prior by the coarse beam fraction.
     n_all = per_particle(torch.clamp(use.to(torch.float32).sum(-1),
@@ -271,9 +278,8 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
         r_dxs = fx[:, None] + off_xy
         r_dys = fy[:, None] + off_xy
         r_dts = ft[:, None] + off_t
-        meas_r = stage_scores_batch(llfield_b, px, py, use, pose0_b, r_dxs,
-                                    r_dys, r_dts, resolution=resolution,
-                                    nearest=False, **kw)
+        meas_r = stage(llfield_b, px, py, use, pose0_b, r_dxs, r_dys, r_dts,
+                       resolution=resolution, nearest=False, **kw)
         total_r = meas_r + _prior_grid(r_dxs, r_dys, r_dts, sd_c, sd_t,
                                        mc.prior_weight, bias_b)
         fx, fy, ft, flat = _argmax3(total_r, r_dxs, r_dys, r_dts)

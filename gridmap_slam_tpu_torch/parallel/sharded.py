@@ -1,0 +1,112 @@
+"""The RBPF over ranks: particles and their maps over 'p', map columns over
+'m', every exchange an explicit collective.
+
+Counterpart of gridmap_slam_tpu/parallel/sharded.py, where GSPMD infers
+the collectives of RBPF.step from the state's shardings.  Here each is
+written out.  Rank (i, j) holds the P / n_p particles of shard i with
+column tile j of each of their maps, (P_loc, H, W / n_m).  Per scan:
+
+- LL fields: K3 on the local maps' tiles extended by the blur radius from
+  each neighbour (parallel/tiled.tiled_ll_field, batched over the local
+  particles), then the one-column LL halo;
+- scores: K1's tile variant at G_f = P_loc (one field a particle), summed
+  over 'm', in RBPF.step's own candidate schedule (its half-resolution
+  coarse stage pools each tile: parallel/tiled.tile_pool);
+- map update: K2 on each local map's tile at the tile's origin;
+- weights, Neff and the strongest particle over 'p' (parallel/shmap.
+  finish_step);
+- resample: the maps move across 'p'.  This first design all_gathers the
+  (P_loc, H, W_loc) tiles over 'p' and takes the ancestors' rows: a rank
+  holds n_p x its local maps for that moment (PERF.md).  Sending only the
+  ancestors that cross ranks is later work (ROADMAP.md).
+
+On a mesh (1, 1) the step is RBPF.step, bit for bit.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..models.rbpf import RBPF
+from ..ops.cuda.grid_update import integrate_scan_batch, scan_bin_tables
+from ..ops.geometry import deskew_scan
+from ..ops.matcher import correlative_match_batch
+from ..ops.motion import apply_odometry, sample_motion
+from ..types import Frame
+from .mesh import axis_index, shard_state
+from .shmap import finish_step, local_particles
+from .tiled import (tile_geometry, tile_origin, tile_pool, tile_stage,
+                    tiled_ll_field)
+
+
+def make_sharded_step(engine: RBPF, mesh):
+    """The sharded RBPF step (module docstring).  Returns
+    step(state, frame, generator=None, draws=None) -> (state, info) on this
+    rank's shard (init_sharded); `draws` = (normals (P, 2), u0) as
+    RBPF.step's, global: each rank takes its slice."""
+    cfg = engine.config
+    p_loc = local_particles(engine, mesh)
+    w_loc, c0 = tile_geometry(cfg, mesh)
+    s = cfg.sensor
+    res = float(cfg.map.resolution)
+    origin = (float(cfg.map.origin[0]), float(cfg.map.origin[1]))
+    t_origin = tile_origin(cfg, c0)
+    chunk = cfg.particle_chunk
+    chunk = chunk if 0 < chunk < p_loc and p_loc % chunk == 0 else p_loc
+    i_p = axis_index(mesh, "p")
+    match_kw = dict(stage=tile_stage(mesh), pool=tile_pool(mesh))
+
+    def step(state, frame: Frame, generator: Optional[torch.Generator] = None,
+             draws=None):
+        p = cfg.num_particles
+        dev = engine.device
+        if draws is None:
+            normals = torch.randn((p, 2), generator=generator, device=dev)
+            u0 = torch.rand((), generator=generator, device=dev) * (1.0 / p)
+        else:
+            normals, u0 = draws
+        normals = normals[i_p * p_loc:(i_p + 1) * p_loc]
+        scan = deskew_scan(frame.scan, frame.odom)
+        odom = frame.odom
+        tables = scan_bin_tables(scan, cfg.beam_lut_bins)
+        keep = (torch.abs(odom.d_theta)
+                <= math.radians(cfg.skip_update_dtheta_deg)).to(torch.float32)
+        if cfg.freeze_map:          # localization-only: map never changes
+            keep = keep * 0.0
+
+        parts = []
+        for a in range(0, p_loc, chunk):
+            poses = state.poses[a:a + chunk]
+            tiles = state.logodds[a:a + chunk]
+            pose_s = sample_motion(poses, odom, cfg.motion,
+                                   normals[a:a + chunk])
+            tf = tiled_ll_field(tiles, engine.taps, mesh,
+                                z_hit=cfg.matcher.z_hit,
+                                max_range=s.max_range, w_loc=w_loc, c0=c0)
+            best, score = correlative_match_batch(
+                tf, scan, pose_s, odom, matcher_cfg=cfg.matcher,
+                motion_cfg=cfg.motion, resolution=res, origin=origin,
+                max_range=s.max_range,
+                prior_center_b=apply_odometry(poses, odom), **match_kw)
+            new_tiles = integrate_scan_batch(
+                tiles, best, keep, *tables, resolution=res, origin=t_origin,
+                l_free=s.l_free, l_occ=s.l_occ,
+                tol_cells=s.hit_tolerance_cells)
+            parts.append((best, score, new_tiles))
+        poses, scores, maps = (torch.cat(x) for x in zip(*parts))
+        return finish_step(engine, mesh, state, poses, scores,
+                           lambda pose: None, u0, None,
+                           cfg.resample_fraction, maps=maps)
+
+    return step
+
+
+def init_sharded(engine: RBPF, mesh, pose=(0.0, 0.0, 0.0)):
+    """This rank's shard of engine.init(pose): its particles and their maps'
+    column tiles (built whole and sliced: a caller of city-scale maps
+    builds its shard itself)."""
+    return shard_state(engine.init(pose), mesh, tiled=True,
+                       device=engine.device)

@@ -1,0 +1,261 @@
+"""The shared-map engine over ranks, every exchange an explicit collective.
+
+Counterpart of gridmap_slam_tpu/parallel/shmap.py (shard_map + psum /
+all_gather): particles (poses, log-weights) are split over mesh axis 'p',
+the shared map is replicated.  A rank's step:
+
+- motion sampling and matching of its particles, no communication: K3
+  once on the replicated map, then K1 at G_f = 1 over the local particles
+  in blocks (`SharedMapSLAM.match`, the blocks of step_blocked); or, with
+  surface=True, the likelihood volume built redundantly on every rank
+  around the previous cloud's global weighted mean propagated by the
+  odometry (models/shared.surface_volume) and tapped by the local
+  particles;
+- weight statistics: one pmax and two psums over 'p' (the normalizer; then
+  Neff's sum and the weighted pose in one vector);
+- strongest particle: an all_gather of each rank's (score, pose, index);
+- map update: K2 at batch 1, redundantly on every rank from the agreed
+  integration pose (into the crop around it in surface mode, K2's window
+  variant placed on the card);
+- resampling: every rank computes the global systematic ancestors from the
+  gathered log-weights and the shared draw u0 and takes its slice.  On an
+  axis of one rank this is a select on the card (identity indices when the
+  gate does not fire), with no gather and no host read, as the port's
+  single-device engines do.  On more ranks a collective cannot be skipped
+  on the card alone, so the gate is read on the host once a scan and the
+  all_gather of (log-weight, pose) rows runs only on scans that resample
+  (parallel/comm_model.py counts it so);
+- the AMCL recovery injection replaces the global slots
+  [0, p_inject * P) (inject_uniform's slot_offset).
+
+Draws: every rank draws the global (P, ...) tensors of
+SharedMapSLAM._draws from a generator seeded the same on every rank and
+takes its slice, so an n-rank run has the single-device engine's draws; a
+`draws=` argument takes injected ones (the JAX layout, in the tests).  On
+a mesh (1, 1) the step gives the single-device engine's bits
+(`step_blocked`, `step_surface`).
+
+The engines take a SharedMapSLAM, which refuses recovery injection together
+with accumulate_weights=True (the JAX engines feed the recovery EMAs the
+max log-weight after accumulation, gridmap_slam_tpu/parallel/shmap.py:139),
+so no distributed engine runs that configuration either.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from ..models.shared import (SharedMapSLAM, SharedMapState, inject_uniform,
+                             integration_pose, match_particles,
+                             matcher_block_size, recovery_update,
+                             surface_temper, surface_volume)
+from ..ops.cuda.likelihood import log_likelihood_field_batch
+from ..ops.geometry import wrap_angle
+from ..ops.motion import apply_odometry, sample_motion
+from ..ops.resample import systematic_indices
+from ..ops.surface import refine_on_surface, sample_surface
+from ..types import Frame, StepInfo
+from .mesh import (all_gather, axis_index, axis_size, pmax, psum,
+                   shard_state)
+
+
+def local_particles(engine, mesh) -> int:
+    """P / n_p, the particles a rank holds; raises unless n_p divides P."""
+    p, n_p = engine.config.num_particles, axis_size(mesh, "p")
+    if p % n_p:
+        raise ValueError(f"{p} particles do not split over {n_p} ranks")
+    return p // n_p
+
+
+def local_draws(engine, mesh, generator, draws):
+    """This rank's slice of the step's global draws (SharedMapSLAM._draws:
+    normals (P, 2), u0, injection uniforms (P, 3) or None)."""
+    normals, u0, inj = engine._draws(generator, draws)
+    p_loc = local_particles(engine, mesh)
+    sl = slice(axis_index(mesh, "p") * p_loc,
+               (axis_index(mesh, "p") + 1) * p_loc)
+    return normals[sl], u0, None if inj is None else inj[sl]
+
+
+def global_weighted_mean(poses, log_weights, mesh):
+    """The weighted mean pose of the whole cloud (ops/resample.
+    weighted_mean_pose over every rank's particles) and the global max
+    log-weight."""
+    m = pmax(log_weights.max(), mesh, "p")
+    e = torch.exp(log_weights - m)
+    w = e / psum(e.sum(), mesh, "p")
+    mean = psum(torch.stack([torch.sum(poses[:, 0] * w),
+                             torch.sum(poses[:, 1] * w),
+                             torch.sum(wrap_angle(poses[:, 2]) * w)]),
+                mesh, "p")
+    return mean, m
+
+
+def _global_mean(x, mesh, n_total: int):
+    """The mean of x over every rank of 'p' (x.mean() on one rank)."""
+    if axis_size(mesh, "p") == 1:
+        return x.mean()
+    return psum(x.sum(), mesh, "p") / n_total
+
+
+def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
+                u0, inj, resample_fraction: float, maps=None):
+    """The tail every distributed engine shares, on this rank's particles:
+    weights, the global statistics over 'p', the strongest particle, the
+    map update `integrate(integration_pose)`, the resample gate, the
+    recovery EMAs and injection (shared-map states), and the resample,
+    which carries `maps` (the sharded RBPF's local maps) with the poses
+    when given.  Returns (new_state, info)."""
+    cfg = engine.config
+    p = cfg.num_particles
+    p_loc = poses.shape[0]
+    i_p, n_p = axis_index(mesh, "p"), axis_size(mesh, "p")
+    dev = poses.device
+    lw = scores.to(state.log_weights.dtype)
+    if cfg.accumulate_weights:
+        lw = lw + state.log_weights
+
+    m = pmax(lw.max(), mesh, "p")
+    e = torch.exp(lw - m)
+    w = e / psum(e.sum(), mesh, "p")
+    sums = psum(torch.stack([torch.sum(w * w), torch.sum(poses[:, 0] * w),
+                             torch.sum(poses[:, 1] * w),
+                             torch.sum(wrap_angle(poses[:, 2]) * w)]),
+                mesh, "p")
+    n_eff = 1.0 / sums[0]
+    weighted = sums[1:]
+
+    # the strongest particle: (score, pose, local index) of each rank
+    li = torch.argmax(lw)
+    cand = torch.cat([lw[li[None]], poses[li[None]][0],
+                      li[None].to(lw.dtype)])
+    every = all_gather(cand, mesh, "p")                     # (n_p, 5)
+    gbest = torch.argmax(every[:, 0])
+    row = every[gbest[None]][0]
+    best_pose = row[1:4]
+    best_index = gbest * p_loc + row[4].to(torch.int64)
+    logodds = integrate(integration_pose(n_eff, p, weighted, best_pose))
+
+    do_resample = n_eff < (p * resample_fraction)
+    recov, p_inject = (recovery_update(cfg, state, m)
+                       if isinstance(state, SharedMapState)
+                       else (None, None))
+    if p_inject is not None:
+        # a kidnap makes every particle uniformly bad, so Neff rises and
+        # the gate alone would never fire: injection forces a resample
+        do_resample = do_resample | (p_inject > 0.05)
+
+    def resampled(lw_all, rows_all, maps_all):
+        idx = systematic_indices(lw_all, u0)[i_p * p_loc:(i_p + 1) * p_loc]
+        new_lw = (torch.zeros_like(lw) if cfg.accumulate_weights
+                  else lw_all[idx])
+        new_poses = rows_all[idx]
+        new_maps = None if maps_all is None else maps_all[idx]
+        if p_inject is not None:
+            new_poses, took = inject_uniform(cfg, inj, new_poses, p_inject,
+                                             slot_offset=i_p * p_loc)
+            new_lw = torch.where(took, _global_mean(new_lw, mesh, p), new_lw)
+        return new_poses, new_lw, new_maps
+
+    if n_p == 1:
+        # a select on the card: identity indices when the gate does not fire
+        idx = torch.where(do_resample, systematic_indices(lw, u0),
+                          torch.arange(p, device=dev))
+        new_poses = poses[idx]
+        new_maps = None if maps is None else maps[idx]
+        if cfg.accumulate_weights:
+            new_lw = torch.where(do_resample, torch.zeros_like(lw), lw)
+        else:
+            new_lw = lw[idx]
+        if p_inject is not None:
+            inj_poses, took = inject_uniform(cfg, inj, new_poses, p_inject)
+            inj_lw = torch.where(took, new_lw.mean(), new_lw)
+            new_poses = torch.where(do_resample, inj_poses, new_poses)
+            new_lw = torch.where(do_resample, inj_lw, new_lw)
+        best_lw = new_lw.max()
+    elif bool(do_resample):            # the scan's one host read
+        rows = all_gather(torch.cat([lw[:, None], poses], 1), mesh, "p",
+                          tiled=True)
+        maps_all = (None if maps is None
+                    else all_gather(maps, mesh, "p", tiled=True))
+        new_poses, new_lw, new_maps = resampled(rows[:, 0], rows[:, 1:],
+                                                maps_all)
+        best_lw = pmax(new_lw.max(), mesh, "p")
+    else:
+        new_poses, new_lw, new_maps = poses, lw, maps
+        best_lw = m
+
+    fields = dict(poses=new_poses, log_weights=new_lw,
+                  logodds=logodds if new_maps is None else new_maps,
+                  step=state.step + 1)
+    if recov is not None or isinstance(state, SharedMapState):
+        fields["recov"] = state.recov if recov is None else recov
+    new_state = dataclasses.replace(state, **fields)
+    info = StepInfo(neff=n_eff, weighted_pose=weighted, best_pose=best_pose,
+                    best_index=best_index, best_log_weight=best_lw,
+                    resampled=do_resample)
+    return new_state, info
+
+
+def make_shmap_step(engine: SharedMapSLAM, mesh, surface: bool = False):
+    """The step of the shared-map engine over `mesh`'s 'p' axis (the 'm'
+    axis must be 1: the map is replicated).  Returns
+    step(state, frame, generator=None, draws=None) -> (state, info) on
+    this rank's shard (init_shmap).  surface=True runs step_surface's
+    measurement model; else the matcher in blocks of matcher_block_size
+    particles, lowered to a divisor of the local count."""
+    if axis_size(mesh, "m") != 1:
+        raise ValueError("shmap replicates the map: the mesh's 'm' axis "
+                         "must be 1 (use tiled or surface_sharded)")
+    cfg = engine.config
+    p_loc = local_particles(engine, mesh)
+    chunk = min(matcher_block_size(cfg), p_loc)
+    while p_loc % chunk:
+        chunk -= 1
+
+    def step(state: SharedMapState, frame: Frame,
+             generator: Optional[torch.Generator] = None, draws=None):
+        mc = cfg.matcher
+        normals, u0, inj = local_draws(engine, mesh, generator, draws)
+        scan, tables, keep = engine._scan_inputs(frame)
+        odom = frame.odom
+        if surface:
+            mean, _ = global_weighted_mean(state.poses, state.log_weights,
+                                           mesh)
+            center = apply_odometry(mean, odom)
+            c_vol, kw, kc = surface_volume(cfg, engine.taps, state.logodds,
+                                           scan, center)
+            pose_s = sample_motion(state.poses, odom, cfg.motion, normals)
+            scores = sample_surface(c_vol, pose_s, **kw)
+            poses, scores = refine_on_surface(
+                c_vol, pose_s, scores, steps=mc.surface_refine_steps, **kw)
+            scores = surface_temper(mc, scan, scores)
+            crop, fraction = 2 * kc + 8, mc.surface_resample_fraction
+        else:
+            llf = log_likelihood_field_batch(
+                state.logodds[None], engine.taps, z_hit=mc.z_hit,
+                max_range=cfg.sensor.max_range)
+            poses, scores = match_particles(cfg, llf, state.poses, normals,
+                                            scan, odom, chunk)
+            crop, fraction = 0, cfg.resample_fraction
+
+        def integrate(pose):
+            return engine._integrate(state.logodds, pose, tables, keep, crop)
+
+        return finish_step(engine, mesh, state, poses, scores, integrate,
+                           u0, inj, fraction)
+
+    return step
+
+
+def init_shmap(engine: SharedMapSLAM, mesh, pose=(0.0, 0.0, 0.0)):
+    """This rank's shard of engine.init(pose)."""
+    return shard_state(engine.init(pose), mesh, tiled=False,
+                       device=engine.device)
+
+
+__all__ = ["make_shmap_step", "init_shmap", "finish_step",
+           "global_weighted_mean", "local_draws", "local_particles"]

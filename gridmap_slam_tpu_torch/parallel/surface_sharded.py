@@ -1,0 +1,148 @@
+"""Surface mode on a map split into column tiles over ranks.
+
+Counterpart of gridmap_slam_tpu/parallel/surface_sharded.py: the
+1M-particle surface mode composed with map tiling, on a ('p', 'm') mesh.
+The map is split into column tiles over 'm' (the layout of
+parallel/tiled.py) and the particles over 'p'.  Per scan:
+
+- volume centre: the previous cloud's global weighted mean, propagated by
+  the odometry (psums over 'p');
+- crop: the raw log-odds crop, extended by the blur radius, assembled from
+  the owning tiles by a masked column gather and one psum over 'm'
+  (surface_sharded.py:151-166); the crop's place is a tensor on the card;
+- LL field: K3 on the assembled crop, redundantly on every rank;
+- correlation: split over 'm' by theta bin (nt padded up to a multiple of
+  n_m; a padded bin repeats the last bin's theta and is dropped after the
+  gather), then one all_gather over 'm' (:183);
+- taps, weights and resampling over 'p' as parallel/shmap.py;
+- map update: K2's window variant on each tile's crop of 2 kc + 8 cells
+  (or the whole tile) around the integration pose, placed on the card, at
+  the crop's world origin origin + (j w_loc + ix0, iy0) res in float32.
+
+No host read a scan on a 'p' axis of one rank.  Requires W % n_m == 0.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..models.shared import SharedMapSLAM, _window, surface_temper
+from ..ops.cuda.grid_update import integrate_scan_window
+from ..ops.cuda.likelihood import log_likelihood_field_batch
+from ..ops.geometry import scan_points
+from ..ops.motion import apply_odometry, sample_motion
+from ..ops.surface import (crop_center_cells, pack_neighborhoods,
+                           refine_on_surface, sample_surface, scan_surface,
+                           splat_endpoint_kernels, theta_grid)
+from ..types import Frame
+from .mesh import all_gather, axis_index, axis_size, psum, shard_state
+from .shmap import (finish_step, global_weighted_mean, local_draws,
+                    local_particles)
+from .tiled import tile_geometry
+
+
+def make_surface_sharded_step(engine: SharedMapSLAM, mesh):
+    """The map-sharded surface step (module docstring).  Returns
+    step(state, frame, generator=None, draws=None) -> (state, info) on this
+    rank's shard (init_surface_sharded)."""
+    cfg = engine.config
+    mc = cfg.matcher
+    local_particles(engine, mesh)
+    n_m = axis_size(mesh, "m")
+    j = axis_index(mesh, "m")
+    h, w_total = cfg.map.cells_y, cfg.map.cells_x
+    w_loc, c0 = tile_geometry(cfg, mesh)
+    origin = (float(cfg.map.origin[0]), float(cfg.map.origin[1]))
+    res = float(cfg.map.resolution)
+    s = cfg.sensor
+    if mc.surface_crop_cells > 0:         # 0 = the whole map
+        hc, wc = min(mc.surface_crop_cells, h), min(mc.surface_crop_cells,
+                                                    w_total)
+    else:
+        hc, wc = h, w_total
+    nt = mc.surface_nt
+    dtheta, wrap_theta, t_off = theta_grid(
+        nt, math.radians(mc.surface_theta_span_deg))
+    kc = int(math.ceil(s.max_range / res)) + 2
+    use_fft = (mc.surface_corr == "fft"
+               or (mc.surface_corr == "auto"
+                   and nt * (2 * kc + 1) ** 2 * hc * wc > 2e10))
+    ll_outside = math.log(1.0 / s.max_range)
+    nt_loc = -(-nt // n_m)
+    ic, icw = min(2 * kc + 8, h), min(2 * kc + 8, w_loc)
+    r = cfg.map.likelihood_radius
+    hce, wce = min(hc + 2 * r, h), min(wc + 2 * r, w_total)
+
+    def step(state, frame: Frame, generator: Optional[torch.Generator] = None,
+             draws=None):
+        normals, u0, inj = local_draws(engine, mesh, generator, draws)
+        scan, tables, keep = engine._scan_inputs(frame)
+        odom = frame.odom
+        dev = state.logodds.device
+        mean, _ = global_weighted_mean(state.poses, state.log_weights, mesh)
+        center = apply_odometry(mean, odom)
+
+        # the raw crop plus blur radius, from the tiles that own its columns
+        iy0, ix0 = crop_center_cells(center[:2], (hc, wc), (h, w_total), res,
+                                     origin)
+        ey0 = torch.clamp(iy0 - r, 0, h - hce)
+        ex0 = torch.clamp(ix0 - r, 0, w_total - wce)
+        rows = ey0 + torch.arange(hce, device=dev)
+        cols = ex0 + torch.arange(wce, device=dev) - c0
+        owned = (cols >= 0) & (cols < w_loc)
+        piece = (state.logodds[rows[:, None],
+                               cols.clamp(0, w_loc - 1)[None, :]]
+                 * owned[None, :].to(state.logodds.dtype))
+        lo_ext = psum(piece, mesh, "m")
+        llf_ext = log_likelihood_field_batch(
+            lo_ext[None], engine.taps, z_hit=mc.z_hit,
+            max_range=s.max_range)[0]
+        llf_crop = _window(llf_ext, iy0 - ey0, ix0 - ex0, hc, wc)
+
+        # this rank's theta bins, then the whole volume
+        theta0 = center[2] + t_off
+        bins = j * nt_loc + torch.arange(nt_loc, device=dev)
+        thetas = theta0 + dtheta * torch.clamp(bins, max=nt - 1).to(
+            torch.float32)
+        px, py = scan_points(scan)
+        wgt = (scan.valid & scan.hit).to(llf_crop.dtype)
+        e_stack = splat_endpoint_kernels(px, py, wgt, thetas, kc, res)
+        c_local = scan_surface(llf_crop, e_stack, ll_outside, fft=use_fft)
+        c_vol = all_gather(c_local, mesh, "m", tiled=True)[:nt]
+        kw = dict(theta0=theta0, dtheta=dtheta, crop_iy0=iy0, crop_ix0=ix0,
+                  resolution=res, origin=origin, wrap_theta=wrap_theta,
+                  packed=pack_neighborhoods(c_vol, wrap_theta))
+
+        pose_s = sample_motion(state.poses, odom, cfg.motion, normals)
+        scores = sample_surface(c_vol, pose_s, **kw)
+        poses, scores = refine_on_surface(
+            c_vol, pose_s, scores, steps=mc.surface_refine_steps, **kw)
+        scores = surface_temper(mc, scan, scores)
+
+        def integrate(pose):
+            cx = (pose[0] - origin[0]) / res
+            cy = (pose[1] - origin[1]) / res
+            win = torch.stack([
+                torch.clamp(torch.round(cy).to(torch.int64) - ic // 2, 0,
+                            h - ic),
+                torch.clamp(torch.round(cx).to(torch.int64) - c0 - icw // 2,
+                            0, w_loc - icw)])
+            return integrate_scan_window(
+                state.logodds, win, pose, keep, *tables, size=(ic, icw),
+                col0=c0, resolution=res, origin=origin, l_free=s.l_free,
+                l_occ=s.l_occ, tol_cells=s.hit_tolerance_cells)
+
+        return finish_step(engine, mesh, state, poses, scores, integrate,
+                           u0, inj, mc.surface_resample_fraction)
+
+    return step
+
+
+def init_surface_sharded(engine: SharedMapSLAM, mesh, pose=(0.0, 0.0, 0.0)):
+    """This rank's shard of engine.init(pose), in the tiled engine's layout
+    (particles over 'p', map columns over 'm')."""
+    return shard_state(engine.init(pose), mesh, tiled=True,
+                       device=engine.device)

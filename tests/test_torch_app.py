@@ -155,7 +155,8 @@ def test_cli_posegraph_synthetic_loop(tmp_path, capsys):
 
 @pytest.mark.parametrize("engine", MESH_ENGINES)
 def test_cli_distributed_engines_exit_nonzero(tmp_path, synth_log, engine):
-    with pytest.raises(SystemExit, match="not in the PyTorch port"):
+    """--devices 8 on a world of one rank: refused with the reason."""
+    with pytest.raises(SystemExit, match="needs a world of 8 ranks"):
         main(["replay", "--log", str(synth_log[0] / "log.rec"), *SMALL,
               "--out", str(tmp_path), "--engine", engine, "--devices", "8",
               "--map-shards", "4", *CPU])

@@ -269,7 +269,17 @@ def test_port_imports_without_jax():
             " gridmap_slam_tpu_torch.utils.viz,"
             " gridmap_slam_tpu_torch.utils.liveview,"
             " gridmap_slam_tpu_torch.native,"
-            " gridmap_slam_tpu_torch.oracle.numpy_ref, sys\n"
+            " gridmap_slam_tpu_torch.oracle.numpy_ref,"
+            " gridmap_slam_tpu_torch.parallel.mesh,"
+            " gridmap_slam_tpu_torch.parallel.shmap,"
+            " gridmap_slam_tpu_torch.parallel.tiled,"
+            " gridmap_slam_tpu_torch.parallel.surface_sharded,"
+            " gridmap_slam_tpu_torch.parallel.sharded,"
+            " gridmap_slam_tpu_torch.parallel.ba,"
+            " gridmap_slam_tpu_torch.parallel.dcn,"
+            " gridmap_slam_tpu_torch.parallel.comm_model,"
+            " gridmap_slam_tpu_torch.parallel.launch,"
+            " gridmap_slam_tpu_torch.parallel.dryrun, sys\n"
             "assert not any(m.split('.')[0] in ('jax', 'flax', 'orbax',"
             " 'gridmap_slam_tpu') for m in sys.modules), sorted(sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
