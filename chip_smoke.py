@@ -59,7 +59,8 @@ Phases, each printed on its own line:
    version, with times;
 13. sync — one warm RBPF.step (parity preset), one warm
    SharedMapSLAM.step_blocked (4096 particles, blocks of 2048), one warm
-   city step_surface (K2's window placed on the card) and one warm
+   city step_surface (K2's window placed on the card), one warm mega
+   step_surface with surface_refine_steps=2 and one warm
    surface_sharded step (world of one over NCCL) under
    torch.cuda.set_sync_debug_mode("error"): any call that waits on the
    card fails the run;
@@ -83,6 +84,23 @@ Phases, each printed on its own line:
    graphs of 1000 and 3000 keyframes, with its peak memory;
 18. chip — bench.py's chip preset: RBPF at 10 000 particles in chunks of
    500 over the 12-scan log; ATE and scans/s;
+18a. captured — the single-program replays (models/captured.py: one step
+   captured once as a CUDA graph, replayed once a scan): RBPF.replay_jit
+   at the parity preset (and step_jit scan by scan) and at chip's 10 000
+   particles, SharedMapSLAM.replay_surface_jit at mega (the 12-scan log
+   and the 40 scans of room_loop_40.rec), at mega with two refine steps
+   and at city, SharedMapSLAM.replay_jit(block=500 000) at mega_blocked
+   over 6 scans, MultiRobotSLAM.replay_jit at 10 000 a robot; each against
+   its eager loop from one seed in this process: every field of the final
+   state and of every stacked info equal in bits, two captured runs equal,
+   ATE under the path's limit, no synchronizing call and no kernel launched
+   from Python in a warm replay (the launch counts move only while the
+   first call warms up and captures), the kernels a scan inside the graph
+   as torch.profiler sees them equal to the eager counts (where it sees
+   them), and beside each other the eager and captured scans/s (CUDA
+   events around a warm run, host loop included), device time a run,
+   launches from the host a scan (kernels, copies, sets, graph launches)
+   and peak memory;
 18b. parallel — the distributed engines (gridmap_slam_tpu_torch/parallel/):
    K1's tile variant against its plain version at tiles cut from a
    4000 x 4000 city field (2 and 4 tiles: both edge tiles and one inside;
@@ -124,8 +142,9 @@ Phases, each printed on its own line:
 
 Each path (parity, mega, city, mega_blocked, multi at each particle count,
 the posegraph flow's three parts: the filter, closure detection, the
-rebuild; chip; the parallel phase's five: shmap, shmap_surface, tiled,
-surface_sharded, sharded; the cli phase's eight: cli_replay,
+rebuild; chip; the captured phase's eight, captured_<path>, counted over
+the call that warms up and captures; the parallel phase's five: shmap,
+shmap_surface, tiled, surface_sharded, sharded; the cli phase's eight: cli_replay,
 cli_load_map, cli_surface, cli_tiled, cli_surface_sharded, cli_posegraph,
 cli_recovery, cli_live) is run with every launch count set
 to 0 just before it and read just after.  In phase 11 and on the paths of phases 15-18 the first
@@ -136,7 +155,8 @@ beyond its atol and K3's launch plan (a call of more than 4096
 particles on its first and last 2048: each particle's output depends on
 its own rows only); a kernel that ran on a part but was not checked there
 fails the run.  Then
-one JSON line of kernels, with their launches per path and bounds, and last
+one JSON line of kernels, with their launches per path, their launches a
+scan inside each captured path's graph, and bounds, and last
 {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no "ok" line.
 There is no CPU path: without a CUDA device it exits non-zero.
@@ -1533,7 +1553,8 @@ def grouped_kernel_phase(cfg, frames, dev="cuda", n_shared=2048,
 
 def sync_phase(cfg, frames, dev="cuda", shared_particles=AGREE_PARTICLES):
     """A warm RBPF.step, a warm SharedMapSLAM.step_blocked, a warm city
-    step_surface and a warm surface_sharded step (world of one, NCCL) under
+    step_surface, a warm mega step_surface with two refine steps and a warm
+    surface_sharded step (world of one, NCCL) under
     torch.cuda.set_sync_debug_mode("error"): a call that waits on the card
     (a read back to the host, a copy from pageable host memory) raises."""
     from gridmap_slam_tpu_torch import RBPF, SharedMapSLAM, city_config
@@ -1565,6 +1586,15 @@ def sync_phase(cfg, frames, dev="cuda", shared_particles=AGREE_PARTICLES):
         if dev == "cuda":
             torch.cuda.set_sync_debug_mode(0)
     del rbpf, shared, st_r, st_s
+    refine = SharedMapSLAM(refine_config(), device=dev)
+    rb = frames_to_device(frames, refine.config.max_beams,
+                          refine.config.sensor.max_range, device=dev)
+    st_m = refine.init()
+    for i in range(2):
+        st_m, _ = refine.step_surface(st_m, frame_at(rb, i), gen)
+    f2 = frame_at(rb, 2)
+    st_m, info_m = _sync_free(lambda: refine.step_surface(st_m, f2, gen))
+    del refine, rb, st_m
     # city: step_surface on the 4000 x 4000 map, K2's window placed on the
     # card; surface_sharded: the same on a world of one over NCCL
     city = SharedMapSLAM(city_config(), device=dev)
@@ -1587,7 +1617,8 @@ def sync_phase(cfg, frames, dev="cuda", shared_particles=AGREE_PARTICLES):
         shared_particles=shared_particles, block=block,
         rbpf_neff=float(info_r.neff), shared_neff=float(info_s.neff),
         city_particles=city.config.num_particles,
-        city_neff=float(info_c.neff),
+        city_neff=float(info_c.neff), refine_steps=2,
+        mega_refine_neff=float(info_m.neff),
         surface_sharded_neff=float(info_ss.neff), synchronizing_calls=0)
 
 
@@ -1719,11 +1750,11 @@ def mega_blocked_phase(frames, gt, particles=MEGA_PARTICLES, dev="cuda"):
     return launches
 
 
-def multi_phase(dev="cuda", particle_counts=MULTI_PARTICLES,
-                revs=MULTI_REVS):
+def multi_setup(particles, dev="cuda", revs=MULTI_REVS):
     """scripts/config5_demo.py:62-79 on MultiRobotSLAM: two robots from
     opposite rooms through the door, 14 x 8 m at 0.1 m, 96 beams, noisy
-    encoders; each particle count run twice with one seed."""
+    encoders.  Returns (the engine, the ticks (a Frame with a robot axis
+    each), the start poses, the two (frames, ground truth) logs)."""
     from gridmap_slam_tpu_torch import MultiRobotSLAM, SlamConfig
     from gridmap_slam_tpu_torch.config import MapConfig, SensorConfig
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
@@ -1731,24 +1762,33 @@ def multi_phase(dev="cuda", particle_counts=MULTI_PARTICLES,
                                                      multi_room_world,
                                                      simulate_log)
     from gridmap_slam_tpu_torch.models.multi import stack_frames
-    from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
 
     world = multi_room_world(rooms_x=2, rooms_y=1, room=6.0, door=1.4)
     params = SimParams(beams_per_rev=90, encoder_noise_sd=6.0)
     starts = [(-5.2, -0.3, 0.0), (5.2, 0.3, math.pi)]
     logs = [simulate_log(world, [(0.25, 0.0)] * revs, params=params,
                          seed=11 + i, start_pose=starts[i]) for i in range(2)]
+    cfg = SlamConfig(num_particles=particles, max_beams=96,
+                     sensor=SensorConfig(max_range=8.0),
+                     map=MapConfig(width_m=14.0, height_m=8.0,
+                                   resolution=0.1, origin=(-7.0, -4.0)))
+    eng = MultiRobotSLAM(cfg, num_robots=2, device=dev)
+    batches = [frames_to_device(f, cfg.max_beams, cfg.sensor.max_range,
+                                device=dev) for f, _ in logs]
+    ticks = [stack_frames([frame_at(b, i) for b in batches])
+             for i in range(revs)]
+    return eng, ticks, starts, logs
+
+
+def multi_phase(dev="cuda", particle_counts=MULTI_PARTICLES,
+                revs=MULTI_REVS):
+    """multi_setup at each particle count, run twice with one seed."""
+    from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
+
     total = {}
     for particles in particle_counts:
-        cfg = SlamConfig(num_particles=particles, max_beams=96,
-                         sensor=SensorConfig(max_range=8.0),
-                         map=MapConfig(width_m=14.0, height_m=8.0,
-                                       resolution=0.1, origin=(-7.0, -4.0)))
-        eng = MultiRobotSLAM(cfg, num_robots=2, device=dev)
-        batches = [frames_to_device(f, cfg.max_beams, cfg.sensor.max_range,
-                                    device=dev) for f, _ in logs]
-        ticks = [stack_frames([frame_at(b, i) for b in batches])
-                 for i in range(revs)]
+        eng, ticks, starts, logs = multi_setup(particles, dev, revs)
+        cfg = eng.config
 
         def run():
             return eng.replay(eng.init(starts), ticks,
@@ -2003,6 +2043,250 @@ def chip_phase(frames, gt, dev="cuda", particles=CHIP_PARTICLES,
         raise AssertionError(f"chip ATE {ate} >= {ATE_MAX_M}")
     check_recorded(rec, {"chip": launches})
     return launches
+
+
+# ------------------------------------------------------------------ captured
+# the kernels' symbols as the profiler names them, a row each
+KERNEL_SYMBOLS = {"stage_scores": "stage_scores_kernel",
+                  "integrate_scan": "grid_update_kernel",
+                  "log_likelihood_field": "ll_field_"}
+# the runtime calls that put work on the card from the host
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+CAPTURED_BLOCKED_SCANS = 6     # mega_blocked's captured path, for time
+
+
+def _profiled(run, n: int):
+    """run() once under torch.profiler: returns (its result, the device
+    time of the run in ms, the host's launches a scan (kernels, copies,
+    sets and graph launches), device events a scan and each kernel row's
+    launches a scan as the profiler saw them, inside a graph too)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, dict(
+        device_ms=sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+        launches_per_scan=sum(e.name in LAUNCH_CALLS for e in events) / n,
+        device_events_per_scan=len(dev) / n,
+        kernels_per_scan={row: sum(sym in e.name for e in dev) / n
+                          for row, sym in KERNEL_SYMBOLS.items()})
+
+
+def _fields_differing(a, b) -> list:
+    """The fields of two states or infos whose tensors differ in bits,
+    shape or dtype."""
+    return [f.name for f in dataclasses.fields(a)
+            if not (getattr(a, f.name).dtype == getattr(b, f.name).dtype
+                    and torch.equal(getattr(a, f.name), getattr(b, f.name)))]
+
+
+def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
+                  step_jit=None):
+    """One path eager and captured from one seed: the eager loop (its
+    launch counts, peak memory, a warm run's time, a profiled run), then
+    the captured replay: its first call (warm-up and capture: the launch
+    counts), a warm call under the sync check that must launch no kernel
+    from Python, a timed call and a profiled call.  Both captured runs
+    must equal the eager one in every field of the final state and of
+    every stacked info; ATE under `ate_max`.  The kernels a scan inside the
+    graph are its kernel nodes, read from the graph itself, and must equal
+    the eager loop's launches a scan; the profiler's count of them over the
+    profiled replays is printed beside, and must see each one at least once
+    and none more often than the graph holds it (its CUPTI records of graph
+    kernels can drop a few hundredths of a busy run).  Returns (the counts
+    of the first captured call, the kernels a scan inside the graph)."""
+    from gridmap_slam_tpu_torch.io import frame_at
+    from gridmap_slam_tpu_torch.models.captured import (WARMUP_STEPS,
+                                                        stack_steps)
+    from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+
+    def run_eager():
+        st, infos = eager(s0, g0)
+        return st, (stack_steps(infos) if isinstance(infos, list)
+                    else infos)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _zero_launches()
+    s0, g0 = init(), gen()
+    (st_e, inf_e), _ = _timed(run_eager)
+    eager_counts = {k: mod.launches for k, mod in kernels.items()}
+    peak_e = torch.cuda.max_memory_allocated()
+    s0, g0 = init(), gen()
+    _, sec_e = _timed(run_eager)
+    s0, g0 = init(), gen()
+    _, prof_e = _profiled(run_eager, n)
+
+    replay = jit()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _zero_launches()
+    s0, g0 = init(), gen()
+    (st_c, inf_c), sec_capture = _timed(lambda: replay(s0, frames, g0))
+    capture_counts = {k: mod.launches for k, mod in kernels.items()}
+    kernels = _zero_launches()
+    s0, g0 = init(), gen()
+    st_c2, inf_c2 = _sync_free(lambda: replay(s0, frames, g0))
+    torch.cuda.synchronize()
+    replay_counts = {k: mod.launches for k, mod in kernels.items()}
+    peak_c = torch.cuda.max_memory_allocated()
+    s0, g0 = init(), gen()
+    _, sec_c = _timed(lambda: replay(s0, frames, g0))
+    s0, g0 = init(), gen()
+    _, prof_c = _profiled(lambda: replay(s0, frames, g0), n)
+    cap = replay.captured
+
+    bits = {"state": _fields_differing(st_e, st_c),
+            "infos": _fields_differing(inf_e, inf_c)}
+    rerun = {"state": _fields_differing(st_c, st_c2),
+             "infos": _fields_differing(inf_c, inf_c2)}
+    step_bits = None
+    if step_jit is not None:            # the captured step, scan by scan
+        sj, g = step_jit(), gen()
+        st, infos = init(), []
+        for i in range(n):
+            st, info = sj(st, frame_at(frames, i), g)
+            infos.append(info)
+        step_bits = {"state": _fields_differing(st_e, st),
+                     "infos": _fields_differing(inf_e, stack_steps(infos))}
+        del sj, st, infos
+    traj = inf_c.weighted_pose.cpu().numpy()
+    ates = ([ate_rmse(traj, gt[:n])] if traj.ndim == 2 else
+            [ate_rmse(traj[:, r], g) for r, g in enumerate(gt)])
+    eager_per_scan = {k: eager_counts[k] / n for k in KERNEL_SYMBOLS}
+    names = cap.kernel_names()
+    in_graph = {row: sum(sym in nm for nm in names)
+                for row, sym in KERNEL_SYMBOLS.items()}
+    seen = prof_c["kernels_per_scan"]
+    visible = any(v > 0 for v in seen.values())
+    row = dict(path=name, scans=n, particles=eng.config.num_particles,
+               bits_differing=bits, rerun_differing=rerun,
+               step_jit_differing=step_bits, ate_m=ates, ate_max_m=ate_max,
+               captures=cap.captures, capacity=cap.capacity,
+               warmup_steps=WARMUP_STEPS,
+               launches_in_capture_call=capture_counts,
+               python_launches_in_warm_replay=replay_counts,
+               kernels_per_scan_eager=eager_per_scan,
+               kernels_per_scan_in_graph=in_graph,
+               kernel_nodes_in_graph=len(names),
+               kernels_per_scan_profiler=seen if visible else None,
+               profiler_sees_graph_kernels=visible,
+               eager=dict(scans_per_sec=n / sec_e, warm_seconds=sec_e,
+                          peak_mem_bytes=peak_e, **prof_e),
+               captured=dict(scans_per_sec=n / sec_c, warm_seconds=sec_c,
+                             first_call_seconds=sec_capture,
+                             peak_mem_bytes=peak_c, **prof_c),
+               speedup=sec_e / sec_c)
+    say("captured", **row)
+    del replay, cap, st_c, st_c2, st_e
+    torch.cuda.empty_cache()
+    if any(bits.values()) or any(rerun.values()) or (
+            step_bits is not None and any(step_bits.values())):
+        raise AssertionError(f"captured {name}: fields differ from the eager "
+                             f"loop or between captured runs")
+    if any(replay_counts.values()):
+        raise AssertionError(f"captured {name}: a warm replay launched a "
+                             f"kernel from Python: {replay_counts}")
+    needed = [k for k, v in eager_counts.items() if v > 0]
+    if not all(capture_counts[k] > 0 for k in needed):
+        raise AssertionError(f"captured {name}: a kernel of the eager path "
+                             f"was not captured: {capture_counts}")
+    if any(in_graph[k] != eager_per_scan[k] for k in KERNEL_SYMBOLS):
+        raise AssertionError(f"captured {name}: kernels a scan inside the "
+                             f"graph {in_graph} != eager {eager_per_scan}")
+    if visible and not all(0 < seen[k] <= in_graph[k]
+                           for k in needed if k in KERNEL_SYMBOLS):
+        raise AssertionError(f"captured {name}: the profiler saw kernels a "
+                             f"scan {seen}, the graph holds {in_graph}")
+    if not max(ates) < ate_max:
+        raise AssertionError(f"captured {name}: ATE {ates} >= {ate_max}")
+    return capture_counts, in_graph
+
+
+def refine_config():
+    """mega with two hill-climb steps on the surface a scan."""
+    from gridmap_slam_tpu_torch import mega_config
+    return mega_config().with_overrides({"matcher.surface_refine_steps": 2})
+
+
+def captured_phase(frames, gt):
+    """Every path eager and captured (captured_path): parity (with
+    step_jit), chip, mega (12 scans and the 40 of room_loop_40.rec), mega
+    with two refine steps, city, mega_blocked over 6 scans and multi at
+    10 000 a robot.  Returns (the counts of each path's capturing call,
+    keyed captured_<path>; each path's kernels a scan inside the graph)."""
+    from gridmap_slam_tpu_torch import (RBPF, SharedMapSLAM, city_config,
+                                        mega_config)
+    from gridmap_slam_tpu_torch.io import (frame_at, frames_to_device,
+                                           read_recording)
+    from gridmap_slam_tpu_torch.models.captured import tree_map
+    from gridmap_slam_tpu_torch.models.multi import stack_frames
+    from gridmap_slam_tpu_torch.models.shared import matcher_block_size
+
+    def stacked(cfg, log, n=None):
+        b = frames_to_device(log, cfg.max_beams, cfg.sensor.max_range,
+                             device="cuda")
+        b = tree_map(lambda x: x[:n], b)
+        return b, [frame_at(b, i) for i in range(b.t.shape[0])]
+
+    counts, seen = {}, {}
+
+    def record(name, out):
+        counts[f"captured_{name}"], seen[name] = out
+
+    room = read_recording(CLI_LOG)
+    room_gt = np.load(CLI_LOG.replace(".rec", "_gt.npy"))
+    for name, cfg, particles, chunk in (
+            ("parity", parity_config(), None, None),
+            ("chip", parity_config(), CHIP_PARTICLES, CHIP_CHUNK)):
+        if particles:
+            cfg = cfg.replace(num_particles=particles, particle_chunk=chunk)
+        eng = RBPF(cfg, device="cuda")
+        batch, seq = stacked(cfg, frames)
+        record(name, captured_path(
+            name, eng, eng.init,
+            lambda s, g, e=eng, q=seq: e.run_log(s, q, g), eng.replay_jit,
+            batch, len(seq), gt, ATE_MAX_M,
+            step_jit=eng.step_jit if name == "parity" else None))
+    for name, cfg, log, log_gt, ate_max in (
+            ("mega", mega_config(), frames, gt, ATE_MAX_M),
+            ("mega room_loop_40", mega_config(), room, room_gt,
+             ROOM_LOOP_ATE_MAX_M),
+            ("mega refine", refine_config(), frames, gt, ATE_MAX_M),
+            ("city", city_config(), frames, gt, ATE_MAX_M)):
+        eng = SharedMapSLAM(cfg, device="cuda")
+        batch, seq = stacked(cfg, log)
+        record(name, captured_path(
+            name, eng, eng.init,
+            lambda s, g, e=eng, q=seq: e.run_log(s, q, g),
+            eng.replay_surface_jit, batch, len(seq), log_gt, ate_max))
+        del eng, batch, seq
+    cfg = parity_config().replace(num_particles=MEGA_PARTICLES,
+                                  particle_chunk=0)
+    block = matcher_block_size(cfg)
+    eng = SharedMapSLAM(cfg, device="cuda")
+    batch, seq = stacked(cfg, frames, CAPTURED_BLOCKED_SCANS)
+    record("mega_blocked", captured_path(
+        "mega_blocked", eng, eng.init,
+        lambda s, g: eng.replay(s, seq, g, block=block),
+        lambda: eng.replay_jit(block=block), batch, len(seq), gt, ATE_MAX_M))
+    del eng, batch, seq
+    meng, ticks, starts, logs = multi_setup(MULTI_PARTICLES[-1])
+    record("multi", captured_path(
+        "multi", meng, lambda: meng.init(starts),
+        lambda s, g: meng.replay(s, ticks, g), meng.replay_jit,
+        stack_frames(ticks), len(ticks), [g for _, g in logs], ATE_MAX_M))
+    return counts, seen
 
 
 # ------------------------------------------------------------------ parallel
@@ -2788,6 +3072,8 @@ def main() -> int:
     pg_launches, pg_first, pg_graph = posegraph_phase()
     by_path.update(pg_launches)
     by_path["chip"] = chip_phase(frames, gt)
+    cap_launches, in_graph = captured_phase(frames, gt)
+    by_path.update(cap_launches)
     par_launches, tile_row = parallel_phase(frames, pg_graph)
     by_path.update(par_launches)
     rows.append(tile_row)
@@ -2798,10 +3084,14 @@ def main() -> int:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        row["in_graph_per_scan"] = {
+            path: nodes.get(row["name"], 0)
+            for path, nodes in in_graph.items()}
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
-                             "launches", "launches_by_path", "max_abs_err",
-                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "launches", "launches_by_path",
+                             "in_graph_per_scan", "max_abs_err", "ms",
+                             "plain_ms", "bound_ms", "bound_by",
                              "library_ms")}
         for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,313 @@
+"""Whole-log replays: the eager scan and its captured form, a CUDA graph.
+
+Counterpart of the JAX package's `jax.lax.scan` of a step over a stacked
+`Frame` batch (models/rbpf.py:293-306) and of `jax.jit(..., donate_argnums=
+(0,))` around it.  The three engines share it.
+
+A step here is `step(state, frame, draws, out) -> (state, info)`: `draws`
+are one scan's random draws, and `out`, when given, is a state whose
+tensors receive the new state (the step then returns `out`).  The state
+may be `out` itself: every engine writes a field of `out` only after its
+last read of that field.
+
+`scan` is the eager loop: frame i of the batch, scan i's draws (drawn from
+the generator in the calls and order of the eager step, or taken from
+`draws` stacked with a leading frame axis), and the infos stacked along a
+leading frame axis (`stack_steps`).
+
+`Captured` is the same loop with every scan of it one replay of one graph.
+It keeps static buffers: the state, the frames of up to `capacity` scans,
+one scan's draws, the stacked infos and a scan counter on the device.  The
+graph reads the frame at the counter, runs the step on the static draws
+with `out=` the static state (the resample gather writes straight into it,
+so a scan copies no map beyond what the eager step copies), writes the
+info at the counter and adds one to it.  Before each replay the loop draws
+that scan's draws into the static draws, from the caller's generator in
+the eager step's calls and order (or copies the scan's injected ones), so
+a captured run gives the eager run's bits.  A replay of n scans then
+launches from the host: the state and frames copied in, the draws and one
+graph launch a scan, and the infos copied out.
+
+On a CUDA engine the graph is captured at the first call (and again when
+the shapes change or a longer log comes), after warm-up steps on a side
+stream that build the kernel library and fill every cache a step reads
+(the kernels' launch plans, the matcher's offsets, cuFFT's plans, cuBLAS's
+workspace); capture runs on that same stream.  A capture that fails
+raises: there is no fallback to the eager loop.  On a CPU engine the same
+static-buffer loop runs, with the step called where a CUDA engine replays
+the graph.  `Captured.kernel_names` lists the kernels the graph holds, one
+entry a kernel node, read from the graph itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Callable, Optional, Sequence
+
+import torch
+
+# eager steps on the side stream before capture: the first builds the
+# kernel library and fills the caches, the second runs on them as warm
+WARMUP_STEPS = 2
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the tensors of a tree of dataclasses, tuples and lists
+    (None stays None); `rest` are trees of the same structure whose
+    tensors are passed beside."""
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return fn(tree, *rest)
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
+
+
+def leaves(tree) -> list:
+    """The tensors of a tree, in tree_map's order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def stack_steps(infos: Sequence):
+    """The per-scan infos (StepInfo, MultiStepInfo) as one of the same
+    type, each field stacked along a leading frame axis (what lax.scan
+    returns)."""
+    if not infos:
+        raise ValueError("no steps to stack")
+    return tree_map(lambda *xs: torch.stack(xs), *infos)
+
+
+def num_frames(frames) -> int:
+    """The length of a stacked Frame batch's leading frame axis."""
+    return frames.t.shape[0]
+
+
+def check_draws(draws, n: int) -> None:
+    """Raise ValueError unless every tensor of the stacked `draws` has a
+    leading frame axis of length n."""
+    for x in leaves(draws):
+        if x.dim() == 0 or x.shape[0] != n:
+            raise ValueError(f"injected draws need a leading frame axis of "
+                             f"{n}, got shape {tuple(x.shape)}")
+
+
+def _check_shape(buf, x):
+    if tuple(x.shape[1:]) != tuple(buf.shape):
+        raise ValueError(f"injected draws of shape {tuple(x.shape[1:])} a "
+                         f"scan, the step draws {tuple(buf.shape)}")
+
+
+def copy_into(dst, src):
+    """dst.copy_(src) unless the two are one tensor; returns dst."""
+    if dst.data_ptr() != src.data_ptr():
+        dst.copy_(src)
+    return dst
+
+
+def scan(step: Callable, draw: Callable, state, frames, generator=None,
+         draws=None):
+    """The eager replay of a stacked Frame batch: returns (final state,
+    the infos stacked along a leading frame axis).  draw(generator) gives
+    one scan's draws; `draws` replaces them, stacked."""
+    n = num_frames(frames)
+    if n == 0:
+        raise ValueError("no frames to replay")
+    if draws is not None:
+        check_draws(draws, n)
+    infos = []
+    for i in range(n):
+        d = (draw(generator) if draws is None
+             else tree_map(lambda x, i=i: x[i], draws))
+        state, info = step(state, tree_map(lambda x, i=i: x[i], frames), d,
+                           None)
+        infos.append(info)
+    return state, stack_steps(infos)
+
+
+class Captured:
+    """One filter step captured once, replayed once a scan (see the module
+    docstring).  Calling it with (state, stacked frames, generator, draws)
+    returns (the static state, the infos stacked over the scans): the
+    static state is the capture's own buffer, which the next call
+    overwrites (the counterpart of donation); the infos are fresh."""
+
+    def __init__(self, step: Callable, draw: Callable, device):
+        """step(state, frame, draws, out) -> (state, info);
+        draw(generator, out=None) -> one scan's draws, into `out`'s tensors
+        where it is given."""
+        self._step = step
+        self._draw = draw
+        self.device = torch.device(device)
+        self.graph = None
+        self.captures = 0
+        self._key = None
+        self.capacity = 0
+        self.state = self.frames = self.draws = self.infos = None
+        self.counter = None
+
+    def _body(self):
+        """One scan on the static buffers: what the graph holds."""
+        t = self.counter
+        frame = tree_map(lambda x: x.index_select(0, t)[0], self.frames)
+        _, info = self._step(self.state, frame, self.draws, self.state)
+        if self.infos is None:
+            self.infos = tree_map(
+                lambda x: x.new_empty((self.capacity,) + tuple(x.shape)),
+                info)
+        tree_map(lambda buf, x: buf.index_copy_(0, t, x[None]), self.infos,
+                 info)
+        t.add_(1)
+
+    def _prepare(self, state, frames, n: int):
+        """Static buffers for `n` scans of these shapes, and the graph over
+        them: kept from the last call where they fit."""
+        def sig(tree, lead):
+            return tuple((tuple(x.shape[lead:]), x.dtype, x.device)
+                         for x in leaves(tree))
+        key = (sig(state, 0), sig(frames, 1))
+        if key == self._key and n <= self.capacity:
+            return
+        self._key, self.capacity, self.graph, self.infos = key, n, None, None
+        self.state = tree_map(torch.clone, state)
+        self.frames = tree_map(lambda x: x.new_empty((n,) + x.shape[1:]),
+                               frames)
+        tree_map(lambda buf, x: buf.copy_(x), self.frames, frames)
+        # one scan's draws, of a generator of the capture's own (the warm-up
+        # steps run on them; every replay draws its scan's anew)
+        self.draws = self._draw(torch.Generator(device=self.device))
+        self.counter = torch.zeros((1,), dtype=torch.int64,
+                                   device=self.device)
+        if self.device.type != "cuda":
+            return
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self.counter.zero_()
+                self._body()
+            self.counter.zero_()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        # the graph is kept beside its instance, for kernel_names
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, stream=side):
+            self._body()
+        graph.instantiate()
+        self.graph = graph
+        self.captures += 1
+
+    def kernel_names(self) -> list:
+        """The function name of every kernel node of the captured graph
+        (one entry a launch a replay)."""
+        if self.graph is None:
+            raise RuntimeError("no graph captured yet")
+        return graph_kernel_names(self.graph.raw_cuda_graph())
+
+    def __call__(self, state, frames, generator=None, draws=None):
+        n = num_frames(frames)
+        if n == 0:
+            raise ValueError("no frames to replay")
+        if draws is not None:
+            check_draws(draws, n)
+        self._prepare(state, frames, n)
+        if draws is not None:
+            tree_map(_check_shape, self.draws, draws)
+        tree_map(copy_into, self.state, state)
+        tree_map(lambda buf, x: copy_into(buf[:n], x), self.frames, frames)
+        self.counter.zero_()
+        for i in range(n):
+            if draws is None:       # the eager step's calls, in its order
+                self._draw(generator, self.draws)
+            else:
+                tree_map(lambda buf, x, i=i: buf.copy_(x[i]), self.draws,
+                         draws)
+            if self.graph is None:
+                self._body()
+            else:
+                self.graph.replay()
+        return self.state, tree_map(lambda buf: buf[:n].clone(), self.infos)
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """The driver's CUDA_KERNEL_NODE_PARAMS_v2."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3),
+                ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                ("ctx", ctypes.c_void_p)]
+
+
+def _cu(lib, fn: str, *args) -> None:
+    code = getattr(lib, fn)(*args)
+    if code != 0:
+        raise RuntimeError(f"{fn} failed with CUresult {code}")
+
+
+def graph_kernel_names(graph_handle: int) -> list:
+    """The (mangled) function name of every kernel node of a cudaGraph_t,
+    in the driver's node order, read through the driver API.  A node
+    holds a CUfunction or, for a kernel the runtime loaded as a CUkernel,
+    that; each has its name call."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(graph_handle)
+    count = ctypes.c_size_t(0)
+    _cu(cu, "cuGraphGetNodes", graph, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    _cu(cu, "cuGraphGetNodes", graph, nodes, ctypes.byref(count))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        _cu(cu, "cuGraphNodeGetType", ctypes.c_void_p(node),
+            ctypes.byref(kind))
+        if kind.value != 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = _KernelNodeParams()
+        _cu(cu, "cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+            ctypes.byref(params))
+        name = ctypes.c_char_p()
+        if params.func:
+            _cu(cu, "cuFuncGetName", ctypes.byref(name),
+                ctypes.c_void_p(params.func))
+        else:
+            _cu(cu, "cuKernelGetName", ctypes.byref(name),
+                ctypes.c_void_p(params.kern))
+        names.append(name.value.decode())
+    return names
+
+
+def replay_fn(captured: Captured):
+    """The captured replay: (state, frames, generator=None, draws=None) ->
+    (final state, stacked infos), the final state a copy of the static
+    one (so that a later call leaves it as it is)."""
+    def replay(state, frames, generator: Optional[torch.Generator] = None,
+               draws=None):
+        out, infos = captured(state, frames, generator, draws)
+        return tree_map(torch.clone, out), infos
+    replay.captured = captured
+    return replay
+
+
+def step_fn(captured: Captured):
+    """The captured single step: (state, frame, generator=None, draws=None)
+    -> (state, info).  The state returned is the capture's static buffer:
+    the next call consumes it (pass it back, or any state of the same
+    shapes) and overwrites it, the counterpart of donating the input
+    state to a jitted step.  Clone it to keep it."""
+    def step(state, frame, generator: Optional[torch.Generator] = None,
+             draws=None):
+        one = tree_map(lambda x: x[None], frame)
+        if draws is not None:
+            draws = tree_map(lambda x: x[None], draws)
+        out, infos = captured(state, one, generator, draws)
+        return out, tree_map(lambda x: x[0], infos)
+    step.captured = captured
+    return step

@@ -14,6 +14,10 @@ integrated into a zero map at its strongest particle's pose (kernel K2 at
 batch R, one bin table a robot), summed onto the map in robot order; each
 robot resamples on its own.
 
+`replay` also takes the ticks stacked, (T, R, ...), as the JAX package's
+`lax.scan` does (stacked infos); `replay_jit` is its captured form, one CUDA
+graph replayed once a tick (models/captured.py).
+
 The JAX step ignores `freeze_map` and `matcher.enabled` (it always matches
 and always integrates); this engine raises ValueError for either instead of
 copying that.
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +40,7 @@ from ..ops.matcher import correlative_match_batch
 from ..ops.motion import apply_odometry, sample_motion
 from ..ops.resample import neff, systematic_indices, weighted_mean_pose
 from ..types import Frame, Odom
+from . import captured
 
 
 @dataclasses.dataclass
@@ -114,22 +119,35 @@ class MultiRobotSLAM:
                                 dtype=torch.float32, device=dev),
             step=torch.zeros((), dtype=torch.int32, device=dev))
 
+    def _draws(self, generator: Optional[torch.Generator], out=None):
+        """One tick's draws from `generator`: (normals (R, P, 2), u0 (R,)),
+        into the tensors of `out` where it is given (the captured replay's
+        static draws)."""
+        r, p = self.num_robots, self.config.num_particles
+        dev = self.device
+        o = (None, None) if out is None else out
+        normals = torch.randn((r, p, 2), generator=generator, device=dev,
+                              out=o[0])
+        u0 = torch.rand((r,), generator=generator, device=dev, out=o[1])
+        return normals, torch.mul(u0, 1.0 / p, out=o[1])
+
     def step(self, state: MultiRobotState, frames: Frame,
              generator: Optional[torch.Generator] = None,
-             draws=None) -> Tuple[MultiRobotState, MultiStepInfo]:
+             draws=None, out: Optional[MultiRobotState] = None
+             ) -> Tuple[MultiRobotState, MultiStepInfo]:
         """One tick.  frames: a Frame with a leading robot axis R
         (`stack_frames`).  `draws` = (normals (R, P, 2), u0 (R,)) replaces
         the draws from `generator`: each particle's distance and heading
         normals, and each robot's systematic-resampling offset in
-        [0, 1/P)."""
+        [0, 1/P).  `out`: a state whose tensors receive the new state,
+        which is then `out` (it may be `state` itself; the captured replay
+        passes its static buffers)."""
         cfg = self.config
         r, p = self.num_robots, cfg.num_particles
         dev = self.device
-        if draws is None:
-            normals = torch.randn((r, p, 2), generator=generator, device=dev)
-            u0 = torch.rand((r,), generator=generator, device=dev) * (1.0 / p)
-        else:
-            normals, u0 = draws
+        normals, u0 = self._draws(generator) if draws is None else draws
+        o = out if out is not None else MultiRobotState(None, None, None,
+                                                        None)
         origin = (float(cfg.map.origin[0]), float(cfg.map.origin[1]))
         res = float(cfg.map.resolution)
 
@@ -171,7 +189,7 @@ class MultiRobotSLAM:
         total = deltas[0]
         for i in range(1, r):                 # the JAX sum's order
             total = total + deltas[i]
-        logodds = state.logodds + total
+        logodds = torch.add(state.logodds, total, out=o.logodds)
 
         # per-robot resampling, as a select on the card
         do_rs = neffs < (p * cfg.resample_fraction)
@@ -185,22 +203,46 @@ class MultiRobotSLAM:
                                           lw[i]))
             else:
                 new_lw.append(lw[i][idx])
-        poses, lw = torch.stack(new_poses), torch.stack(new_lw)
+        poses = torch.stack(new_poses, out=o.poses)
+        lw = torch.stack(new_lw, out=o.log_weights)
         weighted = torch.stack([weighted_mean_pose(poses[i], lw[i])
                                 for i in range(r)])
-        new_state = MultiRobotState(poses=poses, log_weights=lw,
-                                    logodds=logodds, step=state.step + 1)
+        new_step = torch.add(state.step, 1, out=o.step)
+        new_state = out if out is not None else MultiRobotState(
+            poses=poses, log_weights=lw, logodds=logodds, step=new_step)
         info = MultiStepInfo(neff=neffs, weighted_pose=weighted,
                              best_pose=best_poses, resampled=do_rs)
         return new_state, info
 
-    def replay(self, state: MultiRobotState, frames: Iterable[Frame],
-               generator: Optional[torch.Generator] = None
-               ) -> Tuple[MultiRobotState, List[MultiStepInfo]]:
-        """Replay a sequence of ticks, each a Frame with a leading robot
-        axis; returns (state, infos)."""
+    def replay(self, state: MultiRobotState, frames,
+               generator: Optional[torch.Generator] = None, draws=None):
+        """Replay ticks.  `frames` an iterable of Frames with a leading robot
+        axis: returns (state, list of infos).  A Frame with leading axes
+        (T, R) (`stack_frames` of the ticks): returns (state, MultiStepInfo
+        with a leading tick axis), as gridmap_slam_tpu's `lax.scan` does
+        (models/multi.py:151-155), and `draws` may replace the generator's
+        draws with stacked ones, ((T, R, P, 2) normals, (T, R) u0); one of
+        another length raises ValueError."""
+        if isinstance(frames, Frame):
+            return captured.scan(self._scan_step, self._draws, state, frames,
+                                 generator, draws)
+        if draws is not None:
+            raise ValueError("injected draws need a stacked Frame batch")
         infos = []
         for f in frames:
             state, info = self.step(state, f, generator)
             infos.append(info)
         return state, infos
+
+    def replay_jit(self):
+        """`replay` of stacked ticks with each tick one replay of a
+        captured CUDA graph of `step` (on a CPU engine, the same
+        static-buffer loop calling the step): the counterpart of
+        `jax.jit(eng.replay)`, with the same arguments, results and bits.
+        The graph is captured at the first call; keep the function to
+        reuse it."""
+        return captured.replay_fn(captured.Captured(
+            self._scan_step, self._draws, self.device))
+
+    def _scan_step(self, state, frames, draws, out):
+        return self.step(state, frames, draws=draws, out=out)

@@ -15,6 +15,10 @@ host: a warm step on the card makes no synchronizing call (chip_smoke.py
 runs one under torch.cuda.set_sync_debug_mode("error")).  Randomness comes
 from the `torch.Generator` passed to `step`, or from draws the caller
 injects.
+
+`replay` runs a stacked Frame batch as `jax.lax.scan` does (stacked infos);
+`replay_jit` and `step_jit` are its and the step's captured forms, one CUDA
+graph replayed once a scan (models/captured.py).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..ops.matcher import IMPLS, correlative_match_batch, score_pose
 from ..ops.motion import apply_odometry, sample_motion
 from ..ops.resample import neff, systematic_indices, weighted_mean_pose
 from ..types import Frame, Odom, Scan, SlamState, StepInfo
+from . import captured
 
 
 class RBPF:
@@ -115,21 +120,33 @@ class RBPF:
             tol_cells=cfg.sensor.hit_tolerance_cells)
         return best, score, new_lo
 
+    def _draws(self, generator: Optional[torch.Generator], out=None):
+        """One scan's draws from `generator`: (normals (P, 2), u0), into the
+        tensors of `out` where it is given (the captured replays' static
+        draws)."""
+        p = self.config.num_particles
+        dev = self.device
+        o = (None, None) if out is None else out
+        normals = torch.randn((p, 2), generator=generator, device=dev,
+                              out=o[0])
+        u0 = torch.rand((), generator=generator, device=dev, out=o[1])
+        return normals, torch.mul(u0, 1.0 / p, out=o[1])
+
     def step(self, state: SlamState, frame: Frame,
              generator: Optional[torch.Generator] = None,
-             draws=None) -> Tuple[SlamState, StepInfo]:
+             draws=None, out: Optional[SlamState] = None
+             ) -> Tuple[SlamState, StepInfo]:
         """One scan.  `draws` = (normals (P, 2), u0) replaces the draws from
         `generator`: standard normals for each particle's distance and
         heading noise, and the systematic-resampling offset u0 in
-        [0, 1/P).  A generator must be on the engine's device."""
+        [0, 1/P).  A generator must be on the engine's device.  `out`: a
+        state whose tensors receive the new state, which is then `out`
+        (it may be `state` itself; the captured replays pass their static
+        buffers)."""
         cfg = self.config
         p = cfg.num_particles
         dev = self.device
-        if draws is None:
-            normals = torch.randn((p, 2), generator=generator, device=dev)
-            u0 = torch.rand((), generator=generator, device=dev) * (1.0 / p)
-        else:
-            normals, u0 = draws
+        normals, u0 = self._draws(generator) if draws is None else draws
 
         scan = deskew_scan(frame.scan, frame.odom)
         odom = frame.odom
@@ -163,27 +180,36 @@ class RBPF:
 
         # Auto-resample when Neff < P/2 (app/GridMapApp.java:185-186), as a
         # select on the card: identity indices when the gate does not fire.
+        # The gathers write into `out` where one is given.
         do_resample = n_eff < (p * cfg.resample_fraction)
         idx = torch.where(do_resample, systematic_indices(log_weights, u0),
                           torch.arange(p, device=dev))
-        poses = poses[idx]
-        logodds = logodds[idx]
+        o = out if out is not None else SlamState(None, None, None, None)
+        new_step = torch.add(state.step, 1, out=o.step)
+        poses = torch.index_select(poses, 0, idx, out=o.poses)
+        logodds = torch.index_select(logodds, 0, idx, out=o.logodds)
         if cfg.accumulate_weights:
             log_weights = torch.where(do_resample,
                                       torch.zeros_like(log_weights),
-                                      log_weights)
+                                      log_weights, out=o.log_weights)
         else:
-            log_weights = log_weights[idx]
+            log_weights = torch.index_select(log_weights, 0, idx,
+                                             out=o.log_weights)
 
-        new_state = SlamState(poses=poses, log_weights=log_weights,
-                              logodds=logodds, step=state.step + 1)
+        new_state = out if out is not None else SlamState(
+            poses=poses, log_weights=log_weights, logodds=logodds,
+            step=new_step)
         info = StepInfo(neff=n_eff, weighted_pose=weighted,
-                        best_pose=best_pose, best_index=best_index,
+                        best_pose=best_pose,
+                        best_index=best_index.to(torch.int32),
                         best_log_weight=log_weights.max(),
                         resampled=do_resample)
         return new_state, info
 
-    # -------------------------------------------------------------- utilities
+    # -------------------------------------------------------------- replays
+    def _scan_step(self, state, frame, draws, out):
+        return self.step(state, frame, draws=draws, out=out)
+
     def run_log(self, state: SlamState, frames: Iterable[Frame],
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[SlamState, List[StepInfo]]:
@@ -193,6 +219,36 @@ class RBPF:
             state, info = self.step(state, f, generator)
             infos.append(info)
         return state, infos
+
+    def replay(self, state: SlamState, frames: Frame,
+               generator: Optional[torch.Generator] = None,
+               draws=None) -> Tuple[SlamState, StepInfo]:
+        """Replay a stacked Frame batch (`io.frames_to_device`) scan by
+        scan, as gridmap_slam_tpu's `lax.scan` does: returns (final state,
+        StepInfo with a leading frame axis).  `draws` replaces the
+        generator's draws with stacked ones, ((T, P, 2) normals, (T,) u0);
+        a leading axis of another length raises ValueError.  With one
+        generator seed the bits of `run_log`."""
+        return captured.scan(self._scan_step, self._draws, state, frames,
+                             generator, draws)
+
+    def replay_jit(self):
+        """`replay` with each scan one replay of a captured CUDA graph of
+        `step` (on a CPU engine, the same static-buffer loop calling the
+        step): the same arguments and results, and the same bits.  The
+        graph is captured at the first call; keep the function to reuse
+        it."""
+        return captured.replay_fn(captured.Captured(
+            self._scan_step, self._draws, self.device))
+
+    def step_jit(self):
+        """`step` as a captured graph: (state, frame, generator=None,
+        draws=None) -> (state, info).  The state it returns lives in the
+        capture's buffers and is consumed by the next call, which
+        overwrites it (the counterpart of donating the state to a jitted
+        step): pass it back, and clone it to keep it."""
+        return captured.step_fn(captured.Captured(
+            self._scan_step, self._draws, self.device))
 
     def best_map(self, state: SlamState):
         """Log-odds map of the strongest particle."""

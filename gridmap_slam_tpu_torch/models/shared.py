@@ -30,6 +30,10 @@ filter resamples when Neff < surface_resample_fraction * P, as a select on
 the card, and the AMCL recovery injection replaces a fraction of the
 resampled slots with uniform poses.
 
+`replay` / `replay_surface` run a stacked Frame batch as `jax.lax.scan`
+does (stacked infos); `replay_jit` / `replay_surface_jit` are their
+captured forms, one CUDA graph replayed once a scan (models/captured.py).
+
 Host reads a scan: none.  Where the integration crop is smaller than the
 map (`city`), K2's window variant reads the crop's top-left cell from the
 card; the volume crop is sliced by index arithmetic on the card.
@@ -64,6 +68,7 @@ from ..ops.surface import (crop_center_cells, pack_neighborhoods,
                            refine_on_surface, sample_surface, scan_surface,
                            splat_endpoint_kernels, theta_grid)
 from ..types import Frame, Scan, StepInfo
+from . import captured
 
 
 def matcher_workspace_bytes(cfg: SlamConfig) -> int:
@@ -328,16 +333,21 @@ class SharedMapSLAM:
         return state
 
     # ------------------------------------------------------------------- step
-    def _draws(self, generator, draws):
+    def _draws(self, generator, draws, out=None):
         """(normals (P, 2), u0, injection uniforms (P, 3) or None): `draws`
-        as given, or drawn from `generator` on the engine's device."""
+        as given, or drawn from `generator` on the engine's device, into
+        the tensors of `out` where it is given (the captured replays'
+        static draws)."""
         if draws is not None:
             return draws
         p = self.config.num_particles
         dev = self.device
-        normals = torch.randn((p, 2), generator=generator, device=dev)
-        u0 = torch.rand((), generator=generator, device=dev) * (1.0 / p)
-        inj = (torch.rand((p, 3), generator=generator, device=dev)
+        o = (None, None, None) if out is None else out
+        normals = torch.randn((p, 2), generator=generator, device=dev,
+                              out=o[0])
+        u0 = torch.rand((), generator=generator, device=dev, out=o[1])
+        u0 = torch.mul(u0, 1.0 / p, out=o[1])
+        inj = (torch.rand((p, 3), generator=generator, device=dev, out=o[2])
                if self.injects else None)
         return normals, u0, inj
 
@@ -356,22 +366,24 @@ class SharedMapSLAM:
 
     def step(self, state: SharedMapState, frame: Frame,
              generator: Optional[torch.Generator] = None,
-             draws=None) -> Tuple[SharedMapState, StepInfo]:
+             draws=None, out: Optional[SharedMapState] = None
+             ) -> Tuple[SharedMapState, StepInfo]:
         """One scan with the per-particle matcher against the shared map, in
         blocks of `particle_chunk` particles (all at once when 0).  `draws`
-        as in step_surface."""
+        and `out` as in step_surface."""
         return self._matcher_step(state, frame, self.config.particle_chunk,
-                                  generator, draws)
+                                  generator, draws, out)
 
     def step_blocked(self, state: SharedMapState, frame: Frame, block: int,
                      generator: Optional[torch.Generator] = None,
-                     draws=None) -> Tuple[SharedMapState, StepInfo]:
+                     draws=None, out: Optional[SharedMapState] = None
+                     ) -> Tuple[SharedMapState, StepInfo]:
         """`step` with particle_chunk = block (block must divide P; size it
         with matcher_block_size): the same result bit for bit, recovery
         EMAs, injection and freeze_map included."""
-        return self._matcher_step(state, frame, block, generator, draws)
+        return self._matcher_step(state, frame, block, generator, draws, out)
 
-    def _matcher_step(self, state, frame, chunk, generator, draws):
+    def _matcher_step(self, state, frame, chunk, generator, draws, out):
         cfg = self.config
         p = cfg.num_particles
         chunk = chunk if 0 < chunk < p else p
@@ -387,17 +399,21 @@ class SharedMapSLAM:
         poses, scores = match_particles(cfg, llf, state.poses, normals,
                                         scan, frame.odom, chunk)
         return self._finish(state, poses, scores, tables, keep, u0, inj,
-                            crop=0, resample_fraction=cfg.resample_fraction)
+                            crop=0, resample_fraction=cfg.resample_fraction,
+                            out=out)
 
     def step_surface(self, state: SharedMapState, frame: Frame,
                      generator: Optional[torch.Generator] = None,
-                     draws=None) -> Tuple[SharedMapState, StepInfo]:
+                     draws=None, out: Optional[SharedMapState] = None
+                     ) -> Tuple[SharedMapState, StepInfo]:
         """One scan in surface mode.  `draws` = (normals (P, 2), u0,
         injection uniforms (P, 3) or None) replaces the draws from
         `generator`: standard normals for each particle's distance and
         heading noise, the systematic-resampling offset u0 in [0, 1/P), and
         the uniforms of the recovery injection (used only when it is on).
-        A generator must be on the engine's device."""
+        A generator must be on the engine's device.  `out`: a state whose
+        tensors receive the new state, which is then `out` (it may be
+        `state` itself; the captured replays pass their static buffers)."""
         cfg = self.config
         mc = cfg.matcher
         normals, u0, inj = self._draws(generator, draws)
@@ -418,16 +434,20 @@ class SharedMapSLAM:
         # Integration only touches cells within max_range of the pose.
         return self._finish(state, poses, scores, tables, keep, u0, inj,
                             crop=2 * kc + 8,
-                            resample_fraction=mc.surface_resample_fraction)
+                            resample_fraction=mc.surface_resample_fraction,
+                            out=out)
 
     def _finish(self, state, poses, scores, tables, keep, u0, inj, *,
-                crop: int, resample_fraction: float):
+                crop: int, resample_fraction: float, out=None):
         """The tail of every step: weights, Neff, the map update at the
         integration pose (into a crop x crop window when that is smaller
         than the map), the resample gate, the recovery EMAs and the
-        injection."""
+        injection.  Each field's last operation writes into `out` where
+        one is given, after the field's last read of `state`."""
         cfg = self.config
         p = cfg.num_particles
+        o = out if out is not None else SharedMapState(None, None, None,
+                                                       None, None)
         log_weights = scores.to(state.log_weights.dtype)
         if cfg.accumulate_weights:
             log_weights = log_weights + state.log_weights
@@ -439,7 +459,7 @@ class SharedMapSLAM:
         weighted = weighted_mean_pose(poses, log_weights)
         integ_pose = integration_pose(n_eff, p, weighted, best_pose)
         logodds = self._integrate(state.logodds, integ_pose, tables, keep,
-                                  crop)
+                                  crop, out=o.logodds)
 
         do_resample = n_eff < (p * resample_fraction)
         recov, p_inject = recovery_update(cfg, state, log_weights.max())
@@ -447,36 +467,46 @@ class SharedMapSLAM:
             # a kidnap makes every particle uniformly bad, so Neff rises and
             # the gate alone would never fire: injection forces a resample
             do_resample = do_resample | (p_inject > 0.05)
+        if out is not None:
+            recov = captured.copy_into(out.recov, recov)
+        new_step = torch.add(state.step, 1, out=o.step)
 
         # Resample as a select on the card: identity indices when the gate
         # does not fire.
         idx = torch.where(do_resample, systematic_indices(log_weights, u0),
                           torch.arange(p, device=self.device))
-        new_poses = poses[idx]
+        last = p_inject is None      # the gathers are the fields' last ops
+        new_poses = torch.index_select(poses, 0, idx,
+                                       out=o.poses if last else None)
         if cfg.accumulate_weights:
             new_lw = torch.where(do_resample, torch.zeros_like(log_weights),
-                                 log_weights)
+                                 log_weights, out=o.log_weights)
         else:
-            new_lw = log_weights[idx]
-        if p_inject is not None:
+            new_lw = torch.index_select(log_weights, 0, idx,
+                                        out=o.log_weights if last else None)
+        if not last:
             inj_poses, took = inject_uniform(cfg, inj, new_poses, p_inject)
             inj_lw = torch.where(took, new_lw.mean(), new_lw)
-            new_poses = torch.where(do_resample, inj_poses, new_poses)
-            new_lw = torch.where(do_resample, inj_lw, new_lw)
+            new_poses = torch.where(do_resample, inj_poses, new_poses,
+                                    out=o.poses)
+            new_lw = torch.where(do_resample, inj_lw, new_lw,
+                                 out=o.log_weights)
 
-        new_state = SharedMapState(poses=new_poses, log_weights=new_lw,
-                                   logodds=logodds, step=state.step + 1,
-                                   recov=recov)
+        new_state = out if out is not None else SharedMapState(
+            poses=new_poses, log_weights=new_lw, logodds=logodds,
+            step=new_step, recov=recov)
         info = StepInfo(neff=n_eff, weighted_pose=weighted,
-                        best_pose=best_pose, best_index=best_index,
+                        best_pose=best_pose,
+                        best_index=best_index.to(torch.int32),
                         best_log_weight=new_lw.max(), resampled=do_resample)
         return new_state, info
 
-    def _integrate(self, logodds, pose, tables, keep, crop: int):
+    def _integrate(self, logodds, pose, tables, keep, crop: int, out=None):
         """The shared map with the scan integrated at `pose` (K2 at batch
         1): into a crop x crop window around the pose when that is smaller
         than the map (K2's window variant, placed on the card), else into
-        the whole map."""
+        the whole map.  `out`: the (H, W) map that receives it (it may be
+        `logodds` itself)."""
         cfg = self.config
         s = cfg.sensor
         origin = (float(cfg.map.origin[0]), float(cfg.map.origin[1]))
@@ -485,12 +515,14 @@ class SharedMapSLAM:
                   tol_cells=s.hit_tolerance_cells)
         h, w = logodds.shape
         if not 0 < crop < min(h, w):
-            return integrate_scan_batch(logodds[None], pose[None], keep,
-                                        *tables, origin=origin, **kw)[0]
+            return integrate_scan_batch(
+                logodds[None], pose[None], keep, *tables, origin=origin,
+                out=None if out is None else out[None], **kw)[0]
         win = torch.stack(crop_center_cells(pose[:2], (crop, crop), (h, w),
                                             res, origin))
         return integrate_scan_window(logodds, win, pose, keep, *tables,
-                                     size=(crop, crop), origin=origin, **kw)
+                                     size=(crop, crop), origin=origin,
+                                     out=out, **kw)
 
     # -------------------------------------------------------------- utilities
     def run_log(self, state: SharedMapState, frames: Iterable[Frame],
@@ -504,11 +536,21 @@ class SharedMapSLAM:
             infos.append(info)
         return state, infos
 
-    def replay(self, state: SharedMapState, frames: Iterable[Frame],
+    def replay(self, state: SharedMapState, frames,
                generator: Optional[torch.Generator] = None,
-               block: int = 0) -> Tuple[SharedMapState, List[StepInfo]]:
-        """Replay a sequence of frames through `step` (block 0) or
-        `step_blocked(block)`; returns (state, infos)."""
+               block: int = 0, draws=None):
+        """Replay frames through `step` (block 0) or `step_blocked(block)`.
+        `frames` an iterable of Frames: returns (state, list of infos).  A
+        stacked Frame batch (`io.frames_to_device`): returns (state,
+        StepInfo with a leading frame axis), as gridmap_slam_tpu's
+        `lax.scan` does, and `draws` may replace the generator's draws with
+        stacked ones (as in step_surface, with a leading frame axis; one of
+        another length raises ValueError)."""
+        if isinstance(frames, Frame):
+            return captured.scan(self._matcher_scan_step(block),
+                                 self._draw, state, frames, generator, draws)
+        if draws is not None:
+            raise ValueError("injected draws need a stacked Frame batch")
         infos = []
         for f in frames:
             if block:
@@ -517,6 +559,44 @@ class SharedMapSLAM:
                 state, info = self.step(state, f, generator)
             infos.append(info)
         return state, infos
+
+    def replay_surface(self, state: SharedMapState, frames: Frame,
+                       generator: Optional[torch.Generator] = None,
+                       draws=None) -> Tuple[SharedMapState, StepInfo]:
+        """Replay a stacked Frame batch through step_surface, as
+        gridmap_slam_tpu's `lax.scan` does: returns (final state, StepInfo
+        with a leading frame axis); `draws` as in `replay`.  With one
+        generator seed the bits of `run_log`."""
+        return captured.scan(self._surface_scan_step, self._draw, state,
+                             frames, generator, draws)
+
+    def replay_jit(self, block: int = 0):
+        """`replay` of a stacked batch with each scan one replay of a
+        captured CUDA graph of `step` (or `step_blocked(block)`); on a CPU
+        engine the same static-buffer loop calling the step.  The same
+        arguments, results and bits.  The graph is captured at the first
+        call; keep the function to reuse it."""
+        return captured.replay_fn(captured.Captured(
+            self._matcher_scan_step(block), self._draw, self.device))
+
+    def replay_surface_jit(self):
+        """`replay_surface` with each scan one replay of a captured CUDA
+        graph of step_surface (see replay_jit)."""
+        return captured.replay_fn(captured.Captured(
+            self._surface_scan_step, self._draw, self.device))
+
+    def _draw(self, generator, out=None):
+        return self._draws(generator, None, out)
+
+    def _matcher_scan_step(self, block: int):
+        chunk = block or self.config.particle_chunk
+
+        def step(state, frame, draws, out):
+            return self._matcher_step(state, frame, chunk, None, draws, out)
+        return step
+
+    def _surface_scan_step(self, state, frame, draws, out):
+        return self.step_surface(state, frame, draws=draws, out=out)
 
     def best_map(self, state: SharedMapState):
         """The shared log-odds map (interface parity with RBPF.best_map)."""

@@ -13,6 +13,11 @@ update covers each beam's whole angular wedge instead of its ray footprint
 window whose top-left cell is a tensor on the card (the shared-map
 engines' integration crop), so that placing it reads nothing back to the
 host.
+
+Every entry point takes `out=`: the tensor that receives the updated map
+(by default a new one).  It may be `logodds` itself, for the captured
+replays' in-place state: each cell is read and then written by the same
+thread, and the window variant then rewrites only its window.
 """
 
 from __future__ import annotations
@@ -65,11 +70,11 @@ def integrate_scan_batch_plain(logodds, poses, keep, bin_dist, bin_alpha,
                                bin_code, *, resolution: float, origin,
                                l_free: float, l_occ: float,
                                tol_cells: float = 2.0,
-                               cone_fill: bool = False):
+                               cone_fill: bool = False, out=None):
     """Plain version: ops/raycast's per-cell update read from the bin
     tables.  logodds: (P, H, W); poses: (P, 3); keep: scalar multiplier of
     the update; bin_*: (n_bins,) or (G, n_bins).  Returns the updated
-    (P, H, W)."""
+    (P, H, W), in `out` where one is given."""
     r, phi = cell_bearings(logodds.shape[-2:], poses, resolution=resolution,
                            origin=origin)
     read = _bin_reader(bin_dist, bearing_bins(phi, bin_dist.shape[-1]))
@@ -78,7 +83,7 @@ def integrate_scan_batch_plain(logodds, poses, keep, bin_dist, bin_alpha,
         r, phi, poses[:, 2, None, None], read(bin_alpha), read(bin_dist),
         code < 1.5, code > 0.5, resolution=resolution, l_free=l_free,
         l_occ=l_occ, tol_cells=tol_cells, cone_fill=cone_fill)
-    return logodds + keep * delta
+    return torch.add(logodds, keep * delta, out=out)
 
 
 def integrate_scan_batch_rotated(logodds, poses, keep, bin_dist, bin_alpha,
@@ -133,10 +138,11 @@ def integrate_scan_batch_cuda(logodds, poses, keep, bin_dist, bin_alpha,
                               bin_code, *, resolution: float, origin,
                               l_free: float, l_occ: float,
                               tol_cells: float = 2.0,
-                              cone_fill: bool = False):
+                              cone_fill: bool = False, out=None):
     """The kernel.  logodds: (P, H, W) float32 on the card; poses: (P, 3);
     keep: a float or a scalar tensor on the card; bin_*: (n_bins,) or
-    (G, n_bins) with G dividing P."""
+    (G, n_bins) with G dividing P; out: None or a (P, H, W) float32 tensor
+    on the card (logodds itself allowed)."""
     global launches
     fn = "integrate_scan_batch_cuda"
     if logodds.dim() != 3 or bin_dist.dim() not in (1, 2):
@@ -157,7 +163,9 @@ def integrate_scan_batch_cuda(logodds, poses, keep, bin_dist, bin_alpha,
     if not isinstance(keep, torch.Tensor):
         keep = torch.tensor(float(keep), dtype=torch.float32, device=dev)
     check_tensor(fn, "keep", keep, (), dev)
-    out = torch.empty_like(logodds)
+    if out is None:
+        out = torch.empty_like(logodds)
+    check_tensor(fn, "out", out, (p, h, w), dev)
     lib = _build.library()
     code = lib.gs_grid_update(
         logodds.data_ptr(), out.data_ptr(), poses.data_ptr(), keep.data_ptr(),
@@ -173,14 +181,16 @@ def integrate_scan_batch_cuda(logodds, poses, keep, bin_dist, bin_alpha,
 def integrate_scan_batch(logodds, poses, keep, bin_dist, bin_alpha, bin_code,
                          *, resolution: float, origin, l_free: float,
                          l_occ: float, tol_cells: float = 2.0,
-                         cone_fill: bool = False):
+                         cone_fill: bool = False, out=None):
     """Updated (P, H, W) log-odds: logodds + keep * (inverse sensor model of
-    the scan seen from each pose, read from its group's tables)."""
+    the scan seen from each pose, read from its group's tables), in `out`
+    where one is given."""
     fn = (integrate_scan_batch_cuda if logodds.is_cuda
           else integrate_scan_batch_plain)
+    kw = {} if out is None else {"out": out}
     return fn(logodds, poses, keep, bin_dist, bin_alpha, bin_code,
               resolution=resolution, origin=origin, l_free=l_free,
-              l_occ=l_occ, tol_cells=tol_cells, cone_fill=cone_fill)
+              l_occ=l_occ, tol_cells=tol_cells, cone_fill=cone_fill, **kw)
 
 
 def _window_origin(win, col0: int, resolution: float, origin):
@@ -198,13 +208,14 @@ def integrate_scan_window_plain(logodds, win, pose, keep, bin_dist,
                                 bin_alpha, bin_code, *, size, col0: int = 0,
                                 resolution: float, origin, l_free: float,
                                 l_occ: float, tol_cells: float = 2.0,
-                                cone_fill: bool = False):
+                                cone_fill: bool = False, out=None):
     """Plain version of the window variant: logodds (H, W) with the scan
     integrated from `pose` (3,) into the size = (Hw, Ww) window whose
     top-left cell is win = (iy0, ix0), an int64 tensor; the window's origin
     is `_window_origin` (col0: the map's first column in the map whose
     origin is `origin`).  The window is gathered and scattered by index, so
-    nothing is read back to the host.  Returns a new (H, W) map."""
+    nothing is read back to the host.  Returns a new (H, W) map, or `out`
+    (which may be logodds) updated."""
     hw, ww = size
     rows = (win[0] + torch.arange(hw, device=win.device))[:, None]
     cols = (win[1] + torch.arange(ww, device=win.device))[None, :]
@@ -213,8 +224,15 @@ def integrate_scan_window_plain(logodds, win, pose, keep, bin_dist,
         logodds[rows, cols][None], pose[None], keep, bin_dist, bin_alpha,
         bin_code, resolution=resolution, origin=w_origin, l_free=l_free,
         l_occ=l_occ, tol_cells=tol_cells, cone_fill=cone_fill)[0]
-    out = logodds.clone()
+    out = logodds.clone() if out is None else _copy_map(out, logodds)
     out[rows, cols] = upd
+    return out
+
+
+def _copy_map(out, logodds):
+    """out holding logodds' cells (nothing to copy where out is logodds)."""
+    if out.data_ptr() != logodds.data_ptr():
+        out.copy_(logodds)
     return out
 
 
@@ -222,11 +240,12 @@ def integrate_scan_window_cuda(logodds, win, pose, keep, bin_dist, bin_alpha,
                                bin_code, *, size, col0: int = 0,
                                resolution: float, origin, l_free: float,
                                l_occ: float, tol_cells: float = 2.0,
-                               cone_fill: bool = False):
+                               cone_fill: bool = False, out=None):
     """The window variant of the kernel.  logodds: (H, W) float32 on the
     card; win: (2,) int64 on the card, inside the map for the window size;
     pose: (3,); keep: a float or a scalar tensor on the card; bin_*:
-    (n_bins,).  Returns a new (H, W) map."""
+    (n_bins,).  Returns a new (H, W) map, or `out` (an (H, W) float32
+    tensor on the card, logodds itself allowed) updated."""
     global launches
     fn = "integrate_scan_window_cuda"
     if logodds.dim() != 2 or bin_dist.dim() != 1:
@@ -249,7 +268,11 @@ def integrate_scan_window_cuda(logodds, win, pose, keep, bin_dist, bin_alpha,
         keep = torch.tensor(float(keep), dtype=torch.float32, device=dev)
     check_tensor(fn, "keep", keep, (), dev)
     n_bins = bin_dist.shape[0]
-    out = logodds.clone()
+    if out is None:
+        out = logodds.clone()
+    else:
+        check_tensor(fn, "out", out, (h, w), dev)
+        _copy_map(out, logodds)
     lib = _build.library()
     code = lib.gs_grid_update_window(
         logodds.data_ptr(), out.data_ptr(), pose.data_ptr(), keep.data_ptr(),
@@ -266,13 +289,15 @@ def integrate_scan_window(logodds, win, pose, keep, bin_dist, bin_alpha,
                           bin_code, *, size, col0: int = 0,
                           resolution: float, origin, l_free: float,
                           l_occ: float, tol_cells: float = 2.0,
-                          cone_fill: bool = False):
+                          cone_fill: bool = False, out=None):
     """The (H, W) map with the scan integrated from `pose` into its
     size = (Hw, Ww) window at the cell win = (iy0, ix0), a tensor on the
-    map's device (see integrate_scan_window_plain)."""
+    map's device (see integrate_scan_window_plain), in `out` where one is
+    given."""
     fn = (integrate_scan_window_cuda if logodds.is_cuda
           else integrate_scan_window_plain)
+    kw = {} if out is None else {"out": out}
     return fn(logodds, win, pose, keep, bin_dist, bin_alpha, bin_code,
               size=size, col0=col0, resolution=resolution, origin=origin,
               l_free=l_free, l_occ=l_occ, tol_cells=tol_cells,
-              cone_fill=cone_fill)
+              cone_fill=cone_fill, **kw)

@@ -222,10 +222,13 @@ def refine_on_surface(c_vol, poses, scores, *, steps: int, theta0, dtheta,
     each axis (6 neighbors) and take the best improvement."""
     if steps <= 0:
         return poses, scores
-    moves = torch.tensor([[resolution, 0, 0], [-resolution, 0, 0],
-                          [0, resolution, 0], [0, -resolution, 0],
-                          [0, 0, dtheta], [0, 0, -dtheta]],
-                         dtype=torch.float32, device=poses.device)
+    # the six moves filled in on the device: a tensor built from a Python
+    # list would be a copy from pageable host memory (a host sync, and not
+    # allowed in a captured graph)
+    moves = torch.zeros((6, 3), dtype=torch.float32, device=poses.device)
+    for axis, step in enumerate((resolution, resolution, dtheta)):
+        moves[2 * axis, axis].fill_(step)
+        moves[2 * axis + 1, axis].fill_(-step)
     for _ in range(steps):
         cand = poses[..., None, :] + moves            # (..., 6, 3)
         s = sample_surface(c_vol, cand, theta0=theta0, dtheta=dtheta,

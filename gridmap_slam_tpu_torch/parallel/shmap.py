@@ -195,8 +195,8 @@ def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
         fields["recov"] = state.recov if recov is None else recov
     new_state = dataclasses.replace(state, **fields)
     info = StepInfo(neff=n_eff, weighted_pose=weighted, best_pose=best_pose,
-                    best_index=best_index, best_log_weight=best_lw,
-                    resampled=do_resample)
+                    best_index=best_index.to(torch.int32),
+                    best_log_weight=best_lw, resampled=do_resample)
     return new_state, info
 
 
