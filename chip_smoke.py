@@ -6,10 +6,10 @@ Phases, each printed on its own line:
 1. device — the card's name and power limit (nvidia-smi) and CUDA version;
 2. build  — compile gridmap_slam_tpu_torch/csrc/*.cu with nvcc; the
    registers, shared memory and spills of each K1 instantiation (shared
-   and global variant), of K2's two (four cells a thread, one cell) and of
+   and global variant), of K2's two (four cells a thread, one cell), of
    K3's nine (radius 1 to 4 compiled in, each staging by 128-bit loads or
-   cell by cell, and any radius) from `-Xptxas -v`; a
-   spill in any of them fails the run;
+   cell by cell, and any radius) and of K4's two (the correlation, the
+   chunk sum) from `-Xptxas -v`; a spill in K2, K3 or K4 fails the run;
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of the parity preset (500 particles, 120 x 120 maps,
    2048 bearing bins, the three matcher stages, score_pose's single
@@ -42,6 +42,18 @@ Phases, each printed on its own line:
    lengths of the mega and city volumes;
 8. surface agree — one surface-mode step on the card against the same step
    on the CPU, from the same state and draws, at 4096 particles;
+8a. k4 — K4, the bf16 surface correlation on the tensor cores: a
+   mega_bf16 engine (mega_config() with the direct correlation in bf16, 1M
+   particles) runs 3 scans, its fourth step's kernel calls are recorded
+   and K4, K3 and K2 held against their plain versions on those very
+   arguments; K4 again at K4_SHAPES (nt 1, 5, 7 and 16, K 7, 25, 51 and
+   64, crops not square, one shape on every tile of the kernel), each
+   with its error, tolerance and launch plan, twice (the same bits); its
+   time at the step's shapes beside its bound (operations at the bf16
+   tensor-core peak) and share, its plain version's, the one PyTorch call
+   that computes the same function (cuDNN's float32 conv2d of the rounded
+   operands) and, for context, a bf16 conv2d and the float32 FFT at that
+   crop; a fifth step runs under the sync check;
 9. mega   — SharedMapSLAM(mega_config(), device="cuda").run_log: 1M
    particles on the 120 x 120 map over the 12-scan log, then over the 40
    scans of maps/room_loop_40.rec; a second run with the same seed must
@@ -88,11 +100,13 @@ Phases, each printed on its own line:
    captured once as a CUDA graph, replayed once a scan): RBPF.replay_jit
    at the parity preset (and step_jit scan by scan) and at chip's 10 000
    particles, SharedMapSLAM.replay_surface_jit at mega (the 12-scan log
-   and the 40 scans of room_loop_40.rec), at mega with two refine steps
-   and at city, SharedMapSLAM.replay_jit(block=500 000) at mega_blocked
-   over 6 scans, MultiRobotSLAM.replay_jit at 10 000 a robot; each against
-   its eager loop from one seed in this process: every field of the final
-   state and of every stacked info equal in bits, two captured runs equal,
+   and the 40 scans of room_loop_40.rec), at mega with two refine steps,
+   at mega_bf16 (K4 a scan) and mega_direct (the float32 direct
+   correlation) and at city, SharedMapSLAM.replay_jit(block=500 000) at
+   mega_blocked over 6 scans, MultiRobotSLAM.replay_jit at 10 000 a
+   robot; each against its eager loop from one seed in this process:
+   every field of the final state and of every stacked info equal in
+   bits, two captured runs equal,
    ATE under the path's limit, no synchronizing call and no kernel launched
    from Python in a warm replay (the launch counts move only while the
    first call warms up and captures), the kernels a scan inside the graph
@@ -139,10 +153,18 @@ Phases, each printed on its own line:
    through RobotLink and SlamPipeline; replay --engine tiled (parity
    width) and --engine surface-sharded (1M particles) on room_loop_40.rec
    at a world of one, each with its launches a scan and ATE < 0.25 m.
+   The CLI and the app step through the engine's captured step
+   (step_jit); replay at the parity width (also from the saved map), the
+   1M surface replay and posegraph run again on the eager step in this
+   call (application.compiled_step patched): the same trajectory bit for
+   bit, and beside each other the scans/s and the host's launches a scan
+   (torch.profiler, the median over the scans), and the kernels a scan
+   inside the graph against the eager step's launches; the live app's
+   host launches a frame on both steps.
 
 Each path (parity, mega, city, mega_blocked, multi at each particle count,
 the posegraph flow's three parts: the filter, closure detection, the
-rebuild; chip; the captured phase's eight, captured_<path>, counted over
+rebuild; chip; the captured phase's ten, captured_<path>, counted over
 the call that warms up and captures; the parallel phase's five: shmap,
 shmap_surface, tiled, surface_sharded, sharded; the cli phase's eight: cli_replay,
 cli_load_map, cli_surface, cli_tiled, cli_surface_sharded, cli_posegraph,
@@ -166,6 +188,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -206,6 +229,16 @@ CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
 # operations over the first and its bytes (each input read once, each
 # output written once) over the second.
 FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# K4 runs on the tensor cores: its operations go against the dense bf16
+# peak (NVIDIA's data sheet), not the FP32 units'.
+BF16_TC_FLOPS = 989e12
+# K4 against its plain version: the direct correlation's float32 bound
+# (tests/test_torch_surface_corr.py); its shapes beside a mega_bf16 step's:
+# (nt, K, Hc, Wc) with nt and K no multiples of 8 and 16, crops not
+# square, and one shape with every dimension on the kernel's tiles
+K4_RTOL, K4_ATOL = 1e-5, 1e-3
+K4_SHAPES = ((1, 7, 10, 13), (5, 51, 17, 29), (7, 25, 40, 31),
+             (16, 64, 128, 128))
 # Float operations (an FMA counted as two) a K1 sample: bilinear: 2
 # coordinate adds, 2 floors, 2 fraction subtractions, 3 lerps (a
 # subtraction and an FMA each), the add into the sum; nearest: 2 adds, 2
@@ -276,15 +309,19 @@ def build_phase() -> None:
     K3's (radius 1 to 4 compiled in, staged by 128-bit loads or cell by
     cell, and any radius) are summed up on the
     build line; K1's untiled and tile variants, K2's whole-map and window
-    variants.  K1's and K3's shared memory is dynamic: a call's plan sets
-    it.  A spill in any of them fails the run."""
+    variants, K4's correlation and its chunk sum.  K1's, K3's and K4's
+    shared memory is dynamic: a call's plan sets it.  A spill in K2, K3 or
+    K4 fails the run."""
     from gridmap_slam_tpu_torch.ops.cuda import _build
     from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
     t0 = time.perf_counter()
     path, log = _build.build(verbose=True)
     _build.library()
-    k1, k2, k3 = [], [], []
+    k1, k2, k3, k4 = [], [], [], []
     for name, use in sorted(_build.ptxas_usage(log).items()):
+        m = re.search(r"surface_corr_(kernel|sum)", name)
+        if m:
+            k4.append(dict(kernel=m.group(0), **use))
         m = re.search(r"stage_scores_kernelILb([01])ELb([01])ELi(\d)ELb([01])E",
                       name)
         if m:
@@ -306,11 +343,11 @@ def build_phase() -> None:
         sources=[str(p.relative_to(_build.CSRC.parents[1]))
                  for p in _build.sources()],
         library=path.name, k1_registers_assumed=kmatch.REGISTERS,
-        k1_variants=k1, k2_variants=k2, k3_variants=k3)
-    if len(k2) != 3 or len(k3) != 9 or any(
-            v["spill_stores"] or v["spill_loads"] for v in k2 + k3):
-        raise AssertionError(f"K2: expected 3 instantiations, K3: 9, none "
-                             f"with spills: {k2} {k3}")
+        k1_variants=k1, k2_variants=k2, k3_variants=k3, k4_kernels=k4)
+    if len(k2) != 3 or len(k3) != 9 or len(k4) != 2 or any(
+            v["spill_stores"] or v["spill_loads"] for v in k2 + k3 + k4):
+        raise AssertionError(f"K2: expected 3 instantiations, K3: 9, K4: 2, "
+                             f"none with spills: {k2} {k3} {k4}")
     if len(k1) != 8 * kmatch.MAX_RUN or any(
             v["spill_stores"] or (v["run"] <= 3 and
                                   v["registers"] > kmatch.REGISTERS)
@@ -320,9 +357,10 @@ def build_phase() -> None:
                              f"within {kmatch.REGISTERS} registers: {k1}")
 
 
-def _bound(flops: float, nbytes: float):
-    """(bound ms, "operations" or "bytes") of work on the H100."""
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+def _bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
+    """(bound ms, "operations" or "bytes") of work on the H100, its
+    operations at `peak` operations a second."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -361,6 +399,19 @@ def k2w_bound(args, kw):
     return _bound(K2_FLOPS_CELL * hw * ww, _nbytes(args) + _nbytes([lo]))
 
 
+def k4_bound(args, kw=None):
+    """K4's bound: a multiply and an add for each of the nt K^2 Hc Wc
+    products, over the dense bf16 tensor-core peak; the field, the
+    endpoint images and the masses read once and the volume written
+    once."""
+    fpad, e_stack, _, mass = args
+    nt, k = e_stack.shape[0], e_stack.shape[1]
+    hc, wc = fpad.shape[0] - k + 1, fpad.shape[1] - k + 1
+    return _bound(2.0 * nt * k * k * hc * wc,
+                  _nbytes([fpad, e_stack, mass]) + nt * hc * wc * 4,
+                  BF16_TC_FLOPS)
+
+
 def _taps_inside(n: int, r: int) -> int:
     """The taps of a (2r + 1)-tap blur along an axis of n cells that fall
     inside it, summed over its cells (a tap outside adds zero)."""
@@ -387,6 +438,12 @@ def k3_plan(args) -> dict:
     return dict(variant=plan.variant, tile=[plan.tile_h, plan.tile_w],
                 grid=[args[0].shape[0], plan.bands, plan.tiles],
                 threads=plan.threads, smem_bytes=plan.smem_bytes)
+
+
+def k4_plan(args) -> dict:
+    """The launch plan K4 runs these arguments with."""
+    from gridmap_slam_tpu_torch.ops.cuda import surface_corr
+    return surface_corr.plan_for(args[0], args[1])._asdict()
 
 
 def k1_variant(args) -> str:
@@ -834,9 +891,10 @@ class _TileCount:
 def _kernel_modules():
     from gridmap_slam_tpu_torch.ops.cuda import grid_update, likelihood
     from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
+    from gridmap_slam_tpu_torch.ops.cuda import surface_corr
     return {"stage_scores": kmatch, "integrate_scan": grid_update,
             "log_likelihood_field": likelihood,
-            "stage_scores_tile": _TileCount()}
+            "stage_scores_tile": _TileCount(), "surface_corr": surface_corr}
 
 
 def _test_maps(p, h, w, rng, device="cuda"):
@@ -1079,6 +1137,125 @@ def surface_agree_phase(eng, batches, state):
         raise AssertionError("card and CPU surface steps disagree")
 
 
+def bf16_config(bf16: bool = True):
+    """mega with the direct correlation: in bf16 on K4 (mega_bf16) or in
+    float32 on cuDNN (mega_direct)."""
+    from gridmap_slam_tpu_torch import mega_config
+    return mega_config().with_overrides({"matcher.surface_corr": "direct",
+                                         "matcher.surface_bf16": bf16})
+
+
+def _k4_inputs(nt, k, hc, wc, rng):
+    """A padded field in [log(1/10), 0] and endpoint images with one cell in
+    ten weighted in [0, 1), on the card, and K4's other arguments."""
+    fpad = torch.as_tensor(rng.uniform(math.log(0.1), 0.0, (
+        hc + k - 1, wc + k - 1)).astype(np.float32), device="cuda")
+    e = rng.uniform(0.0, 1.0, (nt, k, k)) * (rng.uniform(size=(nt, k, k))
+                                             < 0.1)
+    e = torch.as_tensor(e.astype(np.float32), device="cuda")
+    return fpad, e, -0.5 * math.log(0.1), e.sum((1, 2))
+
+
+def k4_phase(frames):
+    """K4 against its plain version on the card.  A mega_bf16 engine (1M
+    particles, the direct bf16 correlation) runs 3 scans; the fourth is
+    recorded (CallRecorder) and K4, K3 and K2 are held against their plain
+    versions on its very arguments (check_recorded), then K4 again at
+    K4_SHAPES.  Times (CUDA events) at the step's shapes: K4, its bound
+    and share, its plain version, the one PyTorch call that computes the
+    same function (cuDNN's float32 conv2d of the rounded operands, TF32
+    off) and, for context only, a bf16 conv2d (a bf16 volume) and the
+    float32 FFT correlation at that crop.  A fifth, warm step runs under
+    the sync check.  Returns K4's row of the kernels line."""
+    import torch.nn.functional as F
+
+    from gridmap_slam_tpu_torch import SharedMapSLAM
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.ops import surface as sf
+    from gridmap_slam_tpu_torch.ops.cuda import surface_corr as k4
+    from gridmap_slam_tpu_torch.ops.precision import f32_conv
+
+    eng = SharedMapSLAM(bf16_config(), device="cuda")
+    cfg = eng.config
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
+                             device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state = eng.init()
+    for i in range(3):
+        state, _ = eng.step_surface(state, frame_at(batch, i), gen)
+    kernels = _zero_launches()
+    torch.cuda.synchronize()
+    with CallRecorder("mega_bf16 step") as rec:
+        state, _ = eng.step_surface(state, frame_at(batch, 3), gen)
+    torch.cuda.synchronize()
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    if launches["surface_corr"] != 1:
+        raise AssertionError(f"a mega_bf16 step launched K4 "
+                             f"{launches['surface_corr']} times")
+    checks = check_recorded(rec, {"mega_bf16 step": launches})
+    args = next(a for _, kernel, a, _ in rec.calls if kernel == "K4")
+    state, _ = _sync_free(lambda: eng.step_surface(state, frame_at(batch, 4),
+                                                   gen))
+    del eng, state, rec
+
+    rng = np.random.default_rng(SEED + 4)
+    shapes = []
+    for name, (fpad, e, shift, mass) in (
+            [("mega_bf16 step", args)]
+            + [(f"nt {nt} K {k} {hc}x{wc}", _k4_inputs(nt, k, hc, wc, rng))
+               for nt, k, hc, wc in K4_SHAPES]):
+        got = k4.surface_corr_bf16_cuda(fpad, e, shift, mass)
+        again = k4.surface_corr_bf16_cuda(fpad, e, shift, mass)
+        want = k4.surface_corr_bf16_plain(fpad, e, shift, mass)
+        err, mean, ok = _close(got, want, K4_RTOL, K4_ATOL)
+        shapes.append(dict(case=name, nt=e.shape[0], K=e.shape[1],
+                           volume=list(got.shape[1:]), max_abs_err=err,
+                           mean_abs_err=mean, max_abs=float(want.abs().max()),
+                           rtol=K4_RTOL, atol=K4_ATOL, within=ok,
+                           repeats_bitwise=bool(torch.equal(got, again)),
+                           plan=k4.plan_for(fpad, e)._asdict()))
+        if not (ok and shapes[-1]["repeats_bitwise"]):
+            say("k4", shapes=shapes)
+            raise AssertionError(f"K4 at {name}: {shapes[-1]}")
+
+    fpad, e, shift, mass = args
+    a = k4.round_bf16(fpad + shift)
+    b = k4.round_bf16(e)
+
+    def library():
+        with f32_conv():
+            return F.conv2d(a[None, None], b[:, None])
+
+    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    n = sf._fft_size(fpad.shape[0])
+
+    def fft():
+        f_hat = torch.fft.rfft2(fpad, s=(n, n))
+        e_hat = torch.fft.rfft2(e, s=(n, n))
+        return torch.fft.irfft2(f_hat[None] * torch.conj(e_hat), s=(n, n))
+
+    ms = cuda_ms(lambda: k4.surface_corr_bf16_cuda(fpad, e, shift, mass), 50)
+    plain_ms = cuda_ms(lambda: k4.surface_corr_bf16_plain(fpad, e, shift,
+                                                          mass), 5)
+    library_ms = cuda_ms(library, 5)
+    bf16_conv_ms = cuda_ms(lambda: F.conv2d(ab[None, None], bb[:, None]), 5)
+    fft_ms = cuda_ms(fft, 20)
+    bound, by = k4_bound(args)
+    say("k4", shapes=shapes, ms=ms, bound_ms=bound, bound_by=by,
+        share_of_bound=bound / ms, plain_ms=plain_ms,
+        library_ms=library_ms, library="cuDNN float32 conv2d of the "
+        "rounded operands (TF32 off)", bf16_conv2d_ms=bf16_conv_ms,
+        fft_f32_ms=fft_ms, fft_len=n, step_launches=launches,
+        warm_step_synchronizing_calls=0,
+        recorded_checks=[c for c in checks if c["kernel"] == "K4"])
+    return dict(name="surface_corr", route="cuda",
+                source="gridmap_slam_tpu_torch/csrc/surface_corr.cu",
+                replaces="gridmap_slam_tpu/ops/surface.py:170",
+                max_abs_err=max(r["max_abs_err"] for r in shapes), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms)
+
+
 def surface_path(preset, cfg, frames, gt, ate_max):
     """Drive SharedMapSLAM(cfg, device="cuda").run_log over `frames` with
     every launch count set to 0 just before, then again with the same seed;
@@ -1166,17 +1343,18 @@ def mega_phase(frames, gt):
 
 KERNEL_ROWS = {"K1": "stage_scores", "K2": "integrate_scan",
                "K3": "log_likelihood_field", "K1t": "stage_scores_tile",
-               "K2w": "integrate_scan"}
+               "K2w": "integrate_scan", "K4": "surface_corr"}
 # the rows of the untiled paths (K1's tile variant runs on tiled maps only)
 BASE_ROWS = ("stage_scores", "integrate_scan", "log_likelihood_field")
 _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
           "K1t": ("matcher", "stage_scores_tile_cuda"),
           "K2w": ("grid_update", "integrate_scan_window_cuda"),
           "K2": ("grid_update", "integrate_scan_batch_cuda"),
-          "K3": ("likelihood", "log_likelihood_field_batch_cuda")}
+          "K3": ("likelihood", "log_likelihood_field_batch_cuda"),
+          "K4": ("surface_corr", "surface_corr_bf16_cuda")}
 PATH_MAX_ERR = {row: 0.0 for row in KERNEL_ROWS.values()}
 BOUNDS = {"K1": k1_bound, "K2": k2_bound, "K3": k3_bound, "K1t": k1_bound,
-          "K2w": k2w_bound}
+          "K2w": k2w_bound, "K4": k4_bound}
 FULL_MAX = 4096      # a recorded call of more particles is compared on
 SLICE = 2048         # its first and its last SLICE particles
 
@@ -1300,7 +1478,7 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
         mod, attr = _entry(kernel)
         cuda_fn = getattr(mod, attr)
         plain_fn = getattr(mod, attr.replace("_cuda", "_plain"))
-        p = (1 if kernel == "K2w" else
+        p = (1 if kernel in ("K2w", "K4") else
              (args[4] if kernel in ("K1", "K1t") else args[0]).shape[0])
         parts = [(0, p)] if p <= FULL_MAX else [(0, SLICE), (p - SLICE, SLICE)]
         got_all = cuda_fn(*args, **kw)
@@ -1308,7 +1486,7 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
         for a, n in parts:
             sub = args if n == p else _particle_slice(kernel, args, a, n)
             want = plain_fn(*sub, **kw)
-            got = got_all if kernel == "K2w" else got_all[a:a + n]
+            got = got_all if kernel in ("K2w", "K4") else got_all[a:a + n]
             diff = (got - want).abs()
             err = max(err, float(diff.max()))
             n_out += diff.numel()
@@ -1317,6 +1495,8 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
             elif kernel in ("K2", "K2w"):
                 beyond += int((diff > K2_ATOL).sum())
                 changed += int((want != sub[0]).sum())
+            elif kernel == "K4":
+                beyond += int((diff > K4_ATOL + K4_RTOL * want.abs()).sum())
             else:
                 beyond += int((diff > K3_ATOL).sum())
         del got_all
@@ -1329,7 +1509,7 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
         frac = beyond / n_out
         nearest_frac = K1_NEAREST_MAX_FRAC if kw.get("nearest") else 0.0
         limit = {"K1": nearest_frac, "K1t": nearest_frac, "K2": K2_MAX_FRAC,
-                 "K2w": K2_MAX_FRAC, "K3": 0.0}[kernel]
+                 "K2w": K2_MAX_FRAC, "K3": 0.0, "K4": 0.0}[kernel]
         bound, by = BOUNDS[kernel](args, kw)
         row = dict(path=path, kernel=kernel,
                    shapes=[list(t.shape) for t in args if torch.is_tensor(t)],
@@ -1341,6 +1521,8 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
             row.update(variant=k1_variant(args),
                        nearest=bool(kw.get("nearest")), rtol=K1_RTOL,
                        atol=K1_ATOL)
+        elif kernel == "K4":
+            row.update(rtol=K4_RTOL, atol=K4_ATOL, plan=k4_plan(args))
         else:
             row.update(atol=K3_ATOL if kernel == "K3" else K2_ATOL)
         if kernel == "K1t":
@@ -2049,7 +2231,8 @@ def chip_phase(frames, gt, dev="cuda", particles=CHIP_PARTICLES,
 # the kernels' symbols as the profiler names them, a row each
 KERNEL_SYMBOLS = {"stage_scores": "stage_scores_kernel",
                   "integrate_scan": "grid_update_kernel",
-                  "log_likelihood_field": "ll_field_"}
+                  "log_likelihood_field": "ll_field_",
+                  "surface_corr": "surface_corr_kernel"}
 # the runtime calls that put work on the card from the host
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -2222,9 +2405,11 @@ def refine_config():
 def captured_phase(frames, gt):
     """Every path eager and captured (captured_path): parity (with
     step_jit), chip, mega (12 scans and the 40 of room_loop_40.rec), mega
-    with two refine steps, city, mega_blocked over 6 scans and multi at
-    10 000 a robot.  Returns (the counts of each path's capturing call,
-    keyed captured_<path>; each path's kernels a scan inside the graph)."""
+    with two refine steps, mega with the direct correlation in bf16 on K4
+    (mega_bf16) and in float32 (mega_direct), city, mega_blocked over 6
+    scans and multi at 10 000 a robot.  Returns (the counts of each path's
+    capturing call, keyed captured_<path>; each path's kernels a scan
+    inside the graph)."""
     from gridmap_slam_tpu_torch import (RBPF, SharedMapSLAM, city_config,
                                         mega_config)
     from gridmap_slam_tpu_torch.io import (frame_at, frames_to_device,
@@ -2263,6 +2448,8 @@ def captured_phase(frames, gt):
             ("mega room_loop_40", mega_config(), room, room_gt,
              ROOM_LOOP_ATE_MAX_M),
             ("mega refine", refine_config(), frames, gt, ATE_MAX_M),
+            ("mega_bf16", bf16_config(), frames, gt, ATE_MAX_M),
+            ("mega_direct", bf16_config(False), frames, gt, ATE_MAX_M),
             ("city", city_config(), frames, gt, ATE_MAX_M)):
         eng = SharedMapSLAM(cfg, device="cuda")
         batch, seq = stacked(cfg, log)
@@ -2810,6 +2997,87 @@ def _cli(argv):
     return out, json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
+@contextlib.contextmanager
+def _cli_steps(eager: bool = False):
+    """While active, application.compiled_step (which the CLI's
+    _run_frames and SlamApplication call for their step) keeps each step
+    it hands out in the yielded list; with eager=True it hands out the
+    engine's eager step in place of the captured one."""
+    from gridmap_slam_tpu_torch.app import application
+    real = application.compiled_step
+    taken = []
+
+    def patched(engine):
+        taken.append(engine.step if eager else real(engine))
+        return taken[-1]
+
+    application.compiled_step = patched
+    try:
+        yield taken
+    finally:
+        application.compiled_step = real
+
+
+def _host_launches_a_scan(run):
+    """run() under torch.profiler: (its result, the host's launches
+    (LAUNCH_CALLS) a scan, the median over the intervals from one scan's
+    first draw (aten::randn) to the next's, so the set-up, a capture's
+    warm-up and the work after the last scan are not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    marks = sorted(e.time_range.start for e in events
+                   if e.name == "aten::randn")
+    calls = np.array(sorted(e.time_range.start for e in events
+                            if e.name in LAUNCH_CALLS))
+    per = [int(((calls >= a) & (calls < b)).sum())
+           for a, b in zip(marks, marks[1:])]
+    return out, float(np.median(per)) if per else None
+
+
+def _cli_compare(name, invoke, read, tmp):
+    """The CLI path `invoke(out_dir)` on its captured step beside the same
+    run on the eager step, in this call: each run once as it is (scans/s
+    from the CLI's own metrics, the kernels its Python wrappers launched:
+    a scan's worth eager, only the warm-up's and the capture's captured)
+    and once under the profiler (host launches a scan); the eager run must
+    give the captured run's trajectory bit for bit.  read(result, out_dir)
+    -> (scans, scans/s, trajectory).  The kernels a scan inside the
+    captured graph are read from the graph.  Returns the figures."""
+    import os
+    row = {}
+    for mode in ("captured", "eager"):
+        d = os.path.join(tmp, f"{name}_{mode}")
+        with _cli_steps(eager=mode == "eager") as steps:
+            kernels = _zero_launches()
+            result = invoke(d)
+            counts = {k: mod.launches for k, mod in kernels.items()}
+            _, launches = _host_launches_a_scan(lambda: invoke(d + "_prof"))
+        scans, sps, traj = read(result, d)
+        row[mode] = dict(scans=scans, scans_per_sec=sps,
+                         host_launches_a_scan=launches,
+                         python_kernel_launches_a_scan={
+                             k: v / scans for k, v in counts.items()})
+        if mode == "captured":
+            cap = steps[0].captured
+            names = cap.kernel_names() if cap.graph is not None else []
+            row["captured"].update(captures=cap.captures, kernels_in_graph={
+                k: sum(sym in nm for nm in names)
+                for k, sym in KERNEL_SYMBOLS.items()},
+                kernel_nodes_in_graph=len(names))
+            first = traj
+        else:
+            row["eager_equals_captured"] = bool(np.array_equal(traj, first))
+    if row["captured"]["scans_per_sec"] and row["eager"]["scans_per_sec"]:
+        row["speedup"] = (row["captured"]["scans_per_sec"]
+                          / row["eager"]["scans_per_sec"])
+    return row
+
+
 def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
               surface_particles=MEGA_PARTICLES, pg_particles=200):
     """The port's CLI on the card, in this process: replay at the parity
@@ -2935,6 +3203,40 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
         out["cli_posegraph"] = dict(summary, equal_phase_17=summary == pg_first
                                     and printed == summary)
 
+        # each CLI path on its captured step beside the eager step
+        def read_replay(result, d):
+            (_, traj, metrics), _ = result
+            return metrics["frames"], metrics["scans_per_sec"], traj
+
+        def read_posegraph(result, d):
+            m = json.loads(open(os.path.join(d, "pg_online_metrics.json"))
+                           .read())
+            return (m["frames"], m["scans_per_sec"],
+                    np.load(os.path.join(d, "pg_online_trajectory.npy")))
+
+        surface_argv = ["replay", "--log", CLI_LOG, "--engine", "surface",
+                        "--particles", str(surface_particles), "--chunk",
+                        "0", "--max-beams", "192", "--set",
+                        "matcher.surface_refine_steps=0", "--seed",
+                        str(SEED), "--device", dev]
+        figures = {
+            "cli_replay": _cli_compare(
+                "cli_replay", lambda d: _cli(["replay", *parity, "--out",
+                                              d]), read_replay, tmp),
+            "cli_load_map": _cli_compare(
+                "cli_load_map", lambda d: _cli(["replay", *parity, "--out",
+                                                d, "--load-map", ckpt]),
+                read_replay, tmp),
+            "cli_surface": _cli_compare(
+                "cli_surface", lambda d: _cli([*surface_argv, "--out", d]),
+                read_replay, tmp),
+            "cli_posegraph": _cli_compare(
+                "cli_posegraph", lambda d: _cli(
+                    ["posegraph", "--log", GRAND_TOUR, "--particles",
+                     str(pg_particles), "--map-size", "14", "--seed",
+                     str(SEED), "--device", dev, "--out", d]),
+                read_posegraph, tmp)}
+
         # recovery: a fault after scan 6 has drawn its numbers
         eng = RBPF(cfg, device=dev)
         batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
@@ -2992,15 +3294,26 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
             robot.close()
         return app
 
-    app = counted("cli_live", live)
+    with _cli_steps() as steps:
+        app = counted("cli_live", live)
+    live_launches = {}
+    if dev == "cuda":               # a frame's host launches, both steps
+        for mode in ("captured", "eager"):
+            with _cli_steps(eager=mode == "eager"):
+                _, live_launches[mode] = _host_launches_a_scan(live)
     tr = app.trajectory_array()
+    cap = steps[0].captured
     out["cli_live"] = dict(frames=app.frames_seen, final_pose=tr[-1].tolist()
                            if len(tr) else None,
                            finite=bool(np.isfinite(tr).all() and torch.isfinite(
-                               app.state.poses).all()))
+                               app.state.poses).all()),
+                           captures=cap.captures,
+                           kernel_nodes_in_graph=len(cap.kernel_names())
+                           if cap.graph is not None else 0,
+                           host_launches_a_frame=live_launches)
     sec = time.perf_counter() - t0
     say("cli", paths=out, launches=launches, ate_max_m=CLI_ATE_MAX_M,
-        seconds=sec)
+        captured_vs_eager=figures, seconds=sec)
 
     for path in ("cli_replay", "cli_load_map"):
         r = out[path]
@@ -3030,8 +3343,22 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
             and out["cli_recovery"]["bit_identical"]):
         raise AssertionError(f"cli_recovery: {out['cli_recovery']}")
     if not (out["cli_live"]["frames"] >= LIVE_FRAMES
-            and out["cli_live"]["finite"]):
+            and out["cli_live"]["finite"] and (dev != "cuda" or (
+                out["cli_live"]["captures"] == 1
+                and out["cli_live"]["kernel_nodes_in_graph"] > 0
+                and live_launches["captured"] < live_launches["eager"]))):
         raise AssertionError(f"cli_live: {out['cli_live']}")
+    for path, row in figures.items():
+        cap, eag = row["captured"], row["eager"]
+        eager_a_scan = eag["python_kernel_launches_a_scan"]
+        in_graph_ok = path == "cli_posegraph" or all(
+            cap["kernels_in_graph"][k] == eager_a_scan[k]
+            for k in KERNEL_SYMBOLS)
+        if not (row["eager_equals_captured"] and (dev != "cuda" or (
+                cap["captures"] == 1 and in_graph_ok
+                and cap["host_launches_a_scan"]
+                < eag["host_launches_a_scan"]))):
+            raise AssertionError(f"{path} on its captured step: {row}")
     surface_kernels = ("log_likelihood_field", "integrate_scan")
     for path, counts in launches.items():
         needed = {"cli_surface": surface_kernels,
@@ -3056,6 +3383,7 @@ def main() -> int:
     surface_ops_phase(eng, batches, state)
     surface_agree_phase(eng, batches, state)
     del eng, batches, state
+    k4_row = k4_phase(frames)
     from gridmap_slam_tpu_torch import city_config
     by_path["mega"], room_loop = mega_phase(frames, gt)
     by_path["city"], eng, state, seq, _ = surface_path(
@@ -3077,6 +3405,7 @@ def main() -> int:
     par_launches, tile_row = parallel_phase(frames, pg_graph)
     by_path.update(par_launches)
     rows.append(tile_row)
+    rows.append(k4_row)
     by_path.update(cli_phase(cfg, frames, room_loop, pg_first))
     for row in rows:
         row["max_abs_err"] = max(row["max_abs_err"],

@@ -14,8 +14,10 @@ hooks have no headless analog; interactive input is the teleop controller
 
 Counterpart of gridmap_slam_tpu/app/application.py: the engine runs on its
 own device (the card unless it was built with device="cpu"), its draws come
-from a torch.Generator on that device seeded at init, and the pose is read
-back to the host once a frame.
+from a torch.Generator on that device seeded at init, each frame is one
+replay of the step captured as a CUDA graph at the first frame
+(`compiled_step`, the counterpart of `jax.jit(engine.step)`), and the pose
+is read back to the host once a frame.
 """
 
 from __future__ import annotations
@@ -24,6 +26,17 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+
+def compiled_step(engine):
+    """The engine's step as the applications run it: `engine.step_jit()`,
+    its step (as the engine routes it) captured as a CUDA graph on the
+    card and the same static-buffer step on the CPU, with the eager step's
+    bits; the state it returns is the capture's buffer, which the next
+    call consumes.  An engine without `step_jit` (the CLI's distributed
+    engines) steps eagerly."""
+    step_jit = getattr(engine, "step_jit", None)
+    return engine.step if step_jit is None else step_jit()
 
 
 class SlamApplication:
@@ -45,6 +58,7 @@ class SlamApplication:
         self.view = view
         self._on_dispose = list(on_dispose)
         self.generator: Optional[torch.Generator] = None
+        self._step = None
         self.state = None
         self.trajectory: list[np.ndarray] = []
         self.frames_seen = 0
@@ -53,8 +67,9 @@ class SlamApplication:
 
     # ---------------------------------------------------- lifecycle
     def init(self, seed: int = 0, pose=(0.0, 0.0, 0.0), state=None) -> None:
-        """Create engine state and the generator the steps draw from, seeded
-        with `seed` on the engine's device (GridMapApp.init).
+        """Create engine state, the generator the steps draw from, seeded
+        with `seed` on the engine's device, and the captured step
+        (GridMapApp.init).
 
         Pass `state` to adopt an existing one (e.g. the CLI's
         --load-map-initialized state) instead of creating it."""
@@ -62,6 +77,7 @@ class SlamApplication:
             device=self.engine.device).manual_seed(seed)
         self.state = (state if state is not None
                       else self.engine.init(pose=pose))
+        self._step = compiled_step(self.engine)
 
     def on_frame(self, frame) -> None:
         """One SLAM update for one arriving frame (GridMapApp.onHandleData).
@@ -75,8 +91,8 @@ class SlamApplication:
         batch = frames_to_device([frame], self.cfg.max_beams,
                                  self.cfg.sensor.max_range,
                                  device=self.engine.device)
-        self.state, info = self.engine.step(self.state, frame_at(batch, 0),
-                                            self.generator)
+        self.state, info = self._step(self.state, frame_at(batch, 0),
+                                      self.generator)
         self.last_info = info
         self.frames_seen += 1
         self.trajectory.append(info.weighted_pose.cpu().numpy())

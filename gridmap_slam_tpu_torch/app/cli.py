@@ -7,8 +7,11 @@ desktop app shell, core/Main2 + app/GridMapApp): wires a data source
 emits maps/trajectories/metrics — headless PNG + JSON instead of an OpenGL
 window.  The engine runs on the card unless `--device cpu` is given; one
 torch.Generator on the engine's device, seeded by `--seed`, feeds every
-step of a run.  The distributed engines (shmap, shmap-surface, tiled,
-surface-sharded) are not in the port yet: choosing one exits non-zero.
+step of a run.  Each scan is one replay of the engine's step captured as a
+CUDA graph (`step_jit`, the counterpart of the JAX CLI's `jax.jit(eng.
+step)`; on the CPU the same static-buffer step), with the eager run's
+bits; the distributed engines (shmap, shmap-surface, tiled,
+surface-sharded) step eagerly.
 
 Usage:
   python -m gridmap_slam_tpu_torch.app.cli replay --log maps/room_loop_40.rec \\
@@ -137,6 +140,22 @@ def _host_scan(scan):
                 scan.valid.cpu())
 
 
+def _overlay(frame, traj, dev):
+    """The deskewed scan of the frame whose estimate is traj[-1], and its
+    raw (uncorrected) pose: the previous estimate advanced by odometry
+    alone, the reference's blue scan overlay baseline
+    (app/GridMapApp.java:396-412).  Taken only where they are read: the
+    live view, and the last scan for the final map."""
+    import torch
+    from ..ops.geometry import deskew_scan
+    from ..ops.motion import apply_odometry
+
+    prev = traj[-2] if len(traj) > 1 else np.zeros(3)
+    raw = apply_odometry(torch.as_tensor(prev, dtype=torch.float32,
+                                         device=dev), frame.odom)
+    return deskew_scan(frame.scan, frame.odom), raw.cpu().numpy()
+
+
 def _run_frames(cfg, eng, state, frames, out_dir: Path, gt=None,
                 label: str = "replay", live_view=None,
                 map_view: str = "occupancy", map_select: str = "best",
@@ -145,40 +164,38 @@ def _run_frames(cfg, eng, state, frames, out_dir: Path, gt=None,
     from ..io import frames_to_device, frame_at
     from ..utils.metrics import ScanTimer, ate_rmse
 
-    from ..ops.geometry import deskew_scan
-    from ..ops.motion import apply_odometry
+    from .application import compiled_step
 
     dev = eng.device
     batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
                              device=dev)
     generator = torch.Generator(device=dev).manual_seed(seed)
     on_card = dev.type == "cuda"
+    step = compiled_step(eng)
     traj = []
     neffs = []
     timer = ScanTimer()
     last_scan = last_raw = None
     for i in range(len(frames)):
         frame = frame_at(batch, i)
-        # raw (uncorrected) pose: previous estimate advanced by odometry
-        # alone — the reference's blue scan overlay baseline
-        # (app/GridMapApp.java:396-412)
-        prev = traj[-1] if traj else np.zeros(3)
-        last_raw = apply_odometry(
-            torch.as_tensor(prev, dtype=torch.float32, device=dev),
-            frame.odom).cpu().numpy()
         with timer:
-            state, info = eng.step(state, frame, generator)
+            # the state returned is the capture's buffer: every read of it
+            # comes before the next call
+            state, info = step(state, frame, generator)
             if on_card:         # else the timer measures the launches
                 torch.cuda.synchronize(dev)
         traj.append(info.weighted_pose.cpu().numpy())
         neffs.append(float(info.neff))
-        last_scan = deskew_scan(frame.scan, frame.odom)
         if live_view is not None:
+            last_scan, last_raw = _overlay(frame, traj, dev)
             live_view.update(eng.best_map(state).cpu().numpy(), traj[-1],
                              state.poses.cpu().numpy(), neffs[-1],
                              scan=_host_scan(last_scan), raw_pose=last_raw)
     if live_view is not None:
         live_view.finish()
+    elif traj:
+        last_scan, last_raw = _overlay(frame_at(batch, len(traj) - 1), traj,
+                                       dev)
     traj = np.stack(traj)
     if isinstance(eng, _MeshEngine):
         # every rank gathers the global state; rank 0 alone writes

@@ -32,19 +32,23 @@ resampled slots with uniform poses.
 
 `replay` / `replay_surface` run a stacked Frame batch as `jax.lax.scan`
 does (stacked infos); `replay_jit` / `replay_surface_jit` are their
-captured forms, one CUDA graph replayed once a scan (models/captured.py).
+captured forms, one CUDA graph replayed once a scan (models/captured.py),
+and `step_jit` captures one step.
 
 Host reads a scan: none.  Where the integration crop is smaller than the
 map (`city`), K2's window variant reads the crop's top-left cell from the
 card; the volume crop is sliced by index arithmetic on the card.
 
-Not ported here: surface_bf16, which raises ValueError.  Faults of the JAX
-package not copied: it feeds the recovery EMAs the max log-weight after
-weight accumulation (models/shared.py:434), so this engine refuses
-injection together with accumulate_weights=True; and its step_blocked
-(models/shared.py:577-654) skips the recovery EMAs, never injects and
-ignores freeze_map, where this engine's step_blocked is `step` with
-particle_chunk = block.
+With matcher.surface_bf16 the direct correlation takes bf16 products with
+float32 sums (kernel K4 on the card); the FFT correlation ignores it, as
+in the JAX package.
+
+Faults of the JAX package not copied: it feeds the recovery EMAs the max
+log-weight after weight accumulation (models/shared.py:434), so this engine
+refuses injection together with accumulate_weights=True; and its
+step_blocked (models/shared.py:577-654) skips the recovery EMAs, never
+injects and ignores freeze_map, where this engine's step_blocked is `step`
+with particle_chunk = block.
 """
 
 from __future__ import annotations
@@ -173,7 +177,8 @@ def surface_volume(cfg: SlamConfig, taps, logodds, scan: Scan, center):
                or (mc.surface_corr == "auto"
                    and nt * (2 * kc + 1) ** 2 * hc * wc > 2e10))
     c_vol = scan_surface(llf_crop, e_stack,
-                         math.log(1.0 / cfg.sensor.max_range), fft=use_fft)
+                         math.log(1.0 / cfg.sensor.max_range),
+                         bf16=mc.surface_bf16, fft=use_fft)
     tap_kw = dict(theta0=theta0, dtheta=dtheta, crop_iy0=iy0, crop_ix0=ix0,
                   resolution=res, origin=origin, wrap_theta=wrap_theta,
                   packed=pack_neighborhoods(c_vol, wrap_theta))
@@ -273,10 +278,6 @@ class SharedMapSLAM:
         mc = config.matcher
         if config.dtype != "float32":
             raise ValueError(f"the kernels take float32, got {config.dtype}")
-        if mc.surface_bf16:
-            raise ValueError("matcher.surface_bf16 is not ported: a bf16 "
-                             "conv2d on CUDA does not give the "
-                             "f32-accumulated volume it needs")
         self.injects = (mc.surface_reinject_slow > 0.0
                         and mc.surface_reinject_fast > 0.0)
         if self.injects and config.accumulate_weights:
@@ -584,6 +585,18 @@ class SharedMapSLAM:
         graph of step_surface (see replay_jit)."""
         return captured.replay_fn(captured.Captured(
             self._surface_scan_step, self._draw, self.device))
+
+    def step_jit(self):
+        """`step` as a captured graph, as `RBPF.step_jit`: (state, frame,
+        generator=None, draws=None) -> (state, info), the state the
+        capture's buffer, consumed and overwritten by the next call.  It
+        captures `step` as this instance routes it (the CLI's surface
+        engine sets `step` to `step_surface`)."""
+        return captured.step_fn(captured.Captured(
+            self._routed_scan_step, self._draw, self.device))
+
+    def _routed_scan_step(self, state, frame, draws, out):
+        return self.step(state, frame, draws=draws, out=out)
 
     def _draw(self, generator, out=None):
         return self._draws(generator, None, out)

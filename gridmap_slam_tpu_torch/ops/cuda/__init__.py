@@ -5,7 +5,9 @@ launch count:
 
 - `likelihood`  — K3, the log-likelihood field build (csrc/likelihood.cu);
 - `grid_update` — K2, the dense map update (csrc/grid_update.cu);
-- `matcher`     — K1, the correlative-match stage scores (csrc/matcher.cu).
+- `matcher`     — K1, the correlative-match stage scores (csrc/matcher.cu);
+- `surface_corr` — K4, the surface correlation with bf16 products and
+  float32 sums on the tensor cores (csrc/surface_corr.cu).
 
 The dispatching function of each module runs the plain version for a tensor
 on the CPU and the kernel for a tensor on the card; there is no fallback

@@ -63,6 +63,10 @@ SIGNATURES = {
     "gs_stage_scores_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # fpad, e, mass, out, part, Hp, Wp, K, nt, shift, then the launch
+    # plan: rows, chunk, chunks, ksteps, pitch_f, pitch_e, smem; stream
+    "gs_surface_corr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                        _I, _I, _I, _I, _P],
     # &sm_count, &smem_block, &smem_sm
     "gs_device_limits": [_P, _P, _P],
 }

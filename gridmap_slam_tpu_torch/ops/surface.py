@@ -9,14 +9,15 @@ is built over a theta-bin grid and every integer cell translation of a crop
 of the log-likelihood field (one correlation a scan, whatever the particle
 count), after which any pose's measurement log-likelihood is a trilinear
 sample of C (8 taps a particle).  The endpoint images are two-tap outer
-products (a batched matmul), and the correlation runs as an f32 conv2d or
-as an FFT (torch.fft).  None of this is a TPU kernel in the JAX package;
-the map operations around it (field build K3, map update K2) are.
+products (a batched matmul), and the correlation runs as an f32 conv2d, as
+an FFT (torch.fft) or, with `bf16`, as bf16 products with float32 sums
+(kernel K4 on the card, ops/cuda/surface_corr.py).  None of this is a TPU
+kernel in the JAX package; the map operations around it (field build K3,
+map update K2) are.
 
-Both correlation modes are honest float32 on a CUDA device whatever the
-global TF32 flags say: the conv runs under a local cuDNN flag and the
-splat under a local matmul flag.  `surface_bf16` is not ported
-(SharedMapSLAM refuses it).
+The float32 modes are honest float32 on a CUDA device whatever the global
+TF32 flags say: the conv runs under a local cuDNN flag and the splat under
+a local matmul flag.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from .cuda.surface_corr import surface_corr_bf16
 from .precision import f32_conv, f32_matmul
 
 
@@ -107,7 +109,8 @@ def _fft_size(n: int) -> int:
     return p2 if s5 >= 0.875 * p2 else s5
 
 
-def scan_surface(llf_crop, e_stack, ll_outside: float, fft: bool = False):
+def scan_surface(llf_crop, e_stack, ll_outside: float, bf16: bool = False,
+                 fft: bool = False):
     """Correlate the cropped LL field with every theta bin's endpoint image.
 
     llf_crop: (Hc, Wc); e_stack: (nt, K, K) with K = 2*kc + 1.
@@ -115,7 +118,12 @@ def scan_surface(llf_crop, e_stack, ll_outside: float, fft: bool = False):
     position is cell (iy, ix) of the crop at theta bin t.  The field is
     padded by kc with ll_outside, so endpoints past the crop read the
     out-of-map constant.  fft=True correlates by rfft2/irfft2 at the
-    lengths of `_fft_size`; otherwise by an f32 conv2d."""
+    lengths of `_fft_size`, whatever `bf16` says (the JAX order of
+    branches).  Otherwise bf16=True correlates at bf16 precision with
+    float32 sums (surface_corr_bf16: K4 on the card) with the field
+    shifted by -ll_outside / 2 to centre its range on zero, and subtracts
+    the exact shift mass (each bin's float32 endpoint weight, taken before
+    the rounding) back; else an f32 conv2d."""
     kc = (e_stack.shape[-1] - 1) // 2
     fpad = F.pad(llf_crop, (kc, kc, kc, kc), value=ll_outside)
     hc, wc = llf_crop.shape
@@ -125,6 +133,10 @@ def scan_surface(llf_crop, e_stack, ll_outside: float, fft: bool = False):
         e_hat = torch.fft.rfft2(e_stack, s=(h2, w2))
         out = torch.fft.irfft2(f_hat[None] * torch.conj(e_hat), s=(h2, w2))
         return out[:, :hc, :wc].to(torch.float32)
+    if bf16:
+        shift = -0.5 * ll_outside
+        mass = torch.sum(e_stack, dim=(-2, -1))          # (nt,) = sum_b w_b
+        return surface_corr_bf16(fpad, e_stack, shift, mass)
     # conv2d cross-correlates: out[t, y, x] = sum fpad[y+dy, x+dx] E[t, dy, dx]
     with f32_conv():
         out = F.conv2d(fpad[None, None], e_stack[:, None])

@@ -13,7 +13,8 @@ parallel/tiled.py) and the particles over 'p'.  Per scan:
 - LL field: K3 on the assembled crop, redundantly on every rank;
 - correlation: split over 'm' by theta bin (nt padded up to a multiple of
   n_m; a padded bin repeats the last bin's theta and is dropped after the
-  gather), then one all_gather over 'm' (:183);
+  gather), then one all_gather over 'm' (:183); with matcher.surface_bf16
+  the direct correlation of a rank's bins runs in bf16 (K4), as :181-182;
 - taps, weights and resampling over 'p' as parallel/shmap.py;
 - map update: K2's window variant on each tile's crop of 2 kc + 8 cells
   (or the whole tile) around the integration pose, placed on the card, at
@@ -110,7 +111,8 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh):
         px, py = scan_points(scan)
         wgt = (scan.valid & scan.hit).to(llf_crop.dtype)
         e_stack = splat_endpoint_kernels(px, py, wgt, thetas, kc, res)
-        c_local = scan_surface(llf_crop, e_stack, ll_outside, fft=use_fft)
+        c_local = scan_surface(llf_crop, e_stack, ll_outside,
+                               bf16=mc.surface_bf16, fft=use_fft)
         c_vol = all_gather(c_local, mesh, "m", tiled=True)[:nt]
         kw = dict(theta0=theta0, dtheta=dtheta, crop_iy0=iy0, crop_ix0=ix0,
                   resolution=res, origin=origin, wrap_theta=wrap_theta,

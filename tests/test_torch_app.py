@@ -213,6 +213,133 @@ def test_cli_live_through_loopback(tmp_path, monkeypatch, capsys):
     assert (tmp_path / "live.rec").exists()
 
 
+# ------------------------------------------------ the captured step
+def _eager_run(eng, frames, seed, state=None):
+    """The engine's eager step (as the engine routes it) called directly
+    over host frames from `state` (default eng.init()), drawing from one
+    generator seeded `seed`, as the CLI's run: (state, trajectory, Neffs)."""
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+
+    cfg = eng.config
+    b = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range)
+    gen = torch.Generator().manual_seed(seed)
+    st = eng.init() if state is None else state
+    traj, neffs = [], []
+    for i in range(len(frames)):
+        st, info = eng.step(st, frame_at(b, i), gen)
+        traj.append(info.weighted_pose.numpy())
+        neffs.append(float(info.neff))
+    return st, np.stack(traj), neffs
+
+
+@pytest.fixture
+def captured_steps(monkeypatch):
+    """The (engine, step) pairs application.compiled_step hands out."""
+    from gridmap_slam_tpu_torch.app import application
+    real = application.compiled_step
+    taken = []
+
+    def spy(engine):
+        taken.append((engine, real(engine)))
+        return taken[-1][1]
+    monkeypatch.setattr(application, "compiled_step", spy)
+    return taken
+
+
+@pytest.mark.parametrize("case", ["replay_rbpf", "replay_surface", "synth",
+                                  "posegraph"])
+def test_cli_steps_through_the_captured_step(tmp_path, synth_log,
+                                             captured_steps, case):
+    """replay (RBPF and surface), synth and posegraph's filter run the
+    engine's step captured (step_jit: on the CPU its static-buffer loop)
+    and give the eager step's trajectory, metrics but the times, and saved
+    map bit for bit."""
+    from gridmap_slam_tpu_torch.io import read_map_checkpoint, read_recording
+    from gridmap_slam_tpu_torch.io.synthetic import (SimParams,
+                                                     simulate_log,
+                                                     square_path_controls)
+    from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
+
+    log = str(synth_log[0] / "log.rec")
+    out = tmp_path / "out"
+    sim = ["--revs", "4", "--beams", "60"]
+    surface = ["--engine", "surface", "--particles", "64", "--set",
+               "matcher.surface_nt=9", "--set", "sensor.max_range=5.0",
+               "--resolution", "0.1", "--max-beams", "64"]
+    argv, label = {
+        "replay_rbpf": (["replay", "--log", log, *SMALL, "--save-map",
+                         str(tmp_path / "m.map")], "replay"),
+        "replay_surface": (["replay", "--log", log, *surface, "--save-map",
+                            str(tmp_path / "m.map")], "replay"),
+        "synth": (["synth", *sim, *SMALL], "synth"),
+        "posegraph": (["posegraph", *sim, "--particles", "8",
+                       "--max-beams", "64"], "pg_online"),
+    }[case]
+    main([*argv, "--out", str(out), "--seed", "3", *CPU])
+    (eng, step), = captured_steps
+    assert step.captured.captures == 0 and step.captured.capacity == 1
+    if case.startswith("replay"):
+        frames, gt = read_recording(log), None
+    else:
+        frames, gt = simulate_log(default_world(), square_path_controls(4),
+                                  params=SimParams(beams_per_rev=60), seed=3)
+    state, traj, neffs = _eager_run(eng, frames, 3)
+    np.testing.assert_array_equal(np.load(out / f"{label}_trajectory.npy"),
+                                  traj)
+    metrics = json.loads((out / f"{label}_metrics.json").read_text())
+    assert metrics["frames"] == len(frames)
+    assert metrics["final_neff"] == neffs[-1]
+    assert metrics["final_pose"] == traj[-1].tolist()
+    if gt is not None:
+        assert metrics["ate_rmse_m"] == ate_rmse(traj, gt)
+    if case.startswith("replay"):
+        _, saved = read_map_checkpoint(tmp_path / "m.map")
+        np.testing.assert_array_equal(
+            saved, eng.best_map(state).numpy().astype(np.float64))
+
+
+def test_application_steps_through_the_captured_step(captured_steps):
+    """SlamApplication fed by the loopback robot through RobotLink and
+    SlamPipeline steps through the captured step (captured at its first
+    frame) and gives the eager step's states and trajectory."""
+    from gridmap_slam_tpu_torch import RBPF, SlamConfig
+    from gridmap_slam_tpu_torch.app.application import SlamApplication
+    from gridmap_slam_tpu_torch.app.pipeline import (LoopbackRobot,
+                                                     RobotLink, SlamPipeline)
+
+    robot = LoopbackRobot(default_world(), range_noise_sd=0.01)
+    link = RobotLink(robot.host_sock)
+    pipe = SlamPipeline(link)
+    cfg = SlamConfig(num_particles=8, max_beams=64)
+    app = SlamApplication(cfg, RBPF(cfg, device="cpu"))
+    app.init(seed=5)
+    frames = []
+    pipe.subscribe(frames.append)
+    pipe.subscribe(app.on_frame)
+    pipe.start()
+    try:
+        link.set_resolution(4)
+        link.set_speeds(1.0, 1.0)
+        link.sensor_enable()
+        deadline = time.monotonic() + 60.0
+        while app.frames_seen < 4 and time.monotonic() < deadline:
+            pipe.handle_events(1)
+            time.sleep(0.002)
+        link.sensor_disable()
+    finally:
+        app.dispose()
+        pipe.stop()
+        link.close()
+        robot.close()
+    assert app.frames_seen == len(frames) >= 4
+    (eng, step), = captured_steps
+    assert step is app._step and step.captured.capacity == 1
+    state, traj, _ = _eager_run(eng, frames, 5)
+    np.testing.assert_array_equal(app.trajectory_array(), traj)
+    for name in ("poses", "log_weights", "logodds", "step"):
+        assert torch.equal(getattr(app.state, name), getattr(state, name))
+
+
 # ------------------------------------------------ copies of the app shell
 class TestRecorder:
     def test_record_and_save_load(self, tmp_path):

@@ -37,6 +37,7 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -586,6 +587,7 @@ def test_inject_uniform_slot_offset_matches_jax():
 _DCN_RANK = r"""
 import json, sys, torch
 torch.set_num_threads(1)
+import torch.distributed as dist
 from gridmap_slam_tpu_torch.parallel import dcn
 from gridmap_slam_tpu_torch.parallel.tiled import init_tiled, make_tiled_step
 from tests.test_torch_parallel import log_frames, matcher_config
@@ -602,32 +604,62 @@ st = init_tiled(eng, mesh)
 step = make_tiled_step(eng, mesh)
 for i in range(2):
     st, info = step(st, frame_at(b, i), torch.Generator().manual_seed(i))
+# leave the world together: a rank closes its gloo connections only when
+# the other has finished every collective (told through a file store, not
+# through those connections), so none reads a closed socket
+done = dist.FileStore(sys.argv[3], 2)
+done.set(f"rank{rank}", "done")
+done.wait(["rank0", "rank1"])
+dist.destroy_process_group()
 print("DCN_OK", json.dumps({"neff": float(info.neff),
-      "pose": info.weighted_pose.tolist(), "mesh": list(mesh.shape)}))
+      "pose": info.weighted_pose.tolist(), "mesh": list(mesh.shape)}),
+      flush=True)
 """
+DCN_TIMEOUT = 300
 
 
 def test_two_process_dcn_tiled_step(tmp_path):
     """dcn.initialize over a file rendezvous joins two processes, the
     multi-host mesh puts both on 'm', and the tiled step's replicated
-    outputs agree (tests/test_dcn.py's counterpart)."""
+    outputs agree (tests/test_dcn.py's counterpart).  Each rank writes to a
+    file of its own and both are watched together, as parallel/launch.py
+    does: a rank that fails is reported at once with its output, and
+    neither can block on a full pipe while the test waits on the other."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), LOCAL_WORLD_SIZE="2")
     init = f"file://{tmp_path}/rendezvous"
-    procs = [subprocess.Popen([sys.executable, "-c", _DCN_RANK, str(r), init],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+    logs = [open(tmp_path / f"rank{r}.log", "w+") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", _DCN_RANK, str(r), init,
+                               str(tmp_path / "left")],
+                              stdout=logs[r], stderr=subprocess.STDOUT,
                               text=True, env=env, cwd=str(ROOT))
              for r in range(2)]
-    outs = []
+
+    def output(r):
+        logs[r].seek(0)
+        return logs[r].read()
+
+    deadline = time.monotonic() + DCN_TIMEOUT
     try:
-        for p in procs:
-            out, err = p.communicate(timeout=300)
-            assert p.returncode == 0, err[-3000:]
-            outs.append(next(ln for ln in out.splitlines()
-                             if ln.startswith("DCN_OK")))
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            assert not bad, (f"rank {bad[0]} failed "
+                             f"({procs[bad[0]].returncode}):\n"
+                             f"{output(bad[0])[-3000:]}")
+            assert time.monotonic() < deadline, (
+                f"the ranks passed {DCN_TIMEOUT} s:\n{output(0)[-1500:]}\n"
+                f"{output(1)[-1500:]}")
+            time.sleep(0.05)
+        for r, p in enumerate(procs):
+            assert p.returncode == 0, output(r)[-3000:]
+        outs = [next(ln for ln in output(r).splitlines()
+                     if ln.startswith("DCN_OK")) for r in range(2)]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
     got = [json.loads(ln.split(" ", 1)[1]) for ln in outs]
     assert got[0] == got[1] and got[0]["mesh"] == [1, 2]
     assert np.isfinite(got[0]["neff"])

@@ -243,15 +243,10 @@ def test_init_matches():
         eng.init_from_map(lo[:, :20])
 
 
-@pytest.mark.parametrize("bad", ["surface_bf16", "inject_accumulate"])
+@pytest.mark.parametrize("bad", ["inject_accumulate"])
 def test_unported_configurations_raise(bad):
-    if bad == "surface_bf16":
-        cfg = SlamConfig().with_overrides({"matcher.surface_bf16": True})
-        match = "surface_bf16 is not ported"
-    else:
-        cfg = SlamConfig(accumulate_weights=True).with_overrides(_INJECT)
-        match = "models/shared.py:434"
-    with pytest.raises(ValueError, match=match):
+    cfg = SlamConfig(accumulate_weights=True).with_overrides(_INJECT)
+    with pytest.raises(ValueError, match="models/shared.py:434"):
         SharedMapSLAM(cfg, device="cpu")
 
 

@@ -139,17 +139,19 @@ def test_scan_surface_matches(fft):
 
 
 def test_scan_surface_bf16_refused():
-    """surface_bf16 is refused once, by the engine; scan_surface has only
-    the float32 path and no bf16 switch."""
+    """surface_bf16 is refused nowhere: the engine takes it, and
+    scan_surface's bf16 switch gives a float32 volume of the float32
+    correlation's shape (its values are held to JAX in
+    tests/test_torch_surface_corr.py)."""
     cfg = config_from_jax(JSlamConfig().with_overrides(
         {"matcher.surface_bf16": True}))
-    with pytest.raises(ValueError, match="surface_bf16 is not ported"):
-        ts.SharedMapSLAM(cfg, device="cpu")
+    assert ts.SharedMapSLAM(cfg, device="cpu").config.matcher.surface_bf16
     llf = _llf()
     e, _ = _splats(np.zeros(1, np.float32), 5)
-    assert tsf.scan_surface(_t(llf), e, LL_OUT).dtype == torch.float32
-    with pytest.raises(TypeError):
-        tsf.scan_surface(_t(llf), e, LL_OUT, bf16=True)
+    f32 = tsf.scan_surface(_t(llf), e, LL_OUT)
+    bf16 = tsf.scan_surface(_t(llf), e, LL_OUT, bf16=True)
+    assert f32.dtype == bf16.dtype == torch.float32
+    assert f32.shape == bf16.shape
 
 
 # ------------------------------------------------------ sampling
