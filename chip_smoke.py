@@ -8,8 +8,8 @@ Phases, each printed on its own line:
    registers, shared memory and spills of each K1 instantiation (shared
    and global variant), of K2's two (four cells a thread, one cell), of
    K3's nine (radius 1 to 4 compiled in, each staging by 128-bit loads or
-   cell by cell, and any radius) and of K4's two (the correlation, the
-   chunk sum) from `-Xptxas -v`; a spill in K2, K3 or K4 fails the run;
+   cell by cell, and any radius) and of K4's two (the prologue, the
+   correlation) from `-Xptxas -v`; a spill in K2, K3 or K4 fails the run;
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of the parity preset (500 particles, 120 x 120 maps,
    2048 bearing bins, the three matcher stages, score_pose's single
@@ -42,18 +42,26 @@ Phases, each printed on its own line:
    lengths of the mega and city volumes;
 8. surface agree — one surface-mode step on the card against the same step
    on the CPU, from the same state and draws, at 4096 particles;
-8a. k4 — K4, the bf16 surface correlation on the tensor cores: a
-   mega_bf16 engine (mega_config() with the direct correlation in bf16, 1M
-   particles) runs 3 scans, its fourth step's kernel calls are recorded
+8a. k4 — K4, the bf16 surface correlation on the tensor cores (a
+   prologue that lists the endpoint images' live 16-tap groups, and the
+   correlation over those alone): a mega_bf16 engine (mega_config() with
+   the direct correlation in bf16, 1M particles) runs 3 scans and a
+   city_bf16 engine (city_config(), the same override: a 916 x 916 field)
+   1, the next step of each is recorded (K4's two kernels launched once)
    and K4, K3 and K2 held against their plain versions on those very
-   arguments; K4 again at K4_SHAPES (nt 1, 5, 7 and 16, K 7, 25, 51 and
-   64, crops not square, one shape on every tile of the kernel), each
-   with its error, tolerance and launch plan, twice (the same bits); its
-   time at the step's shapes beside its bound (operations at the bf16
-   tensor-core peak) and share, its plain version's, the one PyTorch call
-   that computes the same function (cuDNN's float32 conv2d of the rounded
-   operands) and, for context, a bf16 conv2d and the float32 FFT at that
-   crop; a fifth step runs under the sync check;
+   arguments; K4 again at K4_SHAPES (nt 1, 5, 7, 9 and 16, K 7, 25, 51,
+   64 and 101, crops not square, one dense shape on every tile of the
+   kernel, one sparse splat of random beams), each with its error,
+   tolerance, launch plan, its prologue against the plain preparation and
+   the share of live groups, twice (the same bits); its time at both
+   steps' shapes (CUDA events around calls from Python, as every kernel's
+   "ms", and device time inside a CUDA graph) beside its bound (the
+   nonzero taps' products at the bf16 tensor-core peak, or the bytes) and
+   share, the dense product count for context, its plain version's, the
+   one PyTorch call that computes the same function (cuDNN's float32
+   conv2d of the rounded operands) and, at mega, for context, a bf16
+   conv2d and the float32 FFT at that crop; one more step of each engine
+   runs under the sync check;
 9. mega   — SharedMapSLAM(mega_config(), device="cuda").run_log: 1M
    particles on the 120 x 120 map over the 12-scan log, then over the 40
    scans of maps/room_loop_40.rec; a second run with the same seed must
@@ -102,7 +110,8 @@ Phases, each printed on its own line:
    particles, SharedMapSLAM.replay_surface_jit at mega (the 12-scan log
    and the 40 scans of room_loop_40.rec), at mega with two refine steps,
    at mega_bf16 (K4 a scan) and mega_direct (the float32 direct
-   correlation) and at city, SharedMapSLAM.replay_jit(block=500 000) at
+   correlation), at city and city_bf16 (K4 a scan),
+   SharedMapSLAM.replay_jit(block=500 000) at
    mega_blocked over 6 scans, MultiRobotSLAM.replay_jit at 10 000 a
    robot; each against its eager loop from one seed in this process:
    every field of the final state and of every stacked info equal in
@@ -164,7 +173,7 @@ Phases, each printed on its own line:
 
 Each path (parity, mega, city, mega_blocked, multi at each particle count,
 the posegraph flow's three parts: the filter, closure detection, the
-rebuild; chip; the captured phase's ten, captured_<path>, counted over
+rebuild; chip; the captured phase's eleven, captured_<path>, counted over
 the call that warms up and captures; the parallel phase's five: shmap,
 shmap_surface, tiled, surface_sharded, sharded; the cli phase's eight: cli_replay,
 cli_load_map, cli_surface, cli_tiled, cli_surface_sharded, cli_posegraph,
@@ -233,12 +242,16 @@ FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 # peak (NVIDIA's data sheet), not the FP32 units'.
 BF16_TC_FLOPS = 989e12
 # K4 against its plain version: the direct correlation's float32 bound
-# (tests/test_torch_surface_corr.py); its shapes beside a mega_bf16 step's:
-# (nt, K, Hc, Wc) with nt and K no multiples of 8 and 16, crops not
-# square, and one shape with every dimension on the kernel's tiles
+# (tests/test_torch_surface_corr.py); its shapes beside a mega_bf16 and a
+# city_bf16 step's: (nt, K, Hc, Wc, images) with nt and K no multiples of 8
+# and 16, crops not square, one shape with every dimension on the kernel's
+# tiles (dense: one tap in ten nonzero, so nearly every 16-tap group is
+# live) and one sparse shape, a splat of K4_SPLAT_BEAMS random beams
 K4_RTOL, K4_ATOL = 1e-5, 1e-3
-K4_SHAPES = ((1, 7, 10, 13), (5, 51, 17, 29), (7, 25, 40, 31),
-             (16, 64, 128, 128))
+K4_SHAPES = ((1, 7, 10, 13, "random"), (5, 51, 17, 29, "random"),
+             (7, 25, 40, 31, "random"), (16, 64, 128, 128, "random"),
+             (9, 101, 37, 45, "splat"))
+K4_SPLAT_BEAMS = 60
 # Float operations (an FMA counted as two) a K1 sample: bilinear: 2
 # coordinate adds, 2 floors, 2 fraction subtractions, 3 lerps (a
 # subtraction and an FMA each), the add into the sum; nearest: 2 adds, 2
@@ -309,9 +322,10 @@ def build_phase() -> None:
     K3's (radius 1 to 4 compiled in, staged by 128-bit loads or cell by
     cell, and any radius) are summed up on the
     build line; K1's untiled and tile variants, K2's whole-map and window
-    variants, K4's correlation and its chunk sum.  K1's, K3's and K4's
+    variants, K4's prologue and correlation.  K1's, K3's and K4's
     shared memory is dynamic: a call's plan sets it.  A spill in K2, K3 or
-    K4 fails the run."""
+    K4 fails the run.  K4 is its prologue (surface_corr_prep) and the
+    correlation (surface_corr_kernel)."""
     from gridmap_slam_tpu_torch.ops.cuda import _build
     from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
     t0 = time.perf_counter()
@@ -319,7 +333,7 @@ def build_phase() -> None:
     _build.library()
     k1, k2, k3, k4 = [], [], [], []
     for name, use in sorted(_build.ptxas_usage(log).items()):
-        m = re.search(r"surface_corr_(kernel|sum)", name)
+        m = re.search(r"surface_corr_(kernel|prep)", name)
         if m:
             k4.append(dict(kernel=m.group(0), **use))
         m = re.search(r"stage_scores_kernelILb([01])ELb([01])ELi(\d)ELb([01])E",
@@ -400,16 +414,28 @@ def k2w_bound(args, kw):
 
 
 def k4_bound(args, kw=None):
-    """K4's bound: a multiply and an add for each of the nt K^2 Hc Wc
-    products, over the dense bf16 tensor-core peak; the field, the
-    endpoint images and the masses read once and the volume written
-    once."""
+    """K4's bound on these arguments: a multiply and an add for each
+    product of a nonzero (bf16-rounded) tap with a crop cell, 2 nnz Hc Wc
+    summed over the bins (a zero tap's products add nothing), over the
+    dense bf16 tensor-core peak; the field, the endpoint images and the
+    masses read once and the volume written once."""
+    from gridmap_slam_tpu_torch.ops.cuda.surface_corr import round_bf16
     fpad, e_stack, _, mass = args
     nt, k = e_stack.shape[0], e_stack.shape[1]
     hc, wc = fpad.shape[0] - k + 1, fpad.shape[1] - k + 1
-    return _bound(2.0 * nt * k * k * hc * wc,
+    nnz = int((round_bf16(e_stack) != 0).sum())
+    return _bound(2.0 * nnz * hc * wc,
                   _nbytes([fpad, e_stack, mass]) + nt * hc * wc * 4,
                   BF16_TC_FLOPS)
+
+
+def k4_dense_ms(args) -> float:
+    """For context, not a bound: the nt K^2 Hc Wc products of the dense
+    correlation (zero taps included) at the dense bf16 tensor-core peak."""
+    fpad, e_stack = args[0], args[1]
+    nt, k = e_stack.shape[0], e_stack.shape[1]
+    hc, wc = fpad.shape[0] - k + 1, fpad.shape[1] - k + 1
+    return 2.0 * nt * k * k * hc * wc / BF16_TC_FLOPS * 1e3
 
 
 def _taps_inside(n: int, r: int) -> int:
@@ -1145,115 +1171,259 @@ def bf16_config(bf16: bool = True):
                                          "matcher.surface_bf16": bf16})
 
 
-def _k4_inputs(nt, k, hc, wc, rng):
-    """A padded field in [log(1/10), 0] and endpoint images with one cell in
-    ten weighted in [0, 1), on the card, and K4's other arguments."""
+def city_bf16_config():
+    """city with the direct correlation in bf16 on K4 (city_bf16): a
+    (916, 916) padded field, 25 bins of 405 x 405 taps."""
+    from gridmap_slam_tpu_torch import city_config
+    return city_config().with_overrides({"matcher.surface_corr": "direct",
+                                         "matcher.surface_bf16": True})
+
+
+def _k4_inputs(nt, k, hc, wc, images, rng):
+    """A padded field in [log(1/10), 0] and endpoint images on the card, and
+    K4's other arguments.  images "random": one cell in ten weighted in
+    [0, 1); "splat": the bilinear splat (ops/surface.py) of K4_SPLAT_BEAMS
+    beams at random bearings and ranges inside the kernel, over bins
+    +-0.3 rad."""
+    from gridmap_slam_tpu_torch.ops.surface import splat_endpoint_kernels
     fpad = torch.as_tensor(rng.uniform(math.log(0.1), 0.0, (
         hc + k - 1, wc + k - 1)).astype(np.float32), device="cuda")
-    e = rng.uniform(0.0, 1.0, (nt, k, k)) * (rng.uniform(size=(nt, k, k))
-                                             < 0.1)
-    e = torch.as_tensor(e.astype(np.float32), device="cuda")
+    if images == "splat":
+        kc = (k - 1) // 2
+        bearing = rng.uniform(-math.pi, math.pi, K4_SPLAT_BEAMS)
+        rng_cells = rng.uniform(0.2, 0.95, K4_SPLAT_BEAMS) * kc
+        beams = [torch.as_tensor(v.astype(np.float32), device="cuda")
+                 for v in (rng_cells * np.cos(bearing),
+                           rng_cells * np.sin(bearing),
+                           rng.uniform(0.5, 1.0, K4_SPLAT_BEAMS))]
+        e = splat_endpoint_kernels(*beams, torch.linspace(
+            -0.3, 0.3, nt, device="cuda"), kc, 1.0).contiguous()
+    else:
+        e = rng.uniform(0.0, 1.0, (nt, k, k)) * (rng.uniform(size=(nt, k, k))
+                                                 < 0.1)
+        e = torch.as_tensor(e.astype(np.float32), device="cuda")
     return fpad, e, -0.5 * math.log(0.1), e.sum((1, 2))
 
 
-def k4_phase(frames):
-    """K4 against its plain version on the card.  A mega_bf16 engine (1M
-    particles, the direct bf16 correlation) runs 3 scans; the fourth is
-    recorded (CallRecorder) and K4, K3 and K2 are held against their plain
-    versions on its very arguments (check_recorded), then K4 again at
-    K4_SHAPES.  Times (CUDA events) at the step's shapes: K4, its bound
-    and share, its plain version, the one PyTorch call that computes the
-    same function (cuDNN's float32 conv2d of the rounded operands, TF32
-    off) and, for context only, a bf16 conv2d (a bf16 volume) and the
-    float32 FFT correlation at that crop.  A fifth, warm step runs under
-    the sync check.  Returns K4's row of the kernels line."""
-    import torch.nn.functional as F
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() inside a CUDA graph of `reps` calls
+    (captured after warm-up): the launches' host time left out, which at
+    tens of microseconds a kernel would otherwise be what is timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
 
+
+def k4_kernels_ms(args, reps: int = 10) -> dict:
+    """Device ms a call of each of K4's kernels (the prologue, the
+    correlation) on `args`, from torch.profiler over `reps` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gridmap_slam_tpu_torch.ops.cuda import surface_corr as k4
+    k4.surface_corr_bf16_cuda(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            k4.surface_corr_bf16_cuda(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        m = re.search(r"surface_corr_(prep|kernel)", e.name)
+        if m and e.device_type == torch.autograd.DeviceType.CUDA:
+            out[m.group(0)] = (out.get(m.group(0), 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / reps)
+    return out
+
+
+def _recorded_k4(name, cfg, frames, warm):
+    """`warm` steps of SharedMapSLAM(cfg) on the card, then one step with
+    its kernel calls recorded (CallRecorder) and held against their plain
+    versions (check_recorded), then one more under the sync check.
+    Returns K4's recorded arguments, the step's launches and the checks."""
     from gridmap_slam_tpu_torch import SharedMapSLAM
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
-    from gridmap_slam_tpu_torch.ops import surface as sf
     from gridmap_slam_tpu_torch.ops.cuda import surface_corr as k4
-    from gridmap_slam_tpu_torch.ops.precision import f32_conv
 
-    eng = SharedMapSLAM(bf16_config(), device="cuda")
-    cfg = eng.config
+    eng = SharedMapSLAM(cfg, device="cuda")
     batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
                              device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     state = eng.init()
-    for i in range(3):
+    for i in range(warm):
         state, _ = eng.step_surface(state, frame_at(batch, i), gen)
     kernels = _zero_launches()
     torch.cuda.synchronize()
-    with CallRecorder("mega_bf16 step") as rec:
-        state, _ = eng.step_surface(state, frame_at(batch, 3), gen)
+    with CallRecorder(name) as rec:
+        state, _ = eng.step_surface(state, frame_at(batch, warm), gen)
     torch.cuda.synchronize()
     launches = {k: mod.launches for k, mod in kernels.items()}
-    if launches["surface_corr"] != 1:
-        raise AssertionError(f"a mega_bf16 step launched K4 "
-                             f"{launches['surface_corr']} times")
-    checks = check_recorded(rec, {"mega_bf16 step": launches})
+    if launches["surface_corr"] != k4.KERNELS:
+        raise AssertionError(f"a {name} launched K4's kernels "
+                             f"{launches['surface_corr']} times, not "
+                             f"{k4.KERNELS}")
+    checks = check_recorded(rec, {name: launches})
     args = next(a for _, kernel, a, _ in rec.calls if kernel == "K4")
-    state, _ = _sync_free(lambda: eng.step_surface(state, frame_at(batch, 4),
-                                                   gen))
-    del eng, state, rec
+    _sync_free(lambda: eng.step_surface(state, frame_at(batch, warm + 1),
+                                        gen))
+    return args, launches, [c for c in checks if c["kernel"] == "K4"]
+
+
+def _prep_differs(got, want) -> list:
+    """The buffers of two K4 preparations that differ (entries past a tap
+    row's count are not compared)."""
+    if not torch.equal(got.counts, want.counts):
+        return ["counts"]
+    kept = (torch.arange(got.ks.shape[-1], device=got.ks.device)
+            < got.counts[..., None])
+    bad = [] if torch.equal(got.field, want.field) else ["field"]
+    if not torch.equal(torch.where(kept, got.ks, 0),
+                       torch.where(kept, want.ks, 0)):
+        bad.append("ks")
+    keep = kept[..., None, None]
+    if not torch.equal(torch.where(keep, got.frags, 0),
+                       torch.where(keep, want.frags, 0)):
+        bad.append("frags")
+    return bad
+
+
+def _k4_case(name, args) -> dict:
+    """K4 on `args` against its plain version (twice: the same bits), its
+    prologue against the plain preparation, and the live groups."""
+    from gridmap_slam_tpu_torch.ops.cuda import surface_corr as k4
+    fpad, e, shift, mass = args
+    got = k4.surface_corr_bf16_cuda(fpad, e, shift, mass)
+    again = k4.surface_corr_bf16_cuda(fpad, e, shift, mass)
+    want = k4.surface_corr_bf16_plain(fpad, e, shift, mass)
+    err, mean, ok = _close(got, want, K4_RTOL, K4_ATOL)
+    plan = k4.plan_for(fpad, e)
+    prep = k4.prepare_bf16_cuda(fpad, e, shift)
+    live = int(prep.counts.sum())
+    row = dict(case=name, nt=e.shape[0], K=e.shape[1],
+               volume=list(got.shape[1:]), max_abs_err=err,
+               mean_abs_err=mean, max_abs=float(want.abs().max()),
+               rtol=K4_RTOL, atol=K4_ATOL, within=ok,
+               repeats_bitwise=bool(torch.equal(got, again)),
+               nonzero_taps=int((k4.round_bf16(e) != 0).sum()),
+               live_groups=live,
+               live_share=live / prep.counts.numel() / plan.ksteps,
+               live_tap_rows_share=float((prep.counts > 0).float().mean()),
+               prep_differs=_prep_differs(
+                   prep, k4.prepare_bf16_plain(fpad, e, shift, plan)),
+               plan=plan._asdict())
+    if not (ok and row["repeats_bitwise"] and not row["prep_differs"]):
+        say("k4", shapes=[row])
+        raise AssertionError(f"K4 at {name}: {row}")
+    return row
+
+
+def k4_phase(frames):
+    """K4 on the card.  A mega_bf16 engine (1M particles, the direct bf16
+    correlation) runs 3 scans and a city_bf16 engine 1; the next step of
+    each is recorded (CallRecorder: K4 launches its KERNELS kernels once,
+    K4, K3 and K2 held against their plain versions on its very
+    arguments) and one more runs under the sync check.  Then K4 on the two
+    steps' arguments and at K4_SHAPES, each against its plain version,
+    twice (the same bits), its prologue against the plain preparation
+    (bit for bit on the live groups), with the live groups' share.  Times
+    at both steps: K4 ("ms": CUDA events around back-to-back calls from
+    Python, as every kernel's ms in the kernels line; "graph_ms": device
+    time inside a CUDA graph of such calls, the launches' host time left
+    out), its bound from the call's own nonzero taps and its share of the
+    graph time, the dense product count at
+    the bf16 peak for context, its plain version, the one PyTorch call
+    that computes the same function (cuDNN's float32 conv2d of the rounded
+    operands, TF32 off) and, at mega, for context only, a bf16 conv2d (a
+    bf16 volume) and the float32 FFT at that crop.  Returns K4's row of
+    the kernels line."""
+    import torch.nn.functional as F
+
+    from gridmap_slam_tpu_torch.ops import surface as sf
+    from gridmap_slam_tpu_torch.ops.cuda import surface_corr as k4
+    from gridmap_slam_tpu_torch.ops.precision import f32_conv
+
+    args, launches, checks = _recorded_k4("mega_bf16 step", bf16_config(),
+                                          frames, 3)
+    city_args, city_launches, city_checks = _recorded_k4(
+        "city_bf16 step", city_bf16_config(), frames, 1)
+    torch.cuda.empty_cache()
 
     rng = np.random.default_rng(SEED + 4)
-    shapes = []
-    for name, (fpad, e, shift, mass) in (
-            [("mega_bf16 step", args)]
-            + [(f"nt {nt} K {k} {hc}x{wc}", _k4_inputs(nt, k, hc, wc, rng))
-               for nt, k, hc, wc in K4_SHAPES]):
-        got = k4.surface_corr_bf16_cuda(fpad, e, shift, mass)
-        again = k4.surface_corr_bf16_cuda(fpad, e, shift, mass)
-        want = k4.surface_corr_bf16_plain(fpad, e, shift, mass)
-        err, mean, ok = _close(got, want, K4_RTOL, K4_ATOL)
-        shapes.append(dict(case=name, nt=e.shape[0], K=e.shape[1],
-                           volume=list(got.shape[1:]), max_abs_err=err,
-                           mean_abs_err=mean, max_abs=float(want.abs().max()),
-                           rtol=K4_RTOL, atol=K4_ATOL, within=ok,
-                           repeats_bitwise=bool(torch.equal(got, again)),
-                           plan=k4.plan_for(fpad, e)._asdict()))
-        if not (ok and shapes[-1]["repeats_bitwise"]):
-            say("k4", shapes=shapes)
-            raise AssertionError(f"K4 at {name}: {shapes[-1]}")
+    cases = ([("mega_bf16 step", args), ("city_bf16 step", city_args)]
+             + [(f"nt {nt} K {k} {hc}x{wc} {images}",
+                 _k4_inputs(nt, k, hc, wc, images, rng))
+                for nt, k, hc, wc, images in K4_SHAPES])
+    shapes = [_k4_case(name, a) for name, a in cases]
 
-    fpad, e, shift, mass = args
-    a = k4.round_bf16(fpad + shift)
-    b = k4.round_bf16(e)
+    def timings(a, big):
+        fpad, e, shift, mass = a
+        ra, rb = k4.round_bf16(fpad + shift), k4.round_bf16(e)
 
-    def library():
-        with f32_conv():
-            return F.conv2d(a[None, None], b[:, None])
+        def library():
+            with f32_conv():
+                return F.conv2d(ra[None, None], rb[:, None])
 
-    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
-    n = sf._fft_size(fpad.shape[0])
+        bound, by = k4_bound(a)
+        reps = 10 if big else 50
+        graph = graph_ms(lambda: k4.surface_corr_bf16_cuda(*a), reps)
+        row = dict(
+            ms=cuda_ms(lambda: k4.surface_corr_bf16_cuda(*a), reps),
+            graph_ms=graph, bound_ms=bound, bound_by=by,
+            share_of_bound=bound / graph,
+            kernels_ms=k4_kernels_ms(a),
+            dense_products_ms_at_bf16_peak=k4_dense_ms(a),
+            plain_ms=cuda_ms(lambda: k4.surface_corr_bf16_plain(*a), 3),
+            library_ms=cuda_ms(library, 3))
+        if not big:
+            ab, bb = ra.to(torch.bfloat16), rb.to(torch.bfloat16)
+            n = sf._fft_size(fpad.shape[0])
 
-    def fft():
-        f_hat = torch.fft.rfft2(fpad, s=(n, n))
-        e_hat = torch.fft.rfft2(e, s=(n, n))
-        return torch.fft.irfft2(f_hat[None] * torch.conj(e_hat), s=(n, n))
+            def fft():
+                f_hat = torch.fft.rfft2(fpad, s=(n, n))
+                e_hat = torch.fft.rfft2(e, s=(n, n))
+                return torch.fft.irfft2(f_hat[None] * torch.conj(e_hat),
+                                        s=(n, n))
 
-    ms = cuda_ms(lambda: k4.surface_corr_bf16_cuda(fpad, e, shift, mass), 50)
-    plain_ms = cuda_ms(lambda: k4.surface_corr_bf16_plain(fpad, e, shift,
-                                                          mass), 5)
-    library_ms = cuda_ms(library, 5)
-    bf16_conv_ms = cuda_ms(lambda: F.conv2d(ab[None, None], bb[:, None]), 5)
-    fft_ms = cuda_ms(fft, 20)
-    bound, by = k4_bound(args)
-    say("k4", shapes=shapes, ms=ms, bound_ms=bound, bound_by=by,
-        share_of_bound=bound / ms, plain_ms=plain_ms,
-        library_ms=library_ms, library="cuDNN float32 conv2d of the "
-        "rounded operands (TF32 off)", bf16_conv2d_ms=bf16_conv_ms,
-        fft_f32_ms=fft_ms, fft_len=n, step_launches=launches,
-        warm_step_synchronizing_calls=0,
-        recorded_checks=[c for c in checks if c["kernel"] == "K4"])
+            row.update(bf16_conv2d_ms=cuda_ms(
+                lambda: F.conv2d(ab[None, None], bb[:, None]), 5),
+                fft_f32_ms=cuda_ms(fft, 20), fft_len=n)
+        return row
+
+    mega_t, city_t = timings(args, False), timings(city_args, True)
+    say("k4", shapes=shapes, **mega_t, library="cuDNN float32 conv2d of the "
+        "rounded operands (TF32 off)", city=city_t,
+        clusters_resident=k4.cluster_limits(0, k4.plan_for(*args[:2])
+                                            .smem_bytes),
+        step_launches=launches,
+        city_step_launches=city_launches, warm_step_synchronizing_calls=0,
+        recorded_checks=checks + city_checks)
+    shares = [mega_t["share_of_bound"], city_t["share_of_bound"]] + [
+        c["share_of_bound"] for c in checks + city_checks]
+    if max(shares) > 1.0:
+        raise AssertionError(f"K4 above its bound: shares {shares}")
     return dict(name="surface_corr", route="cuda",
                 source="gridmap_slam_tpu_torch/csrc/surface_corr.cu",
                 replaces="gridmap_slam_tpu/ops/surface.py:170",
-                max_abs_err=max(r["max_abs_err"] for r in shapes), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=library_ms)
+                max_abs_err=max(r["max_abs_err"] for r in shapes),
+                ms=mega_t["ms"], plain_ms=mega_t["plain_ms"],
+                bound_ms=mega_t["bound_ms"], bound_by=mega_t["bound_by"],
+                library_ms=mega_t["library_ms"])
 
 
 def surface_path(preset, cfg, frames, gt, ate_max):
@@ -2228,11 +2398,12 @@ def chip_phase(frames, gt, dev="cuda", particles=CHIP_PARTICLES,
 
 
 # ------------------------------------------------------------------ captured
-# the kernels' symbols as the profiler names them, a row each
+# the kernels' symbols as the profiler names them, a row each (K4's row:
+# its prologue and its correlation, KERNELS of them a call)
 KERNEL_SYMBOLS = {"stage_scores": "stage_scores_kernel",
                   "integrate_scan": "grid_update_kernel",
                   "log_likelihood_field": "ll_field_",
-                  "surface_corr": "surface_corr_kernel"}
+                  "surface_corr": "surface_corr_"}
 # the runtime calls that put work on the card from the host
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -2406,10 +2577,10 @@ def captured_phase(frames, gt):
     """Every path eager and captured (captured_path): parity (with
     step_jit), chip, mega (12 scans and the 40 of room_loop_40.rec), mega
     with two refine steps, mega with the direct correlation in bf16 on K4
-    (mega_bf16) and in float32 (mega_direct), city, mega_blocked over 6
-    scans and multi at 10 000 a robot.  Returns (the counts of each path's
-    capturing call, keyed captured_<path>; each path's kernels a scan
-    inside the graph)."""
+    (mega_bf16) and in float32 (mega_direct), city and city in bf16 on K4
+    (city_bf16), mega_blocked over 6 scans and multi at 10 000 a robot.
+    Returns (the counts of each path's capturing call, keyed
+    captured_<path>; each path's kernels a scan inside the graph)."""
     from gridmap_slam_tpu_torch import (RBPF, SharedMapSLAM, city_config,
                                         mega_config)
     from gridmap_slam_tpu_torch.io import (frame_at, frames_to_device,
@@ -2450,7 +2621,8 @@ def captured_phase(frames, gt):
             ("mega refine", refine_config(), frames, gt, ATE_MAX_M),
             ("mega_bf16", bf16_config(), frames, gt, ATE_MAX_M),
             ("mega_direct", bf16_config(False), frames, gt, ATE_MAX_M),
-            ("city", city_config(), frames, gt, ATE_MAX_M)):
+            ("city", city_config(), frames, gt, ATE_MAX_M),
+            ("city_bf16", city_bf16_config(), frames, gt, ATE_MAX_M)):
         eng = SharedMapSLAM(cfg, device="cuda")
         batch, seq = stacked(cfg, log)
         record(name, captured_path(

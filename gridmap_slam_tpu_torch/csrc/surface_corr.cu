@@ -17,55 +17,81 @@
 // does.  Same result as ops/cuda/surface_corr.surface_corr_bf16_plain up to
 // the order of the sums.
 //
-// Bound on the H100: the multiply-adds, nt K^2 Hc Wc of them (5.9e10 at
-// the mega preset: 25 bins, K = 405, a 120 x 120 crop), against the bf16
-// tensor-core peak; the 19 MB of float32 in and out take a twentieth of
-// that time.  So the design keeps the tensor cores fed and reads each
-// operand from shared memory as few times as it can:
+// What bounds it on the H100: the endpoint images are a bilinear splat of
+// one scan, a few hundred nonzero taps a bin out of K^2 (0.4 % at the mega
+// preset: 25 bins, K = 405, a 120 x 120 crop).  The products of those taps
+// are 4.5e8 operations, under a microsecond at the bf16 tensor-core peak,
+// while reading the dense float32 E once is 16.4 MB: the bound is the
+// bytes.  So the design reads E once, keeps only the work of its nonzero
+// taps, and runs that on the tensor cores:
 //
 //   - An implicit GEMM with mma.sync.m16n8k16 (bf16 in, float32 out).  For
 //     one output row y and one tap row dy: M = 16 consecutive x, N = 8
-//     theta bins, K = 16 consecutive dx (the tap row padded to a multiple
-//     of 16 with zero weights, the bins to a multiple of 8 with zero
-//     images).  A warp owns one output row, 128 columns (8 M tiles) and 8
-//     bins (one N tile).
-//   - A is Toeplitz: A[m][k] = F[y + dy][x0 + m + k], and ldmatrix has no
-//     layout for it.  Shared memory holds each staged field row as pair
-//     words P[j] = (bf16 F[j], bf16 F[j + 1]) (the field shifted and
-//     rounded once, when staged), so the pair a thread needs is one aligned
-//     32-bit load wherever it starts.  Thread (g, t) of the warp needs, for
-//     M tile j at k step s, P[16 (j + s) + g + 2t + {0, 8, 16}]: a1 and a2
-//     of the fragment are the same word, and tile j + 1 starts where tile j
-//     ends, so a window of 17 words in registers serves all 8 tiles of a k
-//     step, and the next k step shifts it by two words (two loads).  A
-//     warp then makes 8 MMAs for 4 shared-memory loads.
-//   - B (E[t0 + n][dy][k0 + k]) is staged a tap row at a time for the
-//     block's 8 bins, as pair words along k, each bin's row padded to a
-//     pitch that is an odd multiple of 4 words modulo 32, so that a warp's
-//     fragment loads hit 32 banks.
+//     theta bins (a bin tile), K = 16 consecutive dx (a k step; the tap row
+//     padded to a multiple of 16 with zero weights, the bins to a multiple
+//     of 8 with zero images).  A "group" is one (tap row, k step) of one bin
+//     tile: 128 taps, one B fragment.  At the mega preset 3.4 % of the
+//     groups hold a nonzero tap; the others are skipped, their products
+//     being exact zeros.
+//   - A prologue kernel (surface_corr_prep) reads E once, rounds it to bf16
+//     once and, for each bin tile and tap row, lists the live groups in
+//     ascending k step (a ballot a k step, a popcount prefix over the
+//     flags: no atomic decides an order) and packs their B fragments next
+//     to each other, 8 bytes a lane, so that a lane loads a group's
+//     fragment in one vector load.  The same launch rounds the shifted
+//     field to bf16 pair words once for the whole call: word j of a row
+//     holds (bf16 F[j], bf16 F[j + 1]).  Buffers are sized for the worst
+//     case (every group live); the group counts stay on the card.
+//   - A is Toeplitz: A[m][k] = F[y + dy][x0 + m + k], which neither
+//     ldmatrix nor a wgmma shared-memory descriptor can address (rows would
+//     start 2 bytes apart), so the kernel keeps mma.sync with the pair
+//     words: the pair a thread needs is one aligned 32-bit load wherever it
+//     starts.  Thread (g, t) of the warp needs, for M tile j at k step s,
+//     P[16 (j + s) + g + 2t + {0, 8, 16}]: a1 and a2 of the fragment are the
+//     same word, and tile j + 1 starts where tile j ends, so a window of 17
+//     words in registers serves all 8 tiles of a k step, and the next k step
+//     of the same tap row shifts it by two words (two loads).
+//   - The field's pair words (1.1 MB at mega, 3.4 MB at the city crop) stay
+//     in L2, and each warp reads its windows from there through L1 (a
+//     block's 8 warps read 8 neighbouring field rows).  What limits the
+//     loop is the load/store unit and instruction throughput, not latency:
+//     the 17 loads of a window (and the register moves that lay it out as
+//     MMA fragments) per 8 MMAs.  Reading L1-resident windows only, or staging
+//     each group's rows in shared memory (cp.async or the copy engine, 4
+//     groups ahead), or prefetching the next windows into L1, measured no
+//     faster on the H100.
+//   - The main kernel (surface_corr_kernel): a block is 8 warps, 8
+//     consecutive output rows of one 128-column tile and one bin tile, and
+//     walks one run of its bin tile's live groups (the tile's list split
+//     into `runs` balanced runs by count, on the card: each block scans the
+//     tile's per-row counts and lists its run's groups in shared memory).
+//     The runs of one output tile form a thread-block cluster: each block
+//     leaves its partial sums in its shared memory, and after a cluster
+//     barrier each block adds one slice of the tile over the runs in run
+//     order through distributed shared memory, subtracts the shift mass and
+//     writes the volume.  No partial volume in device memory, no second
+//     kernel, no atomics: the same bits on every run.  The plan takes as
+//     many runs as keep every cluster resident (an H100 holds 30 clusters
+//     of 8 blocks, not the 33 its block slots suggest; a second wave
+//     doubles the time).
 //   - The MMA's own accumulation truncates (its float32 adder does not
 //     round to nearest), which over the 10^4 MMAs of an output would bias
 //     the sum by up to a few 1e-3.  So each tap row's MMAs start from zero,
-//     and the row's partial is added to the output's running sum with an
+//     and the row's partial is added to the block's running sum with an
 //     ordinary float32 add: the truncation then acts on one row's partial,
-//     a few units, not on the whole score.
-//   - A block is R warps (R consecutive output rows) over one chunk of the
-//     tap rows.  The R rows share each staged tap row of E, and a ring of
-//     R + 1 staged field rows, one new row a tap row, serves them all.
-//     The chunks split the K tap rows so that the grid fills the card;
-//     with more than one chunk each writes its partial volume and a second
-//     kernel sums the chunks in a fixed order and subtracts the shift mass.
-//     No atomics: results repeat bit for bit on one card.
+//     not on the whole score.
 //
-// The launch (rows R, chunks, pitches, shared memory) is planned in Python
-// (ops/cuda/surface_corr.launch_plan); the entry point refuses a plan that
-// does not fit the shapes.
+// The launch (runs, pitch, shared memory) is planned in Python
+// (ops/cuda/surface_corr.launch_plan) from the shapes alone; the entry
+// point refuses a plan that does not fit them.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -73,24 +99,43 @@ constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kTileX = 128;        // output columns a warp: 8 M tiles of 16
 constexpr int kMTiles = kTileX / 16;
 constexpr int kWindow = 2 * kMTiles + 1;
-constexpr int kBins = 8;           // theta bins a block: one N tile
-constexpr int kMaxRows = 8;        // warps (output rows) a block
+constexpr int kBins = 8;           // theta bins a bin tile: one N tile
+constexpr int kRows = 8;           // warps (output rows) a block
+constexpr int kThreads = kRows * 32;
+constexpr int kMaxRuns = 8;        // blocks a cluster (the portable limit)
+constexpr int kMaxKsteps = 256;    // k steps a tap row (K <= 4096)
+constexpr int kPrepThreads = 128;
+// A block's partial sums: bin n, row w, column x at n * kRedPitch + w *
+// kTileX + x; the pitch is 4 modulo 32 so that a warp's stores of one
+// fragment element hit 32 banks.
+constexpr int kRedPitch = kRows * kTileX + 4;
+constexpr int kTileElems = kBins * kRows * kTileX;
+// The run's list in the main kernel: two chunks of kList entries of two
+// words, in the words of the partial sums (written after the last group).
+constexpr int kList = kThreads;
+static_assert(4 * kList <= kBins * kRedPitch,
+              "the group list must fit in the partial sums");
 
 struct CorrArgs {
-  const float* fpad;     // (Hp, Wp)
-  const float* e;        // (nt, K, K)
-  const float* mass;     // (nt,)
-  float* out;            // (nt, Hc, Wc)
-  float* part;           // (chunks, nt, Hc, Wc) where chunks > 1
+  const float* fpad;         // (Hp, Wp)
+  const float* e;            // (nt, K, K)
+  const float* mass;         // (nt,)
+  float* out;                // (nt, Hc, Wc)
+  uint2* frags;              // (tiles, K, ksteps, 32): live groups a row
+  uint32_t* field;           // (Hp, pitch_w) bf16 pair words
+  int* ks;                   // (tiles, K, ksteps): k step of each live group
+  int* counts;               // (tiles, K): live groups a tap row
   int Hp, Wp, K, nt, Hc, Wc;
   float shift;
-  int rows, chunk, chunks, ksteps, pitch_f, pitch_e;
+  int runs, ksteps, pitch_w;
 };
 
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+
 __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
-          << 16);
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
@@ -103,147 +148,289 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Field row r (shifted, rounded) as pair words from column x0: word j holds
-// columns x0 + j and x0 + j + 1, zero outside the padded field.
-__device__ void stage_field_row(const CorrArgs& a, int r, int x0,
-                                uint32_t* dst) {
-  const bool in_rows = r >= 0 && r < a.Hp;
-  const float* src = a.fpad + static_cast<size_t>(in_rows ? r : 0) * a.Wp;
-  for (int j = threadIdx.x; j < a.pitch_f; j += blockDim.x) {
-    const int c = x0 + j;
-    const float lo = in_rows && c < a.Wp ? src[c] + a.shift : 0.0f;
-    const float hi = in_rows && c + 1 < a.Wp ? src[c + 1] + a.shift : 0.0f;
-    dst[j] = bf16_pair(lo, hi);
+// Lane (g, t)'s B fragment of k step s of one tap row (`row`: that row of
+// bin t0 + g, nullptr past nt): taps 16 s + 2 t, + 1 and 16 s + 2 t + 8,
+// + 9, zero past K.
+__device__ __forceinline__ uint2 fragment(const float* row, int s, int tq,
+                                          int K) {
+  if (row == nullptr) return make_uint2(0u, 0u);
+  const int k = 16 * s + 2 * tq;
+  const float v0 = k < K ? row[k] : 0.0f;
+  const float v1 = k + 1 < K ? row[k + 1] : 0.0f;
+  const float v8 = k + 8 < K ? row[k + 8] : 0.0f;
+  const float v9 = k + 9 < K ? row[k + 9] : 0.0f;
+  return make_uint2(bf16_pair(v0, v1), bf16_pair(v8, v9));
+}
+
+// Row r of the shifted field as bf16 pair words, zero past Wp.
+__device__ void prep_field_row(const CorrArgs& a, int r) {
+  const float* src = a.fpad + static_cast<size_t>(r) * a.Wp;
+  uint32_t* dst = a.field + static_cast<size_t>(r) * a.pitch_w;
+  const int lane = threadIdx.x & 31;
+  for (int j0 = threadIdx.x - lane; j0 < a.pitch_w; j0 += blockDim.x) {
+    const int j = j0 + lane;
+    const uint32_t lo = j < a.Wp ? bf16_bits(src[j] + a.shift) : 0u;
+    uint32_t hi = __shfl_down_sync(0xffffffffu, lo, 1);
+    if (lane == 31) hi = j + 1 < a.Wp ? bf16_bits(src[j + 1] + a.shift) : 0u;
+    if (j < a.pitch_w) dst[j] = lo | (hi << 16);
   }
 }
 
-// Tap row dy of the block's bins t0 .. t0 + 7 as pair words along k, zero
-// past K and past nt.  The bins' loop is unrolled, so a thread's loads of
-// all eight are in flight together.
-__device__ void stage_taps(const CorrArgs& a, int dy, int t0, uint32_t* dst) {
-  const int words = 8 * a.ksteps;
-  for (int w = threadIdx.x; w < words; w += blockDim.x) {
-    const int k = 2 * w;
+// Blocks [0, tiles * K): bin tile b / K, tap row b % K -- its live groups
+// listed and their fragments packed; blocks [tiles * K, + Hp): one field
+// row each.  Four warps; k steps in chunks of 32, warp w taking k steps
+// w, w + 4, ... of a chunk, held in registers between the flags and the
+// stores, so that E is read once.
+__global__ void __launch_bounds__(kPrepThreads) surface_corr_prep(CorrArgs a) {
+  const int n_tiles = (a.nt + kBins - 1) / kBins;
+  const int tap_blocks = n_tiles * a.K;
+  if (static_cast<int>(blockIdx.x) >= tap_blocks) {
+    prep_field_row(a, blockIdx.x - tap_blocks);
+    return;
+  }
+  __shared__ uint32_t live;        // the chunk's live k steps, a bit each
+  const int tile = blockIdx.x / a.K;
+  const int dy = blockIdx.x - tile * a.K;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int t = tile * kBins + (lane >> 2);
+  const float* row = t < a.nt
+                         ? a.e + (static_cast<size_t>(t) * a.K + dy) * a.K
+                         : nullptr;
+  const size_t slot = (static_cast<size_t>(tile) * a.K + dy) * a.ksteps;
+  int before = 0;                  // live groups of the earlier chunks
+  for (int c0 = 0; c0 < a.ksteps; c0 += 32) {
+    if (threadIdx.x == 0) live = 0u;
+    __syncthreads();
+    uint2 w[8];
 #pragma unroll
-    for (int n = 0; n < kBins; ++n) {
-      const int t = t0 + n;
-      float lo = 0.0f, hi = 0.0f;
-      if (t < a.nt) {
-        const float* src = a.e + (static_cast<size_t>(t) * a.K + dy) * a.K;
-        if (k < a.K) lo = src[k];
-        if (k + 1 < a.K) hi = src[k + 1];
-      }
-      dst[n * a.pitch_e + w] = bf16_pair(lo, hi);
+    for (int j = 0; j < 8; ++j) {
+      const int s = c0 + warp + 4 * j;
+      w[j] = s < a.ksteps ? fragment(row, s, tq, a.K) : make_uint2(0u, 0u);
     }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // a group is live where any of its 128 rounded taps is not +-0
+      const bool any = __any_sync(0xffffffffu,
+                                  ((w[j].x | w[j].y) & 0x7fff7fffu) != 0u);
+      if (any && lane == 0) atomicOr(&live, 1u << (warp + 4 * j));
+    }
+    __syncthreads();
+    const uint32_t m = live;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int bit = warp + 4 * j;
+      if ((m >> bit) & 1u) {
+        const size_t pos = slot + before + __popc(m & ((1u << bit) - 1u));
+        a.frags[pos * 32 + lane] = w[j];
+        if (lane == 0) a.ks[pos] = c0 + bit;
+      }
+    }
+    before += __popc(m);
+    __syncthreads();
   }
+  if (threadIdx.x == 0) a.counts[static_cast<size_t>(tile) * a.K + dy] = before;
 }
 
-// Grid: (column tiles of 128, row groups x bin tiles, chunks); block: R
-// warps.  Warp w computes output row y0 + w, columns x0 .. x0 + 127, bins
-// t0 .. t0 + 7, over the tap rows [d0, d1) of its chunk.
-__global__ void __launch_bounds__(kMaxRows * 32, 2)
+// offs[dy] = live groups of tap rows before dy (dy = 0 .. K; offs[K] is
+// the tile's total), an exclusive scan of `counts` by the block.
+__device__ void scan_counts(const int* counts, int K, int* offs) {
+  __shared__ int warp_sums[kRows];
+  const int per = (K + kThreads - 1) / kThreads;
+  const int lo = min(K, static_cast<int>(threadIdx.x) * per);
+  const int hi = min(K, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += counts[i];
+  const int lane = threadIdx.x & 31;
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_sums[threadIdx.x >> 5] = incl;
+  __syncthreads();
+  int run = incl - sum, total = 0;
+  for (int w = 0; w < kRows; ++w) {
+    if (w < static_cast<int>(threadIdx.x >> 5)) run += warp_sums[w];
+    total += warp_sums[w];
+  }
+  for (int i = lo; i < hi; ++i) {
+    offs[i] = run;
+    run += counts[i];
+  }
+  if (threadIdx.x == 0) offs[K] = total;
+  __syncthreads();
+}
+
+// The run's list of groups, in chunks of kList (two buffers: the chunk
+// being worked and the next), each entry the group's slot (dy * ksteps +
+// its place in the row) and (dy << 8) | its k step.
+struct Run {
+  const int* offs;
+  int* at;            // (2, kList)
+  int* dys;           // (2, kList)
+  int g0, n;          // first group, groups
+};
+
+// Entries [kList c, kList (c + 1)) of the run into buffer c & 1, one a
+// thread: the row by a binary search of the offsets, the k step from the
+// prologue's list.
+__device__ void fill_list(const CorrArgs& a, const Run& run, const int* ks,
+                          int c) {
+  const int i = kList * c + static_cast<int>(threadIdx.x);
+  if (i >= run.n) return;
+  const int gi = run.g0 + i;
+  int lo = 0, hi = a.K - 1;
+  while (lo < hi) {                // the last dy with offs[dy] <= gi
+    const int mid = (lo + hi + 1) >> 1;
+    if (run.offs[mid] <= gi) lo = mid; else hi = mid - 1;
+  }
+  const int at = lo * a.ksteps + (gi - run.offs[lo]);
+  run.at[(c & 1) * kList + threadIdx.x] = at;
+  run.dys[(c & 1) * kList + threadIdx.x] = (lo << 8) | ks[at];
+}
+
+// Grid: (column tiles of 128, row groups x bin tiles, runs), clusters of
+// (1, 1, runs); block: 8 warps.  Warp w computes output row y0 + w,
+// columns x0 .. x0 + 127, bins t0 .. t0 + 7, over run blockIdx.z of the
+// bin tile's live groups.  The run's list is in shared memory, so a
+// group's addresses are known without a load; each warp reads its A
+// windows (through L1) and B fragments (one group ahead) from L2.
+__global__ void __launch_bounds__(kThreads, 2)
     surface_corr_kernel(CorrArgs a) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* ring = smem;                                  // (R + 1) field rows
-  uint32_t* taps = smem + (a.rows + 1) * a.pitch_f;       // 2 x 8 bin rows
+  extern __shared__ float smem[];
+  // the partial sums once the groups are done; till then the run's list
+  // in the same words
+  float* red = smem;
+  int* offs = reinterpret_cast<int*>(smem + kBins * kRedPitch);  // K + 1
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int n_tiles = (a.nt + kBins - 1) / kBins;
   const int x0 = blockIdx.x * kTileX;
   const int group = blockIdx.y / n_tiles;
-  const int t0 = (blockIdx.y - group * n_tiles) * kBins;
-  const int y0 = group * a.rows;
-  const int d0 = blockIdx.z * a.chunk;
-  const int d1 = min(a.K, d0 + a.chunk);
+  const int tile = blockIdx.y - group * n_tiles;
+  const int t0 = tile * kBins;
+  const int y0 = group * kRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int tq = lane & 3;
   const int y = y0 + warp;
-  const int ring_n = a.rows + 1;
 
-  for (int i = 0; i < a.rows; ++i) {
-    const int r = y0 + d0 + i;
-    stage_field_row(a, r, x0, ring + (r % ring_n) * a.pitch_f);
-  }
-  stage_taps(a, d0, t0, taps);
-  __syncthreads();
+  scan_counts(a.counts + static_cast<size_t>(tile) * a.K, a.K, offs);
+  const int n = offs[a.K];
+  const int g0 = static_cast<int>(static_cast<long long>(n) * rank / a.runs);
+  const int g1 =
+      static_cast<int>(static_cast<long long>(n) * (rank + 1) / a.runs);
+  int* list = reinterpret_cast<int*>(smem);
+  const Run run{offs, list, list + 2 * kList, g0, g1 - g0};
+  const int* ks = a.ks + static_cast<size_t>(tile) * a.K * a.ksteps;
+  const uint2* frags =
+      a.frags + static_cast<size_t>(tile) * a.K * a.ksteps * 32 + lane;
+  // this warp's field row at tap row 0, from the lane's first window word
+  const uint32_t* field = a.field + static_cast<size_t>(min(y, a.Hp - 1)) *
+                                        a.pitch_w + x0;
 
-  float total[kMTiles][4];
+  float total[kMTiles][4], part[kMTiles][4];
 #pragma unroll
   for (int j = 0; j < kMTiles; ++j)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) total[j][c] = 0.0f;
+    for (int c = 0; c < 4; ++c) total[j][c] = part[j][c] = 0.0f;
 
-  for (int dy = d0; dy < d1; ++dy) {
-    // stage the next tap row and the field row the ring needs next into
-    // the buffers this step does not read
-    if (dy + 1 < d1) {
-      const int r = y0 + dy + a.rows;
-      stage_field_row(a, r, x0, ring + (r % ring_n) * a.pitch_f);
-      stage_taps(a, dy + 1, t0, taps + ((dy + 1 - d0) & 1) * kBins * a.pitch_e);
+  fill_list(a, run, ks, 0);
+  __syncthreads();
+  int row = -1, s_prev = -2;         // the tap row of `part`, the last k step
+  uint32_t q[kWindow];
+  uint2 b_next = make_uint2(0u, 0u);
+  if (run.n > 0 && y < a.Hc)
+    b_next = frags[static_cast<size_t>(run.at[0]) * 32];
+  for (int i = 0; i < run.n; ++i) {
+    if (i % kList == 0 && i + kList < run.n) {
+      __syncthreads();               // every warp is done with chunk c - 1
+      fill_list(a, run, ks, i / kList + 1);
+      __syncthreads();
     }
-    if (y < a.Hc) {
-      const uint32_t* prow = ring + ((y + dy) % ring_n) * a.pitch_f + g + 2 * tq;
-      const uint32_t* brow =
-          taps + ((dy - d0) & 1) * kBins * a.pitch_e + g * a.pitch_e + tq;
-      uint32_t q[kWindow];
-#pragma unroll
-      for (int i = 0; i < kWindow; ++i) q[i] = prow[8 * i];
-      float part[kMTiles][4];
+    if (y >= a.Hc) continue;
+    const int e = (i / kList & 1) * kList + i % kList;
+    const int dys = run.dys[e];
+    const int dy = dys >> 8;
+    const int s = dys & 255;
+    const uint2 b = b_next;
+    if (i + 1 < run.n) {
+      const int e1 = ((i + 1) / kList & 1) * kList + (i + 1) % kList;
+      b_next = frags[static_cast<size_t>(run.at[e1]) * 32];
+    }
+    const uint32_t* win = field + static_cast<size_t>(dy) * a.pitch_w +
+                          16 * s + g + 2 * tq;
+    if (dy != row) {                 // a new tap row: its partial from zero
 #pragma unroll
       for (int j = 0; j < kMTiles; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) part[j][c] = 0.0f;
-      for (int s = 0; s < a.ksteps; ++s) {
-        const uint32_t b0 = brow[8 * s];
-        const uint32_t b1 = brow[8 * s + 4];
+        for (int c = 0; c < 4; ++c) {
+          total[j][c] = __fadd_rn(total[j][c], part[j][c]);
+          part[j][c] = 0.0f;
+        }
+      row = dy;
 #pragma unroll
-        for (int j = 0; j < kMTiles; ++j)
-          mma_bf16(part[j], q[2 * j], q[2 * j + 1], q[2 * j + 1], q[2 * j + 2],
-                   b0, b1);
+      for (int k = 0; k < kWindow; ++k) q[k] = __ldg(win + 8 * k);
+    } else if (s == s_prev + 1) {    // the next k step: slide two words
 #pragma unroll
-        for (int i = 0; i + 2 < kWindow; ++i) q[i] = q[i + 2];
-        q[kWindow - 2] = prow[8 * (2 * s + kWindow)];
-        q[kWindow - 1] = prow[8 * (2 * s + kWindow + 1)];
-      }
+      for (int k = 0; k + 2 < kWindow; ++k) q[k] = q[k + 2];
+      q[kWindow - 2] = __ldg(win + 8 * (kWindow - 2));
+      q[kWindow - 1] = __ldg(win + 8 * (kWindow - 1));
+    } else {
 #pragma unroll
-      for (int j = 0; j < kMTiles; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) total[j][c] = __fadd_rn(total[j][c], part[j][c]);
+      for (int k = 0; k < kWindow; ++k) q[k] = __ldg(win + 8 * k);
     }
-    __syncthreads();
-  }
-  if (y >= a.Hc) return;
-
-  // fragment (j, c): column x0 + 16 j + g (+ 8 for c >= 2), bin t0 + 2 tq
-  // (+ 1 for odd c)
-  const size_t plane = static_cast<size_t>(a.Hc) * a.Wc;
-  float* dst = a.chunks > 1 ? a.part + blockIdx.z * a.nt * plane : a.out;
+    s_prev = s;
 #pragma unroll
-  for (int j = 0; j < kMTiles; ++j) {
+    for (int j = 0; j < kMTiles; ++j)
+      mma_bf16(part[j], q[2 * j], q[2 * j + 1], q[2 * j + 1], q[2 * j + 2],
+               b.x, b.y);
+  }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int x = x0 + 16 * j + g + (c >= 2 ? 8 : 0);
-      const int t = t0 + 2 * tq + (c & 1);
-      if (x >= a.Wc || t >= a.nt) continue;
-      float v = total[j][c];
-      if (a.chunks == 1) v = __fsub_rn(v, __fmul_rn(a.shift, a.mass[t]));
-      dst[t * plane + static_cast<size_t>(y) * a.Wc + x] = v;
-    }
-  }
-}
+  for (int j = 0; j < kMTiles; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      total[j][c] = __fadd_rn(total[j][c], part[j][c]);
+  __syncthreads();                   // the list's words become `red`
 
-// out = the chunks' partial volumes summed in chunk order, minus the shift
-// mass.
-__global__ void surface_corr_sum(CorrArgs a) {
-  const size_t plane = static_cast<size_t>(a.Hc) * a.Wc;
-  const size_t n = a.nt * plane;
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float v = a.part[i];
-    for (int c = 1; c < a.chunks; ++c) v = __fadd_rn(v, a.part[c * n + i]);
-    const int t = static_cast<int>(i / plane);
-    a.out[i] = __fsub_rn(v, __fmul_rn(a.shift, a.mass[t]));
+  // fragment (j, c): column 16 j + g (+ 8 for c >= 2), bin 2 tq (+ 1 for
+  // odd c) of the tile
+#pragma unroll
+  for (int j = 0; j < kMTiles; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      red[(2 * tq + (c & 1)) * kRedPitch + warp * kTileX + 16 * j + g +
+          (c >= 2 ? 8 : 0)] = total[j][c];
+  cluster.sync();
+  // this block's slice of the tile: the runs' sums added in run order
+  const float* parts[kMaxRuns];
+#pragma unroll
+  for (int r = 0; r < kMaxRuns; ++r)
+    parts[r] = cluster.map_shared_rank(red, r < a.runs ? r : 0);
+  const int e0 = kTileElems * rank / a.runs;
+  const int e1 = kTileElems * (rank + 1) / a.runs;
+  for (int e = e0 + threadIdx.x; e < e1; e += kThreads) {
+    const int nb = e / (kRows * kTileX);
+    const int w = (e / kTileX) % kRows;
+    const int xx = e % kTileX;
+    const int t = t0 + nb, yy = y0 + w, x = x0 + xx;
+    if (t >= a.nt || yy >= a.Hc || x >= a.Wc) continue;
+    const int idx = nb * kRedPitch + w * kTileX + xx;
+    float v[kMaxRuns];
+#pragma unroll
+    for (int r = 0; r < kMaxRuns; ++r) v[r] = r < a.runs ? parts[r][idx] : 0.0f;
+    float sum = v[0];
+#pragma unroll
+    for (int r = 1; r < kMaxRuns; ++r)
+      if (r < a.runs) sum = __fadd_rn(sum, v[r]);
+    a.out[(static_cast<size_t>(t) * a.Hc + yy) * a.Wc + x] =
+        __fsub_rn(sum, __fmul_rn(a.shift, a.mass[t]));
   }
+  cluster.sync();                    // keep the shared memory until read
 }
 
 int max_smem_optin() {
@@ -256,38 +443,49 @@ int max_smem_optin() {
   return bytes;
 }
 
+// The scratch layout, in 32-bit words: fragments (tiles, K, ksteps, 32, 2),
+// field (Hp, pitch_w), k steps (tiles, K, ksteps), counts (tiles, K).
+// Returns the words needed, or -1 where the shapes or the plan's k steps
+// and pitch do not fit.
+long long layout(CorrArgs& a, uint32_t* scratch) {
+  if (a.K <= 0 || a.nt <= 0 || a.Hp < a.K || a.Wp < a.K ||
+      a.ksteps != (a.K + 15) / 16 || a.ksteps > kMaxKsteps) {
+    return -1;
+  }
+  a.Hc = a.Hp - a.K + 1;
+  a.Wc = a.Wp - a.K + 1;
+  const long long col_tiles = (a.Wc + kTileX - 1) / kTileX;
+  if (a.pitch_w % 4 != 0 || a.pitch_w < kTileX * col_tiles + 16 * a.ksteps) {
+    return -1;
+  }
+  const long long tiles = (a.nt + kBins - 1) / kBins;
+  const long long groups = tiles * a.K * a.ksteps;
+  const long long frag_words = groups * 64;
+  const long long field_words = static_cast<long long>(a.Hp) * a.pitch_w;
+  a.frags = reinterpret_cast<uint2*>(scratch);
+  a.field = scratch + frag_words;
+  a.ks = reinterpret_cast<int*>(a.field + field_words);
+  a.counts = a.ks + groups;
+  return frag_words + field_words + groups + tiles * a.K;
+}
+
+cudaError_t launch_prep(const CorrArgs& a, cudaStream_t st) {
+  const long long blocks =
+      static_cast<long long>((a.nt + kBins - 1) / kBins) * a.K + a.Hp;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  surface_corr_prep<<<static_cast<unsigned>(blocks), kPrepThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// fpad (Hp, Wp), e (nt, K, K), mass (nt,) -> out (nt, Hc, Wc), Hc = Hp - K
-// + 1, Wc = Wp - K + 1; part: (chunks, nt, Hc, Wc) scratch where chunks > 1.
-// The plan: rows R (warps a block), chunk (tap rows a chunk), chunks,
-// ksteps = ceil(K / 16), the pitches in words and the shared memory.
-extern "C" int gs_surface_corr(const float* fpad, const float* e,
-                               const float* mass, float* out, float* part,
-                               int Hp, int Wp, int K, int nt, float shift,
-                               int rows, int chunk, int chunks, int ksteps,
-                               int pitch_f, int pitch_e, int smem_bytes,
-                               void* stream) {
-  if (K <= 0 || nt <= 0 || Hp < K || Wp < K) {
-    return cudaErrorInvalidValue;
-  }
-  const int hc = Hp - K + 1;
-  const int wc = Wp - K + 1;
-  const int n_tiles = (nt + kBins - 1) / kBins;
-  const long long groups = (hc + rows - 1) / static_cast<long long>(rows);
-  const long long col_tiles = (wc + kTileX - 1) / kTileX;
-  const size_t need =
-      (static_cast<size_t>(rows + 1) * pitch_f + 2 * kBins * pitch_e) * 4;
-  if (rows < 1 || rows > kMaxRows || chunk < 1 || chunks < 1 ||
-      static_cast<long long>(chunk) * chunks < K ||
-      static_cast<long long>(chunk) * (chunks - 1) >= K ||
-      ksteps != (K + 15) / 16 || pitch_f < 16 * ksteps + 8 * kWindow + 16 ||
-      pitch_e < 8 * ksteps || (pitch_e % 32 != 4 && pitch_e % 32 != 12 &&
-                               pitch_e % 32 != 20 && pitch_e % 32 != 28) ||
-      (chunks > 1 && part == nullptr) || smem_bytes < 0 ||
-      need > static_cast<size_t>(smem_bytes) ||
-      smem_bytes > max_smem_optin() || groups * n_tiles > 65535 ||
-      chunks > 65535 || col_tiles > 2147483647LL) {
+// out[r - 1] = the clusters of r main-kernel blocks (r = 1 .. 8) with
+// `smem_bytes` of dynamic shared memory each that the card holds at once
+// (launch_plan takes as many runs as keep the grid's clusters resident:
+// an H100 holds 30 clusters of 8 at K4's 34 KB, fewer than 8 x its 264
+// block slots would suggest).
+extern "C" int gs_surface_corr_clusters(int smem_bytes, int* out) {
+  if (out == nullptr || smem_bytes < 0 || smem_bytes > max_smem_optin()) {
     return cudaErrorInvalidValue;
   }
   if (smem_bytes > kDefaultSmem) {
@@ -296,18 +494,104 @@ extern "C" int gs_surface_corr(const float* fpad, const float* e,
         smem_bytes);
     if (err != cudaSuccess) return err;
   }
-  const CorrArgs a{fpad, e, mass, out, part, Hp, Wp, K, nt, hc, wc, shift,
-                   rows, chunk, chunks, ksteps, pitch_f, pitch_e};
+  for (int r = 1; r <= kMaxRuns; ++r) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, 1, static_cast<unsigned>(r));
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = static_cast<unsigned>(r);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveClusters(&out[r - 1], surface_corr_kernel, &cfg);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The prologue alone: fpad (Hp, Wp) and e (nt, K, K) into `scratch`
+// (scratch_words 32-bit words, the layout above).  *launched = the kernels
+// launched (0 or 1).
+extern "C" int gs_surface_corr_prep(const float* fpad, const float* e,
+                                    void* scratch, int Hp, int Wp, int K,
+                                    int nt, float shift, int ksteps,
+                                    int pitch_w, long long scratch_words,
+                                    void* stream, int* launched) {
+  if (launched == nullptr) return cudaErrorInvalidValue;
+  *launched = 0;
+  CorrArgs a{fpad, e, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             Hp, Wp, K, nt, 0, 0, shift, 1, ksteps, pitch_w};
+  if (scratch == nullptr ||
+      layout(a, static_cast<uint32_t*>(scratch)) != scratch_words) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = launch_prep(a, static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) *launched = 1;
+  return err;
+}
+
+// fpad (Hp, Wp), e (nt, K, K), mass (nt,) -> out (nt, Hc, Wc), Hc = Hp - K
+// + 1, Wc = Wp - K + 1, through the prologue and the main kernel.  The
+// plan: runs (blocks a cluster, 1 to 8), ksteps = ceil(K / 16), the
+// prepared field's pitch in words, the main kernel's shared memory and the
+// scratch's size in words.  *launched = the kernels launched (0 to 2).
+extern "C" int gs_surface_corr(const float* fpad, const float* e,
+                               const float* mass, float* out, void* scratch,
+                               int Hp, int Wp, int K, int nt, float shift,
+                               int runs, int ksteps, int pitch_w,
+                               int smem_bytes, long long scratch_words,
+                               void* stream, int* launched) {
+  if (launched == nullptr) return cudaErrorInvalidValue;
+  *launched = 0;
+  CorrArgs a{fpad, e, mass, out, nullptr, nullptr, nullptr, nullptr,
+             Hp, Wp, K, nt, 0, 0, shift, runs, ksteps, pitch_w};
+  if (scratch == nullptr || out == nullptr || mass == nullptr ||
+      layout(a, static_cast<uint32_t*>(scratch)) != scratch_words) {
+    return cudaErrorInvalidValue;
+  }
+  const long long n_tiles = (nt + kBins - 1) / kBins;
+  const long long groups = (a.Hc + kRows - 1) / kRows;
+  const long long col_tiles = (a.Wc + kTileX - 1) / kTileX;
+  const size_t need =
+      (static_cast<size_t>(kBins) * kRedPitch + K + 1) * sizeof(float);
+  if (runs < 1 || runs > kMaxRuns || smem_bytes < 0 ||
+      need > static_cast<size_t>(smem_bytes) ||
+      smem_bytes > max_smem_optin() || groups * n_tiles > 65535 ||
+      col_tiles > 2147483647LL) {
+    return cudaErrorInvalidValue;
+  }
+  if (smem_bytes > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        surface_corr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(col_tiles),
-                  static_cast<unsigned>(groups * n_tiles),
-                  static_cast<unsigned>(chunks));
-  surface_corr_kernel<<<grid, rows * 32, smem_bytes, st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || chunks == 1) return err;
-  const size_t n = static_cast<size_t>(nt) * hc * wc;
-  const unsigned blocks =
-      static_cast<unsigned>(std::min<size_t>((n + 255) / 256, 132 * 8));
-  surface_corr_sum<<<blocks, 256, 0, st>>>(a);
-  return cudaGetLastError();
+  cudaError_t err = launch_prep(a, st);
+  if (err != cudaSuccess) return err;
+  *launched = 1;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(col_tiles),
+                     static_cast<unsigned>(groups * n_tiles),
+                     static_cast<unsigned>(runs));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = static_cast<unsigned>(runs);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, surface_corr_kernel, a);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = 2;
+  return err;
 }

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # entry point -> argument types (the C signatures in csrc/*.cu)
@@ -63,10 +64,16 @@ SIGNATURES = {
     "gs_stage_scores_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # fpad, e, mass, out, part, Hp, Wp, K, nt, shift, then the launch
-    # plan: rows, chunk, chunks, ksteps, pitch_f, pitch_e, smem; stream
+    # fpad, e, mass, out, scratch, Hp, Wp, K, nt, shift, then the launch
+    # plan: runs, ksteps, pitch_w, smem, scratch words; stream, &launched
     "gs_surface_corr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
-                        _I, _I, _I, _I, _P],
+                        _I, _L, _P, _P],
+    # fpad, e, scratch, Hp, Wp, K, nt, shift, ksteps, pitch_w, scratch
+    # words, stream, &launched
+    "gs_surface_corr_prep": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _L,
+                             _P, _P],
+    # smem_bytes, out (8 ints)
+    "gs_surface_corr_clusters": [_I, _P],
     # &sm_count, &smem_block, &smem_sm
     "gs_device_limits": [_P, _P, _P],
 }

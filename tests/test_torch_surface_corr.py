@@ -11,6 +11,11 @@ tolerances of tests/test_torch_shared.py (poses 1e-4, log-weights 1e-3,
 K2's cells beyond 1e-5 on at most 0.5 % of the map); the cross-backend ATE
 policy of docs/DIVERGENCES.md (within 0.06 m of the JAX run) for a log.
 With the FFT correlation bf16 changes no bit, as in the JAX package.
+K4's prologue has a plain version too (`prepare_bf16_plain`: the live
+16-tap groups of each 8-bin tile and tap row, their order and their packed
+tensor-core fragments), held bit for bit to a numpy definition here and to
+the kernel's prologue on the card by chip_smoke.py; `launch_plan` is pure
+Python and tested here at the shapes chip_smoke.py runs K4 at.
 """
 
 import math
@@ -293,55 +298,250 @@ def test_surface_sharded_bf16_on_two_ranks_matches_jax(tmp_path):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
+# ------------------------------------------------------ the preparation
+def _np_bf16_bits(x):
+    """float32 -> bf16 bits, round to nearest even, in numpy (finite x)."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x7FFF + ((b >> 16) & 1)) >> 16).astype(np.uint64) & 0xFFFF
+
+
+def _np_prep(fpad, e, shift, pitch_w):
+    """The prologue's buffers from their definition: for each bin tile b
+    and tap row dy, the k steps s whose 16 taps over the tile's 8 bins hold
+    a nonzero rounded tap, ascending, with lane 4 g + t's words (taps
+    16 s + 2 t, + 1) and (16 s + 2 t + 8, + 9) of bin 8 b + g; the field's
+    pair words.  Returns (field, {(b, dy): [(s, words (32, 2))]})."""
+    nt, k, _ = e.shape
+    eb = _np_bf16_bits(e)
+    fb = _np_bf16_bits(fpad + np.float32(shift))
+    hp, wp = fpad.shape
+
+    def tap(t, dy, kk):
+        return int(eb[t, dy, kk]) if t < nt and kk < k else 0
+
+    def fcol(r, j):
+        return int(fb[r, j]) if j < wp else 0
+
+    field = np.array([[fcol(r, j) | fcol(r, j + 1) << 16
+                       for j in range(pitch_w)] for r in range(hp)],
+                     np.uint64)
+    lists = {}
+    for b in range(-(-nt // 8)):
+        for dy in range(k):
+            row = []
+            for s in range(-(-k // 16)):
+                words = np.zeros((32, 2), np.uint64)
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for h in range(2):
+                        kk = 16 * s + 8 * h + 2 * t
+                        words[lane, h] = (tap(8 * b + g, dy, kk)
+                                          | tap(8 * b + g, dy, kk + 1) << 16)
+                if ((words & 0x7FFF7FFF) != 0).any():
+                    row.append((s, words))
+            lists[b, dy] = row
+    return field, lists
+
+
+def _u32(t):
+    return t.numpy().astype(np.int64) & 0xFFFFFFFF
+
+
+def _case_images(case, nt, k, rng, frames=None):
+    e = np.zeros((nt, k, k), np.float32)
+    if case == "sparse":
+        e[rng.uniform(size=e.shape) < 0.004] = 0.5
+    elif case == "dense":
+        e = rng.uniform(0.01, 1.0, e.shape).astype(np.float32)
+    elif case == "single":
+        e[nt - 1, k // 3, k // 2] = 0.37
+        e[0, 1, 1] = -0.0                   # a negative zero is no tap
+    elif case == "last":
+        e[nt - 1, k - 1, k - 1] = 1.0       # the last k step of the last row
+    elif case == "tiny":
+        e[0, 2, 3] = 1e-39                  # a subnormal tap stays live
+    elif case == "splat":
+        e = _real_splat(frames, nt, (k - 1) // 2).numpy()
+    return e
+
+
+@pytest.mark.parametrize("case,nt,k", [
+    ("sparse", 5, 37), ("dense", 3, 21), ("zero", 9, 19), ("single", 25, 23),
+    ("last", 25, 37), ("tiny", 2, 9), ("sparse", 25, 53), ("splat", 25, 51)])
+def test_prepare_plain_matches_numpy(scan_log, case, nt, k):
+    """prepare_bf16_plain (the prologue's plain version) against the
+    numpy definition: per bin tile and tap row the live groups' count, their
+    k steps in ascending order and their packed B fragments; the field's
+    pair words.  Sparse, dense, all-zero, single-tap, subnormal and a real
+    splat's images; 25 bins (a last tile of one bin); a tap only in the last
+    k step of the last tap row (K = 37: that step holds 5 taps)."""
+    rng = np.random.default_rng(k * 10 + nt)
+    e = _case_images(case, nt, k, rng, scan_log[0])
+    hc, wc = 6, 9
+    fpad = rng.uniform(-2.0, 0.0, (hc + k - 1, wc + k - 1)).astype(np.float32)
+    shift = 0.7
+    plan = k4.launch_plan(nt, k, hc, wc)
+    prep = k4.prepare_bf16_plain(torch.from_numpy(fpad), torch.from_numpy(e),
+                                 shift, plan)
+    tiles, ksteps = plan.bin_tiles, plan.ksteps
+    assert prep.field.shape == (hc + k - 1, plan.pitch_w)
+    assert prep.frags.shape == (tiles, k, ksteps, 32, 2)
+    assert prep.ks.shape == (tiles, k, ksteps)
+    assert prep.counts.shape == (tiles, k)
+    assert all(x.dtype == torch.int32 for x in prep)
+    field, lists = _np_prep(fpad, e, shift, plan.pitch_w)
+    np.testing.assert_array_equal(_u32(prep.field), field)
+    counts, ks, frags = prep.counts.numpy(), prep.ks.numpy(), _u32(prep.frags)
+    for (b, dy), row in lists.items():
+        n = len(row)
+        assert counts[b, dy] == n, (b, dy)
+        np.testing.assert_array_equal(ks[b, dy, :n], [s for s, _ in row])
+        for i, (_, words) in enumerate(row):
+            np.testing.assert_array_equal(frags[b, dy, i], words)
+        assert not ks[b, dy, n:].any() and not frags[b, dy, n:].any()
+    total = int(counts.sum())
+    if case == "zero":
+        assert total == 0
+    elif case == "dense":
+        assert total == tiles * k * ksteps
+    elif case in ("single", "tiny"):
+        assert total == 1
+    elif case == "last":
+        assert total == 1 and counts[tiles - 1, k - 1] == 1
+        assert ks[tiles - 1, k - 1, 0] == ksteps - 1
+    else:
+        assert 0 < total < tiles * k * ksteps
+
+
+@pytest.mark.parametrize("case,nt,k", [("sparse", 7, 45), ("splat", 25, 41),
+                                       ("dense", 9, 17)])
+def test_prepared_lists_hold_every_tap(scan_log, case, nt, k):
+    """The live groups' fragments, unpacked into a dense image, are exactly
+    the rounded endpoint images: every nonzero tap lies in a listed group,
+    and a skipped group holds only zeros (its products add nothing)."""
+    rng = np.random.default_rng(nt + k)
+    e = torch.from_numpy(_case_images(case, nt, k, rng, scan_log[0]))
+    fpad = torch.zeros((k + 4, k + 6))
+    plan = k4.plan_for(fpad, e)
+    prep = k4.prepare_bf16_plain(fpad, e, 0.0, plan)
+    words = _u32(prep.frags)
+    dense = np.zeros((8 * plan.bin_tiles, k, 16 * plan.ksteps), np.uint64)
+    for b, dy in zip(*np.nonzero(prep.counts.numpy())):
+        for i in range(int(prep.counts[b, dy])):
+            s = int(prep.ks[b, dy, i])
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for h in range(2):
+                    kk = 16 * s + 8 * h + 2 * t
+                    w = words[b, dy, i, lane, h]
+                    dense[8 * b + g, dy, kk] = w & 0xFFFF
+                    dense[8 * b + g, dy, kk + 1] = w >> 16
+    want = (k4.round_bf16(e).numpy().view(np.uint32) >> 16).astype(np.uint64)
+    np.testing.assert_array_equal(dense[:nt, :, :k], want)
+    assert not dense[nt:].any() and not dense[:, :, k:].any()
+    assert k4.launches == 0
+
+
+def test_prep_views_match_the_plain_layout():
+    """The kernel's scratch, cut by the wrapper's views, has the plain
+    preparation's buffers' shapes and uses every word once."""
+    nt, k, hp, wp = 25, 41, 50, 61
+    plan = k4.launch_plan(nt, k, hp - k + 1, wp - k + 1)
+    scratch = torch.arange(plan.scratch_words, dtype=torch.int32)
+    views = k4._prep_views(scratch, nt, k, hp, plan)
+    plain = k4.prepare_bf16_plain(torch.zeros((hp, wp)),
+                                  torch.zeros((nt, k, k)), 0.0, plan)
+    assert [v.shape for v in views] == [p.shape for p in plain]
+    assert sum(v.numel() for v in views) == plan.scratch_words
+    seen = torch.cat([v.reshape(-1) for v in views]).sort().values
+    assert torch.equal(seen, scratch)
+    # the fragments come first (8-byte loads), the field after them
+    assert views.frags.data_ptr() == scratch.data_ptr()
+
+
 # ------------------------------------------------------ the launch plan
 @pytest.mark.parametrize("shape", [(25, 405, 120, 120), (25, 405, 512, 512),
                                    (1, 7, 10, 13), (7, 51, 17, 29),
-                                   (16, 64, 128, 128), (5, 85, 60, 60)])
+                                   (16, 64, 128, 128), (5, 85, 60, 60),
+                                   (5, 51, 17, 29), (7, 25, 40, 31),
+                                   (9, 101, 37, 45)])
 def test_launch_plan_covers_the_volume(shape):
-    """The plan's blocks cover every output row, column, bin and tap row
-    once, its staging fits a block's and two blocks an SM's shared memory,
-    the pitches hold what the kernel reads, and the grid is inside CUDA's
-    limits; the mega shapes split the tap rows so that the grid fills the
-    card."""
+    """The plan's blocks cover every output row, column and bin, its runs
+    every live group of a bin tile (at most one cluster of 8), its field
+    pitch every word the A windows read, its shared memory the partial
+    sums and the row offsets within a block's and two blocks an SM's
+    limits, and the grid is inside CUDA's limits; the runs are the most
+    that keep every cluster of the grid resident at once on an H100 (its
+    cluster counts), so the mega shapes (mega_bf16) split each list in 4,
+    the dense (16, 64, 128, 128) in 7, and the city crop, whose grid fills
+    the card, not at all.  The shapes: mega_bf16's and city_bf16's steps,
+    and chip_smoke.py's K4_SHAPES."""
     nt, k, hc, wc = shape
     plan = k4.launch_plan(nt, k, hc, wc)
     assert plan is not None
-    assert plan.chunk * plan.chunks >= k > plan.chunk * (plan.chunks - 1)
-    assert plan.groups * plan.rows >= hc > (plan.groups - 1) * plan.rows
+    assert plan.groups * k4.ROWS >= hc > (plan.groups - 1) * k4.ROWS
     assert plan.col_tiles * k4.TILE_X >= wc > (plan.col_tiles - 1) * k4.TILE_X
     assert plan.bin_tiles * k4.BINS >= nt > (plan.bin_tiles - 1) * k4.BINS
-    assert plan.ksteps * 16 >= k
-    # the A window's last load: word 16 (ksteps - 1) + 8 (WINDOW + 1) + 13
-    assert plan.pitch_f > 16 * (plan.ksteps - 1) + 8 * (k4.WINDOW + 1) + 13
-    assert plan.pitch_e >= 8 * plan.ksteps and plan.pitch_e % 8 == 4
-    assert plan.smem_bytes == 4 * ((plan.rows + 1) * plan.pitch_f
-                                   + 2 * k4.BINS * plan.pitch_e)
+    assert plan.ksteps * 16 >= k > (plan.ksteps - 1) * 16
+    assert 1 <= plan.runs <= k4.MAX_RUNS
+    # the last A window's last word: column tile, k step, lane, window
+    last = (k4.TILE_X * (plan.col_tiles - 1) + 16 * (plan.ksteps - 1) + 13
+            + 8 * 16)
+    assert plan.pitch_w > last and plan.pitch_w % 4 == 0
+    # ... rounded up to 16 bytes
+    assert plan.pitch_w >= (k4.TILE_X * (plan.col_tiles - 1)
+                            + 16 * (plan.ksteps - 1) + k4.WINDOW_ROW)
+    assert plan.pitch_w >= wc + k - 1 - 1          # every field word pair
+    assert plan.smem_bytes == 4 * (k4.BINS * k4.RED_PITCH + k + 1)
     assert plan.smem_bytes <= 48 * 1024
+    assert 2 * (plan.smem_bytes + 1024) <= k4.H100["smem_sm"]
     assert plan.groups * plan.bin_tiles <= 65535
-    blocks = plan.col_tiles * plan.groups * plan.bin_tiles * plan.chunks
+    tiles = plan.col_tiles * plan.groups * plan.bin_tiles
+    clusters = k4.H100_CLUSTERS
+    assert tiles <= clusters[plan.runs - 1] or plan.runs == 1
+    assert plan.runs == k4.MAX_RUNS or tiles > clusters[plan.runs]
+    assert plan.scratch_words == k4.scratch_words(nt, k, hc + k - 1,
+                                                  plan.pitch_w)
     if shape == (25, 405, 120, 120):
-        assert plan.chunks > 1 and blocks >= k4.H100["sm_count"]
+        assert plan.runs == 4 and tiles * plan.runs >= k4.H100["sm_count"]
+    if shape == (16, 64, 128, 128):
+        assert plan.runs == 7
+    if shape == (25, 405, 512, 512):
+        assert plan.runs == 1 and tiles >= 2 * k4.H100["sm_count"]
 
 
 def test_launch_plan_refuses_what_does_not_fit():
-    """No plan for an empty volume or staging past a block's shared
-    memory; a card of fewer SMs may split the tap rows differently, but
-    the plan still covers them."""
+    """No plan for an empty volume, a tap row of more than 256 k steps,
+    shared memory past a block's limit or a grid past CUDA's; a card that
+    holds fewer clusters splits the lists into fewer runs, one that holds
+    more into up to 8."""
     assert k4.launch_plan(0, 7, 10, 10) is None
     assert k4.launch_plan(5, 0, 10, 10) is None
     assert k4.launch_plan(5, 7, 0, 10) is None
+    assert k4.launch_plan(5, 7, 10, 0) is None
     assert k4.launch_plan(25, 405, 120, 120, smem_block=20_000) is None
-    big = k4.launch_plan(3, 1001, 8, 8)       # opts in past 48 KB
+    big = k4.launch_plan(3, 4096, 8, 8)       # opts in past 48 KB
     assert big is not None and 48 * 1024 < big.smem_bytes < 100_000
-    assert k4.launch_plan(3, 1001, 8, 8, smem_block=60_000) is None
-    assert k4.launch_plan(3, 4001, 8, 8) is None
-    small = k4.launch_plan(25, 405, 120, 120, sm_count=16)
-    assert small.chunk * small.chunks >= 405
+    assert k4.launch_plan(3, 4096, 8, 8, smem_block=48 * 1024) is None
+    assert k4.launch_plan(3, 4097, 8, 8) is None
+    assert k4.launch_plan(8, 3, 8 * 65535, 8) is not None
+    assert k4.launch_plan(8, 3, 8 * 65536, 8) is None
+    small = k4.launch_plan(25, 405, 120, 120,
+                           clusters=(32, 16, 10, 8, 6, 5, 4, 4))
+    assert small.runs == 1
+    assert k4.launch_plan(25, 405, 120, 120,
+                          clusters=(528, 264, 160, 124, 94, 60, 64, 60)
+                          ).runs == 8
+    assert k4.launch_plan(25, 405, 120, 120,
+                          clusters=(528, 264, 160, 124, 94, 60, 59, 59)
+                          ).runs == 6
 
 
 def test_wrapper_refuses_cpu_tensors_for_the_kernel():
-    """The kernel's entry point takes card tensors only: no fallback."""
+    """The kernel's entry points take card tensors only: no fallback."""
     fpad = torch.zeros((20, 20))
     e = torch.zeros((2, 5, 5))
     with pytest.raises(ValueError, match="must be on"):
         k4.surface_corr_bf16_cuda(fpad, e, 0.5, e.sum((1, 2)))
+    with pytest.raises(ValueError, match="must be on"):
+        k4.prepare_bf16_cuda(fpad, e, 0.5)
