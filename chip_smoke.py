@@ -232,6 +232,23 @@ CLI_ATE_MAX_M = 0.10   # the JAX engine's: 0.0287 m (docs/ate_parity_room_loop_4
 CLI_FAULT_AT, CLI_EVERY = 6, 4
 LIVE_FRAMES = 5
 GN_LARGE_KEYFRAMES = (1000, 3000)
+# The posegraph phase's online ATE against the JAX package's at its
+# configuration (200 particles, 360 beam slots, 14 x 14 m at 5 cm, all 216
+# scans of grand_tour_216.rec; JAX RBPF.step_jit on the CPU: 0.0905 m at
+# seed 0, 0.0888 m at seed 1) plus docs/DIVERGENCES.md's cross-backend 0.06
+POSEGRAPH_JAX_ATE_M = 0.0905
+POSEGRAPH_ATE_MAX_M = POSEGRAPH_JAX_ATE_M + 0.06
+# The config-5 chain-broken graph's optimized ATE a robot by the JAX
+# frontend's own Gauss-Newton (scripts/config5_posegraph_reference.py), and
+# its closures (docs/config5_demo.json); the port is held to + 0.06
+CONFIG5_JAX_OPT_ATE_M = (0.037901868964208295, 0.017296637668428316)
+CONFIG5_CLOSURES = 32
+# the kernels in the frontend's graphs: a detection's verify (K1 5 stages
+# and K2, K3 once, each way) and one keyframe of the rebuild
+FRONTEND_NODES = {"verify": {"stage_scores": 10, "integrate_scan": 2,
+                             "log_likelihood_field": 2, "surface_corr": 0},
+                  "rebuild": {"stage_scores": 0, "integrate_scan": 1,
+                              "log_likelihood_field": 0, "surface_corr": 0}}
 CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
 # The H100 SXM's published peaks (NVIDIA's data sheet, 700 W): FP32
 # outside the tensor cores and HBM3.  A kernel's bound is the larger of its
@@ -1592,7 +1609,10 @@ class CallRecorder:
     def _wrap(self, kernel, real):
         def call(*args, **kw):
             key = (self.path, kernel, _sig(args), _sig(kw))
-            if key not in self._seen:
+            # under capture nothing runs: a capture's warm-up calls
+            # recorded the real inputs of its call shapes
+            if (key not in self._seen
+                    and not torch.cuda.is_current_stream_capturing()):
                 self._seen.add(key)
                 self.calls.append((self.path, kernel, _clone(args),
                                    _clone(kw)))
@@ -2177,9 +2197,162 @@ def multi_phase(dev="cuda", particle_counts=MULTI_PARTICLES,
     return total
 
 
+def _node_counts(names) -> dict:
+    """Kernel nodes of a graph by kernel row (KERNEL_SYMBOLS)."""
+    return {row: sum(sym in nm for nm in names)
+            for row, sym in KERNEL_SYMBOLS.items()}
+
+
+def _library_kernels(names) -> dict:
+    """The kernel nodes of a graph that are not PyTorch's own (at::native)
+    nor the port's, by name cut to 96 characters, with their counts: the
+    linear-algebra libraries' (cuBLAS, cuSOLVER, MAGMA)."""
+    ours = tuple(KERNEL_SYMBOLS.values()) + ("at6native", "at4cuda")
+    out = {}
+    for nm in names:
+        if not any(sym in nm for sym in ours):
+            out[nm[:96]] = out.get(nm[:96], 0) + 1
+    return out
+
+
+def frontend_part(name, eager, captured, piece, per=1):
+    """One of the frontend's compiled pieces (a models/captured.Graphed),
+    eager and captured in this call; eager() and captured() return tuples
+    of tensors.  The eager call's kernel launches;
+    each side's seconds (CUDA events around a warm call) and host launches
+    (torch.profiler, LAUNCH_CALLS); the captured side's first call, a warm
+    call under the sync check that must launch no kernel from Python, and
+    its graph's kernel nodes (the driver API), which must equal the eager
+    launches over `per` (the replays a call).  The captured results must
+    equal the eager ones bit for bit, twice.  Returns the row."""
+    torch.cuda.synchronize()
+    kernels = _zero_launches()
+    out_e = eager()
+    torch.cuda.synchronize()
+    eager_counts = {k: mod.launches for k, mod in kernels.items()}
+    _, sec_e = _timed(eager)
+    _, prof_e = _profiled(eager, 1)
+    kernels = _zero_launches()
+    out_c, sec_first = _timed(captured)
+    first_counts = {k: mod.launches for k, mod in kernels.items()}
+    kernels = _zero_launches()
+    again = _sync_free(captured)
+    torch.cuda.synchronize()
+    replay_counts = {k: mod.launches for k, mod in kernels.items()}
+    _, sec_c = _timed(captured)
+    _, prof_c = _profiled(captured, 1)
+    names = piece.kernel_names()
+    in_graph = _node_counts(names)
+    eager_per = {k: eager_counts[k] / per for k in KERNEL_SYMBOLS}
+    differing = [i for i, (a, b) in enumerate(zip(out_e, out_c))
+                 if not (a.dtype == b.dtype and torch.equal(a, b))]
+    rerun = [i for i, (a, b) in enumerate(zip(out_c, again))
+             if not torch.equal(a, b)]
+    row = dict(part=name, replays_a_call=per,
+               outputs_differing=differing, rerun_differing=rerun,
+               eager=dict(seconds=sec_e, kernel_launches=eager_counts,
+                          host_launches=prof_e["launches_per_scan"],
+                          device_ms=prof_e["device_ms"]),
+               captured=dict(seconds=sec_c, first_call_seconds=sec_first,
+                             launches_in_first_call=first_counts,
+                             host_launches=prof_c["launches_per_scan"],
+                             device_ms=prof_c["device_ms"],
+                             captures=piece.captures,
+                             kernel_nodes_in_graph=len(names),
+                             kernels_in_graph=in_graph,
+                             python_launches_in_warm_replay=replay_counts),
+               eager_launches_a_replay=eager_per, speedup=sec_e / sec_c)
+    say("posegraph_part", **row)
+    if differing or rerun:
+        raise AssertionError(f"posegraph {name}: captured outputs "
+                             f"{differing} differ from eager, {rerun} "
+                             f"between captured calls")
+    if any(replay_counts.values()):
+        raise AssertionError(f"posegraph {name}: a warm replay launched a "
+                             f"kernel from Python: {replay_counts}")
+    if any(in_graph[k] != eager_per[k] for k in KERNEL_SYMBOLS):
+        raise AssertionError(f"posegraph {name}: kernels in the graph "
+                             f"{in_graph} != eager launches a replay "
+                             f"{eager_per}")
+    return row
+
+
+def posegraph_parts(cfg, traj, seq, flow_closures, dev="cuda"):
+    """The frontend's three compiled pieces on a frontend fed as the flow
+    feeds it, each eager and captured (frontend_part): the verifier on the
+    detection's padded batch (then the detection itself, whose accepted
+    closures must be the flow's, rels and scores bit for bit),
+    Gauss-Newton on the graph and the rebuild at the optimized poses.
+    Returns the kernels in the verify graph and in the rebuild graph a
+    keyframe."""
+    from gridmap_slam_tpu_torch import FrontendConfig, PoseGraphSLAM
+    from gridmap_slam_tpu_torch.models import posegraph as PG
+    from gridmap_slam_tpu_torch.ops.geometry import deskew_scan
+
+    fe = PoseGraphSLAM(cfg, FrontendConfig(), device=dev)
+    for i, f in enumerate(seq):
+        fe.add(traj[i], deskew_scan(f.scan, f.odom))
+    pairs, padded = fe.candidate_pairs()
+    rows = {"closures": frontend_part(
+        "closures", lambda: fe.verify_eager(padded),
+        lambda: fe.verify(padded), fe.verifier)}
+    fe.detect_closures()
+    same = len(fe.closures) == len(flow_closures) and all(
+        (a[0], a[1]) == (b[0], b[1]) and np.array_equal(a[2], b[2])
+        and a[3] == b[3] for a, b in zip(fe.closures, flow_closures))
+    if not same:
+        raise AssertionError("posegraph closures: the accepted closures "
+                             "differ from the flow's")
+    graph = fe.graph()
+    iters = fe.cfg.gn_iterations
+
+    def solve_eager():
+        g, chi2 = PG.optimize(graph, iterations=iters)
+        return g.nodes, chi2
+
+    def solve_captured():
+        g, chi2 = fe.solver(graph, iterations=iters)
+        return g.nodes, chi2
+
+    rows["solve"] = frontend_part("solve", solve_eager, solve_captured,
+                                  fe.solver)
+    poses = solve_eager()[0].cpu().numpy()
+    rows["rebuild"] = frontend_part(
+        "rebuild", lambda: (fe.rebuild_map_eager(poses),),
+        lambda: (fe.rebuild_map(poses),), fe.rebuilder,
+        per=fe.num_keyframes)
+    in_graph = {"posegraph_verify": rows["closures"]["captured"][
+                    "kernels_in_graph"],
+                "posegraph_rebuild": rows["rebuild"]["captured"][
+                    "kernels_in_graph"]}
+    say("posegraph_parts", pairs=len(pairs), padded=len(padded),
+        accepted=len(fe.closures), accepted_equal_flow=same,
+        keyframes=fe.num_keyframes, edges=int(graph.edge_i.shape[0]),
+        library_kernels=_library_kernels(fe.solver.kernel_names()),
+        preferred_linalg_library=str(
+            torch.backends.cuda.preferred_linalg_library()),
+        seconds={part: {side: r[side]["seconds"]
+                        for side in ("eager", "captured")}
+                 for part, r in rows.items()},
+        host_launches={part: {side: r[side]["host_launches"]
+                              for side in ("eager", "captured")}
+                       for part, r in rows.items()},
+        kernels_in_graph=in_graph)
+    for part, want in (("posegraph_verify", FRONTEND_NODES["verify"]),
+                       ("posegraph_rebuild", FRONTEND_NODES["rebuild"])):
+        if in_graph[part] != want:
+            raise AssertionError(f"{part}: graph kernels {in_graph[part]}, "
+                                 f"want {want}")
+    del fe
+    return in_graph
+
+
 def posegraph_phase(dev="cuda", particles=200, path=GRAND_TOUR, scans=None):
     """app/cli.py:360-400 on the port: the RBPF over the log, keyframes,
-    closures, Gauss-Newton and the rebuilt map, twice with one seed."""
+    closures, Gauss-Newton and the rebuilt map (the frontend on its
+    captured pieces), twice with one seed; online ATE held to the JAX
+    package's + 0.06 m; then the three pieces eager beside captured
+    (posegraph_parts)."""
     from gridmap_slam_tpu_torch import (RBPF, FrontendConfig, PoseGraphSLAM,
                                         SlamConfig)
     from gridmap_slam_tpu_torch.config import MapConfig
@@ -2227,7 +2400,8 @@ def posegraph_phase(dev="cuda", particles=200, path=GRAND_TOUR, scans=None):
         n_closures = fe.detect_closures()
         part_done("posegraph_closures", "posegraph_rebuild")
         graph = fe.graph()
-        # the solve pins float32 itself: run it with TF32 allowed
+        # the solve pins float32 itself: run (and capture) it with TF32
+        # allowed
         torch.backends.cuda.matmul.allow_tf32 = dev == "cuda"
         try:
             opt, chi2 = fe.optimize()
@@ -2245,14 +2419,21 @@ def posegraph_phase(dev="cuda", particles=200, path=GRAND_TOUR, scans=None):
     identical = bool(n2 == n_closures and np.array_equal(opt, opt2)
                      and np.array_equal(chi2, chi2_2)
                      and torch.equal(rebuilt, rebuilt2))
-    # the same graph with TF32 off and on, and on the CPU
-    tf32 = {}
+    # the same graph with TF32 off and on, eager and captured anew, and on
+    # the CPU
+    tf32, tf32_captured = {}, {}
     for flag in (False, True):
         torch.backends.cuda.matmul.allow_tf32 = flag and dev == "cuda"
         try:
             tf32[flag] = PG.optimize(graph, iterations=10)[0].nodes
+            tf32_captured[flag] = PG.CapturedOptimize(dev)(
+                graph, iterations=10)[0].nodes
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_same = bool(all(torch.equal(tf32[False], t)
+                         for t in (tf32[True], *tf32_captured.values()))
+                     and np.array_equal(opt, tf32[False].cpu().numpy()
+                                        .astype(np.float64)))
     cpu_graph = PG.PoseGraph(*(getattr(graph, f.name).cpu()
                                for f in dataclasses.fields(graph)))
     cpu_nodes = PG.optimize(cpu_graph, iterations=10)[0].nodes
@@ -2262,26 +2443,32 @@ def posegraph_phase(dev="cuda", particles=200, path=GRAND_TOUR, scans=None):
     ate = ate_rmse(traj, gt)
     say("posegraph", log=path, scans=len(seq), particles=particles,
         map=[cfg.map.cells_y, cfg.map.cells_x], launches=launches,
-        online_ate_m=ate, keyframes=fe.num_keyframes,
+        online_ate_m=ate, online_ate_max_m=POSEGRAPH_ATE_MAX_M,
+        jax_online_ate_m=dict(seed_0=POSEGRAPH_JAX_ATE_M, seed_1=0.0888),
+        keyframes=fe.num_keyframes,
         edges=int(graph.edge_i.shape[0]), closures=n_closures,
         chi2_first=float(chi2[0]), chi2_last=float(chi2[-1]),
         jax_reference=dict(keyframes=216, closures=32, chi2_first=8.234,
                            chi2_last=0.386),
         gn_ms_per_iteration=gn_sec * 1e3 / 10, gn_large_graphs=large,
-        tf32_flag_changes_nothing=bool(torch.equal(tf32[False], tf32[True])),
+        tf32_flag_changes_nothing=tf32_same,
         card_vs_cpu_nodes_max_abs=cpu_err,
         rebuilt_occupied=int((rebuilt > 0).sum()),
         rebuilt_free=int((rebuilt < 0).sum()),
         rerun_identical=identical, seconds=sec)
     if not identical:
         raise AssertionError("posegraph: a second run gave other results")
+    if not ate <= POSEGRAPH_ATE_MAX_M:
+        raise AssertionError(f"posegraph: online ATE {ate} > "
+                             f"{POSEGRAPH_ATE_MAX_M}")
     if not (np.isfinite(chi2).all() and chi2[-1] < chi2[0]):
         raise AssertionError(f"posegraph: chi2 did not fall: {chi2}")
-    if not (torch.equal(tf32[False], tf32[True]) and cpu_err < 1e-3):
+    if not (tf32_same and cpu_err < 1e-3):
         raise AssertionError(f"posegraph: Gauss-Newton not pinned to "
                              f"float32 (card vs CPU {cpu_err})")
     for g in large:
-        if not (g["finite"] and g["chi2_last"] < g["chi2_first"]):
+        if not (g["finite"] and g["chi2_last"] < g["chi2_first"]
+                and g["captured_bits_equal"]):
             raise AssertionError(f"posegraph: Gauss-Newton at "
                                  f"{g['keyframes']} keyframes: {g}")
     # every kernel in the filter and in closure verification, K2 in the
@@ -2294,9 +2481,92 @@ def posegraph_phase(dev="cuda", particles=200, path=GRAND_TOUR, scans=None):
                                  f"{launches[part]}")
     first = dict(keyframes=fe.num_keyframes, closures=n_closures,
                  chi2_first=float(chi2[0]), chi2_last=float(chi2[-1]))
+    flow_closures = list(fe.closures)
     del fe, rebuilt, rebuilt2
     check_recorded(rec, launches)
-    return launches, first, graph
+    return (launches, first, graph,
+            posegraph_parts(cfg, traj, seq, flow_closures, dev))
+
+
+def config5_posegraph_phase(dev="cuda", revs=MULTI_REVS):
+    """scripts/config5_demo.py:104-135 on the port's frontend on the card:
+    both robots' dead-reckoned chains (multi_setup's logs; odometry and
+    deskew on the CPU, as the JAX demo's) in one PoseGraphSLAM, the seam
+    edge dropped (chain_breaks), detect, optimize and rebuild on the
+    captured pieces.  Closures and cross-robot closures must be the JAX
+    demo's 32 / 32, chi2 finite and falling, the optimized ATE of each
+    robot within 0.06 m of the JAX frontend's, and the captured solve and
+    rebuild equal to the eager ones bit for bit.  Returns the launches."""
+    from gridmap_slam_tpu_torch import FrontendConfig, PoseGraphSLAM
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.models import posegraph as PG
+    from gridmap_slam_tpu_torch.ops.geometry import deskew_scan
+    from gridmap_slam_tpu_torch.ops.motion import apply_odometry
+    from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
+
+    eng, _, starts, logs = multi_setup(MULTI_PARTICLES[0], dev, revs)
+    cfg = eng.config
+    del eng
+    fe = PoseGraphSLAM(cfg, FrontendConfig(
+        keyframe_dist=0.0, closure_min_gap=4, closure_max_dist=1.6),
+        device=dev)
+    dead = []
+    for r, (frames, _) in enumerate(logs):
+        b = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range)
+        pose = torch.tensor(starts[r], dtype=torch.float32)
+        for t in range(revs):
+            f = frame_at(b, t)
+            pose = apply_odometry(pose, f.odom)
+            dead.append(pose.numpy().astype(np.float64))
+            fe.add(pose, deskew_scan(f.scan, f.odom))
+    brk = (revs - 1,)
+    kernels = _zero_launches()
+    with CallRecorder("config5_posegraph") as rec:
+        (n_closures, (opt, chi2), rebuilt), sec = _timed(lambda: (
+            fe.detect_closures(), fe.optimize(chain_breaks=brk),
+            fe.rebuild_map()))
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    cross = int(sum((i < revs) != (j < revs) for i, j, _, _ in fe.closures))
+    # the eager pieces on the same inputs
+    fe.kf_poses = dead
+    eager, eager_chi2 = PG.optimize(fe.graph(brk), iterations=10)
+    solve_equal = bool(np.array_equal(
+        opt, eager.nodes.cpu().numpy().astype(np.float64))
+        and np.array_equal(chi2, eager_chi2.cpu().numpy()))
+    rebuild_equal = bool(torch.equal(rebuilt, fe.rebuild_map_eager(opt)))
+    gts = [gt for _, gt in logs]
+    ates = [ate_rmse(opt[r * revs:(r + 1) * revs], gts[r]) for r in range(2)]
+    limits = [a + 0.06 for a in CONFIG5_JAX_OPT_ATE_M]
+    dead_ates = [ate_rmse(np.asarray(dead[r * revs:(r + 1) * revs]), gts[r])
+                 for r in range(2)]
+    say("config5_posegraph", keyframes=fe.num_keyframes,
+        edges=int(fe.graph(brk).edge_i.shape[0]), chain_breaks=list(brk),
+        closures=n_closures, closures_cross_robot=cross,
+        jax_closures=CONFIG5_CLOSURES, chi2_first=float(chi2[0]),
+        chi2_last=float(chi2[-1]), dead_reckoning_ate_m=dead_ates,
+        optimized_ate_m=ates, optimized_ate_max_m=limits,
+        jax_optimized_ate_m=list(CONFIG5_JAX_OPT_ATE_M),
+        captured_solve_equals_eager=solve_equal,
+        captured_rebuild_equals_eager=rebuild_equal,
+        rebuilt_occupied=int((rebuilt > 0).sum()),
+        captures=dict(verify=fe.verifier.captures,
+                      solve=fe.solver.captures,
+                      rebuild=fe.rebuilder.captures),
+        launches=launches, seconds=sec)
+    if not (n_closures == cross == CONFIG5_CLOSURES):
+        raise AssertionError(f"config5_posegraph: {n_closures} closures, "
+                             f"{cross} cross-robot")
+    if not (np.isfinite(chi2).all() and chi2[-1] < chi2[0]):
+        raise AssertionError(f"config5_posegraph: chi2 {chi2}")
+    if not (solve_equal and rebuild_equal):
+        raise AssertionError("config5_posegraph: captured != eager")
+    if not all(a <= m for a, m in zip(ates, limits)):
+        raise AssertionError(f"config5_posegraph: ATE {ates} > {limits}")
+    if not all(launches[k] > 0 for k in BASE_ROWS):
+        raise AssertionError(f"config5_posegraph: a kernel was not "
+                             f"launched: {launches}")
+    check_recorded(rec, {"config5_posegraph": launches})
+    return launches
 
 
 def synthetic_graph(PG, k, dev):
@@ -2337,8 +2607,10 @@ def synthetic_graph(PG, k, dev):
 
 
 def gn_large_graph(PG, k, dev, iterations=10):
-    """Gauss-Newton on synthetic_graph(k).  Returns the timing, the peak
-    memory and chi2 first and last."""
+    """Gauss-Newton on synthetic_graph(k), eager and captured
+    (PG.CapturedOptimize).  Returns the timings, the peak memory, chi2
+    first and last, whether the captured solve gave the eager bits, and
+    the linear-algebra kernels its graph holds."""
     graph = synthetic_graph(PG, k, dev)
     PG.optimize(graph, iterations=1)           # warm: cuSOLVER, cuBLAS
     torch.cuda.synchronize()
@@ -2346,11 +2618,28 @@ def gn_large_graph(PG, k, dev, iterations=10):
     base = torch.cuda.memory_allocated()
     (opt, chi2), sec = _timed(lambda: PG.optimize(graph,
                                                   iterations=iterations))
-    return dict(keyframes=k, edges=int(graph.edge_i.shape[0]),
-                ms_per_iteration=sec * 1e3 / iterations,
-                peak_mem_bytes=torch.cuda.max_memory_allocated() - base,
-                chi2_first=float(chi2[0]), chi2_last=float(chi2[-1]),
-                finite=bool(torch.isfinite(opt.nodes).all()))
+    peak = torch.cuda.max_memory_allocated() - base
+    solver = PG.CapturedOptimize(dev)
+    (c_opt, c_chi2), first = _timed(lambda: solver(graph, iterations))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _sync_free(lambda: solver(graph, iterations))
+    _, sec_c = _timed(lambda: solver(graph, iterations))
+    peak_c = torch.cuda.max_memory_allocated() - base
+    row = dict(keyframes=k, edges=int(graph.edge_i.shape[0]),
+               ms_per_iteration=sec * 1e3 / iterations,
+               captured_ms_per_iteration=sec_c * 1e3 / iterations,
+               captured_first_call_seconds=first,
+               peak_mem_bytes=peak, captured_replay_peak_mem_bytes=peak_c,
+               chi2_first=float(chi2[0]), chi2_last=float(chi2[-1]),
+               finite=bool(torch.isfinite(opt.nodes).all()),
+               captured_bits_equal=bool(torch.equal(opt.nodes, c_opt.nodes)
+                                        and torch.equal(chi2, c_chi2)),
+               library_kernels=_library_kernels(solver.kernel_names()))
+    del solver
+    torch.cuda.empty_cache()
+    return row
 
 
 def chip_phase(frames, gt, dev="cuda", particles=CHIP_PARTICLES,
@@ -2519,8 +2808,7 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
             [ate_rmse(traj[:, r], g) for r, g in enumerate(gt)])
     eager_per_scan = {k: eager_counts[k] / n for k in KERNEL_SYMBOLS}
     names = cap.kernel_names()
-    in_graph = {row: sum(sym in nm for nm in names)
-                for row, sym in KERNEL_SYMBOLS.items()}
+    in_graph = _node_counts(names)
     seen = prof_c["kernels_per_scan"]
     visible = any(v > 0 for v in seen.values())
     row = dict(path=name, scans=n, particles=eng.config.num_particles,
@@ -3190,6 +3478,40 @@ def _cli_steps(eager: bool = False):
         application.compiled_step = real
 
 
+@contextlib.contextmanager
+def _cli_frontends():
+    """While active, every PoseGraphSLAM the CLI builds (cmd_posegraph
+    imports the class at each call) is kept in the yielded list."""
+    from gridmap_slam_tpu_torch.models import frontend
+    real = frontend.PoseGraphSLAM
+    made = []
+
+    class Kept(real):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    frontend.PoseGraphSLAM = Kept
+    try:
+        yield made
+    finally:
+        frontend.PoseGraphSLAM = real
+
+
+def _frontend_graphs(fe) -> dict:
+    """Each compiled piece of a frontend: its captures and the kernels its
+    graph holds by row (None where nothing was captured)."""
+    out = {}
+    for part, piece in (("verify", fe.verifier), ("solve", fe.solver),
+                        ("rebuild", fe.rebuilder)):
+        names = piece.kernel_names() if piece.graph is not None else None
+        out[part] = dict(captures=piece.captures,
+                         kernel_nodes=None if names is None else len(names),
+                         kernels=None if names is None
+                         else _node_counts(names))
+    return out
+
+
 def _host_launches_a_scan(run):
     """run() under torch.profiler: (its result, the host's launches
     (LAUNCH_CALLS) a scan, the median over the intervals from one scan's
@@ -3237,10 +3559,9 @@ def _cli_compare(name, invoke, read, tmp):
         if mode == "captured":
             cap = steps[0].captured
             names = cap.kernel_names() if cap.graph is not None else []
-            row["captured"].update(captures=cap.captures, kernels_in_graph={
-                k: sum(sym in nm for nm in names)
-                for k, sym in KERNEL_SYMBOLS.items()},
-                kernel_nodes_in_graph=len(names))
+            row["captured"].update(captures=cap.captures,
+                                   kernels_in_graph=_node_counts(names),
+                                   kernel_nodes_in_graph=len(names))
             first = traj
         else:
             row["eager_equals_captured"] = bool(np.array_equal(traj, first))
@@ -3368,12 +3689,16 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
         close_world()
 
         d = os.path.join(tmp, "posegraph")
-        summary, printed = counted("cli_posegraph", lambda: _cli(
-            ["posegraph", "--log", GRAND_TOUR, "--particles",
-             str(pg_particles), "--map-size", "14", "--seed", str(SEED),
-             "--device", dev, "--out", d]))
+        with _cli_frontends() as fes:
+            summary, printed = counted("cli_posegraph", lambda: _cli(
+                ["posegraph", "--log", GRAND_TOUR, "--particles",
+                 str(pg_particles), "--map-size", "14", "--seed", str(SEED),
+                 "--device", dev, "--out", d]))
+        pg_graphs = _frontend_graphs(fes[0])
         out["cli_posegraph"] = dict(summary, equal_phase_17=summary == pg_first
-                                    and printed == summary)
+                                    and printed == summary,
+                                    frontend_graphs=pg_graphs)
+        del fes
 
         # each CLI path on its captured step beside the eager step
         def read_replay(result, d):
@@ -3511,6 +3836,14 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
     if not out["cli_posegraph"]["equal_phase_17"]:
         raise AssertionError(f"cli_posegraph {summary} != phase 17's "
                              f"{pg_first}")
+    want_graphs = {"verify": FRONTEND_NODES["verify"],
+                   "solve": {k: 0 for k in KERNEL_SYMBOLS},
+                   "rebuild": FRONTEND_NODES["rebuild"]}
+    if dev == "cuda" and not all(
+            g["captures"] == 1 and g["kernels"] == want_graphs[part]
+            for part, g in pg_graphs.items()):
+        raise AssertionError(f"cli_posegraph: the frontend's graphs "
+                             f"{pg_graphs}")
     if not (out["cli_recovery"]["restarts"] == 1
             and out["cli_recovery"]["bit_identical"]):
         raise AssertionError(f"cli_recovery: {out['cli_recovery']}")
@@ -3569,11 +3902,13 @@ def main() -> int:
     shared_agree_phase(cfg, frames)
     by_path["mega_blocked"] = mega_blocked_phase(frames, gt)
     by_path["multi"] = multi_phase()
-    pg_launches, pg_first, pg_graph = posegraph_phase()
+    pg_launches, pg_first, pg_graph, pg_in_graph = posegraph_phase()
     by_path.update(pg_launches)
+    by_path["config5_posegraph"] = config5_posegraph_phase()
     by_path["chip"] = chip_phase(frames, gt)
     cap_launches, in_graph = captured_phase(frames, gt)
     by_path.update(cap_launches)
+    in_graph.update(pg_in_graph)
     par_launches, tile_row = parallel_phase(frames, pg_graph)
     by_path.update(par_launches)
     rows.append(tile_row)

@@ -37,6 +37,11 @@ raises: there is no fallback to the eager loop.  On a CPU engine the same
 static-buffer loop runs, with the step called where a CUDA engine replays
 the graph.  `Captured.kernel_names` lists the kernels the graph holds, one
 entry a kernel node, read from the graph itself.
+
+`Graphed` is that capture for any body over static buffers: `Captured`
+is one, and so are the pose-graph frontend's three compiled pieces (the
+closure verifier, Gauss-Newton and the map rebuild, models/frontend.py and
+models/posegraph.py).
 """
 
 from __future__ import annotations
@@ -133,7 +138,77 @@ def scan(step: Callable, draw: Callable, state, frames, generator=None,
     return state, stack_steps(infos)
 
 
-class Captured:
+def copy_from_host(buf, x):
+    """buf.copy_(x) for a host tensor x with no wait on the card: on a CUDA
+    buffer x goes through pinned memory, whose block PyTorch's host
+    allocator keeps until the copy has run."""
+    if buf.is_cuda:
+        x = x.pin_memory()
+    buf.copy_(x, non_blocking=True)
+
+
+class Graphed:
+    """A body over static buffers, run as one CUDA graph on the card.
+
+    body() reads and writes only tensors that outlive it (the static
+    buffers, which its owner fills before a run and reads after).
+    `capture()` captures it anew and counts that in `captures`; `run()`
+    replays it.  On a CPU device capture() does nothing and run() calls the
+    body: the same static-buffer code, with no graph."""
+
+    def __init__(self, body: Callable, device,
+                 reset: Optional[Callable] = None):
+        self.body = body
+        self.device = torch.device(device)
+        self._reset = reset
+        self.graph = None
+        self.captures = 0
+
+    def capture(self) -> None:
+        """WARMUP_STEPS eager calls of the body on a side stream (reset()
+        before each and after the last), which build the kernel library
+        and fill every cache the body reads (the kernels' launch plans,
+        the matcher's offsets, cuFFT's plans, the cuBLAS and cuSOLVER
+        handles and workspaces), then the capture on that stream.  The
+        graph is kept beside its instance, for kernel_names.  A capture
+        that fails raises."""
+        self.graph = None
+        if self.device.type != "cuda":
+            return
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                if self._reset is not None:
+                    self._reset()
+                self.body()
+            if self._reset is not None:
+                self._reset()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, stream=side):
+            self.body()
+        graph.instantiate()
+        self.graph = graph
+        self.captures += 1
+
+    def run(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+        elif self.device.type == "cuda":
+            raise RuntimeError("run() before capture() on a CUDA device")
+        else:
+            self.body()
+
+    def kernel_names(self) -> list:
+        """The function name of every kernel node of the captured graph
+        (one entry a launch a replay)."""
+        if self.graph is None:
+            raise RuntimeError("no graph captured yet")
+        return graph_kernel_names(self.graph.raw_cuda_graph())
+
+
+class Captured(Graphed):
     """One filter step captured once, replayed once a scan (see the module
     docstring).  Calling it with (state, stacked frames, generator, draws)
     returns (the static state, the infos stacked over the scans): the
@@ -144,11 +219,10 @@ class Captured:
         """step(state, frame, draws, out) -> (state, info);
         draw(generator, out=None) -> one scan's draws, into `out`'s tensors
         where it is given."""
+        super().__init__(self._body, device,
+                         reset=lambda: self.counter.zero_())
         self._step = step
         self._draw = draw
-        self.device = torch.device(device)
-        self.graph = None
-        self.captures = 0
         self._key = None
         self.capacity = 0
         self.state = self.frames = self.draws = self.infos = None
@@ -186,30 +260,7 @@ class Captured:
         self.draws = self._draw(torch.Generator(device=self.device))
         self.counter = torch.zeros((1,), dtype=torch.int64,
                                    device=self.device)
-        if self.device.type != "cuda":
-            return
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self.counter.zero_()
-                self._body()
-            self.counter.zero_()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        # the graph is kept beside its instance, for kernel_names
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph, stream=side):
-            self._body()
-        graph.instantiate()
-        self.graph = graph
-        self.captures += 1
-
-    def kernel_names(self) -> list:
-        """The function name of every kernel node of the captured graph
-        (one entry a launch a replay)."""
-        if self.graph is None:
-            raise RuntimeError("no graph captured yet")
-        return graph_kernel_names(self.graph.raw_cuda_graph())
+        self.capture()
 
     def __call__(self, state, frames, generator=None, draws=None):
         n = num_frames(frames)
@@ -229,10 +280,7 @@ class Captured:
             else:
                 tree_map(lambda buf, x, i=i: buf.copy_(x[i]), self.draws,
                          draws)
-            if self.graph is None:
-                self._body()
-            else:
-                self.graph.replay()
+            self.run()
         return self.state, tree_map(lambda buf: buf[:n].clone(), self.infos)
 
 

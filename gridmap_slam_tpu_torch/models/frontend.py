@@ -18,11 +18,22 @@ online frontend that
 
 Candidate generation and thresholding stay on the host in numpy, as in the
 JAX package (they are tiny and data-dependent).
+
+The JAX frontend jit-compiles verify, optimize and rebuild; here each is a
+CUDA graph on the card (models/captured.Graphed), captured at its first
+call: the verifier over static (max_candidates, B) buffers
+(ClosureVerifier), Gauss-Newton at a graph's size (posegraph.
+CapturedOptimize) and one keyframe's K2 update replayed once a keyframe
+(MapRebuild).  Each call copies its inputs into the static buffers, replays
+and returns fresh tensors with the eager path's bits; the eager forms stay
+(`verify_eager`, `posegraph.optimize`, `rebuild_map_eager`).  On the CPU the
+same static-buffer code runs, with the body called where the card replays.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -35,6 +46,7 @@ from ..ops.geometry import se2_relative, wrap_angle
 from ..ops.grid import gaussian_kernel
 from ..types import Scan
 from . import posegraph as PG
+from .captured import Graphed, copy_from_host
 
 
 @dataclasses.dataclass
@@ -75,6 +87,129 @@ def _stack_scans(scans) -> Scan:
                   for f in dataclasses.fields(Scan)))
 
 
+def _stack_into(buf: Scan, scans) -> None:
+    """The scans stacked along a leading axis into buf's leading rows."""
+    for f in dataclasses.fields(Scan):
+        dst = getattr(buf, f.name)
+        torch.stack([getattr(s, f.name) for s in scans],
+                    out=dst[:len(scans)])
+
+
+def _scan_key(scan: Scan) -> tuple:
+    return tuple((tuple(getattr(scan, f.name).shape),
+                  getattr(scan, f.name).dtype)
+                 for f in dataclasses.fields(Scan))
+
+
+def _empty_scans(scan: Scan, n: int) -> Scan:
+    """A Scan of n rows shaped and typed as `scan`, on its device."""
+    return Scan(*(getattr(scan, f.name).new_empty(
+        (n,) + tuple(getattr(scan, f.name).shape))
+        for f in dataclasses.fields(Scan)))
+
+
+class ClosureVerifier(Graphed):
+    """The closure verifier over static buffers at the padded width, the
+    counterpart of `jax.jit(jax.vmap(verify))`
+    (gridmap_slam_tpu/models/frontend.py:132): the candidates' scans each
+    way and their guesses in, `verify(scan_i, scan_j, guesses)`'s rels,
+    min scores and consistency out.  Captured at the first call (again for
+    a batch of other shapes); each call copies its inputs in and
+    replays."""
+
+    def __init__(self, verify, device):
+        super().__init__(self._body, device)
+        self._verify = verify
+        self._key = None
+        self.scan_i = self.scan_j = self.guesses = None
+        self._out = None
+
+    def _body(self):
+        self._out = self._verify(self.scan_i, self.scan_j, self.guesses)
+
+    def __call__(self, scans_i, scans_j, guesses):
+        """scans_i, scans_j: C scans (B,) each; guesses: (C, 3) float32 on
+        the host.  Returns (rels (C, 3), min_score (C,), consistency
+        (C,)) on the device."""
+        key = (len(scans_i), _scan_key(scans_i[0]))
+        fresh = key != self._key
+        if fresh:
+            self._key = key
+            self.scan_i = _empty_scans(scans_i[0], len(scans_i))
+            self.scan_j = _empty_scans(scans_j[0], len(scans_j))
+            self.guesses = torch.empty((len(scans_i), 3),
+                                       dtype=torch.float32,
+                                       device=self.device)
+        _stack_into(self.scan_i, scans_i)
+        _stack_into(self.scan_j, scans_j)
+        copy_from_host(self.guesses, guesses)
+        if fresh:
+            self.capture()
+        self.run()
+        return tuple(t.clone() for t in self._out)
+
+
+class MapRebuild(Graphed):
+    """The rebuild's lax.scan over keyframes
+    (gridmap_slam_tpu/models/frontend.py:234-243) as one keyframe's work
+    captured once and replayed once a keyframe: read keyframe k of a
+    (capacity, B) scan bank and its pose at a counter on the device, build
+    its bin tables, add its K2 delta into a static accumulator (acc <- acc
+    + delta_k, the eager loop's order, so the eager loop's bits) and add
+    one to the counter.  Recaptured only when a longer keyframe list
+    exceeds the bank's capacity (models/captured.Captured's rule)."""
+
+    def __init__(self, slam_config: SlamConfig, device):
+        super().__init__(self._body, device, reset=self._reset)
+        self.scfg = slam_config
+        self._key = None
+        self.capacity = 0
+        self.bank = self.poses = self.acc = self.counter = None
+        self._one = torch.ones((), device=self.device)
+
+    def _reset(self):
+        self.acc.zero_()
+        self.counter.zero_()
+
+    def _body(self):
+        scfg, s, k = self.scfg, self.scfg.sensor, self.counter
+        scan = Scan(*(getattr(self.bank, f.name).index_select(0, k)[0]
+                      for f in dataclasses.fields(Scan)))
+        integrate_scan_batch(
+            self.acc, self.poses.index_select(0, k), self._one,
+            *scan_bin_tables(scan, scfg.beam_lut_bins),
+            resolution=float(scfg.map.resolution),
+            origin=(float(scfg.map.origin[0]), float(scfg.map.origin[1])),
+            l_free=s.l_free, l_occ=s.l_occ, tol_cells=s.hit_tolerance_cells,
+            out=self.acc)
+        k.add_(1)
+
+    def __call__(self, scans, poses: np.ndarray) -> torch.Tensor:
+        """scans: K scans (B,); poses: (K, 3).  Returns the (H, W) map."""
+        n = len(scans)
+        key = _scan_key(scans[0])
+        fresh = key != self._key or n > self.capacity
+        if fresh:
+            self._key, self.capacity, self.graph = key, n, None
+            self.bank = _empty_scans(scans[0], n)
+            self.poses = torch.empty((n, 3), dtype=torch.float32,
+                                     device=self.device)
+            self.acc = torch.empty((1, self.scfg.map.cells_y,
+                                    self.scfg.map.cells_x),
+                                   dtype=torch.float32, device=self.device)
+            self.counter = torch.empty((1,), dtype=torch.int64,
+                                       device=self.device)
+        _stack_into(self.bank, scans)
+        copy_from_host(self.poses[:n], torch.as_tensor(
+            np.asarray(poses, np.float32)))
+        if fresh:
+            self.capture()
+        self._reset()
+        for _ in range(n):
+            self.run()
+        return self.acc[0].clone()
+
+
 class PoseGraphSLAM:
     """Keyframe pose-graph layered over any pose source (SLAM filter or raw
     odometry), on one device (the card unless `device="cpu"` is asked
@@ -92,6 +227,10 @@ class PoseGraphSLAM:
         self.kf_poses: List[np.ndarray] = []
         self.kf_scans: List[Scan] = []
         self.closures: List[Tuple[int, int, np.ndarray, float]] = []
+        # the compiled pieces, each captured at its first call
+        self.verifier = ClosureVerifier(self._verify_fn(), self.device)
+        self.solver = PG.CapturedOptimize(self.device)
+        self.rebuilder = MapRebuild(slam_config, self.device)
 
     # ----------------------------------------------------------- keyframes
     def add(self, pose, scan: Scan) -> bool:
@@ -119,10 +258,9 @@ class PoseGraphSLAM:
         return len(self.kf_poses)
 
     # -------------------------------------------------------- loop closure
-    def _verify(self, pairs):
-        """(rels (C, 3), scores (C,), consistency (C,)) of keyframe pairs,
-        as numpy arrays, with the closure matcher: the wide window of
-        FrontendConfig and no motion prior."""
+    def _verify_fn(self):
+        """verify_closure_bidirectional with the closure matcher: the wide
+        window of FrontendConfig and no motion prior."""
         scfg, c = self.scfg, self.cfg
         mc = dataclasses.replace(
             scfg.matcher, window_xy=c.closure_window_xy,
@@ -130,21 +268,39 @@ class PoseGraphSLAM:
             coarse_nxy=c.closure_coarse_nxy, coarse_nt=c.closure_coarse_nt,
             extra_refine_stages=c.closure_refine_stages, prior_weight=0.0,
             impl="gather")
+        return functools.partial(
+            PG.verify_closure_bidirectional, map_cfg=scfg.map,
+            matcher_cfg=mc, motion_cfg=scfg.motion, sensor_cfg=scfg.sensor,
+            taps=self.taps, beam_lut_bins=scfg.beam_lut_bins)
+
+    def _closure_inputs(self, pairs):
+        """The pairs' scans each way, and their guesses (C, 3) in float32
+        on the host, one pair at a time as the JAX frontend computes them
+        (a vectorised se2_relative can round otherwise)."""
         guesses = torch.stack([
             se2_relative(torch.tensor(self.kf_poses[i], dtype=torch.float32),
                          torch.tensor(self.kf_poses[j], dtype=torch.float32))
-            for i, j in pairs]).to(self.device)
-        out = PG.verify_closure_bidirectional(
-            _stack_scans([self.kf_scans[i] for i, _ in pairs]),
-            _stack_scans([self.kf_scans[j] for _, j in pairs]), guesses,
-            map_cfg=scfg.map, matcher_cfg=mc,
-            motion_cfg=scfg.motion, sensor_cfg=scfg.sensor, taps=self.taps,
-            beam_lut_bins=scfg.beam_lut_bins)
-        return tuple(t.cpu().numpy() for t in out)
+            for i, j in pairs])
+        return ([self.kf_scans[i] for i, _ in pairs],
+                [self.kf_scans[j] for _, j in pairs], guesses)
 
-    def detect_closures(self) -> int:
-        """Propose + verify closure candidates; returns how many were
-        accepted and recorded (deduplicated by pair)."""
+    def verify_eager(self, pairs):
+        """The eager verifier: (rels (C, 3), min_score (C,), consistency
+        (C,)) of keyframe pairs, on the device."""
+        scans_i, scans_j, guesses = self._closure_inputs(pairs)
+        return self._verify_fn()(_stack_scans(scans_i),
+                                 _stack_scans(scans_j),
+                                 guesses.to(self.device))
+
+    def verify(self, pairs):
+        """verify_eager's results from the captured verifier
+        (ClosureVerifier)."""
+        return self.verifier(*self._closure_inputs(pairs))
+
+    def candidate_pairs(self):
+        """(the proposed pairs not yet recorded, the batch padded to
+        max_candidates with the first pair as the JAX frontend pads it);
+        ([], []) when there is none."""
         props = PG.propose_closures(
             np.asarray(self.kf_poses), min_gap=self.cfg.closure_min_gap,
             max_dist=self.cfg.closure_max_dist,
@@ -152,11 +308,18 @@ class PoseGraphSLAM:
         seen = {(i, j) for i, j, _, _ in self.closures}
         pairs = [(i, j) for i, j in props.pairs if (i, j) not in seen]
         if not pairs:
+            return [], []
+        return pairs, pairs + [pairs[0]] * (self.cfg.max_candidates
+                                            - len(pairs))
+
+    def detect_closures(self) -> int:
+        """Propose + verify closure candidates; returns how many were
+        accepted and recorded (deduplicated by pair)."""
+        pairs, padded = self.candidate_pairs()
+        if not pairs:
             return 0
-        # a fixed batch width, as the JAX frontend pads it
-        width = self.cfg.max_candidates
-        padded = pairs + [pairs[0]] * (width - len(pairs))
-        rels, scores, consist = self._verify(padded)
+        # one read back, as the JAX frontend's np.asarray
+        rels, scores, consist = (t.cpu().numpy() for t in self.verify(padded))
         n = 0
         for k, (i, j) in enumerate(pairs):
             if (scores[k] >= self.cfg.closure_min_score
@@ -207,7 +370,7 @@ class PoseGraphSLAM:
         several robots concatenated into one graph have no odometry
         constraint across the robot seams; alignment there comes from
         cross-robot loop closures instead."""
-        graph, chi2 = PG.optimize(self.graph(chain_breaks),
+        graph, chi2 = self.solver(self.graph(chain_breaks),
                                   iterations=self.cfg.gn_iterations)
         opt = graph.nodes.cpu().numpy().astype(np.float64)
         self.kf_poses = [p for p in opt]
@@ -216,7 +379,15 @@ class PoseGraphSLAM:
     # ----------------------------------------------------------- map rebuild
     def rebuild_map(self, poses: Optional[np.ndarray] = None) -> torch.Tensor:
         """Re-integrate every keyframe scan at its (optimized) pose into a
-        fresh (H, W) grid, one K2 call a keyframe: acc <- acc + delta_k."""
+        fresh (H, W) grid on the captured rebuild (MapRebuild): one K2
+        update a keyframe, acc <- acc + delta_k."""
+        if poses is None:
+            poses = np.asarray(self.kf_poses)
+        return self.rebuilder(self.kf_scans, poses)
+
+    def rebuild_map_eager(self, poses: Optional[np.ndarray] = None
+                          ) -> torch.Tensor:
+        """rebuild_map's map by the eager loop, one K2 call a keyframe."""
         scfg = self.scfg
         if poses is None:
             poses = np.asarray(self.kf_poses)

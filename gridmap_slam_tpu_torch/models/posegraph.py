@@ -43,6 +43,7 @@ from ..ops.geometry import wrap_angle
 from ..ops.matcher import correlative_match_batch
 from ..ops.precision import f32_matmul
 from ..types import Odom, Scan
+from .captured import Graphed, copy_into, leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -178,6 +179,49 @@ def optimize(graph: PoseGraph, iterations: int = 10,
         graph, chi2 = gauss_newton_step(graph, damping)
         chi2s.append(chi2)
     return graph, torch.stack(chi2s)
+
+
+class CapturedOptimize(Graphed):
+    """`optimize` as one CUDA graph, the counterpart of the JAX package's
+    jitted lax.scan (gridmap_slam_tpu/models/posegraph.py:154-160): all
+    the iterations over static graph buffers, captured at a graph's size
+    and replayed once a call.  One graph of every iteration rather than
+    one step replayed a time: the frontend's iteration count is fixed
+    (FrontendConfig.gn_iterations), and the whole solve is then one replay
+    with no counter and no copy back between steps.
+
+    Keyed by the graph's shapes and dtypes, the iterations and the
+    damping: a graph that grew (new closures, chain breaks) recaptures.
+    The products stay float32 under f32_matmul inside the capture, and
+    the graph holds the kernels cuBLAS and cuSOLVER chose then, whatever
+    the TF32 flag says at a later replay.  Calling it returns (graph,
+    chi2) as `optimize` does, fresh tensors with the eager bits."""
+
+    def __init__(self, device):
+        super().__init__(self._body, device)
+        self._key = None
+        self.static = None          # the PoseGraph the graph reads
+        self._iterations, self._damping = 0, 0.0
+        self._out = None
+
+    def _body(self):
+        graph, chi2 = optimize(self.static, self._iterations, self._damping)
+        self._out = graph.nodes, chi2
+
+    def __call__(self, graph: PoseGraph, iterations: int = 10,
+                 damping: float = 1e-6) -> Tuple[PoseGraph, torch.Tensor]:
+        key = (tuple((tuple(x.shape), x.dtype) for x in leaves(graph)),
+               iterations, damping)
+        if key != self._key:
+            self._key = key
+            self.static = tree_map(torch.clone, graph)
+            self._iterations, self._damping = iterations, damping
+            self.capture()
+        else:
+            tree_map(copy_into, self.static, graph)
+        self.run()
+        nodes, chi2 = self._out
+        return dataclasses.replace(graph, nodes=nodes.clone()), chi2.clone()
 
 
 # --------------------------------------------------------------- loop closure
