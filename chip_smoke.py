@@ -246,9 +246,11 @@ CONFIG5_CLOSURES = 32
 # the kernels in the frontend's graphs: a detection's verify (K1 5 stages
 # and K2, K3 once, each way) and one keyframe of the rebuild
 FRONTEND_NODES = {"verify": {"stage_scores": 10, "integrate_scan": 2,
-                             "log_likelihood_field": 2, "surface_corr": 0},
+                             "log_likelihood_field": 2, "surface_corr": 0,
+                             "stage_scores_tile": 0},
                   "rebuild": {"stage_scores": 0, "integrate_scan": 1,
-                              "log_likelihood_field": 0, "surface_corr": 0}}
+                              "log_likelihood_field": 0, "surface_corr": 0,
+                              "stage_scores_tile": 0}}
 CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
 # The H100 SXM's published peaks (NVIDIA's data sheet, 700 W): FP32
 # outside the tensor cores and HBM3.  A kernel's bound is the larger of its
@@ -2197,10 +2199,19 @@ def multi_phase(dev="cuda", particle_counts=MULTI_PARTICLES,
     return total
 
 
+# K1's tile variant: stage_scores_kernel<kShared, kNearest, kCw, true>
+K1_TILE_SYMBOL = re.compile(r"stage_scores_kernelILb[01]ELb[01]ELi\d+ELb1E")
+
+
 def _node_counts(names) -> dict:
-    """Kernel nodes of a graph by kernel row (KERNEL_SYMBOLS)."""
-    return {row: sum(sym in nm for nm in names)
-            for row, sym in KERNEL_SYMBOLS.items()}
+    """Kernel nodes of a graph by kernel row (KERNEL_SYMBOLS, and K1's tile
+    variant apart from K1)."""
+    counts = {row: sum(sym in nm for nm in names)
+              for row, sym in KERNEL_SYMBOLS.items()}
+    tiled = sum(bool(K1_TILE_SYMBOL.search(nm)) for nm in names)
+    counts["stage_scores"] -= tiled
+    counts["stage_scores_tile"] = tiled
+    return counts
 
 
 def _library_kernels(names) -> dict:
@@ -2693,6 +2704,8 @@ KERNEL_SYMBOLS = {"stage_scores": "stage_scores_kernel",
                   "integrate_scan": "grid_update_kernel",
                   "log_likelihood_field": "ll_field_",
                   "surface_corr": "surface_corr_"}
+# the rows _node_counts gives
+GRAPH_ROWS = (*KERNEL_SYMBOLS, "stage_scores_tile")
 # the runtime calls that put work on the card from the host
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
@@ -3123,54 +3136,146 @@ def k1_tile_phase(frames, particles=256, timed_particles=PAR_TILED_CHUNK):
                 else "bytes", library_ms=None)
 
 
-def _par_path(path, seq, step, init, ref, compare, needed):
+# the kernel rows whose launches a scan a mesh graph holds
+MESH_GRAPH_ROWS = ("stage_scores", "stage_scores_tile", "integrate_scan",
+                   "log_likelihood_field")
+
+
+def _par_path(path, seq, make, init, ref, compare, needed, single):
     """One row of the parallel phase on the world of one: the distributed
-    path over `seq` from init() with a seeded generator, every launch
-    count at 0 before it and its kernel calls recorded; again with the
-    same seed (the same bits); a warm step under the sync check; then
-    the single-device reference `ref()` and `compare(state, infos,
-    ref_state, ref_infos)` -> dict with "ok".  Returns the launches."""
+    path over `seq` from init() with a seeded generator, eager
+    (make(False)), then compiled (make(True), one CUDA graph with its NCCL
+    collectives), from the same seed.
+
+    Eager: every launch count at 0 before the run, its kernel calls
+    recorded and its collectives kept; again (the same bits, timed); a warm
+    step under the sync check; a profiled run.  Then the single-device
+    reference `ref()` and `compare(state, infos, ref_state, ref_infos)` ->
+    dict with "ok".  Compiled: the first run (warm-up and capture: the
+    launch counts), then a warm run under the sync check that must launch
+    no kernel from Python, a timed run and a profiled one; both runs must
+    equal the eager run in every field of the final state and of every
+    scan's info, and pass the same comparison with the reference.  The
+    graph must hold, by kernel row, the eager run's launches a scan, and
+    be captured once; its nodes are also counted by type, beside the
+    collectives a scan and the single-device graph's nodes by type.
+    single() -> (replay, init): the single-device engine's replay_jit over
+    the same scans, timed in this call.  Returns (the eager launches, the
+    graph's kernels a scan)."""
+    from gridmap_slam_tpu_torch.models.captured import stack_steps
+    from gridmap_slam_tpu_torch.parallel.mesh import recording
+
     start = init()              # (a shard of the engine's init: set-up)
+    n = len(seq)
 
-    def run():
-        gen = torch.Generator(device="cuda").manual_seed(SEED)
-        st, infos = start, []
-        for f in seq:
-            st, info = step(st, f, gen)
-            infos.append(info)
-        return st, infos
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED)
 
+    def run(step):
+        def go():
+            g, st, infos = gen(), start, []
+            for f in seq:
+                st, info = step(st, f, g)
+                infos.append(info)
+            return st, infos
+        return go
+
+    eager = make(False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = _zero_launches()
-    with CallRecorder(path) as rec:
-        (state, infos), _ = _timed(run)
+    with CallRecorder(path) as rec, recording() as colls:
+        (state, infos), _ = _timed(run(eager))
     launches = {k: mod.launches for k, mod in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    (again, _), sec = _timed(run)
+    (again, _), sec = _timed(run(eager))
     identical = _same(state, again)
     del again
-    _sync_free(lambda: step(state, seq[-1],
-                            torch.Generator(device="cuda").manual_seed(SEED)))
+    _sync_free(lambda: eager(state, seq[-1], gen()))
+    _, prof_e = _profiled(run(eager), n)
     ref_state, ref_infos = ref()
     cmp = compare(state, infos, ref_state, ref_infos)
+
+    comp = make(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _zero_launches()
+    (st_c, inf_c), first_sec = _timed(run(comp))
+    capture_counts = {k: mod.launches for k, mod in kernels.items()}
+    eager_infos = stack_steps(infos)
+    bits = {"state": _fields_differing(state, st_c),
+            "infos": _fields_differing(eager_infos, stack_steps(inf_c))}
+    cmp_c = compare(st_c, inf_c, ref_state, ref_infos)
     del ref_state, ref_infos
+    kernels = _zero_launches()
+    st_c, inf_c = _sync_free(run(comp))
+    torch.cuda.synchronize()
+    replay_counts = {k: mod.launches for k, mod in kernels.items()}
+    peak_c = torch.cuda.max_memory_allocated()
+    rerun = {"state": _fields_differing(state, st_c),
+             "infos": _fields_differing(eager_infos, stack_steps(inf_c))}
+    _, sec_c = _timed(run(comp))
+    _, prof_c = _profiled(run(comp), n)
+    cap = comp.captured
+    names = cap.kernel_names()
+    in_graph = _node_counts(names)
+    eager_per_scan = {k: launches[k] / n for k in MESH_GRAPH_ROWS}
+
+    replay, single_init = single()
+    batch = stack_steps(seq)
+    replay(single_init(), batch, gen())                  # capture
+    s0, g0 = single_init(), gen()
+    _, sec_s = _timed(lambda: replay(s0, batch, g0))
+    single_nodes = replay.captured.node_types()
+    del replay, s0, batch
+
+    per_scan = {}
+    for kind, axis, nbytes in colls:
+        key = f"{kind} {axis}"
+        per_scan[key] = per_scan.get(key, 0) + 1 / n
     say("parallel_path", path=path, mesh=[1, 1], backend="nccl",
-        scans=len(seq), particles=int(state.poses.shape[0]),
-        launches_a_scan={k: v / len(seq) for k, v in launches.items()},
-        host_syncs_warm_step=0, peak_mem_bytes=peak,
-        rerun_identical=identical, warm_seconds=sec,
-        scans_per_sec=len(seq) / sec, final_neff=float(infos[-1].neff),
-        **cmp)
-    if not (identical and cmp["ok"]):
+        scans=n, particles=int(state.poses.shape[0]),
+        launches_a_scan={k: v / n for k, v in launches.items()},
+        rerun_identical=identical, final_neff=float(infos[-1].neff),
+        collectives_a_scan=per_scan,
+        eager=dict(scans_per_sec=n / sec, warm_seconds=sec,
+                   peak_mem_bytes=peak, busy_pct=100 * prof_e["device_ms"]
+                   / (sec * 1e3), host_syncs_warm_step=0, **prof_e),
+        captured=dict(scans_per_sec=n / sec_c, warm_seconds=sec_c,
+                      first_call_seconds=first_sec, peak_mem_bytes=peak_c,
+                      busy_pct=100 * prof_c["device_ms"] / (sec_c * 1e3),
+                      captures=cap.captures,
+                      launches_in_capture_call=capture_counts,
+                      python_launches_in_warm_replay=replay_counts,
+                      kernels_a_scan_in_graph=in_graph,
+                      kernel_nodes_in_graph=len(names),
+                      graph_nodes_by_type=cap.node_types(),
+                      bits_differing_from_eager=bits,
+                      rerun_differing_from_eager=rerun,
+                      against_reference=cmp_c, **prof_c),
+        single_device_captured=dict(scans_per_sec=n / sec_s,
+                                    warm_seconds=sec_s,
+                                    graph_nodes_by_type=single_nodes),
+        speedup=sec / sec_c, **cmp)
+    if not (identical and cmp["ok"] and cmp_c["ok"]):
         raise AssertionError(f"{path}: rerun identical {identical}, "
-                             f"against its reference {cmp}")
-    if not all(launches[k] > 0 for k in needed):
+                             f"against its reference {cmp}, captured {cmp_c}")
+    if any(bits.values()) or any(rerun.values()):
+        raise AssertionError(f"{path}: the captured runs differ from the "
+                             f"eager run: {bits} {rerun}")
+    if not all(launches[k] > 0 and capture_counts[k] > 0 for k in needed):
         raise AssertionError(f"{path}: a kernel was not launched: "
-                             f"{launches}")
-    del state, infos
+                             f"{launches} {capture_counts}")
+    if any(replay_counts.values()) or cap.captures != 1:
+        raise AssertionError(f"{path}: {cap.captures} captures; a warm "
+                             f"replay launched from Python {replay_counts}")
+    if any(in_graph[k] != eager_per_scan[k] for k in MESH_GRAPH_ROWS):
+        raise AssertionError(f"{path}: kernels a scan inside the graph "
+                             f"{in_graph} != eager {eager_per_scan}")
+    del state, infos, st_c, inf_c, comp, cap
+    torch.cuda.empty_cache()
     check_recorded(rec, {path: launches})
-    return launches
+    return launches, in_graph
 
 
 def _bitwise(state, infos, ref, ref_infos):
@@ -3204,7 +3309,9 @@ def _within(pose_atol, map_atol, neff_rtol=None):
 def _ba_rows(mesh, pg_graph, dev="cuda", iterations=10):
     """The distributed Gauss-Newton on the world of one against
     models/posegraph.optimize, on grand_tour_216's graph and the synthetic
-    1000 / 3000-keyframe graphs."""
+    1000 / 3000-keyframe graphs; eager, then compiled (every iteration
+    with its psum one CUDA graph, captured once a graph): the same bits,
+    no synchronizing call in a warm call, ms an iteration of each."""
     from gridmap_slam_tpu_torch.models import posegraph as PG
     from gridmap_slam_tpu_torch.parallel.ba import (make_distributed_optimizer,
                                                     pad_edges, shard_graph)
@@ -3229,6 +3336,19 @@ def _ba_rows(mesh, pg_graph, dev="cuda", iterations=10):
         want, chi2_ref = PG.optimize(graph, iterations=iterations)
         chi2_rel = float(((chi2 - chi2_ref).abs() / chi2_ref.abs()).max())
         nodes = float((got.nodes - want.nodes).abs().max())
+
+        opt_c = make_distributed_optimizer(mesh, iterations=iterations,
+                                           jit=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (got_c, chi2_c), first_c = _timed(lambda: opt_c(local))  # capture
+        peak_c = torch.cuda.max_memory_allocated() - base
+        again_c, _ = _sync_free(lambda: opt_c(local))
+        _, sec_c = _timed(lambda: opt_c(local))
+        solve = opt_c.captured
+        bits_c = bool(torch.equal(got_c.nodes, got.nodes)
+                      and torch.equal(chi2_c, chi2)
+                      and torch.equal(again_c.nodes, got.nodes))
         row = dict(graph=name, keyframes=int(graph.nodes.shape[0]),
                    edges=int(graph.edge_i.shape[0]),
                    ms_per_iteration=sec * 1e3 / iterations,
@@ -3236,10 +3356,21 @@ def _ba_rows(mesh, pg_graph, dev="cuda", iterations=10):
                    chi2_last=float(chi2[-1]), max_chi2_rel_diff=chi2_rel,
                    max_nodes_diff=nodes, host_syncs_an_iteration=0,
                    reference_bits_equal=bool(torch.equal(got.nodes,
-                                                         want.nodes)))
+                                                         want.nodes)),
+                   captured=dict(ms_per_iteration=sec_c * 1e3 / iterations,
+                                 first_call_seconds=first_c,
+                                 peak_mem_bytes=peak_c,
+                                 captures=solve.captures,
+                                 kernel_nodes=len(solve.kernel_names()),
+                                 graph_nodes_by_type=solve.node_types(),
+                                 eager_bits_equal=bits_c,
+                                 host_syncs_warm_call=0))
         rows.append(row)
+        del opt_c, solve, got_c, again_c
+        torch.cuda.empty_cache()
         if not (chi2_rel <= BA_CHI2_RTOL and nodes <= BA_NODES_ATOL
-                and float(chi2[-1]) < float(chi2[0])):
+                and float(chi2[-1]) < float(chi2[0]) and bits_c
+                and row["captured"]["captures"] == 1):
             say("parallel_ba", graphs=rows)
             raise AssertionError(f"distributed BA on {name}: {row}")
     say("parallel_ba", mesh=[1, 1], backend="nccl", iterations=iterations,
@@ -3270,7 +3401,11 @@ def parallel_phase(frames, pg_graph):
     t0 = time.perf_counter()
     tile_row = k1_tile_phase(frames)
     world = _world_of_one()
-    launches = {}
+    launches, in_graph = {}, {}
+
+    def record(path, out):
+        launches[path], in_graph[f"parallel {path}"] = out
+
     try:
         mesh = pmesh.make_mesh(1, device="cuda")
 
@@ -3282,25 +3417,30 @@ def parallel_phase(frames, pg_graph):
         def gen():
             return torch.Generator(device="cuda").manual_seed(SEED)
 
+        def maker(make, eng, *args):
+            return lambda jit: make(eng, mesh, *args, jit=jit)
+
         # shmap: mega_blocked's config, blocks of matcher_block_size
         cfg = parity_config().replace(num_particles=MEGA_PARTICLES,
                                       particle_chunk=0)
         block = matcher_block_size(cfg)
         eng = SharedMapSLAM(cfg, device="cuda")
         seq = seq_of(cfg, PAR_SHMAP_SCANS)
-        launches["shmap"] = _par_path(
-            "shmap", seq, make_shmap_step(eng, mesh),
+        record("shmap", _par_path(
+            "shmap", seq, maker(make_shmap_step, eng),
             lambda: init_shmap(eng, mesh),
             lambda: eng.replay(eng.init(), seq, gen(), block=block),
-            _bitwise, BASE_ROWS)
+            _bitwise, BASE_ROWS,
+            lambda: (eng.replay_jit(block=block), eng.init)))
 
         eng = SharedMapSLAM(mega_config(), device="cuda")
         seq = seq_of(eng.config, N_SCANS)
-        launches["shmap_surface"] = _par_path(
-            "shmap_surface", seq, make_shmap_step(eng, mesh, surface=True),
+        record("shmap_surface", _par_path(
+            "shmap_surface", seq, maker(make_shmap_step, eng, True),
             lambda: init_shmap(eng, mesh),
             lambda: eng.run_log(eng.init(), seq, gen()), _bitwise,
-            ("log_likelihood_field", "integrate_scan"))
+            ("log_likelihood_field", "integrate_scan"),
+            lambda: (eng.replay_surface_jit(), eng.init)))
 
         # tiled: the city map at the chip rung's particle count, against
         # SharedMapSLAM.step with _match_tiled's coarse stage
@@ -3311,30 +3451,33 @@ def parallel_phase(frames, pg_graph):
             cfg.matcher, coarse_halfres=False, coarse_nearest=False)),
             device="cuda")
         seq = seq_of(cfg, N_SCANS)
-        launches["tiled"] = _par_path(
-            "tiled", seq, make_tiled_step(eng, mesh),
+        record("tiled", _par_path(
+            "tiled", seq, maker(make_tiled_step, eng),
             lambda: init_tiled(eng, mesh),
             lambda: ref_eng.replay(ref_eng.init(), seq, gen()),
             _within(TILED_ATOL, TILED_ATOL),
-            ("stage_scores_tile", "integrate_scan", "log_likelihood_field"))
+            ("stage_scores_tile", "integrate_scan", "log_likelihood_field"),
+            lambda: (ref_eng.replay_jit(), ref_eng.init)))
         del ref_eng
 
         eng = SharedMapSLAM(city_config(), device="cuda")
         seq = seq_of(eng.config, N_SCANS)
-        launches["surface_sharded"] = _par_path(
-            "surface_sharded", seq, make_surface_sharded_step(eng, mesh),
+        record("surface_sharded", _par_path(
+            "surface_sharded", seq, maker(make_surface_sharded_step, eng),
             lambda: init_surface_sharded(eng, mesh),
             lambda: eng.run_log(eng.init(), seq, gen()),
             _within(SS_POSE_ATOL, SS_MAP_ATOL, SS_NEFF_RTOL),
-            ("log_likelihood_field", "integrate_scan"))
+            ("log_likelihood_field", "integrate_scan"),
+            lambda: (eng.replay_surface_jit(), eng.init)))
 
         eng = RBPF(parity_config(), device="cuda")
         seq = seq_of(eng.config, N_SCANS)
-        launches["sharded"] = _par_path(
-            "sharded", seq, make_sharded_step(eng, mesh),
+        record("sharded", _par_path(
+            "sharded", seq, maker(make_sharded_step, eng),
             lambda: init_sharded(eng, mesh),
             lambda: eng.run_log(eng.init(), seq, gen()), _bitwise,
-            ("stage_scores_tile", "integrate_scan", "log_likelihood_field"))
+            ("stage_scores_tile", "integrate_scan", "log_likelihood_field"),
+            lambda: (eng.replay_jit(), eng.init)))
         del eng
 
         _ba_rows(mesh, pg_graph)
@@ -3343,7 +3486,7 @@ def parallel_phase(frames, pg_graph):
     multi_rank_card_phase()
     say("parallel", seconds=time.perf_counter() - t0,
         paths=sorted(launches))
-    return launches, tile_row
+    return launches, tile_row, in_graph
 
 
 MULTI_RANK_SCANS = 3
@@ -3533,6 +3676,12 @@ def _host_launches_a_scan(run):
     return out, float(np.median(per)) if per else None
 
 
+def _read_replay(result, d):
+    """(scans, scans/s, trajectory) of a CLI replay's result."""
+    (_, traj, metrics), _ = result
+    return metrics["frames"], metrics["scans_per_sec"], traj
+
+
 def _cli_compare(name, invoke, read, tmp):
     """The CLI path `invoke(out_dir)` on its captured step beside the same
     run on the eager step, in this call: each run once as it is (scans/s
@@ -3663,7 +3812,9 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
                 s_state.logodds.cpu().numpy(), room_loop[1])))
         del s_state
 
-        # the mesh engines on a world of one (the CLI starts it)
+        # the mesh engines on a world of one (the CLI starts it), on their
+        # compiled steps; beside the eager step below
+        mesh_argv = {}
         for path, extra in (
                 ("cli_tiled", ["--engine", "tiled", "--particles",
                                str(cfg.num_particles), "--chunk",
@@ -3673,9 +3824,11 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
                     str(surface_particles), "--chunk", "0", "--set",
                     "matcher.surface_refine_steps=0"])):
             d = os.path.join(tmp, path)
+            mesh_argv[path] = ["replay", "--log", CLI_LOG, "--max-beams",
+                               "192", "--seed", str(SEED), "--device", dev,
+                               *extra]
             (m_state, m_traj, m_metrics), printed = counted(path, lambda: _cli(
-                ["replay", "--log", CLI_LOG, "--max-beams", "192", "--seed",
-                 str(SEED), "--device", dev, "--out", d, *extra]))
+                [*mesh_argv[path], "--out", d]))
             out[path] = dict(
                 particles=int(m_state.poses.shape[0]),
                 ate_m=ate_rmse(m_traj, gt),
@@ -3686,6 +3839,10 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
                 finite=bool(np.isfinite(m_traj).all()
                             and torch.isfinite(m_state.logodds).all()))
             del m_state
+        mesh_figures = {
+            path: _cli_compare(path, lambda d, a=argv: _cli([*a, "--out", d]),
+                               _read_replay, tmp)
+            for path, argv in mesh_argv.items()}
         close_world()
 
         d = os.path.join(tmp, "posegraph")
@@ -3701,10 +3858,6 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
         del fes
 
         # each CLI path on its captured step beside the eager step
-        def read_replay(result, d):
-            (_, traj, metrics), _ = result
-            return metrics["frames"], metrics["scans_per_sec"], traj
-
         def read_posegraph(result, d):
             m = json.loads(open(os.path.join(d, "pg_online_metrics.json"))
                            .read())
@@ -3719,20 +3872,20 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
         figures = {
             "cli_replay": _cli_compare(
                 "cli_replay", lambda d: _cli(["replay", *parity, "--out",
-                                              d]), read_replay, tmp),
+                                              d]), _read_replay, tmp),
             "cli_load_map": _cli_compare(
                 "cli_load_map", lambda d: _cli(["replay", *parity, "--out",
                                                 d, "--load-map", ckpt]),
-                read_replay, tmp),
+                _read_replay, tmp),
             "cli_surface": _cli_compare(
                 "cli_surface", lambda d: _cli([*surface_argv, "--out", d]),
-                read_replay, tmp),
+                _read_replay, tmp),
             "cli_posegraph": _cli_compare(
                 "cli_posegraph", lambda d: _cli(
                     ["posegraph", "--log", GRAND_TOUR, "--particles",
                      str(pg_particles), "--map-size", "14", "--seed",
                      str(SEED), "--device", dev, "--out", d]),
-                read_posegraph, tmp)}
+                read_posegraph, tmp), **mesh_figures}
 
         # recovery: a fault after scan 6 has drawn its numbers
         eng = RBPF(cfg, device=dev)
@@ -3837,7 +3990,7 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
         raise AssertionError(f"cli_posegraph {summary} != phase 17's "
                              f"{pg_first}")
     want_graphs = {"verify": FRONTEND_NODES["verify"],
-                   "solve": {k: 0 for k in KERNEL_SYMBOLS},
+                   "solve": {k: 0 for k in GRAPH_ROWS},
                    "rebuild": FRONTEND_NODES["rebuild"]}
     if dev == "cuda" and not all(
             g["captures"] == 1 and g["kernels"] == want_graphs[part]
@@ -3858,7 +4011,7 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
         eager_a_scan = eag["python_kernel_launches_a_scan"]
         in_graph_ok = path == "cli_posegraph" or all(
             cap["kernels_in_graph"][k] == eager_a_scan[k]
-            for k in KERNEL_SYMBOLS)
+            for k in GRAPH_ROWS)
         if not (row["eager_equals_captured"] and (dev != "cuda" or (
                 cap["captures"] == 1 and in_graph_ok
                 and cap["host_launches_a_scan"]
@@ -3909,8 +4062,9 @@ def main() -> int:
     cap_launches, in_graph = captured_phase(frames, gt)
     by_path.update(cap_launches)
     in_graph.update(pg_in_graph)
-    par_launches, tile_row = parallel_phase(frames, pg_graph)
+    par_launches, tile_row, par_in_graph = parallel_phase(frames, pg_graph)
     by_path.update(par_launches)
+    in_graph.update(par_in_graph)
     rows.append(tile_row)
     rows.append(k4_row)
     by_path.update(cli_phase(cfg, frames, room_loop, pg_first))

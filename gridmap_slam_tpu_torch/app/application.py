@@ -33,10 +33,8 @@ def compiled_step(engine):
     its step (as the engine routes it) captured as a CUDA graph on the
     card and the same static-buffer step on the CPU, with the eager step's
     bits; the state it returns is the capture's buffer, which the next
-    call consumes.  An engine without `step_jit` (the CLI's distributed
-    engines) steps eagerly."""
-    step_jit = getattr(engine, "step_jit", None)
-    return engine.step if step_jit is None else step_jit()
+    call consumes.  An engine without `step_jit` raises AttributeError."""
+    return engine.step_jit()
 
 
 class SlamApplication:

@@ -10,8 +10,9 @@ torch.Generator on the engine's device, seeded by `--seed`, feeds every
 step of a run.  Each scan is one replay of the engine's step captured as a
 CUDA graph (`step_jit`, the counterpart of the JAX CLI's `jax.jit(eng.
 step)`; on the CPU the same static-buffer step), with the eager run's
-bits; the distributed engines (shmap, shmap-surface, tiled,
-surface-sharded) step eagerly.
+bits; so do the distributed engines (shmap, shmap-surface, tiled,
+surface-sharded), their compiled steps one graph each with the NCCL
+collectives inside it.
 
 Usage:
   python -m gridmap_slam_tpu_torch.app.cli replay --log maps/room_loop_40.rec \\
@@ -25,6 +26,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
@@ -38,14 +40,20 @@ MESH_ENGINES = ("shmap", "shmap-surface", "tiled", "surface-sharded")
 class _MeshEngine:
     """A distributed engine behind the single-device interface that
     _run_frames consumes (.config, .device, .taps, .init, .init_from_map,
-    .step); `gather` gives the global state on every rank and `base` the
-    single-device engine that renders it."""
+    .step, .step_jit); `gather` gives the global state on every rank and
+    `base` the single-device engine that renders it.  make(jit) builds the
+    engine's step (parallel/shmap.MeshStep): eager, or compiled."""
 
-    def __init__(self, base, mesh, step, tiled: bool):
+    def __init__(self, base, mesh, make, tiled: bool):
         self.base, self.config = base, base.config
         self.device, self.taps = base.device, base.taps
-        self.step = step
+        self._make = make
+        self.step = make(False)
         self._mesh, self._tiled = mesh, tiled
+
+    def step_jit(self):
+        """The compiled step (the engine's make_*_step(..., jit=True))."""
+        return self._make(True)
 
     def init(self):
         from ..parallel.mesh import shard_state
@@ -91,14 +99,15 @@ def _mesh_engine(args, cfg, engine: str):
     mesh = pmesh.make_mesh(n, map_shards=args.map_shards, device=args.device)
     if engine == "tiled":
         from ..parallel.tiled import make_tiled_step
-        step = make_tiled_step(base, mesh)
+        make = functools.partial(make_tiled_step, base, mesh)
     elif engine == "surface-sharded":
         from ..parallel.surface_sharded import make_surface_sharded_step
-        step = make_surface_sharded_step(base, mesh)
+        make = functools.partial(make_surface_sharded_step, base, mesh)
     else:
         from ..parallel.shmap import make_shmap_step
-        step = make_shmap_step(base, mesh, surface=engine == "shmap-surface")
-    return _MeshEngine(base, mesh, step, tiled)
+        make = functools.partial(make_shmap_step, base, mesh,
+                                 engine == "shmap-surface")
+    return _MeshEngine(base, mesh, make, tiled)
 
 
 def _engine(args):

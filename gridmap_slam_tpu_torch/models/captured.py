@@ -41,7 +41,10 @@ entry a kernel node, read from the graph itself.
 `Graphed` is that capture for any body over static buffers: `Captured`
 is one, and so are the pose-graph frontend's three compiled pieces (the
 closure verifier, Gauss-Newton and the map rebuild, models/frontend.py and
-models/posegraph.py).
+models/posegraph.py) and the distributed engines' steps (parallel/), whose
+bodies hold NCCL collectives: the warm-up creates the communicator at the
+first collective, and torch.cuda.graph synchronizes the card, so every
+collective of the warm-up has finished, before the capture begins.
 """
 
 from __future__ import annotations
@@ -207,6 +210,12 @@ class Graphed:
             raise RuntimeError("no graph captured yet")
         return graph_kernel_names(self.graph.raw_cuda_graph())
 
+    def node_types(self) -> dict:
+        """The captured graph's nodes counted by type (graph_node_types)."""
+        if self.graph is None:
+            raise RuntimeError("no graph captured yet")
+        return graph_node_types(self.graph.raw_cuda_graph())
+
 
 class Captured(Graphed):
     """One filter step captured once, replayed once a scan (see the module
@@ -300,23 +309,48 @@ def _cu(lib, fn: str, *args) -> None:
         raise RuntimeError(f"{fn} failed with CUresult {code}")
 
 
-def graph_kernel_names(graph_handle: int) -> list:
-    """The (mangled) function name of every kernel node of a cudaGraph_t,
-    in the driver's node order, read through the driver API.  A node
-    holds a CUfunction or, for a kernel the runtime loaded as a CUkernel,
-    that; each has its name call."""
-    cu = ctypes.CDLL("libcuda.so.1")
+# CUgraphNodeType of the CUDA driver API, by value
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semas_signal",
+              "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
+
+
+def _graph_nodes(cu, graph_handle: int) -> list:
     graph = ctypes.c_void_p(graph_handle)
     count = ctypes.c_size_t(0)
     _cu(cu, "cuGraphGetNodes", graph, None, ctypes.byref(count))
     nodes = (ctypes.c_void_p * count.value)()
     _cu(cu, "cuGraphGetNodes", graph, nodes, ctypes.byref(count))
-    names = []
+    out = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         _cu(cu, "cuGraphNodeGetType", ctypes.c_void_p(node),
             ctypes.byref(kind))
-        if kind.value != 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
+        out.append((node, kind.value))
+    return out
+
+
+def graph_node_types(graph_handle: int) -> dict:
+    """The nodes of a cudaGraph_t counted by their CUDA node type
+    (NODE_TYPES): a collective of a world of one may be a copy node and
+    not a kernel, so collectives are counted by type, not by name."""
+    counts: dict = {}
+    for _, kind in _graph_nodes(ctypes.CDLL("libcuda.so.1"), graph_handle):
+        name = NODE_TYPES[kind] if 0 <= kind < len(NODE_TYPES) else str(kind)
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def graph_kernel_names(graph_handle: int) -> list:
+    """The (mangled) function name of every kernel node of a cudaGraph_t,
+    in the CUDA driver's node order, read through its API.  A node
+    holds a CUfunction or, for a kernel the runtime loaded as a CUkernel,
+    that; each has its name call."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    names = []
+    for node, kind in _graph_nodes(cu, graph_handle):
+        if kind != 0:                       # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         params = _KernelNodeParams()
         _cu(cu, "cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -197,15 +197,20 @@ class CapturedOptimize(Graphed):
     the TF32 flag says at a later replay.  Calling it returns (graph,
     chi2) as `optimize` does, fresh tensors with the eager bits."""
 
-    def __init__(self, device):
+    def __init__(self, device, solve: Callable = optimize):
+        """solve(graph, iterations, damping) -> (graph, chi2): `optimize`,
+        or the distributed one (parallel/ba.make_distributed_optimizer,
+        whose psums the graph then holds)."""
         super().__init__(self._body, device)
+        self._solve = solve
         self._key = None
         self.static = None          # the PoseGraph the graph reads
         self._iterations, self._damping = 0, 0.0
         self._out = None
 
     def _body(self):
-        graph, chi2 = optimize(self.static, self._iterations, self._damping)
+        graph, chi2 = self._solve(self.static, self._iterations,
+                                  self._damping)
         self._out = graph.nodes, chi2
 
     def __call__(self, graph: PoseGraph, iterations: int = 10,

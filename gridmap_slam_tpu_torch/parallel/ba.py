@@ -10,7 +10,8 @@ every rank (models/posegraph.damped_solve).  At 3000 keyframes H is
 9000^2 float32, 324 MB a rank.
 
 Edges are padded with zero-information edges to a multiple of the rank
-count (`pad_edges`), which keeps them inert.
+count (`pad_edges`), which keeps them inert.  With jit=True every
+iteration runs inside one CUDA graph with its all_reduce.
 """
 
 from __future__ import annotations
@@ -20,16 +21,24 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..models.posegraph import PoseGraph, damped_solve, normal_equations
+from ..models.posegraph import (CapturedOptimize, PoseGraph, damped_solve,
+                                normal_equations)
 from .mesh import axis_index, axis_size, psum
 
 
 def make_distributed_optimizer(mesh, iterations: int = 10,
-                               damping: float = 1e-6, anchor_w: float = 1e6):
+                               damping: float = 1e-6, anchor_w: float = 1e6,
+                               jit: bool = False):
     """A Gauss-Newton optimizer over `mesh`'s 'p' axis: fn(graph) ->
     (graph, chi2 of each iteration's starting poses), where `graph` holds
-    the replicated nodes and this rank's edges (shard_graph)."""
-    def optimize(graph: PoseGraph) -> Tuple[PoseGraph, torch.Tensor]:
+    the replicated nodes and this rank's edges (shard_graph).  jit=True:
+    the counterpart of the JAX optimizer's jit of its lax.scan, every
+    iteration with its psum one CUDA graph over static node and edge
+    buffers (models/posegraph.CapturedOptimize, captured again when the
+    graph's size changes; `fn.captured` is it), the same static-buffer
+    body on the CPU, and the eager optimizer's bits."""
+    def optimize(graph: PoseGraph, iterations: int = iterations,
+                 damping: float = damping) -> Tuple[PoseGraph, torch.Tensor]:
         nodes, chi2s = graph.nodes, []
         for _ in range(iterations):
             h, b, chi2 = normal_equations(nodes, graph.edge_i, graph.edge_j,
@@ -43,7 +52,14 @@ def make_distributed_optimizer(mesh, iterations: int = 10,
         return PoseGraph(nodes=nodes, edge_i=graph.edge_i,
                          edge_j=graph.edge_j, edge_z=graph.edge_z,
                          edge_w=graph.edge_w), torch.stack(chi2s)
-    return optimize
+    if not jit:
+        return optimize
+    solve = CapturedOptimize(mesh.device_type, solve=optimize)
+
+    def optimize_jit(graph: PoseGraph) -> Tuple[PoseGraph, torch.Tensor]:
+        return solve(graph, iterations, damping)
+    optimize_jit.captured = solve
+    return optimize_jit
 
 
 def pad_edges(edge_i, edge_j, edge_z, edge_w, multiple: int):

@@ -12,10 +12,12 @@ those records in a gloo run):
   sum and the weighted pose as one 4-vector), where the JAX engines psum
   Neff and the weighted pose apart and elect the best index by a second
   psum; the port gathers (score, pose, local index) in one all_gather;
-- the resample's all_gather of (log-weight, pose) rows runs only on scans
-  that resample and only on a 'p' axis of more than one rank (on one rank
-  it is a select on the card); with it go a pmax of the new log-weights'
-  maximum and, with recovery injection, a psum of their sum;
+- the resample's all_gather of (log-weight, pose) rows runs only on a 'p'
+  axis of more than one rank (on one rank it is a select on the card); with
+  it go a pmax of the new log-weights' maximum and, with recovery
+  injection, a psum of their sum.  The eager steps run them only on scans
+  that resample; the compiled steps (captured=True, a CUDA graph holds no
+  collective that depends on the data) on every scan;
 - the halos are ppermutes (batch_isend_irecv) of raw log-odds, one field:
   K3 builds the field and the evidence mask from the same extended tile,
   where the JAX blur exchanges halos of both; a rank with two neighbours
@@ -54,11 +56,13 @@ RESAMPLE = "resampling scans only"
 
 
 def _weight_stat_rows(engine: str, cfg: SlamConfig, n_p: int,
-                      p_loc: int, map_bytes: int) -> List[CollectiveRow]:
+                      p_loc: int, map_bytes: int,
+                      captured: bool) -> List[CollectiveRow]:
     """The collectives of parallel/shmap.finish_step, which every engine
     shares.  map_bytes: the bytes of a rank's maps that move with its
     particles on a resample (the sharded RBPF), else 0."""
     every = "every scan"
+    resample = every if captured else RESAMPLE
     rows = [
         CollectiveRow(engine, "pmax", "p", 4, every, "max log-weight"),
         CollectiveRow(engine, "psum", "p", 4, every, "weight normalizer"),
@@ -71,18 +75,18 @@ def _weight_stat_rows(engine: str, cfg: SlamConfig, n_p: int,
     if n_p > 1:
         rows += [
             CollectiveRow(engine, "all_gather", "p", 16 * p_loc * n_p,
-                          RESAMPLE, "systematic resampling: log-weight "
+                          resample, "systematic resampling: log-weight "
                           "(4 B) + pose (12 B) a particle"),
-            CollectiveRow(engine, "pmax", "p", 4, RESAMPLE,
+            CollectiveRow(engine, "pmax", "p", 4, resample,
                           "max of the resampled log-weights"),
         ]
         if map_bytes:
             rows.append(CollectiveRow(
-                engine, "all_gather", "p", map_bytes * n_p, RESAMPLE,
+                engine, "all_gather", "p", map_bytes * n_p, resample,
                 "the maps' column tiles of every particle"))
         mc = cfg.matcher
         if mc.surface_reinject_slow > 0.0 and mc.surface_reinject_fast > 0.0:
-            rows.append(CollectiveRow(engine, "psum", "p", 4, RESAMPLE,
+            rows.append(CollectiveRow(engine, "psum", "p", 4, resample,
                                       "injected slots' mean log-weight"))
     return rows
 
@@ -131,11 +135,12 @@ def _tile_rows(engine: str, cfg: SlamConfig, n_m: int, p_loc: int,
     return rows
 
 
-def comm_table(cfg: SlamConfig, n_p: int, n_m: int,
-               engine: str) -> List[CollectiveRow]:
+def comm_table(cfg: SlamConfig, n_p: int, n_m: int, engine: str,
+               captured: bool = False) -> List[CollectiveRow]:
     """Per-scan collective payloads of one engine on a (p=n_p, m=n_m)
     mesh, one row a collective call of a scan (the sharded RBPF's rows are
-    those of one block of particle_chunk particles times the blocks).
+    those of one block of particle_chunk particles times the blocks), of
+    the eager step or, with captured=True, of the compiled one (jit=True).
     engine in ENGINES."""
     if engine not in ENGINES:
         raise ValueError(engine)
@@ -145,7 +150,7 @@ def comm_table(cfg: SlamConfig, n_p: int, n_m: int,
     h, w = cfg.map.cells_y, cfg.map.cells_x
     mc = cfg.matcher
     map_bytes = 4 * p_loc * h * (w // n_m) if engine == "sharded" else 0
-    rows = _weight_stat_rows(engine, cfg, n_p, p_loc, map_bytes)
+    rows = _weight_stat_rows(engine, cfg, n_p, p_loc, map_bytes, captured)
     if engine in ("shmap_surface", "surface_sharded"):
         rows += _center_rows(engine)
     if engine == "tiled":

@@ -101,6 +101,13 @@ def _rank_main(argv) -> int:
     try:
         mod, fn = target.split(":")
         getattr(importlib.import_module(mod), fn)(payload, rank, n)
+        # leave the world together: a rank closes its connections only when
+        # every rank has finished its collectives (told through a file store
+        # beside the rendezvous, not through those connections), so none
+        # reads from a peer that is gone
+        left = dist.FileStore(rdv[len("file://"):] + ".left", n)
+        left.set(f"rank{rank}", "done")
+        left.wait([f"rank{r}" for r in range(n)])
     finally:
         dist.destroy_process_group()
     return 0

@@ -17,6 +17,13 @@ the card) as a larger one.  While `recording()` is active each call is
 kept with its payload bytes (parallel/comm_model.py's rows are held to
 them).
 
+The compiled steps (jit=True) capture these calls into a CUDA graph: NCCL
+records them on the card, and a replay runs them without Python.  At a
+world of one NCCL runs a collective as a copy on the card, or as nothing
+where it is in place (all_reduce), so a graph's collectives show as copy
+nodes, not kernels (models/captured.graph_node_types counts nodes by
+type).
+
 A world of one is the mesh (1, 1), not a fallback: `init_world` starts it
 in-process when no launcher set RANK and WORLD_SIZE, over NCCL for a CUDA
 device and gloo for the CPU, and never switches backends because one
@@ -112,7 +119,10 @@ def axis_size(mesh: DeviceMesh, axis: str) -> int:
 def recording():
     """Keep every collective called inside the block: a list of
     (collective, axis, payload bytes) — psum/pmax the reduced tensor,
-    all_gather the gathered tensor, ppermute the tensor sent."""
+    all_gather the gathered tensor, ppermute the tensor sent.  A call is
+    kept where it runs in Python: every call of an eager step, and of a
+    compiled one on the CPU; on the card a compiled step's warm-up and
+    capture, and none of its replays."""
     global _records
     prev, _records = _records, []
     try:

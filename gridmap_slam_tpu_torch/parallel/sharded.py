@@ -16,9 +16,11 @@ column tile j of each of their maps, (P_loc, H, W / n_m).  Per scan:
 - weights, Neff and the strongest particle over 'p' (parallel/shmap.
   finish_step);
 - resample: the maps move across 'p'.  This first design all_gathers the
-  (P_loc, H, W_loc) tiles over 'p' and takes the ancestors' rows: a rank
-  holds n_p x its local maps for that moment (PERF.md).  Sending only the
-  ancestors that cross ranks is later work (ROADMAP.md).
+  (P_loc, H, W_loc) tiles over 'p' and takes the ancestors' rows into the
+  new state: a rank holds n_p x its local maps for that moment (PERF.md);
+  the eager step gathers them on scans that resample, the compiled one on
+  every scan.  Sending only the ancestors that cross ranks is later work
+  (ROADMAP.md).
 
 On a mesh (1, 1) the step is RBPF.step, bit for bit.
 """
@@ -26,7 +28,6 @@ On a mesh (1, 1) the step is RBPF.step, bit for bit.
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 
@@ -37,16 +38,16 @@ from ..ops.matcher import correlative_match_batch
 from ..ops.motion import apply_odometry, sample_motion
 from ..types import Frame
 from .mesh import axis_index, shard_state
-from .shmap import finish_step, local_particles
+from .shmap import MeshStep, finish_step, local_particles
 from .tiled import (tile_geometry, tile_origin, tile_pool, tile_stage,
                     tiled_ll_field)
 
 
-def make_sharded_step(engine: RBPF, mesh):
-    """The sharded RBPF step (module docstring).  Returns
-    step(state, frame, generator=None, draws=None) -> (state, info) on this
-    rank's shard (init_sharded); `draws` = (normals (P, 2), u0) as
-    RBPF.step's, global: each rank takes its slice."""
+def make_sharded_step(engine: RBPF, mesh, jit: bool = False):
+    """The sharded RBPF step (module docstring).  Returns a
+    parallel/shmap.MeshStep (eager, or with jit=True compiled) on this
+    rank's shard (init_sharded); its draws are RBPF._draws' (normals
+    (P, 2), u0), global: each rank takes its slice."""
     cfg = engine.config
     p_loc = local_particles(engine, mesh)
     w_loc, c0 = tile_geometry(cfg, mesh)
@@ -59,15 +60,8 @@ def make_sharded_step(engine: RBPF, mesh):
     i_p = axis_index(mesh, "p")
     match_kw = dict(stage=tile_stage(mesh), pool=tile_pool(mesh))
 
-    def step(state, frame: Frame, generator: Optional[torch.Generator] = None,
-             draws=None):
-        p = cfg.num_particles
-        dev = engine.device
-        if draws is None:
-            normals = torch.randn((p, 2), generator=generator, device=dev)
-            u0 = torch.rand((), generator=generator, device=dev) * (1.0 / p)
-        else:
-            normals, u0 = draws
+    def body(state, frame: Frame, draws, out, gated):
+        normals, u0 = draws
         normals = normals[i_p * p_loc:(i_p + 1) * p_loc]
         scan = deskew_scan(frame.scan, frame.odom)
         odom = frame.odom
@@ -98,10 +92,11 @@ def make_sharded_step(engine: RBPF, mesh):
             parts.append((best, score, new_tiles))
         poses, scores, maps = (torch.cat(x) for x in zip(*parts))
         return finish_step(engine, mesh, state, poses, scores,
-                           lambda pose: None, u0, None,
-                           cfg.resample_fraction, maps=maps)
+                           lambda pose, into: None, u0, None,
+                           cfg.resample_fraction, maps=maps, out=out,
+                           gated=gated)
 
-    return step
+    return MeshStep(body, engine._draws, engine.device, jit)
 
 
 def init_sharded(engine: RBPF, mesh, pose=(0.0, 0.0, 0.0)):

@@ -21,10 +21,12 @@ the shared map is replicated.  A rank's step:
   gathered log-weights and the shared draw u0 and takes its slice.  On an
   axis of one rank this is a select on the card (identity indices when the
   gate does not fire), with no gather and no host read, as the port's
-  single-device engines do.  On more ranks a collective cannot be skipped
-  on the card alone, so the gate is read on the host once a scan and the
-  all_gather of (log-weight, pose) rows runs only on scans that resample
-  (parallel/comm_model.py counts it so);
+  single-device engines do.  On more ranks the eager step reads the gate
+  on the host once a scan and all_gathers the (log-weight, pose) rows only
+  on scans that resample; the compiled step (jit=True: a CUDA graph holds
+  no collective that depends on the data) gathers them on every scan and
+  resamples by the same select on the card, with no host read and the
+  same bits (parallel/comm_model.py counts both forms);
 - the AMCL recovery injection replaces the global slots
   [0, p_inject * P) (inject_uniform's slot_offset).
 
@@ -35,6 +37,11 @@ takes its slice, so an n-rank run has the single-device engine's draws; a
 a mesh (1, 1) the step gives the single-device engine's bits
 (`step_blocked`, `step_surface`).
 
+Every engine of parallel/ returns a `MeshStep`: eager, or compiled
+(jit=True, the counterpart of the JAX engines' jax.jit: the step over
+static buffers, one CUDA graph on the card with the NCCL collectives in
+it), with `replay` / `replay_jit` over a stacked Frame batch.
+
 The engines take a SharedMapSLAM, which refuses recovery injection together
 with accumulate_weights=True (the JAX engines feed the recovery EMAs the
 max log-weight after accumulation, gridmap_slam_tpu/parallel/shmap.py:139),
@@ -44,10 +51,12 @@ so no distributed engine runs that configuration either.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import functools
+from typing import Callable
 
 import torch
 
+from ..models import captured
 from ..models.shared import (SharedMapSLAM, SharedMapState, inject_uniform,
                              integration_pose, match_particles,
                              matcher_block_size, recovery_update,
@@ -70,14 +79,69 @@ def local_particles(engine, mesh) -> int:
     return p // n_p
 
 
-def local_draws(engine, mesh, generator, draws):
-    """This rank's slice of the step's global draws (SharedMapSLAM._draws:
+def local_draws(engine, mesh, draws):
+    """This rank's slice of one scan's global draws (SharedMapSLAM._draws:
     normals (P, 2), u0, injection uniforms (P, 3) or None)."""
-    normals, u0, inj = engine._draws(generator, draws)
+    normals, u0, inj = draws
     p_loc = local_particles(engine, mesh)
     sl = slice(axis_index(mesh, "p") * p_loc,
                (axis_index(mesh, "p") + 1) * p_loc)
     return normals[sl], u0, None if inj is None else inj[sl]
+
+
+class MeshStep:
+    """A distributed engine's step, eager or compiled, over its scan body
+    body(state, frame, draws, out, gated) -> (state, info), where `draws`
+    are one scan's global draws (each rank takes its slice) and `out`, when
+    given, a state that receives the new state (it may be `state` itself:
+    the body writes each field of `out` after its last read of that
+    field).  `gated`: the resample's gather over 'p' runs only on scans
+    that resample, which reads the gate on the host (finish_step).
+
+    Calling it: step(state, frame, generator=None, draws=None) -> (state,
+    info) on this rank's shard.  Eager (jit=False): the body on the draws
+    of `draw(generator)`, gated.  Compiled (jit=True): the counterpart of
+    the JAX engines' jax.jit, the body ungated over static buffers
+    (models/captured.Captured), one CUDA graph on the card with the NCCL
+    collectives inside it, captured at the first call, and the same
+    static-buffer body on the CPU; the state it returns is the capture's
+    buffer, which the next call consumes and overwrites (captured.step_fn).
+
+    `replay` runs a stacked Frame batch eagerly (captured.scan, stacked
+    infos), `replay_jit()` gives its captured form; the counterparts of the
+    JAX step composed under lax.scan."""
+
+    def __init__(self, body, draw, device, jit: bool = False):
+        self._eager = functools.partial(body, gated=True)
+        self._compiled = functools.partial(body, gated=False)
+        self._draw = draw
+        self.device = torch.device(device)
+        self.captured = None
+        if jit:
+            self.captured = captured.Captured(self._compiled, draw,
+                                              self.device)
+            self._step = captured.step_fn(self.captured)
+
+    def __call__(self, state, frame, generator=None, draws=None):
+        if self.captured is not None:
+            return self._step(state, frame, generator, draws)
+        return self._eager(state, frame,
+                           self._draw(generator) if draws is None else draws,
+                           None)
+
+    def replay(self, state, frames, generator=None, draws=None):
+        """The eager replay of a stacked Frame batch: (final state, infos
+        stacked along a leading frame axis); `draws` stacked global draws
+        in place of the generator's."""
+        return captured.scan(self._eager, self._draw, state, frames,
+                             generator, draws)
+
+    def replay_jit(self):
+        """`replay` with each scan one replay of a captured graph of the
+        compiled body: the same arguments, results and bits.  Keep the
+        function to reuse its graph."""
+        return captured.replay_fn(captured.Captured(
+            self._compiled, self._draw, self.device))
 
 
 def global_weighted_mean(poses, log_weights, mesh):
@@ -102,18 +166,36 @@ def _global_mean(x, mesh, n_total: int):
 
 
 def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
-                u0, inj, resample_fraction: float, maps=None):
+                u0, inj, resample_fraction: float, maps=None, out=None,
+                gated: bool = True):
     """The tail every distributed engine shares, on this rank's particles:
     weights, the global statistics over 'p', the strongest particle, the
-    map update `integrate(integration_pose)`, the resample gate, the
-    recovery EMAs and injection (shared-map states), and the resample,
-    which carries `maps` (the sharded RBPF's local maps) with the poses
-    when given.  Returns (new_state, info)."""
+    map update `integrate(integration_pose, into)` (into: the map that
+    receives it, or None), the resample gate, the recovery EMAs and
+    injection (shared-map states), and the resample, which carries `maps`
+    (the sharded RBPF's local maps) with the poses when given.  Each field
+    of `out`, where given, is written after its last read of `state`.
+
+    The resample is a select on the card: the ancestors where the gate
+    fires, the particles themselves where it does not.  On a 'p' axis of
+    more than one rank it needs every rank's (log-weight, pose) rows (and
+    maps): gated=True reads the gate on the host once a scan and leaves
+    the particles as they are, with no gather, on scans that do not
+    resample (the eager form); gated=False gathers on every scan, with no
+    host read (the compiled form: a CUDA graph holds no collective that
+    depends on the data).  Both give the same bits.  Returns (new_state,
+    info)."""
     cfg = engine.config
     p = cfg.num_particles
     p_loc = poses.shape[0]
     i_p, n_p = axis_index(mesh, "p"), axis_size(mesh, "p")
     dev = poses.device
+    if out is not None and gated and n_p > 1:
+        raise ValueError("out= needs gated=False on more than one 'p' rank")
+
+    def into(name):
+        return None if out is None else getattr(out, name)
+
     lw = scores.to(state.log_weights.dtype)
     if cfg.accumulate_weights:
         lw = lw + state.log_weights
@@ -137,7 +219,8 @@ def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
     row = every[gbest[None]][0]
     best_pose = row[1:4]
     best_index = gbest * p_loc + row[4].to(torch.int64)
-    logodds = integrate(integration_pose(n_eff, p, weighted, best_pose))
+    logodds = integrate(integration_pose(n_eff, p, weighted, best_pose),
+                        into("logodds"))
 
     do_resample = n_eff < (p * resample_fraction)
     recov, p_inject = (recovery_update(cfg, state, m)
@@ -147,66 +230,70 @@ def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
         # a kidnap makes every particle uniformly bad, so Neff rises and
         # the gate alone would never fire: injection forces a resample
         do_resample = do_resample | (p_inject > 0.05)
+    if out is not None and recov is not None:
+        recov = captured.copy_into(out.recov, recov)
+    new_step = torch.add(state.step, 1, out=into("step"))
 
-    def resampled(lw_all, rows_all, maps_all):
-        idx = systematic_indices(lw_all, u0)[i_p * p_loc:(i_p + 1) * p_loc]
-        new_lw = (torch.zeros_like(lw) if cfg.accumulate_weights
-                  else lw_all[idx])
-        new_poses = rows_all[idx]
-        new_maps = None if maps_all is None else maps_all[idx]
-        if p_inject is not None:
-            new_poses, took = inject_uniform(cfg, inj, new_poses, p_inject,
-                                             slot_offset=i_p * p_loc)
-            new_lw = torch.where(took, _global_mean(new_lw, mesh, p), new_lw)
-        return new_poses, new_lw, new_maps
-
-    if n_p == 1:
-        # a select on the card: identity indices when the gate does not fire
-        idx = torch.where(do_resample, systematic_indices(lw, u0),
-                          torch.arange(p, device=dev))
-        new_poses = poses[idx]
-        new_maps = None if maps is None else maps[idx]
-        if cfg.accumulate_weights:
-            new_lw = torch.where(do_resample, torch.zeros_like(lw), lw)
-        else:
-            new_lw = lw[idx]
-        if p_inject is not None:
-            inj_poses, took = inject_uniform(cfg, inj, new_poses, p_inject)
-            inj_lw = torch.where(took, new_lw.mean(), new_lw)
-            new_poses = torch.where(do_resample, inj_poses, new_poses)
-            new_lw = torch.where(do_resample, inj_lw, new_lw)
-        best_lw = new_lw.max()
-    elif bool(do_resample):            # the scan's one host read
-        rows = all_gather(torch.cat([lw[:, None], poses], 1), mesh, "p",
-                          tiled=True)
-        maps_all = (None if maps is None
-                    else all_gather(maps, mesh, "p", tiled=True))
-        new_poses, new_lw, new_maps = resampled(rows[:, 0], rows[:, 1:],
-                                                maps_all)
-        best_lw = pmax(new_lw.max(), mesh, "p")
+    if n_p > 1 and gated and not bool(do_resample):   # one host read
+        new_poses, new_lw, new_maps, best_lw = poses, lw, maps, m
     else:
-        new_poses, new_lw, new_maps = poses, lw, maps
-        best_lw = m
+        # a select on the card: the particles themselves (their rows of
+        # the gathered population) where the gate does not fire
+        if n_p == 1:
+            lw_all, poses_all, maps_all = lw, poses, maps
+        else:
+            rows = all_gather(torch.cat([lw[:, None], poses], 1), mesh, "p",
+                              tiled=True)
+            lw_all, poses_all = rows[:, 0], rows[:, 1:]
+            maps_all = (None if maps is None
+                        else all_gather(maps, mesh, "p", tiled=True))
+        base = i_p * p_loc
+        idx = torch.where(do_resample,
+                          systematic_indices(lw_all, u0)[base:base + p_loc],
+                          torch.arange(base, base + p_loc, device=dev))
+        last = p_inject is None      # the gathers are the fields' last ops
+        new_poses = torch.index_select(poses_all, 0, idx,
+                                       out=into("poses") if last else None)
+        new_maps = (None if maps is None else
+                    torch.index_select(maps_all, 0, idx, out=into("logodds")))
+        if cfg.accumulate_weights:
+            new_lw = torch.where(do_resample, torch.zeros_like(lw), lw,
+                                 out=into("log_weights") if last else None)
+        else:
+            new_lw = torch.index_select(
+                lw_all, 0, idx, out=into("log_weights") if last else None)
+        if not last:
+            inj_poses, took = inject_uniform(cfg, inj, new_poses, p_inject,
+                                             slot_offset=base)
+            inj_lw = torch.where(took, _global_mean(new_lw, mesh, p), new_lw)
+            new_poses = torch.where(do_resample, inj_poses, new_poses,
+                                    out=into("poses"))
+            new_lw = torch.where(do_resample, inj_lw, new_lw,
+                                 out=into("log_weights"))
+        best_lw = (new_lw.max() if n_p == 1
+                   else pmax(new_lw.max(), mesh, "p"))
 
     fields = dict(poses=new_poses, log_weights=new_lw,
                   logodds=logodds if new_maps is None else new_maps,
-                  step=state.step + 1)
-    if recov is not None or isinstance(state, SharedMapState):
-        fields["recov"] = state.recov if recov is None else recov
-    new_state = dataclasses.replace(state, **fields)
+                  step=new_step)
+    if recov is not None:
+        fields["recov"] = recov
+    new_state = out if out is not None else dataclasses.replace(state,
+                                                                **fields)
     info = StepInfo(neff=n_eff, weighted_pose=weighted, best_pose=best_pose,
                     best_index=best_index.to(torch.int32),
                     best_log_weight=best_lw, resampled=do_resample)
     return new_state, info
 
 
-def make_shmap_step(engine: SharedMapSLAM, mesh, surface: bool = False):
+def make_shmap_step(engine: SharedMapSLAM, mesh, surface: bool = False,
+                    jit: bool = False) -> MeshStep:
     """The step of the shared-map engine over `mesh`'s 'p' axis (the 'm'
-    axis must be 1: the map is replicated).  Returns
-    step(state, frame, generator=None, draws=None) -> (state, info) on
-    this rank's shard (init_shmap).  surface=True runs step_surface's
-    measurement model; else the matcher in blocks of matcher_block_size
-    particles, lowered to a divisor of the local count."""
+    axis must be 1: the map is replicated), a MeshStep (eager, or with
+    jit=True compiled) on this rank's shard (init_shmap).  surface=True
+    runs step_surface's measurement model; else the matcher in blocks of
+    matcher_block_size particles, lowered to a divisor of the local
+    count."""
     if axis_size(mesh, "m") != 1:
         raise ValueError("shmap replicates the map: the mesh's 'm' axis "
                          "must be 1 (use tiled or surface_sharded)")
@@ -216,10 +303,9 @@ def make_shmap_step(engine: SharedMapSLAM, mesh, surface: bool = False):
     while p_loc % chunk:
         chunk -= 1
 
-    def step(state: SharedMapState, frame: Frame,
-             generator: Optional[torch.Generator] = None, draws=None):
+    def body(state: SharedMapState, frame: Frame, draws, out, gated):
         mc = cfg.matcher
-        normals, u0, inj = local_draws(engine, mesh, generator, draws)
+        normals, u0, inj = local_draws(engine, mesh, draws)
         scan, tables, keep = engine._scan_inputs(frame)
         odom = frame.odom
         if surface:
@@ -242,13 +328,14 @@ def make_shmap_step(engine: SharedMapSLAM, mesh, surface: bool = False):
                                             scan, odom, chunk)
             crop, fraction = 0, cfg.resample_fraction
 
-        def integrate(pose):
-            return engine._integrate(state.logodds, pose, tables, keep, crop)
+        def integrate(pose, into):
+            return engine._integrate(state.logodds, pose, tables, keep, crop,
+                                     out=into)
 
         return finish_step(engine, mesh, state, poses, scores, integrate,
-                           u0, inj, fraction)
+                           u0, inj, fraction, out=out, gated=gated)
 
-    return step
+    return MeshStep(body, engine._draw, engine.device, jit)
 
 
 def init_shmap(engine: SharedMapSLAM, mesh, pose=(0.0, 0.0, 0.0)):
@@ -257,5 +344,5 @@ def init_shmap(engine: SharedMapSLAM, mesh, pose=(0.0, 0.0, 0.0)):
                        device=engine.device)
 
 
-__all__ = ["make_shmap_step", "init_shmap", "finish_step",
+__all__ = ["make_shmap_step", "init_shmap", "finish_step", "MeshStep",
            "global_weighted_mean", "local_draws", "local_particles"]

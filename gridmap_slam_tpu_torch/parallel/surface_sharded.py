@@ -26,7 +26,6 @@ No host read a scan on a 'p' axis of one rank.  Requires W % n_m == 0.
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 
@@ -40,14 +39,15 @@ from ..ops.surface import (crop_center_cells, pack_neighborhoods,
                            splat_endpoint_kernels, theta_grid)
 from ..types import Frame
 from .mesh import all_gather, axis_index, axis_size, psum, shard_state
-from .shmap import (finish_step, global_weighted_mean, local_draws,
-                    local_particles)
+from .shmap import (MeshStep, finish_step, global_weighted_mean,
+                    local_draws, local_particles)
 from .tiled import tile_geometry
 
 
-def make_surface_sharded_step(engine: SharedMapSLAM, mesh):
-    """The map-sharded surface step (module docstring).  Returns
-    step(state, frame, generator=None, draws=None) -> (state, info) on this
+def make_surface_sharded_step(engine: SharedMapSLAM, mesh,
+                              jit: bool = False):
+    """The map-sharded surface step (module docstring).  Returns a
+    parallel/shmap.MeshStep (eager, or with jit=True compiled) on this
     rank's shard (init_surface_sharded)."""
     cfg = engine.config
     mc = cfg.matcher
@@ -77,9 +77,8 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh):
     r = cfg.map.likelihood_radius
     hce, wce = min(hc + 2 * r, h), min(wc + 2 * r, w_total)
 
-    def step(state, frame: Frame, generator: Optional[torch.Generator] = None,
-             draws=None):
-        normals, u0, inj = local_draws(engine, mesh, generator, draws)
+    def body(state, frame: Frame, draws, out, gated):
+        normals, u0, inj = local_draws(engine, mesh, draws)
         scan, tables, keep = engine._scan_inputs(frame)
         odom = frame.odom
         dev = state.logodds.device
@@ -124,7 +123,7 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh):
             c_vol, pose_s, scores, steps=mc.surface_refine_steps, **kw)
         scores = surface_temper(mc, scan, scores)
 
-        def integrate(pose):
+        def integrate(pose, into):
             cx = (pose[0] - origin[0]) / res
             cy = (pose[1] - origin[1]) / res
             win = torch.stack([
@@ -135,12 +134,13 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh):
             return integrate_scan_window(
                 state.logodds, win, pose, keep, *tables, size=(ic, icw),
                 col0=c0, resolution=res, origin=origin, l_free=s.l_free,
-                l_occ=s.l_occ, tol_cells=s.hit_tolerance_cells)
+                l_occ=s.l_occ, tol_cells=s.hit_tolerance_cells, out=into)
 
         return finish_step(engine, mesh, state, poses, scores, integrate,
-                           u0, inj, mc.surface_resample_fraction)
+                           u0, inj, mc.surface_resample_fraction, out=out,
+                           gated=gated)
 
-    return step
+    return MeshStep(body, engine._draw, engine.device, jit)
 
 
 def init_surface_sharded(engine: SharedMapSLAM, mesh, pose=(0.0, 0.0, 0.0)):

@@ -35,8 +35,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -47,7 +45,7 @@ from ..ops.cuda.matcher import stage_scores_tile
 from ..ops.matcher import half_resolution
 from ..types import Frame
 from .mesh import axis_index, axis_size, halo_cols, psum, shard_state
-from .shmap import finish_step, local_draws, local_particles
+from .shmap import MeshStep, finish_step, local_draws, local_particles
 
 
 @dataclasses.dataclass
@@ -127,10 +125,10 @@ def tile_origin(cfg, c0: int):
             float(f32(cfg.map.origin[1])))
 
 
-def make_tiled_step(engine: SharedMapSLAM, mesh):
+def make_tiled_step(engine: SharedMapSLAM, mesh, jit: bool = False):
     """The step of the tiled engine (module docstring): particles over 'p',
-    map columns over 'm'.  Returns step(state, frame, generator=None,
-    draws=None) -> (state, info) on this rank's shard (init_tiled)."""
+    map columns over 'm'.  Returns a parallel/shmap.MeshStep (eager, or
+    with jit=True compiled) on this rank's shard (init_tiled)."""
     cfg = engine.config
     local_particles(engine, mesh)
     w_loc, c0 = tile_geometry(cfg, mesh)
@@ -142,9 +140,8 @@ def make_tiled_step(engine: SharedMapSLAM, mesh):
     tiled_cfg = cfg.replace(matcher=mc)
     chunk = cfg.particle_chunk
 
-    def step(state, frame: Frame, generator: Optional[torch.Generator] = None,
-             draws=None):
-        normals, u0, inj = local_draws(engine, mesh, generator, draws)
+    def body(state, frame: Frame, draws, out, gated):
+        normals, u0, inj = local_draws(engine, mesh, draws)
         scan, tables, keep = engine._scan_inputs(frame)
         tf = tiled_ll_field(state.logodds[None], engine.taps, mesh,
                             z_hit=mc.z_hit, max_range=s.max_range,
@@ -155,16 +152,18 @@ def make_tiled_step(engine: SharedMapSLAM, mesh):
                                         scan, frame.odom, ch,
                                         stage=tile_stage(mesh))
 
-        def integrate(pose):
+        def integrate(pose, into):
             return integrate_scan_batch(
                 state.logodds[None], pose[None], keep, *tables,
                 resolution=res, origin=t_origin, l_free=s.l_free,
-                l_occ=s.l_occ, tol_cells=s.hit_tolerance_cells)[0]
+                l_occ=s.l_occ, tol_cells=s.hit_tolerance_cells,
+                out=None if into is None else into[None])[0]
 
         return finish_step(engine, mesh, state, poses, scores, integrate,
-                           u0, inj, cfg.resample_fraction)
+                           u0, inj, cfg.resample_fraction, out=out,
+                           gated=gated)
 
-    return step
+    return MeshStep(body, engine._draw, engine.device, jit)
 
 
 def init_tiled(engine: SharedMapSLAM, mesh, pose=(0.0, 0.0, 0.0)):

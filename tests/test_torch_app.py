@@ -298,6 +298,46 @@ def test_cli_steps_through_the_captured_step(tmp_path, synth_log,
             saved, eng.best_map(state).numpy().astype(np.float64))
 
 
+@pytest.mark.parametrize("engine", MESH_ENGINES)
+def test_cli_mesh_engines_step_through_the_captured_step(
+        tmp_path, synth_log, captured_steps, capsys, engine):
+    """replay --engine shmap|shmap-surface|tiled|surface-sharded on a
+    world of one: the CLI steps through the engine's compiled step
+    (step_jit: make_*_step(..., jit=True), on the CPU its static-buffer
+    loop) and gives the eager step's trajectory, printed metrics but the
+    times, and map bit for bit."""
+    from gridmap_slam_tpu_torch.io import read_recording
+
+    log = str(synth_log[0] / "log.rec")
+    state, traj, metrics = main(
+        ["replay", "--log", log, *SMALL, "--engine", engine, "--set",
+         "matcher.surface_nt=7", "--out", str(tmp_path), "--seed", "3",
+         *CPU])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == metrics
+    (eng, step), = captured_steps
+    assert step.captured.captures == 0 and step.captured.capacity == 1
+    st, want, neffs = _eager_run(eng, read_recording(log), 3)
+    np.testing.assert_array_equal(traj, want)
+    np.testing.assert_array_equal(np.load(tmp_path / "replay_trajectory.npy"),
+                                  want)
+    assert metrics["final_neff"] == neffs[-1]
+    assert metrics["final_pose"] == want[-1].tolist()
+    assert torch.equal(state.logodds, eng.gather(st).logodds)
+
+
+def test_compiled_step_needs_step_jit():
+    """An engine without step_jit raises: no eager step in its place."""
+    from gridmap_slam_tpu_torch.app.application import compiled_step
+
+    class Eager:
+        def step(self, state, frame, generator=None):
+            return state, None
+
+    with pytest.raises(AttributeError, match="step_jit"):
+        compiled_step(Eager())
+
+
 def test_application_steps_through_the_captured_step(captured_steps):
     """SlamApplication fed by the loopback robot through RobotLink and
     SlamPipeline steps through the captured step (captured at its first

@@ -61,8 +61,13 @@ def run_ba_case(case, n):
     mesh = pmesh.make_mesh(n, device="cpu")
     nodes, *edges = case["graph"]
     graph = shard_graph((nodes,) + pad_edges(*edges, n), mesh, device="cpu")
-    out, chi2 = make_distributed_optimizer(mesh, iterations=ITERATIONS)(graph)
-    return {"nodes": out.nodes.numpy(), "chi2": chi2.numpy()}
+    out = {}
+    for jit in (False, True):
+        g, chi2 = make_distributed_optimizer(mesh, iterations=ITERATIONS,
+                                             jit=jit)(graph)
+        out["jit" if jit else "eager"] = {"nodes": g.nodes.numpy(),
+                                          "chi2": chi2.numpy()}
+    return dict(out["eager"], jit=out["jit"])
 
 
 COMM_KINDS = [("shmap", matcher_config()),
@@ -73,8 +78,9 @@ COMM_KINDS = [("shmap", matcher_config()),
 
 
 def run_comm_case(case, n):
-    """Rank side: one step of the engine, once with the resample gate shut
-    and once forced open; the collectives each called."""
+    """Rank side: one step of the engine, eager and compiled, once with the
+    resample gate shut and once forced open; the collectives each called
+    and each one's results."""
     from tests.test_torch_parallel import run_engine_case
 
     out = {}
@@ -84,9 +90,11 @@ def run_comm_case(case, n):
             resample_fraction=fraction,
             matcher=dataclasses.replace(mc,
                                         surface_resample_fraction=fraction))
-        res = run_engine_case(dict(case, cfg=cfg), n)
-        out[label] = {"records": res["records"],
-                      "resampled": bool(res["steps"][-1]["resampled"])}
+        for jit in (False, True):
+            res = run_engine_case(dict(case, cfg=cfg, jit=jit), n)
+            out[label + ("_jit" if jit else "")] = {
+                "records": res["records"], "steps": res["steps"],
+                "resampled": bool(res["steps"][-1]["resampled"])}
     return out
 
 
@@ -157,6 +165,31 @@ def test_distributed_ba_matches_single_device(multi_rank, n):
         np.testing.assert_array_equal(other["ba"]["nodes"], got["nodes"])
 
 
+@pytest.mark.parametrize("n", RANKS)
+def test_compiled_distributed_ba_gives_eager_bits(multi_rank, n):
+    """jit=True (every iteration with its psum one graph on the card; the
+    static-buffer body here) gives the eager optimizer's bits on every
+    rank, and so JAX's within test_distributed_ba_matches_jax's
+    tolerances."""
+    import jax
+    from jax.sharding import Mesh
+    from gridmap_slam_tpu.parallel.ba import (make_distributed_optimizer,
+                                              pad_edges, shard_graph)
+
+    for out in multi_rank(n):
+        got = out["ba"]
+        np.testing.assert_array_equal(got["jit"]["nodes"], got["nodes"])
+        np.testing.assert_array_equal(got["jit"]["chi2"], got["chi2"])
+    nodes, *edges = _loop_graph()
+    mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(n, 1), ("p", "m"))
+    g, chi2 = make_distributed_optimizer(mesh, iterations=ITERATIONS)(
+        shard_graph((nodes,) + pad_edges(*edges, n), mesh))
+    got = multi_rank(n)[0]["ba"]["jit"]
+    np.testing.assert_allclose(got["chi2"], np.asarray(chi2), rtol=CHI2_RTOL)
+    np.testing.assert_allclose(got["nodes"], np.asarray(g.nodes),
+                               atol=NODES_ATOL)
+
+
 def test_pad_edges_keeps_the_graph():
     from gridmap_slam_tpu.parallel.ba import pad_edges as j_pad
     from gridmap_slam_tpu_torch.parallel.ba import pad_edges
@@ -207,6 +240,35 @@ def test_comm_model_rows_equal_the_recorded_collectives(multi_rank, kind,
                                      m_edge=j in (0, n_m - 1))
         assert dict(got) == dict(want), (rank, label)
         assert dict(got_calls) == dict(want_calls), (rank, label)
+
+
+@pytest.mark.parametrize("label", ["quiet", "resampling"])
+@pytest.mark.parametrize("kind", [k for k, _ in COMM_KINDS])
+def test_comm_model_captured_rows_equal_the_compiled_collectives(
+        multi_rank, kind, label):
+    """comm_table(..., captured=True) against the collectives the compiled
+    body called: the resample's gathers on every scan, resampling or not;
+    and the compiled step's results equal the eager step's."""
+    outs = multi_rank(4)
+    cfg = dict(COMM_KINDS)[kind]
+    n_p, n_m = ((1, 4) if kind in ("tiled", "surface_sharded")
+                else (2, 2) if kind == "sharded" else (4, 1))
+    rows = tcomm.comm_table(cfg, n_p, n_m, kind, captured=True)
+    assert all(r.when == "every scan" for r in rows)
+    for rank, out in enumerate(outs):
+        res = out[f"comm_{kind}"][label + "_jit"]
+        assert res["resampled"] == (label == "resampling")
+        got, got_calls = Counter(), Counter()
+        for coll, axis, nbytes in res["records"]:
+            got[coll, axis] += nbytes
+            got_calls[coll, axis] += 1
+        want, want_calls = _expected(rows, True, m_edge=rank % n_m in
+                                     (0, n_m - 1))
+        assert dict(got) == dict(want), (rank, label)
+        assert dict(got_calls) == dict(want_calls), (rank, label)
+        for a, b in zip(out[f"comm_{kind}"][label]["steps"], res["steps"]):
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_comm_model_payload_scaling():

@@ -31,6 +31,7 @@ every rank; it imports no JAX at the top).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -108,7 +109,7 @@ def _engine(case):
     return cls(case["cfg"], device="cpu")
 
 
-def _step_fn(case, eng, mesh):
+def _step_fn(case, eng, mesh, jit=False):
     from gridmap_slam_tpu_torch.parallel.sharded import make_sharded_step
     from gridmap_slam_tpu_torch.parallel.shmap import make_shmap_step
     from gridmap_slam_tpu_torch.parallel.surface_sharded import (
@@ -117,36 +118,61 @@ def _step_fn(case, eng, mesh):
 
     kind = case["kind"]
     if kind in ("shmap", "shmap_surface"):
-        return make_shmap_step(eng, mesh, surface=kind == "shmap_surface")
+        return make_shmap_step(eng, mesh, surface=kind == "shmap_surface",
+                               jit=jit)
     return {"tiled": make_tiled_step, "sharded": make_sharded_step,
-            "surface_sharded": make_surface_sharded_step}[kind](eng, mesh)
+            "surface_sharded": make_surface_sharded_step}[kind](eng, mesh,
+                                                                jit=jit)
 
 
 def _host(state, info):
-    out = {k: getattr(state, k).cpu().numpy()
+    """Copies of the fields on the host (a compiled step's state is its
+    static buffer, which the next step overwrites)."""
+    out = {k: getattr(state, k).cpu().numpy().copy()
            for k in ("poses", "log_weights", "logodds")}
-    out.update({k: getattr(info, k).cpu().numpy()
+    out.update({k: getattr(info, k).cpu().numpy().copy()
                 for k in ("neff", "weighted_pose", "best_pose",
                           "best_index", "best_log_weight", "resampled")})
     return out
 
 
+@contextlib.contextmanager
+def host_reads():
+    """Count the truth tests of a tensor inside the block (bool(t), `if
+    t:`), each a read of the card on a CUDA tensor: yields a list whose
+    length is the count."""
+    real = torch.Tensor.__bool__
+    seen = []
+
+    def counted(t):
+        seen.append(tuple(t.shape))
+        return real(t)
+    torch.Tensor.__bool__ = counted
+    try:
+        yield seen
+    finally:
+        torch.Tensor.__bool__ = real
+
+
 def run_engine_case(case, n):
-    """The case's steps on this rank; returns each step's gathered global
-    state and info (numpy), and the collectives of the last step."""
+    """The case's steps on this rank (the compiled step where case["jit"]);
+    returns each step's gathered global state and info (numpy), the
+    collectives of the last step and the truth tests of a tensor that the
+    steps made (host_reads)."""
     tiled = case["kind"] in ("tiled", "surface_sharded", "sharded")
     mesh = pmesh.make_mesh(n, map_shards=case["mesh"][1], device="cpu")
     eng = _engine(case)
-    step = _step_fn(case, eng, mesh)
+    step = _step_fn(case, eng, mesh, jit=case.get("jit", False))
     state = pmesh.shard_state(case["state"], mesh, tiled=tiled)
-    out = []
+    out, reads = [], 0
     for i, frame in enumerate(case["frames"]):
         draws = case["draws"][i] if case.get("draws") else None
         gen = None if draws else torch.Generator().manual_seed(i)
-        with pmesh.recording() as rec:
+        with pmesh.recording() as rec, host_reads() as seen:
             state, info = step(state, frame, gen, draws)
+        reads += len(seen)
         out.append(_host(pmesh.gather_state(state, mesh, tiled), info))
-    return {"steps": out, "records": rec}
+    return {"steps": out, "records": rec, "host_reads": reads}
 
 
 def _rank_cases(payload: str, rank: int, n: int) -> None:
@@ -359,6 +385,29 @@ def build_cases(kinds, n, tmp_frames):
     return cases, jres, sres
 
 
+def with_compiled(cases, jres, sres):
+    """Each case again as `<name>_jit`, run by the compiled step on the
+    same draws, with the same references."""
+    for case in list(cases):
+        name = case["name"] + "_jit"
+        cases.append(dict(case, name=name, jit=True))
+        jres[name], sres[name] = jres[case["name"]], sres[case["name"]]
+    return cases, jres, sres
+
+
+def compiled_is_eager(outs, name):
+    """On every rank the compiled step `<name>_jit` gave the eager step's
+    bits, and made no truth test of a tensor (no host read of the
+    resample gate), where the eager one made one a scan on a 'p' axis of
+    more than one rank."""
+    for out in outs:
+        eager, comp = out[name], out[name + "_jit"]
+        for a, b in zip(eager["steps"], comp["steps"]):
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert comp["host_reads"] == 0
+
+
 def check_against(got, want, *, jax_ref: bool):
     """One step's gathered results against a reference step."""
     np.testing.assert_allclose(got["poses"], want["poses"], atol=POSE_ATOL)
@@ -406,15 +455,19 @@ def multi_rank(tmp_path_factory):
 
     def get(n):
         if n not in cache:
-            cases, jres, sres = build_cases(KINDS, n, frames_for)
+            cases, jres, sres = with_compiled(*build_cases(KINDS, n,
+                                                           frames_for))
             outs = launch(cases, n, tmp_path_factory.mktemp(f"ranks{n}"))
             cache[n] = (outs, jres, sres)
         return cache[n]
     return get
 
 
+NAMES = [k[0] for k in KINDS] + [k[0] + "_jit" for k in KINDS]
+
+
 @pytest.mark.parametrize("n", RANKS)
-@pytest.mark.parametrize("name", [k[0] for k in KINDS])
+@pytest.mark.parametrize("name", NAMES)
 def test_engine_matches_jax_on_n_devices(multi_rank, name, n):
     outs, jres, _ = multi_rank(n)
     for got, want in zip(outs[0][name]["steps"], jres[name]):
@@ -422,7 +475,7 @@ def test_engine_matches_jax_on_n_devices(multi_rank, name, n):
 
 
 @pytest.mark.parametrize("n", RANKS)
-@pytest.mark.parametrize("name", [k[0] for k in KINDS])
+@pytest.mark.parametrize("name", NAMES)
 def test_engine_matches_single_device(multi_rank, name, n):
     outs, _, sres = multi_rank(n)
     for got, want in zip(outs[0][name]["steps"], sres[name]):
@@ -430,9 +483,19 @@ def test_engine_matches_single_device(multi_rank, name, n):
 
 
 @pytest.mark.parametrize("n", RANKS)
-@pytest.mark.parametrize("name", [k[0] for k in KINDS])
+@pytest.mark.parametrize("name", NAMES)
 def test_ranks_agree(multi_rank, name, n):
     ranks_agree(multi_rank(n)[0], name)
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("name", [k[0] for k in KINDS])
+def test_compiled_step_gives_eager_bits_on_n_ranks(multi_rank, name, n):
+    """The compiled body (every scan's gather, the resample a select on the
+    card) against the eager one (the gather gated on the host)."""
+    outs = multi_rank(n)[0]
+    compiled_is_eager(outs, name)
+    assert all(out[name]["host_reads"] == STEPS for out in outs)
 
 
 @pytest.mark.parametrize("n", RANKS)

@@ -27,9 +27,10 @@ from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
 from gridmap_slam_tpu_torch.parallel import mesh as pmesh
 from tests.test_torch_parallel import (JAX_LW_ATOL, K2_ATOL, K2_MAX_FRAC,
                                        RANKS, build_cases,
-                                       check_against, launch, log_frames,
-                                       matcher_config, ranks_agree,
-                                       surface_config)
+                                       check_against, compiled_is_eager,
+                                       launch, log_frames, matcher_config,
+                                       ranks_agree, surface_config,
+                                       with_compiled)
 
 torch.set_num_threads(1)
 
@@ -209,7 +210,8 @@ def multi_rank(tmp_path_factory):
 
     def get(n):
         if n not in cache:
-            cases, jres, sres = build_cases(KINDS, n, frames_for)
+            cases, jres, sres = with_compiled(*build_cases(KINDS, n,
+                                                           frames_for))
             cases.append(dict(name="ll_field", kind="ll_field", mesh=(1, n),
                               lo=_test_map(),
                               runner="tests.test_torch_tiled:run_ll_case"))
@@ -291,6 +293,34 @@ def test_surface_sharded_matches_single_device(multi_rank, n):
 @pytest.mark.parametrize("name", ["tiled", "surface_sharded"])
 def test_tiled_ranks_agree(multi_rank, name, n):
     ranks_agree(multi_rank(n)[0], name)
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("name", ["tiled", "surface_sharded"])
+def test_compiled_tiled_engines_give_eager_bits(multi_rank, name, n):
+    """The compiled step (jit=True) on every rank: the eager step's bits,
+    no host read of the resample gate (at 4 ranks the mesh (2, 2), whose
+    'p' axis the eager step gates on the host), and every rank alike."""
+    outs = multi_rank(n)[0]
+    compiled_is_eager(outs, name)
+    ranks_agree(outs, name + "_jit")
+
+
+@pytest.mark.parametrize("n", RANKS)
+def test_compiled_tiled_engine_matches_jax(multi_rank, n):
+    outs, jres, _ = multi_rank(n)
+    for got, want in zip(outs[0]["tiled_jit"]["steps"], jres["tiled"]):
+        check_against(got, want, jax_ref=True)
+
+
+@pytest.mark.parametrize("n", RANKS)
+def test_compiled_surface_sharded_matches_jax(multi_rank, n):
+    outs, jres, _ = multi_rank(n)
+    for got, want in zip(outs[0]["surface_sharded_jit"]["steps"],
+                         jres["surface_sharded"]):
+        _surface_sharded_close(got, want, JAX_LW_ATOL)
+        assert (np.abs(got["logodds"] - want["logodds"]) > K2_ATOL).mean() \
+            <= K2_MAX_FRAC
 
 
 # ---------------------------------------------------- K2's window variant
