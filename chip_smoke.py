@@ -337,21 +337,27 @@ def build_phase() -> None:
     """Compile csrc/*.cu afresh; nvcc's -Xptxas -v report (registers,
     shared memory, spills per kernel) goes to stdout, and K1's
     instantiations (shared or global field, bilinear or nearest, runs of
-    1 to 5 dx candidates a thread), K2's (four cells a thread or one) and
+    1 to 5 dx candidates a thread), K1t's staged kernel's (bilinear or
+    nearest, runs of 1 to 5), K2's (four cells a thread or one) and
     K3's (radius 1 to 4 compiled in, staged by 128-bit loads or cell by
     cell, and any radius) are summed up on the
     build line; K1's untiled and tile variants, K2's whole-map and window
     variants, K4's prologue and correlation.  K1's, K3's and K4's
     shared memory is dynamic: a call's plan sets it.  A spill in K2, K3 or
-    K4 fails the run.  K4 is its prologue (surface_corr_prep) and the
+    K4, or a spill store in K1 or K1t's staged kernel, fails the run.  K4 is
+    its prologue (surface_corr_prep) and the
     correlation (surface_corr_kernel)."""
     from gridmap_slam_tpu_torch.ops.cuda import _build
     from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
     t0 = time.perf_counter()
     path, log = _build.build(verbose=True)
     _build.library()
-    k1, k2, k3, k4 = [], [], [], []
+    k1, k1t, k2, k3, k4 = [], [], [], [], []
     for name, use in sorted(_build.ptxas_usage(log).items()):
+        m = re.search(r"stage_scores_tile_kernelILb([01])ELi(\d)E", name)
+        if m:
+            k1t.append(dict(kernel="staged", nearest=m.group(1) == "1",
+                            run=int(m.group(2)), **use))
         m = re.search(r"surface_corr_(kernel|prep)", name)
         if m:
             k4.append(dict(kernel=m.group(0), **use))
@@ -376,18 +382,25 @@ def build_phase() -> None:
         sources=[str(p.relative_to(_build.CSRC.parents[1]))
                  for p in _build.sources()],
         library=path.name, k1_registers_assumed=kmatch.REGISTERS,
-        k1_variants=k1, k2_variants=k2, k3_variants=k3, k4_kernels=k4)
+        k1_variants=k1, k1_tile_staged_variants=k1t, k2_variants=k2,
+        k3_variants=k3, k4_kernels=k4)
     if len(k2) != 3 or len(k3) != 9 or len(k4) != 2 or any(
             v["spill_stores"] or v["spill_loads"] for v in k2 + k3 + k4):
         raise AssertionError(f"K2: expected 3 instantiations, K3: 9, K4: 2, "
                              f"none with spills: {k2} {k3} {k4}")
-    if len(k1) != 8 * kmatch.MAX_RUN or any(
+    # shared or global field, bilinear or nearest, and the tile variant's
+    # shared-field instantiations
+    if len(k1) != 6 * kmatch.MAX_RUN or any(
             v["spill_stores"] or (v["run"] <= 3 and
                                   v["registers"] > kmatch.REGISTERS)
             for v in k1):
-        raise AssertionError(f"K1: expected {8 * kmatch.MAX_RUN} "
+        raise AssertionError(f"K1: expected {6 * kmatch.MAX_RUN} "
                              f"instantiations without spills, runs of 1-3 "
                              f"within {kmatch.REGISTERS} registers: {k1}")
+    if len(k1t) != 2 * kmatch.MAX_RUN or any(v["spill_stores"] for v in k1t):
+        raise AssertionError(f"K1t's staged kernel: expected "
+                             f"{2 * kmatch.MAX_RUN} instantiations without "
+                             f"spills: {k1t}")
 
 
 def _bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
@@ -414,6 +427,61 @@ def k1_bound(args, kw):
     samples = float(rows.sum()) * (p // rows.shape[0]) * cands
     return _bound(samples * K1_FLOPS[bool(kw.get("nearest"))],
                   _nbytes(args) + p * cands * 4)
+
+
+def k1t_cells(args, kw, block=64) -> int:
+    """The distinct cells of K1t's field that a call's taps read: the plain
+    version's tap indices (its coordinates, ownership and bounds), counted
+    once each; a tap off the field (v_outside) and a beam the tile does
+    not own read none.  Particles go in blocks of `block` (a mark a cell)."""
+    from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
+    field, px, py, use, pose0, dxs, dys, dts = args
+    g, h, w = field.shape
+    p = pose0.shape[0]
+    nearest = bool(kw.get("nearest"))
+    shift = kw["c0"] - kw["ext"]
+    seen = torch.zeros(g * h * w, dtype=torch.bool, device=field.device)
+    per_g = p // g
+    for a in range(0, p, block):
+        n = min(block, p - a)
+        sub = _particle_slice("K1t", args, a, n)
+        sx, sy, cx, cy, u = kmatch._tile_coords(
+            *sub[1:], resolution=kw["resolution"], origin=kw["origin"],
+            nearest=nearest)
+        fx = sx[:, :, None, :] + cx[:, None, :, None]         # (n, nt, nx, B)
+        fy = sy[:, :, None, :] + cy[:, None, :, None]         # (n, nt, ny, B)
+        x0 = torch.round(fx).to(torch.int64)
+        y0 = torch.round(fy).to(torch.int64)
+        mine = kmatch._owned(x0, kw["c0"], kw["w_loc"], kw["n_m"])
+        xl = (x0 - shift)[:, :, None]                         # (n,nt,1,nx,B)
+        y0 = y0[:, :, :, None]                                # (n,nt,ny,1,B)
+        keep = (u if u.dim() == 5 else u.expand(n, 1, 1, 1, -1)) \
+            & mine[:, :, None]
+        grp = (torch.arange(a, a + n, device=field.device) // per_g
+               )[:, None, None, None, None]
+        for dx, dy in ((0, 0),) if nearest else (
+                (0, 0), (1, 0), (0, 1), (1, 1)):
+            x, y = xl + dx, y0 + dy
+            on = keep & (x >= 0) & (x < w) & (y >= 0) & (y < h)
+            idx = (grp * h + y.clamp(0, h - 1)) * w + x.clamp(0, w - 1)
+            seen[torch.broadcast_to(idx, on.shape)[on]] = True
+    return int(seen.sum())
+
+
+def k1t_bound(args, kw):
+    """K1t's bound: the operations as k1_bound counts them (the used beams'
+    samples), and the bytes of the field's cells its taps read
+    (k1t_cells), of the other inputs and of the output.  A tile too large
+    to stage is never read whole: counting it whole would put the bound
+    above what any design needs."""
+    field, px, py, use, pose0, dxs, dys, dts = args
+    p = pose0.shape[0]
+    cands = dts.shape[1] * dys.shape[1] * dxs.shape[1]
+    rows = use.reshape(-1, use.shape[-1])
+    samples = float(rows.sum()) * (p // rows.shape[0]) * cands
+    return _bound(samples * K1_FLOPS[bool(kw.get("nearest"))],
+                  k1t_cells(args, kw) * 4 + _nbytes(args[1:])
+                  + p * cands * 4)
 
 
 def k2_bound(args, kw):
@@ -491,14 +559,17 @@ def k4_plan(args) -> dict:
     return surface_corr.plan_for(args[0], args[1])._asdict()
 
 
-def k1_variant(args) -> str:
-    """The K1 variant launch_plan picks for these arguments."""
+def k1_variant(args, tile=False) -> str:
+    """The K1 variant launch_plan picks for these arguments; with `tile`,
+    tile_launch_plan's (K1t): shared or staged."""
     from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
     field, px, _, _, pose0, dxs, dys, dts = args
-    return kmatch.launch_plan(
-        pose0.shape[0], field.shape[0], field.shape[1], field.shape[2],
-        px.shape[-1], dts.shape[1], dys.shape[1], dxs.shape[1],
-        **kmatch.device_limits(field.device.index)).variant
+    shapes = (pose0.shape[0], field.shape[0], field.shape[1],
+              field.shape[2], px.shape[-1], dts.shape[1], dys.shape[1],
+              dxs.shape[1])
+    limits = kmatch.device_limits(field.device.index)
+    plan = kmatch.tile_launch_plan if tile else kmatch.launch_plan
+    return plan(*shapes, **limits).variant
 
 
 def parity_config():
@@ -1542,7 +1613,7 @@ _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
           "K3": ("likelihood", "log_likelihood_field_batch_cuda"),
           "K4": ("surface_corr", "surface_corr_bf16_cuda")}
 PATH_MAX_ERR = {row: 0.0 for row in KERNEL_ROWS.values()}
-BOUNDS = {"K1": k1_bound, "K2": k2_bound, "K3": k3_bound, "K1t": k1_bound,
+BOUNDS = {"K1": k1_bound, "K2": k2_bound, "K3": k3_bound, "K1t": k1t_bound,
           "K2w": k2w_bound, "K4": k4_bound}
 FULL_MAX = 4096      # a recorded call of more particles is compared on
 SLICE = 2048         # its first and its last SLICE particles
@@ -1710,7 +1781,7 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
                    ms=ms, plain_ms=plain_ms, plain_particles=parts[0][1],
                    bound_ms=bound, bound_by=by, share_of_bound=bound / ms)
         if kernel in ("K1", "K1t"):
-            row.update(variant=k1_variant(args),
+            row.update(variant=k1_variant(args, kernel == "K1t"),
                        nearest=bool(kw.get("nearest")), rtol=K1_RTOL,
                        atol=K1_ATOL)
         elif kernel == "K4":
@@ -1735,6 +1806,10 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
             say("path_kernels", calls=checks)
             raise AssertionError(f"{path} {kernel}: {frac} beyond its "
                                  f"tolerance (limit {limit}; max abs {err})")
+        if kernel == "K1t" and row["share_of_bound"] > 1.0:
+            say("path_kernels", calls=checks)
+            raise AssertionError(f"{path} K1t ran faster than its bound: "
+                                 f"{row}")
     say("path_kernels", paths=sorted({row["path"] for row in checks}),
         recorded_bytes=rec.bytes(), calls=checks)
     checked = {(row["path"], KERNEL_ROWS[row["kernel"]]) for row in checks}
@@ -2200,17 +2275,30 @@ def multi_phase(dev="cuda", particle_counts=MULTI_PARTICLES,
 
 
 # K1's tile variant: stage_scores_kernel<kShared, kNearest, kCw, true>
-K1_TILE_SYMBOL = re.compile(r"stage_scores_kernelILb[01]ELb[01]ELi\d+ELb1E")
+# (a tile staged in a block; mangled as a graph's kernel node names it,
+# demangled as the profiler does) and its staged kernel,
+# stage_scores_tile_kernel
+K1_TILE_SYMBOL = re.compile(r"stage_scores_kernelILb[01]ELb[01]ELi\d+ELb1E"
+                            r"|stage_scores_kernel<\w+, \w+, \d+, true>"
+                            r"|stage_scores_tile_kernel")
+
+
+def _kernel_row(name: str):
+    """The kernel row of a kernel's name (KERNEL_SYMBOLS, K1's tile variant
+    apart from K1), or None for another kernel."""
+    if K1_TILE_SYMBOL.search(name):
+        return "stage_scores_tile"
+    return next((row for row, sym in KERNEL_SYMBOLS.items() if sym in name),
+                None)
 
 
 def _node_counts(names) -> dict:
-    """Kernel nodes of a graph by kernel row (KERNEL_SYMBOLS, and K1's tile
-    variant apart from K1)."""
-    counts = {row: sum(sym in nm for nm in names)
-              for row, sym in KERNEL_SYMBOLS.items()}
-    tiled = sum(bool(K1_TILE_SYMBOL.search(nm)) for nm in names)
-    counts["stage_scores"] -= tiled
-    counts["stage_scores_tile"] = tiled
+    """Kernel nodes of a graph by kernel row (_kernel_row)."""
+    counts = dict.fromkeys(GRAPH_ROWS, 0)
+    for nm in names:
+        row = _kernel_row(nm)
+        if row is not None:
+            counts[row] += 1
     return counts
 
 
@@ -2218,10 +2306,10 @@ def _library_kernels(names) -> dict:
     """The kernel nodes of a graph that are not PyTorch's own (at::native)
     nor the port's, by name cut to 96 characters, with their counts: the
     linear-algebra libraries' (cuBLAS, cuSOLVER, MAGMA)."""
-    ours = tuple(KERNEL_SYMBOLS.values()) + ("at6native", "at4cuda")
     out = {}
     for nm in names:
-        if not any(sym in nm for sym in ours):
+        if _kernel_row(nm) is None and not any(
+                sym in nm for sym in ("at6native", "at4cuda")):
             out[nm[:96]] = out.get(nm[:96], 0) + 1
     return out
 
@@ -2727,12 +2815,25 @@ def _profiled(run, n: int):
     events = prof.events()
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = [_kernel_row(e.name) for e in dev]
+    ms_a_scan = dict.fromkeys((*GRAPH_ROWS, "other"), 0.0)
+    for e, row in zip(dev, rows):
+        ms_a_scan[row or "other"] += e.time_range.elapsed_us() / 1e3 / n
+    # K1t's launches come as (coarse, fine, refine) a chunk, in order
+    tile = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3)
+                  for e, row in zip(dev, rows) if row == "stage_scores_tile")
+    stages = {}
+    if tile and len(tile) % 3 == 0:
+        stages = {name: sum(ms for _, ms in tile[i::3]) / n
+                  for i, name in enumerate(("coarse", "fine", "refine"))}
     return out, dict(
         device_ms=sum(e.time_range.elapsed_us() for e in dev) / 1e3,
         launches_per_scan=sum(e.name in LAUNCH_CALLS for e in events) / n,
         device_events_per_scan=len(dev) / n,
-        kernels_per_scan={row: sum(sym in e.name for e in dev) / n
-                          for row, sym in KERNEL_SYMBOLS.items()})
+        kernels_per_scan={row: sum(r == row for r in rows) / n
+                          for row in GRAPH_ROWS},
+        device_ms_a_scan_by_kernel=ms_a_scan,
+        k1t_device_ms_a_scan_by_stage=stages)
 
 
 def _fields_differing(a, b) -> list:
@@ -3005,9 +3106,15 @@ def k1_tile_phase(frames, particles=256, timed_particles=PAR_TILED_CHUNK):
     tiles summed against the untiled K1 on the whole field, for the three
     stages of the tiled schedule (coarse at full resolution over every
     4th beam, fine, refine) at `particles` poses around the tile
-    boundaries and the world's edges; then the three stages timed at the
-    tiled row's shapes (one tile, 500 particles).  Returns the kernels
-    line's row."""
+    boundaries and the world's edges, and the coarse stage once more on
+    nearest cells; both of the kernel's paths (a block that staged its
+    box, and a block that read the field) must have been checked; then the
+    three stages timed at the tiled row's shapes (one tile, 500 particles
+    at one pose) by CUDA events around calls from Python and by device
+    time in a CUDA graph, each beside its bound (k1t_bound: the cells its
+    taps read) and its share of it, which may not exceed 1, and the
+    kernel's blocks by path (stage_scores_tile_cuda's `paths`).  Returns
+    the kernels line's row."""
     from gridmap_slam_tpu_torch import city_config
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
     from gridmap_slam_tpu_torch.ops.cuda import likelihood
@@ -3038,18 +3145,20 @@ def k1_tile_phase(frames, particles=256, timed_particles=PAR_TILED_CHUNK):
                                device=dev).expand(n, -1).contiguous()
 
     def stages(p):
+        """(name, px, py, use, dxs, dys, dts, nearest) of each stage."""
         wt = math.radians(mc.window_theta_deg)
-        c_xy = offs(np.linspace(-mc.window_xy, mc.window_xy, mc.coarse_nxy), p)
+        c_xy = offs(np.linspace(-mc.window_xy, mc.window_xy, mc.coarse_nxy),
+                    p)
         c_t = offs(np.linspace(-wt, wt, mc.coarse_nt), p)
         step_xy = 2 * mc.window_xy / (mc.coarse_nxy - 1)
         step_t = 2 * wt / (mc.coarse_nt - 1)
         s = mc.coarse_beam_stride
         out = [("coarse", px[::s].contiguous(), py[::s].contiguous(),
-                use[::s].contiguous(), c_xy, c_xy, c_t)]
+                use[::s].contiguous(), c_xy, c_xy, c_t, False)]
         for name, k in (("fine", 1.0), ("refine", 0.5)):
             oxy = offs(np.linspace(-k * step_xy, k * step_xy, mc.fine_nxy), p)
             ot = offs(np.linspace(-k * step_t, k * step_t, mc.fine_nt), p)
-            out.append((name, px, py, use, oxy, oxy, ot))
+            out.append((name, px, py, use, oxy, oxy, ot, False))
         return out
 
     # poses within 5 m of the 2- and 4-tile boundaries and of the world's
@@ -3065,6 +3174,7 @@ def k1_tile_phase(frames, particles=256, timed_particles=PAR_TILED_CHUNK):
         device=dev)
     kw = dict(resolution=res, origin=origin, max_range=maxr)
     checks, err = [], 0.0
+    paths = torch.zeros(2, dtype=torch.int32, device=dev)
 
     def beyond(got, want, scale):
         """Max |got - want| and the fraction beyond K1's tolerance, taken
@@ -3075,17 +3185,24 @@ def k1_tile_phase(frames, particles=256, timed_particles=PAR_TILED_CHUNK):
                 float((diff > K1_ATOL + K1_RTOL * scale.abs()).float()
                       .mean()))
 
-    for name, sx, sy, su, dxs, dys, dts in stages(particles):
+    # the three stages, and the coarse one on nearest cells (no engine
+    # path scores a tile so, but the kernel takes it)
+    checked = stages(particles)
+    checked.append(("coarse nearest", *checked[0][1:-1], True))
+    for name, sx, sy, su, dxs, dys, dts, nearest in checked:
         args = (sx, sy, su, poses, dxs, dys, dts)
-        untiled = kmatch.stage_scores_batch_cuda(field, *args, **kw)
+        untiled = kmatch.stage_scores_batch_cuda(field, *args, **kw,
+                                                 nearest=nearest)
         for n in TILE_SHARDS:
             w_loc = w // n
             total = torch.zeros_like(untiled)
             plain_total = torch.zeros_like(untiled)
             for j in range(n):
                 ext = _ext_tile(field, j, n, v_out)
-                tkw = dict(kw, c0=j * w_loc, w_loc=w_loc, n_m=n, ext=1)
-                got = kmatch.stage_scores_tile_cuda(ext, *args, **tkw)
+                tkw = dict(kw, c0=j * w_loc, w_loc=w_loc, n_m=n, ext=1,
+                           nearest=nearest)
+                got = kmatch.stage_scores_tile_cuda(ext, *args, paths=paths,
+                                                    **tkw)
                 want = kmatch.stage_scores_tile_plain(ext, *args, **tkw)
                 total += got
                 plain_total += want
@@ -3107,26 +3224,45 @@ def k1_tile_phase(frames, particles=256, timed_particles=PAR_TILED_CHUNK):
             if bad:
                 say("k1_tile", checks=checks)
                 raise AssertionError(f"K1 tile {name} over {n} tiles: {bad}")
+    # both of the kernel's paths were held: blocks whose box fit, and
+    # blocks of far-apart particles that read the field
+    checked_paths = dict(zip(("box", "field"), paths.tolist()))
+    if min(checked_paths.values()) == 0:
+        raise AssertionError(f"K1 tile: a path of the kernel was not "
+                             f"checked: blocks {checked_paths}")
     # the tiled row's shapes: one tile of the whole map, 500 particles
     p = timed_particles
     ext = _ext_tile(field, 0, 1, v_out)
     poses = poses[:1].expand(p, -1).contiguous()
     ms = plain_ms = bound_total = by_ops = 0.0
     times = []
-    for name, sx, sy, su, dxs, dys, dts in stages(p):
+    for name, sx, sy, su, dxs, dys, dts, _ in stages(p):
         args = (ext, sx, sy, su, poses, dxs, dys, dts)
         tkw = dict(kw, c0=0, w_loc=w, n_m=1, ext=1)
+        paths.zero_()
+        kmatch.stage_scores_tile_cuda(*args, paths=paths, **tkw)
+        blocks = dict(zip(("box", "field"), paths.tolist()))
         t = cuda_ms(lambda: kmatch.stage_scores_tile_cuda(*args, **tkw), 20)
+        tg = graph_ms(lambda: kmatch.stage_scores_tile_cuda(*args, **tkw),
+                      20)
         tp = cuda_ms(lambda: kmatch.stage_scores_tile_plain(*args, **tkw), 3)
-        bound, by = k1_bound(args, tkw)
+        bound, by = k1t_bound(args, tkw)
         ms, plain_ms, bound_total = ms + t, plain_ms + tp, bound_total + bound
         by_ops += bound if by == "operations" else 0.0
-        times.append(dict(stage=name, ms=t, plain_ms=tp, bound_ms=bound,
-                          bound_by=by, share_of_bound=bound / t,
-                          variant=k1_variant(args)))
+        times.append(dict(stage=name, ms=t, graph_ms=tg,
+                          plain_ms=tp, bound_ms=bound, bound_by=by,
+                          share_of_bound=bound / t,
+                          share_of_bound_graph=bound / tg,
+                          cells_read=k1t_cells(args, tkw),
+                          variant=k1_variant(args, tile=True),
+                          blocks_by_path=blocks))
     say("k1_tile", field=[1, h, w], particles=particles,
-        rtol=K1_RTOL, atol=K1_ATOL, checks=checks, timed_particles=p,
+        rtol=K1_RTOL, atol=K1_ATOL, checks=checks,
+        checked_blocks_by_path=checked_paths, timed_particles=p,
         timed=times)
+    if any(max(row["share_of_bound"], row["share_of_bound_graph"]) > 1.0
+           for row in times):
+        raise AssertionError(f"K1t ran faster than its bound: {times}")
     return dict(name="stage_scores_tile", route="cuda",
                 source="gridmap_slam_tpu_torch/csrc/matcher.cu",
                 replaces="gridmap_slam_tpu/ops/pallas/matcher.py:287",

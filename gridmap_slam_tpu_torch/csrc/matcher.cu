@@ -59,18 +59,58 @@
 // The TPU kernel's bucket sort, slot planes, lane rotates and 124-cell
 // width limit worked around Mosaic's gathers and are not carried over.
 //
-// The tile variant (kTiled, gs_stage_scores_tile) scores one column tile of
-// a map that is split over several ranks: the field is the tile extended
-// by `ext` columns each side (the world-edge columns hold v_outside), and
-// the partial scores of the tiles sum to the whole map's.  Its arithmetic is
-// the JAX package's XLA function gridmap_slam_tpu/parallel/tiled.py::
-// _stage_scores_tiled.  A beam's base column x0 is the same magic-number
-// rounding of the GLOBAL cell coordinate as above, so every tile computes
-// the same x0 for a beam; the beam adds to the sum only on the tile that
-// owns x0 (clip(x0 / w_loc, 0, n_m - 1) == j: two integer compares, out-of-
-// world beams owned by the edge tiles), and its taps are read at x0 less
-// the tile's first extended column.  The untiled instantiations do not
-// change.
+// The tile variant scores one column tile of a map that is split over
+// several ranks: the field is the tile extended by `ext` columns each side
+// (the world-edge columns hold v_outside), and the partial scores of the
+// tiles sum to the whole map's.  Its arithmetic is the JAX package's XLA
+// function gridmap_slam_tpu/parallel/tiled.py::_stage_scores_tiled.  A
+// beam's base column x0 is the same magic-number rounding of the GLOBAL
+// cell coordinate as above, so every tile computes the same x0 for a beam;
+// the beam adds to the sum only on the tile that owns x0 (clip(x0 / w_loc,
+// 0, n_m - 1) == j: two integer compares, out-of-world beams owned by the
+// edge tiles), and its taps are read at x0 less the tile's first extended
+// column.  A tile small enough to stage takes the shared variant above
+// (kTiled, the sharded RBPF's per-particle tiles); the untiled
+// instantiations do not change.
+//
+// A tile too large to stage (the city map's 4000 x 4002 cells, 64 MB) takes
+// stage_scores_tile_kernel (gs_stage_scores_tile_staged).  Bound on the
+// H100: operations.  A call reads only the cells its taps land on
+// (chip_smoke.k1t_bound counts them: on the synthetic log's 6 x 6 m room
+// 2-13 thousand cells, 8-50 KB, not the tile's 64 MB); its samples (coarse
+// 45 used beams x 500 x 891 candidates, fine and refine 180 x 500 x 125)
+// at 16 operations take 4.8 / 2.7 / 2.7 us at the FP32 peak.  The earlier
+// design, stage_scores_kernel's global-field instantiation run on the tile,
+// reached 0.03-0.06 of that: at 500 particles the fine stage is 179 blocks
+// of candidates, each walking 180 beams with four bounds-tested gathers
+// through the cache a beam, so the card has few warps and the load pipe is
+// full of scattered gathers.  This design:
+//
+// - One block an SM, 24 warps, over a contiguous run of the (particle,
+//   heading) pairs; a warp a pair (more where its units exceed 32), a lane
+//   a unit of kCw dx candidates of one dy.
+// - A pass over the block's pairs finds the box their taps reach.  The
+//   magic-number rounding is monotone, so a beam's candidates have their
+//   base cells between those of the endpoint at the warp's smallest and
+//   largest cx (and cy); the box runs from the smallest of those to the
+//   largest plus one cell, sized on the card from the offsets the call
+//   holds, so the launch needs no bound on their spread.
+// - Where the box fits the block's shared memory (~190 KB, 200 x 200 cells
+//   and more; the synthetic room's is some 130 x 130) the block stages it
+//   once with cp.async, rows padded to 9 mod 32 floats so that a warp's
+//   taps fall on distinct banks, and every candidate reads its taps there.
+//   Else (far-apart particles in one block, or scans of 10 m reach, some
+//   400 x 400 cells) its warps read the taps from the field through the
+//   cache, as the earlier design did, with the block's warps and staged
+//   endpoints.  `paths`, where given, counts the blocks of each kind.
+// - The pass's endpoints of a warp's last pair stay staged; the second
+//   pass takes the pairs in the other order and starts with it.
+// - Each candidate still sums its beams in beam order in one thread, with
+//   the arithmetic of stage_scores_kernel (the endpoint loop written as
+//   there: ptxas then fuses the same products), so its score has the bits
+//   of the earlier design's and, on one tile, of the untiled K1's.
+// The launch (ops/cuda/matcher.tile_launch_plan) depends on the shapes
+// alone, so it is the same in every replay of a CUDA graph.
 
 #include <cuda_runtime.h>
 
@@ -318,8 +358,12 @@ Kernel kernel_for(bool shared, bool nearest, int run) {
   if (shared)
     return nearest ? kernel_for_run<true, true, kTiled>(run)
                    : kernel_for_run<true, false, kTiled>(run);
-  return nearest ? kernel_for_run<false, true, kTiled>(run)
-                 : kernel_for_run<false, false, kTiled>(run);
+  // a tile too large to stage runs stage_scores_tile_kernel instead
+  if constexpr (kTiled)
+    return nullptr;
+  else
+    return nearest ? kernel_for_run<false, true, kTiled>(run)
+                   : kernel_for_run<false, false, kTiled>(run);
 }
 
 // Checks the shapes and the plan, opts in to the plan's shared memory and
@@ -349,6 +393,7 @@ int launch(const float* field, const float* px, const float* py,
     return cudaErrorInvalidValue;
   const Kernel kernel = tiled ? kernel_for<true>(shared, nearest, run)
                               : kernel_for<false>(shared, nearest, run);
+  if (!kernel) return cudaErrorInvalidValue;
   // the opt-in above 48 KB, raised only when a launch needs more than was
   // set on this device before
   constexpr int kDevices = 64;
@@ -368,6 +413,363 @@ int launch(const float* field, const float* px, const float* py,
       field, px, py, use, pose0, dxs, dys, dts, out, P / G_f, P / G_b, H, W,
       B, nt, ny, nx, 1.0f / res, origin_x, origin_y, v_outside, plan, tile);
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// The tile variant's kernel for tiles too large to stage (see the note at
+// the top): a block stages the box its pairs' taps reach where that fits,
+// else its warps read the taps from the field.
+// Threads a block and blocks an SM (the registers are held to that): one
+// box an SM, and 24 warps for the fine stage's 2500 pairs
+constexpr int kStagedThreads = 768;
+constexpr int kStagedBlocks = 1;
+
+struct Staged {
+  int units;        // units a pair: ny rows of ceil(nx / kCw) runs
+  int unit_warps;   // warps a pair
+  int ep_stride;    // float2 slots of a warp's staged endpoints (B | 1)
+  int region;       // floats the block's box may take
+};
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The base cell of cell coordinate v: the magic-number rounding above,
+// monotone in v.
+__device__ __forceinline__ int base_cell(float v) {
+  return __float_as_int(v + kMagic) - kMagicBits;
+}
+
+// A field cell at local column x, row y: v_outside off the field.
+__device__ __forceinline__ float field_cell(const float* __restrict__ f,
+                                            int x, int y, int H, int W,
+                                            float v_outside) {
+  return static_cast<unsigned>(x) < static_cast<unsigned>(W) &&
+                 static_cast<unsigned>(y) < static_cast<unsigned>(H)
+             ? __ldg(f + static_cast<size_t>(y) * W + x)
+             : v_outside;
+}
+
+// One warp's work item: a pair's units and lane `lane`'s candidates' cell
+// coordinates.
+template <bool kNearest, int kCw>
+struct Item {
+  int q, p, iy, ix0;
+  bool active;
+  float cy, cx[kCw];
+
+  __device__ __forceinline__ Item(long long item, int lane, const Staged& sg,
+                                  const float* __restrict__ pose0,
+                                  const float* __restrict__ dxs,
+                                  const float* __restrict__ dys, int nt,
+                                  int ny, int nx, float inv_res,
+                                  float origin_x, float origin_y) {
+    q = static_cast<int>(item / sg.unit_warps);
+    const int unit =
+        static_cast<int>(item - static_cast<long long>(q) * sg.unit_warps) *
+            32 + lane;
+    p = q / nt;
+    const int runs = (nx + kCw - 1) / kCw;
+    active = unit < sg.units;
+    const int u = active ? unit : sg.units - 1;  // an idle lane shadows one
+    iy = u / runs;
+    ix0 = (u - iy * runs) * kCw;
+    const float c_off = kNearest ? 0.5f : 1.0f;
+    // the candidates' cell coordinates, as stage_scores_kernel's
+    cy = (pose0[3 * p + 1] + dys[static_cast<size_t>(p) * ny + iy] -
+          origin_y) * inv_res - c_off;
+#pragma unroll
+    for (int i = 0; i < kCw; ++i)
+      cx[i] = (pose0[3 * p] +
+               dxs[static_cast<size_t>(p) * nx + min(ix0 + i, nx - 1)] -
+               origin_x) * inv_res - c_off;
+  }
+};
+
+// The pair's rotated endpoints in cells into s_xy, used beams only, in
+// order; returns their count.
+__device__ __forceinline__ int stage_endpoints(
+    float2* s_xy, int lane, int p, int q, int per_b, int B,
+    const float* __restrict__ px, const float* __restrict__ py,
+    const unsigned char* __restrict__ use, const float* __restrict__ pose0,
+    const float* __restrict__ dts, float inv_res) {
+  float sn, cs;
+  sincosf(pose0[3 * p + 2] + dts[q], &sn, &cs);
+  const size_t row = static_cast<size_t>(p / per_b) * B;
+  int used = 0;
+  // written as stage_scores_kernel writes it: ptxas then fuses the same
+  // products into FMAs, and the endpoints (so the scores) keep its bits
+  for (int b0 = 0; b0 < B; b0 += 32) {
+    const int b = b0 + lane;
+    const bool on = b < B && use[row + b];
+    const unsigned m = __ballot_sync(0xffffffffu, on);
+    if (on) {
+      const float x = px[row + b], y = py[row + b];
+      s_xy[used + __popc(m & ((1u << lane) - 1u))] = make_float2(
+          (x * cs - y * sn) * inv_res, (x * sn + y * cs) * inv_res);
+    }
+    used += __popc(m);
+  }
+  __syncwarp();
+  return used;
+}
+
+// One beam's samples into acc from the staged box `cells` (row pitch
+// `pitch`), which starts at global column ax, row ay and holds every tap of
+// the candidates; `last_x`, `last_y` are its largest base offsets (the
+// clamp only keeps a NaN coordinate inside it).  The arithmetic is
+// stage_scores_kernel's; kAllOwned where the tile owns every beam (n_m = 1).
+template <bool kNearest, int kCw, bool kAllOwned>
+__device__ __forceinline__ void add_beam(float* acc, const Item<kNearest, kCw>& it,
+                                         float2 e, const float* cells,
+                                         int pitch, int ax, int ay,
+                                         unsigned last_x, unsigned last_y,
+                                         const Tile& tile) {
+  const float fy = e.y + it.cy;
+  const float ry = fy + kMagic;
+  const float ty = fy - (ry - kMagic) + 0.5f;
+  const float* prow =
+      cells +
+      min(static_cast<unsigned>(__float_as_int(ry) - kMagicBits - ay),
+          last_y) * pitch;
+#pragma unroll
+  for (int j = 0; j < kCw; ++j) {
+    const float fx = e.x + it.cx[j];
+    const float rx = fx + kMagic;
+    const int x0 = __float_as_int(rx) - kMagicBits;  // global
+    // one tile owns every beam: v + 0 is v, so the test can go
+    const bool own = kAllOwned || (x0 >= tile.lo && x0 < tile.hi);
+    const int dx = min(static_cast<unsigned>(x0 - ax), last_x);
+    float v;
+    if (kNearest) {
+      v = prow[dx];
+    } else {
+      const float tx = fx - (rx - kMagic) + 0.5f;
+      const float v00 = prow[dx], v10 = prow[dx + 1];
+      const float v01 = prow[dx + pitch], v11 = prow[dx + pitch + 1];
+      const float a0 = v00 + tx * (v10 - v00);
+      const float a1 = v01 + tx * (v11 - v01);
+      v = a0 + ty * (a1 - a0);
+    }
+    acc[j] += own ? v : 0.f;
+  }
+}
+
+// add_beam with the taps read from the tile's field f (local column =
+// global less tile.shift), v_outside off it.
+template <bool kNearest, int kCw>
+__device__ __forceinline__ void add_beam_field(
+    float* acc, const Item<kNearest, kCw>& it, float2 e,
+    const float* __restrict__ f, int H, int W, float v_outside,
+    const Tile& tile) {
+  const float fy = e.y + it.cy;
+  const float ry = fy + kMagic;
+  const float ty = fy - (ry - kMagic) + 0.5f;
+  const int y0 = __float_as_int(ry) - kMagicBits;
+#pragma unroll
+  for (int j = 0; j < kCw; ++j) {
+    const float fx = e.x + it.cx[j];
+    const float rx = fx + kMagic;
+    const int x0 = __float_as_int(rx) - kMagicBits;  // global
+    const bool own = x0 >= tile.lo && x0 < tile.hi;
+    const int x = x0 - tile.shift;
+    float v;
+    if (kNearest) {
+      v = field_cell(f, x, y0, H, W, v_outside);
+    } else {
+      const float tx = fx - (rx - kMagic) + 0.5f;
+      const float v00 = field_cell(f, x, y0, H, W, v_outside);
+      const float v10 = field_cell(f, x + 1, y0, H, W, v_outside);
+      const float v01 = field_cell(f, x, y0 + 1, H, W, v_outside);
+      const float v11 = field_cell(f, x + 1, y0 + 1, H, W, v_outside);
+      const float a0 = v00 + tx * (v10 - v00);
+      const float a1 = v01 + tx * (v11 - v01);
+      v = a0 + ty * (a1 - a0);
+    }
+    acc[j] += own ? v : 0.f;
+  }
+}
+
+template <bool kNearest, int kCw>
+__global__ void __launch_bounds__(kStagedThreads, kStagedBlocks)
+    stage_scores_tile_kernel(
+    const float* __restrict__ field, const float* __restrict__ px,
+    const float* __restrict__ py, const unsigned char* __restrict__ use,
+    const float* __restrict__ pose0, const float* __restrict__ dxs,
+    const float* __restrict__ dys, const float* __restrict__ dts,
+    float* __restrict__ out, int per_f, int per_b, int H, int W, int B,
+    int nt, int ny, int nx, long long items, float inv_res, float origin_x,
+    float origin_y, float v_outside, Staged sg, Tile tile, int* paths) {
+  extern __shared__ float4 smem4[];
+  // the block's base cells: x smallest, largest; y smallest, largest
+  __shared__ int s_box[4];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  float* const region = reinterpret_cast<float*>(smem4);
+  float2* const s_xy =
+      reinterpret_cast<float2*>(region + sg.region) + warp * sg.ep_stride;
+  // a contiguous run of the items, a warp every `warps`
+  const long long i0 = blockIdx.x * items / gridDim.x;
+  const long long i1 = (blockIdx.x + 1) * items / gridDim.x;
+
+  if (threadIdx.x == 0) {
+    s_box[0] = s_box[2] = INT_MAX;
+    s_box[1] = s_box[3] = INT_MIN;
+  }
+  __syncthreads();
+  // pass 1, the box: every candidate's base cell of each beam lies between
+  // those at the warp's smallest and largest coordinates.  The endpoints
+  // of the warp's last item stay staged for pass 2, which takes the items
+  // in the other order.
+  int kept = -1;
+  for (long long item = i0 + warp; item < i1; item += warps) {
+    const Item<kNearest, kCw> it(item, lane, sg, pose0, dxs, dys, nt, ny, nx,
+                                 inv_res, origin_x, origin_y);
+    const int used = stage_endpoints(s_xy, lane, it.p, it.q, per_b, B, px,
+                                     py, use, pose0, dts, inv_res);
+    kept = used;
+    // the warp's smallest and largest candidate coordinates
+    float lo = it.cx[0], hi = it.cx[0];
+#pragma unroll
+    for (int i = 1; i < kCw; ++i) {
+      lo = fminf(lo, it.cx[i]);
+      hi = fmaxf(hi, it.cx[i]);
+    }
+    const float xlo = warp_min(lo), xhi = warp_max(hi);
+    const float ylo = warp_min(it.cy), yhi = warp_max(it.cy);
+    int lo_x = INT_MAX, hi_x = INT_MIN, lo_y = INT_MAX, hi_y = INT_MIN;
+    for (int b = lane; b < used; b += 32) {
+      const float2 e = s_xy[b];
+      lo_x = min(lo_x, base_cell(e.x + xlo));
+      hi_x = max(hi_x, base_cell(e.x + xhi));
+      lo_y = min(lo_y, base_cell(e.y + ylo));
+      hi_y = max(hi_y, base_cell(e.y + yhi));
+    }
+    lo_x = __reduce_min_sync(0xffffffffu, lo_x);
+    hi_x = __reduce_max_sync(0xffffffffu, hi_x);
+    lo_y = __reduce_min_sync(0xffffffffu, lo_y);
+    hi_y = __reduce_max_sync(0xffffffffu, hi_y);
+    if (lane == 0 && used > 0) {
+      atomicMin(&s_box[0], lo_x);
+      atomicMax(&s_box[1], hi_x);
+      atomicMin(&s_box[2], lo_y);
+      atomicMax(&s_box[3], hi_y);
+    }
+  }
+  __syncthreads();
+  // the box: those base cells and the next column and row (bilinear)
+  const bool any_used = s_box[0] <= s_box[1];
+  const int bx = s_box[0], by = s_box[2];
+  const long long bw = static_cast<long long>(s_box[1]) - bx + 2;
+  const long long bh = static_cast<long long>(s_box[3]) - by + 2;
+  // a row pitch of 9 mod 32 floats: the coarse stage's 27 lanes (9 rows
+  // of 3 runs 3 cells apart) and the fine stage's read 27 and 9 banks
+  const long long pitch = bw + (41 - bw % 32) % 32;
+  // staged from one field only (G_f = 1)
+  const bool one_field =
+      static_cast<long long>(per_f) * nt * sg.unit_warps == items;
+  const bool boxed = one_field && any_used && bw <= sg.region &&
+                     bh <= sg.region && bh * pitch <= sg.region;
+  if (boxed) {
+    const int wb = static_cast<int>(bw), p_ = static_cast<int>(pitch);
+    const int x_first = bx - tile.shift;
+    const bool cols_in = x_first >= 0 && x_first + wb <= W;
+    for (int r = warp; r < bh; r += warps) {
+      float* dst = region + static_cast<size_t>(r) * p_;
+      const int y = by + r;
+      const float* src = field + static_cast<size_t>(y) * W + x_first;
+      if (cols_in && static_cast<unsigned>(y) < static_cast<unsigned>(H)) {
+        for (int c = lane; c < wb; c += 32) cp_async4(dst + c, src + c);
+      } else {
+        for (int c = lane; c < wb; c += 32) {
+          const int x = x_first + c;
+          if (static_cast<unsigned>(x) < static_cast<unsigned>(W) &&
+              static_cast<unsigned>(y) < static_cast<unsigned>(H))
+            cp_async4(dst + c, src + c);
+          else
+            dst[c] = v_outside;
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+  }
+  if (paths && threadIdx.x == 0 && any_used)
+    atomicAdd(&paths[boxed ? 0 : 1], 1);
+  __syncthreads();
+
+  const bool all_owned = tile.lo == INT_MIN && tile.hi == INT_MAX;
+  const long long first = i0 + warp;
+  const long long n_mine = first < i1 ? (i1 - 1 - first) / warps + 1 : 0;
+  for (long long k = n_mine - 1; k >= 0; --k) {
+    const long long item = first + k * warps;
+    const Item<kNearest, kCw> it(item, lane, sg, pose0, dxs, dys, nt, ny, nx,
+                                 inv_res, origin_x, origin_y);
+    // the first is pass 1's last: its endpoints are staged
+    const int used = k == n_mine - 1 && kept >= 0
+                         ? kept
+                         : stage_endpoints(s_xy, lane, it.p, it.q, per_b, B,
+                                           px, py, use, pose0, dts, inv_res);
+    float acc[kCw];
+#pragma unroll
+    for (int j = 0; j < kCw; ++j) acc[j] = 0.f;
+    // the adds stay in beam order, one sum a candidate
+    if (boxed) {
+      const int p_ = static_cast<int>(pitch);
+      const unsigned lx = static_cast<unsigned>(bw - 2),
+                     ly = static_cast<unsigned>(bh - 2);
+      if (all_owned) {
+#pragma unroll 2
+        for (int b = 0; b < used; ++b)
+          add_beam<kNearest, kCw, true>(acc, it, s_xy[b], region, p_, bx, by,
+                                        lx, ly, tile);
+      } else {
+#pragma unroll 2
+        for (int b = 0; b < used; ++b)
+          add_beam<kNearest, kCw, false>(acc, it, s_xy[b], region, p_, bx,
+                                         by, lx, ly, tile);
+      }
+    } else {
+      const float* f = field + static_cast<size_t>(it.p / per_f) * H * W;
+#pragma unroll 2
+      for (int b = 0; b < used; ++b)
+        add_beam_field<kNearest, kCw>(acc, it, s_xy[b], f, H, W, v_outside,
+                                      tile);
+    }
+    if (it.active) {
+      float* o = out + (static_cast<size_t>(it.q) * ny + it.iy) * nx + it.ix0;
+#pragma unroll
+      for (int i = 0; i < kCw; ++i)
+        if (it.ix0 + i < nx) o[i] = acc[i];
+    }
+    __syncwarp();
+  }
+}
+
+using StagedKernel = void (*)(const float*, const float*, const float*,
+                              const unsigned char*, const float*,
+                              const float*, const float*, const float*,
+                              float*, int, int, int, int, int, int, int, int,
+                              long long, float, float, float, float, Staged,
+                              Tile, int*);
+
+template <bool kNearest>
+StagedKernel staged_kernel_for_run(int run) {
+  switch (run) {
+    case 1: return stage_scores_tile_kernel<kNearest, 1>;
+    case 2: return stage_scores_tile_kernel<kNearest, 2>;
+    case 3: return stage_scores_tile_kernel<kNearest, 3>;
+    case 4: return stage_scores_tile_kernel<kNearest, 4>;
+    default: return stage_scores_tile_kernel<kNearest, 5>;
+  }
 }
 
 }  // namespace
@@ -397,18 +799,20 @@ extern "C" int gs_stage_scores(const float* field, const float* px,
                 Tile{0, 0, 0}, stream);
 }
 
-// The tile variant: field is (G_f, H, W) with W = w_loc + 2 ext, the column
-// tile [c0, c0 + w_loc) of a map n_m * w_loc cells wide extended by ext
-// columns each side; everything else as gs_stage_scores.  Returns the
-// tile's partial scores: beams whose base column the tile owns.
+// The tile variant on a tile small enough to stage (the shared variant):
+// field is (G_f, H, W) with W = w_loc + 2 ext, the column tile [c0, c0 +
+// w_loc) of a map n_m * w_loc cells wide extended by ext columns each side;
+// everything else as gs_stage_scores with shared = 1.  Returns the tile's
+// partial scores: beams whose base column the tile owns.  A larger tile is
+// gs_stage_scores_tile_staged's.
 extern "C" int gs_stage_scores_tile(
     const float* field, const float* px, const float* py,
     const unsigned char* use, const float* pose0, const float* dxs,
     const float* dys, const float* dts, float* out, int P, int G_f, int G_b,
     int H, int W, int B, int nt, int ny, int nx, float res, float origin_x,
     float origin_y, float v_outside, int nearest, int c0, int w_loc, int n_m,
-    int ext, int shared, int pitch, int k, int run, int splits, int threads,
-    int smem, void* stream) {
+    int ext, int pitch, int k, int run, int splits, int threads, int smem,
+    void* stream) {
   if (w_loc <= 0 || n_m <= 0 || ext < 1 || c0 < 0 || c0 % w_loc ||
       c0 / w_loc >= n_m || W != w_loc + 2 * ext)
     return cudaErrorInvalidValue;
@@ -417,8 +821,66 @@ extern "C" int gs_stage_scores_tile(
                   j == n_m - 1 ? INT_MAX : c0 + w_loc};
   return launch(field, px, py, use, pose0, dxs, dys, dts, out, P, G_f, G_b, H,
                 W, B, nt, ny, nx, res, origin_x, origin_y, v_outside, nearest,
-                shared, pitch, k, run, splits, threads, smem, true, tile,
-                stream);
+                1, pitch, k, run, splits, threads, smem, true, tile, stream);
+}
+
+// The tile variant on a tile too large to stage: arguments as
+// gs_stage_scores_tile up to `ext`, then the launch plan (ops/cuda/matcher.
+// tile_launch_plan): run (dx candidates a lane, 1 to 5), warps a block,
+// grid (blocks, each a contiguous run of the work items), smem; and paths,
+// null or two ints to which each block with used beams adds one: [blocks
+// that staged their box, blocks that read the field].  A plan that does not
+// fit the shapes is refused with cudaErrorInvalidValue.
+extern "C" int gs_stage_scores_tile_staged(
+    const float* field, const float* px, const float* py,
+    const unsigned char* use, const float* pose0, const float* dxs,
+    const float* dys, const float* dts, float* out, int P, int G_f, int G_b,
+    int H, int W, int B, int nt, int ny, int nx, float res, float origin_x,
+    float origin_y, float v_outside, int nearest, int c0, int w_loc, int n_m,
+    int ext, int run, int warps, int grid, int smem, int* paths,
+    void* stream) {
+  if (w_loc <= 0 || n_m <= 0 || ext < 1 || c0 < 0 || c0 % w_loc ||
+      c0 / w_loc >= n_m || W != w_loc + 2 * ext)
+    return cudaErrorInvalidValue;
+  if (P == 0 || nt == 0 || ny == 0 || nx == 0) return cudaSuccess;
+  if (G_f <= 0 || G_b <= 0 || P % G_f || P % G_b || B < 0 || H <= 0 ||
+      W <= 0 || H >= (1 << 22) || W >= (1 << 22))
+    return cudaErrorInvalidValue;
+  const long long n_max = nt > ny ? (nt > nx ? nt : nx) : (ny > nx ? ny : nx);
+  if (static_cast<long long>(P) * n_max > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (run < 1 || run > kMaxRun || warps < 1 || warps * 32 > kStagedThreads ||
+      grid < 1 || smem < 0)
+    return cudaErrorInvalidValue;
+  const int units = ny * ((nx + run - 1) / run);
+  const int unit_warps = (units + 31) / 32;
+  const long long items = static_cast<long long>(P) * nt * unit_warps;
+  const long long region =
+      (smem / 4 - static_cast<long long>(warps) * (B | 1) * 2) / 4 * 4;
+  if (grid > items || region < 0) return cudaErrorInvalidValue;
+  const Staged sg{units, unit_warps, B | 1, static_cast<int>(region)};
+  const int j = c0 / w_loc;
+  const Tile tile{c0 - ext, j == 0 ? INT_MIN : c0,
+                  j == n_m - 1 ? INT_MAX : c0 + w_loc};
+  const StagedKernel kernel = nearest ? staged_kernel_for_run<true>(run)
+                                      : staged_kernel_for_run<false>(run);
+  constexpr int kDevices = 64;
+  static int opted_in[kDevices][2][kMaxRun];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kDevices)
+    return cudaErrorInvalidDevice;
+  int& limit = opted_in[dev][nearest ? 1 : 0][run - 1];
+  if (smem > kDefaultSmem && smem > limit) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limit = smem;
+  }
+  kernel<<<grid, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      field, px, py, use, pose0, dxs, dys, dts, out, P / G_f, P / G_b, H, W,
+      B, nt, ny, nx, items, 1.0f / res, origin_x, origin_y, v_outside, sg,
+      tile, paths);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The current device's SM count, the shared memory one block may opt in

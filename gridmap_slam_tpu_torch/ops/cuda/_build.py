@@ -60,10 +60,17 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I,
                         _I, _I, _I, _I, _P],
     # gs_stage_scores's arguments up to `nearest`, then the tile: c0,
-    # w_loc, n_m, ext; then the launch plan and the stream as there
+    # w_loc, n_m, ext; then the shared variant's plan (pitch, pairs a tile,
+    # run, splits, threads, smem) and the stream
     "gs_stage_scores_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # gs_stage_scores_tile's arguments up to `ext`, then the plan (run,
+    # warps, grid, smem), the path counts (or null); stream
+    "gs_stage_scores_tile_staged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                    _F, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _P, _P],
     # fpad, e, mass, out, scratch, Hp, Wp, K, nt, shift, then the launch
     # plan: runs, ksteps, pitch_w, smem, scratch words; stream, &launched
     "gs_surface_corr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,

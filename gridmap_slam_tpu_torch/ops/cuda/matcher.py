@@ -26,7 +26,12 @@ tile of a map split over ranks (parallel/tiled.py, parallel/sharded.py),
 whose sum over the tiles is `stage_scores_batch` on the whole map.  Its
 plain version, `stage_scores_tile_plain`, is the JAX package's XLA
 function gridmap_slam_tpu/parallel/tiled.py::_stage_scores_tiled in
-PyTorch.  Its launches are counted in `tile_launches`.
+PyTorch.  Its launches are counted in `tile_launches`.  `tile_launch_plan`
+chooses its kernel from the shapes alone: launch_plan's shared variant
+where the extended tile fits a block, else stage_scores_tile_kernel (a
+block an SM over a run of the (particle, heading) pairs, a warp a pair),
+which stages the box the block's taps reach where it fits and else reads
+the taps from the field.
 """
 
 from __future__ import annotations
@@ -58,6 +63,14 @@ SMEM_SM_MARGIN = 8 * 1024
 # field cell.
 UNIT_COST, SAMPLE_COST, STAGE_COST = 8, 21, 4
 H100 = dict(sm_count=132, smem_block=232_448, smem_sm=233_472)
+# The tile variant's kernel for tiles too large to stage: warps a block,
+# blocks an SM (the kernel's launch bound), and lanes a warp
+STAGED_WARPS = 24
+STAGED_BLOCKS = 1
+WARP = 32
+# Shared memory the card keeps back a block (1 KB), and the kernel's own
+# static array, short of what a block's plan may take
+BLOCK_RESERVED = 1024 + 64
 
 
 class K1Plan(NamedTuple):
@@ -167,6 +180,58 @@ def launch_plan(p: int, g_f: int, h: int, w: int, b: int, nt: int, ny: int,
     _, threads, smem, splits = costs[k, run]
     return K1Plan(variant, pitch, k, run, splits, groups, ppg, threads,
                   smem)
+
+
+class TilePlan(NamedTuple):
+    """How the tile variant runs on a tile too large to stage (csrc/
+    matcher.cu, stage_scores_tile_kernel): a work item is a (particle,
+    heading) pair's units, `unit_warps` items a pair of more than 32
+    units; a lane works a unit of `run` dx candidates of one dy.  Each of
+    `grid` blocks takes a contiguous run of the items, a warp every
+    `warps`, and stages the box their taps reach where it fits the
+    box_floats its warps' endpoints leave, else reads the taps from the
+    field."""
+    variant: str           # "staged"
+    run: int
+    unit_warps: int
+    warps: int
+    grid: int
+    threads: int
+    smem_bytes: int        # dynamic shared memory a block
+    box_floats: int        # the largest box a block stages (pitch x rows)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_launch_plan(p: int, g_f: int, h: int, w: int, b: int, nt: int,
+                     ny: int, nx: int, *,
+                     sm_count: int = H100["sm_count"],
+                     smem_block: int = H100["smem_block"],
+                     smem_sm: int = H100["smem_sm"]):
+    """The launch of K1's tile variant on (G_f, H, W) extended tiles:
+    launch_plan's plan where that is the shared variant (the tile and its
+    ring staged in a block), else a TilePlan.  A lane takes the fewest dx
+    candidates (`run`) that keep a pair's units within one warp.
+    STAGED_BLOCKS blocks an SM share its shared memory (less what the card
+    keeps back); a block has STAGED_WARPS warps, fewer where their staged
+    endpoints (B | 1 float2 slots a warp) would take more than half of
+    it, and what the endpoints leave holds the box.  The grid is
+    STAGED_BLOCKS blocks an SM (no more than the items), each a run of
+    the pairs."""
+    plan = launch_plan(p, g_f, h, w, b, nt, ny, nx, sm_count=sm_count,
+                       smem_block=smem_block, smem_sm=smem_sm)
+    if plan.variant == "shared":
+        return plan
+    run = next((r for r in range(1, MAX_RUN + 1)
+                if ny * -(-nx // r) <= WARP), MAX_RUN)
+    unit_warps = -(-(ny * -(-nx // run)) // WARP)
+    smem = min(smem_block - 64,
+               smem_sm // STAGED_BLOCKS - BLOCK_RESERVED) // 16 * 16
+    ep_floats = (b | 1) * 2                # a warp's staged endpoints
+    warps = max(1, min(STAGED_WARPS, smem // 2 // (ep_floats * 4)))
+    grid = max(1, min(p * nt * unit_warps, STAGED_BLOCKS * sm_count))
+    box = (smem // 4 - warps * ep_floats) // 4 * 4
+    return TilePlan("staged", run, unit_warps, warps, grid, WARP * warps,
+                    smem, box)
 
 
 @functools.lru_cache(maxsize=None)
@@ -324,6 +389,31 @@ def _owned(x0, c0: int, w_loc: int, n_m: int):
                        n_m - 1) == j
 
 
+def _tile_coords(px, py, use, pose0, dxs, dys, dts, *, resolution: float,
+                 origin, nearest: bool):
+    """The tile variant's cell coordinates in the kernel's order (1/res
+    times the rotated endpoint, plus 1/res times the candidate's offset
+    from the origin less a half cell, or a cell for bilinear): the
+    endpoints sx, sy (P, nt, B), the candidates' cx (P, nx) and cy (P, ny),
+    and `use` as (P, 1, 1, 1, B) or (B,)."""
+    p = pose0.shape[0]
+    if px.dim() == 2:              # one scan a group: (P, 1, B) rows
+        px, py, use = (per_particle(a, p)[:, None] for a in (px, py, use))
+        use = use[:, :, None, None, :]
+    f32 = torch.float32
+    inv_res = (torch.tensor(1.0, dtype=f32)
+               / torch.tensor(resolution, dtype=f32)).to(pose0.device)
+    c_off = 0.5 if nearest else 1.0
+    theta = pose0[:, 2, None] + dts                           # (P, nt)
+    c = torch.cos(theta)[:, :, None]
+    s = torch.sin(theta)[:, :, None]
+    sx = (px * c - py * s) * inv_res                          # (P, nt, B)
+    sy = (px * s + py * c) * inv_res
+    cx = (pose0[:, 0, None] + dxs - origin[0]) * inv_res - c_off   # (P, nx)
+    cy = (pose0[:, 1, None] + dys - origin[1]) * inv_res - c_off   # (P, ny)
+    return sx, sy, cx, cy, use
+
+
 def stage_scores_tile_plain(field, px, py, use, pose0, dxs, dys, dts, *,
                             resolution: float, origin, max_range: float,
                             c0: int, w_loc: int, n_m: int, ext: int = 1,
@@ -338,31 +428,16 @@ def stage_scores_tile_plain(field, px, py, use, pose0, dxs, dys, dts, *,
     column the tile owns (`_owned`) add to the sum, with their taps read at
     that column less c0 - ext.
 
-    The cell coordinates follow the kernel's arithmetic (1/res times the
-    rotated endpoint plus 1/res times the candidate's offset from the
-    origin, rounded to the nearest cell), where the JAX function divides
-    the world coordinate less the origin by res: 4000 cells from the
-    origin (the city map) a float32 coordinate is good to 2.4e-4 of a
-    cell, and the two orders then part by more than K1's tolerance.  The
-    interpolation is the kernel's two lerps.  Returns (P, nt, ny, nx)."""
+    The cell coordinates follow the kernel's arithmetic (_tile_coords),
+    rounded to the nearest cell, where the JAX function divides the world
+    coordinate less the origin by res: 4000 cells from the origin (the city
+    map) a float32 coordinate is good to 2.4e-4 of a cell, and the two
+    orders then part by more than K1's tolerance.  The interpolation is the
+    kernel's two lerps.  Returns (P, nt, ny, nx)."""
     ll_outside = math.log(1.0 / max_range)
-    p = pose0.shape[0]
-    if px.dim() == 2:              # one scan a group: (P, 1, B) rows
-        px, py, use = (per_particle(a, p)[:, None] for a in (px, py, use))
-        use = use[:, :, None, None, :]
-    # cell coordinates in the kernel's order: the rotated endpoint and the
-    # candidate's offset from the origin each times 1/res, then summed
-    f32 = torch.float32
-    inv_res = (torch.tensor(1.0, dtype=f32)
-               / torch.tensor(resolution, dtype=f32)).to(pose0.device)
-    c_off = 0.5 if nearest else 1.0
-    theta = pose0[:, 2, None] + dts                           # (P, nt)
-    c = torch.cos(theta)[:, :, None]
-    s = torch.sin(theta)[:, :, None]
-    sx = (px * c - py * s) * inv_res                          # (P, nt, B)
-    sy = (px * s + py * c) * inv_res
-    cx = (pose0[:, 0, None] + dxs - origin[0]) * inv_res - c_off   # (P, nx)
-    cy = (pose0[:, 1, None] + dys - origin[1]) * inv_res - c_off   # (P, ny)
+    sx, sy, cx, cy, use = _tile_coords(px, py, use, pose0, dxs, dys, dts,
+                                       resolution=resolution, origin=origin,
+                                       nearest=nearest)
     fx = sx[:, :, None, :] + cx[:, None, :, None]             # (P, nt, nx, B)
     fy = sy[:, :, None, :] + cy[:, None, :, None]             # (P, nt, ny, B)
     # rounded to the nearest cell: the nearest cell's index, or (bilinear,
@@ -397,10 +472,13 @@ def _check_tile(fn, field, c0, w_loc, n_m, ext):
 def stage_scores_tile_cuda(field, px, py, use, pose0, dxs, dys, dts, *,
                            resolution: float, origin, max_range: float,
                            c0: int, w_loc: int, n_m: int, ext: int = 1,
-                           nearest: bool = False):
+                           nearest: bool = False, paths=None):
     """The tile variant of the kernel; arguments as stage_scores_batch_cuda
     with the field (G_f, H, w_loc + 2 ext) and the tile c0, w_loc, n_m,
-    ext.  The launch plan is launch_plan's at the extended tile's shape."""
+    ext.  The launch plan is tile_launch_plan's at the extended tile's
+    shape.  `paths`, where given, is two int32 counts on the field's
+    device to which the staged kernel adds each block that had used beams:
+    [blocks that staged their box, blocks that read the field]."""
     global tile_launches
     fn = "stage_scores_tile_cuda"
     if field.dim() != 3 or px.dim() not in (1, 2) or pose0.dim() != 2 \
@@ -424,23 +502,32 @@ def stage_scores_tile_cuda(field, px, py, use, pose0, dxs, dys, dts, *,
     check_tensor(fn, "dxs", dxs, (p, nx), dev)
     check_tensor(fn, "dys", dys, (p, ny), dev)
     check_tensor(fn, "dts", dts, (p, nt), dev)
+    if paths is not None:
+        check_tensor(fn, "paths", paths, (2,), dev, dtype=torch.int32)
     if b > _MAX_BEAMS or p * max(nt, ny, nx) >= 2 ** 31:
         raise ValueError(f"{fn}: at most {_MAX_BEAMS} beams and 2^31 "
                          f"offsets a call; got {b}, {p * max(nt, ny, nx)}")
+    plan = tile_launch_plan(p, g_f, h, w, b, nt, ny, nx,
+                            **device_limits(dev.index))
     out = torch.empty((p, nt, ny, nx), dtype=torch.float32, device=dev)
-    plan = launch_plan(p, g_f, h, w, b, nt, ny, nx,
-                       **device_limits(dev.index))
     lib = _build.library()
-    code = lib.gs_stage_scores_tile(
-        field.data_ptr(), px.data_ptr(), py.data_ptr(), use.data_ptr(),
-        pose0.data_ptr(), dxs.data_ptr(), dys.data_ptr(), dts.data_ptr(),
-        out.data_ptr(), p, g_f, g_b, h, w, b, nt, ny, nx, resolution,
-        origin[0], origin[1], math.log(1.0 / max_range), int(nearest), c0,
-        w_loc, n_m, ext, int(plan.variant == "shared"), plan.pitch,
-        plan.pairs_per_tile, plan.run, plan.splits, plan.threads,
-        plan.smem_bytes, stream_handle(dev))
+    args = (field.data_ptr(), px.data_ptr(), py.data_ptr(), use.data_ptr(),
+            pose0.data_ptr(), dxs.data_ptr(), dys.data_ptr(),
+            dts.data_ptr(), out.data_ptr(), p, g_f, g_b, h, w, b, nt, ny, nx,
+            resolution, origin[0], origin[1], math.log(1.0 / max_range),
+            int(nearest), c0, w_loc, n_m, ext)
+    if plan.variant == "staged":
+        name = "gs_stage_scores_tile_staged"
+        code = lib.gs_stage_scores_tile_staged(
+            *args, plan.run, plan.warps, plan.grid, plan.smem_bytes,
+            0 if paths is None else paths.data_ptr(), stream_handle(dev))
+    else:
+        name = "gs_stage_scores_tile"
+        code = lib.gs_stage_scores_tile(
+            *args, plan.pitch, plan.pairs_per_tile, plan.run, plan.splits,
+            plan.threads, plan.smem_bytes, stream_handle(dev))
     tile_launches += 1
-    _build.check("gs_stage_scores_tile", code)
+    _build.check(name, code)
     return out
 
 
