@@ -169,7 +169,15 @@ Phases, each printed on its own line:
    bit, and beside each other the scans/s and the host's launches a scan
    (torch.profiler, the median over the scans), and the kernels a scan
    inside the graph against the eager step's launches; the live app's
-   host launches a frame on both steps.
+   host launches a frame on both steps;
+20. bench — the benchmark (python -m gridmap_slam_tpu_torch.bench) in
+   this process through its own entry point: both of its cells, parity
+   and mega_surface, at 3 timed replays; its exit code 0, its last line
+   parsed with "correct": true and every share of a kernel's bound at most
+   1; then each cell's control (--control: a kernel reading its input in
+   bf16) must fail the benchmark's check of each kernel call against its
+   plain version.  The kernels' bounds everywhere in this script are the
+   benchmark's (gridmap_slam_tpu_torch/bench/kernels/).
 
 Each path (parity, mega, city, mega_blocked, multi at each particle count,
 the posegraph flow's three parts: the filter, closure detection, the
@@ -177,7 +185,8 @@ rebuild; chip; the captured phase's eleven, captured_<path>, counted over
 the call that warms up and captures; the parallel phase's five: shmap,
 shmap_surface, tiled, surface_sharded, sharded; the cli phase's eight: cli_replay,
 cli_load_map, cli_surface, cli_tiled, cli_surface_sharded, cli_posegraph,
-cli_recovery, cli_live) is run with every launch count set
+cli_recovery, cli_live; the bench phase's run, bench) is run with every
+launch count set
 to 0 just before it and read just after.  In phase 11 and on the paths of phases 15-18 the first
 run also records the arguments of the first kernel call of every call
 shape (CallRecorder), and a path_kernels line holds each kernel against
@@ -208,6 +217,18 @@ import time
 
 import numpy as np
 import torch
+
+# Each kernel call's bound (the larger of its operations over the H100's
+# peak for their type and its bytes over the HBM rate), counted from the
+# call's own inputs, as the benchmark counts it
+from gridmap_slam_tpu_torch.bench.bounds import BF16_TC_FLOPS
+from gridmap_slam_tpu_torch.bench.bounds import \
+    particle_slice as _particle_slice
+from gridmap_slam_tpu_torch.bench.kernels.k1 import k1_bound
+from gridmap_slam_tpu_torch.bench.kernels.k1t import k1t_bound, k1t_cells
+from gridmap_slam_tpu_torch.bench.kernels.k2 import k2_bound, k2w_bound
+from gridmap_slam_tpu_torch.bench.kernels.k3 import k3_bound
+from gridmap_slam_tpu_torch.bench.kernels.k4 import k4_bound
 
 K1_RTOL, K1_ATOL = 2e-5, 2e-4     # tests/test_pallas_matcher.py
 K1_NEAREST_MAX_FRAC = 1e-3         # nearest-cell rounding ties, see below
@@ -252,14 +273,6 @@ FRONTEND_NODES = {"verify": {"stage_scores": 10, "integrate_scan": 2,
                               "log_likelihood_field": 0, "surface_corr": 0,
                               "stage_scores_tile": 0}}
 CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
-# The H100 SXM's published peaks (NVIDIA's data sheet, 700 W): FP32
-# outside the tensor cores and HBM3.  A kernel's bound is the larger of its
-# operations over the first and its bytes (each input read once, each
-# output written once) over the second.
-FP32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
-# K4 runs on the tensor cores: its operations go against the dense bf16
-# peak (NVIDIA's data sheet), not the FP32 units'.
-BF16_TC_FLOPS = 989e12
 # K4 against its plain version: the direct correlation's float32 bound
 # (tests/test_torch_surface_corr.py); its shapes beside a mega_bf16 and a
 # city_bf16 step's: (nt, K, Hc, Wc, images) with nt and K no multiples of 8
@@ -271,14 +284,6 @@ K4_SHAPES = ((1, 7, 10, 13, "random"), (5, 51, 17, 29, "random"),
              (7, 25, 40, 31, "random"), (16, 64, 128, 128, "random"),
              (9, 101, 37, 45, "splat"))
 K4_SPLAT_BEAMS = 60
-# Float operations (an FMA counted as two) a K1 sample: bilinear: 2
-# coordinate adds, 2 floors, 2 fraction subtractions, 3 lerps (a
-# subtraction and an FMA each), the add into the sum; nearest: 2 adds, 2
-# roundings, the add.
-K1_FLOPS = {False: 16, True: 5}
-# A K2 cell: range (5) and bearing (about 15, an atan2) from the pose, the
-# bin (3) and the footprint and return tests (about 7).
-K2_FLOPS_CELL = 30
 ODD_SHAPE = (37, 118, 123)         # a width that is no multiple of 4
 # the parallel phase: shmap at 1M particles over the first 6 scans; tiled
 # on the city map at the chip rung's 10 000 particles in chunks of 500;
@@ -403,119 +408,6 @@ def build_phase() -> None:
                              f"spills: {k1t}")
 
 
-def _bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
-    """(bound ms, "operations" or "bytes") of work on the H100, its
-    operations at `peak` operations a second."""
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def _nbytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors
-               if torch.is_tensor(t))
-
-
-def k1_bound(args, kw):
-    """K1's bound on these arguments: the samples this scan's used beams
-    need (every candidate of particle p samples each used beam of its scan
-    row once), and the inputs and the (P, nt, ny, nx) output."""
-    field, px, py, use, pose0, dxs, dys, dts = args
-    p = pose0.shape[0]
-    cands = dts.shape[1] * dys.shape[1] * dxs.shape[1]
-    rows = use.reshape(-1, use.shape[-1])
-    samples = float(rows.sum()) * (p // rows.shape[0]) * cands
-    return _bound(samples * K1_FLOPS[bool(kw.get("nearest"))],
-                  _nbytes(args) + p * cands * 4)
-
-
-def k1t_cells(args, kw, block=64) -> int:
-    """The distinct cells of K1t's field that a call's taps read: the plain
-    version's tap indices (its coordinates, ownership and bounds), counted
-    once each; a tap off the field (v_outside) and a beam the tile does
-    not own read none.  Particles go in blocks of `block` (a mark a cell)."""
-    from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
-    field, px, py, use, pose0, dxs, dys, dts = args
-    g, h, w = field.shape
-    p = pose0.shape[0]
-    nearest = bool(kw.get("nearest"))
-    shift = kw["c0"] - kw["ext"]
-    seen = torch.zeros(g * h * w, dtype=torch.bool, device=field.device)
-    per_g = p // g
-    for a in range(0, p, block):
-        n = min(block, p - a)
-        sub = _particle_slice("K1t", args, a, n)
-        sx, sy, cx, cy, u = kmatch._tile_coords(
-            *sub[1:], resolution=kw["resolution"], origin=kw["origin"],
-            nearest=nearest)
-        fx = sx[:, :, None, :] + cx[:, None, :, None]         # (n, nt, nx, B)
-        fy = sy[:, :, None, :] + cy[:, None, :, None]         # (n, nt, ny, B)
-        x0 = torch.round(fx).to(torch.int64)
-        y0 = torch.round(fy).to(torch.int64)
-        mine = kmatch._owned(x0, kw["c0"], kw["w_loc"], kw["n_m"])
-        xl = (x0 - shift)[:, :, None]                         # (n,nt,1,nx,B)
-        y0 = y0[:, :, :, None]                                # (n,nt,ny,1,B)
-        keep = (u if u.dim() == 5 else u.expand(n, 1, 1, 1, -1)) \
-            & mine[:, :, None]
-        grp = (torch.arange(a, a + n, device=field.device) // per_g
-               )[:, None, None, None, None]
-        for dx, dy in ((0, 0),) if nearest else (
-                (0, 0), (1, 0), (0, 1), (1, 1)):
-            x, y = xl + dx, y0 + dy
-            on = keep & (x >= 0) & (x < w) & (y >= 0) & (y < h)
-            idx = (grp * h + y.clamp(0, h - 1)) * w + x.clamp(0, w - 1)
-            seen[torch.broadcast_to(idx, on.shape)[on]] = True
-    return int(seen.sum())
-
-
-def k1t_bound(args, kw):
-    """K1t's bound: the operations as k1_bound counts them (the used beams'
-    samples), and the bytes of the field's cells its taps read
-    (k1t_cells), of the other inputs and of the output.  A tile too large
-    to stage is never read whole: counting it whole would put the bound
-    above what any design needs."""
-    field, px, py, use, pose0, dxs, dys, dts = args
-    p = pose0.shape[0]
-    cands = dts.shape[1] * dys.shape[1] * dxs.shape[1]
-    rows = use.reshape(-1, use.shape[-1])
-    samples = float(rows.sum()) * (p // rows.shape[0]) * cands
-    return _bound(samples * K1_FLOPS[bool(kw.get("nearest"))],
-                  k1t_cells(args, kw) * 4 + _nbytes(args[1:])
-                  + p * cands * 4)
-
-
-def k2_bound(args, kw):
-    """K2's bound: K2_FLOPS_CELL a cell; the map read and written once,
-    the poses and tables read once."""
-    lo = args[0]
-    return _bound(K2_FLOPS_CELL * lo.numel(), _nbytes(args) + _nbytes([lo]))
-
-
-def k2w_bound(args, kw):
-    """K2's window variant's bound: K2_FLOPS_CELL a window cell; the map
-    read and the new map written once (the call returns a whole map),
-    the pose, its window's place and the tables read once."""
-    lo = args[0]
-    hw, ww = kw["size"]
-    return _bound(K2_FLOPS_CELL * hw * ww, _nbytes(args) + _nbytes([lo]))
-
-
-def k4_bound(args, kw=None):
-    """K4's bound on these arguments: a multiply and an add for each
-    product of a nonzero (bf16-rounded) tap with a crop cell, 2 nnz Hc Wc
-    summed over the bins (a zero tap's products add nothing), over the
-    dense bf16 tensor-core peak; the field, the endpoint images and the
-    masses read once and the volume written once."""
-    from gridmap_slam_tpu_torch.ops.cuda.surface_corr import round_bf16
-    fpad, e_stack, _, mass = args
-    nt, k = e_stack.shape[0], e_stack.shape[1]
-    hc, wc = fpad.shape[0] - k + 1, fpad.shape[1] - k + 1
-    nnz = int((round_bf16(e_stack) != 0).sum())
-    return _bound(2.0 * nnz * hc * wc,
-                  _nbytes([fpad, e_stack, mass]) + nt * hc * wc * 4,
-                  BF16_TC_FLOPS)
-
-
 def k4_dense_ms(args) -> float:
     """For context, not a bound: the nt K^2 Hc Wc products of the dense
     correlation (zero taps included) at the dense bf16 tensor-core peak."""
@@ -523,25 +415,6 @@ def k4_dense_ms(args) -> float:
     nt, k = e_stack.shape[0], e_stack.shape[1]
     hc, wc = fpad.shape[0] - k + 1, fpad.shape[1] - k + 1
     return 2.0 * nt * k * k * hc * wc / BF16_TC_FLOPS * 1e3
-
-
-def _taps_inside(n: int, r: int) -> int:
-    """The taps of a (2r + 1)-tap blur along an axis of n cells that fall
-    inside it, summed over its cells (a tap outside adds zero)."""
-    return sum(min(i + r, n - 1) - max(i - r, 0) + 1 for i in range(n))
-
-
-def k3_bound(args, kw=None):
-    """K3's bound: one blurred plane (the evidence mask is a window OR on
-    bits, counted as nothing), two passes of an FMA for each tap that falls
-    inside the map (4 (2r + 1) operations a cell away from the edges), and
-    4 for the threshold and the log epilogue (a log counted as one); the
-    map read and the field written once."""
-    lo, taps = args
-    p, h, w = lo.shape
-    r = (taps.numel() - 1) // 2
-    fmas = p * (h * _taps_inside(w, r) + w * _taps_inside(h, r))
-    return _bound(2 * fmas + 4 * lo.numel(), _nbytes(args) + _nbytes([lo]))
 
 
 def k3_plan(args) -> dict:
@@ -1691,42 +1564,6 @@ class CallRecorder:
                                    _clone(kw)))
             return real(*args, **kw)
         return call
-
-
-def _group_rows(t, p, a, n):
-    """The rows of a per-group tensor t (G, ...) that particles [a, a + n)
-    of p read, as a tensor those n particles read the same way."""
-    g = t.shape[0]
-    per = p // g
-    if g == 1:
-        return t
-    if per == 1:
-        return t[a:a + n]
-    if a // per == (a + n - 1) // per:
-        return t[a // per:a // per + 1]
-    if a % per == 0 and n % per == 0:
-        return t[a // per:(a + n) // per]
-    raise ValueError(f"particles [{a}, {a + n}) cut a group of {per}")
-
-
-def _particle_slice(kernel, args, a, n):
-    """A kernel call's arguments for its particles [a, a + n) alone (each
-    particle's output depends on its own rows only)."""
-    if kernel in ("K1", "K1t"):
-        field, px, py, use, pose0, dxs, dys, dts = args
-        p = pose0.shape[0]
-        scan = [x if x.dim() == 1 else _group_rows(x, p, a, n)
-                for x in (px, py, use)]
-        return (_group_rows(field, p, a, n), *scan,
-                *(x[a:a + n] for x in (pose0, dxs, dys, dts)))
-    if kernel == "K2":
-        lo, poses, keep, *tables = args
-        p = lo.shape[0]
-        return (lo[a:a + n], poses[a:a + n], keep,
-                *(t if t.dim() == 1 else _group_rows(t, p, a, n)
-                  for t in tables))
-    lo, taps = args
-    return (lo[a:a + n], taps)
 
 
 def check_recorded(rec: CallRecorder, launches_by_path) -> list:
@@ -4164,6 +4001,52 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
     return launches
 
 
+def _bench_run(argv):
+    """The benchmark's entry point in this process: (exit code, its last
+    line, its cell records), its output printed."""
+    import io
+
+    from gridmap_slam_tpu_torch.bench import run as bench_run
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_run.main(argv)
+    lines = out.getvalue().splitlines()
+    print("\n".join(lines), flush=True)
+    return (rc, json.loads(lines[-1]),
+            [json.loads(ln) for ln in lines if ln.startswith('{"cell"')])
+
+
+def bench_phase():
+    """The benchmark (gridmap_slam_tpu_torch/bench) through its own entry
+    point in this process: every cell at 3 timed replays.  Fails unless
+    it exits 0, its last line parses with `"correct": true` and no share of
+    a bound reads over 1; then each cell's control (--control) must fail
+    its reference comparison.  Returns the launches of the first run."""
+    kernels = _zero_launches()
+    rc, last, cells = _bench_run(["--reps", "3", "--min-seconds", "0"])
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    shares = {c["cell"]: {k: v for k, v in (c.get("per_layer") or {}).items()
+                          if k.startswith("share_of_bound")} for c in cells}
+    say("bench", rc=rc, correct=last["correct"], cells=sorted(last["cells"]),
+        shares_of_bound=shares, launches=launches)
+    if rc != 0 or last["correct"] is not True or len(cells) != 2:
+        raise AssertionError(f"bench: rc {rc}, last line {last}")
+    if not all(shares.values()) or any(
+            v > 1.0 for sh in shares.values() for v in sh.values()):
+        raise AssertionError(f"bench: a share of a bound missing or over 1: "
+                             f"{shares}")
+    rc, last, controls = _bench_run(["--control", "--reps", "3",
+                                     "--min-seconds", "0"])
+    agree = {c["cell"]: {k: v["share"] for k, v in c["agreement"].items()}
+             for c in controls}
+    say("bench_control", rc=rc, correct=last["correct"],
+        share_beyond_tolerance=agree)
+    if rc == 0 or len(controls) != 2 or any(
+            c["correct"] or c["kernels_agree"] for c in controls):
+        raise AssertionError(f"bench: a control passed: {agree}")
+    return launches
+
+
 def main() -> int:
     name = device_phase()
     build_phase()
@@ -4204,6 +4087,7 @@ def main() -> int:
     rows.append(tile_row)
     rows.append(k4_row)
     by_path.update(cli_phase(cfg, frames, room_loop, pg_first))
+    by_path["bench"] = bench_phase()
     for row in rows:
         row["max_abs_err"] = max(row["max_abs_err"],
                                  PATH_MAX_ERR[row["name"]])

@@ -342,13 +342,37 @@ def graph_node_types(graph_handle: int) -> dict:
     return counts
 
 
-def graph_kernel_names(graph_handle: int) -> list:
-    """The (mangled) function name of every kernel node of a cudaGraph_t,
-    in the CUDA driver's node order, read through its API.  A node
-    holds a CUfunction or, for a kernel the runtime loaded as a CUkernel,
-    that; each has its name call."""
+def graph_chain(graph_handle: int) -> Optional[list]:
+    """The nodes of a cudaGraph_t in the order they run, where they form
+    one chain (each node at most one edge in and one out, as a capture of
+    one stream gives); None where they do not."""
     cu = ctypes.CDLL("libcuda.so.1")
-    names = []
+    graph = ctypes.c_void_p(graph_handle)
+    nodes = [node for node, _ in _graph_nodes(cu, graph_handle)]
+    count = ctypes.c_size_t(0)
+    _cu(cu, "cuGraphGetEdges", graph, None, None, ctypes.byref(count))
+    src = (ctypes.c_void_p * count.value)()
+    dst = (ctypes.c_void_p * count.value)()
+    _cu(cu, "cuGraphGetEdges", graph, src, dst, ctypes.byref(count))
+    after = dict(zip(src, dst))
+    if len(after) != count.value or len(set(dst)) != count.value:
+        return None
+    heads = [node for node in nodes if node not in set(dst)]
+    if len(heads) != 1:
+        return None
+    order = [heads[0]]
+    while order[-1] in after:
+        order.append(after[order[-1]])
+    return order if len(order) == len(nodes) else None
+
+
+def graph_kernel_nodes(graph_handle: int) -> list:
+    """(node, mangled function name) of every kernel node of a cudaGraph_t,
+    in the CUDA driver's node order, read through its API.  A node holds a
+    CUfunction or, for a kernel the runtime loaded as a CUkernel, that;
+    each has its name call."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    out = []
     for node, kind in _graph_nodes(cu, graph_handle):
         if kind != 0:                       # CU_GRAPH_NODE_TYPE_KERNEL
             continue
@@ -362,8 +386,14 @@ def graph_kernel_names(graph_handle: int) -> list:
         else:
             _cu(cu, "cuKernelGetName", ctypes.byref(name),
                 ctypes.c_void_p(params.kern))
-        names.append(name.value.decode())
-    return names
+        out.append((node, name.value.decode()))
+    return out
+
+
+def graph_kernel_names(graph_handle: int) -> list:
+    """The (mangled) function name of every kernel node of a cudaGraph_t,
+    in the CUDA driver's node order (graph_kernel_nodes)."""
+    return [name for _, name in graph_kernel_nodes(graph_handle)]
 
 
 def replay_fn(captured: Captured):

@@ -1,0 +1,474 @@
+"""The port's benchmark entry point (gridmap_slam_tpu_torch/bench) on the CPU.
+
+Its cells run through `main` at a tiny size (plain versions of the
+kernels); its checks fail the run, its control among them; it refuses the
+card where there is none; it imports no JAX; its log and presets are
+bench.py's (the JAX package's benchmark); its cell, preset, span and kernel
+files are whole; K1's bound counts the field cells the taps read; a
+profiled replay's records split into its graph launches; each kernel call
+is held against its plain version.
+"""
+
+import ast
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import bench
+import gridmap_slam_tpu
+import gridmap_slam_tpu.models.shared as jshared
+from gridmap_slam_tpu_torch.bench import bounds, cells, layers, run
+from gridmap_slam_tpu_torch.bench import kernels as K
+from gridmap_slam_tpu_torch.bench.kernels import k1
+from gridmap_slam_tpu_torch.models.shared import matcher_block_size
+from gridmap_slam_tpu_torch.ops.cuda import grid_update
+from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
+
+torch.set_num_threads(2)
+
+TINY = ["--device", "cpu", "--scans", "4", "--reps", "2",
+        "--min-seconds", "0"]
+
+
+def _run(capsys, argv):
+    rc = run.main(argv)
+    lines = capsys.readouterr().out.splitlines()
+    return rc, lines, json.loads(lines[-1])
+
+
+CELLS = cells.load_cells()
+
+
+@pytest.mark.parametrize("cell,particles", [
+    ("parity", 16), ("mega_surface", 256), (None, 16)])
+def test_cells_run_through_the_entry_point(capsys, cell, particles):
+    argv = TINY + ["--particles", str(particles)]
+    if cell:
+        argv += ["--cell", cell]
+    rc, lines, last = _run(capsys, argv)
+    want = [cell] if cell else sorted(CELLS)
+    assert rc == 0, lines
+    assert len(lines[-1].encode()) < 2048
+    assert last["correct"] is True and last["control"] is False
+    assert last["unit"] == "scans/s" and last["metric"] == "scans_per_sec"
+    assert last["value"] == last["cells"][last["cell"]]["scans_per_sec"] > 0
+    assert list(last["cells"]) == want
+    assert set(last["units"]) >= set(cells.END_TO_END)
+    for name in want:
+        got = last["cells"][name]
+        assert got["correct"] is True
+        assert got["ate_m"] < CELLS[name].limits["ate_m"]
+        assert got["kernels_agree"] is True
+        assert set(got) >= set(cells.END_TO_END)
+        # every metric by name with its unit, or as not measured on the CPU
+        for metric, (unit, _) in cells.END_TO_END.items():
+            assert any(ln.startswith(f"{name} {metric} ")
+                       and (ln.endswith("(cpu)") or f" {unit}" in ln)
+                       for ln in lines), metric
+        for metric in CELLS[name].per_layer:
+            assert f"{name} {metric} not measured" in lines
+        rec = next(json.loads(ln) for ln in lines
+                   if ln.startswith(f'{{"cell":"{name}"'))
+        sps = rec["scans_per_sec"]
+        assert sps["count"] == 2
+        assert sps["value"] == pytest.approx(rec["scans"] * 2
+                                             / sps["seconds"])
+        assert sps["q1"] <= sps["median"] <= sps["q3"]
+        assert set(rec["bounds"]) == set(cells.END_TO_END)
+        assert rec["repeat_bits_equal"] and rec["finite"]
+        assert rec["peak_device_gb"] is None and rec["per_layer"] is None
+        # on the CPU every kernel is its plain version: no error at all
+        want_kernels = {"parity": {"K1", "K2", "K3"},
+                        "mega_surface": {"K2", "K3"}}[name]
+        assert set(rec["agreement"]) == want_kernels
+        for row in rec["agreement"].values():
+            assert row == dict(calls=row["calls"], share=0.0,
+                               max_abs_err=0.0, ok=True) and row["calls"] > 0
+
+
+def _nan_init(init):
+    def bad(*args, **kw):
+        state = init(*args, **kw)
+        state.poses = torch.full_like(state.poses, float("nan"))
+        return state
+    return bad
+
+
+def _with_limits(monkeypatch, **limits):
+    cell = CELLS["parity"]
+    monkeypatch.setattr(cells, "load_cells", lambda: {
+        "parity": dataclasses.replace(cell, limits={**cell.limits,
+                                                    **limits})})
+
+
+@pytest.mark.parametrize("fault", ["ate", "finite", "bits", "control"])
+def test_a_failed_check_fails_the_run(capsys, monkeypatch, fault):
+    argv = TINY + ["--particles", "16", "--scans", "2", "--cell", "parity"]
+    if fault == "ate":
+        _with_limits(monkeypatch, ate_m=1e-9)
+    elif fault == "finite":
+        from gridmap_slam_tpu_torch.models.rbpf import RBPF
+        monkeypatch.setattr(RBPF, "init", _nan_init(RBPF.init))
+    elif fault == "bits":   # the repeated replay draws from another seed
+        seeds = iter(range(10 ** 6))
+        monkeypatch.setattr(run, "rep_seed", lambda seed, rep: next(seeds))
+    else:   # K1 reads its field in bf16: off its plain version
+        argv += ["--control"]
+    rc, lines, last = _run(capsys, argv)
+    assert rc != 0
+    assert last["correct"] is False and last["cells"]["parity"]["correct"] \
+        is False
+    rec = next(json.loads(ln) for ln in lines if ln.startswith('{"cell"'))
+    assert {"ate": rec["ate_m"]["max"] > rec["limits"]["ate_m"],
+            "finite": not rec["finite"],
+            "bits": not rec["repeat_bits_equal"],
+            "control": rec["control"] and not rec["kernels_agree"]
+            and not rec["agreement"]["K1"]["ok"]
+            and rec["agreement"]["K2"]["ok"]}[fault]
+
+
+def test_mega_surface_s_control_fails_the_run(capsys):
+    """K2 reads the map in bf16: the agreement check fails it."""
+    rc, lines, last = _run(capsys, TINY + [
+        "--particles", "64", "--scans", "2", "--cell", "mega_surface",
+        "--control"])
+    rec = next(json.loads(ln) for ln in lines if ln.startswith('{"cell"'))
+    assert rc != 0 and last["correct"] is False
+    assert not rec["agreement"]["K2"]["ok"] and rec["agreement"]["K3"]["ok"]
+    assert rec["agreement"]["K2"]["share"] > 0.01
+
+
+def test_cuda_without_a_card_exits_nonzero(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card")
+    assert run.main(["--device", "cuda"]) != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_the_entry_point_imports_no_jax():
+    code = ("import sys, runpy\n"
+            "sys.argv = ['bench'] + sys.argv[1:]\n"
+            "try:\n"
+            "    runpy.run_module('gridmap_slam_tpu_torch.bench',"
+            " run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+            " ('jax', 'jaxlib', 'flax', 'orbax', 'gridmap_slam_tpu'))\n"
+            "print('RC', rc, 'IMPORTED', bad)\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code, *TINY, "--particles", "8", "--scans",
+         "2", "--cell", "parity"], capture_output=True, text=True,
+        timeout=300, check=True).stdout
+    assert out.splitlines()[-1] == "RC 0 IMPORTED []", out
+
+
+def test_no_port_module_and_not_chip_smoke_imports_jax():
+    """Every import statement of the port's package and of chip_smoke.py,
+    read from the source (a module imported only inside a function too)."""
+    root = Path(__file__).resolve().parents[1]
+    files = [root / "chip_smoke.py",
+             *sorted((root / "gridmap_slam_tpu_torch").rglob("*.py"))]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{path.relative_to(root)}:{node.lineno} {n}"
+                    for n in names if n.split(".")[0] in
+                    ("jax", "jaxlib", "flax", "orbax", "gridmap_slam_tpu")]
+    assert len(files) > 60 and not bad, bad
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_build_log_is_bench_py_s(seed):
+    jf, jgt = bench.build_log(12, 180, seed)
+    tf, tgt = cells.build_log(12, 180, seed)
+    np.testing.assert_array_equal(jgt, tgt)
+    assert len(jf) == len(tf) == 12
+    for a, b in zip(jf, tf):
+        assert (a.t, a.d_center, a.d_theta) == (b.t, b.d_center, b.d_theta)
+        for f in ("angle", "dist", "hit"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+class _Stop(Exception):
+    pass
+
+
+def _bench_preset(monkeypatch, name):
+    """What bench.py's `measure` gives the JAX engine for --preset name:
+    (timing function, its keyword arguments, frames, the engine's
+    config), stopped where the engine is made."""
+    seen = {}
+
+    def engine(cfg):
+        seen["config"] = cfg
+        raise _Stop
+
+    def spy(fn_name):
+        real = getattr(bench, fn_name)
+
+        def call(frames, n_particles, chunk, **kw):
+            seen.update(fn=fn_name, frames=len(frames), kw=kw)
+            return real(frames, n_particles, chunk, **kw)
+        return call
+
+    monkeypatch.setattr(bench, "build_log",
+                        lambda n, beams, seed=0: ([None] * n, None))
+    monkeypatch.setattr(gridmap_slam_tpu, "RBPF", engine)
+    monkeypatch.setattr(jshared, "SharedMapSLAM", engine)
+    for fn in ("time_engine", "time_engine_marginal", "time_engine_blocked"):
+        monkeypatch.setattr(bench, fn, spy(fn))
+    with pytest.raises(_Stop):
+        bench.measure(bench.build_parser().parse_args(
+            ["--preset", name, "--skip-oracle"]))
+    return seen
+
+
+# bench.py's engine mode -> the preset's engine class and captured replay
+ENGINES = {"rbpf": ("rbpf.RBPF", "replay_jit"),
+           "surface": ("shared.SharedMapSLAM", "replay_surface_jit"),
+           "shared": ("shared.SharedMapSLAM", "replay_jit")}
+
+
+@pytest.mark.parametrize("name", ["parity", "mega", "city", "chip",
+                                  "mega_blocked"])
+def test_presets_are_bench_py_s(monkeypatch, name):
+    seen = _bench_preset(monkeypatch, name)
+    preset = cells.load_presets()[name]
+    assert (dataclasses.asdict(seen["config"])
+            == dataclasses.asdict(preset.config))
+    mode = seen["kw"].get("mode", "shared")
+    eng = preset.engine
+    assert (eng["class"], eng["captured"][0]) == ENGINES[mode]
+    assert eng["eager"][0] == eng["captured"][0][:-len("_jit")]
+    if seen["fn"] == "time_engine_blocked":
+        # bench.py's block 0: the block from the config, matcher_block_size
+        assert seen["kw"]["block"] == 0
+        block = matcher_block_size(preset.config)
+        assert block == 500_000
+        assert eng["captured"][1] == eng["eager"][1] == {"block": block}
+    else:
+        assert eng["captured"][1] == eng["eager"][1] == {}
+    # every preset replays the whole 12-scan log: bench.py cuts mega's and
+    # city's to 4 scans, a workaround of its TPU's dispatch (bench.py:630)
+    assert seen["frames"] == (4 if name in ("mega", "city") else 12)
+    assert bench.build_parser().parse_args([]).frames == 12
+
+
+@pytest.mark.parametrize("name", sorted(CELLS))
+def test_cell_files_are_whole(name):
+    """Each cell names a preset, its ATE limit, a bound for every end-to-end
+    metric, a control, and per-layer metrics whose parts exist."""
+    cell = CELLS[name]
+    presets, kernels, spans = (cells.load_presets(), K.load(),
+                               cells.load_spans())
+    assert cell.preset in presets and cell.chips == 1
+    assert set(cell.limits) == {"ate_m"}
+    assert set(cell.bounds) == set(cells.END_TO_END)
+    assert all(b >= 0.03 for b in cell.bounds.values())
+    assert set(cell.control) == {"round_bf16"}
+    assert set(cell.control["round_bf16"]) <= set(kernels)
+    for metric in cell.per_layer:
+        kind, _, part = metric.partition(".")
+        assert kind in ("device_ms_a_scan", "share_of_bound",
+                        "host_launches_a_scan", "device_busy_share"), metric
+        if kind == "device_ms_a_scan":
+            assert part in kernels or part in spans or part == "glue"
+        if kind == "share_of_bound":
+            assert part in kernels
+    assert cell.log == {"scans": 12, "beams": 180}
+
+
+def test_kernels_are_told_apart_by_name():
+    """Each kernel's functions, mangled (graph nodes) and demangled (the
+    profiler), and K1's tiled instantiations apart from K1."""
+    kernels = K.load()
+    names = {
+        "_ZN12_GLOBAL__N_119stage_scores_kernelILb1ELb0ELi1ELb0EEEvPKf": "K1",
+        "void (anonymous namespace)::stage_scores_kernel<true, false, 3, "
+        "false>(float const*)": "K1",
+        "_ZN12_GLOBAL__N_119stage_scores_kernelILb1ELb1ELi2ELb1EEEvPKf":
+            "K1t",
+        "void (anonymous namespace)::stage_scores_kernel<false, true, 1, "
+        "true>(float const*)": "K1t",
+        "_ZN12_GLOBAL__N_124stage_scores_tile_kernelILb0ELi1EEEvv": "K1t",
+        "void (anonymous namespace)::grid_update_kernel<true, false>()": "K2",
+        "void (anonymous namespace)::ll_field_small(Args)": "K3",
+        "ll_field_generic": "K3",
+        "surface_corr_prep(CorrArgs)": "K4",
+        "surface_corr_kernel(CorrArgs)": "K4",
+        "void at::native::elementwise_kernel<128, 2>": None,
+    }
+    for name, want in names.items():
+        assert K.kernel_of(kernels, name) == want, name
+
+
+def test_agreement_holds_each_call_against_the_plain_version():
+    """Agreement wraps an entry point: the plain version runs first on the
+    same arguments (K2 updates its map in place through `out=`), then the
+    entry point; a kernel beyond its tolerance is marked."""
+    rng = np.random.default_rng(0)
+    lo = torch.from_numpy(rng.normal(size=(3, 9, 11)).astype(np.float32))
+    poses = torch.tensor([[0.0, 0.0, 0.1], [0.05, -0.02, 1.0],
+                          [-0.1, 0.1, -2.0]])
+    n_bins = 16
+    tables = (torch.full((n_bins,), 0.2), torch.zeros(n_bins),
+              torch.ones(n_bins))
+    kw = dict(resolution=0.05, origin=(-0.275, -0.225), l_free=-0.4,
+              l_occ=0.85)
+    want = grid_update.integrate_scan_batch_plain(lo, poses, 1.0, *tables,
+                                                  **kw)
+    kernels = K.load()
+
+    def off(lo, *args, out=None, **kw):      # a kernel off by 1e-4
+        res = grid_update.integrate_scan_batch_plain(lo, *args, **kw) + 1e-4
+        return res if out is None else out.copy_(res)
+
+    for real, ok in ((grid_update.integrate_scan_batch_plain, True),
+                     (off, False)):
+        agreement = K.Agreement(kernels)
+        call = agreement.wrap("K2", kernels["K2"].entries[0], real)
+        buf = lo.clone()
+        got = call(buf, poses, 1.0, *tables, out=buf, **kw)
+        if ok:
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        row = agreement.rows["K2"]
+        assert row["calls"] == 1 and row["ok"] is ok
+        assert row["share"] == (0.0 if ok else 1.0)
+
+
+FUNCTIONS = {"K2": "grid_update_kernel", "K3": "ll_field_small"}
+
+
+class _Range:
+    def __init__(self, start, us):
+        self.start = start
+        self.us = us
+
+    def elapsed_us(self):
+        return self.us
+
+
+def _events(pattern, n):
+    """A profiled replay's events: a fill and n times (two draws, then a
+    graph launch whose kernels and one copy node run), as the profiler
+    gives them: the host's cudaGraphLaunch and the device records of its
+    launch share its correlation id."""
+    host, dev, t = [], [], 0
+    for i in range(n):
+        for name in (["fill"] if i == 0 else []) + ["randn", "rand"]:
+            t += 1
+            dev.append(SimpleNamespace(id=10 * i + 1, name=name,
+                                       time_range=_Range(t, 1.0)))
+        launch = 1000 + i
+        host.append(SimpleNamespace(id=launch, name="cudaGraphLaunch",
+                                    time_range=_Range(t, 5.0)))
+        names = [FUNCTIONS.get(g, f"k{j}") for j, g in enumerate(pattern)]
+        for name in names[:2] + ["memcpy32_post"] + names[2:]:
+            t += 1
+            dev.append(SimpleNamespace(id=launch, name=name,
+                                       time_range=_Range(t, float(t))))
+    return dev, host
+
+
+def test_launches_by_id_split_a_replay_s_records():
+    """Each launch's kernel records, grouped by its correlation id, its copy
+    node's record left out; a launch of which a record was dropped is not
+    whole."""
+    pattern = [None, "K2", None, None, "K3", None]
+    kernels = K.load()
+    dev, host = _events(pattern, n=5)
+    dev.remove(next(e for e in dev if e.id == 1001 and e.name == "k3"))
+    runs = layers.launches_by_id(dev, host, kernels)
+    assert [len(run) for run in runs] == [6, 5, 6, 6, 6]
+    whole = layers.whole_launches(runs, pattern)
+    assert len(whole) == 4 and whole[0] is runs[0] and whole[1] is runs[2]
+    assert all([r[0] for r in run] == ["k0", "grid_update_kernel", "k2",
+                                       "k3", "ll_field_small", "k5"]
+               for run in whole)
+
+
+def _k1_args(g_f, p, nearest, seed):
+    rng = np.random.default_rng(seed)
+    h, w, b = 23, 31, 17
+    field = torch.from_numpy(rng.normal(size=(g_f, h, w)).astype(np.float32))
+    ang = rng.uniform(-np.pi, np.pi, b)
+    rng_m = rng.uniform(0.1, 1.2, b)
+    px = torch.from_numpy((rng_m * np.cos(ang)).astype(np.float32))
+    py = torch.from_numpy((rng_m * np.sin(ang)).astype(np.float32))
+    use = torch.from_numpy(rng.random(b) < 0.8)
+    pose0 = torch.from_numpy(np.stack(
+        [rng.uniform(-0.6, 0.6, p), rng.uniform(-0.6, 0.6, p),
+         rng.uniform(-3, 3, p)], 1).astype(np.float32))
+    offs = [torch.from_numpy(rng.uniform(-0.1, 0.1, (p, k)).astype(
+        np.float32)) for k in (3, 4, 2)]
+    kw = dict(resolution=0.05, origin=(-0.775, -0.575), max_range=10.0,
+              nearest=nearest)
+    return (field, px, py, use, pose0, *offs), kw
+
+
+def _cells_by_loop(args, kw):
+    """The field cells the plain version's taps read, one tap at a time."""
+    field, px, py, use, pose0, dxs, dys, dts = (a.double().numpy()
+                                                if a.is_floating_point()
+                                                else a.numpy() for a in args)
+    g, h, w = field.shape
+    p = pose0.shape[0]
+    res, (ox, oy) = kw["resolution"], kw["origin"]
+    seen = set()
+    for i in range(p):
+        for t in dts[i]:
+            th = pose0[i, 2] + t
+            for bx, by, u in zip(px, py, use):
+                if not u:
+                    continue
+                rx = bx * np.cos(th) - by * np.sin(th)
+                ry = bx * np.sin(th) + by * np.cos(th)
+                for dx in dxs[i]:
+                    for dy in dys[i]:
+                        fx = (rx + pose0[i, 0] + dx - ox) / res - 0.5
+                        fy = (ry + pose0[i, 1] + dy - oy) / res - 0.5
+                        if kw["nearest"]:
+                            taps = [(round(fx), round(fy))]
+                        else:
+                            x0, y0 = int(np.floor(fx)), int(np.floor(fy))
+                            taps = [(x0, y0), (x0 + 1, y0), (x0, y0 + 1),
+                                    (x0 + 1, y0 + 1)]
+                        for x, y in taps:
+                            if 0 <= x < w and 0 <= y < h:
+                                seen.add((i // (p // g), y, x))
+    return len(seen)
+
+
+@pytest.mark.parametrize("g_f,nearest", [(6, False), (1, True)])
+def test_k1_bound_counts_the_cells_its_taps_read(monkeypatch, g_f, nearest):
+    args, kw = _k1_args(g_f, 6, nearest, seed=3)
+    monkeypatch.setattr(k1, "K1_BLOCK_TAPS", 2000)   # several blocks
+    cells_read = k1.k1_cells(args, kw)
+    # float64 coordinates may round a tap on a cell edge the other way
+    assert abs(cells_read - _cells_by_loop(args, kw)) <= 2
+    assert 0 < cells_read < args[0].numel()
+    ms, by = k1.k1_bound(args, kw)
+    others = bounds.nbytes(args[1:]) + 6 * 3 * 4 * 2 * 4
+    assert ms == pytest.approx(max(
+        k1.k1_samples(args, kw) / bounds.FP32_FLOPS,
+        (cells_read * 4 + others) / bounds.HBM_BYTES_PER_S) * 1e3)
+    # past the budget the whole field counts
+    monkeypatch.setattr(k1, "K1_TAP_BUDGET", 10)
+    assert k1.k1_cells(args, kw) is None
+    whole, _ = k1.k1_bound(args, kw)
+    assert whole >= ms
+    assert kmatch.stage_scores_batch(*args, **kw).shape == (6, 2, 4, 3)
