@@ -104,26 +104,33 @@ Phases, each printed on its own line:
    graphs of 1000 and 3000 keyframes, with its peak memory;
 18. chip — bench.py's chip preset: RBPF at 10 000 particles in chunks of
    500 over the 12-scan log; ATE and scans/s;
-18a. captured — the single-program replays (models/captured.py: one step
-   captured once as a CUDA graph, replayed once a scan): RBPF.replay_jit
-   at the parity preset (and step_jit scan by scan) and at chip's 10 000
-   particles, SharedMapSLAM.replay_surface_jit at mega (the 12-scan log
-   and the 40 scans of room_loop_40.rec), at mega with two refine steps,
-   at mega_bf16 (K4 a scan) and mega_direct (the float32 direct
-   correlation), at city and city_bf16 (K4 a scan),
+18a. captured — the single-program replays (models/captured.py: the whole
+   log captured once as one CUDA graph, the scans' draws inside it, one
+   graph launch a replay call): RBPF.replay_jit
+   at the parity preset (and step_jit scan by scan, one graph a scan) and
+   at chip's 10 000 particles, SharedMapSLAM.replay_surface_jit at mega
+   (the 12-scan log and the 40 scans of room_loop_40.rec), at mega with
+   two refine steps, at mega_bf16 (K4 a scan) and mega_direct (the float32
+   direct correlation), at city and city_bf16 (K4 a scan),
    SharedMapSLAM.replay_jit(block=500 000) at
    mega_blocked over 6 scans, MultiRobotSLAM.replay_jit at 10 000 a
    robot; each against its eager loop from one seed in this process:
    every field of the final state and of every stacked info equal in
-   bits, two captured runs equal,
+   bits, and the generator's next draw after the call equal, two captured
+   runs equal, one graph launch in a replay call (torch.profiler),
    ATE under the path's limit, no synchronizing call and no kernel launched
    from Python in a warm replay (the launch counts move only while the
-   first call warms up and captures), the kernels a scan inside the graph
-   as torch.profiler sees them equal to the eager counts (where it sees
-   them), and beside each other the eager and captured scans/s (CUDA
-   events around a warm run, host loop included), device time a run,
-   launches from the host a scan (kernels, copies, sets, graph launches)
-   and peak memory;
+   first call warms up and captures), the graph's kernel nodes n times the
+   eager launches a scan of each of the repo's kernels and a graph of one
+   scan's nodes n times over (the same replay's graph of a log of one
+   scan, captured beside it, whose infos equal the eager first scan's),
+   the kernels a scan as torch.profiler sees them within the graph's
+   (where it sees them), and beside each other the eager and captured
+   scans/s (CUDA events around a warm run, host loop included), device
+   time a run, launches from the host a scan (kernels, copies, sets,
+   graph launches) and peak memory, and for the log's graph and the
+   one-scan graph their nodes, capture-and-instantiation seconds and peak
+   memory;
 18b. parallel — the distributed engines (gridmap_slam_tpu_torch/parallel/):
    K1's tile variant against its plain version at tiles cut from a
    4000 x 4000 city field (2 and 4 tiles: both edge tiles and one inside;
@@ -139,7 +146,10 @@ Phases, each printed on its own line:
    `city` (against step_surface: poses 2e-3, map 1e-3, Neff rtol 1e-3),
    the sharded RBPF at the parity preset (against RBPF.step, bit for
    bit), each twice with one seed (the same bits), with its launches a
-   scan, a warm step under the sync check, its peak memory and scans/s;
+   scan, a warm step under the sync check, its peak memory and scans/s,
+   and its compiled replay of the whole log (MeshStep.replay_jit: one
+   graph launch, the compiled step's graph n times over, the eager bits
+   and the generator's next draw);
    and the distributed Gauss-Newton on grand_tour_216's graph and the
    1000 / 3000-keyframe synthetic graphs (against posegraph.optimize:
    chi2 rtol 1e-3, nodes atol 1e-3, chi2 falling), ms an iteration;
@@ -2641,8 +2651,9 @@ CAPTURED_BLOCKED_SCANS = 6     # mega_blocked's captured path, for time
 def _profiled(run, n: int):
     """run() once under torch.profiler: returns (its result, the device
     time of the run in ms, the host's launches a scan (kernels, copies,
-    sets and graph launches), device events a scan and each kernel row's
-    launches a scan as the profiler saw them, inside a graph too)."""
+    sets and graph launches) and its graph launches in the run, device
+    events a scan and each kernel row's launches a scan as the profiler saw
+    them, inside a graph too)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2666,6 +2677,8 @@ def _profiled(run, n: int):
     return out, dict(
         device_ms=sum(e.time_range.elapsed_us() for e in dev) / 1e3,
         launches_per_scan=sum(e.name in LAUNCH_CALLS for e in events) / n,
+        graph_launches=sum(e.name.startswith("cudaGraphLaunch")
+                           for e in events),
         device_events_per_scan=len(dev) / n,
         kernels_per_scan={row: sum(r == row for r in rows) / n
                           for row in GRAPH_ROWS},
@@ -2681,24 +2694,44 @@ def _fields_differing(a, b) -> list:
                     and torch.equal(getattr(a, f.name), getattr(b, f.name)))]
 
 
+def _one_scan_periods(names, one, n: int) -> bool:
+    """Whether a graph's kernel names are a one-scan graph's with its scan
+    n times over: the nodes before the scan (the counter's reset) once,
+    then the scan's nodes n times."""
+    if n == 1:
+        return names == one
+    per = (len(names) - len(one)) // (n - 1)
+    head = len(one) - per
+    return (0 <= head and len(names) == head + n * per
+            and names == one[:head] + one[head:] * n)
+
+
 def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                   step_jit=None):
     """One path eager and captured from one seed: the eager loop (its
     launch counts, peak memory, a warm run's time, a profiled run), then
-    the captured replay: its first call (warm-up and capture: the launch
-    counts), a warm call under the sync check that must launch no kernel
-    from Python, a timed call and a profiled call.  Both captured runs
-    must equal the eager one in every field of the final state and of
-    every stacked info; ATE under `ate_max`.  The kernels a scan inside the
-    graph are its kernel nodes, read from the graph itself, and must equal
-    the eager loop's launches a scan; the profiler's count of them over the
-    profiled replays is printed beside, and must see each one at least once
-    and none more often than the graph holds it (its CUPTI records of graph
-    kernels can drop a few hundredths of a busy run).  Returns (the counts
-    of the first captured call, the kernels a scan inside the graph)."""
+    the captured replay, the whole log one graph: its first call (warm-up
+    and capture: the launch counts), a warm call under the sync check that
+    must launch no kernel from Python, a timed call and a profiled call,
+    which must make one graph launch.  Both captured runs must equal the
+    eager one in every field of the final state and of every stacked info,
+    and leave the generator where the eager run leaves it (its next draw);
+    ATE under `ate_max`.  The graph's kernel nodes, read from the graph
+    itself, must be n times the eager loop's launches a scan of each of the
+    repo's kernels, and be a graph of one scan's nodes n times over: the
+    same replay then takes a log of the first scan alone (a graph of its
+    own beside the first, as the graph a scan before the whole log was one
+    graph), whose infos must equal the eager run's first.  The profiler's
+    count of kernels a scan over the profiled replay is printed beside, and
+    must see each one at least once and none more often than the graph
+    holds it (its CUPTI records of graph kernels can drop a few hundredths
+    of a busy run).  Nodes, capture and instantiation seconds and peak
+    memory are printed for both graphs.  Returns (the counts of the first
+    captured call, the kernels a scan inside the graph)."""
     from gridmap_slam_tpu_torch.io import frame_at
     from gridmap_slam_tpu_torch.models.captured import (WARMUP_STEPS,
-                                                        stack_steps)
+                                                        stack_steps,
+                                                        tree_map)
     from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
 
     def gen():
@@ -2709,11 +2742,15 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
         return st, (stack_steps(infos) if isinstance(infos, list)
                     else infos)
 
+    def next_draw(g):
+        return torch.randn(8, generator=g, device="cuda")
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = _zero_launches()
     s0, g0 = init(), gen()
     (st_e, inf_e), _ = _timed(run_eager)
+    next_e = next_draw(g0)
     eager_counts = {k: mod.launches for k, mod in kernels.items()}
     peak_e = torch.cuda.max_memory_allocated()
     s0, g0 = init(), gen()
@@ -2727,11 +2764,13 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     kernels = _zero_launches()
     s0, g0 = init(), gen()
     (st_c, inf_c), sec_capture = _timed(lambda: replay(s0, frames, g0))
+    next_c = next_draw(g0)
     capture_counts = {k: mod.launches for k, mod in kernels.items()}
     kernels = _zero_launches()
     s0, g0 = init(), gen()
     st_c2, inf_c2 = _sync_free(lambda: replay(s0, frames, g0))
     torch.cuda.synchronize()
+    next_c2 = next_draw(g0)
     replay_counts = {k: mod.launches for k, mod in kernels.items()}
     peak_c = torch.cuda.max_memory_allocated()
     s0, g0 = init(), gen()
@@ -2739,11 +2778,33 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     s0, g0 = init(), gen()
     _, prof_c = _profiled(lambda: replay(s0, frames, g0), n)
     cap = replay.captured
+    names = cap.kernel_names()
+    graph = dict(scans=cap.scans, kernel_nodes=len(names),
+                 nodes_by_type=cap.node_types(),
+                 capture_seconds=cap.capture_seconds,
+                 first_call_seconds=sec_capture, peak_gb=peak_c / 1e9)
+    # the graph of one scan, beside it in the same replay
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s0, g0 = init(), gen()
+    (_, inf_1), sec_one = _timed(
+        lambda: replay(s0, tree_map(lambda x: x[:1], frames), g0))
+    names_one = cap.kernel_names()
+    one_scan = dict(scans=cap.scans, kernel_nodes=len(names_one),
+                    nodes_by_type=cap.node_types(),
+                    capture_seconds=cap.capture_seconds,
+                    first_call_seconds=sec_one,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    periodic = _one_scan_periods(names, names_one, n)
 
     bits = {"state": _fields_differing(st_e, st_c),
-            "infos": _fields_differing(inf_e, inf_c)}
+            "infos": _fields_differing(inf_e, inf_c),
+            "next_draw": not torch.equal(next_e, next_c),
+            "one_scan_infos": _fields_differing(
+                tree_map(lambda x: x[:1], inf_e), inf_1)}
     rerun = {"state": _fields_differing(st_c, st_c2),
-             "infos": _fields_differing(inf_c, inf_c2)}
+             "infos": _fields_differing(inf_c, inf_c2),
+             "next_draw": not torch.equal(next_e, next_c2)}
     step_bits = None
     if step_jit is not None:            # the captured step, scan by scan
         sj, g = step_jit(), gen()
@@ -2752,14 +2813,14 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
             st, info = sj(st, frame_at(frames, i), g)
             infos.append(info)
         step_bits = {"state": _fields_differing(st_e, st),
-                     "infos": _fields_differing(inf_e, stack_steps(infos))}
+                     "infos": _fields_differing(inf_e, stack_steps(infos)),
+                     "next_draw": not torch.equal(next_e, next_draw(g))}
         del sj, st, infos
     traj = inf_c.weighted_pose.cpu().numpy()
     ates = ([ate_rmse(traj, gt[:n])] if traj.ndim == 2 else
             [ate_rmse(traj[:, r], g) for r, g in enumerate(gt)])
     eager_per_scan = {k: eager_counts[k] / n for k in KERNEL_SYMBOLS}
-    names = cap.kernel_names()
-    in_graph = _node_counts(names)
+    in_graph = {k: v / n for k, v in _node_counts(names).items()}
     seen = prof_c["kernels_per_scan"]
     visible = any(v > 0 for v in seen.values())
     row = dict(path=name, scans=n, particles=eng.config.num_particles,
@@ -2767,11 +2828,14 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                step_jit_differing=step_bits, ate_m=ates, ate_max_m=ate_max,
                captures=cap.captures, capacity=cap.capacity,
                warmup_steps=WARMUP_STEPS,
+               graph_launches_a_replay=prof_c["graph_launches"],
                launches_in_capture_call=capture_counts,
                python_launches_in_warm_replay=replay_counts,
                kernels_per_scan_eager=eager_per_scan,
                kernels_per_scan_in_graph=in_graph,
                kernel_nodes_in_graph=len(names),
+               log_graph=graph, one_scan_graph=one_scan,
+               log_graph_is_one_scan_n_times=periodic,
                kernels_per_scan_profiler=seen if visible else None,
                profiler_sees_graph_kernels=visible,
                eager=dict(scans_per_sec=n / sec_e, warm_seconds=sec_e,
@@ -2785,8 +2849,12 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     torch.cuda.empty_cache()
     if any(bits.values()) or any(rerun.values()) or (
             step_bits is not None and any(step_bits.values())):
-        raise AssertionError(f"captured {name}: fields differ from the eager "
-                             f"loop or between captured runs")
+        raise AssertionError(f"captured {name}: fields or the generator's "
+                             f"next draw differ from the eager loop or "
+                             f"between captured runs")
+    if prof_c["graph_launches"] != 1:
+        raise AssertionError(f"captured {name}: {prof_c['graph_launches']} "
+                             f"graph launches in a replay call, not 1")
     if any(replay_counts.values()):
         raise AssertionError(f"captured {name}: a warm replay launched a "
                              f"kernel from Python: {replay_counts}")
@@ -2797,6 +2865,10 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     if any(in_graph[k] != eager_per_scan[k] for k in KERNEL_SYMBOLS):
         raise AssertionError(f"captured {name}: kernels a scan inside the "
                              f"graph {in_graph} != eager {eager_per_scan}")
+    if not periodic:
+        raise AssertionError(f"captured {name}: the graph's {len(names)} "
+                             f"kernel nodes are not the one-scan graph's "
+                             f"{len(names_one)} with its scan {n} times")
     if visible and not all(0 < seen[k] <= in_graph[k]
                            for k in needed if k in KERNEL_SYMBOLS):
         raise AssertionError(f"captured {name}: the profiler saw kernels a "
@@ -3150,15 +3222,21 @@ def _par_path(path, seq, make, init, ref, compare, needed, single):
             for f in seq:
                 st, info = step(st, f, g)
                 infos.append(info)
+            go.generator = g
             return st, infos
         return go
+
+    def next_draw(g):
+        return torch.randn(8, generator=g, device="cuda")
 
     eager = make(False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = _zero_launches()
+    go = run(eager)
     with CallRecorder(path) as rec, recording() as colls:
-        (state, infos), _ = _timed(run(eager))
+        (state, infos), _ = _timed(go)
+    next_e = next_draw(go.generator)
     launches = {k: mod.launches for k, mod in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     (again, _), sec = _timed(run(eager))
@@ -3173,11 +3251,13 @@ def _par_path(path, seq, make, init, ref, compare, needed, single):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = _zero_launches()
-    (st_c, inf_c), first_sec = _timed(run(comp))
+    go = run(comp)
+    (st_c, inf_c), first_sec = _timed(go)
     capture_counts = {k: mod.launches for k, mod in kernels.items()}
     eager_infos = stack_steps(infos)
     bits = {"state": _fields_differing(state, st_c),
-            "infos": _fields_differing(eager_infos, stack_steps(inf_c))}
+            "infos": _fields_differing(eager_infos, stack_steps(inf_c)),
+            "next_draw": not torch.equal(next_e, next_draw(go.generator))}
     cmp_c = compare(st_c, inf_c, ref_state, ref_infos)
     del ref_state, ref_infos
     kernels = _zero_launches()
@@ -3193,6 +3273,30 @@ def _par_path(path, seq, make, init, ref, compare, needed, single):
     names = cap.kernel_names()
     in_graph = _node_counts(names)
     eager_per_scan = {k: launches[k] / n for k in MESH_GRAPH_ROWS}
+
+    # the compiled body's replay of the whole log: one graph of n scans
+    log_replay = comp.replay_jit()
+    batch = stack_steps(seq)
+    g = gen()
+    (st_r, inf_r), sec_r_first = _timed(lambda: log_replay(start, batch, g))
+    log_bits = {"state": _fields_differing(state, st_r),
+                "infos": _fields_differing(eager_infos, inf_r),
+                "next_draw": not torch.equal(next_e, next_draw(g))}
+    g = gen()
+    _, sec_r = _timed(lambda: log_replay(start, batch, g))
+    g = gen()
+    _, prof_r = _profiled(lambda: log_replay(start, batch, g), n)
+    log_names = log_replay.captured.kernel_names()
+    log_periodic = _one_scan_periods(log_names, names, n)
+    log_row = dict(scans_per_sec=n / sec_r, first_call_seconds=sec_r_first,
+                   capture_seconds=log_replay.captured.capture_seconds,
+                   graph_launches_a_replay=prof_r["graph_launches"],
+                   host_launches_a_scan=prof_r["launches_per_scan"],
+                   kernel_nodes_in_graph=len(log_names),
+                   kernel_nodes_in_step_graph=len(names),
+                   graph_is_the_step_n_times=log_periodic,
+                   bits_differing_from_eager=log_bits)
+    del log_replay, st_r, inf_r, batch
 
     replay, single_init = single()
     batch = stack_steps(seq)
@@ -3226,6 +3330,7 @@ def _par_path(path, seq, make, init, ref, compare, needed, single):
                       bits_differing_from_eager=bits,
                       rerun_differing_from_eager=rerun,
                       against_reference=cmp_c, **prof_c),
+        replay_jit=log_row,
         single_device_captured=dict(scans_per_sec=n / sec_s,
                                     warm_seconds=sec_s,
                                     graph_nodes_by_type=single_nodes),
@@ -3236,6 +3341,9 @@ def _par_path(path, seq, make, init, ref, compare, needed, single):
     if any(bits.values()) or any(rerun.values()):
         raise AssertionError(f"{path}: the captured runs differ from the "
                              f"eager run: {bits} {rerun}")
+    if any(log_bits.values()) or prof_r["graph_launches"] != 1 \
+            or not log_periodic:
+        raise AssertionError(f"{path}: replay_jit: {log_row}")
     if not all(launches[k] > 0 and capture_counts[k] > 0 for k in needed):
         raise AssertionError(f"{path}: a kernel was not launched: "
                              f"{launches} {capture_counts}")
@@ -3578,14 +3686,22 @@ def _cli_steps(eager: bool = False):
     """While active, application.compiled_step (which the CLI's
     _run_frames and SlamApplication call for their step) keeps each step
     it hands out in the yielded list; with eager=True it hands out the
-    engine's eager step in place of the captured one."""
+    engine's eager step in place of the captured one.  Each call of a step
+    it hands out is marked "scan" for torch.profiler
+    (_host_launches_a_scan); `captured` is the captured step's own."""
     from gridmap_slam_tpu_torch.app import application
     real = application.compiled_step
     taken = []
 
     def patched(engine):
-        taken.append(engine.step if eager else real(engine))
-        return taken[-1]
+        step = engine.step if eager else real(engine)
+
+        def marked(*args, **kw):
+            with torch.profiler.record_function("scan"):
+                return step(*args, **kw)
+        marked.captured = getattr(step, "captured", None)
+        taken.append(marked)
+        return marked
 
     application.compiled_step = patched
     try:
@@ -3630,9 +3746,11 @@ def _frontend_graphs(fe) -> dict:
 
 def _host_launches_a_scan(run):
     """run() under torch.profiler: (its result, the host's launches
-    (LAUNCH_CALLS) a scan, the median over the intervals from one scan's
-    first draw (aten::randn) to the next's, so the set-up, a capture's
-    warm-up and the work after the last scan are not counted)."""
+    (LAUNCH_CALLS) a scan, the median over the intervals from one step
+    call's start (its "scan" mark on the host, _cli_steps; the profiler
+    also shows the mark on the card's timeline) to the next's, so the
+    set-up and the work after the last scan are not counted; a captured
+    step's warm-up and capture fall in its first interval)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3640,8 +3758,8 @@ def _host_launches_a_scan(run):
         out = run()
         torch.cuda.synchronize()
     events = prof.events()
-    marks = sorted(e.time_range.start for e in events
-                   if e.name == "aten::randn")
+    marks = sorted(e.time_range.start for e in events if e.name == "scan"
+                   and e.device_type == torch.autograd.DeviceType.CPU)
     calls = np.array(sorted(e.time_range.start for e in events
                             if e.name in LAUNCH_CALLS))
     per = [int(((calls >= a) & (calls < b)).sum())

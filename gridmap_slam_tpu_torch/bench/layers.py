@@ -2,24 +2,27 @@
 timed ones.  The cell file names the metrics; each `<kind>.<part>` is read
 here, a part being a kernel (kernels/) or a span (spans/).
 
-- device_ms_a_scan.<kernel>: one captured replay under torch.profiler.  Its
-  records of graph kernels can drop a few hundredths of a busy run, so a
-  kernel's time a scan is the mean of its records times its nodes a scan
-  (models/captured.graph_kernel_names, read from the graph itself).
-- device_ms_a_scan.<span>: the same profiled replay.  While the graph was
+- device_ms_a_scan.<kernel>: PROFILED_REPLAYS captured replays under
+  torch.profiler.  A replay is one graph launch that holds the whole log
+  (models/captured.Captured: `scans` scans), so the graph's counts are
+  divided by the scans it holds.  The profiler's records of graph kernels
+  can drop a few hundredths of a busy run, so a kernel's time a scan is the
+  mean of its records times its nodes a scan (models/captured.
+  graph_kernel_names, read from the graph itself).
+- device_ms_a_scan.<span>: the same profiled replays.  While the graph was
   captured (the cell's first replay), SpanNodes noted the nodes each call
   of the span added; the graph's kernel nodes in the order they run
   (kernel_run_order) then say which of each launch's kernel records are
   the span's (launches_by_id), less those of a kernel the cell names: the
   mean over the launches whose records are the graph's kernels
-  (whole_launches; the profiler may drop a record).  Not measured (nor the
-  glue) where no launch is whole.
-- device_ms_a_scan.glue: the rest of that replay's device time (every
-  device record, the eager ones around the graph launches too).
-- host_launches_a_scan: the runtime calls of that replay that put work on
-  the card (kernels, copies, sets, graph launches).
-- device_busy_share: its device ms a scan over the timed replays' wall ms
-  a scan.
+  (whole_launches; the profiler may drop a record), over the scans a
+  launch holds.  Not measured (nor the glue) where no launch is whole.
+- device_ms_a_scan.glue: the rest of those replays' device time (every
+  device record, the eager ones around the graph launches too), a scan.
+- host_launches_a_scan: the runtime calls of those replays that put work
+  on the card (kernels, copies, sets, graph launches), over their scans.
+- device_busy_share: their device ms a scan over the timed replays' wall
+  ms a scan.
 - share_of_bound.<kernel>: the kernel's bounds (kernels/<kernel>.py) summed
   over the calls of one eager replay (its entry points wrapped while it
   runs), a scan, over its device ms a scan.
@@ -46,6 +49,9 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
                 "cudaMemsetAsync")
 TOP_OPS, TOP_GAPS = 8, 5
+# replays of the log under the profiler: a graph launch holds the whole
+# log, and a launch of which the profiler dropped a record is not whole
+PROFILED_REPLAYS = 3
 # device records that are no kernel node: copies and sets (a graph's copy
 # node runs as the driver's memcpy32_post kernel)
 NOT_KERNELS = ("Memcpy", "Memset", "memcpy", "memset")
@@ -206,24 +212,17 @@ def _breakdown(dev, host, n: int) -> dict:
             "longest_idle_gaps": out}
 
 
-def measure(cell, kernels: dict, span_nodes: SpanNodes, replay, eager,
-            batch, inputs, n: int, wall_s_a_scan: float):
-    """(per-layer metrics, breakdown) of a cell whose captured replay
-    `replay` has run (its capture recorded by span_nodes): the cell's
-    metrics, and `kernels_a_scan` and `profiler_records_a_scan`."""
-    named = [k for k in dict.fromkeys(parts(cell, "device_ms_a_scan")
-                                      + parts(cell, "share_of_bound"))
-             if k in kernels]
-    spans = [s for s in parts(cell, "device_ms_a_scan")
-             if s in span_nodes.nodes]
-    graph = replay.captured.graph.raw_cuda_graph()
-    nodes = captured.graph_kernel_nodes(graph)
+def read_replays(kernels: dict, named, span_nodes: dict, nodes, order,
+                 scans: int, dev, host, scans_run: int) -> dict:
+    """The per-layer readings a scan of profiled replays of one graph that
+    holds `scans` scans (one launch a replay of the whole log): `nodes` the
+    function names of its kernel nodes, `order` kernel_run_order's (name,
+    node) of them or None, `span_nodes` each span's nodes; `dev` and `host`
+    the profiler's records of replays of `scans_run` scans in all.  A
+    graph's counts and a whole launch's records cover `scans` scans, and
+    are divided by them; the records of all the replays, by scans_run."""
     in_graph = collections.Counter(K.kernel_of(kernels, name)
-                                   for _, name in nodes)
-    order = kernel_run_order(graph)
-
-    s0, g = inputs(0)
-    dev, host = _profiled(lambda: replay(s0, batch, g))
+                                   for name in nodes)
     recs = [(e.name, K.kernel_of(kernels, e.name), _dur_us(e)) for e in dev
             if _is_kernel(e)]
     rec_us = collections.Counter()
@@ -231,44 +230,72 @@ def measure(cell, kernels: dict, span_nodes: SpanNodes, replay, eager,
     for _, grp, us in recs:
         rec_us[grp] += us
         rec_n[grp] += 1
-    ms = {k: (rec_us[k] / rec_n[k] * in_graph[k] / 1e3 if rec_n[k]
-              else None) for k in named}
-    total = sum(_dur_us(e) for e in dev) / n / 1e3
-    span_ms = dict.fromkeys(spans)
+    ms = {k: (rec_us[k] / rec_n[k] * in_graph[k] / scans / 1e3
+              if rec_n[k] else None) for k in named}
+    span_ms = dict.fromkeys(span_nodes)
     pattern = ([K.kernel_of(kernels, name) for name, _ in order]
                if order else None)
     launches = (launches_by_id(dev, host, kernels)
-                if pattern and spans else [])
+                if pattern and span_nodes else [])
     whole = whole_launches(launches, pattern)
-    if whole:           # a launch a scan
-        for s in spans:
+    if whole:           # a launch a log of `scans` scans
+        for s, own in span_nodes.items():
             at = [i for i, (name, top) in enumerate(order)
-                  if top in span_nodes.nodes[s]
-                  and K.kernel_of(kernels, name) not in named]
+                  if top in own and K.kernel_of(kernels, name) not in named]
             span_ms[s] = sum(run[i][2] for run in whole
-                             for i in at) / len(whole) / 1e3
+                             for i in at) / len(whole) / scans / 1e3
     out = {f"device_ms_a_scan.{k}": v for k, v in ms.items()}
     out.update({f"device_ms_a_scan.{s}": v for s, v in span_ms.items()})
     parts_ms = list(ms.values()) + list(span_ms.values())
-    bound_ms = _bounds_a_scan([kernels[k] for k in named], eager, inputs,
-                              batch, n)
+    total = sum(_dur_us(e) for e in dev) / scans_run / 1e3
     out.update({
         "device_ms_a_scan.glue": (None if None in parts_ms
                                   else total - sum(parts_ms)),
         "device_ms_a_scan.total": total,
         "host_launches_a_scan": sum(e.name in LAUNCH_CALLS
-                                    for e in host) / n,
-        "device_busy_share": total / (wall_s_a_scan * 1e3),
-        "kernels_a_scan": {**{k: in_graph[k] for k in named},
-                           "all": len(nodes)},
-        "profiler_records_a_scan": {k: rec_n[k] / n for k in named},
+                                    for e in host) / scans_run,
+        "kernels_a_scan": {**{k: in_graph[k] / scans for k in named},
+                           "all": len(nodes) / scans},
+        "scans_in_graph": scans,
+        "profiler_records_a_scan": {k: rec_n[k] / scans_run for k in named},
         "graph_is_a_chain": order is not None,
         "launches_whole": [len(whole), len(launches)],
         "launch_records": sorted({len(run) for run in launches}),
         "kernels_run": len(pattern or ()),
     })
-    for k, v in ms.items():
+    return out
+
+
+def measure(cell, kernels: dict, span_nodes: SpanNodes, replay, eager,
+            batch, inputs, n: int, wall_s_a_scan: float):
+    """(per-layer metrics, breakdown) of a cell whose captured replay
+    `replay` has run (its capture recorded by span_nodes), from
+    PROFILED_REPLAYS replays of its log of n scans under the profiler
+    (read_replays): the cell's metrics, and `kernels_a_scan` and
+    `profiler_records_a_scan`."""
+    named = [k for k in dict.fromkeys(parts(cell, "device_ms_a_scan")
+                                      + parts(cell, "share_of_bound"))
+             if k in kernels]
+    spans = {s: span_nodes.nodes[s] for s in parts(cell, "device_ms_a_scan")
+             if s in span_nodes.nodes}
+    cap = replay.captured
+    graph = cap.graph.raw_cuda_graph()
+    nodes = [name for _, name in captured.graph_kernel_nodes(graph)]
+    order = kernel_run_order(graph)
+
+    s0, g = inputs(0)
+    dev, host = _profiled(lambda: [replay(s0, batch, g)
+                                   for _ in range(PROFILED_REPLAYS)])
+    scans_run = n * PROFILED_REPLAYS
+    out = read_replays(kernels, named, spans, nodes, order, cap.scans, dev,
+                       host, scans_run)
+    out["device_busy_share"] = (out["device_ms_a_scan.total"]
+                                / (wall_s_a_scan * 1e3))
+    bound_ms = _bounds_a_scan([kernels[k] for k in named], eager, inputs,
+                              batch, n)
+    for k in named:
+        v = out[f"device_ms_a_scan.{k}"]
         if v and k in bound_ms:
             out[f"bound_ms_a_scan.{k}"] = bound_ms[k]
             out[f"share_of_bound.{k}"] = bound_ms[k] / v
-    return out, _breakdown(dev, host, n)
+    return out, _breakdown(dev, host, scans_run)

@@ -1,8 +1,9 @@
-"""Whole-log replays: the eager scan and its captured form, a CUDA graph.
+"""Whole-log replays: the eager scan and its captured form, one CUDA graph
+a log.
 
 Counterpart of the JAX package's `jax.lax.scan` of a step over a stacked
 `Frame` batch (models/rbpf.py:293-306) and of `jax.jit(..., donate_argnums=
-(0,))` around it.  The three engines share it.
+(0,))` around it: one dispatch for the whole log.  The engines share it.
 
 A step here is `step(state, frame, draws, out) -> (state, info)`: `draws`
 are one scan's random draws, and `out`, when given, is a state whose
@@ -15,27 +16,41 @@ the generator in the calls and order of the eager step, or taken from
 `draws` stacked with a leading frame axis), and the infos stacked along a
 leading frame axis (`stack_steps`).
 
-`Captured` is the same loop with every scan of it one replay of one graph.
-It keeps static buffers: the state, the frames of up to `capacity` scans,
-one scan's draws, the stacked infos and a scan counter on the device.  The
-graph reads the frame at the counter, runs the step on the static draws
-with `out=` the static state (the resample gather writes straight into it,
-so a scan copies no map beyond what the eager step copies), writes the
-info at the counter and adds one to it.  Before each replay the loop draws
-that scan's draws into the static draws, from the caller's generator in
-the eager step's calls and order (or copies the scan's injected ones), so
-a captured run gives the eager run's bits.  A replay of n scans then
-launches from the host: the state and frames copied in, the draws and one
-graph launch a scan, and the infos copied out.
+`Captured` is the same loop with a whole log of n scans one replay of one
+graph.  It keeps static buffers: the state, the frames of up to `capacity`
+scans, one scan's draws, injected draws of up to `capacity` scans (where a
+call gives them), the stacked infos and a scan counter on the device.  A
+scan of the graph reads the frame at the counter, draws its draws into the
+static draws from a generator the `Captured` owns (the eager step's calls,
+in its order; injected draws are read at the counter instead), runs the
+step with `out=` the static state (the resample gather writes straight
+into it, so a scan copies no map beyond what the eager step copies),
+writes the info at the counter and adds one to it; the graph zeroes the
+counter first and holds n such scans in a row.  The owned generator is
+registered with every graph (CUDAGraph.register_generator_state): a replay
+draws from the Philox seed and offset the generator holds when it starts.
+Before a replay the caller's generator state (or the default generator's,
+where the caller gives none) is handed to the owned generator, after it
+handed back, so a captured run gives the eager run's bits in every draw and
+leaves the caller's generator where the eager run leaves it
+(scripts/graph_rng_probe.py checks this on the card).  A replay of n scans
+then launches from the host: the state and frames copied in, the owned
+generator's seed and offset set, one graph launch, and the infos copied
+out.
 
-On a CUDA engine the graph is captured at the first call (and again when
-the shapes change or a longer log comes), after warm-up steps on a side
-stream that build the kernel library and fill every cache a step reads
+On a CUDA engine a graph is captured at the first call of each log length
+(and, injected draws or not, for each), and every graph is dropped when
+the shapes change or a longer log comes (the buffers are made anew, of
+that length).  Before a capture, warm-up scans of the one-scan body on a
+side stream build the kernel library and fill every cache a step reads
 (the kernels' launch plans, the matcher's offsets, cuFFT's plans, cuBLAS's
-workspace); capture runs on that same stream.  A capture that fails
-raises: there is no fallback to the eager loop.  On a CPU engine the same
-static-buffer loop runs, with the step called where a CUDA engine replays
-the graph.  `Captured.kernel_names` lists the kernels the graph holds, one
+workspace); capture runs on that same stream.  The graphs of one `Captured`
+share one memory pool: no tensor a capture allocates outlives it (every
+result goes to the static buffers), and they replay one at a time on one
+stream.  A capture or a generator handoff that fails raises: there is no
+fallback to the eager loop or to draws on the host.  On a CPU engine the
+same static-buffer loop runs the n scans, with the handoff around it.
+`Captured.kernel_names` lists the kernels the last call's graph holds, one
 entry a kernel node, read from the graph itself.
 
 `Graphed` is that capture for any body over static buffers: `Captured`
@@ -51,6 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -157,24 +173,32 @@ class Graphed:
     buffers, which its owner fills before a run and reads after).
     `capture()` captures it anew and counts that in `captures`; `run()`
     replays it.  On a CPU device capture() does nothing and run() calls the
-    body: the same static-buffer code, with no graph."""
+    body: the same static-buffer code, with no graph.  A `generator` set
+    on the instance is registered with every graph captured, so that the
+    draws the body makes from it are drawn anew at each replay (from the
+    seed and offset it holds then)."""
 
     def __init__(self, body: Callable, device,
                  reset: Optional[Callable] = None):
         self.body = body
         self.device = torch.device(device)
         self._reset = reset
+        self.generator = None
         self.graph = None
         self.captures = 0
+        self.capture_seconds = None
 
-    def capture(self) -> None:
+    def capture(self, captured: Optional[Callable] = None,
+                pool=None) -> None:
         """WARMUP_STEPS eager calls of the body on a side stream (reset()
         before each and after the last), which build the kernel library
         and fill every cache the body reads (the kernels' launch plans,
         the matcher's offsets, cuFFT's plans, the cuBLAS and cuSOLVER
-        handles and workspaces), then the capture on that stream.  The
-        graph is kept beside its instance, for kernel_names.  A capture
-        that fails raises."""
+        handles and workspaces), then the capture on that stream of
+        `captured` (by default the body), in memory pool `pool` where one
+        is given.  The graph is kept beside its instance, for
+        kernel_names; `capture_seconds` is the capture's and the
+        instantiation's host time.  A capture that fails raises."""
         self.graph = None
         if self.device.type != "cuda":
             return
@@ -189,9 +213,13 @@ class Graphed:
                 self._reset()
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph, stream=side):
-            self.body()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=pool, stream=side):
+            (captured or self.body)()
         graph.instantiate()
+        self.capture_seconds = time.perf_counter() - t0
         self.graph = graph
         self.captures += 1
 
@@ -217,12 +245,22 @@ class Graphed:
         return graph_node_types(self.graph.raw_cuda_graph())
 
 
+def default_generator(device: torch.device) -> torch.Generator:
+    """The generator a draw on `device` with generator=None takes."""
+    if device.type != "cuda":
+        return torch.default_generator
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return torch.cuda.default_generators[index]
+
+
 class Captured(Graphed):
-    """One filter step captured once, replayed once a scan (see the module
-    docstring).  Calling it with (state, stacked frames, generator, draws)
-    returns (the static state, the infos stacked over the scans): the
-    static state is the capture's own buffer, which the next call
-    overwrites (the counterpart of donation); the infos are fresh."""
+    """A whole log's filter steps captured as one graph, replayed once a
+    call (see the module docstring).  Calling it with (state, stacked
+    frames, generator, draws) returns (the static state, the infos stacked
+    over the scans): the static state is the capture's own buffer, which
+    the next call overwrites (the counterpart of donation); the infos are
+    fresh.  `scans` is the number of scans the last call's graph holds."""
 
     def __init__(self, step: Callable, draw: Callable, device):
         """step(state, frame, draws, out) -> (state, info);
@@ -233,15 +271,23 @@ class Captured(Graphed):
         self._step = step
         self._draw = draw
         self._key = None
-        self.capacity = 0
-        self.state = self.frames = self.draws = self.infos = None
-        self.counter = None
+        self._inject = False
+        self._pool = None
+        self.capacity = self.scans = 0
+        self.graphs = {}
+        self.state = self.frames = self.draws = self.injected = None
+        self.infos = self.counter = None
 
     def _body(self):
-        """One scan on the static buffers: what the graph holds."""
+        """One scan on the static buffers."""
         t = self.counter
         frame = tree_map(lambda x: x.index_select(0, t)[0], self.frames)
-        _, info = self._step(self.state, frame, self.draws, self.state)
+        if self._inject:
+            draws = tree_map(lambda x: x.index_select(0, t)[0],
+                             self.injected)
+        else:                   # the eager step's calls, in its order
+            draws = self._draw(self.generator, self.draws)
+        _, info = self._step(self.state, frame, draws, self.state)
         if self.infos is None:
             self.infos = tree_map(
                 lambda x: x.new_empty((self.capacity,) + tuple(x.shape)),
@@ -250,26 +296,51 @@ class Captured(Graphed):
                  info)
         t.add_(1)
 
+    def _scans(self, n: int):
+        """n scans from the first: what a graph holds."""
+        self.counter.zero_()
+        for _ in range(n):
+            self._body()
+
     def _prepare(self, state, frames, n: int):
-        """Static buffers for `n` scans of these shapes, and the graph over
-        them: kept from the last call where they fit."""
+        """Static buffers for `n` scans of these shapes: kept from the last
+        call where they fit, else made anew (and every graph dropped)."""
         def sig(tree, lead):
             return tuple((tuple(x.shape[lead:]), x.dtype, x.device)
                          for x in leaves(tree))
         key = (sig(state, 0), sig(frames, 1))
         if key == self._key and n <= self.capacity:
             return
-        self._key, self.capacity, self.graph, self.infos = key, n, None, None
+        self._key, self.capacity = key, n
+        self.graphs, self.graph, self._pool = {}, None, None
+        self.infos = self.injected = None
+        if self.generator is None:
+            self.generator = torch.Generator(device=self.device)
         self.state = tree_map(torch.clone, state)
         self.frames = tree_map(lambda x: x.new_empty((n,) + x.shape[1:]),
                                frames)
-        tree_map(lambda buf, x: buf.copy_(x), self.frames, frames)
-        # one scan's draws, of a generator of the capture's own (the warm-up
-        # steps run on them; every replay draws its scan's anew)
-        self.draws = self._draw(torch.Generator(device=self.device))
+        # one scan's draws (the warm-up's, and each scan's in the graph)
+        self.draws = self._draw(self.generator)
         self.counter = torch.zeros((1,), dtype=torch.int64,
                                    device=self.device)
-        self.capture()
+
+    def _fill(self, state, frames, draws, n: int):
+        tree_map(copy_into, self.state, state)
+        tree_map(lambda buf, x: copy_into(buf[:n], x), self.frames, frames)
+        if draws is not None:
+            tree_map(lambda buf, x: copy_into(buf[:n], x), self.injected,
+                     draws)
+
+    def _graph(self, state, frames, draws, n: int):
+        """The graph of n scans (with injected draws or not), captured
+        where there is none yet, after warm-up scans of one scan each."""
+        key = (n, self._inject)
+        if key not in self.graphs:
+            self.capture(lambda: self._scans(n), pool=self._pool)
+            self._pool = self.graph.pool()
+            self.graphs[key] = self.graph
+            self._fill(state, frames, draws, n)     # the warm-up's changes
+        return self.graphs[key]
 
     def __call__(self, state, frames, generator=None, draws=None):
         n = num_frames(frames)
@@ -278,18 +349,32 @@ class Captured(Graphed):
         if draws is not None:
             check_draws(draws, n)
         self._prepare(state, frames, n)
+        self._inject = draws is not None
         if draws is not None:
             tree_map(_check_shape, self.draws, draws)
-        tree_map(copy_into, self.state, state)
-        tree_map(lambda buf, x: copy_into(buf[:n], x), self.frames, frames)
-        self.counter.zero_()
-        for i in range(n):
-            if draws is None:       # the eager step's calls, in its order
-                self._draw(generator, self.draws)
-            else:
-                tree_map(lambda buf, x, i=i: buf.copy_(x[i]), self.draws,
-                         draws)
-            self.run()
+            if self.injected is None:
+                self.injected = tree_map(
+                    lambda x: x.new_empty((self.capacity,) + x.shape),
+                    self.draws)
+        self._fill(state, frames, draws, n)
+        caller = None
+        if draws is None:
+            caller = default_generator(self.device) if generator is None \
+                else generator
+            if caller.device.type != self.device.type:
+                raise ValueError(f"a generator on {caller.device} for an "
+                                 f"engine on {self.device}")
+        if self.device.type == "cuda":
+            self.graph = self._graph(state, frames, draws, n)
+        self.scans = n
+        if caller is not None:
+            self.generator.set_state(caller.get_state())
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self._scans(n)
+        if caller is not None:
+            caller.set_state(self.generator.get_state())
         return self.state, tree_map(lambda buf: buf[:n].clone(), self.infos)
 
 

@@ -15,8 +15,8 @@ batch R, one bin table a robot), summed onto the map in robot order; each
 robot resamples on its own.
 
 `replay` also takes the ticks stacked, (T, R, ...), as the JAX package's
-`lax.scan` does (stacked infos); `replay_jit` is its captured form, one CUDA
-graph replayed once a tick (models/captured.py).
+`lax.scan` does (stacked infos); `replay_jit` is its captured form, all the
+ticks one CUDA graph replayed once a call (models/captured.py).
 
 The JAX step ignores `freeze_map` and `matcher.enabled` (it always matches
 and always integrates); this engine raises ValueError for either instead of
@@ -235,12 +235,13 @@ class MultiRobotSLAM:
         return state, infos
 
     def replay_jit(self):
-        """`replay` of stacked ticks with each tick one replay of a
-        captured CUDA graph of `step` (on a CPU engine, the same
-        static-buffer loop calling the step): the counterpart of
-        `jax.jit(eng.replay)`, with the same arguments, results and bits.
-        The graph is captured at the first call; keep the function to
-        reuse it."""
+        """`replay` of stacked ticks with all the ticks one replay of one
+        captured CUDA graph of `step`, their draws inside (on a CPU engine,
+        the same static-buffer loop calling the step): the counterpart of
+        `jax.jit(eng.replay)`, with the same arguments, results and bits,
+        and the generator left where `replay` leaves it.  A graph is
+        captured at the first call of each log length; keep the function
+        to reuse them."""
         return captured.replay_fn(captured.Captured(
             self._scan_step, self._draws, self.device))
 

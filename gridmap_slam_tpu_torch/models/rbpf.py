@@ -17,8 +17,9 @@ from the `torch.Generator` passed to `step`, or from draws the caller
 injects.
 
 `replay` runs a stacked Frame batch as `jax.lax.scan` does (stacked infos);
-`replay_jit` and `step_jit` are its and the step's captured forms, one CUDA
-graph replayed once a scan (models/captured.py).
+`replay_jit` is its captured form, the whole log one CUDA graph replayed
+once a call, and `step_jit` the step's, one graph a scan
+(models/captured.py).
 """
 
 from __future__ import annotations
@@ -233,11 +234,12 @@ class RBPF:
                              generator, draws)
 
     def replay_jit(self):
-        """`replay` with each scan one replay of a captured CUDA graph of
-        `step` (on a CPU engine, the same static-buffer loop calling the
-        step): the same arguments and results, and the same bits.  The
-        graph is captured at the first call; keep the function to reuse
-        it."""
+        """`replay` with the whole log one replay of one captured CUDA
+        graph of its scans, their draws inside (on a CPU engine, the same
+        static-buffer loop calling the step): the same arguments and
+        results, the same bits, and the generator left where `replay`
+        leaves it.  A graph is captured at the first call of each log
+        length; keep the function to reuse them."""
         return captured.replay_fn(captured.Captured(
             self._scan_step, self._draws, self.device))
 

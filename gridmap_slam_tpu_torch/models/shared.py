@@ -32,8 +32,8 @@ resampled slots with uniform poses.
 
 `replay` / `replay_surface` run a stacked Frame batch as `jax.lax.scan`
 does (stacked infos); `replay_jit` / `replay_surface_jit` are their
-captured forms, one CUDA graph replayed once a scan (models/captured.py),
-and `step_jit` captures one step.
+captured forms, the whole log one CUDA graph replayed once a call
+(models/captured.py), and `step_jit` captures one step.
 
 Host reads a scan: none.  Where the integration crop is smaller than the
 map (`city`), K2's window variant reads the crop's top-left cell from the
@@ -572,17 +572,19 @@ class SharedMapSLAM:
                              frames, generator, draws)
 
     def replay_jit(self, block: int = 0):
-        """`replay` of a stacked batch with each scan one replay of a
-        captured CUDA graph of `step` (or `step_blocked(block)`); on a CPU
-        engine the same static-buffer loop calling the step.  The same
-        arguments, results and bits.  The graph is captured at the first
-        call; keep the function to reuse it."""
+        """`replay` of a stacked batch with the whole log one replay of one
+        captured CUDA graph of its scans of `step` (or
+        `step_blocked(block)`), their draws inside; on a CPU engine the
+        same static-buffer loop calling the step.  The same arguments,
+        results and bits, and the generator left where `replay` leaves
+        it.  A graph is captured at the first call of each log length;
+        keep the function to reuse them."""
         return captured.replay_fn(captured.Captured(
             self._matcher_scan_step(block), self._draw, self.device))
 
     def replay_surface_jit(self):
-        """`replay_surface` with each scan one replay of a captured CUDA
-        graph of step_surface (see replay_jit)."""
+        """`replay_surface` with the whole log one replay of one captured
+        CUDA graph of its scans of step_surface (see replay_jit)."""
         return captured.replay_fn(captured.Captured(
             self._surface_scan_step, self._draw, self.device))
 

@@ -137,9 +137,10 @@ class MeshStep:
                              generator, draws)
 
     def replay_jit(self):
-        """`replay` with each scan one replay of a captured graph of the
-        compiled body: the same arguments, results and bits.  Keep the
-        function to reuse its graph."""
+        """`replay` with the whole log one replay of one captured graph of
+        the compiled body's scans, their draws and collectives inside: the
+        same arguments, results and bits.  Keep the function to reuse its
+        graphs."""
         return captured.replay_fn(captured.Captured(
             self._compiled, self._draw, self.device))
 

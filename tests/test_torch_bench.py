@@ -401,6 +401,48 @@ def test_launches_by_id_split_a_replay_s_records():
                for run in whole)
 
 
+
+def test_a_graph_of_the_whole_log_is_read_a_scan():
+    """read_replays on two replays that each launch one graph of 3 scans:
+    a kernel's time is the mean of its records times its nodes over the
+    scans the graph holds, a span's the mean over whole launches over those
+    scans, the graph's counts a scan too; the device records and the
+    host's calls go over all the scans run.  The launch of which a record
+    was dropped is left out of the span."""
+    kernels = K.load()
+    scan = [None, "K2", None, "K3"]         # a scan's kernel nodes
+    scans, replays = 3, 2
+    names = [FUNCTIONS.get(g, f"k{j}") for j, g in enumerate(scan)] * scans
+    order = [(name, node) for node, name in enumerate(names)]
+    span = {"surface": {node for node in range(len(names)) if node % 4 == 2}}
+    host, dev, t = [], [], 0
+    for r in range(replays):
+        for _ in range(3):                  # the inputs copied in
+            host.append(SimpleNamespace(id=0, name="cudaMemcpyAsync",
+                                        time_range=_Range(t, 1.0)))
+        launch = 1000 + r
+        host.append(SimpleNamespace(id=launch, name="cudaGraphLaunch",
+                                    time_range=_Range(t, 5.0)))
+        for node, name in enumerate(names):
+            t += 1
+            dev.append(SimpleNamespace(
+                id=launch, name=name,
+                time_range=_Range(t, 10.0 * (node % 4 + 1) + r)))
+    dev.remove(next(e for e in dev if e.id == 1001 and e.name == "k0"))
+    out = layers.read_replays(kernels, ["K2", "K3"], span, names, order,
+                              scans, dev, host, scans * replays)
+    assert out["device_ms_a_scan.K2"] == pytest.approx(20.5e-3)
+    assert out["device_ms_a_scan.K3"] == pytest.approx(40.5e-3)
+    assert out["device_ms_a_scan.surface"] == pytest.approx(30e-3)
+    total = sum(e.time_range.us for e in dev) / (scans * replays) / 1e3
+    assert out["device_ms_a_scan.total"] == pytest.approx(total)
+    assert out["device_ms_a_scan.glue"] == pytest.approx(
+        total - (20.5 + 40.5 + 30) * 1e-3)
+    assert out["host_launches_a_scan"] == pytest.approx(8 / 6)
+    assert out["kernels_a_scan"] == {"K2": 1, "K3": 1, "all": 4}
+    assert out["profiler_records_a_scan"] == {"K2": 1, "K3": 1}
+    assert out["launches_whole"] == [1, 2] and out["scans_in_graph"] == 3
+
 def _k1_args(g_f, p, nearest, seed):
     rng = np.random.default_rng(seed)
     h, w, b = 23, 31, 17
