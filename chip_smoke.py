@@ -104,33 +104,38 @@ Phases, each printed on its own line:
    graphs of 1000 and 3000 keyframes, with its peak memory;
 18. chip — bench.py's chip preset: RBPF at 10 000 particles in chunks of
    500 over the 12-scan log; ATE and scans/s;
-18a. captured — the single-program replays (models/captured.py: the whole
-   log captured once as one CUDA graph, the scans' draws inside it, one
-   graph launch a replay call): RBPF.replay_jit
-   at the parity preset (and step_jit scan by scan, one graph a scan) and
-   at chip's 10 000 particles, SharedMapSLAM.replay_surface_jit at mega
-   (the 12-scan log and the 40 scans of room_loop_40.rec), at mega with
+18a. captured — the single-program replays (models/captured.py: a log of
+   n scans captured as graphs of at most CHUNK_SCANS = 16 scans, the
+   scans' draws inside them, ceil(n / 16) graph launches a replay call):
+   RBPF.replay_jit at the parity preset (and step_jit scan by scan, one
+   graph a scan), at chip's 10 000 particles and, a long log, at the
+   posegraph phase's 200 particles and map over the 216 scans of
+   grand_tour_216.rec (14 launches), SharedMapSLAM.replay_surface_jit at
+   mega (the 12-scan log and the 40 scans of room_loop_40.rec, 3
+   launches), at mega with
    two refine steps, at mega_bf16 (K4 a scan) and mega_direct (the float32
    direct correlation), at city and city_bf16 (K4 a scan),
    SharedMapSLAM.replay_jit(block=500 000) at
    mega_blocked over 6 scans, MultiRobotSLAM.replay_jit at 10 000 a
-   robot; each against its eager loop from one seed in this process:
-   every field of the final state and of every stacked info equal in
-   bits, and the generator's next draw after the call equal, two captured
-   runs equal, one graph launch in a replay call (torch.profiler),
-   ATE under the path's limit, no synchronizing call and no kernel launched
-   from Python in a warm replay (the launch counts move only while the
-   first call warms up and captures), the graph's kernel nodes n times the
-   eager launches a scan of each of the repo's kernels and a graph of one
-   scan's nodes n times over (the same replay's graph of a log of one
-   scan, captured beside it, whose infos equal the eager first scan's),
+   robot (20 ticks, 2 launches); each against its eager loop from one
+   seed in this process: every field of the final state and of every
+   stacked info equal in bits, and the generator's next draw after the
+   call equal, two captured runs equal, ceil(n / 16) graph launches in a
+   replay call (torch.profiler), ATE under the path's limit, no
+   synchronizing call and no kernel launched from Python in a warm replay
+   (the launch counts move only while the first call warms up and
+   captures), the first chunk's graph of m scans holding m times the
+   eager launches a scan of each of the repo's kernels, and every graph
+   of the replay a graph of one scan's nodes its length times over (the
+   same replay's graph of a log of one scan, captured beside them, whose
+   infos equal the eager first scan's),
    the kernels a scan as torch.profiler sees them within the graph's
    (where it sees them), and beside each other the eager and captured
    scans/s (CUDA events around a warm run, host loop included), device
    time a run, launches from the host a scan (kernels, copies, sets,
-   graph launches) and peak memory, and for the log's graph and the
-   one-scan graph their nodes, capture-and-instantiation seconds and peak
-   memory;
+   graph launches) and peak memory, and for the first chunk's graph and
+   the one-scan graph their nodes, capture-and-instantiation seconds and
+   peak memory;
 18b. parallel — the distributed engines (gridmap_slam_tpu_torch/parallel/):
    K1's tile variant against its plain version at tiles cut from a
    4000 x 4000 city field (2 and 4 tiles: both edge tiles and one inside;
@@ -181,17 +186,20 @@ Phases, each printed on its own line:
    inside the graph against the eager step's launches; the live app's
    host launches a frame on both steps;
 20. bench — the benchmark (python -m gridmap_slam_tpu_torch.bench) in
-   this process through its own entry point: both of its cells, parity
-   and mega_surface, at 3 timed replays; its exit code 0, its last line
-   parsed with "correct": true and every share of a kernel's bound at most
-   1; then each cell's control (--control: a kernel reading its input in
-   bf16) must fail the benchmark's check of each kernel call against its
+   this process through its own entry point: every cell file of
+   bench/cells (chip, city_surface, mega_blocked, mega_surface, parity),
+   at 3 timed replays; its exit code 0, its last line parsed with
+   "correct": true, headed by mega_surface (the fastest cell of most
+   particles) with bench.py's vs_baseline, and every share of a kernel's
+   bound at most 1 (mega_blocked's K1 calls held on their first and last
+   2048 particles); then each cell's control (--control: a kernel reading
+   its input in bf16) must fail the benchmark's check of each kernel call against its
    plain version.  The kernels' bounds everywhere in this script are the
    benchmark's (gridmap_slam_tpu_torch/bench/kernels/).
 
 Each path (parity, mega, city, mega_blocked, multi at each particle count,
 the posegraph flow's three parts: the filter, closure detection, the
-rebuild; chip; the captured phase's eleven, captured_<path>, counted over
+rebuild; chip; the captured phase's twelve, captured_<path>, counted over
 the call that warms up and captures; the parallel phase's five: shmap,
 shmap_surface, tiled, surface_sharded, sharded; the cli phase's eight: cli_replay,
 cli_load_map, cli_surface, cli_tiled, cli_surface_sharded, cli_posegraph,
@@ -232,6 +240,10 @@ import torch
 # peak for their type and its bytes over the HBM rate), counted from the
 # call's own inputs, as the benchmark counts it
 from gridmap_slam_tpu_torch.bench.bounds import BF16_TC_FLOPS
+# a recorded call of more than FULL_PARTICLES particles is compared on its
+# first and its last SLICE_PARTICLES, as the benchmark's agreement compares
+from gridmap_slam_tpu_torch.bench.bounds import (FULL_PARTICLES,
+                                                 compared_parts)
 from gridmap_slam_tpu_torch.bench.bounds import \
     particle_slice as _particle_slice
 from gridmap_slam_tpu_torch.bench.kernels.k1 import k1_bound
@@ -1498,8 +1510,6 @@ _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
 PATH_MAX_ERR = {row: 0.0 for row in KERNEL_ROWS.values()}
 BOUNDS = {"K1": k1_bound, "K2": k2_bound, "K3": k3_bound, "K1t": k1t_bound,
           "K2w": k2w_bound, "K4": k4_bound}
-FULL_MAX = 4096      # a recorded call of more particles is compared on
-SLICE = 2048         # its first and its last SLICE particles
 
 
 def _sig(x):
@@ -1578,8 +1588,8 @@ class CallRecorder:
 
 def check_recorded(rec: CallRecorder, launches_by_path) -> list:
     """Each recorded call again, on the kernel and on its plain version, on
-    the very arguments the path passed: whole up to FULL_MAX particles, else
-    the real call's first and last SLICE particles' rows against the plain
+    the very arguments the path passed: whole up to FULL_PARTICLES, else
+    the real call's first and last SLICE_PARTICLES' rows against the plain
     version on those particles.  Raises beyond the kernel's tolerance, or
     where a kernel launched on a path (`launches_by_path`) has no recorded
     call there.  Returns the checks, one dict a call."""
@@ -1590,7 +1600,7 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
         plain_fn = getattr(mod, attr.replace("_cuda", "_plain"))
         p = (1 if kernel in ("K2w", "K4") else
              (args[4] if kernel in ("K1", "K1t") else args[0]).shape[0])
-        parts = [(0, p)] if p <= FULL_MAX else [(0, SLICE), (p - SLICE, SLICE)]
+        parts = compared_parts(p)
         got_all = cuda_fn(*args, **kw)
         err, beyond, changed, n_out = 0.0, 0, 0, 0
         for a, n in parts:
@@ -1612,7 +1622,8 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
         del got_all
         first = args if parts[0][1] == p else _particle_slice(
             kernel, args, *parts[0])
-        ms = cuda_ms(lambda: cuda_fn(*args, **kw), 20 if p <= FULL_MAX else 3)
+        ms = cuda_ms(lambda: cuda_fn(*args, **kw),
+                     20 if p <= FULL_PARTICLES else 3)
         plain_ms = cuda_ms(lambda: plain_fn(*first, **kw), 3)
         if kernel == "K2w":        # the window's cells, not the map's
             n_out = kw["size"][0] * kw["size"][1]
@@ -2293,15 +2304,24 @@ def posegraph_parts(cfg, traj, seq, flow_closures, dev="cuda"):
     return in_graph
 
 
+def grand_tour_config(particles):
+    """The CLI's defaults (360 beam slots, no chunk) on the map of
+    docs/ate_parity_grand_tour_216.json: 14 x 14 m at 5 cm."""
+    from gridmap_slam_tpu_torch import SlamConfig
+    from gridmap_slam_tpu_torch.config import MapConfig
+    return SlamConfig(num_particles=particles, max_beams=360,
+                      particle_chunk=0,
+                      map=MapConfig(width_m=14.0, height_m=14.0,
+                                    resolution=0.05, origin=(-7.0, -7.0)))
+
+
 def posegraph_phase(dev="cuda", particles=200, path=GRAND_TOUR, scans=None):
     """app/cli.py:360-400 on the port: the RBPF over the log, keyframes,
     closures, Gauss-Newton and the rebuilt map (the frontend on its
     captured pieces), twice with one seed; online ATE held to the JAX
     package's + 0.06 m; then the three pieces eager beside captured
     (posegraph_parts)."""
-    from gridmap_slam_tpu_torch import (RBPF, FrontendConfig, PoseGraphSLAM,
-                                        SlamConfig)
-    from gridmap_slam_tpu_torch.config import MapConfig
+    from gridmap_slam_tpu_torch import RBPF, FrontendConfig, PoseGraphSLAM
     from gridmap_slam_tpu_torch.io import (frame_at, frames_to_device,
                                            read_recording)
     from gridmap_slam_tpu_torch.models import posegraph as PG
@@ -2310,11 +2330,7 @@ def posegraph_phase(dev="cuda", particles=200, path=GRAND_TOUR, scans=None):
 
     frames = read_recording(path)[:scans]
     gt = np.load(path.replace(".rec", "_gt.npy"))[:len(frames)]
-    # the CLI's defaults (360 beam slots, no chunk) on the map of
-    # docs/ate_parity_grand_tour_216.json
-    cfg = SlamConfig(num_particles=particles, max_beams=360, particle_chunk=0,
-                     map=MapConfig(width_m=14.0, height_m=14.0,
-                                   resolution=0.05, origin=(-7.0, -7.0)))
+    cfg = grand_tour_config(particles)
     batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
                              device=dev)
     seq = [frame_at(batch, i) for i in range(len(frames))]
@@ -2710,18 +2726,20 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                   step_jit=None):
     """One path eager and captured from one seed: the eager loop (its
     launch counts, peak memory, a warm run's time, a profiled run), then
-    the captured replay, the whole log one graph: its first call (warm-up
-    and capture: the launch counts), a warm call under the sync check that
+    the captured replay, the log's n scans in ceil(n / CHUNK_SCANS) graph
+    launches (one up to CHUNK_SCANS scans): its first call (warm-up and
+    capture: the launch counts), a warm call under the sync check that
     must launch no kernel from Python, a timed call and a profiled call,
-    which must make one graph launch.  Both captured runs must equal the
-    eager one in every field of the final state and of every stacked info,
-    and leave the generator where the eager run leaves it (its next draw);
-    ATE under `ate_max`.  The graph's kernel nodes, read from the graph
-    itself, must be n times the eager loop's launches a scan of each of the
-    repo's kernels, and be a graph of one scan's nodes n times over: the
-    same replay then takes a log of the first scan alone (a graph of its
-    own beside the first, as the graph a scan before the whole log was one
-    graph), whose infos must equal the eager run's first.  The profiler's
+    which must make that many graph launches.  Both captured runs must
+    equal the eager one in every field of the final state and of every
+    stacked info, and leave the generator where the eager run leaves it
+    (its next draw); ATE under `ate_max`.  The kernel nodes of the graph of
+    the first chunk (m scans), read from the graph itself, must be m times
+    the eager loop's launches a scan of each of the repo's kernels, and
+    every graph of the replay a graph of one scan's nodes its length times
+    over: the same replay then takes a log of the first scan alone (a graph
+    of its own beside the others), whose infos must equal the eager run's
+    first.  The profiler's
     count of kernels a scan over the profiled replay is printed beside, and
     must see each one at least once and none more often than the graph
     holds it (its CUPTI records of graph kernels can drop a few hundredths
@@ -2729,7 +2747,9 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     memory are printed for both graphs.  Returns (the counts of the first
     captured call, the kernels a scan inside the graph)."""
     from gridmap_slam_tpu_torch.io import frame_at
-    from gridmap_slam_tpu_torch.models.captured import (WARMUP_STEPS,
+    from gridmap_slam_tpu_torch.models.captured import (CHUNK_SCANS,
+                                                        WARMUP_STEPS,
+                                                        graph_kernel_names,
                                                         stack_steps,
                                                         tree_map)
     from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
@@ -2779,7 +2799,8 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     _, prof_c = _profiled(lambda: replay(s0, frames, g0), n)
     cap = replay.captured
     names = cap.kernel_names()
-    graph = dict(scans=cap.scans, kernel_nodes=len(names),
+    m, launches = cap.scans, cap.launches
+    graph = dict(scans=m, kernel_nodes=len(names),
                  nodes_by_type=cap.node_types(),
                  capture_seconds=cap.capture_seconds,
                  first_call_seconds=sec_capture, peak_gb=peak_c / 1e9)
@@ -2795,7 +2816,10 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                     capture_seconds=cap.capture_seconds,
                     first_call_seconds=sec_one,
                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    periodic = _one_scan_periods(names, names_one, n)
+    # every graph of the replay (the chunks' lengths and the one scan's)
+    periodic = {k[0]: _one_scan_periods(
+        graph_kernel_names(gr.raw_cuda_graph()), names_one, k[0])
+        for k, gr in cap.graphs.items()}
 
     bits = {"state": _fields_differing(st_e, st_c),
             "infos": _fields_differing(inf_e, inf_c),
@@ -2820,7 +2844,7 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     ates = ([ate_rmse(traj, gt[:n])] if traj.ndim == 2 else
             [ate_rmse(traj[:, r], g) for r, g in enumerate(gt)])
     eager_per_scan = {k: eager_counts[k] / n for k in KERNEL_SYMBOLS}
-    in_graph = {k: v / n for k, v in _node_counts(names).items()}
+    in_graph = {k: v / m for k, v in _node_counts(names).items()}
     seen = prof_c["kernels_per_scan"]
     visible = any(v > 0 for v in seen.values())
     row = dict(path=name, scans=n, particles=eng.config.num_particles,
@@ -2829,6 +2853,8 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                captures=cap.captures, capacity=cap.capacity,
                warmup_steps=WARMUP_STEPS,
                graph_launches_a_replay=prof_c["graph_launches"],
+               graph_launches_wanted=-(-n // CHUNK_SCANS),
+               chunk_scans=CHUNK_SCANS,
                launches_in_capture_call=capture_counts,
                python_launches_in_warm_replay=replay_counts,
                kernels_per_scan_eager=eager_per_scan,
@@ -2852,9 +2878,14 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
         raise AssertionError(f"captured {name}: fields or the generator's "
                              f"next draw differ from the eager loop or "
                              f"between captured runs")
-    if prof_c["graph_launches"] != 1:
+    if not prof_c["graph_launches"] == launches == -(-n // CHUNK_SCANS):
         raise AssertionError(f"captured {name}: {prof_c['graph_launches']} "
-                             f"graph launches in a replay call, not 1")
+                             f"graph launches in a replay call of {n} "
+                             f"scans ({launches} chunks), not "
+                             f"{-(-n // CHUNK_SCANS)}")
+    if m != min(n, CHUNK_SCANS) or max(periodic) > CHUNK_SCANS:
+        raise AssertionError(f"captured {name}: a graph of more than "
+                             f"{CHUNK_SCANS} scans: {sorted(periodic)}")
     if any(replay_counts.values()):
         raise AssertionError(f"captured {name}: a warm replay launched a "
                              f"kernel from Python: {replay_counts}")
@@ -2865,10 +2896,10 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     if any(in_graph[k] != eager_per_scan[k] for k in KERNEL_SYMBOLS):
         raise AssertionError(f"captured {name}: kernels a scan inside the "
                              f"graph {in_graph} != eager {eager_per_scan}")
-    if not periodic:
-        raise AssertionError(f"captured {name}: the graph's {len(names)} "
-                             f"kernel nodes are not the one-scan graph's "
-                             f"{len(names_one)} with its scan {n} times")
+    if not all(periodic.values()):
+        raise AssertionError(f"captured {name}: a graph's kernel nodes are "
+                             f"not the one-scan graph's {len(names_one)} "
+                             f"with its scan its length times: {periodic}")
     if visible and not all(0 < seen[k] <= in_graph[k]
                            for k in needed if k in KERNEL_SYMBOLS):
         raise AssertionError(f"captured {name}: the profiler saw kernels a "
@@ -2886,7 +2917,9 @@ def refine_config():
 
 def captured_phase(frames, gt):
     """Every path eager and captured (captured_path): parity (with
-    step_jit), chip, mega (12 scans and the 40 of room_loop_40.rec), mega
+    step_jit), chip, the RBPF at the posegraph phase's 200 particles and
+    map over the 216 scans of grand_tour_216.rec (14 graph launches a
+    call), mega (12 scans and the 40 of room_loop_40.rec, 3 launches), mega
     with two refine steps, mega with the direct correlation in bf16 on K4
     (mega_bf16) and in float32 (mega_direct), city and city in bf16 on K4
     (city_bf16), mega_blocked over 6 scans and multi at 10 000 a robot.
@@ -2913,18 +2946,24 @@ def captured_phase(frames, gt):
 
     room = read_recording(CLI_LOG)
     room_gt = np.load(CLI_LOG.replace(".rec", "_gt.npy"))
-    for name, cfg, particles, chunk in (
-            ("parity", parity_config(), None, None),
-            ("chip", parity_config(), CHIP_PARTICLES, CHIP_CHUNK)):
-        if particles:
-            cfg = cfg.replace(num_particles=particles, particle_chunk=chunk)
+    tour = read_recording(GRAND_TOUR)
+    tour_gt = np.load(GRAND_TOUR.replace(".rec", "_gt.npy"))
+    for name, cfg, log, log_gt, ate_max in (
+            ("parity", parity_config(), frames, gt, ATE_MAX_M),
+            ("chip", parity_config().replace(
+                num_particles=CHIP_PARTICLES, particle_chunk=CHIP_CHUNK),
+             frames, gt, ATE_MAX_M),
+            # a long log: 216 scans in chunks of CHUNK_SCANS
+            ("grand_tour_216", grand_tour_config(200), tour, tour_gt,
+             POSEGRAPH_ATE_MAX_M)):
         eng = RBPF(cfg, device="cuda")
-        batch, seq = stacked(cfg, frames)
+        batch, seq = stacked(cfg, log)
         record(name, captured_path(
             name, eng, eng.init,
             lambda s, g, e=eng, q=seq: e.run_log(s, q, g), eng.replay_jit,
-            batch, len(seq), gt, ATE_MAX_M,
+            batch, len(seq), log_gt, ate_max,
             step_jit=eng.step_jit if name == "parity" else None))
+        del eng, batch, seq
     for name, cfg, log, log_gt, ate_max in (
             ("mega", mega_config(), frames, gt, ATE_MAX_M),
             ("mega room_loop_40", mega_config(), room, room_gt,
@@ -4136,19 +4175,28 @@ def _bench_run(argv):
 
 def bench_phase():
     """The benchmark (gridmap_slam_tpu_torch/bench) through its own entry
-    point in this process: every cell at 3 timed replays.  Fails unless
-    it exits 0, its last line parses with `"correct": true` and no share of
-    a bound reads over 1; then each cell's control (--control) must fail
+    point in this process: every cell file of bench/cells at 3 timed
+    replays.  Fails unless it exits 0, its last line parses with
+    `"correct": true`, one record a cell file, the head `mega_surface` (the
+    fastest of most particles) and bench.py's `vs_baseline`, and no share
+    of a bound reads over 1; then each cell's control (--control) must fail
     its reference comparison.  Returns the launches of the first run."""
+    from gridmap_slam_tpu_torch.bench.cells import load_cells
+    n_cells = len(load_cells())
     kernels = _zero_launches()
     rc, last, cells = _bench_run(["--reps", "3", "--min-seconds", "0"])
     launches = {k: mod.launches for k, mod in kernels.items()}
     shares = {c["cell"]: {k: v for k, v in (c.get("per_layer") or {}).items()
                           if k.startswith("share_of_bound")} for c in cells}
     say("bench", rc=rc, correct=last["correct"], cells=sorted(last["cells"]),
+        head=last["cell"], vs_baseline=last.get("vs_baseline"),
+        line_bytes=len(json.dumps(last, separators=(",", ":"))),
         shares_of_bound=shares, launches=launches)
-    if rc != 0 or last["correct"] is not True or len(cells) != 2:
+    if rc != 0 or last["correct"] is not True or len(cells) != n_cells:
         raise AssertionError(f"bench: rc {rc}, last line {last}")
+    if last["cell"] != "mega_surface" or not last.get("vs_baseline", 0) > 0:
+        raise AssertionError(f"bench: the line heads with {last['cell']}, "
+                             f"vs_baseline {last.get('vs_baseline')}")
     if not all(shares.values()) or any(
             v > 1.0 for sh in shares.values() for v in sh.values()):
         raise AssertionError(f"bench: a share of a bound missing or over 1: "
@@ -4159,7 +4207,7 @@ def bench_phase():
              for c in controls}
     say("bench_control", rc=rc, correct=last["correct"],
         share_beyond_tolerance=agree)
-    if rc == 0 or len(controls) != 2 or any(
+    if rc == 0 or len(controls) != n_cells or any(
             c["correct"] or c["kernels_agree"] for c in controls):
         raise AssertionError(f"bench: a control passed: {agree}")
     return launches

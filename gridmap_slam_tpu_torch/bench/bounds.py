@@ -54,6 +54,22 @@ def group_rows(t, p, a, n):
     raise ValueError(f"particles [{a}, {a + n}) cut a group of {per}")
 
 
+# A kernel call of more particles than FULL_PARTICLES is held against its
+# plain version on its first and its last SLICE_PARTICLES particles (the
+# plain version at a 500 000-particle block cannot be materialised); the
+# benchmark's agreement (kernels/k1.py) and chip_smoke.py take these.
+FULL_PARTICLES, SLICE_PARTICLES = 4096, 2048
+
+
+def compared_parts(p: int):
+    """The (first particle, particles) ranges of a call of p particles
+    held against the plain version: the whole call up to FULL_PARTICLES,
+    else its first and its last SLICE_PARTICLES."""
+    if p <= FULL_PARTICLES:
+        return [(0, p)]
+    return [(0, SLICE_PARTICLES), (p - SLICE_PARTICLES, SLICE_PARTICLES)]
+
+
 def particle_slice(kernel, args, a, n):
     """A kernel call's arguments for its particles [a, a + n) alone (each
     particle's output depends on its own rows only)."""

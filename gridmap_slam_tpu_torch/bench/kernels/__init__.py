@@ -20,15 +20,22 @@ import pkgutil
 import re
 from typing import Callable, Optional, Tuple
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class Entry:
     """An entry point `ops/cuda/<module>.<name>_cuda` (the kernel) beside
     `<name>_plain` (its plain version); bound(args, kw) -> (ms, "operations"
-    or "bytes") on the entry's arguments."""
+    or "bytes") on the entry's arguments.  Where `parts` is given, parts(
+    args) -> [(first row, rows, the arguments of those rows alone)] of the
+    output held against the plain version, each part's plain version run
+    on its own arguments (a call too large for its plain version); else
+    the whole call."""
     module: str
     name: str
     bound: Callable
+    parts: Optional[Callable] = None
 
     def ops(self):
         return importlib.import_module(
@@ -85,11 +92,12 @@ def patched(kernels, wrap: Callable, suffix: str = "cuda"):
 
 class Agreement:
     """Each call of a kernel against its plain version on the same
-    arguments (the plain version run first: K2 may update its input in
-    place).  Made before anything is patched, it keeps the plain versions
-    as they are; wrap() is `patched`'s wrap.  `rows` holds, for each kernel
-    called, its calls, the worst share of an output beyond the tolerance,
-    the largest absolute error, and whether every call kept its limit."""
+    arguments, or on the parts its entry names (the plain version run
+    first: K2 may update its input in place).  Made before anything is
+    patched, it keeps the plain versions as they are; wrap() is `patched`'s
+    wrap.  `rows` holds, for each kernel called, its calls, the worst share
+    of an output beyond the tolerance, the largest absolute error, and
+    whether every call kept its limit."""
 
     def __init__(self, kernels: dict):
         self.kernels = kernels
@@ -102,10 +110,17 @@ class Agreement:
         agreement = self.kernels[kernel].agreement
 
         def call(*args, **kw):
-            ref = plain(*args, **_plain_kw(plain, kw))
+            pkw = _plain_kw(plain, kw)
+            parts = entry.parts(args) if entry.parts else None
+            if parts is None:
+                ref = plain(*args, **pkw)
+            else:
+                ref = torch.cat([plain(*sub, **pkw) for _, _, sub in parts])
             out = real(*args, **kw)
-            share, limit = agreement(out, ref, kw)
-            err = float((out - ref).abs().max()) if out.numel() else 0.0
+            got = out if parts is None else torch.cat(
+                [out[a:a + n] for a, n, _ in parts])
+            share, limit = agreement(got, ref, kw)
+            err = float((got - ref).abs().max()) if got.numel() else 0.0
             row = self.rows.setdefault(kernel, dict(
                 calls=0, share=0.0, max_abs_err=0.0, ok=True))
             row["calls"] += 1

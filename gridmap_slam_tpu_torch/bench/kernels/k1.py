@@ -8,6 +8,7 @@ import re
 import torch
 
 from ...ops.cuda import matcher as kmatch
+from .. import bounds
 from ..bounds import bound, nbytes
 from . import Entry, Kernel
 
@@ -110,9 +111,23 @@ def k1_agreement(out, ref, kw):
             K1_NEAREST_MAX_SHARE if kw.get("nearest") else 0.0)
 
 
+def k1_parts(args):
+    """The particles of a K1 call held against the plain version
+    (bounds.compared_parts: the first and last SLICE_PARTICLES of a call of
+    more than FULL_PARTICLES, such as a 500 000-particle block; each
+    particle's scores depend on its own rows only), as Entry.parts; None
+    for the whole call."""
+    parts = bounds.compared_parts(args[4].shape[0])
+    if len(parts) == 1:
+        return None
+    return [(a, n, bounds.particle_slice("K1", args, a, n))
+            for a, n in parts]
+
+
 KERNEL = Kernel(
     "K1",
     # the untiled instantiations (kTiled false), mangled or demangled
     re.compile(r"stage_scores_kernelILb[01]ELb[01]ELi\d+ELb0E"
                r"|stage_scores_kernel<\w+, \w+, \d+, false>"),
-    (Entry("matcher", "stage_scores_batch", k1_bound),), k1_agreement)
+    (Entry("matcher", "stage_scores_batch", k1_bound, k1_parts),),
+    k1_agreement)

@@ -25,18 +25,25 @@ def k2_bound(args, kw):
 
 
 def k2w_bound(args, kw):
-    """K2's window variant's bound: K2_FLOPS_CELL a window cell; the map
-    read and the new map written once (the call returns a whole map),
-    the pose, its window's place and the tables read once."""
-    lo = args[0]
+    """K2's window variant's bound: K2_FLOPS_CELL a window cell; the
+    window's cells read and written once, the pose, its window's place and
+    the tables read once.  The kernel touches the window alone: where the
+    call returns a new map (no `out`, or `out` another tensor) the copy of
+    the map is PyTorch's, before the kernel, and not counted."""
     hw, ww = kw["size"]
-    return bound(K2_FLOPS_CELL * hw * ww, nbytes(args) + nbytes([lo]))
+    cells = hw * ww
+    return bound(K2_FLOPS_CELL * cells,
+                 2 * cells * args[0].element_size() + nbytes(args[1:]))
 
 
 def k2_agreement(out, ref, kw):
     """(share of the cells beyond atol of the plain version's, the most
-    that may be)."""
-    return float(((out - ref).abs() > K2_ATOL).float().mean()), K2_MAX_SHARE
+    that may be).  The window variant's share is of its window's cells
+    (chip_smoke.py's rule): it updates no other cell, and a share of the
+    whole map would hide a wrong window under the map's untouched rest."""
+    beyond = int(((out - ref).abs() > K2_ATOL).sum())
+    cells = kw["size"][0] * kw["size"][1] if "size" in kw else out.numel()
+    return beyond / cells, K2_MAX_SHARE
 
 
 KERNEL = Kernel(

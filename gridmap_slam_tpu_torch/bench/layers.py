@@ -3,8 +3,9 @@ timed ones.  The cell file names the metrics; each `<kind>.<part>` is read
 here, a part being a kernel (kernels/) or a span (spans/).
 
 - device_ms_a_scan.<kernel>: PROFILED_REPLAYS captured replays under
-  torch.profiler.  A replay is one graph launch that holds the whole log
-  (models/captured.Captured: `scans` scans), so the graph's counts are
+  torch.profiler.  A replay of a cell's log (no more scans than
+  models/captured.CHUNK_SCANS) is one graph launch that holds the whole
+  log (models/captured.Captured: `scans` scans), so the graph's counts are
   divided by the scans it holds.  The profiler's records of graph kernels
   can drop a few hundredths of a busy run, so a kernel's time a scan is the
   mean of its records times its nodes a scan (models/captured.

@@ -17,7 +17,8 @@ preset's engine and its captured replay, and
 4. replay rep 0's seed once more, eagerly, each kernel call beside its
    plain PyTorch version on the same arguments (kernels.Agreement): every
    call must keep its kernel's tolerance;
-5. on the card, the per-layer metrics (layers.py) from other replays.
+5. on the card, the per-layer metrics (layers.py) from other replays
+   (not under --control, whose run is a check).
 
 With --control each cell runs its control instead (the cell file's
 `control`: the kernels named in `round_bf16` read their first argument
@@ -27,7 +28,10 @@ check must fail.
 Every metric is printed by name with its unit on lines before the last;
 each cell also prints one JSON line `{"cell": ...}` and its breakdown.  The
 last line is one compact JSON object: `metric`, `value` and `unit` (the
-scans/s of the cell of most particles), `correct`, and each cell's
+scans/s of the head cell: the cell of most particles, among equal counts
+the fastest, as bench.py's ladder heads its line, bench.py:530-533),
+bench.py's baseline fields at the head cell's particles (baseline.py:
+`vs_baseline` and the rates it divides by), `correct`, and each cell's
 end-to-end metrics.  The run fails (exit 1, `"correct": false`) where an
 ATE passes its limit, the state is not finite, the repeated replay differs
 or a kernel call leaves its tolerance; asking for --device cuda without a
@@ -61,6 +65,7 @@ import torch
 from ..io import frames_to_device
 from ..models import captured
 from ..utils.metrics import ate_rmse
+from . import baseline
 from . import cells as C
 from . import kernels as K
 from . import layers
@@ -153,6 +158,7 @@ def run_cell(cell: C.Cell, preset: C.Preset, args, device, kernels: dict,
             _sync(device)
             setup_s = time.perf_counter() - t0
 
+        t_timed = time.perf_counter()
         seconds, ates, finite, first = [], [], True, None
         while len(seconds) < MAX_REPS and (
                 len(seconds) < args.reps or sum(seconds) < args.min_seconds):
@@ -169,16 +175,24 @@ def run_cell(cell: C.Cell, preset: C.Preset, args, device, kernels: dict,
             del state, infos
         peak_gb = ((torch.cuda.max_memory_allocated(device) - base) / 1e9
                    if device.type == "cuda" else None)
+        stage = {"setup": setup_s, "timed": time.perf_counter() - t_timed}
+        t0 = time.perf_counter()
         s0, g = inputs(0)
         repeated = _same_bits(first, replay(s0, batch, g))
         del first
+        stage["repeat"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         s0, g = inputs(0)
         with K.patched(kernels.values(), agreement.wrap, _suffix(device)):
             eager(s0, batch, g)
-        if device.type == "cuda":
+        _sync(device)
+        stage["agreement"] = time.perf_counter() - t0
+        if device.type == "cuda" and not args.control:
+            t0 = time.perf_counter()
             per_layer, breakdown = layers.measure(
                 cell, kernels, span_nodes, replay, eager, batch, inputs, n,
                 sum(seconds) / (n * len(seconds)))
+            stage["layers"] = time.perf_counter() - t0
         del eng, replay, eager
 
     rates = [n / s for s in seconds]
@@ -199,7 +213,7 @@ def run_cell(cell: C.Cell, preset: C.Preset, args, device, kernels: dict,
         ate_m=dict(max=ate_max, median=statistics.median(ates)),
         kernels_agree=agree, agreement=agreement.rows,
         finite=finite, repeat_bits_equal=repeated, correct=correct,
-        per_layer=per_layer, breakdown=breakdown)
+        stage_seconds=stage, per_layer=per_layer, breakdown=breakdown)
 
 
 def device_name(device) -> str:
@@ -244,6 +258,9 @@ def print_cell(rec: dict, cell: C.Cell) -> None:
     print(f"{name} finite {rec['finite']}; repeat_bits_equal "
           f"{rec['repeat_bits_equal']}; control {rec['control']}; correct "
           f"{rec['correct']}")
+    print(f"{name} stage_seconds " + ", ".join(
+        f"{k} {v:.4g}" for k, v in rec["stage_seconds"].items())
+        + " s (the cell's wall time by stage; not a metric)")
     layer = rec["per_layer"] or {}
     for metric, unit in cell.per_layer.items():
         v = layer.get(metric)
@@ -262,16 +279,28 @@ def _number(x):
     return x if math.isfinite(x) else None
 
 
-def last_line(records: Sequence[dict], device, control: bool) -> dict:
-    """The run's result: the scans/s of the cell of most particles (as
-    bench.py's ladder heads its line), `correct`, and each cell's
-    end-to-end metrics and correctness."""
+def head_cell(records: Sequence[dict]) -> Optional[dict]:
+    """The record the line heads with: of most particles, among equal
+    counts the fastest (bench.py:530-533: city at 1M must not displace
+    mega's number); None where no cell ran."""
     done = [r for r in records if "scans_per_sec" in r]
-    head = max(done, key=lambda r: r["particles"]) if done else None
+    return max(done, key=lambda r: (r["particles"],
+                                    r["scans_per_sec"]["value"]),
+               default=None)
+
+
+def last_line(records: Sequence[dict], device, control: bool) -> dict:
+    """The run's result: the head cell's scans/s (head_cell) and bench.py's
+    baseline fields at its particles, `correct`, and each cell's
+    end-to-end metrics and correctness."""
+    head = head_cell(records)
     return {
         "metric": "scans_per_sec", "unit": "scans/s",
         "value": head and head["scans_per_sec"]["value"],
         "cell": head and head["cell"],
+        **(baseline.baseline_fields(head["scans_per_sec"]["value"],
+                                    head["particles"])
+           if head else dict.fromkeys(baseline.FIELDS)),
         "correct": bool(records) and all(r["correct"] for r in records),
         "control": control,
         "device": device_name(device),
@@ -320,6 +349,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print("no CUDA device: the benchmark runs on the card unless "
               "--device cpu is given", file=sys.stderr)
         return 2
+    t_run = time.perf_counter()
     presets, kernels, spans = C.load_presets(), K.load(), C.load_spans()
     print("device " + json.dumps(device_line(device)), flush=True)
     if device.type == "cuda":
@@ -345,6 +375,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         records.append(rec)
     line = json.dumps(last_line(records, device, args.control),
                       separators=(",", ":"))
+    print(f"run_seconds {time.perf_counter() - t_run:.6g} s (the whole run, "
+          f"the build included; not a metric)")
     if len(line.encode()) > LINE_LIMIT:
         raise AssertionError(f"the last line is {len(line)} bytes")
     print(line, flush=True)

@@ -1,5 +1,5 @@
-"""Whole-log replays: the eager scan and its captured form, one CUDA graph
-a log.
+"""Whole-log replays: the eager scan and its captured form, CUDA graphs of
+at most CHUNK_SCANS scans launched in turn.
 
 Counterpart of the JAX package's `jax.lax.scan` of a step over a stacked
 `Frame` batch (models/rbpf.py:293-306) and of `jax.jit(..., donate_argnums=
@@ -16,42 +16,57 @@ the generator in the calls and order of the eager step, or taken from
 `draws` stacked with a leading frame axis), and the infos stacked along a
 leading frame axis (`stack_steps`).
 
-`Captured` is the same loop with a whole log of n scans one replay of one
-graph.  It keeps static buffers: the state, the frames of up to `capacity`
-scans, one scan's draws, injected draws of up to `capacity` scans (where a
-call gives them), the stacked infos and a scan counter on the device.  A
-scan of the graph reads the frame at the counter, draws its draws into the
-static draws from a generator the `Captured` owns (the eager step's calls,
-in its order; injected draws are read at the counter instead), runs the
-step with `out=` the static state (the resample gather writes straight
-into it, so a scan copies no map beyond what the eager step copies),
-writes the info at the counter and adds one to it; the graph zeroes the
-counter first and holds n such scans in a row.  The owned generator is
-registered with every graph (CUDAGraph.register_generator_state): a replay
-draws from the Philox seed and offset the generator holds when it starts.
-Before a replay the caller's generator state (or the default generator's,
-where the caller gives none) is handed to the owned generator, after it
-handed back, so a captured run gives the eager run's bits in every draw and
-leaves the caller's generator where the eager run leaves it
-(scripts/graph_rng_probe.py checks this on the card).  A replay of n scans
-then launches from the host: the state and frames copied in, the owned
-generator's seed and offset set, one graph launch, and the infos copied
-out.
+`Captured` is the same loop with a whole log of n scans replayed as
+ceil(n / CHUNK_SCANS) launches of at most two graphs: a log of n <=
+CHUNK_SCANS scans is one graph of n scans and one launch; a longer one
+launches the graph of CHUNK_SCANS scans floor(n / CHUNK_SCANS) times,
+then the graph of the n mod CHUNK_SCANS scans left once.  So a graph
+holds at most CHUNK_SCANS scans' nodes whatever the log's length (JAX
+compiles one scan body for any length; a graph unrolled over a log of
+thousands of scans would take seconds to capture and host memory to
+hold).  It keeps static buffers: the state, the frames of up to
+`capacity` scans, one scan's draws, injected draws of up to `capacity`
+scans (where a call gives them), the stacked infos and a scan counter
+on the device; `capacity` is min(n, CHUNK_SCANS).  A scan of a graph
+reads the frame at the counter, draws its draws into the static draws
+from a generator the `Captured` owns (the eager step's calls, in its
+order; injected draws are read at the counter instead), runs the step
+with `out=` the static state (the resample gather writes straight into
+it, so a scan copies no map beyond what the eager step copies), writes
+the info at the counter and adds one to it; the graph zeroes the counter
+first and holds its m scans in a row.  Before each launch the chunk's
+frames (and injected draws) are copied into the buffers, after it the
+chunk's infos out of them; the state stays in its buffer from one launch
+to the next.  The owned generator is registered with every graph
+(CUDAGraph.register_generator_state): a launch draws from the Philox
+seed and offset the generator holds when it starts, and advances the
+offset by the graph's draws, so chunk i + 1 draws on where chunk i
+stopped.  Before the first launch the caller's generator state (or the
+default generator's, where the caller gives none) is handed to the owned
+generator, after the last handed back, so a captured run gives the eager
+run's bits in every draw and leaves the caller's generator where the
+eager run leaves it (scripts/graph_rng_probe.py checks this on the card).
+A replay of n <= CHUNK_SCANS scans then launches from the host: the
+state and frames copied in, the owned generator's seed and offset set,
+one graph launch, and the infos copied out.
 
-On a CUDA engine a graph is captured at the first call of each log length
-(and, injected draws or not, for each), and every graph is dropped when
-the shapes change or a longer log comes (the buffers are made anew, of
-that length).  Before a capture, warm-up scans of the one-scan body on a
-side stream build the kernel library and fill every cache a step reads
-(the kernels' launch plans, the matcher's offsets, cuFFT's plans, cuBLAS's
-workspace); capture runs on that same stream.  The graphs of one `Captured`
-share one memory pool: no tensor a capture allocates outlives it (every
-result goes to the static buffers), and they replay one at a time on one
-stream.  A capture or a generator handoff that fails raises: there is no
-fallback to the eager loop or to draws on the host.  On a CPU engine the
-same static-buffer loop runs the n scans, with the handoff around it.
-`Captured.kernel_names` lists the kernels the last call's graph holds, one
-entry a kernel node, read from the graph itself.
+On a CUDA engine a graph is captured at the first call that needs its
+length (and, injected draws or not, for each), before the call's first
+launch: a `Captured` holds at most 2 CHUNK_SCANS graphs.  Every graph is
+dropped when the shapes change or a log of more scans than the buffers
+hold comes (the buffers are made anew, of min(n, CHUNK_SCANS) scans).
+Before a capture, warm-up scans of the one-scan body on a side stream
+build the kernel library and fill every cache a step reads (the kernels'
+launch plans, the matcher's offsets, cuFFT's plans, cuBLAS's workspace);
+capture runs on that same stream.  The graphs of one `Captured` share one
+memory pool: no tensor a capture allocates outlives it (every result goes
+to the static buffers), and they replay one at a time on one stream.  A
+capture or a generator handoff that fails raises: there is no fallback
+to the eager loop or to draws on the host.  On a CPU engine the same
+static-buffer loop runs the n scans, chunk by chunk, with the handoff
+around it.  `Captured.kernel_names` lists the kernels the graph of the
+last call's first chunk holds, one entry a kernel node, read from the
+graph itself; `launches` counts the last call's chunks.
 
 `Graphed` is that capture for any body over static buffers: `Captured`
 is one, and so are the pose-graph frontend's three compiled pieces (the
@@ -74,6 +89,9 @@ import torch
 # eager steps on the side stream before capture: the first builds the
 # kernel library and fills the caches, the second runs on them as warm
 WARMUP_STEPS = 2
+# the most scans a captured graph holds: a longer log is replayed in
+# chunks of this many scans (models/captured.Captured)
+CHUNK_SCANS = 16
 
 
 def tree_map(fn, tree, *rest):
@@ -183,6 +201,7 @@ class Graphed:
         self.body = body
         self.device = torch.device(device)
         self._reset = reset
+        self._side = None
         self.generator = None
         self.graph = None
         self.captures = 0
@@ -196,13 +215,19 @@ class Graphed:
         the matcher's offsets, cuFFT's plans, the cuBLAS and cuSOLVER
         handles and workspaces), then the capture on that stream of
         `captured` (by default the body), in memory pool `pool` where one
-        is given.  The graph is kept beside its instance, for
+        is given.  Every capture of an instance runs on the same side
+        stream.  The graph is kept beside its instance, for
         kernel_names; `capture_seconds` is the capture's and the
         instantiation's host time.  A capture that fails raises."""
         self.graph = None
         if self.device.type != "cuda":
             return
-        side = torch.cuda.Stream(self.device)
+        # one side stream for every capture: the caching allocator reuses a
+        # freed block only on the stream it was allocated on, so graphs
+        # captured on one stream into one pool share its blocks
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        side = self._side
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
@@ -254,13 +279,21 @@ def default_generator(device: torch.device) -> torch.Generator:
     return torch.cuda.default_generators[index]
 
 
+def chunks(n: int) -> list:
+    """(first scan, scans) of each launch of a replay of n scans: chunks of
+    CHUNK_SCANS scans, the last one the rest."""
+    return [(a, min(CHUNK_SCANS, n - a)) for a in range(0, n, CHUNK_SCANS)]
+
+
 class Captured(Graphed):
-    """A whole log's filter steps captured as one graph, replayed once a
-    call (see the module docstring).  Calling it with (state, stacked
-    frames, generator, draws) returns (the static state, the infos stacked
-    over the scans): the static state is the capture's own buffer, which
-    the next call overwrites (the counterpart of donation); the infos are
-    fresh.  `scans` is the number of scans the last call's graph holds."""
+    """A whole log's filter steps captured as graphs of at most CHUNK_SCANS
+    scans, replayed in turn (see the module docstring).  Calling it with
+    (state, stacked frames, generator, draws) returns (the static state,
+    the infos stacked over the scans): the static state is the capture's
+    own buffer, which the next call overwrites (the counterpart of
+    donation); the infos are fresh.  `scans` is the number of scans the
+    graph of the last call's first chunk holds (`graph`), `launches` the
+    last call's chunks."""
 
     def __init__(self, step: Callable, draw: Callable, device):
         """step(state, frame, draws, out) -> (state, info);
@@ -273,7 +306,7 @@ class Captured(Graphed):
         self._key = None
         self._inject = False
         self._pool = None
-        self.capacity = self.scans = 0
+        self.capacity = self.scans = self.launches = 0
         self.graphs = {}
         self.state = self.frames = self.draws = self.injected = None
         self.infos = self.counter = None
@@ -303,44 +336,50 @@ class Captured(Graphed):
             self._body()
 
     def _prepare(self, state, frames, n: int):
-        """Static buffers for `n` scans of these shapes: kept from the last
-        call where they fit, else made anew (and every graph dropped)."""
+        """Static buffers for min(n, CHUNK_SCANS) scans of these shapes:
+        kept from the last call where they fit, else made anew (and every
+        graph dropped)."""
         def sig(tree, lead):
             return tuple((tuple(x.shape[lead:]), x.dtype, x.device)
                          for x in leaves(tree))
         key = (sig(state, 0), sig(frames, 1))
-        if key == self._key and n <= self.capacity:
+        m = min(n, CHUNK_SCANS)
+        if key == self._key and m <= self.capacity:
             return
-        self._key, self.capacity = key, n
+        self._key, self.capacity = key, m
         self.graphs, self.graph, self._pool = {}, None, None
         self.infos = self.injected = None
         if self.generator is None:
             self.generator = torch.Generator(device=self.device)
         self.state = tree_map(torch.clone, state)
-        self.frames = tree_map(lambda x: x.new_empty((n,) + x.shape[1:]),
+        self.frames = tree_map(lambda x: x.new_empty((m,) + x.shape[1:]),
                                frames)
         # one scan's draws (the warm-up's, and each scan's in the graph)
         self.draws = self._draw(self.generator)
         self.counter = torch.zeros((1,), dtype=torch.int64,
                                    device=self.device)
 
-    def _fill(self, state, frames, draws, n: int):
-        tree_map(copy_into, self.state, state)
-        tree_map(lambda buf, x: copy_into(buf[:n], x), self.frames, frames)
+    def _fill_chunk(self, frames, draws, a: int, m: int):
+        """The frames (and injected draws) of scans [a, a + m) into the
+        buffers' first m scans."""
+        tree_map(lambda buf, x: copy_into(buf[:m], x[a:a + m]), self.frames,
+                 frames)
         if draws is not None:
-            tree_map(lambda buf, x: copy_into(buf[:n], x), self.injected,
-                     draws)
+            tree_map(lambda buf, x: copy_into(buf[:m], x[a:a + m]),
+                     self.injected, draws)
 
-    def _graph(self, state, frames, draws, n: int):
-        """The graph of n scans (with injected draws or not), captured
-        where there is none yet, after warm-up scans of one scan each."""
-        key = (n, self._inject)
-        if key not in self.graphs:
-            self.capture(lambda: self._scans(n), pool=self._pool)
-            self._pool = self.graph.pool()
-            self.graphs[key] = self.graph
-            self._fill(state, frames, draws, n)     # the warm-up's changes
-        return self.graphs[key]
+    def _fill(self, state, frames, draws, m: int):
+        """The state and the first chunk of m scans into the buffers."""
+        tree_map(copy_into, self.state, state)
+        self._fill_chunk(frames, draws, 0, m)
+
+    def _capture(self, m: int):
+        """The graph of m scans (with injected draws or not), after warm-up
+        scans of one scan each on the buffers as they are filled (the
+        caller fills them anew), kept in `graphs`."""
+        self.capture(lambda: self._scans(m), pool=self._pool)
+        self._pool = self.graph.pool()
+        self.graphs[(m, self._inject)] = self.graph
 
     def __call__(self, state, frames, generator=None, draws=None):
         n = num_frames(frames)
@@ -356,7 +395,8 @@ class Captured(Graphed):
                 self.injected = tree_map(
                     lambda x: x.new_empty((self.capacity,) + x.shape),
                     self.draws)
-        self._fill(state, frames, draws, n)
+        parts = chunks(n)
+        self._fill(state, frames, draws, parts[0][1])
         caller = None
         if draws is None:
             caller = default_generator(self.device) if generator is None \
@@ -364,18 +404,35 @@ class Captured(Graphed):
             if caller.device.type != self.device.type:
                 raise ValueError(f"a generator on {caller.device} for an "
                                  f"engine on {self.device}")
+        graphs = {}
         if self.device.type == "cuda":
-            self.graph = self._graph(state, frames, draws, n)
-        self.scans = n
+            lengths = {m for _, m in parts}
+            missing = sorted((m for m in lengths
+                              if (m, self._inject) not in self.graphs),
+                             reverse=True)
+            for m in missing:
+                self._capture(m)
+            if missing:     # the warm-up scans changed the buffers
+                self._fill(state, frames, draws, parts[0][1])
+            graphs = {m: self.graphs[(m, self._inject)] for m in lengths}
+            self.graph = graphs[parts[0][1]]
+        self.scans, self.launches = parts[0][1], len(parts)
         if caller is not None:
             self.generator.set_state(caller.get_state())
-        if self.graph is not None:
-            self.graph.replay()
-        else:
-            self._scans(n)
+        out = []
+        for i, (a, m) in enumerate(parts):
+            if i:
+                self._fill_chunk(frames, draws, a, m)
+            if graphs:
+                graphs[m].replay()
+            else:
+                self._scans(m)
+            out.append(tree_map(lambda buf, m=m: buf[:m].clone(),
+                                self.infos))
         if caller is not None:
             caller.set_state(self.generator.get_state())
-        return self.state, tree_map(lambda buf: buf[:n].clone(), self.infos)
+        return self.state, (out[0] if len(out) == 1 else
+                            tree_map(lambda *xs: torch.cat(xs), *out))
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -440,9 +497,10 @@ def graph_chain(graph_handle: int) -> Optional[list]:
     dst = (ctypes.c_void_p * count.value)()
     _cu(cu, "cuGraphGetEdges", graph, src, dst, ctypes.byref(count))
     after = dict(zip(src, dst))
-    if len(after) != count.value or len(set(dst)) != count.value:
+    targets = set(dst)
+    if len(after) != count.value or len(targets) != count.value:
         return None
-    heads = [node for node in nodes if node not in set(dst)]
+    heads = [node for node in nodes if node not in targets]
     if len(heads) != 1:
         return None
     order = [heads[0]]

@@ -235,13 +235,13 @@ class MultiRobotSLAM:
         return state, infos
 
     def replay_jit(self):
-        """`replay` of stacked ticks with all the ticks one replay of one
-        captured CUDA graph of `step`, their draws inside (on a CPU engine,
-        the same static-buffer loop calling the step): the counterpart of
-        `jax.jit(eng.replay)`, with the same arguments, results and bits,
-        and the generator left where `replay` leaves it.  A graph is
-        captured at the first call of each log length; keep the function
-        to reuse them."""
+        """`replay` of stacked ticks replayed as captured CUDA graphs of
+        at most captured.CHUNK_SCANS ticks of `step`, launched in turn,
+        their draws inside (on a CPU engine, the same static-buffer loop
+        calling the step): the counterpart of `jax.jit(eng.replay)`, with
+        the same arguments, results and bits, and the generator left
+        where `replay` leaves it.  A graph is captured at the first call
+        that needs its length; keep the function to reuse them."""
         return captured.replay_fn(captured.Captured(
             self._scan_step, self._draws, self.device))
 

@@ -234,12 +234,13 @@ class RBPF:
                              generator, draws)
 
     def replay_jit(self):
-        """`replay` with the whole log one replay of one captured CUDA
-        graph of its scans, their draws inside (on a CPU engine, the same
-        static-buffer loop calling the step): the same arguments and
-        results, the same bits, and the generator left where `replay`
-        leaves it.  A graph is captured at the first call of each log
-        length; keep the function to reuse them."""
+        """`replay` with the whole log replayed as captured CUDA graphs of
+        at most captured.CHUNK_SCANS scans, launched in turn, their draws
+        inside (on a CPU engine, the same static-buffer loop calling the
+        step): the same arguments and results, the same bits, and the
+        generator left where `replay` leaves it.  A graph is captured at
+        the first call that needs its length; keep the function to reuse
+        them."""
         return captured.replay_fn(captured.Captured(
             self._scan_step, self._draws, self.device))
 

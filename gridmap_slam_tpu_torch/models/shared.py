@@ -572,19 +572,19 @@ class SharedMapSLAM:
                              frames, generator, draws)
 
     def replay_jit(self, block: int = 0):
-        """`replay` of a stacked batch with the whole log one replay of one
-        captured CUDA graph of its scans of `step` (or
-        `step_blocked(block)`), their draws inside; on a CPU engine the
-        same static-buffer loop calling the step.  The same arguments,
-        results and bits, and the generator left where `replay` leaves
-        it.  A graph is captured at the first call of each log length;
-        keep the function to reuse them."""
+        """`replay` of a stacked batch with the whole log replayed as
+        captured CUDA graphs of at most captured.CHUNK_SCANS scans of
+        `step` (or `step_blocked(block)`), launched in turn, their draws
+        inside; on a CPU engine the same static-buffer loop calling the
+        step.  The same arguments, results and bits, and the generator
+        left where `replay` leaves it.  A graph is captured at the first
+        call that needs its length; keep the function to reuse them."""
         return captured.replay_fn(captured.Captured(
             self._matcher_scan_step(block), self._draw, self.device))
 
     def replay_surface_jit(self):
-        """`replay_surface` with the whole log one replay of one captured
-        CUDA graph of its scans of step_surface (see replay_jit)."""
+        """`replay_surface` as captured CUDA graphs of step_surface (see
+        replay_jit)."""
         return captured.replay_fn(captured.Captured(
             self._surface_scan_step, self._draw, self.device))
 

@@ -137,10 +137,10 @@ class MeshStep:
                              generator, draws)
 
     def replay_jit(self):
-        """`replay` with the whole log one replay of one captured graph of
-        the compiled body's scans, their draws and collectives inside: the
-        same arguments, results and bits.  Keep the function to reuse its
-        graphs."""
+        """`replay` with the whole log replayed as captured graphs of at
+        most captured.CHUNK_SCANS scans of the compiled body, launched in
+        turn, their draws and collectives inside: the same arguments,
+        results and bits.  Keep the function to reuse its graphs."""
         return captured.replay_fn(captured.Captured(
             self._compiled, self._draw, self.device))
 

@@ -24,7 +24,7 @@ import torch
 import bench
 import gridmap_slam_tpu
 import gridmap_slam_tpu.models.shared as jshared
-from gridmap_slam_tpu_torch.bench import bounds, cells, layers, run
+from gridmap_slam_tpu_torch.bench import baseline, bounds, cells, layers, run
 from gridmap_slam_tpu_torch.bench import kernels as K
 from gridmap_slam_tpu_torch.bench.kernels import k1
 from gridmap_slam_tpu_torch.models.shared import matcher_block_size
@@ -47,11 +47,14 @@ CELLS = cells.load_cells()
 
 
 @pytest.mark.parametrize("cell,particles", [
-    ("parity", 16), ("mega_surface", 256), (None, 16)])
+    ("parity", 16), ("mega_surface", 256), ("city_surface", 16),
+    ("mega_blocked", 16), ("chip", 16), (None, 16)])
 def test_cells_run_through_the_entry_point(capsys, cell, particles):
     argv = TINY + ["--particles", str(particles)]
     if cell:
         argv += ["--cell", cell]
+    if cell in ("city_surface", None):  # city's 512-cell FFT volume: 0.8 s
+        argv += ["--scans", "2"]        # a scan
     rc, lines, last = _run(capsys, argv)
     want = [cell] if cell else sorted(CELLS)
     assert rc == 0, lines
@@ -60,6 +63,9 @@ def test_cells_run_through_the_entry_point(capsys, cell, particles):
     assert last["unit"] == "scans/s" and last["metric"] == "scans_per_sec"
     assert last["value"] == last["cells"][last["cell"]]["scans_per_sec"] > 0
     assert list(last["cells"]) == want
+    assert last["cell"] == run.head_cell(
+        [json.loads(ln) for ln in lines if ln.startswith('{"cell"')])["cell"]
+    assert last["vs_baseline"] > 0 and set(last) >= set(baseline.FIELDS)
     assert set(last["units"]) >= set(cells.END_TO_END)
     for name in want:
         got = last["cells"][name]
@@ -86,7 +92,10 @@ def test_cells_run_through_the_entry_point(capsys, cell, particles):
         assert rec["peak_device_gb"] is None and rec["per_layer"] is None
         # on the CPU every kernel is its plain version: no error at all
         want_kernels = {"parity": {"K1", "K2", "K3"},
-                        "mega_surface": {"K2", "K3"}}[name]
+                        "mega_surface": {"K2", "K3"},
+                        "city_surface": {"K2", "K3"},
+                        "mega_blocked": {"K1", "K2", "K3"},
+                        "chip": {"K1", "K2", "K3"}}[name]
         assert set(rec["agreement"]) == want_kernels
         for row in rec["agreement"].values():
             assert row == dict(calls=row["calls"], share=0.0,
@@ -143,6 +152,30 @@ def test_mega_surface_s_control_fails_the_run(capsys):
     assert rc != 0 and last["correct"] is False
     assert not rec["agreement"]["K2"]["ok"] and rec["agreement"]["K3"]["ok"]
     assert rec["agreement"]["K2"]["share"] > 0.01
+
+
+def test_city_surface_s_control_fails_the_run(capsys):
+    """K2's window variant reads the map in bf16: the agreement check,
+    counting the cells beyond its tolerance over the window, fails it."""
+    rc, lines, last = _run(capsys, TINY + [
+        "--particles", "16", "--scans", "2", "--reps", "1", "--cell",
+        "city_surface", "--control"])
+    rec = next(json.loads(ln) for ln in lines if ln.startswith('{"cell"'))
+    assert rc != 0 and last["correct"] is False
+    assert not rec["agreement"]["K2"]["ok"] and rec["agreement"]["K3"]["ok"]
+    assert rec["agreement"]["K2"]["share"] > 0.01
+
+
+def test_k2_window_share_is_of_the_window():
+    """The window variant's share of cells beyond atol is over its window,
+    the batch kernel's over its whole output."""
+    from gridmap_slam_tpu_torch.bench.kernels import k2
+    ref = torch.zeros(100, 100)
+    out = ref.clone()
+    out[:5, :10] = 1.0                   # 50 cells wrong
+    assert k2.k2_agreement(out, ref, {}) == (50 / 10_000, k2.K2_MAX_SHARE)
+    assert k2.k2_agreement(out, ref, {"size": (20, 25)}) == (
+        50 / 500, k2.K2_MAX_SHARE)
 
 
 def test_cuda_without_a_card_exits_nonzero(capsys):
@@ -514,3 +547,112 @@ def test_k1_bound_counts_the_cells_its_taps_read(monkeypatch, g_f, nearest):
     whole, _ = k1.k1_bound(args, kw)
     assert whole >= ms
     assert kmatch.stage_scores_batch(*args, **kw).shape == (6, 2, 4, 3)
+
+
+def _record(cell, particles, sps):
+    return dict(cell=cell, particles=particles, correct=True,
+                scans_per_sec=dict(value=sps), setup_s=1.0,
+                peak_device_gb=0.1, ate_m=dict(max=0.01),
+                kernels_agree=True)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_the_line_heads_with_the_fastest_of_most_particles(order):
+    """bench.py:530-533: the cell of most particles, among equal counts
+    the fastest, whatever order the cells ran in."""
+    recs = [_record("city_surface", 1_000_000, 238.0),
+            _record("mega_surface", 1_000_000, 425.0),
+            _record("chip", 10_000, 71.0), _record("parity", 500, 750.0)]
+    recs = recs if order == 0 else recs[::-1]
+    line = run.last_line(recs + [dict(cell="x", correct=False,
+                                      error="boom")],
+                         torch.device("cpu"), False)
+    assert line["cell"] == "mega_surface" and line["value"] == 425.0
+    assert line["vs_baseline"] == round(425.0 / 0.0005, 2)
+    assert run.head_cell(recs[:0]) is None
+    empty = run.last_line([], torch.device("cpu"), False)
+    assert empty["cell"] is None and empty["vs_baseline"] is None
+
+
+@pytest.mark.parametrize("sps,particles", [
+    (425.3, 1_000_000), (71.24, 10_000), (750.0, 500), (0.05, 50),
+    (3.5, 16)])
+def test_baseline_is_bench_py_s(sps, particles):
+    want = bench.result_line(sps, particles, skip_oracle=False)
+    got = baseline.baseline_fields(sps, particles)
+    assert got == {k: want[k] for k in baseline.FIELDS}
+    # the Java reference's assumed rate is the larger at every P
+    assert got["vs_baseline"] == round(sps * particles / 500.0, 2)
+
+
+def test_oracle_rate_is_bench_py_s_record(monkeypatch, tmp_path):
+    """The port's copy of the oracle's recorded rate is bench.py's, byte
+    for byte; it is read, scaled 1/P, and a missing copy raises."""
+    assert baseline.ORACLE.read_bytes() == bench.ORACLE_CACHE.read_bytes()
+    rec = json.loads(baseline.ORACLE.read_text())
+    assert baseline.oracle_baseline(rec["probe_particles"] * 4) == (
+        pytest.approx(rec["scans_per_sec"] / 4), rec["probe_particles"])
+    missing = tmp_path / "oracle_baseline.json"
+    with pytest.raises(FileNotFoundError):
+        baseline.oracle_baseline(100, missing)
+    monkeypatch.setattr(baseline, "ORACLE", missing)
+    with pytest.raises(FileNotFoundError):
+        baseline.baseline_fields(1.0, 100)
+
+
+def _k1_kernel_and_control(args, kw):
+    """K1's plain version, and a control: the same reading its field
+    rounded to bf16."""
+    plain = kmatch.stage_scores_batch_plain
+
+    def control(field, *rest, **kw):
+        return plain(field.to(torch.bfloat16).float(), *rest, **kw)
+    return plain, control
+
+
+@pytest.mark.parametrize("control", [False, True])
+def test_k1_agreement_on_a_sliced_call(monkeypatch, control):
+    """Past FULL_PARTICLES (made small here) a K1 call is held on its
+    first and last SLICE_PARTICLES: the same row as the whole comparison
+    of a call of those particles alone; a control still fails."""
+    monkeypatch.setattr(bounds, "FULL_PARTICLES", 8)
+    monkeypatch.setattr(bounds, "SLICE_PARTICLES", 3)
+    kernels = K.load()
+    entry = kernels["K1"].entries[0]
+    args, kw = _k1_args(2, 12, False, seed=5)
+    plain, wrong = _k1_kernel_and_control(args, kw)
+    real = wrong if control else plain
+    parts = entry.parts(args)
+    assert [(a, n) for a, n, _ in parts] == [(0, 3), (9, 3)]
+    # the first and last 3 particles alone: a call of 6 that fits whole
+    rows = torch.cat([torch.arange(3), torch.arange(9, 12)])
+    field = args[0][[0, 1]]       # particles 0-2 on field 0, 9-11 on 1
+    pose0, dxs, dys, dts = (x[rows] for x in args[4:])
+    small = (field, *args[1:4], pose0, dxs, dys, dts)
+    assert entry.parts(small) is None
+    got = {}
+    for name, call_args in (("sliced", args), ("whole", small)):
+        agreement = K.Agreement(kernels)
+        out = agreement.wrap("K1", entry, real)(*call_args, **kw)
+        assert out.shape[0] == call_args[4].shape[0]
+        got[name] = agreement.rows["K1"]
+    assert got["sliced"] == got["whole"]
+    assert got["sliced"]["ok"] is (not control)
+    if control:
+        assert got["sliced"]["share"] > 0.01
+
+
+def test_k2_window_bound_counts_the_window():
+    """K2's window variant touches its window alone, in place or not: its
+    bound counts the window's cells read and written, the pose, the
+    window's place and the tables, never the whole map."""
+    from gridmap_slam_tpu_torch.bench.kernels import k2
+    lo = torch.zeros(400, 500)
+    win = torch.tensor([10, 20])
+    tables = [torch.zeros(64) for _ in range(3)]
+    args = (lo, win, torch.zeros(3), 1.0, *tables)
+    want = bounds.bound(k2.K2_FLOPS_CELL * 30 * 40,
+                        2 * 30 * 40 * 4 + bounds.nbytes(args[1:]))
+    for out in (None, lo, lo.clone()):
+        kw = dict(size=(30, 40), out=out)
+        assert k2.k2w_bound(args, kw) == want

@@ -15,10 +15,13 @@ generator state handed to it before and back after.  Each case holds:
   of the longer length, when one does not;
 - injected stacked draws (the generator's own draws, stacked) giving the
   bits of the generator's replay, and leaving the caller's generator as it
-  was.
+  was;
+- a log longer than CHUNK_SCANS (made small here) replayed in chunks of
+  CHUNK_SCANS scans and the rest, with the eager bits and the generator's
+  next draw, its draws drawn or injected.
 
-The graph itself, one launch a replay call, is held on the card by
-chip_smoke.py's `captured` phase.
+The graphs themselves, one launch a chunk of a replay call, are held on
+the card by chip_smoke.py's `captured` phase.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import dataclasses
 import pytest
 import torch
 
+from gridmap_slam_tpu_torch.models import captured
 from gridmap_slam_tpu_torch.models.captured import tree_map
 from gridmap_slam_tpu_torch.parallel import mesh as pmesh
 from tests import test_torch_parallel_captured as tpc
@@ -173,3 +177,44 @@ def test_injected_draws_are_the_generator_s(small_log, multi_logs, world,
     st_c, inf_c = fn(case.init(), case.frames, g)
     _assert_same(st_e, st_c)
     _assert_same(inf_e, inf_c)
+
+
+def test_a_graph_holds_at_most_16_scans():
+    assert captured.CHUNK_SCANS == 16
+    assert captured.chunks(16) == [(0, 16)]
+    assert captured.chunks(40) == [(0, 16), (16, 16), (32, 8)]
+    assert len(captured.chunks(216)) == 14
+
+
+@pytest.mark.parametrize("name", ENGINES + MESH)
+def test_long_logs_are_replayed_in_chunks(small_log, multi_logs, world,
+                                          monkeypatch, name):
+    """With chunks of 3 scans, logs of 2, 3, 4 scans and the whole log (8
+    scans; 6 for multi and the mesh steps): the eager bits and the
+    generator's next draw, ceil(n / 3) chunks, buffers of min(n, 3) scans;
+    then the whole log's draws injected, stacked."""
+    monkeypatch.setattr(captured, "CHUNK_SCANS", 3)
+    case = LogCase(name, small_log, multi_logs, world)
+    n = case.frames.t.shape[0]
+    assert n in (6, 8)
+    fn = case.jit()
+    cap = fn.captured
+    for k, seed in ((2, 5), (3, 6), (4, 7), (n, 8)):
+        st_e, inf_e, next_e = _eager(case, k, seed)
+        g = _gen(seed)
+        st_c, inf_c = fn(case.init(), _first(case.frames, k), g)
+        _assert_same(st_e, st_c)
+        _assert_same(inf_e, inf_c)
+        assert torch.equal(torch.randn(4, generator=g), next_e)
+        assert cap.launches == -(-k // 3) and cap.scans == min(k, 3)
+        assert cap.capacity == min(k, 3)
+    g = _gen()
+    draws = tree_map(lambda *xs: torch.stack(xs),
+                     *[case.draw(g) for _ in range(n)])
+    st_e, inf_e, _ = _eager(case, n)
+    other = _gen(99)
+    st_d, inf_d = fn(case.init(), case.frames, other, draws=draws)
+    _assert_same(st_e, st_d)
+    _assert_same(inf_e, inf_d)
+    assert torch.equal(other.get_state(), _gen(99).get_state())
+    assert cap.launches == -(-n // 3)
