@@ -18,7 +18,10 @@ Phases, each printed on its own line:
    larger of its float operations over the H100's FP32 peak and its bytes
    over its HBM rate), K3 with its launch plan; then K1 in both variants
    where taps leave the map (endpoints at cells -1, W, 200 cells off, and
-   around them); then K2 and K3 at a width that is no multiple of 4 and on
+   around them); K1's nearest-cell coarse stage (coarse_halfres=False, the
+   parity_fullres cell's) is timed beside the three stages, each stage's
+   time, bound and variant in the kernels line's `stages`; then K2 and K3
+   at a width that is no multiple of 4 and on
    a window whose address is no multiple of 16 bytes, K3 at every
    compiled-in radius, at radius 0, across column tiles, and with taps
    whose squares underflow (the exact evidence sum in place of the window
@@ -104,11 +107,17 @@ Phases, each printed on its own line:
    graphs of 1000 and 3000 keyframes, with its peak memory;
 18. chip — bench.py's chip preset: RBPF at 10 000 particles in chunks of
    500 over the 12-scan log; ATE and scans/s;
+18'. pr1 — bench.py's pr1 preset (100 particles, 400 x 400 maps, one
+   chunk) and the same with coarse_halfres=False, each over 3 scans with
+   two calls of each call shape recorded: every K1 call (coarse on the
+   pooled 200 x 200 field or on nearest cells of the full field, fine and
+   refine, each with its variant), K2 and K3 at (100, 400, 400) held
+   against their plain versions, their times beside their bounds;
 18a. captured — the single-program replays (models/captured.py: a log of
    n scans captured as graphs of at most CHUNK_SCANS = 16 scans, the
    scans' draws inside them, ceil(n / 16) graph launches a replay call):
    RBPF.replay_jit at the parity preset (and step_jit scan by scan, one
-   graph a scan), at chip's 10 000 particles and, a long log, at the
+   graph a scan), at chip's 10 000 particles, at pr1 and, a long log, at the
    posegraph phase's 200 particles and map over the 216 scans of
    grand_tour_216.rec (14 launches), SharedMapSLAM.replay_surface_jit at
    mega (the 12-scan log and the 40 scans of room_loop_40.rec, 3
@@ -187,23 +196,28 @@ Phases, each printed on its own line:
    host launches a frame on both steps;
 20. bench — the benchmark (python -m gridmap_slam_tpu_torch.bench) in
    this process through its own entry point: every cell file of
-   bench/cells (chip, city_surface, mega_blocked, mega_surface, parity),
-   at 3 timed replays; its exit code 0, its last line parsed with
+   bench/cells (chip, city_surface, mega_blocked, mega_surface, parity,
+   parity_fullres, pr1), at 3 timed replays; its exit code 0, its last
+   line parsed with
    "correct": true, headed by mega_surface (the fastest cell of most
    particles) with bench.py's vs_baseline, and every share of a kernel's
    bound at most 1 (mega_blocked's K1 calls held on their first and last
    2048 particles); then each cell's control (--control: a kernel reading
    its input in bf16) must fail the benchmark's check of each kernel call against its
-   plain version.  The kernels' bounds everywhere in this script are the
+   plain version; then bench.py's one-measurement command line `--preset
+   parity --set matcher.coarse_halfres=false` (3 replays) must print a
+   correct line.  The kernels' bounds everywhere in this script are the
    benchmark's (gridmap_slam_tpu_torch/bench/kernels/).
 
 Each path (parity, mega, city, mega_blocked, multi at each particle count,
 the posegraph flow's three parts: the filter, closure detection, the
-rebuild; chip; the captured phase's twelve, captured_<path>, counted over
+rebuild; chip; pr1 and pr1_fullres; the captured phase's thirteen,
+captured_<path>, counted over
 the call that warms up and captures; the parallel phase's five: shmap,
 shmap_surface, tiled, surface_sharded, sharded; the cli phase's eight: cli_replay,
 cli_load_map, cli_surface, cli_tiled, cli_surface_sharded, cli_posegraph,
-cli_recovery, cli_live; the bench phase's run, bench) is run with every
+cli_recovery, cli_live; the bench phase's run, bench, and its one
+measurement, bench_measure) is run with every
 launch count set
 to 0 just before it and read just after.  In phase 11 and on the paths of phases 15-18 the first
 run also records the arguments of the first kernel call of every call
@@ -214,7 +228,9 @@ particles on its first and last 2048: each particle's output depends on
 its own rows only); a kernel that ran on a part but was not checked there
 fails the run.  Then
 one JSON line of kernels, with their launches per path, their launches a
-scan inside each captured path's graph, and bounds, and last
+scan inside each captured path's graph, bounds and, in `stages`, K1's
+stages at the parity shapes (the nearest-cell coarse stage among them)
+and at pr1's, K2's and K3's at pr1's, and last
 {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no "ok" line.
 There is no CPU path: without a CUDA device it exits non-zero.
@@ -295,6 +311,13 @@ FRONTEND_NODES = {"verify": {"stage_scores": 10, "integrate_scan": 2,
                               "log_likelihood_field": 0, "surface_corr": 0,
                               "stage_scores_tile": 0}}
 CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
+PR1_SCANS = 3          # the pr1 phase's scans under CallRecorder
+# the bench phase's one measurement with bench.py's flags: its LADDER rung
+# parity_pallas (bench.py:381-384, less its --marginal).  The same at the
+# pr1 preset fails the benchmark's K1 check on rounding ties (PERF.md;
+# scripts/k1_nearest_probe.py)
+BENCH_MEASURE = ["--preset", "parity", "--set",
+                 "matcher.coarse_halfres=false"]
 # K4 against its plain version: the direct correlation's float32 bound
 # (tests/test_torch_surface_corr.py); its shapes beside a mega_bf16 and a
 # city_bf16 step's: (nt, K, Hc, Wc, images) with nt and K no multiples of 8
@@ -597,13 +620,14 @@ def kernel_phase(cfg, frames):
         ot = offs(np.linspace(-k * step_t, k * step_t, mc.fine_nt), p)
         stages.append((name, llf, px, py, use, centers[:, :1] + oxy,
                        centers[:, 1:2] + oxy, centers[:, 2:] + ot, res))
-    # The nearest-cell branch (coarse_halfres=False) is off the parity path;
-    # it is checked but neither timed nor counted in the row.  A tap whose
-    # coordinate sits within an ulp of a rounding boundary may pick the
-    # neighbouring cell (the plain version on the card divides by the
-    # resolution as a multiply by its reciprocal), and with cell-aligned
-    # offsets one such tap moves a whole 9 x 9 block of candidates, so that
-    # branch may miss the tolerance on at most K1_NEAREST_MAX_FRAC of them.
+    # The nearest-cell branch (coarse_halfres=False: the parity_fullres
+    # cell's coarse stage), timed and counted in the row's `stages` and its
+    # error.  A tap whose coordinate sits within an ulp of a rounding
+    # boundary may pick the neighbouring cell (the plain version on the
+    # card divides by the resolution as a multiply by its reciprocal), and
+    # with cell-aligned offsets one such tap moves a whole 9 x 9 block of
+    # candidates, so that branch may miss the tolerance on at most
+    # K1_NEAREST_MAX_FRAC of them.
     stages.append(("coarse nearest", llf) + stages[0][2:-1] + (res,))
     # score_pose's single candidate (the matcher switched off): a map a
     # particle takes the global variant, one shared map the shared one
@@ -612,6 +636,7 @@ def kernel_phase(cfg, frames):
                ("score_pose shared map", llf[:1].contiguous(), px, py, use,
                 zero, zero, zero, res)]
     err1, ms1, plain1, bound1, by_ops = 0.0, 0.0, 0.0, 0.0, 0.0
+    by_stage = {}
     for name, field, sx, sy, su, dxs, dys, dts, r in stages:
         args = (field, sx, sy, su, poses, dxs, dys, dts)
         nearest = name.endswith("nearest")
@@ -637,6 +662,13 @@ def kernel_phase(cfg, frames):
             raise AssertionError(f"K1 {name}: {frac} of candidates beyond "
                                  f"rtol {K1_RTOL} / atol {K1_ATOL} (limit "
                                  f"{limit}; max abs {err})")
+        by_stage[name] = dict(variant=k1_variant(args), nearest=nearest,
+                              field=list(field.shape), max_abs_err=err,
+                              frac_beyond_tol=frac, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound, bound_by=by,
+                              share_of_bound=bound / ms)
+        if name == "coarse nearest":
+            err1 = max(err1, err)
         if name in ("coarse", "fine", "refine"):   # the parity stages
             err1, ms1, plain1 = max(err1, err), ms1 + ms, plain1 + plain_ms
             bound1 += bound
@@ -651,7 +683,7 @@ def kernel_phase(cfg, frames):
                      max_abs_err=err1, ms=ms1, plain_ms=plain1,
                      bound_ms=bound1,
                      bound_by="operations" if 2 * by_ops >= bound1
-                     else "bytes", library_ms=None))
+                     else "bytes", library_ms=None, stages=by_stage))
     return rows
 
 
@@ -1544,14 +1576,16 @@ def _entry(kernel):
 class CallRecorder:
     """Records the arguments a path passes each kernel.  While it is
     active, each kernel's `*_cuda` entry point (which the dispatching
-    function looks up at every call) is wrapped: the first call of every
-    call shape under the current `path` label is kept, its tensors cloned,
-    and the kernel then runs and counts its launch as before."""
+    function looks up at every call) is wrapped: the first
+    `calls_a_shape` calls of every call shape under the current `path`
+    label are kept, their tensors cloned, and the kernel then runs and
+    counts its launch as before."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, calls_a_shape: int = 1):
         self.path = path
         self.calls = []            # (path, kernel, args, kw)
-        self._seen = set()
+        self.calls_a_shape = calls_a_shape
+        self._seen = {}
         self._real = []
 
     def __enter__(self):
@@ -1577,9 +1611,9 @@ class CallRecorder:
             key = (self.path, kernel, _sig(args), _sig(kw))
             # under capture nothing runs: a capture's warm-up calls
             # recorded the real inputs of its call shapes
-            if (key not in self._seen
+            if (self._seen.get(key, 0) < self.calls_a_shape
                     and not torch.cuda.is_current_stream_capturing()):
-                self._seen.add(key)
+                self._seen[key] = self._seen.get(key, 0) + 1
                 self.calls.append((self.path, kernel, _clone(args),
                                    _clone(kw)))
             return real(*args, **kw)
@@ -2648,6 +2682,77 @@ def chip_phase(frames, gt, dev="cuda", particles=CHIP_PARTICLES,
     return launches
 
 
+def pr1_config(fullres: bool = False):
+    """bench.py's pr1 preset (bench.py:621-622, make_engine's 192 beam
+    slots): config.pr1_config(), the RBPF at 100 particles in one chunk on
+    a 20 x 20 m map at 5 cm (400 x 400 cells); with `fullres`, its coarse
+    stage on nearest cells of the full field (coarse_halfres=False,
+    bench.py's parity_pallas rung)."""
+    from gridmap_slam_tpu_torch import pr1_config as config
+    cfg = config().replace(max_beams=192, particle_chunk=0)
+    return (cfg.with_overrides({"matcher.coarse_halfres": False})
+            if fullres else cfg)
+
+
+def pr1_phase(frames, dev="cuda"):
+    """The pr1 preset and its full-resolution coarse schedule, each over
+    the first PR1_SCANS scans of the parity log through RBPF.run_log under
+    CallRecorder, keeping two calls of each call shape (K1's fine and
+    refine stages share one): each call held against its plain version on
+    those arguments (check_recorded), K1's calls labelled by stage, with
+    the variant launch_plan gives them.  Returns (launches by path, the
+    stages' rows by kernel: K1's by stage, K2's and K3's at (100, 400,
+    400))."""
+    from gridmap_slam_tpu_torch import RBPF
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+
+    launches_by_path, rows = {}, {"K1": {}, "K2": {}, "K3": {}}
+    for path, fullres in (("pr1", False), ("pr1_fullres", True)):
+        cfg = pr1_config(fullres)
+        eng = RBPF(cfg, device=dev)
+        batch = frames_to_device(frames[:PR1_SCANS], cfg.max_beams,
+                                 cfg.sensor.max_range, device=dev)
+        seq = [frame_at(batch, i) for i in range(PR1_SCANS)]
+        kernels = _zero_launches()
+        with CallRecorder(path, calls_a_shape=2) as rec:
+            eng.run_log(eng.init(), seq,
+                        torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+        launches = {k: mod.launches for k, mod in kernels.items()}
+        launches_by_path[path] = launches
+        if not all(launches[k] > 0 for k in BASE_ROWS):
+            raise AssertionError(f"{path}: a kernel was not launched: "
+                                 f"{launches}")
+        checked = check_recorded(rec, {path: launches})
+        fine = iter(("fine", "refine"))
+        labelled = []
+        for (_, kernel, args, kw), row in zip(rec.calls, checked):
+            if kernel == "K1":
+                stage = ("coarse nearest" if kw["nearest"] else "coarse"
+                         if kw["resolution"] > cfg.map.resolution
+                         else next(fine, "fine/refine"))
+            else:
+                stage = "x".join(str(d) for d in args[0].shape)
+            key = f"{path} {stage}"
+            labelled.append(dict(stage=key, kernel=kernel,
+                                 variant=row.get("variant"),
+                                 field=row["shapes"][0], ms=row["ms"],
+                                 plain_ms=row["plain_ms"],
+                                 bound_ms=row["bound_ms"],
+                                 bound_by=row["bound_by"],
+                                 share_of_bound=row["share_of_bound"],
+                                 max_abs_err=row["max_abs_err"],
+                                 frac_beyond_tol=row["frac_beyond_tol"]))
+            rows[kernel].setdefault(key, labelled[-1])
+        say("pr1", path=path, particles=cfg.num_particles,
+            map=[cfg.map.cells_y, cfg.map.cells_x],
+            coarse_halfres=cfg.matcher.coarse_halfres, scans=PR1_SCANS,
+            launches=launches, calls=labelled)
+        del eng, batch, seq, rec
+        torch.cuda.empty_cache()
+    return launches_by_path, rows
+
+
 # ------------------------------------------------------------------ captured
 # the kernels' symbols as the profiler names them, a row each (K4's row:
 # its prologue and its correlation, KERNELS of them a call)
@@ -2917,7 +3022,7 @@ def refine_config():
 
 def captured_phase(frames, gt):
     """Every path eager and captured (captured_path): parity (with
-    step_jit), chip, the RBPF at the posegraph phase's 200 particles and
+    step_jit), chip, pr1, the RBPF at the posegraph phase's 200 particles and
     map over the 216 scans of grand_tour_216.rec (14 graph launches a
     call), mega (12 scans and the 40 of room_loop_40.rec, 3 launches), mega
     with two refine steps, mega with the direct correlation in bf16 on K4
@@ -2953,6 +3058,7 @@ def captured_phase(frames, gt):
             ("chip", parity_config().replace(
                 num_particles=CHIP_PARTICLES, particle_chunk=CHIP_CHUNK),
              frames, gt, ATE_MAX_M),
+            ("pr1", pr1_config(), frames, gt, ATE_MAX_M),
             # a long log: 216 scans in chunks of CHUNK_SCANS
             ("grand_tour_216", grand_tour_config(200), tour, tour_gt,
              POSEGRAPH_ATE_MAX_M)):
@@ -4180,7 +4286,12 @@ def bench_phase():
     `"correct": true`, one record a cell file, the head `mega_surface` (the
     fastest of most particles) and bench.py's `vs_baseline`, and no share
     of a bound reads over 1; then each cell's control (--control) must fail
-    its reference comparison.  Returns the launches of the first run."""
+    its reference comparison; then one of bench.py's one-measurement
+    command lines (BENCH_MEASURE: parity with the nearest-cell coarse
+    stage on its full field) must print a correct line of one cell whose
+    K1, K2 and K3 calls all kept their tolerance.  Returns the
+    launches of the first run (`bench`) and of the measurement
+    (`bench_measure`)."""
     from gridmap_slam_tpu_torch.bench.cells import load_cells
     n_cells = len(load_cells())
     kernels = _zero_launches()
@@ -4210,7 +4321,26 @@ def bench_phase():
     if rc == 0 or len(controls) != n_cells or any(
             c["correct"] or c["kernels_agree"] for c in controls):
         raise AssertionError(f"bench: a control passed: {agree}")
-    return launches
+    kernels = _zero_launches()
+    rc, last, (rec,) = _bench_run([*BENCH_MEASURE, "--reps", "3",
+                                   "--min-seconds", "0"])
+    measured = {k: mod.launches for k, mod in kernels.items()}
+    if "error" in rec:
+        raise AssertionError(f"bench measurement: {rec}")
+    shares = {k: v for k, v in (rec["per_layer"] or {}).items()
+              if k.startswith("share_of_bound")}
+    say("bench_measure", argv=BENCH_MEASURE, rc=rc, correct=last["correct"],
+        cell=rec["cell"], overrides=rec["overrides"],
+        scans_per_sec=rec["scans_per_sec"]["value"],
+        agreement=rec["agreement"], shares_of_bound=shares,
+        launches=measured)
+    if rc != 0 or last["correct"] is not True or \
+            set(rec["agreement"]) != {"K1", "K2", "K3"} or \
+            rec["overrides"] != {"matcher.coarse_halfres": False}:
+        raise AssertionError(f"bench measurement: rc {rc}, {rec}")
+    if len(shares) != 3 or any(v > 1.0 for v in shares.values()):
+        raise AssertionError(f"bench measurement: shares of bound {shares}")
+    return {"bench": launches, "bench_measure": measured}
 
 
 def main() -> int:
@@ -4244,6 +4374,11 @@ def main() -> int:
     by_path.update(pg_launches)
     by_path["config5_posegraph"] = config5_posegraph_phase()
     by_path["chip"] = chip_phase(frames, gt)
+    pr1_launches, pr1_rows = pr1_phase(frames)
+    by_path.update(pr1_launches)
+    rows[2]["stages"].update(pr1_rows["K1"])
+    rows[1]["stages"] = pr1_rows["K2"]
+    rows[0]["stages"] = pr1_rows["K3"]
     cap_launches, in_graph = captured_phase(frames, gt)
     by_path.update(cap_launches)
     in_graph.update(pg_in_graph)
@@ -4253,7 +4388,7 @@ def main() -> int:
     rows.append(tile_row)
     rows.append(k4_row)
     by_path.update(cli_phase(cfg, frames, room_loop, pg_first))
-    by_path["bench"] = bench_phase()
+    by_path.update(bench_phase())
     for row in rows:
         row["max_abs_err"] = max(row["max_abs_err"],
                                  PATH_MAX_ERR[row["name"]])
@@ -4268,7 +4403,7 @@ def main() -> int:
                              "launches", "launches_by_path",
                              "in_graph_per_scan", "max_abs_err", "ms",
                              "plain_ms", "bound_ms", "bound_by",
-                             "library_ms")}
+                             "library_ms", "stages") if k in row}
         for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,8 +9,9 @@
 - cells/<name>.json: a cell, one preset under one traffic: its config's
   name, source, traffic, users and chips, its log, its correctness limits,
   the bound of each end-to-end metric, its control (the kernels made wrong
-  on purpose, which the check against the plain versions must catch) and
-  its per-layer metrics with their units.
+  on purpose, which the check against the plain versions must catch), its
+  per-layer metrics with their units, and dotted overrides of the preset's
+  config (`overrides`, none by default).
 - spans/<name>.json: the calls of a module whose device work a per-layer
   metric `device_ms_a_scan.<name>` attributes.
 - kernels/<name>.py: a kernel, its function names, entry points and bound.
@@ -94,6 +95,13 @@ class Cell:
     bounds: dict            # end-to-end metric -> the share it may worsen
     control: dict           # round_bf16: the kernels it makes wrong
     per_layer: dict         # metric -> unit
+    overrides: dict = dataclasses.field(default_factory=dict)
+
+    def make_config(self, preset: "Preset"):
+        """The preset's config with the cell's overrides (dotted keys,
+        SlamConfig.with_overrides; a list is a tuple)."""
+        return preset.config.with_overrides(
+            {k: _tuples(v) for k, v in self.overrides.items()})
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,10 +38,19 @@ or a kernel call leaves its tolerance; asking for --device cuda without a
 card exits 2 before anything runs.  Nothing falls back to the CPU: the engines
 run where --device says.
 
+bench.py's one-measurement flags (--preset, --set, --chunk, --map-size,
+--shared-map, --surface, --crop, --refine-steps, --blocked; measure.py)
+run one in-memory cell of that configuration in place of the cell files,
+through the same timed replays, checks and last line.
+
 Usage:
     python -m gridmap_slam_tpu_torch.bench                    # every cell
     python -m gridmap_slam_tpu_torch.bench --cell parity --seed 3
     python -m gridmap_slam_tpu_torch.bench --control          # must fail
+    python -m gridmap_slam_tpu_torch.bench --preset pr1 \
+        --set matcher.coarse_halfres=false                    # bench.py's
+    python -m gridmap_slam_tpu_torch.bench --particles 1000000 \
+        --chunk 0 --map-size 20 --surface --crop 256          # flags
     python -m gridmap_slam_tpu_torch.bench --device cpu --particles 16 \\
         --scans 4 --reps 2 --min-seconds 0                    # a CPU smoke
 """
@@ -68,7 +77,7 @@ from ..utils.metrics import ate_rmse
 from . import baseline
 from . import cells as C
 from . import kernels as K
-from . import layers
+from . import layers, measure
 
 MAX_REPS = 10_000
 LINE_LIMIT = 2048           # bytes of the last line
@@ -121,11 +130,11 @@ def run_cell(cell: C.Cell, preset: C.Preset, args, device, kernels: dict,
              spans: dict) -> dict:
     """One cell: the timed replays, the checks and (on the card) the
     per-layer metrics.  Returns the cell's record."""
-    cfg = preset.config
+    cfg = cell.make_config(preset)
     if args.particles:
         cfg = cfg.replace(num_particles=args.particles)
     frames, gt = C.build_log(args.scans or cell.log["scans"],
-                             cell.log["beams"], args.seed)
+                             args.beams or cell.log["beams"], args.seed)
     n = len(frames)
     base = 0
     if device.type == "cuda":
@@ -204,7 +213,8 @@ def run_cell(cell: C.Cell, preset: C.Preset, args, device, kernels: dict,
     correct = ate_max <= limits["ate_m"] and finite and repeated and agree
     return dict(
         cell=cell.name, config=cell.config, control=args.control,
-        particles=cfg.num_particles, scans=n, seed=args.seed,
+        overrides=cell.overrides, particles=cfg.num_particles, scans=n,
+        seed=args.seed,
         bounds=cell.bounds, limits=limits, device=device_name(device),
         scans_per_sec=dict(value=n * len(seconds) / sum(seconds),
                            median=med, q1=q1, q3=q3, count=len(rates),
@@ -317,7 +327,8 @@ def last_line(records: Sequence[dict], device, control: bool) -> dict:
     }
 
 
-def build_parser(cells: Sequence[str]) -> argparse.ArgumentParser:
+def build_parser(cells: Sequence[str],
+                 presets: Sequence[str]) -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m gridmap_slam_tpu_torch.bench",
         description="Scans/s of the port's captured replays, with ATE, "
@@ -325,13 +336,40 @@ def build_parser(cells: Sequence[str]) -> argparse.ArgumentParser:
                     "plain versions and per-layer metrics")
     ap.add_argument("--cell", action="append", default=None, choices=cells,
                     help="a cell (repeatable; default: every cell)")
+    one = ap.add_argument_group(
+        "one measurement (bench.py's flags; not with --cell)")
+    one.add_argument("--preset", default=None, choices=presets,
+                     help="bench.py's preset (presets/<name>.json)")
+    one.add_argument("--set", action="append", default=[], metavar="KEY=VAL",
+                     dest="overrides",
+                     help="dotted-key SlamConfig override, e.g. --set "
+                          "matcher.coarse_halfres=false (repeatable)")
+    one.add_argument("--chunk", type=int, default=None,
+                     help="particle_chunk (bench.py's default 2048)")
+    one.add_argument("--map-size", type=float, default=None,
+                     help="a square map of this many metres, centred on "
+                          "the origin (bench.py's default 6)")
+    one.add_argument("--shared-map", action="store_true",
+                     help="the shared-map filter, per-particle matcher")
+    one.add_argument("--surface", action="store_true",
+                     help="the shared-map filter in surface mode")
+    one.add_argument("--crop", type=int, default=0,
+                     help="surface-volume crop in cells (0: the preset's)")
+    one.add_argument("--refine-steps", type=int, default=-1,
+                     help="surface hill-climb steps (-1: the preset's)")
+    one.add_argument("--blocked", type=int, default=-1, metavar="BLOCK",
+                     help="the shared-map filter's matcher in blocks of "
+                          "BLOCK particles (0: from the config; -1: off)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the log and the particles' generator")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--control", action="store_true",
                     help="run each cell's control, which must fail")
     ap.add_argument("--scans", type=int, default=0,
-                    help="scans of the log in place of the cell's")
+                    help="scans of the log in place of the cell's "
+                         "(bench.py's --frames)")
+    ap.add_argument("--beams", type=int, default=0,
+                    help="beams a scan of the log in place of the cell's")
     ap.add_argument("--particles", type=int, default=0,
                     help="particles in place of the preset's (small runs)")
     ap.add_argument("--reps", type=int, default=10,
@@ -342,15 +380,29 @@ def build_parser(cells: Sequence[str]) -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    cells = C.load_cells()
-    args = build_parser(sorted(cells)).parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    cells, presets = C.load_cells(), C.load_presets()
+    ap = build_parser(sorted(cells), sorted(presets))
+    args = ap.parse_args(argv)
+    if measure.requested(args):
+        if args.cell:
+            ap.error("--cell runs cell files; --preset, --set, --chunk, "
+                     "--map-size, --crop, --refine-steps and the engine "
+                     "flags make one measurement of their own")
+        cell, preset = measure.measurement(args, presets, argv)
+        todo = [(cell, preset)]
+        # the cell's overrides hold --particles
+        args = argparse.Namespace(**{**vars(args), "particles": 0})
+    else:
+        todo = [(cells[name], presets[cells[name].preset])
+                for name in args.cell or sorted(cells)]
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("no CUDA device: the benchmark runs on the card unless "
               "--device cpu is given", file=sys.stderr)
         return 2
     t_run = time.perf_counter()
-    presets, kernels, spans = C.load_presets(), K.load(), C.load_spans()
+    kernels, spans = K.load(), C.load_spans()
     print("device " + json.dumps(device_line(device)), flush=True)
     if device.type == "cuda":
         from ..ops.cuda import _build
@@ -360,11 +412,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"build {time.perf_counter() - t0:.6g} s (the CUDA context, "
               f"nvcc and load; not a metric)", flush=True)
     records = []
-    for name in args.cell or sorted(cells):
-        cell = cells[name]
+    for cell, preset in todo:
         try:
-            rec = run_cell(cell, presets[cell.preset], args, device, kernels,
-                           spans)
+            rec = run_cell(cell, preset, args, device, kernels, spans)
         except Exception as e:  # noqa: BLE001 - a failed cell fails the run,
             import traceback    # and the cells after it still run
             traceback.print_exc()

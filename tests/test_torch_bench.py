@@ -24,7 +24,8 @@ import torch
 import bench
 import gridmap_slam_tpu
 import gridmap_slam_tpu.models.shared as jshared
-from gridmap_slam_tpu_torch.bench import baseline, bounds, cells, layers, run
+from gridmap_slam_tpu_torch.bench import (baseline, bounds, cells, layers,
+                                          measure, run)
 from gridmap_slam_tpu_torch.bench import kernels as K
 from gridmap_slam_tpu_torch.bench.kernels import k1
 from gridmap_slam_tpu_torch.models.shared import matcher_block_size
@@ -48,7 +49,8 @@ CELLS = cells.load_cells()
 
 @pytest.mark.parametrize("cell,particles", [
     ("parity", 16), ("mega_surface", 256), ("city_surface", 16),
-    ("mega_blocked", 16), ("chip", 16), (None, 16)])
+    ("mega_blocked", 16), ("chip", 16), ("parity_fullres", 16),
+    ("pr1", 16), (None, 16)])
 def test_cells_run_through_the_entry_point(capsys, cell, particles):
     argv = TINY + ["--particles", str(particles)]
     if cell:
@@ -95,7 +97,9 @@ def test_cells_run_through_the_entry_point(capsys, cell, particles):
                         "mega_surface": {"K2", "K3"},
                         "city_surface": {"K2", "K3"},
                         "mega_blocked": {"K1", "K2", "K3"},
-                        "chip": {"K1", "K2", "K3"}}[name]
+                        "chip": {"K1", "K2", "K3"},
+                        "parity_fullres": {"K1", "K2", "K3"},
+                        "pr1": {"K1", "K2", "K3"}}[name]
         assert set(rec["agreement"]) == want_kernels
         for row in rec["agreement"].values():
             assert row == dict(calls=row["calls"], share=0.0,
@@ -244,6 +248,11 @@ def _bench_preset(monkeypatch, name):
     """What bench.py's `measure` gives the JAX engine for --preset name:
     (timing function, its keyword arguments, frames, the engine's
     config), stopped where the engine is made."""
+    return _bench_measure(monkeypatch, ["--preset", name])
+
+
+def _bench_measure(monkeypatch, argv):
+    """_bench_preset for any of bench.py's command lines."""
     seen = {}
 
     def engine(cfg):
@@ -266,7 +275,7 @@ def _bench_preset(monkeypatch, name):
         monkeypatch.setattr(bench, fn, spy(fn))
     with pytest.raises(_Stop):
         bench.measure(bench.build_parser().parse_args(
-            ["--preset", name, "--skip-oracle"]))
+            [*argv, "--skip-oracle"]))
     return seen
 
 
@@ -277,7 +286,7 @@ ENGINES = {"rbpf": ("rbpf.RBPF", "replay_jit"),
 
 
 @pytest.mark.parametrize("name", ["parity", "mega", "city", "chip",
-                                  "mega_blocked"])
+                                  "mega_blocked", "pr1"])
 def test_presets_are_bench_py_s(monkeypatch, name):
     seen = _bench_preset(monkeypatch, name)
     preset = cells.load_presets()[name]
@@ -299,6 +308,137 @@ def test_presets_are_bench_py_s(monkeypatch, name):
     # city's to 4 scans, a workaround of its TPU's dispatch (bench.py:630)
     assert seen["frames"] == (4 if name in ("mega", "city") else 12)
     assert bench.build_parser().parse_args([]).frames == 12
+
+
+def test_parity_fullres_is_bench_py_s_parity_pallas_rung(monkeypatch):
+    """The cell's config is what bench.py's parser and make_engine build
+    from the LADDER rung parity_pallas's own argv (bench.py:381-384)."""
+    rung = next(r for r in bench.LADDER if r[0] == "parity_pallas")
+    seen = _bench_measure(monkeypatch, rung[2])
+    cell = CELLS["parity_fullres"]
+    preset = cells.load_presets()[cell.preset]
+    cfg = cell.make_config(preset)
+    assert dataclasses.asdict(seen["config"]) == dataclasses.asdict(cfg)
+    assert cfg.matcher.coarse_halfres is False and cfg.matcher.coarse_nearest
+    assert cfg.num_particles == rung[1] == 500
+    assert seen["fn"] == "time_engine_marginal"     # its --marginal
+    assert seen["kw"]["mode"] == "rbpf" and preset.engine["class"] == \
+        ENGINES["rbpf"][0]
+
+
+def _port_measure(argv):
+    """The port's one measurement on bench.py's argv: (config, engine)."""
+    presets = cells.load_presets()
+    args = run.build_parser(sorted(CELLS), sorted(presets)).parse_args(argv)
+    assert measure.requested(args)
+    cell, preset = measure.measurement(args, presets, argv)
+    return cell.make_config(preset), preset.engine
+
+
+@pytest.mark.parametrize("argv", [
+    ["--preset", "pr1", "--set", "matcher.coarse_halfres=false",
+     "--set", "matcher.z_hit=0.9", "--set", "resample_fraction=1"],
+    ["--particles", "64", "--chunk", "32", "--map-size", "8"],
+    ["--particles", "64", "--chunk", "0", "--shared-map"],
+    ["--particles", "4096", "--chunk", "0", "--surface", "--crop", "256",
+     "--refine-steps", "2"],
+    ["--particles", "1000", "--blocked", "0"],
+    ["--preset", "mega", "--refine-steps", "1"],
+    ["--preset", "city", "--crop", "256"]], ids=lambda a: " ".join(a))
+def test_one_measurement_flags_build_make_engine_s_config(monkeypatch, argv):
+    """The port's flags build the config bench.py's `measure` and
+    `make_engine` (or its blocked timing) give the JAX engine, and its
+    engine mode; --blocked 0 takes the block from the config."""
+    seen = _bench_measure(monkeypatch, argv)
+    cfg, engine = _port_measure(argv)
+    assert dataclasses.asdict(seen["config"]) == dataclasses.asdict(cfg)
+    if seen["fn"] == "time_engine_blocked":
+        assert seen["kw"]["block"] == 0
+        assert engine["class"] == "shared.SharedMapSLAM"
+        block = matcher_block_size(cfg)
+        assert engine["captured"] == ["replay_jit", {"block": block}]
+        assert engine["eager"] == ["replay", {"block": block}]
+    else:
+        cls, captured = ENGINES[seen["kw"]["mode"]]
+        assert (engine["class"], engine["captured"][0]) == (cls, captured)
+        assert engine["captured"][1] == engine["eager"][1] == {}
+
+
+def test_parse_override_is_bench_py_s():
+    texts = ["a=1", "b=-2", "c=1.5", "d=1e3", "e=true", "f=False",
+             "g=TRUE", "h=gather", "matcher.impl=matmul", "k=", "m=x=y",
+             "n=0x10", "p=1_000"]
+    for text in texts:
+        got, want = measure.parse_override(text), bench._parse_override(text)
+        assert got == want and type(got[1]) is type(want[1]), text
+
+
+@pytest.mark.parametrize("flag", [["--preset", "pr1"],
+                                  ["--set", "matcher.z_hit=0.9"],
+                                  ["--shared-map"], ["--surface"],
+                                  ["--blocked", "0"], ["--chunk", "8"]])
+def test_cell_with_a_measurement_flag_exits_2(capsys, flag):
+    with pytest.raises(SystemExit) as e:
+        run.main(["--device", "cpu", "--cell", "parity", *flag])
+    assert e.value.code == 2
+    assert "one measurement" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,kernels", [
+    (["--preset", "pr1", "--set", "matcher.coarse_halfres=false"],
+     {"K1", "K2", "K3"}),
+    (["--preset", "parity", "--particles", "16", "--chunk", "8",
+      "--set", "matcher.coarse_halfres=false"], {"K1", "K2", "K3"}),
+    (["--particles", "256", "--chunk", "0", "--surface", "--crop", "64",
+      "--refine-steps", "1"], {"K2", "K3"}),
+    (["--particles", "16", "--chunk", "0", "--shared-map"],
+     {"K1", "K2", "K3"}),
+    (["--preset", "mega_blocked", "--particles", "16", "--blocked", "8"],
+     {"K1", "K2", "K3"})],
+    ids=["pr1", "parity_fullres", "surface", "shared", "blocked"])
+def test_one_measurement_runs_through_the_entry_point(capsys, argv,
+                                                      kernels):
+    """A measurement is one cell named after its preset (or custom), run
+    through the same checks to the same last line."""
+    argv = TINY + ["--scans", "2", *argv]
+    if "--particles" not in argv:
+        argv += ["--particles", "8"]
+    rc, lines, last = _run(capsys, argv)
+    name = argv[argv.index("--preset") + 1] if "--preset" in argv \
+        else "custom"
+    assert rc == 0, lines
+    assert last["correct"] is True and list(last["cells"]) == [name]
+    assert last["cell"] == name and last["vs_baseline"] > 0
+    rec = next(json.loads(ln) for ln in lines if ln.startswith('{"cell"'))
+    assert rec["repeat_bits_equal"] and rec["finite"]
+    assert set(rec["agreement"]) == kernels
+    assert all(row["ok"] and row["calls"] > 0
+               for row in rec["agreement"].values())
+    particles = int(argv[len(argv) - 1 - argv[::-1].index("--particles")
+                         + 1])
+    assert rec["particles"] == particles
+    assert rec["overrides"]["num_particles"] == particles
+    layer = [ln for ln in lines if ln.startswith(f"{name} device_ms_a_scan.")]
+    assert f"{name} device_ms_a_scan.K2 not measured" in layer
+    assert (f"{name} device_ms_a_scan.surface not measured" in layer) is (
+        "--surface" in argv)
+    assert all(ln.endswith(" not measured") for ln in layer)
+
+
+def test_one_measurement_s_control_and_refusals_fail_the_run(capsys):
+    """--control rounds K2's map (every engine runs K2): the check fails
+    it.  A chunk that does not divide the particles raises, as the engine
+    does, and fails the run."""
+    rc, lines, last = _run(capsys, TINY + [
+        "--scans", "2", "--preset", "parity", "--particles", "16",
+        "--chunk", "8", "--control"])
+    rec = next(json.loads(ln) for ln in lines if ln.startswith('{"cell"'))
+    assert rc == 1 and last["correct"] is False
+    assert not rec["agreement"]["K2"]["ok"] and rec["agreement"]["K1"]["ok"]
+    rc, lines, last = _run(capsys, TINY + [
+        "--scans", "2", "--particles", "16", "--chunk", "6"])
+    assert rc == 1 and last["correct"] is False
+    assert "particle_chunk" in last["cells"]["custom"]["error"]
 
 
 @pytest.mark.parametrize("name", sorted(CELLS))

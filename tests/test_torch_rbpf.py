@@ -103,6 +103,131 @@ def test_step_parity_with_injected_draws(small_log, resample_fraction):
         assert all(resampled[1:])
 
 
+@pytest.mark.parametrize("coarse_halfres", [True, False])
+def test_step_parity_at_pr1(small_log, coarse_halfres):
+    """bench.py's pr1 (config.pr1_config: a 20 x 20 m map at 5 cm, 400 x
+    400 cells, one chunk) at 4 particles, its coarse stage on the pooled
+    200 x 200 field or (coarse_halfres=False, bench.py's parity_pallas
+    rung) on nearest cells of the full field: one step from the same JAX
+    state with JAX's draws, for 2 successive states, within
+    test_step_parity_with_injected_draws's tolerances."""
+    frames, _ = small_log
+    p = 4
+    jcfg = JSlamConfig(num_particles=p, max_beams=96, particle_chunk=0,
+                       resample_fraction=1.0,
+                       map=JMapConfig(width_m=20.0, height_m=20.0,
+                                      resolution=0.05,
+                                      origin=(-10.0, -10.0))
+                       ).with_overrides(
+        {"matcher.coarse_halfres": coarse_halfres})
+    assert (jcfg.map.cells_y, jcfg.map.cells_x) == (400, 400)
+    jeng = JRBPF(jcfg)
+    eng = RBPF(config_from_jax(jcfg), device="cpu")
+    jbatch = j_frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
+    batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
+    jstep = jax.jit(jeng.step)
+    jstate = jeng.init(jax.random.key(1))
+    for i in range(2):
+        state = state_from_jax_arrays(
+            np.asarray(jstate.poses), np.asarray(jstate.log_weights),
+            np.asarray(jstate.logodds), np.asarray(jstate.step))
+        jnext, jinfo = jstep(jstate, j_frame_at(jbatch, i))
+        nxt, info = eng.step(state, frame_at(batch, i),
+                             draws=_jax_draws(jstate.key, p))
+        np.testing.assert_allclose(nxt.poses.numpy(), np.asarray(jnext.poses),
+                                   atol=1e-4)
+        np.testing.assert_allclose(nxt.log_weights.numpy(),
+                                   np.asarray(jnext.log_weights), atol=1e-3)
+        lo_j = np.asarray(jnext.logodds)
+        assert (np.abs(nxt.logodds.numpy() - lo_j) > K2_ATOL).mean() \
+            <= K2_MAX_FRAC
+        assert (lo_j != np.asarray(jstate.logodds)).mean() > 0.002
+        np.testing.assert_allclose(float(info.neff), float(jinfo.neff),
+                                   rtol=1e-4)
+        assert int(info.best_index) == int(jinfo.best_index)
+        np.testing.assert_allclose(info.weighted_pose.numpy(),
+                                   np.asarray(jinfo.weighted_pose), atol=1e-4)
+        jstate = jnext
+
+
+def _pr1_jax_config(coarse_halfres):
+    return JSlamConfig(num_particles=4, max_beams=96, particle_chunk=0,
+                       map=JMapConfig(width_m=20.0, height_m=20.0,
+                                      resolution=0.05, origin=(-10.0, -10.0))
+                       ).with_overrides(
+        {"matcher.coarse_halfres": coarse_halfres})
+
+
+@pytest.mark.parametrize("coarse_halfres", [True, False])
+def test_matcher_stages_at_pr1(small_log, monkeypatch, coarse_halfres):
+    """Each stage of the port's correlative_match_batch against the JAX
+    package's correlative_match, particle by particle, on pr1's 400 x 400
+    field: the coarse stage on the 2 x 2-pooled 200 x 200 field
+    (bilinear at 0.1 m) or, coarse_halfres=False, on nearest cells of the
+    full field; then the two bilinear stages.  Scores within K1's
+    tolerances (tests/test_pallas_matcher.py), the same best poses."""
+    import gridmap_slam_tpu.ops.matcher as jm
+    import gridmap_slam_tpu_torch.ops.matcher as tm
+
+    frames, _ = small_log
+    jcfg = _pr1_jax_config(coarse_halfres)
+    cfg = config_from_jax(jcfg)
+    m, p = jcfg.map, jcfg.num_particles
+    rng = np.random.default_rng(11)
+    ll_out = np.log(1.0 / jcfg.sensor.max_range)
+    llf = rng.uniform(ll_out, 0.0, (m.cells_y, m.cells_x)).astype(np.float32)
+    pose0 = np.stack([rng.uniform(-1.0, 1.0, p), rng.uniform(-1.0, 1.0, p),
+                      rng.uniform(-np.pi, np.pi, p)], 1).astype(np.float32)
+    jf = j_frame_at(j_frames_to_device(frames, jcfg.max_beams,
+                                       jcfg.sensor.max_range), 3)
+    tf = frame_at(frames_to_device(frames, jcfg.max_beams,
+                                   jcfg.sensor.max_range), 3)
+    kw = dict(resolution=m.resolution, origin=m.origin,
+              max_range=jcfg.sensor.max_range)
+
+    jax_stages = []
+    real_j = jm._stage_scores
+
+    def j_spy(*args, **k):
+        out = real_j(*args, **k)
+        jax_stages.append((np.asarray(out), args[0].shape, k["resolution"],
+                           k["nearest"]))
+        return out
+    monkeypatch.setattr(jm, "_stage_scores", j_spy)
+    want = []
+    for i in range(p):
+        best, _ = jm.correlative_match(
+            jnp.asarray(llf), jf.scan, jnp.asarray(pose0[i]), jf.odom,
+            matcher_cfg=jcfg.matcher, motion_cfg=jcfg.motion, **kw)
+        want.append(np.asarray(best))
+
+    port_stages = []
+    real_t = tm.stage_scores_batch
+
+    def t_spy(*args, **k):
+        out = real_t(*args, **k)
+        port_stages.append((out.numpy(), tuple(args[0].shape[1:]),
+                            k["resolution"], k["nearest"]))
+        return out
+    monkeypatch.setattr(tm, "stage_scores_batch", t_spy)
+    best_t, _ = tm.correlative_match_batch(
+        torch.from_numpy(llf)[None], tf.scan, torch.from_numpy(pose0),
+        tf.odom, matcher_cfg=cfg.matcher, motion_cfg=cfg.motion, **kw)
+
+    coarse = ((200, 200), 0.1, False) if coarse_halfres else \
+        ((400, 400), 0.05, True)
+    assert [s[1:] for s in port_stages] == [
+        coarse, ((400, 400), 0.05, False), ((400, 400), 0.05, False)]
+    assert len(jax_stages) == 3 * p
+    for k, (scores, *call) in enumerate(port_stages):
+        for i in range(p):
+            jscores, *jcall = jax_stages[3 * i + k]
+            assert (tuple(jcall[0]), *jcall[1:]) == tuple(call)
+            np.testing.assert_allclose(scores[i], jscores, rtol=2e-5,
+                                       atol=2e-4)
+    np.testing.assert_allclose(best_t.numpy(), np.stack(want), atol=1e-5)
+
+
 def test_replay_ate_bound(small_log, tmp_path):
     """Mirror of tests/test_e2e.py::test_replay_ate_bound on the port."""
     frames, gt = small_log
