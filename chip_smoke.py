@@ -269,7 +269,13 @@ from gridmap_slam_tpu_torch.bench.kernels.k3 import k3_bound
 from gridmap_slam_tpu_torch.bench.kernels.k4 import k4_bound
 
 K1_RTOL, K1_ATOL = 2e-5, 2e-4     # tests/test_pallas_matcher.py
-K1_NEAREST_MAX_FRAC = 1e-3         # nearest-cell rounding ties, see below
+# no nearest-cell score may leave the tolerance either: the kernel and the
+# plain version compute a tap's cell coordinate in one float order
+# (ops/cuda/matcher.cell_coords), so they round to the same cell at ties
+K1_NEAREST_MAX_FRAC = 0.0
+# the k1_ties phase counts a tap within this much of a half cell as a tie
+# (a few ulps of a world coordinate 4 000 cells from the origin)
+K1_TIE_CELLS = 4e-3
 K2_ATOL, K2_MAX_FRAC = 1e-5, 5e-3  # tests/test_pallas.py:124-126
 K3_ATOL = 1e-5                     # tests/test_pallas.py:91
 ATE_MAX_M = 0.10
@@ -312,11 +318,11 @@ FRONTEND_NODES = {"verify": {"stage_scores": 10, "integrate_scan": 2,
                               "stage_scores_tile": 0}}
 CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
 PR1_SCANS = 3          # the pr1 phase's scans under CallRecorder
-# the bench phase's one measurement with bench.py's flags: its LADDER rung
-# parity_pallas (bench.py:381-384, less its --marginal).  The same at the
-# pr1 preset fails the benchmark's K1 check on rounding ties (PERF.md;
-# scripts/k1_nearest_probe.py)
-BENCH_MEASURE = ["--preset", "parity", "--set",
+# the bench phase's one measurement with bench.py's flags: the pr1 preset
+# with its coarse stage on nearest cells of the full 400 x 400 field (the
+# global variant), the calls at 100 particles in which one rounding tie
+# shows
+BENCH_MEASURE = ["--preset", "pr1", "--set",
                  "matcher.coarse_halfres=false"]
 # K4 against its plain version: the direct correlation's float32 bound
 # (tests/test_torch_surface_corr.py); its shapes beside a mega_bf16 and a
@@ -339,7 +345,7 @@ TILE_SHARDS = (2, 4)
 # A beam whose base column sits within an ulp of a tile boundary may fall to
 # either tile in the kernel's and the plain version's float order: one
 # tile's partial score then differs by that beam's whole term, the tiles'
-# sum does not (held with no candidate beyond).  As K1_NEAREST_MAX_FRAC.
+# sum does not (held with no candidate beyond).
 K1_TILE_MAX_FRAC = 1e-3
 TILED_ATOL = 1e-4          # poses and map against SharedMapSLAM.step
 SS_POSE_ATOL, SS_MAP_ATOL, SS_NEFF_RTOL = 2e-3, 1e-3, 1e-3  # tests/test_surface_sharded.py:66-73
@@ -622,12 +628,7 @@ def kernel_phase(cfg, frames):
                        centers[:, 1:2] + oxy, centers[:, 2:] + ot, res))
     # The nearest-cell branch (coarse_halfres=False: the parity_fullres
     # cell's coarse stage), timed and counted in the row's `stages` and its
-    # error.  A tap whose coordinate sits within an ulp of a rounding
-    # boundary may pick the neighbouring cell (the plain version on the
-    # card divides by the resolution as a multiply by its reciprocal), and
-    # with cell-aligned offsets one such tap moves a whole 9 x 9 block of
-    # candidates, so that branch may miss the tolerance on at most
-    # K1_NEAREST_MAX_FRAC of them.
+    # error.
     stages.append(("coarse nearest", llf) + stages[0][2:-1] + (res,))
     # score_pose's single candidate (the matcher switched off): a map a
     # particle takes the global variant, one shared map the shared one
@@ -768,11 +769,14 @@ def k1_ring_edges(cfg, dev="cuda") -> float:
     endpoints sit at cell coordinates 200 cells below the map, at -2.6,
     -2, -1.75, -1 (the low corner outside, the high one inside), -0.25, 0,
     the middle, W - 1.25, W - 1, W - 0.75 (the high corner outside), W,
-    W + 1 (the ring's far cells) and 200 cells past W, in x and in y, for
-    64 particles jittered by a few hundredths of a cell; on one 120 x 120
-    field (the shared variant, whose ring of 2 cells the kernel clamps
-    into) and one 280 x 280 field (the global variant), bilinear and
-    nearest.  Returns the largest bilinear error."""
+    W + 1 (the ring's far cells) and 200 cells past W, in x and in y, under
+    offsets of quarter cells, for 64 particles of which half sit on the
+    cell grid (so that many taps land within an ulp of a half cell, where
+    the nearest branch rounds) and half are jittered by a few hundredths
+    of a cell; on one 120 x 120 field (the shared variant, whose ring of 2
+    cells the kernel clamps into) and one 280 x 280 field (the global
+    variant), bilinear and nearest, with no score beyond the tolerance.
+    Returns the largest bilinear error."""
     from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
     rng = np.random.default_rng(SEED + 5)
     res, maxr = cfg.map.resolution, cfg.sensor.max_range
@@ -794,10 +798,10 @@ def k1_ring_edges(cfg, dev="cuda") -> float:
         px, py = t((fx + 0.5 - cells / 2) * res), t((fy + 0.5 - cells / 2)
                                                     * res)
         use = torch.ones(px.shape, dtype=torch.bool, device=dev)
-        pose0 = t(np.concatenate([rng.uniform(-0.05, 0.05, (n, 2)) * res,
-                                  np.zeros((n, 1))], 1))
-        # offsets whose sums with the coordinates above avoid half cells
-        off = t(np.broadcast_to(np.array([-0.35, -0.1, 0.0, 0.15, 0.4])
+        jitter = rng.uniform(-0.05, 0.05, (n, 2)) * res
+        jitter[: n // 2] = 0.0
+        pose0 = t(np.concatenate([jitter, np.zeros((n, 1))], 1))
+        off = t(np.broadcast_to(np.array([-0.5, -0.25, 0.0, 0.25, 0.5])
                                 * res, (n, 5)))
         dts = t(np.broadcast_to([0.0, 2e-4], (n, 2)))
         args = (field, px, py, use, pose0, off, off, dts)
@@ -823,6 +827,137 @@ def k1_ring_edges(cfg, dev="cuda") -> float:
             if not nearest:
                 worst = max(worst, err)
     return worst
+
+
+def _tie_inputs(rng, p, w_cells, h_cells, b, res, origin, rotated, dev):
+    """A tie grid for p particles: poses on the cell grid, at heading 0
+    (one scan, (B,)) or at random headings (a scan row a particle, (p, B)),
+    whose endpoints, rotated and moved by the pose, land a few ulps from
+    cell edges between 8 cells in and 8 cells short of w_cells x h_cells;
+    nine cell-aligned offsets on each axis and eleven headings, all the
+    pose's (dθ = 0), as many as the coarse stage's.  Returns the arguments
+    of a K1 call after the field."""
+    f32 = np.float32
+    pose = np.zeros((p, 3), f32)
+    pose[:, :2] = rng.integers(-3, 4, (p, 2)) * res
+    if rotated:
+        pose[:, 2] = rng.uniform(-math.pi, math.pi, p)
+    rows = p if rotated else 1
+    edge = (np.asarray(origin)[None, :, None]
+            + np.stack([rng.integers(8, w_cells - 8, (rows, b)),
+                        rng.integers(8, h_cells - 8, (rows, b))], 1) * res
+            - pose[:rows, :2, None].astype(np.float64))
+    th = pose[:rows, 2, None].astype(np.float64)
+    c, s = np.cos(th), np.sin(th)
+    pts = np.stack([c * edge[:, 0] + s * edge[:, 1],
+                    -s * edge[:, 0] + c * edge[:, 1]], 1).astype(f32)
+    steps = rng.integers(-3, 4, pts.shape)        # a few ulps off the edge
+    toward = np.copysign(np.inf, steps).astype(f32)
+    for k in range(1, 4):
+        pts = np.where(np.abs(steps) >= k, np.nextafter(pts, toward), pts)
+    px, py = (pts[:, i] if rotated else pts[0, i] for i in (0, 1))
+    use = rng.uniform(size=px.shape) > 0.1
+    offs = np.broadcast_to(((np.arange(9) - 4) * res).astype(f32), (p, 9))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    return (t(px), t(py), t(use), t(pose), t(offs), t(offs),
+            torch.zeros((p, 11), device=dev))
+
+
+def k1_ties_phase(cfg, dev="cuda"):
+    """K1's nearest branch at rounding ties, kernel against plain version
+    on the card with no score beyond the tolerance: tie grids
+    (_tie_inputs) at heading 0 and at random headings, at the parity
+    shapes (500 particles, a 120 x 120 field each: the shared variant),
+    pr1's (100 particles, 400 x 400: the global variant) and on tiles:
+    the sharded RBPF's 120 x 62 tiles of 250 particles' maps (kTiled) and
+    both 4000 x 2002 tiles of the city map for 256 particles (the staged
+    tile kernel); the offsets cell-aligned, as the coarse stage's; fields
+    of random cells, so that a tap on another cell shows.  Also:
+    the kernel's sin and cos (kmatch.kernel_rotation) equal torch's on the
+    card in every bit, the plain version's coordinates (cell_coords) on
+    the card equal its coordinates on the CPU in every bit at heading 0
+    (where torch's sin and cos are exact on both), and the taps within
+    K1_TIE_CELLS of a half cell are counted.  The errors go into the K1
+    and K1t rows' max_abs_err (PATH_MAX_ERR)."""
+    from gridmap_slam_tpu_torch import city_config
+    from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
+
+    rng = np.random.default_rng(SEED + 8)
+    res, origin, maxr = cfg.map.resolution, cfg.map.origin, \
+        cfg.sensor.max_range
+    theta = torch.as_tensor(rng.uniform(-4 * math.pi, 4 * math.pi, 1 << 20)
+                            .astype(np.float32), device=dev)
+    sn, cs = kmatch.kernel_rotation(theta)
+    rotation_equal = bool(torch.equal(sn, torch.sin(theta))
+                          and torch.equal(cs, torch.cos(theta)))
+    v_out = math.log(1.0 / maxr)
+    city = city_config().map
+    cases = [("parity", 500, (500, 120, 120), origin, None),
+             ("pr1", 100, (100, 400, 400), (-10.0, -10.0), None),
+             ("sharded tile", 250, (250, 120, 120), origin, 2),
+             ("city tile", 256, (1, city.cells_y, city.cells_x),
+              city.origin, 2)]
+    rows = []
+    for name, p, shape, org, n_m in cases:
+        field = torch.empty(shape, device=dev).uniform_(-8.0, -0.5)
+        for rotated in (False, True):
+            args = _tie_inputs(rng, p, shape[2], shape[1], 48, res, org,
+                               rotated, dev)
+            kw = dict(resolution=res, origin=org, max_range=maxr,
+                      nearest=True)
+            fx, fy = kmatch.cell_coords(
+                *kmatch._scan_rows(*args[:3], p)[:2], *args[3:],
+                resolution=res, origin=org)
+            ties = int(((fx - fx.floor() - 0.5).abs() < K1_TIE_CELLS).sum()
+                       + ((fy - fy.floor() - 0.5).abs() < K1_TIE_CELLS)
+                       .sum())
+            cpu_equal = None
+            if not rotated:
+                cpu = [a.cpu() for a in args]
+                cx, cy = kmatch.cell_coords(
+                    *kmatch._scan_rows(*cpu[:3], p)[:2], *cpu[3:],
+                    resolution=res, origin=org)
+                cpu_equal = bool(torch.equal(cx, fx.cpu())
+                                 and torch.equal(cy, fy.cpu()))
+            calls = []
+            if n_m is None:
+                calls.append(("untiled", (field,) + args, kw,
+                              kmatch.stage_scores_batch_cuda,
+                              kmatch.stage_scores_batch_plain))
+            else:
+                w_loc = shape[2] // n_m
+                for j in range(n_m):
+                    tkw = dict(kw, c0=j * w_loc, w_loc=w_loc, n_m=n_m,
+                               ext=1)
+                    calls.append((f"tile {j}",
+                                  (_ext_tile(field, j, n_m, v_out),) + args,
+                                  tkw, kmatch.stage_scores_tile_cuda,
+                                  kmatch.stage_scores_tile_plain))
+            for part, a, k, cuda_fn, plain_fn in calls:
+                got, want = cuda_fn(*a, **k), plain_fn(*a, **k)
+                diff = (got - want).abs()
+                beyond = int((diff > K1_ATOL + K1_RTOL * want.abs()).sum())
+                row = KERNEL_ROWS["K1" if n_m is None else "K1t"]
+                PATH_MAX_ERR[row] = max(PATH_MAX_ERR[row],
+                                        float(diff.max()))
+                rows.append(dict(
+                    case=name, part=part, rotated=rotated,
+                    variant=k1_variant(a, tile=n_m is not None),
+                    field=list(a[0].shape), ties=ties,
+                    taps=fx.numel() + fy.numel(), scores=got.numel(),
+                    beyond=beyond, max_abs_err=float(diff.max()),
+                    cpu_cells_equal=cpu_equal))
+    say("k1_ties", rotation_bits_equal=rotation_equal,
+        headings=theta.numel(), tie_cells=K1_TIE_CELLS, rows=rows)
+    variants = {(r["case"], r["variant"]) for r in rows}
+    if not rotation_equal or any(r["beyond"] or r["cpu_cells_equal"] is False
+                                 or not r["ties"] for r in rows):
+        raise AssertionError(f"K1 at rounding ties: {rows}")
+    if variants != {("parity", "shared"), ("pr1", "global"),
+                    ("sharded tile", "shared"), ("city tile", "staged")}:
+        raise AssertionError(f"K1 at rounding ties took {variants}")
 
 
 def agree_phase(frames):
@@ -4287,8 +4422,8 @@ def bench_phase():
     fastest of most particles) and bench.py's `vs_baseline`, and no share
     of a bound reads over 1; then each cell's control (--control) must fail
     its reference comparison; then one of bench.py's one-measurement
-    command lines (BENCH_MEASURE: parity with the nearest-cell coarse
-    stage on its full field) must print a correct line of one cell whose
+    command lines (BENCH_MEASURE: pr1 with the nearest-cell coarse stage
+    on its full field) must print a correct line of one cell whose
     K1, K2 and K3 calls all kept their tolerance.  Returns the
     launches of the first run (`bench`) and of the measurement
     (`bench_measure`)."""
@@ -4349,6 +4484,7 @@ def main() -> int:
     cfg = parity_config()
     frames, gt = parity_log()
     rows = kernel_phase(cfg, frames)
+    k1_ties_phase(cfg)
     agree_phase(frames)
     by_path = {"parity": main_phase(cfg, frames, gt)}
     k3_radii_phase(cfg)

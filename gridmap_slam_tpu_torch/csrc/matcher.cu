@@ -40,6 +40,19 @@
 //   1.5 * 2^23 rounds it to the nearest integer, which is the floor of the
 //   cell coordinate, and the float's bits less the magic's bits are that
 //   integer.
+// - The nearest branch (kNearest) does not fold: a tap within an ulp of a
+//   half cell would round to either neighbour depending on the float order,
+//   and with the coarse stage's cell-aligned offsets one such tap moves a
+//   whole block of candidates.  It computes the coordinate in the order XLA
+//   compiles the JAX package's _stage_scores into (gridmap_slam_tpu/ops/
+//   matcher.py:117-128), which the plain version (ops/cuda/matcher.
+//   cell_coords) computes on either device: the staged endpoint is
+//   (rx, ry) = (fma(x, c, -(y s)), fma(x, s, y c)) in metres, a candidate
+//   holds h = pose0.x + dxs[ix], and a sample is fx = fma((rx + h) -
+//   origin_x, 1/res, -0.5), each operation an intrinsic rounded as written
+//   so that ptxas contracts nothing else; then the same magic rounding,
+//   which rounds half to even as jnp.round does.  That is two operations an
+//   axis more than the fold.
 // - Whole warps of candidates: threads run over the units of a tile of `k`
 //   (particle, heading) pairs; a unit is a run of up to kCw dx candidates
 //   of one (pair, dy), which share the endpoint load and the y-axis work.
@@ -90,11 +103,13 @@
 //   heading) pairs; a warp a pair (more where its units exceed 32), a lane
 //   a unit of kCw dx candidates of one dy.
 // - A pass over the block's pairs finds the box their taps reach.  The
-//   magic-number rounding is monotone, so a beam's candidates have their
-//   base cells between those of the endpoint at the warp's smallest and
-//   largest cx (and cy); the box runs from the smallest of those to the
-//   largest plus one cell, sized on the card from the offsets the call
-//   holds, so the launch needs no bound on their spread.
+//   magic-number rounding is monotone, and so is the nearest branch's
+//   coordinate in a candidate's part (each of its roundings is), so a
+//   beam's candidates have their base cells between those of the endpoint
+//   at the warp's smallest and largest cx (and cy); the box runs from the
+//   smallest of those to the largest plus one cell, sized on the card from
+//   the offsets the call holds, so the launch needs no bound on their
+//   spread.
 // - Where the box fits the block's shared memory (~190 KB, 200 x 200 cells
 //   and more; the synthetic room's is some 130 x 130) the block stages it
 //   once with cp.async, rows padded to 9 mod 32 floats so that a warp's
@@ -148,6 +163,32 @@ size_t smem_bytes(bool shared, int H, int pitch, int k, int stride) {
              : 0;
   return field + static_cast<size_t>(k) * stride * 8 +
          static_cast<size_t>(k) * 4;
+}
+
+// The heading's sine and cosine, as torch.sin and torch.cos give them on the
+// card (gs_k1_rotation lets a check compare the bits).
+__device__ __forceinline__ void rotation(float theta, float* sn, float* cs) {
+  sincosf(theta, sn, cs);
+}
+
+// The nearest branch's staged endpoint: the beam rotated by the heading, in
+// metres, in the JAX package's compiled order (see the note at the top).
+__device__ __forceinline__ float2 nearest_endpoint(float x, float y, float cs,
+                                                   float sn) {
+  return make_float2(__fmaf_rn(x, cs, -__fmul_rn(y, sn)),
+                     __fmaf_rn(x, sn, __fmul_rn(y, cs)));
+}
+
+// A sample's coordinate on one axis from its staged endpoint part e and its
+// candidate's part c: the bilinear branch's sum, or the nearest branch's
+// cell coordinate fma((e + c) - origin, inv_res, -0.5).
+template <bool kNearest>
+__device__ __forceinline__ float sample_coord(float e, float c, float origin,
+                                              float inv_res) {
+  if constexpr (kNearest)
+    return __fmaf_rn(__fsub_rn(__fadd_rn(e, c), origin), inv_res, -0.5f);
+  else
+    return e + c;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -209,9 +250,6 @@ __global__ void __launch_bounds__(kMaxThreads, kCw <= 3 ? 4 : 1)
   const long long tiles = (plan.ppg + plan.k - 1) / plan.k;
   const long long t_begin = part * tiles / plan.splits;
   const long long t_end = (part + 1) * tiles / plan.splits;
-  // cell coordinate less one half (bilinear: its rounding is the floor)
-  const float c_off = kNearest ? 0.5f : 1.0f;
-
   if (kShared) {  // group g's field and its ring, once a block
     const float* f = field + static_cast<size_t>(g) * H * W;
     for (int r = warp; r < H + 2 * kRing; r += n_warps) {
@@ -237,7 +275,7 @@ __global__ void __launch_bounds__(kMaxThreads, kCw <= 3 ? 4 : 1)
     for (int s = warp; s < n; s += n_warps) {
       const int q = q0 + s, p = q / nt;
       float sn, cs;
-      sincosf(pose0[3 * p + 2] + dts[q], &sn, &cs);
+      rotation(pose0[3 * p + 2] + dts[q], &sn, &cs);
       const size_t row = static_cast<size_t>(p / per_b) * B;
       float2* dst = s_xy + static_cast<size_t>(s) * plan.stride;
       int used = 0;
@@ -247,8 +285,12 @@ __global__ void __launch_bounds__(kMaxThreads, kCw <= 3 ? 4 : 1)
         const unsigned m = __ballot_sync(0xffffffffu, u);
         if (u) {
           const float x = px[row + b], y = py[row + b];
-          dst[used + __popc(m & ((1u << lane) - 1u))] = make_float2(
-              (x * cs - y * sn) * inv_res, (x * sn + y * cs) * inv_res);
+          float2& slot = dst[used + __popc(m & ((1u << lane) - 1u))];
+          if constexpr (kNearest)
+            slot = nearest_endpoint(x, y, cs, sn);
+          else
+            slot = make_float2((x * cs - y * sn) * inv_res,
+                               (x * sn + y * cs) * inv_res);
         }
         used += __popc(m);
       }
@@ -260,15 +302,19 @@ __global__ void __launch_bounds__(kMaxThreads, kCw <= 3 ? 4 : 1)
       const int s = j / units, unit = j - s * units;
       const int iy = unit / runs, ix0 = (unit - iy * runs) * kCw;
       const int q = q0 + s, p = q / nt;
-      const float cy =
-          (pose0[3 * p + 1] + dys[static_cast<size_t>(p) * ny + iy] -
-           origin_y) * inv_res - c_off;
+      // the candidates' parts of their coordinates: nearest, the pose plus
+      // the offset; bilinear, that less the origin in cells, less one cell
+      const float dy = dys[static_cast<size_t>(p) * ny + iy];
+      const float cy = kNearest ? __fadd_rn(pose0[3 * p + 1], dy)
+                                : (pose0[3 * p + 1] + dy - origin_y) *
+                                          inv_res - 1.0f;
       float cx[kCw], acc[kCw];
 #pragma unroll
       for (int i = 0; i < kCw; ++i) {   // a short last run repeats its end
-        cx[i] = (pose0[3 * p] +
-                 dxs[static_cast<size_t>(p) * nx + min(ix0 + i, nx - 1)] -
-                 origin_x) * inv_res - c_off;
+        const float dx =
+            dxs[static_cast<size_t>(p) * nx + min(ix0 + i, nx - 1)];
+        cx[i] = kNearest ? __fadd_rn(pose0[3 * p], dx)
+                         : (pose0[3 * p] + dx - origin_x) * inv_res - 1.0f;
         acc[i] = 0.f;
       }
       const float* f =
@@ -279,14 +325,15 @@ __global__ void __launch_bounds__(kMaxThreads, kCw <= 3 ? 4 : 1)
 #pragma unroll 2
       for (int b = 0; b < used; ++b) {
         const float2 e = xy[b];
-        const float fy = e.y + cy;
+        const float fy = sample_coord<kNearest>(e.y, cy, origin_y, inv_res);
         const float ry = fy + kMagic;
         const int yr = ring_index(ry, H);
         const float ty = fy - (ry - kMagic) + 0.5f;
         const float* row = f + yr * pitch;
 #pragma unroll
         for (int i = 0; i < kCw; ++i) {
-          const float fx = e.x + cx[i];
+          const float fx = sample_coord<kNearest>(e.x, cx[i], origin_x,
+                                                  inv_res);
           const float rx = fx + kMagic;
           int xr;
           bool own = true;
@@ -466,13 +513,15 @@ struct Item {
   int q, p, iy, ix0;
   bool active;
   float cy, cx[kCw];
+  float origin_x, origin_y, inv_res;   // sample_coord's (nearest)
 
   __device__ __forceinline__ Item(long long item, int lane, const Staged& sg,
                                   const float* __restrict__ pose0,
                                   const float* __restrict__ dxs,
                                   const float* __restrict__ dys, int nt,
                                   int ny, int nx, float inv_res,
-                                  float origin_x, float origin_y) {
+                                  float origin_x, float origin_y)
+      : origin_x(origin_x), origin_y(origin_y), inv_res(inv_res) {
     q = static_cast<int>(item / sg.unit_warps);
     const int unit =
         static_cast<int>(item - static_cast<long long>(q) * sg.unit_warps) *
@@ -483,27 +532,30 @@ struct Item {
     const int u = active ? unit : sg.units - 1;  // an idle lane shadows one
     iy = u / runs;
     ix0 = (u - iy * runs) * kCw;
-    const float c_off = kNearest ? 0.5f : 1.0f;
-    // the candidates' cell coordinates, as stage_scores_kernel's
-    cy = (pose0[3 * p + 1] + dys[static_cast<size_t>(p) * ny + iy] -
-          origin_y) * inv_res - c_off;
+    // the candidates' parts of their coordinates, as stage_scores_kernel's
+    const float dy = dys[static_cast<size_t>(p) * ny + iy];
+    cy = kNearest ? __fadd_rn(pose0[3 * p + 1], dy)
+                  : (pose0[3 * p + 1] + dy - origin_y) * inv_res - 1.0f;
 #pragma unroll
-    for (int i = 0; i < kCw; ++i)
-      cx[i] = (pose0[3 * p] +
-               dxs[static_cast<size_t>(p) * nx + min(ix0 + i, nx - 1)] -
-               origin_x) * inv_res - c_off;
+    for (int i = 0; i < kCw; ++i) {
+      const float dx = dxs[static_cast<size_t>(p) * nx + min(ix0 + i, nx - 1)];
+      cx[i] = kNearest ? __fadd_rn(pose0[3 * p], dx)
+                       : (pose0[3 * p] + dx - origin_x) * inv_res - 1.0f;
+    }
   }
 };
 
-// The pair's rotated endpoints in cells into s_xy, used beams only, in
-// order; returns their count.
+// The pair's rotated endpoints into s_xy (bilinear: in cells; nearest: in
+// metres, nearest_endpoint), used beams only, in order; returns their
+// count.
+template <bool kNearest>
 __device__ __forceinline__ int stage_endpoints(
     float2* s_xy, int lane, int p, int q, int per_b, int B,
     const float* __restrict__ px, const float* __restrict__ py,
     const unsigned char* __restrict__ use, const float* __restrict__ pose0,
     const float* __restrict__ dts, float inv_res) {
   float sn, cs;
-  sincosf(pose0[3 * p + 2] + dts[q], &sn, &cs);
+  rotation(pose0[3 * p + 2] + dts[q], &sn, &cs);
   const size_t row = static_cast<size_t>(p / per_b) * B;
   int used = 0;
   // written as stage_scores_kernel writes it: ptxas then fuses the same
@@ -514,8 +566,12 @@ __device__ __forceinline__ int stage_endpoints(
     const unsigned m = __ballot_sync(0xffffffffu, on);
     if (on) {
       const float x = px[row + b], y = py[row + b];
-      s_xy[used + __popc(m & ((1u << lane) - 1u))] = make_float2(
-          (x * cs - y * sn) * inv_res, (x * sn + y * cs) * inv_res);
+      float2& slot = s_xy[used + __popc(m & ((1u << lane) - 1u))];
+      if constexpr (kNearest)
+        slot = nearest_endpoint(x, y, cs, sn);
+      else
+        slot = make_float2((x * cs - y * sn) * inv_res,
+                           (x * sn + y * cs) * inv_res);
     }
     used += __popc(m);
   }
@@ -534,7 +590,8 @@ __device__ __forceinline__ void add_beam(float* acc, const Item<kNearest, kCw>& 
                                          int pitch, int ax, int ay,
                                          unsigned last_x, unsigned last_y,
                                          const Tile& tile) {
-  const float fy = e.y + it.cy;
+  const float fy =
+      sample_coord<kNearest>(e.y, it.cy, it.origin_y, it.inv_res);
   const float ry = fy + kMagic;
   const float ty = fy - (ry - kMagic) + 0.5f;
   const float* prow =
@@ -543,7 +600,8 @@ __device__ __forceinline__ void add_beam(float* acc, const Item<kNearest, kCw>& 
           last_y) * pitch;
 #pragma unroll
   for (int j = 0; j < kCw; ++j) {
-    const float fx = e.x + it.cx[j];
+    const float fx =
+        sample_coord<kNearest>(e.x, it.cx[j], it.origin_x, it.inv_res);
     const float rx = fx + kMagic;
     const int x0 = __float_as_int(rx) - kMagicBits;  // global
     // one tile owns every beam: v + 0 is v, so the test can go
@@ -571,13 +629,15 @@ __device__ __forceinline__ void add_beam_field(
     float* acc, const Item<kNearest, kCw>& it, float2 e,
     const float* __restrict__ f, int H, int W, float v_outside,
     const Tile& tile) {
-  const float fy = e.y + it.cy;
+  const float fy =
+      sample_coord<kNearest>(e.y, it.cy, it.origin_y, it.inv_res);
   const float ry = fy + kMagic;
   const float ty = fy - (ry - kMagic) + 0.5f;
   const int y0 = __float_as_int(ry) - kMagicBits;
 #pragma unroll
   for (int j = 0; j < kCw; ++j) {
-    const float fx = e.x + it.cx[j];
+    const float fx =
+        sample_coord<kNearest>(e.x, it.cx[j], it.origin_x, it.inv_res);
     const float rx = fx + kMagic;
     const int x0 = __float_as_int(rx) - kMagicBits;  // global
     const bool own = x0 >= tile.lo && x0 < tile.hi;
@@ -634,8 +694,8 @@ __global__ void __launch_bounds__(kStagedThreads, kStagedBlocks)
   for (long long item = i0 + warp; item < i1; item += warps) {
     const Item<kNearest, kCw> it(item, lane, sg, pose0, dxs, dys, nt, ny, nx,
                                  inv_res, origin_x, origin_y);
-    const int used = stage_endpoints(s_xy, lane, it.p, it.q, per_b, B, px,
-                                     py, use, pose0, dts, inv_res);
+    const int used = stage_endpoints<kNearest>(
+        s_xy, lane, it.p, it.q, per_b, B, px, py, use, pose0, dts, inv_res);
     kept = used;
     // the warp's smallest and largest candidate coordinates
     float lo = it.cx[0], hi = it.cx[0];
@@ -649,10 +709,14 @@ __global__ void __launch_bounds__(kStagedThreads, kStagedBlocks)
     int lo_x = INT_MAX, hi_x = INT_MIN, lo_y = INT_MAX, hi_y = INT_MIN;
     for (int b = lane; b < used; b += 32) {
       const float2 e = s_xy[b];
-      lo_x = min(lo_x, base_cell(e.x + xlo));
-      hi_x = max(hi_x, base_cell(e.x + xhi));
-      lo_y = min(lo_y, base_cell(e.y + ylo));
-      hi_y = max(hi_y, base_cell(e.y + yhi));
+      lo_x = min(lo_x, base_cell(sample_coord<kNearest>(e.x, xlo, origin_x,
+                                                        inv_res)));
+      hi_x = max(hi_x, base_cell(sample_coord<kNearest>(e.x, xhi, origin_x,
+                                                        inv_res)));
+      lo_y = min(lo_y, base_cell(sample_coord<kNearest>(e.y, ylo, origin_y,
+                                                        inv_res)));
+      hi_y = max(hi_y, base_cell(sample_coord<kNearest>(e.y, yhi, origin_y,
+                                                        inv_res)));
     }
     lo_x = __reduce_min_sync(0xffffffffu, lo_x);
     hi_x = __reduce_max_sync(0xffffffffu, hi_x);
@@ -716,8 +780,9 @@ __global__ void __launch_bounds__(kStagedThreads, kStagedBlocks)
     // the first is pass 1's last: its endpoints are staged
     const int used = k == n_mine - 1 && kept >= 0
                          ? kept
-                         : stage_endpoints(s_xy, lane, it.p, it.q, per_b, B,
-                                           px, py, use, pose0, dts, inv_res);
+                         : stage_endpoints<kNearest>(s_xy, lane, it.p, it.q,
+                                                     per_b, B, px, py, use,
+                                                     pose0, dts, inv_res);
     float acc[kCw];
 #pragma unroll
     for (int j = 0; j < kCw; ++j) acc[j] = 0.f;
@@ -772,7 +837,27 @@ StagedKernel staged_kernel_for_run(int run) {
   }
 }
 
+// sin and cos of n headings as the stage kernels take them (`rotation`).
+__global__ void rotation_kernel(const float* __restrict__ theta,
+                                float* __restrict__ sn,
+                                float* __restrict__ cs, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) rotation(theta[i], sn + i, cs + i);
+}
+
 }  // namespace
+
+// The sines and cosines (sn, cs: n floats each) of n headings theta, from
+// the stage kernels' own `rotation`: a check holds their bits against
+// torch.sin and torch.cos on the card, the plain version's.
+extern "C" int gs_k1_rotation(const float* theta, float* sn, float* cs,
+                              int n, void* stream) {
+  if (n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  rotation_kernel<<<(n + 255) / 256, 256, 0,
+                    static_cast<cudaStream_t>(stream)>>>(theta, sn, cs, n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // field: (G_f, H, W) float32; px, py: (G_b, B) float32 endpoints in the
 // robot frame; use: (G_b, B) bool (hit & valid); pose0: (P, 3);

@@ -71,6 +71,8 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                                     _F, _F, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _P, _P],
+    # theta, sin out, cos out, n; stream
+    "gs_k1_rotation": [_P, _P, _P, _I, _P],
     # fpad, e, mass, out, scratch, Hp, Wp, K, nt, shift, then the launch
     # plan: runs, ksteps, pitch_w, smem, scratch words; stream, &launched
     "gs_surface_corr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,

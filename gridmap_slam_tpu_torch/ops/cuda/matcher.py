@@ -294,25 +294,95 @@ def per_particle(values, p: int):
     return values.repeat_interleave(p // values.shape[0], 0)
 
 
+def fma32(a, b, c):
+    """fma(a, b, c) for float32 tensors (or Python floats), rounded once to
+    float32, on the CPU and the card alike.  The product of two float32 is
+    exact in float64; the sum with c is not always (a small c far below the
+    product, or the reverse), so a two-sum takes its error and the sum is
+    rounded to odd: where it was inexact and its last bit is even it moves
+    one float64 ulp toward the error.  A float64 rounded to odd and then to
+    float32 is the exact value rounded to float32 (53 bits >= 24 + 2), so no
+    double rounding is left."""
+    f64 = torch.float64
+    a, b, c = (v.to(f64) if torch.is_tensor(v) else v for v in (a, b, c))
+    prod = a * b
+    s = prod + c
+    z = s - prod
+    err = (prod - (s - z)) + (c - z)
+    even = (s.view(torch.int64) & 1) == 0
+    odd = torch.nextafter(s, torch.copysign(torch.full_like(s, math.inf),
+                                            err))
+    return torch.where((err != 0) & even & err.isfinite(), odd,
+                       s).to(torch.float32)
+
+
+def _f32(value: float):
+    """A Python float as a 0-dim float32 tensor on the CPU (rounded to
+    nearest, as JAX makes a weakly typed constant), which a tensor on any
+    device takes as a scalar."""
+    return torch.tensor(value, dtype=torch.float32)
+
+
+def _inv_res(resolution: float):
+    """float32(1) / float32(resolution), the reciprocal JAX's compiled
+    division multiplies by (and csrc/matcher.cu's inv_res)."""
+    return _f32(1.0) / _f32(resolution)
+
+
+def _scan_rows(px, py, use, p: int):
+    """A grouped scan (G_b, B) as (P, 1, B) rows and `use` as
+    (P, 1, 1, 1, B); a scan (B,) as it is."""
+    if px.dim() == 2:
+        px, py, use = (per_particle(a, p)[:, None] for a in (px, py, use))
+        use = use[:, :, None, None, :]
+    return px, py, use
+
+
+def rotated(px, py, pose0, dts):
+    """The beam endpoints (P, 1, B) or (B,) rotated by each candidate
+    heading pose0.theta + dts: (rx, ry), each (P, nt, B), in the JAX
+    package's compiled order, fma(px, c, -(py s)) and fma(px, s, py c),
+    with torch's cos and sin (csrc/matcher.cu's sincosf gives their bits on
+    the card)."""
+    theta = pose0[:, 2, None] + dts                           # (P, nt)
+    c = torch.cos(theta)[:, :, None]
+    s = torch.sin(theta)[:, :, None]
+    return fma32(px, c, -(py * s)), fma32(px, s, py * c)
+
+
+def cell_coord(r, h, o, inv_res):
+    """The fractional cell-center coordinate of the world coordinate r + h
+    (r a rotated endpoint, h the candidate's pose plus offset) on the axis
+    of origin o: fma((r + h) - o, inv_res, -0.5), each add rounded to
+    float32."""
+    return fma32((r + h) - o, inv_res, -0.5)
+
+
+def cell_coords(px, py, pose0, dxs, dys, dts, *, resolution: float, origin):
+    """fx (P, nt, nx, B) and fy (P, nt, ny, B), the taps' fractional
+    cell-center coordinates, in the order XLA compiles
+    gridmap_slam_tpu/ops/matcher.py::_stage_scores into on the CPU (jitted;
+    op by op JAX divides by the resolution, and rotates with unfused
+    products): `rotated`, then `cell_coord`.  The kernel's nearest branch
+    computes the same floats, so both round to the same cells."""
+    inv_res = _inv_res(resolution)
+    rx, ry = rotated(px, py, pose0, dts)                      # (P, nt, B)
+    hx = (pose0[:, 0, None] + dxs)[:, None, :, None]          # (P, 1, nx, 1)
+    hy = (pose0[:, 1, None] + dys)[:, None, :, None]
+    return (cell_coord(rx[:, :, None, :], hx, _f32(origin[0]), inv_res),
+            cell_coord(ry[:, :, None, :], hy, _f32(origin[1]), inv_res))
+
+
 def stage_scores_batch_plain(field, px, py, use, pose0, dxs, dys, dts, *,
                              resolution: float, origin, max_range: float,
                              nearest: bool = False):
     """Plain version: ops/matcher._stage_scores for every particle at once,
-    on the grouped fields and scans.  Returns (P, nt, ny, nx)."""
+    on the grouped fields and scans, its coordinates in JAX's compiled
+    order (cell_coords).  Returns (P, nt, ny, nx)."""
     ll_outside = math.log(1.0 / max_range)
-    p = pose0.shape[0]
-    if px.dim() == 2:              # one scan a group: (P, 1, B) rows
-        px, py, use = (per_particle(a, p)[:, None] for a in (px, py, use))
-        use = use[:, :, None, None, :]
-    theta = pose0[:, 2, None] + dts                           # (P, nt)
-    c = torch.cos(theta)[:, :, None]
-    s = torch.sin(theta)[:, :, None]
-    rx = px * c - py * s                                      # (P, nt, B)
-    ry = px * s + py * c
-    wx = rx[:, :, None, :] + (pose0[:, 0, None] + dxs)[:, None, :, None]
-    wy = ry[:, :, None, :] + (pose0[:, 1, None] + dys)[:, None, :, None]
-    fx = (wx - origin[0]) / resolution - 0.5                  # (P, nt, nx, B)
-    fy = (wy - origin[1]) / resolution - 0.5                  # (P, nt, ny, B)
+    px, py, use = _scan_rows(px, py, use, pose0.shape[0])
+    fx, fy = cell_coords(px, py, pose0, dxs, dys, dts, resolution=resolution,
+                         origin=origin)            # (P, nt, nx | ny, B)
     sample = _nearest if nearest else _bilinear
     ll = sample(field, fx[:, :, None, :, :], fy[:, :, :, None, :],
                 ll_outside)                                   # (P,nt,ny,nx,B)
@@ -368,6 +438,20 @@ def stage_scores_batch_cuda(field, px, py, use, pose0, dxs, dys, dts, *,
     return out
 
 
+def kernel_rotation(theta):
+    """(sin, cos) of float32 headings on the card as the stage kernels take
+    them (csrc/matcher.cu `rotation`, through gs_k1_rotation), for a check
+    of their bits against torch.sin and torch.cos (`rotated`).  Counts no
+    launch of K1."""
+    check_tensor("kernel_rotation", "theta", theta, theta.shape,
+                 theta.device)
+    sn, cs = torch.empty_like(theta), torch.empty_like(theta)
+    _build.check("gs_k1_rotation", _build.library().gs_k1_rotation(
+        theta.data_ptr(), sn.data_ptr(), cs.data_ptr(), theta.numel(),
+        stream_handle(theta.device)))
+    return sn, cs
+
+
 def stage_scores_batch(field, px, py, use, pose0, dxs, dys, dts, *,
                        resolution: float, origin, max_range: float,
                        nearest: bool = False):
@@ -391,18 +475,16 @@ def _owned(x0, c0: int, w_loc: int, n_m: int):
 
 def _tile_coords(px, py, use, pose0, dxs, dys, dts, *, resolution: float,
                  origin, nearest: bool):
-    """The tile variant's cell coordinates in the kernel's order (1/res
-    times the rotated endpoint, plus 1/res times the candidate's offset
-    from the origin less a half cell, or a cell for bilinear): the
-    endpoints sx, sy (P, nt, B), the candidates' cx (P, nx) and cy (P, ny),
-    and `use` as (P, 1, 1, 1, B) or (B,)."""
-    p = pose0.shape[0]
-    if px.dim() == 2:              # one scan a group: (P, 1, B) rows
-        px, py, use = (per_particle(a, p)[:, None] for a in (px, py, use))
-        use = use[:, :, None, None, :]
-    f32 = torch.float32
-    inv_res = (torch.tensor(1.0, dtype=f32)
-               / torch.tensor(resolution, dtype=f32)).to(pose0.device)
+    """The tile variant's bilinear cell coordinates in the kernel's order
+    (1/res times the rotated endpoint, plus 1/res times the candidate's
+    offset from the origin less a cell): the endpoints sx, sy (P, nt, B),
+    the candidates' cx (P, nx) and cy (P, ny), and `use` as
+    (P, 1, 1, 1, B) or (B,).  With `nearest` the candidates' parts are a
+    half cell higher: sx + cx then rounds to the nearest branch's cells
+    (cell_coords) but at rounding ties, close enough to count the cells a
+    call reads."""
+    px, py, use = _scan_rows(px, py, use, pose0.shape[0])
+    inv_res = _inv_res(resolution).to(pose0.device)
     c_off = 0.5 if nearest else 1.0
     theta = pose0[:, 2, None] + dts                           # (P, nt)
     c = torch.cos(theta)[:, :, None]
@@ -428,18 +510,25 @@ def stage_scores_tile_plain(field, px, py, use, pose0, dxs, dys, dts, *,
     column the tile owns (`_owned`) add to the sum, with their taps read at
     that column less c0 - ext.
 
-    The cell coordinates follow the kernel's arithmetic (_tile_coords),
-    rounded to the nearest cell, where the JAX function divides the world
-    coordinate less the origin by res: 4000 cells from the origin (the city
-    map) a float32 coordinate is good to 2.4e-4 of a cell, and the two
-    orders then part by more than K1's tolerance.  The interpolation is the
-    kernel's two lerps.  Returns (P, nt, ny, nx)."""
+    The bilinear cell coordinates follow the kernel's arithmetic
+    (_tile_coords), rounded to the nearest cell, where the JAX function
+    divides the world coordinate less the origin by res: 4000 cells from
+    the origin (the city map) a float32 coordinate is good to 2.4e-4 of a
+    cell, and the two orders then part by more than K1's tolerance.  The
+    interpolation is the kernel's two lerps.  The nearest branch's
+    coordinates are stage_scores_batch_plain's (cell_coords), which the
+    kernel's nearest branch computes too.  Returns (P, nt, ny, nx)."""
     ll_outside = math.log(1.0 / max_range)
-    sx, sy, cx, cy, use = _tile_coords(px, py, use, pose0, dxs, dys, dts,
-                                       resolution=resolution, origin=origin,
-                                       nearest=nearest)
-    fx = sx[:, :, None, :] + cx[:, None, :, None]             # (P, nt, nx, B)
-    fy = sy[:, :, None, :] + cy[:, None, :, None]             # (P, nt, ny, B)
+    if nearest:
+        px, py, use = _scan_rows(px, py, use, pose0.shape[0])
+        fx, fy = cell_coords(px, py, pose0, dxs, dys, dts,
+                             resolution=resolution, origin=origin)
+    else:
+        sx, sy, cx, cy, use = _tile_coords(px, py, use, pose0, dxs, dys, dts,
+                                           resolution=resolution,
+                                           origin=origin, nearest=False)
+        fx = sx[:, :, None, :] + cx[:, None, :, None]         # (P, nt, nx, B)
+        fy = sy[:, :, None, :] + cy[:, None, :, None]         # (P, nt, ny, B)
     # rounded to the nearest cell: the nearest cell's index, or (bilinear,
     # a half cell lower) the base cell's
     x0f, y0f = torch.round(fx), torch.round(fy)

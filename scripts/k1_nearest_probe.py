@@ -2,15 +2,14 @@
 score beyond the tolerance traced to its taps.
 
 The benchmark holds every K1 call to its plain version
-(gridmap_slam_tpu_torch/bench/kernels/k1.py): no bilinear score, and at
-most K1_NEAREST_MAX_SHARE of a nearest call's scores, beyond rtol / atol.
-The kernel and the plain version compute a tap's cell coordinate in
-different float orders (csrc/matcher.cu folds 1/res into the rotated
-endpoint and rotates with sincosf; the plain version divides the world
-coordinate by the resolution, ops/matcher's arithmetic), so a coordinate
-within a few ulps of a half cell may round to either neighbour, and with
-the coarse stage's cell-aligned offsets one such tap moves a block of
-candidates.
+(gridmap_slam_tpu_torch/bench/kernels/k1.py): no score beyond rtol /
+atol, nearest calls included (K1_NEAREST_MAX_SHARE = 0).  A nearest tap
+rounds its cell coordinate, so a coordinate within a few ulps of a half
+cell goes to either neighbour depending on the float order that computed
+it, and with the coarse stage's cell-aligned offsets one such tap moves a
+block of candidates.  The kernel and the plain version compute it in one
+order (ops/cuda/matcher.cell_coords, JAX's compiled order), so such ties
+should round alike and leave no score beyond.
 
 For each preset with `matcher.coarse_halfres=false` and each seed, this
 script replays the 12-scan log eagerly (RBPF.replay from the benchmark's

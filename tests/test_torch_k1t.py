@@ -44,18 +44,39 @@ def _box_path(field, px, py, use, pose0, dxs, dys, dts, *, resolution,
     in a box and the most any tap lies past a box's last column or row,
     and the blocks that staged a box)."""
     v_out = math.log(1.0 / max_range)
-    sx, sy, cx, cy, u = kmatch._tile_coords(
-        px, py, use, pose0, dxs, dys, dts, resolution=resolution,
-        origin=origin, nearest=nearest)
+    if nearest:
+        # staged endpoints in metres, candidates' pose plus offset, and the
+        # sample's coordinate in JAX's compiled order (kmatch.cell_coords)
+        rows = kmatch._scan_rows(px, py, use, pose0.shape[0])
+        sx, sy = kmatch.rotated(rows[0], rows[1], pose0, dts)
+        u = rows[2]
+        cx, cy = pose0[:, 0, None] + dxs, pose0[:, 1, None] + dys
+        inv_res = kmatch._inv_res(resolution)
+        ox, oy = kmatch._f32(origin[0]), kmatch._f32(origin[1])
+
+        def coord_x(s, c):
+            return kmatch.cell_coord(s, c, ox, inv_res)
+
+        def coord_y(s, c):
+            return kmatch.cell_coord(s, c, oy, inv_res)
+    else:
+        sx, sy, cx, cy, u = kmatch._tile_coords(
+            px, py, use, pose0, dxs, dys, dts, resolution=resolution,
+            origin=origin, nearest=False)
+
+        def coord_x(s, c):
+            return s + c
+
+        coord_y = coord_x
     p, nt, b = sx.shape
     used = (u if u.dim() == 5 else u.expand(p, 1, 1, 1, -1))[:, 0, 0, 0]
     # each beam's base cells at its pair's smallest and largest offsets
-    lo_x = torch.round(sx + cx.min(-1).values[:, None, None])
-    hi_x = torch.round(sx + cx.max(-1).values[:, None, None])
-    lo_y = torch.round(sy + cy.min(-1).values[:, None, None])
-    hi_y = torch.round(sy + cy.max(-1).values[:, None, None])
-    fx = sx[:, :, None, :] + cx[:, None, :, None]                # (P,nt,nx,B)
-    fy = sy[:, :, None, :] + cy[:, None, :, None]                # (P,nt,ny,B)
+    lo_x = torch.round(coord_x(sx, cx.min(-1).values[:, None, None]))
+    hi_x = torch.round(coord_x(sx, cx.max(-1).values[:, None, None]))
+    lo_y = torch.round(coord_y(sy, cy.min(-1).values[:, None, None]))
+    hi_y = torch.round(coord_y(sy, cy.max(-1).values[:, None, None]))
+    fx = coord_x(sx[:, :, None, :], cx[:, None, :, None])        # (P,nt,nx,B)
+    fy = coord_y(sy[:, :, None, :], cy[:, None, :, None])        # (P,nt,ny,B)
     x0f, y0f = torch.round(fx), torch.round(fy)
     x0, y0 = x0f.to(torch.int64), y0f.to(torch.int64)
     out = torch.zeros((p, nt, cy.shape[1], cx.shape[1]))
