@@ -144,7 +144,12 @@ Phases, each printed on its own line:
    time a run, launches from the host a scan (kernels, copies, sets,
    graph launches) and peak memory, and for the first chunk's graph and
    the one-scan graph their nodes, capture-and-instantiation seconds and
-   peak memory;
+   peak memory; and the resample gates (models/captured.cond): one
+   conditional IF node a gate a scan in the first chunk's graph (a
+   robot's a tick at multi), the kernels inside their bodies a scan, the
+   scans whose gate fired, the captured replay's peak memory over the
+   state's map bytes, its device ms a scan as the profiler records it and
+   its ms a scan by the host clock;
 18b. parallel — the distributed engines (gridmap_slam_tpu_torch/parallel/):
    K1's tile variant against its plain version at tiles cut from a
    4000 x 4000 city field (2 and 4 tiles: both edge tiles and one inside;
@@ -2987,11 +2992,9 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     memory are printed for both graphs.  Returns (the counts of the first
     captured call, the kernels a scan inside the graph)."""
     from gridmap_slam_tpu_torch.io import frame_at
-    from gridmap_slam_tpu_torch.models.captured import (CHUNK_SCANS,
-                                                        WARMUP_STEPS,
-                                                        graph_kernel_names,
-                                                        stack_steps,
-                                                        tree_map)
+    from gridmap_slam_tpu_torch.models.captured import (
+        CHUNK_SCANS, WARMUP_STEPS, graph_conditional_bodies,
+        graph_kernel_names, graph_kernel_nodes, stack_steps, tree_map)
     from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
 
     def gen():
@@ -3060,6 +3063,25 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     periodic = {k[0]: _one_scan_periods(
         graph_kernel_names(gr.raw_cuda_graph()), names_one, k[0])
         for k, gr in cap.graphs.items()}
+    # the resample gates: an IF node a gate a scan (a robot's a tick)
+    bodies = graph_conditional_bodies(
+        cap.graphs[(m, False)].raw_cuda_graph())
+    gates = inf_c.resampled[0].numel()
+    map_bytes = st_e.logodds.numel() * st_e.logodds.element_size()
+    gate = dict(gates_a_scan=gates,
+                conditional_nodes_a_scan=len(bodies) / m,
+                kernels_in_bodies_a_scan=sum(
+                    len(graph_kernel_nodes(b)) for _, bs in bodies
+                    for b in bs) / m,
+                fired=int(inf_c.resampled.sum()),
+                gated=int(inf_c.resampled.numel()),
+                map_bytes=map_bytes,
+                peak_over_map_bytes=peak_c / map_bytes,
+                # the profiler's device records (a body's kernels among
+                # them, under correlation ids of their own) and the timed
+                # replay's host clock
+                profiler_device_ms_a_scan=prof_c["device_ms"] / n,
+                replay_ms_a_scan=sec_c * 1e3 / n)
 
     bits = {"state": _fields_differing(st_e, st_c),
             "infos": _fields_differing(inf_e, inf_c),
@@ -3100,7 +3122,7 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                kernels_per_scan_eager=eager_per_scan,
                kernels_per_scan_in_graph=in_graph,
                kernel_nodes_in_graph=len(names),
-               log_graph=graph, one_scan_graph=one_scan,
+               log_graph=graph, one_scan_graph=one_scan, resample_gate=gate,
                log_graph_is_one_scan_n_times=periodic,
                kernels_per_scan_profiler=seen if visible else None,
                profiler_sees_graph_kernels=visible,
@@ -3136,6 +3158,10 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     if any(in_graph[k] != eager_per_scan[k] for k in KERNEL_SYMBOLS):
         raise AssertionError(f"captured {name}: kernels a scan inside the "
                              f"graph {in_graph} != eager {eager_per_scan}")
+    if len(bodies) != gates * m:
+        raise AssertionError(f"captured {name}: {len(bodies)} conditional "
+                             f"nodes in a graph of {m} scans of {gates} "
+                             f"resample gates each")
     if not all(periodic.values()):
         raise AssertionError(f"captured {name}: a graph's kernel nodes are "
                              f"not the one-scan graph's {len(names_one)} "

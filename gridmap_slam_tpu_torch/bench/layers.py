@@ -15,9 +15,12 @@ here, a part being a kernel (kernels/) or a span (spans/).
   of the span added; the graph's kernel nodes in the order they run
   (kernel_run_order) then say which of each launch's kernel records are
   the span's (launches_by_id), less those of a kernel the cell names: the
-  mean over the launches whose records are the graph's kernels
-  (whole_launches; the profiler may drop a record), over the scans a
-  launch holds.  Not measured (nor the glue) where no launch is whole.
+  mean over the launches whose records are the graph's kernels (align;
+  the profiler may drop a record), over the scans a launch holds.  Not
+  measured (nor the glue) where no launch is whole.  A conditional IF
+  node (a resample gate) is one node of the chain: the records of its
+  body that the profiler files under the launch stand there, known by
+  their names (it gives others correlation ids of their own).
 - device_ms_a_scan.glue: the rest of those replays' device time (every
   device record, the eager ones around the graph launches too), a scan.
 - host_launches_a_scan: the runtime calls of those replays that put work
@@ -112,14 +115,35 @@ class SpanNodes:
                 setattr(mod, attr, real)
 
 
+def demangle(name: str) -> str:
+    """A kernel's mangled name as the profiler gives it (the C++ runtime's
+    __cxa_demangle); the name itself where it is not mangled."""
+    cxx = ctypes.CDLL("libstdc++.so.6")
+    cxx.__cxa_demangle.restype = ctypes.c_void_p
+    status = ctypes.c_int(0)
+    out = cxx.__cxa_demangle(name.encode(), None, None, ctypes.byref(status))
+    if status.value != 0 or not out:
+        return name
+    try:
+        return ctypes.string_at(out).decode()
+    finally:
+        ctypes.CDLL(None).free(ctypes.c_void_p(out))
+
+
 def kernel_run_order(graph_handle: int):
     """(function name, node) of every kernel node of a graph, in the order
-    they run; None where its nodes do not form one chain."""
+    they run, and (None, node, the profiler's names of its body's kernels)
+    of every conditional IF node; None where its nodes do not form one
+    chain."""
     chain = captured.graph_chain(graph_handle)
     if chain is None:
         return None
     names = dict(captured.graph_kernel_nodes(graph_handle))
-    return [(names[node], node) for node in chain if node in names]
+    bodies = dict(captured.graph_conditional_bodies(graph_handle))
+    return [(None, node, [demangle(name) for b in bodies[node]
+                          for name in captured.graph_kernel_names(b)])
+            if node in bodies else (names[node], node)
+            for node in chain if node in names or node in bodies]
 
 
 def _dur_us(e) -> float:
@@ -160,11 +184,27 @@ def launches_by_id(dev, host, kernels):
     return [runs[i] for i in sorted(starts, key=starts.get)]
 
 
-def whole_launches(launches, pattern) -> list:
-    """The launches whose records are the graph's kernels (`pattern`: the
-    kernel of each, or None, in the order they run): not those of which
-    the profiler dropped a record."""
-    return [run for run in launches if [r[1] for r in run] == pattern]
+def align(run, order, kernels):
+    """The kernel node of each of a launch's kernel records (`run`, as
+    launches_by_id gives them) in kernel_run_order's `order`, None for a
+    record of an IF node's body; None where the records are not the
+    graph's kernels (the profiler dropped one).  The profiler files some
+    of a body's kernels under the launch and gives others correlation ids
+    of their own: those it files stand where the IF node does, in the
+    body's order, and are known by their names."""
+    out, i = [], 0
+    for entry in order:
+        if entry[0] is None:
+            for name in entry[2]:
+                if i < len(run) and run[i][0] == name:
+                    out.append(None)
+                    i += 1
+            continue
+        if i >= len(run) or run[i][1] != K.kernel_of(kernels, entry[0]):
+            return None
+        out.append(entry)
+        i += 1
+    return out if i == len(run) else None
 
 
 def _bounds_a_scan(kernels, eager, inputs, batch, n: int) -> dict:
@@ -217,11 +257,12 @@ def read_replays(kernels: dict, named, span_nodes: dict, nodes, order,
                  scans: int, dev, host, scans_run: int) -> dict:
     """The per-layer readings a scan of profiled replays of one graph that
     holds `scans` scans (one launch a replay of the whole log): `nodes` the
-    function names of its kernel nodes, `order` kernel_run_order's (name,
-    node) of them or None, `span_nodes` each span's nodes; `dev` and `host`
-    the profiler's records of replays of `scans_run` scans in all.  A
-    graph's counts and a whole launch's records cover `scans` scans, and
-    are divided by them; the records of all the replays, by scans_run."""
+    function names of its kernel nodes (its IF nodes' bodies' too),
+    `order` kernel_run_order's or None, `span_nodes` each span's nodes;
+    `dev` and `host` the profiler's records of replays of `scans_run`
+    scans in all.  A graph's counts and a whole launch's records cover
+    `scans` scans, and are divided by them; the records of all the
+    replays, by scans_run."""
     in_graph = collections.Counter(K.kernel_of(kernels, name)
                                    for name in nodes)
     recs = [(e.name, K.kernel_of(kernels, e.name), _dur_us(e)) for e in dev
@@ -234,17 +275,19 @@ def read_replays(kernels: dict, named, span_nodes: dict, nodes, order,
     ms = {k: (rec_us[k] / rec_n[k] * in_graph[k] / scans / 1e3
               if rec_n[k] else None) for k in named}
     span_ms = dict.fromkeys(span_nodes)
-    pattern = ([K.kernel_of(kernels, name) for name, _ in order]
-               if order else None)
     launches = (launches_by_id(dev, host, kernels)
-                if pattern and span_nodes else [])
-    whole = whole_launches(launches, pattern)
+                if order and span_nodes else [])
+    whole = [(run, nodes_of) for run in launches
+             for nodes_of in [align(run, order, kernels)]
+             if nodes_of is not None]
     if whole:           # a launch a log of `scans` scans
         for s, own in span_nodes.items():
-            at = [i for i, (name, top) in enumerate(order)
-                  if top in own and K.kernel_of(kernels, name) not in named]
-            span_ms[s] = sum(run[i][2] for run in whole
-                             for i in at) / len(whole) / scans / 1e3
+            span_ms[s] = sum(
+                run[i][2] for run, nodes_of in whole
+                for i, e in enumerate(nodes_of)
+                if e is not None and e[1] in own
+                and K.kernel_of(kernels, e[0]) not in named
+            ) / len(whole) / scans / 1e3
     out = {f"device_ms_a_scan.{k}": v for k, v in ms.items()}
     out.update({f"device_ms_a_scan.{s}": v for s, v in span_ms.items()})
     parts_ms = list(ms.values()) + list(span_ms.values())
@@ -262,7 +305,7 @@ def read_replays(kernels: dict, named, span_nodes: dict, nodes, order,
         "graph_is_a_chain": order is not None,
         "launches_whole": [len(whole), len(launches)],
         "launch_records": sorted({len(run) for run in launches}),
-        "kernels_run": len(pattern or ()),
+        "kernels_run": sum(e[0] is not None for e in order or ()),
     })
     return out
 

@@ -68,6 +68,15 @@ around it.  `Captured.kernel_names` lists the kernels the graph of the
 last call's first chunk holds, one entry a kernel node, read from the
 graph itself; `launches` counts the last call's chunks.
 
+`cond` is the counterpart of `jax.lax.cond` for the steps' resample
+gates: under a capture it makes a CUDA-graph conditional IF node (torch
+2.11 has no call for one, so `conditional_capture` builds it with the
+CUDA driver's graph calls around each capture `Graphed` makes), so that a
+replay runs a gate's body only on the scans where it fires; eagerly on
+the card it is a select, and on the CPU a Python branch.  The graph walks
+(`graph_kernel_nodes`, `graph_conditional_bodies`) read the bodies'
+kernels where their IF node stands.
+
 `Graphed` is that capture for any body over static buffers: `Captured`
 is one, and so are the pose-graph frontend's three compiled pieces (the
 closure verifier, Gauss-Newton and the map rebuild, models/frontend.py and
@@ -79,6 +88,7 @@ collective of the warm-up has finished, before the capture begins.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import time
@@ -175,6 +185,197 @@ def scan(step: Callable, draw: Callable, state, frames, generator=None,
     return state, stack_steps(infos)
 
 
+def cond(pred, body: Callable, outs: Sequence, select: Optional[bool] = None
+         ) -> None:
+    """`jax.lax.cond(pred, body, identity)` for a body that overwrites the
+    tensors `outs`, which hold the identity's result when it is called
+    (the resample gates: the indices, poses and weights a resample
+    replaces).  `pred` is a 0-dim bool tensor.
+
+    - Under a capture by `Graphed` (conditional_capture): a CUDA-graph
+      conditional IF node whose body holds body()'s work, so that a replay
+      runs it only where `pred` holds then (see conditional_capture).  A
+      capture that is not conditional_capture's raises: no capture falls
+      back to the select.
+    - Eagerly on the card: the select form, with no host read: body() runs
+      with copies of `outs` kept aside, then each out is
+      torch.where(pred, its new value, its old one).
+    - On the CPU: body() where bool(pred), in Python: the CPU runs the
+      bodies the card's IF nodes hold.
+
+    `select=True` asks for the select form on any device (the tests hold
+    it against the branch)."""
+    if select is None:
+        select = pred.is_cuda and not torch.cuda.is_current_stream_capturing()
+    if select:
+        kept = [x.clone() for x in outs]
+        body()
+        for x, old in zip(outs, kept):
+            torch.where(pred, x, old, out=x)
+    elif not pred.is_cuda:
+        if bool(pred):
+            body()
+    else:
+        _capture_if(pred, body)
+
+
+# the conditionals captured so far in the running conditional_capture:
+# (the node that sets the handle, the body's last node, handle, context)
+_segments: Optional[list] = None
+# conditional node -> its body graphs, for the conditional nodes made here
+# (the CUDA driver has no call that reads a conditional node's bodies
+# back)
+_bodies: dict = {}
+
+
+def _capture_state(cu, stream: int):
+    """(the graph a stream captures into, its capture's current
+    dependencies)."""
+    status, cid = ctypes.c_int(), ctypes.c_uint64()
+    graph, n = ctypes.c_void_p(), ctypes.c_size_t()
+    deps = ctypes.POINTER(ctypes.c_void_p)()
+    _cu(cu, "cuStreamGetCaptureInfo_v2", ctypes.c_void_p(stream),
+        ctypes.byref(status), ctypes.byref(cid), ctypes.byref(graph),
+        ctypes.byref(deps), ctypes.byref(n))
+    return graph.value, [deps[i] for i in range(n.value)]
+
+
+def _capture_if(pred, body: Callable) -> None:
+    """cond's captured form: a conditional handle of the graph being
+    captured, the kernel that sets it from `pred` (csrc/conditional.cu),
+    then body()'s work, noted for conditional_capture to move into the
+    body of an IF node after that kernel."""
+    from ..ops.cuda import _build
+    if _segments is None:
+        raise RuntimeError("captured.cond under a capture that is not "
+                           "captured.conditional_capture's (Graphed.capture)")
+    cu = ctypes.CDLL("libcuda.so.1")
+    stream = torch.cuda.current_stream(pred.device).cuda_stream
+    graph, _ = _capture_state(cu, stream)
+    ctx, handle = ctypes.c_void_p(), ctypes.c_uint64()
+    _cu(cu, "cuCtxGetCurrent", ctypes.byref(ctx))
+    _cu(cu, "cuGraphConditionalHandleCreate", ctypes.byref(handle),
+        ctypes.c_void_p(graph), ctx, ctypes.c_uint(0), ctypes.c_uint(0))
+    _build.check("gs_set_conditional", _build.library().gs_set_conditional(
+        handle.value, pred.data_ptr(), stream))
+    _, head = _capture_state(cu, stream)
+    body()
+    _, tail = _capture_state(cu, stream)
+    if len(head) != 1 or len(tail) != 1:
+        raise RuntimeError(f"a conditional's body must be captured as one "
+                           f"chain: {len(head)} and {len(tail)} dependencies")
+    _segments.append((head[0], tail[0], handle.value, ctx.value))
+
+
+class _CondNodeParams(ctypes.Structure):
+    """The CUDA driver's CUgraphNodeParams (256 bytes) with its union read as
+    CUDA_CONDITIONAL_NODE_PARAMS."""
+    _fields_ = [("type", ctypes.c_int), ("reserved0", ctypes.c_int * 3),
+                ("handle", ctypes.c_uint64), ("cond_type", ctypes.c_int),
+                ("size", ctypes.c_uint),
+                ("graphs", ctypes.POINTER(ctypes.c_void_p)),
+                ("ctx", ctypes.c_void_p),
+                ("reserved1", ctypes.c_longlong * 25),
+                ("reserved2", ctypes.c_longlong)]
+
+
+def _dependents(cu, node) -> list:
+    n = ctypes.c_size_t(0)
+    _cu(cu, "cuGraphNodeGetDependentNodes", ctypes.c_void_p(node), None,
+        ctypes.byref(n))
+    out = (ctypes.c_void_p * n.value)()
+    _cu(cu, "cuGraphNodeGetDependentNodes", ctypes.c_void_p(node), out,
+        ctypes.byref(n))
+    return list(out)
+
+
+def _clone_node(cu, node, graph, prev, ctx):
+    """A copy of a kernel, copy or set node in `graph`, after `prev`."""
+    kind = ctypes.c_int(-1)
+    _cu(cu, "cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+    new = ctypes.c_void_p()
+    deps = (ctypes.c_void_p * 1)(prev) if prev else None
+    args = (ctypes.byref(new), ctypes.c_void_p(graph), deps,
+            ctypes.c_size_t(1 if prev else 0))
+    if kind.value == 0:                               # kernel
+        params = _KernelNodeParams()
+        _cu(cu, "cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+            ctypes.byref(params))
+        _cu(cu, "cuGraphAddKernelNode_v2", *args, ctypes.byref(params))
+        _cu(cu, "cuGraphKernelNodeCopyAttributes", new,
+            ctypes.c_void_p(node))
+    elif kind.value in (1, 2):                        # memcpy, memset
+        what = "Memcpy" if kind.value == 1 else "Memset"
+        params = (ctypes.c_char * 512)()            # CUDA_MEMCPY3D / ..._SET
+        _cu(cu, f"cuGraph{what}NodeGetParams", ctypes.c_void_p(node), params)
+        _cu(cu, f"cuGraphAdd{what}Node", *args, params, ctypes.c_void_p(ctx))
+    else:
+        raise RuntimeError(f"a {NODE_TYPES[kind.value]} node in a "
+                           f"conditional's body")
+    return new.value
+
+
+def _make_if_node(cu, graph: int, head, tail, handle: int, ctx) -> None:
+    """Move the chain of nodes after `head` up to `tail` into the body of a
+    new IF node on `handle`, which stands between `head` and what followed
+    `tail`."""
+    chain, node = [], head
+    while node != tail:
+        nxt = _dependents(cu, node)
+        if len(nxt) != 1:
+            raise RuntimeError("a conditional's body is not one chain")
+        node = nxt[0]
+        chain.append(node)
+    after = _dependents(cu, tail)
+    params = _CondNodeParams(type=CONDITIONAL, handle=handle, cond_type=0,
+                             size=1, ctx=ctx)        # CU_GRAPH_COND_TYPE_IF
+    cnode = ctypes.c_void_p()
+    _cu(cu, "cuGraphAddNode", ctypes.byref(cnode), ctypes.c_void_p(graph),
+        (ctypes.c_void_p * 1)(head), ctypes.c_size_t(1),
+        ctypes.byref(params))
+    body = params.graphs[0]
+    prev = None
+    for node in chain:
+        prev = _clone_node(cu, node, body, prev, ctx)
+    for node in chain:
+        _cu(cu, "cuGraphDestroyNode", ctypes.c_void_p(node))
+    for node in after:
+        _cu(cu, "cuGraphAddDependencies", ctypes.c_void_p(graph),
+            (ctypes.c_void_p * 1)(cnode.value),
+            (ctypes.c_void_p * 1)(node), ctypes.c_size_t(1))
+    _bodies[cnode.value] = [body]
+
+
+@contextlib.contextmanager
+def conditional_capture(graph):
+    """Around the capture of `graph` (a torch.cuda.CUDAGraph made with
+    keep_graph=True, not yet instantiated): every cond() the capture meets
+    becomes a conditional IF node.  torch 2.11 has no call that captures
+    one (PyTorch's CUDAGraph.begin_capture_to_if_node came later), so it is
+    made with the CUDA driver's graph calls: while the capture runs, cond()
+    creates a conditional handle of the graph, captures the kernel that
+    sets it from `pred` and then the body's work into the graph in line,
+    from the graph's own memory pool like every other node; when the
+    capture has ended, each body's nodes (kernels, copies and sets, one
+    chain) are copied into the body graph of a new IF node placed after
+    that kernel, and removed from the graph."""
+    global _segments
+    if _segments is not None:
+        raise RuntimeError("conditional_capture does not nest")
+    _segments = []
+    try:
+        yield
+        segments = _segments
+    finally:
+        _segments = None
+    if segments:
+        cu = ctypes.CDLL("libcuda.so.1")
+        for head, tail, handle, ctx in segments:
+            if head != tail:        # an empty body gates nothing
+                _make_if_node(cu, graph.raw_cuda_graph(), head, tail,
+                              handle, ctx)
+
+
 def copy_from_host(buf, x):
     """buf.copy_(x) for a host tensor x with no wait on the card: on a CUDA
     buffer x goes through pinned memory, whose block PyTorch's host
@@ -241,8 +442,9 @@ class Graphed:
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=pool, stream=side):
-            (captured or self.body)()
+        with conditional_capture(graph):
+            with torch.cuda.graph(graph, pool=pool, stream=side):
+                (captured or self.body)()
         graph.instantiate()
         self.capture_seconds = time.perf_counter() - t0
         self.graph = graph
@@ -456,6 +658,7 @@ NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
               "wait_event", "event_record", "ext_semas_signal",
               "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
               "conditional")
+CONDITIONAL = NODE_TYPES.index("conditional")
 
 
 def _graph_nodes(cu, graph_handle: int) -> list:
@@ -473,24 +676,8 @@ def _graph_nodes(cu, graph_handle: int) -> list:
     return out
 
 
-def graph_node_types(graph_handle: int) -> dict:
-    """The nodes of a cudaGraph_t counted by their CUDA node type
-    (NODE_TYPES): a collective of a world of one may be a copy node and
-    not a kernel, so collectives are counted by type, not by name."""
-    counts: dict = {}
-    for _, kind in _graph_nodes(ctypes.CDLL("libcuda.so.1"), graph_handle):
-        name = NODE_TYPES[kind] if 0 <= kind < len(NODE_TYPES) else str(kind)
-        counts[name] = counts.get(name, 0) + 1
-    return counts
-
-
-def graph_chain(graph_handle: int) -> Optional[list]:
-    """The nodes of a cudaGraph_t in the order they run, where they form
-    one chain (each node at most one edge in and one out, as a capture of
-    one stream gives); None where they do not."""
-    cu = ctypes.CDLL("libcuda.so.1")
+def _chain(cu, graph_handle: int, nodes: list) -> Optional[list]:
     graph = ctypes.c_void_p(graph_handle)
-    nodes = [node for node, _ in _graph_nodes(cu, graph_handle)]
     count = ctypes.c_size_t(0)
     _cu(cu, "cuGraphGetEdges", graph, None, None, ctypes.byref(count))
     src = (ctypes.c_void_p * count.value)()
@@ -509,14 +696,62 @@ def graph_chain(graph_handle: int) -> Optional[list]:
     return order if len(order) == len(nodes) else None
 
 
+def _run_order(cu, graph_handle: int) -> list:
+    """(node, type) of a graph's nodes in the order they run where they form
+    one chain, else in the CUDA driver's order (the order they were made: a
+    conditional node made after its capture comes last there)."""
+    nodes = _graph_nodes(cu, graph_handle)
+    chain = _chain(cu, graph_handle, [node for node, _ in nodes])
+    if chain is None:
+        return nodes
+    kind = dict(nodes)
+    return [(node, kind[node]) for node in chain]
+
+
+def graph_conditional_bodies(graph_handle: int) -> list:
+    """(conditional node, its body graphs) of every conditional node of a
+    cudaGraph_t's top level, in _run_order."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    return [(node, _bodies[node]) for node, kind in _run_order(
+        cu, graph_handle) if kind == CONDITIONAL]
+
+
+def graph_node_types(graph_handle: int) -> dict:
+    """The top-level nodes of a cudaGraph_t counted by their CUDA node type
+    (NODE_TYPES): a collective of a world of one may be a copy node and
+    not a kernel, so collectives are counted by type, not by name.  A
+    conditional node counts as one; its bodies' kernels are in
+    graph_kernel_nodes."""
+    counts: dict = {}
+    for _, kind in _graph_nodes(ctypes.CDLL("libcuda.so.1"), graph_handle):
+        name = NODE_TYPES[kind] if 0 <= kind < len(NODE_TYPES) else str(kind)
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def graph_chain(graph_handle: int) -> Optional[list]:
+    """The nodes of a cudaGraph_t in the order they run, where they form
+    one chain (each node at most one edge in and one out, as a capture of
+    one stream gives; a conditional node is one node of it); None where
+    they do not."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    return _chain(cu, graph_handle,
+                  [node for node, _ in _graph_nodes(cu, graph_handle)])
+
+
 def graph_kernel_nodes(graph_handle: int) -> list:
     """(node, mangled function name) of every kernel node of a cudaGraph_t,
-    in the CUDA driver's node order, read through its API.  A node holds a
+    in _run_order, read through its API; the kernels of a conditional
+    node's bodies stand where the conditional node does.  A node holds a
     CUfunction or, for a kernel the runtime loaded as a CUkernel, that;
     each has its name call."""
     cu = ctypes.CDLL("libcuda.so.1")
     out = []
-    for node, kind in _graph_nodes(cu, graph_handle):
+    for node, kind in _run_order(cu, graph_handle):
+        if kind == CONDITIONAL:
+            for body in _bodies[node]:
+                out += graph_kernel_nodes(body)
+            continue
         if kind != 0:                       # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         params = _KernelNodeParams()
@@ -535,7 +770,7 @@ def graph_kernel_nodes(graph_handle: int) -> list:
 
 def graph_kernel_names(graph_handle: int) -> list:
     """The (mangled) function name of every kernel node of a cudaGraph_t,
-    in the CUDA driver's node order (graph_kernel_nodes)."""
+    in graph_kernel_nodes' order."""
     return [name for _, name in graph_kernel_nodes(graph_handle)]
 
 

@@ -12,7 +12,9 @@ call of the correlative matcher (kernel K1 with one shared field and one
 scan a robot, G_f = 1 and G_b = R); each robot's delta is the scan
 integrated into a zero map at its strongest particle's pose (kernel K2 at
 batch R, one bin table a robot), summed onto the map in robot order; each
-robot resamples on its own.
+robot resamples on its own, under its own gate (models/captured.cond: an
+IF node a robot in the captured replay; the JAX step's lax.cond sits under
+jax.vmap, which XLA compiles to a select of both branches).
 
 `replay` also takes the ticks stacked, (T, R, ...), as the JAX package's
 `lax.scan` does (stacked infos); `replay_jit` is its captured form, all the
@@ -191,20 +193,25 @@ class MultiRobotSLAM:
             total = total + deltas[i]
         logodds = torch.add(state.logodds, total, out=o.logodds)
 
-        # per-robot resampling, as a select on the card
+        # per-robot resampling, each robot's gate the JAX step's lax.cond
+        # as captured.cond: the identity lands in `out` (or fresh tensors)
+        # and a robot's resample overwrites its rows where its gate fires
         do_rs = neffs < (p * cfg.resample_fraction)
-        new_poses, new_lw = [], []
+        new_poses = (poses.clone() if out is None
+                     else captured.copy_into(out.poses, poses))
+        new_lw = (lw.clone() if out is None
+                  else captured.copy_into(out.log_weights, lw))
         for i in range(r):
-            idx = torch.where(do_rs[i], systematic_indices(lw[i], u0[i]),
-                              torch.arange(p, device=dev))
-            new_poses.append(poses[i][idx])
-            if cfg.accumulate_weights:
-                new_lw.append(torch.where(do_rs[i], torch.zeros_like(lw[i]),
-                                          lw[i]))
-            else:
-                new_lw.append(lw[i][idx])
-        poses = torch.stack(new_poses, out=o.poses)
-        lw = torch.stack(new_lw, out=o.log_weights)
+            def resample(i=i):
+                idx = systematic_indices(lw[i], u0[i])
+                torch.index_select(poses[i], 0, idx, out=new_poses[i])
+                if cfg.accumulate_weights:
+                    new_lw[i].zero_()
+                else:
+                    torch.index_select(lw[i], 0, idx, out=new_lw[i])
+
+            captured.cond(do_rs[i], resample, [new_poses[i], new_lw[i]])
+        poses, lw = new_poses, new_lw
         weighted = torch.stack([weighted_mean_pose(poses[i], lw[i])
                                 for i in range(r)])
         new_step = torch.add(state.step, 1, out=o.step)

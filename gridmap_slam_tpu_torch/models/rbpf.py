@@ -9,10 +9,15 @@ p(z|x,m), and integrates the scan into its own map (kernel K2; skipped for
 systematically when Neff < P/2.
 
 On a CUDA device every kernel is the hand-written one; on the CPU each runs
-its plain PyTorch version.  The resample gate is a device-side select
-(identity indices when it does not fire), so a step never waits on the
-host: a warm step on the card makes no synchronizing call (chip_smoke.py
-runs one under torch.cuda.set_sync_debug_mode("error")).  Randomness comes
+its plain PyTorch version.  The chunks' maps are written into one
+(P, H, W) tensor (the JAX step's lax.map), and the resample gate is the
+JAX step's lax.cond as models/captured.cond: the ancestors' indices are
+drawn only where it fires (a CUDA-graph IF node in the captured replays,
+a select eagerly on the card, a Python branch on the CPU), and the maps
+then move once, gathered at those indices (the identity where it does
+not fire).  A step never waits on the host: a warm step on the card
+makes no synchronizing call (chip_smoke.py runs one under
+torch.cuda.set_sync_debug_mode("error")).  Randomness comes
 from the `torch.Generator` passed to `step`, or from draws the caller
 injects.
 
@@ -93,10 +98,9 @@ class RBPF:
         return state
 
     # ------------------------------------------------------------------- step
-    def _update_chunk(self, poses, logodds, normals, scan: Scan, odom: Odom,
-                      tables, keep):
-        """Motion sample, field build, match and map update for a block of
-        particles.  Returns (poses, measurement scores, logodds)."""
+    def _match_chunk(self, poses, logodds, normals, scan: Scan, odom: Odom):
+        """Motion sample, field build and match for a block of particles.
+        Returns (poses, measurement scores)."""
         cfg = self.config
         mcfg = cfg.map
         origin = (float(mcfg.origin[0]), float(mcfg.origin[1]))
@@ -107,19 +111,13 @@ class RBPF:
                                          z_hit=cfg.matcher.z_hit,
                                          max_range=cfg.sensor.max_range)
         if cfg.matcher.enabled:
-            best, score = correlative_match_batch(
+            return correlative_match_batch(
                 llf, scan, pose_s, odom, matcher_cfg=cfg.matcher,
                 motion_cfg=cfg.motion, resolution=res, origin=origin,
                 max_range=cfg.sensor.max_range, prior_center_b=pose_det)
-        else:
-            best, score = pose_s, score_pose(
-                llf, scan, pose_s, z_hit=cfg.matcher.z_hit, resolution=res,
-                origin=origin, max_range=cfg.sensor.max_range)
-        new_lo = integrate_scan_batch(
-            logodds, best, keep, *tables, resolution=res, origin=origin,
-            l_free=cfg.sensor.l_free, l_occ=cfg.sensor.l_occ,
-            tol_cells=cfg.sensor.hit_tolerance_cells)
-        return best, score, new_lo
+        return pose_s, score_pose(
+            llf, scan, pose_s, z_hit=cfg.matcher.z_hit, resolution=res,
+            origin=origin, max_range=cfg.sensor.max_range)
 
     def _draws(self, generator: Optional[torch.Generator], out=None):
         """One scan's draws from `generator`: (normals (P, 2), u0), into the
@@ -158,13 +156,29 @@ class RBPF:
         if cfg.freeze_map:          # localization-only: map never changes
             keep = keep * 0.0
 
+        # lax.map over the chunks, as XLA compiles it on the donated state:
+        # K2 writes each chunk's new maps into its rows of one (P, H, W)
+        # tensor, with no concatenation of maps after.  The tensor is made
+        # once the first chunk is matched, so the matcher's first field
+        # and workspace are gone by then.
         chunk = cfg.particle_chunk if 0 < cfg.particle_chunk < p else p
-        parts = [self._update_chunk(state.poses[s:s + chunk],
-                                    state.logodds[s:s + chunk],
-                                    normals[s:s + chunk], scan, odom, tables,
-                                    keep)
-                 for s in range(0, p, chunk)]
-        poses, scores, logodds = (torch.cat(x) for x in zip(*parts))
+        mc = cfg.map
+        k2 = dict(resolution=float(mc.resolution),
+                  origin=(float(mc.origin[0]), float(mc.origin[1])),
+                  l_free=cfg.sensor.l_free, l_occ=cfg.sensor.l_occ,
+                  tol_cells=cfg.sensor.hit_tolerance_cells)
+        maps, parts = None, []
+        for s in range(0, p, chunk):
+            lo = state.logodds[s:s + chunk]
+            best, score = self._match_chunk(state.poses[s:s + chunk], lo,
+                                            normals[s:s + chunk], scan, odom)
+            if maps is None:
+                maps = torch.empty_like(state.logodds)
+            integrate_scan_batch(lo, best, keep, *tables,
+                                 out=maps[s:s + chunk], **k2)
+            parts.append((best, score))
+        poses, scores = (x[0] if len(x) == 1 else torch.cat(x)
+                         for x in zip(*parts))
 
         # Per-scan importance weights: the reference overwrites weights with
         # p(z|x,m) each update (slam/SLAM.java:99); with accumulate_weights
@@ -179,21 +193,31 @@ class RBPF:
         best_pose = poses[best_index[None]][0]
         weighted = weighted_mean_pose(poses, log_weights)
 
-        # Auto-resample when Neff < P/2 (app/GridMapApp.java:185-186), as a
-        # select on the card: identity indices when the gate does not fire.
-        # The gathers write into `out` where one is given.
+        # Auto-resample when Neff < P/2 (app/GridMapApp.java:185-186), the
+        # JAX step's lax.cond as captured.cond: the ancestors' indices
+        # (and, accumulating, the weights' reset) only where the gate
+        # fires, the identity where it does not; then the maps, poses and
+        # weights move once, gathered at those indices into `out` where
+        # one is given.
         do_resample = n_eff < (p * cfg.resample_fraction)
-        idx = torch.where(do_resample, systematic_indices(log_weights, u0),
-                          torch.arange(p, device=dev))
         o = out if out is not None else SlamState(None, None, None, None)
+        acc = cfg.accumulate_weights
+        idx = torch.arange(p, device=dev)
+        if acc:                 # the weights start anew where it fires
+            log_weights = (log_weights if out is None else
+                           captured.copy_into(out.log_weights, log_weights))
+
+        def resample():
+            idx.copy_(systematic_indices(log_weights, u0))
+            if acc:
+                log_weights.zero_()
+
+        captured.cond(do_resample, resample,
+                      [idx, log_weights] if acc else [idx])
         new_step = torch.add(state.step, 1, out=o.step)
         poses = torch.index_select(poses, 0, idx, out=o.poses)
-        logodds = torch.index_select(logodds, 0, idx, out=o.logodds)
-        if cfg.accumulate_weights:
-            log_weights = torch.where(do_resample,
-                                      torch.zeros_like(log_weights),
-                                      log_weights, out=o.log_weights)
-        else:
+        logodds = torch.index_select(maps, 0, idx, out=o.logodds)
+        if not acc:
             log_weights = torch.index_select(log_weights, 0, idx,
                                              out=o.log_weights)
 

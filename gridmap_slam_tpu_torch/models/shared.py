@@ -17,8 +17,10 @@ measurement models:
   particle's pose.
 
 Both end in the same tail (`_finish`): weights, Neff, the integration pose,
-the map update, the resample as a select on the card and the AMCL recovery
-injection.
+the map update, and the resample with the AMCL recovery injection under
+the JAX step's lax.cond (models/captured.cond: a CUDA-graph IF node in
+the captured replays, so that a scan whose gate does not fire skips the
+P-row tail; a select eagerly on the card; a Python branch on the CPU).
 
 Per surface scan: the volume is centered on the odometry-propagated cloud mean; the
 log-likelihood field is built over the volume's crop plus the blur radius
@@ -26,9 +28,9 @@ log-likelihood field is built over the volume's crop plus the blur radius
 its score from the volume; weights, Neff and the integration pose follow;
 the scan is integrated once into the shared map (kernel K2 at batch 1, on
 a crop of 2*kc + 8 cells around the pose when the map is larger); the
-filter resamples when Neff < surface_resample_fraction * P, as a select on
-the card, and the AMCL recovery injection replaces a fraction of the
-resampled slots with uniform poses.
+filter resamples when Neff < surface_resample_fraction * P, and the AMCL
+recovery injection replaces a fraction of the resampled slots with
+uniform poses.
 
 `replay` / `replay_surface` run a stacked Frame batch as `jax.lax.scan`
 does (stacked infos); `replay_jit` / `replay_surface_jit` are their
@@ -472,26 +474,29 @@ class SharedMapSLAM:
             recov = captured.copy_into(out.recov, recov)
         new_step = torch.add(state.step, 1, out=o.step)
 
-        # Resample as a select on the card: identity indices when the gate
-        # does not fire.
-        idx = torch.where(do_resample, systematic_indices(log_weights, u0),
-                          torch.arange(p, device=self.device))
-        last = p_inject is None      # the gathers are the fields' last ops
-        new_poses = torch.index_select(poses, 0, idx,
-                                       out=o.poses if last else None)
-        if cfg.accumulate_weights:
-            new_lw = torch.where(do_resample, torch.zeros_like(log_weights),
-                                 log_weights, out=o.log_weights)
-        else:
-            new_lw = torch.index_select(log_weights, 0, idx,
-                                        out=o.log_weights if last else None)
-        if not last:
-            inj_poses, took = inject_uniform(cfg, inj, new_poses, p_inject)
-            inj_lw = torch.where(took, new_lw.mean(), new_lw)
-            new_poses = torch.where(do_resample, inj_poses, new_poses,
-                                    out=o.poses)
-            new_lw = torch.where(do_resample, inj_lw, new_lw,
-                                 out=o.log_weights)
+        # The JAX step's lax.cond as captured.cond: the identity's poses and
+        # weights land in `out` (or fresh tensors), and the resample (the
+        # ancestors' indices, the gathers and the injection) overwrites
+        # them only where the gate fires.
+        new_poses = (poses.clone() if out is None
+                     else captured.copy_into(out.poses, poses))
+        new_lw = (log_weights.clone() if out is None
+                  else captured.copy_into(out.log_weights, log_weights))
+
+        def resample():
+            idx = systematic_indices(log_weights, u0)
+            torch.index_select(poses, 0, idx, out=new_poses)
+            if cfg.accumulate_weights:
+                new_lw.zero_()
+            else:
+                torch.index_select(log_weights, 0, idx, out=new_lw)
+            if p_inject is not None:
+                inj_poses, took = inject_uniform(cfg, inj, new_poses,
+                                                 p_inject)
+                new_poses.copy_(inj_poses)
+                new_lw.copy_(torch.where(took, new_lw.mean(), new_lw))
+
+        captured.cond(do_resample, resample, [new_poses, new_lw])
 
         new_state = out if out is not None else SharedMapState(
             poses=new_poses, log_weights=new_lw, logodds=logodds,

@@ -85,6 +85,8 @@ SIGNATURES = {
     "gs_surface_corr_clusters": [_I, _P],
     # &sm_count, &smem_block, &smem_sm
     "gs_device_limits": [_P, _P, _P],
+    # a graph's conditional handle, pred (one bool on the card); stream
+    "gs_set_conditional": [ctypes.c_uint64, _P, _P],
 }
 
 

@@ -1,0 +1,196 @@
+"""The captured replays of this tree against an earlier commit's, in
+alternating processes on one card: device time, peak memory and bits.
+
+For each path (chip_smoke.py's captured phase's engines and logs: parity,
+pr1, chip, mega, mega_blocked over 6 scans, multi at 10 000 a robot over
+20 ticks) a process builds the kernels of its tree (this one, or --root:
+an unpacked earlier commit), takes the engine's captured replay, calls it
+once (warm-up and capture) and once warm, then:
+
+- peak device memory over those two calls (max_memory_allocated after
+  reset_peak_memory_stats), less what was allocated before them, and the
+  state's map bytes;
+- device ms a scan: the device records of REPLAYS replays under
+  torch.profiler, over their scans; host ms a scan by CUDA events around
+  the same number of replays (host loop included);
+- the graph of the first chunk's nodes by type (conditional nodes: the
+  resample gates' IF nodes) and the scans whose gate fired (the infos'
+  resampled);
+- a digest of the final state, the stacked infos and the generator's next
+  draw, which must be the same in every process of every tree.
+
+The parent process runs the children in turns, ORDER (B = --root, A =
+this tree: B A A B), prints the card's name and power limit, a JSON line a
+child's path, then a summary line: each path's numbers of A and B side by
+side, and whether every digest agreed.
+
+Usage (needs a GPU; ~6 min):
+    python scripts/cond_ab.py --root DIR [--paths parity,pr1,...]
+"""
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PATHS = ("parity", "pr1", "chip", "mega", "mega_blocked", "multi")
+ORDER = "BAAB"
+REPLAYS = 5
+SEED = 0
+
+
+def digest(*trees) -> str:
+    import torch
+    from gridmap_slam_tpu_torch.models.captured import leaves
+    h = hashlib.sha256()
+    for tree in trees:
+        for x in leaves(tree):
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def setup(name):
+    """(engine, init, captured replay, stacked frames, scans) of a path,
+    from the tree's own chip_smoke.py helpers."""
+    import chip_smoke as cs
+    from gridmap_slam_tpu_torch import RBPF, SharedMapSLAM, mega_config
+    from gridmap_slam_tpu_torch.io import frames_to_device
+    from gridmap_slam_tpu_torch.models.captured import tree_map
+    from gridmap_slam_tpu_torch.models.multi import stack_frames
+    from gridmap_slam_tpu_torch.models.shared import matcher_block_size
+
+    frames, _ = cs.parity_log()
+
+    def stacked(cfg, n=None):
+        b = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
+                             device="cuda")
+        return tree_map(lambda x: x[:n], b)
+
+    if name == "multi":
+        eng, ticks, starts, _ = cs.multi_setup(cs.MULTI_PARTICLES[-1])
+        return (eng, lambda: eng.init(starts), eng.replay_jit(),
+                stack_frames(ticks), len(ticks))
+    if name in ("parity", "pr1", "chip"):
+        cfg = {"parity": cs.parity_config(), "pr1": cs.pr1_config(),
+               "chip": cs.parity_config().replace(
+                   num_particles=cs.CHIP_PARTICLES,
+                   particle_chunk=cs.CHIP_CHUNK)}[name]
+        eng = RBPF(cfg, device="cuda")
+        return eng, eng.init, eng.replay_jit(), stacked(cfg), cs.N_SCANS
+    if name == "mega":
+        eng = SharedMapSLAM(mega_config(), device="cuda")
+        return (eng, eng.init, eng.replay_surface_jit(),
+                stacked(eng.config), cs.N_SCANS)
+    cfg = cs.parity_config().replace(num_particles=cs.MEGA_PARTICLES,
+                                     particle_chunk=0)
+    eng = SharedMapSLAM(cfg, device="cuda")
+    n = cs.CAPTURED_BLOCKED_SCANS
+    return (eng, eng.init, eng.replay_jit(block=matcher_block_size(cfg)),
+            stacked(cfg, n), n)
+
+
+def child(name: str) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gridmap_slam_tpu_torch.models import captured
+
+    eng, init, replay, frames, n = setup(name)
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s0, g = init(), gen()
+    replay(s0, frames, g)                       # warm-up and capture
+    s0, g = init(), gen()
+    st, infos = replay(s0, frames, g)
+    nxt = torch.randn(8, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    cap = replay.captured
+    nodes = captured.graph_node_types(cap.graph.raw_cuda_graph())
+    s0, g = init(), gen()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPLAYS):
+            replay(s0, frames, g)
+        torch.cuda.synchronize()
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(REPLAYS):
+        replay(s0, frames, g)
+    end.record()
+    torch.cuda.synchronize()
+    map_bytes = st.logodds.numel() * st.logodds.element_size()
+    return dict(path=name, scans=n, particles=eng.config.num_particles,
+                device_ms_a_scan=dev_us / 1e3 / (REPLAYS * n),
+                host_ms_a_scan=start.elapsed_time(end) / (REPLAYS * n),
+                peak_bytes=peak, map_bytes=map_bytes,
+                peak_over_map_bytes=peak / map_bytes,
+                graph_scans=cap.scans, nodes_by_type=nodes,
+                fired=int(infos.resampled.sum()),
+                gated=int(infos.resampled.numel()),
+                digest=digest(st, infos, nxt))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", help="an unpacked earlier commit (B)")
+    ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--child", action="store_true",
+                    help="run the paths in this process, on --root's tree")
+    args = ap.parse_args()
+    paths = args.paths.split(",")
+    if args.child:
+        tree = Path(args.root or ROOT).resolve()
+        sys.path.insert(0, str(tree))
+        import torch
+        if not torch.cuda.is_available():
+            sys.exit("cond_ab: no CUDA device")
+        from gridmap_slam_tpu_torch.ops.cuda import _build
+        _build.library()
+        for name in paths:
+            print(json.dumps(child(name)), flush=True)
+            torch.cuda.empty_cache()
+        return
+    if not args.root:
+        sys.exit("cond_ab: --root DIR (the earlier commit) is needed")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    rows = {"A": {}, "B": {}}
+    for turn, side in enumerate(ORDER):
+        root = ROOT if side == "A" else Path(args.root).resolve()
+        proc = subprocess.run(
+            [sys.executable, __file__, "--child", "--root", str(root),
+             "--paths", args.paths], cwd=root, capture_output=True,
+            text=True)
+        if proc.returncode:
+            sys.exit(f"cond_ab: {side} failed:\n{proc.stdout}{proc.stderr}")
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                row = dict(json.loads(line), side=side, turn=turn)
+                print(json.dumps(row), flush=True)
+                rows[side].setdefault(row["path"], []).append(row)
+    keys = ("device_ms_a_scan", "host_ms_a_scan", "peak_bytes",
+            "peak_over_map_bytes")
+    summary = {name: {side: {k: [r[k] for r in rows[side][name]]
+                             for k in keys}
+                      for side in "AB"} for name in paths}
+    digests = {name: sorted({r["digest"] for s in "AB"
+                             for r in rows[s][name]}) for name in paths}
+    same = all(len(d) == 1 for d in digests.values())
+    print(json.dumps(dict(summary=summary, digests=digests,
+                          bits_equal=same)), flush=True)
+    sys.exit(0 if same else 1)
+
+
+if __name__ == "__main__":
+    main()

@@ -567,11 +567,56 @@ def test_launches_by_id_split_a_replay_s_records():
     dev.remove(next(e for e in dev if e.id == 1001 and e.name == "k3"))
     runs = layers.launches_by_id(dev, host, kernels)
     assert [len(run) for run in runs] == [6, 5, 6, 6, 6]
-    whole = layers.whole_launches(runs, pattern)
-    assert len(whole) == 4 and whole[0] is runs[0] and whole[1] is runs[2]
+    order = [(FUNCTIONS.get(g, f"k{j}"), j) for j, g in enumerate(pattern)]
+    whole = [layers.align(run, order, kernels) for run in runs]
+    assert [w is not None for w in whole] == [True, False, True, True, True]
     assert all([r[0] for r in run] == ["k0", "grid_update_kernel", "k2",
                                        "k3", "ll_field_small", "k5"]
-               for run in whole)
+               for run, w in zip(runs, whole) if w is not None)
+
+
+def test_a_launch_s_records_take_the_bodies_filed_under_it():
+    """A graph of 3 scans, each [k0, K2, IF(body b0, b1), K3]: a launch's
+    records line up with the chain whether the profiler filed all, some or
+    none of a body's records under the launch (by their names, where the
+    IF node stands), and a span reads only its own nodes; a launch of which
+    a record of the chain was dropped is not whole."""
+    kernels = K.load()
+    scans, order, node = 3, [], 0
+    for _ in range(scans):
+        order += [("k0", node), (FUNCTIONS["K2"], node + 1),
+                  (None, node + 2, ["b0", "b1"]), (FUNCTIONS["K3"], node + 3)]
+        node += 4
+    names = [e[0] for e in order if e[0] is not None]
+    span = {"surface": {e[1] for e in order if e[0] == "k0"}}
+    filed = [[True, False, True], [False] * 3, [True] * 3, [True, None, True],
+             [True, True, True]]
+    host, dev, t = [], [], 0
+    for r, bodies in enumerate(filed):
+        launch = 1000 + r
+        host.append(SimpleNamespace(id=launch, name="cudaGraphLaunch",
+                                    time_range=_Range(t, 5.0)))
+        for k in range(scans):
+            got = (["k0", FUNCTIONS["K2"]]
+                   + {True: ["b0", "b1"], False: [], None: ["b1"]}[bodies[k]]
+                   + [FUNCTIONS["K3"]])
+            if r == len(filed) - 1 and k == 1:    # a record dropped
+                got.remove("k0")
+            for name in got:
+                t += 1
+                dev.append(SimpleNamespace(
+                    id=launch, name=name, time_range=_Range(
+                        t, 2.0 if name == "k0" else 9.0)))
+    out = layers.read_replays(kernels, ["K2", "K3"], span, names, order,
+                              scans, dev, host, scans * len(filed))
+    assert out["launches_whole"] == [4, 5]
+    assert out["device_ms_a_scan.surface"] == pytest.approx(2e-3)
+    assert out["kernels_run"] == 9
+    # a body's names come from its nodes' mangled names, as the profiler's
+    assert layers.demangle("_ZN2at6native18elementwise_kernelEv") == \
+        "at::native::elementwise_kernel()"
+    assert layers.demangle("set_conditional_kernel") == \
+        "set_conditional_kernel"
 
 
 

@@ -74,10 +74,15 @@ def _jax_draws(key, p):
     return torch.from_numpy(np.array(n)), torch.from_numpy(np.array(u0))
 
 
-@pytest.mark.parametrize("resample_fraction", [0.5, 1.0])
-def test_step_parity_with_injected_draws(resample_fraction):
+@pytest.mark.parametrize("resample_fraction,in_place", [
+    pytest.param(0.5, False, id="0.5"), pytest.param(1.0, False, id="1.0"),
+    pytest.param(0.0, False, id="0.0"),
+    pytest.param(1.0, True, id="1.0-out_state")])
+def test_step_parity_with_injected_draws(resample_fraction, in_place):
     """One tick from the same state with JAX's draws, for 3 successive JAX
-    states; resample_fraction 1.0 resamples every robot on every tick."""
+    states; resample_fraction 1.0 resamples every robot on every tick, 0.0
+    none; in_place writes the new state into the state the tick reads
+    (out=state, as the captured replay does)."""
     logs = _logs(4)
     jcfg = _config().replace(resample_fraction=resample_fraction)
     jeng = JMulti(jcfg, num_robots=R)
@@ -94,7 +99,9 @@ def test_step_parity_with_injected_draws(resample_fraction):
         jnext, jinfo = jstep(jstate, jax.tree.map(lambda a: a[i], jbatch))
         nxt, info = eng.step(state, stack_frames([frame_at(b, i)
                                                   for b in tb]),
-                             draws=_jax_draws(jstate.key, P))
+                             draws=_jax_draws(jstate.key, P),
+                             out=state if in_place else None)
+        assert (nxt is state) == in_place
         np.testing.assert_allclose(nxt.poses.numpy(), np.asarray(jnext.poses),
                                    atol=1e-4)
         np.testing.assert_allclose(nxt.log_weights.numpy(),
@@ -109,6 +116,8 @@ def test_step_parity_with_injected_draws(resample_fraction):
                                        atol=1e-4, rtol=1e-4)
         np.testing.assert_array_equal(info.resampled.numpy(),
                                       np.asarray(jinfo.resampled))
+        if resample_fraction == 0.0:
+            assert not info.resampled.any()
         assert int(nxt.step) == int(jnext.step) == i + 1
         jstate = jnext
 

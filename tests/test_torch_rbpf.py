@@ -56,11 +56,18 @@ def _jax_draws(key, p):
     return torch.from_numpy(np.array(n)), torch.tensor(float(u0))
 
 
-@pytest.mark.parametrize("resample_fraction", [0.5, 1.0])
-def test_step_parity_with_injected_draws(small_log, resample_fraction):
+@pytest.mark.parametrize("resample_fraction,in_place", [
+    pytest.param(0.5, False, id="0.5"), pytest.param(1.0, False, id="1.0"),
+    pytest.param(0.0, False, id="0.0"),
+    pytest.param(1.0, True, id="1.0-out_state"),
+    pytest.param(0.0, True, id="0.0-out_state")])
+def test_step_parity_with_injected_draws(small_log, resample_fraction,
+                                         in_place):
     """One step from the same state with the same draws, for 3 successive
     JAX states.  resample_fraction 1.0 resamples on every step, so the
-    resample gather is compared too."""
+    resample gather is compared too; 0.0 never does (the gate's identity).
+    in_place: the step writes its new state into the state it reads
+    (out=state, as the captured replays do)."""
     frames, _ = small_log
     jcfg = JSlamConfig(num_particles=8, max_beams=96, particle_chunk=4,
                        resample_fraction=resample_fraction,
@@ -80,7 +87,9 @@ def test_step_parity_with_injected_draws(small_log, resample_fraction):
             np.asarray(jstate.logodds), np.asarray(jstate.step))
         jnext, jinfo = jstep(jstate, j_frame_at(jbatch, i))
         nxt, info = eng.step(state, frame_at(batch, i),
-                             draws=_jax_draws(jstate.key, 8))
+                             draws=_jax_draws(jstate.key, 8),
+                             out=state if in_place else None)
+        assert (nxt is state) == in_place
 
         np.testing.assert_allclose(nxt.poses.numpy(), np.asarray(jnext.poses),
                                    atol=1e-4)
@@ -101,6 +110,47 @@ def test_step_parity_with_injected_draws(small_log, resample_fraction):
         jstate = jnext
     if resample_fraction == 1.0:   # the first step's particles are identical
         assert all(resampled[1:])
+    if resample_fraction == 0.0:
+        assert not any(resampled)
+
+
+@pytest.mark.parametrize("resample_fraction", [0.0, 1.0])
+def test_step_in_place_keeps_the_maps_storage(small_log, resample_fraction):
+    """step(state, frame, out=state) writes the new maps into the state's
+    own (P, H, W) tensor; on a scan whose gate does not fire they are, bit
+    for bit, K2's update of the old maps at the matched poses (the maps
+    move once, at the identity)."""
+    from gridmap_slam_tpu_torch.ops.cuda.grid_update import (
+        integrate_scan_batch, scan_bin_tables)
+    from gridmap_slam_tpu_torch.ops.geometry import deskew_scan
+    frames, _ = small_log
+    jcfg = JSlamConfig(num_particles=8, max_beams=96, particle_chunk=4,
+                       resample_fraction=resample_fraction,
+                       map=JMapConfig(width_m=3.0, height_m=3.0,
+                                      origin=(-1.5, -1.5)))
+    cfg = config_from_jax(jcfg)
+    eng = RBPF(cfg, device="cpu")
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range)
+    state, gen = eng.init(), torch.Generator().manual_seed(0)
+    state, _ = eng.step(state, frame_at(batch, 0), gen)
+    ptr = state.logodds.data_ptr()
+    for i in (1, 2):
+        old = state.logodds.clone()
+        frame = frame_at(batch, i)
+        nxt, info = eng.step(state, frame, gen, out=state)
+        assert nxt is state and state.logodds.data_ptr() == ptr
+        assert bool(info.resampled) == (resample_fraction == 1.0)
+        if resample_fraction == 0.0:
+            scan = deskew_scan(frame.scan, frame.odom)
+            want = integrate_scan_batch(
+                old, state.poses, torch.ones(()),
+                *scan_bin_tables(scan, cfg.beam_lut_bins),
+                resolution=cfg.map.resolution,
+                origin=tuple(float(o) for o in cfg.map.origin),
+                l_free=cfg.sensor.l_free, l_occ=cfg.sensor.l_occ,
+                tol_cells=cfg.sensor.hit_tolerance_cells)
+            assert torch.equal(state.logodds, want)
+            assert not torch.equal(state.logodds, old)
 
 
 @pytest.mark.parametrize("coarse_halfres", [True, False])

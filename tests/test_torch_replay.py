@@ -536,3 +536,53 @@ def test_captured_refuses_draws_of_another_shape(small_log):
     draws = (torch.stack([normals[:4]] * N), torch.stack([u0] * N))
     with pytest.raises(ValueError, match="the step draws"):
         case.jit()(case.init(), case.frames, draws=draws)
+
+
+# a gate that fires on some scans of the replays and not on others
+FRACTION = 0.95
+
+
+@pytest.mark.parametrize("pred", [False, True])
+def test_cond_forms_agree(pred):
+    """captured.cond's branch (the CPU's form, and the body of the card's
+    IF node) and its select form (the card's eager form) write the same
+    bits into its outs: the body's where pred holds, else the identity."""
+    from gridmap_slam_tpu_torch.models import captured
+    from gridmap_slam_tpu_torch.ops.resample import systematic_indices
+    lw = torch.randn(50, generator=_gen())
+    rows = torch.randn(50, 3, generator=_gen())
+    got = {}
+    for select in (False, True):
+        idx, out = torch.arange(50), rows.clone()
+
+        def body():
+            idx.copy_(systematic_indices(lw, torch.tensor(0.013)))
+            torch.index_select(rows, 0, idx, out=out)
+
+        captured.cond(torch.tensor(pred), body, [idx, out], select=select)
+        got[select] = (idx, out)
+    for a, b in zip(got[False], got[True]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[False][1], rows) != pred
+
+
+@pytest.mark.parametrize("name", CASES + ["surface_inject_refine"])
+def test_cond_select_form_is_the_branch(small_log, multi_logs, monkeypatch,
+                                        name):
+    """Every engine's replay with its resample gates in captured.cond's
+    select form (the card's eager form) against the branch (the CPU's,
+    which runs the bodies of the card's IF nodes): the same bits, over
+    scans whose gates fire and scans whose gates do not."""
+    from gridmap_slam_tpu_torch.models import captured
+    case = Case(name, small_log, multi_logs)
+    key = ("matcher.surface_resample_fraction" if "surface" in name
+           else "resample_fraction")
+    case.eng.config = case.eng.config.with_overrides({key: FRACTION})
+    s_b, i_b = case.replay(case.init(), case.frames, _gen())
+    real = captured.cond
+    monkeypatch.setattr(captured, "cond",
+                        lambda *a, **k: real(*a, **k, select=True))
+    s_s, i_s = case.replay(case.init(), case.frames, _gen())
+    _assert_same(s_b, s_s)
+    _assert_same(i_b, i_s)
+    assert i_b.resampled.any() and not i_b.resampled.all()

@@ -91,19 +91,26 @@ def _small_config(case):
         over["matcher.surface_crop_cells"] = 48
     if case == "resample":
         over["matcher.surface_resample_fraction"] = 1.0
-    if case == "inject":
+    if case == "never":
+        over["matcher.surface_resample_fraction"] = 0.0
+    if case.startswith("inject"):
         over.update(_INJECT)
     return JSlamConfig(num_particles=P, max_beams=96,
                        sensor=JSensorConfig(max_range=4.0),
                        map=mp).with_overrides(over)
 
 
-@pytest.mark.parametrize("case", ["full", "crop", "resample", "inject"])
+@pytest.mark.parametrize("case", ["full", "crop", "resample", "inject",
+                                  "never", "inject_out_state"])
 def test_step_surface_parity_with_injected_draws(small_log, case):
     """One step from the same state with the same draws, for 3 successive
     JAX states.  "resample" resamples on every step, so the gather is
-    compared; "inject" sets the recovery EMAs apart before each step after
-    the first, so 30 % of the slots are re-drawn uniformly."""
+    compared; "never" never does (the gate's identity); "inject" sets the
+    recovery EMAs apart before each step after the first, so 30 % of the
+    slots are re-drawn uniformly; "inject_out_state" is "inject" with the
+    new state written into the state the step reads (out=state, as the
+    captured replays do)."""
+    inject = case.startswith("inject")
     frames, _ = small_log
     jcfg = _small_config(case)
     jeng = js.SharedMapSLAM(jcfg)
@@ -113,7 +120,7 @@ def test_step_surface_parity_with_injected_draws(small_log, case):
     jstep = jax.jit(jeng.step_surface)
     jstate = jeng.init(jax.random.key(0))
     for i in range(3):
-        if case == "inject" and i > 0:   # a collapsed fast EMA
+        if inject and i > 0:             # a collapsed fast EMA
             jstate = jstate.replace(recov=jnp.asarray([0.0, -5.0]))
         state = shared_state_from_jax_arrays(
             *(np.asarray(x) for x in (jstate.poses, jstate.log_weights,
@@ -122,7 +129,8 @@ def test_step_surface_parity_with_injected_draws(small_log, case):
         jnext, jinfo = jstep(jstate, j_frame_at(jbatch, i))
         nxt, info = eng.step_surface(
             state, frame_at(batch, i),
-            draws=_jax_draws(jstate.key, P, case == "inject"))
+            draws=_jax_draws(jstate.key, P, inject),
+            out=state if case == "inject_out_state" else None)
 
         np.testing.assert_allclose(nxt.poses.numpy(), np.asarray(jnext.poses),
                                    atol=1e-4)
@@ -152,9 +160,11 @@ def test_step_surface_parity_with_injected_draws(small_log, case):
         np.testing.assert_allclose(float(info.best_log_weight),
                                    float(jinfo.best_log_weight), atol=1e-3)
         assert int(nxt.step) == int(jnext.step) == i + 1
-        if case in ("resample", "inject") and i > 0:
+        if (case == "resample" or inject) and i > 0:
             assert bool(info.resampled)
-        if case == "inject" and i > 0:       # 30 % of slots, uniform
+        if case == "never":
+            assert not bool(info.resampled)
+        if inject and i > 0:                 # 30 % of slots, uniform
             x = nxt.poses.numpy()
             assert (np.abs(x[:int(0.3 * P)] - x[int(0.3 * P):].mean(0))
                     .max(1) > 0.5).mean() > 0.5
@@ -345,15 +355,22 @@ P_MATCH, BLOCK = 32, 16
 
 def _matcher_config(case):
     """6 x 6 m at 10 cm, 4 m range, the default matcher, 32 particles in
-    blocks of 16.  "inject": every step resamples and the recovery
-    injection is on; "frozen": freeze_map."""
+    blocks of 16.  "inject" (and "inject_out_state"): every step
+    resamples and the recovery injection is on; "frozen": freeze_map;
+    "never": the gate never fires, "always": it fires on every step after
+    the first (resample_fraction 0.999: the first step's identical
+    particles give Neff = P, which a threshold of P would meet within
+    float noise)."""
     cfg = JSlamConfig(num_particles=P_MATCH, max_beams=96,
                       particle_chunk=BLOCK,
                       sensor=JSensorConfig(max_range=4.0),
                       map=JMapConfig(width_m=6.0, height_m=6.0,
                                      resolution=0.1, origin=(-3.0, -3.0)))
-    if case == "inject":
+    if case.startswith("inject"):
         cfg = cfg.with_overrides(dict(_INJECT, resample_fraction=1.0))
+    if case in ("never", "always"):
+        cfg = cfg.replace(resample_fraction=0.0 if case == "never"
+                          else 0.999)
     if case == "frozen":
         cfg = cfg.replace(freeze_map=True)
     return cfg
@@ -386,12 +403,16 @@ def _assert_step_matches(nxt, info, jnext, jinfo, jstate, moved=True):
     assert int(nxt.step) == int(jnext.step)
 
 
-@pytest.mark.parametrize("case", ["chunked", "inject", "frozen"])
+@pytest.mark.parametrize("case", ["chunked", "inject", "frozen", "never",
+                                  "always", "inject_out_state"])
 def test_step_parity_with_injected_draws(small_log, case):
     """SharedMapSLAM.step against the JAX step from the same state with
     JAX's draws, for 3 successive JAX states (tolerances of the module
     docstring).  "inject" sets the recovery EMAs apart before each step
-    after the first, so 30 % of the slots are re-drawn uniformly."""
+    after the first, so 30 % of the slots are re-drawn uniformly;
+    "inject_out_state" also writes the new state into the state the step
+    reads (out=state, as the captured replays do)."""
+    inject = case.startswith("inject")
     frames, _ = small_log
     jcfg = _matcher_config(case)
     jeng = js.SharedMapSLAM(jcfg)
@@ -401,18 +422,22 @@ def test_step_parity_with_injected_draws(small_log, case):
     jstep = jax.jit(jeng.step)
     jstate = jeng.init(jax.random.key(1))
     for i in range(3):
-        if case == "inject" and i > 0:   # a collapsed fast EMA
+        if inject and i > 0:             # a collapsed fast EMA
             jstate = jstate.replace(recov=jnp.asarray([0.0, -5.0]))
         jnext, jinfo = jstep(jstate, j_frame_at(jbatch, i))
-        nxt, info = eng.step(_port_state(jstate), frame_at(batch, i),
-                             draws=_jax_draws(jstate.key, P_MATCH,
-                                              case == "inject"))
+        state = _port_state(jstate)
+        nxt, info = eng.step(state, frame_at(batch, i),
+                             draws=_jax_draws(jstate.key, P_MATCH, inject),
+                             out=state if case == "inject_out_state"
+                             else None)
         _assert_step_matches(nxt, info, jnext, jinfo, jstate,
                              moved=case != "frozen")
         assert bool(info.resampled) == bool(jinfo.resampled)
+        if case in ("never", "always"):
+            assert bool(info.resampled) == (case == "always" and i > 0)
         if float(jinfo.neff) < 0.95 * P_MATCH:
             assert int(info.best_index) == int(jinfo.best_index)
-        if case == "inject" and i > 0:       # 30 % of slots, uniform
+        if inject and i > 0:                 # 30 % of slots, uniform
             x = nxt.poses.numpy()
             assert (np.abs(x[:int(0.3 * P_MATCH)]
                            - x[int(0.3 * P_MATCH):].mean(0)).max(1)
@@ -475,6 +500,33 @@ def test_step_blocked_matches_jax_step_blocked(small_log):
                                      BLOCK, draws=_jax_draws(jstate.key,
                                                              P_MATCH, False))
         _assert_step_matches(nxt, info, jnext, jinfo, jstate)
+        jstate = jnext
+
+
+@pytest.mark.parametrize("case", ["never", "always", "always_out_state"])
+def test_step_blocked_gate_matches_jax_step_blocked(small_log, case):
+    """The port's step_blocked against the JAX step_blocked with JAX's
+    draws where the resample gate never fires and where it fires on every
+    step after the first (_matcher_config), the latter also with the new
+    state written into the state the step reads (out=state)."""
+    frames, _ = small_log
+    jcfg = _matcher_config("chunked").replace(
+        particle_chunk=0, resample_fraction=0.0 if case == "never" else 0.999)
+    jeng = js.SharedMapSLAM(jcfg)
+    eng = SharedMapSLAM(config_from_jax(jcfg), device="cpu")
+    jbatch = j_frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
+    batch = frames_to_device(frames, jcfg.max_beams, jcfg.sensor.max_range)
+    jstate = jeng.init(jax.random.key(2))
+    for i in range(2):
+        jnext, jinfo = jeng.step_blocked(jstate, j_frame_at(jbatch, i), BLOCK)
+        state = _port_state(jstate)
+        nxt, info = eng.step_blocked(
+            state, frame_at(batch, i), BLOCK,
+            draws=_jax_draws(jstate.key, P_MATCH, False),
+            out=state if case == "always_out_state" else None)
+        _assert_step_matches(nxt, info, jnext, jinfo, jstate)
+        assert bool(info.resampled) == bool(jinfo.resampled) \
+            == (case != "never" and i > 0)
         jstate = jnext
 
 
