@@ -2346,16 +2346,23 @@ def _library_kernels(names) -> dict:
     return out
 
 
-def frontend_part(name, eager, captured, piece, per=1):
+def frontend_part(name, eager, captured, piece, per=1, graph_per=1,
+                  launches_wanted=1):
     """One of the frontend's compiled pieces (a models/captured.Graphed),
     eager and captured in this call; eager() and captured() return tuples
     of tensors.  The eager call's kernel launches;
     each side's seconds (CUDA events around a warm call) and host launches
     (torch.profiler, LAUNCH_CALLS); the captured side's first call, a warm
     call under the sync check that must launch no kernel from Python, and
-    its graph's kernel nodes (the driver API), which must equal the eager
-    launches over `per` (the replays a call).  The captured results must
-    equal the eager ones bit for bit, twice.  Returns the row."""
+    its graph's kernel nodes (the driver API) over `graph_per` (the units
+    a graph holds: the rebuild's keyframes), which must equal the eager
+    launches over `per` (the units a call), inside the graph's conditional
+    nodes' bodies too (their count and their kernels a unit are printed);
+    the profiled call's graph launches must be `launches_wanted`.  The
+    captured results must equal the eager ones bit for bit, twice.
+    Returns the row."""
+    from gridmap_slam_tpu_torch.models.captured import (
+        graph_conditional_bodies, graph_kernel_names)
     torch.cuda.synchronize()
     kernels = _zero_launches()
     out_e = eager()
@@ -2373,7 +2380,11 @@ def frontend_part(name, eager, captured, piece, per=1):
     _, sec_c = _timed(captured)
     _, prof_c = _profiled(captured, 1)
     names = piece.kernel_names()
-    in_graph = _node_counts(names)
+    in_graph = {k: v / graph_per for k, v in _node_counts(names).items()}
+    bodies = graph_conditional_bodies(piece.graph.raw_cuda_graph())
+    in_bodies = {k: v / graph_per for k, v in _node_counts(
+        [nm for _, bs in bodies for b in bs
+         for nm in graph_kernel_names(b)]).items()}
     eager_per = {k: eager_counts[k] / per for k in KERNEL_SYMBOLS}
     differing = [i for i, (a, b) in enumerate(zip(out_e, out_c))
                  if not (a.dtype == b.dtype and torch.equal(a, b))]
@@ -2391,6 +2402,11 @@ def frontend_part(name, eager, captured, piece, per=1):
                              captures=piece.captures,
                              kernel_nodes_in_graph=len(names),
                              kernels_in_graph=in_graph,
+                             units_a_graph=graph_per,
+                             graph_launches=prof_c["graph_launches"],
+                             graph_launches_wanted=launches_wanted,
+                             conditional_nodes=len(bodies),
+                             kernels_in_conditional_bodies=in_bodies,
                              python_launches_in_warm_replay=replay_counts),
                eager_launches_a_replay=eager_per, speedup=sec_e / sec_c)
     say("posegraph_part", **row)
@@ -2405,6 +2421,10 @@ def frontend_part(name, eager, captured, piece, per=1):
         raise AssertionError(f"posegraph {name}: kernels in the graph "
                              f"{in_graph} != eager launches a replay "
                              f"{eager_per}")
+    if prof_c["graph_launches"] != launches_wanted:
+        raise AssertionError(f"posegraph {name}: {prof_c['graph_launches']}"
+                             f" graph launches a call, not "
+                             f"{launches_wanted}")
     return row
 
 
@@ -2418,6 +2438,7 @@ def posegraph_parts(cfg, traj, seq, flow_closures, dev="cuda"):
     keyframe."""
     from gridmap_slam_tpu_torch import FrontendConfig, PoseGraphSLAM
     from gridmap_slam_tpu_torch.models import posegraph as PG
+    from gridmap_slam_tpu_torch.models.captured import CHUNK_SCANS
     from gridmap_slam_tpu_torch.ops.geometry import deskew_scan
 
     fe = PoseGraphSLAM(cfg, FrontendConfig(), device=dev)
@@ -2451,11 +2472,22 @@ def posegraph_parts(cfg, traj, seq, flow_closures, dev="cuda"):
     rows["rebuild"] = frontend_part(
         "rebuild", lambda: (fe.rebuild_map_eager(poses),),
         lambda: (fe.rebuild_map(poses),), fe.rebuilder,
-        per=fe.num_keyframes)
+        per=fe.num_keyframes, graph_per=CHUNK_SCANS,
+        launches_wanted=-(-fe.num_keyframes // CHUNK_SCANS))
     in_graph = {"posegraph_verify": rows["closures"]["captured"][
                     "kernels_in_graph"],
                 "posegraph_rebuild": rows["rebuild"]["captured"][
                     "kernels_in_graph"]}
+    # the rebuild's K2 stands in its IF nodes' bodies, one a keyframe
+    rebuild_bodies = rows["rebuild"]["captured"][
+        "kernels_in_conditional_bodies"]
+    if (rebuild_bodies != FRONTEND_NODES["rebuild"]
+            or rows["rebuild"]["captured"]["conditional_nodes"]
+            != CHUNK_SCANS):
+        raise AssertionError(f"posegraph_rebuild: {rebuild_bodies} a "
+                             f"keyframe in the bodies of "
+                             f"{rows['rebuild']['captured']['conditional_nodes']}"
+                             f" conditional nodes")
     say("posegraph_parts", pairs=len(pairs), padded=len(padded),
         accepted=len(fe.closures), accepted_equal_flow=same,
         keyframes=fe.num_keyframes, edges=int(graph.edge_i.shape[0]),
@@ -2909,12 +2941,19 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 CAPTURED_BLOCKED_SCANS = 6     # mega_blocked's captured path, for time
 
 
-def _profiled(run, n: int):
+def _profiled(run, n: int, names=None):
     """run() once under torch.profiler: returns (its result, the device
     time of the run in ms, the host's launches a scan (kernels, copies,
     sets and graph launches) and its graph launches in the run, device
     events a scan and each kernel row's launches a scan as the profiler saw
-    them, inside a graph too)."""
+    them, inside a graph too).  `names`, where given, are the kernel
+    functions the run's graphs hold (as the profiler names them): a record
+    of a repo kernel under another name is counted apart, in
+    `records_named_outside_graph`, not in its row.  CUPTI names the
+    records of kernels in conditional bodies through its own tables, and
+    after IF nodes of other graphs in the process it was seen to name a
+    short kernel of a parity graph's IF body after K2's batch-1 variant
+    (the rebuild's), which that graph does not hold."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2924,7 +2963,12 @@ def _profiled(run, n: int):
     events = prof.events()
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = [_kernel_row(e.name) for e in dev]
+    rows = [_kernel_row(e.name) if names is None or e.name in names
+            else None for e in dev]
+    outside = {}
+    for e, row in zip(dev, rows):
+        if row is None and _kernel_row(e.name) is not None:
+            outside[e.name[:96]] = outside.get(e.name[:96], 0) + 1
     ms_a_scan = dict.fromkeys((*GRAPH_ROWS, "other"), 0.0)
     for e, row in zip(dev, rows):
         ms_a_scan[row or "other"] += e.time_range.elapsed_us() / 1e3 / n
@@ -2943,8 +2987,10 @@ def _profiled(run, n: int):
         device_events_per_scan=len(dev) / n,
         kernels_per_scan={row: sum(r == row for r in rows) / n
                           for row in GRAPH_ROWS},
+        any_repo_kernel_seen=any(_kernel_row(e.name) for e in dev),
         device_ms_a_scan_by_kernel=ms_a_scan,
-        k1t_device_ms_a_scan_by_stage=stages)
+        k1t_device_ms_a_scan_by_stage=stages,
+        records_named_outside_graph=outside)
 
 
 def _fields_differing(a, b) -> list:
@@ -2988,9 +3034,13 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     count of kernels a scan over the profiled replay is printed beside, and
     must see each one at least once and none more often than the graph
     holds it (its CUPTI records of graph kernels can drop a few hundredths
-    of a busy run).  Nodes, capture and instantiation seconds and peak
+    of a busy run), counting the records named after a kernel function the
+    replay's graphs hold; a record of a repo kernel the graphs do not hold
+    (CUPTI's name for a conditional body's kernel, _profiled) is printed
+    apart.  Nodes, capture and instantiation seconds and peak
     memory are printed for both graphs.  Returns (the counts of the first
     captured call, the kernels a scan inside the graph)."""
+    from gridmap_slam_tpu_torch.bench.layers import demangle
     from gridmap_slam_tpu_torch.io import frame_at
     from gridmap_slam_tpu_torch.models.captured import (
         CHUNK_SCANS, WARMUP_STEPS, graph_conditional_bodies,
@@ -3039,7 +3089,9 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     s0, g0 = init(), gen()
     _, sec_c = _timed(lambda: replay(s0, frames, g0))
     s0, g0 = init(), gen()
-    _, prof_c = _profiled(lambda: replay(s0, frames, g0), n)
+    held = {demangle(nm) for gr in replay.captured.graphs.values()
+            for nm in graph_kernel_names(gr.raw_cuda_graph())}
+    _, prof_c = _profiled(lambda: replay(s0, frames, g0), n, held)
     cap = replay.captured
     names = cap.kernel_names()
     m, launches = cap.scans, cap.launches
@@ -3108,7 +3160,7 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     eager_per_scan = {k: eager_counts[k] / n for k in KERNEL_SYMBOLS}
     in_graph = {k: v / m for k, v in _node_counts(names).items()}
     seen = prof_c["kernels_per_scan"]
-    visible = any(v > 0 for v in seen.values())
+    visible = prof_c["any_repo_kernel_seen"]
     row = dict(path=name, scans=n, particles=eng.config.num_particles,
                bits_differing=bits, rerun_differing=rerun,
                step_jit_differing=step_bits, ate_m=ates, ate_max_m=ate_max,
@@ -3125,6 +3177,8 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                log_graph=graph, one_scan_graph=one_scan, resample_gate=gate,
                log_graph_is_one_scan_n_times=periodic,
                kernels_per_scan_profiler=seen if visible else None,
+               profiler_records_named_outside_graph=prof_c[
+                   "records_named_outside_graph"],
                profiler_sees_graph_kernels=visible,
                eager=dict(scans_per_sec=n / sec_e, warm_seconds=sec_e,
                           peak_mem_bytes=peak_e, **prof_e),
@@ -3511,10 +3565,20 @@ def _par_path(path, seq, make, init, ref, compare, needed, single):
     be captured once; its nodes are also counted by type, beside the
     collectives a scan and the single-device graph's nodes by type.
     single() -> (replay, init): the single-device engine's replay_jit over
-    the same scans, timed in this call.  Returns (the eager launches, the
-    graph's kernels a scan)."""
-    from gridmap_slam_tpu_torch.models.captured import stack_steps
+    the same scans, timed and profiled in this call.  The resample gate:
+    the step graph must hold one conditional IF node (one gate a scan)
+    and the replay_jit graph one a scan, whose bodies' kernels a scan are
+    printed with the scans that fired and the device ms a scan of
+    replay_jit beside the single-device replay_jit's.  Returns (the eager
+    launches, the graph's kernels a scan)."""
+    from gridmap_slam_tpu_torch.models.captured import (
+        graph_conditional_bodies, graph_kernel_nodes, stack_steps)
     from gridmap_slam_tpu_torch.parallel.mesh import recording
+
+    def conditionals(graph):
+        bodies = graph_conditional_bodies(graph.raw_cuda_graph())
+        return len(bodies), sum(len(graph_kernel_nodes(b))
+                                for _, bs in bodies for b in bs)
 
     start = init()              # (a shard of the engine's init: set-up)
     n = len(seq)
@@ -3594,6 +3658,8 @@ def _par_path(path, seq, make, init, ref, compare, needed, single):
     _, prof_r = _profiled(lambda: log_replay(start, batch, g), n)
     log_names = log_replay.captured.kernel_names()
     log_periodic = _one_scan_periods(log_names, names, n)
+    step_ifs, step_if_kernels = conditionals(cap.graph)
+    log_ifs, log_if_kernels = conditionals(log_replay.captured.graph)
     log_row = dict(scans_per_sec=n / sec_r, first_call_seconds=sec_r_first,
                    capture_seconds=log_replay.captured.capture_seconds,
                    graph_launches_a_replay=prof_r["graph_launches"],
@@ -3609,8 +3675,20 @@ def _par_path(path, seq, make, init, ref, compare, needed, single):
     replay(single_init(), batch, gen())                  # capture
     s0, g0 = single_init(), gen()
     _, sec_s = _timed(lambda: replay(s0, batch, g0))
+    s0, g0 = single_init(), gen()
+    _, prof_s = _profiled(lambda: replay(s0, batch, g0), n)
     single_nodes = replay.captured.node_types()
+    single_ifs, _ = conditionals(replay.captured.graph)
     del replay, s0, batch
+    fired = int(stack_steps(inf_c).resampled.sum())
+    gate = dict(gates_a_scan=1, conditional_nodes_in_step_graph=step_ifs,
+                kernels_in_bodies_in_step_graph=step_if_kernels,
+                conditional_nodes_a_scan=log_ifs / n,
+                kernels_in_bodies_a_scan=log_if_kernels / n,
+                single_device_conditional_nodes_a_scan=single_ifs / n,
+                fired=fired, gated=n,
+                device_ms_a_scan=prof_r["device_ms"] / n,
+                single_device_ms_a_scan=prof_s["device_ms"] / n)
 
     per_scan = {}
     for kind, axis, nbytes in colls:
@@ -3636,9 +3714,10 @@ def _par_path(path, seq, make, init, ref, compare, needed, single):
                       bits_differing_from_eager=bits,
                       rerun_differing_from_eager=rerun,
                       against_reference=cmp_c, **prof_c),
-        replay_jit=log_row,
+        replay_jit=log_row, resample_gate=gate,
         single_device_captured=dict(scans_per_sec=n / sec_s,
                                     warm_seconds=sec_s,
+                                    device_ms=prof_s["device_ms"],
                                     graph_nodes_by_type=single_nodes),
         speedup=sec / sec_c, **cmp)
     if not (identical and cmp["ok"] and cmp_c["ok"]):
@@ -3650,6 +3729,9 @@ def _par_path(path, seq, make, init, ref, compare, needed, single):
     if any(log_bits.values()) or prof_r["graph_launches"] != 1 \
             or not log_periodic:
         raise AssertionError(f"{path}: replay_jit: {log_row}")
+    if step_ifs != 1 or log_ifs != n:
+        raise AssertionError(f"{path}: not one conditional node a resample "
+                             f"gate a scan: {gate}")
     if not all(launches[k] > 0 and capture_counts[k] > 0 for k in needed):
         raise AssertionError(f"{path}: a kernel was not launched: "
                              f"{launches} {capture_counts}")
@@ -4038,15 +4120,25 @@ def _cli_frontends():
 
 def _frontend_graphs(fe) -> dict:
     """Each compiled piece of a frontend: its captures and the kernels its
-    graph holds by row (None where nothing was captured)."""
+    graph holds by row (None where nothing was captured), the rebuild's a
+    keyframe (its graph holds CHUNK_SCANS keyframes), with the rebuild's
+    graph launches in its last call beside the ceil(keyframes /
+    CHUNK_SCANS) wanted."""
+    from gridmap_slam_tpu_torch.models.captured import CHUNK_SCANS
+
     out = {}
     for part, piece in (("verify", fe.verifier), ("solve", fe.solver),
                         ("rebuild", fe.rebuilder)):
         names = piece.kernel_names() if piece.graph is not None else None
+        per = CHUNK_SCANS if part == "rebuild" else 1
         out[part] = dict(captures=piece.captures,
                          kernel_nodes=None if names is None else len(names),
                          kernels=None if names is None
-                         else _node_counts(names))
+                         else {k: v / per
+                               for k, v in _node_counts(names).items()})
+    out["rebuild"].update(
+        launches=fe.rebuilder.launches,
+        launches_wanted=-(-fe.num_keyframes // CHUNK_SCANS))
     return out
 
 
@@ -4391,6 +4483,7 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
                    "rebuild": FRONTEND_NODES["rebuild"]}
     if dev == "cuda" and not all(
             g["captures"] == 1 and g["kernels"] == want_graphs[part]
+            and g.get("launches") == g.get("launches_wanted")
             for part, g in pg_graphs.items()):
         raise AssertionError(f"cli_posegraph: the frontend's graphs "
                              f"{pg_graphs}")

@@ -91,6 +91,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import time
 from typing import Callable, Optional, Sequence
 
@@ -283,6 +284,8 @@ def _dependents(cu, node) -> list:
     n = ctypes.c_size_t(0)
     _cu(cu, "cuGraphNodeGetDependentNodes", ctypes.c_void_p(node), None,
         ctypes.byref(n))
+    if not n.value:         # the graph's last node (the driver refuses an
+        return []           # array for none)
     out = (ctypes.c_void_p * n.value)()
     _cu(cu, "cuGraphNodeGetDependentNodes", ctypes.c_void_p(node), out,
         ctypes.byref(n))
@@ -442,9 +445,19 @@ class Graphed:
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         t0 = time.perf_counter()
-        with conditional_capture(graph):
-            with torch.cuda.graph(graph, pool=pool, stream=side):
-                (captured or self.body)()
+        # no cyclic garbage collection while the capture runs: a collection
+        # that frees an unreachable CUDAGraph (a Graphed's reset lambda
+        # makes a cycle) destroys it, which a capture in the default global
+        # mode does not permit, and the capture fails
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with conditional_capture(graph):
+                with torch.cuda.graph(graph, pool=pool, stream=side):
+                    (captured or self.body)()
+        finally:
+            if collecting:
+                gc.enable()
         graph.instantiate()
         self.capture_seconds = time.perf_counter() - t0
         self.graph = graph

@@ -23,9 +23,10 @@ The JAX frontend jit-compiles verify, optimize and rebuild; here each is a
 CUDA graph on the card (models/captured.Graphed), captured at its first
 call: the verifier over static (max_candidates, B) buffers
 (ClosureVerifier), Gauss-Newton at a graph's size (posegraph.
-CapturedOptimize) and one keyframe's K2 update replayed once a keyframe
-(MapRebuild).  Each call copies its inputs into the static buffers, replays
-and returns fresh tensors with the eager path's bits; the eager forms stay
+CapturedOptimize) and the keyframes' K2 updates in graphs of
+captured.CHUNK_SCANS keyframes, each under an IF node (MapRebuild).  Each
+call copies its inputs into the static buffers, replays and returns fresh
+tensors with the eager path's bits; the eager forms stay
 (`verify_eager`, `posegraph.optimize`, `rebuild_map_eager`).  On the CPU the
 same static-buffer code runs, with the body called where the card replays.
 """
@@ -46,7 +47,7 @@ from ..ops.geometry import se2_relative, wrap_angle
 from ..ops.grid import gaussian_kernel
 from ..types import Scan
 from . import posegraph as PG
-from .captured import Graphed, copy_from_host
+from .captured import CHUNK_SCANS, Graphed, cond, copy_from_host
 
 
 @dataclasses.dataclass
@@ -108,6 +109,14 @@ def _empty_scans(scan: Scan, n: int) -> Scan:
         for f in dataclasses.fields(Scan)))
 
 
+def _zero_scans(scan: Scan, n: int) -> Scan:
+    """A Scan of n zero rows (no valid beam) shaped and typed as `scan`, on
+    its device."""
+    return Scan(*(getattr(scan, f.name).new_zeros(
+        (n,) + tuple(getattr(scan, f.name).shape))
+        for f in dataclasses.fields(Scan)))
+
+
 class ClosureVerifier(Graphed):
     """The closure verifier over static buffers at the padded width, the
     counterpart of `jax.jit(jax.vmap(verify))`
@@ -151,27 +160,34 @@ class ClosureVerifier(Graphed):
 
 class MapRebuild(Graphed):
     """The rebuild's lax.scan over keyframes
-    (gridmap_slam_tpu/models/frontend.py:234-243) as one keyframe's work
-    captured once and replayed once a keyframe: read keyframe k of a
-    (capacity, B) scan bank and its pose at a counter on the device, build
-    its bin tables, add its K2 delta into a static accumulator (acc <- acc
-    + delta_k, the eager loop's order, so the eager loop's bits) and add
-    one to the counter.  Recaptured only when a longer keyframe list
-    exceeds the bank's capacity (models/captured.Captured's rule)."""
+    (gridmap_slam_tpu/models/frontend.py:234-243) as one graph of
+    CHUNK_SCANS keyframe steps, launched ceil(n / CHUNK_SCANS) times for n
+    keyframes.  A keyframe step reads keyframe k of a scan bank and its
+    pose at a counter on the device, builds its bin tables, adds its K2
+    delta into a static accumulator (acc <- acc + delta_k, the eager
+    loop's order, so the eager loop's bits) and adds one to the counter,
+    all under captured.cond(counter < n) with n on the device: on the card
+    an IF node each, so the launches read nothing on the host and the last
+    one's steps past n do nothing.  The bank holds one spare zero row for
+    the select form of the warm-up, which runs a step at counter = n and
+    then keeps the old accumulator.  Recaptured only when a longer
+    keyframe list exceeds the bank's capacity (models/captured.Captured's
+    rule); `launches` counts the last call's graph launches."""
 
     def __init__(self, slam_config: SlamConfig, device):
         super().__init__(self._body, device, reset=self._reset)
         self.scfg = slam_config
         self._key = None
-        self.capacity = 0
-        self.bank = self.poses = self.acc = self.counter = None
+        self.capacity = self.launches = 0
+        self.bank = self.poses = self.acc = None
+        self.counter = self.count = None
         self._one = torch.ones((), device=self.device)
 
     def _reset(self):
         self.acc.zero_()
         self.counter.zero_()
 
-    def _body(self):
+    def _keyframe(self):
         scfg, s, k = self.scfg, self.scfg.sensor, self.counter
         scan = Scan(*(getattr(self.bank, f.name).index_select(0, k)[0]
                       for f in dataclasses.fields(Scan)))
@@ -184,6 +200,11 @@ class MapRebuild(Graphed):
             out=self.acc)
         k.add_(1)
 
+    def _body(self):
+        for _ in range(CHUNK_SCANS):
+            cond(torch.lt(self.counter, self.count)[0], self._keyframe,
+                 [self.acc, self.counter])
+
     def __call__(self, scans, poses: np.ndarray) -> torch.Tensor:
         """scans: K scans (B,); poses: (K, 3).  Returns the (H, W) map."""
         n = len(scans)
@@ -191,21 +212,25 @@ class MapRebuild(Graphed):
         fresh = key != self._key or n > self.capacity
         if fresh:
             self._key, self.capacity, self.graph = key, n, None
-            self.bank = _empty_scans(scans[0], n)
-            self.poses = torch.empty((n, 3), dtype=torch.float32,
+            self.bank = _zero_scans(scans[0], n + 1)
+            self.poses = torch.zeros((n + 1, 3), dtype=torch.float32,
                                      device=self.device)
             self.acc = torch.empty((1, self.scfg.map.cells_y,
                                     self.scfg.map.cells_x),
                                    dtype=torch.float32, device=self.device)
             self.counter = torch.empty((1,), dtype=torch.int64,
                                        device=self.device)
+            self.count = torch.empty((1,), dtype=torch.int64,
+                                     device=self.device)
         _stack_into(self.bank, scans)
         copy_from_host(self.poses[:n], torch.as_tensor(
             np.asarray(poses, np.float32)))
+        copy_from_host(self.count, torch.tensor([n]))
         if fresh:
             self.capture()
         self._reset()
-        for _ in range(n):
+        self.launches = -(-n // CHUNK_SCANS)
+        for _ in range(self.launches):
             self.run()
         return self.acc[0].clone()
 

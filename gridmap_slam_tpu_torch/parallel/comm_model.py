@@ -13,11 +13,13 @@ those records in a gloo run):
   Neff and the weighted pose apart and elect the best index by a second
   psum; the port gathers (score, pose, local index) in one all_gather;
 - the resample's all_gather of (log-weight, pose) rows runs only on a 'p'
-  axis of more than one rank (on one rank it is a select on the card); with
-  it go a pmax of the new log-weights' maximum and, with recovery
-  injection, a psum of their sum.  The eager steps run them only on scans
-  that resample; the compiled steps (captured=True, a CUDA graph holds no
-  collective that depends on the data) on every scan;
+  axis of more than one rank (on one rank the resample gathers on the
+  card); with it go a pmax of the new log-weights' maximum and, with
+  recovery injection, a psum of their sum.  They run only on scans that
+  resample, as in the JAX comm model (gridmap_slam_tpu/parallel/
+  comm_model.py:50-55): inside the gate's body (parallel/shmap.
+  finish_step), an IF node of the compiled step's CUDA graph and a host
+  read of the gate in the eager step, so one table counts both forms;
 - the halos are ppermutes (batch_isend_irecv) of raw log-odds, one field:
   K3 builds the field and the evidence mask from the same extended tile,
   where the JAX blur exchanges halos of both; a rank with two neighbours
@@ -25,7 +27,8 @@ those records in a gloo run):
 - the sharded RBPF (GSPMD in the JAX package, no rows there) is listed:
   its halos and score psums are the tiled engine's times the local
   particles, with the half-resolution coarse stage's pooled halo, and its
-  resample moves the maps (all_gather of every rank's tiles).
+  resample moves the maps (all_gather of every rank's tiles, on
+  resampling scans only).
 
 Layout rule (parallel/dcn.py): 'p' across hosts, 'm' inside a host, so
 the rows that may cross hosts are the axis='p' rows.
@@ -56,13 +59,11 @@ RESAMPLE = "resampling scans only"
 
 
 def _weight_stat_rows(engine: str, cfg: SlamConfig, n_p: int,
-                      p_loc: int, map_bytes: int,
-                      captured: bool) -> List[CollectiveRow]:
+                      p_loc: int, map_bytes: int) -> List[CollectiveRow]:
     """The collectives of parallel/shmap.finish_step, which every engine
     shares.  map_bytes: the bytes of a rank's maps that move with its
     particles on a resample (the sharded RBPF), else 0."""
-    every = "every scan"
-    resample = every if captured else RESAMPLE
+    every, resample = "every scan", RESAMPLE
     rows = [
         CollectiveRow(engine, "pmax", "p", 4, every, "max log-weight"),
         CollectiveRow(engine, "psum", "p", 4, every, "weight normalizer"),
@@ -135,13 +136,13 @@ def _tile_rows(engine: str, cfg: SlamConfig, n_m: int, p_loc: int,
     return rows
 
 
-def comm_table(cfg: SlamConfig, n_p: int, n_m: int, engine: str,
-               captured: bool = False) -> List[CollectiveRow]:
+def comm_table(cfg: SlamConfig, n_p: int, n_m: int,
+               engine: str) -> List[CollectiveRow]:
     """Per-scan collective payloads of one engine on a (p=n_p, m=n_m)
     mesh, one row a collective call of a scan (the sharded RBPF's rows are
     those of one block of particle_chunk particles times the blocks), of
-    the eager step or, with captured=True, of the compiled one (jit=True).
-    engine in ENGINES."""
+    the eager and the compiled (jit=True) step alike.  engine in
+    ENGINES."""
     if engine not in ENGINES:
         raise ValueError(engine)
     if cfg.num_particles % n_p:
@@ -150,7 +151,7 @@ def comm_table(cfg: SlamConfig, n_p: int, n_m: int, engine: str,
     h, w = cfg.map.cells_y, cfg.map.cells_x
     mc = cfg.matcher
     map_bytes = 4 * p_loc * h * (w // n_m) if engine == "sharded" else 0
-    rows = _weight_stat_rows(engine, cfg, n_p, p_loc, map_bytes, captured)
+    rows = _weight_stat_rows(engine, cfg, n_p, p_loc, map_bytes)
     if engine in ("shmap_surface", "surface_sharded"):
         rows += _center_rows(engine)
     if engine == "tiled":

@@ -15,12 +15,18 @@ column tile j of each of their maps, (P_loc, H, W / n_m).  Per scan:
 - map update: K2 on each local map's tile at the tile's origin;
 - weights, Neff and the strongest particle over 'p' (parallel/shmap.
   finish_step);
-- resample: the maps move across 'p'.  This first design all_gathers the
-  (P_loc, H, W_loc) tiles over 'p' and takes the ancestors' rows into the
-  new state: a rank holds n_p x its local maps for that moment (PERF.md);
-  the eager step gathers them on scans that resample, the compiled one on
-  every scan.  Sending only the ancestors that cross ranks is later work
-  (ROADMAP.md).
+- chunks: the JAX step's lax.map, as XLA writes it on the donated state:
+  K2 writes each chunk's new tiles into its rows of one (P_loc, H, W_loc)
+  tensor, with no concatenation of maps after (RBPF.step's form);
+- resample: the gate is finish_step's captured.cond.  On one 'p' rank the
+  ancestors' indices are drawn under it and the maps move once a scan,
+  gathered at them (the identity where it does not fire), as in
+  RBPF.step.  On more ranks the maps move across 'p': K2 writes into the
+  state's own tiles where the step has an `out`, and the gate's body
+  all_gathers the (P_loc, H, W_loc) tiles over 'p' and takes the
+  ancestors' rows into them, so a rank holds n_p x its local maps for
+  that moment and only on scans that resample (PERF.md).  Sending only
+  the ancestors that cross ranks is later work (ROADMAP.md).
 
 On a mesh (1, 1) the step is RBPF.step, bit for bit.
 """
@@ -37,7 +43,7 @@ from ..ops.geometry import deskew_scan
 from ..ops.matcher import correlative_match_batch
 from ..ops.motion import apply_odometry, sample_motion
 from ..types import Frame
-from .mesh import axis_index, shard_state
+from .mesh import axis_index, axis_size, shard_state
 from .shmap import MeshStep, finish_step, local_particles
 from .tiled import (tile_geometry, tile_origin, tile_pool, tile_stage,
                     tiled_ll_field)
@@ -57,10 +63,10 @@ def make_sharded_step(engine: RBPF, mesh, jit: bool = False):
     t_origin = tile_origin(cfg, c0)
     chunk = cfg.particle_chunk
     chunk = chunk if 0 < chunk < p_loc and p_loc % chunk == 0 else p_loc
-    i_p = axis_index(mesh, "p")
+    i_p, n_p = axis_index(mesh, "p"), axis_size(mesh, "p")
     match_kw = dict(stage=tile_stage(mesh), pool=tile_pool(mesh))
 
-    def body(state, frame: Frame, draws, out, gated):
+    def body(state, frame: Frame, draws, out, host_gate):
         normals, u0 = draws
         normals = normals[i_p * p_loc:(i_p + 1) * p_loc]
         scan = deskew_scan(frame.scan, frame.odom)
@@ -71,7 +77,11 @@ def make_sharded_step(engine: RBPF, mesh, jit: bool = False):
         if cfg.freeze_map:          # localization-only: map never changes
             keep = keep * 0.0
 
-        parts = []
+        # the maps' tensor is made once the first chunk is matched, as in
+        # RBPF.step; on more than one 'p' rank it is the state's own where
+        # the step writes into `out` (each chunk's tiles are read before
+        # K2 writes them, and the gate's gather reads a copy)
+        maps, parts = None, []
         for a in range(0, p_loc, chunk):
             poses = state.poses[a:a + chunk]
             tiles = state.logodds[a:a + chunk]
@@ -85,16 +95,20 @@ def make_sharded_step(engine: RBPF, mesh, jit: bool = False):
                 motion_cfg=cfg.motion, resolution=res, origin=origin,
                 max_range=s.max_range,
                 prior_center_b=apply_odometry(poses, odom), **match_kw)
-            new_tiles = integrate_scan_batch(
+            if maps is None:
+                maps = (out.logodds if out is not None and n_p > 1
+                        else torch.empty_like(state.logodds))
+            integrate_scan_batch(
                 tiles, best, keep, *tables, resolution=res, origin=t_origin,
                 l_free=s.l_free, l_occ=s.l_occ,
-                tol_cells=s.hit_tolerance_cells)
-            parts.append((best, score, new_tiles))
-        poses, scores, maps = (torch.cat(x) for x in zip(*parts))
+                tol_cells=s.hit_tolerance_cells, out=maps[a:a + chunk])
+            parts.append((best, score))
+        poses, scores = (x[0] if len(x) == 1 else torch.cat(x)
+                         for x in zip(*parts))
         return finish_step(engine, mesh, state, poses, scores,
                            lambda pose, into: None, u0, None,
                            cfg.resample_fraction, maps=maps, out=out,
-                           gated=gated)
+                           host_gate=host_gate)
 
     return MeshStep(body, engine._draws, engine.device, jit)
 

@@ -17,16 +17,18 @@ the shared map is replicated.  A rank's step:
 - map update: K2 at batch 1, redundantly on every rank from the agreed
   integration pose (into the crop around it in surface mode, K2's window
   variant placed on the card);
-- resampling: every rank computes the global systematic ancestors from the
-  gathered log-weights and the shared draw u0 and takes its slice.  On an
-  axis of one rank this is a select on the card (identity indices when the
-  gate does not fire), with no gather and no host read, as the port's
-  single-device engines do.  On more ranks the eager step reads the gate
-  on the host once a scan and all_gathers the (log-weight, pose) rows only
-  on scans that resample; the compiled step (jit=True: a CUDA graph holds
-  no collective that depends on the data) gathers them on every scan and
-  resamples by the same select on the card, with no host read and the
-  same bits (parallel/comm_model.py counts both forms);
+- resampling: the JAX step's lax.cond as models/captured.cond.  Its body
+  is what JAX puts inside the cond: on more than one rank the all_gather
+  of every rank's (log-weight, pose) rows (and, for the sharded RBPF, map
+  tiles), the global systematic ancestors from the gathered log-weights
+  and the shared draw u0, this rank's slice of them, the gathers, and the
+  injection with its psum.  The compiled step (jit=True) runs it as a
+  CUDA-graph IF node a scan on the card, so a replay calls no resample
+  collective on a scan whose gate does not fire, with no host read; the
+  eager step on the card is the select on one rank (no host read, no
+  collective in the body) and on more ranks reads the gate on the host
+  once a scan; on the CPU the gate is a Python branch
+  (parallel/comm_model.py counts the rows as the JAX comm model does);
 - the AMCL recovery injection replaces the global slots
   [0, p_inject * P) (inject_uniform's slot_offset).
 
@@ -91,29 +93,32 @@ def local_draws(engine, mesh, draws):
 
 class MeshStep:
     """A distributed engine's step, eager or compiled, over its scan body
-    body(state, frame, draws, out, gated) -> (state, info), where `draws`
-    are one scan's global draws (each rank takes its slice) and `out`, when
-    given, a state that receives the new state (it may be `state` itself:
-    the body writes each field of `out` after its last read of that
-    field).  `gated`: the resample's gather over 'p' runs only on scans
-    that resample, which reads the gate on the host (finish_step).
+    body(state, frame, draws, out, host_gate) -> (state, info), where
+    `draws` are one scan's global draws (each rank takes its slice) and
+    `out`, when given, a state that receives the new state (it may be
+    `state` itself: the body writes each field of `out` after its last
+    read of that field).  `host_gate`: on a 'p' axis of more than one rank
+    the resample gate is read on the host (finish_step), else it is
+    captured.cond.
 
     Calling it: step(state, frame, generator=None, draws=None) -> (state,
     info) on this rank's shard.  Eager (jit=False): the body on the draws
-    of `draw(generator)`, gated.  Compiled (jit=True): the counterpart of
-    the JAX engines' jax.jit, the body ungated over static buffers
-    (models/captured.Captured), one CUDA graph on the card with the NCCL
-    collectives inside it, captured at the first call, and the same
+    of `draw(generator)`, host_gate=True.  Compiled (jit=True): the
+    counterpart of the JAX engines' jax.jit, the body over static buffers
+    (models/captured.Captured) with the gate as captured.cond, one CUDA
+    graph on the card with the NCCL collectives inside it and the
+    resample's in an IF node, captured at the first call, and the same
     static-buffer body on the CPU; the state it returns is the capture's
-    buffer, which the next call consumes and overwrites (captured.step_fn).
+    buffer, which the next call consumes and overwrites
+    (captured.step_fn).
 
     `replay` runs a stacked Frame batch eagerly (captured.scan, stacked
     infos), `replay_jit()` gives its captured form; the counterparts of the
     JAX step composed under lax.scan."""
 
     def __init__(self, body, draw, device, jit: bool = False):
-        self._eager = functools.partial(body, gated=True)
-        self._compiled = functools.partial(body, gated=False)
+        self._eager = functools.partial(body, host_gate=True)
+        self._compiled = functools.partial(body, host_gate=False)
         self._draw = draw
         self.device = torch.device(device)
         self.captured = None
@@ -168,7 +173,7 @@ def _global_mean(x, mesh, n_total: int):
 
 def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
                 u0, inj, resample_fraction: float, maps=None, out=None,
-                gated: bool = True):
+                host_gate: bool = False):
     """The tail every distributed engine shares, on this rank's particles:
     weights, the global statistics over 'p', the strongest particle, the
     map update `integrate(integration_pose, into)` (into: the map that
@@ -177,22 +182,24 @@ def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
     (the sharded RBPF's local maps) with the poses when given.  Each field
     of `out`, where given, is written after its last read of `state`.
 
-    The resample is a select on the card: the ancestors where the gate
-    fires, the particles themselves where it does not.  On a 'p' axis of
-    more than one rank it needs every rank's (log-weight, pose) rows (and
-    maps): gated=True reads the gate on the host once a scan and leaves
-    the particles as they are, with no gather, on scans that do not
-    resample (the eager form); gated=False gathers on every scan, with no
-    host read (the compiled form: a CUDA graph holds no collective that
-    depends on the data).  Both give the same bits.  Returns (new_state,
-    info)."""
+    The resample is the JAX step's lax.cond: captured.cond (an IF node
+    under capture, a select eagerly on the card, a Python branch on the
+    CPU) over a body that, on a 'p' axis of more than one rank, gathers
+    every rank's (log-weight, pose) rows (and maps) first, so that no
+    resample collective runs where the gate does not fire.  With
+    host_gate=True (the eager step) a 'p' axis of more than one rank reads
+    the gate on the host once a scan instead.  On one rank the sharded
+    RBPF takes RBPF.step's form (the ancestors' indices under the gate,
+    then its maps gathered once at them) and the shared-map engines
+    SharedMapSLAM._finish's (the identity's rows, overwritten where the
+    gate fires); on more ranks the sharded RBPF's `maps` may be
+    `out.logodds` itself, which the body overwrites from the gathered
+    tiles.  Returns (new_state, info)."""
     cfg = engine.config
     p = cfg.num_particles
     p_loc = poses.shape[0]
     i_p, n_p = axis_index(mesh, "p"), axis_size(mesh, "p")
     dev = poses.device
-    if out is not None and gated and n_p > 1:
-        raise ValueError("out= needs gated=False on more than one 'p' rank")
 
     def into(name):
         return None if out is None else getattr(out, name)
@@ -235,44 +242,78 @@ def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
         recov = captured.copy_into(out.recov, recov)
     new_step = torch.add(state.step, 1, out=into("step"))
 
-    if n_p > 1 and gated and not bool(do_resample):   # one host read
-        new_poses, new_lw, new_maps, best_lw = poses, lw, maps, m
+    def gate(body, outs):
+        if n_p > 1 and host_gate:                   # one host read
+            if bool(do_resample):
+                body()
+        else:
+            captured.cond(do_resample, body, outs)
+
+    base = i_p * p_loc
+    acc = cfg.accumulate_weights
+    if maps is not None and n_p == 1:
+        # RBPF.step's form: the ancestors' indices (and, accumulating, the
+        # weights' reset) under the gate, the identity where it does not
+        # fire; then the maps, poses and weights move once, gathered at
+        # those indices
+        idx = torch.arange(p_loc, device=dev)
+        if acc:
+            lw = lw if out is None else captured.copy_into(out.log_weights,
+                                                           lw)
+
+        def resample():
+            idx.copy_(systematic_indices(lw, u0))
+            if acc:
+                lw.zero_()
+
+        gate(resample, [idx, lw] if acc else [idx])
+        new_poses = torch.index_select(poses, 0, idx, out=into("poses"))
+        new_maps = torch.index_select(maps, 0, idx, out=into("logodds"))
+        new_lw = lw if acc else torch.index_select(
+            lw, 0, idx, out=into("log_weights"))
+        best_lw = new_lw.max()
     else:
-        # a select on the card: the particles themselves (their rows of
-        # the gathered population) where the gate does not fire
+        # SharedMapSLAM._finish's form: the identity's rows land in `out`
+        # (or new tensors), and the resample overwrites them where the
+        # gate fires
+        new_poses = (poses.clone() if out is None
+                     else captured.copy_into(out.poses, poses))
+        new_lw = (lw.clone() if out is None
+                  else captured.copy_into(out.log_weights, lw))
+        new_maps = (maps if maps is None or out is None
+                    else captured.copy_into(out.logodds, maps))
+        best_lw = m.clone() if n_p > 1 else None
+
+        def resample():
+            if n_p == 1:
+                lw_all, poses_all, maps_all = lw, poses, maps
+            else:
+                rows = all_gather(torch.cat([lw[:, None], poses], 1), mesh,
+                                  "p", tiled=True)
+                lw_all, poses_all = rows[:, 0], rows[:, 1:]
+                maps_all = (None if maps is None
+                            else all_gather(maps, mesh, "p", tiled=True))
+            idx = systematic_indices(lw_all, u0)[base:base + p_loc]
+            torch.index_select(poses_all, 0, idx, out=new_poses)
+            if maps is not None:
+                torch.index_select(maps_all, 0, idx, out=new_maps)
+            if acc:
+                new_lw.zero_()
+            else:
+                torch.index_select(lw_all, 0, idx, out=new_lw)
+            if p_inject is not None:
+                inj_poses, took = inject_uniform(cfg, inj, new_poses,
+                                                 p_inject, slot_offset=base)
+                new_poses.copy_(inj_poses)
+                new_lw.copy_(torch.where(took, _global_mean(new_lw, mesh, p),
+                                         new_lw))
+            if n_p > 1:
+                best_lw.copy_(pmax(new_lw.max(), mesh, "p"))
+
+        gate(resample, [x for x in (new_poses, new_lw, new_maps, best_lw)
+                        if x is not None])
         if n_p == 1:
-            lw_all, poses_all, maps_all = lw, poses, maps
-        else:
-            rows = all_gather(torch.cat([lw[:, None], poses], 1), mesh, "p",
-                              tiled=True)
-            lw_all, poses_all = rows[:, 0], rows[:, 1:]
-            maps_all = (None if maps is None
-                        else all_gather(maps, mesh, "p", tiled=True))
-        base = i_p * p_loc
-        idx = torch.where(do_resample,
-                          systematic_indices(lw_all, u0)[base:base + p_loc],
-                          torch.arange(base, base + p_loc, device=dev))
-        last = p_inject is None      # the gathers are the fields' last ops
-        new_poses = torch.index_select(poses_all, 0, idx,
-                                       out=into("poses") if last else None)
-        new_maps = (None if maps is None else
-                    torch.index_select(maps_all, 0, idx, out=into("logodds")))
-        if cfg.accumulate_weights:
-            new_lw = torch.where(do_resample, torch.zeros_like(lw), lw,
-                                 out=into("log_weights") if last else None)
-        else:
-            new_lw = torch.index_select(
-                lw_all, 0, idx, out=into("log_weights") if last else None)
-        if not last:
-            inj_poses, took = inject_uniform(cfg, inj, new_poses, p_inject,
-                                             slot_offset=base)
-            inj_lw = torch.where(took, _global_mean(new_lw, mesh, p), new_lw)
-            new_poses = torch.where(do_resample, inj_poses, new_poses,
-                                    out=into("poses"))
-            new_lw = torch.where(do_resample, inj_lw, new_lw,
-                                 out=into("log_weights"))
-        best_lw = (new_lw.max() if n_p == 1
-                   else pmax(new_lw.max(), mesh, "p"))
+            best_lw = new_lw.max()
 
     fields = dict(poses=new_poses, log_weights=new_lw,
                   logodds=logodds if new_maps is None else new_maps,
@@ -304,7 +345,7 @@ def make_shmap_step(engine: SharedMapSLAM, mesh, surface: bool = False,
     while p_loc % chunk:
         chunk -= 1
 
-    def body(state: SharedMapState, frame: Frame, draws, out, gated):
+    def body(state: SharedMapState, frame: Frame, draws, out, host_gate):
         mc = cfg.matcher
         normals, u0, inj = local_draws(engine, mesh, draws)
         scan, tables, keep = engine._scan_inputs(frame)
@@ -334,7 +375,8 @@ def make_shmap_step(engine: SharedMapSLAM, mesh, surface: bool = False,
                                      out=into)
 
         return finish_step(engine, mesh, state, poses, scores, integrate,
-                           u0, inj, fraction, out=out, gated=gated)
+                           u0, inj, fraction, out=out,
+                           host_gate=host_gate)
 
     return MeshStep(body, engine._draw, engine.device, jit)
 

@@ -77,7 +77,7 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh,
     r = cfg.map.likelihood_radius
     hce, wce = min(hc + 2 * r, h), min(wc + 2 * r, w_total)
 
-    def body(state, frame: Frame, draws, out, gated):
+    def body(state, frame: Frame, draws, out, host_gate):
         normals, u0, inj = local_draws(engine, mesh, draws)
         scan, tables, keep = engine._scan_inputs(frame)
         odom = frame.odom
@@ -138,7 +138,7 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh,
 
         return finish_step(engine, mesh, state, poses, scores, integrate,
                            u0, inj, mc.surface_resample_fraction, out=out,
-                           gated=gated)
+                           host_gate=host_gate)
 
     return MeshStep(body, engine._draw, engine.device, jit)
 

@@ -140,7 +140,7 @@ def make_tiled_step(engine: SharedMapSLAM, mesh, jit: bool = False):
     tiled_cfg = cfg.replace(matcher=mc)
     chunk = cfg.particle_chunk
 
-    def body(state, frame: Frame, draws, out, gated):
+    def body(state, frame: Frame, draws, out, host_gate):
         normals, u0, inj = local_draws(engine, mesh, draws)
         scan, tables, keep = engine._scan_inputs(frame)
         tf = tiled_ll_field(state.logodds[None], engine.taps, mesh,
@@ -161,7 +161,7 @@ def make_tiled_step(engine: SharedMapSLAM, mesh, jit: bool = False):
 
         return finish_step(engine, mesh, state, poses, scores, integrate,
                            u0, inj, cfg.resample_fraction, out=out,
-                           gated=gated)
+                           host_gate=host_gate)
 
     return MeshStep(body, engine._draw, engine.device, jit)
 

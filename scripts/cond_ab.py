@@ -3,9 +3,13 @@ alternating processes on one card: device time, peak memory and bits.
 
 For each path (chip_smoke.py's captured phase's engines and logs: parity,
 pr1, chip, mega, mega_blocked over 6 scans, multi at 10 000 a robot over
-20 ticks) a process builds the kernels of its tree (this one, or --root:
-an unpacked earlier commit), takes the engine's captured replay, calls it
-once (warm-up and capture) and once warm, then:
+20 ticks; and its parallel phase's compiled mesh steps at mesh (1, 1) over
+NCCL, `MeshStep.replay_jit`: mesh_shmap at 1M particles over 6 scans,
+mesh_shmap_surface (mega), mesh_tiled (city at 10 000), mesh_surface_sharded
+(city), mesh_sharded (parity)) a process builds the kernels of its tree
+(this one, or --root: an unpacked earlier commit), takes the engine's
+captured replay, calls it once (warm-up and capture) and once warm,
+then:
 
 - peak device memory over those two calls (max_memory_allocated after
   reset_peak_memory_stats), less what was allocated before them, and the
@@ -19,13 +23,22 @@ once (warm-up and capture) and once warm, then:
 - a digest of the final state, the stacked infos and the generator's next
   draw, which must be the same in every process of every tree.
 
+The path `rebuild` is the pose-graph frontend's captured map rebuild
+(models/frontend.MapRebuild) of the 216 scans of grand_tour_216.rec at
+their dead-reckoned poses, 216 keyframes: after a first call (capture),
+ms a rebuild by CUDA events around REBUILDS warm calls, and under
+torch.profiler over REPLAYS calls the device ms, the host's launches
+(kernels, copies, sets, graph launches) and the graph launches a rebuild;
+a digest of the map.
+
 The parent process runs the children in turns, ORDER (B = --root, A =
 this tree: B A A B), prints the card's name and power limit, a JSON line a
 child's path, then a summary line: each path's numbers of A and B side by
 side, and whether every digest agreed.
 
-Usage (needs a GPU; ~6 min):
+Usage (needs a GPU; ~6 min for the default paths):
     python scripts/cond_ab.py --root DIR [--paths parity,pr1,...]
+    python scripts/cond_ab.py --root DIR --paths mesh_shmap,...,rebuild
 """
 
 import argparse
@@ -37,8 +50,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PATHS = ("parity", "pr1", "chip", "mega", "mega_blocked", "multi")
+MESH_PATHS = ("mesh_shmap", "mesh_shmap_surface", "mesh_tiled",
+              "mesh_surface_sharded", "mesh_sharded")
 ORDER = "BAAB"
 REPLAYS = 5
+REBUILDS = 20
 SEED = 0
 
 
@@ -69,6 +85,8 @@ def setup(name):
                              device="cuda")
         return tree_map(lambda x: x[:n], b)
 
+    if name.startswith("mesh_"):
+        return mesh_setup(name[len("mesh_"):], frames, stacked)
     if name == "multi":
         eng, ticks, starts, _ = cs.multi_setup(cs.MULTI_PARTICLES[-1])
         return (eng, lambda: eng.init(starts), eng.replay_jit(),
@@ -90,6 +108,100 @@ def setup(name):
     n = cs.CAPTURED_BLOCKED_SCANS
     return (eng, eng.init, eng.replay_jit(block=matcher_block_size(cfg)),
             stacked(cfg, n), n)
+
+
+def mesh_setup(kind, frames, stacked):
+    """A compiled mesh step's replay_jit at mesh (1, 1) over NCCL, in the
+    configurations of chip_smoke.py's parallel phase."""
+    import chip_smoke as cs
+    from gridmap_slam_tpu_torch import (RBPF, SharedMapSLAM, city_config,
+                                        mega_config)
+    from gridmap_slam_tpu_torch.parallel import mesh as pmesh
+    from gridmap_slam_tpu_torch.parallel.sharded import (init_sharded,
+                                                         make_sharded_step)
+    from gridmap_slam_tpu_torch.parallel.shmap import (init_shmap,
+                                                       make_shmap_step)
+    from gridmap_slam_tpu_torch.parallel.surface_sharded import (
+        init_surface_sharded, make_surface_sharded_step)
+    from gridmap_slam_tpu_torch.parallel.tiled import (init_tiled,
+                                                       make_tiled_step)
+
+    pmesh.init_world("cuda")
+    mesh = pmesh.make_mesh(1, device="cuda")
+    n = cs.N_SCANS
+    if kind == "shmap":
+        cfg = cs.parity_config().replace(num_particles=cs.MEGA_PARTICLES,
+                                         particle_chunk=0)
+        eng, n = SharedMapSLAM(cfg, device="cuda"), cs.PAR_SHMAP_SCANS
+        step, init = make_shmap_step(eng, mesh, jit=True), init_shmap
+    elif kind == "shmap_surface":
+        eng = SharedMapSLAM(mega_config(), device="cuda")
+        step, init = make_shmap_step(eng, mesh, True, jit=True), init_shmap
+    elif kind == "tiled":
+        cfg = city_config().replace(num_particles=cs.PAR_TILED_PARTICLES,
+                                    particle_chunk=cs.PAR_TILED_CHUNK)
+        eng = SharedMapSLAM(cfg, device="cuda")
+        step, init = make_tiled_step(eng, mesh, jit=True), init_tiled
+    elif kind == "surface_sharded":
+        eng = SharedMapSLAM(city_config(), device="cuda")
+        step = make_surface_sharded_step(eng, mesh, jit=True)
+        init = init_surface_sharded
+    else:
+        eng = RBPF(cs.parity_config(), device="cuda")
+        step, init = make_sharded_step(eng, mesh, jit=True), init_sharded
+    return (eng, lambda: init(eng, mesh), step.replay_jit(),
+            stacked(eng.config, n), min(n, len(frames)))
+
+
+def rebuild_child() -> dict:
+    import chip_smoke as cs
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gridmap_slam_tpu_torch import FrontendConfig, PoseGraphSLAM
+    from gridmap_slam_tpu_torch.io import (frame_at, frames_to_device,
+                                           read_recording)
+    from gridmap_slam_tpu_torch.ops.geometry import deskew_scan
+    from gridmap_slam_tpu_torch.ops.motion import apply_odometry
+
+    frames = read_recording(cs.GRAND_TOUR)
+    cfg = cs.grand_tour_config(200)
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
+                             device="cuda")
+    fe = PoseGraphSLAM(cfg, FrontendConfig(), device="cuda")
+    pose, poses, scans = torch.zeros(3, device="cuda"), [], []
+    for i in range(len(frames)):
+        f = frame_at(batch, i)
+        pose = apply_odometry(pose, f.odom)
+        poses.append(pose.cpu().numpy())
+        scans.append(deskew_scan(f.scan, f.odom))
+    fe.kf_scans, fe.kf_poses = scans, poses
+    fe.rebuild_map()                            # capture
+    out = fe.rebuild_map()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(REBUILDS):
+        fe.rebuild_map()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPLAYS):
+            fe.rebuild_map()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev_us = sum(e.time_range.elapsed_us() for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return dict(path="rebuild", keyframes=len(scans),
+                ms_a_rebuild=start.elapsed_time(end) / REBUILDS,
+                device_ms_a_rebuild=dev_us / 1e3 / REPLAYS,
+                host_launches_a_rebuild=sum(
+                    e.name in cs.LAUNCH_CALLS for e in events) / REPLAYS,
+                graph_launches_a_rebuild=sum(
+                    e.name.startswith("cudaGraphLaunch")
+                    for e in events) / REPLAYS,
+                captures=fe.rebuilder.captures,
+                digest=digest([out]))
 
 
 def child(name: str) -> dict:
@@ -157,7 +269,8 @@ def main():
         from gridmap_slam_tpu_torch.ops.cuda import _build
         _build.library()
         for name in paths:
-            print(json.dumps(child(name)), flush=True)
+            row = rebuild_child() if name == "rebuild" else child(name)
+            print(json.dumps(row), flush=True)
             torch.cuda.empty_cache()
         return
     if not args.root:
@@ -180,9 +293,10 @@ def main():
                 print(json.dumps(row), flush=True)
                 rows[side].setdefault(row["path"], []).append(row)
     keys = ("device_ms_a_scan", "host_ms_a_scan", "peak_bytes",
-            "peak_over_map_bytes")
+            "peak_over_map_bytes", "ms_a_rebuild", "device_ms_a_rebuild",
+            "host_launches_a_rebuild", "graph_launches_a_rebuild")
     summary = {name: {side: {k: [r[k] for r in rows[side][name]]
-                             for k in keys}
+                             for k in keys if k in rows[side][name][0]}
                       for side in "AB"} for name in paths}
     digests = {name: sorted({r["digest"] for s in "AB"
                              for r in rows[s][name]}) for name in paths}

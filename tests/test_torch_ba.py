@@ -6,8 +6,9 @@ the CPU, and the port's freedom from JAX.
   single-device Gauss-Newton (chi2 rtol 1e-3, nodes atol 1e-3,
   tests/test_ba.py:43-45);
 - parallel/comm_model.comm_table's rows against the collectives the
-  engines called (parallel/mesh.recording) in a gloo run, on scans that
-  resample and scans that do not;
+  engines called (parallel/mesh.recording) in a gloo run, eager and
+  compiled, on scans that resample and scans that do not (the compiled
+  step calls the resample's rows only on the former, as the eager one);
 - the functions the port's comm_model keeps unchanged (CollectiveRow,
   project_two_host) pinned to the JAX module's, definition by definition;
 - no module of the port, and not chip_smoke.py, imports jax, flax, orbax
@@ -246,15 +247,18 @@ def test_comm_model_rows_equal_the_recorded_collectives(multi_rank, kind,
 @pytest.mark.parametrize("kind", [k for k, _ in COMM_KINDS])
 def test_comm_model_captured_rows_equal_the_compiled_collectives(
         multi_rank, kind, label):
-    """comm_table(..., captured=True) against the collectives the compiled
-    body called: the resample's gathers on every scan, resampling or not;
-    and the compiled step's results equal the eager step's."""
+    """comm_table's rows against the collectives the compiled body called:
+    the resample's rows ("resampling scans only", as in the JAX comm
+    model) on the resampling scan, none of them on the quiet one; and the
+    compiled step's results equal the eager step's."""
     outs = multi_rank(4)
     cfg = dict(COMM_KINDS)[kind]
     n_p, n_m = ((1, 4) if kind in ("tiled", "surface_sharded")
                 else (2, 2) if kind == "sharded" else (4, 1))
-    rows = tcomm.comm_table(cfg, n_p, n_m, kind, captured=True)
-    assert all(r.when == "every scan" for r in rows)
+    rows = tcomm.comm_table(cfg, n_p, n_m, kind)
+    gated = [r for r in rows if r.when != "every scan"]
+    assert all(r.when == tcomm.RESAMPLE for r in gated)
+    assert bool(gated) == (n_p > 1)
     for rank, out in enumerate(outs):
         res = out[f"comm_{kind}"][label + "_jit"]
         assert res["resampled"] == (label == "resampling")
@@ -262,10 +266,19 @@ def test_comm_model_captured_rows_equal_the_compiled_collectives(
         for coll, axis, nbytes in res["records"]:
             got[coll, axis] += nbytes
             got_calls[coll, axis] += 1
-        want, want_calls = _expected(rows, True, m_edge=rank % n_m in
-                                     (0, n_m - 1))
+        want, want_calls = _expected(rows, res["resampled"],
+                                     m_edge=rank % n_m in (0, n_m - 1))
         assert dict(got) == dict(want), (rank, label)
         assert dict(got_calls) == dict(want_calls), (rank, label)
+        every, _ = _expected(rows, False, m_edge=rank % n_m in
+                             (0, n_m - 1))
+        extra = Counter(got)
+        extra.subtract(every)
+        want_extra = Counter()
+        if res["resampled"]:
+            for r in gated:
+                want_extra[r.collective, r.axis] += r.bytes_per_scan
+        assert +extra == want_extra, (rank, label)
         for a, b in zip(out[f"comm_{kind}"][label]["steps"], res["steps"]):
             for k in a:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)

@@ -172,6 +172,30 @@ def test_replayed_rebuild_is_the_eager_loop(keyframes, captures):
     assert captures == {"MapRebuild": 2}
 
 
+@pytest.mark.parametrize("order", ["longest_first"])
+def test_rebuild_launches_a_graph_a_chunk_of_keyframes(keyframes, captures,
+                                                       order):
+    """The rebuild's lax.scan as graphs of CHUNK_SCANS keyframes: one bank
+    of 40 keyframes (the 24 and the first 16 again, shifted), then lists of
+    1, 15, 16, 17 and 40 on it: each the eager loop's bits in
+    ceil(n / CHUNK_SCANS) launches, with no recapture below the bank's
+    capacity."""
+    from gridmap_slam_tpu_torch.models.captured import CHUNK_SCANS
+
+    fe = frontend(keyframes)
+    scans = list(fe.kf_scans) + list(fe.kf_scans[:16])
+    poses = list(fe.kf_poses) + [p + [0.03, -0.02, 0.01]
+                                 for p in fe.kf_poses[:16]]
+    assert len(scans) == 40
+    for n in (40, 1, 15, 16, 17, 40):
+        fe.kf_scans, fe.kf_poses = scans[:n], poses[:n]
+        got = fe.rebuild_map()
+        assert torch.equal(got, fe.rebuild_map_eager()), n
+        assert fe.rebuilder.launches == -(-n // CHUNK_SCANS), n
+        assert fe.rebuilder.capacity == 40
+    assert captures == {"MapRebuild": 1}
+
+
 def test_config5_chain_broken_graph_against_jax(captures):
     """scripts/config5_demo.py's joint graph: both robots' dead-reckoned
     chains in one frontend (keyframe_dist 0, closure_min_gap 4,

@@ -39,6 +39,7 @@ import pickle
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -139,40 +140,82 @@ def _host(state, info):
 @contextlib.contextmanager
 def host_reads():
     """Count the truth tests of a tensor inside the block (bool(t), `if
-    t:`), each a read of the card on a CUDA tensor: yields a list whose
-    length is the count."""
-    real = torch.Tensor.__bool__
-    seen = []
+    t:`), each a read of the card on a CUDA tensor: yields a dict of two
+    lists, "host" (every such test but those below) and "gate" (the truth
+    tests of a captured.cond predicate, the Python branch that stands on
+    the CPU for the card's IF node), whose lengths are the counts."""
+    from gridmap_slam_tpu_torch.models import captured
+
+    real, real_cond = torch.Tensor.__bool__, captured.cond
+    seen = {"host": [], "gate": []}
+    preds = []
 
     def counted(t):
-        seen.append(tuple(t.shape))
+        kind = "gate" if any(t is q for q in preds) else "host"
+        seen[kind].append(tuple(t.shape))
         return real(t)
+
+    def cond(pred, body, outs, select=None):
+        preds.append(pred)
+        return real_cond(pred, body, outs, select)
+
     torch.Tensor.__bool__ = counted
+    captured.cond = cond
     try:
         yield seen
     finally:
         torch.Tensor.__bool__ = real
+        captured.cond = real_cond
+
+
+@contextlib.contextmanager
+def resample_draws():
+    """Count the calls of systematic_indices by the distributed engines'
+    resample (parallel/shmap.finish_step) inside the block: yields a list
+    whose length is the count."""
+    from gridmap_slam_tpu_torch.parallel import shmap
+
+    real = shmap.systematic_indices
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    shmap.systematic_indices = counted
+    try:
+        yield calls
+    finally:
+        shmap.systematic_indices = real
 
 
 def run_engine_case(case, n):
     """The case's steps on this rank (the compiled step where case["jit"]);
     returns each step's gathered global state and info (numpy), the
-    collectives of the last step and the truth tests of a tensor that the
-    steps made (host_reads)."""
+    collectives of the last step ("records") and of each step
+    ("step_records"), each step's calls of systematic_indices, and the
+    truth tests of a tensor that the steps made outside ("host_reads") and
+    inside ("gate_reads") captured.cond's branch (host_reads)."""
     tiled = case["kind"] in ("tiled", "surface_sharded", "sharded")
     mesh = pmesh.make_mesh(n, map_shards=case["mesh"][1], device="cpu")
     eng = _engine(case)
     step = _step_fn(case, eng, mesh, jit=case.get("jit", False))
     state = pmesh.shard_state(case["state"], mesh, tiled=tiled)
-    out, reads = [], 0
+    out, reads, gates, step_records, draws_made = [], 0, 0, [], []
     for i, frame in enumerate(case["frames"]):
         draws = case["draws"][i] if case.get("draws") else None
         gen = None if draws else torch.Generator().manual_seed(i)
-        with pmesh.recording() as rec, host_reads() as seen:
+        with pmesh.recording() as rec, host_reads() as seen, \
+                resample_draws() as calls:
             state, info = step(state, frame, gen, draws)
-        reads += len(seen)
+        reads += len(seen["host"])
+        gates += len(seen["gate"])
+        step_records.append(list(rec))
+        draws_made.append(len(calls))
         out.append(_host(pmesh.gather_state(state, mesh, tiled), info))
-    return {"steps": out, "records": rec, "host_reads": reads}
+    return {"steps": out, "records": rec, "step_records": step_records,
+            "systematic_calls": draws_made, "host_reads": reads,
+            "gate_reads": gates}
 
 
 def _rank_cases(payload: str, rank: int, n: int) -> None:
@@ -397,15 +440,44 @@ def with_compiled(cases, jres, sres):
 
 def compiled_is_eager(outs, name):
     """On every rank the compiled step `<name>_jit` gave the eager step's
-    bits, and made no truth test of a tensor (no host read of the
-    resample gate), where the eager one made one a scan on a 'p' axis of
-    more than one rank."""
+    bits, and made no truth test of a tensor but its gate's, one a scan
+    (the Python branch of captured.cond, an IF node on the card: no host
+    read of the resample gate), where the eager one read the gate on the
+    host once a scan on a 'p' axis of more than one rank."""
     for out in outs:
         eager, comp = out[name], out[name + "_jit"]
         for a, b in zip(eager["steps"], comp["steps"]):
             for k in a:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
         assert comp["host_reads"] == 0
+        assert comp["gate_reads"] == len(comp["steps"])
+
+
+def resample_collectives_follow_the_gate(outs, name, kind, n):
+    """On every rank and every step of `name`, the collectives over 'p' are
+    comm_table's rows of a scan that resamples where the step resampled
+    and of one that does not elsewhere, call for call and byte for byte,
+    and systematic_indices ran once on a resampling step and never on
+    another."""
+    from gridmap_slam_tpu_torch.parallel import comm_model
+
+    n_p, n_m = mesh_shape(kind, n)
+    cfg = dict((k[0], k[2]) for k in KINDS + QUIET)[name.replace("_jit",
+                                                                  "")]
+    rows = [r for r in comm_model.comm_table(cfg, n_p, n_m, kind)
+            if r.axis == "p"]
+    for out in outs:
+        res = out[name]
+        for step, records, calls in zip(res["steps"], res["step_records"],
+                                        res["systematic_calls"]):
+            fired = bool(step["resampled"])
+            want = Counter()
+            for r in rows:
+                if r.when == "every scan" or fired:
+                    want[r.collective, r.bytes_per_scan] += 1
+            got = Counter((c, b) for c, axis, b in records if axis == "p")
+            assert got == want, (name, fired)
+            assert calls == int(fired), (name, fired)
 
 
 def check_against(got, want, *, jax_ref: bool):
@@ -442,12 +514,37 @@ KINDS = [("shmap", "shmap", matcher_config()),
          ("shmap_inject", "shmap_surface",
           surface_config(crop=0).with_overrides(INJECT)),
          ("sharded", "sharded", matcher_config(8))]
+# the gate never fires: held to the eager step alone, on seeded draws
+QUIET = [("shmap_quiet", "shmap", matcher_config().replace(
+              resample_fraction=0.0)),
+         ("shmap_surface_quiet", "shmap_surface", surface_config(
+             crop=0).with_overrides({"matcher.surface_resample_fraction":
+                                     0.0})),
+         ("sharded_quiet", "sharded",
+          matcher_config(8).replace(resample_fraction=0.0))]
+
+
+def quiet_cases(n, frames_for):
+    """The QUIET cases, eager and compiled, with no reference runs."""
+    cases = []
+    for name, kind, cfg in QUIET:
+        batch = frames_to_device(frames_for(cfg)[:STEPS], cfg.max_beams,
+                                 cfg.sensor.max_range)
+        state = _engine(dict(kind=kind, cfg=cfg)).init()
+        for jit in (False, True):
+            cases.append(dict(name=name + ("_jit" if jit else ""), kind=kind,
+                              cfg=cfg, jit=jit, state=state,
+                              frames=[frame_at(batch, i)
+                                      for i in range(STEPS)],
+                              mesh=mesh_shape(kind, n)))
+    return cases
 
 
 @pytest.fixture(scope="module")
 def multi_rank(tmp_path_factory):
     """n -> (rank results, JAX results, single-device results), all cases
-    in one launch a rank count."""
+    in one launch a rank count (the QUIET cases' results beside, with no
+    references)."""
     cache = {}
 
     def frames_for(cfg):
@@ -457,7 +554,8 @@ def multi_rank(tmp_path_factory):
         if n not in cache:
             cases, jres, sres = with_compiled(*build_cases(KINDS, n,
                                                            frames_for))
-            outs = launch(cases, n, tmp_path_factory.mktemp(f"ranks{n}"))
+            outs = launch(cases + quiet_cases(n, frames_for), n,
+                          tmp_path_factory.mktemp(f"ranks{n}"))
             cache[n] = (outs, jres, sres)
         return cache[n]
     return get
@@ -489,13 +587,30 @@ def test_ranks_agree(multi_rank, name, n):
 
 
 @pytest.mark.parametrize("n", RANKS)
-@pytest.mark.parametrize("name", [k[0] for k in KINDS])
+@pytest.mark.parametrize("name", [k[0] for k in KINDS + QUIET])
 def test_compiled_step_gives_eager_bits_on_n_ranks(multi_rank, name, n):
-    """The compiled body (every scan's gather, the resample a select on the
-    card) against the eager one (the gather gated on the host)."""
+    """The compiled body (the resample under captured.cond, an IF node on
+    the card) against the eager one (the gate read on the host), with the
+    gate firing on some scans and, in the QUIET cases, on none."""
     outs = multi_rank(n)[0]
     compiled_is_eager(outs, name)
     assert all(out[name]["host_reads"] == STEPS for out in outs)
+    if name.endswith("_quiet"):
+        assert not any(step["resampled"] for out in outs
+                       for step in out[name + "_jit"]["steps"])
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("name", [k[0] + jit for k in KINDS + QUIET
+                                  for jit in ("", "_jit")])
+def test_resample_collectives_only_where_the_gate_fires(multi_rank, name,
+                                                        n):
+    """Eager and compiled, every scan's collectives over 'p' are the
+    comm model's rows of its gate: a scan that does not resample calls no
+    resample all_gather, pmax or psum and no systematic_indices."""
+    kind = dict((k[0], k[1]) for k in KINDS + QUIET)[name.replace("_jit",
+                                                                   "")]
+    resample_collectives_follow_the_gate(multi_rank(n)[0], name, kind, n)
 
 
 @pytest.mark.parametrize("n", RANKS)

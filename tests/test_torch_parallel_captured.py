@@ -133,6 +133,38 @@ def test_compiled_replay_gives_the_eager_replay_bits(world, kind):
     _assert_equal(stack_steps(infos), inf_e, INFO)
 
 
+def test_sharded_body_writes_into_the_state_at_mesh_one(world):
+    """At mesh (1, 1) the compiled sharded body with out=state (what the
+    graph runs on its static buffer) keeps the state's map storage, gives
+    the eager sharded step's bits and RBPF.step's results on the same
+    draws, scan by scan, over resampling and quiet scans: its chunks' maps
+    are written into one tensor and moved once, at the gate's indices.
+    Against RBPF.step within tests/test_torch_parallel.py's single-device
+    tolerances, as its world-of-one test holds the sharded step: K1's tile
+    plain version takes another float order than the untiled one (on the
+    card the two kernels give the same bits, chip_smoke.py)."""
+    from tests.test_torch_parallel import _host, check_against
+
+    eng, _, frames = _setup("sharded")
+    step = _make("sharded", eng, world, jit=True)
+    eager = _make("sharded", eng, world, jit=False)
+    ref, st, ea = eng.init(), eng.init(), eng.init()
+    storage = st.logodds.data_ptr()
+    gen = torch.Generator().manual_seed(4)
+    resampled = []
+    for f in frames:
+        draws = eng._draws(gen)
+        ref, ir = eng.step(ref, f, draws=draws)
+        ea, ie = eager(ea, f, draws=draws)
+        out, io = step._compiled(st, f, draws, st)
+        assert out is st and st.logodds.data_ptr() == storage
+        _assert_equal(ea, st, STATE)
+        _assert_equal(ie, io, INFO)
+        check_against(_host(st, io), _host(ref, ir), jax_ref=False)
+        resampled.append(bool(io.resampled))
+    assert any(resampled) and not all(resampled), resampled
+
+
 def _graph(k=40):
     from gridmap_slam_tpu_torch.models.posegraph import PoseGraph
 
