@@ -212,7 +212,20 @@ Phases, each printed on its own line:
    plain version; then bench.py's one-measurement command line `--preset
    parity --set matcher.coarse_halfres=false` (3 replays) must print a
    correct line.  The kernels' bounds everywhere in this script are the
-   benchmark's (gridmap_slam_tpu_torch/bench/kernels/).
+   benchmark's (gridmap_slam_tpu_torch/bench/kernels/);
+21. fusions — F1-F3 (csrc/fusions.cu: the motion model, the coarse
+   pool, each matcher stage's prior, argmax and pick, XLA's fusions of the
+   JAX step), which every path launches where it runs that glue: every
+   recorded call of them (CallRecorder records them on every path it
+   records; check_fusion) is held against its plain version, the op
+   sequence it replaced, on the card, and one differing bit fails the run;
+   here the parity log once more with their calls recorded, which of three
+   sum orders of a 2 x 2 block gives PyTorch's mean over the pooled axes
+   on this card (F2 must give it), and a line of every path's checks;
+   it fails where the parity, chip, pr1, mega_blocked, multi (10 000),
+   posegraph (filter and closures) or tiled path has no checked F3 call.
+   The captured phase prints each graph's kernel nodes a scan and fails
+   where parity's exceed 220 or chip's 700.
 
 Each path (parity, mega, city, mega_blocked, multi at each particle count,
 the posegraph flow's three parts: the filter, closure detection, the
@@ -235,7 +248,9 @@ fails the run.  Then
 one JSON line of kernels, with their launches per path, their launches a
 scan inside each captured path's graph, bounds and, in `stages`, K1's
 stages at the parity shapes (the nearest-cell coarse stage among them)
-and at pr1's, K2's and K3's at pr1's, and last
+and at pr1's, K2's and K3's at pr1's, F1-F3's rows (max error 0: their
+bits; ms, plain ms and bound on the parity path's calls, F3's stages),
+and last
 {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no "ok" line.
 There is no CPU path: without a CUDA device it exits non-zero.
@@ -315,12 +330,15 @@ CONFIG5_JAX_OPT_ATE_M = (0.037901868964208295, 0.017296637668428316)
 CONFIG5_CLOSURES = 32
 # the kernels in the frontend's graphs: a detection's verify (K1 5 stages
 # and K2, K3 once, each way) and one keyframe of the rebuild
+# (and F3 a K1 stage, F2 the coarse stage's pool)
 FRONTEND_NODES = {"verify": {"stage_scores": 10, "integrate_scan": 2,
                              "log_likelihood_field": 2, "surface_corr": 0,
-                             "stage_scores_tile": 0},
+                             "stage_scores_tile": 0, "motion": 0, "pool": 2,
+                             "pick": 10},
                   "rebuild": {"stage_scores": 0, "integrate_scan": 1,
                               "log_likelihood_field": 0, "surface_corr": 0,
-                              "stage_scores_tile": 0}}
+                              "stage_scores_tile": 0, "motion": 0,
+                              "pool": 0, "pick": 0}}
 CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
 PR1_SCANS = 3          # the pr1 phase's scans under CallRecorder
 # the bench phase's one measurement with bench.py's flags: the pr1 preset
@@ -355,6 +373,27 @@ K1_TILE_MAX_FRAC = 1e-3
 TILED_ATOL = 1e-4          # poses and map against SharedMapSLAM.step
 SS_POSE_ATOL, SS_MAP_ATOL, SS_NEFF_RTOL = 2e-3, 1e-3, 1e-3  # tests/test_surface_sharded.py:66-73
 BA_CHI2_RTOL, BA_NODES_ATOL = 1e-3, 1e-3   # tests/test_ba.py:43-45
+# F1-F3 (csrc/fusions.cu): their rows, and the paths on which the fusions
+# phase requires their recorded calls held bit for bit against their
+# plain versions (multi at 10 000 a robot; the posegraph flow's filter and
+# closures)
+FUSION_ROWS = ("motion", "pool", "pick")
+FUSION_PATHS = ("parity", "chip", "pr1", "mega_blocked", "multi 10000",
+                "posegraph_rbpf", "posegraph_closures", "tiled")
+FUSION_CHECKS = []         # every recorded F1-F3 call's check, in order
+# the kernel rows held in the conditional bodies of the frontend's graphs
+# captured so far in this process (the rebuild's K2): CUPTI was seen to
+# name records of another graph's bodies after them (the captured phase)
+FOREIGN_BODY_ROWS = set()
+# F3's operations a candidate: three bias sums, three squares, their sum,
+# two divisions, a difference, two products and the add to its score
+F3_FLOPS = 13
+# kernel launches of a CLI replay outside its step, once a run: the final
+# map's overlay pose (app/cli._overlay: apply_odometry, F1)
+CLI_RUN_LAUNCHES = {"motion": 1}
+# kernel nodes a scan (a conditional node's body counted) that a captured
+# path's first graph may hold at most
+NODES_A_SCAN_MAX = {"parity": 220, "chip": 700}
 
 
 def say(phase: str, **fields) -> None:
@@ -1046,7 +1085,7 @@ def main_phase(cfg, frames, gt):
         warm_seconds=sec, scans_per_sec=len(seq) / sec)
     if not finite:
         raise AssertionError("non-finite poses or maps")
-    if not all(launches[k] > 0 for k in BASE_ROWS):
+    if not all(launches[k] > 0 for k in (*BASE_ROWS, *FUSION_ROWS)):
         raise AssertionError(f"a kernel was not launched: {launches}")
     if not ate < ATE_MAX_M:
         raise AssertionError(f"parity ATE {ate} >= {ATE_MAX_M}")
@@ -1071,13 +1110,33 @@ class _TileCount:
         kmatch.tile_launches = n
 
 
+class _FusionCount:
+    """One of F1-F3's launch counts (ops/cuda/fusions.motion_launches,
+    pool_launches, pick_launches) read and set as a module's
+    `launches`."""
+
+    def __init__(self, attr: str):
+        self.attr = attr
+
+    @property
+    def launches(self):
+        from gridmap_slam_tpu_torch.ops.cuda import fusions
+        return getattr(fusions, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        from gridmap_slam_tpu_torch.ops.cuda import fusions
+        setattr(fusions, self.attr, n)
+
+
 def _kernel_modules():
     from gridmap_slam_tpu_torch.ops.cuda import grid_update, likelihood
     from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
     from gridmap_slam_tpu_torch.ops.cuda import surface_corr
     return {"stage_scores": kmatch, "integrate_scan": grid_update,
             "log_likelihood_field": likelihood,
-            "stage_scores_tile": _TileCount(), "surface_corr": surface_corr}
+            "stage_scores_tile": _TileCount(), "surface_corr": surface_corr,
+            **{row: _FusionCount(f"{row}_launches") for row in FUSION_ROWS}}
 
 
 def _test_maps(p, h, w, rng, device="cuda"):
@@ -1670,7 +1729,8 @@ def mega_phase(frames, gt):
 
 KERNEL_ROWS = {"K1": "stage_scores", "K2": "integrate_scan",
                "K3": "log_likelihood_field", "K1t": "stage_scores_tile",
-               "K2w": "integrate_scan", "K4": "surface_corr"}
+               "K2w": "integrate_scan", "K4": "surface_corr",
+               "F1": "motion", "F2": "pool", "F3": "pick"}
 # the rows of the untiled paths (K1's tile variant runs on tiled maps only)
 BASE_ROWS = ("stage_scores", "integrate_scan", "log_likelihood_field")
 _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
@@ -1678,7 +1738,9 @@ _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
           "K2w": ("grid_update", "integrate_scan_window_cuda"),
           "K2": ("grid_update", "integrate_scan_batch_cuda"),
           "K3": ("likelihood", "log_likelihood_field_batch_cuda"),
-          "K4": ("surface_corr", "surface_corr_bf16_cuda")}
+          "K4": ("surface_corr", "surface_corr_bf16_cuda"),
+          "F1": ("fusions", "motion_cuda"), "F2": ("fusions", "pool_cuda"),
+          "F3": ("fusions", "pick_cuda")}
 PATH_MAX_ERR = {row: 0.0 for row in KERNEL_ROWS.values()}
 BOUNDS = {"K1": k1_bound, "K2": k2_bound, "K3": k3_bound, "K1t": k1t_bound,
           "K2w": k2w_bound, "K4": k4_bound}
@@ -1719,17 +1781,19 @@ class CallRecorder:
     function looks up at every call) is wrapped: the first
     `calls_a_shape` calls of every call shape under the current `path`
     label are kept, their tensors cloned, and the kernel then runs and
-    counts its launch as before."""
+    counts its launch as before.  `kernels`: the _ENTRY keys to record
+    (all of them, F1-F3 among them, by default)."""
 
-    def __init__(self, path: str, calls_a_shape: int = 1):
+    def __init__(self, path: str, calls_a_shape: int = 1, kernels=_ENTRY):
         self.path = path
         self.calls = []            # (path, kernel, args, kw)
         self.calls_a_shape = calls_a_shape
+        self.kernels = tuple(kernels)
         self._seen = {}
         self._real = []
 
     def __enter__(self):
-        for kernel in _ENTRY:
+        for kernel in self.kernels:
             mod, attr = _entry(kernel)
             real = getattr(mod, attr)
             self._real.append((mod, attr, real))
@@ -1764,11 +1828,16 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
     """Each recorded call again, on the kernel and on its plain version, on
     the very arguments the path passed: whole up to FULL_PARTICLES, else
     the real call's first and last SLICE_PARTICLES' rows against the plain
-    version on those particles.  Raises beyond the kernel's tolerance, or
-    where a kernel launched on a path (`launches_by_path`) has no recorded
-    call there.  Returns the checks, one dict a call."""
-    checks = []
+    version on those particles; F1-F3's calls whole, bit for bit
+    (check_fusion, kept in FUSION_CHECKS).  Raises beyond the kernel's
+    tolerance, or where a kernel launched on a path (`launches_by_path`)
+    has no recorded call there.  Returns the checks of the other kernels,
+    one dict a call."""
+    checks, fused = [], []
     for path, kernel, args, kw in rec.calls:
+        if kernel in FUSIONS:
+            fused.append(check_fusion(path, kernel, args, kw))
+            continue
         mod, attr = _entry(kernel)
         cuda_fn = getattr(mod, attr)
         plain_fn = getattr(mod, attr.replace("_cuda", "_plain"))
@@ -1844,13 +1913,98 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
                                  f"{row}")
     say("path_kernels", paths=sorted({row["path"] for row in checks}),
         recorded_bytes=rec.bytes(), calls=checks)
-    checked = {(row["path"], KERNEL_ROWS[row["kernel"]]) for row in checks}
+    checked = {(row["path"], KERNEL_ROWS[row["kernel"]])
+               for row in (*checks, *fused)}
     for path, launches in launches_by_path.items():
         for name, n in launches.items():
             if n > 0 and (path, name) not in checked:
                 raise AssertionError(f"{path}: {name} ran but no call of "
                                      f"it was checked")
     return checks
+
+
+FUSIONS = ("F1", "F2", "F3")
+
+
+def _outputs(out) -> list:
+    """A kernel's outputs as a list of tensors (F1's and F3's tuples, the
+    Nones of F1's outputs not asked for left out)."""
+    if torch.is_tensor(out):
+        return [out]
+    return [t for t in out if t is not None]
+
+
+def _bits_differing(a, b) -> int:
+    """The elements of two float32 tensors whose bits differ (every
+    element where their shapes differ)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return max(a.numel(), b.numel())
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def fusion_bound(kernel, args, kw):
+    """(bound ms, "operations" or "bytes") of one F1-F3 call: each input
+    read once and each output written once over the HBM rate, beside its
+    float operations (F1 ~20 a sampled pose and 10 a propagated one, the
+    sines, cosines and atan2 counted one each; F2 4 an output cell; F3
+    F3_FLOPS a candidate) over the FP32 peak, as bench/bounds.bound."""
+    from gridmap_slam_tpu_torch.bench.bounds import bound, nbytes
+    if kernel == "F1":
+        pose, normals = args[0], args[3]
+        n = pose.numel() // 3
+        outs = (normals is not None) + bool(kw.get("deterministic"))
+        flops = n * (20 * (normals is not None)
+                     + 10 * bool(kw.get("deterministic")))
+        return bound(flops, nbytes(args) + outs * n * 12)
+    if kernel == "F2":
+        g, h, w = args[0].shape
+        cells = g * ((h + 1) // 2) * ((w + 1) // 2)
+        return bound(4 * cells, args[0].numel() * 4 + cells * 4)
+    scores, off_xy, off_t = args[0], args[9], args[10]
+    p = scores.shape[0]
+    out = (p * (2 * off_xy.numel() + off_t.numel()) * 4
+           if off_xy is not None else p * 16)
+    return bound(F3_FLOPS * scores.numel(), nbytes(args) + out)
+
+
+def check_fusion(path, kernel, args, kw) -> dict:
+    """One recorded call of F1-F3 again, on the kernel and on its plain
+    version (the op sequence it replaced) on the card, on the very
+    arguments the path passed: every output equal bit for bit, or the run
+    fails.  Times both (CUDA events) beside the bound.  Appends the row to
+    FUSION_CHECKS and returns it."""
+    mod, attr = _entry(kernel)
+    cuda_fn = getattr(mod, attr)
+    plain_fn = getattr(mod, attr.replace("_cuda", "_plain"))
+    got, want = (_outputs(fn(*args, **kw)) for fn in (cuda_fn, plain_fn))
+    differing = (sum(_bits_differing(a, b) for a, b in zip(got, want))
+                 if len(got) == len(want) else -1)
+    err = max((float((a - b).abs().nan_to_num(0.0).max())
+               for a, b in zip(got, want) if a.shape == b.shape
+               and a.numel()), default=0.0)
+    del got, want
+    ms = cuda_ms(lambda: cuda_fn(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: plain_fn(*args, **kw), 3)
+    bound, by = fusion_bound(kernel, args, kw)
+    row = dict(path=path, kernel=kernel,
+               shapes=[list(t.shape) for t in args if torch.is_tensor(t)],
+               bits_differing=differing, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               share_of_bound=bound / ms)
+    if kernel == "F1":
+        row.update(sampled=args[3] is not None,
+                   deterministic=bool(kw.get("deterministic")))
+    elif kernel == "F3":
+        row.update(stage="coarse" if args[8] is not None else "refine",
+                   last=args[9] is None, stride=kw.get("stride", 1))
+    FUSION_CHECKS.append(row)
+    PATH_MAX_ERR[KERNEL_ROWS[kernel]] = max(
+        PATH_MAX_ERR[KERNEL_ROWS[kernel]], err)
+    if differing != 0:
+        say("fusions", calls=FUSION_CHECKS)
+        raise AssertionError(f"{path} {kernel}: {differing} output bits "
+                             f"differ from its plain version's: {row}")
+    return row
 
 
 def city_kernels_phase(eng, state, frame):
@@ -2385,6 +2539,7 @@ def frontend_part(name, eager, captured, piece, per=1, graph_per=1,
     in_bodies = {k: v / graph_per for k, v in _node_counts(
         [nm for _, bs in bodies for b in bs
          for nm in graph_kernel_names(b)]).items()}
+    FOREIGN_BODY_ROWS.update(k for k, v in in_bodies.items() if v)
     eager_per = {k: eager_counts[k] / per for k in KERNEL_SYMBOLS}
     differing = [i for i, (a, b) in enumerate(zip(out_e, out_c))
                  if not (a.dtype == b.dtype and torch.equal(a, b))]
@@ -2898,7 +3053,8 @@ def pr1_phase(frames, dev="cuda"):
         checked = check_recorded(rec, {path: launches})
         fine = iter(("fine", "refine"))
         labelled = []
-        for (_, kernel, args, kw), row in zip(rec.calls, checked):
+        kernel_calls = [c for c in rec.calls if c[1] not in FUSIONS]
+        for (_, kernel, args, kw), row in zip(kernel_calls, checked):
             if kernel == "K1":
                 stage = ("coarse nearest" if kw["nearest"] else "coarse"
                          if kw["resolution"] > cfg.map.resolution
@@ -2931,7 +3087,10 @@ def pr1_phase(frames, dev="cuda"):
 KERNEL_SYMBOLS = {"stage_scores": "stage_scores_kernel",
                   "integrate_scan": "grid_update_kernel",
                   "log_likelihood_field": "ll_field_",
-                  "surface_corr": "surface_corr_"}
+                  "surface_corr": "surface_corr_",
+                  "motion": "fusion_motion_kernel",
+                  "pool": "fusion_pool_kernel",
+                  "pick": "fusion_pick_kernel"}
 # the rows _node_counts gives
 GRAPH_ROWS = (*KERNEL_SYMBOLS, "stage_scores_tile")
 # the runtime calls that put work on the card from the host
@@ -3161,6 +3320,12 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     in_graph = {k: v / m for k, v in _node_counts(names).items()}
     seen = prof_c["kernels_per_scan"]
     visible = prof_c["any_repo_kernel_seen"]
+    # CUPTI names some records of this graph's conditional bodies after a
+    # kernel of another graph's body captured earlier in the process (the
+    # rebuild's K2 at batch 1): a row of such a kernel may be seen up to
+    # this graph's body kernels a scan more often than the graph holds it
+    misnamable = {k: gate["kernels_in_bodies_a_scan"]
+                  if k in FOREIGN_BODY_ROWS else 0.0 for k in GRAPH_ROWS}
     row = dict(path=name, scans=n, particles=eng.config.num_particles,
                bits_differing=bits, rerun_differing=rerun,
                step_jit_differing=step_bits, ate_m=ates, ate_max_m=ate_max,
@@ -3174,9 +3339,14 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                kernels_per_scan_eager=eager_per_scan,
                kernels_per_scan_in_graph=in_graph,
                kernel_nodes_in_graph=len(names),
+               kernel_nodes_a_scan=len(names) / m,
+               kernel_nodes_a_scan_max=NODES_A_SCAN_MAX.get(name),
                log_graph=graph, one_scan_graph=one_scan, resample_gate=gate,
                log_graph_is_one_scan_n_times=periodic,
                kernels_per_scan_profiler=seen if visible else None,
+               profiler_surplus_a_scan={
+                   k: seen[k] - in_graph[k] for k in GRAPH_ROWS
+                   if seen[k] > in_graph[k]},
                profiler_records_named_outside_graph=prof_c[
                    "records_named_outside_graph"],
                profiler_sees_graph_kernels=visible,
@@ -3220,12 +3390,19 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
         raise AssertionError(f"captured {name}: a graph's kernel nodes are "
                              f"not the one-scan graph's {len(names_one)} "
                              f"with its scan its length times: {periodic}")
-    if visible and not all(0 < seen[k] <= in_graph[k]
+    if visible and not all(0 < seen[k] <= in_graph[k] + misnamable[k]
                            for k in needed if k in KERNEL_SYMBOLS):
         raise AssertionError(f"captured {name}: the profiler saw kernels a "
-                             f"scan {seen}, the graph holds {in_graph}")
+                             f"scan {seen}, the graph holds {in_graph} "
+                             f"(records of its bodies' kernels that may "
+                             f"carry another graph's body kernel's name: "
+                             f"{misnamable})")
     if not max(ates) < ate_max:
         raise AssertionError(f"captured {name}: ATE {ates} >= {ate_max}")
+    if not len(names) / m <= NODES_A_SCAN_MAX.get(name, math.inf):
+        raise AssertionError(f"captured {name}: {len(names) / m} kernel "
+                             f"nodes a scan, more than "
+                             f"{NODES_A_SCAN_MAX[name]}")
     return capture_counts, in_graph
 
 
@@ -3543,7 +3720,7 @@ def k1_tile_phase(frames, particles=256, timed_particles=PAR_TILED_CHUNK):
 
 # the kernel rows whose launches a scan a mesh graph holds
 MESH_GRAPH_ROWS = ("stage_scores", "stage_scores_tile", "integrate_scan",
-                   "log_likelihood_field")
+                   "log_likelihood_field", *FUSION_ROWS)
 
 
 def _par_path(path, seq, make, init, ref, compare, needed, single):
@@ -4499,9 +4676,12 @@ def cli_phase(cfg, frames, room_loop, pg_first, dev="cuda",
     for path, row in figures.items():
         cap, eag = row["captured"], row["eager"]
         eager_a_scan = eag["python_kernel_launches_a_scan"]
+        # the eager run's launches: the step's a scan, and CLI_RUN_LAUNCHES
+        # once a run outside the step
         in_graph_ok = path == "cli_posegraph" or all(
-            cap["kernels_in_graph"][k] == eager_a_scan[k]
-            for k in GRAPH_ROWS)
+            round(eager_a_scan[k] * eag["scans"])
+            == cap["kernels_in_graph"][k] * eag["scans"]
+            + CLI_RUN_LAUNCHES.get(k, 0) for k in GRAPH_ROWS)
         if not (row["eager_equals_captured"] and (dev != "cuda" or (
                 cap["captures"] == 1 and in_graph_ok
                 and cap["host_launches_a_scan"]
@@ -4597,6 +4777,109 @@ def bench_phase():
     return {"bench": launches, "bench_measure": measured}
 
 
+# F1-F3: the kernels line's rows (kernel, the XLA fusion each replaces)
+FUSION_REPLACES = {
+    "motion": ("F1", "gridmap_slam_tpu/models/rbpf.py:180-182 (XLA's fusion "
+               "of the vmapped sample_motion and apply_odometry, "
+               "gridmap_slam_tpu/ops/motion.py:34-56)"),
+    "pool": ("F2", "gridmap_slam_tpu/ops/matcher.py:246-252 (XLA's fusion of "
+             "the coarse field's pad and 2 x 2 mean)"),
+    "pick": ("F3", "gridmap_slam_tpu/ops/matcher.py:302-321 (XLA's fusions "
+             "of _prior_grid :137-153, _argmax3 :156-162 and the take)")}
+
+
+def pool_order(field, fill: float) -> dict:
+    """Bits differing from PyTorch's mean over the pooled axes on this card
+    (fusions.pool_plain) of three sum orders of a 2 x 2 block (a, b its top
+    row, c, d its bottom) and of F2, on `field` and on random fields of an
+    odd and an even shape."""
+    import torch.nn.functional as F
+    from gridmap_slam_tpu_torch.ops.cuda import fusions
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    fields = (field,
+              torch.randn((3, 121, 119), generator=gen, device="cuda") * 5.0,
+              torch.rand((2, 64, 64), generator=gen, device="cuda") * 1e3)
+    out = {}
+    for f in fields:
+        want = fusions.pool_plain(f, fill)
+        h, w = f.shape[-2:]
+        e = F.pad(f, (0, w & 1, 0, h & 1), value=fill)
+        a, b = e[:, 0::2, 0::2], e[:, 0::2, 1::2]
+        c, d = e[:, 1::2, 0::2], e[:, 1::2, 1::2]
+        for name, v in (("(a+b)+(c+d)", ((a + b) + (c + d)) * 0.25),
+                        ("((a+b)+c)+d", (((a + b) + c) + d) * 0.25),
+                        ("(a+c)+(b+d)", ((a + c) + (b + d)) * 0.25),
+                        ("F2", fusions.pool_cuda(f, fill))):
+            out.setdefault(name, []).append(_bits_differing(v, want))
+    return out
+
+
+def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
+    """F1-F3 (csrc/fusions.cu).  The parity preset's log again with F1-F3's
+    calls recorded (CallRecorder) and held bit for bit against their plain
+    versions (check_fusion); the sum order of PyTorch's mean over the pooled
+    axes on this card among three, beside F2's (pool_order); then one line
+    of every F1-F3 check of this run by path and kernel (the chip, pr1,
+    mega_blocked, multi, posegraph and tiled paths, and every other
+    recorded path, checked theirs in their own phases).  Fails where a path
+    of FUSION_PATHS has no checked F3 call, the parity path lacks one of
+    F1-F3, or F2 differs from the mean in a bit (`paths`: FUSION_PATHS, or
+    the paths a shorter run took).  Returns the kernels line's rows of
+    F1-F3, timed on the parity path's calls."""
+    import torch.nn.functional as F
+    from gridmap_slam_tpu_torch import RBPF
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+
+    eng = RBPF(cfg, device="cuda")
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
+                             device="cuda")
+    seq = [frame_at(batch, i) for i in range(len(frames))]
+    with CallRecorder("parity", kernels=FUSIONS) as rec:
+        eng.run_log(eng.init(), seq,
+                    torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+    parity = [check_fusion(*call) for call in rec.calls]
+    field = next(args[0] for _, k, args, _ in rec.calls if k == "F2")
+    order = pool_order(field, math.log(1.0 / cfg.sensor.max_range))
+    want, paths = paths, {}
+    for row in FUSION_CHECKS:
+        k = paths.setdefault(row["path"], {}).setdefault(
+            row["kernel"], dict(calls=0, bits_differing=0, ms=[]))
+        k["calls"] += 1
+        k["bits_differing"] += row["bits_differing"]
+        k["ms"].append(row["ms"])
+    say("fusions", pool_order=order, paths=paths, parity_calls=parity,
+        checked_calls=len(FUSION_CHECKS))
+    missing = [p for p in want if "F3" not in paths.get(p, {})]
+    if missing or set(paths["parity"]) != set(FUSIONS):
+        raise AssertionError(f"fusions: no checked F3 call on {missing}, "
+                             f"or not F1-F3 on parity: {paths['parity']}")
+    if any(order["F2"]):
+        raise AssertionError(f"fusions: F2 differs from PyTorch's mean: "
+                             f"{order}")
+    rows = []
+    for name, (kernel, replaces) in FUSION_REPLACES.items():
+        first = next(r for r in parity if r["kernel"] == kernel)
+        row = dict(name=name, route="cuda",
+                   source="gridmap_slam_tpu_torch/csrc/fusions.cu",
+                   replaces=replaces, max_abs_err=PATH_MAX_ERR[name],
+                   ms=first["ms"], plain_ms=first["plain_ms"],
+                   bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+                   library_ms=None)
+        if kernel == "F2" and not (field.shape[1] % 2 or field.shape[2] % 2):
+            # the same function on even fields: one PyTorch call
+            row["library_ms"] = cuda_ms(lambda: F.avg_pool2d(field, 2), 20)
+        if kernel == "F3":
+            row["stages"] = {
+                f"parity {r['stage']}{' last' if r['last'] else ''} "
+                f"{'x'.join(map(str, r['shapes'][0]))}": {
+                    k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by")}
+                for r in parity if r["kernel"] == "F3"}
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     name = device_phase()
     build_phase()
@@ -4644,6 +4927,7 @@ def main() -> int:
     rows.append(k4_row)
     by_path.update(cli_phase(cfg, frames, room_loop, pg_first))
     by_path.update(bench_phase())
+    rows.extend(fusions_phase(cfg, frames))
     for row in rows:
         row["max_abs_err"] = max(row["max_abs_err"],
                                  PATH_MAX_ERR[row["name"]])

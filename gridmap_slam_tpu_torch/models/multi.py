@@ -39,7 +39,7 @@ from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.geometry import deskew_scan
 from ..ops.grid import gaussian_kernel
 from ..ops.matcher import correlative_match_batch
-from ..ops.motion import apply_odometry, sample_motion
+from ..ops.motion import sample_and_propagate
 from ..ops.resample import neff, systematic_indices, weighted_mean_pose
 from ..types import Frame, Odom
 from . import captured
@@ -160,8 +160,8 @@ class MultiRobotSLAM:
         odom = frames.odom
         scan = deskew_scan(frames.scan, odom)                    # (R, B)
         per_robot = Odom(odom.d_center[:, None], odom.d_theta[:, None])
-        pose_s = sample_motion(state.poses, per_robot, cfg.motion, normals)
-        prior = apply_odometry(state.poses, per_robot)
+        pose_s, prior = sample_and_propagate(state.poses, per_robot,
+                                             cfg.motion, normals)
         best, scores = correlative_match_batch(
             llf, scan, pose_s.reshape(r * p, 3), odom,
             matcher_cfg=cfg.matcher, motion_cfg=cfg.motion, resolution=res,

@@ -40,7 +40,7 @@ from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.geometry import deskew_scan
 from ..ops.grid import gaussian_kernel, inv_log_odds
 from ..ops.matcher import IMPLS, correlative_match_batch, score_pose
-from ..ops.motion import apply_odometry, sample_motion
+from ..ops.motion import sample_and_propagate
 from ..ops.resample import neff, systematic_indices, weighted_mean_pose
 from ..types import Frame, Odom, Scan, SlamState, StepInfo
 from . import captured
@@ -105,8 +105,8 @@ class RBPF:
         mcfg = cfg.map
         origin = (float(mcfg.origin[0]), float(mcfg.origin[1]))
         res = float(mcfg.resolution)
-        pose_s = sample_motion(poses, odom, cfg.motion, normals)
-        pose_det = apply_odometry(poses, odom)
+        pose_s, pose_det = sample_and_propagate(poses, odom, cfg.motion,
+                                                normals)
         llf = log_likelihood_field_batch(logodds, self.taps,
                                          z_hit=cfg.matcher.z_hit,
                                          max_range=cfg.sensor.max_range)

@@ -68,7 +68,8 @@ from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.geometry import deskew_scan, scan_points
 from ..ops.grid import gaussian_kernel
 from ..ops.matcher import correlative_match_batch, score_pose
-from ..ops.motion import apply_odometry, sample_motion
+from ..ops.motion import (apply_odometry, sample_and_propagate,
+                          sample_motion)
 from ..ops.resample import neff, systematic_indices, weighted_mean_pose
 from ..ops.surface import (crop_center_cells, pack_neighborhoods,
                            refine_on_surface, sample_surface, scan_surface,
@@ -78,11 +79,15 @@ from . import captured
 
 
 def matcher_workspace_bytes(cfg: SlamConfig) -> int:
-    """Bytes a particle of correlative_match_batch holds on the card at its
-    peak: the K1 output of a stage, its prior grid and its total, each
-    nt * nxy^2 float32 values, for the larger of the coarse stage and a
-    refinement stage (the coarse buffers are freed before the refinement
-    stages start).  Default matcher: 3 * 11 * 81 * 4 = 10 692 bytes."""
+    """Bytes a particle of correlative_match_batch is allowed on the card:
+    three times the K1 output of a stage, nt * nxy^2 float32 values, for the
+    larger of the coarse stage and a refinement stage (the coarse scores are
+    freed before the refinement stages start).  The scores are the only
+    tensor of that size the search makes on the card (F3 picks from them
+    in one pass; the prior grid and the total it once added are gone), so
+    the other two
+    are a margin, kept so that the blocks it sizes, and their bits, stay as
+    they were.  Default matcher: 3 * 11 * 81 * 4 = 10 692 bytes."""
     mc = cfg.matcher
     cells = max(mc.coarse_nt * mc.coarse_nxy ** 2,
                 mc.fine_nt * mc.fine_nxy ** 2)
@@ -254,13 +259,16 @@ def match_particles(cfg: SlamConfig, llf, poses, normals, scan: Scan, odom,
     out_poses, scores = [], []
     for s in range(0, k, chunk):
         pose = poses[s:s + chunk]
-        pose_s = sample_motion(pose, odom, cfg.motion, normals[s:s + chunk])
         if cfg.matcher.enabled:
+            pose_s, pose_det = sample_and_propagate(
+                pose, odom, cfg.motion, normals[s:s + chunk])
             best, score = correlative_match_batch(
                 llf, scan, pose_s, odom, matcher_cfg=cfg.matcher,
-                motion_cfg=cfg.motion,
-                prior_center_b=apply_odometry(pose, odom), **kw, **match_kw)
+                motion_cfg=cfg.motion, prior_center_b=pose_det, **kw,
+                **match_kw)
         else:
+            pose_s = sample_motion(pose, odom, cfg.motion,
+                                   normals[s:s + chunk])
             best, score = pose_s, score_pose(
                 llf, scan, pose_s, z_hit=cfg.matcher.z_hit, **kw)
         out_poses.append(best)

@@ -87,6 +87,19 @@ SIGNATURES = {
     "gs_device_limits": [_P, _P, _P],
     # a graph's conditional handle, pred (one bool on the card); stream
     "gs_set_conditional": [ctypes.c_uint64, _P, _P],
+    # F1: pose, normals, d_center, d_theta, out_s, out_det, n, G, base_c,
+    # rel_c, base_t, rel_t; stream
+    "gs_fusion_motion": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
+                         _P],
+    # F2: field, out, G, H, W, stride g, stride h, fill; stream
+    "gs_fusion_pool": [_P, _P, _I, _I, _I, _L, _L, _F, _P],
+    # F3: scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
+    # off_xy, off_t, out_dxs, out_dys, out_dts, best, meas_best, P, nt, ny,
+    # nx, G_o, G_b, B, stride, n_xy, n_t, weight, base_c, rel_c, base_t,
+    # rel_t; stream
+    "gs_fusion_pick": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _F, _P],
 }
 
 

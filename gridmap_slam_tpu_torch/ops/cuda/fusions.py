@@ -1,0 +1,356 @@
+"""F1-F3: three of XLA's fusions as kernels, csrc/fusions.cu.
+
+The JAX package leaves the motion model, the matcher's coarse pool and each
+matcher stage's prior, argmax and pick to XLA, which fuses each into one
+loop or reduce fusion (gridmap_slam_tpu/models/rbpf.py:180-182;
+gridmap_slam_tpu/ops/matcher.py:246-252 and :302-321).  Here they are one
+kernel each, with the bits of the port's op sequence on the card:
+
+- F1 `motion`: sample_motion and apply_odometry of ops/motion.py, either or
+  both in one launch (the RBPF and the shared-map matcher take both);
+- F2 `pool`: ops/matcher.half_resolution, the pad to even and the 2 x 2
+  mean;
+- F3 `pick`: after K1 has scored a stage, the motion prior (`_prior_grid`,
+  scaled by the used-beam fraction at the coarse stage), the first argmax
+  of scores + prior and the pick: the next stage's offsets, or the best
+  pose and its measurement score after the last stage.  The stage's prior
+  and total tensors do not exist on the card.
+
+Each dispatching function (`motion`, `pool`, `pick`) runs the kernel for a
+tensor on the card and the plain version (`*_plain`, the op sequence the
+kernel replaces, which keeps the CPU's bits) for a tensor on the CPU; the
+`*_cuda` entry points raise ValueError on other tensors.  Each kernel counts
+its launches in `motion_launches`, `pool_launches` and `pick_launches`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ...types import Odom
+from ..geometry import wrap_angle
+from . import _build, check_tensor, stream_handle
+from .matcher import per_particle
+
+motion_launches = 0   # F1 launches since the count was last set to 0
+pool_launches = 0     # F2, likewise
+pick_launches = 0     # F3, likewise
+
+
+def noise_scales(odom: Odom, cfg):
+    """(sd_center, sd_theta) per slam/Odometry.java:60-69."""
+    sd_c = (cfg.base_center + torch.abs(odom.d_center) * cfg.rel_center) / 2.0
+    sd_t = math.radians(cfg.base_theta_deg) + torch.abs(odom.d_theta) * cfg.rel_theta
+    return sd_c, sd_t
+
+
+def _motion_args(cfg):
+    return (float(cfg.base_center), float(cfg.rel_center),
+            math.radians(cfg.base_theta_deg), float(cfg.rel_theta))
+
+
+def _groups(fn: str, d, lead) -> torch.Tensor:
+    """An odometry field as (G,) rows of particles in G contiguous runs:
+    a 0-dim tensor, or one whose shape less its trailing ones leads `lead`
+    (the particles' leading shape) and so broadcasts a row to a run."""
+    shape = tuple(d.shape)
+    while shape != tuple(lead[:len(shape)]) and shape and shape[-1] == 1:
+        shape = shape[:-1]
+    if shape != tuple(lead[:len(shape)]):
+        raise ValueError(f"{fn}: odometry of shape {tuple(d.shape)} does not "
+                         f"give one row a run of particles {tuple(lead)}")
+    return d.reshape(-1).contiguous()
+
+
+# ---------------------------------------------------------------- F1: motion
+def sample_motion_plain(pose, odom: Odom, cfg, normals):
+    """slam/Odometry.java:77-96 in tensor ops (ops/motion.sample_motion)."""
+    sd_c, sd_t = noise_scales(odom, cfg)
+    d = odom.d_center + sd_c * normals[..., 0]
+    th = odom.d_theta + sd_t * normals[..., 1]
+    theta = wrap_angle(pose[..., 2] + th)
+    x = pose[..., 0] + torch.cos(theta) * d
+    y = pose[..., 1] + torch.sin(theta) * d
+    return torch.stack([x, y, theta], -1)
+
+
+def apply_odometry_plain(pose, odom: Odom):
+    """x0 (+) u in tensor ops (ops/motion.apply_odometry)."""
+    theta = wrap_angle(pose[..., 2] + odom.d_theta)
+    x = pose[..., 0] + torch.cos(theta) * odom.d_center
+    y = pose[..., 1] + torch.sin(theta) * odom.d_center
+    return torch.stack([x, y, theta], -1)
+
+
+def motion_plain(pose, d_center, d_theta, normals, *, cfg=None,
+                 deterministic: bool = False):
+    """Plain version of F1: (sample_motion, apply_odometry) of `pose`
+    (..., 3), the first where `normals` (..., 2) are given and the second
+    where `deterministic`, else None."""
+    odom = Odom(d_center, d_theta)
+    return (None if normals is None else
+            sample_motion_plain(pose, odom, cfg, normals),
+            apply_odometry_plain(pose, odom) if deterministic else None)
+
+
+def motion_cuda(pose, d_center, d_theta, normals, *, cfg=None,
+                deterministic: bool = False):
+    """The kernel: motion_plain's outputs in one launch.  pose (..., 3)
+    float32 on the card; normals (..., 2) or None; d_center, d_theta
+    0-dim or one row a run of particles (multi-robot: (R, 1) for poses
+    (R, P, 3))."""
+    global motion_launches
+    fn = "motion_cuda"
+    dev = pose.device
+    if pose.dim() == 0 or pose.shape[-1] != 3:
+        raise ValueError(f"{fn}: need poses (..., 3), got {tuple(pose.shape)}")
+    lead = tuple(pose.shape[:-1])
+    n = math.prod(lead)
+    flat = pose.reshape(n, 3).contiguous()
+    check_tensor(fn, "pose", flat, (n, 3), dev)
+    dc, dt = (_groups(fn, d, lead) for d in (d_center, d_theta))
+    g = dc.shape[0]
+    check_tensor(fn, "d_center", dc, (g,), dev)
+    check_tensor(fn, "d_theta", dt, (g,), dev)
+    if n % g:
+        raise ValueError(f"{fn}: {g} odometry rows do not divide {n} poses")
+    out_s = out_det = nrm = None
+    if normals is not None:
+        nrm = normals.reshape(n, 2).contiguous()
+        check_tensor(fn, "normals", nrm, (n, 2), dev)
+        out_s = torch.empty_like(flat)
+    if deterministic:
+        out_det = torch.empty_like(flat)
+    consts = _motion_args(cfg) if normals is not None else (0.0,) * 4
+    code = _build.library().gs_fusion_motion(
+        flat.data_ptr(), 0 if nrm is None else nrm.data_ptr(),
+        dc.data_ptr(), dt.data_ptr(),
+        0 if out_s is None else out_s.data_ptr(),
+        0 if out_det is None else out_det.data_ptr(), n, g, *consts,
+        stream_handle(dev))
+    motion_launches += 1
+    _build.check("gs_fusion_motion", code)
+    return tuple(None if o is None else o.reshape(pose.shape)
+                 for o in (out_s, out_det))
+
+
+def motion(pose, d_center, d_theta, normals, *, cfg=None,
+           deterministic: bool = False):
+    """(sample_motion(pose, odom, cfg, normals) or None,
+    apply_odometry(pose, odom) or None) for odom = (d_center, d_theta):
+    F1 on the card, its plain version on the CPU."""
+    fn = motion_cuda if pose.is_cuda else motion_plain
+    return fn(pose, d_center, d_theta, normals, cfg=cfg,
+              deterministic=deterministic)
+
+
+# ------------------------------------------------------------------ F2: pool
+def pool_plain(field, ll_outside: float):
+    """Plain version of F2: the 2x2-mean-pooled (G, H/2, W/2) fields of
+    (G, H, W) fields, odd edges padded with the out-of-map value."""
+    h, w = field.shape[-2:]
+    lle = F.pad(field, (0, w & 1, 0, h & 1), value=ll_outside)
+    return lle.reshape(lle.shape[0], lle.shape[1] // 2, 2, lle.shape[2] // 2,
+                       2).mean((2, 4))
+
+
+def pool_cuda(field, ll_outside: float):
+    """The kernel: pool_plain's result in one pass, a thread an output
+    cell.  field: (G, H, W) float32 on the card whose cells are contiguous
+    in a row (a column slice of a wider field is read in place)."""
+    global pool_launches
+    fn = "pool_cuda"
+    if field.dim() != 3:
+        raise ValueError(f"{fn}: need fields (G, H, W), got "
+                         f"{tuple(field.shape)}")
+    g, h, w = field.shape
+    dev = field.device
+    if field.stride(-1) != 1:
+        field = field.contiguous()
+    if field.device.type != "cuda" or field.dtype != torch.float32:
+        raise ValueError(f"{fn}: field must be float32 on the card, got "
+                         f"{field.dtype} on {field.device}")
+    out = torch.empty((g, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32,
+                      device=dev)
+    code = _build.library().gs_fusion_pool(
+        field.data_ptr(), out.data_ptr(), g, h, w, field.stride(0),
+        field.stride(1), float(ll_outside), stream_handle(dev))
+    pool_launches += 1
+    _build.check("gs_fusion_pool", code)
+    return out
+
+
+def pool(field, ll_outside: float):
+    """The (G, H/2, W/2) 2x2-mean-pooled fields of (G, H, W) fields: F2 on
+    the card, its plain version on the CPU."""
+    fn = pool_cuda if field.is_cuda else pool_plain
+    return fn(field, ll_outside)
+
+
+# ------------------------------------------------------------------ F3: pick
+def _scale(x, trailing: int):
+    """A 0-dim or (P,) tensor shaped to broadcast against (P, ...) tensors
+    with `trailing` dimensions after P."""
+    return x if x.dim() == 0 else x.reshape(-1, *(1,) * trailing)
+
+
+def _prior_grid(dxs, dys, dts, sd_c, sd_t, weight=1.0, bias=None):
+    """Motion log-prior over the offset grid, (..., nt, ny, nx) from
+    (..., nx), (..., ny), (..., nt) offsets; the noise scales sd_c, sd_t are
+    scalars or one a particle (P,).
+
+    `bias` (..., 3) shifts the prior's center: candidates live at
+    pose0 + offset, and the prior penalizes deviation from the deterministic
+    odometry pose x0 (+) u, so the deviation is bias + offset with
+    bias = pose0 - (x0 (+) u).  Without a bias the prior is centered at
+    pose0 itself."""
+    if bias is None:
+        bx = by = bt = 0.0
+    else:
+        bx, by, bt = bias[..., 0, None], bias[..., 1, None], bias[..., 2, None]
+    if torch.is_tensor(sd_c) and sd_c.dim() == 1:
+        sd_c, sd_t = _scale(sd_c, 3), _scale(sd_t, 1)
+    d2 = ((dys + by) ** 2)[..., :, None] + ((dxs + bx) ** 2)[..., None, :]
+    pt = -((dts + bt) ** 2) / (2.0 * sd_t * sd_t)
+    return weight * (pt[..., :, None, None]
+                     - d2[..., None, :, :] / (2.0 * sd_c * sd_c))
+
+
+def _take(values, index):
+    """values[..., index] for one index per leading position."""
+    return torch.gather(values, -1, index[..., None])[..., 0]
+
+
+def _argmax3(scores, dxs, dys, dts):
+    """First argmax of (..., nt, ny, nx) scores: the offsets there and the
+    flat index."""
+    nt, ny, nx = scores.shape[-3:]
+    flat = torch.argmax(scores.reshape(*scores.shape[:-3], nt * ny * nx), -1)
+    it = flat // (ny * nx)
+    iy = (flat % (ny * nx)) // nx
+    ix = flat % nx
+    return _take(dxs, ix), _take(dys, iy), _take(dts, it), flat
+
+
+def _used(use, stride: int = 1):
+    """The used beams of a scan mask (..., B), every stride-th, as a float
+    no less than 1: a scan's n_all (stride 1) or n_c."""
+    return torch.clamp(use[..., ::stride].to(torch.float32).sum(-1), min=1.0)
+
+
+def pick_plain(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
+               off_xy, off_t, *, motion, prior_weight: float,
+               stride: int = 1):
+    """Plain version of F3: a stage's pick from its (P, nt, ny, nx) scores
+    at the candidates pose0 + (dxs[ix], dys[iy], dts[it]).  The motion
+    prior (noise scales of the odometry rows d_center, d_theta; centered at
+    `center` (P, 3), or at pose0 where None) times prior_weight, at the
+    coarse stage (`use`, the scan's mask (G_b, B) or (B,), given) scaled by
+    n_c / n_all, the used beams every `stride`-th over all; the first
+    argmax of scores + prior.  Returns the next stage's offsets (fx + off_xy,
+    fy + off_xy, ft + off_t) where off_xy is given, else (best poses
+    (P, 3), the scores there (P,), times n_all / n_c at the coarse
+    stage)."""
+    pn = pose0.shape[0]
+    sd_c, sd_t = (per_particle(sd, pn)
+                  for sd in noise_scales(Odom(d_center, d_theta), motion))
+    bias = None
+    if center is not None:
+        bias = torch.stack([pose0[:, 0] - center[:, 0],
+                            pose0[:, 1] - center[:, 1],
+                            wrap_angle(pose0[:, 2] - center[:, 2])], 1)
+    prior = _prior_grid(dxs, dys, dts, sd_c, sd_t, prior_weight, bias)
+    if use is None:
+        total = scores + prior
+    else:
+        n_all = per_particle(_used(use), pn)
+        n_c = per_particle(_used(use, stride), pn)
+        total = scores + _scale(n_c / n_all, 3) * prior
+    fx, fy, ft, flat = _argmax3(total, dxs, dys, dts)
+    if off_xy is not None:
+        return fx[:, None] + off_xy, fy[:, None] + off_xy, ft[:, None] + off_t
+    meas = _take(scores.reshape(pn, -1), flat)
+    if use is not None:
+        meas = (n_all / n_c) * meas
+    return torch.stack([pose0[:, 0] + fx, pose0[:, 1] + fy,
+                        pose0[:, 2] + ft], 1), meas
+
+
+def pick_cuda(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
+              off_xy, off_t, *, motion, prior_weight: float,
+              stride: int = 1):
+    """The kernel: pick_plain's outputs in one pass over the scores, a warp
+    a particle.  scores (P, nt, ny, nx), dxs (P, nx), dys (P, ny), dts
+    (P, nt), pose0 and center (P, 3), float32 on the card; d_center,
+    d_theta 0-dim or (G_o,); use (G_b, B) or (B,) bool; off_xy, off_t the
+    next stage's offset vectors.  G_o and G_b divide P."""
+    global pick_launches
+    fn = "pick_cuda"
+    if scores.dim() != 4:
+        raise ValueError(f"{fn}: need scores (P, nt, ny, nx), got "
+                         f"{tuple(scores.shape)}")
+    dev = scores.device
+    p, nt, ny, nx = scores.shape
+    check_tensor(fn, "scores", scores, (p, nt, ny, nx), dev)
+    check_tensor(fn, "dxs", dxs, (p, nx), dev)
+    check_tensor(fn, "dys", dys, (p, ny), dev)
+    check_tensor(fn, "dts", dts, (p, nt), dev)
+    check_tensor(fn, "pose0", pose0, (p, 3), dev)
+    if center is not None:
+        check_tensor(fn, "center", center, (p, 3), dev)
+    dc, dt = (d.reshape(-1).contiguous() for d in (d_center, d_theta))
+    g_o = dc.shape[0]
+    check_tensor(fn, "d_center", dc, (g_o,), dev)
+    check_tensor(fn, "d_theta", dt, (g_o,), dev)
+    g_b = b = 0
+    if use is not None:
+        use = use.reshape(-1, use.shape[-1])
+        g_b, b = use.shape
+        check_tensor(fn, "use", use, (g_b, b), dev, dtype=torch.bool)
+    if g_o == 0 or p % g_o or (use is not None and (g_b == 0 or p % g_b)):
+        raise ValueError(f"{fn}: {g_o} odometry rows and {g_b} scans must "
+                         f"each divide the {p} particles")
+    if p * nt * ny * nx >= 2 ** 31 or stride < 1:
+        raise ValueError(f"{fn}: at most 2^31 candidates a call and a "
+                         f"stride of 1 or more")
+    n_xy = n_t = 0
+    if off_xy is not None:
+        n_xy, n_t = off_xy.shape[0], off_t.shape[0]
+        check_tensor(fn, "off_xy", off_xy, (n_xy,), dev)
+        check_tensor(fn, "off_t", off_t, (n_t,), dev)
+        outs = (torch.empty((p, n_xy), dtype=torch.float32, device=dev),
+                torch.empty((p, n_xy), dtype=torch.float32, device=dev),
+                torch.empty((p, n_t), dtype=torch.float32, device=dev))
+        best = meas = None
+    else:
+        outs = None
+        best = torch.empty((p, 3), dtype=torch.float32, device=dev)
+        meas = torch.empty((p,), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    nxt = outs if outs is not None else (None, None, None)
+    code = _build.library().gs_fusion_pick(
+        scores.data_ptr(), dxs.data_ptr(), dys.data_ptr(), dts.data_ptr(),
+        pose0.data_ptr(), ptr(center), dc.data_ptr(), dt.data_ptr(),
+        ptr(use), ptr(off_xy), ptr(off_t), *(ptr(t) for t in nxt),
+        ptr(best), ptr(meas), p, nt, ny, nx, g_o, max(g_b, 1), b, stride,
+        n_xy, n_t, float(prior_weight), *_motion_args(motion),
+        stream_handle(dev))
+    pick_launches += 1
+    _build.check("gs_fusion_pick", code)
+    return outs if outs is not None else (best, meas)
+
+
+def pick(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
+         off_xy, off_t, *, motion, prior_weight: float, stride: int = 1):
+    """A matcher stage's pick (see pick_plain): F3 on the card, its plain
+    version on the CPU."""
+    fn = pick_cuda if scores.is_cuda else pick_plain
+    return fn(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
+              off_xy, off_t, motion=motion, prior_weight=prior_weight,
+              stride=stride)

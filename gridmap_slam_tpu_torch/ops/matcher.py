@@ -13,6 +13,9 @@ schedule of the JAX package's `correlative_match`, on grouped fields and
 scans (one map a particle, one shared map, one a closure candidate; one
 scan, or one a robot); its stages are scored by
 `ops.cuda.matcher.stage_scores_batch` (kernel K1 on the card).
+Each stage's prior, argmax and pick (`_prior_grid`, `_argmax3`, `_take`)
+and the coarse stage's pool are `ops.cuda.fusions.pick` and `pool`
+(kernels F3 and F2 on the card, these tensor ops on the CPU).
 `correlative_match` and `score_pose` on a single pose are batches of one.  Only
 `impl` "auto" and "gather" exist here: the JAX package's "matmul", "splat"
 and "pallas" backends are TPU workarounds and raise ValueError.
@@ -24,13 +27,13 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..types import Odom, Scan
-from .cuda.matcher import (_bilinear, _nearest, per_particle,
-                           stage_scores_batch, stage_scores_batch_plain)
-from .geometry import scan_points, wrap_angle
-from .motion import noise_scales
+from .cuda import fusions
+from .cuda.fusions import _argmax3, _prior_grid
+from .cuda.matcher import (_bilinear, _nearest, stage_scores_batch,
+                           stage_scores_batch_plain)
+from .geometry import scan_points
 
 __all__ = ["effective_field", "log_likelihood_field", "score_pose",
            "correlative_match", "correlative_match_batch", "half_resolution",
@@ -69,50 +72,6 @@ def _stage_scores(llfield, px, py, use, pose0, dxs, dys, dts, *,
         nearest=nearest)[0]
 
 
-def _scale(x, trailing: int):
-    """A 0-dim or (P,) tensor shaped to broadcast against (P, ...) tensors
-    with `trailing` dimensions after P."""
-    return x if x.dim() == 0 else x.reshape(-1, *(1,) * trailing)
-
-
-def _prior_grid(dxs, dys, dts, sd_c, sd_t, weight=1.0, bias=None):
-    """Motion log-prior over the offset grid, (..., nt, ny, nx) from
-    (..., nx), (..., ny), (..., nt) offsets; the noise scales sd_c, sd_t are
-    scalars or one a particle (P,).
-
-    `bias` (..., 3) shifts the prior's center: candidates live at
-    pose0 + offset, and the prior penalizes deviation from the deterministic
-    odometry pose x0 (+) u, so the deviation is bias + offset with
-    bias = pose0 - (x0 (+) u).  Without a bias the prior is centered at
-    pose0 itself."""
-    if bias is None:
-        bx = by = bt = 0.0
-    else:
-        bx, by, bt = bias[..., 0, None], bias[..., 1, None], bias[..., 2, None]
-    if torch.is_tensor(sd_c) and sd_c.dim() == 1:
-        sd_c, sd_t = _scale(sd_c, 3), _scale(sd_t, 1)
-    d2 = ((dys + by) ** 2)[..., :, None] + ((dxs + bx) ** 2)[..., None, :]
-    pt = -((dts + bt) ** 2) / (2.0 * sd_t * sd_t)
-    return weight * (pt[..., :, None, None]
-                     - d2[..., None, :, :] / (2.0 * sd_c * sd_c))
-
-
-def _take(values, index):
-    """values[..., index] for one index per leading position."""
-    return torch.gather(values, -1, index[..., None])[..., 0]
-
-
-def _argmax3(scores, dxs, dys, dts):
-    """First argmax of (..., nt, ny, nx) scores: the offsets there and the
-    flat index."""
-    nt, ny, nx = scores.shape[-3:]
-    flat = torch.argmax(scores.reshape(*scores.shape[:-3], nt * ny * nx), -1)
-    it = flat // (ny * nx)
-    iy = (flat % (ny * nx)) // nx
-    ix = flat % nx
-    return _take(dxs, ix), _take(dys, iy), _take(dts, it), flat
-
-
 def _stage_offsets(mc, device):
     """The matcher's candidate offsets on `device`, built once per (matcher
     config, device) and cached: the coarse (dxs, dts) and, for each
@@ -149,11 +108,9 @@ _OFFSETS: dict = {}
 
 def half_resolution(llfield_b, ll_outside: float):
     """The 2x2-mean-pooled (G, H/2, W/2) fields of (G, H, W) fields, odd
-    edges padded with the out-of-map value: one pooled field a field."""
-    h, w = llfield_b.shape[-2:]
-    lle = F.pad(llfield_b, (0, w & 1, 0, h & 1), value=ll_outside)
-    return lle.reshape(lle.shape[0], lle.shape[1] // 2, 2, lle.shape[2] // 2,
-                       2).mean((2, 4))
+    edges padded with the out-of-map value: one pooled field a field (F2
+    on the card)."""
+    return fusions.pool(llfield_b, ll_outside)
 
 
 def score_pose(llfield, scan: Scan, pose, *, z_hit, resolution, origin,
@@ -234,16 +191,6 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
     kw = dict(origin=origin, max_range=max_range)
     (c_off_xy, c_off_t), refine = _stage_offsets(mc, pose0_b.device)
 
-    sd_c, sd_t = (per_particle(sd, pn)
-                  for sd in noise_scales(odom, motion_cfg))
-    if prior_center_b is None:
-        bias_b = None
-    else:
-        bias_b = torch.stack(
-            [pose0_b[:, 0] - prior_center_b[:, 0],
-             pose0_b[:, 1] - prior_center_b[:, 1],
-             wrap_angle(pose0_b[:, 2] - prior_center_b[:, 2])], 1)
-
     stride = max(int(mc.coarse_beam_stride), 1)
     px_c, py_c, use_c = (a[..., ::stride].contiguous() for a in (px, py, use))
     c_dxs = c_off_xy.expand(pn, -1).contiguous()
@@ -259,33 +206,28 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
         meas = stage(llfield_b, px_c, py_c, use_c, pose0_b, c_dxs, c_dxs,
                      c_dts, resolution=resolution,
                      nearest=bool(mc.coarse_nearest), **kw)
-    # prior in per-used-beam units must not change with the beam subset:
-    # scale the coarse prior by the coarse beam fraction.
-    n_all = per_particle(torch.clamp(use.to(torch.float32).sum(-1),
-                                      min=1.0), pn)
-    n_c = per_particle(torch.clamp(use_c.to(torch.float32).sum(-1),
-                                    min=1.0), pn)
-    total = meas + _scale(n_c / n_all, 3) * _prior_grid(
-        c_dxs, c_dxs, c_dts, sd_c, sd_t, mc.prior_weight, bias_b)
-    fx, fy, ft, flat = _argmax3(total, c_dxs, c_dxs, c_dts)
-    meas_best = (n_all / n_c) * _take(meas.reshape(pn, -1), flat)
-    # the coarse stage's buffers go before the finer stages allocate theirs
-    # (models/shared.matcher_block_size counts the larger stage only)
-    del meas, total
 
-    # Refinement stages: halve the span around the running argmax.
-    for off_xy, off_t in refine:
-        r_dxs = fx[:, None] + off_xy
-        r_dys = fy[:, None] + off_xy
-        r_dts = ft[:, None] + off_t
-        meas_r = stage(llfield_b, px, py, use, pose0_b, r_dxs, r_dys, r_dts,
-                       resolution=resolution, nearest=False, **kw)
-        total_r = meas_r + _prior_grid(r_dxs, r_dys, r_dts, sd_c, sd_t,
-                                       mc.prior_weight, bias_b)
-        fx, fy, ft, flat = _argmax3(total_r, r_dxs, r_dys, r_dts)
-        meas_best = _take(meas_r.reshape(pn, -1), flat)
-        del meas_r, total_r
+    # Each stage's pick (F3 on the card): the motion prior, centered at
+    # prior_center_b, the first argmax of scores + prior, then the next
+    # stage's offsets around it (the refinement stages halve the span), or
+    # the best poses and their scores after the last.  The coarse prior is
+    # scaled by the coarse beam fraction: a prior in per-used-beam units
+    # must not change with the beam subset.
+    def picked(scores, dxs, dys, dts, i, coarse=False):
+        nxt = refine[i] if i < len(refine) else (None, None)
+        return fusions.pick(scores, dxs, dys, dts, pose0_b, prior_center_b,
+                            odom.d_center, odom.d_theta,
+                            use if coarse else None, *nxt, motion=motion_cfg,
+                            prior_weight=mc.prior_weight, stride=stride)
 
-    best = torch.stack([pose0_b[:, 0] + fx, pose0_b[:, 1] + fy,
-                        pose0_b[:, 2] + ft], 1)
-    return best, meas_best
+    out = picked(meas, c_dxs, c_dxs, c_dts, 0, coarse=True)
+    # the coarse stage's scores go before the finer stages allocate theirs:
+    # a stage's scores are the search's one tensor of its size
+    # (models/shared.matcher_workspace_bytes counts the larger stage's)
+    del meas
+    for i in range(len(refine)):
+        meas = stage(llfield_b, px, py, use, pose0_b, *out,
+                     resolution=resolution, nearest=False, **kw)
+        out = picked(meas, *out, i + 1)
+        del meas
+    return out

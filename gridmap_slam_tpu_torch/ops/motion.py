@@ -7,23 +7,23 @@ The standard normals are drawn by the caller, so a test can feed both
 implementations the same draws.  `motion_log_prior` is the Gaussian
 log-density of a candidate's deviation from the sampled pose (the intended
 spec of the reference's `probabiliyOf`, slam/Odometry.java:99-103).
+
+On the card the sampler and the propagation are one kernel, F1
+(ops/cuda/fusions.py, csrc/fusions.cu), with the bits of their tensor ops
+there; `sample_and_propagate` gives both poses from one launch.  On the CPU
+they are those tensor ops (fusions.sample_motion_plain and
+apply_odometry_plain).
 """
 
 from __future__ import annotations
 
-import math
-
-import torch
-
 from ..types import Odom
+from .cuda import fusions
+from .cuda.fusions import noise_scales
 from .geometry import wrap_angle
 
-
-def noise_scales(odom: Odom, cfg):
-    """(sd_center, sd_theta) per slam/Odometry.java:60-69."""
-    sd_c = (cfg.base_center + torch.abs(odom.d_center) * cfg.rel_center) / 2.0
-    sd_t = math.radians(cfg.base_theta_deg) + torch.abs(odom.d_theta) * cfg.rel_theta
-    return sd_c, sd_t
+__all__ = ["noise_scales", "sample_motion", "apply_odometry",
+           "sample_and_propagate", "motion_log_prior"]
 
 
 def sample_motion(pose, odom: Odom, cfg, normals):
@@ -32,22 +32,23 @@ def sample_motion(pose, odom: Odom, cfg, normals):
     pose: (..., 3); normals: (..., 2) standard normal draws, column 0 for the
     traveled distance and column 1 for the heading.  Returns (..., 3).
     """
-    sd_c, sd_t = noise_scales(odom, cfg)
-    d = odom.d_center + sd_c * normals[..., 0]
-    th = odom.d_theta + sd_t * normals[..., 1]
-    theta = wrap_angle(pose[..., 2] + th)
-    x = pose[..., 0] + torch.cos(theta) * d
-    y = pose[..., 1] + torch.sin(theta) * d
-    return torch.stack([x, y, theta], -1)
+    return fusions.motion(pose, odom.d_center, odom.d_theta, normals,
+                          cfg=cfg)[0]
 
 
 def apply_odometry(pose, odom: Odom):
     """Deterministic odometry propagation x0 (+) u (slam/Odometry.java:77-96
     with zero noise): rotate, then translate along the new heading."""
-    theta = wrap_angle(pose[..., 2] + odom.d_theta)
-    x = pose[..., 0] + torch.cos(theta) * odom.d_center
-    y = pose[..., 1] + torch.sin(theta) * odom.d_center
-    return torch.stack([x, y, theta], -1)
+    return fusions.motion(pose, odom.d_center, odom.d_theta, None,
+                          deterministic=True)[1]
+
+
+def sample_and_propagate(pose, odom: Odom, cfg, normals):
+    """(sample_motion(pose, odom, cfg, normals), apply_odometry(pose, odom))
+    from one launch on the card: the matcher's search centers and the
+    poses its motion prior is centered at."""
+    return fusions.motion(pose, odom.d_center, odom.d_theta, normals,
+                          cfg=cfg, deterministic=True)
 
 
 def motion_log_prior(candidate, sampled, odom: Odom, cfg):

@@ -41,7 +41,7 @@ from ..models.rbpf import RBPF
 from ..ops.cuda.grid_update import integrate_scan_batch, scan_bin_tables
 from ..ops.geometry import deskew_scan
 from ..ops.matcher import correlative_match_batch
-from ..ops.motion import apply_odometry, sample_motion
+from ..ops.motion import sample_and_propagate
 from ..types import Frame
 from .mesh import axis_index, axis_size, shard_state
 from .shmap import MeshStep, finish_step, local_particles
@@ -85,8 +85,8 @@ def make_sharded_step(engine: RBPF, mesh, jit: bool = False):
         for a in range(0, p_loc, chunk):
             poses = state.poses[a:a + chunk]
             tiles = state.logodds[a:a + chunk]
-            pose_s = sample_motion(poses, odom, cfg.motion,
-                                   normals[a:a + chunk])
+            pose_s, pose_det = sample_and_propagate(
+                poses, odom, cfg.motion, normals[a:a + chunk])
             tf = tiled_ll_field(tiles, engine.taps, mesh,
                                 z_hit=cfg.matcher.z_hit,
                                 max_range=s.max_range, w_loc=w_loc, c0=c0)
@@ -94,7 +94,7 @@ def make_sharded_step(engine: RBPF, mesh, jit: bool = False):
                 tf, scan, pose_s, odom, matcher_cfg=cfg.matcher,
                 motion_cfg=cfg.motion, resolution=res, origin=origin,
                 max_range=s.max_range,
-                prior_center_b=apply_odometry(poses, odom), **match_kw)
+                prior_center_b=pose_det, **match_kw)
             if maps is None:
                 maps = (out.logodds if out is not None and n_p > 1
                         else torch.empty_like(state.logodds))

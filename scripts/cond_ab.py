@@ -16,9 +16,12 @@ then:
   state's map bytes;
 - device ms a scan: the device records of REPLAYS replays under
   torch.profiler, over their scans; host ms a scan by CUDA events around
-  the same number of replays (host loop included);
+  the same number of replays (host loop included), and the same of
+  EAGER_REPLAYS eager replays (the engine's `replay`, a Python loop of
+  steps; after one warm-up);
 - the graph of the first chunk's nodes by type (conditional nodes: the
-  resample gates' IF nodes) and the scans whose gate fired (the infos'
+  resample gates' IF nodes) and its kernel nodes a scan (a conditional
+  node's body counted), and the scans whose gate fired (the infos'
   resampled);
 - a digest of the final state, the stacked infos and the generator's next
   draw, which must be the same in every process of every tree.
@@ -54,6 +57,7 @@ MESH_PATHS = ("mesh_shmap", "mesh_shmap_surface", "mesh_tiled",
               "mesh_surface_sharded", "mesh_sharded")
 ORDER = "BAAB"
 REPLAYS = 5
+EAGER_REPLAYS = 2
 REBUILDS = 20
 SEED = 0
 
@@ -69,8 +73,9 @@ def digest(*trees) -> str:
 
 
 def setup(name):
-    """(engine, init, captured replay, stacked frames, scans) of a path,
-    from the tree's own chip_smoke.py helpers."""
+    """(engine, init, captured replay, stacked frames, scans, eager replay)
+    of a path, from the tree's own chip_smoke.py helpers; the eager replay
+    takes (state, frames, generator)."""
     import chip_smoke as cs
     from gridmap_slam_tpu_torch import RBPF, SharedMapSLAM, mega_config
     from gridmap_slam_tpu_torch.io import frames_to_device
@@ -90,24 +95,26 @@ def setup(name):
     if name == "multi":
         eng, ticks, starts, _ = cs.multi_setup(cs.MULTI_PARTICLES[-1])
         return (eng, lambda: eng.init(starts), eng.replay_jit(),
-                stack_frames(ticks), len(ticks))
+                stack_frames(ticks), len(ticks), eng.replay)
     if name in ("parity", "pr1", "chip"):
         cfg = {"parity": cs.parity_config(), "pr1": cs.pr1_config(),
                "chip": cs.parity_config().replace(
                    num_particles=cs.CHIP_PARTICLES,
                    particle_chunk=cs.CHIP_CHUNK)}[name]
         eng = RBPF(cfg, device="cuda")
-        return eng, eng.init, eng.replay_jit(), stacked(cfg), cs.N_SCANS
+        return (eng, eng.init, eng.replay_jit(), stacked(cfg), cs.N_SCANS,
+                eng.replay)
     if name == "mega":
         eng = SharedMapSLAM(mega_config(), device="cuda")
         return (eng, eng.init, eng.replay_surface_jit(),
-                stacked(eng.config), cs.N_SCANS)
+                stacked(eng.config), cs.N_SCANS, eng.replay_surface)
     cfg = cs.parity_config().replace(num_particles=cs.MEGA_PARTICLES,
                                      particle_chunk=0)
     eng = SharedMapSLAM(cfg, device="cuda")
     n = cs.CAPTURED_BLOCKED_SCANS
-    return (eng, eng.init, eng.replay_jit(block=matcher_block_size(cfg)),
-            stacked(cfg, n), n)
+    block = matcher_block_size(cfg)
+    return (eng, eng.init, eng.replay_jit(block=block), stacked(cfg, n), n,
+            lambda s, f, g: eng.replay(s, f, g, block=block))
 
 
 def mesh_setup(kind, frames, stacked):
@@ -150,7 +157,7 @@ def mesh_setup(kind, frames, stacked):
         eng = RBPF(cs.parity_config(), device="cuda")
         step, init = make_sharded_step(eng, mesh, jit=True), init_sharded
     return (eng, lambda: init(eng, mesh), step.replay_jit(),
-            stacked(eng.config, n), min(n, len(frames)))
+            stacked(eng.config, n), min(n, len(frames)), step.replay)
 
 
 def rebuild_child() -> dict:
@@ -209,7 +216,7 @@ def child(name: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from gridmap_slam_tpu_torch.models import captured
 
-    eng, init, replay, frames, n = setup(name)
+    eng, init, replay, frames, n, eager = setup(name)
 
     def gen():
         return torch.Generator(device="cuda").manual_seed(SEED)
@@ -226,6 +233,8 @@ def child(name: str) -> dict:
     peak = torch.cuda.max_memory_allocated() - before
     cap = replay.captured
     nodes = captured.graph_node_types(cap.graph.raw_cuda_graph())
+    kernel_nodes = len(captured.graph_kernel_names(
+        cap.graph.raw_cuda_graph()))
     s0, g = init(), gen()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -240,13 +249,26 @@ def child(name: str) -> dict:
         replay(s0, frames, g)
     end.record()
     torch.cuda.synchronize()
+    host_ms = start.elapsed_time(end) / (REPLAYS * n)
+    s0, g = init(), gen()
+    eager(s0, frames, g)                        # warm-up
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(EAGER_REPLAYS):
+        s0, g = init(), gen()
+        eager(s0, frames, g)
+    end.record()
+    torch.cuda.synchronize()
+    eager_ms = start.elapsed_time(end) / (EAGER_REPLAYS * n)
     map_bytes = st.logodds.numel() * st.logodds.element_size()
     return dict(path=name, scans=n, particles=eng.config.num_particles,
                 device_ms_a_scan=dev_us / 1e3 / (REPLAYS * n),
-                host_ms_a_scan=start.elapsed_time(end) / (REPLAYS * n),
+                host_ms_a_scan=host_ms, scans_per_sec=1e3 / host_ms,
+                eager_ms_a_scan=eager_ms, eager_scans_per_sec=1e3 / eager_ms,
                 peak_bytes=peak, map_bytes=map_bytes,
                 peak_over_map_bytes=peak / map_bytes,
                 graph_scans=cap.scans, nodes_by_type=nodes,
+                kernel_nodes_a_scan=kernel_nodes / cap.scans,
                 fired=int(infos.resampled.sum()),
                 gated=int(infos.resampled.numel()),
                 digest=digest(st, infos, nxt))
@@ -292,7 +314,8 @@ def main():
                 row = dict(json.loads(line), side=side, turn=turn)
                 print(json.dumps(row), flush=True)
                 rows[side].setdefault(row["path"], []).append(row)
-    keys = ("device_ms_a_scan", "host_ms_a_scan", "peak_bytes",
+    keys = ("device_ms_a_scan", "host_ms_a_scan", "scans_per_sec",
+            "eager_scans_per_sec", "kernel_nodes_a_scan", "peak_bytes",
             "peak_over_map_bytes", "ms_a_rebuild", "device_ms_a_rebuild",
             "host_launches_a_rebuild", "graph_launches_a_rebuild")
     summary = {name: {side: {k: [r[k] for r in rows[side][name]]
