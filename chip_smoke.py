@@ -39,10 +39,11 @@ Phases, each printed on its own line:
 7. surface ops — at the mega shapes (25 theta bins, a 405 x 405 endpoint
    kernel, a 120 x 120 field): the FFT correlation on the card against the
    same call on the CPU; the direct (conv2d) correlation with PyTorch's
-   default TF32 flag on, against the CPU and the FFT; the 8-tap and the
-   packed trilinear sample at 1M poses; times of the volume build, both
-   sample paths and the FFT at the exact, 5-smooth and power-of-two
-   lengths of the mega and city volumes;
+   default TF32 flag on, against the CPU and the FFT; the trilinear sample
+   at 1M poses by F4 against the 8-tap form (its tolerance) and the packed
+   form (every bit); times of the volume build, the three sample forms,
+   the pack and the FFT at the exact, 5-smooth and power-of-two lengths of
+   the mega and city volumes;
 8. surface agree — one surface-mode step on the card against the same step
    on the CPU, from the same state and draws, at 4096 particles;
 8a. k4 — K4, the bf16 surface correlation on the tensor cores (a
@@ -213,19 +214,32 @@ Phases, each printed on its own line:
    parity --set matcher.coarse_halfres=false` (3 replays) must print a
    correct line.  The kernels' bounds everywhere in this script are the
    benchmark's (gridmap_slam_tpu_torch/bench/kernels/);
-21. fusions — F1-F3 (csrc/fusions.cu: the motion model, the coarse
-   pool, each matcher stage's prior, argmax and pick, XLA's fusions of the
-   JAX step), which every path launches where it runs that glue: every
-   recorded call of them (CallRecorder records them on every path it
-   records; check_fusion) is held against its plain version, the op
-   sequence it replaced, on the card, and one differing bit fails the run;
-   here the parity log once more with their calls recorded, which of three
-   sum orders of a 2 x 2 block gives PyTorch's mean over the pooled axes
-   on this card (F2 must give it), and a line of every path's checks;
-   it fails where the parity, chip, pr1, mega_blocked, multi (10 000),
-   posegraph (filter and closures) or tiled path has no checked F3 call.
-   The captured phase prints each graph's kernel nodes a scan and fails
-   where parity's exceed 220 or chip's 700.
+21. fusions — F1-F6 (csrc/fusions.cu: the motion model, the coarse
+   pool, each matcher stage's prior, argmax and pick, the surface's
+   trilinear sample and hill-climb (F4, reading the volume in place), the
+   endpoint splat's tap weights (F5) and the scan's deskew and bin tables
+   (F6), XLA's fusions of the JAX step), which every path launches where
+   it runs that glue: every recorded call of them (CallRecorder records
+   them on every path it records; check_fusion; the mega path's first
+   run and a mega refine step are recorded for them too) is held against
+   its plain version, the op sequence it replaced, on the card, and one
+   differing bit fails the run; here the parity log once more with their
+   calls recorded, which of three sum orders of a 2 x 2 block gives
+   PyTorch's mean over the pooled axes on this card (F2 must give it),
+   which of six orders of the packed sample's eight products gives its
+   torch.sum (sample_order: F4 must give today's sample), F6 on planted
+   scans (equal bearings, +-0.0, +-pi, padding, an all-invalid scan; 96
+   slots, where the card's stable argsort is a merge sort, and 192 and 360,
+   a radix sort: both keep -0.0 and +0.0 in index order), and a line of
+   every path's checks; it fails where a path
+   has no checked F6 call, a matcher path (parity, chip, pr1, mega_blocked,
+   multi (10 000), posegraph's filter and closures, tiled) no checked F3
+   call, or a surface path (mega, the city step, the mega_bf16 and
+   city_bf16 steps, mega refine, shmap_surface, surface_sharded) no checked
+   F4 and F5 call (mega refine also its hill-climb).  The captured phase
+   prints each graph's kernel nodes a scan and fails where parity's exceed
+   220 or chip's 700, or where a path built a packed neighbourhood array
+   on the card (ops/surface.packs_on_card).
 
 Each path (parity, mega, city, mega_blocked, multi at each particle count,
 the posegraph flow's three parts: the filter, closure detection, the
@@ -248,8 +262,9 @@ fails the run.  Then
 one JSON line of kernels, with their launches per path, their launches a
 scan inside each captured path's graph, bounds and, in `stages`, K1's
 stages at the parity shapes (the nearest-cell coarse stage among them)
-and at pr1's, K2's and K3's at pr1's, F1-F3's rows (max error 0: their
-bits; ms, plain ms and bound on the parity path's calls, F3's stages),
+and at pr1's, K2's and K3's at pr1's, F1-F6's rows (max error 0: their
+bits; ms, plain ms and bound on the parity path's calls, F4's and F5's on
+the mega path's, F3's, F4's and F6's stages),
 and last
 {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no "ok" line.
@@ -305,6 +320,12 @@ SEED = 0
 FFT_ATOL, FFT_MEAN = 5e-2, 5e-3    # tests/test_surface.py:223-224
 DIRECT_RTOL, DIRECT_ATOL = 1e-5, 1e-3
 TAPS_RTOL, TAPS_ATOL = 1e-6, 1e-5  # tests/test_surface.py:248-249
+# grid_sample's trilinear sample (F4's library call) against F4: its own
+# float order and its coordinates through [-1, 1] move a sample by a few
+# ulps of a cell coordinate times the volume's slope (at most twice its
+# largest magnitude a cell), so at most this share of the volume's largest
+# magnitude; half a cell off would move it by a tenth or more
+F4_LIBRARY_RTOL = 1e-4
 SPLAT_RTOL = 1e-5                  # of the largest endpoint-image cell
 K3_RADII_SIGMAS = (1.0, 4.0, 10.0, 20.0, 60.0)
 AGREE_PARTICLES = 4096
@@ -330,15 +351,17 @@ CONFIG5_JAX_OPT_ATE_M = (0.037901868964208295, 0.017296637668428316)
 CONFIG5_CLOSURES = 32
 # the kernels in the frontend's graphs: a detection's verify (K1 5 stages
 # and K2, K3 once, each way) and one keyframe of the rebuild
-# (and F3 a K1 stage, F2 the coarse stage's pool)
+# (and F3 a K1 stage, F2 the coarse stage's pool, F6 a map's bin tables)
 FRONTEND_NODES = {"verify": {"stage_scores": 10, "integrate_scan": 2,
                              "log_likelihood_field": 2, "surface_corr": 0,
                              "stage_scores_tile": 0, "motion": 0, "pool": 2,
-                             "pick": 10},
+                             "pick": 10, "sample": 0, "splat": 0,
+                             "scan": 2},
                   "rebuild": {"stage_scores": 0, "integrate_scan": 1,
                               "log_likelihood_field": 0, "surface_corr": 0,
                               "stage_scores_tile": 0, "motion": 0,
-                              "pool": 0, "pick": 0}}
+                              "pool": 0, "pick": 0, "sample": 0, "splat": 0,
+                              "scan": 1}}
 CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
 PR1_SCANS = 3          # the pr1 phase's scans under CallRecorder
 # the bench phase's one measurement with bench.py's flags: the pr1 preset
@@ -377,10 +400,17 @@ BA_CHI2_RTOL, BA_NODES_ATOL = 1e-3, 1e-3   # tests/test_ba.py:43-45
 # phase requires their recorded calls held bit for bit against their
 # plain versions (multi at 10 000 a robot; the posegraph flow's filter and
 # closures)
-FUSION_ROWS = ("motion", "pool", "pick")
+FUSION_ROWS = ("motion", "pool", "pick", "sample", "splat", "scan")
+# the surface paths, each of which must hold a checked F4 (and F5) call
+# (the mega refine path its hill-climb's too)
+SURFACE_PATHS = ("mega", "city step", "mega_bf16 step", "city_bf16 step",
+                 "mega refine", "shmap_surface", "surface_sharded")
+# every path must hold a checked F6 call, the matcher paths an F3 call
 FUSION_PATHS = ("parity", "chip", "pr1", "mega_blocked", "multi 10000",
-                "posegraph_rbpf", "posegraph_closures", "tiled")
-FUSION_CHECKS = []         # every recorded F1-F3 call's check, in order
+                "posegraph_rbpf", "posegraph_closures", "tiled",
+                *SURFACE_PATHS)
+FUSION_CHECKS = []         # every recorded F1-F6 call's check, in order
+FUSION_ARGS = {}           # the first recorded call's (args, kw) a kernel
 # the kernel rows held in the conditional bodies of the frontend's graphs
 # captured so far in this process (the rebuild's K2): CUPTI was seen to
 # name records of another graph's bodies after them (the captured phase)
@@ -388,9 +418,22 @@ FOREIGN_BODY_ROWS = set()
 # F3's operations a candidate: three bias sums, three squares, their sum,
 # two divisions, a difference, two products and the add to its score
 F3_FLOPS = 13
+# F4's operations a sample: 15 for the three coordinates, 6 floors and
+# fractions, 3 complements, 16 for the eight weights, 8 products and 7 sums
+F4_FLOPS = 55
+# F5's operations a (bin, beam) row (a sine and a cosine one each, the
+# rotation, scale, floor, clamp and fractions) and a tap (two where-sums'
+# add and the weight's product... counted 3)
+F5_ROW_FLOPS, F5_TAP_FLOPS = 22, 3
+# F6's operations a beam's deskew (a division, the time factor's products,
+# sine, cosine, atan2, the radius and its square root) and wrap (3), and a
+# bin's (its center, two differences, two wraps, two magnitudes, the
+# compare); the sort's and the search's comparisons are added at log2 B
+F6_DESKEW_FLOPS, F6_WRAP_FLOPS, F6_BIN_FLOPS = 16, 3, 14
 # kernel launches of a CLI replay outside its step, once a run: the final
-# map's overlay pose (app/cli._overlay: apply_odometry, F1)
-CLI_RUN_LAUNCHES = {"motion": 1}
+# map's overlay pose and scan (app/cli._overlay: apply_odometry, F1; the
+# deskew, F6)
+CLI_RUN_LAUNCHES = {"motion": 1, "scan": 1}
 # kernel nodes a scan (a conditional node's body counted) that a captured
 # path's first graph may hold at most
 NODES_A_SCAN_MAX = {"parity": 220, "chip": 700}
@@ -1085,7 +1128,8 @@ def main_phase(cfg, frames, gt):
         warm_seconds=sec, scans_per_sec=len(seq) / sec)
     if not finite:
         raise AssertionError("non-finite poses or maps")
-    if not all(launches[k] > 0 for k in (*BASE_ROWS, *FUSION_ROWS)):
+    if not all(launches[k] > 0 for k in (*BASE_ROWS, "motion", "pool",
+                                         "pick", "scan")):
         raise AssertionError(f"a kernel was not launched: {launches}")
     if not ate < ATE_MAX_M:
         raise AssertionError(f"parity ATE {ate} >= {ATE_MAX_M}")
@@ -1111,9 +1155,9 @@ class _TileCount:
 
 
 class _FusionCount:
-    """One of F1-F3's launch counts (ops/cuda/fusions.motion_launches,
-    pool_launches, pick_launches) read and set as a module's
-    `launches`."""
+    """One of F1-F6's launch counts (ops/cuda/fusions.motion_launches,
+    pool_launches, pick_launches, sample_launches, splat_launches,
+    scan_launches) read and set as a module's `launches`."""
 
     def __init__(self, attr: str):
         self.attr = attr
@@ -1225,7 +1269,7 @@ def surface_ops_phase(eng, batches, state):
     from gridmap_slam_tpu_torch.io import frame_at
     from gridmap_slam_tpu_torch.models.shared import surface_volume
     from gridmap_slam_tpu_torch.ops import surface as sf
-    from gridmap_slam_tpu_torch.ops.cuda import likelihood
+    from gridmap_slam_tpu_torch.ops.cuda import fusions, likelihood
     from gridmap_slam_tpu_torch.ops.geometry import deskew_scan, scan_points
     from gridmap_slam_tpu_torch.ops.motion import apply_odometry
     from gridmap_slam_tpu_torch.ops.resample import weighted_mean_pose
@@ -1283,18 +1327,21 @@ def surface_ops_phase(eng, batches, state):
     df_err, df_mean, _ = _close(direct_gpu, fft_s, 0.0, FFT_ATOL)
     tf32_err = float((tf32_gpu.cpu() - direct_cpu).abs().max())
 
-    # the two trilinear sample paths at 1M poses around the cloud, some
-    # past the volume's span
+    # the trilinear sample at 1M poses around the cloud, some past the
+    # volume's span: the 8-tap form, the packed form (F4's plain version:
+    # the pack and its gather) and F4 (the volume read in place)
     rng = np.random.default_rng(SEED + 2)
     n = 1_000_000
     noise = rng.uniform(-1, 1, (n, 3)) * np.array([1.0, 1.0, 0.6])
     poses = center + torch.as_tensor(noise.astype(np.float32), device="cuda")
-    taps_kw = {k: v for k, v in kw.items() if k != "packed"}
-    s_taps = sf.sample_surface(c_vol, poses, **taps_kw)
-    s_pack = sf.sample_surface(c_vol, poses, **kw)
-    t_err, _, t_ok = _close(s_pack, s_taps, TAPS_RTOL, TAPS_ATOL)
-    taps_ms = cuda_ms(lambda: sf.sample_surface(c_vol, poses, **taps_kw), 10)
-    pack_ms = cuda_ms(lambda: sf.sample_surface(c_vol, poses, **kw), 10)
+    s_taps = sf.sample_surface(c_vol, poses, **kw)
+    s_f4 = fusions.score_cuda(c_vol, poses, **kw)[1]
+    t_err, _, t_ok = _close(s_f4, s_taps, TAPS_RTOL, TAPS_ATOL)
+    f4_bits = _bits_differing(s_f4, fusions.score_plain(c_vol, poses,
+                                                        **kw)[1])
+    taps_ms = cuda_ms(lambda: sf.sample_surface(c_vol, poses, **kw), 10)
+    pack_ms = cuda_ms(lambda: fusions.score_plain(c_vol, poses, **kw), 10)
+    f4_ms = cuda_ms(lambda: fusions.score_cuda(c_vol, poses, **kw), 10)
     pack_build_ms = cuda_ms(lambda: sf.pack_neighborhoods(
         c_vol, kw["wrap_theta"]), 10)
 
@@ -1323,9 +1370,11 @@ def surface_ops_phase(eng, batches, state):
         direct_tf32_on_vs_cpu_max_abs=d_err,
         direct_vs_fft_max_abs=df_err, direct_vs_fft_mean_abs=df_mean,
         raw_conv2d_tf32_vs_cpu_max_abs=tf32_err,
-        sample_poses=n, packed_vs_taps_max_abs=t_err,
+        sample_poses=n, f4_vs_taps_max_abs=t_err,
+        f4_vs_packed_bits_differing=f4_bits,
         volume_build_ms=volume_ms, sample_taps_ms=taps_ms,
-        sample_packed_ms=pack_ms, pack_build_ms=pack_build_ms,
+        sample_packed_ms=pack_ms, sample_f4_ms=f4_ms,
+        pack_build_ms=pack_build_ms,
         fft_ms_by_length=fft_ms)
     if not (fft_err <= FFT_ATOL and fft_mean < FFT_MEAN):
         raise AssertionError(f"FFT volume card vs CPU: max {fft_err}, "
@@ -1341,8 +1390,9 @@ def surface_ops_phase(eng, batches, state):
     if not (df_err <= FFT_ATOL and df_mean < FFT_MEAN):
         raise AssertionError(f"direct vs FFT on the card: max {df_err}, "
                              f"mean {df_mean}")
-    if not t_ok:
-        raise AssertionError(f"packed vs 8-tap sample: max {t_err}")
+    if not t_ok or f4_bits:
+        raise AssertionError(f"F4 vs the 8-tap sample: max {t_err}; vs the "
+                             f"packed sample: {f4_bits} bits differ")
 
 
 def surface_agree_phase(eng, batches, state):
@@ -1642,11 +1692,13 @@ def k4_phase(frames):
                 library_ms=mega_t["library_ms"])
 
 
-def surface_path(preset, cfg, frames, gt, ate_max):
+def surface_path(preset, cfg, frames, gt, ate_max, record=False):
     """Drive SharedMapSLAM(cfg, device="cuda").run_log over `frames` with
     every launch count set to 0 just before, then again with the same seed;
     returns (the counts, the engine, the first run's state, the frames, its
-    trajectory of weighted poses)."""
+    trajectory of weighted poses).  record=True: the first run's kernel
+    calls are recorded (CallRecorder, the path `preset`) and held against
+    their plain versions (check_recorded; F1-F6 bit for bit)."""
     from gridmap_slam_tpu_torch import SharedMapSLAM
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
     from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
@@ -1660,11 +1712,16 @@ def surface_path(preset, cfg, frames, gt, ate_max):
     torch.cuda.reset_peak_memory_stats()
     for mod in kernels.values():
         mod.launches = 0
-    state, infos = eng.run_log(
-        eng.init(), seq, torch.Generator(device="cuda").manual_seed(SEED))
-    torch.cuda.synchronize()
+    with (CallRecorder(preset) if record
+          else contextlib.nullcontext()) as rec:
+        state, infos = eng.run_log(
+            eng.init(), seq,
+            torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
     launches = {k: mod.launches for k, mod in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
+    if record:
+        check_recorded(rec, {preset: launches})
 
     traj = torch.stack([i.weighted_pose for i in infos]).cpu().numpy()
     finite = bool(torch.isfinite(state.poses).all()
@@ -1701,10 +1758,11 @@ def surface_path(preset, cfg, frames, gt, ate_max):
     if not rerun_identical:
         raise AssertionError(f"{preset}: a second run with seed {SEED} "
                              f"gave other poses or another map")
-    if not (launches["log_likelihood_field"] > 0
-            and launches["integrate_scan"] > 0):
-        raise AssertionError(f"{preset}: K3 or K2 was not launched: "
-                             f"{launches}")
+    if not all(launches[k] > 0 for k in (
+            "log_likelihood_field", "integrate_scan", "motion", "sample",
+            "splat", "scan")):
+        raise AssertionError(f"{preset}: K3, K2, F1, F4, F5 or F6 was not "
+                             f"launched: {launches}")
     if not ate < ate_max:
         raise AssertionError(f"{preset} ATE {ate} >= {ate_max}")
     if not (occ > 50 and free > 1000):
@@ -1720,7 +1778,8 @@ def mega_phase(frames, gt):
     from gridmap_slam_tpu_torch import mega_config
     from gridmap_slam_tpu_torch.io import read_recording
 
-    launches = surface_path("mega", mega_config(), frames, gt, ATE_MAX_M)[0]
+    launches = surface_path("mega", mega_config(), frames, gt, ATE_MAX_M,
+                            record=True)[0]
     _, _, state, _, traj = surface_path(
         "mega room_loop_40", mega_config(), read_recording(CLI_LOG),
         np.load(CLI_LOG.replace(".rec", "_gt.npy")), ROOM_LOOP_ATE_MAX_M)
@@ -1730,7 +1789,8 @@ def mega_phase(frames, gt):
 KERNEL_ROWS = {"K1": "stage_scores", "K2": "integrate_scan",
                "K3": "log_likelihood_field", "K1t": "stage_scores_tile",
                "K2w": "integrate_scan", "K4": "surface_corr",
-               "F1": "motion", "F2": "pool", "F3": "pick"}
+               "F1": "motion", "F2": "pool", "F3": "pick", "F4": "sample",
+               "F5": "splat", "F6": "scan"}
 # the rows of the untiled paths (K1's tile variant runs on tiled maps only)
 BASE_ROWS = ("stage_scores", "integrate_scan", "log_likelihood_field")
 _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
@@ -1740,7 +1800,9 @@ _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
           "K3": ("likelihood", "log_likelihood_field_batch_cuda"),
           "K4": ("surface_corr", "surface_corr_bf16_cuda"),
           "F1": ("fusions", "motion_cuda"), "F2": ("fusions", "pool_cuda"),
-          "F3": ("fusions", "pick_cuda")}
+          "F3": ("fusions", "pick_cuda"), "F4": ("fusions", "score_cuda"),
+          "F5": ("fusions", "splat_cuda"),
+          "F6": ("fusions", "scan_cuda")}
 PATH_MAX_ERR = {row: 0.0 for row in KERNEL_ROWS.values()}
 BOUNDS = {"K1": k1_bound, "K2": k2_bound, "K3": k3_bound, "K1t": k1t_bound,
           "K2w": k2w_bound, "K4": k4_bound}
@@ -1782,7 +1844,7 @@ class CallRecorder:
     `calls_a_shape` calls of every call shape under the current `path`
     label are kept, their tensors cloned, and the kernel then runs and
     counts its launch as before.  `kernels`: the _ENTRY keys to record
-    (all of them, F1-F3 among them, by default)."""
+    (all of them, F1-F6 among them, by default)."""
 
     def __init__(self, path: str, calls_a_shape: int = 1, kernels=_ENTRY):
         self.path = path
@@ -1828,7 +1890,7 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
     """Each recorded call again, on the kernel and on its plain version, on
     the very arguments the path passed: whole up to FULL_PARTICLES, else
     the real call's first and last SLICE_PARTICLES' rows against the plain
-    version on those particles; F1-F3's calls whole, bit for bit
+    version on those particles; F1-F6's calls whole, bit for bit
     (check_fusion, kept in FUSION_CHECKS).  Raises beyond the kernel's
     tolerance, or where a kernel launched on a path (`launches_by_path`)
     has no recorded call there.  Returns the checks of the other kernels,
@@ -1923,12 +1985,12 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
     return checks
 
 
-FUSIONS = ("F1", "F2", "F3")
+FUSIONS = ("F1", "F2", "F3", "F4", "F5", "F6")
 
 
 def _outputs(out) -> list:
-    """A kernel's outputs as a list of tensors (F1's and F3's tuples, the
-    Nones of F1's outputs not asked for left out)."""
+    """A kernel's outputs as a list of tensors (F1's, F3-F6's tuples, the
+    Nones of the outputs not asked for left out)."""
     if torch.is_tensor(out):
         return [out]
     return [t for t in out if t is not None]
@@ -1943,12 +2005,32 @@ def _bits_differing(a, b) -> int:
 
 
 def fusion_bound(kernel, args, kw):
-    """(bound ms, "operations" or "bytes") of one F1-F3 call: each input
+    """(bound ms, "operations" or "bytes") of one F1-F6 call: each input
     read once and each output written once over the HBM rate, beside its
     float operations (F1 ~20 a sampled pose and 10 a propagated one, the
     sines, cosines and atan2 counted one each; F2 4 an output cell; F3
-    F3_FLOPS a candidate) over the FP32 peak, as bench/bounds.bound."""
+    F3_FLOPS a candidate; F4 F4_FLOPS a sample, one a pose and six a pose a
+    climb step; F5 and F6 their constants above) over the FP32 peak, as
+    bench/bounds.bound."""
     from gridmap_slam_tpu_torch.bench.bounds import bound, nbytes
+    if kernel == "F4":
+        n, steps = args[1].numel() // 3, kw.get("steps", 0)
+        return bound(F4_FLOPS * n * (1 + 6 * steps),
+                     nbytes(args) + n * (16 if steps else 4))
+    if kernel == "F5":
+        rows, k = args[3].numel() * args[0].numel(), 2 * args[4] + 1
+        return bound(rows * (F5_ROW_FLOPS + F5_TAP_FLOPS * k),
+                     nbytes(args) + 2 * rows * k * 4)
+    if kernel == "F6":
+        angle, deskewed = args[0], args[4] is not None
+        b = angle.shape[-1]
+        g, n_bins = angle.numel() // b, kw.get("n_bins", 0)
+        log_b = math.ceil(math.log2(max(b, 2)))
+        beams = g * b * (F6_DESKEW_FLOPS * deskewed
+                         + (F6_WRAP_FLOPS + log_b) * (n_bins > 0))
+        bins = g * n_bins * (F6_BIN_FLOPS + log_b)
+        out = 8 * g * b * deskewed + 12 * g * n_bins
+        return bound(beams + bins, nbytes(args) + out)
     if kernel == "F1":
         pose, normals = args[0], args[3]
         n = pose.numel() // 3
@@ -1968,11 +2050,12 @@ def fusion_bound(kernel, args, kw):
 
 
 def check_fusion(path, kernel, args, kw) -> dict:
-    """One recorded call of F1-F3 again, on the kernel and on its plain
+    """One recorded call of F1-F6 again, on the kernel and on its plain
     version (the op sequence it replaced) on the card, on the very
     arguments the path passed: every output equal bit for bit, or the run
     fails.  Times both (CUDA events) beside the bound.  Appends the row to
-    FUSION_CHECKS and returns it."""
+    FUSION_CHECKS (and the first call of each kernel to FUSION_ARGS) and
+    returns it."""
     mod, attr = _entry(kernel)
     cuda_fn = getattr(mod, attr)
     plain_fn = getattr(mod, attr.replace("_cuda", "_plain"))
@@ -1997,7 +2080,16 @@ def check_fusion(path, kernel, args, kw) -> dict:
     elif kernel == "F3":
         row.update(stage="coarse" if args[8] is not None else "refine",
                    last=args[9] is None, stride=kw.get("stride", 1))
+    elif kernel == "F4":
+        row.update(steps=kw.get("steps", 0), wrap_theta=kw["wrap_theta"])
+        if path == "mega" and not any(r["kernel"] == "F4"
+                                      and r["path"] == "mega"
+                                      for r in FUSION_CHECKS):
+            row.update(f4_library(*args, kw))
+    elif kernel == "F6":
+        row.update(deskew=args[4] is not None, n_bins=kw.get("n_bins", 0))
     FUSION_CHECKS.append(row)
+    FUSION_ARGS.setdefault(kernel, (args, kw))
     PATH_MAX_ERR[KERNEL_ROWS[kernel]] = max(
         PATH_MAX_ERR[KERNEL_ROWS[kernel]], err)
     if differing != 0:
@@ -2225,8 +2317,15 @@ def sync_phase(cfg, frames, dev="cuda", shared_particles=AGREE_PARTICLES):
     rb = frames_to_device(frames, refine.config.max_beams,
                           refine.config.sensor.max_range, device=dev)
     st_m = refine.init()
-    for i in range(2):
-        st_m, _ = refine.step_surface(st_m, frame_at(rb, i), gen)
+    st_m, _ = refine.step_surface(st_m, frame_at(rb, 0), gen)
+    # the second step's F1-F6 calls (F4's hill-climb among them) recorded
+    # and held bit for bit against their plain versions
+    with CallRecorder("mega refine", kernels=FUSIONS) as rec:
+        st_m, _ = refine.step_surface(st_m, frame_at(rb, 1), gen)
+        torch.cuda.synchronize()
+    for call in rec.calls:
+        check_fusion(*call)
+    del rec
     f2 = frame_at(rb, 2)
     st_m, info_m = _sync_free(lambda: refine.step_surface(st_m, f2, gen))
     del refine, rb, st_m
@@ -3090,7 +3189,10 @@ KERNEL_SYMBOLS = {"stage_scores": "stage_scores_kernel",
                   "surface_corr": "surface_corr_",
                   "motion": "fusion_motion_kernel",
                   "pool": "fusion_pool_kernel",
-                  "pick": "fusion_pick_kernel"}
+                  "pick": "fusion_pick_kernel",
+                  "sample": "fusion_sample_kernel",
+                  "splat": "fusion_splat_kernel",
+                  "scan": "fusion_scan_kernel"}
 # the rows _node_counts gives
 GRAPH_ROWS = (*KERNEL_SYMBOLS, "stage_scores_tile")
 # the runtime calls that put work on the card from the host
@@ -3217,6 +3319,8 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     def next_draw(g):
         return torch.randn(8, generator=g, device="cuda")
 
+    from gridmap_slam_tpu_torch.ops import surface as sf
+    sf.packs_on_card = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = _zero_launches()
@@ -3313,6 +3417,7 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                      "infos": _fields_differing(inf_e, stack_steps(infos)),
                      "next_draw": not torch.equal(next_e, next_draw(g))}
         del sj, st, infos
+    packs = sf.packs_on_card
     traj = inf_c.weighted_pose.cpu().numpy()
     ates = ([ate_rmse(traj, gt[:n])] if traj.ndim == 2 else
             [ate_rmse(traj[:, r], g) for r, g in enumerate(gt)])
@@ -3330,7 +3435,7 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                bits_differing=bits, rerun_differing=rerun,
                step_jit_differing=step_bits, ate_m=ates, ate_max_m=ate_max,
                captures=cap.captures, capacity=cap.capacity,
-               warmup_steps=WARMUP_STEPS,
+               warmup_steps=WARMUP_STEPS, packed_arrays_built=packs,
                graph_launches_a_replay=prof_c["graph_launches"],
                graph_launches_wanted=-(-n // CHUNK_SCANS),
                chunk_scans=CHUNK_SCANS,
@@ -3399,6 +3504,10 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                              f"{misnamable})")
     if not max(ates) < ate_max:
         raise AssertionError(f"captured {name}: ATE {ates} >= {ate_max}")
+    if packs:
+        raise AssertionError(f"captured {name}: the step built {packs} "
+                             f"packed neighbourhood arrays on the card (F4 "
+                             f"reads the volume in place)")
     if not len(names) / m <= NODES_A_SCAN_MAX.get(name, math.inf):
         raise AssertionError(f"captured {name}: {len(names) / m} kernel "
                              f"nodes a scan, more than "
@@ -4777,7 +4886,7 @@ def bench_phase():
     return {"bench": launches, "bench_measure": measured}
 
 
-# F1-F3: the kernels line's rows (kernel, the XLA fusion each replaces)
+# F1-F6: the kernels line's rows (kernel, the XLA fusion each replaces)
 FUSION_REPLACES = {
     "motion": ("F1", "gridmap_slam_tpu/models/rbpf.py:180-182 (XLA's fusion "
                "of the vmapped sample_motion and apply_odometry, "
@@ -4785,7 +4894,22 @@ FUSION_REPLACES = {
     "pool": ("F2", "gridmap_slam_tpu/ops/matcher.py:246-252 (XLA's fusion of "
              "the coarse field's pad and 2 x 2 mean)"),
     "pick": ("F3", "gridmap_slam_tpu/ops/matcher.py:302-321 (XLA's fusions "
-             "of _prior_grid :137-153, _argmax3 :156-162 and the take)")}
+             "of _prior_grid :137-153, _argmax3 :156-162 and the take)"),
+    "sample": ("F4", "gridmap_slam_tpu/ops/surface.py:231-318 (XLA's fusions "
+               "of sample_surface with pack_neighborhoods :193-217 and its "
+               "8-wide gather :258-268, and refine_on_surface's climb)"),
+    "splat": ("F5", "gridmap_slam_tpu/ops/surface.py:60-97 (XLA's fusion of "
+              "splat_endpoint_kernels' tap weights; the dot :98-99 stays "
+              "torch.bmm)"),
+    "scan": ("F6", "gridmap_slam_tpu/ops/geometry.py:67 deskew_scan, "
+             "gridmap_slam_tpu/ops/raycast.py build_beam_lut and "
+             "gridmap_slam_tpu/ops/pallas/grid_update.py:58 scan_bin_tables "
+             "(XLA's fusions of the scan's preparation)")}
+# the order of an F4 sample's eight products that PyTorch's torch.sum over
+# the packed gather's last axis takes on the card, and the others tried
+SAMPLE_ORDERS = ("((0+4)+(2+6))+((1+5)+(3+7))", "((0+1)+(2+3))+((4+5)+(6+7))",
+                 "(((0+1)+2)+3)+(((4+5)+6)+7)", "sequential",
+                 "((0+4)+(1+5))+((2+6)+(3+7))", "(((0+4)+(1+5))+(2+6))+(3+7)")
 
 
 def pool_order(field, fill: float) -> dict:
@@ -4814,18 +4938,192 @@ def pool_order(field, fill: float) -> dict:
     return out
 
 
+def _sum_in(order: str, q):
+    """The eight products q[0..7] summed in one of SAMPLE_ORDERS."""
+    if order == SAMPLE_ORDERS[0]:
+        return ((q[0] + q[4]) + (q[2] + q[6])) + ((q[1] + q[5]) + (q[3] + q[7]))
+    if order == SAMPLE_ORDERS[1]:
+        return ((q[0] + q[1]) + (q[2] + q[3])) + ((q[4] + q[5]) + (q[6] + q[7]))
+    if order == SAMPLE_ORDERS[2]:
+        return (((q[0] + q[1]) + q[2]) + q[3]) + (((q[4] + q[5]) + q[6]) + q[7])
+    if order == SAMPLE_ORDERS[3]:
+        v = q[0]
+        for t in q[1:]:
+            v = v + t
+        return v
+    if order == SAMPLE_ORDERS[4]:
+        return ((q[0] + q[4]) + (q[1] + q[5])) + ((q[2] + q[6]) + (q[3] + q[7]))
+    return (((q[0] + q[4]) + (q[1] + q[5])) + (q[2] + q[6])) + (q[3] + q[7])
+
+
+def f4_library(c_vol, poses, kw) -> dict:
+    """F4's library call: torch.nn.functional.grid_sample of the volume as
+    a 5-D input, trilinear ("bilinear"), padding_mode "border",
+    align_corners True: the trilinear sample with every coordinate clamped
+    to the volume's edge cells, the packed array's replicate padding, where
+    theta does not wrap (grid_sample cannot wrap; a wrapped grid has no
+    library call).  The poses go to grid_sample's (x, y, theta)
+    coordinates in [-1, 1] outside the timed call, by the plain version's
+    float32 arithmetic; the contiguous volume likewise.  Its ms (CUDA
+    events, as `ms`), its and F4's device ms inside a CUDA graph
+    (graph_ms), and its largest difference from F4's samples at the same
+    poses beside F4_LIBRARY_RTOL of the volume's largest magnitude."""
+    import torch.nn.functional as F
+    from gridmap_slam_tpu_torch.ops.cuda import fusions
+    if kw["wrap_theta"] or kw.get("steps", 0):
+        return dict(library_ms=None)
+    nt, hc, wc = c_vol.shape
+    x, y, th = poses.reshape(-1, 3).unbind(-1)
+    fx = (x - kw["origin"][0]) / kw["resolution"] - 0.5 - kw["crop_ix0"]
+    fy = (y - kw["origin"][1]) / kw["resolution"] - 0.5 - kw["crop_iy0"]
+    ft = (torch.remainder(th - kw["theta0"] + math.pi, 2.0 * math.pi)
+          - math.pi) / kw["dtheta"]
+    grid = torch.stack([fx * (2.0 / max(wc - 1, 1)) - 1.0,
+                        fy * (2.0 / max(hc - 1, 1)) - 1.0,
+                        ft * (2.0 / max(nt - 1, 1)) - 1.0], -1)
+    grid = grid.reshape(1, 1, 1, -1, 3).contiguous()
+    vol = c_vol.contiguous()[None, None]
+
+    def library():
+        return F.grid_sample(vol, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    def f4():
+        return fusions.score_cuda(c_vol, poses, **kw)
+
+    got = library().reshape(-1)
+    want = f4()[1].reshape(-1)
+    err = float((got - want).abs().max())
+    scale = float(c_vol.abs().max())
+    return dict(library_ms=cuda_ms(library, 20), library_max_abs_err=err,
+                library_tol=F4_LIBRARY_RTOL * scale,
+                library_graph_ms=graph_ms(library, 20),
+                f4_graph_ms=graph_ms(f4, 20))
+
+
+def sample_order(c_vol, poses, kw) -> dict:
+    """Bits differing from today's packed sample on this card
+    (fusions.score_plain with no climb, whose last op is torch.sum(g * w8,
+    -1)) of the eight products g * w8 summed in each of SAMPLE_ORDERS and of
+    F4 (fusions.score_cuda): at a recorded call's volume and poses (`kw` its
+    keyword arguments, less the climb) and at a random volume and poses in each theta mode
+    (crop edges, poses off the crop, headings around the circle).  The
+    products are the plain version's own: torch.sum is wrapped for that one
+    call to keep its argument."""
+    from gridmap_slam_tpu_torch.ops.cuda import fusions
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = [(c_vol, poses, {**kw, "steps": 0})]
+    lo = torch.tensor([-0.2, -0.1, -3.5], device="cuda")
+    span = torch.tensor([2.4, 2.2, 7.0], device="cuda")
+    for wrap in (False, True):
+        nt = 9
+        vol = torch.randn((nt, 37, 41), generator=gen, device="cuda") * 10.0
+        pose = lo + span * torch.rand((200_000, 3), generator=gen,
+                                      device="cuda")
+        cases.append((vol, pose, dict(
+            theta0=torch.full((), -0.3, device="cuda"),
+            dtheta=2.0 * math.pi / nt if wrap else 0.07,
+            crop_iy0=torch.full((), 3, dtype=torch.int64, device="cuda"),
+            crop_ix0=torch.full((), 2, dtype=torch.int64, device="cuda"),
+            resolution=0.05, origin=(0.0, 0.0), wrap_theta=wrap)))
+    out = {name: [] for name in (*SAMPLE_ORDERS, "F4")}
+    real_sum = torch.sum
+    for vol, pose, k in cases:
+        kept = []
+
+        def keep(x, *a, **kk):
+            kept.append(x)
+            return real_sum(x, *a, **kk)
+
+        torch.sum = keep
+        try:
+            want = fusions.score_plain(vol, pose, **k)[1]
+        finally:
+            torch.sum = real_sum
+        q = [kept[-1][..., i] for i in range(8)]
+        for name in SAMPLE_ORDERS:
+            out[name].append(_bits_differing(_sum_in(name, q), want))
+        out["F4"].append(_bits_differing(
+            fusions.score_cuda(vol, pose, **k)[1], want))
+    return out
+
+
+def scan_ties(n_bins: int = 2048, details=None) -> dict:
+    """F6 against its plain version on the card, bit for bit, on scans
+    with planted beams: equal bearings (equal ranges too), +0.0 and -0.0,
+    +-pi in float32, padding beams, and in batches of 3 an all-invalid scan;
+    at 96 beam slots (where PyTorch's stable argsort on the card is a warp
+    merge sort) and 192 and 360 (a radix sort), one scan and a batch, each
+    with
+    deskew and tables (the first scan of each with zero odometry, so its
+    ties survive the deskew), tables only and deskew only.  Returns the
+    differing bits by case (`details`, a dict where given, gets the first
+    differing entries of each case that differs)."""
+    from gridmap_slam_tpu_torch.ops.cuda import fusions
+    rng = np.random.default_rng(SEED + 7)
+    out = {}
+    for b in (96, 192, 360):
+        for g in (1, 3):
+            ang = rng.uniform(-math.pi, math.pi, (g, b)).astype(np.float32)
+            dist = rng.uniform(0.2, 9.0, (g, b)).astype(np.float32)
+            hit = rng.uniform(size=(g, b)) < 0.8
+            valid = np.ones((g, b), bool)
+            valid[:, b - b // 8:] = False
+            for i, j in ((5, 9), (20, 21), (22, 21), (40, 60)):
+                ang[:, i], dist[:, i] = ang[:, j], dist[:, j]
+            ang[:, 10:14] = [0.0, -0.0, np.float32(math.pi),
+                             -np.float32(math.pi)]
+            ang[:, 14], ang[:, 15] = -0.0, 0.0
+            dist[:, 10:16] = 3.0
+            if g == 3:
+                valid[2] = False
+            dc = rng.uniform(-0.3, 0.3, g).astype(np.float32)
+            dt = rng.uniform(-0.4, 0.4, g).astype(np.float32)
+            dc[0] = dt[0] = 0.0
+            t = [torch.as_tensor(a[0] if g == 1 else a, device="cuda")
+                 for a in (ang, dist, hit, valid)]
+            odo = [torch.as_tensor(d[0] if g == 1 else d, device="cuda")
+                   for d in (dc, dt)]
+            for name, o, nb in (("prepare", odo, n_bins),
+                                ("tables", (None, None), n_bins),
+                                ("deskew", odo, 0)):
+                got = _outputs(fusions.scan_cuda(*t, *o, n_bins=nb))
+                want = _outputs(fusions.scan_plain(*t, *o, n_bins=nb))
+                bits = (sum(_bits_differing(x, y) for x, y in zip(got, want))
+                        if len(got) == len(want) else -1)
+                out[f"{name} {g}x{b}"] = bits
+                if bits and details is not None:
+                    # the first differing table entries: (output, row, bin,
+                    # the kernel's value, the plain version's)
+                    details[f"{name} {g}x{b}"] = [
+                        (k, *map(int, ix), float(x[tuple(ix)]),
+                         float(y[tuple(ix)]))
+                        for k, (x, y) in enumerate(zip(got, want))
+                        for ix in (x.view(torch.int32) != y.view(
+                            torch.int32)).reshape(x.shape).nonzero()[:3]
+                        .reshape(-1, x.dim()).cpu().tolist()]
+    return out
+
+
 def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
-    """F1-F3 (csrc/fusions.cu).  The parity preset's log again with F1-F3's
+    """F1-F6 (csrc/fusions.cu).  The parity preset's log again with F1-F6's
     calls recorded (CallRecorder) and held bit for bit against their plain
     versions (check_fusion); the sum order of PyTorch's mean over the pooled
-    axes on this card among three, beside F2's (pool_order); then one line
-    of every F1-F3 check of this run by path and kernel (the chip, pr1,
-    mega_blocked, multi, posegraph and tiled paths, and every other
-    recorded path, checked theirs in their own phases).  Fails where a path
-    of FUSION_PATHS has no checked F3 call, the parity path lacks one of
-    F1-F3, or F2 differs from the mean in a bit (`paths`: FUSION_PATHS, or
-    the paths a shorter run took).  Returns the kernels line's rows of
-    F1-F3, timed on the parity path's calls."""
+    axes on this card among three, beside F2's (pool_order); the order of
+    the packed sample's eight-term sum among SAMPLE_ORDERS, beside F4's
+    (sample_order, on the first recorded F4 call's volume and poses and on
+    random ones); F6 on planted scans (scan_ties); then one line of every
+    F1-F6 check of this run by path and kernel (the other paths checked
+    theirs in their own phases).  Fails where a path of FUSION_PATHS has no
+    checked F6 call, a path outside SURFACE_PATHS no checked F3 call, a
+    surface path no checked F4 and F5 call (mega refine no hill-climb), the
+    parity path lacks one of F1-F3 and F6, F2 differs from the mean or F4
+    from today's sample in a bit, or F6 from its plain version on a planted
+    scan, or grid_sample from F4 beyond its tolerance (f4_library, on the
+    mega path's first F4 call) (`paths`: FUSION_PATHS, or the paths a
+    shorter run took).  Returns the kernels line's rows of F1-F6: F1-F3 and
+    F6 timed on the parity path's calls, F4 and F5 on the mega path's (F4's
+    library_ms grid_sample's there)."""
     import torch.nn.functional as F
     from gridmap_slam_tpu_torch import RBPF
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
@@ -4841,31 +5139,58 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
     parity = [check_fusion(*call) for call in rec.calls]
     field = next(args[0] for _, k, args, _ in rec.calls if k == "F2")
     order = pool_order(field, math.log(1.0 / cfg.sensor.max_range))
+
+    def first(kernel, path):
+        return next(r for r in FUSION_CHECKS
+                    if r["kernel"] == kernel and r["path"] == path)
+
+    s_args, s_kw = FUSION_ARGS["F4"]
+    s_order = sample_order(*s_args, s_kw)
+    ties = scan_ties(cfg.beam_lut_bins)
     want, paths = paths, {}
     for row in FUSION_CHECKS:
         k = paths.setdefault(row["path"], {}).setdefault(
-            row["kernel"], dict(calls=0, bits_differing=0, ms=[]))
+            row["kernel"] + (" climb" if row.get("steps") else ""),
+            dict(calls=0, bits_differing=0, ms=[]))
         k["calls"] += 1
         k["bits_differing"] += row["bits_differing"]
         k["ms"].append(row["ms"])
-    say("fusions", pool_order=order, paths=paths, parity_calls=parity,
-        checked_calls=len(FUSION_CHECKS))
-    missing = [p for p in want if "F3" not in paths.get(p, {})]
-    if missing or set(paths["parity"]) != set(FUSIONS):
-        raise AssertionError(f"fusions: no checked F3 call on {missing}, "
-                             f"or not F1-F3 on parity: {paths['parity']}")
+    say("fusions", pool_order=order, sample_order=s_order, scan_ties=ties,
+        paths=paths, parity_calls=parity, checked_calls=len(FUSION_CHECKS))
+    needed = {p: ({"F4 climb" if p == "mega refine" else "F4", "F5", "F6"}
+                  if p in SURFACE_PATHS else {"F3", "F6"}) for p in want}
+    missing = {p: sorted(k - set(paths.get(p, {})))
+               for p, k in needed.items() if k - set(paths.get(p, {}))}
+    if missing or not {"F1", "F2", "F3", "F6"} <= set(paths["parity"]):
+        raise AssertionError(f"fusions: no checked call of {missing}, or "
+                             f"not F1-F3 and F6 on parity: "
+                             f"{paths['parity']}")
     if any(order["F2"]):
         raise AssertionError(f"fusions: F2 differs from PyTorch's mean: "
                              f"{order}")
+    if any(s_order["F4"]):
+        raise AssertionError(f"fusions: F4 differs from today's sample: "
+                             f"{s_order}")
+    f4_lib = {k: v for k, v in first("F4", "mega").items()
+              if k.startswith(("library", "f4_"))}
+    say("f4_library", **f4_lib)
+    if not f4_lib.get("library_max_abs_err", 0.0) <= f4_lib.get(
+            "library_tol", 0.0):
+        raise AssertionError(f"fusions: grid_sample differs from F4 beyond "
+                             f"its tolerance: {f4_lib}")
+    if any(ties.values()):
+        raise AssertionError(f"fusions: F6 differs from its plain version "
+                             f"on planted scans: {ties}")
+
     rows = []
     for name, (kernel, replaces) in FUSION_REPLACES.items():
-        first = next(r for r in parity if r["kernel"] == kernel)
+        timed = first(kernel, "mega" if kernel in ("F4", "F5") else "parity")
         row = dict(name=name, route="cuda",
                    source="gridmap_slam_tpu_torch/csrc/fusions.cu",
                    replaces=replaces, max_abs_err=PATH_MAX_ERR[name],
-                   ms=first["ms"], plain_ms=first["plain_ms"],
-                   bound_ms=first["bound_ms"], bound_by=first["bound_by"],
-                   library_ms=None)
+                   ms=timed["ms"], plain_ms=timed["plain_ms"],
+                   bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
+                   library_ms=timed.get("library_ms"))
         if kernel == "F2" and not (field.shape[1] % 2 or field.shape[2] % 2):
             # the same function on even fields: one PyTorch call
             row["library_ms"] = cuda_ms(lambda: F.avg_pool2d(field, 2), 20)
@@ -4876,6 +5201,15 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
                     k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")}
                 for r in parity if r["kernel"] == "F3"}
+        if kernel in ("F4", "F6"):
+            row["stages"] = {
+                f"{r['path']} {r['kernel']} "
+                f"{'x'.join(map(str, r['shapes'][1 if kernel == 'F4' else 0]))}"
+                + (f" bins {r['n_bins']} deskew {r['deskew']}"
+                   if kernel == "F6" else f" steps {r['steps']}"): {
+                    k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by")}
+                for r in FUSION_CHECKS if r["kernel"] == kernel}
         rows.append(row)
     return rows
 

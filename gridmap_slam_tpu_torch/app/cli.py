@@ -156,13 +156,13 @@ def _overlay(frame, traj, dev):
     (app/GridMapApp.java:396-412).  Taken only where they are read: the
     live view, and the last scan for the final map."""
     import torch
-    from ..ops.geometry import deskew_scan
+    from ..ops.cuda.fusions import deskew
     from ..ops.motion import apply_odometry
 
     prev = traj[-2] if len(traj) > 1 else np.zeros(3)
     raw = apply_odometry(torch.as_tensor(prev, dtype=torch.float32,
                                          device=dev), frame.odom)
-    return deskew_scan(frame.scan, frame.odom), raw.cpu().numpy()
+    return deskew(frame.scan, frame.odom), raw.cpu().numpy()
 
 
 def _run_frames(cfg, eng, state, frames, out_dir: Path, gt=None,
@@ -446,7 +446,7 @@ def cmd_posegraph(args):
     from ..io.synthetic import (SimParams, default_world, simulate_log,
                                 square_path_controls)
     from ..models.frontend import FrontendConfig, PoseGraphSLAM
-    from ..ops.geometry import deskew_scan
+    from ..ops.cuda.fusions import deskew
     from ..utils.viz import render_map
 
     if args.log:
@@ -468,7 +468,7 @@ def cmd_posegraph(args):
                              device=eng.device)
     for i, pose in enumerate(traj):
         f = frame_at(batch, i)
-        fe.add(pose, deskew_scan(f.scan, f.odom))
+        fe.add(pose, deskew(f.scan, f.odom))
     n_closures = fe.detect_closures()
     opt, chi2 = fe.optimize()
     rebuilt = fe.rebuild_map()

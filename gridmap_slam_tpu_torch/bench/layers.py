@@ -20,7 +20,10 @@ here, a part being a kernel (kernels/) or a span (spans/).
   measured (nor the glue) where no launch is whole.  A conditional IF
   node (a resample gate) is one node of the chain: the records of its
   body that the profiler files under the launch stand there, known by
-  their names (it gives others correlation ids of their own).
+  their names (it gives others correlation ids of their own), or by the
+  name of a kernel of another conditional body made in this process
+  (models/captured.body_kernel_names): CUPTI names some body records after
+  a body kernel of a graph captured earlier.
 - device_ms_a_scan.glue: the rest of those replays' device time (every
   device record, the eager ones around the graph launches too), a scan.
 - host_launches_a_scan: the runtime calls of those replays that put work
@@ -184,26 +187,41 @@ def launches_by_id(dev, host, kernels):
     return [runs[i] for i in sorted(starts, key=starts.get)]
 
 
-def align(run, order, kernels):
+def align(run, order, kernels, foreign=frozenset(), why=None):
     """The kernel node of each of a launch's kernel records (`run`, as
     launches_by_id gives them) in kernel_run_order's `order`, None for a
     record of an IF node's body; None where the records are not the
     graph's kernels (the profiler dropped one).  The profiler files some
     of a body's kernels under the launch and gives others correlation ids
     of their own: those it files stand where the IF node does, in the
-    body's order, and are known by their names."""
+    body's order, and are known by their names, or by a name of `foreign`
+    (the kernels of every conditional body made in this process, after
+    one of which CUPTI may name a record) that is not the next kernel
+    node's.  A kernel node's record is known by its kernel (kernels/), or
+    by a name of `foreign`.  `why`, a list where given, gets where the
+    records and the nodes first part (record index, node, record name)."""
     out, i = [], 0
-    for entry in order:
+    for at, entry in enumerate(order):
         if entry[0] is None:
+            nxt = next((demangle(e[0]) for e in order[at + 1:]
+                        if e[0] is not None), None)
             for name in entry[2]:
-                if i < len(run) and run[i][0] == name:
+                if i < len(run) and (run[i][0] == name or (
+                        run[i][0] in foreign and run[i][0] != nxt)):
                     out.append(None)
                     i += 1
             continue
-        if i >= len(run) or run[i][1] != K.kernel_of(kernels, entry[0]):
+        if i >= len(run) or (run[i][1] != K.kernel_of(kernels, entry[0])
+                             and run[i][0] not in foreign):
+            if why is not None:
+                why.append(dict(record=i, node=demangle(entry[0])[:80],
+                                got=run[i][0][:80] if i < len(run)
+                                else None))
             return None
         out.append(entry)
         i += 1
+    if i != len(run) and why is not None:
+        why.append(dict(record=i, node=None, got=run[i][0][:80]))
     return out if i == len(run) else None
 
 
@@ -254,13 +272,14 @@ def _breakdown(dev, host, n: int) -> dict:
 
 
 def read_replays(kernels: dict, named, span_nodes: dict, nodes, order,
-                 scans: int, dev, host, scans_run: int) -> dict:
+                 scans: int, dev, host, scans_run: int,
+                 foreign=frozenset()) -> dict:
     """The per-layer readings a scan of profiled replays of one graph that
     holds `scans` scans (one launch a replay of the whole log): `nodes` the
     function names of its kernel nodes (its IF nodes' bodies' too),
     `order` kernel_run_order's or None, `span_nodes` each span's nodes;
     `dev` and `host` the profiler's records of replays of `scans_run`
-    scans in all.  A graph's counts and a whole launch's records cover
+    scans in all; `foreign` align's.  A graph's counts and a whole launch's records cover
     `scans` scans, and are divided by them; the records of all the
     replays, by scans_run."""
     in_graph = collections.Counter(K.kernel_of(kernels, name)
@@ -277,8 +296,9 @@ def read_replays(kernels: dict, named, span_nodes: dict, nodes, order,
     span_ms = dict.fromkeys(span_nodes)
     launches = (launches_by_id(dev, host, kernels)
                 if order and span_nodes else [])
+    why = []
     whole = [(run, nodes_of) for run in launches
-             for nodes_of in [align(run, order, kernels)]
+             for nodes_of in [align(run, order, kernels, foreign, why)]
              if nodes_of is not None]
     if whole:           # a launch a log of `scans` scans
         for s, own in span_nodes.items():
@@ -304,6 +324,7 @@ def read_replays(kernels: dict, named, span_nodes: dict, nodes, order,
         "profiler_records_a_scan": {k: rec_n[k] / scans_run for k in named},
         "graph_is_a_chain": order is not None,
         "launches_whole": [len(whole), len(launches)],
+        "launches_not_whole_at": why,
         "launch_records": sorted({len(run) for run in launches}),
         "kernels_run": sum(e[0] is not None for e in order or ()),
     })
@@ -331,8 +352,10 @@ def measure(cell, kernels: dict, span_nodes: SpanNodes, replay, eager,
     dev, host = _profiled(lambda: [replay(s0, batch, g)
                                    for _ in range(PROFILED_REPLAYS)])
     scans_run = n * PROFILED_REPLAYS
+    foreign = frozenset(demangle(name)
+                        for name in captured.body_kernel_names)
     out = read_replays(kernels, named, spans, nodes, order, cap.scans, dev,
-                       host, scans_run)
+                       host, scans_run, foreign)
     out["device_busy_share"] = (out["device_ms_a_scan.total"]
                                 / (wall_s_a_scan * 1e3))
     bound_ms = _bounds_a_scan([kernels[k] for k in named], eager, inputs,

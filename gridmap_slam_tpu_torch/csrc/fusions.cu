@@ -1,5 +1,7 @@
-// Three of XLA's fusions as kernels: F1 the motion model, F2 the coarse
-// stage's pool and F3 a matcher stage's pick.
+// Six of XLA's fusions as kernels: F1 the motion model, F2 the coarse
+// stage's pool, F3 a matcher stage's pick, F4 the surface's trilinear sample
+// and hill-climb, F5 the endpoint splat's tap weights and F6 the scan's
+// preparation (deskew and the bearing-bin tables).
 //
 // They replace no Pallas kernel.  In the JAX package XLA fuses each of these
 // runs of elementwise and reduce operations into one loop or reduce fusion:
@@ -7,10 +9,15 @@
 // (gridmap_slam_tpu/models/rbpf.py:180-182) and the matcher's prior, argmax
 // and pick (gridmap_slam_tpu/ops/matcher.py:302-321, with _prior_grid
 // :137-153 and _argmax3 :156-162) inside its lax.map, and pools the coarse
-// field once (:246-252).  In PyTorch each tensor operation of them is a
-// kernel of its own, and the prior and the total of a coarse stage are two
-// more tensors of the stage's scores' size.  Each kernel here does the whole
-// run in one pass.
+// field once (:246-252); the surface step samples its volume
+// (gridmap_slam_tpu/ops/surface.py:231-318) and splats its endpoints
+// (:60-99); every step deskews its scan and builds its bin tables
+// (gridmap_slam_tpu/ops/geometry.py:67, ops/raycast.py build_beam_lut,
+// ops/pallas/grid_update.py:58).  In PyTorch each tensor operation of them
+// is a kernel of its own, and the prior and the total of a coarse stage are
+// two more tensors of the stage's scores' size, the surface sample's packed
+// neighbourhoods eight copies of the volume.  Each kernel here does the
+// whole run in one pass.
 //
 // The bar is the bits of that op sequence on the card (the plain versions in
 // ops/cuda/fusions.py, which stay the CPU path): every product, sum and
@@ -21,14 +28,18 @@
 // x * x; a sum keeps Python's left-to-right order, (2 sd) sd; the argmax
 // takes the first maximum and counts a NaN as the maximum (torch.argmax).
 // A division by a Python float is PyTorch's multiplication by its float
-// reciprocal: only / 2.0 occurs, exact either way.
+// reciprocal, computed in float on the host (the wrappers pass it in); a
+// division by a tensor is an IEEE division.
 //
 // Bound on the H100: bytes.  F3 reads a stage's (P, nt, ny, nx) scores once
 // (1.78 GB a coarse stage of a 500 000-particle block) and writes a few
 // floats a particle; a candidate costs two IEEE divisions and ten other
 // operations, well under the bytes' time at 67 TFLOP/s.  F1 reads a pose and
 // two normals and writes one or two poses; F2 reads the field once and writes
-// a quarter of it.
+// a quarter of it.  F4 reads a pose and writes its score (and pose), its
+// taps from a volume that stays in L2 (1.4 MB at mega, 26 MB at city); F5
+// writes two (nt, B, K) factor tensors; F6 reads a scan and writes it and
+// its tables (a few KB: a launch's time).
 //
 // Layout.  F1 and F2: a thread a particle or an output cell.  F3: a warp a
 // particle.  Its prior's quotients are tables in shared memory, one a
@@ -40,6 +51,14 @@
 // one total order (NaN first, then the larger value, then the smaller
 // index), so every lane ends with the first argmax.  The coarse stage's used-beam counts come from the scan's
 // mask by ballots (integers, so exact as the float sums they replace).
+// F4: a thread a pose; its eight taps are read from the (nt, hc, wc)
+// volume in place at the cells the packed neighbourhood array
+// (ops/surface.pack_neighborhoods) would hold, so that array is never
+// built; the hill-climb keeps the pose and its score in registers for all
+// its steps.  F5: a warp a (bin, beam) row of K taps, its lanes on
+// neighbouring taps.  F6: a block a scan, its beams in shared memory,
+// ranked by counting (B^2 comparisons: B is a few hundred), then a thread
+// a bearing bin.
 
 #include <cuda_runtime.h>
 
@@ -258,6 +277,284 @@ __global__ void __launch_bounds__(kThreads) fusion_pick_kernel(
   }
 }
 
+// ------------------------------------------------------------------- F4
+// float32 roundings of pi and 2 pi, as Python's math.pi and 2 * math.pi
+// enter float maths
+constexpr float kPiF = 3.14159265358979323846f;
+constexpr float kTwoPiF = 6.28318530717958647692f;
+
+struct Surface {
+  int nt, hc, wc, wrap;
+  long long st, sy;          // the volume's strides along theta and y
+  float ox, oy;              // the map origin
+  float inv_res, inv_dt;     // 1 / resolution and 1 / dtheta, in float
+  float step_xy, step_t;     // the hill-climb's moves: resolution, dtheta
+};
+
+// torch.remainder(a, b) of floats on the card: fmod (exact), then b added
+// where the remainder's sign is not b's.
+__device__ __forceinline__ float remainder(float a, float b) {
+  float m = fmodf(a, b);
+  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m = __fadd_rn(m, b);
+  return m;
+}
+
+__device__ __forceinline__ long long clamp_ll(long long v, long long lo,
+                                              long long hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// torch.sum over a last axis of 8 on the card: PyTorch's reduction gives
+// each of 8 lanes one term (added to its 0) and adds them by shuffles down
+// by 4, 2 and 1: ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)), the
+// order that makes F2's pooled mean ((a + c) + (b + d))
+// (chip_smoke.sample_order checks it on the card among five others).
+__device__ __forceinline__ float sum8(const float (&p)[8]) {
+  float l[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) l[k] = __fadd_rn(0.0f, p[k]);
+  return __fadd_rn(__fadd_rn(__fadd_rn(l[0], l[4]), __fadd_rn(l[2], l[6])),
+                   __fadd_rn(__fadd_rn(l[1], l[5]), __fadd_rn(l[3], l[7])));
+}
+
+// ops/surface.sample_surface's packed branch at one pose: the trilinear
+// sample of the volume, its taps at the cells the packed array holds (the
+// base cell clamped to [-1, n - 1] + 1, each tap's cell wrapped modulo nt or
+// clamped along theta, clamped to the crop along y and x).
+__device__ float surface_sample(const float* __restrict__ vol, float x,
+                                float y, float th, float theta0, float iy0,
+                                float ix0, const Surface& s) {
+  const float fx = __fsub_rn(
+      __fsub_rn(__fmul_rn(__fsub_rn(x, s.ox), s.inv_res), 0.5f), ix0);
+  const float fy = __fsub_rn(
+      __fsub_rn(__fmul_rn(__fsub_rn(y, s.oy), s.inv_res), 0.5f), iy0);
+  const float d = __fsub_rn(th, theta0);
+  const float dt =
+      s.wrap ? remainder(d, kTwoPiF)
+             : __fsub_rn(remainder(__fadd_rn(d, kPiF), kTwoPiF), kPiF);
+  const float ft = __fmul_rn(dt, s.inv_dt);
+  const float x0 = floorf(fx), y0 = floorf(fy), t0 = floorf(ft);
+  const float tx = __fsub_rn(fx, x0), ty = __fsub_rn(fy, y0),
+              tt = __fsub_rn(ft, t0);
+  const long long tb =
+      clamp_ll(static_cast<long long>(t0), s.wrap ? 0 : -1, s.nt - 1) + 1;
+  const long long yb = clamp_ll(static_cast<long long>(y0), -1, s.hc - 1) + 1;
+  const long long xb = clamp_ll(static_cast<long long>(x0), -1, s.wc - 1) + 1;
+  long long ts[2], ys[2], xs[2];
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const long long t = tb + o - 1;
+    ts[o] = s.wrap ? (t == s.nt ? 0 : t) : clamp_ll(t, 0, s.nt - 1);
+    ys[o] = clamp_ll(yb + o - 1, 0, s.hc - 1);
+    xs[o] = clamp_ll(xb + o - 1, 0, s.wc - 1);
+  }
+  const float wt[2] = {__fsub_rn(1.0f, tt), tt};
+  const float wy[2] = {__fsub_rn(1.0f, ty), ty};
+  const float wx[2] = {__fsub_rn(1.0f, tx), tx};
+  float p[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int a = k >> 2, b = (k >> 1) & 1, c = k & 1;
+    const float w = __fmul_rn(__fmul_rn(wt[a], wy[b]), wx[c]);
+    p[k] = __fmul_rn(vol[ts[a] * s.st + ys[b] * s.sy + xs[c]], w);
+  }
+  return sum8(p);
+}
+
+// F4.  vol: (nt, hc, wc), cell (t, y, x) at t st + y sy + x; poses (n, 3);
+// theta0, iy0, ix0: one value each on the card.  scores_out = the sample at
+// each pose, then `steps` steps of refine_on_surface's hill-climb from it
+// -- the six candidates pose + (+-r, 0, 0), (0, +-r, 0), (0, 0, +-dtheta),
+// the first argmax of their samples (a NaN first), taken where strictly
+// above the score -- the poses into poses_out (steps > 0).
+__global__ void __launch_bounds__(kThreads) fusion_sample_kernel(
+    const float* __restrict__ vol, const float* __restrict__ poses,
+    const float* __restrict__ theta0, const long long* __restrict__ iy0,
+    const long long* __restrict__ ix0, float* __restrict__ poses_out,
+    float* __restrict__ scores_out, int n, int steps, Surface s) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float t0 = *theta0;
+  const float fy0 = static_cast<float>(*iy0), fx0 = static_cast<float>(*ix0);
+  float x = poses[3 * i], y = poses[3 * i + 1], th = poses[3 * i + 2];
+  float score = surface_sample(vol, x, y, th, t0, fy0, fx0, s);
+  if (steps == 0) {
+    scores_out[i] = score;
+    return;
+  }
+  for (int step = 0; step < steps; ++step) {
+    float bv = 0.0f, bx = x, by = y, bt = th;
+    int bj = -1;
+#pragma unroll 1
+    for (int j = 0; j < 6; ++j) {
+      const int axis = j >> 1;
+      const float m = (axis == 2 ? s.step_t : s.step_xy) * ((j & 1) ? -1.0f
+                                                                    : 1.0f);
+      const float cx = __fadd_rn(x, axis == 0 ? m : 0.0f);
+      const float cy = __fadd_rn(y, axis == 1 ? m : 0.0f);
+      const float ct = __fadd_rn(th, axis == 2 ? m : 0.0f);
+      const float v = surface_sample(vol, cx, cy, ct, t0, fy0, fx0, s);
+      if (before(v, j, bv, bj)) {
+        bv = v;
+        bj = j;
+        bx = cx;
+        by = cy;
+        bt = ct;
+      }
+    }
+    if (bv > score) {
+      x = bx;
+      y = by;
+      th = bt;
+      score = bv;
+    }
+  }
+  poses_out[3 * i] = x;
+  poses_out[3 * i + 1] = y;
+  poses_out[3 * i + 2] = th;
+  scores_out[i] = score;
+}
+
+// ------------------------------------------------------------------- F5
+// F5.  px, py, wgt: (B,); thetas (nt,).  ops/surface.splat_factors: each
+// endpoint rotated by each bin's heading into the (K, K) kernel frame, K =
+// 2 kc + 1, its base cell clamped to [0, K - 2]; a_yw (nt, B, K) = the two
+// row taps' weights (zero elsewhere) times the beam's weight, a_x (nt, B,
+// K) the two column taps' weights.
+__global__ void __launch_bounds__(kThreads) fusion_splat_kernel(
+    const float* __restrict__ px, const float* __restrict__ py,
+    const float* __restrict__ wgt, const float* __restrict__ thetas,
+    float* __restrict__ a_yw, float* __restrict__ a_x, int nt, int B, int kc,
+    float inv_res) {
+  const int lane = threadIdx.x % kWarp;
+  const long long row = blockIdx.x * static_cast<long long>(blockDim.x / kWarp)
+                        + threadIdx.x / kWarp;
+  if (row >= static_cast<long long>(nt) * B) return;
+  const int t = static_cast<int>(row / B), b = static_cast<int>(row % B);
+  const int K = 2 * kc + 1;
+  const float c = cosf(thetas[t]), sn = sinf(thetas[t]);
+  const float X = px[b], Y = py[b], kcf = static_cast<float>(kc);
+  const float ex = __fadd_rn(
+      __fmul_rn(__fsub_rn(__fmul_rn(X, c), __fmul_rn(Y, sn)), inv_res), kcf);
+  const float ey = __fadd_rn(
+      __fmul_rn(__fadd_rn(__fmul_rn(X, sn), __fmul_rn(Y, c)), inv_res), kcf);
+  const float hi = static_cast<float>(K - 2);
+  // torch.clamp keeps a NaN
+  const float fx = floorf(ex), fy = floorf(ey);
+  const float x0 = isnan(fx) ? fx : fminf(fmaxf(fx, 0.0f), hi);
+  const float y0 = isnan(fy) ? fy : fminf(fmaxf(fy, 0.0f), hi);
+  const float tx = __fsub_rn(ex, x0), ty = __fsub_rn(ey, y0);
+  const long long x0i = static_cast<long long>(x0);
+  const long long y0i = static_cast<long long>(y0);
+  const float omx = __fsub_rn(1.0f, tx), omy = __fsub_rn(1.0f, ty);
+  const float w = wgt[b];
+  float* oy = a_yw + row * K;
+  float* ox = a_x + row * K;
+  for (int j = lane; j < K; j += kWarp) {
+    const float ay = __fadd_rn(j == y0i ? omy : 0.0f, j == y0i + 1 ? ty : 0.0f);
+    const float ax = __fadd_rn(j == x0i ? omx : 0.0f, j == x0i + 1 ? tx : 0.0f);
+    oy[j] = __fmul_rn(ay, w);
+    ox[j] = ax;
+  }
+}
+
+// ------------------------------------------------------------------- F6
+constexpr int kScanThreads = 256;
+
+// The order PyTorch's stable argsort of a row of B floats gives on the
+// card: by `<` (a NaN last; -0.0 and +0.0 equal, at 96, 192 and 360 beam
+// slots alike: chip_smoke.scan_ties), equal keys in index order.
+__device__ __forceinline__ bool sorts_before(float v, int i, float w, int j) {
+  const bool lt = (isnan(w) && !isnan(v)) || v < w;
+  const bool gt = (isnan(v) && !isnan(w)) || w < v;
+  return lt || (!gt && i < j);
+}
+
+// int64 % of PyTorch (Python's): the remainder takes the divisor's sign.
+__device__ __forceinline__ int py_mod(int a, int n) {
+  const int r = a % n;
+  return (r != 0 && ((r < 0) != (n < 0))) ? r + n : r;
+}
+
+// F6.  angle, dist (G, B) float32, hit, valid (G, B) bool; d_center,
+// d_theta (G,) or null.  With odometry: ops/geometry.deskew_scan into
+// out_angle, out_dist.  With n_bins > 0: ops/cuda/grid_update.
+// scan_bin_tables of the (deskewed) scan into t_dist, t_alpha, t_code
+// (G, n_bins): the valid beams' wrapped angles (+inf for the others)
+// argsorted, each bin center's searchsorted position (side left), the
+// nearer of the two beams around it (left on a tie) and that beam's data.
+__global__ void __launch_bounds__(kScanThreads) fusion_scan_kernel(
+    const float* __restrict__ angle, const float* __restrict__ dist,
+    const bool* __restrict__ hit, const bool* __restrict__ valid,
+    const float* __restrict__ d_center, const float* __restrict__ d_theta,
+    float* __restrict__ out_angle, float* __restrict__ out_dist,
+    float* __restrict__ t_dist, float* __restrict__ t_alpha,
+    float* __restrict__ t_code, int B, int n_bins, float bin_step) {
+  extern __shared__ float sm[];
+  float* a_use = sm;              // the (deskewed) angles
+  float* d_use = a_use + B;       // and distances
+  float* key = d_use + B;         // the sort's keys
+  float* sorted = key + B;
+  int* order = reinterpret_cast<int*>(sorted + B);
+  __shared__ int count;
+  const int g = blockIdx.x;
+  const size_t row = static_cast<size_t>(g) * B;
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+  int mine = 0;
+  for (int i = threadIdx.x; i < B; i += blockDim.x) mine += valid[row + i];
+  atomicAdd(&count, mine);        // an integer count: exact in any order
+  __syncthreads();
+  const int n_valid = max(count, 1);
+  const float nf = static_cast<float>(n_valid);
+  for (int i = threadIdx.x; i < B; i += blockDim.x) {
+    float a = angle[row + i], d = dist[row + i];
+    if (d_center != nullptr) {
+      const float di = __fdiv_rn(-__fsub_rn(nf, static_cast<float>(i)), nf);
+      const float ang = __fadd_rn(a, __fmul_rn(d_theta[g], di));
+      const float xa = __fadd_rn(__fmul_rn(d, cosf(ang)),
+                                 __fmul_rn(d_center[g], di));
+      const float ya = __fmul_rn(d, sinf(ang));
+      a = atan2f(ya, xa);
+      d = __fsqrt_rn(__fadd_rn(__fmul_rn(xa, xa), __fmul_rn(ya, ya)));
+      out_angle[row + i] = a;
+      out_dist[row + i] = d;
+    }
+    a_use[i] = a;
+    d_use[i] = d;
+    key[i] = valid[row + i] ? wrap(a) : INFINITY;
+  }
+  if (n_bins <= 0) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < B; i += blockDim.x) {
+    const float v = key[i];
+    int rank = 0;
+    for (int j = 0; j < B; ++j) rank += sorts_before(key[j], j, v, i);
+    sorted[rank] = v;
+    order[rank] = i;
+  }
+  __syncthreads();
+  const size_t out = static_cast<size_t>(g) * n_bins;
+  for (int j = threadIdx.x; j < n_bins; j += blockDim.x) {
+    const float c = __fadd_rn(
+        __fmul_rn(__fadd_rn(static_cast<float>(j), 0.5f), bin_step), -kPiF);
+    int lo = 0, hi = B;             // torch.searchsorted's binary search
+    while (lo < hi) {
+      const int mid = lo + ((hi - lo) >> 1);
+      if (!(sorted[mid] >= c)) lo = mid + 1;
+      else hi = mid;
+    }
+    const int left = py_mod(lo - 1, n_valid), right = py_mod(lo, n_valid);
+    const float dl = fabsf(wrap(__fsub_rn(c, sorted[left])));
+    const float dr = fabsf(wrap(__fsub_rn(c, sorted[right])));
+    const int beam = order[dl <= dr ? left : right];
+    t_dist[out + j] = d_use[beam];
+    t_alpha[out + j] = a_use[beam];
+    t_code[out + j] = valid[row + beam] ? (hit[row + beam] ? 1.0f : 2.0f)
+                                        : 0.0f;
+  }
+}
+
 }  // namespace
 
 // F1: pose (n, 3); normals (n, 2) or null; d_center, d_theta (G,), G
@@ -334,5 +631,78 @@ extern "C" int gs_fusion_pick(
                        warps * table, static_cast<cudaStream_t>(stream)>>>(
       scores, dxs, dys, dts, pose0, center, d_center, d_theta, use, off_xy,
       off_t, out_dxs, out_dys, out_dts, best, meas_best, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// F4: vol (nt, hc, wc) with strides st, sy (cells contiguous in a row);
+// poses (n, 3); theta0 (float), iy0, ix0 (int64) one each on the card;
+// poses_out (n, 3) (steps > 0, else null), scores_out (n,); the crop's
+// shape, wrap_theta, the climb's steps (0: the sample alone), origin,
+// 1 / resolution and 1 / dtheta in float, the moves (resolution, dtheta);
+// stream.
+extern "C" int gs_fusion_sample(
+    const float* vol, const float* poses, const float* theta0,
+    const long long* iy0, const long long* ix0, float* poses_out,
+    float* scores_out, int n, int nt, int hc, int wc, long long st,
+    long long sy, int wrap_theta, int steps, float ox, float oy,
+    float inv_res, float inv_dt, float step_xy, float step_t, void* stream) {
+  if (n == 0) return cudaSuccess;
+  if (n < 0 || nt <= 0 || hc <= 0 || wc <= 0 || steps < 0 ||
+      (poses_out == nullptr) != (steps == 0))
+    return cudaErrorInvalidValue;
+  fusion_sample_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      vol, poses, theta0, iy0, ix0, poses_out, scores_out, n, steps,
+      Surface{nt, hc, wc, wrap_theta != 0, st, sy, ox, oy, inv_res, inv_dt,
+              step_xy, step_t});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// F5: px, py, wgt (B,); thetas (nt,); a_yw, a_x (nt, B, 2 kc + 1); kc;
+// 1 / resolution in float; stream.
+extern "C" int gs_fusion_splat(const float* px, const float* py,
+                               const float* wgt, const float* thetas,
+                               float* a_yw, float* a_x, int nt, int B, int kc,
+                               float inv_res, void* stream) {
+  if (nt < 0 || B < 0 || kc < 1) return cudaErrorInvalidValue;
+  const long long rows = static_cast<long long>(nt) * B;
+  if (rows == 0) return cudaSuccess;
+  const int warps = kThreads / kWarp;
+  const long long blocks = (rows + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fusion_splat_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      px, py, wgt, thetas, a_yw, a_x, nt, B, kc, inv_res);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// F6: angle, dist (G, B) float32; hit, valid (G, B) bool; d_center,
+// d_theta (G,), or null for no deskew; out_angle, out_dist (G, B) (with
+// the odometry); t_dist, t_alpha, t_code (G, n_bins), or n_bins 0 for no
+// tables; bin_step = 2 pi / n_bins in float; stream.
+extern "C" int gs_fusion_scan(const float* angle, const float* dist,
+                              const bool* hit, const bool* valid,
+                              const float* d_center, const float* d_theta,
+                              float* out_angle, float* out_dist, float* t_dist,
+                              float* t_alpha, float* t_code, int G, int B,
+                              int n_bins, float bin_step, void* stream) {
+  if (G == 0) return cudaSuccess;
+  if (G < 0 || B <= 0 || n_bins < 0 ||
+      (d_center != nullptr) != (d_theta != nullptr) ||
+      (d_center != nullptr && (out_angle == nullptr || out_dist == nullptr)) ||
+      (n_bins > 0 && (t_dist == nullptr || t_alpha == nullptr ||
+                      t_code == nullptr)))
+    return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(B) * 5 * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fusion_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  fusion_scan_kernel<<<G, kScanThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      angle, dist, hit, valid, d_center, d_theta, out_angle, out_dist, t_dist,
+      t_alpha, t_code, B, n_bins, bin_step);
   return static_cast<int>(cudaGetLastError());
 }

@@ -227,6 +227,10 @@ _segments: Optional[list] = None
 # (the CUDA driver has no call that reads a conditional node's bodies
 # back)
 _bodies: dict = {}
+# the (mangled) names of the kernels of every conditional body made in this
+# process, kept past their graphs: the profiler may name a body's record
+# after one of another graph (bench/layers.align)
+body_kernel_names: set = set()
 
 
 def _capture_state(cu, stream: int):
@@ -347,6 +351,7 @@ def _make_if_node(cu, graph: int, head, tail, handle: int, ctx) -> None:
             (ctypes.c_void_p * 1)(cnode.value),
             (ctypes.c_void_p * 1)(node), ctypes.c_size_t(1))
     _bodies[cnode.value] = [body]
+    body_kernel_names.update(graph_kernel_names(body))
 
 
 @contextlib.contextmanager

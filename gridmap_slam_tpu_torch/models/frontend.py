@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
-from ..ops.cuda.grid_update import integrate_scan_batch, scan_bin_tables
+from ..ops.cuda.fusions import bin_tables
+from ..ops.cuda.grid_update import integrate_scan_batch
 from ..ops.geometry import se2_relative, wrap_angle
 from ..ops.grid import gaussian_kernel
 from ..types import Scan
@@ -193,7 +194,7 @@ class MapRebuild(Graphed):
                       for f in dataclasses.fields(Scan)))
         integrate_scan_batch(
             self.acc, self.poses.index_select(0, k), self._one,
-            *scan_bin_tables(scan, scfg.beam_lut_bins),
+            *bin_tables(scan, scfg.beam_lut_bins),
             resolution=float(scfg.map.resolution),
             origin=(float(scfg.map.origin[0]), float(scfg.map.origin[1])),
             l_free=s.l_free, l_occ=s.l_occ, tol_cells=s.hit_tolerance_cells,
@@ -430,5 +431,5 @@ class PoseGraphSLAM:
         for k, scan in enumerate(self.kf_scans):
             acc = integrate_scan_batch(
                 acc, poses[k:k + 1], one,
-                *scan_bin_tables(scan, scfg.beam_lut_bins), **kw)
+                *bin_tables(scan, scfg.beam_lut_bins), **kw)
         return acc[0]

@@ -34,9 +34,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..config import SlamConfig
-from ..ops.cuda.grid_update import integrate_scan_batch, scan_bin_tables
+from ..ops.cuda import fusions
+from ..ops.cuda.grid_update import integrate_scan_batch
 from ..ops.cuda.likelihood import log_likelihood_field_batch
-from ..ops.geometry import deskew_scan
 from ..ops.grid import gaussian_kernel
 from ..ops.matcher import correlative_match_batch
 from ..ops.motion import sample_and_propagate
@@ -158,7 +158,8 @@ class MultiRobotSLAM:
             state.logodds[None], self.taps, z_hit=cfg.matcher.z_hit,
             max_range=cfg.sensor.max_range)
         odom = frames.odom
-        scan = deskew_scan(frames.scan, odom)                    # (R, B)
+        scan, tables = fusions.prepare_scan(frames.scan, odom,  # (R, B)
+                                            cfg.beam_lut_bins)
         per_robot = Odom(odom.d_center[:, None], odom.d_theta[:, None])
         pose_s, prior = sample_and_propagate(state.poses, per_robot,
                                              cfg.motion, normals)
@@ -184,7 +185,7 @@ class MultiRobotSLAM:
             torch.zeros((r,) + tuple(state.logodds.shape),
                         dtype=torch.float32, device=dev),
             best_poses, torch.ones((), device=dev),
-            *scan_bin_tables(scan, cfg.beam_lut_bins), resolution=res,
+            *tables, resolution=res,
             origin=origin, l_free=cfg.sensor.l_free, l_occ=cfg.sensor.l_occ,
             tol_cells=cfg.sensor.hit_tolerance_cells)
         deltas = keep[:, None, None] * deltas

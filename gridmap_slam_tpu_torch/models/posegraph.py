@@ -37,7 +37,8 @@ from typing import Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..ops.cuda.grid_update import integrate_scan_batch, scan_bin_tables
+from ..ops.cuda.fusions import bin_tables
+from ..ops.cuda.grid_update import integrate_scan_batch
 from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.geometry import wrap_angle
 from ..ops.matcher import correlative_match_batch
@@ -281,7 +282,7 @@ def verify_closure(scan_i: Scan, scan_j: Scan, rel_guess, *, map_cfg,
                        dtype=torch.float32, device=dev)
     local = integrate_scan_batch(
         zero, torch.zeros((c, 3), dtype=torch.float32, device=dev),
-        torch.ones((), device=dev), *scan_bin_tables(scan_i, beam_lut_bins),
+        torch.ones((), device=dev), *bin_tables(scan_i, beam_lut_bins),
         resolution=res, origin=origin, l_free=sensor_cfg.l_free,
         l_occ=sensor_cfg.l_occ, tol_cells=sensor_cfg.hit_tolerance_cells,
         cone_fill=True)

@@ -35,9 +35,9 @@ from typing import Iterable, List, Optional, Tuple
 import torch
 
 from ..config import SlamConfig
-from ..ops.cuda.grid_update import integrate_scan_batch, scan_bin_tables
+from ..ops.cuda import fusions
+from ..ops.cuda.grid_update import integrate_scan_batch
 from ..ops.cuda.likelihood import log_likelihood_field_batch
-from ..ops.geometry import deskew_scan
 from ..ops.grid import gaussian_kernel, inv_log_odds
 from ..ops.matcher import IMPLS, correlative_match_batch, score_pose
 from ..ops.motion import sample_and_propagate
@@ -147,9 +147,9 @@ class RBPF:
         dev = self.device
         normals, u0 = self._draws(generator) if draws is None else draws
 
-        scan = deskew_scan(frame.scan, frame.odom)
+        scan, tables = fusions.prepare_scan(frame.scan, frame.odom,
+                                            cfg.beam_lut_bins)
         odom = frame.odom
-        tables = scan_bin_tables(scan, cfg.beam_lut_bins)
         # Large-rotation skip for map integration (slam/SLAM.java:82).
         keep = (torch.abs(odom.d_theta)
                 <= math.radians(cfg.skip_update_dtheta_deg)).to(torch.float32)

@@ -62,18 +62,17 @@ from typing import Iterable, List, Optional, Tuple
 import torch
 
 from ..config import SlamConfig
-from ..ops.cuda.grid_update import (integrate_scan_batch,
-                                   integrate_scan_window, scan_bin_tables)
+from ..ops.cuda.fusions import endpoint_factors, prepare_scan, score_on_volume
+from ..ops.cuda.grid_update import integrate_scan_batch, integrate_scan_window
 from ..ops.cuda.likelihood import log_likelihood_field_batch
-from ..ops.geometry import deskew_scan, scan_points
+from ..ops.geometry import scan_points
 from ..ops.grid import gaussian_kernel
 from ..ops.matcher import correlative_match_batch, score_pose
 from ..ops.motion import (apply_odometry, sample_and_propagate,
                           sample_motion)
 from ..ops.resample import neff, systematic_indices, weighted_mean_pose
-from ..ops.surface import (crop_center_cells, pack_neighborhoods,
-                           refine_on_surface, sample_surface, scan_surface,
-                           splat_endpoint_kernels, theta_grid)
+from ..ops.surface import (crop_center_cells, endpoint_images, scan_surface,
+                           theta_grid)
 from ..types import Frame, Scan, StepInfo
 from . import captured
 
@@ -137,8 +136,7 @@ def _window(x, y0, x0, hh: int, ww: int):
 
 def surface_volume(cfg: SlamConfig, taps, logodds, scan: Scan, center):
     """One scan's likelihood volume around `center` (the odometry-propagated
-    cloud mean) and the keyword arguments of sample_surface /
-    refine_on_surface.
+    cloud mean) and the keyword arguments of score_on_volume (F4).
 
     The likelihood field (K3, batch 1) is built only over the crop plus the
     blur radius, which reproduces the full-map build exactly on the crop;
@@ -179,7 +177,7 @@ def surface_volume(cfg: SlamConfig, taps, logodds, scan: Scan, center):
     # The kernel radius covers every hit endpoint (<= max_range), so the
     # splat's rim clamp never engages.
     kc = int(math.ceil(cfg.sensor.max_range / res)) + 2
-    e_stack = splat_endpoint_kernels(px, py, wgt, thetas, kc, res)
+    e_stack = endpoint_images(*endpoint_factors(px, py, wgt, thetas, kc, res))
     use_fft = (mc.surface_corr == "fft"
                or (mc.surface_corr == "auto"
                    and nt * (2 * kc + 1) ** 2 * hc * wc > 2e10))
@@ -187,8 +185,7 @@ def surface_volume(cfg: SlamConfig, taps, logodds, scan: Scan, center):
                          math.log(1.0 / cfg.sensor.max_range),
                          bf16=mc.surface_bf16, fft=use_fft)
     tap_kw = dict(theta0=theta0, dtheta=dtheta, crop_iy0=iy0, crop_ix0=ix0,
-                  resolution=res, origin=origin, wrap_theta=wrap_theta,
-                  packed=pack_neighborhoods(c_vol, wrap_theta))
+                  resolution=res, origin=origin, wrap_theta=wrap_theta)
     return c_vol, tap_kw, kc
 
 
@@ -367,8 +364,8 @@ class SharedMapSLAM:
         (0 past the large-rotation skip, slam/SLAM.java:82, and always 0
         with freeze_map)."""
         cfg = self.config
-        scan = deskew_scan(frame.scan, frame.odom)
-        tables = scan_bin_tables(scan, cfg.beam_lut_bins)
+        scan, tables = prepare_scan(frame.scan, frame.odom,
+                                    cfg.beam_lut_bins)
         keep = (torch.abs(frame.odom.d_theta)
                 <= math.radians(cfg.skip_update_dtheta_deg)).to(torch.float32)
         if cfg.freeze_map:          # localization-only: map never changes
@@ -438,9 +435,8 @@ class SharedMapSLAM:
         c_vol, kw, kc = surface_volume(cfg, self.taps, state.logodds, scan,
                                        center)
         pose_s = sample_motion(state.poses, odom, cfg.motion, normals)
-        scores = sample_surface(c_vol, pose_s, **kw)
-        poses, scores = refine_on_surface(
-            c_vol, pose_s, scores, steps=mc.surface_refine_steps, **kw)
+        poses, scores = score_on_volume(
+            c_vol, pose_s, steps=mc.surface_refine_steps, **kw)
         scores = surface_temper(mc, scan, scores)
         # Integration only touches cells within max_range of the pose.
         return self._finish(state, poses, scores, tables, keep, u0, inj,

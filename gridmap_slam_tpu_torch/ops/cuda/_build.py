@@ -100,6 +100,17 @@ SIGNATURES = {
     "gs_fusion_pick": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _F, _P],
+    # F4: vol, poses, theta0, iy0, ix0, poses_out, scores_out, n, nt, hc,
+    # wc, stride t, stride y, wrap_theta, steps, origin_x, origin_y,
+    # 1 / res, 1 / dtheta, res, dtheta; stream
+    "gs_fusion_sample": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
+                         _L, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+    # F5: px, py, wgt, thetas, a_yw, a_x, nt, B, kc, 1 / res; stream
+    "gs_fusion_splat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # F6: angle, dist, hit, valid, d_center, d_theta, out_angle, out_dist,
+    # t_dist, t_alpha, t_code, G, B, n_bins, 2 pi / n_bins; stream
+    "gs_fusion_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _F, _P],
 }
 
 

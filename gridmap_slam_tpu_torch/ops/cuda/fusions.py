@@ -1,10 +1,14 @@
-"""F1-F3: three of XLA's fusions as kernels, csrc/fusions.cu.
+"""F1-F6: six of XLA's fusions as kernels, csrc/fusions.cu.
 
 The JAX package leaves the motion model, the matcher's coarse pool and each
-matcher stage's prior, argmax and pick to XLA, which fuses each into one
+matcher stage's prior, argmax and pick, the surface step's sample and
+splat, and every step's scan preparation to XLA, which fuses each into one
 loop or reduce fusion (gridmap_slam_tpu/models/rbpf.py:180-182;
-gridmap_slam_tpu/ops/matcher.py:246-252 and :302-321).  Here they are one
-kernel each, with the bits of the port's op sequence on the card:
+gridmap_slam_tpu/ops/matcher.py:246-252 and :302-321;
+gridmap_slam_tpu/ops/surface.py:60-99 and :231-318;
+gridmap_slam_tpu/ops/geometry.py:67, ops/raycast.py, ops/pallas/
+grid_update.py:58).  Here they are one kernel each, with the bits of the
+port's op sequence on the card:
 
 - F1 `motion`: sample_motion and apply_odometry of ops/motion.py, either or
   both in one launch (the RBPF and the shared-map matcher take both);
@@ -14,30 +18,50 @@ kernel each, with the bits of the port's op sequence on the card:
   scaled by the used-beam fraction at the coarse stage), the first argmax
   of scores + prior and the pick: the next stage's offsets, or the best
   pose and its measurement score after the last stage.  The stage's prior
-  and total tensors do not exist on the card.
+  and total tensors do not exist on the card;
+- F4 `score_on_volume`: ops/surface.sample_surface with packed
+  neighbourhoods, then refine_on_surface's hill-climb (all its steps), in
+  one launch reading the volume in place: the packed array
+  (ops/surface.pack_neighborhoods, 8x the volume) does not exist on the
+  card;
+- F5 `endpoint_factors`: ops/surface.splat_factors, the endpoint images' two (nt, B,
+  K) factors (their batched matmul stays torch.bmm, ops/surface.
+  endpoint_images, as JAX leaves it to a dot);
+- F6 `prepare_scan`, `bin_tables`, `deskew`: ops/geometry.deskew_scan and
+  ops/cuda/grid_update.scan_bin_tables (with ops/raycast.build_beam_lut),
+  together or either, for one scan or a batch (G, B).
 
-Each dispatching function (`motion`, `pool`, `pick`) runs the kernel for a
-tensor on the card and the plain version (`*_plain`, the op sequence the
-kernel replaces, which keeps the CPU's bits) for a tensor on the CPU; the
-`*_cuda` entry points raise ValueError on other tensors.  Each kernel counts
-its launches in `motion_launches`, `pool_launches` and `pick_launches`.
+Each dispatching function (`motion`, `pool`, `pick`, `score_on_volume`,
+`endpoint_factors`, and F6's three) runs the kernel for a tensor on the
+card and the plain version (`*_plain`, the op sequence the kernel replaces,
+which keeps the CPU's bits) for a tensor on the CPU; the `*_cuda` entry
+points raise ValueError on other tensors.  Each kernel counts its launches
+in `motion_launches`, `pool_launches`, `pick_launches`, `sample_launches`
+(F4), `splat_launches` and `scan_launches`.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...types import Odom
-from ..geometry import wrap_angle
+from ...types import Odom, Scan
+from ..geometry import deskew_scan, wrap_angle
+from ..surface import (pack_neighborhoods, refine_on_surface, sample_surface,
+                       splat_factors)
 from . import _build, check_tensor, stream_handle
+from .grid_update import scan_bin_tables
 from .matcher import per_particle
 
 motion_launches = 0   # F1 launches since the count was last set to 0
 pool_launches = 0     # F2, likewise
 pick_launches = 0     # F3, likewise
+sample_launches = 0   # F4, likewise
+splat_launches = 0    # F5, likewise
+scan_launches = 0     # F6, likewise
 
 
 def noise_scales(odom: Odom, cfg):
@@ -63,6 +87,22 @@ def _groups(fn: str, d, lead) -> torch.Tensor:
         raise ValueError(f"{fn}: odometry of shape {tuple(d.shape)} does not "
                          f"give one row a run of particles {tuple(lead)}")
     return d.reshape(-1).contiguous()
+
+
+def _f32(x) -> float:
+    """A Python number rounded to float32, as PyTorch passes a scalar to a
+    float32 kernel."""
+    return float(np.float32(x))
+
+
+def _inv(x) -> float:
+    """PyTorch's reciprocal of a Python float divisor on the card: 1 / x in
+    float32 (a tensor / float is a product by it there)."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------------- F1: motion
@@ -126,10 +166,8 @@ def motion_cuda(pose, d_center, d_theta, normals, *, cfg=None,
         out_det = torch.empty_like(flat)
     consts = _motion_args(cfg) if normals is not None else (0.0,) * 4
     code = _build.library().gs_fusion_motion(
-        flat.data_ptr(), 0 if nrm is None else nrm.data_ptr(),
-        dc.data_ptr(), dt.data_ptr(),
-        0 if out_s is None else out_s.data_ptr(),
-        0 if out_det is None else out_det.data_ptr(), n, g, *consts,
+        flat.data_ptr(), _ptr(nrm), dc.data_ptr(), dt.data_ptr(),
+        _ptr(out_s), _ptr(out_det), n, g, *consts,
         stream_handle(dev))
     motion_launches += 1
     _build.check("gs_fusion_motion", code)
@@ -330,15 +368,12 @@ def pick_cuda(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
         best = torch.empty((p, 3), dtype=torch.float32, device=dev)
         meas = torch.empty((p,), dtype=torch.float32, device=dev)
 
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
     nxt = outs if outs is not None else (None, None, None)
     code = _build.library().gs_fusion_pick(
         scores.data_ptr(), dxs.data_ptr(), dys.data_ptr(), dts.data_ptr(),
-        pose0.data_ptr(), ptr(center), dc.data_ptr(), dt.data_ptr(),
-        ptr(use), ptr(off_xy), ptr(off_t), *(ptr(t) for t in nxt),
-        ptr(best), ptr(meas), p, nt, ny, nx, g_o, max(g_b, 1), b, stride,
+        pose0.data_ptr(), _ptr(center), dc.data_ptr(), dt.data_ptr(),
+        _ptr(use), _ptr(off_xy), _ptr(off_t), *(_ptr(t) for t in nxt),
+        _ptr(best), _ptr(meas), p, nt, ny, nx, g_o, max(g_b, 1), b, stride,
         n_xy, n_t, float(prior_weight), *_motion_args(motion),
         stream_handle(dev))
     pick_launches += 1
@@ -354,3 +389,211 @@ def pick(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
     return fn(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
               off_xy, off_t, motion=motion, prior_weight=prior_weight,
               stride=stride)
+
+
+# --------------------------------------------------------- F4: sample, climb
+def score_plain(c_vol, poses, *, steps: int = 0, theta0, dtheta, crop_iy0,
+                crop_ix0, resolution: float, origin, wrap_theta: bool = False):
+    """Plain version of F4: the measurement log-likelihood of poses (..., 3),
+    ops/surface.sample_surface on the packed neighbourhoods
+    (pack_neighborhoods, built here), then `steps` steps of its greedy
+    hill-climb (ops/surface.refine_on_surface) on the same pack: (poses,
+    scores), the poses those given where steps <= 0."""
+    packed = pack_neighborhoods(c_vol, wrap_theta)
+    kw = dict(theta0=theta0, dtheta=dtheta, crop_iy0=crop_iy0,
+              crop_ix0=crop_ix0, resolution=resolution, origin=origin,
+              wrap_theta=wrap_theta, packed=packed)
+    scores = sample_surface(c_vol, poses, **kw)
+    if steps <= 0:
+        return poses, scores
+    return refine_on_surface(c_vol, poses, scores, steps=steps, **kw)
+
+
+def _one(fn, name, v, dtype, dev):
+    """A 0-dim or one-element `dtype` tensor on the card, as one element."""
+    if not (torch.is_tensor(v) and v.device == dev and v.dtype == dtype
+            and v.numel() == 1):
+        raise ValueError(f"{fn}: {name} must be one {dtype} on {dev}, got "
+                         f"{v!r}")
+    return v.reshape(1)
+
+
+def score_cuda(c_vol, poses, *, steps: int = 0, theta0, dtheta, crop_iy0,
+               crop_ix0, resolution: float, origin, wrap_theta: bool = False):
+    """The kernel: score_plain's (poses, scores) in one launch, a thread a
+    pose, its pose and score in registers for all the climb's steps; the
+    volume (nt, hc, wc) float32 on the card read in place (a view whose
+    cells are contiguous in a row, as the FFT's crop); theta0 a float32 and
+    crop_iy0, crop_ix0 int64 tensors of one element on the card."""
+    global sample_launches
+    fn = "score_cuda"
+    if c_vol.dim() != 3 or poses.dim() == 0 or poses.shape[-1] != 3:
+        raise ValueError(f"{fn}: need a volume (nt, hc, wc) and poses "
+                         f"(..., 3), got {tuple(c_vol.shape)} and "
+                         f"{tuple(poses.shape)}")
+    dev = c_vol.device
+    nt, hc, wc = c_vol.shape
+    if c_vol.stride(-1) != 1:
+        c_vol = c_vol.contiguous()
+    if c_vol.device.type != "cuda" or c_vol.dtype != torch.float32:
+        raise ValueError(f"{fn}: c_vol must be float32 on the card, got "
+                         f"{c_vol.dtype} on {c_vol.device}")
+    steps = max(int(steps), 0)
+    lead = tuple(poses.shape[:-1])
+    n = math.prod(lead)
+    flat = poses.reshape(n, 3).contiguous()
+    check_tensor(fn, "poses", flat, (n, 3), dev)
+    t0 = _one(fn, "theta0", theta0, torch.float32, dev)
+    iy0 = _one(fn, "crop_iy0", crop_iy0, torch.int64, dev)
+    ix0 = _one(fn, "crop_ix0", crop_ix0, torch.int64, dev)
+    poses_out = torch.empty_like(flat) if steps else None
+    scores = torch.empty((n,), dtype=torch.float32, device=dev)
+    code = _build.library().gs_fusion_sample(
+        c_vol.data_ptr(), flat.data_ptr(), t0.data_ptr(), iy0.data_ptr(),
+        ix0.data_ptr(), _ptr(poses_out), scores.data_ptr(), n, nt, hc, wc,
+        c_vol.stride(0), c_vol.stride(1), int(bool(wrap_theta)), steps,
+        _f32(origin[0]), _f32(origin[1]), _inv(resolution), _inv(dtheta),
+        _f32(resolution), _f32(dtheta), stream_handle(dev))
+    sample_launches += 1
+    _build.check("gs_fusion_sample", code)
+    if not steps:
+        return poses, scores.reshape(lead)
+    return poses_out.reshape(poses.shape), scores.reshape(lead)
+
+
+def score_on_volume(c_vol, poses, *, steps: int = 0, **kw):
+    """(poses, scores): the trilinear sample of the volume at poses (...,
+    3), then `steps` steps of the greedy hill-climb on it (`kw`
+    ops/surface.sample_surface's keyword arguments): F4 on the card, one
+    launch reading the volume in place, its plain version on the CPU."""
+    fn = score_cuda if c_vol.is_cuda else score_plain
+    return fn(c_vol, poses, steps=steps, **kw)
+
+
+# ----------------------------------------------------------------- F5: splat
+def splat_plain(px, py, wgt, thetas, k_cells: int, resolution: float):
+    """Plain version of F5: ops/surface.splat_factors, (A_y diag(w), A_x),
+    each (nt, B, K)."""
+    return splat_factors(px, py, wgt, thetas, k_cells, resolution)
+
+
+def splat_cuda(px, py, wgt, thetas, k_cells: int, resolution: float):
+    """The kernel: splat_plain's two (nt, B, 2 k_cells + 1) factors in one
+    launch, a warp a (bin, beam) row.  px, py, wgt (B,) and thetas (nt,)
+    float32 on the card."""
+    global splat_launches
+    fn = "splat_cuda"
+    dev = px.device
+    b, nt = px.shape[0], thetas.shape[0]
+    for name, t, shape in (("px", px, (b,)), ("py", py, (b,)),
+                           ("wgt", wgt, (b,)), ("thetas", thetas, (nt,))):
+        check_tensor(fn, name, t, shape, dev)
+    k = 2 * k_cells + 1
+    a_yw = torch.empty((nt, b, k), dtype=torch.float32, device=dev)
+    a_x = torch.empty_like(a_yw)
+    code = _build.library().gs_fusion_splat(
+        px.data_ptr(), py.data_ptr(), wgt.data_ptr(), thetas.data_ptr(),
+        a_yw.data_ptr(), a_x.data_ptr(), nt, b, k_cells, _inv(resolution),
+        stream_handle(dev))
+    splat_launches += 1
+    _build.check("gs_fusion_splat", code)
+    return a_yw, a_x
+
+
+def endpoint_factors(px, py, wgt, thetas, k_cells: int, resolution: float):
+    """The endpoint images' factors (ops/surface.splat_factors): F5 on the
+    card, its plain version on the CPU; ops/surface.endpoint_images makes
+    the images of them."""
+    fn = splat_cuda if px.is_cuda else splat_plain
+    return fn(px, py, wgt, thetas, k_cells, resolution)
+
+
+# ------------------------------------------------------------------ F6: scan
+def scan_plain(angle, dist, hit, valid, d_center, d_theta, *,
+               n_bins: int = 0):
+    """Plain version of F6: (angle, dist) of ops/geometry.deskew_scan where
+    the odometry (d_center, d_theta) is given (else None, None), then the
+    (dist, alpha, code) tables of ops/cuda/grid_update.scan_bin_tables of
+    that scan where n_bins > 0 (else three None)."""
+    scan = Scan(angle=angle, dist=dist, hit=hit, valid=valid)
+    out = (None, None)
+    if d_center is not None:
+        scan = deskew_scan(scan, Odom(d_center, d_theta))
+        out = (scan.angle, scan.dist)
+    tables = (scan_bin_tables(scan, n_bins) if n_bins > 0
+              else (None, None, None))
+    return (*out, *tables)
+
+
+def scan_cuda(angle, dist, hit, valid, d_center, d_theta, *,
+              n_bins: int = 0):
+    """The kernel: scan_plain's outputs in one launch, a block a scan.
+    angle, dist (B,) or (G, B) float32 and hit, valid bool on the card;
+    d_center, d_theta 0-dim or (G,), or None for no deskew."""
+    global scan_launches
+    fn = "scan_cuda"
+    dev = angle.device
+    shape = tuple(angle.shape)
+    if len(shape) not in (1, 2):
+        raise ValueError(f"{fn}: need a scan (B,) or (G, B), got {shape}")
+    g, b = (1, shape[0]) if len(shape) == 1 else shape
+    flat = {}
+    for name, t, dtype in (("angle", angle, torch.float32),
+                           ("dist", dist, torch.float32),
+                           ("hit", hit, torch.bool),
+                           ("valid", valid, torch.bool)):
+        flat[name] = t.reshape(g, b).contiguous()
+        check_tensor(fn, name, flat[name], (g, b), dev, dtype=dtype)
+    odo = (None, None)
+    outs = (None, None)
+    if d_center is not None:
+        odo = tuple(d.reshape(-1).contiguous() for d in (d_center, d_theta))
+        for name, d in zip(("d_center", "d_theta"), odo):
+            check_tensor(fn, name, d, (g,), dev)
+        outs = (torch.empty((g, b), dtype=torch.float32, device=dev),
+                torch.empty((g, b), dtype=torch.float32, device=dev))
+    tables = (None, None, None)
+    if n_bins > 0:
+        tables = tuple(torch.empty((g, n_bins), dtype=torch.float32,
+                                   device=dev) for _ in range(3))
+    code = _build.library().gs_fusion_scan(
+        flat["angle"].data_ptr(), flat["dist"].data_ptr(),
+        flat["hit"].data_ptr(), flat["valid"].data_ptr(),
+        *(_ptr(t) for t in (*odo, *outs, *tables)), g, b, max(n_bins, 0),
+        _f32(2.0 * math.pi / n_bins) if n_bins > 0 else 0.0,
+        stream_handle(dev))
+    scan_launches += 1
+    _build.check("gs_fusion_scan", code)
+    lead = shape[:-1]
+    return (*(None if t is None else t.reshape(shape) for t in outs),
+            *(None if t is None else t.reshape(*lead, n_bins)
+              for t in tables))
+
+
+def _scan_fn(angle):
+    return scan_cuda if angle.is_cuda else scan_plain
+
+
+def prepare_scan(scan: Scan, odom: Odom, n_bins: int):
+    """(deskew_scan(scan, odom), scan_bin_tables(that scan, n_bins)), for a
+    scan (B,) or a batch (G, B) with odometry of shape (G,): F6 on the card
+    in one launch, its plain version on the CPU."""
+    a, d, *tables = _scan_fn(scan.angle)(
+        scan.angle, scan.dist, scan.hit, scan.valid, odom.d_center,
+        odom.d_theta, n_bins=n_bins)
+    return Scan(angle=a, dist=d, hit=scan.hit, valid=scan.valid), tuple(tables)
+
+
+def bin_tables(scan: Scan, n_bins: int):
+    """ops/cuda/grid_update.scan_bin_tables(scan, n_bins): F6 on the card,
+    its plain version on the CPU."""
+    return _scan_fn(scan.angle)(scan.angle, scan.dist, scan.hit, scan.valid,
+                                None, None, n_bins=n_bins)[2:]
+
+
+def deskew(scan: Scan, odom: Odom) -> Scan:
+    """ops/geometry.deskew_scan(scan, odom): F6 on the card, its plain
+    version on the CPU."""
+    a, d = _scan_fn(scan.angle)(scan.angle, scan.dist, scan.hit, scan.valid,
+                                odom.d_center, odom.d_theta)[:2]
+    return Scan(angle=a, dist=d, hit=scan.hit, valid=scan.valid)

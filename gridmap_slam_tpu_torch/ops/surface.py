@@ -13,7 +13,10 @@ products (a batched matmul), and the correlation runs as an f32 conv2d, as
 an FFT (torch.fft) or, with `bf16`, as bf16 products with float32 sums
 (kernel K4 on the card, ops/cuda/surface_corr.py).  None of this is a TPU
 kernel in the JAX package; the map operations around it (field build K3,
-map update K2) are.
+map update K2) are.  On the card the engines sample the volume and climb on
+it through F4 and splat the endpoints' factors through F5
+(ops/cuda/fusions.py), which read the volume in place: the functions here
+are those kernels' plain versions, with the bits of their tensor ops.
 
 The float32 modes are honest float32 on a CUDA device whatever the global
 TF32 flags say: the conv runs under a local cuDNN flag and the splat under
@@ -57,14 +60,12 @@ def theta_grid(nt: int, span_rad: float):
     return 2.0 * span_rad / max(nt - 1, 1), False, -span_rad
 
 
-def splat_endpoint_kernels(px, py, wgt, thetas, k_cells: int,
-                           resolution: float):
-    """(nt, K, K) stack of bilinearly-splatted endpoint images, one per
-    theta bin; K = 2*k_cells + 1 covers endpoints within k_cells of the
-    robot.  Beams beyond the kernel radius clamp to the rim.
-
-    Each image is the two-tap outer product E = A_y^T diag(w) A_x with A_*
-    the (B, K) bilinear corner weights, as one batched matmul."""
+def splat_factors(px, py, wgt, thetas, k_cells: int, resolution: float):
+    """The factors of splat_endpoint_kernels' images: (A_y diag(w), A_x),
+    each (nt, B, K) with K = 2*k_cells + 1, A_* the bilinear corner weights
+    of each endpoint rotated by each bin's heading into the kernel frame
+    (beams beyond the kernel radius clamp to the rim).  On the card one
+    kernel writes both (ops/cuda/fusions.endpoint_factors, F5)."""
     k = 2 * k_cells + 1
     idx = torch.arange(k, dtype=torch.int64, device=px.device)
     c = torch.cos(thetas)[:, None]
@@ -82,8 +83,26 @@ def splat_endpoint_kernels(px, py, wgt, thetas, k_cells: int,
            + torch.where(idx == y0i + 1, ty[..., None], zero))   # (nt, B, K)
     a_x = (torch.where(idx == x0i, 1.0 - tx[..., None], zero)
            + torch.where(idx == x0i + 1, tx[..., None], zero))
+    return a_y * wgt[:, None], a_x
+
+
+def endpoint_images(a_yw, a_x):
+    """The (nt, K, K) endpoint images A_y^T diag(w) A_x of splat_factors'
+    factors, as one batched matmul in float32."""
     with f32_matmul():
-        return torch.bmm((a_y * wgt[:, None]).transpose(1, 2), a_x)
+        return torch.bmm(a_yw.transpose(1, 2), a_x)
+
+
+def splat_endpoint_kernels(px, py, wgt, thetas, k_cells: int,
+                           resolution: float):
+    """(nt, K, K) stack of bilinearly-splatted endpoint images, one per
+    theta bin; K = 2*k_cells + 1 covers endpoints within k_cells of the
+    robot.  Beams beyond the kernel radius clamp to the rim.
+
+    Each image is the two-tap outer product E = A_y^T diag(w) A_x with A_*
+    the (B, K) bilinear corner weights, as one batched matmul."""
+    return endpoint_images(*splat_factors(px, py, wgt, thetas, k_cells,
+                                          resolution))
 
 
 def _fft_size(n: int) -> int:
@@ -130,8 +149,10 @@ def scan_surface(llf_crop, e_stack, ll_outside: float, bf16: bool = False,
     if fft:
         h2, w2 = _fft_size(fpad.shape[0]), _fft_size(fpad.shape[1])
         f_hat = torch.fft.rfft2(fpad, s=(h2, w2))
-        e_hat = torch.fft.rfft2(e_stack, s=(h2, w2))
-        out = torch.fft.irfft2(f_hat[None] * torch.conj(e_hat), s=(h2, w2))
+        # the images' spectra are freed once multiplied, before the inverse
+        # (whose input copy, output and work area are the build's peak)
+        spec = f_hat[None] * torch.conj(torch.fft.rfft2(e_stack, s=(h2, w2)))
+        out = torch.fft.irfft2(spec, s=(h2, w2))
         return out[:, :hc, :wc].to(torch.float32)
     if bf16:
         shift = -0.5 * ll_outside
@@ -143,12 +164,19 @@ def scan_surface(llf_crop, e_stack, ll_outside: float, bf16: bool = False,
     return out[0]                                       # (nt, Hc, Wc)
 
 
+packs_on_card = 0   # packed arrays built from a volume on the card since
+                    # the count was last set to 0 (the engines build none)
+
+
 def pack_neighborhoods(c_vol, wrap_theta: bool = False):
     """(nt, hc, wc) -> flattened ((nt+1)*(hc+1)*(wc+1), 8) array holding
     every base cell's full 2x2x2 tap neighborhood, edge-padded (wrapped
     along theta for full-circle grids), so clamped taps read the same values
     as `_tap`'s index clipping.  A trilinear sample becomes one contiguous
-    8-wide gather; the array is 8x the volume's memory."""
+    8-wide gather; the array is 8x the volume's memory.  Counted in
+    `packs_on_card` where the volume is on the card."""
+    global packs_on_card
+    packs_on_card += c_vol.is_cuda
     nt, hc, wc = c_vol.shape
     v = F.pad(c_vol[None], (1, 1, 1, 1), mode="replicate")[0]
     if wrap_theta:

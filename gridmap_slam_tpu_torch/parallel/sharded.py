@@ -38,8 +38,8 @@ import math
 import torch
 
 from ..models.rbpf import RBPF
-from ..ops.cuda.grid_update import integrate_scan_batch, scan_bin_tables
-from ..ops.geometry import deskew_scan
+from ..ops.cuda import fusions
+from ..ops.cuda.grid_update import integrate_scan_batch
 from ..ops.matcher import correlative_match_batch
 from ..ops.motion import sample_and_propagate
 from ..types import Frame
@@ -69,9 +69,9 @@ def make_sharded_step(engine: RBPF, mesh, jit: bool = False):
     def body(state, frame: Frame, draws, out, host_gate):
         normals, u0 = draws
         normals = normals[i_p * p_loc:(i_p + 1) * p_loc]
-        scan = deskew_scan(frame.scan, frame.odom)
+        scan, tables = fusions.prepare_scan(frame.scan, frame.odom,
+                                            cfg.beam_lut_bins)
         odom = frame.odom
-        tables = scan_bin_tables(scan, cfg.beam_lut_bins)
         keep = (torch.abs(odom.d_theta)
                 <= math.radians(cfg.skip_update_dtheta_deg)).to(torch.float32)
         if cfg.freeze_map:          # localization-only: map never changes

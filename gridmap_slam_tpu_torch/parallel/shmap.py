@@ -63,11 +63,11 @@ from ..models.shared import (SharedMapSLAM, SharedMapState, inject_uniform,
                              integration_pose, match_particles,
                              matcher_block_size, recovery_update,
                              surface_temper, surface_volume)
+from ..ops.cuda import fusions
 from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.geometry import wrap_angle
 from ..ops.motion import apply_odometry, sample_motion
 from ..ops.resample import systematic_indices
-from ..ops.surface import refine_on_surface, sample_surface
 from ..types import Frame, StepInfo
 from .mesh import (all_gather, axis_index, axis_size, pmax, psum,
                    shard_state)
@@ -357,9 +357,8 @@ def make_shmap_step(engine: SharedMapSLAM, mesh, surface: bool = False,
             c_vol, kw, kc = surface_volume(cfg, engine.taps, state.logodds,
                                            scan, center)
             pose_s = sample_motion(state.poses, odom, cfg.motion, normals)
-            scores = sample_surface(c_vol, pose_s, **kw)
-            poses, scores = refine_on_surface(
-                c_vol, pose_s, scores, steps=mc.surface_refine_steps, **kw)
+            poses, scores = fusions.score_on_volume(
+                c_vol, pose_s, steps=mc.surface_refine_steps, **kw)
             scores = surface_temper(mc, scan, scores)
             crop, fraction = 2 * kc + 8, mc.surface_resample_fraction
         else:

@@ -32,11 +32,11 @@ import torch
 from ..models.shared import SharedMapSLAM, _window, surface_temper
 from ..ops.cuda.grid_update import integrate_scan_window
 from ..ops.cuda.likelihood import log_likelihood_field_batch
+from ..ops.cuda import fusions
 from ..ops.geometry import scan_points
 from ..ops.motion import apply_odometry, sample_motion
-from ..ops.surface import (crop_center_cells, pack_neighborhoods,
-                           refine_on_surface, sample_surface, scan_surface,
-                           splat_endpoint_kernels, theta_grid)
+from ..ops.surface import (crop_center_cells, endpoint_images, scan_surface,
+                           theta_grid)
 from ..types import Frame
 from .mesh import all_gather, axis_index, axis_size, psum, shard_state
 from .shmap import (MeshStep, finish_step, global_weighted_mean,
@@ -109,18 +109,17 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh,
             torch.float32)
         px, py = scan_points(scan)
         wgt = (scan.valid & scan.hit).to(llf_crop.dtype)
-        e_stack = splat_endpoint_kernels(px, py, wgt, thetas, kc, res)
+        e_stack = endpoint_images(*fusions.endpoint_factors(
+            px, py, wgt, thetas, kc, res))
         c_local = scan_surface(llf_crop, e_stack, ll_outside,
                                bf16=mc.surface_bf16, fft=use_fft)
         c_vol = all_gather(c_local, mesh, "m", tiled=True)[:nt]
         kw = dict(theta0=theta0, dtheta=dtheta, crop_iy0=iy0, crop_ix0=ix0,
-                  resolution=res, origin=origin, wrap_theta=wrap_theta,
-                  packed=pack_neighborhoods(c_vol, wrap_theta))
+                  resolution=res, origin=origin, wrap_theta=wrap_theta)
 
         pose_s = sample_motion(state.poses, odom, cfg.motion, normals)
-        scores = sample_surface(c_vol, pose_s, **kw)
-        poses, scores = refine_on_surface(
-            c_vol, pose_s, scores, steps=mc.surface_refine_steps, **kw)
+        poses, scores = fusions.score_on_volume(
+            c_vol, pose_s, steps=mc.surface_refine_steps, **kw)
         scores = surface_temper(mc, scan, scores)
 
         def integrate(pose, into):

@@ -2,7 +2,8 @@
 alternating processes on one card: device time, peak memory and bits.
 
 For each path (chip_smoke.py's captured phase's engines and logs: parity,
-pr1, chip, mega, mega_blocked over 6 scans, multi at 10 000 a robot over
+pr1, chip, mega, city, mega_bf16, city_bf16, mega_refine (mega with two
+hill-climb steps), mega_blocked over 6 scans, multi at 10 000 a robot over
 20 ticks; and its parallel phase's compiled mesh steps at mesh (1, 1) over
 NCCL, `MeshStep.replay_jit`: mesh_shmap at 1M particles over 6 scans,
 mesh_shmap_surface (mega), mesh_tiled (city at 10 000), mesh_surface_sharded
@@ -39,7 +40,7 @@ this tree: B A A B), prints the card's name and power limit, a JSON line a
 child's path, then a summary line: each path's numbers of A and B side by
 side, and whether every digest agreed.
 
-Usage (needs a GPU; ~6 min for the default paths):
+Usage (needs a GPU; ~12 min for the default paths):
     python scripts/cond_ab.py --root DIR [--paths parity,pr1,...]
     python scripts/cond_ab.py --root DIR --paths mesh_shmap,...,rebuild
 """
@@ -52,7 +53,13 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-PATHS = ("parity", "pr1", "chip", "mega", "mega_blocked", "multi")
+PATHS = ("parity", "pr1", "chip", "mega", "city", "mega_bf16", "city_bf16",
+         "mega_refine", "mega_blocked", "multi")
+# the surface paths' configurations: the package's presets or
+# chip_smoke.py's helpers
+SURFACE = {"mega": "mega_config", "city": "city_config",
+           "mega_bf16": "bf16_config", "city_bf16": "city_bf16_config",
+           "mega_refine": "refine_config"}
 MESH_PATHS = ("mesh_shmap", "mesh_shmap_surface", "mesh_tiled",
               "mesh_surface_sharded", "mesh_sharded")
 ORDER = "BAAB"
@@ -77,7 +84,8 @@ def setup(name):
     of a path, from the tree's own chip_smoke.py helpers; the eager replay
     takes (state, frames, generator)."""
     import chip_smoke as cs
-    from gridmap_slam_tpu_torch import RBPF, SharedMapSLAM, mega_config
+    import gridmap_slam_tpu_torch as port
+    from gridmap_slam_tpu_torch import RBPF, SharedMapSLAM
     from gridmap_slam_tpu_torch.io import frames_to_device
     from gridmap_slam_tpu_torch.models.captured import tree_map
     from gridmap_slam_tpu_torch.models.multi import stack_frames
@@ -104,8 +112,10 @@ def setup(name):
         eng = RBPF(cfg, device="cuda")
         return (eng, eng.init, eng.replay_jit(), stacked(cfg), cs.N_SCANS,
                 eng.replay)
-    if name == "mega":
-        eng = SharedMapSLAM(mega_config(), device="cuda")
+    if name in SURFACE:
+        make = SURFACE[name]
+        cfg = getattr(port if hasattr(port, make) else cs, make)()
+        eng = SharedMapSLAM(cfg, device="cuda")
         return (eng, eng.init, eng.replay_surface_jit(),
                 stacked(eng.config), cs.N_SCANS, eng.replay_surface)
     cfg = cs.parity_config().replace(num_particles=cs.MEGA_PARTICLES,

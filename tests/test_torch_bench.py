@@ -620,6 +620,51 @@ def test_a_launch_s_records_take_the_bodies_filed_under_it():
 
 
 
+def test_a_body_s_record_named_after_another_graph_s_body_aligns():
+    """CUPTI may name a record of an IF node's body after a body kernel of a
+    graph captured earlier in the process: such a record (its name among
+    `foreign`) still stands where the IF node does, so the launch is whole
+    and the span reads its own nodes; without `foreign` it is not whole.
+    A foreign name that is the next kernel node's is that node's."""
+    kernels = K.load()
+    scans, order, node = 2, [], 0
+    for _ in range(scans):
+        order += [("k0", node), (FUNCTIONS["K2"], node + 1),
+                  (None, node + 2, ["b0", "b1"]), (FUNCTIONS["K3"], node + 3)]
+        node += 4
+    names = [e[0] for e in order if e[0] is not None]
+    span = {"surface": {e[1] for e in order if e[0] == "k0"}}
+    host = [SimpleNamespace(id=1000, name="cudaGraphLaunch",
+                            time_range=_Range(0, 5.0))]
+    dev, t = [], 0
+    for k in range(scans):
+        for name in ["k0", FUNCTIONS["K2"], "rebuild_k2", "b1",
+                     FUNCTIONS["K3"]]:
+            t += 1
+            dev.append(SimpleNamespace(
+                id=1000, name=name,
+                time_range=_Range(t, 2.0 if name == "k0" else 9.0)))
+    foreign = frozenset({"b0", "b1", "rebuild_k2"})
+    out = layers.read_replays(kernels, ["K2", "K3"], span, names, order,
+                              scans, dev, host, scans, foreign)
+    assert out["launches_whole"] == [1, 1]
+    assert out["device_ms_a_scan.surface"] == pytest.approx(2e-3)
+    out = layers.read_replays(kernels, ["K2", "K3"], span, names, order,
+                              scans, dev, host, scans)
+    assert out["launches_whole"] == [0, 1]
+    assert out["device_ms_a_scan.surface"] is None
+    run = [("k0", None, 1.0), (FUNCTIONS["K3"], "K3", 1.0)]
+    chain = [("k0", 0), (None, 1, ["b0"]), (FUNCTIONS["K3"], 2)]
+    assert layers.align(run, chain, kernels,
+                        frozenset({FUNCTIONS["K3"]})) == [chain[0], chain[2]]
+    # a kernel node's record named after another graph's body kernel
+    run = [("k0", None, 1.0), ("rebuild_k2", None, 1.0)]
+    chain = [("k0", 0), (FUNCTIONS["K3"], 1)]
+    assert layers.align(run, chain, kernels, foreign) == chain
+    why = []
+    assert layers.align(run, chain, kernels, why=why) is None
+    assert why == [dict(record=1, node=FUNCTIONS["K3"], got="rebuild_k2")]
+
 def test_a_graph_of_the_whole_log_is_read_a_scan():
     """read_replays on two replays that each launch one graph of 3 scans:
     a kernel's time is the mean of its records times its nodes over the

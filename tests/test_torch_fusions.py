@@ -324,7 +324,8 @@ def test_signatures_name_each_c_entry_of_fusions_cu():
     src = (Path(_build.CSRC) / "fusions.cu").read_text()
     entries = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
     assert {name for name, _ in entries} == {
-        "gs_fusion_motion", "gs_fusion_pool", "gs_fusion_pick"}
+        "gs_fusion_motion", "gs_fusion_pool", "gs_fusion_pick",
+        "gs_fusion_sample", "gs_fusion_splat", "gs_fusion_scan"}
     for name, params in entries:
         assert len(_build.SIGNATURES[name]) == len(params.split(",")), name
     assert Path(_build.CSRC) / "fusions.cu" in _build.sources()

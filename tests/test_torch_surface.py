@@ -285,9 +285,9 @@ def test_surface_volume_matches(volume_map, case):
                                atol=1e-4)
     if case == "edge":
         assert (int(tkw["crop_iy0"]), int(tkw["crop_ix0"])) == (0, 0)
-    np.testing.assert_allclose(tkw["packed"].numpy(),
-                               np.asarray(jkw["packed"]), rtol=1e-5,
-                               atol=1e-4)
+    np.testing.assert_allclose(
+        tsf.pack_neighborhoods(got, tkw["wrap_theta"]).numpy(),
+        np.asarray(jkw["packed"]), rtol=1e-5, atol=1e-4)
 
 
 # ------------------------------------------------------ K3 at wide radii
