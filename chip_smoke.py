@@ -214,12 +214,15 @@ Phases, each printed on its own line:
    parity --set matcher.coarse_halfres=false` (3 replays) must print a
    correct line.  The kernels' bounds everywhere in this script are the
    benchmark's (gridmap_slam_tpu_torch/bench/kernels/);
-21. fusions — F1-F6 (csrc/fusions.cu: the motion model, the coarse
+21. fusions — F1-F8 (csrc/fusions.cu: the motion model, the coarse
    pool, each matcher stage's prior, argmax and pick, the surface's
    trilinear sample and hill-climb (F4, reading the volume in place), the
-   endpoint splat's tap weights (F5) and the scan's deskew and bin tables
-   (F6), XLA's fusions of the JAX step), which every path launches where
-   it runs that glue: every recorded call of them (CallRecorder records
+   endpoint splat's tap weights (F5), the scan's deskew and bin tables
+   (F6), the weights' tail (F7: the max, the first argmax and its pose,
+   Neff, the weighted mean pose and the shared map's scalar epilogue, the
+   sums in ops/resample's fixed order) and the systematic walk in the
+   resample gate's body (F8), XLA's fusions of the JAX step), which every
+   path launches where it runs that glue: every recorded call of them (CallRecorder records
    them on every path it records; check_fusion; the mega path's first
    run and a mega refine step are recorded for them too) is held against
    its plain version, the op sequence it replaced, on the card, and one
@@ -230,16 +233,22 @@ Phases, each printed on its own line:
    torch.sum (sample_order: F4 must give today's sample), F6 on planted
    scans (equal bearings, +-0.0, +-pi, padding, an all-invalid scan; 96
    slots, where the card's stable argsort is a merge sort, and 192 and 360,
-   a radix sort: both keep -0.0 and +0.0 in index order), and a line of
+   a radix sort: both keep -0.0 and +0.0 in index order), F7's exp against
+   torch.exp over 1M values (exp_probe: every bit), and a line of
    every path's checks; it fails where a path
-   has no checked F6 call, a matcher path (parity, chip, pr1, mega_blocked,
+   has no checked F6 call, a single-device path (WEIGHTS_PATHS) no checked
+   F7 and F8 call (its eager steps run the gate's body every scan), a matcher path (parity, chip, pr1, mega_blocked,
    multi (10 000), posegraph's filter and closures, tiled) no checked F3
    call, or a surface path (mega, the city step, the mega_bf16 and
    city_bf16 steps, mega refine, shmap_surface, surface_sharded) no checked
    F4 and F5 call (mega refine also its hill-climb).  The captured phase
-   prints each graph's kernel nodes a scan and fails where parity's exceed
-   220 or chip's 700, or where a path built a packed neighbourhood array
-   on the card (ops/surface.packs_on_card).
+   prints each graph's kernel nodes a scan, and among them PyTorch's reduce
+   and scan kernels, beside the torch reductions an eager replay
+   dispatched by call site; it fails where a graph holds more kernel nodes
+   a scan than the tree before F7 and F8 (NODES_A_SCAN_MAX), where one of
+   those reductions is the weights' tail's (ops/resample.py, a step's
+   argmax), or where a path built a packed neighbourhood array on the card
+   (ops/surface.packs_on_card).
 
 Each path (parity, mega, city, mega_blocked, multi at each particle count,
 the posegraph flow's three parts: the filter, closure detection, the
@@ -262,9 +271,9 @@ fails the run.  Then
 one JSON line of kernels, with their launches per path, their launches a
 scan inside each captured path's graph, bounds and, in `stages`, K1's
 stages at the parity shapes (the nearest-cell coarse stage among them)
-and at pr1's, K2's and K3's at pr1's, F1-F6's rows (max error 0: their
-bits; ms, plain ms and bound on the parity path's calls, F4's and F5's on
-the mega path's, F3's, F4's and F6's stages),
+and at pr1's, K2's and K3's at pr1's, F1-F8's rows (max error 0: their
+bits; ms, plain ms and bound on the parity path's calls, F4's, F5's, F7's
+and F8's on the mega path's, F3's, F4's, F6's, F7's and F8's stages),
 and last
 {"ok": true, "device": {...}}.
 Any failure raises: the script exits non-zero and prints no "ok" line.
@@ -356,12 +365,12 @@ FRONTEND_NODES = {"verify": {"stage_scores": 10, "integrate_scan": 2,
                              "log_likelihood_field": 2, "surface_corr": 0,
                              "stage_scores_tile": 0, "motion": 0, "pool": 2,
                              "pick": 10, "sample": 0, "splat": 0,
-                             "scan": 2},
+                             "scan": 2, "weights": 0, "walk": 0},
                   "rebuild": {"stage_scores": 0, "integrate_scan": 1,
                               "log_likelihood_field": 0, "surface_corr": 0,
                               "stage_scores_tile": 0, "motion": 0,
                               "pool": 0, "pick": 0, "sample": 0, "splat": 0,
-                              "scan": 1}}
+                              "scan": 1, "weights": 0, "walk": 0}}
 CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
 PR1_SCANS = 3          # the pr1 phase's scans under CallRecorder
 # the bench phase's one measurement with bench.py's flags: the pr1 preset
@@ -396,11 +405,12 @@ K1_TILE_MAX_FRAC = 1e-3
 TILED_ATOL = 1e-4          # poses and map against SharedMapSLAM.step
 SS_POSE_ATOL, SS_MAP_ATOL, SS_NEFF_RTOL = 2e-3, 1e-3, 1e-3  # tests/test_surface_sharded.py:66-73
 BA_CHI2_RTOL, BA_NODES_ATOL = 1e-3, 1e-3   # tests/test_ba.py:43-45
-# F1-F3 (csrc/fusions.cu): their rows, and the paths on which the fusions
+# F1-F8 (csrc/fusions.cu): their rows, and the paths on which the fusions
 # phase requires their recorded calls held bit for bit against their
 # plain versions (multi at 10 000 a robot; the posegraph flow's filter and
 # closures)
-FUSION_ROWS = ("motion", "pool", "pick", "sample", "splat", "scan")
+FUSION_ROWS = ("motion", "pool", "pick", "sample", "splat", "scan",
+               "weights", "walk")
 # the surface paths, each of which must hold a checked F4 (and F5) call
 # (the mega refine path its hill-climb's too)
 SURFACE_PATHS = ("mega", "city step", "mega_bf16 step", "city_bf16 step",
@@ -409,7 +419,13 @@ SURFACE_PATHS = ("mega", "city step", "mega_bf16 step", "city_bf16 step",
 FUSION_PATHS = ("parity", "chip", "pr1", "mega_blocked", "multi 10000",
                 "posegraph_rbpf", "posegraph_closures", "tiled",
                 *SURFACE_PATHS)
-FUSION_CHECKS = []         # every recorded F1-F6 call's check, in order
+# the single-device paths, each of which must hold a checked F7 call and,
+# where a gate fired, a checked F8 call (the mesh engines' tail keeps its
+# tensor ops: ops/resample's plain functions)
+WEIGHTS_PATHS = ("parity", "chip", "pr1", "mega_blocked", "multi 10000",
+                 "posegraph_rbpf", "mega", "city step", "mega_bf16 step",
+                 "city_bf16 step", "mega refine")
+FUSION_CHECKS = []         # every recorded F1-F8 call's check, in order
 FUSION_ARGS = {}           # the first recorded call's (args, kw) a kernel
 # the kernel rows held in the conditional bodies of the frontend's graphs
 # captured so far in this process (the rebuild's K2): CUPTI was seen to
@@ -430,13 +446,36 @@ F5_ROW_FLOPS, F5_TAP_FLOPS = 22, 3
 # bin's (its center, two differences, two wraps, two magnitudes, the
 # compare); the sort's and the search's comparisons are added at log2 B
 F6_DESKEW_FLOPS, F6_WRAP_FLOPS, F6_BIN_FLOPS = 16, 3, 14
+# F7's operations a weight: the max's compare; the difference, exp and sum
+# of the total; the difference, exp and quotient again, four products, the
+# wrap's sine, cosine and atan2, four sums
+F7_FLOPS = 18
+# F8's operations a weight: the difference, exp and quotient, the segment's
+# and the carry's sums, u's product and sum; then two a probe of the
+# binary search (the carry's sum and the compare), log2 P probes
+F8_FLOPS = 7
+# F7's exp against torch.exp on the card over this many values
+EXP_PROBE_VALUES = 1 << 20
+# the torch reductions and scans a step may dispatch (aten op names): the
+# captured phase fails where one comes from the weights' tail, which F7
+# and F8 hold on the card
+REDUCTION_OPS = frozenset((
+    "sum", "mean", "max", "min", "amax", "amin", "argmax", "argmin", "prod",
+    "cumsum", "cumprod", "logsumexp", "_softmax", "any", "all", "nonzero",
+    "norm", "linalg_vector_norm", "std", "var", "sort", "topk"))
 # kernel launches of a CLI replay outside its step, once a run: the final
 # map's overlay pose and scan (app/cli._overlay: apply_odometry, F1; the
 # deskew, F6)
 CLI_RUN_LAUNCHES = {"motion": 1, "scan": 1}
 # kernel nodes a scan (a conditional node's body counted) that a captured
-# path's first graph may hold at most
-NODES_A_SCAN_MAX = {"parity": 220, "chip": 700}
+# path's first graph may hold at most: what the graphs held before F7 and F8
+# took the weights' tail (this script's count on an H100 80GB HBM3, 700 W)
+NODES_A_SCAN_MAX = {"parity": 116.09, "chip": 475.09, "pr1": 93.09,
+                    "grand_tour_216": 94.07, "mega": 140.09,
+                    "mega room_loop_40": 140.07, "mega refine": 140.09,
+                    "mega_bf16": 129.09, "mega_direct": 127.09,
+                    "city": 173.09, "city_bf16": 162.09,
+                    "mega_blocked": 114.17, "multi": 138.07}
 
 
 def say(phase: str, **fields) -> None:
@@ -495,8 +534,11 @@ def build_phase() -> None:
     t0 = time.perf_counter()
     path, log = _build.build(verbose=True)
     _build.library()
-    k1, k1t, k2, k3, k4 = [], [], [], [], []
+    k1, k1t, k2, k3, k4, fused = [], [], [], [], [], []
     for name, use in sorted(_build.ptxas_usage(log).items()):
+        m = re.search(r"fusion_(\w+?)_kernel", name)
+        if m:
+            fused.append(dict(kernel=m.group(1), **use))
         m = re.search(r"stage_scores_tile_kernelILb([01])ELi(\d)E", name)
         if m:
             k1t.append(dict(kernel="staged", nearest=m.group(1) == "1",
@@ -526,7 +568,12 @@ def build_phase() -> None:
                  for p in _build.sources()],
         library=path.name, k1_registers_assumed=kmatch.REGISTERS,
         k1_variants=k1, k1_tile_staged_variants=k1t, k2_variants=k2,
-        k3_variants=k3, k4_kernels=k4)
+        k3_variants=k3, k4_kernels=k4, fusion_kernels=fused)
+    tail = [v for v in fused if v["kernel"].startswith(("weights", "walk"))]
+    if len(tail) != 5 or any(v["spill_stores"] or v["spill_loads"]
+                             for v in tail):
+        raise AssertionError(f"F7 and F8: expected 5 kernels without "
+                             f"spills: {tail}")
     if len(k2) != 3 or len(k3) != 9 or len(k4) != 2 or any(
             v["spill_stores"] or v["spill_loads"] for v in k2 + k3 + k4):
         raise AssertionError(f"K2: expected 3 instantiations, K3: 9, K4: 2, "
@@ -1155,9 +1202,10 @@ class _TileCount:
 
 
 class _FusionCount:
-    """One of F1-F6's launch counts (ops/cuda/fusions.motion_launches,
+    """One of F1-F8's launch counts (ops/cuda/fusions.motion_launches,
     pool_launches, pick_launches, sample_launches, splat_launches,
-    scan_launches) read and set as a module's `launches`."""
+    scan_launches, weights_launches, walk_launches) read and set as a
+    module's `launches`."""
 
     def __init__(self, attr: str):
         self.attr = attr
@@ -1698,7 +1746,7 @@ def surface_path(preset, cfg, frames, gt, ate_max, record=False):
     returns (the counts, the engine, the first run's state, the frames, its
     trajectory of weighted poses).  record=True: the first run's kernel
     calls are recorded (CallRecorder, the path `preset`) and held against
-    their plain versions (check_recorded; F1-F6 bit for bit)."""
+    their plain versions (check_recorded; F1-F8 bit for bit)."""
     from gridmap_slam_tpu_torch import SharedMapSLAM
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
     from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
@@ -1790,7 +1838,7 @@ KERNEL_ROWS = {"K1": "stage_scores", "K2": "integrate_scan",
                "K3": "log_likelihood_field", "K1t": "stage_scores_tile",
                "K2w": "integrate_scan", "K4": "surface_corr",
                "F1": "motion", "F2": "pool", "F3": "pick", "F4": "sample",
-               "F5": "splat", "F6": "scan"}
+               "F5": "splat", "F6": "scan", "F7": "weights", "F8": "walk"}
 # the rows of the untiled paths (K1's tile variant runs on tiled maps only)
 BASE_ROWS = ("stage_scores", "integrate_scan", "log_likelihood_field")
 _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
@@ -1802,7 +1850,8 @@ _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
           "F1": ("fusions", "motion_cuda"), "F2": ("fusions", "pool_cuda"),
           "F3": ("fusions", "pick_cuda"), "F4": ("fusions", "score_cuda"),
           "F5": ("fusions", "splat_cuda"),
-          "F6": ("fusions", "scan_cuda")}
+          "F6": ("fusions", "scan_cuda"), "F7": ("fusions", "weights_cuda"),
+          "F8": ("fusions", "walk_cuda")}
 PATH_MAX_ERR = {row: 0.0 for row in KERNEL_ROWS.values()}
 BOUNDS = {"K1": k1_bound, "K2": k2_bound, "K3": k3_bound, "K1t": k1t_bound,
           "K2w": k2w_bound, "K4": k4_bound}
@@ -1844,7 +1893,7 @@ class CallRecorder:
     `calls_a_shape` calls of every call shape under the current `path`
     label are kept, their tensors cloned, and the kernel then runs and
     counts its launch as before.  `kernels`: the _ENTRY keys to record
-    (all of them, F1-F6 among them, by default)."""
+    (all of them, F1-F8 among them, by default)."""
 
     def __init__(self, path: str, calls_a_shape: int = 1, kernels=_ENTRY):
         self.path = path
@@ -1890,7 +1939,7 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
     """Each recorded call again, on the kernel and on its plain version, on
     the very arguments the path passed: whole up to FULL_PARTICLES, else
     the real call's first and last SLICE_PARTICLES' rows against the plain
-    version on those particles; F1-F6's calls whole, bit for bit
+    version on those particles; F1-F8's calls whole, bit for bit
     (check_fusion, kept in FUSION_CHECKS).  Raises beyond the kernel's
     tolerance, or where a kernel launched on a path (`launches_by_path`)
     has no recorded call there.  Returns the checks of the other kernels,
@@ -1985,7 +2034,7 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
     return checks
 
 
-FUSIONS = ("F1", "F2", "F3", "F4", "F5", "F6")
+FUSIONS = ("F1", "F2", "F3", "F4", "F5", "F6", "F7", "F8")
 
 
 def _outputs(out) -> list:
@@ -1997,15 +2046,17 @@ def _outputs(out) -> list:
 
 
 def _bits_differing(a, b) -> int:
-    """The elements of two float32 tensors whose bits differ (every
-    element where their shapes differ)."""
+    """The elements of two float32 (or integer or bool) tensors whose bits
+    differ (every element where their shapes or dtypes differ)."""
     if a.shape != b.shape or a.dtype != b.dtype:
         return max(a.numel(), b.numel())
-    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+    if a.dtype == torch.float32:
+        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+    return int((a != b).sum())
 
 
 def fusion_bound(kernel, args, kw):
-    """(bound ms, "operations" or "bytes") of one F1-F6 call: each input
+    """(bound ms, "operations" or "bytes") of one F1-F8 call: each input
     read once and each output written once over the HBM rate, beside its
     float operations (F1 ~20 a sampled pose and 10 a propagated one, the
     sines, cosines and atan2 counted one each; F2 4 an output cell; F3
@@ -2013,6 +2064,16 @@ def fusion_bound(kernel, args, kw):
     climb step; F5 and F6 their constants above) over the FP32 peak, as
     bench/bounds.bound."""
     from gridmap_slam_tpu_torch.bench.bounds import bound, nbytes
+    if kernel == "F7":
+        lw = args[0]
+        rows, n = lw.numel() // lw.shape[-1], lw.numel()
+        out = rows * 44 + (25 if kw.get("recov") is not None else 0)
+        return bound(F7_FLOPS * n, nbytes([*args, *kw.values()]) + out)
+    if kernel == "F8":
+        n = args[0].numel()
+        probes = math.ceil(math.log2(max(n, 2)))
+        out = n * (20 + 4 * kw.get("gather_weights", True))
+        return bound(n * (F8_FLOPS + 2 * probes), nbytes(args) + out)
     if kernel == "F4":
         n, steps = args[1].numel() // 3, kw.get("steps", 0)
         return bound(F4_FLOPS * n * (1 + 6 * steps),
@@ -2050,7 +2111,7 @@ def fusion_bound(kernel, args, kw):
 
 
 def check_fusion(path, kernel, args, kw) -> dict:
-    """One recorded call of F1-F6 again, on the kernel and on its plain
+    """One recorded call of F1-F8 again, on the kernel and on its plain
     version (the op sequence it replaced) on the card, on the very
     arguments the path passed: every output equal bit for bit, or the run
     fails.  Times both (CUDA events) beside the bound.  Appends the row to
@@ -2059,12 +2120,14 @@ def check_fusion(path, kernel, args, kw) -> dict:
     mod, attr = _entry(kernel)
     cuda_fn = getattr(mod, attr)
     plain_fn = getattr(mod, attr.replace("_cuda", "_plain"))
+    # F8's outputs go to new tensors here, not to the path's (`out`)
+    kw = {k: v for k, v in kw.items() if k != "out"}
     got, want = (_outputs(fn(*args, **kw)) for fn in (cuda_fn, plain_fn))
     differing = (sum(_bits_differing(a, b) for a, b in zip(got, want))
                  if len(got) == len(want) else -1)
-    err = max((float((a - b).abs().nan_to_num(0.0).max())
+    err = max((float((a.double() - b.double()).abs().nan_to_num(0.0).max())
                for a, b in zip(got, want) if a.shape == b.shape
-               and a.numel()), default=0.0)
+               and a.numel() and a.dtype != torch.bool), default=0.0)
     del got, want
     ms = cuda_ms(lambda: cuda_fn(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: plain_fn(*args, **kw), 3)
@@ -2088,6 +2151,16 @@ def check_fusion(path, kernel, args, kw) -> dict:
             row.update(f4_library(*args, kw))
     elif kernel == "F6":
         row.update(deskew=args[4] is not None, n_bins=kw.get("n_bins", 0))
+    elif kernel == "F7":
+        lw = args[0]
+        row.update(robots=lw.numel() // lw.shape[-1], weights=lw.shape[-1],
+                   epilogue=kw.get("resample_fraction") is not None,
+                   recovery=kw.get("recov") is not None,
+                   # the library call for the normalized weights
+                   library_ms=cuda_ms(lambda: torch.softmax(lw, -1), 20))
+    elif kernel == "F8":
+        row.update(weights=args[0].numel(),
+                   gather_weights=kw.get("gather_weights", True))
     FUSION_CHECKS.append(row)
     FUSION_ARGS.setdefault(kernel, (args, kw))
     PATH_MAX_ERR[KERNEL_ROWS[kernel]] = max(
@@ -2318,7 +2391,7 @@ def sync_phase(cfg, frames, dev="cuda", shared_particles=AGREE_PARTICLES):
                           refine.config.sensor.max_range, device=dev)
     st_m = refine.init()
     st_m, _ = refine.step_surface(st_m, frame_at(rb, 0), gen)
-    # the second step's F1-F6 calls (F4's hill-climb among them) recorded
+    # the second step's F1-F8 calls (F4's hill-climb among them) recorded
     # and held bit for bit against their plain versions
     with CallRecorder("mega refine", kernels=FUSIONS) as rec:
         st_m, _ = refine.step_surface(st_m, frame_at(rb, 1), gen)
@@ -3192,7 +3265,9 @@ KERNEL_SYMBOLS = {"stage_scores": "stage_scores_kernel",
                   "pick": "fusion_pick_kernel",
                   "sample": "fusion_sample_kernel",
                   "splat": "fusion_splat_kernel",
-                  "scan": "fusion_scan_kernel"}
+                  "scan": "fusion_scan_kernel",
+                  "weights": "fusion_weights_",
+                  "walk": "fusion_walk_"}
 # the rows _node_counts gives
 GRAPH_ROWS = (*KERNEL_SYMBOLS, "stage_scores_tile")
 # the runtime calls that put work on the card from the host
@@ -3252,6 +3327,46 @@ def _profiled(run, n: int, names=None):
         device_ms_a_scan_by_kernel=ms_a_scan,
         k1t_device_ms_a_scan_by_stage=stages,
         records_named_outside_graph=outside)
+
+
+def _reductions(run, n: int) -> dict:
+    """run() (an eager replay of n scans) under a TorchDispatchMode: the
+    torch reductions and scans it dispatched (REDUCTION_OPS), a scan, keyed
+    by the op and the innermost frame of the package that called it
+    (file:function)."""
+    import traceback
+    from torch.utils._python_dispatch import TorchDispatchMode
+    sites = {}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in REDUCTION_OPS:
+                site = next((f"{fr.filename.split('gridmap_slam_tpu_torch/')[1]}"
+                             f":{fr.name}"
+                             for fr in reversed(traceback.extract_stack())
+                             if "gridmap_slam_tpu_torch/" in fr.filename),
+                            "other")
+                sites[f"{name} {site}"] = sites.get(f"{name} {site}", 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        run()
+        torch.cuda.synchronize()
+    return {k: v / n for k, v in sorted(sites.items())}
+
+
+def _tail_reductions(sites: dict) -> list:
+    """The sites of _reductions that are the weights' tail's, which F7 and
+    F8 hold on the card: any in ops/resample.py or in F7's and F8's plain
+    versions, and the argmax of a step (models/)."""
+    plain = (" ops/resample.py:", "fusions.py:_weights_row",
+             "fusions.py:weights_plain", "fusions.py:walk_plain")
+    return [k for k in sites if any(p in k for p in plain)
+            or (k.startswith("argmax ") and " models/" in k)]
+
+
+TORCH_SCAN_KERNEL = re.compile(r"tensor_kernel_scan|DeviceScan")
 
 
 def _fields_differing(a, b) -> list:
@@ -3333,6 +3448,9 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     _, sec_e = _timed(run_eager)
     s0, g0 = init(), gen()
     _, prof_e = _profiled(run_eager, n)
+    s0, g0 = init(), gen()
+    reductions = _reductions(run_eager, n)
+    tail_reductions = _tail_reductions(reductions)
 
     replay = jit()
     torch.cuda.synchronize()
@@ -3446,6 +3564,14 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
                kernel_nodes_in_graph=len(names),
                kernel_nodes_a_scan=len(names) / m,
                kernel_nodes_a_scan_max=NODES_A_SCAN_MAX.get(name),
+               # torch's reduce and scan kernels in the graph, and the
+               # reductions the eager steps dispatched, by call site
+               torch_reduce_nodes_a_scan=sum(
+                   "reduce_kernel" in nm for nm in names) / m,
+               torch_scan_nodes_a_scan=sum(
+                   bool(TORCH_SCAN_KERNEL.search(nm)) for nm in names) / m,
+               torch_reductions_a_scan=reductions,
+               tail_reductions=tail_reductions,
                log_graph=graph, one_scan_graph=one_scan, resample_gate=gate,
                log_graph_is_one_scan_n_times=periodic,
                kernels_per_scan_profiler=seen if visible else None,
@@ -3495,8 +3621,19 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
         raise AssertionError(f"captured {name}: a graph's kernel nodes are "
                              f"not the one-scan graph's {len(names_one)} "
                              f"with its scan its length times: {periodic}")
-    if visible and not all(0 < seen[k] <= in_graph[k] + misnamable[k]
-                           for k in needed if k in KERNEL_SYMBOLS):
+    # a kernel that stands only in the gates' bodies (F8) runs only where a
+    # gate fired, and CUPTI records a conditional body's kernels through
+    # tables of its own: it was seen to drop every F8 record of a replay
+    # whose gates fired (mega_bf16) while the graph's nodes, read through
+    # cuGraphKernelNodeGetParams above, hold them exactly; such a row need
+    # not be seen
+    outside = {k: in_graph[k] - v / m for k, v in _node_counts(
+        [nm for _, bs in bodies for b in bs
+         for nm in graph_kernel_names(b)]).items()}
+    if visible and not all(
+            (0 < seen[k] or outside[k] == 0)
+            and seen[k] <= in_graph[k] + misnamable[k]
+            for k in needed if k in KERNEL_SYMBOLS):
         raise AssertionError(f"captured {name}: the profiler saw kernels a "
                              f"scan {seen}, the graph holds {in_graph} "
                              f"(records of its bodies' kernels that may "
@@ -3508,6 +3645,10 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
         raise AssertionError(f"captured {name}: the step built {packs} "
                              f"packed neighbourhood arrays on the card (F4 "
                              f"reads the volume in place)")
+    if tail_reductions:
+        raise AssertionError(f"captured {name}: the weights' tail ran torch "
+                             f"reductions on the card (F7 and F8 hold it): "
+                             f"{tail_reductions}")
     if not len(names) / m <= NODES_A_SCAN_MAX.get(name, math.inf):
         raise AssertionError(f"captured {name}: {len(names) / m} kernel "
                              f"nodes a scan, more than "
@@ -4886,7 +5027,7 @@ def bench_phase():
     return {"bench": launches, "bench_measure": measured}
 
 
-# F1-F6: the kernels line's rows (kernel, the XLA fusion each replaces)
+# F1-F8: the kernels line's rows (kernel, the XLA fusion each replaces)
 FUSION_REPLACES = {
     "motion": ("F1", "gridmap_slam_tpu/models/rbpf.py:180-182 (XLA's fusion "
                "of the vmapped sample_motion and apply_odometry, "
@@ -4904,7 +5045,17 @@ FUSION_REPLACES = {
     "scan": ("F6", "gridmap_slam_tpu/ops/geometry.py:67 deskew_scan, "
              "gridmap_slam_tpu/ops/raycast.py build_beam_lut and "
              "gridmap_slam_tpu/ops/pallas/grid_update.py:58 scan_bin_tables "
-             "(XLA's fusions of the scan's preparation)")}
+             "(XLA's fusions of the scan's preparation)"),
+    "weights": ("F7", "gridmap_slam_tpu/ops/resample.py:21-35, :129-137 "
+                "(normalized_weights, neff, weighted_mean_pose) in "
+                "gridmap_slam_tpu/models/rbpf.py:254-278, "
+                "models/shared.py:386-461, :501, :197-240 and "
+                "models/multi.py:110-142 (XLA's reduce and loop fusions of "
+                "the weights' tail)"),
+    "walk": ("F8", "gridmap_slam_tpu/ops/resample.py:112-127 "
+             "(systematic_indices' cumsum, searchsorted and clip) and the "
+             "gathers of models/rbpf.py, models/shared.py and "
+             "models/multi.py (XLA's fusions of the resample)")}
 # the order of an F4 sample's eight products that PyTorch's torch.sum over
 # the packed gather's last axis takes on the card, and the others tried
 SAMPLE_ORDERS = ("((0+4)+(2+6))+((1+5)+(3+7))", "((0+1)+(2+3))+((4+5)+(6+7))",
@@ -5105,25 +5256,45 @@ def scan_ties(n_bins: int = 2048, details=None) -> dict:
     return out
 
 
+def exp_probe(n: int = EXP_PROBE_VALUES) -> dict:
+    """F7's exp (csrc/fusions.cu weight_exp, through
+    fusions.weight_exp_cuda) against torch.exp on the card, bit for bit,
+    over n values in [-120, 0) and a few edges (+-0, the float32 underflow
+    around -87 to -104, -inf, NaN, 1, 10)."""
+    from gridmap_slam_tpu_torch.ops.cuda import fusions
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.cat([torch.rand(n, generator=gen, device="cuda") * -120.0,
+                   torch.tensor([0.0, -0.0, -87.0, -88.7, -103.9, -104.0,
+                                 -math.inf, math.nan, 1.0, 10.0],
+                                device="cuda")])
+    return dict(values=x.numel(), bits_differing=_bits_differing(
+        fusions.weight_exp_cuda(x), torch.exp(x)))
+
+
 def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
-    """F1-F6 (csrc/fusions.cu).  The parity preset's log again with F1-F6's
+    """F1-F8 (csrc/fusions.cu).  The parity preset's log again with F1-F8's
     calls recorded (CallRecorder) and held bit for bit against their plain
     versions (check_fusion); the sum order of PyTorch's mean over the pooled
     axes on this card among three, beside F2's (pool_order); the order of
     the packed sample's eight-term sum among SAMPLE_ORDERS, beside F4's
     (sample_order, on the first recorded F4 call's volume and poses and on
-    random ones); F6 on planted scans (scan_ties); then one line of every
-    F1-F6 check of this run by path and kernel (the other paths checked
+    random ones); F6 on planted scans (scan_ties); F7's exp against
+    torch.exp (exp_probe); then one line of every
+    F1-F8 check of this run by path and kernel (the other paths checked
     theirs in their own phases).  Fails where a path of FUSION_PATHS has no
     checked F6 call, a path outside SURFACE_PATHS no checked F3 call, a
-    surface path no checked F4 and F5 call (mega refine no hill-climb), the
+    surface path no checked F4 and F5 call (mega refine no hill-climb), a
+    path of WEIGHTS_PATHS no checked F7 and F8 call, the
     parity path lacks one of F1-F3 and F6, F2 differs from the mean or F4
     from today's sample in a bit, or F6 from its plain version on a planted
-    scan, or grid_sample from F4 beyond its tolerance (f4_library, on the
+    scan, F7's exp from torch.exp in a bit,
+    or grid_sample from F4 beyond its tolerance (f4_library, on the
     mega path's first F4 call) (`paths`: FUSION_PATHS, or the paths a
-    shorter run took).  Returns the kernels line's rows of F1-F6: F1-F3 and
-    F6 timed on the parity path's calls, F4 and F5 on the mega path's (F4's
-    library_ms grid_sample's there)."""
+    shorter run took).  Returns the kernels line's rows of F1-F8: F1-F3 and
+    F6 timed on the parity path's calls, F4, F5 and F8 on the mega path's,
+    F7 on the mega path's call with the epilogue (F4's library_ms
+    grid_sample's there, F7's torch.softmax's of the same log-weights;
+    F7's and F8's `stages` every recorded call's times)."""
     import torch.nn.functional as F
     from gridmap_slam_tpu_torch import RBPF
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
@@ -5147,6 +5318,7 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
     s_args, s_kw = FUSION_ARGS["F4"]
     s_order = sample_order(*s_args, s_kw)
     ties = scan_ties(cfg.beam_lut_bins)
+    exp = exp_probe()
     want, paths = paths, {}
     for row in FUSION_CHECKS:
         k = paths.setdefault(row["path"], {}).setdefault(
@@ -5156,9 +5328,12 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
         k["bits_differing"] += row["bits_differing"]
         k["ms"].append(row["ms"])
     say("fusions", pool_order=order, sample_order=s_order, scan_ties=ties,
-        paths=paths, parity_calls=parity, checked_calls=len(FUSION_CHECKS))
+        f7_exp=exp, paths=paths, parity_calls=parity,
+        checked_calls=len(FUSION_CHECKS))
     needed = {p: ({"F4 climb" if p == "mega refine" else "F4", "F5", "F6"}
-                  if p in SURFACE_PATHS else {"F3", "F6"}) for p in want}
+                  if p in SURFACE_PATHS else {"F3", "F6"})
+                 | ({"F7", "F8"} if p in WEIGHTS_PATHS else set())
+              for p in want}
     missing = {p: sorted(k - set(paths.get(p, {})))
                for p, k in needed.items() if k - set(paths.get(p, {}))}
     if missing or not {"F1", "F2", "F3", "F6"} <= set(paths["parity"]):
@@ -5181,10 +5356,17 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
     if any(ties.values()):
         raise AssertionError(f"fusions: F6 differs from its plain version "
                              f"on planted scans: {ties}")
+    if exp["bits_differing"]:
+        raise AssertionError(f"fusions: F7's exp differs from torch.exp: "
+                             f"{exp}")
 
     rows = []
     for name, (kernel, replaces) in FUSION_REPLACES.items():
-        timed = first(kernel, "mega" if kernel in ("F4", "F5") else "parity")
+        timed = first(kernel, "mega" if kernel in ("F4", "F5", "F8")
+                      else "parity")
+        if kernel == "F7":          # mega's tail: 1M weights, the epilogue
+            timed = next(r for r in FUSION_CHECKS if r["kernel"] == "F7"
+                         and r["path"] == "mega" and r["epilogue"])
         row = dict(name=name, route="cuda",
                    source="gridmap_slam_tpu_torch/csrc/fusions.cu",
                    replaces=replaces, max_abs_err=PATH_MAX_ERR[name],
@@ -5201,6 +5383,14 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
                     k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")}
                 for r in parity if r["kernel"] == "F3"}
+        if kernel in ("F7", "F8"):
+            row["stages"] = {
+                f"{r['path']} {kernel} {r.get('robots', 1)}x{r['weights']}"
+                + (" epilogue" if r.get("epilogue") else "")
+                + (" recovery" if r.get("recovery") else ""): {
+                    k: r.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}
+                for r in FUSION_CHECKS if r["kernel"] == kernel}
         if kernel in ("F4", "F6"):
             row["stages"] = {
                 f"{r['path']} {r['kernel']} "

@@ -1,7 +1,9 @@
-// Six of XLA's fusions as kernels: F1 the motion model, F2 the coarse
+// Eight of XLA's fusions as kernels: F1 the motion model, F2 the coarse
 // stage's pool, F3 a matcher stage's pick, F4 the surface's trilinear sample
-// and hill-climb, F5 the endpoint splat's tap weights and F6 the scan's
-// preparation (deskew and the bearing-bin tables).
+// and hill-climb, F5 the endpoint splat's tap weights, F6 the scan's
+// preparation (deskew and the bearing-bin tables), F7 the weights' tail
+// (max, first argmax, Neff, the weighted mean pose and the shared map's
+// scalar epilogue) and F8 the systematic walk of the resample.
 //
 // They replace no Pallas kernel.  In the JAX package XLA fuses each of these
 // runs of elementwise and reduce operations into one loop or reduce fusion:
@@ -13,7 +15,10 @@
 // (gridmap_slam_tpu/ops/surface.py:231-318) and splats its endpoints
 // (:60-99); every step deskews its scan and builds its bin tables
 // (gridmap_slam_tpu/ops/geometry.py:67, ops/raycast.py build_beam_lut,
-// ops/pallas/grid_update.py:58).  In PyTorch each tensor operation of them
+// ops/pallas/grid_update.py:58), and ends in the weights' reductions and,
+// under the resample gate, the systematic walk (gridmap_slam_tpu/ops/
+// resample.py:21-35, :112-137 in models/rbpf.py:254-278, models/
+// shared.py:386-461 and models/multi.py:110-142).  In PyTorch each tensor operation of them
 // is a kernel of its own, and the prior and the total of a coarse stage are
 // two more tensors of the stage's scores' size, the surface sample's packed
 // neighbourhoods eight copies of the volume.  Each kernel here does the
@@ -39,7 +44,10 @@
 // a quarter of it.  F4 reads a pose and writes its score (and pose), its
 // taps from a volume that stays in L2 (1.4 MB at mega, 26 MB at city); F5
 // writes two (nt, B, K) factor tensors; F6 reads a scan and writes it and
-// its tables (a few KB: a launch's time).
+// its tables (a few KB: a launch's time).  F7 reads the log-weights three
+// times and the poses once (16 MB at 1M weights, in L2 between passes) and
+// writes a few floats; F8 reads the log-weights twice and writes the
+// scan (4 MB, in L2), then each slot's ~20 probes of it and its gathers.
 //
 // Layout.  F1 and F2: a thread a particle or an output cell.  F3: a warp a
 // particle.  Its prior's quotients are tables in shared memory, one a
@@ -58,7 +66,20 @@
 // its steps.  F5: a warp a (bin, beam) row of K taps, its lanes on
 // neighbouring taps.  F6: a block a scan, its beams in shared memory,
 // ranked by counting (B^2 comparisons: B is a few hundred), then a thread
-// a bearing bin.
+// a bearing bin.  F7 and F8: the sums take ops/resample.py's fixed order,
+// which its plain functions spell out with elementwise ops so that no
+// PyTorch reduction order (chosen by PyTorch from the size and the card)
+// is left to match: a block of 128 threads takes a row of 1024 weights, a
+// thread a segment of 8 added left to right, the row's segments by a
+// halving tree (shuffles below 32) or a Hillis-Steele scan in shared
+// memory, and the rows' partials by the same tree or scan in every block
+// that needs them (at most 1024 of them).  F7 is three launches (the rows'
+// first argmax; the max and each row's sum of exp; each row's sums of w w
+// and w pose, then the last block, by a ticket pass 1 resets, sums the
+// rows and writes the outputs and the epilogue); F8 two (each row's scan
+// of the normalized weights; a thread a slot: the rows' carry, the binary
+// search and the gathers).  The max is the value at the first argmax
+// (order-free), the exp the CUDA math library's expf, as torch.exp's.
 
 #include <cuda_runtime.h>
 
@@ -555,6 +576,338 @@ __global__ void __launch_bounds__(kScanThreads) fusion_scan_kernel(
   }
 }
 
+// ------------------------------------------------------------ F7 and F8
+// The weights' fixed orders of ops/resample.py: rows of kRow values padded
+// with +0.0, a thread a segment of kSeg of them.
+constexpr int kRow = 1024;                  // ops/resample.ROW
+constexpr int kSeg = 8;                     // ops/resample.SEG
+constexpr int kRowThreads = kRow / kSeg;    // 128: a thread a segment
+constexpr int kSearchThreads = kRow;        // F8's search: a thread a slot
+
+// torch.exp of a float32 on the card: the CUDA math library's expf (no fast
+// math), as PyTorch's exp kernel calls it; chip_smoke.py's exp probe holds
+// it to torch.exp bit for bit over 1M values.
+__device__ __forceinline__ float weight_exp(float x) { return expf(x); }
+
+// A row's total from its kRowThreads threads' segment sums v: the halving
+// tree s[i] + s[i + h] for h = 64, 32, ... 1 (ops/resample._halve), the
+// steps below 32 by shuffles (lane i adds lane i + h).  The total is
+// thread 0's; s holds kRowThreads floats.
+__device__ float row_total(float v, float* s) {
+  const int t = threadIdx.x;
+  s[t] = v;
+  __syncthreads();
+  if (t < 64) s[t] = __fadd_rn(s[t], s[t + 64]);
+  __syncthreads();
+  if (t < kWarp) {
+    v = __fadd_rn(s[t], s[t + kWarp]);
+    for (int h = kWarp / 2; h >= 1; h >>= 1)
+      v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, h));
+  }
+  __syncthreads();
+  return v;
+}
+
+// The total of nb row totals (read through L2: other blocks of the same
+// launch may have written them), padded with +0.0 to the power of two q at
+// or above nb and halved from q / 2; every thread gets it.  s holds kRow
+// floats.
+__device__ float rows_total(const float* part, int nb, float* s) {
+  int q = 1;
+  while (q < nb) q <<= 1;
+  for (int i = threadIdx.x; i < q; i += blockDim.x)
+    s[i] = i < nb ? __ldcg(part + i) : 0.0f;
+  __syncthreads();
+  for (int h = q >> 1; h >= 1; h >>= 1) {
+    for (int i = threadIdx.x; i < h; i += blockDim.x)
+      s[i] = __fadd_rn(s[i], s[i + h]);
+    __syncthreads();
+  }
+  const float v = s[0];
+  __syncthreads();
+  return v;
+}
+
+// The first maximum (a NaN first, torch.argmax's) of every thread's (v, i)
+// of the block, in before()'s total order, so that any pairing gives it;
+// every thread gets it.  s_v, s_i hold kWarp entries.
+__device__ void block_argmax(float& v, int& i, float* s_v, int* s_i) {
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+    const float w = __shfl_xor_sync(0xffffffffu, v, off);
+    const int j = __shfl_xor_sync(0xffffffffu, i, off);
+    if (before(w, j, v, i)) {
+      v = w;
+      i = j;
+    }
+  }
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  if (lane == 0) {
+    s_v[warp] = v;
+    s_i[warp] = i;
+  }
+  __syncthreads();
+  v = lane < static_cast<int>(blockDim.x / kWarp) ? s_v[lane] : 0.0f;
+  i = lane < static_cast<int>(blockDim.x / kWarp) ? s_i[lane] : -1;
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+    const float w = __shfl_xor_sync(0xffffffffu, v, off);
+    const int j = __shfl_xor_sync(0xffffffffu, i, off);
+    if (before(w, j, v, i)) {
+      v = w;
+      i = j;
+    }
+  }
+  __syncthreads();
+}
+
+// The first maximum over nb rows' (value, index) pairs.
+__device__ void rows_argmax(const float* pv, const int* pi, int nb, float& v,
+                            int& i, float* s_v, int* s_i) {
+  v = 0.0f;
+  i = -1;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+    const float w = __ldcg(pv + b);
+    const int j = __ldcg(pi + b);
+    if (before(w, j, v, i)) {
+      v = w;
+      i = j;
+    }
+  }
+  block_argmax(v, i, s_v, s_i);
+}
+
+// F7, pass 1: each row's first argmax of the log-weights lw (R, P) into pv,
+// pi (R, nb); block (0, r) sets robot r's ticket of pass 3 to 0.
+__global__ void __launch_bounds__(kRowThreads) fusion_weights_max_kernel(
+    const float* __restrict__ lw, float* __restrict__ pv,
+    int* __restrict__ pi, unsigned* __restrict__ ticket, int P, int nb) {
+  __shared__ float s_v[kWarp];
+  __shared__ int s_i[kWarp];
+  const int r = blockIdx.y, b = blockIdx.x;
+  const float* x = lw + static_cast<size_t>(r) * P;
+  const int base = b * kRow + threadIdx.x * kSeg;
+  float v = 0.0f;
+  int i = -1;
+  for (int j = 0; j < kSeg; ++j) {
+    const int k = base + j;
+    if (k < P && before(x[k], k, v, i)) {
+      v = x[k];
+      i = k;
+    }
+  }
+  block_argmax(v, i, s_v, s_i);
+  if (threadIdx.x == 0) {
+    pv[static_cast<size_t>(r) * nb + b] = v;
+    pi[static_cast<size_t>(r) * nb + b] = i;
+    if (b == 0) ticket[r] = 0u;
+  }
+}
+
+// F7, pass 2: the max m (the value at the first argmax), then each row's
+// sum of exp(lw - m), its segments in turn and the row by row_total, into
+// pe (R, nb).
+__global__ void __launch_bounds__(kRowThreads) fusion_weights_sum_kernel(
+    const float* __restrict__ lw, const float* __restrict__ pv,
+    const int* __restrict__ pi, float* __restrict__ pe, int P, int nb) {
+  __shared__ float s[kRowThreads];
+  __shared__ float s_v[kWarp];
+  __shared__ int s_i[kWarp];
+  const int r = blockIdx.y, b = blockIdx.x;
+  float m;
+  int mi;
+  rows_argmax(pv + static_cast<size_t>(r) * nb, pi + static_cast<size_t>(r) * nb,
+              nb, m, mi, s_v, s_i);
+  const float* x = lw + static_cast<size_t>(r) * P;
+  const int base = b * kRow + threadIdx.x * kSeg;
+  float acc = 0.0f;
+  for (int j = 0; j < kSeg; ++j) {
+    const int k = base + j;
+    const float e = k < P ? weight_exp(__fsub_rn(x[k], m)) : 0.0f;
+    acc = j == 0 ? e : __fadd_rn(acc, e);
+  }
+  const float tot = row_total(acc, s);
+  if (threadIdx.x == 0) pe[static_cast<size_t>(r) * nb + b] = tot;
+}
+
+struct WeightsOut {
+  const float* poses;               // (R, P, 3)
+  const float* recov;               // (2,) or null: the recovery EMAs
+  const int* step;                  // the scan counter, with recov
+  float *max, *total, *best, *neff, *weighted;   // (R,), (R,), (R, 3) ...
+  long long* index;                 // (R,)
+  float *integ, *recov_out, *p_inject;           // R = 1 only, or null
+  bool* gate;                       // (R,), or null: no epilogue
+  float thr_integ, thr_gate;        // 0.95 P and P resample_fraction
+  float a_slow, a_fast, thr_inject, hi_inject;   // the recovery's floats
+};
+
+// F7, pass 3: m and the total again; each weight w = exp(lw - m) / total
+// and the rows' sums of w w, x w, y w and wrap(theta) w (segments in turn,
+// rows by row_total) into p4 (R, 4, nb); then the last block of a robot (its
+// ticket) sums the rows (rows_total) and writes the max, the total, the
+// first argmax and its pose, Neff = 1 / sum(w w), the weighted mean pose
+// and, where out.gate is given, the epilogue: the resample gate Neff <
+// P fraction, the integration pose (the weighted mean where Neff >= 0.95 P,
+// else the best pose), and with recov the recovery EMAs of the max (both
+// set to it at step 0), p_inject = clamp(1 - exp(l_fast - l_slow), 0,
+// 0.3) and the gate forced where p_inject > 0.05.
+__global__ void __launch_bounds__(kRowThreads) fusion_weights_finish_kernel(
+    const float* __restrict__ lw, const float* __restrict__ pv,
+    const int* __restrict__ pi, const float* __restrict__ pe,
+    float* __restrict__ p4, unsigned* __restrict__ ticket, int P, int nb,
+    WeightsOut o) {
+  __shared__ float s[kRow];
+  __shared__ float s_v[kWarp];
+  __shared__ int s_i[kWarp];
+  __shared__ bool last;
+  const int r = blockIdx.y, b = blockIdx.x;
+  float m;
+  int mi;
+  rows_argmax(pv + static_cast<size_t>(r) * nb, pi + static_cast<size_t>(r) * nb,
+              nb, m, mi, s_v, s_i);
+  const float total = rows_total(pe + static_cast<size_t>(r) * nb, nb, s);
+  const float* x = lw + static_cast<size_t>(r) * P;
+  const float* ps = o.poses + static_cast<size_t>(r) * P * 3;
+  const int base = b * kRow + threadIdx.x * kSeg;
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < kSeg; ++j) {
+    const int k = base + j;
+    float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (k < P) {
+      const float w = __fdiv_rn(weight_exp(__fsub_rn(x[k], m)), total);
+      q[0] = __fmul_rn(w, w);
+      q[1] = __fmul_rn(ps[3 * k], w);
+      q[2] = __fmul_rn(ps[3 * k + 1], w);
+      q[3] = __fmul_rn(wrap(ps[3 * k + 2]), w);
+    }
+    for (int c = 0; c < 4; ++c) a[c] = j == 0 ? q[c] : __fadd_rn(a[c], q[c]);
+  }
+  float* row = p4 + static_cast<size_t>(r) * 4 * nb;
+  for (int c = 0; c < 4; ++c) {
+    const float t = row_total(a[c], s);
+    if (threadIdx.x == 0) row[static_cast<size_t>(c) * nb + b] = t;
+  }
+  __threadfence();
+  if (threadIdx.x == 0) last = atomicAdd(ticket + r, 1u) == nb - 1u;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float sums[4];
+  for (int c = 0; c < 4; ++c)
+    sums[c] = rows_total(row + static_cast<size_t>(c) * nb, nb, s);
+  if (threadIdx.x != 0) return;
+  const float bp[3] = {ps[3 * mi], ps[3 * mi + 1], ps[3 * mi + 2]};
+  const float neff = __fdiv_rn(1.0f, sums[0]);
+  o.max[r] = m;
+  o.total[r] = total;
+  o.index[r] = mi;
+  o.neff[r] = neff;
+  for (int c = 0; c < 3; ++c) {
+    o.best[3 * r + c] = bp[c];
+    o.weighted[3 * r + c] = sums[1 + c];
+  }
+  if (o.gate == nullptr) return;
+  bool gate = neff < o.thr_gate;
+  if (o.integ != nullptr) {
+    const bool mean = neff >= o.thr_integ;
+    for (int c = 0; c < 3; ++c) o.integ[c] = mean ? sums[1 + c] : bp[c];
+  }
+  if (o.recov != nullptr) {
+    const float r0 = o.recov[0], r1 = o.recov[1];
+    float slow = __fadd_rn(r0, __fmul_rn(__fsub_rn(m, r0), o.a_slow));
+    float fast = __fadd_rn(r1, __fmul_rn(__fsub_rn(m, r1), o.a_fast));
+    if (*o.step == 0) slow = fast = m;
+    float p = __fsub_rn(1.0f, weight_exp(__fsub_rn(fast, slow)));
+    if (!isnan(p)) p = fminf(fmaxf(p, 0.0f), o.hi_inject);
+    o.recov_out[0] = slow;
+    o.recov_out[1] = fast;
+    o.p_inject[0] = p;
+    gate = gate || p > o.thr_inject;
+  }
+  o.gate[r] = gate;
+}
+
+// F8, pass 1: the normalized weights exp(lw - m) / total of one robot (m,
+// total: F7's, one float each on the card) and each row's inclusive scan in
+// the fixed order into part (nb kRow): a thread's segment in turn, the
+// row's segment totals by a Hillis-Steele scan (s[i] + s[i - k], k = 1, 2,
+// ... 64), each segment after the first plus the scan before it.
+__global__ void __launch_bounds__(kRowThreads) fusion_walk_scan_kernel(
+    const float* __restrict__ lw, const float* __restrict__ m_ptr,
+    const float* __restrict__ total_ptr, float* __restrict__ part, int P) {
+  __shared__ float s[kRowThreads];
+  const float m = *m_ptr, total = *total_ptr;
+  const int t = threadIdx.x, base = blockIdx.x * kRow + t * kSeg;
+  float c[kSeg];
+  for (int j = 0; j < kSeg; ++j) {
+    const int k = base + j;
+    const float w =
+        k < P ? __fdiv_rn(weight_exp(__fsub_rn(lw[k], m)), total) : 0.0f;
+    c[j] = j == 0 ? w : __fadd_rn(c[j - 1], w);
+  }
+  s[t] = c[kSeg - 1];
+  __syncthreads();
+  for (int k = 1; k < kRowThreads; k <<= 1) {
+    float v = s[t];
+    if (t >= k) v = __fadd_rn(v, s[t - k]);
+    __syncthreads();
+    s[t] = v;
+    __syncthreads();
+  }
+  const float carry = t > 0 ? s[t - 1] : 0.0f;
+  for (int j = 0; j < kSeg; ++j)
+    part[base + j] = t > 0 ? __fadd_rn(c[j], carry) : c[j];
+}
+
+// F8, pass 2: a thread a slot j < P.  u = u0 + j (1 / P) (PyTorch divides
+// by a Python int on the card as a product by its float reciprocal, inv_p);
+// the first index whose cumulative weight is >= u, by torch.searchsorted's
+// binary search (side left), clamped to P - 1; the cumulative weight at i
+// is part[i], past the first row plus the Hillis-Steele scan of the rows'
+// totals (each row's last) before its row (every block scans the nb <= kRow
+// totals).  Writes idx[j] and the poses and log-weights (lw_out where
+// given) at idx[j].
+__global__ void __launch_bounds__(kSearchThreads) fusion_walk_search_kernel(
+    const float* __restrict__ lw, const float* __restrict__ poses,
+    const float* __restrict__ u0_ptr, const float* __restrict__ part,
+    long long* __restrict__ idx_out, float* __restrict__ poses_out,
+    float* __restrict__ lw_out, int P, int nb, float inv_p) {
+  __shared__ float carry[kRow];
+  const int t = threadIdx.x;
+  carry[t] = t < nb ? part[static_cast<size_t>(t) * kRow + kRow - 1] : 0.0f;
+  __syncthreads();
+  for (int k = 1; k < nb; k <<= 1) {
+    float v = carry[t];
+    if (t >= k) v = __fadd_rn(v, carry[t - k]);
+    __syncthreads();
+    carry[t] = v;
+    __syncthreads();
+  }
+  const int j = blockIdx.x * kSearchThreads + t;
+  if (j >= P) return;
+  const float u = __fadd_rn(*u0_ptr, __fmul_rn(static_cast<float>(j), inv_p));
+  int lo = 0, hi = P;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    const int row = mid / kRow;
+    const float v = row == 0 ? part[mid] : __fadd_rn(part[mid], carry[row - 1]);
+    if (!(v >= u))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const int i = min(max(lo, 0), P - 1);
+  idx_out[j] = i;
+  for (int c = 0; c < 3; ++c) poses_out[3 * j + c] = poses[3 * i + c];
+  if (lw_out != nullptr) lw_out[j] = lw[i];
+}
+
+// weight_exp elementwise, for the exp probe (no path calls it).
+__global__ void __launch_bounds__(kThreads) fusion_exp_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = weight_exp(x[i]);
+}
+
 }  // namespace
 
 // F1: pose (n, 3); normals (n, 2) or null; d_center, d_theta (G,), G
@@ -704,5 +1057,97 @@ extern "C" int gs_fusion_scan(const float* angle, const float* dist,
                        static_cast<cudaStream_t>(stream)>>>(
       angle, dist, hit, valid, d_center, d_theta, out_angle, out_dist, t_dist,
       t_alpha, t_code, B, n_bins, bin_step);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// F7: lw (R, P); poses (R, P, 3); recov (2,) and step (one int) or null;
+// out_max, out_total, out_neff (R,), out_index (R,) int64, out_best,
+// out_weighted (R, 3); out_gate (R,) bool or null (no epilogue), out_integ
+// (3,) or null, out_recov (2,) and out_pinj (1,) with recov (R = 1 for the
+// last three); scratch_f (6 R nb floats), scratch_i (R nb + R ints), nb =
+// ceil(P / 1024); the epilogue's floats; stream; &launched (kernels).
+extern "C" int gs_fusion_weights(
+    const float* lw, const float* poses, const float* recov, const int* step,
+    float* out_max, float* out_total, long long* out_index, float* out_best,
+    float* out_neff, float* out_weighted, bool* out_gate, float* out_integ,
+    float* out_recov, float* out_pinj, float* scratch_f, int* scratch_i,
+    int R, int P, float thr_integ, float thr_gate, float a_slow,
+    float a_fast, float thr_inject, float hi_inject, void* stream,
+    int* launched) {
+  *launched = 0;
+  if (R <= 0 || P <= 0 || P > kRow * kRow || R > 65535)
+    return cudaErrorInvalidValue;
+  if ((recov != nullptr || out_integ != nullptr) &&
+      (R != 1 || out_gate == nullptr))
+    return cudaErrorInvalidValue;
+  if (recov != nullptr &&
+      (step == nullptr || out_recov == nullptr || out_pinj == nullptr))
+    return cudaErrorInvalidValue;
+  const int nb = (P + kRow - 1) / kRow;
+  const size_t rn = static_cast<size_t>(R) * nb;
+  float* pv = scratch_f;
+  float* pe = pv + rn;
+  float* p4 = pe + rn;
+  int* pi = scratch_i;
+  unsigned* ticket = reinterpret_cast<unsigned*>(pi + rn);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(nb, R);
+  fusion_weights_max_kernel<<<grid, kRowThreads, 0, st>>>(lw, pv, pi, ticket,
+                                                          P, nb);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launched = 1;
+  fusion_weights_sum_kernel<<<grid, kRowThreads, 0, st>>>(lw, pv, pi, pe, P,
+                                                          nb);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launched = 2;
+  const WeightsOut o{poses, recov, step, out_max, out_total, out_best,
+                     out_neff, out_weighted, out_index, out_integ, out_recov,
+                     out_pinj, out_gate, thr_integ, thr_gate, a_slow, a_fast,
+                     thr_inject, hi_inject};
+  fusion_weights_finish_kernel<<<grid, kRowThreads, 0, st>>>(
+      lw, pv, pi, pe, p4, ticket, P, nb, o);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launched = 3;
+  return cudaSuccess;
+}
+
+// F8: lw (P,), poses (P, 3); u0, m, total one float each on the card (m,
+// total F7's); idx_out (P,) int64, poses_out (P, 3), lw_out (P,) or null;
+// scratch (nb 1024 floats, nb = ceil(P / 1024)); 1 / P in float; stream;
+// &launched (kernels).
+extern "C" int gs_fusion_walk(const float* lw, const float* poses,
+                              const float* u0, const float* m,
+                              const float* total, long long* idx_out,
+                              float* poses_out, float* lw_out, float* scratch,
+                              int P, float inv_p, void* stream,
+                              int* launched) {
+  *launched = 0;
+  if (P <= 0 || P > kRow * kRow) return cudaErrorInvalidValue;
+  const int nb = (P + kRow - 1) / kRow;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  fusion_walk_scan_kernel<<<nb, kRowThreads, 0, st>>>(lw, m, total, scratch,
+                                                       P);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launched = 1;
+  fusion_walk_search_kernel<<<(P + kSearchThreads - 1) / kSearchThreads,
+                              kSearchThreads, 0, st>>>(
+      lw, poses, u0, scratch, idx_out, poses_out, lw_out, P, nb, inv_p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launched = 2;
+  return cudaSuccess;
+}
+
+// F7's exp (weight_exp) over x (n,) into out (n,): the exp probe; stream.
+extern "C" int gs_fusion_exp(const float* x, float* out, int n,
+                             void* stream) {
+  if (n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  fusion_exp_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(x, out, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,7 +40,6 @@ from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.grid import gaussian_kernel
 from ..ops.matcher import correlative_match_batch
 from ..ops.motion import sample_and_propagate
-from ..ops.resample import neff, systematic_indices, weighted_mean_pose
 from ..types import Frame, Odom
 from . import captured
 
@@ -172,10 +171,11 @@ class MultiRobotSLAM:
         lw = scores.reshape(r, p)
         if cfg.accumulate_weights:
             lw = lw + state.log_weights
-        best_index = torch.argmax(lw, 1)
-        best_poses = torch.gather(
-            poses, 1, best_index[:, None, None].expand(r, 1, 3))[:, 0]
-        neffs = torch.stack([neff(lw[i]) for i in range(r)])
+        # every robot's weights' tail in one call (F7 on the card): Neff,
+        # the strongest particle and its pose, and the gate
+        tail = fusions.weights(lw, poses,
+                               resample_fraction=cfg.resample_fraction)
+        best_poses = tail.best_pose
 
         # per-robot map deltas at the strongest poses: K2 into zero maps,
         # one bin table a robot, then the large-rotation skip a robot
@@ -196,29 +196,30 @@ class MultiRobotSLAM:
 
         # per-robot resampling, each robot's gate the JAX step's lax.cond
         # as captured.cond: the identity lands in `out` (or fresh tensors)
-        # and a robot's resample overwrites its rows where its gate fires
-        do_rs = neffs < (p * cfg.resample_fraction)
+        # and a robot's systematic walk (F8 on the card) overwrites its rows
+        # where its gate fires
+        do_rs = tail.gate
         new_poses = (poses.clone() if out is None
                      else captured.copy_into(out.poses, poses))
         new_lw = (lw.clone() if out is None
                   else captured.copy_into(out.log_weights, lw))
         for i in range(r):
             def resample(i=i):
-                idx = systematic_indices(lw[i], u0[i])
-                torch.index_select(poses[i], 0, idx, out=new_poses[i])
+                fusions.walk(lw[i], u0[i], poses[i], tail.max[i],
+                             tail.total[i],
+                             gather_weights=not cfg.accumulate_weights,
+                             out=(None, new_poses[i], new_lw[i]))
                 if cfg.accumulate_weights:
                     new_lw[i].zero_()
-                else:
-                    torch.index_select(lw[i], 0, idx, out=new_lw[i])
 
             captured.cond(do_rs[i], resample, [new_poses[i], new_lw[i]])
         poses, lw = new_poses, new_lw
-        weighted = torch.stack([weighted_mean_pose(poses[i], lw[i])
-                                for i in range(r)])
+        # the weighted mean pose after the resample, every robot in one call
+        weighted = fusions.weights(lw, poses).weighted
         new_step = torch.add(state.step, 1, out=o.step)
         new_state = out if out is not None else MultiRobotState(
             poses=poses, log_weights=lw, logodds=logodds, step=new_step)
-        info = MultiStepInfo(neff=neffs, weighted_pose=weighted,
+        info = MultiStepInfo(neff=tail.neff, weighted_pose=weighted,
                              best_pose=best_poses, resampled=do_rs)
         return new_state, info
 

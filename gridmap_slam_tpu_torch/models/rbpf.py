@@ -41,7 +41,6 @@ from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.grid import gaussian_kernel, inv_log_odds
 from ..ops.matcher import IMPLS, correlative_match_batch, score_pose
 from ..ops.motion import sample_and_propagate
-from ..ops.resample import neff, systematic_indices, weighted_mean_pose
 from ..types import Frame, Odom, Scan, SlamState, StepInfo
 from . import captured
 
@@ -186,48 +185,45 @@ class RBPF:
         log_weights = scores.to(state.log_weights.dtype)
         if cfg.accumulate_weights:
             log_weights = log_weights + state.log_weights
-        n_eff = neff(log_weights)
-        best_index = torch.argmax(log_weights)
-        # indexing with a 1-element tensor, not the 0-dim one, keeps the
-        # index on the card (a 0-dim index is read back to the host)
-        best_pose = poses[best_index[None]][0]
-        weighted = weighted_mean_pose(poses, log_weights)
+        # The weights' tail (F7 on the card): Neff, the first argmax and its
+        # pose, the weighted mean pose and the gate Neff < P/2
+        # (app/GridMapApp.java:185-186).
+        tail = fusions.weights(log_weights, poses,
+                               resample_fraction=cfg.resample_fraction)
+        do_resample = tail.gate
 
-        # Auto-resample when Neff < P/2 (app/GridMapApp.java:185-186), the
-        # JAX step's lax.cond as captured.cond: the ancestors' indices
-        # (and, accumulating, the weights' reset) only where the gate
-        # fires, the identity where it does not; then the maps, poses and
-        # weights move once, gathered at those indices into `out` where
-        # one is given.
-        do_resample = n_eff < (p * cfg.resample_fraction)
+        # The resample, the JAX step's lax.cond as captured.cond: the
+        # identity's indices, poses and weights land in `out` (or new
+        # tensors), and the systematic walk (F8 on the card) overwrites the
+        # indices, the poses and the weights (or, accumulating, resets the
+        # weights) only where the gate fires; then the maps move once,
+        # gathered at those indices.
         o = out if out is not None else SlamState(None, None, None, None)
         acc = cfg.accumulate_weights
         idx = torch.arange(p, device=dev)
-        if acc:                 # the weights start anew where it fires
-            log_weights = (log_weights if out is None else
-                           captured.copy_into(out.log_weights, log_weights))
+        new_poses = (poses.clone() if out is None
+                     else captured.copy_into(out.poses, poses))
+        new_lw = (log_weights.clone() if out is None
+                  else captured.copy_into(out.log_weights, log_weights))
 
         def resample():
-            idx.copy_(systematic_indices(log_weights, u0))
+            fusions.walk(log_weights, u0, poses, tail.max, tail.total,
+                         gather_weights=not acc,
+                         out=(idx, new_poses, None if acc else new_lw))
             if acc:
-                log_weights.zero_()
+                new_lw.zero_()
 
-        captured.cond(do_resample, resample,
-                      [idx, log_weights] if acc else [idx])
+        captured.cond(do_resample, resample, [idx, new_poses, new_lw])
         new_step = torch.add(state.step, 1, out=o.step)
-        poses = torch.index_select(poses, 0, idx, out=o.poses)
         logodds = torch.index_select(maps, 0, idx, out=o.logodds)
-        if not acc:
-            log_weights = torch.index_select(log_weights, 0, idx,
-                                             out=o.log_weights)
 
         new_state = out if out is not None else SlamState(
-            poses=poses, log_weights=log_weights, logodds=logodds,
+            poses=new_poses, log_weights=new_lw, logodds=logodds,
             step=new_step)
-        info = StepInfo(neff=n_eff, weighted_pose=weighted,
-                        best_pose=best_pose,
-                        best_index=best_index.to(torch.int32),
-                        best_log_weight=log_weights.max(),
+        info = StepInfo(neff=tail.neff, weighted_pose=tail.weighted,
+                        best_pose=tail.best_pose,
+                        best_index=tail.best_index.to(torch.int32),
+                        best_log_weight=new_lw.max(),
                         resampled=do_resample)
         return new_state, info
 

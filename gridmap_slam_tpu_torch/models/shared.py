@@ -62,7 +62,8 @@ from typing import Iterable, List, Optional, Tuple
 import torch
 
 from ..config import SlamConfig
-from ..ops.cuda.fusions import endpoint_factors, prepare_scan, score_on_volume
+from ..ops.cuda.fusions import (endpoint_factors, prepare_scan,
+                                 score_on_volume, walk, weights)
 from ..ops.cuda.grid_update import integrate_scan_batch, integrate_scan_window
 from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.geometry import scan_points
@@ -70,7 +71,9 @@ from ..ops.grid import gaussian_kernel
 from ..ops.matcher import correlative_match_batch, score_pose
 from ..ops.motion import (apply_odometry, sample_and_propagate,
                           sample_motion)
-from ..ops.resample import neff, systematic_indices, weighted_mean_pose
+# integration_pose is the JAX module's (models/shared.py) and is kept
+# under its name here; it lives in ops/resample beside F7's plain version
+from ..ops.resample import integration_pose, recovery_ema  # noqa: F401
 from ..ops.surface import (crop_center_cells, endpoint_images, scan_surface,
                            theta_grid)
 from ..types import Frame, Scan, StepInfo
@@ -200,20 +203,22 @@ def surface_temper(mc, scan: Scan, scores):
     return scores * torch.rsqrt(n_b)
 
 
-def recovery_update(cfg: SlamConfig, state: SharedMapState, l_ref):
-    """AMCL fast/slow EMA update from `l_ref`, the max log-weight of the
-    scan.  Returns (recov', p_inject), p_inject None when injection is
-    off."""
+def reinject_rates(cfg: SlamConfig):
+    """(a_slow, a_fast) of the AMCL recovery EMAs, or None when injection
+    is off."""
     mc = cfg.matcher
     a_slow, a_fast = mc.surface_reinject_slow, mc.surface_reinject_fast
-    if not (a_slow > 0.0 and a_fast > 0.0):
+    return (a_slow, a_fast) if a_slow > 0.0 and a_fast > 0.0 else None
+
+
+def recovery_update(cfg: SlamConfig, state: SharedMapState, l_ref):
+    """AMCL fast/slow EMA update from `l_ref`, the max log-weight of the
+    scan (ops/resample.recovery_ema).  Returns (recov', p_inject), p_inject
+    None when injection is off."""
+    rates = reinject_rates(cfg)
+    if rates is None:
         return state.recov, None
-    r = state.recov
-    ema = torch.stack([r[0] + a_slow * (l_ref - r[0]),
-                       r[1] + a_fast * (l_ref - r[1])])
-    recov = torch.where(state.step == 0, l_ref.expand(2), ema)
-    p_inject = torch.clamp(1.0 - torch.exp(recov[1] - recov[0]), 0.0, 0.3)
-    return recov, p_inject
+    return recovery_ema(state.recov, state.step, l_ref, *rates)
 
 
 def _uniform_poses(m, u):
@@ -234,13 +239,6 @@ def inject_uniform(cfg: SlamConfig, u, poses, p_inject, slot_offset=0):
     slot = slot_offset + torch.arange(poses.shape[0], device=poses.device)
     take = slot < p_inject * cfg.num_particles
     return torch.where(take[:, None], uni, poses), take
-
-
-def integration_pose(n_eff, num_particles: int, weighted, best_pose):
-    """Pose the shared map is updated at: the argmax-weight particle, except
-    when the weights are near-uniform (Neff >= 0.95 P, e.g. the first scan
-    into an empty map), where the weighted mean is used."""
-    return torch.where(n_eff >= 0.95 * num_particles, weighted, best_pose)
 
 
 def match_particles(cfg: SlamConfig, llf, poses, normals, scan: Scan, odom,
@@ -431,7 +429,7 @@ class SharedMapSLAM:
         # Volume center: the previous cloud's weighted mean propagated by
         # this frame's odometry, so the theta span follows a turn.
         center = apply_odometry(
-            weighted_mean_pose(state.poses, state.log_weights), odom)
+            weights(state.log_weights, state.poses).weighted, odom)
         c_vol, kw, kc = surface_volume(cfg, self.taps, state.logodds, scan,
                                        center)
         pose_s = sample_motion(state.poses, odom, cfg.motion, normals)
@@ -452,48 +450,44 @@ class SharedMapSLAM:
         injection.  Each field's last operation writes into `out` where
         one is given, after the field's last read of `state`."""
         cfg = self.config
-        p = cfg.num_particles
         o = out if out is not None else SharedMapState(None, None, None,
                                                        None, None)
         log_weights = scores.to(state.log_weights.dtype)
         if cfg.accumulate_weights:
             log_weights = log_weights + state.log_weights
-        n_eff = neff(log_weights)
-        best_index = torch.argmax(log_weights)
-        # indexing with a 1-element tensor, not the 0-dim one, keeps the
-        # index on the card (a 0-dim index is read back to the host)
-        best_pose = poses[best_index[None]][0]
-        weighted = weighted_mean_pose(poses, log_weights)
-        integ_pose = integration_pose(n_eff, p, weighted, best_pose)
-        logodds = self._integrate(state.logodds, integ_pose, tables, keep,
-                                  crop, out=o.logodds)
-
-        do_resample = n_eff < (p * resample_fraction)
-        recov, p_inject = recovery_update(cfg, state, log_weights.max())
-        if p_inject is not None:
-            # a kidnap makes every particle uniformly bad, so Neff rises and
-            # the gate alone would never fire: injection forces a resample
-            do_resample = do_resample | (p_inject > 0.05)
+        # The weights' tail (F7 on the card): Neff, the first argmax and its
+        # pose, the weighted mean pose, the integration pose, the resample
+        # gate and the recovery EMAs of the max log-weight with p_inject (a
+        # kidnap makes every particle uniformly bad, so Neff rises and the
+        # gate alone would never fire: injection forces a resample).
+        rates = reinject_rates(cfg)
+        tail = weights(log_weights, poses,
+                       resample_fraction=resample_fraction,
+                       recov=None if rates is None else state.recov,
+                       step=state.step, reinject=rates or (0.0, 0.0))
+        logodds = self._integrate(state.logodds, tail.integ_pose, tables,
+                                  keep, crop, out=o.logodds)
+        do_resample, p_inject = tail.gate, tail.p_inject
+        recov = state.recov if tail.recov is None else tail.recov
         if out is not None:
             recov = captured.copy_into(out.recov, recov)
         new_step = torch.add(state.step, 1, out=o.step)
 
         # The JAX step's lax.cond as captured.cond: the identity's poses and
         # weights land in `out` (or fresh tensors), and the resample (the
-        # ancestors' indices, the gathers and the injection) overwrites
-        # them only where the gate fires.
+        # systematic walk, F8 on the card, with its gathers, and the
+        # injection) overwrites them only where the gate fires.
         new_poses = (poses.clone() if out is None
                      else captured.copy_into(out.poses, poses))
         new_lw = (log_weights.clone() if out is None
                   else captured.copy_into(out.log_weights, log_weights))
 
         def resample():
-            idx = systematic_indices(log_weights, u0)
-            torch.index_select(poses, 0, idx, out=new_poses)
+            walk(log_weights, u0, poses, tail.max, tail.total,
+                 gather_weights=not cfg.accumulate_weights,
+                 out=(None, new_poses, new_lw))
             if cfg.accumulate_weights:
                 new_lw.zero_()
-            else:
-                torch.index_select(log_weights, 0, idx, out=new_lw)
             if p_inject is not None:
                 inj_poses, took = inject_uniform(cfg, inj, new_poses,
                                                  p_inject)
@@ -505,9 +499,9 @@ class SharedMapSLAM:
         new_state = out if out is not None else SharedMapState(
             poses=new_poses, log_weights=new_lw, logodds=logodds,
             step=new_step, recov=recov)
-        info = StepInfo(neff=n_eff, weighted_pose=weighted,
-                        best_pose=best_pose,
-                        best_index=best_index.to(torch.int32),
+        info = StepInfo(neff=tail.neff, weighted_pose=tail.weighted,
+                        best_pose=tail.best_pose,
+                        best_index=tail.best_index.to(torch.int32),
                         best_log_weight=new_lw.max(), resampled=do_resample)
         return new_state, info
 

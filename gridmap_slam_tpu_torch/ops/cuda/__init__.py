@@ -1,16 +1,18 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
 Each module holds one kernel's wrapper, its plain PyTorch version and a
-launch count (`fusions` three of each):
+launch count (`fusions` eight of each):
 
 - `likelihood`  — K3, the log-likelihood field build (csrc/likelihood.cu);
 - `grid_update` — K2, the dense map update (csrc/grid_update.cu);
 - `matcher`     — K1, the correlative-match stage scores (csrc/matcher.cu);
 - `surface_corr` — K4, the surface correlation with bf16 products and
   float32 sums on the tensor cores (csrc/surface_corr.cu);
-- `fusions` — F1-F3, three of XLA's fusions of the JAX step as kernels:
-  the motion model, the matcher's coarse pool and each matcher stage's
-  prior, argmax and pick (csrc/fusions.cu), with three launch counts.
+- `fusions` — F1-F8, eight of XLA's fusions of the JAX step as kernels:
+  the motion model, the matcher's coarse pool, each matcher stage's
+  prior, argmax and pick, the surface sample and climb, the splat's tap
+  weights, the scan's preparation, the weights' tail and the systematic
+  walk (csrc/fusions.cu), with a launch count each.
 
 The dispatching function of each module runs the plain version for a tensor
 on the CPU and the kernel for a tensor on the card; there is no fallback

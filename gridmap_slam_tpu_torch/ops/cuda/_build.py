@@ -111,6 +111,16 @@ SIGNATURES = {
     # t_dist, t_alpha, t_code, G, B, n_bins, 2 pi / n_bins; stream
     "gs_fusion_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _I, _F, _P],
+    # F7: lw, poses, recov, step, max, total, index, best, neff, weighted,
+    # gate, integ, recov_out, p_inject, scratch f, scratch i, R, P,
+    # thresholds (integ, gate), a_slow, a_fast, inject threshold, its
+    # ceiling; stream, &launched
+    "gs_fusion_weights": [_P] * 16 + [_I, _I] + [_F] * 6 + [_P, _P],
+    # F8: lw, poses, u0, m, total, idx, poses_out, lw_out, scratch, P,
+    # 1 / P; stream, &launched
+    "gs_fusion_walk": [_P] * 9 + [_I, _F, _P, _P],
+    # F7's exp: x, out, n; stream
+    "gs_fusion_exp": [_P, _P, _I, _P],
 }
 
 

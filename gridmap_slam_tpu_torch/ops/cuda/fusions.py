@@ -1,4 +1,4 @@
-"""F1-F6: six of XLA's fusions as kernels, csrc/fusions.cu.
+"""F1-F8: eight of XLA's fusions as kernels, csrc/fusions.cu.
 
 The JAX package leaves the motion model, the matcher's coarse pool and each
 matcher stage's prior, argmax and pick, the surface step's sample and
@@ -29,20 +29,33 @@ port's op sequence on the card:
   endpoint_images, as JAX leaves it to a dot);
 - F6 `prepare_scan`, `bin_tables`, `deskew`: ops/geometry.deskew_scan and
   ops/cuda/grid_update.scan_bin_tables (with ops/raycast.build_beam_lut),
-  together or either, for one scan or a batch (G, B).
+  together or either, for one scan or a batch (G, B);
+- F7 `weights`: the weights' tail of every step (gridmap_slam_tpu/models/
+  rbpf.py:254-278, models/shared.py:386-461 and :197-240, models/
+  multi.py:110-142): the max, the first argmax and its pose, Neff and the
+  weighted mean pose of log-weights (R, P), and for the shared map the
+  scalar epilogue (the resample gate, the integration pose, the recovery
+  EMAs and p_inject), in three launches a call, the sums in ops/resample's
+  fixed order;
+- F8 `walk`: the systematic resample inside the gate's body
+  (ops/resample.systematic_indices with the gathers of the poses and
+  log-weights at the ancestors), in two launches, from F7's max and total.
 
 Each dispatching function (`motion`, `pool`, `pick`, `score_on_volume`,
-`endpoint_factors`, and F6's three) runs the kernel for a tensor on the
-card and the plain version (`*_plain`, the op sequence the kernel replaces,
-which keeps the CPU's bits) for a tensor on the CPU; the `*_cuda` entry
-points raise ValueError on other tensors.  Each kernel counts its launches
-in `motion_launches`, `pool_launches`, `pick_launches`, `sample_launches`
-(F4), `splat_launches` and `scan_launches`.
+`endpoint_factors`, F6's three, `weights`, `walk`) runs the kernel for a
+tensor on the card and the plain version (`*_plain`, the op sequence the
+kernel replaces, which keeps the CPU's bits) for a tensor on the CPU; the
+`*_cuda` entry points raise ValueError on other tensors.  Each kernel counts
+its launches in `motion_launches`, `pool_launches`, `pick_launches`,
+`sample_launches` (F4), `splat_launches`, `scan_launches`,
+`weights_launches` (F7: three kernels a call) and `walk_launches` (F8: two).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +63,8 @@ import torch.nn.functional as F
 
 from ...types import Odom, Scan
 from ..geometry import deskew_scan, wrap_angle
+from ..resample import (ROW, exp_weights, integration_pose, mean_pose_of,
+                        neff_of, recovery_ema, systematic_indices)
 from ..surface import (pack_neighborhoods, refine_on_surface, sample_surface,
                        splat_factors)
 from . import _build, check_tensor, stream_handle
@@ -62,6 +77,8 @@ pick_launches = 0     # F3, likewise
 sample_launches = 0   # F4, likewise
 splat_launches = 0    # F5, likewise
 scan_launches = 0     # F6, likewise
+weights_launches = 0  # F7's kernels launched (three a call), likewise
+walk_launches = 0     # F8's (two a call), likewise
 
 
 def noise_scales(odom: Odom, cfg):
@@ -597,3 +614,221 @@ def deskew(scan: Scan, odom: Odom) -> Scan:
     a, d = _scan_fn(scan.angle)(scan.angle, scan.dist, scan.hit, scan.valid,
                                 odom.d_center, odom.d_theta)[:2]
     return Scan(angle=a, dist=d, hit=scan.hit, valid=scan.valid)
+
+
+# --------------------------------------------------------------- F7: weights
+# the recovery injection's constants (models/shared.py): p_inject's ceiling
+# and the p_inject above which it forces the resample
+P_INJECT_MAX, P_INJECT_FORCE = 0.3, 0.05
+
+
+class Tail(NamedTuple):
+    """F7's outputs, each with the log-weights' leading shape (() or (R,)):
+    the max, the total sum(exp(lw - max)), the first argmax (int64) and its
+    pose (..., 3), Neff and the weighted mean pose (..., 3); with the
+    epilogue the resample gate (bool), and for one robot the integration
+    pose (3,) and, with the recovery EMAs, their new (2,) and p_inject."""
+
+    max: torch.Tensor
+    total: torch.Tensor
+    best_index: torch.Tensor
+    best_pose: torch.Tensor
+    neff: torch.Tensor
+    weighted: torch.Tensor
+    gate: Optional[torch.Tensor] = None
+    integ_pose: Optional[torch.Tensor] = None
+    recov: Optional[torch.Tensor] = None
+    p_inject: Optional[torch.Tensor] = None
+
+
+def _weights_row(lw, poses):
+    """One robot's F7 outputs in ops/resample's op sequence."""
+    m, e, s = exp_weights(lw)
+    w = e / s
+    best = torch.argmax(lw)
+    return (m, s, best, poses[best[None]][0], neff_of(w),
+            mean_pose_of(poses, w))
+
+
+def weights_plain(log_weights, poses, *, resample_fraction=None, recov=None,
+                  step=None, reinject=(0.0, 0.0)):
+    """Plain version of F7 on log-weights (P,) or (R, P) and poses (..., P,
+    3), a robot at a time: ops/resample's exp_weights, neff and
+    weighted_mean_pose, torch.argmax and the pose there.  Where
+    resample_fraction is given, the epilogue: the gate Neff < P
+    resample_fraction, for one robot the integration pose
+    (ops/resample.integration_pose) and, where the recovery EMAs `recov`
+    (2,) are given with the scan counter `step`, recovery_ema of the max
+    with reinject = (a_slow, a_fast), the gate forced where p_inject >
+    0.05.  Returns a Tail."""
+    if log_weights.dim() == 1:
+        out = Tail(*_weights_row(log_weights, poses))
+    else:
+        out = Tail(*(torch.stack(c) for c in zip(
+            *(_weights_row(lw, q) for lw, q in zip(log_weights, poses)))))
+    if resample_fraction is None:
+        return out
+    p = log_weights.shape[-1]
+    gate = out.neff < (p * resample_fraction)
+    integ = rec = p_inject = None
+    if log_weights.dim() == 1:
+        integ = integration_pose(out.neff, p, out.weighted, out.best_pose)
+    if recov is not None:
+        rec, p_inject = recovery_ema(recov, step, out.max, *reinject)
+        gate = gate | (p_inject > P_INJECT_FORCE)
+    return out._replace(gate=gate, integ_pose=integ, recov=rec,
+                        p_inject=p_inject)
+
+
+def weights_cuda(log_weights, poses, *, resample_fraction=None, recov=None,
+                 step=None, reinject=(0.0, 0.0)):
+    """The kernel: weights_plain's Tail in three launches, the sums in
+    ops/resample's fixed order (csrc/fusions.cu: a thread a segment of 8
+    weights, a block a row of 1024; the row partials of each pass, and the
+    last block of the third finishes).  log_weights (P,) or (R, P) and poses
+    (..., P, 3) float32 on the card, P at most 1024 * 1024; recov (2,)
+    float32 and step int32 on the card with one robot only."""
+    global weights_launches
+    fn = "weights_cuda"
+    dev = log_weights.device
+    if log_weights.dim() not in (1, 2):
+        raise ValueError(f"{fn}: need log-weights (P,) or (R, P), got "
+                         f"{tuple(log_weights.shape)}")
+    lead = tuple(log_weights.shape[:-1])
+    r, p = math.prod(lead), log_weights.shape[-1]
+    lw = log_weights.reshape(r, p).contiguous()
+    ps = poses.reshape(r, p, 3).contiguous()
+    check_tensor(fn, "log_weights", lw, (r, p), dev)
+    check_tensor(fn, "poses", ps, (r, p, 3), dev)
+    if not 0 < p <= ROW * ROW:
+        raise ValueError(f"{fn}: 1 to {ROW * ROW} weights a robot, got {p}")
+    finish = resample_fraction is not None
+    if recov is not None:
+        if lead or not finish:
+            raise ValueError(f"{fn}: the recovery EMAs need one robot and "
+                             f"the epilogue (resample_fraction)")
+        check_tensor(fn, "recov", recov, (2,), dev)
+        step = _one(fn, "step", step, torch.int32, dev)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = Tail(max=empty(r), total=empty(r),
+               best_index=empty(r, dtype=torch.int64), best_pose=empty(r, 3),
+               neff=empty(r), weighted=empty(r, 3),
+               gate=empty(r, dtype=torch.bool) if finish else None,
+               integ_pose=empty(3) if finish and not lead else None,
+               recov=empty(2) if recov is not None else None,
+               p_inject=empty(1) if recov is not None else None)
+    nb = -(-p // ROW)
+    scratch_f = empty(6 * r * nb)
+    scratch_i = empty(r * nb + r, dtype=torch.int32)
+    thr = ((_f32(0.95 * p), _f32(p * resample_fraction)) if finish
+           else (0.0, 0.0))
+    launched = (ctypes.c_int * 1)()
+    code = _build.library().gs_fusion_weights(
+        lw.data_ptr(), ps.data_ptr(), _ptr(recov), _ptr(step),
+        *(_ptr(t) for t in (out.max, out.total, out.best_index,
+                            out.best_pose, out.neff, out.weighted, out.gate,
+                            out.integ_pose, out.recov, out.p_inject)),
+        scratch_f.data_ptr(), scratch_i.data_ptr(), r, p, *thr,
+        _f32(reinject[0]), _f32(reinject[1]), _f32(P_INJECT_FORCE),
+        _f32(P_INJECT_MAX), stream_handle(dev), launched)
+    weights_launches += launched[0]
+    _build.check("gs_fusion_weights", code)
+    return out._replace(**{
+        k: v.reshape(lead + tuple(v.shape[1:])) for k, v in zip(
+            Tail._fields[:7], out[:7]) if v is not None},
+        p_inject=None if out.p_inject is None else out.p_inject[0])
+
+
+def weights(log_weights, poses, **kw):
+    """The weights' tail (see weights_plain): F7 on the card, its plain
+    version on the CPU."""
+    fn = weights_cuda if log_weights.is_cuda else weights_plain
+    return fn(log_weights, poses, **kw)
+
+
+def weight_exp_cuda(x):
+    """F7's exp (csrc/fusions.cu weight_exp) of float32 x on the card, for
+    the probe that holds it to torch.exp; no path calls it."""
+    x = x.contiguous()
+    check_tensor("weight_exp_cuda", "x", x, tuple(x.shape), x.device)
+    out = torch.empty_like(x)
+    _build.check("gs_fusion_exp", _build.library().gs_fusion_exp(
+        x.data_ptr(), out.data_ptr(), x.numel(), stream_handle(x.device)))
+    return out
+
+
+# ------------------------------------------------------------------ F8: walk
+def walk_plain(log_weights, u0, poses, m, total, *, gather_weights=True,
+               out=None):
+    """Plain version of F8 on one robot's log-weights (P,), the start u0
+    and poses (P, 3): ops/resample.systematic_indices, then the poses (and
+    where gather_weights the log-weights) at those ancestors, each written
+    into its tensor of `out` = (indices, poses, log-weights) where given.
+    m, total: F7's max and total of these weights, which the kernel takes
+    in place of recomputing them; this version recomputes them (the same
+    bits).  Returns (indices int64, poses, log-weights or None)."""
+    del m, total
+    o = (None, None, None) if out is None else out
+    idx = systematic_indices(log_weights, u0)
+    if o[0] is not None:
+        idx = o[0].copy_(idx)
+    got = torch.index_select(poses, 0, idx, out=o[1])
+    lw = (torch.index_select(log_weights, 0, idx, out=o[2])
+          if gather_weights else None)
+    return idx, got, lw
+
+
+def walk_cuda(log_weights, u0, poses, m, total, *, gather_weights=True,
+              out=None):
+    """The kernel: walk_plain's outputs in two launches (the normalized
+    weights' fixed-order scan, a block a row; then a thread a slot: its u,
+    the binary search, the clamp and the gathers).  log_weights (P,), poses
+    (P, 3) float32 on the card; u0, m, total one float32 each on the card
+    (m and total F7's); `out` as in walk_plain, none of it an input."""
+    global walk_launches
+    fn = "walk_cuda"
+    dev = log_weights.device
+    p = log_weights.shape[0] if log_weights.dim() == 1 else -1
+    check_tensor(fn, "log_weights", log_weights, (p,), dev)
+    check_tensor(fn, "poses", poses, (p, 3), dev)
+    if not 0 < p <= ROW * ROW:
+        raise ValueError(f"{fn}: 1 to {ROW * ROW} weights, got {p}")
+    u0, m, total = (_one(fn, name, v, torch.float32, dev) for name, v in
+                    (("u0", u0), ("m", m), ("total", total)))
+    o = (None, None, None) if out is None else out
+    idx = o[0] if o[0] is not None else torch.empty(
+        (p,), dtype=torch.int64, device=dev)
+    got = o[1] if o[1] is not None else torch.empty_like(poses)
+    lw = None
+    if gather_weights:
+        lw = o[2] if o[2] is not None else torch.empty_like(log_weights)
+    check_tensor(fn, "indices", idx, (p,), dev, dtype=torch.int64)
+    check_tensor(fn, "poses out", got, (p, 3), dev)
+    if lw is not None:
+        check_tensor(fn, "log-weights out", lw, (p,), dev)
+    ins = {t.data_ptr() for t in (log_weights, poses, u0, m, total)}
+    if any(t is not None and t.data_ptr() in ins for t in (idx, got, lw)):
+        raise ValueError(f"{fn}: an output may not be an input")
+    scratch = torch.empty((-(-p // ROW) * ROW,), dtype=torch.float32,
+                          device=dev)
+    launched = (ctypes.c_int * 1)()
+    code = _build.library().gs_fusion_walk(
+        log_weights.data_ptr(), poses.data_ptr(), u0.data_ptr(),
+        m.data_ptr(), total.data_ptr(), idx.data_ptr(), got.data_ptr(),
+        _ptr(lw), scratch.data_ptr(), p, _inv(p), stream_handle(dev),
+        launched)
+    walk_launches += launched[0]
+    _build.check("gs_fusion_walk", code)
+    return idx, got, lw
+
+
+def walk(log_weights, u0, poses, m, total, *, gather_weights=True,
+         out=None):
+    """The systematic resample of one robot (see walk_plain), m and total
+    its weights' Tail's: F8 on the card, its plain version on the CPU."""
+    fn = walk_cuda if log_weights.is_cuda else walk_plain
+    return fn(log_weights, u0, poses, m, total,
+              gather_weights=gather_weights, out=out)

@@ -60,14 +60,15 @@ import torch
 
 from ..models import captured
 from ..models.shared import (SharedMapSLAM, SharedMapState, inject_uniform,
-                             integration_pose, match_particles,
-                             matcher_block_size, recovery_update,
-                             surface_temper, surface_volume)
+                             match_particles, matcher_block_size,
+                             recovery_update, surface_temper, surface_volume)
 from ..ops.cuda import fusions
 from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.geometry import wrap_angle
 from ..ops.motion import apply_odometry, sample_motion
-from ..ops.resample import systematic_indices
+from ..ops.resample import (integration_pose, max_fixed_order,
+                            sum_fixed_order, sums_fixed_order,
+                            systematic_indices)
 from ..types import Frame, StepInfo
 from .mesh import (all_gather, axis_index, axis_size, pmax, psum,
                    shard_state)
@@ -153,14 +154,14 @@ class MeshStep:
 def global_weighted_mean(poses, log_weights, mesh):
     """The weighted mean pose of the whole cloud (ops/resample.
     weighted_mean_pose over every rank's particles) and the global max
-    log-weight."""
-    m = pmax(log_weights.max(), mesh, "p")
+    log-weight.  Each rank's sums take ops/resample's fixed order on the
+    card, so that a 'p' axis of one rank gives the single-device engines'
+    bits (F7's)."""
+    m = pmax(max_fixed_order(log_weights), mesh, "p")
     e = torch.exp(log_weights - m)
-    w = e / psum(e.sum(), mesh, "p")
-    mean = psum(torch.stack([torch.sum(poses[:, 0] * w),
-                             torch.sum(poses[:, 1] * w),
-                             torch.sum(wrap_angle(poses[:, 2]) * w)]),
-                mesh, "p")
+    w = e / psum(sum_fixed_order(e), mesh, "p")
+    mean = psum(sums_fixed_order(poses[:, 0] * w, poses[:, 1] * w,
+                                 wrap_angle(poses[:, 2]) * w), mesh, "p")
     return mean, m
 
 
@@ -208,13 +209,12 @@ def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
     if cfg.accumulate_weights:
         lw = lw + state.log_weights
 
-    m = pmax(lw.max(), mesh, "p")
+    # ops/resample's fixed orders on the card (see global_weighted_mean)
+    m = pmax(max_fixed_order(lw), mesh, "p")
     e = torch.exp(lw - m)
-    w = e / psum(e.sum(), mesh, "p")
-    sums = psum(torch.stack([torch.sum(w * w), torch.sum(poses[:, 0] * w),
-                             torch.sum(poses[:, 1] * w),
-                             torch.sum(wrap_angle(poses[:, 2]) * w)]),
-                mesh, "p")
+    w = e / psum(sum_fixed_order(e), mesh, "p")
+    sums = psum(sums_fixed_order(w * w, poses[:, 0] * w, poses[:, 1] * w,
+                                 wrap_angle(poses[:, 2]) * w), mesh, "p")
     n_eff = 1.0 / sums[0]
     weighted = sums[1:]
 

@@ -25,7 +25,12 @@ then:
   node's body counted), and the scans whose gate fired (the infos'
   resampled);
 - a digest of the final state, the stacked infos and the generator's next
-  draw, which must be the same in every process of every tree.
+  draw, which must be the same in every process of every tree (with
+  --bits-change, in every process of each tree: where the trees' bits are
+  meant to differ, each path's Neff, weighted poses and ATE of the two
+  trees are set side by side instead);
+- each scan's Neff and weighted pose, and the ATE against the log's ground
+  truth (each robot's at multi).
 
 The path `rebuild` is the pose-graph frontend's captured map rebuild
 (models/frontend.MapRebuild) of the 216 scans of grand_tour_216.rec at
@@ -43,6 +48,7 @@ side, and whether every digest agreed.
 Usage (needs a GPU; ~12 min for the default paths):
     python scripts/cond_ab.py --root DIR [--paths parity,pr1,...]
     python scripts/cond_ab.py --root DIR --paths mesh_shmap,...,rebuild
+    python scripts/cond_ab.py --root DIR --bits-change
 """
 
 import argparse
@@ -80,9 +86,10 @@ def digest(*trees) -> str:
 
 
 def setup(name):
-    """(engine, init, captured replay, stacked frames, scans, eager replay)
-    of a path, from the tree's own chip_smoke.py helpers; the eager replay
-    takes (state, frames, generator)."""
+    """(engine, init, captured replay, stacked frames, scans, eager replay,
+    ground truth) of a path, from the tree's own chip_smoke.py helpers; the
+    eager replay takes (state, frames, generator); the ground truth is the
+    log's poses, (scans, 3), or a list of them a robot."""
     import chip_smoke as cs
     import gridmap_slam_tpu_torch as port
     from gridmap_slam_tpu_torch import RBPF, SharedMapSLAM
@@ -91,7 +98,7 @@ def setup(name):
     from gridmap_slam_tpu_torch.models.multi import stack_frames
     from gridmap_slam_tpu_torch.models.shared import matcher_block_size
 
-    frames, _ = cs.parity_log()
+    frames, gt = cs.parity_log()
 
     def stacked(cfg, n=None):
         b = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
@@ -99,11 +106,12 @@ def setup(name):
         return tree_map(lambda x: x[:n], b)
 
     if name.startswith("mesh_"):
-        return mesh_setup(name[len("mesh_"):], frames, stacked)
+        return (*mesh_setup(name[len("mesh_"):], frames, stacked), gt)
     if name == "multi":
-        eng, ticks, starts, _ = cs.multi_setup(cs.MULTI_PARTICLES[-1])
+        eng, ticks, starts, logs = cs.multi_setup(cs.MULTI_PARTICLES[-1])
         return (eng, lambda: eng.init(starts), eng.replay_jit(),
-                stack_frames(ticks), len(ticks), eng.replay)
+                stack_frames(ticks), len(ticks), eng.replay,
+                [g for _, g in logs])
     if name in ("parity", "pr1", "chip"):
         cfg = {"parity": cs.parity_config(), "pr1": cs.pr1_config(),
                "chip": cs.parity_config().replace(
@@ -111,20 +119,20 @@ def setup(name):
                    particle_chunk=cs.CHIP_CHUNK)}[name]
         eng = RBPF(cfg, device="cuda")
         return (eng, eng.init, eng.replay_jit(), stacked(cfg), cs.N_SCANS,
-                eng.replay)
+                eng.replay, gt)
     if name in SURFACE:
         make = SURFACE[name]
         cfg = getattr(port if hasattr(port, make) else cs, make)()
         eng = SharedMapSLAM(cfg, device="cuda")
         return (eng, eng.init, eng.replay_surface_jit(),
-                stacked(eng.config), cs.N_SCANS, eng.replay_surface)
+                stacked(eng.config), cs.N_SCANS, eng.replay_surface, gt)
     cfg = cs.parity_config().replace(num_particles=cs.MEGA_PARTICLES,
                                      particle_chunk=0)
     eng = SharedMapSLAM(cfg, device="cuda")
     n = cs.CAPTURED_BLOCKED_SCANS
     block = matcher_block_size(cfg)
     return (eng, eng.init, eng.replay_jit(block=block), stacked(cfg, n), n,
-            lambda s, f, g: eng.replay(s, f, g, block=block))
+            lambda s, f, g: eng.replay(s, f, g, block=block), gt)
 
 
 def mesh_setup(kind, frames, stacked):
@@ -226,7 +234,9 @@ def child(name: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from gridmap_slam_tpu_torch.models import captured
 
-    eng, init, replay, frames, n, eager = setup(name)
+    from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
+
+    eng, init, replay, frames, n, eager, gt = setup(name)
 
     def gen():
         return torch.Generator(device="cuda").manual_seed(SEED)
@@ -271,6 +281,9 @@ def child(name: str) -> dict:
     torch.cuda.synchronize()
     eager_ms = start.elapsed_time(end) / (EAGER_REPLAYS * n)
     map_bytes = st.logodds.numel() * st.logodds.element_size()
+    traj = infos.weighted_pose.cpu().numpy()
+    ate = ([ate_rmse(traj, gt[:n])] if traj.ndim == 2 else
+           [ate_rmse(traj[:, r], g[:n]) for r, g in enumerate(gt)])
     return dict(path=name, scans=n, particles=eng.config.num_particles,
                 device_ms_a_scan=dev_us / 1e3 / (REPLAYS * n),
                 host_ms_a_scan=host_ms, scans_per_sec=1e3 / host_ms,
@@ -281,13 +294,18 @@ def child(name: str) -> dict:
                 kernel_nodes_a_scan=kernel_nodes / cap.scans,
                 fired=int(infos.resampled.sum()),
                 gated=int(infos.resampled.numel()),
-                digest=digest(st, infos, nxt))
+                neff=infos.neff.cpu().tolist(), weighted_pose=traj.tolist(),
+                ate_m=ate, digest=digest(st, infos, nxt))
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", help="an unpacked earlier commit (B)")
     ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--bits-change", action="store_true",
+                    help="the trees' bits are meant to differ: digests must "
+                         "agree within each tree, and Neff, the weighted "
+                         "poses and ATE are compared across them")
     ap.add_argument("--child", action="store_true",
                     help="run the paths in this process, on --root's tree")
     args = ap.parse_args()
@@ -334,9 +352,27 @@ def main():
     digests = {name: sorted({r["digest"] for s in "AB"
                              for r in rows[s][name]}) for name in paths}
     same = all(len(d) == 1 for d in digests.values())
-    print(json.dumps(dict(summary=summary, digests=digests,
-                          bits_equal=same)), flush=True)
-    sys.exit(0 if same else 1)
+    each = all(len({r["digest"] for r in rows[s][name]}) == 1
+               for name in paths for s in "AB")
+    apart = {name: across(rows["A"][name][0], rows["B"][name][0])
+             for name in paths if name != "rebuild"}
+    print(json.dumps(dict(summary=summary, digests=digests, bits_equal=same,
+                          bits_equal_within_each_tree=each,
+                          a_against_b=apart)), flush=True)
+    sys.exit(0 if (each and args.bits_change) or same else 1)
+
+
+def across(a: dict, b: dict) -> dict:
+    """How far apart two trees' runs of a path are: the largest relative
+    difference of a scan's Neff, the largest of a weighted pose's
+    coordinates (m, and rad for theta), and both ATEs."""
+    import numpy as np
+    na, nb = np.asarray(a["neff"]), np.asarray(b["neff"])
+    pa, pb = np.asarray(a["weighted_pose"]), np.asarray(b["weighted_pose"])
+    return dict(neff_max_rel_diff=float((np.abs(na - nb) / nb).max()),
+                weighted_pose_max_diff=float(np.abs(pa - pb).max()),
+                ate_m={"A": a["ate_m"], "B": b["ate_m"]},
+                fired={"A": a["fired"], "B": b["fired"]})
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
 Each non-view aten operation of one warm `RBPF.step` is one kernel node of
 the step's captured graph on the card (less its copies and fills); a
-hand-written kernel (K1-K3, F1-F6) and, here on the CPU, its plain version
+hand-written kernel (K1-K3, F1-F8) and, here on the CPU, its plain version
 counts as one.  The operations are grouped by the function of the port
 that called them (the innermost frame of gridmap_slam_tpu_torch/ops or
 models).  Small sizes: the count depends on the chunks, not on the
@@ -26,8 +26,8 @@ PLAIN = {"matcher": "stage_scores_batch_plain",
          "grid_update": "integrate_scan_batch_plain",
          "likelihood": "log_likelihood_field_batch_plain",
          "fusions": ("motion_plain", "pool_plain", "pick_plain",
-                     "score_plain", "splat_plain",
-                     "scan_plain")}
+                     "score_plain", "splat_plain", "scan_plain",
+                     "weights_plain", "walk_plain")}
 
 
 def main() -> int:
