@@ -9,7 +9,10 @@ Phases, each printed on its own line:
    and global variant), of K2's two (four cells a thread, one cell), of
    K3's nine (radius 1 to 4 compiled in, each staging by 128-bit loads or
    cell by cell, and any radius) and of K4's two (the prologue, the
-   correlation) from `-Xptxas -v`; a spill in K2, K3 or K4 fails the run;
+   correlation) from `-Xptxas -v`, and F1-F8's (F3's ten instantiations:
+   scores staged or read in place, 1, 2, 3, 4 or 8 (dy, dx) cells a lane;
+   F7's four kernels, F8's two); a spill in K2, K3, K4, F3, F7 or F8 fails
+   the run;
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of the parity preset (500 particles, 120 x 120 maps,
    2048 bearing bins, the three matcher stages, score_pose's single
@@ -234,7 +237,14 @@ Phases, each printed on its own line:
    scans (equal bearings, +-0.0, +-pi, padding, an all-invalid scan; 96
    slots, where the card's stable argsort is a merge sort, and 192 and 360,
    a radix sort: both keep -0.0 and +0.0 in index order), F7's exp against
-   torch.exp over 1M values (exp_probe: every bit), and a line of
+   torch.exp over 1M values (exp_probe: every bit), F3 and F7 on planted
+   inputs bit for bit against their plain versions (fusion_edges: F3 at 1,
+   250, 500, 2 048 and 500 000 particles in its three modes, the coarse
+   stage with the scan's mask writing offsets, a fine stage writing
+   offsets, the last stage writing the best pose, on scores that tie at
+   the split points of its launch plan, NaN, -inf, +-0 and all equal; F7 at
+   1 to 1 048 576 weights a robot, one and two robots, with and without the
+   epilogue, on tied maxima and -inf weights), and a line of
    every path's checks; it fails where a path
    has no checked F6 call, a single-device path (WEIGHTS_PATHS) no checked
    F7 and F8 call (its eager steps run the gate's body every scan), a matcher path (parity, chip, pr1, mega_blocked,
@@ -525,10 +535,10 @@ def build_phase() -> None:
     cell, and any radius) are summed up on the
     build line; K1's untiled and tile variants, K2's whole-map and window
     variants, K4's prologue and correlation.  K1's, K3's and K4's
-    shared memory is dynamic: a call's plan sets it.  A spill in K2, K3 or
-    K4, or a spill store in K1 or K1t's staged kernel, fails the run.  K4 is
-    its prologue (surface_corr_prep) and the
-    correlation (surface_corr_kernel)."""
+    shared memory is dynamic: a call's plan sets it.  A spill in K2, K3,
+    K4, F3 (ten instantiations), F7 or F8, or a spill store in K1 or K1t's
+    staged kernel, fails the run.  K4 is its prologue (surface_corr_prep)
+    and the correlation (surface_corr_kernel)."""
     from gridmap_slam_tpu_torch.ops.cuda import _build
     from gridmap_slam_tpu_torch.ops.cuda import matcher as kmatch
     t0 = time.perf_counter()
@@ -570,10 +580,16 @@ def build_phase() -> None:
         k1_variants=k1, k1_tile_staged_variants=k1t, k2_variants=k2,
         k3_variants=k3, k4_kernels=k4, fusion_kernels=fused)
     tail = [v for v in fused if v["kernel"].startswith(("weights", "walk"))]
-    if len(tail) != 5 or any(v["spill_stores"] or v["spill_loads"]
+    if len(tail) != 6 or any(v["spill_stores"] or v["spill_loads"]
                              for v in tail):
-        raise AssertionError(f"F7 and F8: expected 5 kernels without "
+        raise AssertionError(f"F7 and F8: expected 6 kernels without "
                              f"spills: {tail}")
+    pick = [v for v in fused if v["kernel"] == "pick"]
+    if len(pick) != 10 or any(v["spill_stores"] or v["spill_loads"]
+                              for v in pick):
+        raise AssertionError(f"F3: expected 10 instantiations (staged or "
+                             f"not, 1, 2, 3, 4 or 8 cells a lane) without "
+                             f"spills: {pick}")
     if len(k2) != 3 or len(k3) != 9 or len(k4) != 2 or any(
             v["spill_stores"] or v["spill_loads"] for v in k2 + k3 + k4):
         raise AssertionError(f"K2: expected 3 instantiations, K3: 9, K4: 2, "
@@ -3420,7 +3436,7 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     from gridmap_slam_tpu_torch.io import frame_at
     from gridmap_slam_tpu_torch.models.captured import (
         CHUNK_SCANS, WARMUP_STEPS, graph_conditional_bodies,
-        graph_kernel_names, graph_kernel_nodes, stack_steps, tree_map)
+        graph_kernel_names, stack_steps, tree_map)
     from gridmap_slam_tpu_torch.utils.metrics import ate_rmse
 
     def gen():
@@ -3497,15 +3513,16 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
         graph_kernel_names(gr.raw_cuda_graph()), names_one, k[0])
         for k, gr in cap.graphs.items()}
     # the resample gates: an IF node a gate a scan (a robot's a tick)
+    # (the bodies' kernels read now: their graphs are not held past here)
     bodies = graph_conditional_bodies(
         cap.graphs[(m, False)].raw_cuda_graph())
+    body_names = [nm for _, bs in bodies for b in bs
+                  for nm in graph_kernel_names(b)]
     gates = inf_c.resampled[0].numel()
     map_bytes = st_e.logodds.numel() * st_e.logodds.element_size()
     gate = dict(gates_a_scan=gates,
                 conditional_nodes_a_scan=len(bodies) / m,
-                kernels_in_bodies_a_scan=sum(
-                    len(graph_kernel_nodes(b)) for _, bs in bodies
-                    for b in bs) / m,
+                kernels_in_bodies_a_scan=len(body_names) / m,
                 fired=int(inf_c.resampled.sum()),
                 gated=int(inf_c.resampled.numel()),
                 map_bytes=map_bytes,
@@ -3627,9 +3644,8 @@ def captured_path(name, eng, init, eager, jit, frames, n, gt, ate_max,
     # whose gates fired (mega_bf16) while the graph's nodes, read through
     # cuGraphKernelNodeGetParams above, hold them exactly; such a row need
     # not be seen
-    outside = {k: in_graph[k] - v / m for k, v in _node_counts(
-        [nm for _, bs in bodies for b in bs
-         for nm in graph_kernel_names(b)]).items()}
+    outside = {k: in_graph[k] - v / m
+               for k, v in _node_counts(body_names).items()}
     if visible and not all(
             (0 < seen[k] or outside[k] == 0)
             and seen[k] <= in_graph[k] + misnamable[k]
@@ -5271,6 +5287,171 @@ def exp_probe(n: int = EXP_PROBE_VALUES) -> dict:
         fusions.weight_exp_cuda(x), torch.exp(x)))
 
 
+# F3 and F7 on planted inputs (fusion_edges): F3's particle counts (one, the
+# parity and chip chunks, the shared-field check's 2 048, a 500 000 block)
+# and stages, F7's weights a robot (one, 500, a row less one, a row, a row
+# and one, 10 000, the 1M of the surface cells) at one and two robots
+EDGE_PICK_PARTICLES = (1, 250, 500, 2048, 500_000)
+# the matcher's stages, and a window whose particle's scores pass a slab's
+# staging (its scores read in place) at up to WIDE_PARTICLES particles
+EDGE_PICK_STAGES = {"coarse": (11, 9, 9), "fine": (5, 5, 5),
+                    "wide": (5, 31, 31)}
+WIDE_PARTICLES = 2048
+EDGE_PICK_KINDS = ("ties", "nan", "neginf", "zeros", "equal")
+EDGE_WEIGHTS = (1, 500, 1023, 1024, 1025, 10_000, 1 << 20)
+EDGE_WEIGHT_KINDS = ("ties", "neginf")
+
+
+def _edge_candidates(p, nt, ny, nx) -> list:
+    """The candidates where F3's plan splits a particle: the first and the
+    last, each lane's and warp's edges (ops/cuda/fusions.pick_plan)."""
+    from gridmap_slam_tpu_torch.ops.cuda import fusions
+    n = nt * ny * nx
+    lanes = fusions.pick_plan(p, nt, ny, nx).lanes
+    edges = {0, n - 1}
+    for w in {lanes, 32}:
+        edges |= {w - 1, w, n - w, n - w - 1, 2 * w - 1}
+    return sorted(e for e in edges if 0 <= e < n)
+
+
+def _edge_pick_inputs(p, stage, kind, gen):
+    """(args, kw) of one F3 call on planted scores: `ties` the same top
+    score at the split points (a zero prior weight: the totals are the
+    scores), `nan` NaNs at half of them, `neginf` every score -inf but at
+    some, `zeros` +-0 everywhere (a zero prior weight), `equal` every score
+    equal with offsets symmetric about 0 and the prior centered at pose0
+    (mirrored candidates tie); the particles' patterns shifted by their
+    index, so that a block's first and last particle differ."""
+    nt, ny, nx = EDGE_PICK_STAGES[stage]
+    n, dev = nt * ny * nx, "cuda"
+    edges = torch.tensor(_edge_candidates(p, nt, ny, nx), device=dev)
+    shift = torch.arange(p, device=dev)[:, None] % edges.numel()
+    cols = edges[(torch.arange(edges.numel(), device=dev) + shift)
+                 % edges.numel()][:, : max(edges.numel() // 2, 1)]
+    rows = torch.arange(p, device=dev)[:, None].expand_as(cols)
+    scores = torch.randn((p, n), generator=gen, device=dev) * 3.0 - 30.0
+    weight = 0.7
+    if kind == "ties":
+        scores[rows, cols], weight = 1e4, 0.0
+    elif kind == "nan":
+        scores[rows[:, ::2], cols[:, ::2]] = math.nan
+    elif kind == "neginf":
+        scores.fill_(-math.inf)
+        scores[rows[::2], cols[::2]] = -1e30
+    elif kind == "zeros":
+        scores = torch.where(torch.rand((p, n), generator=gen, device=dev)
+                             < 0.5, 0.0, -0.0)
+        weight = 0.0
+    else:
+        scores.fill_(-5.0)
+
+    def offsets(m, span):
+        base = torch.linspace(-span, span, m, device=dev)
+        if kind == "equal":
+            return base.expand(p, m).contiguous()
+        return base + (torch.rand((p, 1), generator=gen, device=dev)
+                       - 0.5) * 0.02
+
+    pose0 = (torch.rand((p, 3), generator=gen, device=dev) - 0.5) * 6.0
+    center = None if kind == "equal" else (
+        pose0 + torch.randn((p, 3), generator=gen, device=dev) * 0.05)
+    coarse = stage == "coarse"
+    use = (torch.rand(192, generator=gen, device=dev) < 0.7) if coarse \
+        else None
+    dxs, dys, dts = offsets(nx, 0.2), offsets(ny, 0.2), offsets(nt, 0.3)
+    d_c, d_t = (torch.tensor(v, device=dev) for v in (0.12, -0.2))
+    return (scores.reshape(p, nt, ny, nx), dxs, dys, dts, pose0, center, d_c,
+            d_t, use), weight
+
+
+def _edge_weights_inputs(r, p, kind, gen):
+    """Log-weights (r, p) and poses (r, p, 3) on the card: `ties` the max
+    at the first and last weight and at the rows' edges, `neginf` a third
+    of the weights -inf; headings past +-pi (the mean wraps them)."""
+    dev = "cuda"
+    lw = torch.randn((r, p), generator=gen, device=dev) * 2.0 - 3.0
+    if kind == "ties":
+        at = torch.tensor(sorted({0, p - 1, min(1023, p - 1),
+                                  min(1024, p - 1)}), device=dev)
+        lw[:, at] = 4.0
+    else:
+        lw[torch.rand((r, p), generator=gen, device=dev) < 1.0 / 3.0] = \
+            -math.inf
+    poses = (torch.rand((r, p, 3), generator=gen, device=dev) - 0.5) * 10.0
+    poses[..., 2] *= 2.0
+    return lw, poses
+
+
+def fusion_edges() -> dict:
+    """F3 and F7 on planted inputs, bit for bit against their plain versions
+    on the card: F3 at EDGE_PICK_PARTICLES in its three modes (the coarse
+    stage with the scan's mask writing offsets, a fine stage writing
+    offsets, the last stage writing the best pose and its score), and a
+    window too wide to stage writing offsets and the best pose, on each of
+    EDGE_PICK_KINDS; F7 at EDGE_WEIGHTS weights a robot, one and two robots,
+    with the epilogue and without (with the recovery EMAs at one robot), on
+    each of EDGE_WEIGHT_KINDS.  Returns each kernel's calls and differing
+    bits; fails on one."""
+    from gridmap_slam_tpu_torch.config import MotionConfig
+    from gridmap_slam_tpu_torch.ops.cuda import fusions
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    motion = MotionConfig()
+    off = (torch.linspace(-0.05, 0.05, 5, device="cuda"),
+           torch.linspace(-0.02, 0.02, 5, device="cuda"))
+    rows = []
+    for p, kind in ((p, k) for p in EDGE_PICK_PARTICLES
+                    for k in EDGE_PICK_KINDS):
+        wide = (("wide", False), ("wide", True)) if p <= WIDE_PARTICLES \
+            else ()
+        for stage, last in (("coarse", False), ("fine", False),
+                            ("fine", True), *wide):
+            args, weight = _edge_pick_inputs(p, stage, kind, gen)
+            nxt = (None, None) if last else off
+            kw = dict(motion=motion, prior_weight=weight, stride=3)
+            got = fusions.pick_cuda(*args, *nxt, **kw)
+            want = fusions.pick_plain(*args, *nxt, **kw)
+            rows.append(dict(kernel="F3", particles=p, stage=stage,
+                             last=last, kind=kind,
+                             plan=fusions.pick_plan(
+                                 p, *EDGE_PICK_STAGES[stage])._asdict(),
+                             bits_differing=sum(map(_bits_differing, got,
+                                                    want))))
+            del args, got, want
+    for p, r, kind in ((p, r, k) for p in EDGE_WEIGHTS for r in (1, 2)
+                       for k in EDGE_WEIGHT_KINDS):
+        lw, poses = _edge_weights_inputs(r, p, kind, gen)
+        for epilogue in (False, True):
+            kw = {}
+            if epilogue:
+                kw = dict(resample_fraction=0.5)
+                if r == 1:
+                    kw.update(recov=torch.tensor([-3.0, -2.5], device="cuda"),
+                              step=torch.tensor(3, dtype=torch.int32,
+                                                device="cuda"),
+                              reinject=(0.001, 0.1))
+            x = lw if r == 2 else lw[0]
+            q = poses if r == 2 else poses[0]
+            got = _outputs(fusions.weights_cuda(x, q, **kw))
+            want = _outputs(fusions.weights_plain(x, q, **kw))
+            rows.append(dict(kernel="F7", weights=p, robots=r, kind=kind,
+                             epilogue=epilogue, launches=fusions.weights_plan(
+                                 r, p).launches,
+                             bits_differing=sum(map(_bits_differing, got,
+                                                    want))
+                             if len(got) == len(want) else -1))
+    torch.cuda.synchronize()
+    bad = [row for row in rows if row["bits_differing"]]
+    out = {k: dict(calls=sum(row["kernel"] == k for row in rows),
+                   bits_differing=sum(row["bits_differing"] for row in rows
+                                      if row["kernel"] == k))
+           for k in ("F3", "F7")}
+    say("fusion_edges", **out, differing=bad)
+    if bad:
+        raise AssertionError(f"fusion_edges: {len(bad)} planted F3 or F7 "
+                             f"calls differ from their plain versions")
+    return out
+
+
 def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
     """F1-F8 (csrc/fusions.cu).  The parity preset's log again with F1-F8's
     calls recorded (CallRecorder) and held bit for bit against their plain
@@ -5287,7 +5468,8 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
     path of WEIGHTS_PATHS no checked F7 and F8 call, the
     parity path lacks one of F1-F3 and F6, F2 differs from the mean or F4
     from today's sample in a bit, or F6 from its plain version on a planted
-    scan, F7's exp from torch.exp in a bit,
+    scan, F7's exp from torch.exp in a bit, F3 or F7 from its plain version
+    on planted inputs (fusion_edges),
     or grid_sample from F4 beyond its tolerance (f4_library, on the
     mega path's first F4 call) (`paths`: FUSION_PATHS, or the paths a
     shorter run took).  Returns the kernels line's rows of F1-F8: F1-F3 and
@@ -5319,6 +5501,7 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
     s_order = sample_order(*s_args, s_kw)
     ties = scan_ties(cfg.beam_lut_bins)
     exp = exp_probe()
+    edges = fusion_edges()
     want, paths = paths, {}
     for row in FUSION_CHECKS:
         k = paths.setdefault(row["path"], {}).setdefault(
@@ -5328,7 +5511,7 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
         k["bits_differing"] += row["bits_differing"]
         k["ms"].append(row["ms"])
     say("fusions", pool_order=order, sample_order=s_order, scan_ties=ties,
-        f7_exp=exp, paths=paths, parity_calls=parity,
+        f7_exp=exp, edges=edges, paths=paths, parity_calls=parity,
         checked_calls=len(FUSION_CHECKS))
     needed = {p: ({"F4 climb" if p == "mega refine" else "F4", "F5", "F6"}
                   if p in SURFACE_PATHS else {"F3", "F6"})

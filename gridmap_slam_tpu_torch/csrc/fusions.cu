@@ -46,19 +46,42 @@
 // writes two (nt, B, K) factor tensors; F6 reads a scan and writes it and
 // its tables (a few KB: a launch's time).  F7 reads the log-weights three
 // times and the poses once (16 MB at 1M weights, in L2 between passes) and
-// writes a few floats; F8 reads the log-weights twice and writes the
-// scan (4 MB, in L2), then each slot's ~20 probes of it and its gathers.
+// writes a few floats (one read of each where P <= 1024); F8 reads the
+// log-weights twice and writes the scan (4 MB, in L2), then each slot's
+// ~20 probes of it and its gathers.
 //
-// Layout.  F1 and F2: a thread a particle or an output cell.  F3: a warp a
-// particle.  Its prior's quotients are tables in shared memory, one a
-// (dy, dx) and one a heading (ny nx + nt divisions a particle, not two a
-// candidate: a first design that divided a candidate took 7.8 ms a scan of
-// mega_blocked's 6 calls on an H100).  The lanes stride over a heading's (dy, dx)
-// candidates in flat order (coalesced reads of the scores), each keeping
-// the first maximum of its own; a butterfly of shuffles combines them in
-// one total order (NaN first, then the larger value, then the smaller
-// index), so every lane ends with the first argmax.  The coarse stage's used-beam counts come from the scan's
-// mask by ballots (integers, so exact as the float sums they replace).
+// Layout.  F1 and F2: a thread a particle or an output cell.  F3: teams
+// of max(lanes, 32) threads (ops/cuda/fusions.pick_plan: 256 or 128 lanes a
+// particle at 250-500 particles, to give every SM a block; a warp a
+// particle at a coarse stage of a 500 000 block, eight particles a warp at
+// its 125-candidate stages), each team working its slabs of consecutive
+// particles in turn with its own shared memory and barrier (a warp's, or a
+// named barrier).  What held a warp-a-particle design back on the H100 was
+// latency, not bytes: 250 or 500 particles filled 32 or 63 of 132 SMs, a
+// lane's loop was a load and then a dependent compare (one 128-byte load a
+// warp in flight: 1.15 TB/s at a 500 000 block), and a chain of
+// block-wide barriers cost a slab the same whatever its size.  So a team
+// copies its next slab's scores, offsets and poses into shared memory with
+// cp.async (16 bytes a copy where aligned) while it works the current one,
+// with no barrier across teams.  A particle's noise scales, bias and
+// coarse scale are taken by a thread each for the team's next `team`
+// particles at once (the used-beam counts of every scan row once a block,
+// a warp a row by ballots: integers, so exact as the float sums they
+// replace).  A lane
+// owns the (dy, dx) cells lane, lane + lanes, ... of its particle (or one
+// cell and every H-th heading where the lanes outnumber the cells), their
+// quotients q = d2 / (2 sd_c sd_c) in registers, and walks the headings,
+// each heading's quotient -(dt^2) / (2 sd_t sd_t) from a table (ny nx + nt
+// divisions a particle, not two a candidate: a first design that divided
+// a candidate took 7.8 ms a scan of mega_blocked's 6 calls); a heading's
+// cells are read from shared memory first and then taken by selects, with
+// no branch, so a lane visits its candidates in index order and keeps the
+// first maximum (a lane whose candidates all are -inf takes its first).
+// Shuffles within the particle's lanes, then shared memory across its
+// warps, combine them in one total order (NaN first, then the larger
+// value, then the smaller index), so any split of the candidates gives the
+// first argmax; the team writes its particles' outputs in one coalesced
+// pass.  Each candidate's prior keeps its op sequence.
 // F4: a thread a pose; its eight taps are read from the (nt, hc, wc)
 // volume in place at the cells the packed neighbourhood array
 // (ops/surface.pack_neighborhoods) would hold, so that array is never
@@ -72,14 +95,25 @@
 // is left to match: a block of 128 threads takes a row of 1024 weights, a
 // thread a segment of 8 added left to right, the row's segments by a
 // halving tree (shuffles below 32) or a Hillis-Steele scan in shared
-// memory, and the rows' partials by the same tree or scan in every block
-// that needs them (at most 1024 of them).  F7 is three launches (the rows'
-// first argmax; the max and each row's sum of exp; each row's sums of w w
-// and w pose, then the last block, by a ticket pass 1 resets, sums the
-// rows and writes the outputs and the epilogue); F8 two (each row's scan
-// of the normalized weights; a thread a slot: the rows' carry, the binary
-// search and the gathers).  The max is the value at the first argmax
-// (order-free), the exp the CUDA math library's expf, as torch.exp's.
+// memory, and the rows' partials by the same tree or scan.  F7 where P <=
+// 1024 is one launch, a block a robot doing the whole call.  Above it is
+// three launches, which its three dependent reductions need without a
+// grid-wide barrier: the rows' first argmax; the max (every block takes it
+// from the rows' argmaxes: a ticket would need a zeroed counter, which a
+// replay does not have before the first launch) and each row's sum of exp,
+// the last block, by a ticket the first launch resets, summing the rows
+// once and writing the max and the total; each row's sums of w w and w
+// pose, its poses copied into shared memory by cp.async, the four row
+// trees at once, then the last block summing the rows' four partials at
+// once (a thread holding eight of a tree's values, so that its top levels
+// add in registers) and writing the outputs and the epilogue; 14 KB of
+// shared memory a block, so that 1024 rows run in one wave.  (An earlier design whose
+// every block of the third launch summed the rows' partials again, and
+// whose last block summed the four in turn, took 0.043 ms at 1M weights,
+// 8x its byte bound.)  F8 is two (each row's scan of the normalized
+// weights; a thread a slot: the rows' carry, the binary search and the
+// gathers).  The max is the value at the first argmax (order-free), the
+// exp the CUDA math library's expf, as torch.exp's.
 
 #include <cuda_runtime.h>
 
@@ -91,7 +125,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarp = 32;
-constexpr size_t kTableBytes = 48 * 1024;   // F3's prior tables a block
 
 struct Motion {
   float base_c, rel_c, base_t, rel_t;   // base_t in radians
@@ -172,6 +205,8 @@ struct Pick {
   int per_o;             // particles an odometry row
   int per_b, B, stride;  // the coarse stage's scan rows, beam slots, stride
   int n_xy, n_t;         // the next stage's offsets (0 after the last)
+  int lanes, per_slab;   // the launch plan: threads a particle, particles
+  int staged;            // a slab; scores staged in shared memory
   float weight;
   Motion m;
 };
@@ -179,12 +214,202 @@ struct Pick {
 // Whether (v, i) comes before (w, j) in the argmax's order: a NaN first,
 // then the larger value, then the smaller index; j < 0 is no candidate.
 __device__ __forceinline__ bool before(float v, int i, float w, int j) {
-  if (j < 0) return i >= 0;
-  if (i < 0) return false;
   const bool vn = isnan(v), wn = isnan(w);
-  if (vn != wn) return vn;
-  if (!vn && v != w) return v > w;
-  return i < j;
+  const bool first = (vn & !wn) | ((vn == wn) & (v > w)) |
+                     ((vn == wn) & !(v != w) & (i < j)) |
+                     (vn & wn & (i < j));
+  return j < 0 ? i >= 0 : (i >= 0) & first;
+}
+
+// cp.async: a copy from global to shared memory that holds no register
+// and is waited for by cp_async_wait; 16 bytes (cached in L2 only: the
+// scores are read once) or 4.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Closes this thread's group of cp.async copies issued since the last.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for this thread's closed groups but the newest one where `ahead`
+// (the next slab's, in flight), else for all of them.
+__device__ __forceinline__ void cp_async_wait_prior(bool ahead) {
+  if (ahead)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The copy of n floats from src into dst (shared, 16-byte aligned) at
+// dst[head + j], head = src's offset past a 16-byte boundary in floats, by
+// the `threads` threads of a team (this one the team's thread tt), so that
+// every 16-byte aligned run of src is one 16-byte copy; the ragged ends go
+// 4 bytes at a time.  The caller waits (cp_async_wait) and synchronizes.
+__device__ void stage_async(float* dst, const float* src, int n, int tt,
+                            int threads) {
+  const int head =
+      static_cast<int>((reinterpret_cast<size_t>(src) >> 2) & 3u);
+  const int j0 = min((4 - head) & 3, n);
+  const int vecs = (n - j0) >> 2;
+  const int tail = j0 + 4 * vecs;
+  for (int v = tt; v < vecs; v += threads)
+    cp_async16(dst + head + j0 + 4 * v, src + j0 + 4 * v);
+  for (int j = tt; j < j0; j += threads)
+    cp_async4(dst + head + j, src + j);
+  for (int j = tail + tt; j < n; j += threads)
+    cp_async4(dst + head + j, src + j);
+}
+
+// src's offset past a 16-byte boundary, in floats: where stage_async puts
+// src[0].
+__device__ __forceinline__ int stage_head(const float* src) {
+  return static_cast<int>((reinterpret_cast<size_t>(src) >> 2) & 3u);
+}
+
+// The block's copy of n floats from src to dst[0 .. n) (shared, 16-byte
+// aligned) by cp.async: 16 bytes a copy where src is 16-byte aligned (the
+// ragged end 4 bytes a copy), else 4.  The caller waits and synchronizes.
+__device__ void stage_async_in_place(float* dst, const float* src, int n) {
+  const bool aligned = (reinterpret_cast<size_t>(src) & 15u) == 0;
+  const int vecs = aligned ? n >> 2 : 0;
+  for (int v = threadIdx.x; v < vecs; v += blockDim.x)
+    cp_async16(dst + 4 * v, src + 4 * v);
+  for (int j = 4 * vecs + threadIdx.x; j < n; j += blockDim.x)
+    cp_async4(dst + j, src + j);
+}
+
+// F3 works in teams: max(lanes, 32) threads of a block (a warp, a few
+// warps or the block) take slabs of team / lanes particles in turn, each
+// team with its own shared memory and barrier.  A team's shared memory, in
+// floats (ops/cuda/fusions.pick_smem counts it alike): two buffers, each a
+// slab's staged scores (q n, + 3 to align, rounded to 4) and its
+// particles' offsets (q (nx + ny + nt)) and pose0 (3 q), rounded to 4; the
+// heading quotients (q nt), the picks (3 q: it, iy, ix), the scalars of
+// the team's next `team` particles (kPickScalars a particle) and the
+// argmax across the team's warps (2 a warp).
+constexpr int kPickThreads = 256;
+constexpr int kPickScalars = 8;
+constexpr int kPickCells = 8;     // (dy, dx) cells a lane, at most
+constexpr int kPickRows = 256;    // scan rows whose counts a block keeps
+__host__ __device__ inline size_t pick_slab_floats(int q, int n, int staged) {
+  return staged ? ((static_cast<size_t>(q) * n + 3 + 3) & ~size_t{3}) : 0;
+}
+__host__ __device__ inline size_t pick_buffer_floats(int q, int nt, int ny,
+                                                     int nx, int staged) {
+  return (pick_slab_floats(q, nt * ny * nx, staged) +
+          static_cast<size_t>(q) * (nx + ny + nt + 3) + 3) &
+         ~size_t{3};
+}
+__host__ __device__ inline size_t pick_team_floats(int q, int team, int nt,
+                                                   int ny, int nx,
+                                                   int staged) {
+  return (2 * pick_buffer_floats(q, nt, ny, nx, staged) +
+          static_cast<size_t>(q) * (nt + 3) +
+          static_cast<size_t>(team) * kPickScalars + 2 * (team / kWarp) +
+          3) &
+         ~size_t{3};
+}
+
+// A team's barrier: the warp's, or named barrier `id` of `threads`.
+__device__ __forceinline__ void team_sync(int id, int threads) {
+  if (threads == kWarp)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A slab's inputs in one of F3's buffers.
+struct PickSlab {
+  float *scores, *ox, *oy, *ot, *ps;
+};
+
+__device__ __forceinline__ PickSlab pick_slab(float* buf, int q,
+                                              const Pick& k) {
+  PickSlab b;
+  b.scores = buf;
+  b.ox = buf + pick_slab_floats(q, k.nt * k.ny * k.nx, k.staged);
+  b.oy = b.ox + q * k.nx;
+  b.ot = b.oy + q * k.ny;
+  b.ps = b.ot + q * k.nt;
+  return b;
+}
+
+// A team's copies (cp.async, not waited for) of slab p0's inputs: its
+// scores where staged, its particles' offsets and pose0; tt the team's
+// thread, of `threads`.
+__device__ void pick_stage(const PickSlab& b, int p0, int qn, const Pick& k,
+                           const float* scores, const float* dxs,
+                           const float* dys, const float* dts,
+                           const float* pose0, int tt, int threads) {
+  const int n = k.nt * k.ny * k.nx;
+  if (k.staged)
+    stage_async(b.scores, scores + static_cast<size_t>(p0) * n, qn * n, tt,
+                threads);
+  for (int e = tt; e < qn * k.nx; e += threads)
+    cp_async4(b.ox + e, dxs + static_cast<size_t>(p0) * k.nx + e);
+  for (int e = tt; e < qn * k.ny; e += threads)
+    cp_async4(b.oy + e, dys + static_cast<size_t>(p0) * k.ny + e);
+  for (int e = tt; e < qn * k.nt; e += threads)
+    cp_async4(b.ot + e, dts + static_cast<size_t>(p0) * k.nt + e);
+  for (int e = tt; e < 3 * qn; e += threads)
+    cp_async4(b.ps + e, pose0 + 3 * static_cast<size_t>(p0) + e);
+}
+
+// One particle's scalars into c: 2 sd_c sd_c, 2 sd_t sd_t, the bias
+// (pose0 - center, its heading wrapped; 0 without a center) and at the
+// coarse stage n_c / n_all and n_all / n_c of its scan row: from the
+// block's counts (n_all, n_c a row) where given, else counted here (a byte
+// a beam).
+__device__ void pick_scalars(int p, const Pick& k, const float* pose0,
+                             const float* center, const float* d_center,
+                             const float* d_theta, const bool* use,
+                             const int* counts, float* c) {
+  const float2 sd = noise(d_center[p / k.per_o], d_theta[p / k.per_o], k.m);
+  c[0] = __fmul_rn(__fmul_rn(2.0f, sd.x), sd.x);
+  c[1] = __fmul_rn(__fmul_rn(2.0f, sd.y), sd.y);
+  c[2] = c[3] = c[4] = 0.0f;
+  if (center != nullptr) {
+    const size_t o = 3 * static_cast<size_t>(p);
+    c[2] = __fsub_rn(pose0[o], center[o]);
+    c[3] = __fsub_rn(pose0[o + 1], center[o + 1]);
+    c[4] = wrap(__fsub_rn(pose0[o + 2], center[o + 2]));
+  }
+  c[5] = c[6] = 1.0f;
+  if (use != nullptr) {
+    const int g = p / k.per_b;
+    int n_all = 0, n_c = 0;
+    if (counts != nullptr) {
+      n_all = counts[2 * g];
+      n_c = counts[2 * g + 1];
+    } else {
+      const bool* row = use + static_cast<size_t>(g) * k.B;
+      for (int e = 0, m = 0; e < k.B; ++e) {
+        const int u = row[e];
+        n_all += u;
+        n_c += m == 0 ? u : 0;
+        m = m + 1 == k.stride ? 0 : m + 1;
+      }
+    }
+    const float fa = fmaxf(static_cast<float>(n_all), 1.0f);
+    const float fc = fmaxf(static_cast<float>(n_c), 1.0f);
+    c[5] = __fdiv_rn(fc, fa);
+    c[6] = __fdiv_rn(fa, fc);
+  }
 }
 
 // F3.  scores: (P, nt, ny, nx), K1's scores of one stage at the candidates
@@ -197,7 +422,26 @@ __device__ __forceinline__ bool before(float v, int i, float w, int j) {
 // out_dxs = fx + off_xy, out_dys = fy + off_xy, out_dts = ft + off_t) or,
 // after the last stage, best = pose0 + (fx, fy, ft) and meas_best = the
 // picked score (times n_all / n_c at the coarse stage).
-__global__ void __launch_bounds__(kThreads) fusion_pick_kernel(
+//
+// A team of max(lanes, 32) threads takes slabs of team / lanes consecutive
+// particles, `lanes` threads a particle (the plan): the team's slabs are
+// its index over all blocks, + all the teams, ...  A slab's scores (one
+// contiguous run, where staged), offsets and poses are copied into the
+// team's shared memory by cp.async, the next slab's into the other buffer
+// while the team works the current one.  Each particle's noise scales,
+// bias and coarse scale (the used beams of its scan row, counted) are
+// taken by a thread of its own for the team's next `team` particles at
+// once.  A lane owns the (dy, dx) cells r = lane, lane + lanes, ... (or,
+// where the lanes outnumber the cells, one cell and every H-th heading),
+// their quotients q[r] in registers, and walks the headings, each
+// heading's quotient from a table the particle's lanes build; so a lane
+// visits its candidates in index order and keeps the first maximum of
+// them; shuffles (and across the team's warps, shared memory) combine the
+// lanes' in before()'s order; the team writes the slab's outputs in one
+// coalesced pass.
+template <bool kStaged, int kCells>
+__global__ void __launch_bounds__(kPickThreads, kCells > 3 ? 2 : 3)
+    fusion_pick_kernel(
     const float* __restrict__ scores, const float* __restrict__ dxs,
     const float* __restrict__ dys, const float* __restrict__ dts,
     const float* __restrict__ pose0, const float* __restrict__ center,
@@ -206,95 +450,218 @@ __global__ void __launch_bounds__(kThreads) fusion_pick_kernel(
     const float* __restrict__ off_t, float* __restrict__ out_dxs,
     float* __restrict__ out_dys, float* __restrict__ out_dts,
     float* __restrict__ best, float* __restrict__ meas_best, Pick k) {
-  const int lane = threadIdx.x % kWarp;
-  const int p = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
-  if (p >= k.P) return;                    // the whole warp leaves
-  const int o = p / k.per_o;
-  const float2 sd = noise(d_center[o], d_theta[o], k.m);
-  const float den_c = __fmul_rn(__fmul_rn(2.0f, sd.x), sd.x);
-  const float den_t = __fmul_rn(__fmul_rn(2.0f, sd.y), sd.y);
-  float bx = 0.0f, by = 0.0f, bt = 0.0f;
-  if (center != nullptr) {
-    bx = __fsub_rn(pose0[3 * p], center[3 * p]);
-    by = __fsub_rn(pose0[3 * p + 1], center[3 * p + 1]);
-    bt = wrap(__fsub_rn(pose0[3 * p + 2], center[3 * p + 2]));
-  }
-  const bool coarse = use != nullptr;
-  float scale = 1.0f, unscale = 1.0f;
-  if (coarse) {
-    const bool* row = use + static_cast<size_t>(p / k.per_b) * k.B;
-    int n_all = 0, n_c = 0;
-    for (int j0 = 0; j0 < k.B; j0 += kWarp) {
-      const int j = j0 + lane;
-      const bool u = j < k.B && row[j];
-      n_all += __popc(__ballot_sync(0xffffffffu, u));
-      n_c += __popc(__ballot_sync(0xffffffffu, u && j % k.stride == 0));
-    }
-    const float fa = fmaxf(static_cast<float>(n_all), 1.0f);
-    const float fc = fmaxf(static_cast<float>(n_c), 1.0f);
-    scale = __fdiv_rn(fc, fa);
-    unscale = __fdiv_rn(fa, fc);
-  }
-  const float* px = dxs + static_cast<size_t>(p) * k.nx;
-  const float* py = dys + static_cast<size_t>(p) * k.ny;
-  const float* pt = dts + static_cast<size_t>(p) * k.nt;
+  extern __shared__ __align__(16) float sm[];
+  const int L = k.lanes, Q = k.per_slab;
+  const int T = L * Q, teams = blockDim.x / T;   // a team's threads
   const int nyx = k.ny * k.nx, n = k.nt * nyx;
-  const float* s = scores + static_cast<size_t>(p) * n;
-  // The prior's two quotients depend on (iy, ix) and on it alone: each is
-  // taken once a particle into the warp's slice of shared memory, q[r] =
-  // d2 / (2 sd_c sd_c) for r = iy nx + ix and qt[it] = -(dt^2) / (2 sd_t
-  // sd_t), the same floats the candidates' separate tensor ops give.
-  extern __shared__ float table[];
-  float* q = table + (threadIdx.x / kWarp) * (nyx + k.nt);
-  float* qt = q + nyx;
-  for (int r = lane; r < nyx; r += kWarp) {
-    const int iy = r / k.nx, ix = r - iy * k.nx;
-    const float ay = __fadd_rn(py[iy], by), ax = __fadd_rn(px[ix], bx);
-    q[r] = __fdiv_rn(__fadd_rn(__fmul_rn(ay, ay), __fmul_rn(ax, ax)), den_c);
+  const int slabs = (k.P + Q - 1) / Q;
+  const int team = threadIdx.x / T, tt = threadIdx.x - team * T;
+  const int g = tt / L, l = tt - g * L;
+  const int warp = tt / kWarp, lane = tt % kWarp;   // within the team
+  const int bar = 1 + team;
+  const bool coarse = use != nullptr;
+  float* own = sm + team * pick_team_floats(Q, T, k.nt, k.ny, k.nx, k.staged);
+  const size_t buf_floats = pick_buffer_floats(Q, k.nt, k.ny, k.nx, k.staged);
+  float* q_t = own + 2 * buf_floats;         // (q, nt)
+  int* pick = reinterpret_cast<int*>(q_t + Q * k.nt);  // (q, 3)
+  float* par = reinterpret_cast<float*>(pick + 3 * Q);  // (team, scalars)
+  float* red_v = par + T * kPickScalars;
+  int* red_i = reinterpret_cast<int*>(red_v + T / kWarp);
+  float* qt = q_t + g * k.nt;
+  const int first = blockIdx.x * teams + team, stride = gridDim.x * teams;
+  // this lane's cells: r0 + a L for a < cells, its headings h, h + H, ...;
+  // each cell's flat offset in a heading and its (iy, ix)
+  const int H = max(1, min(k.nt, L / nyx));
+  const int h = H > 1 ? l / nyx : 0, r0 = l - h * nyx;
+  const int cells = H > 1 ? (l < H * nyx ? 1 : 0)
+                          : max(0, (nyx - l + L - 1) / L);
+  int cell_r[kCells], cell_yx[kCells];         // r; iy << 16 | ix
+#pragma unroll
+  for (int a = 0; a < kCells; ++a) {
+    cell_r[a] = a < cells ? r0 + a * L : r0;
+    const int iy = cell_r[a] / k.nx;
+    cell_yx[a] = iy << 16 | (cell_r[a] - iy * k.nx);
   }
-  for (int it = lane; it < k.nt; it += kWarp) {
-    const float at = __fadd_rn(pt[it], bt);
-    qt[it] = __fdiv_rn(-__fmul_rn(at, at), den_t);
+  // the coarse stage's used-beam counts of every scan row, a warp a row by
+  // ballots (integers, so exact as the float sums they replace), once a
+  // block where they fit (kPickRows rows)
+  const int rows = coarse ? k.P / k.per_b : 0;
+  int* counts = nullptr;
+  if (coarse && rows <= kPickRows) {
+    counts = reinterpret_cast<int*>(sm) + (blockDim.x / T) *
+             pick_team_floats(Q, T, k.nt, k.ny, k.nx, k.staged);
+    for (int rr = threadIdx.x / kWarp; rr < rows;
+         rr += blockDim.x / kWarp) {
+      const bool* row = use + static_cast<size_t>(rr) * k.B;
+      int n_all = 0, n_c = 0;
+      for (int j0 = 0; j0 < k.B; j0 += 8 * kWarp) {
+        bool u[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int b = j0 + e * kWarp + threadIdx.x % kWarp;
+          u[e] = b < k.B && row[b];
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int b = j0 + e * kWarp + threadIdx.x % kWarp;
+          n_all += __popc(__ballot_sync(0xffffffffu, u[e]));
+          n_c += __popc(__ballot_sync(0xffffffffu, u[e] && b % k.stride == 0));
+        }
+      }
+      if (threadIdx.x % kWarp == 0) {
+        counts[2 * rr] = n_all;
+        counts[2 * rr + 1] = n_c;
+      }
+    }
+    __syncthreads();
   }
-  __syncwarp();
-  float bv = 0.0f;
-  int bi = -1;
-  for (int it = 0; it < k.nt; ++it) {
-    const float prior_t = qt[it];
-    for (int r = lane; r < nyx; r += kWarp) {
-      const int i = it * nyx + r;
-      const float prior = __fmul_rn(__fsub_rn(prior_t, q[r]), k.weight);
-      const float v =
-          __fadd_rn(s[i], coarse ? __fmul_rn(scale, prior) : prior);
-      if (before(v, i, bv, bi)) {
-        bv = v;
+
+  if (first < slabs) {
+    const int p0 = first * Q;
+    pick_stage(pick_slab(own, Q, k), p0, min(Q, k.P - p0), k, scores, dxs,
+               dys, dts, pose0, tt, T);
+  }
+  int j = 0;
+  for (int slab = first; slab < slabs; slab += stride, ++j) {
+    const int p0 = slab * Q, qn = min(Q, k.P - p0);
+    const bool ahead = slab + stride < slabs;
+    const PickSlab b = pick_slab(own + (j & 1) * buf_floats, Q, k);
+    cp_async_commit();
+    if (ahead) {
+      const int p1 = p0 + stride * Q;
+      pick_stage(pick_slab(own + ((j + 1) & 1) * buf_floats, Q, k), p1,
+                 min(Q, k.P - p1), k, scores, dxs, dys, dts, pose0, tt, T);
+    }
+    cp_async_commit();
+    // the scalars of this and the team's next slabs' particles, a thread
+    // each, every T / Q slabs
+    const int batch = j % L;                 // T / Q = L slabs a batch
+    if (batch == 0) {
+      const int bs = slab + (tt / Q) * stride, bp = bs * Q + tt % Q;
+      if (bs < slabs && bp < k.P)
+        pick_scalars(bp, k, pose0, center, d_center, d_theta, use, counts,
+                     par + kPickScalars * tt);
+    }
+    cp_async_wait_prior(ahead);
+    team_sync(bar, T);
+    const float* c = par + kPickScalars * (batch * Q + g);
+    // the prior's quotients: qt[it] = -(dt^2) / (2 sd_t sd_t) in a table
+    // the particle's lanes build, q[r] = d2 / (2 sd_c sd_c) for r = iy nx +
+    // ix in this lane's registers, the same floats the candidates'
+    // separate tensor ops give
+    const bool mine = g < qn;
+    float q[kCells];
+    if (mine) {
+      for (int it = l; it < k.nt; it += L) {
+        const float at = __fadd_rn(b.ot[g * k.nt + it], c[4]);
+        qt[it] = __fdiv_rn(-__fmul_rn(at, at), c[1]);
+      }
+#pragma unroll
+      for (int a = 0; a < kCells; ++a) {
+        const float ay = __fadd_rn(b.oy[g * k.ny + (cell_yx[a] >> 16)], c[3]);
+        const float ax = __fadd_rn(b.ox[g * k.nx + (cell_yx[a] & 0xffff)],
+                                   c[2]);
+        q[a] = __fdiv_rn(__fadd_rn(__fmul_rn(ay, ay), __fmul_rn(ax, ax)),
+                         c[0]);
+      }
+    }
+    team_sync(bar, T);
+    const float* src = scores + static_cast<size_t>(p0) * n;
+    // the staged slab through a pointer into shared memory alone, so that
+    // its reads are shared-memory loads
+    const float* sl =
+        kStaged ? own + (j & 1) * buf_floats + stage_head(src) : src;
+    float bv = -INFINITY;
+    int bi = -1;
+    if (mine && cells > 0) {
+      const float* s = sl + g * n;
+      const float scale = c[5];
+      // a heading's cells read first, then taken in turn where before()
+      // puts them first (a larger index than any taken: a NaN over a
+      // number, a larger number); a lane whose candidates all are -inf
+      // takes its first
+      for (int it = h; it < k.nt; it += H) {
+        const float pt = qt[it];
+        const float* row = s + it * nyx;
+        float sv[kCells];
+#pragma unroll
+        for (int a = 0; a < kCells; ++a) sv[a] = row[cell_r[a]];
+#pragma unroll
+        for (int a = 0; a < kCells; ++a) {
+          const float prior = __fmul_rn(__fsub_rn(pt, q[a]), k.weight);
+          const float v =
+              __fadd_rn(sv[a], coarse ? __fmul_rn(scale, prior) : prior);
+          const bool take = (a < cells) & !isnan(bv) & !(v <= bv);
+          bv = take ? v : bv;
+          bi = take ? it * nyx + cell_r[a] : bi;
+        }
+      }
+      if (bi < 0) bi = h * nyx + r0;
+    }
+    // a particle's lanes are one aligned run of a warp (lanes <= 32) or
+    // whole warps: shuffles within the run, then its warps' picks in
+    // shared memory
+    for (int off = min(L, kWarp) / 2; off > 0; off /= 2) {
+      const float w = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int i = __shfl_xor_sync(0xffffffffu, bi, off);
+      if (before(w, i, bv, bi)) {
+        bv = w;
         bi = i;
       }
     }
-  }
-  for (int off = kWarp / 2; off > 0; off /= 2) {
-    const float w = __shfl_xor_sync(0xffffffffu, bv, off);
-    const int j = __shfl_xor_sync(0xffffffffu, bi, off);
-    if (before(w, j, bv, bi)) {
-      bv = w;
-      bi = j;
+    if (L > kWarp) {                         // a particle a team: warp 0's
+      if (lane == 0) {
+        red_v[warp] = bv;
+        red_i[warp] = bi;
+      }
+      team_sync(bar, T);
+      if (warp == 0) {
+        const int nw = L / kWarp;
+        bv = lane < nw ? red_v[lane] : 0.0f;
+        bi = lane < nw ? red_i[lane] : -1;
+        for (int off = nw / 2; off > 0; off /= 2) {
+          const float w = __shfl_xor_sync(0xffffffffu, bv, off);
+          const int i = __shfl_xor_sync(0xffffffffu, bi, off);
+          if (before(w, i, bv, bi)) {
+            bv = w;
+            bi = i;
+          }
+        }
+      }
     }
-  }
-  const int it = bi / nyx, r = bi - it * nyx;
-  const int iy = r / k.nx, ix = r - iy * k.nx;
-  const float fx = px[ix], fy = py[iy], ft = pt[it];
-  if (off_xy != nullptr) {
-    for (int j = lane; j < k.n_xy; j += kWarp) {
-      out_dxs[static_cast<size_t>(p) * k.n_xy + j] = __fadd_rn(fx, off_xy[j]);
-      out_dys[static_cast<size_t>(p) * k.n_xy + j] = __fadd_rn(fy, off_xy[j]);
+    if (mine && l == 0) {
+      const int it = bi / nyx, r = bi - it * nyx, iy = r / k.nx;
+      pick[3 * g] = it;
+      pick[3 * g + 1] = iy;
+      pick[3 * g + 2] = r - iy * k.nx;
+      if (off_xy == nullptr) {
+        const float sv = sl[g * n + bi];
+        meas_best[p0 + g] = coarse ? __fmul_rn(c[6], sv) : sv;
+      }
     }
-    for (int j = lane; j < k.n_t; j += kWarp)
-      out_dts[static_cast<size_t>(p) * k.n_t + j] = __fadd_rn(ft, off_t[j]);
-  } else if (lane == 0) {
-    best[3 * p] = __fadd_rn(pose0[3 * p], fx);
-    best[3 * p + 1] = __fadd_rn(pose0[3 * p + 1], fy);
-    best[3 * p + 2] = __fadd_rn(pose0[3 * p + 2], ft);
-    meas_best[p] = coarse ? __fmul_rn(unscale, s[bi]) : s[bi];
+    team_sync(bar, T);
+    if (off_xy != nullptr) {
+      for (int e = tt; e < qn * k.n_xy; e += T) {
+        const int u = e / k.n_xy, a = e - u * k.n_xy;
+        const size_t o = static_cast<size_t>(p0) * k.n_xy + e;
+        out_dxs[o] = __fadd_rn(b.ox[u * k.nx + pick[3 * u + 2]], off_xy[a]);
+        out_dys[o] = __fadd_rn(b.oy[u * k.ny + pick[3 * u + 1]], off_xy[a]);
+      }
+      for (int e = tt; e < qn * k.n_t; e += T) {
+        const int u = e / k.n_t, a = e - u * k.n_t;
+        out_dts[static_cast<size_t>(p0) * k.n_t + e] =
+            __fadd_rn(b.ot[u * k.nt + pick[3 * u]], off_t[a]);
+      }
+    } else {
+      for (int e = tt; e < 3 * qn; e += T) {
+        const int u = e / 3, a = e - 3 * u;
+        const float f = a == 0 ? b.ox[u * k.nx + pick[3 * u + 2]]
+                               : (a == 1 ? b.oy[u * k.ny + pick[3 * u + 1]]
+                                         : b.ot[u * k.nt + pick[3 * u]]);
+        best[3 * static_cast<size_t>(p0) + e] = __fadd_rn(b.ps[e], f);
+      }
+    }
+    team_sync(bar, T);
   }
 }
 
@@ -608,24 +975,70 @@ __device__ float row_total(float v, float* s) {
   return v;
 }
 
+// The halving trees of C rows of q values x[c][i] (q a power of two, at
+// most kRow; +0.0 past the given) over a block of kRowThreads threads:
+// s[i] + s[i + h] for h = q / 2, ... 1, the C rows at once.  Thread t
+// holds x[c][t + kRowThreads k] in v[c][k]; the levels h >= kRowThreads
+// add within a thread (x[i] and x[i + h] are the same thread's), the
+// levels 64 and 32 go through shared memory s (C kRowThreads floats), the
+// rest by shuffles (lane i adds lane i + h).  The totals land in v[c][0]
+// of thread 0.
+template <int C>
+__device__ void halve_block(float (&v)[C][kRow / kRowThreads], int q,
+                            float* s) {
+  const int t = threadIdx.x;
+  int m = q > kRowThreads ? q / kRowThreads : 1;   // values a thread
+#pragma unroll
+  for (int half = kRow / kRowThreads / 2; half >= 1; half >>= 1)
+    if (m > half) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int k = 0; k < half; ++k)
+          v[c][k] = __fadd_rn(v[c][k], v[c][k + half]);
+      m = half;
+    }
+  int count = min(q, kRowThreads);
+  for (; count > kWarp; count >>= 1) {
+    const int h = count >> 1;
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[c * kRowThreads + t] = v[c][0];
+    __syncthreads();
+    if (t < h)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        v[c][0] = __fadd_rn(v[c][0], s[c * kRowThreads + t + h]);
+    __syncthreads();
+  }
+  if (t < kWarp) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float x = t < count ? v[c][0] : 0.0f;
+      for (int h = count >> 1; h >= 1; h >>= 1)
+        x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, h));
+      v[c][0] = x;
+    }
+  }
+}
+
 // The total of nb row totals (read through L2: other blocks of the same
 // launch may have written them), padded with +0.0 to the power of two q at
-// or above nb and halved from q / 2; every thread gets it.  s holds kRow
-// floats.
+// or above nb and halved from q / 2 (halve_block); every thread gets it.
+// s holds kRowThreads floats.
 __device__ float rows_total(const float* part, int nb, float* s) {
   int q = 1;
   while (q < nb) q <<= 1;
-  for (int i = threadIdx.x; i < q; i += blockDim.x)
-    s[i] = i < nb ? __ldcg(part + i) : 0.0f;
-  __syncthreads();
-  for (int h = q >> 1; h >= 1; h >>= 1) {
-    for (int i = threadIdx.x; i < h; i += blockDim.x)
-      s[i] = __fadd_rn(s[i], s[i + h]);
-    __syncthreads();
+  float v[1][kRow / kRowThreads];
+#pragma unroll
+  for (int k = 0; k < kRow / kRowThreads; ++k) {
+    const int i = threadIdx.x + k * kRowThreads;
+    v[0][k] = i < nb ? __ldcg(part + i) : 0.0f;
   }
-  const float v = s[0];
+  halve_block<1>(v, q, s);
+  __shared__ float total;
+  if (threadIdx.x == 0) total = v[0][0];
   __syncthreads();
-  return v;
+  return total;
 }
 
 // The first maximum (a NaN first, torch.argmax's) of every thread's (v, i)
@@ -675,57 +1088,48 @@ __device__ void rows_argmax(const float* pv, const int* pi, int nb, float& v,
   block_argmax(v, i, s_v, s_i);
 }
 
-// F7, pass 1: each row's first argmax of the log-weights lw (R, P) into pv,
-// pi (R, nb); block (0, r) sets robot r's ticket of pass 3 to 0.
-__global__ void __launch_bounds__(kRowThreads) fusion_weights_max_kernel(
-    const float* __restrict__ lw, float* __restrict__ pv,
-    int* __restrict__ pi, unsigned* __restrict__ ticket, int P, int nb) {
-  __shared__ float s_v[kWarp];
-  __shared__ int s_i[kWarp];
-  const int r = blockIdx.y, b = blockIdx.x;
-  const float* x = lw + static_cast<size_t>(r) * P;
-  const int base = b * kRow + threadIdx.x * kSeg;
-  float v = 0.0f;
-  int i = -1;
-  for (int j = 0; j < kSeg; ++j) {
-    const int k = base + j;
-    if (k < P && before(x[k], k, v, i)) {
-      v = x[k];
-      i = k;
+// The row totals of four values a thread, row_total's tree for the four
+// at once (three barriers, not twelve); thread 0 gets them in a.  s holds
+// 4 kRowThreads floats.
+__device__ void row_totals4(float (&a)[4], float* s) {
+  const int t = threadIdx.x;
+  for (int c = 0; c < 4; ++c) s[c * kRowThreads + t] = a[c];
+  __syncthreads();
+  if (t < 64)
+    for (int c = 0; c < 4; ++c)
+      s[c * kRowThreads + t] =
+          __fadd_rn(s[c * kRowThreads + t], s[c * kRowThreads + t + 64]);
+  __syncthreads();
+  if (t < kWarp) {
+    for (int c = 0; c < 4; ++c) {
+      float v = __fadd_rn(s[c * kRowThreads + t],
+                          s[c * kRowThreads + t + kWarp]);
+      for (int h = kWarp / 2; h >= 1; h >>= 1)
+        v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, h));
+      a[c] = v;
     }
   }
-  block_argmax(v, i, s_v, s_i);
-  if (threadIdx.x == 0) {
-    pv[static_cast<size_t>(r) * nb + b] = v;
-    pi[static_cast<size_t>(r) * nb + b] = i;
-    if (b == 0) ticket[r] = 0u;
-  }
+  __syncthreads();
 }
 
-// F7, pass 2: the max m (the value at the first argmax), then each row's
-// sum of exp(lw - m), its segments in turn and the row by row_total, into
-// pe (R, nb).
-__global__ void __launch_bounds__(kRowThreads) fusion_weights_sum_kernel(
-    const float* __restrict__ lw, const float* __restrict__ pv,
-    const int* __restrict__ pi, float* __restrict__ pe, int P, int nb) {
-  __shared__ float s[kRowThreads];
-  __shared__ float s_v[kWarp];
-  __shared__ int s_i[kWarp];
-  const int r = blockIdx.y, b = blockIdx.x;
-  float m;
-  int mi;
-  rows_argmax(pv + static_cast<size_t>(r) * nb, pi + static_cast<size_t>(r) * nb,
-              nb, m, mi, s_v, s_i);
-  const float* x = lw + static_cast<size_t>(r) * P;
-  const int base = b * kRow + threadIdx.x * kSeg;
-  float acc = 0.0f;
-  for (int j = 0; j < kSeg; ++j) {
-    const int k = base + j;
-    const float e = k < P ? weight_exp(__fsub_rn(x[k], m)) : 0.0f;
-    acc = j == 0 ? e : __fadd_rn(acc, e);
-  }
-  const float tot = row_total(acc, s);
-  if (threadIdx.x == 0) pe[static_cast<size_t>(r) * nb + b] = tot;
+// The totals of four rows of nb > 1 partials (part + c nb), each
+// rows_total's tree (padded to the power of two q at or above nb, halved
+// from q / 2; halve_block), the four at once; thread 0 gets them.  s holds
+// 4 kRowThreads floats.
+__device__ void rows_totals4(const float* part, int nb, float* s,
+                             float (&out)[4]) {
+  int q = 1;
+  while (q < nb) q <<= 1;
+  float v[4][kRow / kRowThreads];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int k = 0; k < kRow / kRowThreads; ++k) {
+      const int i = threadIdx.x + k * kRowThreads;
+      v[c][k] = i < nb ? __ldcg(part + c * nb + i) : 0.0f;
+    }
+  halve_block<4>(v, q, s);
+  for (int c = 0; c < 4; ++c) out[c] = v[c][0];
 }
 
 struct WeightsOut {
@@ -740,61 +1144,61 @@ struct WeightsOut {
   float a_slow, a_fast, thr_inject, hi_inject;   // the recovery's floats
 };
 
-// F7, pass 3: m and the total again; each weight w = exp(lw - m) / total
-// and the rows' sums of w w, x w, y w and wrap(theta) w (segments in turn,
-// rows by row_total) into p4 (R, 4, nb); then the last block of a robot (its
-// ticket) sums the rows (rows_total) and writes the max, the total, the
-// first argmax and its pose, Neff = 1 / sum(w w), the weighted mean pose
-// and, where out.gate is given, the epilogue: the resample gate Neff <
-// P fraction, the integration pose (the weighted mean where Neff >= 0.95 P,
-// else the best pose), and with recov the recovery EMAs of the max (both
-// set to it at step 0), p_inject = clamp(1 - exp(l_fast - l_slow), 0,
-// 0.3) and the gate forced where p_inject > 0.05.
-__global__ void __launch_bounds__(kRowThreads) fusion_weights_finish_kernel(
-    const float* __restrict__ lw, const float* __restrict__ pv,
-    const int* __restrict__ pi, const float* __restrict__ pe,
-    float* __restrict__ p4, unsigned* __restrict__ ticket, int P, int nb,
-    WeightsOut o) {
-  __shared__ float s[kRow];
-  __shared__ float s_v[kWarp];
-  __shared__ int s_i[kWarp];
-  __shared__ bool last;
-  const int r = blockIdx.y, b = blockIdx.x;
-  float m;
-  int mi;
-  rows_argmax(pv + static_cast<size_t>(r) * nb, pi + static_cast<size_t>(r) * nb,
-              nb, m, mi, s_v, s_i);
-  const float total = rows_total(pe + static_cast<size_t>(r) * nb, nb, s);
-  const float* x = lw + static_cast<size_t>(r) * P;
-  const float* ps = o.poses + static_cast<size_t>(r) * P * 3;
-  const int base = b * kRow + threadIdx.x * kSeg;
-  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+// A thread's segment of kSeg log-weights x[base ..] (k < P; +0.0 past P),
+// two 16-byte loads where the segment is whole and x 16-byte aligned.
+__device__ __forceinline__ void load_segment(const float* x, int base, int P,
+                                             float (&xv)[kSeg]) {
+  if (base + kSeg <= P && (reinterpret_cast<size_t>(x) & 15u) == 0) {
+    const float4 u = *reinterpret_cast<const float4*>(x + base);
+    const float4 w = *reinterpret_cast<const float4*>(x + base + 4);
+    xv[0] = u.x, xv[1] = u.y, xv[2] = u.z, xv[3] = u.w;
+    xv[4] = w.x, xv[5] = w.y, xv[6] = w.z, xv[7] = w.w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kSeg; ++j) xv[j] = base + j < P ? x[base + j] : 0.0f;
+}
+
+// A segment's sums of w w, x w, y w and wrap(theta) w, in turn, w =
+// exp(x - m) / total (+0.0 past P); the segment's poses (kSeg, 3) at
+// `pose` in shared memory, 16-byte aligned, read by six 16-byte loads.
+__device__ __forceinline__ void segment_moments(const float (&xv)[kSeg],
+                                                int base, int P, float m,
+                                                float total,
+                                                const float* pose,
+                                                float (&a)[4]) {
+  float pv[3 * kSeg];
+#pragma unroll
+  for (int u = 0; u < 3 * kSeg / 4; ++u) {
+    const float4 f = reinterpret_cast<const float4*>(pose)[u];
+    pv[4 * u] = f.x, pv[4 * u + 1] = f.y, pv[4 * u + 2] = f.z,
+    pv[4 * u + 3] = f.w;
+  }
+#pragma unroll
   for (int j = 0; j < kSeg; ++j) {
-    const int k = base + j;
     float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (k < P) {
-      const float w = __fdiv_rn(weight_exp(__fsub_rn(x[k], m)), total);
+    if (base + j < P) {
+      const float w = __fdiv_rn(weight_exp(__fsub_rn(xv[j], m)), total);
       q[0] = __fmul_rn(w, w);
-      q[1] = __fmul_rn(ps[3 * k], w);
-      q[2] = __fmul_rn(ps[3 * k + 1], w);
-      q[3] = __fmul_rn(wrap(ps[3 * k + 2]), w);
+      q[1] = __fmul_rn(pv[3 * j], w);
+      q[2] = __fmul_rn(pv[3 * j + 1], w);
+      q[3] = __fmul_rn(wrap(pv[3 * j + 2]), w);
     }
     for (int c = 0; c < 4; ++c) a[c] = j == 0 ? q[c] : __fadd_rn(a[c], q[c]);
   }
-  float* row = p4 + static_cast<size_t>(r) * 4 * nb;
-  for (int c = 0; c < 4; ++c) {
-    const float t = row_total(a[c], s);
-    if (threadIdx.x == 0) row[static_cast<size_t>(c) * nb + b] = t;
-  }
-  __threadfence();
-  if (threadIdx.x == 0) last = atomicAdd(ticket + r, 1u) == nb - 1u;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  float sums[4];
-  for (int c = 0; c < 4; ++c)
-    sums[c] = rows_total(row + static_cast<size_t>(c) * nb, nb, s);
-  if (threadIdx.x != 0) return;
+}
+
+// One robot's outputs from its max m (the value at its first argmax mi),
+// total and the sums of w w, x w, y w and wrap(theta) w: the best pose,
+// Neff = 1 / sum(w w), the weighted mean pose and, where o.gate is given,
+// the epilogue: the resample gate Neff < P fraction, the integration pose
+// (the weighted mean where Neff >= 0.95 P, else the best pose), and with
+// recov the recovery EMAs of the max (both set to it at step 0),
+// p_inject = clamp(1 - exp(l_fast - l_slow), 0, 0.3) and the gate forced
+// where p_inject > 0.05.  One thread.
+__device__ void weights_outputs(const WeightsOut& o, int r, const float* ps,
+                                float m, int mi, float total,
+                                const float (&sums)[4]) {
   const float bp[3] = {ps[3 * mi], ps[3 * mi + 1], ps[3 * mi + 2]};
   const float neff = __fdiv_rn(1.0f, sums[0]);
   o.max[r] = m;
@@ -824,6 +1228,156 @@ __global__ void __launch_bounds__(kRowThreads) fusion_weights_finish_kernel(
     gate = gate || p > o.thr_inject;
   }
   o.gate[r] = gate;
+}
+
+// F7 where P <= kRow (one row a robot): a block a robot does the whole
+// call.  Its poses are copied into shared memory (cp.async) while the
+// block takes the row's first argmax, m, the sum of exp(lw - m) (the row's
+// total is the robot's: one row's tree adds nothing) and the four
+// moments' row trees at once.
+__global__ void __launch_bounds__(kRowThreads) fusion_weights_row_kernel(
+    const float* __restrict__ lw, int P, WeightsOut o) {
+  __shared__ __align__(16) float sp[3 * kRow];
+  __shared__ float s[4 * kRowThreads];
+  __shared__ float s_v[kWarp];
+  __shared__ int s_i[kWarp];
+  __shared__ float s_total;
+  const int r = blockIdx.x, base = threadIdx.x * kSeg;
+  const float* x = lw + static_cast<size_t>(r) * P;
+  const float* ps = o.poses + static_cast<size_t>(r) * P * 3;
+  stage_async_in_place(sp, ps, 3 * P);
+  float xv[kSeg];
+  load_segment(x, base, P, xv);
+  float v = 0.0f;
+  int i = -1;
+  for (int j = 0; j < kSeg; ++j)
+    if (base + j < P && before(xv[j], base + j, v, i)) {
+      v = xv[j];
+      i = base + j;
+    }
+  block_argmax(v, i, s_v, s_i);
+  const float m = v;
+  float acc = 0.0f;
+  for (int j = 0; j < kSeg; ++j) {
+    const float e = base + j < P ? weight_exp(__fsub_rn(xv[j], m)) : 0.0f;
+    acc = j == 0 ? e : __fadd_rn(acc, e);
+  }
+  const float tot = row_total(acc, s);
+  if (threadIdx.x == 0) s_total = tot;
+  cp_async_wait();
+  __syncthreads();
+  const float total = s_total;
+  float a[4];
+  segment_moments(xv, base, P, m, total, sp + 3 * base, a);
+  row_totals4(a, s);
+  if (threadIdx.x == 0) weights_outputs(o, r, ps, m, i, total, a);
+}
+
+// F7 over nb > 1 rows, pass 1: each row's first argmax of the log-weights
+// lw (R, P) into pv, pi (R, nb); block (0, r) sets robot r's tickets of
+// passes 2 and 3 to 0.
+__global__ void __launch_bounds__(kRowThreads) fusion_weights_max_kernel(
+    const float* __restrict__ lw, float* __restrict__ pv,
+    int* __restrict__ pi, unsigned* __restrict__ ticket, int P, int nb) {
+  __shared__ float s_v[kWarp];
+  __shared__ int s_i[kWarp];
+  const int r = blockIdx.y, b = blockIdx.x;
+  const int base = b * kRow + threadIdx.x * kSeg;
+  float xv[kSeg];
+  load_segment(lw + static_cast<size_t>(r) * P, base, P, xv);
+  float v = 0.0f;
+  int i = -1;
+  for (int j = 0; j < kSeg; ++j)
+    if (base + j < P && before(xv[j], base + j, v, i)) {
+      v = xv[j];
+      i = base + j;
+    }
+  block_argmax(v, i, s_v, s_i);
+  if (threadIdx.x == 0) {
+    pv[static_cast<size_t>(r) * nb + b] = v;
+    pi[static_cast<size_t>(r) * nb + b] = i;
+    if (b == 0) ticket[2 * r] = ticket[2 * r + 1] = 0u;
+  }
+}
+
+// Pass 2: the max m (the value at the first argmax of the rows'), then
+// each row's sum of exp(lw - m), its segments in turn and the row by
+// row_total, into pe (R, nb); the last block of a robot (its ticket) sums
+// the rows once (rows_total) and writes the max, its index and the total,
+// which pass 3 and F8 read.
+__global__ void __launch_bounds__(kRowThreads) fusion_weights_sum_kernel(
+    const float* __restrict__ lw, const float* __restrict__ pv,
+    const int* __restrict__ pi, float* __restrict__ pe,
+    unsigned* __restrict__ ticket, int P, int nb, WeightsOut o) {
+  __shared__ float s[kRow];
+  __shared__ float s_v[kWarp];
+  __shared__ int s_i[kWarp];
+  __shared__ bool last;
+  const int r = blockIdx.y, b = blockIdx.x;
+  const int base = b * kRow + threadIdx.x * kSeg;
+  float xv[kSeg];
+  load_segment(lw + static_cast<size_t>(r) * P, base, P, xv);
+  float m;
+  int mi;
+  rows_argmax(pv + static_cast<size_t>(r) * nb, pi + static_cast<size_t>(r) * nb,
+              nb, m, mi, s_v, s_i);
+  float acc = 0.0f;
+  for (int j = 0; j < kSeg; ++j) {
+    const float e = base + j < P ? weight_exp(__fsub_rn(xv[j], m)) : 0.0f;
+    acc = j == 0 ? e : __fadd_rn(acc, e);
+  }
+  const float tot = row_total(acc, s);
+  if (threadIdx.x == 0) pe[static_cast<size_t>(r) * nb + b] = tot;
+  __threadfence();
+  if (threadIdx.x == 0) last = atomicAdd(ticket + 2 * r, 1u) == nb - 1u;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float total = rows_total(pe + static_cast<size_t>(r) * nb, nb, s);
+  if (threadIdx.x == 0) {
+    o.max[r] = m;
+    o.index[r] = mi;
+    o.total[r] = total;
+  }
+}
+
+// Pass 3: m and the total as pass 2 wrote them; the block's poses copied
+// into shared memory (cp.async) as it starts; each weight w = exp(lw - m)
+// / total and the row's four sums at once into p4 (R, 4, nb); then the
+// last block of a robot (its ticket) sums the rows' four partials at once
+// (rows_totals4) and writes the outputs (weights_outputs).
+__global__ void __launch_bounds__(kRowThreads) fusion_weights_finish_kernel(
+    const float* __restrict__ lw, float* __restrict__ p4,
+    unsigned* __restrict__ ticket, int P, int nb, WeightsOut o) {
+  __shared__ __align__(16) float sp[3 * kRow];
+  __shared__ float s[4 * kRowThreads];
+  __shared__ bool last;
+  const int r = blockIdx.y, b = blockIdx.x;
+  const int base = b * kRow + threadIdx.x * kSeg;
+  const float* ps = o.poses + static_cast<size_t>(r) * P * 3;
+  stage_async_in_place(sp, ps + static_cast<size_t>(b) * kRow * 3,
+                       3 * min(kRow, P - b * kRow));
+  float xv[kSeg];
+  load_segment(lw + static_cast<size_t>(r) * P, base, P, xv);
+  const float m = __ldcg(o.max + r), total = __ldcg(o.total + r);
+  cp_async_wait();
+  __syncthreads();
+  float a[4];
+  segment_moments(xv, base, P, m, total, sp + 3 * threadIdx.x * kSeg, a);
+  row_totals4(a, s);
+  float* row = p4 + static_cast<size_t>(r) * 4 * nb;
+  if (threadIdx.x == 0)
+    for (int c = 0; c < 4; ++c) row[static_cast<size_t>(c) * nb + b] = a[c];
+  __threadfence();
+  if (threadIdx.x == 0) last = atomicAdd(ticket + 2 * r + 1, 1u) == nb - 1u;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float sums[4];
+  rows_totals4(row, nb, s, sums);
+  if (threadIdx.x == 0)
+    weights_outputs(o, r, ps, m, static_cast<int>(__ldcg(o.index + r)),
+                    total, sums);
 }
 
 // F8, pass 1: the normalized weights exp(lw - m) / total of one robot (m,
@@ -950,8 +1504,12 @@ extern "C" int gs_fusion_pool(const float* field, float* out, int G, int H,
 // (G_b, B) bool, or null past the coarse stage; off_xy (n_xy,) and off_t
 // (n_t,) with out_dxs, out_dys (P, n_xy) and out_dts (P, n_t), or null
 // after the last stage, which writes best (P, 3) and meas_best (P,); then
-// the shapes, the coarse stride, prior_weight, the motion config (base_t in
-// radians); stream.  G_o and G_b divide P; P nt ny nx < 2^31.
+// the shapes, the coarse stride, the launch plan (ops/cuda/fusions.
+// pick_plan: lanes a particle, a power of two up to kPickThreads;
+// particles a slab, lanes times them a team of max(lanes, 32) threads; the
+// scores staged; the blocks of kPickThreads, their teams taking the slabs
+// in turn), prior_weight, the motion config (base_t in radians); stream.
+// G_o and G_b divide P; P nt ny nx < 2^31.
 extern "C" int gs_fusion_pick(
     const float* scores, const float* dxs, const float* dys,
     const float* dts, const float* pose0, const float* center,
@@ -959,8 +1517,9 @@ extern "C" int gs_fusion_pick(
     const float* off_xy, const float* off_t, float* out_dxs, float* out_dys,
     float* out_dts, float* best, float* meas_best, int P, int nt, int ny,
     int nx, int G_o, int G_b, int B, int stride, int n_xy, int n_t,
-    float weight, float base_c, float rel_c, float base_t, float rel_t,
-    void* stream) {
+    int lanes, int per_slab, int staged, int grid, float weight,
+    float base_c,
+    float rel_c, float base_t, float rel_t, void* stream) {
   if (P == 0) return cudaSuccess;
   if (P < 0 || nt <= 0 || ny <= 0 || nx <= 0 || G_o <= 0 || P % G_o ||
       static_cast<long long>(P) * nt * ny * nx >= (1LL << 31))
@@ -972,16 +1531,58 @@ extern "C" int gs_fusion_pick(
                            n_xy <= 0 || n_t <= 0)
                         : (best == nullptr || meas_best == nullptr))
     return cudaErrorInvalidValue;
+  const int team = lanes * per_slab;
+  if (lanes <= 0 || (lanes & (lanes - 1)) || per_slab <= 0 ||
+      team != std::max(lanes, kWarp) || kPickThreads % team || grid <= 0 ||
+      (ny * nx + lanes - 1) / lanes > kPickCells)
+    return cudaErrorInvalidValue;
+  const int rows = use != nullptr ? G_b : 0;
+  const size_t smem =
+      (kPickThreads / team *
+           pick_team_floats(per_slab, team, nt, ny, nx, staged != 0) +
+       (rows <= kPickRows ? 2 * rows : 0)) *
+      sizeof(float);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  // the instantiation: staged or not, and registers for the most (dy, dx)
+  // cells a lane holds (one where the lanes outnumber the cells)
+  const int nyx = ny * nx;
+  const int cells = lanes >= nyx ? 1 : (nyx + lanes - 1) / lanes;
+  using Kernel = decltype(&fusion_pick_kernel<true, 1>);
+  Kernel kernels[2][5] = {
+      {fusion_pick_kernel<false, 1>, fusion_pick_kernel<false, 2>,
+       fusion_pick_kernel<false, 3>, fusion_pick_kernel<false, 4>,
+       fusion_pick_kernel<false, kPickCells>},
+      {fusion_pick_kernel<true, 1>, fusion_pick_kernel<true, 2>,
+       fusion_pick_kernel<true, 3>, fusion_pick_kernel<true, 4>,
+       fusion_pick_kernel<true, kPickCells>}};
+  const Kernel kernel =
+      kernels[staged != 0][cells <= 4 ? cells - 1 : 4];
+  // all of an SM's shared memory for the blocks (not L1), and no more
+  // blocks than are resident at once: a block works its slabs in turn, so
+  // a block not resident would start only once others had finished theirs
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(std::max<size_t>(smem, 48 * 1024)));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  int per_sm = 0, device = 0, sms = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kPickThreads, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  grid = std::min(grid, std::max(per_sm, 1) * sms);
   const Pick k{P, nt, ny, nx, P / G_o, use != nullptr ? P / G_b : 1, B,
-               stride, n_xy, n_t, weight,
+               stride, n_xy, n_t, lanes, per_slab, staged != 0, weight,
                Motion{base_c, rel_c, base_t, rel_t}};
-  // a warp's prior tables, (ny nx + nt) floats, in at most 48 KB a block
-  const size_t table = (static_cast<size_t>(ny) * nx + nt) * sizeof(float);
-  if (table > kTableBytes) return cudaErrorInvalidValue;
-  const int warps = static_cast<int>(
-      std::min<size_t>(kThreads / kWarp, kTableBytes / table));
-  fusion_pick_kernel<<<(P + warps - 1) / warps, warps * kWarp,
-                       warps * table, static_cast<cudaStream_t>(stream)>>>(
+  const int slabs = (P + per_slab - 1) / per_slab;
+  const int teams = kPickThreads / team;
+  kernel<<<std::min(grid, (slabs + teams - 1) / teams), kPickThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       scores, dxs, dys, dts, pose0, center, d_center, d_theta, use, off_xy,
       off_t, out_dxs, out_dys, out_dts, best, meas_best, k);
   return static_cast<int>(cudaGetLastError());
@@ -1064,8 +1665,9 @@ extern "C" int gs_fusion_scan(const float* angle, const float* dist,
 // out_max, out_total, out_neff (R,), out_index (R,) int64, out_best,
 // out_weighted (R, 3); out_gate (R,) bool or null (no epilogue), out_integ
 // (3,) or null, out_recov (2,) and out_pinj (1,) with recov (R = 1 for the
-// last three); scratch_f (6 R nb floats), scratch_i (R nb + R ints), nb =
-// ceil(P / 1024); the epilogue's floats; stream; &launched (kernels).
+// last three); scratch_f (6 R nb floats), scratch_i (R nb + 2 R ints), nb =
+// ceil(P / 1024); the epilogue's floats; stream; &launched (kernels: one
+// where nb = 1, else three).
 extern "C" int gs_fusion_weights(
     const float* lw, const float* poses, const float* recov, const int* step,
     float* out_max, float* out_total, long long* out_index, float* out_best,
@@ -1084,30 +1686,38 @@ extern "C" int gs_fusion_weights(
       (step == nullptr || out_recov == nullptr || out_pinj == nullptr))
     return cudaErrorInvalidValue;
   const int nb = (P + kRow - 1) / kRow;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const WeightsOut o{poses, recov, step, out_max, out_total, out_best,
+                     out_neff, out_weighted, out_index, out_integ, out_recov,
+                     out_pinj, out_gate, thr_integ, thr_gate, a_slow, a_fast,
+                     thr_inject, hi_inject};
+  cudaError_t e;
+  if (nb == 1) {
+    fusion_weights_row_kernel<<<R, kRowThreads, 0, st>>>(lw, P, o);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    *launched = 1;
+    return cudaSuccess;
+  }
   const size_t rn = static_cast<size_t>(R) * nb;
   float* pv = scratch_f;
   float* pe = pv + rn;
   float* p4 = pe + rn;
   int* pi = scratch_i;
   unsigned* ticket = reinterpret_cast<unsigned*>(pi + rn);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(nb, R);
   fusion_weights_max_kernel<<<grid, kRowThreads, 0, st>>>(lw, pv, pi, ticket,
                                                           P, nb);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   *launched = 1;
-  fusion_weights_sum_kernel<<<grid, kRowThreads, 0, st>>>(lw, pv, pi, pe, P,
-                                                          nb);
+  fusion_weights_sum_kernel<<<grid, kRowThreads, 0, st>>>(lw, pv, pi, pe,
+                                                          ticket, P, nb, o);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   *launched = 2;
-  const WeightsOut o{poses, recov, step, out_max, out_total, out_best,
-                     out_neff, out_weighted, out_index, out_integ, out_recov,
-                     out_pinj, out_gate, thr_integ, thr_gate, a_slow, a_fast,
-                     thr_inject, hi_inject};
-  fusion_weights_finish_kernel<<<grid, kRowThreads, 0, st>>>(
-      lw, pv, pi, pe, p4, ticket, P, nb, o);
+  fusion_weights_finish_kernel<<<grid, kRowThreads, 0, st>>>(lw, p4, ticket,
+                                                             P, nb, o);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   *launched = 3;

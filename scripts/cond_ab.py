@@ -16,7 +16,8 @@ then:
   reset_peak_memory_stats), less what was allocated before them, and the
   state's map bytes;
 - device ms a scan: the device records of REPLAYS replays under
-  torch.profiler, over their scans; host ms a scan by CUDA events around
+  torch.profiler, over their scans, and among them each F1-F8 kernel's
+  (fusion_ms_a_scan; F3's and F7's apart); host ms a scan by CUDA events around
   the same number of replays (host loop included), and the same of
   EAGER_REPLAYS eager replays (the engine's `replay`, a Python loop of
   steps; after one warm-up);
@@ -54,6 +55,7 @@ Usage (needs a GPU; ~12 min for the default paths):
 import argparse
 import hashlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -261,8 +263,15 @@ def child(name: str) -> dict:
         for _ in range(REPLAYS):
             replay(s0, frames, g)
         torch.cuda.synchronize()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    records = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.time_range.elapsed_us() for e in records)
+    fusion_us = {}
+    for e in records:
+        m = re.search(r"fusion_(\w+?)_kernel", e.name)
+        if m:
+            fusion_us[m.group(1)] = (fusion_us.get(m.group(1), 0.0)
+                                     + e.time_range.elapsed_us())
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(REPLAYS):
@@ -286,6 +295,12 @@ def child(name: str) -> dict:
            [ate_rmse(traj[:, r], g[:n]) for r, g in enumerate(gt)])
     return dict(path=name, scans=n, particles=eng.config.num_particles,
                 device_ms_a_scan=dev_us / 1e3 / (REPLAYS * n),
+                fusion_ms_a_scan={k: v / 1e3 / (REPLAYS * n)
+                                  for k, v in sorted(fusion_us.items())},
+                f3_ms_a_scan=fusion_us.get("pick", 0.0) / 1e3 / (REPLAYS * n),
+                f7_ms_a_scan=sum(v for k, v in fusion_us.items()
+                                 if k.startswith("weights")) / 1e3
+                / (REPLAYS * n),
                 host_ms_a_scan=host_ms, scans_per_sec=1e3 / host_ms,
                 eager_ms_a_scan=eager_ms, eager_scans_per_sec=1e3 / eager_ms,
                 peak_bytes=peak, map_bytes=map_bytes,
@@ -342,7 +357,8 @@ def main():
                 row = dict(json.loads(line), side=side, turn=turn)
                 print(json.dumps(row), flush=True)
                 rows[side].setdefault(row["path"], []).append(row)
-    keys = ("device_ms_a_scan", "host_ms_a_scan", "scans_per_sec",
+    keys = ("device_ms_a_scan", "f3_ms_a_scan", "f7_ms_a_scan",
+            "host_ms_a_scan", "scans_per_sec",
             "eager_scans_per_sec", "kernel_nodes_a_scan", "peak_bytes",
             "peak_over_map_bytes", "ms_a_rebuild", "device_ms_a_rebuild",
             "host_launches_a_rebuild", "graph_launches_a_rebuild")

@@ -215,6 +215,125 @@ def test_pick_keeps_the_matchers_bits():
     assert torch.equal(meas, fusions._take(scores.reshape(8, -1), flat))
 
 
+# F3's launch plan (ops/cuda/fusions.pick_plan) at the matcher's stage
+# shapes (coarse 11 x 9 x 9, fine and refine 5 x 5 x 5) and a closure
+# window's, from one particle to the 2^31-candidate limit
+PLAN_SHAPES = {"coarse": (11, 9, 9), "fine": (5, 5, 5),
+               "closure": (13, 15, 15)}
+PLAN_PARTICLES = [1, 2, 100, 250, 500, 2048, 20_000, 500_000, "limit"]
+SMEM_OPT_IN = 227 * 1024               # an H100 block's shared memory
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("p", PLAN_PARTICLES)
+@pytest.mark.parametrize("stage", sorted(PLAN_SHAPES))
+def test_pick_plan_covers_each_particle_once(stage, p):
+    nt, ny, nx = PLAN_SHAPES[stage]
+    n = nt * ny * nx
+    p = (2 ** 31 - 1) // n if p == "limit" else p
+    rows = 1 if stage == "coarse" else 0
+    plan = fusions.pick_plan(p, nt, ny, nx, rows=rows)
+    lanes, per_slab = plan.lanes, plan.per_slab
+    team = lanes * per_slab
+    assert lanes & (lanes - 1) == 0 and team == max(lanes, 32)
+    assert fusions.PICK_THREADS % team == 0
+    teams = fusions.PICK_THREADS // team
+    # slabs of per_slab consecutive particles, the last one ragged; team
+    # i of all grid * teams takes slabs i, i + grid * teams, ...: each once
+    assert (plan.slabs - 1) * per_slab < p <= plan.slabs * per_slab
+    assert 1 <= plan.grid <= min(-(-plan.slabs // teams), 2 ** 31 - 1)
+    taken_by = np.bincount(np.arange(plan.slabs) % (plan.grid * teams))
+    assert taken_by.sum() == plan.slabs and taken_by.min() >= 1
+    assert plan.smem == fusions.pick_smem(per_slab, nt, ny, nx, plan.staged,
+                                          lanes, rows)
+    assert plan.smem <= SMEM_OPT_IN
+    assert plan.staged == (per_slab * n * 4 <= fusions.PICK_SLAB_BYTES)
+    cap = min(fusions.PICK_THREADS, 1 << (n - 1).bit_length())
+    # at most PICK_CELLS (dy, dx) cells a lane; a warp's slab within
+    # PICK_WARP_BYTES (or one particle); a block's worth of threads an SM,
+    # unless each candidate has a lane already
+    assert -(-(ny * nx) // lanes) <= fusions.PICK_CELLS
+    assert per_slab == 1 or per_slab * n * 4 <= fusions.PICK_WARP_BYTES
+    assert lanes == cap or p * lanes >= H100_SMS * fusions.PICK_THREADS
+    # a particle's candidates lane, lane + lanes, ...: each once
+    taken = np.zeros(n, int)
+    for lane in range(lanes):
+        taken[lane::lanes] += 1
+    assert (taken == 1).all()
+
+
+@pytest.mark.parametrize("p,stage,lanes,grid", [
+    (250, "coarse", 256, 250), (250, "fine", 128, 125),
+    (500, "coarse", 128, 250), (500, "fine", 128, 250),
+    (500_000, "coarse", 32, 3 * H100_SMS), (500_000, "fine", 4, 2 * H100_SMS)])
+def test_pick_plan_at_the_cells(p, stage, lanes, grid):
+    """250-500 particles spread over every SM, 128-256 threads a particle;
+    a 500 000 block in warps, a particle a warp (coarse) or eight (fine),
+    as many blocks as fit the card, each warp working its slabs in turn."""
+    plan = fusions.pick_plan(p, *PLAN_SHAPES[stage])
+    assert (plan.lanes, plan.grid, plan.staged) == (lanes, grid, True)
+
+
+def test_pick_plan_refuses_more_cells_than_a_block_holds():
+    with pytest.raises(ValueError, match="cells"):
+        fusions.pick_plan(4, 3, 250, 250)
+
+
+def _split_points(nt, ny, nx):
+    """The candidates at the edges of the plans' splits: the first and the
+    last, and each lane's, warp's and block's edges at 250 particles and at
+    a 500 000 block."""
+    n = nt * ny * nx
+    edges = {0, n - 1}
+    for p in (250, 500_000):
+        lanes = fusions.pick_plan(p, nt, ny, nx).lanes
+        for w in {lanes, 32}:
+            edges |= {w - 1, w, n - w, n - w - 1, 2 * w - 1}
+    return sorted(e for e in edges if 0 <= e < n)
+
+
+@pytest.mark.parametrize("kind", ["ties", "nan", "neginf", "zeros"])
+@pytest.mark.parametrize("stage", ["coarse", "fine"])
+def test_plain_pick_matches_jax_at_the_plans_split_points(stage, kind):
+    """Scores that tie, are NaN, -inf or +-0 at the candidates where the
+    kernel's plan splits a particle (with a zero prior weight, so that the
+    totals are the scores): pick_plain takes JAX's first argmax and its
+    score."""
+    nt, ny, nx = PLAN_SHAPES[stage]
+    n, p = nt * ny * nx, 10
+    edges = _split_points(nt, ny, nx)
+    inputs = list(_pick_inputs(21, p, nt, ny, nx))
+    flat = inputs[0].reshape(p, n)
+    for i in range(p):
+        pick_ = edges[i % len(edges):]
+        if kind == "ties":
+            flat[i, pick_] = 1e4
+        elif kind == "nan":
+            flat[i, pick_[::2]] = np.nan
+        elif kind == "neginf":
+            flat[i] = -np.inf
+            if i % 2:
+                flat[i, pick_[1::3]] = -1e30
+        else:
+            flat[i] = np.where(np.arange(n) % 3 == i % 3, -0.0, 0.0)
+    jfx, jfy, jft, jflat, jmeas, _ = _jax_pick(
+        *inputs[:6], *inputs[6:], np.ones(p, np.float32), 0.0)
+    scores, dxs, dys, dts, pose0, center, d_c, d_t = (_t(a) for a in inputs)
+    kw = dict(motion=CFG, prior_weight=0.0)
+    use = _t(np.ones(40, bool)) if stage == "coarse" else None
+    off = (_t(np.linspace(-0.05, 0.05, 5).astype(np.float32)),
+           _t(np.linspace(-0.02, 0.02, 5).astype(np.float32)))
+    nxt = fusions.pick_plain(scores, dxs, dys, dts, pose0, center, d_c[0],
+                             d_t[0], use, *off, **kw)
+    np.testing.assert_array_equal(
+        _flat_from_offsets(nxt, *inputs[1:4], ny, nx), jflat)
+    best, meas = fusions.pick_plain(scores, dxs, dys, dts, pose0, center,
+                                    d_c[0], d_t[0], use, None, None, **kw)
+    np.testing.assert_array_equal(meas.numpy(), jmeas)
+    np.testing.assert_array_equal(
+        best.numpy(), inputs[4] + np.stack([jfx, jfy, jft], -1))
+
+
 # ---------------------------------------------------------------- F1: motion
 @pytest.mark.parametrize("robots", [0, 3])
 def test_joint_motion_matches_jax(robots):

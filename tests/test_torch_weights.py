@@ -306,6 +306,29 @@ def test_three_robots_in_one_call_as_three_calls(order, monkeypatch):
     assert one.integ_pose is None and one.recov is None
 
 
+@pytest.mark.parametrize("robots", [1, 2])
+@pytest.mark.parametrize("rows", [1, 2, 1023, 1024])
+def test_weights_plan_covers_each_row_once(rows, robots):
+    """F7's launches (ops/cuda/fusions.weights_plan) for a robot's weights
+    filling `rows` rows, the last whole or ragged: a block a (row, robot),
+    each weight in one row; one launch where the weights are one row."""
+    for p in {(rows - 1) * tres.ROW + 1, rows * tres.ROW}:
+        plan = fusions.weights_plan(robots, p)
+        assert plan.rows == rows and plan.grid == (rows, robots)
+        assert (plan.rows - 1) * tres.ROW < p <= plan.rows * tres.ROW
+        # a thread a segment: the block's threads take the row's weights
+        assert fusions.WEIGHTS_THREADS * tres.SEG == tres.ROW
+        assert plan.grid[0] <= 2 ** 31 - 1 and plan.grid[1] <= 65535
+        assert plan.launches == (1 if rows == 1 else 3)
+        assert plan.smem <= 227 * 1024
+        # the passes' partials: argmax values, row sums, four moment sums
+        # a row; argmax indices a row and two tickets a robot
+        assert plan.scratch_floats == 6 * robots * rows
+        assert plan.scratch_ints == robots * rows + 2 * robots
+    with pytest.raises(ValueError):
+        fusions.weights_plan(robots, tres.ROW * tres.ROW + 1)
+
+
 def test_epilogue_matches_jax(card_order):
     """F7's epilogue: the gate, the integration pose and the recovery EMAs
     with p_inject, against JAX's integration_pose and recovery_update."""
