@@ -296,7 +296,7 @@ __device__ void stage_async_in_place(float* dst, const float* src, int n) {
 // F3 works in teams: max(lanes, 32) threads of a block (a warp, a few
 // warps or the block) take slabs of team / lanes particles in turn, each
 // team with its own shared memory and barrier.  A team's shared memory, in
-// floats (ops/cuda/fusions.pick_smem counts it alike): two buffers, each a
+// floats: two buffers, each a
 // slab's staged scores (q n, + 3 to align, rounded to 4) and its
 // particles' offsets (q (nx + ny + nt)) and pose0 (3 q), rounded to 4; the
 // heading quotients (q nt), the picks (3 q: it, iy, ix), the scalars of
@@ -1507,9 +1507,10 @@ extern "C" int gs_fusion_pool(const float* field, float* out, int G, int H,
 // the shapes, the coarse stride, the launch plan (ops/cuda/fusions.
 // pick_plan: lanes a particle, a power of two up to kPickThreads;
 // particles a slab, lanes times them a team of max(lanes, 32) threads; the
-// scores staged; the blocks of kPickThreads, their teams taking the slabs
-// in turn), prior_weight, the motion config (base_t in radians); stream.
-// G_o and G_b divide P; P nt ny nx < 2^31.
+// scores staged), prior_weight, the motion config (base_t in radians);
+// stream.  As many blocks of kPickThreads as are resident at once, and no
+// more than the slabs need, their teams taking the slabs in turn.  G_o and
+// G_b divide P; P nt ny nx < 2^31.
 extern "C" int gs_fusion_pick(
     const float* scores, const float* dxs, const float* dys,
     const float* dts, const float* pose0, const float* center,
@@ -1517,8 +1518,7 @@ extern "C" int gs_fusion_pick(
     const float* off_xy, const float* off_t, float* out_dxs, float* out_dys,
     float* out_dts, float* best, float* meas_best, int P, int nt, int ny,
     int nx, int G_o, int G_b, int B, int stride, int n_xy, int n_t,
-    int lanes, int per_slab, int staged, int grid, float weight,
-    float base_c,
+    int lanes, int per_slab, int staged, float weight, float base_c,
     float rel_c, float base_t, float rel_t, void* stream) {
   if (P == 0) return cudaSuccess;
   if (P < 0 || nt <= 0 || ny <= 0 || nx <= 0 || G_o <= 0 || P % G_o ||
@@ -1533,7 +1533,7 @@ extern "C" int gs_fusion_pick(
     return cudaErrorInvalidValue;
   const int team = lanes * per_slab;
   if (lanes <= 0 || (lanes & (lanes - 1)) || per_slab <= 0 ||
-      team != std::max(lanes, kWarp) || kPickThreads % team || grid <= 0 ||
+      team != std::max(lanes, kWarp) || kPickThreads % team ||
       (ny * nx + lanes - 1) / lanes > kPickCells)
     return cudaErrorInvalidValue;
   const int rows = use != nullptr ? G_b : 0;
@@ -1575,14 +1575,14 @@ extern "C" int gs_fusion_pick(
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  grid = std::min(grid, std::max(per_sm, 1) * sms);
   const Pick k{P, nt, ny, nx, P / G_o, use != nullptr ? P / G_b : 1, B,
                stride, n_xy, n_t, lanes, per_slab, staged != 0, weight,
                Motion{base_c, rel_c, base_t, rel_t}};
   const int slabs = (P + per_slab - 1) / per_slab;
   const int teams = kPickThreads / team;
-  kernel<<<std::min(grid, (slabs + teams - 1) / teams), kPickThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  const int grid = std::min(std::max(per_sm, 1) * sms,
+                            (slabs + teams - 1) / teams);
+  kernel<<<grid, kPickThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       scores, dxs, dys, dts, pose0, center, d_center, d_theta, use, off_xy,
       off_t, out_dxs, out_dys, out_dts, best, meas_best, k);
   return static_cast<int>(cudaGetLastError());

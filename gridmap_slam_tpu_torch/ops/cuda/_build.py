@@ -96,9 +96,9 @@ SIGNATURES = {
     # F3: scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
     # off_xy, off_t, out_dxs, out_dys, out_dts, best, meas_best, P, nt, ny,
     # nx, G_o, G_b, B, stride, n_xy, n_t, then the launch plan: lanes,
-    # particles a slab, staged, blocks; weight, base_c, rel_c, base_t,
-    # rel_t; stream
-    "gs_fusion_pick": [_P] * 16 + [_I] * 14 + [_F] * 5 + [_P],
+    # particles a slab, staged; weight, base_c, rel_c, base_t, rel_t;
+    # stream
+    "gs_fusion_pick": [_P] * 16 + [_I] * 13 + [_F] * 5 + [_P],
     # F4: vol, poses, theta0, iy0, ix0, poses_out, scores_out, n, nt, hc,
     # wc, stride t, stride y, wrap_theta, steps, origin_x, origin_y,
     # 1 / res, 1 / dtheta, res, dtheta; stream

@@ -64,7 +64,7 @@ import torch.nn.functional as F
 
 from ...types import Odom, Scan
 from ..geometry import deskew_scan, wrap_angle
-from ..resample import (ROW, SEG, exp_weights, integration_pose,
+from ..resample import (ROW, exp_weights, integration_pose,
                         mean_pose_of, neff_of, recovery_ema,
                         systematic_indices)
 from ..surface import (pack_neighborhoods, refine_on_surface, sample_surface,
@@ -299,14 +299,11 @@ def _used(use, stride: int = 1):
     return torch.clamp(use[..., ::stride].to(torch.float32).sum(-1), min=1.0)
 
 
-# F3's launch (csrc/fusions.cu kPickThreads, kPickScalars, kPickCells,
-# kPickRows): threads a block; the scalars a particle keeps in shared
-# memory; the (dy, dx) cells a lane owns at most; the scan rows whose
-# used-beam counts a block keeps in shared memory at most
+# F3's launch (csrc/fusions.cu kPickThreads, kPickCells): threads a block;
+# the (dy, dx) cells a lane owns at most, so that a stage takes at most
+# PICK_CELLS * PICK_THREADS = 2048 cells on the card (ny, nx <= 45)
 PICK_THREADS = 256
-PICK_SCALARS = 8
 PICK_CELLS = 8
-PICK_ROWS = 256
 # a warp's slab of scores, at most, where a particle's lanes need not
 # spread it over the card (a coarse stage's 891 candidates, 3.5 KB: a warp
 # a particle; a fine stage's 125: 4 lanes, eight particles a warp)
@@ -320,57 +317,27 @@ class PickPlan(NamedTuple):
     """How F3 runs a stage (csrc/fusions.cu fusion_pick_kernel): `lanes`
     threads a particle; teams of max(lanes, 32) threads, PICK_THREADS //
     team a block, each taking slabs of `per_slab` = team // lanes
-    particles in turn; `slabs` of them; `grid` blocks; `staged`: a slab's
-    scores copied into shared memory (else read in place); `smem` a
-    block's shared memory in bytes."""
+    particles in turn; `staged`: a slab's scores copied into shared memory
+    (else read in place).  The kernel's entry lays out the shared memory
+    and launches as many blocks as are resident at once."""
 
     lanes: int
     per_slab: int
-    slabs: int
-    grid: int
     staged: bool
-    smem: int
 
 
-def pick_smem(per_slab: int, nt: int, ny: int, nx: int,
-              staged: bool, lanes: int = 32, rows: int = 0) -> int:
-    """F3's shared memory a block in bytes, as csrc/fusions.cu
-    pick_team_floats counts a team's (of max(lanes, 32) threads): two
-    buffers, each a slab's staged scores (+3 floats to align a 16-byte
-    copy) and its particles' offsets and pose0; the heading quotients and
-    the pick a particle, the scalars a thread, and the argmax across the
-    team's warps; then the block's two counts of each of the coarse
-    stage's `rows` scan rows, where they are at most PICK_ROWS."""
-    n = nt * ny * nx
-    team = lanes * per_slab
-
-    def up4(x):
-        return (x + 3) // 4 * 4
-
-    slab = (per_slab * n + 6) // 4 * 4 if staged else 0
-    buf = up4(slab + per_slab * (nx + ny + nt + 3))
-    return 4 * (PICK_THREADS // team * up4(
-        2 * buf + per_slab * (nt + 3) + team * PICK_SCALARS
-        + 2 * (team // 32)) + (2 * rows if rows <= PICK_ROWS else 0))
-
-
-def pick_plan(p: int, nt: int, ny: int, nx: int, *, rows: int = 0,
-              sm_count: int = H100["sm_count"],
-              smem_block: int = H100["smem_block"],
-              smem_sm: int = H100["smem_sm"]) -> PickPlan:
+def pick_plan(p: int, nt: int, ny: int, nx: int) -> PickPlan:
     """F3's launch for P particles of nt x ny x nx candidates.  The lanes
     a particle are a power of two, at most PICK_THREADS and the
     candidates' power of two: the fewest that leave a lane at most
     PICK_CELLS (dy, dx) cells and a warp's slab within PICK_WARP_BYTES (or
-    one particle), and no fewer than give every SM a block's worth of
-    threads (at 250 to 500 particles 128 or 256 threads a particle).
-    Teams of max(lanes, 32) threads take slabs of team // lanes particles
-    in turn, each with its own shared memory and barrier (a warp's where
-    lanes <= 32), copying its next slab while it works the current one, so
-    that no barrier waits for another team; as many blocks as fit the card
-    at once (shared memory, 2048 threads an SM).  A slab whose scores pass
-    PICK_SLAB_BYTES is read in place.  `rows`: the coarse stage's scan rows
-    (0 past it)."""
+    one particle), and no fewer than give each of the H100's SMs a block's
+    worth of threads (at 250 to 500 particles 128 or 256 threads a
+    particle).  Teams of max(lanes, 32) threads take slabs of team // lanes
+    particles in turn, each with its own shared memory and barrier (a
+    warp's where lanes <= 32), copying its next slab while it works the
+    current one, so that no barrier waits for another team.  A slab whose
+    scores pass PICK_SLAB_BYTES is read in place."""
     n, nyx = nt * ny * nx, ny * nx
     if p <= 0 or n <= 0:
         raise ValueError(f"pick_plan: need particles and candidates, got "
@@ -380,23 +347,13 @@ def pick_plan(p: int, nt: int, ny: int, nx: int, *, rows: int = 0,
     per_warp = max(1, PICK_WARP_BYTES // (4 * n))
     while lanes < cap and (-(-nyx // lanes) > PICK_CELLS
                            or 32 // min(lanes, 32) > per_warp
-                           or p * lanes < sm_count * PICK_THREADS):
+                           or p * lanes < H100["sm_count"] * PICK_THREADS):
         lanes *= 2
     if -(-nyx // lanes) > PICK_CELLS:
         raise ValueError(f"pick_plan: {ny} x {nx} cells pass {PICK_CELLS} "
                          f"a lane of {lanes}")
-    team = max(lanes, 32)
-    per_slab = team // lanes
-    staged = per_slab * n * 4 <= PICK_SLAB_BYTES
-    smem = pick_smem(per_slab, nt, ny, nx, staged, lanes, rows)
-    if smem > smem_block:
-        raise ValueError(f"pick_plan: {nt} x {ny} x {nx} candidates pass a "
-                         f"block's shared memory")
-    slabs = -(-p // per_slab)
-    blocks = -(-slabs // (PICK_THREADS // team))
-    per_sm = max(1, min(2048 // PICK_THREADS, smem_sm // (smem + 1024)))
-    return PickPlan(lanes, per_slab, slabs, min(blocks, sm_count * per_sm),
-                    staged, smem)
+    per_slab = max(lanes, 32) // lanes
+    return PickPlan(lanes, per_slab, per_slab * n * 4 <= PICK_SLAB_BYTES)
 
 
 def pick_plain(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
@@ -446,7 +403,7 @@ def pick_cuda(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
     dxs (P, nx), dys (P, ny), dts (P, nt), pose0 and center (P, 3),
     float32 on the card; d_center, d_theta 0-dim or (G_o,); use (G_b, B)
     or (B,) bool; off_xy, off_t the next stage's offset vectors.  G_o and
-    G_b divide P."""
+    G_b divide P; ny nx at most PICK_CELLS * PICK_THREADS = 2048."""
     global pick_launches
     fn = "pick_cuda"
     if scores.dim() != 4:
@@ -491,13 +448,13 @@ def pick_cuda(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
         meas = torch.empty((p,), dtype=torch.float32, device=dev)
 
     nxt = outs if outs is not None else (None, None, None)
-    plan = pick_plan(p, nt, ny, nx, rows=g_b)
+    plan = pick_plan(p, nt, ny, nx)
     code = _build.library().gs_fusion_pick(
         scores.data_ptr(), dxs.data_ptr(), dys.data_ptr(), dts.data_ptr(),
         pose0.data_ptr(), _ptr(center), dc.data_ptr(), dt.data_ptr(),
         _ptr(use), _ptr(off_xy), _ptr(off_t), *(_ptr(t) for t in nxt),
         _ptr(best), _ptr(meas), p, nt, ny, nx, g_o, max(g_b, 1), b, stride,
-        n_xy, n_t, plan.lanes, plan.per_slab, int(plan.staged), plan.grid,
+        n_xy, n_t, plan.lanes, plan.per_slab, int(plan.staged),
         float(prior_weight), *_motion_args(motion),
         stream_handle(dev))
     pick_launches += 1
@@ -788,28 +745,14 @@ def weights_plain(log_weights, poses, *, resample_fraction=None, recov=None,
 
 
 class WeightsPlan(NamedTuple):
-    """How F7 runs a call (csrc/fusions.cu gs_fusion_weights): rows of
-    ROW weights a robot, a block of WEIGHTS_THREADS a (row, robot) on a
-    grid (rows, robots); one launch where a robot's weights are one row,
-    else three (each row's argmax; the max and each row's sum of exp, the
-    last block summing the rows; the moments, the last block finishing);
-    the scratch the launches share (floats, int32s) and the largest static
-    shared memory of its kernels in bytes."""
+    """F7's launches for a call (csrc/fusions.cu gs_fusion_weights: one
+    where a robot's weights are one row of ROW, else three) and the scratch
+    they share: floats (each row's argmax value, sum and four moments) and
+    int32s (each row's argmax index, two tickets a robot)."""
 
-    rows: int
-    grid: tuple
     launches: int
     scratch_floats: int
     scratch_ints: int
-    smem: int
-
-
-WEIGHTS_THREADS = ROW // SEG        # csrc/fusions.cu kRowThreads
-# the static shared memory of F7's kernels: the one-row kernel's poses,
-# four row trees, the argmax's and the total (bytes); the third pass's
-# poses, four row trees and its flag
-WEIGHTS_SMEM = {"row": 4 * (3 * ROW + 4 * WEIGHTS_THREADS + 2 * 32 + 1),
-                "finish": 4 * (3 * ROW + 4 * WEIGHTS_THREADS) + 1}
 
 
 def weights_plan(r: int, p: int) -> WeightsPlan:
@@ -818,9 +761,7 @@ def weights_plan(r: int, p: int) -> WeightsPlan:
         raise ValueError(f"weights_plan: 1 to {ROW * ROW} weights and 1 to "
                          f"65535 robots, got {r} x {p}")
     nb = -(-p // ROW)
-    return WeightsPlan(nb, (nb, r), 1 if nb == 1 else 3, 6 * r * nb,
-                       r * nb + 2 * r,
-                       WEIGHTS_SMEM["row" if nb == 1 else "finish"])
+    return WeightsPlan(1 if nb == 1 else 3, 6 * r * nb, r * nb + 2 * r)
 
 
 def weights_cuda(log_weights, poses, *, resample_fraction=None, recov=None,

@@ -4,11 +4,11 @@ At a stage of PARTICLES particles (the 500 000 block of mega_blocked by
 default), for the coarse (11 x 9 x 9, with the scan's mask) and the fine
 (5 x 5 x 5) stage: the plan ops/cuda/fusions.pick_plan chooses, then each
 of PLANS[stage] (lanes a particle, particles a slab, the scores staged in
-shared memory or read in place), each at GRIDS blocks (the resident limit,
-then one or two blocks an SM): every output equal bit for bit to the
-chosen plan's (else exit 1) and its device ms inside a CUDA graph of REPS
-calls (chip_smoke.graph_ms), beside the stage's byte bound
-(chip_smoke.fusion_bound).  Prints the card's name and power limit first
+shared memory or read in place), each launched as csrc/fusions.cu
+gs_fusion_pick launches every plan (as many blocks as are resident): every
+output equal bit for bit to the chosen plan's (else exit 1) and its device
+ms inside a CUDA graph of REPS calls (chip_smoke.graph_ms), beside the
+stage's byte bound (chip_smoke.fusion_bound).  Prints the card's name and power limit first
 and a JSON line a run.
 
 Usage (needs a GPU; ~1 min):
@@ -33,7 +33,6 @@ REPS = 10
 PLANS = {"coarse": ((32, 1, 1), (16, 2, 1), (64, 1, 1), (128, 1, 1),
                     (32, 1, 0)),
          "fine": ((4, 8, 1), (8, 4, 1), (16, 2, 1), (32, 1, 1), (4, 8, 0))}
-GRIDS = (None, 132, 264)          # None: as many as are resident
 
 
 def main() -> int:
@@ -55,39 +54,35 @@ def main() -> int:
         p, nt, ny, nx = scores.shape
         kw = dict(motion=motion, prior_weight=0.7, stride=3)
         ref = fusions.pick_cuda(*call, **kw)
-        chosen = fusions.pick_plan(p, nt, ny, nx, rows=use is not None)
+        chosen = fusions.pick_plan(p, nt, ny, nx)
         bound, by = cs.fusion_bound("F3", call, kw)
         dc, dt = d_c.reshape(1), d_t.reshape(1)
         for lanes, per_slab, staged in ((chosen.lanes, chosen.per_slab,
                                          int(chosen.staged)), *plans):
-            for grid in GRIDS:
-                outs = [torch.empty_like(r) for r in ref]
+            outs = [torch.empty_like(r) for r in ref]
 
-                def run():
-                    code = lib.gs_fusion_pick(
-                        *(ab._p(t) for t in (scores, dxs, dys, dts, pose0,
-                                             center, dc, dt, use, off_xy,
-                                             off_t, *outs, None, None)),
-                        p, nt, ny, nx, 1, 1,
-                        0 if use is None else use.shape[-1], kw["stride"],
-                        5, 5, lanes, per_slab, staged, grid or 2 ** 30,
-                        kw["prior_weight"], *fusions._motion_args(motion),
-                        stream_handle(scores.device))
-                    _build.check("gs_fusion_pick", code)
+            def run():
+                code = lib.gs_fusion_pick(
+                    *(ab._p(t) for t in (scores, dxs, dys, dts, pose0,
+                                         center, dc, dt, use, off_xy,
+                                         off_t, *outs, None, None)),
+                    p, nt, ny, nx, 1, 1,
+                    0 if use is None else use.shape[-1], kw["stride"],
+                    5, 5, lanes, per_slab, staged, kw["prior_weight"],
+                    *fusions._motion_args(motion),
+                    stream_handle(scores.device))
+                _build.check("gs_fusion_pick", code)
 
-                run()
-                same = all(torch.equal(a.view(torch.int32),
-                                       b.view(torch.int32))
-                           for a, b in zip(outs, ref))
-                same_all &= same
-                ms = cs.graph_ms(run, REPS)
-                cs.say("pick_sweep", stage=stage, particles=p, lanes=lanes,
-                       per_slab=per_slab, staged=bool(staged),
-                       grid=grid or "resident",
-                       chosen=(lanes, per_slab, bool(staged)) == (
-                           chosen.lanes, chosen.per_slab, chosen.staged),
-                       bits_equal=same, graph_ms=ms, bound_ms=bound,
-                       bound_by=by, share_of_bound=bound / ms)
+            run()
+            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(outs, ref))
+            same_all &= same
+            ms = cs.graph_ms(run, REPS)
+            cs.say("pick_sweep", stage=stage, particles=p, lanes=lanes,
+                   per_slab=per_slab, staged=bool(staged),
+                   chosen=(lanes, per_slab, bool(staged)) == tuple(chosen),
+                   bits_equal=same, graph_ms=ms, bound_ms=bound,
+                   bound_by=by, share_of_bound=bound / ms)
         del call, ref, scores
         torch.cuda.empty_cache()
     print(json.dumps({"bits_equal": same_all}), flush=True)

@@ -221,57 +221,91 @@ def test_pick_keeps_the_matchers_bits():
 PLAN_SHAPES = {"coarse": (11, 9, 9), "fine": (5, 5, 5),
                "closure": (13, 15, 15)}
 PLAN_PARTICLES = [1, 2, 100, 250, 500, 2048, 20_000, 500_000, "limit"]
-SMEM_OPT_IN = 227 * 1024               # an H100 block's shared memory
 H100_SMS = 132
+# blocks of PICK_THREADS an SM: one, F3's launch bound's least, and the
+# most an SM's 2048 threads hold
+RESIDENT = (1, 3, 8)
+
+
+def _pick_lane_candidates(lane, lanes, nt, ny, nx):
+    """The candidates a lane of fusion_pick_kernel visits: its (dy, dx)
+    cells r0 + a lanes for a < cells, at its headings h, h + H, ..."""
+    nyx = ny * nx
+    big_h = max(1, min(nt, lanes // nyx))
+    h = lane // nyx if big_h > 1 else 0
+    r0 = lane - h * nyx
+    cells = ((1 if lane < big_h * nyx else 0) if big_h > 1
+             else max(0, (nyx - lane + lanes - 1) // lanes))
+    return [it * nyx + r0 + a * lanes for it in range(h, nt, big_h)
+            for a in range(cells)], cells
 
 
 @pytest.mark.parametrize("p", PLAN_PARTICLES)
 @pytest.mark.parametrize("stage", sorted(PLAN_SHAPES))
 def test_pick_plan_covers_each_particle_once(stage, p):
+    """The plan as csrc/fusions.cu fusion_pick_kernel works it: the slabs
+    a team takes (first = block teams + team, stride = grid teams, the grid
+    as many blocks as are resident and no more than the slabs need), the
+    particles of a slab, a particle's lanes (shuffles and the team's warps
+    combine no lane of another particle) and a lane's candidates."""
     nt, ny, nx = PLAN_SHAPES[stage]
-    n = nt * ny * nx
+    n, nyx = nt * ny * nx, ny * nx
     p = (2 ** 31 - 1) // n if p == "limit" else p
-    rows = 1 if stage == "coarse" else 0
-    plan = fusions.pick_plan(p, nt, ny, nx, rows=rows)
+    plan = fusions.pick_plan(p, nt, ny, nx)
     lanes, per_slab = plan.lanes, plan.per_slab
     team = lanes * per_slab
     assert lanes & (lanes - 1) == 0 and team == max(lanes, 32)
     assert fusions.PICK_THREADS % team == 0
     teams = fusions.PICK_THREADS // team
-    # slabs of per_slab consecutive particles, the last one ragged; team
-    # i of all grid * teams takes slabs i, i + grid * teams, ...: each once
-    assert (plan.slabs - 1) * per_slab < p <= plan.slabs * per_slab
-    assert 1 <= plan.grid <= min(-(-plan.slabs // teams), 2 ** 31 - 1)
-    taken_by = np.bincount(np.arange(plan.slabs) % (plan.grid * teams))
-    assert taken_by.sum() == plan.slabs and taken_by.min() >= 1
-    assert plan.smem == fusions.pick_smem(per_slab, nt, ny, nx, plan.staged,
-                                          lanes, rows)
-    assert plan.smem <= SMEM_OPT_IN
-    assert plan.staged == (per_slab * n * 4 <= fusions.PICK_SLAB_BYTES)
-    cap = min(fusions.PICK_THREADS, 1 << (n - 1).bit_length())
-    # at most PICK_CELLS (dy, dx) cells a lane; a warp's slab within
+    slabs = -(-p // per_slab)
+    for resident in RESIDENT:
+        grid = min(resident * H100_SMS, -(-slabs // teams))
+        assert 1 <= grid <= 2 ** 31 - 1
+        stride = grid * teams
+        taken = np.zeros(slabs, np.int32)
+        for b in range(grid):
+            for t in range(teams):
+                taken[b * teams + t::stride] += 1
+        assert (taken == 1).all()
+    # slab s holds particles s per_slab + g for g < min(per_slab, P - p0)
+    p0 = np.arange(slabs, dtype=np.int64) * per_slab
+    ends = np.minimum(p0 + per_slab, p)
+    assert p0[0] == 0 and ends[-1] == p and (p0[1:] == ends[:-1]).all()
+    # a team's thread tt = g lanes + l works particle g; the xor partners
+    # of its shuffles (off < min(lanes, 32)) and, past a warp, the team's
+    # warps (a particle a team) are its particle's lanes
+    tt = np.arange(team)
+    for off in (1 << k for k in range(min(lanes, 32).bit_length() - 1)):
+        assert ((tt ^ off) // lanes == tt // lanes).all()
+    assert lanes <= 32 or per_slab == 1
+    # a particle's lanes visit each candidate once, a lane at most as many
+    # cells as its instantiation holds
+    most = 1 if lanes >= nyx else -(-nyx // lanes)
+    assert most <= fusions.PICK_CELLS
+    visits = np.zeros(n, np.int32)
+    for lane in range(lanes):
+        cands, cells = _pick_lane_candidates(lane, lanes, nt, ny, nx)
+        assert cells <= most
+        np.add.at(visits, cands, 1)
+    assert (visits == 1).all()
+    # a slab staged within PICK_SLAB_BYTES; a warp's slab within
     # PICK_WARP_BYTES (or one particle); a block's worth of threads an SM,
     # unless each candidate has a lane already
-    assert -(-(ny * nx) // lanes) <= fusions.PICK_CELLS
+    assert plan.staged == (per_slab * n * 4 <= fusions.PICK_SLAB_BYTES)
     assert per_slab == 1 or per_slab * n * 4 <= fusions.PICK_WARP_BYTES
+    cap = min(fusions.PICK_THREADS, 1 << (n - 1).bit_length())
     assert lanes == cap or p * lanes >= H100_SMS * fusions.PICK_THREADS
-    # a particle's candidates lane, lane + lanes, ...: each once
-    taken = np.zeros(n, int)
-    for lane in range(lanes):
-        taken[lane::lanes] += 1
-    assert (taken == 1).all()
 
 
-@pytest.mark.parametrize("p,stage,lanes,grid", [
-    (250, "coarse", 256, 250), (250, "fine", 128, 125),
-    (500, "coarse", 128, 250), (500, "fine", 128, 250),
-    (500_000, "coarse", 32, 3 * H100_SMS), (500_000, "fine", 4, 2 * H100_SMS)])
-def test_pick_plan_at_the_cells(p, stage, lanes, grid):
+@pytest.mark.parametrize("p,stage,lanes", [
+    (250, "coarse", 256), (250, "fine", 128), (500, "coarse", 128),
+    (500, "fine", 128), (500_000, "coarse", 32), (500_000, "fine", 4)])
+def test_pick_plan_at_the_cells(p, stage, lanes):
     """250-500 particles spread over every SM, 128-256 threads a particle;
     a 500 000 block in warps, a particle a warp (coarse) or eight (fine),
-    as many blocks as fit the card, each warp working its slabs in turn."""
+    each warp working its slabs in turn; every slab's scores staged."""
     plan = fusions.pick_plan(p, *PLAN_SHAPES[stage])
-    assert (plan.lanes, plan.grid, plan.staged) == (lanes, grid, True)
+    assert (plan.lanes, plan.staged) == (lanes, True)
 
 
 def test_pick_plan_refuses_more_cells_than_a_block_holds():

@@ -309,22 +309,36 @@ def test_three_robots_in_one_call_as_three_calls(order, monkeypatch):
 @pytest.mark.parametrize("robots", [1, 2])
 @pytest.mark.parametrize("rows", [1, 2, 1023, 1024])
 def test_weights_plan_covers_each_row_once(rows, robots):
-    """F7's launches (ops/cuda/fusions.weights_plan) for a robot's weights
-    filling `rows` rows, the last whole or ragged: a block a (row, robot),
-    each weight in one row; one launch where the weights are one row."""
+    """F7's launches as csrc/fusions.cu works them, for a robot's weights
+    filling `rows` rows, the last whole or ragged: a block (b, r) of ROW /
+    SEG threads, thread t the segment b ROW + t SEG + j, j < SEG, so each
+    weight is in one row; the rows' partials (argmax values, sums, four
+    moments; argmax indices, then two tickets a robot) at their own
+    places in weights_plan's scratch."""
+    threads = tres.ROW // tres.SEG
     for p in {(rows - 1) * tres.ROW + 1, rows * tres.ROW}:
         plan = fusions.weights_plan(robots, p)
-        assert plan.rows == rows and plan.grid == (rows, robots)
-        assert (plan.rows - 1) * tres.ROW < p <= plan.rows * tres.ROW
-        # a thread a segment: the block's threads take the row's weights
-        assert fusions.WEIGHTS_THREADS * tres.SEG == tres.ROW
-        assert plan.grid[0] <= 2 ** 31 - 1 and plan.grid[1] <= 65535
-        assert plan.launches == (1 if rows == 1 else 3)
-        assert plan.smem <= 227 * 1024
-        # the passes' partials: argmax values, row sums, four moment sums
-        # a row; argmax indices a row and two tickets a robot
-        assert plan.scratch_floats == 6 * robots * rows
-        assert plan.scratch_ints == robots * rows + 2 * robots
+        nb = -(-p // tres.ROW)
+        assert nb == rows and nb <= 2 ** 31 - 1 and robots <= 65535
+        b, t, j = np.meshgrid(np.arange(nb), np.arange(threads),
+                              np.arange(tres.SEG), indexing="ij")
+        i = (b * tres.ROW + t * tres.SEG + j).ravel()
+        assert (np.bincount(i[i < p], minlength=p) == 1).all()
+        if nb == 1:
+            continue
+        rn = robots * nb
+        r, b = np.meshgrid(np.arange(robots), np.arange(nb), indexing="ij")
+        c = np.arange(4)[:, None, None]
+        floats = np.concatenate([(r * nb + b).ravel(),
+                                 (rn + r * nb + b).ravel(),
+                                 (2 * rn + r * 4 * nb + c * nb + b).ravel()])
+        ints = np.concatenate([(r * nb + b).ravel(),
+                               rn + 2 * np.arange(robots),
+                               rn + 2 * np.arange(robots) + 1])
+        for used, size in ((floats, plan.scratch_floats),
+                           (ints, plan.scratch_ints)):
+            assert used.min() >= 0 and used.max() < size
+            assert (np.bincount(used) <= 1).all()
     with pytest.raises(ValueError):
         fusions.weights_plan(robots, tres.ROW * tres.ROW + 1)
 
