@@ -9,8 +9,9 @@ Phases, each printed on its own line:
    and global variant), of K2's two (four cells a thread, one cell), of
    K3's nine (radius 1 to 4 compiled in, each staging by 128-bit loads or
    cell by cell, and any radius) and of K4's two (the prologue, the
-   correlation) from `-Xptxas -v`, and F1-F8's (F3's ten instantiations:
-   scores staged or read in place, 1, 2, 3, 4 or 8 (dy, dx) cells a lane;
+   correlation) from `-Xptxas -v`, and F1-F8's (F3's twelve
+   instantiations: scores staged or read in place, 1, 2, 3, 4 or 8 (dy,
+   dx) cells a lane, or 8 at a time where a lane walks more in groups;
    F7's four kernels, F8's two); a spill in K2, K3, K4, F3, F7 or F8 fails
    the run;
 3. kernels — each CUDA kernel against its plain PyTorch version on the card,
@@ -383,6 +384,9 @@ FRONTEND_NODES = {"verify": {"stage_scores": 10, "integrate_scan": 2,
                               "scan": 1, "weights": 0, "walk": 0}}
 CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
 PR1_SCANS = 3          # the pr1 phase's scans under CallRecorder
+# the wide phase's coarse stage: 51 x 51 (dy, dx) cells, more than F3's
+# lanes hold in registers at once
+WIDE_COARSE_NXY = 51
 # the bench phase's one measurement with bench.py's flags: the pr1 preset
 # with its coarse stage on nearest cells of the full 400 x 400 field (the
 # global variant), the calls at 100 particles in which one rounding tie
@@ -427,7 +431,7 @@ SURFACE_PATHS = ("mega", "city step", "mega_bf16 step", "city_bf16 step",
                  "mega refine", "shmap_surface", "surface_sharded")
 # every path must hold a checked F6 call, the matcher paths an F3 call
 FUSION_PATHS = ("parity", "chip", "pr1", "mega_blocked", "multi 10000",
-                "posegraph_rbpf", "posegraph_closures", "tiled",
+                "posegraph_rbpf", "posegraph_closures", "tiled", "wide51",
                 *SURFACE_PATHS)
 # the single-device paths, each of which must hold a checked F7 call and,
 # where a gate fired, a checked F8 call (the mesh engines' tail keeps its
@@ -456,6 +460,8 @@ F5_ROW_FLOPS, F5_TAP_FLOPS = 22, 3
 # bin's (its center, two differences, two wraps, two magnitudes, the
 # compare); the sort's and the search's comparisons are added at log2 B
 F6_DESKEW_FLOPS, F6_WRAP_FLOPS, F6_BIN_FLOPS = 16, 3, 14
+# F6's operations a beam's endpoint (a sine, a cosine and two products)
+F6_POINT_FLOPS = 4
 # F7's operations a weight: the max's compare; the difference, exp and sum
 # of the total; the difference, exp and quotient again, four products, the
 # wrap's sine, cosine and atan2, four sums
@@ -466,6 +472,9 @@ F7_FLOPS = 18
 F8_FLOPS = 7
 # F7's exp against torch.exp on the card over this many values
 EXP_PROBE_VALUES = 1 << 20
+# F4's rsqrtf against torch.rsqrt on the card: every used-beam count up to
+# this, and as many random floats
+RSQRT_PROBE_VALUES = 1 << 16
 # the torch reductions and scans a step may dispatch (aten op names): the
 # captured phase fails where one comes from the weights' tail, which F7
 # and F8 hold on the card
@@ -536,7 +545,7 @@ def build_phase() -> None:
     build line; K1's untiled and tile variants, K2's whole-map and window
     variants, K4's prologue and correlation.  K1's, K3's and K4's
     shared memory is dynamic: a call's plan sets it.  A spill in K2, K3,
-    K4, F3 (ten instantiations), F7 or F8, or a spill store in K1 or K1t's
+    K4, F3 (twelve instantiations), F7 or F8, or a spill store in K1 or K1t's
     staged kernel, fails the run.  K4 is its prologue (surface_corr_prep)
     and the correlation (surface_corr_kernel)."""
     from gridmap_slam_tpu_torch.ops.cuda import _build
@@ -585,11 +594,12 @@ def build_phase() -> None:
         raise AssertionError(f"F7 and F8: expected 6 kernels without "
                              f"spills: {tail}")
     pick = [v for v in fused if v["kernel"] == "pick"]
-    if len(pick) != 10 or any(v["spill_stores"] or v["spill_loads"]
+    if len(pick) != 12 or any(v["spill_stores"] or v["spill_loads"]
                               for v in pick):
-        raise AssertionError(f"F3: expected 10 instantiations (staged or "
-                             f"not, 1, 2, 3, 4 or 8 cells a lane) without "
-                             f"spills: {pick}")
+        raise AssertionError(f"F3: expected 12 instantiations (staged or "
+                             f"not, 1, 2, 3, 4 or 8 cells a lane, and 8 a "
+                             f"group of a lane's cells) without spills: "
+                             f"{pick}")
     if len(k2) != 3 or len(k3) != 9 or len(k4) != 2 or any(
             v["spill_stores"] or v["spill_loads"] for v in k2 + k3 + k4):
         raise AssertionError(f"K2: expected 3 instantiations, K3: 9, K4: 2, "
@@ -1349,6 +1359,9 @@ def surface_ops_phase(eng, batches, state):
     volume_ms = cuda_ms(lambda: surface_volume(cfg, eng.taps, state.logodds,
                                                scan, center), 10)
     c_vol, kw, kc = surface_volume(cfg, eng.taps, state.logodds, scan, center)
+    # the sample alone: the weights' temperature F4 also applies is held in
+    # the fusions phase
+    kw = {k: v for k, v in kw.items() if k not in ("temp", "n_used")}
 
     # the pieces of the volume, to hold each mode against the CPU
     llf = likelihood.log_likelihood_field_batch(
@@ -1878,6 +1891,9 @@ def _sig(x):
     dtypes and every other argument's value."""
     if torch.is_tensor(x):
         return ("tensor", tuple(x.shape), str(x.dtype))
+    if dataclasses.is_dataclass(x):        # Odom: its fields, not its repr
+        return tuple(_sig(getattr(x, f.name))
+                     for f in dataclasses.fields(x))
     if isinstance(x, (tuple, list)):
         return tuple(_sig(v) for v in x)
     if isinstance(x, dict):
@@ -1888,8 +1904,12 @@ def _sig(x):
 def _clone(x):
     if torch.is_tensor(x):
         return x.clone()
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _clone(getattr(x, f.name)) for f in dataclasses.fields(x)})
     if isinstance(x, tuple):
-        return tuple(_clone(v) for v in x)
+        vals = tuple(_clone(v) for v in x)
+        return type(x)(*vals) if hasattr(x, "_fields") else vals
     if isinstance(x, dict):
         return {k: _clone(v) for k, v in x.items()}
     return x
@@ -2054,11 +2074,12 @@ FUSIONS = ("F1", "F2", "F3", "F4", "F5", "F6", "F7", "F8")
 
 
 def _outputs(out) -> list:
-    """A kernel's outputs as a list of tensors (F1's, F3-F6's tuples, the
-    Nones of the outputs not asked for left out)."""
+    """A kernel's outputs as a list of tensors (F1's, F3-F6's tuples, F7's
+    Tail with its Window, the Nones of the outputs not asked for left
+    out)."""
     if torch.is_tensor(out):
         return [out]
-    return [t for t in out if t is not None]
+    return [t for x in out if x is not None for t in _outputs(x)]
 
 
 def _bits_differing(a, b) -> int:
@@ -2084,7 +2105,11 @@ def fusion_bound(kernel, args, kw):
         lw = args[0]
         rows, n = lw.numel() // lw.shape[-1], lw.numel()
         out = rows * 44 + (25 if kw.get("recov") is not None else 0)
-        return bound(F7_FLOPS * n, nbytes([*args, *kw.values()]) + out)
+        win = kw.get("window")
+        if win is not None:      # the window's cells, center and bins
+            out += 16 if not win.volume else 48 + 12 + 4 * (1 + win.nt)
+        ins = [v for v in kw.values() if torch.is_tensor(v)]
+        return bound(F7_FLOPS * n, nbytes([*args, *ins]) + out)
     if kernel == "F8":
         n = args[0].numel()
         probes = math.ceil(math.log2(max(n, 2)))
@@ -2102,11 +2127,16 @@ def fusion_bound(kernel, args, kw):
         angle, deskewed = args[0], args[4] is not None
         b = angle.shape[-1]
         g, n_bins = angle.numel() // b, kw.get("n_bins", 0)
+        points, stride = bool(kw.get("points")), kw.get("stride", 1)
         log_b = math.ceil(math.log2(max(b, 2)))
         beams = g * b * (F6_DESKEW_FLOPS * deskewed
-                         + (F6_WRAP_FLOPS + log_b) * (n_bins > 0))
+                         + (F6_WRAP_FLOPS + log_b) * (n_bins > 0)
+                         + F6_POINT_FLOPS * points)
         bins = g * n_bins * (F6_BIN_FLOPS + log_b)
-        out = 8 * g * b * deskewed + 12 * g * n_bins
+        b_c = -(-b // stride) if stride > 1 else 0
+        out = (8 * g * b * deskewed + 12 * g * n_bins
+               + points * (13 * g * b + 9 * g * b_c + 4 * g)
+               + 4 * g * (kw.get("keep_below") is not None))
         return bound(beams + bins, nbytes(args) + out)
     if kernel == "F1":
         pose, normals = args[0], args[3]
@@ -2160,18 +2190,24 @@ def check_fusion(path, kernel, args, kw) -> dict:
         row.update(stage="coarse" if args[8] is not None else "refine",
                    last=args[9] is None, stride=kw.get("stride", 1))
     elif kernel == "F4":
-        row.update(steps=kw.get("steps", 0), wrap_theta=kw["wrap_theta"])
+        row.update(steps=kw.get("steps", 0), wrap_theta=kw["wrap_theta"],
+                   temp=kw.get("temp", 1.0))
         if path == "mega" and not any(r["kernel"] == "F4"
                                       and r["path"] == "mega"
                                       for r in FUSION_CHECKS):
             row.update(f4_library(*args, kw))
     elif kernel == "F6":
-        row.update(deskew=args[4] is not None, n_bins=kw.get("n_bins", 0))
+        row.update(deskew=args[4] is not None, n_bins=kw.get("n_bins", 0),
+                   points=bool(kw.get("points")), stride=kw.get("stride", 1),
+                   keep=kw.get("keep_below") is not None)
     elif kernel == "F7":
         lw = args[0]
+        win = kw.get("window")
         row.update(robots=lw.numel() // lw.shape[-1], weights=lw.shape[-1],
                    epilogue=kw.get("resample_fraction") is not None,
                    recovery=kw.get("recov") is not None,
+                   window=None if win is None else
+                   ("volume" if win.volume else "crop"),
                    # the library call for the normalized weights
                    library_ms=cuda_ms(lambda: torch.softmax(lw, -1), 20))
     elif kernel == "F8":
@@ -3267,6 +3303,46 @@ def pr1_phase(frames, dev="cuda"):
         del eng, batch, seq, rec
         torch.cuda.empty_cache()
     return launches_by_path, rows
+
+
+def wide_phase(frames, dev="cuda", coarse_nxy=WIDE_COARSE_NXY):
+    """The parity preset with a coarse stage of coarse_nxy x coarse_nxy
+    (dy, dx) cells (past F3's 2048 a lane's registers hold at once: its
+    lanes walk their cells in groups), over the first PR1_SCANS scans of
+    the parity log through RBPF.run_log under CallRecorder: every kernel
+    call held against its plain version (check_recorded; F1-F8's bit for
+    bit), the state finite.  Returns the path's launches."""
+    from gridmap_slam_tpu_torch import RBPF
+    from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
+    from gridmap_slam_tpu_torch.ops.cuda import fusions
+
+    cfg = parity_config().with_overrides({"matcher.coarse_nxy": coarse_nxy})
+    eng = RBPF(cfg, device=dev)
+    batch = frames_to_device(frames[:PR1_SCANS], cfg.max_beams,
+                             cfg.sensor.max_range, device=dev)
+    seq = [frame_at(batch, i) for i in range(PR1_SCANS)]
+    kernels = _zero_launches()
+    with CallRecorder("wide51") as rec:
+        state, infos = eng.run_log(
+            eng.init(), seq, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    finite = bool(torch.isfinite(state.poses).all()
+                  and torch.isfinite(state.logodds).all())
+    mc = cfg.matcher
+    say("wide51", particles=cfg.num_particles,
+        coarse=[mc.coarse_nt, mc.coarse_nxy, mc.coarse_nxy],
+        pick_plan=fusions.pick_plan(cfg.particle_chunk, mc.coarse_nt,
+                                    mc.coarse_nxy, mc.coarse_nxy)._asdict(),
+        scans=len(seq), launches=launches, finite=finite,
+        weighted_pose=infos[-1].weighted_pose.tolist())
+    if not finite:
+        raise AssertionError("wide51: non-finite poses or maps")
+    if not all(launches[k] > 0 for k in (*BASE_ROWS, "pick", "scan")):
+        raise AssertionError(f"wide51: a kernel was not launched: "
+                             f"{launches}")
+    check_recorded(rec, {"wide51": launches})
+    return launches
 
 
 # ------------------------------------------------------------------ captured
@@ -5139,6 +5215,8 @@ def f4_library(c_vol, poses, kw) -> dict:
     from gridmap_slam_tpu_torch.ops.cuda import fusions
     if kw["wrap_theta"] or kw.get("steps", 0):
         return dict(library_ms=None)
+    # the sample itself: grid_sample has no temperature
+    kw = {**kw, "temp": 1.0, "n_used": None}
     nt, hc, wc = c_vol.shape
     x, y, th = poses.reshape(-1, 3).unbind(-1)
     fx = (x - kw["origin"][0]) / kw["resolution"] - 0.5 - kw["crop_ix0"]
@@ -5179,7 +5257,7 @@ def sample_order(c_vol, poses, kw) -> dict:
     call to keep its argument."""
     from gridmap_slam_tpu_torch.ops.cuda import fusions
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [(c_vol, poses, {**kw, "steps": 0})]
+    cases = [(c_vol, poses, {**kw, "steps": 0, "temp": 1.0, "n_used": None})]
     lo = torch.tensor([-0.2, -0.1, -3.5], device="cuda")
     span = torch.tensor([2.4, 2.2, 7.0], device="cuda")
     for wrap in (False, True):
@@ -5223,7 +5301,11 @@ def scan_ties(n_bins: int = 2048, details=None) -> dict:
     merge sort) and 192 and 360 (a radix sort), one scan and a batch, each
     with
     deskew and tables (the first scan of each with zero odometry, so its
-    ties survive the deskew), tables only and deskew only.  Returns the
+    ties survive the deskew), tables only and deskew only, and with a
+    step's outputs (deskew, tables, endpoints, used and every 4th beam,
+    their count and the gate keep at |d_theta| <= 0.3, also frozen) and the
+    endpoints alone (every 3rd beam; every beam beside the tables), the
+    all-invalid scan's count clamped to 1.  Returns the
     differing bits by case (`details`, a dict where given, gets the first
     differing entries of each case that differs)."""
     from gridmap_slam_tpu_torch.ops.cuda import fusions
@@ -5251,11 +5333,18 @@ def scan_ties(n_bins: int = 2048, details=None) -> dict:
                  for a in (ang, dist, hit, valid)]
             odo = [torch.as_tensor(d[0] if g == 1 else d, device="cuda")
                    for d in (dc, dt)]
-            for name, o, nb in (("prepare", odo, n_bins),
-                                ("tables", (None, None), n_bins),
-                                ("deskew", odo, 0)):
-                got = _outputs(fusions.scan_cuda(*t, *o, n_bins=nb))
-                want = _outputs(fusions.scan_plain(*t, *o, n_bins=nb))
+            step = dict(points=True, stride=4, keep_below=0.3)
+            for name, o, nb, kw in (
+                    ("prepare", odo, n_bins, {}),
+                    ("tables", (None, None), n_bins, {}),
+                    ("deskew", odo, 0, {}),
+                    ("step", odo, n_bins, step),
+                    ("step frozen", odo, n_bins, {**step, "freeze": True}),
+                    ("points", (None, None), 0, dict(points=True, stride=3)),
+                    ("points stride 1", (None, None), n_bins,
+                     dict(points=True))):
+                got = _outputs(fusions.scan_cuda(*t, *o, n_bins=nb, **kw))
+                want = _outputs(fusions.scan_plain(*t, *o, n_bins=nb, **kw))
                 bits = (sum(_bits_differing(x, y) for x, y in zip(got, want))
                         if len(got) == len(want) else -1)
                 out[f"{name} {g}x{b}"] = bits
@@ -5266,10 +5355,25 @@ def scan_ties(n_bins: int = 2048, details=None) -> dict:
                         (k, *map(int, ix), float(x[tuple(ix)]),
                          float(y[tuple(ix)]))
                         for k, (x, y) in enumerate(zip(got, want))
+                        if x.dtype == torch.float32 and x.shape == y.shape
                         for ix in (x.view(torch.int32) != y.view(
                             torch.int32)).reshape(x.shape).nonzero()[:3]
                         .reshape(-1, x.dim()).cpu().tolist()]
     return out
+
+
+def rsqrt_probe(n: int = RSQRT_PROBE_VALUES) -> dict:
+    """F4's rsqrtf (csrc/fusions.cu temper, through
+    fusions.weight_exp_cuda(x, rsqrt=True)) against torch.rsqrt on the
+    card, bit for bit: every used-beam count 1 to n and n random floats in
+    [1, 1e6)."""
+    from gridmap_slam_tpu_torch.ops.cuda import fusions
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.cat([torch.arange(1, n + 1, dtype=torch.float32,
+                                device="cuda"),
+                   1.0 + torch.rand(n, generator=gen, device="cuda") * 1e6])
+    return dict(values=x.numel(), bits_differing=_bits_differing(
+        fusions.weight_exp_cuda(x, rsqrt=True), torch.rsqrt(x)))
 
 
 def exp_probe(n: int = EXP_PROBE_VALUES) -> dict:
@@ -5293,9 +5397,13 @@ def exp_probe(n: int = EXP_PROBE_VALUES) -> dict:
 # and one, 10 000, the 1M of the surface cells) at one and two robots
 EDGE_PICK_PARTICLES = (1, 250, 500, 2048, 500_000)
 # the matcher's stages, and a window whose particle's scores pass a slab's
-# staging (its scores read in place) at up to WIDE_PARTICLES particles
+# staging (its scores read in place) at up to WIDE_PARTICLES particles, and
+# stages of 51 x 51 and 101 x 101 (dy, dx) cells (a lane's cells walked in
+# groups) at 11 headings (coarse) and 3 (fine)
 EDGE_PICK_STAGES = {"coarse": (11, 9, 9), "fine": (5, 5, 5),
-                    "wide": (5, 31, 31)}
+                    "wide": (5, 31, 31), "coarse 51": (11, 51, 51),
+                    "fine 51": (3, 51, 51), "coarse 101": (11, 101, 101),
+                    "fine 101": (3, 101, 101)}
 WIDE_PARTICLES = 2048
 EDGE_PICK_KINDS = ("ties", "nan", "neginf", "zeros", "equal")
 EDGE_WEIGHTS = (1, 500, 1023, 1024, 1025, 10_000, 1 << 20)
@@ -5304,13 +5412,19 @@ EDGE_WEIGHT_KINDS = ("ties", "neginf")
 
 def _edge_candidates(p, nt, ny, nx) -> list:
     """The candidates where F3's plan splits a particle: the first and the
-    last, each lane's and warp's edges (ops/cuda/fusions.pick_plan)."""
+    last, each lane's and warp's edges (ops/cuda/fusions.pick_plan) and,
+    where a lane walks its cells in groups, the groups' edges at the first,
+    second and last heading."""
     from gridmap_slam_tpu_torch.ops.cuda import fusions
-    n = nt * ny * nx
+    n, nyx = nt * ny * nx, ny * nx
     lanes = fusions.pick_plan(p, nt, ny, nx).lanes
     edges = {0, n - 1}
     for w in {lanes, 32}:
         edges |= {w - 1, w, n - w, n - w - 1, 2 * w - 1}
+    group = fusions.PICK_CELLS * lanes
+    for e in range(group, nyx, group):
+        for h in {0, nyx, n - nyx}:
+            edges |= {h + e - 1, h + e, h + e + lanes - 1}
     return sorted(e for e in edges if 0 <= e < n)
 
 
@@ -5355,7 +5469,7 @@ def _edge_pick_inputs(p, stage, kind, gen):
     pose0 = (torch.rand((p, 3), generator=gen, device=dev) - 0.5) * 6.0
     center = None if kind == "equal" else (
         pose0 + torch.randn((p, 3), generator=gen, device=dev) * 0.05)
-    coarse = stage == "coarse"
+    coarse = stage.startswith("coarse")
     use = (torch.rand(192, generator=gen, device=dev) < 0.7) if coarse \
         else None
     dxs, dys, dts = offsets(nx, 0.2), offsets(ny, 0.2), offsets(nt, 0.3)
@@ -5401,8 +5515,9 @@ def fusion_edges() -> dict:
     rows = []
     for p, kind in ((p, k) for p in EDGE_PICK_PARTICLES
                     for k in EDGE_PICK_KINDS):
-        wide = (("wide", False), ("wide", True)) if p <= WIDE_PARTICLES \
-            else ()
+        wide = (("wide", False), ("wide", True), ("coarse 51", False),
+                ("fine 51", True), ("coarse 101", False),
+                ("fine 101", True)) if p <= WIDE_PARTICLES else ()
         for stage, last in (("coarse", False), ("fine", False),
                             ("fine", True), *wide):
             args, weight = _edge_pick_inputs(p, stage, kind, gen)
@@ -5501,6 +5616,7 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
     s_order = sample_order(*s_args, s_kw)
     ties = scan_ties(cfg.beam_lut_bins)
     exp = exp_probe()
+    rsqrt = rsqrt_probe()
     edges = fusion_edges()
     want, paths = paths, {}
     for row in FUSION_CHECKS:
@@ -5511,7 +5627,8 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
         k["bits_differing"] += row["bits_differing"]
         k["ms"].append(row["ms"])
     say("fusions", pool_order=order, sample_order=s_order, scan_ties=ties,
-        f7_exp=exp, edges=edges, paths=paths, parity_calls=parity,
+        f7_exp=exp, f4_rsqrt=rsqrt, edges=edges, paths=paths,
+        parity_calls=parity,
         checked_calls=len(FUSION_CHECKS))
     needed = {p: ({"F4 climb" if p == "mega refine" else "F4", "F5", "F6"}
                   if p in SURFACE_PATHS else {"F3", "F6"})
@@ -5542,6 +5659,9 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
     if exp["bits_differing"]:
         raise AssertionError(f"fusions: F7's exp differs from torch.exp: "
                              f"{exp}")
+    if rsqrt["bits_differing"]:
+        raise AssertionError(f"fusions: F4's rsqrtf differs from "
+                             f"torch.rsqrt: {rsqrt}")
 
     rows = []
     for name, (kernel, replaces) in FUSION_REPLACES.items():
@@ -5621,6 +5741,7 @@ def main() -> int:
     by_path["chip"] = chip_phase(frames, gt)
     pr1_launches, pr1_rows = pr1_phase(frames)
     by_path.update(pr1_launches)
+    by_path["wide51"] = wide_phase(frames)
     rows[2]["stages"].update(pr1_rows["K1"])
     rows[1]["stages"] = pr1_rows["K2"]
     rows[0]["stages"] = pr1_rows["K3"]

@@ -138,8 +138,6 @@ class MatcherConfig:
     window_xy: float = 0.20        # m     (reference xSpan/ySpan)
     window_theta_deg: float = 15.0  # deg  (reference thetaSpan)
     # Coarse grid: translations at one map resolution, theta at 3 deg.
-    # On the card a stage's pick (ops/cuda/fusions.pick_cuda) takes at most
-    # 2048 (dy, dx) cells, so coarse_nxy and fine_nxy are at most 45 there.
     coarse_nxy: int = 9
     coarse_nt: int = 11
     # Fine grid spans one coarse cell around the coarse argmax.

@@ -1,9 +1,12 @@
 // Eight of XLA's fusions as kernels: F1 the motion model, F2 the coarse
 // stage's pool, F3 a matcher stage's pick, F4 the surface's trilinear sample
-// and hill-climb, F5 the endpoint splat's tap weights, F6 the scan's
-// preparation (deskew and the bearing-bin tables), F7 the weights' tail
-// (max, first argmax, Neff, the weighted mean pose and the shared map's
-// scalar epilogue) and F8 the systematic walk of the resample.
+// and hill-climb with the weights' temperature, F5 the endpoint splat's tap
+// weights, F6 the scan's preparation (deskew, the bearing-bin tables, and
+// what every step takes of the scan once a scan: the endpoints, the used
+// beams, every coarse-stride-th beam, their count and the map update's
+// gate), F7 the weights' tail (max, first argmax, Neff, the weighted mean
+// pose and the shared map's scalar epilogue, with the windows it places on
+// the map) and F8 the systematic walk of the resample.
 //
 // They replace no Pallas kernel.  In the JAX package XLA fuses each of these
 // runs of elementwise and reduce operations into one loop or reduce fusion:
@@ -18,7 +21,12 @@
 // ops/pallas/grid_update.py:58), and ends in the weights' reductions and,
 // under the resample gate, the systematic walk (gridmap_slam_tpu/ops/
 // resample.py:21-35, :112-137 in models/rbpf.py:254-278, models/
-// shared.py:386-461 and models/multi.py:110-142).  In PyTorch each tensor operation of them
+// shared.py:386-461 and models/multi.py:110-142); the matcher's endpoints,
+// used and coarse beams are the same in every chunk of a scan, and XLA
+// hoists them out of the lax.map body (gridmap_slam_tpu/ops/matcher.py:
+// 213-214, :285-286), and the surface step's crop, bins and temperature are
+// scalar fusions (gridmap_slam_tpu/ops/surface.py:43, :56, models/shared.py:
+// 145-166, :183).  In PyTorch each tensor operation of them
 // is a kernel of its own, and the prior and the total of a coarse stage are
 // two more tensors of the stage's scores' size, the surface sample's packed
 // neighbourhoods eight copies of the volume.  Each kernel here does the
@@ -69,7 +77,10 @@
 // a warp a row by ballots: integers, so exact as the float sums they
 // replace).  A lane
 // owns the (dy, dx) cells lane, lane + lanes, ... of its particle (or one
-// cell and every H-th heading where the lanes outnumber the cells), their
+// cell and every H-th heading where the lanes outnumber the cells; past
+// kPickCells of them, 2048 cells a stage, in groups of kPickCells, each
+// group walked in turn and its first maximum combined with the others' in
+// the total order below), their
 // quotients q = d2 / (2 sd_c sd_c) in registers, and walks the headings,
 // each heading's quotient -(dt^2) / (2 sd_t sd_t) from a table (ny nx + nt
 // divisions a particle, not two a candidate: a first design that divided
@@ -86,15 +97,19 @@
 // volume in place at the cells the packed neighbourhood array
 // (ops/surface.pack_neighborhoods) would hold, so that array is never
 // built; the hill-climb keeps the pose and its score in registers for all
-// its steps.  F5: a warp a (bin, beam) row of K taps, its lanes on
+// its steps, and tempers the score as it writes it (a product by the fixed
+// temperature or by rsqrtf of F6's used-beam count, as torch.rsqrt computes
+// it).  F5: a warp a (bin, beam) row of K taps, its lanes on
 // neighbouring taps.  F6: a block a scan, its beams in shared memory,
 // ranked by counting (B^2 comparisons: B is a few hundred), then a thread
-// a bearing bin.  F7 and F8: the sums take ops/resample.py's fixed order,
-// which its plain functions spell out with elementwise ops so that no
-// PyTorch reduction order (chosen by PyTorch from the size and the card)
-// is left to match: a block of 128 threads takes a row of 1024 weights, a
-// thread a segment of 8 added left to right, the row's segments by a
-// halving tree (shuffles below 32) or a Hillis-Steele scan in shared
+// a bearing bin; a thread a beam writes its endpoint, used flag and its
+// coarse copy, the block counts the used beams (an integer sum: exact) and
+// one thread writes the gate.  F7 and F8: the sums take ops/resample.py's
+// fixed order, which its plain functions spell out with elementwise ops so
+// that no PyTorch reduction order (chosen by PyTorch from the size and the
+// card) is left to match: a block of 128 threads takes a row of 1024
+// weights, a thread a segment of 8 added left to right, the row's segments
+// by a halving tree (shuffles below 32) or a Hillis-Steele scan in shared
 // memory, and the rows' partials by the same tree or scan.  F7 where P <=
 // 1024 is one launch, a block a robot doing the whole call.  Above it is
 // three launches, which its three dependent reductions need without a
@@ -113,7 +128,12 @@
 // 8x its byte bound.)  F8 is two (each row's scan of the normalized
 // weights; a thread a slot: the rows' carry, the binary search and the
 // gathers).  The max is the value at the first argmax (order-free), the
-// exp the CUDA math library's expf, as torch.exp's.
+// exp the CUDA math library's expf, as torch.exp's.  The thread that writes
+// F7's outputs also places a window where asked: the surface volume's crop
+// around the weighted mean propagated by the odometry (F1's arithmetic),
+// its extended window and the theta bins, or the map update's crop around
+// the integration pose (ops/surface.crop_center_cells: a product by the
+// resolution's float reciprocal, rounded half to even).
 
 #include <cuda_runtime.h>
 
@@ -412,6 +432,25 @@ __device__ void pick_scalars(int p, const Pick& k, const float* pose0,
   }
 }
 
+// The prior's quotients q[a] = d2 / (2 sd_c sd_c) of a lane's cells of
+// particle g of slab b, c its scalars: the same floats the candidates'
+// separate tensor ops give.  cell[a]: iy << 16 | ix where kPacked (at most
+// kPickCells a lane: ny nx <= 2048), else the flat iy nx + ix.
+template <int kCells, bool kPacked>
+__device__ __forceinline__ void pick_quotients(const PickSlab& b, int g,
+                                               const Pick& k, const float* c,
+                                               const int (&cell)[kCells],
+                                               float (&q)[kCells]) {
+#pragma unroll
+  for (int a = 0; a < kCells; ++a) {
+    const int iy = kPacked ? cell[a] >> 16 : cell[a] / k.nx;
+    const int ix = kPacked ? cell[a] & 0xffff : cell[a] - iy * k.nx;
+    const float ay = __fadd_rn(b.oy[g * k.ny + iy], c[3]);
+    const float ax = __fadd_rn(b.ox[g * k.nx + ix], c[2]);
+    q[a] = __fdiv_rn(__fadd_rn(__fmul_rn(ay, ay), __fmul_rn(ax, ax)), c[0]);
+  }
+}
+
 // F3.  scores: (P, nt, ny, nx), K1's scores of one stage at the candidates
 // pose0 + (dxs[ix], dys[iy], dts[it]) (dxs (P, nx), dys (P, ny), dts
 // (P, nt)).  For each particle: the motion prior of ops/cuda/fusions.
@@ -438,8 +477,11 @@ __device__ void pick_scalars(int p, const Pick& k, const float* pose0,
 // visits its candidates in index order and keeps the first maximum of
 // them; shuffles (and across the team's warps, shared memory) combine the
 // lanes' in before()'s order; the team writes the slab's outputs in one
-// coalesced pass.
-template <bool kStaged, int kCells>
+// coalesced pass.  kGroups: a lane's cells pass kCells (ny nx > kCells
+// lanes), so it walks them kCells at a time, each group's quotients
+// computed as the group starts, and keeps the group's first maximum where
+// before() puts it ahead of the groups' before it.
+template <bool kStaged, int kCells, bool kGroups>
 __global__ void __launch_bounds__(kPickThreads, kCells > 3 ? 2 : 3)
     fusion_pick_kernel(
     const float* __restrict__ scores, const float* __restrict__ dxs,
@@ -480,7 +522,7 @@ __global__ void __launch_bounds__(kPickThreads, kCells > 3 ? 2 : 3)
   for (int a = 0; a < kCells; ++a) {
     cell_r[a] = a < cells ? r0 + a * L : r0;
     const int iy = cell_r[a] / k.nx;
-    cell_yx[a] = iy << 16 | (cell_r[a] - iy * k.nx);
+    cell_yx[a] = kGroups ? 0 : iy << 16 | (cell_r[a] - iy * k.nx);
   }
   // the coarse stage's used-beam counts of every scan row, a warp a row by
   // ballots (integers, so exact as the float sums they replace), once a
@@ -556,14 +598,7 @@ __global__ void __launch_bounds__(kPickThreads, kCells > 3 ? 2 : 3)
         const float at = __fadd_rn(b.ot[g * k.nt + it], c[4]);
         qt[it] = __fdiv_rn(-__fmul_rn(at, at), c[1]);
       }
-#pragma unroll
-      for (int a = 0; a < kCells; ++a) {
-        const float ay = __fadd_rn(b.oy[g * k.ny + (cell_yx[a] >> 16)], c[3]);
-        const float ax = __fadd_rn(b.ox[g * k.nx + (cell_yx[a] & 0xffff)],
-                                   c[2]);
-        q[a] = __fdiv_rn(__fadd_rn(__fmul_rn(ay, ay), __fmul_rn(ax, ax)),
-                         c[0]);
-      }
+      if (!kGroups) pick_quotients<kCells, true>(b, g, k, c, cell_yx, q);
     }
     team_sync(bar, T);
     const float* src = scores + static_cast<size_t>(p0) * n;
@@ -576,24 +611,45 @@ __global__ void __launch_bounds__(kPickThreads, kCells > 3 ? 2 : 3)
     if (mine && cells > 0) {
       const float* s = sl + g * n;
       const float scale = c[5];
-      // a heading's cells read first, then taken in turn where before()
-      // puts them first (a larger index than any taken: a NaN over a
-      // number, a larger number); a lane whose candidates all are -inf
-      // takes its first
-      for (int it = h; it < k.nt; it += H) {
-        const float pt = qt[it];
-        const float* row = s + it * nyx;
-        float sv[kCells];
+      // more cells than registers (kGroups): the lane's cells r0 + a L in
+      // groups of kCells, each group's quotients in registers and its
+      // first maximum kept where before() puts it first, so that the
+      // groups' order does not matter
+      const int groups = kGroups ? (cells + kCells - 1) / kCells : 1;
+      for (int grp = 0; grp < groups; ++grp) {
+        int gcells = cells;
+        if (kGroups) {
+          gcells = min(kCells, cells - grp * kCells);
 #pragma unroll
-        for (int a = 0; a < kCells; ++a) sv[a] = row[cell_r[a]];
+          for (int a = 0; a < kCells; ++a)
+            cell_r[a] = r0 + (grp * kCells + (a < gcells ? a : 0)) * L;
+          pick_quotients<kCells, false>(b, g, k, c, cell_r, q);
+        }
+        // a heading's cells read first, then taken in turn where before()
+        // puts them first (a larger index than any taken: a NaN over a
+        // number, a larger number); a lane whose candidates all are -inf
+        // takes its first
+        float gv = -INFINITY;
+        int gi = -1;
+        for (int it = h; it < k.nt; it += H) {
+          const float pt = qt[it];
+          const float* row = s + it * nyx;
+          float sv[kCells];
 #pragma unroll
-        for (int a = 0; a < kCells; ++a) {
-          const float prior = __fmul_rn(__fsub_rn(pt, q[a]), k.weight);
-          const float v =
-              __fadd_rn(sv[a], coarse ? __fmul_rn(scale, prior) : prior);
-          const bool take = (a < cells) & !isnan(bv) & !(v <= bv);
-          bv = take ? v : bv;
-          bi = take ? it * nyx + cell_r[a] : bi;
+          for (int a = 0; a < kCells; ++a) sv[a] = row[cell_r[a]];
+#pragma unroll
+          for (int a = 0; a < kCells; ++a) {
+            const float prior = __fmul_rn(__fsub_rn(pt, q[a]), k.weight);
+            const float v =
+                __fadd_rn(sv[a], coarse ? __fmul_rn(scale, prior) : prior);
+            const bool take = (a < gcells) & !isnan(gv) & !(v <= gv);
+            gv = take ? v : gv;
+            gi = take ? it * nyx + cell_r[a] : gi;
+          }
+        }
+        if (!kGroups || before(gv, gi, bv, bi)) {
+          bv = gv;
+          bi = gi;
         }
       }
       if (bi < 0) bi = h * nyx + r0;
@@ -677,7 +733,19 @@ struct Surface {
   float ox, oy;              // the map origin
   float inv_res, inv_dt;     // 1 / resolution and 1 / dtheta, in float
   float step_xy, step_t;     // the hill-climb's moves: resolution, dtheta
+  int temper;                // the score's temperature: 0 none, 1 `temp`,
+  float temp;                // 2 rsqrt of the used beams (n_used)
 };
+
+// models/shared.surface_temper on a score as F4 writes it: times the fixed
+// temperature, or times rsqrt(n_used) as torch.rsqrt computes it on the
+// card (the CUDA math library's rsqrtf), n_used F6's used-beam count.
+__device__ __forceinline__ float temper(float score, const Surface& s,
+                                        const float* n_used) {
+  if (s.temper == 1) return __fmul_rn(score, s.temp);
+  if (s.temper == 2) return __fmul_rn(score, rsqrtf(*n_used));
+  return score;
+}
 
 // torch.remainder(a, b) of floats on the card: fmod (exact), then b added
 // where the remainder's sign is not b's.
@@ -758,8 +826,9 @@ __device__ float surface_sample(const float* __restrict__ vol, float x,
 __global__ void __launch_bounds__(kThreads) fusion_sample_kernel(
     const float* __restrict__ vol, const float* __restrict__ poses,
     const float* __restrict__ theta0, const long long* __restrict__ iy0,
-    const long long* __restrict__ ix0, float* __restrict__ poses_out,
-    float* __restrict__ scores_out, int n, int steps, Surface s) {
+    const long long* __restrict__ ix0, const float* __restrict__ n_used,
+    float* __restrict__ poses_out, float* __restrict__ scores_out, int n,
+    int steps, Surface s) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float t0 = *theta0;
@@ -767,7 +836,7 @@ __global__ void __launch_bounds__(kThreads) fusion_sample_kernel(
   float x = poses[3 * i], y = poses[3 * i + 1], th = poses[3 * i + 2];
   float score = surface_sample(vol, x, y, th, t0, fy0, fx0, s);
   if (steps == 0) {
-    scores_out[i] = score;
+    scores_out[i] = temper(score, s, n_used);
     return;
   }
   for (int step = 0; step < steps; ++step) {
@@ -800,7 +869,7 @@ __global__ void __launch_bounds__(kThreads) fusion_sample_kernel(
   poses_out[3 * i] = x;
   poses_out[3 * i + 1] = y;
   poses_out[3 * i + 2] = th;
-  scores_out[i] = score;
+  scores_out[i] = temper(score, s, n_used);
 }
 
 // ------------------------------------------------------------------- F5
@@ -864,6 +933,20 @@ __device__ __forceinline__ int py_mod(int a, int n) {
   return (r != 0 && ((r < 0) != (n < 0))) ? r + n : r;
 }
 
+// F6's outputs of the (deskewed) scan beside the deskew and the tables
+// (each null where not asked for): the endpoints px = dist cos(angle),
+// py = dist sin(angle) (ops/geometry.scan_points), the used beams use =
+// valid & hit and wgt, their float32; every stride-th beam of px, py and use
+// (B_c = ceil(B / stride) a scan); n_used = max(sum(wgt), 1); and, with
+// the odometry, the map update's gate keep = |d_theta| <= keep_below as a
+// float32 (0 where freeze).
+struct ScanOut {
+  float *px, *py, *wgt, *px_c, *py_c, *n_used, *keep;
+  bool *use, *use_c;
+  int stride, B_c, freeze;
+  float keep_below;
+};
+
 // F6.  angle, dist (G, B) float32, hit, valid (G, B) bool; d_center,
 // d_theta (G,) or null.  With odometry: ops/geometry.deskew_scan into
 // out_angle, out_dist.  With n_bins > 0: ops/cuda/grid_update.
@@ -871,23 +954,29 @@ __device__ __forceinline__ int py_mod(int a, int n) {
 // (G, n_bins): the valid beams' wrapped angles (+inf for the others)
 // argsorted, each bin center's searchsorted position (side left), the
 // nearer of the two beams around it (left on a tie) and that beam's data.
+// Then, kPoints, the outputs of `o` asked for (ScanOut), from the same
+// beams: the used-beam count is an integer sum (exact, as the float sum of
+// 0 and 1 it replaces); without them (the tables or the deskew alone) the
+// kernel is the one it was before them.
+template <bool kPoints>
 __global__ void __launch_bounds__(kScanThreads) fusion_scan_kernel(
     const float* __restrict__ angle, const float* __restrict__ dist,
     const bool* __restrict__ hit, const bool* __restrict__ valid,
     const float* __restrict__ d_center, const float* __restrict__ d_theta,
     float* __restrict__ out_angle, float* __restrict__ out_dist,
     float* __restrict__ t_dist, float* __restrict__ t_alpha,
-    float* __restrict__ t_code, int B, int n_bins, float bin_step) {
+    float* __restrict__ t_code, int B, int n_bins, float bin_step,
+    ScanOut o) {
   extern __shared__ float sm[];
   float* a_use = sm;              // the (deskewed) angles
   float* d_use = a_use + B;       // and distances
   float* key = d_use + B;         // the sort's keys
   float* sorted = key + B;
   int* order = reinterpret_cast<int*>(sorted + B);
-  __shared__ int count;
+  __shared__ int count, used;
   const int g = blockIdx.x;
   const size_t row = static_cast<size_t>(g) * B;
-  if (threadIdx.x == 0) count = 0;
+  if (threadIdx.x == 0) count = used = 0;
   __syncthreads();
   int mine = 0;
   for (int i = threadIdx.x; i < B; i += blockDim.x) mine += valid[row + i];
@@ -895,6 +984,7 @@ __global__ void __launch_bounds__(kScanThreads) fusion_scan_kernel(
   __syncthreads();
   const int n_valid = max(count, 1);
   const float nf = static_cast<float>(n_valid);
+  int mine_used = 0;
   for (int i = threadIdx.x; i < B; i += blockDim.x) {
     float a = angle[row + i], d = dist[row + i];
     if (d_center != nullptr) {
@@ -911,9 +1001,32 @@ __global__ void __launch_bounds__(kScanThreads) fusion_scan_kernel(
     a_use[i] = a;
     d_use[i] = d;
     key[i] = valid[row + i] ? wrap(a) : INFINITY;
+    if (kPoints) {
+      const bool u = valid[row + i] & hit[row + i];
+      const float ex = __fmul_rn(d, cosf(a)), ey = __fmul_rn(d, sinf(a));
+      o.px[row + i] = ex;
+      o.py[row + i] = ey;
+      o.use[row + i] = u;
+      o.wgt[row + i] = u ? 1.0f : 0.0f;
+      if (o.px_c != nullptr && i % o.stride == 0) {
+        const size_t c = static_cast<size_t>(g) * o.B_c + i / o.stride;
+        o.px_c[c] = ex;
+        o.py_c[c] = ey;
+        o.use_c[c] = u;
+      }
+      mine_used += u;
+    }
+  }
+  if (kPoints) {
+    if (o.keep != nullptr && threadIdx.x == 0)
+      o.keep[g] = (fabsf(d_theta[g]) <= o.keep_below && !o.freeze) ? 1.0f
+                                                                   : 0.0f;
+    atomicAdd(&used, mine_used);
+    __syncthreads();
+    if (threadIdx.x == 0) o.n_used[g] = fmaxf(static_cast<float>(used), 1.0f);
   }
   if (n_bins <= 0) return;
-  __syncthreads();
+  if (!kPoints) __syncthreads();
   for (int i = threadIdx.x; i < B; i += blockDim.x) {
     const float v = key[i];
     int rank = 0;
@@ -1132,6 +1245,55 @@ __device__ void rows_totals4(const float* part, int nb, float* s,
   for (int c = 0; c < 4; ++c) out[c] = v[c][0];
 }
 
+// A window F7's epilogue places (ops/cuda/fusions.WindowSpec): mode 1,
+// the surface volume's, around the odometry-propagated weighted mean
+// (apply_odometry by (dc, dt)): the center (3,), the crop's corner, the
+// extended window's (hce x wce, the crop plus the blur radius r, clamped
+// to the map) and the crop's offset in it, into cells (6,) int64, and
+// theta0 with the nt bins theta0 + t dtheta into thetas (1 + nt,); mode 2,
+// the map update's, the crop's corner around the integration pose into
+// cells (2,).  ops/surface.crop_center_cells' float order: (x - origin) /
+// resolution as a product by the float reciprocal, rounded half to even.
+struct Window {
+  int mode;                         // 0 none, 1 the volume's, 2 the map's
+  int hc, wc, h, w, r, hce, wce, nt;
+  float ox, oy, inv_res, t_off, dtheta;
+  const float *dc, *dt;             // the odometry (mode 1)
+  float *center, *thetas;
+  long long* cells;
+};
+
+// ops/surface.crop_center_cells: the (iy0, ix0) of an hc x wc crop of an
+// h x w map centered at (x, y), clamped inside.
+__device__ __forceinline__ void crop_corner(float x, float y, int hc, int wc,
+                                            const Window& k, long long* out) {
+  const float cx = __fmul_rn(__fsub_rn(x, k.ox), k.inv_res);
+  const float cy = __fmul_rn(__fsub_rn(y, k.oy), k.inv_res);
+  out[0] = clamp_ll(static_cast<long long>(rintf(cy)) - hc / 2, 0, k.h - hc);
+  out[1] = clamp_ll(static_cast<long long>(rintf(cx)) - wc / 2, 0, k.w - wc);
+}
+
+// The window of mode 1 from the weighted mean pose (x, y, t), one thread.
+__device__ void volume_window(const Window& k, float x, float y, float t) {
+  const float dc = *k.dc, th = wrap(__fadd_rn(t, *k.dt));
+  const float cx = __fadd_rn(x, __fmul_rn(cosf(th), dc));
+  const float cy = __fadd_rn(y, __fmul_rn(sinf(th), dc));
+  k.center[0] = cx;
+  k.center[1] = cy;
+  k.center[2] = th;
+  long long* c = k.cells;
+  crop_corner(cx, cy, k.hc, k.wc, k, c);
+  c[2] = clamp_ll(c[0] - k.r, 0, k.h - k.hce);
+  c[3] = clamp_ll(c[1] - k.r, 0, k.w - k.wce);
+  c[4] = c[0] - c[2];
+  c[5] = c[1] - c[3];
+  const float theta0 = __fadd_rn(th, k.t_off);
+  k.thetas[0] = theta0;
+  for (int i = 0; i < k.nt; ++i)
+    k.thetas[1 + i] =
+        __fadd_rn(theta0, __fmul_rn(static_cast<float>(i), k.dtheta));
+}
+
 struct WeightsOut {
   const float* poses;               // (R, P, 3)
   const float* recov;               // (2,) or null: the recovery EMAs
@@ -1142,6 +1304,7 @@ struct WeightsOut {
   bool* gate;                       // (R,), or null: no epilogue
   float thr_integ, thr_gate;        // 0.95 P and P resample_fraction
   float a_slow, a_fast, thr_inject, hi_inject;   // the recovery's floats
+  Window win;                       // R = 1 only
 };
 
 // A thread's segment of kSeg log-weights x[base ..] (k < P; +0.0 past P),
@@ -1209,11 +1372,15 @@ __device__ void weights_outputs(const WeightsOut& o, int r, const float* ps,
     o.best[3 * r + c] = bp[c];
     o.weighted[3 * r + c] = sums[1 + c];
   }
+  if (o.win.mode == 1) volume_window(o.win, sums[1], sums[2], sums[3]);
   if (o.gate == nullptr) return;
   bool gate = neff < o.thr_gate;
   if (o.integ != nullptr) {
     const bool mean = neff >= o.thr_integ;
     for (int c = 0; c < 3; ++c) o.integ[c] = mean ? sums[1 + c] : bp[c];
+    if (o.win.mode == 2)
+      crop_corner(mean ? sums[1] : bp[0], mean ? sums[2] : bp[1], o.win.hc,
+                  o.win.wc, o.win, o.win.cells);
   }
   if (o.recov != nullptr) {
     const float r0 = o.recov[0], r1 = o.recov[1];
@@ -1455,11 +1622,12 @@ __global__ void __launch_bounds__(kSearchThreads) fusion_walk_search_kernel(
   if (lw_out != nullptr) lw_out[j] = lw[i];
 }
 
-// weight_exp elementwise, for the exp probe (no path calls it).
+// weight_exp elementwise, for the exp probe, and F4's rsqrtf, for the
+// rsqrt probe (no path calls them).
 __global__ void __launch_bounds__(kThreads) fusion_exp_kernel(
-    const float* __restrict__ x, float* __restrict__ out, int n) {
+    const float* __restrict__ x, float* __restrict__ out, int n, int rsqrt) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = weight_exp(x[i]);
+  if (i < n) out[i] = rsqrt ? rsqrtf(x[i]) : weight_exp(x[i]);
 }
 
 }  // namespace
@@ -1533,8 +1701,7 @@ extern "C" int gs_fusion_pick(
     return cudaErrorInvalidValue;
   const int team = lanes * per_slab;
   if (lanes <= 0 || (lanes & (lanes - 1)) || per_slab <= 0 ||
-      team != std::max(lanes, kWarp) || kPickThreads % team ||
-      (ny * nx + lanes - 1) / lanes > kPickCells)
+      team != std::max(lanes, kWarp) || kPickThreads % team)
     return cudaErrorInvalidValue;
   const int rows = use != nullptr ? G_b : 0;
   const size_t smem =
@@ -1544,19 +1711,22 @@ extern "C" int gs_fusion_pick(
       sizeof(float);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   // the instantiation: staged or not, and registers for the most (dy, dx)
-  // cells a lane holds (one where the lanes outnumber the cells)
+  // cells a lane holds (one where the lanes outnumber the cells); past
+  // kPickCells a lane walks its cells in groups of kPickCells
   const int nyx = ny * nx;
   const int cells = lanes >= nyx ? 1 : (nyx + lanes - 1) / lanes;
-  using Kernel = decltype(&fusion_pick_kernel<true, 1>);
-  Kernel kernels[2][5] = {
-      {fusion_pick_kernel<false, 1>, fusion_pick_kernel<false, 2>,
-       fusion_pick_kernel<false, 3>, fusion_pick_kernel<false, 4>,
-       fusion_pick_kernel<false, kPickCells>},
-      {fusion_pick_kernel<true, 1>, fusion_pick_kernel<true, 2>,
-       fusion_pick_kernel<true, 3>, fusion_pick_kernel<true, 4>,
-       fusion_pick_kernel<true, kPickCells>}};
-  const Kernel kernel =
-      kernels[staged != 0][cells <= 4 ? cells - 1 : 4];
+  using Kernel = decltype(&fusion_pick_kernel<true, 1, false>);
+  Kernel kernels[2][6] = {
+      {fusion_pick_kernel<false, 1, false>, fusion_pick_kernel<false, 2, false>,
+       fusion_pick_kernel<false, 3, false>, fusion_pick_kernel<false, 4, false>,
+       fusion_pick_kernel<false, kPickCells, false>,
+       fusion_pick_kernel<false, kPickCells, true>},
+      {fusion_pick_kernel<true, 1, false>, fusion_pick_kernel<true, 2, false>,
+       fusion_pick_kernel<true, 3, false>, fusion_pick_kernel<true, 4, false>,
+       fusion_pick_kernel<true, kPickCells, false>,
+       fusion_pick_kernel<true, kPickCells, true>}};
+  const Kernel kernel = kernels[staged != 0][
+      cells <= 4 ? cells - 1 : (cells <= kPickCells ? 4 : 5)];
   // all of an SM's shared memory for the blocks (not L1), and no more
   // blocks than are resident at once: a block works its slabs in turn, so
   // a block not resident would start only once others had finished theirs
@@ -1590,25 +1760,28 @@ extern "C" int gs_fusion_pick(
 
 // F4: vol (nt, hc, wc) with strides st, sy (cells contiguous in a row);
 // poses (n, 3); theta0 (float), iy0, ix0 (int64) one each on the card;
-// poses_out (n, 3) (steps > 0, else null), scores_out (n,); the crop's
-// shape, wrap_theta, the climb's steps (0: the sample alone), origin,
-// 1 / resolution and 1 / dtheta in float, the moves (resolution, dtheta);
-// stream.
+// n_used (one float on the card; with temper 2, else null); poses_out
+// (n, 3) (steps > 0, else null), scores_out (n,); the crop's shape,
+// wrap_theta, the climb's steps (0: the sample alone), origin, 1 /
+// resolution and 1 / dtheta in float, the moves (resolution, dtheta), the
+// temperature (0 none, 1 times temp, 2 times rsqrt(n_used)); stream.
 extern "C" int gs_fusion_sample(
     const float* vol, const float* poses, const float* theta0,
-    const long long* iy0, const long long* ix0, float* poses_out,
-    float* scores_out, int n, int nt, int hc, int wc, long long st,
-    long long sy, int wrap_theta, int steps, float ox, float oy,
-    float inv_res, float inv_dt, float step_xy, float step_t, void* stream) {
+    const long long* iy0, const long long* ix0, const float* n_used,
+    float* poses_out, float* scores_out, int n, int nt, int hc, int wc,
+    long long st, long long sy, int wrap_theta, int steps, float ox,
+    float oy, float inv_res, float inv_dt, float step_xy, float step_t,
+    int temper, float temp, void* stream) {
   if (n == 0) return cudaSuccess;
   if (n < 0 || nt <= 0 || hc <= 0 || wc <= 0 || steps < 0 ||
-      (poses_out == nullptr) != (steps == 0))
+      (poses_out == nullptr) != (steps == 0) || temper < 0 || temper > 2 ||
+      (temper == 2) != (n_used != nullptr))
     return cudaErrorInvalidValue;
   fusion_sample_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      vol, poses, theta0, iy0, ix0, poses_out, scores_out, n, steps,
+      vol, poses, theta0, iy0, ix0, n_used, poses_out, scores_out, n, steps,
       Surface{nt, hc, wc, wrap_theta != 0, st, sy, ox, oy, inv_res, inv_dt,
-              step_xy, step_t});
+              step_xy, step_t, temper, temp});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1633,31 +1806,50 @@ extern "C" int gs_fusion_splat(const float* px, const float* py,
 // F6: angle, dist (G, B) float32; hit, valid (G, B) bool; d_center,
 // d_theta (G,), or null for no deskew; out_angle, out_dist (G, B) (with
 // the odometry); t_dist, t_alpha, t_code (G, n_bins), or n_bins 0 for no
-// tables; bin_step = 2 pi / n_bins in float; stream.
+// tables; bin_step = 2 pi / n_bins in float; px, py, wgt (G, B) float32
+// and use (G, B) bool, or all null for no endpoints; px_c, py_c (G, B_c)
+// and use_c, B_c = ceil(B / stride), or null (stride 1: px itself);
+// n_used (G,) or null; keep (G,) (with the odometry) or null, keep_below
+// the gate's bound in float, freeze; stream.
 extern "C" int gs_fusion_scan(const float* angle, const float* dist,
                               const bool* hit, const bool* valid,
                               const float* d_center, const float* d_theta,
                               float* out_angle, float* out_dist, float* t_dist,
-                              float* t_alpha, float* t_code, int G, int B,
-                              int n_bins, float bin_step, void* stream) {
+                              float* t_alpha, float* t_code, float* px,
+                              float* py, bool* use, float* wgt, float* px_c,
+                              float* py_c, bool* use_c, float* n_used,
+                              float* keep, int G, int B, int n_bins,
+                              float bin_step, int stride, float keep_below,
+                              int freeze, void* stream) {
   if (G == 0) return cudaSuccess;
-  if (G < 0 || B <= 0 || n_bins < 0 ||
+  const bool points = px != nullptr;
+  if (G < 0 || B <= 0 || n_bins < 0 || stride <= 0 ||
       (d_center != nullptr) != (d_theta != nullptr) ||
       (d_center != nullptr && (out_angle == nullptr || out_dist == nullptr)) ||
       (n_bins > 0 && (t_dist == nullptr || t_alpha == nullptr ||
-                      t_code == nullptr)))
+                      t_code == nullptr)) ||
+      points != (py != nullptr && use != nullptr && wgt != nullptr) ||
+      (px_c != nullptr) != (py_c != nullptr && use_c != nullptr) ||
+      (points && n_used == nullptr) || (!points && (px_c != nullptr ||
+                                                    n_used != nullptr ||
+                                                    keep != nullptr)) ||
+      (keep != nullptr && d_theta == nullptr))
     return cudaErrorInvalidValue;
   const size_t smem = static_cast<size_t>(B) * 5 * sizeof(float);
+  const auto kernel =
+      points ? fusion_scan_kernel<true> : fusion_scan_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fusion_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  fusion_scan_kernel<<<G, kScanThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  const ScanOut o{px, py, wgt, px_c, py_c, n_used, keep, use, use_c,
+                  stride, (B + stride - 1) / stride, freeze != 0,
+                  keep_below};
+  kernel<<<G, kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       angle, dist, hit, valid, d_center, d_theta, out_angle, out_dist, t_dist,
-      t_alpha, t_code, B, n_bins, bin_step);
+      t_alpha, t_code, B, n_bins, bin_step, o);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1666,16 +1858,23 @@ extern "C" int gs_fusion_scan(const float* angle, const float* dist,
 // out_weighted (R, 3); out_gate (R,) bool or null (no epilogue), out_integ
 // (3,) or null, out_recov (2,) and out_pinj (1,) with recov (R = 1 for the
 // last three); scratch_f (6 R nb floats), scratch_i (R nb + 2 R ints), nb =
-// ceil(P / 1024); the epilogue's floats; stream; &launched (kernels: one
-// where nb = 1, else three).
+// ceil(P / 1024); the epilogue's floats; the window (R = 1): win_mode (0
+// none; 1 the volume's, without the epilogue, with the odometry d_center,
+// d_theta one float each and out_center (3,), out_thetas (1 + nt,); 2 the
+// map update's, with the integration pose), win_ints (hc, wc, h, w, r, hce,
+// wce, nt) and win_floats (origin x, y, 1 / resolution in float, t_off,
+// dtheta) on the host, out_cells (6,) or (2,) int64; stream; &launched
+// (kernels: one where nb = 1, else three).
 extern "C" int gs_fusion_weights(
     const float* lw, const float* poses, const float* recov, const int* step,
     float* out_max, float* out_total, long long* out_index, float* out_best,
     float* out_neff, float* out_weighted, bool* out_gate, float* out_integ,
     float* out_recov, float* out_pinj, float* scratch_f, int* scratch_i,
     int R, int P, float thr_integ, float thr_gate, float a_slow,
-    float a_fast, float thr_inject, float hi_inject, void* stream,
-    int* launched) {
+    float a_fast, float thr_inject, float hi_inject, int win_mode,
+    const int* win_ints, const float* win_floats, const float* d_center,
+    const float* d_theta, float* out_center, float* out_thetas,
+    long long* out_cells, void* stream, int* launched) {
   *launched = 0;
   if (R <= 0 || P <= 0 || P > kRow * kRow || R > 65535)
     return cudaErrorInvalidValue;
@@ -1685,12 +1884,26 @@ extern "C" int gs_fusion_weights(
   if (recov != nullptr &&
       (step == nullptr || out_recov == nullptr || out_pinj == nullptr))
     return cudaErrorInvalidValue;
+  if (win_mode < 0 || win_mode > 2 ||
+      (win_mode != 0 && (R != 1 || out_cells == nullptr)) ||
+      (win_mode == 1 && (d_center == nullptr || d_theta == nullptr ||
+                         out_center == nullptr || out_thetas == nullptr)) ||
+      (win_mode == 2 && out_integ == nullptr))
+    return cudaErrorInvalidValue;
+  Window win{win_mode};
+  if (win_mode != 0) {
+    const int* i = win_ints;
+    const float* f = win_floats;
+    win = Window{win_mode, i[0], i[1], i[2], i[3], i[4], i[5], i[6], i[7],
+                 f[0], f[1], f[2], f[3], f[4], d_center, d_theta,
+                 out_center, out_thetas, out_cells};
+  }
   const int nb = (P + kRow - 1) / kRow;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const WeightsOut o{poses, recov, step, out_max, out_total, out_best,
                      out_neff, out_weighted, out_index, out_integ, out_recov,
                      out_pinj, out_gate, thr_integ, thr_gate, a_slow, a_fast,
-                     thr_inject, hi_inject};
+                     thr_inject, hi_inject, win};
   cudaError_t e;
   if (nb == 1) {
     fusion_weights_row_kernel<<<R, kRowThreads, 0, st>>>(lw, P, o);
@@ -1752,12 +1965,13 @@ extern "C" int gs_fusion_walk(const float* lw, const float* poses,
   return cudaSuccess;
 }
 
-// F7's exp (weight_exp) over x (n,) into out (n,): the exp probe; stream.
-extern "C" int gs_fusion_exp(const float* x, float* out, int n,
+// F7's exp (weight_exp), or with rsqrt F4's rsqrtf, over x (n,) into out
+// (n,): the exp and rsqrt probes; stream.
+extern "C" int gs_fusion_exp(const float* x, float* out, int n, int rsqrt,
                              void* stream) {
   if (n < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   fusion_exp_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(x, out, n);
+                      static_cast<cudaStream_t>(stream)>>>(x, out, n, rsqrt);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,6 +42,7 @@ from ..ops.matcher import correlative_match_batch
 from ..ops.motion import sample_and_propagate
 from ..types import Frame, Odom
 from . import captured
+from .rbpf import scan_prep
 
 
 @dataclasses.dataclass
@@ -157,13 +158,15 @@ class MultiRobotSLAM:
             state.logodds[None], self.taps, z_hit=cfg.matcher.z_hit,
             max_range=cfg.sensor.max_range)
         odom = frames.odom
-        scan, tables = fusions.prepare_scan(frames.scan, odom,  # (R, B)
-                                            cfg.beam_lut_bins)
+        # every robot's scan once a tick (F6 on the card, (R, B)): deskewed,
+        # its bin tables, endpoints, used and coarse beams, and each
+        # robot's map-update gate (its large-rotation skip)
+        prep = scan_prep(cfg, frames)
         per_robot = Odom(odom.d_center[:, None], odom.d_theta[:, None])
         pose_s, prior = sample_and_propagate(state.poses, per_robot,
                                              cfg.motion, normals)
         best, scores = correlative_match_batch(
-            llf, scan, pose_s.reshape(r * p, 3), odom,
+            llf, prep, pose_s.reshape(r * p, 3), odom,
             matcher_cfg=cfg.matcher, motion_cfg=cfg.motion, resolution=res,
             origin=origin, max_range=cfg.sensor.max_range,
             prior_center_b=prior.reshape(r * p, 3))
@@ -179,13 +182,12 @@ class MultiRobotSLAM:
 
         # per-robot map deltas at the strongest poses: K2 into zero maps,
         # one bin table a robot, then the large-rotation skip a robot
-        keep = (torch.abs(odom.d_theta)
-                <= math.radians(cfg.skip_update_dtheta_deg)).to(torch.float32)
+        keep = prep.keep
         deltas = integrate_scan_batch(
             torch.zeros((r,) + tuple(state.logodds.shape),
                         dtype=torch.float32, device=dev),
             best_poses, torch.ones((), device=dev),
-            *tables, resolution=res,
+            *prep.tables, resolution=res,
             origin=origin, l_free=cfg.sensor.l_free, l_occ=cfg.sensor.l_occ,
             tol_cells=cfg.sensor.hit_tolerance_cells)
         deltas = keep[:, None, None] * deltas

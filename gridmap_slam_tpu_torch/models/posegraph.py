@@ -37,7 +37,7 @@ from typing import Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..ops.cuda.fusions import bin_tables
+from ..ops.cuda.fusions import ScanPrep, bin_tables, prepare_scan
 from ..ops.cuda.grid_update import integrate_scan_batch
 from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.geometry import wrap_angle
@@ -261,16 +261,24 @@ def propose_closures(poses: np.ndarray, min_gap: int = 10,
         pairs=np.asarray(pairs, np.int32).reshape(-1, 2))
 
 
-def verify_closure(scan_i: Scan, scan_j: Scan, rel_guess, *, map_cfg,
+def closure_scans(scans: Scan, matcher_cfg, beam_lut_bins=2048):
+    """A batch of closure scans (C, B) prepared once (F6 on the card): the
+    bin tables of each as a local map's, its endpoints and used beams at
+    the matcher's coarse stride as a matched scan's."""
+    return prepare_scan(scans, None, beam_lut_bins,
+                        stride=max(int(matcher_cfg.coarse_beam_stride), 1))
+
+
+def verify_closure(scan_i, scan_j, rel_guess, *, map_cfg,
                    matcher_cfg, motion_cfg, sensor_cfg, taps,
                    beam_lut_bins=2048):
     """Score a batch of C candidate closures (i, j): for each, build a
     local grid from scan_i at the origin and correlatively match scan_j
     starting from the odometry-implied relative pose.  scan_i, scan_j:
-    (C, B) scans; rel_guess: (C, 3); taps: the blur kernel as a tensor.
-    Returns (refined_rel (C, 3), mean_beam_loglik (C,)), the measurement
-    log-likelihood at the best pose per used beam (the uniform level is
-    log(1/max_range))."""
+    (C, B) scans, or their closure_scans; rel_guess: (C, 3); taps: the
+    blur kernel as a tensor.  Returns (refined_rel (C, 3),
+    mean_beam_loglik (C,)), the measurement log-likelihood at the best
+    pose per used beam (the uniform level is log(1/max_range))."""
     c = rel_guess.shape[0]
     dev = rel_guess.device
     origin = (float(map_cfg.origin[0]), float(map_cfg.origin[1]))
@@ -278,11 +286,15 @@ def verify_closure(scan_i: Scan, scan_j: Scan, rel_guess, *, map_cfg,
     # cone_fill: a single scan's 1-cell-wide rays leave the local field
     # dominated by blurred unknown; carving the whole visibility polygon
     # makes free space free.
+    tables_i = (scan_i.tables if isinstance(scan_i, ScanPrep)
+                else bin_tables(scan_i, beam_lut_bins))
+    if not isinstance(scan_j, ScanPrep):
+        scan_j = closure_scans(scan_j, matcher_cfg, beam_lut_bins=0)
     zero = torch.zeros((c, map_cfg.cells_y, map_cfg.cells_x),
                        dtype=torch.float32, device=dev)
     local = integrate_scan_batch(
         zero, torch.zeros((c, 3), dtype=torch.float32, device=dev),
-        torch.ones((), device=dev), *bin_tables(scan_i, beam_lut_bins),
+        torch.ones((), device=dev), *tables_i,
         resolution=res, origin=origin, l_free=sensor_cfg.l_free,
         l_occ=sensor_cfg.l_occ, tol_cells=sensor_cfg.hit_tolerance_cells,
         cone_fill=True)
@@ -293,9 +305,7 @@ def verify_closure(scan_i: Scan, scan_j: Scan, rel_guess, *, map_cfg,
         llf, scan_j, rel_guess, Odom(d_center=zc, d_theta=zc),
         matcher_cfg=matcher_cfg, motion_cfg=motion_cfg, resolution=res,
         origin=origin, max_range=sensor_cfg.max_range)
-    n_used = torch.clamp((scan_j.valid & scan_j.hit).to(torch.float32)
-                         .sum(-1), min=1.0)
-    return rel, logscore / n_used
+    return rel, logscore / scan_j.n_used
 
 
 def _se2_inverse(rel):
@@ -319,8 +329,12 @@ def verify_closure_bidirectional(scan_i: Scan, scan_j: Scan, rel_guess, *,
                        shows up as a large disagreement."""
     kw = dict(map_cfg=map_cfg, matcher_cfg=matcher_cfg, motion_cfg=motion_cfg,
               sensor_cfg=sensor_cfg, taps=taps, beam_lut_bins=beam_lut_bins)
-    rel_f, s_f = verify_closure(scan_i, scan_j, rel_guess, **kw)
-    rel_r, s_r = verify_closure(scan_j, scan_i, _se2_inverse(rel_f), **kw)
+    # each scan prepared once, as a local map's tables one way and as the
+    # matched scan the other
+    prep_i, prep_j = (closure_scans(x, matcher_cfg, beam_lut_bins)
+                      for x in (scan_i, scan_j))
+    rel_f, s_f = verify_closure(prep_i, prep_j, rel_guess, **kw)
+    rel_r, s_r = verify_closure(prep_j, prep_i, _se2_inverse(rel_f), **kw)
     c, s = torch.cos(rel_f[:, 2]), torch.sin(rel_f[:, 2])
     dx = rel_f[:, 0] + c * rel_r[:, 0] - s * rel_r[:, 1]
     dy = rel_f[:, 1] + s * rel_r[:, 0] + c * rel_r[:, 1]

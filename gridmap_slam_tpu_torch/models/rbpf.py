@@ -41,8 +41,20 @@ from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.grid import gaussian_kernel, inv_log_odds
 from ..ops.matcher import IMPLS, correlative_match_batch, score_pose
 from ..ops.motion import sample_and_propagate
-from ..types import Frame, Odom, Scan, SlamState, StepInfo
+from ..types import Frame, Odom, SlamState, StepInfo
 from . import captured
+
+
+def scan_prep(cfg: SlamConfig, frame: Frame):
+    """A step's ScanPrep of its frame (F6 on the card): the scan deskewed
+    by the frame's odometry, its bin tables, endpoints, used beams and
+    every coarse_beam_stride-th of them, and the map update's gate keep =
+    |d_theta| <= skip_update_dtheta_deg (0 with freeze_map)."""
+    return fusions.prepare_scan(
+        frame.scan, frame.odom, cfg.beam_lut_bins,
+        stride=max(int(cfg.matcher.coarse_beam_stride), 1),
+        keep_below=math.radians(cfg.skip_update_dtheta_deg),
+        freeze=cfg.freeze_map)
 
 
 class RBPF:
@@ -97,9 +109,12 @@ class RBPF:
         return state
 
     # ------------------------------------------------------------------- step
-    def _match_chunk(self, poses, logodds, normals, scan: Scan, odom: Odom):
-        """Motion sample, field build and match for a block of particles.
-        Returns (poses, measurement scores)."""
+    def _match_chunk(self, poses, logodds, normals, scan, odom: Odom,
+                     out=None):
+        """Motion sample, field build and match for a block of particles,
+        `scan` the step's ScanPrep.  Returns (poses, measurement scores),
+        written into `out` = (poses, scores) where given (the chunk's rows
+        of the step's)."""
         cfg = self.config
         mcfg = cfg.map
         origin = (float(mcfg.origin[0]), float(mcfg.origin[1]))
@@ -113,10 +128,14 @@ class RBPF:
             return correlative_match_batch(
                 llf, scan, pose_s, odom, matcher_cfg=cfg.matcher,
                 motion_cfg=cfg.motion, resolution=res, origin=origin,
-                max_range=cfg.sensor.max_range, prior_center_b=pose_det)
-        return pose_s, score_pose(
-            llf, scan, pose_s, z_hit=cfg.matcher.z_hit, resolution=res,
-            origin=origin, max_range=cfg.sensor.max_range)
+                max_range=cfg.sensor.max_range, prior_center_b=pose_det,
+                out=out)
+        score = score_pose(llf, scan, pose_s, z_hit=cfg.matcher.z_hit,
+                           resolution=res, origin=origin,
+                           max_range=cfg.sensor.max_range)
+        if out is None:
+            return pose_s, score
+        return out[0].copy_(pose_s), out[1].copy_(score)
 
     def _draws(self, generator: Optional[torch.Generator], out=None):
         """One scan's draws from `generator`: (normals (P, 2), u0), into the
@@ -146,38 +165,37 @@ class RBPF:
         dev = self.device
         normals, u0 = self._draws(generator) if draws is None else draws
 
-        scan, tables = fusions.prepare_scan(frame.scan, frame.odom,
-                                            cfg.beam_lut_bins)
+        # The scan once a scan (F6 on the card): deskewed, its bin tables,
+        # endpoints, used and coarse beams, and the map update's gate, 0
+        # past the large-rotation skip (slam/SLAM.java:82) and always with
+        # freeze_map (localization only: the map never changes).
+        prep = scan_prep(cfg, frame)
         odom = frame.odom
-        # Large-rotation skip for map integration (slam/SLAM.java:82).
-        keep = (torch.abs(odom.d_theta)
-                <= math.radians(cfg.skip_update_dtheta_deg)).to(torch.float32)
-        if cfg.freeze_map:          # localization-only: map never changes
-            keep = keep * 0.0
 
         # lax.map over the chunks, as XLA compiles it on the donated state:
         # K2 writes each chunk's new maps into its rows of one (P, H, W)
-        # tensor, with no concatenation of maps after.  The tensor is made
-        # once the first chunk is matched, so the matcher's first field
-        # and workspace are gone by then.
+        # tensor, with no concatenation of maps after, and F3 each chunk's
+        # best poses and scores into its rows of the step's.  The maps'
+        # tensor is made once the first chunk is matched, so the matcher's
+        # first field and workspace are gone by then.
         chunk = cfg.particle_chunk if 0 < cfg.particle_chunk < p else p
         mc = cfg.map
         k2 = dict(resolution=float(mc.resolution),
                   origin=(float(mc.origin[0]), float(mc.origin[1])),
                   l_free=cfg.sensor.l_free, l_occ=cfg.sensor.l_occ,
                   tol_cells=cfg.sensor.hit_tolerance_cells)
-        maps, parts = None, []
+        poses = torch.empty((p, 3), dtype=torch.float32, device=dev)
+        scores = torch.empty((p,), dtype=torch.float32, device=dev)
+        maps = None
         for s in range(0, p, chunk):
             lo = state.logodds[s:s + chunk]
-            best, score = self._match_chunk(state.poses[s:s + chunk], lo,
-                                            normals[s:s + chunk], scan, odom)
+            best, _ = self._match_chunk(
+                state.poses[s:s + chunk], lo, normals[s:s + chunk], prep,
+                odom, out=(poses[s:s + chunk], scores[s:s + chunk]))
             if maps is None:
                 maps = torch.empty_like(state.logodds)
-            integrate_scan_batch(lo, best, keep, *tables,
+            integrate_scan_batch(lo, best, prep.keep, *prep.tables,
                                  out=maps[s:s + chunk], **k2)
-            parts.append((best, score))
-        poses, scores = (x[0] if len(x) == 1 else torch.cat(x)
-                         for x in zip(*parts))
 
         # Per-scan importance weights: the reference overwrites weights with
         # p(z|x,m) each update (slam/SLAM.java:99); with accumulate_weights

@@ -62,15 +62,14 @@ from typing import Iterable, List, Optional, Tuple
 import torch
 
 from ..config import SlamConfig
-from ..ops.cuda.fusions import (endpoint_factors, prepare_scan,
-                                 score_on_volume, walk, weights)
+from ..ops.cuda.fusions import (ScanPrep, WindowSpec, endpoint_factors,
+                                 prepare_scan, score_on_volume, temper,
+                                 volume_window, walk, weights)
 from ..ops.cuda.grid_update import integrate_scan_batch, integrate_scan_window
 from ..ops.cuda.likelihood import log_likelihood_field_batch
-from ..ops.geometry import scan_points
 from ..ops.grid import gaussian_kernel
 from ..ops.matcher import correlative_match_batch, score_pose
-from ..ops.motion import (apply_odometry, sample_and_propagate,
-                          sample_motion)
+from ..ops.motion import sample_and_propagate, sample_motion
 # integration_pose is the JAX module's (models/shared.py) and is kept
 # under its name here; it lives in ops/resample beside F7's plain version
 from ..ops.resample import integration_pose, recovery_ema  # noqa: F401
@@ -78,6 +77,7 @@ from ..ops.surface import (crop_center_cells, endpoint_images, scan_surface,
                            theta_grid)
 from ..types import Frame, Scan, StepInfo
 from . import captured
+from .rbpf import scan_prep
 
 
 def matcher_workspace_bytes(cfg: SlamConfig) -> int:
@@ -137,70 +137,86 @@ def _window(x, y0, x0, hh: int, ww: int):
     return x[rows[:, None], cols[None, :]]
 
 
-def surface_volume(cfg: SlamConfig, taps, logodds, scan: Scan, center):
+def volume_window_spec(cfg: SlamConfig) -> WindowSpec:
+    """The surface volume's window (F7's center call places it): the crop
+    around the odometry-propagated cloud mean, the window of the crop plus
+    the blur radius the field is built over (the whole map where that does
+    not fit in it), and the theta bins of ops/surface.theta_grid."""
+    mc = cfg.matcher
+    h, w = cfg.map.cells_y, cfg.map.cells_x
+    crop = mc.surface_crop_cells          # 0: the whole map
+    hc, wc = (min(crop, h), min(crop, w)) if crop > 0 else (h, w)
+    r = cfg.map.likelihood_radius
+    ext = (hc + 2 * r, wc + 2 * r)
+    if ext[0] > h or ext[1] > w:
+        ext = (h, w)
+    dtheta, _, t_off = theta_grid(mc.surface_nt,
+                                  math.radians(mc.surface_theta_span_deg))
+    return WindowSpec(crop=(hc, wc), full=(h, w),
+                      resolution=float(cfg.map.resolution),
+                      origin=(float(cfg.map.origin[0]),
+                              float(cfg.map.origin[1])),
+                      volume=True, radius=r, ext=ext, nt=mc.surface_nt,
+                      t_off=t_off, dtheta=dtheta)
+
+
+def surface_volume(cfg: SlamConfig, taps, logodds, scan, center=None,
+                   window=None):
     """One scan's likelihood volume around `center` (the odometry-propagated
-    cloud mean) and the keyword arguments of score_on_volume (F4).
+    cloud mean) and the keyword arguments of score_on_volume (F4), the
+    temperature's among them.  `scan`: the step's ScanPrep (or a Scan,
+    prepared here); `window`: the volume's ops/cuda/fusions.Window, which
+    F7's center call places (else placed here around `center` in tensor
+    ops).
 
     The likelihood field (K3, batch 1) is built only over the crop plus the
     blur radius, which reproduces the full-map build exactly on the crop;
     when that extended window does not fit the map, over the whole map.
     Returns (c_vol, tap_kw, kc)."""
     mc = cfg.matcher
-    origin = (float(cfg.map.origin[0]), float(cfg.map.origin[1]))
-    res = float(cfg.map.resolution)
-    h, w = cfg.map.cells_y, cfg.map.cells_x
-    if mc.surface_crop_cells > 0:
-        hc = min(mc.surface_crop_cells, h)
-        wc = min(mc.surface_crop_cells, w)
-    else:
-        hc, wc = h, w
-    iy0, ix0 = crop_center_cells(center[:2], (hc, wc), (h, w), res, origin)
-
-    r = cfg.map.likelihood_radius
-    hce, wce = hc + 2 * r, wc + 2 * r
+    spec = volume_window_spec(cfg)
+    prep = scan if isinstance(scan, ScanPrep) else prepare_scan(scan)
+    win = window if window is not None else volume_window(center, spec)
+    res = spec.resolution
+    (h, w), (hc, wc), (hce, wce) = spec.full, spec.crop, spec.ext
     llf_kw = dict(z_hit=mc.z_hit, max_range=cfg.sensor.max_range)
-    if hce <= h and wce <= w:
-        ey0 = torch.clamp(iy0 - r, 0, h - hce)
-        ex0 = torch.clamp(ix0 - r, 0, w - wce)
-        lo_ext = _window(logodds, ey0, ex0, hce, wce)
+    if hc + 2 * spec.radius <= h and wc + 2 * spec.radius <= w:
+        lo_ext = _window(logodds, win.ey0, win.ex0, hce, wce)
         llf_ext = log_likelihood_field_batch(lo_ext[None], taps, **llf_kw)[0]
-        llf_crop = _window(llf_ext, iy0 - ey0, ix0 - ex0, hc, wc)
+        llf_crop = _window(llf_ext, win.oy, win.ox, hc, wc)
     else:
         llf = log_likelihood_field_batch(logodds[None], taps, **llf_kw)[0]
-        llf_crop = _window(llf, iy0, ix0, hc, wc)
+        llf_crop = _window(llf, win.iy0, win.ix0, hc, wc)
 
     nt = mc.surface_nt
-    dtheta, wrap_theta, t_off = theta_grid(
+    dtheta, wrap_theta, _ = theta_grid(
         nt, math.radians(mc.surface_theta_span_deg))
-    theta0 = center[2] + t_off
-    thetas = theta0 + dtheta * torch.arange(nt, dtype=torch.float32,
-                                            device=logodds.device)
-    px, py = scan_points(scan)
-    wgt = (scan.valid & scan.hit).to(llf_crop.dtype)
     # The kernel radius covers every hit endpoint (<= max_range), so the
     # splat's rim clamp never engages.
     kc = int(math.ceil(cfg.sensor.max_range / res)) + 2
-    e_stack = endpoint_images(*endpoint_factors(px, py, wgt, thetas, kc, res))
+    e_stack = endpoint_images(*endpoint_factors(prep.px, prep.py, prep.wgt,
+                                                win.thetas, kc, res))
     use_fft = (mc.surface_corr == "fft"
                or (mc.surface_corr == "auto"
                    and nt * (2 * kc + 1) ** 2 * hc * wc > 2e10))
     c_vol = scan_surface(llf_crop, e_stack,
                          math.log(1.0 / cfg.sensor.max_range),
                          bf16=mc.surface_bf16, fft=use_fft)
-    tap_kw = dict(theta0=theta0, dtheta=dtheta, crop_iy0=iy0, crop_ix0=ix0,
-                  resolution=res, origin=origin, wrap_theta=wrap_theta)
+    tap_kw = dict(theta0=win.theta0, dtheta=dtheta, crop_iy0=win.iy0,
+                  crop_ix0=win.ix0, resolution=res, origin=spec.origin,
+                  wrap_theta=wrap_theta, temp=mc.surface_weight_temp,
+                  n_used=prep.n_used)
     return c_vol, tap_kw, kc
 
 
 def surface_temper(mc, scan: Scan, scores):
     """Surface-mode weight temperature (MatcherConfig.surface_weight_temp:
-    0 = auto 1/sqrt(n_valid_hit_beams), 1 = raw product)."""
-    if mc.surface_weight_temp == 1.0:
-        return scores
-    if mc.surface_weight_temp > 0.0:
-        return scores * mc.surface_weight_temp
-    n_b = torch.clamp((scan.valid & scan.hit).to(scores.dtype).sum(), min=1.0)
-    return scores * torch.rsqrt(n_b)
+    0 = auto 1/sqrt(n_valid_hit_beams), 1 = raw product), in tensor ops:
+    ops/cuda/fusions.temper with the scan's used beams.  The steps temper
+    inside F4 (score_on_volume's temp and n_used)."""
+    n_b = torch.clamp((scan.valid & scan.hit).to(scores.dtype).sum(),
+                      min=1.0)
+    return temper(scores, mc.surface_weight_temp, n_b)
 
 
 def reinject_rates(cfg: SlamConfig):
@@ -241,36 +257,37 @@ def inject_uniform(cfg: SlamConfig, u, poses, p_inject, slot_offset=0):
     return torch.where(take[:, None], uni, poses), take
 
 
-def match_particles(cfg: SlamConfig, llf, poses, normals, scan: Scan, odom,
+def match_particles(cfg: SlamConfig, llf, poses, normals, scan, odom,
                     chunk: int, **match_kw):
     """Motion-sample `poses` (k, 3) with `normals` (k, 2) and run the
-    matcher (K1) against the field(s) llf, in blocks of `chunk` particles.
+    matcher (K1) against the field(s) llf, in blocks of `chunk` particles,
+    each block's best poses and scores written into its rows of the
+    results (F3's last stage writes them).  `scan`: the step's ScanPrep.
     `match_kw` goes to correlative_match_batch (the distributed engines
     pass their tile scorer).  Returns (poses, measurement scores)."""
     origin = (float(cfg.map.origin[0]), float(cfg.map.origin[1]))
     kw = dict(resolution=float(cfg.map.resolution), origin=origin,
               max_range=cfg.sensor.max_range)
     k = poses.shape[0]
-    out_poses, scores = [], []
+    out_poses = torch.empty((k, 3), dtype=torch.float32, device=poses.device)
+    scores = torch.empty((k,), dtype=torch.float32, device=poses.device)
     for s in range(0, k, chunk):
         pose = poses[s:s + chunk]
+        rows = (out_poses[s:s + chunk], scores[s:s + chunk])
         if cfg.matcher.enabled:
             pose_s, pose_det = sample_and_propagate(
                 pose, odom, cfg.motion, normals[s:s + chunk])
-            best, score = correlative_match_batch(
+            correlative_match_batch(
                 llf, scan, pose_s, odom, matcher_cfg=cfg.matcher,
                 motion_cfg=cfg.motion, prior_center_b=pose_det, **kw,
-                **match_kw)
+                out=rows, **match_kw)
         else:
             pose_s = sample_motion(pose, odom, cfg.motion,
                                    normals[s:s + chunk])
-            best, score = pose_s, score_pose(
-                llf, scan, pose_s, z_hit=cfg.matcher.z_hit, **kw)
-        out_poses.append(best)
-        scores.append(score)
-    if len(out_poses) == 1:
-        return out_poses[0], scores[0]
-    return torch.cat(out_poses), torch.cat(scores)
+            rows[0].copy_(pose_s)
+            rows[1].copy_(score_pose(llf, scan, pose_s,
+                                     z_hit=cfg.matcher.z_hit, **kw))
+    return out_poses, scores
 
 
 class SharedMapSLAM:
@@ -357,18 +374,12 @@ class SharedMapSLAM:
                if self.injects else None)
         return normals, u0, inj
 
-    def _scan_inputs(self, frame: Frame):
-        """The deskewed scan, its bin tables and the map-update multiplier
-        (0 past the large-rotation skip, slam/SLAM.java:82, and always 0
-        with freeze_map)."""
-        cfg = self.config
-        scan, tables = prepare_scan(frame.scan, frame.odom,
-                                    cfg.beam_lut_bins)
-        keep = (torch.abs(frame.odom.d_theta)
-                <= math.radians(cfg.skip_update_dtheta_deg)).to(torch.float32)
-        if cfg.freeze_map:          # localization-only: map never changes
-            keep = keep * 0.0
-        return scan, tables, keep
+    def _scan_inputs(self, frame: Frame) -> ScanPrep:
+        """The step's ScanPrep (F6 on the card): the deskewed scan, its bin
+        tables, endpoints, used beams and their count, and the map-update
+        multiplier keep (0 past the large-rotation skip, slam/SLAM.java:82,
+        and always 0 with freeze_map)."""
+        return scan_prep(self.config, frame)
 
     def step(self, state: SharedMapState, frame: Frame,
              generator: Optional[torch.Generator] = None,
@@ -397,16 +408,16 @@ class SharedMapSLAM:
             raise ValueError(f"num_particles {p} must be divisible by the "
                              f"block {chunk}")
         normals, u0, inj = self._draws(generator, draws)
-        scan, tables, keep = self._scan_inputs(frame)
+        prep = self._scan_inputs(frame)
         # the LL field, built once for the shared map (K3 at batch 1)
         llf = log_likelihood_field_batch(
             state.logodds[None], self.taps, z_hit=cfg.matcher.z_hit,
             max_range=cfg.sensor.max_range)
         poses, scores = match_particles(cfg, llf, state.poses, normals,
-                                        scan, frame.odom, chunk)
-        return self._finish(state, poses, scores, tables, keep, u0, inj,
-                            crop=0, resample_fraction=cfg.resample_fraction,
-                            out=out)
+                                        prep, frame.odom, chunk)
+        return self._finish(state, poses, scores, prep.tables, prep.keep,
+                            u0, inj, crop=0,
+                            resample_fraction=cfg.resample_fraction, out=out)
 
     def step_surface(self, state: SharedMapState, frame: Frame,
                      generator: Optional[torch.Generator] = None,
@@ -423,22 +434,24 @@ class SharedMapSLAM:
         cfg = self.config
         mc = cfg.matcher
         normals, u0, inj = self._draws(generator, draws)
-        scan, tables, keep = self._scan_inputs(frame)
+        prep = self._scan_inputs(frame)
         odom = frame.odom
 
         # Volume center: the previous cloud's weighted mean propagated by
-        # this frame's odometry, so the theta span follows a turn.
-        center = apply_odometry(
-            weights(state.log_weights, state.poses).weighted, odom)
-        c_vol, kw, kc = surface_volume(cfg, self.taps, state.logodds, scan,
-                                       center)
+        # this frame's odometry, so the theta span follows a turn; F7's
+        # center call places the volume's crop, the field's window and the
+        # theta bins around it.
+        win = weights(state.log_weights, state.poses,
+                      window=volume_window_spec(cfg), odom=odom).volume
+        c_vol, kw, kc = surface_volume(cfg, self.taps, state.logodds, prep,
+                                       window=win)
         pose_s = sample_motion(state.poses, odom, cfg.motion, normals)
+        # the sample, the climb and the weights' temperature (F4)
         poses, scores = score_on_volume(
             c_vol, pose_s, steps=mc.surface_refine_steps, **kw)
-        scores = surface_temper(mc, scan, scores)
         # Integration only touches cells within max_range of the pose.
-        return self._finish(state, poses, scores, tables, keep, u0, inj,
-                            crop=2 * kc + 8,
+        return self._finish(state, poses, scores, prep.tables, prep.keep,
+                            u0, inj, crop=2 * kc + 8,
                             resample_fraction=mc.surface_resample_fraction,
                             out=out)
 
@@ -464,9 +477,10 @@ class SharedMapSLAM:
         tail = weights(log_weights, poses,
                        resample_fraction=resample_fraction,
                        recov=None if rates is None else state.recov,
-                       step=state.step, reinject=rates or (0.0, 0.0))
+                       step=state.step, reinject=rates or (0.0, 0.0),
+                       window=self._crop_spec(crop))
         logodds = self._integrate(state.logodds, tail.integ_pose, tables,
-                                  keep, crop, out=o.logodds)
+                                  keep, crop, out=o.logodds, win=tail.crop)
         do_resample, p_inject = tail.gate, tail.p_inject
         recov = state.recov if tail.recov is None else tail.recov
         if out is not None:
@@ -505,10 +519,24 @@ class SharedMapSLAM:
                         best_log_weight=new_lw.max(), resampled=do_resample)
         return new_state, info
 
-    def _integrate(self, logodds, pose, tables, keep, crop: int, out=None):
+    def _crop_spec(self, crop: int):
+        """The map update's crop x crop window around the integration pose
+        (F7's tail call places it), or None where the crop is not smaller
+        than the map."""
+        m = self.config.map
+        h, w = m.cells_y, m.cells_x
+        if not 0 < crop < min(h, w):
+            return None
+        return WindowSpec(crop=(crop, crop), full=(h, w),
+                          resolution=float(m.resolution),
+                          origin=(float(m.origin[0]), float(m.origin[1])))
+
+    def _integrate(self, logodds, pose, tables, keep, crop: int, out=None,
+                   win=None):
         """The shared map with the scan integrated at `pose` (K2 at batch
         1): into a crop x crop window around the pose when that is smaller
-        than the map (K2's window variant, placed on the card), else into
+        than the map (K2's window variant, placed on the card: `win`, its
+        corner (2,) int64 where F7 placed it, else placed here), else into
         the whole map.  `out`: the (H, W) map that receives it (it may be
         `logodds` itself)."""
         cfg = self.config
@@ -522,8 +550,9 @@ class SharedMapSLAM:
             return integrate_scan_batch(
                 logodds[None], pose[None], keep, *tables, origin=origin,
                 out=None if out is None else out[None], **kw)[0]
-        win = torch.stack(crop_center_cells(pose[:2], (crop, crop), (h, w),
-                                            res, origin))
+        if win is None:
+            win = torch.stack(crop_center_cells(pose[:2], (crop, crop),
+                                                (h, w), res, origin))
         return integrate_scan_window(logodds, win, pose, keep, *tables,
                                      size=(crop, crop), origin=origin,
                                      out=out, **kw)

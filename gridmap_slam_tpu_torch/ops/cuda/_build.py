@@ -1,7 +1,8 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by one `nvcc` call into a shared library
-with a plain C interface, at first use, into `gridmap_slam_tpu_torch/build/`
+Every `csrc/*.cu` file is compiled by an `nvcc` call of its own, all of them
+started together, and the objects linked into one shared library with a
+plain C interface, at first use, into `gridmap_slam_tpu_torch/build/`
 (git-ignored).  The file name carries a hash of the sources and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.  The
 library is bound with ctypes: pointers and the stream travel as `c_void_p`,
@@ -99,27 +100,28 @@ SIGNATURES = {
     # particles a slab, staged; weight, base_c, rel_c, base_t, rel_t;
     # stream
     "gs_fusion_pick": [_P] * 16 + [_I] * 13 + [_F] * 5 + [_P],
-    # F4: vol, poses, theta0, iy0, ix0, poses_out, scores_out, n, nt, hc,
-    # wc, stride t, stride y, wrap_theta, steps, origin_x, origin_y,
-    # 1 / res, 1 / dtheta, res, dtheta; stream
-    "gs_fusion_sample": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
-                         _L, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+    # F4: vol, poses, theta0, iy0, ix0, n_used, poses_out, scores_out, n,
+    # nt, hc, wc, stride t, stride y, wrap_theta, steps, origin_x,
+    # origin_y, 1 / res, 1 / dtheta, res, dtheta, temper, temp; stream
+    "gs_fusion_sample": [_P] * 8 + [_I] * 4 + [_L, _L, _I, _I]
+                        + [_F] * 6 + [_I, _F, _P],
     # F5: px, py, wgt, thetas, a_yw, a_x, nt, B, kc, 1 / res; stream
     "gs_fusion_splat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # F6: angle, dist, hit, valid, d_center, d_theta, out_angle, out_dist,
-    # t_dist, t_alpha, t_code, G, B, n_bins, 2 pi / n_bins; stream
-    "gs_fusion_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                       _I, _F, _P],
+    # t_dist, t_alpha, t_code, px, py, use, wgt, px_c, py_c, use_c, n_used,
+    # keep, G, B, n_bins, 2 pi / n_bins, stride, keep_below, freeze; stream
+    "gs_fusion_scan": [_P] * 20 + [_I, _I, _I, _F, _I, _F, _I, _P],
     # F7: lw, poses, recov, step, max, total, index, best, neff, weighted,
     # gate, integ, recov_out, p_inject, scratch f, scratch i, R, P,
     # thresholds (integ, gate), a_slow, a_fast, inject threshold, its
-    # ceiling; stream, &launched
-    "gs_fusion_weights": [_P] * 16 + [_I, _I] + [_F] * 6 + [_P, _P],
+    # ceiling; the window: mode, its ints and floats (host arrays),
+    # d_center, d_theta, center, thetas, cells; stream, &launched
+    "gs_fusion_weights": [_P] * 16 + [_I, _I] + [_F] * 6 + [_I] + [_P] * 9,
     # F8: lw, poses, u0, m, total, idx, poses_out, lw_out, scratch, P,
     # 1 / P; stream, &launched
     "gs_fusion_walk": [_P] * 9 + [_I, _F, _P, _P],
-    # F7's exp: x, out, n; stream
-    "gs_fusion_exp": [_P, _P, _I, _P],
+    # F7's exp (or F4's rsqrtf): x, out, n, rsqrt; stream
+    "gs_fusion_exp": [_P, _P, _I, _I, _P],
 }
 
 
@@ -155,19 +157,40 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     if out.exists() and not verbose:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    log = proc.stdout + proc.stderr
-    if verbose:
-        print(log, flush=True)
-    os.replace(tmp, out)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = work / f"{src.stem}.o"
+            cmd = [_nvcc(), *flags, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            logs.append(stdout + stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{stdout}{stderr}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = work / "lib.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        log = "".join(logs) + proc.stdout + proc.stderr
+        if verbose:
+            print(log, flush=True)
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out, log
 
 

@@ -17,11 +17,14 @@ port's op sequence on the card:
 - F3 `pick`: after K1 has scored a stage, the motion prior (`_prior_grid`,
   scaled by the used-beam fraction at the coarse stage), the first argmax
   of scores + prior and the pick: the next stage's offsets, or the best
-  pose and its measurement score after the last stage.  The stage's prior
-  and total tensors do not exist on the card;
+  pose and its measurement score after the last stage, written into the
+  rows of the step's tensors it is given.  The stage's prior and total
+  tensors do not exist on the card; a stage of any number of (dy, dx)
+  cells (past 2048, a lane walks its cells in groups);
 - F4 `score_on_volume`: ops/surface.sample_surface with packed
   neighbourhoods, then refine_on_surface's hill-climb (all its steps), in
-  one launch reading the volume in place: the packed array
+  one launch reading the volume in place, the score tempered as it is
+  written (`temper`, models/shared.surface_temper): the packed array
   (ops/surface.pack_neighborhoods, 8x the volume) does not exist on the
   card;
 - F5 `endpoint_factors`: ops/surface.splat_factors, the endpoint images' two (nt, B,
@@ -29,14 +32,22 @@ port's op sequence on the card:
   endpoint_images, as JAX leaves it to a dot);
 - F6 `prepare_scan`, `bin_tables`, `deskew`: ops/geometry.deskew_scan and
   ops/cuda/grid_update.scan_bin_tables (with ops/raycast.build_beam_lut),
-  together or either, for one scan or a batch (G, B);
+  together or either, for one scan or a batch (G, B); `prepare_scan`
+  returns a step's ScanPrep: with them the endpoints
+  (ops/geometry.scan_points), the used beams and their float32, every
+  coarse_beam_stride-th of them, their count and the map update's gate
+  `keep`, all once a scan;
 - F7 `weights`: the weights' tail of every step (gridmap_slam_tpu/models/
   rbpf.py:254-278, models/shared.py:386-461 and :197-240, models/
   multi.py:110-142): the max, the first argmax and its pose, Neff and the
   weighted mean pose of log-weights (R, P), and for the shared map the
   scalar epilogue (the resample gate, the integration pose, the recovery
   EMAs and p_inject), in one launch a call where P <= 1024 and three
-  above (`weights_plan`), the sums in ops/resample's fixed order;
+  above (`weights_plan`), the sums in ops/resample's fixed order; for one
+  robot it also places a WindowSpec's window: the surface volume's crop,
+  extended window and theta bins around the odometry-propagated mean
+  (`volume_window`), or the map update's crop around the integration
+  pose;
 - F8 `walk`: the systematic resample inside the gate's body
   (ops/resample.systematic_indices with the gathers of the poses and
   log-weights at the ancestors), in two launches, from F7's max and total.
@@ -56,19 +67,19 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ...types import Odom, Scan
-from ..geometry import deskew_scan, wrap_angle
+from ..geometry import deskew_scan, scan_points, wrap_angle
 from ..resample import (ROW, exp_weights, integration_pose,
                         mean_pose_of, neff_of, recovery_ema,
                         systematic_indices)
-from ..surface import (pack_neighborhoods, refine_on_surface, sample_surface,
-                       splat_factors)
+from ..surface import (crop_center_cells, pack_neighborhoods,
+                       refine_on_surface, sample_surface, splat_factors)
 from . import _build, check_tensor, stream_handle
 from .grid_update import scan_bin_tables
 from .matcher import H100, per_particle
@@ -300,8 +311,8 @@ def _used(use, stride: int = 1):
 
 
 # F3's launch (csrc/fusions.cu kPickThreads, kPickCells): threads a block;
-# the (dy, dx) cells a lane owns at most, so that a stage takes at most
-# PICK_CELLS * PICK_THREADS = 2048 cells on the card (ny, nx <= 45)
+# the (dy, dx) cells a lane holds in registers at once (a lane with more
+# walks them in groups of PICK_CELLS)
 PICK_THREADS = 256
 PICK_CELLS = 8
 # a warp's slab of scores, at most, where a particle's lanes need not
@@ -333,11 +344,13 @@ def pick_plan(p: int, nt: int, ny: int, nx: int) -> PickPlan:
     PICK_CELLS (dy, dx) cells and a warp's slab within PICK_WARP_BYTES (or
     one particle), and no fewer than give each of the H100's SMs a block's
     worth of threads (at 250 to 500 particles 128 or 256 threads a
-    particle).  Teams of max(lanes, 32) threads take slabs of team // lanes
-    particles in turn, each with its own shared memory and barrier (a
-    warp's where lanes <= 32), copying its next slab while it works the
-    current one, so that no barrier waits for another team.  A slab whose
-    scores pass PICK_SLAB_BYTES is read in place."""
+    particle).  Past PICK_CELLS * PICK_THREADS = 2048 cells a lane holds
+    more than PICK_CELLS and walks them in groups of PICK_CELLS.  Teams of
+    max(lanes, 32) threads take slabs of team // lanes particles in turn,
+    each with its own shared memory and barrier (a warp's where lanes <=
+    32), copying its next slab while it works the current one, so that no
+    barrier waits for another team.  A slab whose scores pass
+    PICK_SLAB_BYTES is read in place."""
     n, nyx = nt * ny * nx, ny * nx
     if p <= 0 or n <= 0:
         raise ValueError(f"pick_plan: need particles and candidates, got "
@@ -349,16 +362,13 @@ def pick_plan(p: int, nt: int, ny: int, nx: int) -> PickPlan:
                            or 32 // min(lanes, 32) > per_warp
                            or p * lanes < H100["sm_count"] * PICK_THREADS):
         lanes *= 2
-    if -(-nyx // lanes) > PICK_CELLS:
-        raise ValueError(f"pick_plan: {ny} x {nx} cells pass {PICK_CELLS} "
-                         f"a lane of {lanes}")
     per_slab = max(lanes, 32) // lanes
     return PickPlan(lanes, per_slab, per_slab * n * 4 <= PICK_SLAB_BYTES)
 
 
 def pick_plain(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
                off_xy, off_t, *, motion, prior_weight: float,
-               stride: int = 1):
+               stride: int = 1, out=None):
     """Plain version of F3: a stage's pick from its (P, nt, ny, nx) scores
     at the candidates pose0 + (dxs[ix], dys[iy], dts[it]).  The motion
     prior (noise scales of the odometry rows d_center, d_theta; centered at
@@ -368,7 +378,8 @@ def pick_plain(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
     argmax of scores + prior.  Returns the next stage's offsets (fx + off_xy,
     fy + off_xy, ft + off_t) where off_xy is given, else (best poses
     (P, 3), the scores there (P,), times n_all / n_c at the coarse
-    stage)."""
+    stage), written into the tensors of `out` = (best, meas) where it is
+    given (a step's rows)."""
     pn = pose0.shape[0]
     sd_c, sd_t = (per_particle(sd, pn)
                   for sd in noise_scales(Odom(d_center, d_theta), motion))
@@ -390,20 +401,24 @@ def pick_plain(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
     meas = _take(scores.reshape(pn, -1), flat)
     if use is not None:
         meas = (n_all / n_c) * meas
-    return torch.stack([pose0[:, 0] + fx, pose0[:, 1] + fy,
-                        pose0[:, 2] + ft], 1), meas
+    best = torch.stack([pose0[:, 0] + fx, pose0[:, 1] + fy,
+                        pose0[:, 2] + ft], 1)
+    if out is None:
+        return best, meas
+    return out[0].copy_(best), out[1].copy_(meas)
 
 
 def pick_cuda(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
               off_xy, off_t, *, motion, prior_weight: float,
-              stride: int = 1):
+              stride: int = 1, out=None):
     """The kernel: pick_plain's outputs in one pass over the scores, as
     pick_plan lays it out (slabs of particles, their scores staged in
     shared memory, `lanes` threads a particle).  scores (P, nt, ny, nx),
     dxs (P, nx), dys (P, ny), dts (P, nt), pose0 and center (P, 3),
     float32 on the card; d_center, d_theta 0-dim or (G_o,); use (G_b, B)
-    or (B,) bool; off_xy, off_t the next stage's offset vectors.  G_o and
-    G_b divide P; ny nx at most PICK_CELLS * PICK_THREADS = 2048."""
+    or (B,) bool; off_xy, off_t the next stage's offset vectors; `out`
+    (best (P, 3), meas (P,)) after the last stage, the rows the kernel
+    writes (none of them an input).  G_o and G_b divide P."""
     global pick_launches
     fn = "pick_cuda"
     if scores.dim() != 4:
@@ -444,8 +459,11 @@ def pick_cuda(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
         best = meas = None
     else:
         outs = None
-        best = torch.empty((p, 3), dtype=torch.float32, device=dev)
-        meas = torch.empty((p,), dtype=torch.float32, device=dev)
+        best, meas = out if out is not None else (
+            torch.empty((p, 3), dtype=torch.float32, device=dev),
+            torch.empty((p,), dtype=torch.float32, device=dev))
+        check_tensor(fn, "best", best, (p, 3), dev)
+        check_tensor(fn, "meas", meas, (p,), dev)
 
     nxt = outs if outs is not None else (None, None, None)
     plan = pick_plan(p, nt, ny, nx)
@@ -463,31 +481,47 @@ def pick_cuda(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
 
 
 def pick(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
-         off_xy, off_t, *, motion, prior_weight: float, stride: int = 1):
+         off_xy, off_t, *, motion, prior_weight: float, stride: int = 1,
+         out=None):
     """A matcher stage's pick (see pick_plain): F3 on the card, its plain
     version on the CPU."""
     fn = pick_cuda if scores.is_cuda else pick_plain
     return fn(scores, dxs, dys, dts, pose0, center, d_center, d_theta, use,
               off_xy, off_t, motion=motion, prior_weight=prior_weight,
-              stride=stride)
+              stride=stride, out=out)
 
 
 # --------------------------------------------------------- F4: sample, climb
+def temper(scores, temp: float = 1.0, n_used=None):
+    """The surface weights' temperature (models/shared.surface_temper):
+    scores as they are where temp is 1, times temp where it is above 0,
+    else times rsqrt(n_used), n_used the scan's used beams clamped to at
+    least 1 (F6's)."""
+    if temp == 1.0:
+        return scores
+    if temp > 0.0:
+        return scores * temp
+    return scores * torch.rsqrt(n_used)
+
+
 def score_plain(c_vol, poses, *, steps: int = 0, theta0, dtheta, crop_iy0,
-                crop_ix0, resolution: float, origin, wrap_theta: bool = False):
+                crop_ix0, resolution: float, origin, wrap_theta: bool = False,
+                temp: float = 1.0, n_used=None):
     """Plain version of F4: the measurement log-likelihood of poses (..., 3),
     ops/surface.sample_surface on the packed neighbourhoods
     (pack_neighborhoods, built here), then `steps` steps of its greedy
-    hill-climb (ops/surface.refine_on_surface) on the same pack: (poses,
-    scores), the poses those given where steps <= 0."""
+    hill-climb (ops/surface.refine_on_surface) on the same pack, the scores
+    tempered (`temper` by temp and n_used): (poses, scores), the poses
+    those given where steps <= 0."""
     packed = pack_neighborhoods(c_vol, wrap_theta)
     kw = dict(theta0=theta0, dtheta=dtheta, crop_iy0=crop_iy0,
               crop_ix0=crop_ix0, resolution=resolution, origin=origin,
               wrap_theta=wrap_theta, packed=packed)
     scores = sample_surface(c_vol, poses, **kw)
-    if steps <= 0:
-        return poses, scores
-    return refine_on_surface(c_vol, poses, scores, steps=steps, **kw)
+    if steps > 0:
+        poses, scores = refine_on_surface(c_vol, poses, scores, steps=steps,
+                                          **kw)
+    return poses, temper(scores, temp, n_used)
 
 
 def _one(fn, name, v, dtype, dev):
@@ -500,12 +534,15 @@ def _one(fn, name, v, dtype, dev):
 
 
 def score_cuda(c_vol, poses, *, steps: int = 0, theta0, dtheta, crop_iy0,
-               crop_ix0, resolution: float, origin, wrap_theta: bool = False):
+               crop_ix0, resolution: float, origin, wrap_theta: bool = False,
+               temp: float = 1.0, n_used=None):
     """The kernel: score_plain's (poses, scores) in one launch, a thread a
-    pose, its pose and score in registers for all the climb's steps; the
-    volume (nt, hc, wc) float32 on the card read in place (a view whose
-    cells are contiguous in a row, as the FFT's crop); theta0 a float32 and
-    crop_iy0, crop_ix0 int64 tensors of one element on the card."""
+    pose, its pose and score in registers for all the climb's steps, the
+    score tempered as it is written; the volume (nt, hc, wc) float32 on
+    the card read in place (a view whose cells are contiguous in a row, as
+    the FFT's crop); theta0 and n_used float32 and crop_iy0, crop_ix0
+    int64 tensors of one element on the card (n_used only where temp <=
+    0)."""
     global sample_launches
     fn = "score_cuda"
     if c_vol.dim() != 3 or poses.dim() == 0 or poses.shape[-1] != 3:
@@ -527,14 +564,18 @@ def score_cuda(c_vol, poses, *, steps: int = 0, theta0, dtheta, crop_iy0,
     t0 = _one(fn, "theta0", theta0, torch.float32, dev)
     iy0 = _one(fn, "crop_iy0", crop_iy0, torch.int64, dev)
     ix0 = _one(fn, "crop_ix0", crop_ix0, torch.int64, dev)
+    mode = 0 if temp == 1.0 else (1 if temp > 0.0 else 2)
+    used = _one(fn, "n_used", n_used, torch.float32, dev) if mode == 2 \
+        else None
     poses_out = torch.empty_like(flat) if steps else None
     scores = torch.empty((n,), dtype=torch.float32, device=dev)
     code = _build.library().gs_fusion_sample(
         c_vol.data_ptr(), flat.data_ptr(), t0.data_ptr(), iy0.data_ptr(),
-        ix0.data_ptr(), _ptr(poses_out), scores.data_ptr(), n, nt, hc, wc,
-        c_vol.stride(0), c_vol.stride(1), int(bool(wrap_theta)), steps,
-        _f32(origin[0]), _f32(origin[1]), _inv(resolution), _inv(dtheta),
-        _f32(resolution), _f32(dtheta), stream_handle(dev))
+        ix0.data_ptr(), _ptr(used), _ptr(poses_out), scores.data_ptr(), n,
+        nt, hc, wc, c_vol.stride(0), c_vol.stride(1), int(bool(wrap_theta)),
+        steps, _f32(origin[0]), _f32(origin[1]), _inv(resolution),
+        _inv(dtheta), _f32(resolution), _f32(dtheta), mode,
+        _f32(temp) if mode == 1 else 0.0, stream_handle(dev))
     sample_launches += 1
     _build.check("gs_fusion_sample", code)
     if not steps:
@@ -544,9 +585,10 @@ def score_cuda(c_vol, poses, *, steps: int = 0, theta0, dtheta, crop_iy0,
 
 def score_on_volume(c_vol, poses, *, steps: int = 0, **kw):
     """(poses, scores): the trilinear sample of the volume at poses (...,
-    3), then `steps` steps of the greedy hill-climb on it (`kw`
-    ops/surface.sample_surface's keyword arguments): F4 on the card, one
-    launch reading the volume in place, its plain version on the CPU."""
+    3), then `steps` steps of the greedy hill-climb on it, the scores
+    tempered (`kw`: ops/surface.sample_surface's keyword arguments, and
+    `temper`'s temp and n_used): F4 on the card, one launch reading the
+    volume in place, its plain version on the CPU."""
     fn = score_cuda if c_vol.is_cuda else score_plain
     return fn(c_vol, poses, steps=steps, **kw)
 
@@ -590,12 +632,43 @@ def endpoint_factors(px, py, wgt, thetas, k_cells: int, resolution: float):
 
 
 # ------------------------------------------------------------------ F6: scan
+class ScanPrep(NamedTuple):
+    """What a step needs of its scan, computed once a scan (F6's one launch
+    on the card), for a scan (B,) or a batch (G, B): `scan` the deskewed
+    scan (the given one without odometry); `tables` the bin tables (dist,
+    alpha, code) (..., n_bins), or three None; the endpoints px, py
+    (ops/geometry.scan_points) and the used beams `use` = valid & hit with
+    `wgt` its float32, each (..., B); every `stride`-th beam of them,
+    px_c, py_c, use_c (the matcher's coarse stage; px, py and use
+    themselves at stride 1); n_used (...), the used beams clamped to at
+    least 1; keep, the map update's gate |d_theta| <= keep_below as a
+    float32 (0 with freeze), of the odometry's shape, or None without
+    odometry."""
+
+    scan: Scan
+    tables: tuple
+    px: torch.Tensor
+    py: torch.Tensor
+    use: torch.Tensor
+    wgt: torch.Tensor
+    px_c: torch.Tensor
+    py_c: torch.Tensor
+    use_c: torch.Tensor
+    n_used: torch.Tensor
+    keep: Optional[torch.Tensor]
+    stride: int
+
+
 def scan_plain(angle, dist, hit, valid, d_center, d_theta, *,
-               n_bins: int = 0):
+               n_bins: int = 0, points: bool = False, stride: int = 1,
+               keep_below=None, freeze: bool = False):
     """Plain version of F6: (angle, dist) of ops/geometry.deskew_scan where
-    the odometry (d_center, d_theta) is given (else None, None), then the
+    the odometry (d_center, d_theta) is given (else None, None), the
     (dist, alpha, code) tables of ops/cuda/grid_update.scan_bin_tables of
-    that scan where n_bins > 0 (else three None)."""
+    that scan where n_bins > 0 (else three None), then where `points`
+    ScanPrep's px, py, use, wgt, their every stride-th beam (three None at
+    stride 1) and n_used (else seven None), and the gate keep where
+    keep_below is given (else None)."""
     scan = Scan(angle=angle, dist=dist, hit=hit, valid=valid)
     out = (None, None)
     if d_center is not None:
@@ -603,14 +676,30 @@ def scan_plain(angle, dist, hit, valid, d_center, d_theta, *,
         out = (scan.angle, scan.dist)
     tables = (scan_bin_tables(scan, n_bins) if n_bins > 0
               else (None, None, None))
-    return (*out, *tables)
+    pts = (None,) * 8
+    if points:
+        px, py = scan_points(scan)
+        use = valid & hit
+        wgt = use.to(torch.float32)
+        strided = ((None,) * 3 if stride == 1 else
+                   tuple(t[..., ::stride].contiguous() for t in (px, py, use)))
+        pts = (px, py, use, wgt, *strided,
+               torch.clamp(wgt.sum(-1), min=1.0))
+    keep = None
+    if keep_below is not None:
+        keep = (torch.abs(d_theta) <= keep_below).to(torch.float32)
+        if freeze:
+            keep = keep * 0.0
+    return (*out, *tables, *pts, keep)
 
 
 def scan_cuda(angle, dist, hit, valid, d_center, d_theta, *,
-              n_bins: int = 0):
+              n_bins: int = 0, points: bool = False, stride: int = 1,
+              keep_below=None, freeze: bool = False):
     """The kernel: scan_plain's outputs in one launch, a block a scan.
     angle, dist (B,) or (G, B) float32 and hit, valid bool on the card;
-    d_center, d_theta 0-dim or (G,), or None for no deskew."""
+    d_center, d_theta 0-dim or (G,), or None for no deskew (and no
+    keep); keep only with the points."""
     global scan_launches
     fn = "scan_cuda"
     dev = angle.device
@@ -625,51 +714,86 @@ def scan_cuda(angle, dist, hit, valid, d_center, d_theta, *,
                            ("valid", valid, torch.bool)):
         flat[name] = t.reshape(g, b).contiguous()
         check_tensor(fn, name, flat[name], (g, b), dev, dtype=dtype)
+    if stride < 1 or (keep_below is not None
+                      and (d_center is None or not points)):
+        raise ValueError(f"{fn}: need a stride of 1 or more, and the "
+                         f"odometry and the points for the gate keep")
+
+    def empty(*size, dtype=torch.float32):
+        return torch.empty(size, dtype=dtype, device=dev)
+
     odo = (None, None)
     outs = (None, None)
     if d_center is not None:
         odo = tuple(d.reshape(-1).contiguous() for d in (d_center, d_theta))
         for name, d in zip(("d_center", "d_theta"), odo):
             check_tensor(fn, name, d, (g,), dev)
-        outs = (torch.empty((g, b), dtype=torch.float32, device=dev),
-                torch.empty((g, b), dtype=torch.float32, device=dev))
+        outs = (empty(g, b), empty(g, b))
     tables = (None, None, None)
     if n_bins > 0:
-        tables = tuple(torch.empty((g, n_bins), dtype=torch.float32,
-                                   device=dev) for _ in range(3))
+        tables = tuple(empty(g, n_bins) for _ in range(3))
+    pts = (None,) * 8
+    b_c = -(-b // stride)
+    if points:
+        strided = ((None,) * 3 if stride == 1 else
+                   (empty(g, b_c), empty(g, b_c),
+                    empty(g, b_c, dtype=torch.bool)))
+        pts = (empty(g, b), empty(g, b), empty(g, b, dtype=torch.bool),
+               empty(g, b), *strided, empty(g))
+    keep = empty(g) if keep_below is not None else None
     code = _build.library().gs_fusion_scan(
         flat["angle"].data_ptr(), flat["dist"].data_ptr(),
         flat["hit"].data_ptr(), flat["valid"].data_ptr(),
-        *(_ptr(t) for t in (*odo, *outs, *tables)), g, b, max(n_bins, 0),
-        _f32(2.0 * math.pi / n_bins) if n_bins > 0 else 0.0,
+        *(_ptr(t) for t in (*odo, *outs, *tables)),
+        *(_ptr(t) for t in (*pts, keep)), g, b, max(n_bins, 0),
+        _f32(2.0 * math.pi / n_bins) if n_bins > 0 else 0.0, stride,
+        _f32(keep_below) if keep_below is not None else 0.0, int(freeze),
         stream_handle(dev))
     scan_launches += 1
     _build.check("gs_fusion_scan", code)
     lead = shape[:-1]
+    strided = pts[4:7]
     return (*(None if t is None else t.reshape(shape) for t in outs),
             *(None if t is None else t.reshape(*lead, n_bins)
-              for t in tables))
+              for t in tables),
+            *(None if t is None else t.reshape(shape) for t in pts[:4]),
+            *(None if t is None else t.reshape(*lead, b_c) for t in strided),
+            None if pts[7] is None else pts[7].reshape(lead),
+            None if keep is None else keep.reshape(d_theta.shape))
 
 
 def _scan_fn(angle):
     return scan_cuda if angle.is_cuda else scan_plain
 
 
-def prepare_scan(scan: Scan, odom: Odom, n_bins: int):
-    """(deskew_scan(scan, odom), scan_bin_tables(that scan, n_bins)), for a
-    scan (B,) or a batch (G, B) with odometry of shape (G,): F6 on the card
-    in one launch, its plain version on the CPU."""
-    a, d, *tables = _scan_fn(scan.angle)(
-        scan.angle, scan.dist, scan.hit, scan.valid, odom.d_center,
-        odom.d_theta, n_bins=n_bins)
-    return Scan(angle=a, dist=d, hit=scan.hit, valid=scan.valid), tuple(tables)
+def prepare_scan(scan: Scan, odom: Optional[Odom] = None, n_bins: int = 0,
+                 *, stride: int = 1, keep_below=None,
+                 freeze: bool = False) -> ScanPrep:
+    """A step's ScanPrep of a scan (B,) or a batch (G, B) (with odometry
+    of shape (G,)): deskew_scan(scan, odom) where odom is given, the bin
+    tables of that scan where n_bins > 0, its endpoints, used beams, every
+    stride-th of them and their count, and where keep_below is given the
+    map update's gate: F6 on the card in one launch, its plain version on
+    the CPU."""
+    dc, dt = (None, None) if odom is None else (odom.d_center, odom.d_theta)
+    a, d, *rest = _scan_fn(scan.angle)(
+        scan.angle, scan.dist, scan.hit, scan.valid, dc, dt, n_bins=n_bins,
+        points=True, stride=stride, keep_below=keep_below, freeze=freeze)
+    tables, (px, py, use, wgt, px_c, py_c, use_c, n_used), keep = (
+        tuple(rest[:3]), rest[3:11], rest[11])
+    if stride == 1:
+        px_c, py_c, use_c = px, py, use
+    deskewed = scan if a is None else Scan(angle=a, dist=d, hit=scan.hit,
+                                           valid=scan.valid)
+    return ScanPrep(deskewed, tables, px, py, use, wgt, px_c, py_c, use_c,
+                    n_used, keep, stride)
 
 
 def bin_tables(scan: Scan, n_bins: int):
     """ops/cuda/grid_update.scan_bin_tables(scan, n_bins): F6 on the card,
     its plain version on the CPU."""
     return _scan_fn(scan.angle)(scan.angle, scan.dist, scan.hit, scan.valid,
-                                None, None, n_bins=n_bins)[2:]
+                                None, None, n_bins=n_bins)[2:5]
 
 
 def deskew(scan: Scan, odom: Odom) -> Scan:
@@ -686,12 +810,74 @@ def deskew(scan: Scan, odom: Odom) -> Scan:
 P_INJECT_MAX, P_INJECT_FORCE = 0.3, 0.05
 
 
+class WindowSpec(NamedTuple):
+    """A window F7 places on the map for one robot: a crop of `crop` (hc,
+    wc) cells of the `full` (h, w) map (its `resolution`, `origin`),
+    centered as ops/surface.crop_center_cells centers it.  `volume`: the
+    surface volume's, around the weighted mean pose propagated by the
+    odometry, with the extended window (`ext`, the crop plus the blur
+    `radius`, clamped to the map) and the `nt` theta bins center + t_off +
+    t dtheta (ops/surface.theta_grid); else the map update's, around the
+    integration pose (the epilogue's)."""
+
+    crop: Tuple[int, int]
+    full: Tuple[int, int]
+    resolution: float
+    origin: Tuple[float, float]
+    volume: bool = False
+    radius: int = 0
+    ext: Tuple[int, int] = (0, 0)
+    nt: int = 0
+    t_off: float = 0.0
+    dtheta: float = 0.0
+
+
+class Window(NamedTuple):
+    """The surface volume's window (WindowSpec with `volume`): the crop's
+    corner (iy0, ix0), the extended window's (ey0, ex0) and the crop's
+    offset in it (oy, ox), each a 0-dim int64; the center (3,), the first
+    bin's heading theta0 (0-dim) and the bins' `thetas` (nt,)."""
+
+    iy0: torch.Tensor
+    ix0: torch.Tensor
+    ey0: torch.Tensor
+    ex0: torch.Tensor
+    oy: torch.Tensor
+    ox: torch.Tensor
+    center: torch.Tensor
+    theta0: torch.Tensor
+    thetas: torch.Tensor
+
+
+def volume_window(center, spec: WindowSpec) -> Window:
+    """The surface volume's window around `center` (3,) in tensor ops (the
+    plain version of F7's, and the mesh engines' window)."""
+    h, w = spec.full
+    iy0, ix0 = crop_center_cells(center[:2], spec.crop, spec.full,
+                                 spec.resolution, spec.origin)
+    ey0 = torch.clamp(iy0 - spec.radius, 0, h - spec.ext[0])
+    ex0 = torch.clamp(ix0 - spec.radius, 0, w - spec.ext[1])
+    theta0 = center[2] + spec.t_off
+    thetas = theta0 + spec.dtheta * torch.arange(
+        spec.nt, dtype=torch.float32, device=center.device)
+    return Window(iy0, ix0, ey0, ex0, iy0 - ey0, ix0 - ex0, center, theta0,
+                  thetas)
+
+
+def window_plain(weighted, odom: Odom, spec: WindowSpec) -> Window:
+    """Plain version of F7's volume window: apply_odometry of the weighted
+    mean pose (3,), then volume_window."""
+    return volume_window(apply_odometry_plain(weighted, odom), spec)
+
+
 class Tail(NamedTuple):
     """F7's outputs, each with the log-weights' leading shape (() or (R,)):
     the max, the total sum(exp(lw - max)), the first argmax (int64) and its
     pose (..., 3), Neff and the weighted mean pose (..., 3); with the
     epilogue the resample gate (bool), and for one robot the integration
-    pose (3,) and, with the recovery EMAs, their new (2,) and p_inject."""
+    pose (3,) and, with the recovery EMAs, their new (2,) and p_inject; for
+    one robot with a WindowSpec, the surface volume's Window (`volume`) or
+    the map update's crop corner (2,) int64 (`crop`)."""
 
     max: torch.Tensor
     total: torch.Tensor
@@ -703,6 +889,8 @@ class Tail(NamedTuple):
     integ_pose: Optional[torch.Tensor] = None
     recov: Optional[torch.Tensor] = None
     p_inject: Optional[torch.Tensor] = None
+    volume: Optional[Window] = None
+    crop: Optional[torch.Tensor] = None
 
 
 def _weights_row(lw, poses):
@@ -715,7 +903,7 @@ def _weights_row(lw, poses):
 
 
 def weights_plain(log_weights, poses, *, resample_fraction=None, recov=None,
-                  step=None, reinject=(0.0, 0.0)):
+                  step=None, reinject=(0.0, 0.0), window=None, odom=None):
     """Plain version of F7 on log-weights (P,) or (R, P) and poses (..., P,
     3), a robot at a time: ops/resample's exp_weights, neff and
     weighted_mean_pose, torch.argmax and the pose there.  Where
@@ -724,12 +912,17 @@ def weights_plain(log_weights, poses, *, resample_fraction=None, recov=None,
     (ops/resample.integration_pose) and, where the recovery EMAs `recov`
     (2,) are given with the scan counter `step`, recovery_ema of the max
     with reinject = (a_slow, a_fast), the gate forced where p_inject >
-    0.05.  Returns a Tail."""
+    0.05.  With a WindowSpec `window` (one robot): the volume's Window
+    (window_plain, odom the odometry) or the map update's crop corner
+    (crop_center_cells of the integration pose, stacked).  Returns a
+    Tail."""
     if log_weights.dim() == 1:
         out = Tail(*_weights_row(log_weights, poses))
     else:
         out = Tail(*(torch.stack(c) for c in zip(
             *(_weights_row(lw, q) for lw, q in zip(log_weights, poses)))))
+    if window is not None and window.volume:
+        out = out._replace(volume=window_plain(out.weighted, odom, window))
     if resample_fraction is None:
         return out
     p = log_weights.shape[-1]
@@ -740,8 +933,13 @@ def weights_plain(log_weights, poses, *, resample_fraction=None, recov=None,
     if recov is not None:
         rec, p_inject = recovery_ema(recov, step, out.max, *reinject)
         gate = gate | (p_inject > P_INJECT_FORCE)
+    crop = None
+    if window is not None and not window.volume:
+        crop = torch.stack(crop_center_cells(
+            integ[:2], window.crop, window.full, window.resolution,
+            window.origin))
     return out._replace(gate=gate, integ_pose=integ, recov=rec,
-                        p_inject=p_inject)
+                        p_inject=p_inject, crop=crop)
 
 
 class WeightsPlan(NamedTuple):
@@ -765,14 +963,17 @@ def weights_plan(r: int, p: int) -> WeightsPlan:
 
 
 def weights_cuda(log_weights, poses, *, resample_fraction=None, recov=None,
-                 step=None, reinject=(0.0, 0.0)):
+                 step=None, reinject=(0.0, 0.0), window=None, odom=None):
     """The kernel: weights_plain's Tail, the sums in ops/resample's fixed
     order (csrc/fusions.cu: a thread a segment of 8 weights, a block a row
     of 1024), as weights_plan lays it out: one launch where P <= 1024, else
     three, the rows' partials of each pass summed once, by its last
     block.  log_weights (P,) or (R, P) and poses (..., P, 3) float32 on the
     card, P at most 1024 * 1024; recov (2,) float32 and step int32 on the
-    card with one robot only."""
+    card with one robot only; the window with one robot only (the volume's
+    with odom's d_center and d_theta one float32 each on the card, the
+    map update's with the epilogue), placed by the thread that writes the
+    outputs."""
     global weights_launches
     fn = "weights_cuda"
     dev = log_weights.device
@@ -794,6 +995,10 @@ def weights_cuda(log_weights, poses, *, resample_fraction=None, recov=None,
                              f"the epilogue (resample_fraction)")
         check_tensor(fn, "recov", recov, (2,), dev)
         step = _one(fn, "step", step, torch.int32, dev)
+    mode = 0 if window is None else (1 if window.volume else 2)
+    if mode and (lead or (mode == 2 and not finish)):
+        raise ValueError(f"{fn}: a window needs one robot, the map "
+                         f"update's the epilogue (resample_fraction)")
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -810,6 +1015,20 @@ def weights_cuda(log_weights, poses, *, resample_fraction=None, recov=None,
     scratch_i = empty(plan.scratch_ints, dtype=torch.int32)
     thr = ((_f32(0.95 * p), _f32(p * resample_fraction)) if finish
            else (0.0, 0.0))
+    ints = (ctypes.c_int * 8)()
+    floats = (ctypes.c_float * 5)()
+    dc = dt = center = thetas = cells = None
+    if mode:
+        ints[:] = [*window.crop, *window.full, window.radius, *window.ext,
+                   window.nt]
+        floats[:] = [_f32(window.origin[0]), _f32(window.origin[1]),
+                     _inv(window.resolution), _f32(window.t_off),
+                     _f32(window.dtheta)]
+        cells = empty(6 if mode == 1 else 2, dtype=torch.int64)
+    if mode == 1:
+        dc, dt = (_one(fn, name, v, torch.float32, dev) for name, v in
+                  (("d_center", odom.d_center), ("d_theta", odom.d_theta)))
+        center, thetas = empty(3), empty(1 + window.nt)
     launched = (ctypes.c_int * 1)()
     code = _build.library().gs_fusion_weights(
         lw.data_ptr(), ps.data_ptr(), _ptr(recov), _ptr(step),
@@ -818,13 +1037,21 @@ def weights_cuda(log_weights, poses, *, resample_fraction=None, recov=None,
                             out.integ_pose, out.recov, out.p_inject)),
         scratch_f.data_ptr(), scratch_i.data_ptr(), r, p, *thr,
         _f32(reinject[0]), _f32(reinject[1]), _f32(P_INJECT_FORCE),
-        _f32(P_INJECT_MAX), stream_handle(dev), launched)
+        _f32(P_INJECT_MAX), mode, ints, floats,
+        *(_ptr(t) for t in (dc, dt, center, thetas, cells)),
+        stream_handle(dev), launched)
     weights_launches += launched[0]
     _build.check("gs_fusion_weights", code)
+    volume = crop = None
+    if mode == 1:
+        volume = Window(*cells, center, thetas[0], thetas[1:])
+    elif mode == 2:
+        crop = cells
     return out._replace(**{
         k: v.reshape(lead + tuple(v.shape[1:])) for k, v in zip(
             Tail._fields[:7], out[:7]) if v is not None},
-        p_inject=None if out.p_inject is None else out.p_inject[0])
+        p_inject=None if out.p_inject is None else out.p_inject[0],
+        volume=volume, crop=crop)
 
 
 def weights(log_weights, poses, **kw):
@@ -834,14 +1061,16 @@ def weights(log_weights, poses, **kw):
     return fn(log_weights, poses, **kw)
 
 
-def weight_exp_cuda(x):
-    """F7's exp (csrc/fusions.cu weight_exp) of float32 x on the card, for
-    the probe that holds it to torch.exp; no path calls it."""
+def weight_exp_cuda(x, rsqrt: bool = False):
+    """F7's exp (csrc/fusions.cu weight_exp), or with `rsqrt` F4's rsqrtf,
+    of float32 x on the card, for the probes that hold them to torch.exp
+    and torch.rsqrt; no path calls it."""
     x = x.contiguous()
     check_tensor("weight_exp_cuda", "x", x, tuple(x.shape), x.device)
     out = torch.empty_like(x)
     _build.check("gs_fusion_exp", _build.library().gs_fusion_exp(
-        x.data_ptr(), out.data_ptr(), x.numel(), stream_handle(x.device)))
+        x.data_ptr(), out.data_ptr(), x.numel(), int(rsqrt),
+        stream_handle(x.device)))
     return out
 
 

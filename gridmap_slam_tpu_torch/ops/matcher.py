@@ -16,6 +16,11 @@ scan, or one a robot); its stages are scored by
 Each stage's prior, argmax and pick (`_prior_grid`, `_argmax3`, `_take`)
 and the coarse stage's pool are `ops.cuda.fusions.pick` and `pool`
 (kernels F3 and F2 on the card, these tensor ops on the CPU).
+The scan comes as the step's `ops.cuda.fusions.ScanPrep` (F6's endpoints,
+used beams and coarse beams, once a scan), or as a Scan that is prepared
+here (F6 on the card).  The coarse stage's offsets, expanded to a chunk's
+particles, are cached beside the offsets; the last stage writes the best
+poses and scores into the rows a step passes (`out`).
 `correlative_match` and `score_pose` on a single pose are batches of one.  Only
 `impl` "auto" and "gather" exist here: the JAX package's "matmul", "splat"
 and "pallas" backends are TPU workarounds and raise ValueError.
@@ -30,10 +35,9 @@ import torch
 
 from ..types import Odom, Scan
 from .cuda import fusions
-from .cuda.fusions import _argmax3, _prior_grid
+from .cuda.fusions import ScanPrep, _argmax3, _prior_grid
 from .cuda.matcher import (_bilinear, _nearest, stage_scores_batch,
                            stage_scores_batch_plain)
-from .geometry import scan_points
 
 __all__ = ["effective_field", "log_likelihood_field", "score_pose",
            "correlative_match", "correlative_match_batch", "half_resolution",
@@ -72,15 +76,19 @@ def _stage_scores(llfield, px, py, use, pose0, dxs, dys, dts, *,
         nearest=nearest)[0]
 
 
+def _offsets_key(mc, device):
+    return (float(mc.window_xy), float(mc.window_theta_deg),
+            int(mc.coarse_nxy), int(mc.coarse_nt), int(mc.fine_nxy),
+            int(mc.fine_nt), int(mc.extra_refine_stages), str(device))
+
+
 def _stage_offsets(mc, device):
     """The matcher's candidate offsets on `device`, built once per (matcher
     config, device) and cached: the coarse (dxs, dts) and, for each
     refinement stage, its (off_xy, off_t) around the running argmax.
     Copying numpy-built offsets to the card inside a step would stop the
     host once a stage."""
-    key = (float(mc.window_xy), float(mc.window_theta_deg),
-           int(mc.coarse_nxy), int(mc.coarse_nt), int(mc.fine_nxy),
-           int(mc.fine_nt), int(mc.extra_refine_stages), str(device))
+    key = _offsets_key(mc, device)
     hit = _OFFSETS.get(key)
     if hit is not None:
         return hit
@@ -103,7 +111,33 @@ def _stage_offsets(mc, device):
     return _OFFSETS[key]
 
 
+def _coarse_offsets(mc, device, pn: int):
+    """The coarse stage's (dxs, dts) expanded to pn particles, (pn, nx) and
+    (pn, nt), cached beside _stage_offsets by (matcher config, device, pn):
+    built at a step's first call (a captured replay's warm-up), read by
+    every later one."""
+    key = (*_offsets_key(mc, device), pn)
+    hit = _EXPANDED.get(key)
+    if hit is None:
+        (c_off_xy, c_off_t), _ = _stage_offsets(mc, device)
+        hit = _EXPANDED[key] = (c_off_xy.expand(pn, -1).contiguous(),
+                                c_off_t.expand(pn, -1).contiguous())
+    return hit
+
+
 _OFFSETS: dict = {}
+_EXPANDED: dict = {}
+
+
+def _prepared(scan, stride: int) -> ScanPrep:
+    """The scan as a ScanPrep of coarse stride `stride`: the step's, or one
+    made of a Scan (F6 on the card, its plain version on the CPU)."""
+    if not isinstance(scan, ScanPrep):
+        return fusions.prepare_scan(scan, stride=stride)
+    if scan.stride != stride:
+        raise ValueError(f"the scan was prepared at coarse stride "
+                         f"{scan.stride}, the matcher takes {stride}")
+    return scan
 
 
 def half_resolution(llfield_b, ll_outside: float):
@@ -113,21 +147,22 @@ def half_resolution(llfield_b, ll_outside: float):
     return fusions.pool(llfield_b, ll_outside)
 
 
-def score_pose(llfield, scan: Scan, pose, *, z_hit, resolution, origin,
+def score_pose(llfield, scan, pose, *, z_hit, resolution, origin,
                max_range):
     """Measurement log-likelihood of poses with no search.  A single pose
     (3,) on one (H, W) field gives a scalar (the JAX package's score_pose);
     poses (P, 3) on grouped fields (G_f, H, W) and a scan (B,) or (G_b, B)
-    give (P,).  z_hit is unused, as in the JAX package."""
+    (a Scan or the step's ScanPrep) give (P,).  z_hit is unused, as in the
+    JAX package."""
     del z_hit
     if pose.dim() == 1:
         return score_pose(llfield[None], scan, pose[None], z_hit=None,
                           resolution=resolution, origin=origin,
                           max_range=max_range)[0]
-    px, py = scan_points(scan)
+    prep = scan if isinstance(scan, ScanPrep) else _prepared(scan, 1)
     zero = torch.zeros((pose.shape[0], 1), dtype=torch.float32,
                        device=pose.device)
-    return stage_scores_batch(llfield, px, py, scan.valid & scan.hit, pose,
+    return stage_scores_batch(llfield, prep.px, prep.py, prep.use, pose,
                               zero, zero, zero, resolution=resolution,
                               origin=origin, max_range=max_range).reshape(-1)
 
@@ -147,10 +182,10 @@ def correlative_match(llfield, scan: Scan, pose0, odom: Odom, *,
     return best[0], score[0]
 
 
-def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
+def correlative_match_batch(llfield_b, scan, pose0_b, odom: Odom, *,
                             matcher_cfg, motion_cfg, resolution, origin,
                             max_range, prior_center_b=None, stage=None,
-                            pool=None):
+                            pool=None, out=None):
     """For every particle, the pose maximizing
     log p(z|x,m) + prior_weight * log p(x|x0,u) near pose0.
 
@@ -158,7 +193,8 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
     field p // (P // G_f): one a particle (the RBPF), one for all (the
     shared-map filters) or one a group (closure candidates).  scan: (B,)
     arrays, or (G_b, B) with odom of shape (G_b,), one scan and one odometry
-    a group of P // G_b particles (the robots of a multi-robot step).
+    a group of P // G_b particles (the robots of a multi-robot step): the
+    step's ScanPrep at the matcher's coarse stride, or a Scan.
     pose0_b: (P, 3) search centers (the motion-sampled poses);
     prior_center_b: (P, 3) poses the motion prior is centered at (the
     deterministic odometry poses), or None to center it at pose0.  Same
@@ -175,7 +211,9 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
     the tiles); the schedule, the prior and the argmax are unchanged.
 
     Returns (best_poses (P, 3), meas_logscores (P,)), the measurement-only
-    log-likelihood at the best pose (the reference's particle weight).
+    log-likelihood at the best pose (the reference's particle weight),
+    written into `out` = (poses (P, 3), scores (P,)) where it is given (a
+    step's rows).
     """
     stage = stage_scores_batch if stage is None else stage
     pool = half_resolution if pool is None else pool
@@ -184,17 +222,15 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
     if impl not in IMPLS:
         raise ValueError(f"matcher.impl={impl!r} is not ported (TPU-only "
                          f"backend); use one of {IMPLS}")
-    pn = pose0_b.shape[0]
+    pn, rows = pose0_b.shape[0], out
     ll_outside = math.log(1.0 / max_range)
-    px, py = scan_points(scan)
-    use = scan.valid & scan.hit
-    kw = dict(origin=origin, max_range=max_range)
-    (c_off_xy, c_off_t), refine = _stage_offsets(mc, pose0_b.device)
-
     stride = max(int(mc.coarse_beam_stride), 1)
-    px_c, py_c, use_c = (a[..., ::stride].contiguous() for a in (px, py, use))
-    c_dxs = c_off_xy.expand(pn, -1).contiguous()
-    c_dts = c_off_t.expand(pn, -1).contiguous()
+    prep = _prepared(scan, stride)
+    px, py, use = prep.px, prep.py, prep.use
+    px_c, py_c, use_c = prep.px_c, prep.py_c, prep.use_c
+    kw = dict(origin=origin, max_range=max_range)
+    _, refine = _stage_offsets(mc, pose0_b.device)
+    c_dxs, c_dts = _coarse_offsets(mc, pose0_b.device, pn)
 
     if getattr(mc, "coarse_halfres", False):
         # Basin-finding on the 2x2-mean-pooled field, bilinear at twice the
@@ -214,11 +250,13 @@ def correlative_match_batch(llfield_b, scan: Scan, pose0_b, odom: Odom, *,
     # scaled by the coarse beam fraction: a prior in per-used-beam units
     # must not change with the beam subset.
     def picked(scores, dxs, dys, dts, i, coarse=False):
-        nxt = refine[i] if i < len(refine) else (None, None)
+        last = i >= len(refine)
+        nxt = (None, None) if last else refine[i]
         return fusions.pick(scores, dxs, dys, dts, pose0_b, prior_center_b,
                             odom.d_center, odom.d_theta,
                             use if coarse else None, *nxt, motion=motion_cfg,
-                            prior_weight=mc.prior_weight, stride=stride)
+                            prior_weight=mc.prior_weight, stride=stride,
+                            out=rows if last else None)
 
     out = picked(meas, c_dxs, c_dxs, c_dts, 0, coarse=True)
     # the coarse stage's scores go before the finer stages allocate theirs:

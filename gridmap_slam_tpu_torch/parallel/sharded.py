@@ -33,12 +33,9 @@ On a mesh (1, 1) the step is RBPF.step, bit for bit.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from ..models.rbpf import RBPF
-from ..ops.cuda import fusions
+from ..models.rbpf import RBPF, scan_prep
 from ..ops.cuda.grid_update import integrate_scan_batch
 from ..ops.matcher import correlative_match_batch
 from ..ops.motion import sample_and_propagate
@@ -69,19 +66,18 @@ def make_sharded_step(engine: RBPF, mesh, jit: bool = False):
     def body(state, frame: Frame, draws, out, host_gate):
         normals, u0 = draws
         normals = normals[i_p * p_loc:(i_p + 1) * p_loc]
-        scan, tables = fusions.prepare_scan(frame.scan, frame.odom,
-                                            cfg.beam_lut_bins)
+        prep = scan_prep(cfg, frame)
         odom = frame.odom
-        keep = (torch.abs(odom.d_theta)
-                <= math.radians(cfg.skip_update_dtheta_deg)).to(torch.float32)
-        if cfg.freeze_map:          # localization-only: map never changes
-            keep = keep * 0.0
 
         # the maps' tensor is made once the first chunk is matched, as in
         # RBPF.step; on more than one 'p' rank it is the state's own where
         # the step writes into `out` (each chunk's tiles are read before
-        # K2 writes them, and the gate's gather reads a copy)
-        maps, parts = None, []
+        # K2 writes them, and the gate's gather reads a copy); F3 writes
+        # each chunk's best poses and scores into its rows
+        dev = state.poses.device
+        poses_all = torch.empty((p_loc, 3), dtype=torch.float32, device=dev)
+        scores = torch.empty((p_loc,), dtype=torch.float32, device=dev)
+        maps = None
         for a in range(0, p_loc, chunk):
             poses = state.poses[a:a + chunk]
             tiles = state.logodds[a:a + chunk]
@@ -90,22 +86,20 @@ def make_sharded_step(engine: RBPF, mesh, jit: bool = False):
             tf = tiled_ll_field(tiles, engine.taps, mesh,
                                 z_hit=cfg.matcher.z_hit,
                                 max_range=s.max_range, w_loc=w_loc, c0=c0)
-            best, score = correlative_match_batch(
-                tf, scan, pose_s, odom, matcher_cfg=cfg.matcher,
+            best, _ = correlative_match_batch(
+                tf, prep, pose_s, odom, matcher_cfg=cfg.matcher,
                 motion_cfg=cfg.motion, resolution=res, origin=origin,
-                max_range=s.max_range,
-                prior_center_b=pose_det, **match_kw)
+                max_range=s.max_range, prior_center_b=pose_det,
+                out=(poses_all[a:a + chunk], scores[a:a + chunk]),
+                **match_kw)
             if maps is None:
                 maps = (out.logodds if out is not None and n_p > 1
                         else torch.empty_like(state.logodds))
             integrate_scan_batch(
-                tiles, best, keep, *tables, resolution=res, origin=t_origin,
-                l_free=s.l_free, l_occ=s.l_occ,
+                tiles, best, prep.keep, *prep.tables, resolution=res,
+                origin=t_origin, l_free=s.l_free, l_occ=s.l_occ,
                 tol_cells=s.hit_tolerance_cells, out=maps[a:a + chunk])
-            parts.append((best, score))
-        poses, scores = (x[0] if len(x) == 1 else torch.cat(x)
-                         for x in zip(*parts))
-        return finish_step(engine, mesh, state, poses, scores,
+        return finish_step(engine, mesh, state, poses_all, scores,
                            lambda pose, into: None, u0, None,
                            cfg.resample_fraction, maps=maps, out=out,
                            host_gate=host_gate)

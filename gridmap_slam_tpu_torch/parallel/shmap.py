@@ -61,7 +61,7 @@ import torch
 from ..models import captured
 from ..models.shared import (SharedMapSLAM, SharedMapState, inject_uniform,
                              match_particles, matcher_block_size,
-                             recovery_update, surface_temper, surface_volume)
+                             recovery_update, surface_volume)
 from ..ops.cuda import fusions
 from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.geometry import wrap_angle
@@ -348,30 +348,32 @@ def make_shmap_step(engine: SharedMapSLAM, mesh, surface: bool = False,
     def body(state: SharedMapState, frame: Frame, draws, out, host_gate):
         mc = cfg.matcher
         normals, u0, inj = local_draws(engine, mesh, draws)
-        scan, tables, keep = engine._scan_inputs(frame)
+        prep = engine._scan_inputs(frame)
         odom = frame.odom
         if surface:
+            # the center from the mesh's weighted mean (the tail's plain
+            # fixed order across ranks), its window in tensor ops; the
+            # temperature inside F4
             mean, _ = global_weighted_mean(state.poses, state.log_weights,
                                            mesh)
             center = apply_odometry(mean, odom)
             c_vol, kw, kc = surface_volume(cfg, engine.taps, state.logodds,
-                                           scan, center)
+                                           prep, center)
             pose_s = sample_motion(state.poses, odom, cfg.motion, normals)
             poses, scores = fusions.score_on_volume(
                 c_vol, pose_s, steps=mc.surface_refine_steps, **kw)
-            scores = surface_temper(mc, scan, scores)
             crop, fraction = 2 * kc + 8, mc.surface_resample_fraction
         else:
             llf = log_likelihood_field_batch(
                 state.logodds[None], engine.taps, z_hit=mc.z_hit,
                 max_range=cfg.sensor.max_range)
             poses, scores = match_particles(cfg, llf, state.poses, normals,
-                                            scan, odom, chunk)
+                                            prep, odom, chunk)
             crop, fraction = 0, cfg.resample_fraction
 
         def integrate(pose, into):
-            return engine._integrate(state.logodds, pose, tables, keep, crop,
-                                     out=into)
+            return engine._integrate(state.logodds, pose, prep.tables,
+                                     prep.keep, crop, out=into)
 
         return finish_step(engine, mesh, state, poses, scores, integrate,
                            u0, inj, fraction, out=out,

@@ -29,11 +29,10 @@ import math
 
 import torch
 
-from ..models.shared import SharedMapSLAM, _window, surface_temper
+from ..models.shared import SharedMapSLAM, _window
 from ..ops.cuda.grid_update import integrate_scan_window
 from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.cuda import fusions
-from ..ops.geometry import scan_points
 from ..ops.motion import apply_odometry, sample_motion
 from ..ops.surface import (crop_center_cells, endpoint_images, scan_surface,
                            theta_grid)
@@ -79,7 +78,7 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh,
 
     def body(state, frame: Frame, draws, out, host_gate):
         normals, u0, inj = local_draws(engine, mesh, draws)
-        scan, tables, keep = engine._scan_inputs(frame)
+        prep = engine._scan_inputs(frame)
         odom = frame.odom
         dev = state.logodds.device
         mean, _ = global_weighted_mean(state.poses, state.log_weights, mesh)
@@ -107,20 +106,19 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh,
         bins = j * nt_loc + torch.arange(nt_loc, device=dev)
         thetas = theta0 + dtheta * torch.clamp(bins, max=nt - 1).to(
             torch.float32)
-        px, py = scan_points(scan)
-        wgt = (scan.valid & scan.hit).to(llf_crop.dtype)
         e_stack = endpoint_images(*fusions.endpoint_factors(
-            px, py, wgt, thetas, kc, res))
+            prep.px, prep.py, prep.wgt, thetas, kc, res))
         c_local = scan_surface(llf_crop, e_stack, ll_outside,
                                bf16=mc.surface_bf16, fft=use_fft)
         c_vol = all_gather(c_local, mesh, "m", tiled=True)[:nt]
         kw = dict(theta0=theta0, dtheta=dtheta, crop_iy0=iy0, crop_ix0=ix0,
-                  resolution=res, origin=origin, wrap_theta=wrap_theta)
+                  resolution=res, origin=origin, wrap_theta=wrap_theta,
+                  temp=mc.surface_weight_temp, n_used=prep.n_used)
 
+        # the sample, the climb and the weights' temperature (F4)
         pose_s = sample_motion(state.poses, odom, cfg.motion, normals)
         poses, scores = fusions.score_on_volume(
             c_vol, pose_s, steps=mc.surface_refine_steps, **kw)
-        scores = surface_temper(mc, scan, scores)
 
         def integrate(pose, into):
             cx = (pose[0] - origin[0]) / res
@@ -131,7 +129,8 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh,
                 torch.clamp(torch.round(cx).to(torch.int64) - c0 - icw // 2,
                             0, w_loc - icw)])
             return integrate_scan_window(
-                state.logodds, win, pose, keep, *tables, size=(ic, icw),
+                state.logodds, win, pose, prep.keep, *prep.tables,
+                size=(ic, icw),
                 col0=c0, resolution=res, origin=origin, l_free=s.l_free,
                 l_occ=s.l_occ, tol_cells=s.hit_tolerance_cells, out=into)
 

@@ -142,19 +142,19 @@ def make_tiled_step(engine: SharedMapSLAM, mesh, jit: bool = False):
 
     def body(state, frame: Frame, draws, out, host_gate):
         normals, u0, inj = local_draws(engine, mesh, draws)
-        scan, tables, keep = engine._scan_inputs(frame)
+        prep = engine._scan_inputs(frame)
         tf = tiled_ll_field(state.logodds[None], engine.taps, mesh,
                             z_hit=mc.z_hit, max_range=s.max_range,
                             w_loc=w_loc, c0=c0)
         k = state.poses.shape[0]
         ch = chunk if 0 < chunk < k and k % chunk == 0 else k
         poses, scores = match_particles(tiled_cfg, tf, state.poses, normals,
-                                        scan, frame.odom, ch,
+                                        prep, frame.odom, ch,
                                         stage=tile_stage(mesh))
 
         def integrate(pose, into):
             return integrate_scan_batch(
-                state.logodds[None], pose[None], keep, *tables,
+                state.logodds[None], pose[None], prep.keep, *prep.tables,
                 resolution=res, origin=t_origin, l_free=s.l_free,
                 l_occ=s.l_occ, tol_cells=s.hit_tolerance_cells,
                 out=None if into is None else into[None])[0]

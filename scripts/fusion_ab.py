@@ -70,8 +70,11 @@ def _p(t):
     return 0 if t is None else t.data_ptr()
 
 
-def pick_inputs(p, stage, gen):
-    nt, ny, nx = STAGES[stage]
+def pick_inputs(p, stage, gen, shape=None):
+    """A stage's F3 arguments at p particles: random scores of STAGES[stage]
+    (or `shape`, nt x ny x nx), offsets, poses and, at the coarse stage, a
+    scan's mask; the next stage's offsets but after the refine stage."""
+    nt, ny, nx = STAGES[stage] if shape is None else shape
     dev = "cuda"
     scores = torch.randn((p, nt, ny, nx), generator=gen, device=dev) - 30.0
 

@@ -1,12 +1,14 @@
 """The tensor operations one RBPF step launches, counted on the CPU.
 
 Each non-view aten operation of one warm `RBPF.step` is one kernel node of
-the step's captured graph on the card (less its copies and fills); a
-hand-written kernel (K1-K3, F1-F8) and, here on the CPU, its plain version
-counts as one.  The operations are grouped by the function of the port
-that called them (the innermost frame of gridmap_slam_tpu_torch/ops or
-models).  Small sizes: the count depends on the chunks, not on the
-particles or the map.
+the step's captured graph on the card (less its copies, fills and
+allocations); a hand-written kernel (K1-K4, F1-F8) and, here on the CPU,
+its plain version counts as one.  The operations are grouped by the
+function of the port that called them (the innermost frame of
+gridmap_slam_tpu_torch/ops or models).  Small sizes: the count depends on
+the chunks, not on the particles or the map.  Then the same of one warm
+`SharedMapSLAM.step_surface` at mega_config() cut to 2048 particles (the
+surface step's count depends on neither).
 
 Usage (no GPU; a few seconds):
     python scripts/op_count.py [--root DIR] [--chunks 2,20]
@@ -25,6 +27,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PLAIN = {"matcher": "stage_scores_batch_plain",
          "grid_update": "integrate_scan_batch_plain",
          "likelihood": "log_likelihood_field_batch_plain",
+         "surface_corr": "surface_corr_bf16_plain",
          "fusions": ("motion_plain", "pool_plain", "pick_plain",
                      "score_plain", "splat_plain", "scan_plain",
                      "weights_plain", "walk_plain")}
@@ -38,7 +41,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
-    from gridmap_slam_tpu_torch import RBPF, SlamConfig
+    from gridmap_slam_tpu_torch import (RBPF, SharedMapSLAM, SlamConfig,
+                                        mega_config)
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
     from gridmap_slam_tpu_torch.io.synthetic import (SimParams,
                                                      default_world,
@@ -105,6 +109,17 @@ def main() -> int:
             eng.step(st, frame_at(batch, 1), gen)
         print(json.dumps(dict(chunks=chunks, ops_a_scan=sum(by.values()),
                               by_source=dict(by.most_common()))), flush=True)
+    cfg = mega_config().replace(num_particles=2048)
+    eng = SharedMapSLAM(cfg, device="cpu")
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range)
+    gen = torch.Generator().manual_seed(0)
+    st, _ = eng.step_surface(eng.init(), frame_at(batch, 0), gen)
+    by.clear()
+    with Count():
+        eng.step_surface(st, frame_at(batch, 1), gen)
+    print(json.dumps(dict(engine="step_surface", preset="mega",
+                          ops_a_scan=sum(by.values()),
+                          by_source=dict(by.most_common()))), flush=True)
     return 0
 
 

@@ -8,8 +8,11 @@ shared memory or read in place), each launched as csrc/fusions.cu
 gs_fusion_pick launches every plan (as many blocks as are resident): every
 output equal bit for bit to the chosen plan's (else exit 1) and its device
 ms inside a CUDA graph of REPS calls (chip_smoke.graph_ms), beside the
-stage's byte bound (chip_smoke.fusion_bound).  Prints the card's name and power limit first
-and a JSON line a run.
+stage's byte bound (chip_smoke.fusion_bound).  Then the chosen plan at
+stages past 2048 (dy, dx) cells (WIDE: a lane's cells walked in groups) at
+WIDE_PARTICLES: every output equal bit for bit to the plain version's, and
+its device ms beside the bound.  Prints the card's name and power limit
+first and a JSON line a run.
 
 Usage (needs a GPU; ~1 min):
     python scripts/pick_sweep.py [--particles N]
@@ -33,6 +36,10 @@ REPS = 10
 PLANS = {"coarse": ((32, 1, 1), (16, 2, 1), (64, 1, 1), (128, 1, 1),
                     (32, 1, 0)),
          "fine": ((4, 8, 1), (8, 4, 1), (16, 2, 1), (32, 1, 1), (4, 8, 0))}
+# stages past 2048 cells: a coarse 51 x 51 at 11 headings, a last 101 x 101
+# at 3, at the RBPF's chunks
+WIDE = {"coarse": (11, 51, 51), "refine": (3, 101, 101)}
+WIDE_PARTICLES = (250, 500)
 
 
 def main() -> int:
@@ -85,6 +92,22 @@ def main() -> int:
                    bound_by=by, share_of_bound=bound / ms)
         del call, ref, scores
         torch.cuda.empty_cache()
+    for (stage, shape), p in ((w, p) for w in WIDE.items()
+                              for p in WIDE_PARTICLES):
+        call = ab.pick_inputs(p, stage, gen, shape=shape)
+        kw = dict(motion=motion, prior_weight=0.7, stride=3)
+        got = fusions.pick_cuda(*call, **kw)
+        want = fusions.pick_plain(*call, **kw)
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want))
+        same_all &= same
+        ms = cs.graph_ms(lambda: fusions.pick_cuda(*call, **kw), REPS)
+        bound, by = cs.fusion_bound("F3", call, kw)
+        cs.say("pick_wide", stage=stage, shape=list(shape), particles=p,
+               plan=fusions.pick_plan(p, *shape)._asdict(),
+               bits_equal_plain=same, graph_ms=ms, bound_ms=bound,
+               bound_by=by, share_of_bound=bound / ms)
+        del call, got, want
     print(json.dumps({"bits_equal": same_all}), flush=True)
     return 0 if same_all else 1
 

@@ -131,7 +131,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return torch.cuda.max_memory_allocated() - base
 
-    scan, _ = prepare_scan(f1.scan, f1.odom, cfg.beam_lut_bins)
+    scan = prepare_scan(f1.scan, f1.odom, cfg.beam_lut_bins).scan
     center = apply_odometry(weighted_mean_pose(st.poses, st.log_weights),
                             f1.odom)
     mc = cfg.matcher

@@ -308,9 +308,116 @@ def test_pick_plan_at_the_cells(p, stage, lanes):
     assert (plan.lanes, plan.staged) == (lanes, True)
 
 
-def test_pick_plan_refuses_more_cells_than_a_block_holds():
-    with pytest.raises(ValueError, match="cells"):
-        fusions.pick_plan(4, 3, 250, 250)
+# stages of more (dy, dx) cells than PICK_CELLS lanes' registers hold
+# (ny nx > 2048): ny nx -> (nt, ny, nx)
+WIDE_STAGES = {2049: (1, 3, 683), 2601: (11, 51, 51), 10201: (3, 101, 101)}
+
+
+def _pick_lane_groups(lane, lanes, nt, ny, nx):
+    """A lane's candidates as fusion_pick_kernel's grouped instantiation
+    visits them: its cells r0 + a lanes in groups of PICK_CELLS, a group's
+    headings in turn and its cells in turn within a heading."""
+    cands, cells = _pick_lane_candidates(lane, lanes, nt, ny, nx)
+    nyx, per = ny * nx, fusions.PICK_CELLS
+    r = sorted({c % nyx for c in cands})
+    return [[it * nyx + q for it in range(nt) for q in r[g:g + per]]
+            for g in range(0, cells, per)]
+
+
+def _before(v, i, w, j):
+    """csrc/fusions.cu before(): (v, i) first in the argmax's order."""
+    if j < 0:
+        return i >= 0
+    vn, wn = math.isnan(v), math.isnan(w)
+    return i >= 0 and ((vn and not wn) or (vn == wn and v > w)
+                       or (vn == wn and not v != w and i < j)
+                       or (vn and wn and i < j))
+
+
+@pytest.mark.parametrize("cells", sorted(WIDE_STAGES))
+def test_pick_plan_covers_each_cell_past_2048_once(cells):
+    """Past 2048 (dy, dx) cells the plan is the largest team, and each lane
+    walks its cells in groups of at most PICK_CELLS: every candidate of a
+    particle is visited once, by one lane, each group in index order."""
+    nt, ny, nx = WIDE_STAGES[cells]
+    for p in (1, 250, 500, 20_000):
+        plan = fusions.pick_plan(p, nt, ny, nx)
+        assert plan.lanes == fusions.PICK_THREADS and plan.per_slab == 1
+        visits = np.zeros(nt * cells, np.int32)
+        for lane in range(plan.lanes):
+            for group in _pick_lane_groups(lane, plan.lanes, nt, ny, nx):
+                assert len(group) <= nt * fusions.PICK_CELLS
+                assert group == sorted(group)
+                np.add.at(visits, group, 1)
+        assert (visits == 1).all()
+
+
+@pytest.mark.parametrize("kind", ["ties", "nan", "neginf", "zeros"])
+@pytest.mark.parametrize("cells", sorted(WIDE_STAGES))
+def test_pick_lane_groups_take_the_first_argmax(cells, kind):
+    """The grouped walk as the kernel does it: a group's first maximum by
+    strict comparison (a NaN kept once taken), the groups' and the lanes'
+    picks combined in before()'s order; on scores with ties at the groups'
+    edges, NaN, -inf or +-0 it is the first argmax (NaN first)."""
+    nt, ny, nx = WIDE_STAGES[cells]
+    n, lanes = nt * cells, fusions.PICK_THREADS
+    rng = np.random.default_rng(cells)
+    v = rng.normal(-30, 3, n).astype(np.float32)
+    edges = sorted({e for k in range(1, 5) for e in
+                    (k * fusions.PICK_CELLS * lanes - 1,
+                     k * fusions.PICK_CELLS * lanes, n - k) if 0 <= e < n})
+    if kind == "ties":
+        v[edges] = 1e4
+    elif kind == "nan":
+        v[edges[1::2]] = np.nan
+    elif kind == "neginf":
+        v[:] = -np.inf
+    else:
+        v = np.where(rng.uniform(size=n) < 0.5, np.float32(0.0),
+                     np.float32(-0.0))
+    bv, bi = -math.inf, -1
+    for lane in range(lanes):
+        lv, li = -math.inf, -1
+        for group in _pick_lane_groups(lane, lanes, nt, ny, nx):
+            gv, gi = -math.inf, -1
+            for c in group:
+                if not math.isnan(gv) and not v[c] <= gv:
+                    gv, gi = float(v[c]), c
+            if _before(gv, gi, lv, li):
+                lv, li = gv, gi
+        if li < 0 and _pick_lane_candidates(lane, lanes, nt, ny, nx)[1]:
+            li = _pick_lane_groups(lane, lanes, nt, ny, nx)[0][0]
+        if _before(lv, li, bv, bi):
+            bv, bi = lv, li
+    want = (int(np.flatnonzero(np.isnan(v))[0]) if np.isnan(v).any()
+            else int(torch.argmax(torch.from_numpy(v))))
+    assert bi == want
+
+
+@pytest.mark.parametrize("shape", [(11, 51, 51), (3, 101, 101)])
+def test_plain_pick_matches_jax_past_2048_cells(shape):
+    """pick_plain at a coarse stage of 51 x 51 cells (11 headings) and a
+    fine one of 101 x 101 (3), against JAX's at test_plain_pick_matches_jax's
+    tolerance: the chosen candidate, the best pose and its score."""
+    nt, ny, nx = shape
+    p = 4
+    inputs = _pick_inputs(23, p, nt, ny, nx)
+    scores, dxs, dys, dts, pose0, center, d_c, d_t = inputs
+    scale = np.ones(p, np.float32)
+    jfx, jfy, jft, jflat, jmeas, jtotal = _jax_pick(
+        scores, dxs, dys, dts, pose0, center, d_c, d_t, scale, 0.7)
+    top2 = np.sort(jtotal.reshape(p, -1), -1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > GAP
+    assert clear.sum() >= p - 1
+    nxt = _torch_pick(inputs, center, 1)
+    flat = _flat_from_offsets(nxt, dxs, dys, dts, ny, nx)
+    np.testing.assert_array_equal(flat[clear], jflat[clear])
+    best, meas = _torch_pick(inputs, center, 1, final=True)
+    np.testing.assert_allclose(
+        best.numpy()[clear], (pose0 + np.stack([jfx, jfy, jft], -1))[clear],
+        rtol=PICK_RTOL, atol=1e-6)
+    np.testing.assert_allclose(meas.numpy()[clear], jmeas[clear],
+                               rtol=PICK_RTOL)
 
 
 def _split_points(nt, ny, nx):

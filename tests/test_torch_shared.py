@@ -577,3 +577,46 @@ def test_replay_ate_within_policy():
     assert max(ate_j, ate_t) < 0.15, (ate_j, ate_t)
     m = eng.best_map(state).numpy()
     assert (m > 0).sum() > 50 and (m < 0).sum() > 1000
+
+
+@pytest.mark.parametrize("crop", [0, 40, 116])
+def test_surface_volume_on_f7s_window_is_the_centers(crop):
+    """step_surface's volume on the window F7's center call places (its
+    plain version on the CPU: the weighted mean propagated by the
+    odometry, then the crop, the extended window and the bins) equals the
+    volume placed around that center in tensor ops, bit for bit: the whole
+    map, a crop whose extended window fits, one whose does not.  The
+    window spec is the config's: crop, map, blur radius, theta_grid's
+    bins."""
+    from gridmap_slam_tpu_torch.ops.cuda import fusions
+    from gridmap_slam_tpu_torch.ops.motion import apply_odometry
+    from gridmap_slam_tpu_torch.ops.surface import theta_grid
+    from gridmap_slam_tpu_torch.types import Odom
+    cfg = SlamConfig(num_particles=64).with_overrides(
+        {"matcher.surface_crop_cells": crop, "matcher.surface_nt": 9})
+    rng = np.random.default_rng(crop)
+    lo = torch.from_numpy(rng.normal(0, 2, (cfg.map.cells_y, cfg.map.cells_x))
+                          .astype(np.float32))
+    lw = torch.from_numpy(rng.normal(-3, 1, 64).astype(np.float32))
+    poses = torch.from_numpy(rng.uniform(-1, 1, (64, 3)).astype(np.float32))
+    odom = Odom(torch.tensor(0.1), torch.tensor(0.2))
+    frames, _ = simulate_log(default_world(), square_path_controls(2),
+                             params=SimParams(beams_per_rev=90), seed=1)
+    batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range)
+    prep = ts.SharedMapSLAM(cfg, device="cpu")._scan_inputs(
+        frame_at(batch, 1))
+    spec = ts.volume_window_spec(cfg)
+    dtheta, _, t_off = theta_grid(9, math.radians(
+        cfg.matcher.surface_theta_span_deg))
+    hc = min(crop, cfg.map.cells_y) if crop else cfg.map.cells_y
+    assert spec.crop == (hc, hc) and (spec.nt, spec.dtheta, spec.t_off) == (
+        9, dtheta, t_off)
+    taps = SharedMapSLAM(cfg, device="cpu").taps
+    win = fusions.weights(lw, poses, window=spec, odom=odom).volume
+    got = ts.surface_volume(cfg, taps, lo, prep, window=win)
+    center = apply_odometry(fusions.weights(lw, poses).weighted, odom)
+    want = ts.surface_volume(cfg, taps, lo, prep.scan, center)
+    assert torch.equal(got[0], want[0]) and got[2] == want[2]
+    for k in got[1]:
+        a, b = got[1][k], want[1][k]
+        assert (torch.equal(a, b) if torch.is_tensor(a) else a == b), k

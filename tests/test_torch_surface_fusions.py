@@ -319,7 +319,8 @@ def test_plain_scan_prep_matches_jax(n, width, d_theta):
     jo = JOdom(d_center=jnp.float32(0.12), d_theta=jnp.float32(d_theta))
     to = Odom(d_center=torch.tensor(0.12), d_theta=torch.tensor(d_theta))
     want = jgeo.deskew_scan(js, jo)
-    got, tables = fusions.prepare_scan(ts, to, 2048)
+    prep = fusions.prepare_scan(ts, to, 2048)
+    got, tables = prep.scan, prep.tables
     np.testing.assert_allclose(got.dist.numpy(), np.asarray(want.dist),
                                atol=DESKEW_ATOL)
     dang = np.angle(np.exp(1j * (got.angle.numpy().astype(np.float64)
@@ -360,7 +361,8 @@ def test_plain_scan_prep_of_a_batch_is_each_scan():
                    for f in ("angle", "dist", "hit", "valid")))
     to = Odom(d_center=torch.tensor([c for c, _ in odom]),
               d_theta=torch.tensor([t for _, t in odom]))
-    got, tables = fusions.prepare_scan(batch, to, 512)
+    prep = fusions.prepare_scan(batch, to, 512)
+    got, tables = prep.scan, prep.tables
     assert tables[0].shape == (3, 512)
     for k, (js, _) in enumerate(pairs):
         want = jgeo.deskew_scan(js, JOdom(d_center=jnp.float32(odom[k][0]),
@@ -403,7 +405,8 @@ def test_cpu_tensors_go_to_the_plain_versions(monkeypatch):
                                RES)))
     _, ts = _planted(96, 90, seed=13)
     to = Odom(d_center=torch.tensor(0.1), d_theta=torch.tensor(0.2))
-    scan, tables = fusions.prepare_scan(ts, to, 256)
+    prep = fusions.prepare_scan(ts, to, 256)
+    scan, tables = prep.scan, prep.tables
     plain = fusions.scan_plain(ts.angle, ts.dist, ts.hit, ts.valid,
                                to.d_center, to.d_theta, n_bins=256)
     assert all(torch.equal(a, b) for a, b in zip(
@@ -447,3 +450,195 @@ def test_signatures_name_f4_to_f6():
         assert len(_build.SIGNATURES[name]) == len(
             entries[name].split(",")), name
 
+
+
+# ------------------------------------- F6's step outputs, F4's temperature
+KEEP_DEG = 30.0                          # SlamConfig.skip_update_dtheta_deg
+
+
+def _j_points(js, stride):
+    """The JAX step's expressions of a (deskewed) scan: scan_points
+    (gridmap_slam_tpu/ops/geometry.py:94), the used beams and their float32
+    (ops/matcher.py:213-214, models/shared.py:166), every stride-th beam
+    (ops/matcher.py:285-286) and the used beams' count as surface_temper
+    sums it (models/shared.py:183)."""
+    px, py = jgeo.scan_points(js)
+    use = js.valid & js.hit
+    wgt = use.astype(jnp.float32)
+    n_used = jnp.maximum(jnp.sum(wgt, -1), 1.0)
+    return (px, py, use, wgt, px[..., ::stride], py[..., ::stride],
+            use[..., ::stride], n_used)
+
+
+@pytest.mark.parametrize("stride", [1, 3, 4])
+@pytest.mark.parametrize("n,width", [(90, 96), (180, 192), (0, 96)])
+def test_plain_scan_points_match_jax(n, width, stride):
+    """ScanPrep's endpoints against JAX's scan_points (the ops tests'
+    tolerance), the used beams, their float32, every stride-th of them and
+    their count exactly, an all-invalid scan among them (count 1)."""
+    if n:
+        js, ts = _planted(width, n, seed=n + stride)
+    else:
+        js = JScan.from_arrays([], [], [], max_beams=width)
+        ts = Scan.from_arrays([], [], [], max_beams=width)
+    prep = fusions.prepare_scan(ts, stride=stride)
+    jpx, jpy, juse, jwgt, jpx_c, jpy_c, juse_c, jn = _j_points(js, stride)
+    for got, want in ((prep.px, jpx), (prep.py, jpy), (prep.px_c, jpx_c),
+                      (prep.py_c, jpy_c)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=DESKEW_ATOL)
+    for got, want in ((prep.use, juse), (prep.wgt, jwgt),
+                      (prep.use_c, juse_c), (prep.n_used, jn)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(prep.px_c, prep.px[::stride])
+    assert prep.keep is None and prep.tables == (None, None, None)
+    assert prep.scan is ts and prep.stride == stride
+
+
+@pytest.mark.parametrize("freeze", [False, True])
+def test_plain_scan_gate_matches_jax(freeze):
+    """The map update's gate keep of a batch of odometry rows, the bound
+    itself and the float32 on either side of it among them, exactly as the
+    JAX step computes it (models/rbpf.py:150-153); 0 everywhere under
+    freeze_map."""
+    bound = np.float32(math.radians(KEEP_DEG))
+    d_theta = np.array([0.0, 0.4, -0.6, bound, -bound,
+                        np.nextafter(bound, np.float32(1.0)),
+                        np.nextafter(bound, np.float32(0.0)), np.nan],
+                       np.float32)
+    g = d_theta.size
+    pairs = [_planted(96, 90, seed=40 + k) for k in range(g)]
+    batch = Scan(*(torch.stack([getattr(t, f) for _, t in pairs])
+                   for f in ("angle", "dist", "hit", "valid")))
+    to = Odom(d_center=torch.full((g,), 0.1), d_theta=_t(d_theta))
+    prep = fusions.prepare_scan(batch, to, 64, stride=4,
+                                keep_below=math.radians(KEEP_DEG),
+                                freeze=freeze)
+    want = (jnp.abs(jnp.asarray(d_theta))
+            <= math.radians(KEEP_DEG)).astype(jnp.float32)
+    if freeze:
+        want = want * 0.0
+    np.testing.assert_array_equal(prep.keep.numpy(), np.asarray(want))
+    one = fusions.prepare_scan(pairs[3][1], Odom(torch.tensor(0.1),
+                                                 torch.tensor(bound)),
+                               keep_below=math.radians(KEEP_DEG))
+    assert one.keep.shape == () and float(one.keep) == 1.0
+    # each row's endpoints are its deskewed scan's (NaN where its heading
+    # is), bit for bit
+    for k in range(g):
+        row = Scan(*(getattr(prep.scan, f)[k] for f in ("angle", "dist",
+                                                        "hit", "valid")))
+        alone = fusions.prepare_scan(row, stride=4)
+        for a, b in zip(prep[2:10], alone[2:10]):
+            np.testing.assert_array_equal(a[k].numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("temp", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("steps", [0, 2])
+def test_plain_tempered_scores_match_jax(temp, steps):
+    """F4's plain version with the temperature against JAX's
+    surface_temper of JAX's sample and climb (rtol 1e-6,
+    tests/test_torch_shared.py), the used beams counted by F6's plain
+    version; and it is the untempered scores tempered."""
+    from types import SimpleNamespace
+
+    from gridmap_slam_tpu.models import shared as jshared
+    js, ts = _planted(192, 150, seed=31)
+    vol = _volume(seed=32)
+    poses = _rim_poses(False, seed=33)
+    n_used = fusions.prepare_scan(ts).n_used
+    kw = _torch_kw(False)
+    _, got = fusions.score_plain(_t(vol), _t(poses), steps=steps, temp=temp,
+                                 n_used=n_used, **kw)
+    jkw = _kw(False)
+    jpacked = jsf.pack_neighborhoods(jnp.asarray(vol), False)
+    want = jsf.sample_surface(jnp.asarray(vol), jnp.asarray(poses),
+                              packed=jpacked, **jkw)
+    if steps:                  # op by op, as test_plain_climb_matches_jax
+        with jax.disable_jit():
+            _, want = jsf.refine_on_surface(
+                jnp.asarray(vol), jnp.asarray(poses), want, steps=steps,
+                packed=jpacked, **jkw)
+    want = jshared.surface_temper(SimpleNamespace(surface_weight_temp=temp),
+                                  js, want)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    _, raw = fusions.score_plain(_t(vol), _t(poses), steps=steps, **kw)
+    assert torch.equal(got, fusions.temper(raw, temp, n_used))
+
+
+# ------------------------------------------------------- F7's windows
+# (crop, map, blur radius) of the volume windows held to JAX: a crop whose
+# extended window fits, one that does not (the whole map), the whole map
+WINDOWS = {"fits": ((20, 20), (60, 60), 3), "wider": ((48, 30), (60, 80), 8),
+           "whole": ((60, 60), (60, 60), 2)}
+
+
+def _spec(case, nt=25, span=12.0):
+    """The volume WindowSpec of a WINDOWS case, as
+    models/shared.volume_window_spec builds one from a config."""
+    crop, (h, w), r = WINDOWS[case]
+    dtheta, _, t_off = tsf.theta_grid(nt, math.radians(span))
+    fits = crop[0] + 2 * r <= h and crop[1] + 2 * r <= w
+    return fusions.WindowSpec(
+        crop=crop, full=(h, w), resolution=RES, origin=ORIGIN, volume=True,
+        radius=r, ext=(crop[0] + 2 * r, crop[1] + 2 * r) if fits else (h, w),
+        nt=nt, t_off=t_off, dtheta=dtheta)
+
+
+@pytest.mark.parametrize("span", [12.0, 180.0])
+@pytest.mark.parametrize("case", sorted(WINDOWS))
+def test_plain_volume_window_matches_jax(case, span):
+    """F7's plain volume window (the weighted mean propagated by the
+    odometry, then its crop) against JAX: the center within the motion
+    tests' tolerance of JAX's apply_odometry, and of that center the crop's
+    corner (crop_center_cells), the extended window's corner and the crop's
+    offset in it (models/shared.py:145-150) and the bins (theta_grid,
+    models/shared.py:157-162), exactly."""
+    from gridmap_slam_tpu.ops import motion as jmotion
+    spec = _spec(case, span=span)
+    (hc, wc), (h, w), r = spec.crop, spec.full, spec.radius
+    rng = np.random.default_rng(7)
+    for k in range(30):
+        mean = np.array([rng.uniform(-1.5, 3.5), rng.uniform(-1.5, 3.5),
+                         rng.uniform(-3.5, 3.5)], np.float32)
+        dc, dt = (np.float32(v) for v in rng.uniform(-0.4, 0.4, 2))
+        win = fusions.window_plain(_t(mean), Odom(_t(dc), _t(dt)), spec)
+        jc = jmotion.apply_odometry(jnp.asarray(mean),
+                                    JOdom(jnp.float32(dc), jnp.float32(dt)))
+        np.testing.assert_allclose(win.center.numpy(), np.asarray(jc),
+                                   atol=1e-6)
+        c = jnp.asarray(win.center.numpy())
+        iy0, ix0 = jsf.crop_center_cells(c[:2], (hc, wc), (h, w), RES,
+                                         ORIGIN)
+        assert (int(win.iy0), int(win.ix0)) == (int(iy0), int(ix0))
+        if hc + 2 * r <= h and wc + 2 * r <= w:
+            ey0 = jnp.clip(iy0 - r, 0, h - spec.ext[0])
+            ex0 = jnp.clip(ix0 - r, 0, w - spec.ext[1])
+            assert (int(win.ey0), int(win.ex0), int(win.oy), int(win.ox)) \
+                == (int(ey0), int(ex0), int(iy0 - ey0), int(ix0 - ex0))
+        dtheta, _, t_off = jsf.theta_grid(spec.nt, math.radians(span))
+        theta0 = c[2] + t_off
+        thetas = theta0 + dtheta * jnp.arange(spec.nt, dtype=jnp.float32)
+        np.testing.assert_array_equal(win.theta0.numpy(), np.asarray(theta0))
+        np.testing.assert_array_equal(win.thetas.numpy(), np.asarray(thetas))
+
+
+def test_plain_weights_place_the_windows():
+    """F7's plain version with a volume WindowSpec returns window_plain of
+    its weighted mean; with the map update's, the crop around its
+    integration pose (crop_center_cells, stacked), exactly as the engines
+    placed them before."""
+    rng = np.random.default_rng(9)
+    lw = _t(rng.normal(-3, 1, 300).astype(np.float32))
+    poses = _t(rng.uniform(-1, 2, (300, 3)).astype(np.float32))
+    odom = Odom(torch.tensor(0.1), torch.tensor(-0.2))
+    spec = _spec("fits")
+    tail = fusions.weights_plain(lw, poses, window=spec, odom=odom)
+    want = fusions.window_plain(tail.weighted, odom, spec)
+    assert all(torch.equal(a, b) for a, b in zip(tail.volume, want))
+    crop = spec._replace(volume=False, crop=(30, 30))
+    tail = fusions.weights_plain(lw, poses, resample_fraction=0.5,
+                                 window=crop)
+    want = torch.stack(tsf.crop_center_cells(
+        tail.integ_pose[:2], (30, 30), spec.full, RES, ORIGIN))
+    assert torch.equal(tail.crop, want) and tail.volume is None
