@@ -177,10 +177,15 @@ Phases, each printed on its own line:
    and the distributed Gauss-Newton on grand_tour_216's graph and the
    1000 / 3000-keyframe synthetic graphs (against posegraph.optimize:
    chi2 rtol 1e-3, nodes atol 1e-3, chi2 falling), ms an iteration;
-   then shmap (p = 2) on 2 gloo ranks on the one card (CUDA tensors; NCCL
-   refuses two ranks on one card) over 3 scans at the parity width: the
-   ranks agree, and equal the mesh (1, 1) run within the CPU tests'
-   tolerances;
+   every path's tail on F7's mesh form (its passes with the pmax and
+   psums between them, the epilogue on the gathered candidates) and, on
+   one rank, F8, each recorded call equal to its plain version bit for
+   bit; then shmap and shmap in surface mode (p = 2) on 2 gloo ranks on
+   the one card (CUDA tensors; NCCL refuses two ranks on one card) over 3
+   scans at the parity width, their gates where two of them resample: the
+   ranks agree, equal the mesh (1, 1) run within the CPU tests'
+   tolerances, and each rank's F7 and F8 mesh-form calls (F8's walking
+   the gathered rows) equal their plain versions bit for bit;
 19. cli — the port's application layer, in this process on the card:
    `python -m gridmap_slam_tpu_torch.app.cli replay` at the parity width on
    maps/room_loop_40.rec (500 particles, chunk 250, 192 beam slots, with
@@ -245,10 +250,14 @@ Phases, each printed on its own line:
    offsets, the last stage writing the best pose, on scores that tie at
    the split points of its launch plan, NaN, -inf, +-0 and all equal; F7 at
    1 to 1 048 576 weights a robot, one and two robots, with and without the
-   epilogue, on tied maxima and -inf weights), and a line of
+   epilogue, on tied maxima and -inf weights; F7's mesh form at 8 to
+   1 048 576 weights split over 2 and 4 ranks emulated by threads, its
+   tail with and without the epilogue and its center call, and F8's mesh
+   form on each rank's slots of the gathered rows), and a line of
    every path's checks; it fails where a path
-   has no checked F6 call, a single-device path (WEIGHTS_PATHS) no checked
-   F7 and F8 call (its eager steps run the gate's body every scan), a matcher path (parity, chip, pr1, mega_blocked,
+   has no checked F6 call, a path of WEIGHTS_PATHS no checked
+   F7 (the mesh paths F7's mesh form's) and F8 call (its eager steps run
+   the gate's body every scan), a matcher path (parity, chip, pr1, mega_blocked,
    multi (10 000), posegraph's filter and closures, tiled) no checked F3
    call, or a surface path (mega, the city step, the mega_bf16 and
    city_bf16 steps, mega refine, shmap_surface, surface_sharded) no checked
@@ -376,12 +385,14 @@ FRONTEND_NODES = {"verify": {"stage_scores": 10, "integrate_scan": 2,
                              "log_likelihood_field": 2, "surface_corr": 0,
                              "stage_scores_tile": 0, "motion": 0, "pool": 2,
                              "pick": 10, "sample": 0, "splat": 0,
-                             "scan": 2, "weights": 0, "walk": 0},
+                             "scan": 2, "weights": 0, "walk": 0,
+                             "weights_mesh": 0, "walk_mesh": 0},
                   "rebuild": {"stage_scores": 0, "integrate_scan": 1,
                               "log_likelihood_field": 0, "surface_corr": 0,
                               "stage_scores_tile": 0, "motion": 0,
                               "pool": 0, "pick": 0, "sample": 0, "splat": 0,
-                              "scan": 1, "weights": 0, "walk": 0}}
+                              "scan": 1, "weights": 0, "walk": 0,
+                              "weights_mesh": 0, "walk_mesh": 0}}
 CHIP_PARTICLES, CHIP_CHUNK = 10_000, 500       # bench.py:623-625
 PR1_SCANS = 3          # the pr1 phase's scans under CallRecorder
 # the wide phase's coarse stage: 51 x 51 (dy, dx) cells, more than F3's
@@ -424,21 +435,23 @@ BA_CHI2_RTOL, BA_NODES_ATOL = 1e-3, 1e-3   # tests/test_ba.py:43-45
 # plain versions (multi at 10 000 a robot; the posegraph flow's filter and
 # closures)
 FUSION_ROWS = ("motion", "pool", "pick", "sample", "splat", "scan",
-               "weights", "walk")
+               "weights", "walk", "weights_mesh", "walk_mesh")
 # the surface paths, each of which must hold a checked F4 (and F5) call
 # (the mega refine path its hill-climb's too)
 SURFACE_PATHS = ("mega", "city step", "mega_bf16 step", "city_bf16 step",
                  "mega refine", "shmap_surface", "surface_sharded")
 # every path must hold a checked F6 call, the matcher paths an F3 call
 FUSION_PATHS = ("parity", "chip", "pr1", "mega_blocked", "multi 10000",
-                "posegraph_rbpf", "posegraph_closures", "tiled", "wide51",
-                *SURFACE_PATHS)
-# the single-device paths, each of which must hold a checked F7 call and,
-# where a gate fired, a checked F8 call (the mesh engines' tail keeps its
-# tensor ops: ops/resample's plain functions)
+                "posegraph_rbpf", "posegraph_closures", "shmap", "tiled",
+                "sharded", "wide51", *SURFACE_PATHS)
+# the parallel phase's paths at mesh (1, 1), whose tail is F7's mesh form
+MESH_PATHS = ("shmap", "shmap_surface", "tiled", "surface_sharded",
+              "sharded")
+# the paths each of which must hold a checked F7 call (the mesh paths F7's
+# mesh form's) and, where a gate fired, a checked F8 call
 WEIGHTS_PATHS = ("parity", "chip", "pr1", "mega_blocked", "multi 10000",
                  "posegraph_rbpf", "mega", "city step", "mega_bf16 step",
-                 "city_bf16 step", "mega refine")
+                 "city_bf16 step", "mega refine", *MESH_PATHS)
 FUSION_CHECKS = []         # every recorded F1-F8 call's check, in order
 FUSION_ARGS = {}           # the first recorded call's (args, kw) a kernel
 # the kernel rows held in the conditional bodies of the frontend's graphs
@@ -545,7 +558,8 @@ def build_phase() -> None:
     build line; K1's untiled and tile variants, K2's whole-map and window
     variants, K4's prologue and correlation.  K1's, K3's and K4's
     shared memory is dynamic: a call's plan sets it.  A spill in K2, K3,
-    K4, F3 (twelve instantiations), F7 or F8, or a spill store in K1 or K1t's
+    K4, F3 (twelve instantiations), F7 (its mesh form's passes too) or F8,
+    or a spill store in K1 or K1t's
     staged kernel, fails the run.  K4 is its prologue (surface_corr_prep)
     and the correlation (surface_corr_kernel)."""
     from gridmap_slam_tpu_torch.ops.cuda import _build
@@ -588,11 +602,13 @@ def build_phase() -> None:
         library=path.name, k1_registers_assumed=kmatch.REGISTERS,
         k1_variants=k1, k1_tile_staged_variants=k1t, k2_variants=k2,
         k3_variants=k3, k4_kernels=k4, fusion_kernels=fused)
-    tail = [v for v in fused if v["kernel"].startswith(("weights", "walk"))]
-    if len(tail) != 6 or any(v["spill_stores"] or v["spill_loads"]
-                             for v in tail):
-        raise AssertionError(f"F7 and F8: expected 6 kernels without "
-                             f"spills: {tail}")
+    tail = [v for v in fused
+            if v["kernel"].startswith(("weights", "walk", "mesh"))]
+    if len(tail) != 14 or any(v["spill_stores"] or v["spill_loads"]
+                              for v in tail):
+        raise AssertionError(f"F7 and F8: expected 14 kernels (F7's four "
+                             f"and its mesh form's four, F8's two and its "
+                             f"mesh form's four) without spills: {tail}")
     pick = [v for v in fused if v["kernel"] == "pick"]
     if len(pick) != 12 or any(v["spill_stores"] or v["spill_loads"]
                               for v in pick):
@@ -1230,7 +1246,8 @@ class _TileCount:
 class _FusionCount:
     """One of F1-F8's launch counts (ops/cuda/fusions.motion_launches,
     pool_launches, pick_launches, sample_launches, splat_launches,
-    scan_launches, weights_launches, walk_launches) read and set as a
+    scan_launches, weights_launches, walk_launches, and the mesh forms'
+    weights_mesh_launches and walk_mesh_launches) read and set as a
     module's `launches`."""
 
     def __init__(self, attr: str):
@@ -1867,7 +1884,8 @@ KERNEL_ROWS = {"K1": "stage_scores", "K2": "integrate_scan",
                "K3": "log_likelihood_field", "K1t": "stage_scores_tile",
                "K2w": "integrate_scan", "K4": "surface_corr",
                "F1": "motion", "F2": "pool", "F3": "pick", "F4": "sample",
-               "F5": "splat", "F6": "scan", "F7": "weights", "F8": "walk"}
+               "F5": "splat", "F6": "scan", "F7": "weights", "F8": "walk",
+               "F7m": "weights_mesh", "F8m": "walk_mesh"}
 # the rows of the untiled paths (K1's tile variant runs on tiled maps only)
 BASE_ROWS = ("stage_scores", "integrate_scan", "log_likelihood_field")
 _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
@@ -1880,7 +1898,9 @@ _ENTRY = {"K1": ("matcher", "stage_scores_batch_cuda"),
           "F3": ("fusions", "pick_cuda"), "F4": ("fusions", "score_cuda"),
           "F5": ("fusions", "splat_cuda"),
           "F6": ("fusions", "scan_cuda"), "F7": ("fusions", "weights_cuda"),
-          "F8": ("fusions", "walk_cuda")}
+          "F8": ("fusions", "walk_cuda"),
+          "F7m": ("fusions", "weights_mesh_cuda"),
+          "F8m": ("fusions", "walk_mesh_cuda")}
 PATH_MAX_ERR = {row: 0.0 for row in KERNEL_ROWS.values()}
 BOUNDS = {"K1": k1_bound, "K2": k2_bound, "K3": k3_bound, "K1t": k1t_bound,
           "K2w": k2w_bound, "K4": k4_bound}
@@ -2070,7 +2090,7 @@ def check_recorded(rec: CallRecorder, launches_by_path) -> list:
     return checks
 
 
-FUSIONS = ("F1", "F2", "F3", "F4", "F5", "F6", "F7", "F8")
+FUSIONS = ("F1", "F2", "F3", "F4", "F5", "F6", "F7", "F8", "F7m", "F8m")
 
 
 def _outputs(out) -> list:
@@ -2101,6 +2121,27 @@ def fusion_bound(kernel, args, kw):
     climb step; F5 and F6 their constants above) over the FP32 peak, as
     bench/bounds.bound."""
     from gridmap_slam_tpu_torch.bench.bounds import bound, nbytes
+    if kernel == "F7m":
+        # the rank's weights and poses read once; the candidate, the rank's
+        # total and moments written and the epilogue's outputs (the
+        # collectives' bytes are theirs, not the kernels')
+        lw, win = args[0], kw.get("window")
+        out = 20 + 4 + 16 + (0 if kw.get("center") else 24)
+        out += (17 if kw.get("resample_fraction") is not None else 0) + (
+            12 if kw.get("recov") is not None else 0)
+        if win is not None:
+            out += 16 if not win.volume else 48 + 12 + 4 * (1 + win.nt)
+        ins = [v for v in kw.values() if torch.is_tensor(v)]
+        return bound(F7_FLOPS * lw.numel(),
+                     nbytes([a for a in args if torch.is_tensor(a)] + ins)
+                     + out)
+    if kernel == "F8m":
+        # the gathered rows read once, F8's operations over all of them;
+        # the window's slots written
+        n, count = args[0].shape[0], kw["count"]
+        probes = math.ceil(math.log2(max(n, 2)))
+        out = count * (20 + 4 * kw.get("gather_weights", True))
+        return bound(n * F8_FLOPS + count * 2 * probes, nbytes(args) + out)
     if kernel == "F7":
         lw = args[0]
         rows, n = lw.numel() // lw.shape[-1], lw.numel()
@@ -2212,6 +2253,17 @@ def check_fusion(path, kernel, args, kw) -> dict:
                    library_ms=cuda_ms(lambda: torch.softmax(lw, -1), 20))
     elif kernel == "F8":
         row.update(weights=args[0].numel(),
+                   gather_weights=kw.get("gather_weights", True))
+    elif kernel == "F7m":
+        lw, win = args[0], kw.get("window")
+        row.update(weights=lw.shape[-1], center=bool(kw.get("center")),
+                   epilogue=kw.get("resample_fraction") is not None,
+                   recovery=kw.get("recov") is not None,
+                   window=None if win is None else
+                   ("volume" if win.volume else "crop"),
+                   library_ms=cuda_ms(lambda: torch.softmax(lw, -1), 20))
+    elif kernel == "F8m":
+        row.update(weights=args[0].shape[0], slots=[kw["base"], kw["count"]],
                    gather_weights=kw.get("gather_weights", True))
     FUSION_CHECKS.append(row)
     FUSION_ARGS.setdefault(kernel, (args, kw))
@@ -3359,7 +3411,11 @@ KERNEL_SYMBOLS = {"stage_scores": "stage_scores_kernel",
                   "splat": "fusion_splat_kernel",
                   "scan": "fusion_scan_kernel",
                   "weights": "fusion_weights_",
-                  "walk": "fusion_walk_"}
+                  # F8's mesh form (on more than one rank only), ahead of
+                  # F8's row, whose symbol its names hold too
+                  "walk_mesh": "fusion_walk_mesh_",
+                  "walk": "fusion_walk_",
+                  "weights_mesh": "fusion_mesh_"}
 # the rows _node_counts gives
 GRAPH_ROWS = (*KERNEL_SYMBOLS, "stage_scores_tile")
 # the runtime calls that put work on the card from the host
@@ -4062,7 +4118,8 @@ def k1_tile_phase(frames, particles=256, timed_particles=PAR_TILED_CHUNK):
 
 # the kernel rows whose launches a scan a mesh graph holds
 MESH_GRAPH_ROWS = ("stage_scores", "stage_scores_tile", "integrate_scan",
-                   "log_likelihood_field", *FUSION_ROWS)
+                   "log_likelihood_field",
+                   *(row for row in FUSION_ROWS if row in KERNEL_SYMBOLS))
 
 
 def _par_path(path, seq, make, init, ref, compare, needed, single):
@@ -4471,72 +4528,96 @@ def parallel_phase(frames, pg_graph):
         _ba_rows(mesh, pg_graph)
     finally:
         _close_world(world)
-    multi_rank_card_phase()
+    launches.update(multi_rank_card_phase())
     say("parallel", seconds=time.perf_counter() - t0,
         paths=sorted(launches))
     return launches, tile_row, in_graph
 
 
 MULTI_RANK_SCANS = 3
+# the gates of the multi-rank phase, where its scans resample: the parity
+# log's second and third scan (Neff 478 and 455 of 500 at the matcher, 142
+# and 75 in surface mode, on the CPU)
+MULTI_RANK_GATES = {"resample_fraction": 0.99,
+                    "matcher.surface_resample_fraction": 0.5}
+MULTI_RANK_PATHS = ("shmap", "shmap_surface")
 
 
-def _two_rank_runs(mesh_of, scans=MULTI_RANK_SCANS):
-    """shmap (p = 2 or 1) at the parity width over the first `scans` scans
-    of the parity log, seeded; returns the gathered global state and
-    infos (host arrays).  The tiled engine is not run on two ranks of one
-    card: its halos are point-to-point sends, and gloo refuses a CUDA
-    tensor there (PERF.md section 7)."""
+def _two_rank_runs(mesh_of, scans=MULTI_RANK_SCANS, record=False):
+    """shmap and shmap in surface mode (p = 2 or 1) at the parity width,
+    their gates at MULTI_RANK_GATES, over the first `scans` scans of the
+    parity log, seeded; returns the gathered global state and infos (host
+    arrays), the scans whose gate fired and the launches by kernel row.
+    record=True: each path's F7 and F8 calls, both mesh forms' among them,
+    recorded (CallRecorder) and held against their plain versions on the
+    card (check_fusion: on two ranks every rank checks its calls in the
+    same order, their collectives with it).  The tiled engine is not run
+    on two ranks of one card: its halos are point-to-point sends, and gloo
+    refuses a CUDA tensor there (PERF.md section 7)."""
     from gridmap_slam_tpu_torch import SharedMapSLAM
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
     from gridmap_slam_tpu_torch.parallel.mesh import gather_state
     from gridmap_slam_tpu_torch.parallel.shmap import (init_shmap,
                                                        make_shmap_step)
 
-    cfg = parity_config()
+    cfg = parity_config().with_overrides(MULTI_RANK_GATES)
     frames, _ = parity_log()
     batch = frames_to_device(frames, cfg.max_beams, cfg.sensor.max_range,
                              device="cuda")
     eng = SharedMapSLAM(cfg, device="cuda")
     out = {}
-    for path, shards, make, init, tiled in (
-            ("shmap", 1, make_shmap_step, init_shmap, False),):
-        mesh = mesh_of(shards)
-        step = make(eng, mesh)
-        st = init(eng, mesh)
+    for path in MULTI_RANK_PATHS:
+        mesh = mesh_of(1)
+        step = make_shmap_step(eng, mesh, surface=path == "shmap_surface")
+        st = init_shmap(eng, mesh)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
-        infos = []
-        for i in range(scans):
-            st, info = step(st, frame_at(batch, i), gen)
-            infos.append([float(info.neff)]
-                         + info.weighted_pose.cpu().tolist())
-        g = gather_state(st, mesh, tiled)
+        infos, fired = [], 0
+        kernels = _zero_launches()
+        rec = CallRecorder(f"two_rank {path}",
+                           kernels=("F7", "F8", "F7m", "F8m"))
+        with rec if record else contextlib.nullcontext():
+            for i in range(scans):
+                st, info = step(st, frame_at(batch, i), gen)
+                infos.append([float(info.neff)]
+                             + info.weighted_pose.cpu().tolist())
+                fired += int(info.resampled)
+        torch.cuda.synchronize()
+        launches = {k: mod.launches for k, mod in kernels.items()}
+        g = gather_state(st, mesh, False)
         out[path] = dict(poses=g.poses.cpu().numpy(),
                          log_weights=g.log_weights.cpu().numpy(),
                          logodds=g.logodds.cpu().numpy(),
-                         infos=np.asarray(infos))
+                         infos=np.asarray(infos), fired=fired,
+                         launches=launches,
+                         checks=[check_fusion(*call) for call in rec.calls])
     return out
 
 
 def _two_rank_worker(payload: str, rank: int, n: int) -> None:
     """Rank side of the multi-rank card phase (parallel/launch.run_ranks:
     2 gloo ranks on the one card, CUDA tensors): writes this rank's
-    gathered results next to `payload`."""
+    gathered results and its kernel checks next to `payload`."""
     import os
     import pickle
     from gridmap_slam_tpu_torch.parallel.mesh import make_mesh
 
     out = _two_rank_runs(lambda m: make_mesh(n, map_shards=m,
-                                             device="cuda"))
+                                             device="cuda"), record=True)
     with open(os.path.join(payload, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
-def multi_rank_card_phase():
+def multi_rank_card_phase() -> dict:
     """2 ranks on the one H100 over gloo with CUDA tensors (NCCL refuses
-    two ranks on one card): shmap (p = 2) at the parity width; both ranks
-    must agree on every replicated output, and the run must equal its
-    mesh (1, 1) run over NCCL within the CPU tests' tolerances (poses and
-    map atol 1e-4, weights rtol / atol 1e-5)."""
+    two ranks on one card): shmap and shmap in surface mode (p = 2) at the
+    parity width.  Both ranks must agree on every replicated output, the
+    run must equal its mesh (1, 1) run over NCCL within the CPU tests'
+    tolerances (poses and map atol 1e-4, weights rtol / atol 1e-5), a gate
+    must fire on each path (so that F8's mesh form walks the gathered
+    rows), and each rank's recorded F7 and F8 calls of both mesh forms
+    must equal their plain versions on the card in every bit (their rows
+    join FUSION_CHECKS, path "two_rank <path> rank <r>").  Returns rank 0's
+    launches by path ("two_rank <path>")."""
     import pickle
     import tempfile
     from gridmap_slam_tpu_torch.parallel.launch import run_ranks
@@ -4545,7 +4626,7 @@ def multi_rank_card_phase():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
         run_ranks(2, "chip_smoke:_two_rank_worker", tmp, backend="gloo",
-                  device="cuda", timeout=300)
+                  device="cuda", timeout=600)
         ranks = []
         for r in range(2):
             with open(f"{tmp}/rank{r}.pkl", "rb") as f:
@@ -4555,24 +4636,46 @@ def multi_rank_card_phase():
         one = _two_rank_runs(lambda m: make_mesh(1, device="cuda"))
     finally:
         _close_world(world)
-    rows = {}
-    for path in ("shmap",):
+    rows, launches = {}, {}
+    for path in MULTI_RANK_PATHS:
         a, b, ref = ranks[0][path], ranks[1][path], one[path]
-        agree = all(np.array_equal(a[k], b[k]) for k in a)
-        diffs = {k: float(np.abs(a[k] - ref[k]).max()) for k in a}
+        fields = ("poses", "log_weights", "logodds", "infos")
+        agree = all(np.array_equal(a[k], b[k]) for k in fields)
+        diffs = {k: float(np.abs(a[k] - ref[k]).max()) for k in fields}
+        checks = {}
+        for r, rank in enumerate(ranks):
+            for row in rank[path]["checks"]:
+                row = dict(row, path=f"{row['path']} rank {r}")
+                FUSION_CHECKS.append(row)
+                name = KERNEL_ROWS[row["kernel"]]
+                PATH_MAX_ERR[name] = max(PATH_MAX_ERR[name],
+                                         row["max_abs_err"])
+                k = checks.setdefault(row["kernel"],
+                                      dict(calls=0, bits_differing=0))
+                k["calls"] += 1
+                k["bits_differing"] += row["bits_differing"]
+        launches[f"two_rank {path}"] = a["launches"]
         ok = (agree and diffs["poses"] <= 1e-4 and diffs["logodds"] <= 1e-4
               and np.allclose(a["log_weights"], ref["log_weights"],
                               rtol=1e-5, atol=1e-5)
               and np.allclose(a["infos"], ref["infos"], rtol=1e-5,
-                              atol=1e-4))
-        rows[path] = dict(mesh=[2, 1],
+                              atol=1e-4)
+              and a["fired"] == b["fired"] > 0
+              and {"F7m", "F8m"} <= set(checks)
+              and not any(c["bits_differing"] for c in checks.values())
+              and a["launches"]["walk_mesh"] > 0)
+        rows[path] = dict(mesh=[2, 1], fired=a["fired"],
+                          fired_mesh_1x1=ref["fired"],
                           ranks_agree=agree, max_diff_vs_mesh_1x1=diffs,
-                          ok=bool(ok))
+                          checks=checks,
+                          launches={k: v for k, v in a["launches"].items()
+                                    if v}, ok=bool(ok))
     say("multi_rank", ranks=2, backend="gloo", tensors="cuda",
-        scans=MULTI_RANK_SCANS, paths=rows,
+        scans=MULTI_RANK_SCANS, gates=MULTI_RANK_GATES, paths=rows,
         seconds=time.perf_counter() - t0)
     if not all(r["ok"] for r in rows.values()):
         raise AssertionError(f"multi-rank card phase: {rows}")
+    return launches
 
 
 def _cli(argv):
@@ -5147,7 +5250,18 @@ FUSION_REPLACES = {
     "walk": ("F8", "gridmap_slam_tpu/ops/resample.py:112-127 "
              "(systematic_indices' cumsum, searchsorted and clip) and the "
              "gathers of models/rbpf.py, models/shared.py and "
-             "models/multi.py (XLA's fusions of the resample)")}
+             "models/multi.py (XLA's fusions of the resample)"),
+    "weights_mesh": ("F7m", "gridmap_slam_tpu/parallel/shmap.py:136-157 "
+                     "(the weight statistics with their pmax and psums, "
+                     "the strongest particle's all_gather), :94-103 (the "
+                     "surface volume's center) and "
+                     "gridmap_slam_tpu/parallel/surface_sharded.py:141-148, "
+                     ":206-227 (XLA's fusions of the mesh engines' weights "
+                     "tail)"),
+    "walk_mesh": ("F8m", "gridmap_slam_tpu/parallel/shmap.py:178-205 and "
+                  "surface_sharded.py:259-278 (systematic_indices of the "
+                  "gathered log-weights, this rank's slice and the gathers: "
+                  "XLA's fusions of the mesh engines' resample body)")}
 # the order of an F4 sample's eight products that PyTorch's torch.sum over
 # the packed gather's last axis takes on the card, and the others tried
 SAMPLE_ORDERS = ("((0+4)+(2+6))+((1+5)+(3+7))", "((0+1)+(2+3))+((4+5)+(6+7))",
@@ -5408,6 +5522,119 @@ WIDE_PARTICLES = 2048
 EDGE_PICK_KINDS = ("ties", "nan", "neginf", "zeros", "equal")
 EDGE_WEIGHTS = (1, 500, 1023, 1024, 1025, 10_000, 1 << 20)
 EDGE_WEIGHT_KINDS = ("ties", "neginf")
+# F7's and F8's mesh forms on planted weights split over emulated ranks:
+# the weights in all, whose slices straddle a row of 1024 at 2 and 4 ranks
+MESH_EDGE_WEIGHTS = (8, 2048, 2052, 4100, 1 << 20)
+MESH_EDGE_RANKS = (2, 4)
+
+
+class _ThreadRanks:
+    """n ranks emulated in this process, a thread each on the card's
+    current stream, whose collectives (ops/cuda/fusions.Collectives)
+    combine the ranks' tensors in rank order (the elementwise max, the sum
+    ((x0 + x1) + x2) ..., the stack): what a rank hands a collective was
+    enqueued before the barrier, so the stream orders it before the
+    combination."""
+
+    def __init__(self, n: int):
+        import threading
+        self.n = n
+        self.slots = [None] * n
+        self.barrier = threading.Barrier(n, timeout=120)
+
+    def comm(self, rank: int):
+        from gridmap_slam_tpu_torch.ops.cuda import fusions
+
+        def collective(kind):
+            def call(x):
+                self.slots[rank] = x
+                self.barrier.wait()
+                xs = list(self.slots)
+                self.barrier.wait()
+                if kind == "all_gather":
+                    return torch.stack(xs)
+                out = xs[0].clone()
+                for y in xs[1:]:
+                    out = torch.maximum(out, y) if kind == "pmax" else out + y
+                return out
+            return call
+        return fusions.Collectives(*(collective(k) for k in
+                                     ("pmax", "psum", "all_gather")))
+
+    def run(self, fn):
+        """[fn(rank, comm) for each rank], run together."""
+        import concurrent.futures
+        with concurrent.futures.ThreadPoolExecutor(self.n) as pool:
+            futures = [pool.submit(fn, r, self.comm(r))
+                       for r in range(self.n)]
+            return [f.result(timeout=300) for f in futures]
+
+
+def _mesh_edges(gen) -> list:
+    """F7's mesh form, and F8's, on planted inputs bit for bit against
+    their plain versions on the card: MESH_EDGE_WEIGHTS log-weights and
+    poses split over MESH_EDGE_RANKS emulated ranks (_ThreadRanks; the
+    slices of one tensor, some not 16-byte aligned), on each of
+    EDGE_WEIGHT_KINDS (the ties also at the ranks' edges): the tail
+    without and with the epilogue (the recovery EMAs and the map update's
+    crop), and the center call with the volume's window; then F8's mesh
+    form on the gathered rows, each rank's slots, with and without the
+    log-weights.  One row a call (the ranks' differing bits summed)."""
+    from gridmap_slam_tpu_torch.ops.cuda import fusions
+    from gridmap_slam_tpu_torch.types import Odom
+    dev = "cuda"
+    crop = fusions.WindowSpec(crop=(40, 40), full=(120, 150),
+                              resolution=0.05, origin=(-3.0, -3.5))
+    volume = fusions.WindowSpec(crop=(48, 48), full=(120, 150),
+                                resolution=0.05, origin=(-3.0, -3.5),
+                                volume=True, radius=6, ext=(60, 60), nt=25,
+                                t_off=-0.3, dtheta=0.025)
+    odom = Odom(torch.tensor(0.12, device=dev),
+                torch.tensor(-0.2, device=dev))
+    modes = {"stats": {},
+             "tail": dict(resample_fraction=0.5,
+                          recov=torch.tensor([-3.0, -2.5], device=dev),
+                          step=torch.tensor(3, dtype=torch.int32,
+                                            device=dev),
+                          reinject=(0.001, 0.1), window=crop),
+             "center": dict(center=True, window=volume, odom=odom)}
+    rows = []
+    for p, n, kind in ((p, n, k) for p in MESH_EDGE_WEIGHTS
+                       for n in MESH_EDGE_RANKS for k in EDGE_WEIGHT_KINDS):
+        lw, poses = (t[0] for t in _edge_weights_inputs(1, p, kind, gen))
+        p_loc = p // n
+        if kind == "ties":
+            edges = torch.tensor([e for r in range(1, n)
+                                  for e in (r * p_loc - 1, r * p_loc)],
+                                 device=dev)
+            lw[edges] = 4.0
+        for mode, kw in modes.items():
+            def one(fn, kw=kw):
+                def rank(r, comm):
+                    sl = slice(r * p_loc, (r + 1) * p_loc)
+                    return _outputs(fn(lw[sl], poses[sl], comm, **kw))
+                return _ThreadRanks(n).run(rank)
+            got = one(fusions.weights_mesh_cuda)
+            want = one(fusions.weights_mesh_plain)
+            rows.append(dict(
+                kernel="F7m", weights=p, ranks=n, kind=kind, mode=mode,
+                bits_differing=sum(
+                    sum(map(_bits_differing, g, w)) if len(g) == len(w)
+                    else -1 for g, w in zip(got, want))))
+        gathered = torch.cat([lw[:, None], poses], 1)
+        u0 = torch.rand((), generator=gen, device=dev) / p
+        for r in range(n):
+            for gather_weights in (True, False):
+                kw = dict(base=r * p_loc, count=p_loc,
+                          gather_weights=gather_weights)
+                got = _outputs(fusions.walk_mesh_cuda(gathered, u0, **kw))
+                want = _outputs(fusions.walk_mesh_plain(gathered, u0, **kw))
+                rows.append(dict(kernel="F8m", weights=p, ranks=n, rank=r,
+                                 kind=kind, gather_weights=gather_weights,
+                                 bits_differing=sum(map(_bits_differing,
+                                                        got, want))
+                                 if len(got) == len(want) else -1))
+    return rows
 
 
 def _edge_candidates(p, nt, ny, nx) -> list:
@@ -5504,8 +5731,9 @@ def fusion_edges() -> dict:
     window too wide to stage writing offsets and the best pose, on each of
     EDGE_PICK_KINDS; F7 at EDGE_WEIGHTS weights a robot, one and two robots,
     with the epilogue and without (with the recovery EMAs at one robot), on
-    each of EDGE_WEIGHT_KINDS.  Returns each kernel's calls and differing
-    bits; fails on one."""
+    each of EDGE_WEIGHT_KINDS; F7's and F8's mesh forms over emulated ranks
+    (_mesh_edges).  Returns each kernel's calls and differing bits; fails
+    on one."""
     from gridmap_slam_tpu_torch.config import MotionConfig
     from gridmap_slam_tpu_torch.ops.cuda import fusions
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -5554,16 +5782,18 @@ def fusion_edges() -> dict:
                              bits_differing=sum(map(_bits_differing, got,
                                                     want))
                              if len(got) == len(want) else -1))
+    rows += _mesh_edges(gen)
     torch.cuda.synchronize()
     bad = [row for row in rows if row["bits_differing"]]
     out = {k: dict(calls=sum(row["kernel"] == k for row in rows),
                    bits_differing=sum(row["bits_differing"] for row in rows
                                       if row["kernel"] == k))
-           for k in ("F3", "F7")}
+           for k in ("F3", "F7", "F7m", "F8m")}
     say("fusion_edges", **out, differing=bad)
     if bad:
-        raise AssertionError(f"fusion_edges: {len(bad)} planted F3 or F7 "
-                             f"calls differ from their plain versions")
+        raise AssertionError(f"fusion_edges: {len(bad)} planted F3, F7 or "
+                             f"mesh-form calls differ from their plain "
+                             f"versions")
     return out
 
 
@@ -5580,18 +5810,22 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
     theirs in their own phases).  Fails where a path of FUSION_PATHS has no
     checked F6 call, a path outside SURFACE_PATHS no checked F3 call, a
     surface path no checked F4 and F5 call (mega refine no hill-climb), a
-    path of WEIGHTS_PATHS no checked F7 and F8 call, the
+    path of WEIGHTS_PATHS no checked F7 (MESH_PATHS: F7's mesh form's) and
+    F8 call, the
     parity path lacks one of F1-F3 and F6, F2 differs from the mean or F4
     from today's sample in a bit, or F6 from its plain version on a planted
-    scan, F7's exp from torch.exp in a bit, F3 or F7 from its plain version
-    on planted inputs (fusion_edges),
+    scan, F7's exp from torch.exp in a bit, F3, F7 or a mesh form from its
+    plain version on planted inputs (fusion_edges),
     or grid_sample from F4 beyond its tolerance (f4_library, on the
     mega path's first F4 call) (`paths`: FUSION_PATHS, or the paths a
-    shorter run took).  Returns the kernels line's rows of F1-F8: F1-F3 and
+    shorter run took).  Returns the kernels line's rows of F1-F8 and the
+    mesh forms: F1-F3 and
     F6 timed on the parity path's calls, F4, F5 and F8 on the mega path's,
-    F7 on the mega path's call with the epilogue (F4's library_ms
+    F7 on the mega path's call with the epilogue, F7's mesh form on
+    shmap_surface's and F8's on the two-rank phase's first (F4's library_ms
     grid_sample's there, F7's torch.softmax's of the same log-weights;
-    F7's and F8's `stages` every recorded call's times)."""
+    F7's and F8's `stages`, and the mesh forms', every recorded call's
+    times)."""
     import torch.nn.functional as F
     from gridmap_slam_tpu_torch import RBPF
     from gridmap_slam_tpu_torch.io import frame_at, frames_to_device
@@ -5632,7 +5866,8 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
         checked_calls=len(FUSION_CHECKS))
     needed = {p: ({"F4 climb" if p == "mega refine" else "F4", "F5", "F6"}
                   if p in SURFACE_PATHS else {"F3", "F6"})
-                 | ({"F7", "F8"} if p in WEIGHTS_PATHS else set())
+                 | ({"F7m" if p in MESH_PATHS else "F7", "F8"}
+                    if p in WEIGHTS_PATHS else set())
               for p in want}
     missing = {p: sorted(k - set(paths.get(p, {})))
                for p, k in needed.items() if k - set(paths.get(p, {}))}
@@ -5665,11 +5900,18 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
 
     rows = []
     for name, (kernel, replaces) in FUSION_REPLACES.items():
-        timed = first(kernel, "mega" if kernel in ("F4", "F5", "F8")
-                      else "parity")
-        if kernel == "F7":          # mega's tail: 1M weights, the epilogue
-            timed = next(r for r in FUSION_CHECKS if r["kernel"] == "F7"
-                         and r["path"] == "mega" and r["epilogue"])
+        if kernel in ("F7", "F7m"):
+            # mega's tail, shmap_surface's at mesh (1, 1): 1M weights, the
+            # epilogue
+            timed = next(r for r in FUSION_CHECKS if r["kernel"] == kernel
+                         and r["path"] == ("mega" if kernel == "F7"
+                                           else "shmap_surface")
+                         and r["epilogue"])
+        elif kernel == "F8m":       # a rank's slots of the two-rank run
+            timed = next(r for r in FUSION_CHECKS if r["kernel"] == "F8m")
+        else:
+            timed = first(kernel, "mega" if kernel in ("F4", "F5", "F8")
+                          else "parity")
         row = dict(name=name, route="cuda",
                    source="gridmap_slam_tpu_torch/csrc/fusions.cu",
                    replaces=replaces, max_abs_err=PATH_MAX_ERR[name],
@@ -5686,11 +5928,14 @@ def fusions_phase(cfg, frames, paths=FUSION_PATHS) -> list:
                     k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")}
                 for r in parity if r["kernel"] == "F3"}
-        if kernel in ("F7", "F8"):
+        if kernel in ("F7", "F8", "F7m", "F8m"):
             row["stages"] = {
                 f"{r['path']} {kernel} {r.get('robots', 1)}x{r['weights']}"
+                + (" center" if r.get("center") else "")
                 + (" epilogue" if r.get("epilogue") else "")
-                + (" recovery" if r.get("recovery") else ""): {
+                + (" recovery" if r.get("recovery") else "")
+                + (" slots {}+{}".format(*r["slots"]) if r.get("slots")
+                   else ""): {
                     k: r.get(k) for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}
                 for r in FUSION_CHECKS if r["kernel"] == kernel}

@@ -134,6 +134,19 @@
 // its extended window and the theta bins, or the map update's crop around
 // the integration pose (ops/surface.crop_center_cells: a product by the
 // resolution's float reciprocal, rounded half to even).
+//
+// The distributed engines' tail (gridmap_slam_tpu/parallel/shmap.py:136-157,
+// the surface center :94-103, the resample body :178-207) puts a pmax, two
+// psums and an all_gather between F7's reductions, so F7's mesh form is its
+// passes a launch each over one rank's rows, the last block of each
+// reducing the rows once into the value the next collective takes, and an
+// epilogue of one thread on the reduced values and the ranks' gathered
+// candidates; latency-bound at a mesh step's sizes (four launches and a
+// memset a call, where the single-device F7 takes one or three).  F8's
+// mesh form walks the gathered rows: F7's passes A and B over all of them
+// (the fixed order's max and total of the global weights, which a psum of
+// the ranks' totals would associate otherwise), the scan over all, and the
+// search of this rank's slots alone.
 
 #include <cuda_runtime.h>
 
@@ -1351,36 +1364,25 @@ __device__ __forceinline__ void segment_moments(const float (&xv)[kSeg],
   }
 }
 
-// One robot's outputs from its max m (the value at its first argmax mi),
-// total and the sums of w w, x w, y w and wrap(theta) w: the best pose,
-// Neff = 1 / sum(w w), the weighted mean pose and, where o.gate is given,
-// the epilogue: the resample gate Neff < P fraction, the integration pose
-// (the weighted mean where Neff >= 0.95 P, else the best pose), and with
-// recov the recovery EMAs of the max (both set to it at step 0),
-// p_inject = clamp(1 - exp(l_fast - l_slow), 0, 0.3) and the gate forced
-// where p_inject > 0.05.  One thread.
-__device__ void weights_outputs(const WeightsOut& o, int r, const float* ps,
-                                float m, int mi, float total,
-                                const float (&sums)[4]) {
-  const float bp[3] = {ps[3 * mi], ps[3 * mi + 1], ps[3 * mi + 2]};
-  const float neff = __fdiv_rn(1.0f, sums[0]);
-  o.max[r] = m;
-  o.total[r] = total;
-  o.index[r] = mi;
-  o.neff[r] = neff;
-  for (int c = 0; c < 3; ++c) {
-    o.best[3 * r + c] = bp[c];
-    o.weighted[3 * r + c] = sums[1 + c];
-  }
-  if (o.win.mode == 1) volume_window(o.win, sums[1], sums[2], sums[3]);
+// Robot r's epilogue from its max m, Neff, best pose bp and weighted mean
+// pose `mean` (3): the volume's window (mode 1) and, where o.gate is given,
+// the resample gate Neff < P fraction, the integration pose (the weighted
+// mean where Neff >= 0.95 P, else the best pose) with the map update's
+// window (mode 2), and with recov the recovery EMAs of the max (both set to
+// it at step 0), p_inject = clamp(1 - exp(l_fast - l_slow), 0, 0.3) and the
+// gate forced where p_inject > 0.05.  One thread.
+__device__ void weights_epilogue(const WeightsOut& o, int r,
+                                 const float (&bp)[3], float m, float neff,
+                                 const float* mean) {
+  if (o.win.mode == 1) volume_window(o.win, mean[0], mean[1], mean[2]);
   if (o.gate == nullptr) return;
   bool gate = neff < o.thr_gate;
   if (o.integ != nullptr) {
-    const bool mean = neff >= o.thr_integ;
-    for (int c = 0; c < 3; ++c) o.integ[c] = mean ? sums[1 + c] : bp[c];
+    const bool use_mean = neff >= o.thr_integ;
+    for (int c = 0; c < 3; ++c) o.integ[c] = use_mean ? mean[c] : bp[c];
     if (o.win.mode == 2)
-      crop_corner(mean ? sums[1] : bp[0], mean ? sums[2] : bp[1], o.win.hc,
-                  o.win.wc, o.win, o.win.cells);
+      crop_corner(use_mean ? mean[0] : bp[0], use_mean ? mean[1] : bp[1],
+                  o.win.hc, o.win.wc, o.win, o.win.cells);
   }
   if (o.recov != nullptr) {
     const float r0 = o.recov[0], r1 = o.recov[1];
@@ -1395,6 +1397,26 @@ __device__ void weights_outputs(const WeightsOut& o, int r, const float* ps,
     gate = gate || p > o.thr_inject;
   }
   o.gate[r] = gate;
+}
+
+// One robot's outputs from its max m (the value at its first argmax mi),
+// total and the sums of w w, x w, y w and wrap(theta) w: the best pose,
+// Neff = 1 / sum(w w), the weighted mean pose and the epilogue
+// (weights_epilogue).  One thread.
+__device__ void weights_outputs(const WeightsOut& o, int r, const float* ps,
+                                float m, int mi, float total,
+                                const float (&sums)[4]) {
+  const float bp[3] = {ps[3 * mi], ps[3 * mi + 1], ps[3 * mi + 2]};
+  const float neff = __fdiv_rn(1.0f, sums[0]);
+  o.max[r] = m;
+  o.total[r] = total;
+  o.index[r] = mi;
+  o.neff[r] = neff;
+  for (int c = 0; c < 3; ++c) {
+    o.best[3 * r + c] = bp[c];
+    o.weighted[3 * r + c] = sums[1 + c];
+  }
+  weights_epilogue(o, r, bp, m, neff, sums + 1);
 }
 
 // F7 where P <= kRow (one row a robot): a block a robot does the whole
@@ -1547,14 +1569,220 @@ __global__ void __launch_bounds__(kRowThreads) fusion_weights_finish_kernel(
                     total, sums);
 }
 
-// F8, pass 1: the normalized weights exp(lw - m) / total of one robot (m,
-// total: F7's, one float each on the card) and each row's inclusive scan in
-// the fixed order into part (nb kRow): a thread's segment in turn, the
-// row's segment totals by a Hillis-Steele scan (s[i] + s[i - k], k = 1, 2,
-// ... 64), each segment after the first plus the scan before it.
-__global__ void __launch_bounds__(kRowThreads) fusion_walk_scan_kernel(
+// F7's mesh form (parallel/shmap.finish_step and its center call): the
+// same sums over one rank's P rows of weights, as three passes a launch
+// each, so that a collective over the ranks can take each pass's result
+// before the next pass reads it from the card: A the first argmax, [pmax],
+// B the sum of exp(lw - m) at the ranks' max, [psum], C the four moments
+// at the ranks' total, [psum, all_gather of A's candidate], then one
+// block's epilogue.  A pass's rows' partials are summed once, by its last
+// block (a ticket of its own, zeroed with the others before pass A by one
+// memset: a pass cannot zero its own ticket as it starts, and a CUDA graph
+// replays with whatever the last replay left).  The trees are F7's, so a
+// rank's partials are ops/resample's fixed order over its rows, and on one
+// rank the collectives give back F7's max, total and sums bit for bit.
+// F8's mesh form runs passes A and B (and F8's two passes) over the
+// gathered rows through kernels of its own names, fusion_walk_mesh_*, on
+// the same bodies.
+
+// A segment of kSeg weights of x with element stride ld (1: the weights
+// (P,); 4: the gathered rows (lw, x, y, theta) of F8's mesh form), +0.0
+// past P.
+__device__ __forceinline__ void load_segment_ld(const float* x, int ld,
+                                                int base, int P,
+                                                float (&xv)[kSeg]) {
+  if (ld == 1) {
+    load_segment(x, base, P, xv);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kSeg; ++j)
+    xv[j] = base + j < P ? x[static_cast<size_t>(base + j) * ld] : 0.0f;
+}
+
+// Pass A: each row's first argmax of lw (element stride ld) into pv, pi
+// (nb); the last block (ticket[0]) takes the rows' first argmax (m, mi)
+// and writes the candidate cand = (m, the pose at mi, mi as a float), or m
+// alone where poses (P, 3) is null.
+__device__ __forceinline__ void mesh_max(const float* lw, int ld,
+                                         const float* poses, float* pv,
+                                         int* pi, unsigned* ticket, int P,
+                                         int nb, float* cand) {
+  __shared__ float s_v[kWarp];
+  __shared__ int s_i[kWarp];
+  __shared__ bool last;
+  const int b = blockIdx.x, base = b * kRow + threadIdx.x * kSeg;
+  float xv[kSeg];
+  load_segment_ld(lw, ld, base, P, xv);
+  float v = 0.0f;
+  int i = -1;
+  for (int j = 0; j < kSeg; ++j)
+    if (base + j < P && before(xv[j], base + j, v, i)) {
+      v = xv[j];
+      i = base + j;
+    }
+  block_argmax(v, i, s_v, s_i);
+  if (threadIdx.x == 0) {
+    pv[b] = v;
+    pi[b] = i;
+  }
+  __threadfence();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == nb - 1u;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  rows_argmax(pv, pi, nb, v, i, s_v, s_i);
+  if (threadIdx.x == 0) {
+    cand[0] = v;
+    if (poses != nullptr) {
+      for (int c = 0; c < 3; ++c) cand[1 + c] = poses[3 * i + c];
+      cand[4] = static_cast<float>(i);
+    }
+  }
+}
+
+// Pass B: each row's sum of exp(lw - m) at the ranks' max *m_ptr (its
+// segments in turn, the row by row_total) into pe (nb); the last block
+// (ticket[1]) sums the rows once (rows_total) into *total.
+__device__ __forceinline__ void mesh_sum(const float* lw, int ld,
+                                         const float* m_ptr, float* pe,
+                                         unsigned* ticket, int P, int nb,
+                                         float* total) {
+  __shared__ float s[kRowThreads];
+  __shared__ bool last;
+  const int b = blockIdx.x, base = b * kRow + threadIdx.x * kSeg;
+  float xv[kSeg];
+  load_segment_ld(lw, ld, base, P, xv);
+  const float m = *m_ptr;
+  float acc = 0.0f;
+  for (int j = 0; j < kSeg; ++j) {
+    const float e = base + j < P ? weight_exp(__fsub_rn(xv[j], m)) : 0.0f;
+    acc = j == 0 ? e : __fadd_rn(acc, e);
+  }
+  const float tot = row_total(acc, s);
+  if (threadIdx.x == 0) pe[b] = tot;
+  __threadfence();
+  if (threadIdx.x == 0) last = atomicAdd(ticket + 1, 1u) == nb - 1u;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float z = rows_total(pe, nb, s);
+  if (threadIdx.x == 0) *total = z;
+}
+
+// F7's mesh pass A over the rank's weights (P,) and poses (P, 3).
+__global__ void __launch_bounds__(kRowThreads) fusion_mesh_max_kernel(
+    const float* __restrict__ lw, const float* __restrict__ poses,
+    float* __restrict__ pv, int* __restrict__ pi,
+    unsigned* __restrict__ ticket, int P, int nb, float* __restrict__ cand) {
+  mesh_max(lw, 1, poses, pv, pi, ticket, P, nb, cand);
+}
+
+// F7's mesh pass B over the rank's weights (P,).
+__global__ void __launch_bounds__(kRowThreads) fusion_mesh_sum_kernel(
     const float* __restrict__ lw, const float* __restrict__ m_ptr,
-    const float* __restrict__ total_ptr, float* __restrict__ part, int P) {
+    float* __restrict__ pe, unsigned* __restrict__ ticket, int P, int nb,
+    float* __restrict__ total) {
+  mesh_sum(lw, 1, m_ptr, pe, ticket, P, nb, total);
+}
+
+// F8's mesh form, pass A over the gathered rows (P, 4): their max into
+// stats[0].
+__global__ void __launch_bounds__(kRowThreads) fusion_walk_mesh_max_kernel(
+    const float* __restrict__ rows, float* __restrict__ pv,
+    int* __restrict__ pi, unsigned* __restrict__ ticket, int P, int nb,
+    float* __restrict__ stats) {
+  mesh_max(rows, 4, nullptr, pv, pi, ticket, P, nb, stats);
+}
+
+// F8's mesh form, pass B over the gathered rows (P, 4) at stats[0]: their
+// total into stats[1].
+__global__ void __launch_bounds__(kRowThreads) fusion_walk_mesh_sum_kernel(
+    const float* __restrict__ rows, float* __restrict__ pe,
+    unsigned* __restrict__ ticket, int P, int nb,
+    float* __restrict__ stats) {
+  mesh_sum(rows, 4, stats, pe, ticket, P, nb, stats + 1);
+}
+
+// Pass C: w = exp(lw - m) / total at the ranks' *m_ptr and *total_ptr, each
+// row's sums of w w, x w, y w and wrap(theta) w at once (the block's poses
+// copied into shared memory by cp.async as it starts) into p4 (4, nb);
+// the last block (ticket[2]) sums the rows' four partials at once
+// (rows_totals4) into sums (4,).
+__global__ void __launch_bounds__(kRowThreads) fusion_mesh_moments_kernel(
+    const float* __restrict__ lw, const float* __restrict__ poses,
+    const float* __restrict__ m_ptr, const float* __restrict__ total_ptr,
+    float* __restrict__ p4, unsigned* __restrict__ ticket, int P, int nb,
+    float* __restrict__ sums) {
+  __shared__ __align__(16) float sp[3 * kRow];
+  __shared__ float s[4 * kRowThreads];
+  __shared__ bool last;
+  const int b = blockIdx.x, base = b * kRow + threadIdx.x * kSeg;
+  stage_async_in_place(sp, poses + static_cast<size_t>(b) * kRow * 3,
+                       3 * min(kRow, P - b * kRow));
+  float xv[kSeg];
+  load_segment(lw, base, P, xv);
+  const float m = *m_ptr, total = *total_ptr;
+  cp_async_wait();
+  __syncthreads();
+  float a[4];
+  segment_moments(xv, base, P, m, total, sp + 3 * threadIdx.x * kSeg, a);
+  row_totals4(a, s);
+  if (threadIdx.x == 0)
+    for (int c = 0; c < 4; ++c) p4[static_cast<size_t>(c) * nb + b] = a[c];
+  __threadfence();
+  if (threadIdx.x == 0) last = atomicAdd(ticket + 2, 1u) == nb - 1u;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float out[4];
+  rows_totals4(p4, nb, s, out);
+  if (threadIdx.x == 0)
+    for (int c = 0; c < 4; ++c) sums[c] = out[c];
+}
+
+// The mesh form's epilogue, one thread, from the ranks' max *m_ptr and
+// sums.  The tail (cands given: the n ranks' candidates (n, 5) in rank
+// order, sums = w w, x w, y w, wrap(theta) w): the strongest particle, the
+// first argmax of the candidates' values in before()'s order (torch.argmax
+// of the gathered rows), its pose and its index g p_loc + its local index,
+// Neff = 1 / sum(w w), then weights_epilogue.  The center (cands null,
+// sums = x w, y w, wrap(theta) w): the volume's window alone.
+__global__ void __launch_bounds__(kWarp) fusion_mesh_finish_kernel(
+    const float* __restrict__ m_ptr, const float* __restrict__ sums,
+    const float* __restrict__ cands, int n, int p_loc, WeightsOut o) {
+  if (threadIdx.x != 0) return;
+  if (cands == nullptr) {
+    if (o.win.mode == 1) volume_window(o.win, sums[0], sums[1], sums[2]);
+    return;
+  }
+  float v = 0.0f;
+  int g = -1;
+  for (int k = 0; k < n; ++k)
+    if (before(cands[5 * k], k, v, g)) {
+      v = cands[5 * k];
+      g = k;
+    }
+  const float* row = cands + 5 * g;
+  const float bp[3] = {row[1], row[2], row[3]};
+  const float neff = __fdiv_rn(1.0f, sums[0]);
+  o.neff[0] = neff;
+  o.index[0] = static_cast<long long>(g) * p_loc +
+               static_cast<long long>(row[4]);
+  for (int c = 0; c < 3; ++c) o.best[c] = bp[c];
+  weights_epilogue(o, 0, bp, *m_ptr, neff, sums + 1);
+}
+
+// F8, pass 1: the normalized weights exp(lw - m) / total of one robot (m,
+// total: F7's, one float each on the card; lw with element stride ld) and
+// each row's inclusive scan in the fixed order into part (nb kRow): a
+// thread's segment in turn, the row's segment totals by a Hillis-Steele
+// scan (s[i] + s[i - k], k = 1, 2, ... 64), each segment after the first
+// plus the scan before it.
+__device__ __forceinline__ void walk_scan(const float* lw, int ld,
+                                          const float* m_ptr,
+                                          const float* total_ptr,
+                                          float* part, int P) {
   __shared__ float s[kRowThreads];
   const float m = *m_ptr, total = *total_ptr;
   const int t = threadIdx.x, base = blockIdx.x * kRow + t * kSeg;
@@ -1562,7 +1790,10 @@ __global__ void __launch_bounds__(kRowThreads) fusion_walk_scan_kernel(
   for (int j = 0; j < kSeg; ++j) {
     const int k = base + j;
     const float w =
-        k < P ? __fdiv_rn(weight_exp(__fsub_rn(lw[k], m)), total) : 0.0f;
+        k < P ? __fdiv_rn(weight_exp(__fsub_rn(lw[static_cast<size_t>(k) * ld],
+                                               m)),
+                          total)
+              : 0.0f;
     c[j] = j == 0 ? w : __fadd_rn(c[j - 1], w);
   }
   s[t] = c[kSeg - 1];
@@ -1579,19 +1810,19 @@ __global__ void __launch_bounds__(kRowThreads) fusion_walk_scan_kernel(
     part[base + j] = t > 0 ? __fadd_rn(c[j], carry) : c[j];
 }
 
-// F8, pass 2: a thread a slot j < P.  u = u0 + j (1 / P) (PyTorch divides
-// by a Python int on the card as a product by its float reciprocal, inv_p);
-// the first index whose cumulative weight is >= u, by torch.searchsorted's
-// binary search (side left), clamped to P - 1; the cumulative weight at i
-// is part[i], past the first row plus the Hillis-Steele scan of the rows'
-// totals (each row's last) before its row (every block scans the nb <= kRow
-// totals).  Writes idx[j] and the poses and log-weights (lw_out where
-// given) at idx[j].
-__global__ void __launch_bounds__(kSearchThreads) fusion_walk_search_kernel(
-    const float* __restrict__ lw, const float* __restrict__ poses,
-    const float* __restrict__ u0_ptr, const float* __restrict__ part,
-    long long* __restrict__ idx_out, float* __restrict__ poses_out,
-    float* __restrict__ lw_out, int P, int nb, float inv_p) {
+// F8, pass 2: a thread a slot j of the window [base, base + count) of the
+// P slots.  u = u0 + j (1 / P) (PyTorch divides by a Python int on the
+// card as a product by its float reciprocal, inv_p); the first index whose
+// cumulative weight is >= u, by torch.searchsorted's binary search (side
+// left), clamped to P - 1; the cumulative weight at i is part[i], past the
+// first row plus the Hillis-Steele scan of the rows' totals (each row's
+// last) before its row (every block scans the nb <= kRow totals).  Writes
+// idx[j - base] and the poses and log-weights (lw_out where given) at
+// idx[j - base]; weight i at lw[i ld], its pose at poses[i pld ..].
+__device__ __forceinline__ void walk_search(
+    const float* lw, int ld, const float* poses, int pld, const float* u0_ptr,
+    const float* part, long long* idx_out, float* poses_out, float* lw_out,
+    int P, int nb, int base, int count, float inv_p) {
   __shared__ float carry[kRow];
   const int t = threadIdx.x;
   carry[t] = t < nb ? part[static_cast<size_t>(t) * kRow + kRow - 1] : 0.0f;
@@ -1603,8 +1834,9 @@ __global__ void __launch_bounds__(kSearchThreads) fusion_walk_search_kernel(
     carry[t] = v;
     __syncthreads();
   }
-  const int j = blockIdx.x * kSearchThreads + t;
-  if (j >= P) return;
+  const int slot = blockIdx.x * kSearchThreads + t;
+  if (slot >= count) return;
+  const int j = base + slot;
   const float u = __fadd_rn(*u0_ptr, __fmul_rn(static_cast<float>(j), inv_p));
   int lo = 0, hi = P;
   while (lo < hi) {
@@ -1617,9 +1849,47 @@ __global__ void __launch_bounds__(kSearchThreads) fusion_walk_search_kernel(
       hi = mid;
   }
   const int i = min(max(lo, 0), P - 1);
-  idx_out[j] = i;
-  for (int c = 0; c < 3; ++c) poses_out[3 * j + c] = poses[3 * i + c];
-  if (lw_out != nullptr) lw_out[j] = lw[i];
+  idx_out[slot] = i;
+  for (int c = 0; c < 3; ++c)
+    poses_out[3 * slot + c] = poses[static_cast<size_t>(i) * pld + c];
+  if (lw_out != nullptr) lw_out[slot] = lw[static_cast<size_t>(i) * ld];
+}
+
+// F8's pass 1 over one robot's weights (P,).
+__global__ void __launch_bounds__(kRowThreads) fusion_walk_scan_kernel(
+    const float* __restrict__ lw, const float* __restrict__ m_ptr,
+    const float* __restrict__ total_ptr, float* __restrict__ part, int P) {
+  walk_scan(lw, 1, m_ptr, total_ptr, part, P);
+}
+
+// F8's pass 2 over one robot's weights (P,) and poses (P, 3), every slot.
+__global__ void __launch_bounds__(kSearchThreads) fusion_walk_search_kernel(
+    const float* __restrict__ lw, const float* __restrict__ poses,
+    const float* __restrict__ u0_ptr, const float* __restrict__ part,
+    long long* __restrict__ idx_out, float* __restrict__ poses_out,
+    float* __restrict__ lw_out, int P, int nb, float inv_p) {
+  walk_search(lw, 1, poses, 3, u0_ptr, part, idx_out, poses_out, lw_out, P,
+              nb, 0, P, inv_p);
+}
+
+// F8's mesh form, pass 1 over the gathered rows (P, 4) at their max and
+// total stats (2,).
+__global__ void __launch_bounds__(kRowThreads) fusion_walk_mesh_scan_kernel(
+    const float* __restrict__ rows, const float* __restrict__ stats,
+    float* __restrict__ part, int P) {
+  walk_scan(rows, 4, stats, stats + 1, part, P);
+}
+
+// F8's mesh form, pass 2 over the gathered rows (P, 4): the slots [base,
+// base + count).
+__global__ void __launch_bounds__(kSearchThreads)
+    fusion_walk_mesh_search_kernel(
+        const float* __restrict__ rows, const float* __restrict__ u0_ptr,
+        const float* __restrict__ part, long long* __restrict__ idx_out,
+        float* __restrict__ poses_out, float* __restrict__ lw_out, int P,
+        int nb, int base, int count, float inv_p) {
+  walk_search(rows, 4, rows + 1, 4, u0_ptr, part, idx_out, poses_out, lw_out,
+              P, nb, base, count, inv_p);
 }
 
 // weight_exp elementwise, for the exp probe, and F4's rsqrtf, for the
@@ -1853,6 +2123,43 @@ extern "C" int gs_fusion_scan(const float* angle, const float* dist,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// The epilogue's arguments both F7 entries take, checked (R = 1 for the
+// integration pose, the recovery EMAs and a window), and the window.
+cudaError_t epilogue_args(int R, const float* recov, const int* step,
+                          const bool* out_gate, const float* out_integ,
+                          const float* out_recov, const float* out_pinj,
+                          int win_mode, const int* win_ints,
+                          const float* win_floats, const float* d_center,
+                          const float* d_theta, float* out_center,
+                          float* out_thetas, long long* out_cells,
+                          Window* win) {
+  if ((recov != nullptr || out_integ != nullptr) &&
+      (R != 1 || out_gate == nullptr))
+    return cudaErrorInvalidValue;
+  if (recov != nullptr &&
+      (step == nullptr || out_recov == nullptr || out_pinj == nullptr))
+    return cudaErrorInvalidValue;
+  if (win_mode < 0 || win_mode > 2 ||
+      (win_mode != 0 && (R != 1 || out_cells == nullptr)) ||
+      (win_mode == 1 && (d_center == nullptr || d_theta == nullptr ||
+                         out_center == nullptr || out_thetas == nullptr)) ||
+      (win_mode == 2 && out_integ == nullptr))
+    return cudaErrorInvalidValue;
+  *win = Window{win_mode};
+  if (win_mode != 0) {
+    const int* i = win_ints;
+    const float* f = win_floats;
+    *win = Window{win_mode, i[0], i[1], i[2], i[3], i[4], i[5], i[6], i[7],
+                  f[0], f[1], f[2], f[3], f[4], d_center, d_theta,
+                  out_center, out_thetas, out_cells};
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
 // F7: lw (R, P); poses (R, P, 3); recov (2,) and step (one int) or null;
 // out_max, out_total, out_neff (R,), out_index (R,) int64, out_best,
 // out_weighted (R, 3); out_gate (R,) bool or null (no epilogue), out_integ
@@ -1878,33 +2185,18 @@ extern "C" int gs_fusion_weights(
   *launched = 0;
   if (R <= 0 || P <= 0 || P > kRow * kRow || R > 65535)
     return cudaErrorInvalidValue;
-  if ((recov != nullptr || out_integ != nullptr) &&
-      (R != 1 || out_gate == nullptr))
-    return cudaErrorInvalidValue;
-  if (recov != nullptr &&
-      (step == nullptr || out_recov == nullptr || out_pinj == nullptr))
-    return cudaErrorInvalidValue;
-  if (win_mode < 0 || win_mode > 2 ||
-      (win_mode != 0 && (R != 1 || out_cells == nullptr)) ||
-      (win_mode == 1 && (d_center == nullptr || d_theta == nullptr ||
-                         out_center == nullptr || out_thetas == nullptr)) ||
-      (win_mode == 2 && out_integ == nullptr))
-    return cudaErrorInvalidValue;
-  Window win{win_mode};
-  if (win_mode != 0) {
-    const int* i = win_ints;
-    const float* f = win_floats;
-    win = Window{win_mode, i[0], i[1], i[2], i[3], i[4], i[5], i[6], i[7],
-                 f[0], f[1], f[2], f[3], f[4], d_center, d_theta,
-                 out_center, out_thetas, out_cells};
-  }
+  Window win;
+  cudaError_t e = epilogue_args(
+      R, recov, step, out_gate, out_integ, out_recov, out_pinj, win_mode,
+      win_ints, win_floats, d_center, d_theta, out_center, out_thetas,
+      out_cells, &win);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int nb = (P + kRow - 1) / kRow;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const WeightsOut o{poses, recov, step, out_max, out_total, out_best,
                      out_neff, out_weighted, out_index, out_integ, out_recov,
                      out_pinj, out_gate, thr_integ, thr_gate, a_slow, a_fast,
                      thr_inject, hi_inject, win};
-  cudaError_t e;
   if (nb == 1) {
     fusion_weights_row_kernel<<<R, kRowThreads, 0, st>>>(lw, P, o);
     e = cudaGetLastError();
@@ -1937,6 +2229,85 @@ extern "C" int gs_fusion_weights(
   return cudaSuccess;
 }
 
+// F7's mesh form over one rank's P weights lw (P,) and poses (P, 3), a
+// pass a call (one launch; pass 1 also zeroes the tickets first), the
+// passes sharing scratch_f (6 nb floats: the rows' argmax values, sums and
+// four moments, nb = ceil(P / 1024)) and scratch_i (nb + 3 ints: the rows'
+// argmax indices and a ticket a pass): 1, pass A: out = the candidate (5,);
+// 2, pass B at the max m: out = the total (1,); 3, pass C at m and total:
+// out = the four moments (4,); 4, the epilogue at m: with cands (ranks, 5)
+// the tail from sums (4,) (out_index, out_best, out_neff and, with
+// out_gate, the epilogue's outputs and the window as gs_fusion_weights
+// takes them, R = 1; P the rank's count), else the center's window
+// (win_mode 1) from sums (3,).  stream; &launched.
+extern "C" int gs_fusion_weights_mesh(
+    int pass, const float* lw, const float* poses, const float* m,
+    const float* total, const float* sums, const float* cands, int ranks,
+    float* out, float* scratch_f, int* scratch_i, int P, const float* recov,
+    const int* step, long long* out_index, float* out_best, float* out_neff,
+    bool* out_gate, float* out_integ, float* out_recov, float* out_pinj,
+    float thr_integ, float thr_gate, float a_slow, float a_fast,
+    float thr_inject, float hi_inject, int win_mode, const int* win_ints,
+    const float* win_floats, const float* d_center, const float* d_theta,
+    float* out_center, float* out_thetas, long long* out_cells, void* stream,
+    int* launched) {
+  *launched = 0;
+  if (P <= 0 || P > kRow * kRow || pass < 1 || pass > 4)
+    return cudaErrorInvalidValue;
+  const int nb = (P + kRow - 1) / kRow;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pv = scratch_f;
+  float* pe = pv + nb;
+  float* p4 = pe + nb;
+  int* pi = scratch_i;
+  unsigned* ticket = reinterpret_cast<unsigned*>(pi + nb);
+  cudaError_t e;
+  switch (pass) {
+    case 1:
+      if (poses == nullptr || out == nullptr) return cudaErrorInvalidValue;
+      e = cudaMemsetAsync(ticket, 0, 3 * sizeof(unsigned), st);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      fusion_mesh_max_kernel<<<nb, kRowThreads, 0, st>>>(lw, poses, pv, pi,
+                                                         ticket, P, nb, out);
+      break;
+    case 2:
+      if (m == nullptr || out == nullptr) return cudaErrorInvalidValue;
+      fusion_mesh_sum_kernel<<<nb, kRowThreads, 0, st>>>(lw, m, pe, ticket,
+                                                         P, nb, out);
+      break;
+    case 3:
+      if (poses == nullptr || m == nullptr || total == nullptr ||
+          out == nullptr)
+        return cudaErrorInvalidValue;
+      fusion_mesh_moments_kernel<<<nb, kRowThreads, 0, st>>>(
+          lw, poses, m, total, p4, ticket, P, nb, out);
+      break;
+    default: {
+      Window win;
+      e = epilogue_args(1, recov, step, out_gate, out_integ, out_recov,
+                        out_pinj, win_mode, win_ints, win_floats, d_center,
+                        d_theta, out_center, out_thetas, out_cells, &win);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (m == nullptr || sums == nullptr ||
+          (cands != nullptr &&
+           (ranks <= 0 || out_index == nullptr || out_best == nullptr ||
+            out_neff == nullptr)) ||
+          (cands == nullptr && (out_gate != nullptr || win_mode != 1)))
+        return cudaErrorInvalidValue;
+      const WeightsOut o{poses, recov, step, nullptr, nullptr, out_best,
+                         out_neff, nullptr, out_index, out_integ, out_recov,
+                         out_pinj, out_gate, thr_integ, thr_gate, a_slow,
+                         a_fast, thr_inject, hi_inject, win};
+      fusion_mesh_finish_kernel<<<1, kWarp, 0, st>>>(m, sums, cands, ranks,
+                                                     P, o);
+    }
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launched = 1;
+  return cudaSuccess;
+}
+
 // F8: lw (P,), poses (P, 3); u0, m, total one float each on the card (m,
 // total F7's); idx_out (P,) int64, poses_out (P, 3), lw_out (P,) or null;
 // scratch (nb 1024 floats, nb = ceil(P / 1024)); 1 / P in float; stream;
@@ -1952,7 +2323,7 @@ extern "C" int gs_fusion_walk(const float* lw, const float* poses,
   const int nb = (P + kRow - 1) / kRow;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   fusion_walk_scan_kernel<<<nb, kRowThreads, 0, st>>>(lw, m, total, scratch,
-                                                       P);
+                                                      P);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   *launched = 1;
@@ -1962,6 +2333,58 @@ extern "C" int gs_fusion_walk(const float* lw, const float* poses,
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   *launched = 2;
+  return cudaSuccess;
+}
+
+// F8's mesh form: the gathered rows (P, 4) of (lw, x, y, theta); u0 one
+// float on the card; F7's mesh passes A and B over the rows' lw (their
+// fixed-order max and total), then F8's scan over all P and its search of
+// the slots [base, base + count): idx_out (count,) int64, poses_out
+// (count, 3), lw_out (count,) or null; scratch (nb 1024 + 2 nb + 2
+// floats, nb = ceil(P / 1024)), scratch_i (nb + 3 ints); 1 / P in float;
+// stream; &launched (kernels: four).
+extern "C" int gs_fusion_walk_mesh(const float* rows, const float* u0,
+                                   long long* idx_out, float* poses_out,
+                                   float* lw_out, float* scratch,
+                                   int* scratch_i, int P, int base, int count,
+                                   float inv_p, void* stream, int* launched) {
+  *launched = 0;
+  if (P <= 0 || P > kRow * kRow || base < 0 || count <= 0 ||
+      base + count > P)
+    return cudaErrorInvalidValue;
+  const int nb = (P + kRow - 1) / kRow;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pv = scratch + static_cast<size_t>(nb) * kRow;
+  float* pe = pv + nb;
+  float* stats = pe + nb;              // the max, the total
+  int* pi = scratch_i;
+  unsigned* ticket = reinterpret_cast<unsigned*>(pi + nb);
+  cudaError_t e = cudaMemsetAsync(ticket, 0, 3 * sizeof(unsigned), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fusion_walk_mesh_max_kernel<<<nb, kRowThreads, 0, st>>>(rows, pv, pi,
+                                                          ticket, P, nb,
+                                                          stats);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launched = 1;
+  fusion_walk_mesh_sum_kernel<<<nb, kRowThreads, 0, st>>>(rows, pe, ticket, P,
+                                                          nb, stats);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launched = 2;
+  fusion_walk_mesh_scan_kernel<<<nb, kRowThreads, 0, st>>>(rows, stats,
+                                                           scratch, P);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launched = 3;
+  fusion_walk_mesh_search_kernel<<<(count + kSearchThreads - 1) /
+                                       kSearchThreads,
+                                   kSearchThreads, 0, st>>>(
+      rows, u0, scratch, idx_out, poses_out, lw_out, P, nb, base, count,
+      inv_p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launched = 4;
   return cudaSuccess;
 }
 

@@ -12,7 +12,8 @@ launch count (`fusions` eight of each):
   the motion model, the matcher's coarse pool, each matcher stage's
   prior, argmax and pick, the surface sample and climb, the splat's tap
   weights, the scan's preparation, the weights' tail and the systematic
-  walk (csrc/fusions.cu), with a launch count each.
+  walk, and the last two's mesh forms for the distributed engines
+  (csrc/fusions.cu), with a launch count each.
 
 The dispatching function of each module runs the plain version for a tensor
 on the CPU and the kernel for a tensor on the card; there is no fallback

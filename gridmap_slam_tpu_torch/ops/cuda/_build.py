@@ -117,9 +117,18 @@ SIGNATURES = {
     # ceiling; the window: mode, its ints and floats (host arrays),
     # d_center, d_theta, center, thetas, cells; stream, &launched
     "gs_fusion_weights": [_P] * 16 + [_I, _I] + [_F] * 6 + [_I] + [_P] * 9,
+    # F7's mesh form: pass, lw, poses, m, total, sums, candidates, ranks,
+    # out, scratch f, scratch i, P; the epilogue's recov, step, index,
+    # best, neff, gate, integ, recov_out, p_inject, its six floats and the
+    # window (as F7's); stream, &launched
+    "gs_fusion_weights_mesh": [_I] + [_P] * 6 + [_I] + [_P] * 3 + [_I]
+                              + [_P] * 9 + [_F] * 6 + [_I] + [_P] * 9,
     # F8: lw, poses, u0, m, total, idx, poses_out, lw_out, scratch, P,
     # 1 / P; stream, &launched
     "gs_fusion_walk": [_P] * 9 + [_I, _F, _P, _P],
+    # F8's mesh form: rows, u0, idx, poses_out, lw_out, scratch, scratch_i,
+    # P, the slots' base and count, 1 / P; stream, &launched
+    "gs_fusion_walk_mesh": [_P] * 7 + [_I] * 3 + [_F, _P, _P],
     # F7's exp (or F4's rsqrtf): x, out, n, rsqrt; stream
     "gs_fusion_exp": [_P, _P, _I, _I, _P],
 }

@@ -50,24 +50,31 @@ port's op sequence on the card:
   pose;
 - F8 `walk`: the systematic resample inside the gate's body
   (ops/resample.systematic_indices with the gathers of the poses and
-  log-weights at the ancestors), in two launches, from F7's max and total.
+  log-weights at the ancestors), in two launches, from F7's max and total;
+- F7's and F8's mesh forms, the distributed engines' tail (gridmap_slam_
+  tpu/parallel/shmap.py:94-103, :136-157, :178-205): `weights_mesh`, F7's
+  sums as passes over one rank's rows with the collectives over the ranks
+  (`Collectives`, callables the caller passes) between them and an
+  epilogue on the reduced values, and `walk_mesh`, F8 on every rank's
+  gathered rows for this rank's slots.
 
 Each dispatching function (`motion`, `pool`, `pick`, `score_on_volume`,
-`endpoint_factors`, F6's three, `weights`, `walk`) runs the kernel for a
+`endpoint_factors`, F6's three, `weights`, `walk`, `weights_mesh`,
+`walk_mesh`) runs the kernel for a
 tensor on the card and the plain version (`*_plain`, the op sequence the
 kernel replaces, which keeps the CPU's bits) for a tensor on the CPU; the
 `*_cuda` entry points raise ValueError on other tensors.  Each kernel counts
 its launches in `motion_launches`, `pool_launches`, `pick_launches`,
 `sample_launches` (F4), `splat_launches`, `scan_launches`,
-`weights_launches` (F7: one or three kernels a call) and `walk_launches`
-(F8: two).
+`weights_launches` (F7: one or three kernels a call), `walk_launches`
+(F8: two), `weights_mesh_launches` and `walk_mesh_launches` (four each).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,7 +83,8 @@ import torch.nn.functional as F
 from ...types import Odom, Scan
 from ..geometry import deskew_scan, scan_points, wrap_angle
 from ..resample import (ROW, exp_weights, integration_pose,
-                        mean_pose_of, neff_of, recovery_ema,
+                        max_fixed_order, mean_pose_of, neff_of,
+                        recovery_ema, sum_fixed_order, sums_fixed_order,
                         systematic_indices)
 from ..surface import (crop_center_cells, pack_neighborhoods,
                        refine_on_surface, sample_surface, splat_factors)
@@ -93,6 +101,8 @@ scan_launches = 0     # F6, likewise
 weights_launches = 0  # F7's kernels launched (one a call of P <= 1024
 #                       weights a robot, else three), likewise
 walk_launches = 0     # F8's (two a call), likewise
+weights_mesh_launches = 0  # F7's mesh form's (four a call), likewise
+walk_mesh_launches = 0     # F8's mesh form's (four a call), likewise
 
 
 def noise_scales(odom: Odom, cfg):
@@ -962,6 +972,45 @@ def weights_plan(r: int, p: int) -> WeightsPlan:
     return WeightsPlan(1 if nb == 1 else 3, 6 * r * nb, r * nb + 2 * r)
 
 
+class _WindowArgs:
+    """A WindowSpec as gs_fusion_weights takes it: the mode (0 none, 1 the
+    volume's, 2 the map update's), its ints and floats, and the odometry
+    and the tensors F7 writes the window into (`args`), then the Window
+    or the crop corner (`volume()`, `crop()`)."""
+
+    def __init__(self, fn: str, window, odom, dev):
+        self.mode = 0 if window is None else (1 if window.volume else 2)
+        ints = (ctypes.c_int * 8)()
+        floats = (ctypes.c_float * 5)()
+        dc = dt = self.center = self.thetas = self.cells = None
+        if self.mode:
+            ints[:] = [*window.crop, *window.full, window.radius,
+                       *window.ext, window.nt]
+            floats[:] = [_f32(window.origin[0]), _f32(window.origin[1]),
+                         _inv(window.resolution), _f32(window.t_off),
+                         _f32(window.dtheta)]
+            self.cells = torch.empty(6 if self.mode == 1 else 2,
+                                     dtype=torch.int64, device=dev)
+        if self.mode == 1:
+            dc, dt = (_one(fn, name, v, torch.float32, dev) for name, v in
+                      (("d_center", odom.d_center),
+                       ("d_theta", odom.d_theta)))
+            self.center = torch.empty(3, device=dev)
+            self.thetas = torch.empty(1 + window.nt, device=dev)
+        self.args = (self.mode, ints, floats,
+                     *(_ptr(t) for t in (dc, dt, self.center, self.thetas,
+                                         self.cells)))
+
+    def volume(self) -> Optional[Window]:
+        if self.mode != 1:
+            return None
+        return Window(*self.cells, self.center, self.thetas[0],
+                      self.thetas[1:])
+
+    def crop(self) -> Optional[torch.Tensor]:
+        return self.cells if self.mode == 2 else None
+
+
 def weights_cuda(log_weights, poses, *, resample_fraction=None, recov=None,
                  step=None, reinject=(0.0, 0.0), window=None, odom=None):
     """The kernel: weights_plain's Tail, the sums in ops/resample's fixed
@@ -1015,20 +1064,7 @@ def weights_cuda(log_weights, poses, *, resample_fraction=None, recov=None,
     scratch_i = empty(plan.scratch_ints, dtype=torch.int32)
     thr = ((_f32(0.95 * p), _f32(p * resample_fraction)) if finish
            else (0.0, 0.0))
-    ints = (ctypes.c_int * 8)()
-    floats = (ctypes.c_float * 5)()
-    dc = dt = center = thetas = cells = None
-    if mode:
-        ints[:] = [*window.crop, *window.full, window.radius, *window.ext,
-                   window.nt]
-        floats[:] = [_f32(window.origin[0]), _f32(window.origin[1]),
-                     _inv(window.resolution), _f32(window.t_off),
-                     _f32(window.dtheta)]
-        cells = empty(6 if mode == 1 else 2, dtype=torch.int64)
-    if mode == 1:
-        dc, dt = (_one(fn, name, v, torch.float32, dev) for name, v in
-                  (("d_center", odom.d_center), ("d_theta", odom.d_theta)))
-        center, thetas = empty(3), empty(1 + window.nt)
+    win = _WindowArgs(fn, window, odom, dev)
     launched = (ctypes.c_int * 1)()
     code = _build.library().gs_fusion_weights(
         lw.data_ptr(), ps.data_ptr(), _ptr(recov), _ptr(step),
@@ -1037,21 +1073,14 @@ def weights_cuda(log_weights, poses, *, resample_fraction=None, recov=None,
                             out.integ_pose, out.recov, out.p_inject)),
         scratch_f.data_ptr(), scratch_i.data_ptr(), r, p, *thr,
         _f32(reinject[0]), _f32(reinject[1]), _f32(P_INJECT_FORCE),
-        _f32(P_INJECT_MAX), mode, ints, floats,
-        *(_ptr(t) for t in (dc, dt, center, thetas, cells)),
-        stream_handle(dev), launched)
+        _f32(P_INJECT_MAX), *win.args, stream_handle(dev), launched)
     weights_launches += launched[0]
     _build.check("gs_fusion_weights", code)
-    volume = crop = None
-    if mode == 1:
-        volume = Window(*cells, center, thetas[0], thetas[1:])
-    elif mode == 2:
-        crop = cells
     return out._replace(**{
         k: v.reshape(lead + tuple(v.shape[1:])) for k, v in zip(
             Tail._fields[:7], out[:7]) if v is not None},
         p_inject=None if out.p_inject is None else out.p_inject[0],
-        volume=volume, crop=crop)
+        volume=win.volume(), crop=win.crop())
 
 
 def weights(log_weights, poses, **kw):
@@ -1074,19 +1103,207 @@ def weight_exp_cuda(x, rsqrt: bool = False):
     return out
 
 
+# ------------------------------------------------- F7's mesh form, the ranks
+class Collectives(NamedTuple):
+    """The collectives F7's mesh form calls between its passes, over the
+    ranks of one mesh axis, each a callable of one tensor that returns a
+    new tensor (parallel/shmap builds them from parallel/mesh's): `pmax`
+    and `psum` the elementwise maximum and sum over the ranks, `all_gather`
+    every rank's tensor stacked (n, ...) in rank order.  This module calls
+    no collective of its own."""
+
+    pmax: Callable
+    psum: Callable
+    all_gather: Callable
+
+
+def _check_mesh(fn, center, resample_fraction, recov, window):
+    if center and (resample_fraction is not None or recov is not None
+                   or (window is not None and not window.volume)):
+        raise ValueError(f"{fn}: the center call places the volume's "
+                         f"window alone")
+    if not center and window is not None and (
+            window.volume or resample_fraction is None):
+        raise ValueError(f"{fn}: the tail places the map update's window, "
+                         f"with the epilogue (resample_fraction)")
+    if recov is not None and resample_fraction is None:
+        raise ValueError(f"{fn}: the recovery EMAs need the epilogue "
+                         f"(resample_fraction)")
+
+
+def weights_mesh_plain(log_weights, poses, comm: Collectives, *,
+                       center=False, resample_fraction=None, recov=None,
+                       step=None, reinject=(0.0, 0.0), window=None,
+                       odom=None):
+    """Plain version of F7's mesh form: the weights' tail of every rank's
+    particles, this rank holding log_weights (p,) and poses (p, 3) of them
+    and the ranks joined by `comm` (Collectives), in ops/resample's op
+    sequence with the collectives between: the max's pmax, then exp(lw -
+    max) and the total's psum, then w = exp / total and the psum of Neff's
+    sum of squares and the weighted pose's three sums, and the all_gather
+    of each rank's (max log-weight, its pose, its index) (the JAX engines'
+    shard_fn, gridmap_slam_tpu/parallel/shmap.py:136-157).  Returns a Tail
+    (weights_plain's fields): best_index the global index of the strongest
+    particle, the first argmax over the ranks' rows (rank g's local index
+    i: g p + i), and with resample_fraction the epilogue over the global P
+    = n p, and a map update's WindowSpec's crop.
+
+    center=True: the surface volume's center call (:94-103): the psum of
+    the weighted pose's three sums alone, no candidate; Tail's max, total
+    and weighted mean pose, and with a volume WindowSpec `window` its
+    Window around the mean propagated by `odom` (window_plain)."""
+    _check_mesh("weights_mesh_plain", center, resample_fraction, recov,
+                window)
+    lw = log_weights
+    m = comm.pmax(max_fixed_order(lw))
+    e = torch.exp(lw - m)
+    total = comm.psum(sum_fixed_order(e))
+    w = e / total
+    if center:
+        mean = comm.psum(sums_fixed_order(poses[:, 0] * w, poses[:, 1] * w,
+                                          wrap_angle(poses[:, 2]) * w))
+        return Tail(m, total, None, None, None, mean,
+                    volume=None if window is None
+                    else window_plain(mean, odom, window))
+    sums = comm.psum(sums_fixed_order(w * w, poses[:, 0] * w,
+                                      poses[:, 1] * w,
+                                      wrap_angle(poses[:, 2]) * w))
+    n_eff, weighted = 1.0 / sums[0], sums[1:]
+    li = torch.argmax(lw)
+    every = comm.all_gather(torch.cat([lw[li[None]], poses[li[None]][0],
+                                       li[None].to(lw.dtype)]))
+    g = torch.argmax(every[:, 0])
+    row = every[g[None]][0]
+    p_loc = lw.shape[0]
+    out = Tail(m, total, g * p_loc + row[4].to(torch.int64), row[1:4],
+               n_eff, weighted)
+    if resample_fraction is None:
+        return out
+    p = every.shape[0] * p_loc
+    gate = n_eff < (p * resample_fraction)
+    integ = integration_pose(n_eff, p, weighted, out.best_pose)
+    rec = p_inject = None
+    if recov is not None:
+        rec, p_inject = recovery_ema(recov, step, m, *reinject)
+        gate = gate | (p_inject > P_INJECT_FORCE)
+    crop = None
+    if window is not None:
+        crop = torch.stack(crop_center_cells(
+            integ[:2], window.crop, window.full, window.resolution,
+            window.origin))
+    return out._replace(gate=gate, integ_pose=integ, recov=rec,
+                        p_inject=p_inject, crop=crop)
+
+
+def weights_mesh_cuda(log_weights, poses, comm: Collectives, *,
+                      center=False, resample_fraction=None, recov=None,
+                      step=None, reinject=(0.0, 0.0), window=None,
+                      odom=None):
+    """The kernel: weights_mesh_plain's Tail, the collectives called
+    between F7's mesh passes (csrc/fusions.cu: A the first argmax and the
+    candidate, B the sum of exp at the ranks' max, C the four moments at
+    the ranks' total, each summing its rows once by its last block; then
+    the epilogue of one thread on the reduced values and the gathered
+    candidates, which places the window), four launches a call (three for
+    a center call without a window).  log_weights (p,), poses (p, 3)
+    float32 on the card, p at most 1024 * 1024; recov, step and the window
+    as in weights_cuda."""
+    fn = "weights_mesh_cuda"
+    dev = log_weights.device
+    p = log_weights.shape[0] if log_weights.dim() == 1 else -1
+    check_tensor(fn, "log_weights", log_weights, (p,), dev)
+    check_tensor(fn, "poses", poses, (p, 3), dev)
+    if not 0 < p <= ROW * ROW:
+        raise ValueError(f"{fn}: 1 to {ROW * ROW} weights, got {p}")
+    _check_mesh(fn, center, resample_fraction, recov, window)
+    finish = resample_fraction is not None
+    if recov is not None:
+        check_tensor(fn, "recov", recov, (2,), dev)
+        step = _one(fn, "step", step, torch.int32, dev)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    nb = -(-p // ROW)
+    scratch_f = empty(6 * nb + 10)
+    scratch_i = empty(nb + 3, dtype=torch.int32)
+    cand, part = scratch_f[6 * nb:6 * nb + 5], scratch_f[6 * nb + 5:]
+    lib = _build.library()
+
+    def launch(mesh_pass, out=None, m=None, total=None, sums=None,
+               cands=None, outs=(None,) * 7, thr=(0.0, 0.0), win=None):
+        global weights_mesh_launches
+        epilogue = mesh_pass == 4
+        launched = (ctypes.c_int * 1)()
+        code = lib.gs_fusion_weights_mesh(
+            mesh_pass, log_weights.data_ptr(), poses.data_ptr(), _ptr(m),
+            _ptr(total), _ptr(sums), _ptr(cands),
+            0 if cands is None else cands.shape[0], _ptr(out),
+            scratch_f.data_ptr(), scratch_i.data_ptr(), p,
+            _ptr(recov) if epilogue else None,
+            _ptr(step) if epilogue and recov is not None else None,
+            *(_ptr(t) for t in outs), *thr, _f32(reinject[0]),
+            _f32(reinject[1]), _f32(P_INJECT_FORCE), _f32(P_INJECT_MAX),
+            *(win.args if win is not None else (0, None, None) + (None,) * 5),
+            stream_handle(dev), launched)
+        weights_mesh_launches += launched[0]
+        _build.check("gs_fusion_weights_mesh", code)
+
+    launch(1, out=cand)
+    m = comm.pmax(cand[0])
+    launch(2, out=part[:1], m=m)
+    total = comm.psum(part[0])
+    launch(3, out=part[1:], m=m, total=total)
+    if center:
+        mean = comm.psum(part[2:])
+        win = _WindowArgs(fn, window, odom, dev)
+        if window is not None:
+            launch(4, m=m, sums=mean, win=win)
+        return Tail(m, total, None, None, None, mean, volume=win.volume())
+    sums = comm.psum(part[1:])
+    every = comm.all_gather(cand)
+    n_all = every.shape[0] * p
+    thr = ((_f32(0.95 * n_all), _f32(n_all * resample_fraction)) if finish
+           else (0.0, 0.0))
+    out = Tail(max=m, total=total, best_index=empty(1, dtype=torch.int64),
+               best_pose=empty(3), neff=empty(1), weighted=sums[1:],
+               gate=empty(1, dtype=torch.bool) if finish else None,
+               integ_pose=empty(3) if finish else None,
+               recov=empty(2) if recov is not None else None,
+               p_inject=empty(1) if recov is not None else None)
+    win = _WindowArgs(fn, window, odom, dev)
+    launch(4, m=m, sums=sums, cands=every,
+           outs=(out.best_index, out.best_pose, out.neff, out.gate,
+                 out.integ_pose, out.recov, out.p_inject),
+           thr=thr, win=win)
+    return out._replace(
+        best_index=out.best_index[0], neff=out.neff[0],
+        gate=None if out.gate is None else out.gate[0],
+        p_inject=None if out.p_inject is None else out.p_inject[0],
+        crop=win.crop())
+
+
+def weights_mesh(log_weights, poses, comm: Collectives, **kw):
+    """F7's mesh form (see weights_mesh_plain): the kernels on the card,
+    the plain version on the CPU."""
+    fn = weights_mesh_cuda if log_weights.is_cuda else weights_mesh_plain
+    return fn(log_weights, poses, comm, **kw)
+
+
 # ------------------------------------------------------------------ F8: walk
 def walk_plain(log_weights, u0, poses, m, total, *, gather_weights=True,
-               out=None):
+               out=None, draw=systematic_indices):
     """Plain version of F8 on one robot's log-weights (P,), the start u0
-    and poses (P, 3): ops/resample.systematic_indices, then the poses (and
-    where gather_weights the log-weights) at those ancestors, each written
-    into its tensor of `out` = (indices, poses, log-weights) where given.
-    m, total: F7's max and total of these weights, which the kernel takes
-    in place of recomputing them; this version recomputes them (the same
+    and poses (P, 3): the ancestors `draw(log_weights, u0)`
+    (ops/resample.systematic_indices), then the poses (and where
+    gather_weights the log-weights) at those ancestors, each written into
+    its tensor of `out` = (indices, poses, log-weights) where given.  m,
+    total: F7's max and total of these weights, which the kernel takes in
+    place of recomputing them; this version recomputes them (the same
     bits).  Returns (indices int64, poses, log-weights or None)."""
     del m, total
     o = (None, None, None) if out is None else out
-    idx = systematic_indices(log_weights, u0)
+    idx = draw(log_weights, u0)
     if o[0] is not None:
         idx = o[0].copy_(idx)
     got = torch.index_select(poses, 0, idx, out=o[1])
@@ -1139,10 +1356,109 @@ def walk_cuda(log_weights, u0, poses, m, total, *, gather_weights=True,
     return idx, got, lw
 
 
+def _plain_draw(fn, draw, on_card):
+    """The plain version's `draw` (systematic_indices where None); a draw
+    given with tensors on the card is refused, since the kernel draws its
+    own ancestors."""
+    if on_card and draw is not None:
+        raise ValueError(f"{fn}: draw= is the plain version's; the kernel "
+                         f"draws the ancestors itself")
+    return systematic_indices if draw is None else draw
+
+
 def walk(log_weights, u0, poses, m, total, *, gather_weights=True,
-         out=None):
+         out=None, draw=None):
     """The systematic resample of one robot (see walk_plain), m and total
-    its weights' Tail's: F8 on the card, its plain version on the CPU."""
-    fn = walk_cuda if log_weights.is_cuda else walk_plain
-    return fn(log_weights, u0, poses, m, total,
-              gather_weights=gather_weights, out=out)
+    its weights' Tail's: F8 on the card, its plain version (its ancestors
+    by `draw`, systematic_indices where None) on the CPU; a `draw` with
+    tensors on the card raises."""
+    draw = _plain_draw("walk", draw, log_weights.is_cuda)
+    if log_weights.is_cuda:
+        return walk_cuda(log_weights, u0, poses, m, total,
+                         gather_weights=gather_weights, out=out)
+    return walk_plain(log_weights, u0, poses, m, total,
+                      gather_weights=gather_weights, out=out, draw=draw)
+
+
+def walk_mesh_plain(rows, u0, *, base: int, count: int, gather_weights=True,
+                    out=None, draw=systematic_indices):
+    """Plain version of F8's mesh form on the gathered rows (P, 4) of every
+    rank's (log-weight, pose): the ancestors `draw(lw_all, u0)`
+    (ops/resample.systematic_indices) of all P log-weights with the start
+    u0, the slots [base, base + count) of it
+    (this rank's), and the poses (and where gather_weights the
+    log-weights) of the rows at those ancestors, each written into its
+    tensor of `out` = (indices, poses, log-weights) where given (the JAX
+    engines' resample body, gridmap_slam_tpu/parallel/shmap.py:178-207).
+    Returns (indices (count,) int64, poses (count, 3), log-weights (count,)
+    or None)."""
+    o = (None, None, None) if out is None else out
+    lw_all, poses_all = rows[:, 0], rows[:, 1:]
+    idx = draw(lw_all, u0)[base:base + count]
+    if o[0] is not None:
+        idx = o[0].copy_(idx)
+    got = torch.index_select(poses_all, 0, idx, out=o[1])
+    lw = (torch.index_select(lw_all, 0, idx, out=o[2])
+          if gather_weights else None)
+    return idx, got, lw
+
+
+def walk_mesh_cuda(rows, u0, *, base: int, count: int, gather_weights=True,
+                   out=None):
+    """The kernel: walk_mesh_plain's outputs in four launches (F7's mesh
+    passes A and B over all P log-weights of the rows: the fixed order's
+    max and total; F8's scan over all P; its search of the slots [base,
+    base + count) alone, with the gathers).  rows (P, 4) float32 on the
+    card, P at most 1024 * 1024; u0 one float32 on the card; `out` as in
+    walk_mesh_plain, none of it an input."""
+    global walk_mesh_launches
+    fn = "walk_mesh_cuda"
+    dev = rows.device
+    p = rows.shape[0] if rows.dim() == 2 else -1
+    check_tensor(fn, "rows", rows, (p, 4), dev)
+    if not 0 < p <= ROW * ROW:
+        raise ValueError(f"{fn}: 1 to {ROW * ROW} rows, got {p}")
+    if not (0 <= base and 0 < count and base + count <= p):
+        raise ValueError(f"{fn}: slots [{base}, {base + count}) are not "
+                         f"within the {p} rows")
+    u0 = _one(fn, "u0", u0, torch.float32, dev)
+    o = (None, None, None) if out is None else out
+    idx = o[0] if o[0] is not None else torch.empty(
+        (count,), dtype=torch.int64, device=dev)
+    got = o[1] if o[1] is not None else torch.empty((count, 3), device=dev)
+    lw = None
+    if gather_weights:
+        lw = o[2] if o[2] is not None else torch.empty((count,), device=dev)
+    check_tensor(fn, "indices", idx, (count,), dev, dtype=torch.int64)
+    check_tensor(fn, "poses out", got, (count, 3), dev)
+    if lw is not None:
+        check_tensor(fn, "log-weights out", lw, (count,), dev)
+    ins = {t.data_ptr() for t in (rows, u0)}
+    if any(t is not None and t.data_ptr() in ins for t in (idx, got, lw)):
+        raise ValueError(f"{fn}: an output may not be an input")
+    nb = -(-p // ROW)
+    scratch = torch.empty((nb * ROW + 2 * nb + 2,), dtype=torch.float32,
+                          device=dev)
+    scratch_i = torch.empty((nb + 3,), dtype=torch.int32, device=dev)
+    launched = (ctypes.c_int * 1)()
+    code = _build.library().gs_fusion_walk_mesh(
+        rows.data_ptr(), u0.data_ptr(), idx.data_ptr(), got.data_ptr(),
+        _ptr(lw), scratch.data_ptr(), scratch_i.data_ptr(), p, base, count,
+        _inv(p), stream_handle(dev), launched)
+    walk_mesh_launches += launched[0]
+    _build.check("gs_fusion_walk_mesh", code)
+    return idx, got, lw
+
+
+def walk_mesh(rows, u0, *, base: int, count: int, gather_weights=True,
+              out=None, draw=None):
+    """F8's mesh form, this rank's slots of the systematic resample of the
+    gathered rows (see walk_mesh_plain): the kernels on the card, the plain
+    version (its ancestors by `draw`, systematic_indices where None) on the
+    CPU; a `draw` with rows on the card raises."""
+    draw = _plain_draw("walk_mesh", draw, rows.is_cuda)
+    if rows.is_cuda:
+        return walk_mesh_cuda(rows, u0, base=base, count=count,
+                              gather_weights=gather_weights, out=out)
+    return walk_mesh_plain(rows, u0, base=base, count=count,
+                           gather_weights=gather_weights, out=out, draw=draw)

@@ -100,7 +100,7 @@ def make_sharded_step(engine: RBPF, mesh, jit: bool = False):
                 origin=t_origin, l_free=s.l_free, l_occ=s.l_occ,
                 tol_cells=s.hit_tolerance_cells, out=maps[a:a + chunk])
         return finish_step(engine, mesh, state, poses_all, scores,
-                           lambda pose, into: None, u0, None,
+                           lambda pose, into, win: None, u0, None,
                            cfg.resample_fraction, maps=maps, out=out,
                            host_gate=host_gate)
 

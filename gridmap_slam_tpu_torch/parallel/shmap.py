@@ -9,22 +9,28 @@ the shared map is replicated.  A rank's step:
   in blocks (`SharedMapSLAM.match`, the blocks of step_blocked); or, with
   surface=True, the likelihood volume built redundantly on every rank
   around the previous cloud's global weighted mean propagated by the
-  odometry (models/shared.surface_volume) and tapped by the local
-  particles;
-- weight statistics: one pmax and two psums over 'p' (the normalizer; then
-  Neff's sum and the weighted pose in one vector);
-- strongest particle: an all_gather of each rank's (score, pose, index);
+  odometry (models/shared.surface_volume), its window placed by F7's mesh
+  form's center call (a pmax and two psums over 'p'), and tapped by the
+  local particles;
+- weight statistics: F7's mesh form (ops/cuda/fusions.weights_mesh), its
+  passes over the local rows with one pmax and two psums over 'p' between
+  them (the normalizer; then Neff's sum and the weighted pose in one
+  vector);
+- strongest particle: an all_gather of each rank's (score, pose, index),
+  which F7's epilogue reads with the integration pose, the gate, the
+  recovery EMAs and the map update's crop;
 - map update: K2 at batch 1, redundantly on every rank from the agreed
   integration pose (into the crop around it in surface mode, K2's window
   variant placed on the card);
 - resampling: the JAX step's lax.cond as models/captured.cond.  Its body
   is what JAX puts inside the cond: on more than one rank the all_gather
   of every rank's (log-weight, pose) rows (and, for the sharded RBPF, map
-  tiles), the global systematic ancestors from the gathered log-weights
-  and the shared draw u0, this rank's slice of them, the gathers, and the
-  injection with its psum.  The compiled step (jit=True) runs it as a
-  CUDA-graph IF node a scan on the card, so a replay calls no resample
-  collective on a scan whose gate does not fire, with no host read; the
+  tiles), F8's mesh form (the walk of the gathered log-weights from the
+  shared draw u0, this rank's slots of it and the gathers), and the
+  injection with its psum; on one rank F8 from F7's max and total.  The
+  compiled step (jit=True) runs it as a CUDA-graph IF node a scan on the
+  card, so a replay calls no resample collective on a scan whose gate
+  does not fire, with no host read; the
   eager step on the card is the select on one rank (no host read, no
   collective in the body) and on more ranks reads the gate on the host
   once a scan; on the CPU the gate is a Python branch
@@ -61,14 +67,12 @@ import torch
 from ..models import captured
 from ..models.shared import (SharedMapSLAM, SharedMapState, inject_uniform,
                              match_particles, matcher_block_size,
-                             recovery_update, surface_volume)
+                             reinject_rates, surface_volume,
+                             volume_window_spec)
 from ..ops.cuda import fusions
 from ..ops.cuda.likelihood import log_likelihood_field_batch
-from ..ops.geometry import wrap_angle
-from ..ops.motion import apply_odometry, sample_motion
-from ..ops.resample import (integration_pose, max_fixed_order,
-                            sum_fixed_order, sums_fixed_order,
-                            systematic_indices)
+from ..ops.motion import sample_motion
+from ..ops.resample import systematic_indices
 from ..types import Frame, StepInfo
 from .mesh import (all_gather, axis_index, axis_size, pmax, psum,
                    shard_state)
@@ -151,18 +155,25 @@ class MeshStep:
             self._compiled, self._draw, self.device))
 
 
-def global_weighted_mean(poses, log_weights, mesh):
-    """The weighted mean pose of the whole cloud (ops/resample.
-    weighted_mean_pose over every rank's particles) and the global max
-    log-weight.  Each rank's sums take ops/resample's fixed order on the
-    card, so that a 'p' axis of one rank gives the single-device engines'
-    bits (F7's)."""
-    m = pmax(max_fixed_order(log_weights), mesh, "p")
-    e = torch.exp(log_weights - m)
-    w = e / psum(sum_fixed_order(e), mesh, "p")
-    mean = psum(sums_fixed_order(poses[:, 0] * w, poses[:, 1] * w,
-                                 wrap_angle(poses[:, 2]) * w), mesh, "p")
-    return mean, m
+def collectives(mesh) -> fusions.Collectives:
+    """The collectives over 'p' that F7's mesh form calls between its
+    passes (ops/cuda/fusions.Collectives)."""
+    return fusions.Collectives(
+        pmax=functools.partial(pmax, mesh=mesh, axis="p"),
+        psum=functools.partial(psum, mesh=mesh, axis="p"),
+        all_gather=functools.partial(all_gather, mesh=mesh, axis="p"))
+
+
+def mesh_window(state, odom, mesh, spec):
+    """The surface volume's Window (ops/cuda/fusions.WindowSpec `spec`, a
+    volume's) around the previous cloud's weighted mean over every rank's
+    particles, propagated by the odometry: F7's mesh form's center call
+    (its pmax and two psums over 'p'), which places the window on the
+    card.  Each rank's sums take ops/resample's fixed order, so that a 'p'
+    axis of one rank gives the single-device engines' window bits."""
+    return fusions.weights_mesh(state.log_weights, state.poses,
+                                collectives(mesh), center=True, window=spec,
+                                odom=odom).volume
 
 
 def _global_mean(x, mesh, n_total: int):
@@ -174,11 +185,13 @@ def _global_mean(x, mesh, n_total: int):
 
 def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
                 u0, inj, resample_fraction: float, maps=None, out=None,
-                host_gate: bool = False):
+                host_gate: bool = False, crop=None):
     """The tail every distributed engine shares, on this rank's particles:
-    weights, the global statistics over 'p', the strongest particle, the
-    map update `integrate(integration_pose, into)` (into: the map that
-    receives it, or None), the resample gate, the recovery EMAs and
+    F7's mesh form (the weights, the global statistics over 'p', the
+    strongest particle, the integration pose, the resample gate and the
+    recovery EMAs, and the map update's window `crop`, a WindowSpec or
+    None), the map update `integrate(integration_pose, into, win)` (into:
+    the map that receives it, or None; win: F7's crop corner or None), the
     injection (shared-map states), and the resample, which carries `maps`
     (the sharded RBPF's local maps) with the poses when given.  Each field
     of `out`, where given, is written after its last read of `state`.
@@ -186,16 +199,19 @@ def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
     The resample is the JAX step's lax.cond: captured.cond (an IF node
     under capture, a select eagerly on the card, a Python branch on the
     CPU) over a body that, on a 'p' axis of more than one rank, gathers
-    every rank's (log-weight, pose) rows (and maps) first, so that no
-    resample collective runs where the gate does not fire.  With
+    every rank's (log-weight, pose) rows (and maps) first and walks them
+    (F8's mesh form: this rank's slots of the walk over all of them), so
+    that no resample collective runs where the gate does not fire.  With
     host_gate=True (the eager step) a 'p' axis of more than one rank reads
-    the gate on the host once a scan instead.  On one rank the sharded
-    RBPF takes RBPF.step's form (the ancestors' indices under the gate,
-    then its maps gathered once at them) and the shared-map engines
+    the gate on the host once a scan instead.  On one rank the walk is F8
+    from F7's max and total: the sharded RBPF takes RBPF.step's form (the
+    ancestors' indices, poses and weights under the gate, then its maps
+    gathered once at the indices) and the shared-map engines
     SharedMapSLAM._finish's (the identity's rows, overwritten where the
     gate fires); on more ranks the sharded RBPF's `maps` may be
     `out.logodds` itself, which the body overwrites from the gathered
-    tiles.  Returns (new_state, info)."""
+    tiles.  On the CPU the walks' plain versions draw the ancestors by this
+    module's systematic_indices.  Returns (new_state, info)."""
     cfg = engine.config
     p = cfg.num_particles
     p_loc = poses.shape[0]
@@ -209,37 +225,24 @@ def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
     if cfg.accumulate_weights:
         lw = lw + state.log_weights
 
-    # ops/resample's fixed orders on the card (see global_weighted_mean)
-    m = pmax(max_fixed_order(lw), mesh, "p")
-    e = torch.exp(lw - m)
-    w = e / psum(sum_fixed_order(e), mesh, "p")
-    sums = psum(sums_fixed_order(w * w, poses[:, 0] * w, poses[:, 1] * w,
-                                 wrap_angle(poses[:, 2]) * w), mesh, "p")
-    n_eff = 1.0 / sums[0]
-    weighted = sums[1:]
-
-    # the strongest particle: (score, pose, local index) of each rank
-    li = torch.argmax(lw)
-    cand = torch.cat([lw[li[None]], poses[li[None]][0],
-                      li[None].to(lw.dtype)])
-    every = all_gather(cand, mesh, "p")                     # (n_p, 5)
-    gbest = torch.argmax(every[:, 0])
-    row = every[gbest[None]][0]
-    best_pose = row[1:4]
-    best_index = gbest * p_loc + row[4].to(torch.int64)
-    logodds = integrate(integration_pose(n_eff, p, weighted, best_pose),
-                        into("logodds"))
-
-    do_resample = n_eff < (p * resample_fraction)
-    recov, p_inject = (recovery_update(cfg, state, m)
-                       if isinstance(state, SharedMapState)
-                       else (None, None))
-    if p_inject is not None:
-        # a kidnap makes every particle uniformly bad, so Neff rises and
-        # the gate alone would never fire: injection forces a resample
-        do_resample = do_resample | (p_inject > 0.05)
-    if out is not None and recov is not None:
-        recov = captured.copy_into(out.recov, recov)
+    # the weights' tail over every rank (F7's mesh form on the card): the
+    # pmax, psums and all_gather between its passes, then its epilogue
+    shared = isinstance(state, SharedMapState)
+    rates = reinject_rates(cfg) if shared else None
+    tail = fusions.weights_mesh(
+        lw, poses, collectives(mesh), resample_fraction=resample_fraction,
+        recov=None if rates is None else state.recov, step=state.step,
+        reinject=rates or (0.0, 0.0), window=crop)
+    logodds = integrate(tail.integ_pose, into("logodds"), tail.crop)
+    # a kidnap makes every particle uniformly bad, so Neff rises and the
+    # gate alone would never fire: injection forces a resample (the
+    # epilogue's gate)
+    do_resample, p_inject = tail.gate, tail.p_inject
+    recov = None
+    if shared:
+        recov = state.recov if tail.recov is None else tail.recov
+        if out is not None:
+            recov = captured.copy_into(out.recov, recov)
     new_step = torch.add(state.step, 1, out=into("step"))
 
     def gate(body, outs):
@@ -251,56 +254,61 @@ def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
 
     base = i_p * p_loc
     acc = cfg.accumulate_weights
+    # the walks' plain versions draw by this module's systematic_indices
+    # (the kernels draw their own)
+    draw = None if dev.type == "cuda" else systematic_indices
+    # the identity's rows land in `out` (or new tensors), and the resample
+    # overwrites them where the gate fires
+    new_poses = (poses.clone() if out is None
+                 else captured.copy_into(out.poses, poses))
+    new_lw = (lw.clone() if out is None
+              else captured.copy_into(out.log_weights, lw))
     if maps is not None and n_p == 1:
-        # RBPF.step's form: the ancestors' indices (and, accumulating, the
-        # weights' reset) under the gate, the identity where it does not
-        # fire; then the maps, poses and weights move once, gathered at
+        # RBPF.step's form: the ancestors' indices, poses and weights (or,
+        # accumulating, the weights' reset) under the gate, the identity
+        # where it does not fire; then the maps move once, gathered at
         # those indices
         idx = torch.arange(p_loc, device=dev)
-        if acc:
-            lw = lw if out is None else captured.copy_into(out.log_weights,
-                                                           lw)
 
         def resample():
-            idx.copy_(systematic_indices(lw, u0))
+            fusions.walk(lw, u0, poses, tail.max, tail.total,
+                         gather_weights=not acc,
+                         out=(idx, new_poses, None if acc else new_lw),
+                         draw=draw)
             if acc:
-                lw.zero_()
+                new_lw.zero_()
 
-        gate(resample, [idx, lw] if acc else [idx])
-        new_poses = torch.index_select(poses, 0, idx, out=into("poses"))
+        gate(resample, [idx, new_poses, new_lw])
         new_maps = torch.index_select(maps, 0, idx, out=into("logodds"))
-        new_lw = lw if acc else torch.index_select(
-            lw, 0, idx, out=into("log_weights"))
         best_lw = new_lw.max()
     else:
-        # SharedMapSLAM._finish's form: the identity's rows land in `out`
-        # (or new tensors), and the resample overwrites them where the
-        # gate fires
-        new_poses = (poses.clone() if out is None
-                     else captured.copy_into(out.poses, poses))
-        new_lw = (lw.clone() if out is None
-                  else captured.copy_into(out.log_weights, lw))
+        # SharedMapSLAM._finish's form
         new_maps = (maps if maps is None or out is None
                     else captured.copy_into(out.logodds, maps))
-        best_lw = m.clone() if n_p > 1 else None
+        best_lw = tail.max.clone() if n_p > 1 else None
+        idx = (None if maps is None
+               else torch.empty(p_loc, dtype=torch.int64, device=dev))
 
         def resample():
+            walked = (None if acc else new_lw)
             if n_p == 1:
-                lw_all, poses_all, maps_all = lw, poses, maps
+                fusions.walk(lw, u0, poses, tail.max, tail.total,
+                             gather_weights=not acc,
+                             out=(None, new_poses, walked),
+                             draw=draw)
             else:
                 rows = all_gather(torch.cat([lw[:, None], poses], 1), mesh,
                                   "p", tiled=True)
-                lw_all, poses_all = rows[:, 0], rows[:, 1:]
                 maps_all = (None if maps is None
                             else all_gather(maps, mesh, "p", tiled=True))
-            idx = systematic_indices(lw_all, u0)[base:base + p_loc]
-            torch.index_select(poses_all, 0, idx, out=new_poses)
-            if maps is not None:
-                torch.index_select(maps_all, 0, idx, out=new_maps)
+                fusions.walk_mesh(rows, u0, base=base, count=p_loc,
+                                  gather_weights=not acc,
+                                  out=(idx, new_poses, walked),
+                                  draw=draw)
+                if maps is not None:
+                    torch.index_select(maps_all, 0, idx, out=new_maps)
             if acc:
                 new_lw.zero_()
-            else:
-                torch.index_select(lw_all, 0, idx, out=new_lw)
             if p_inject is not None:
                 inj_poses, took = inject_uniform(cfg, inj, new_poses,
                                                  p_inject, slot_offset=base)
@@ -322,8 +330,9 @@ def finish_step(engine, mesh, state, poses, scores, integrate: Callable,
         fields["recov"] = recov
     new_state = out if out is not None else dataclasses.replace(state,
                                                                 **fields)
-    info = StepInfo(neff=n_eff, weighted_pose=weighted, best_pose=best_pose,
-                    best_index=best_index.to(torch.int32),
+    info = StepInfo(neff=tail.neff, weighted_pose=tail.weighted,
+                    best_pose=tail.best_pose,
+                    best_index=tail.best_index.to(torch.int32),
                     best_log_weight=best_lw, resampled=do_resample)
     return new_state, info
 
@@ -345,20 +354,19 @@ def make_shmap_step(engine: SharedMapSLAM, mesh, surface: bool = False,
     while p_loc % chunk:
         chunk -= 1
 
+    spec = volume_window_spec(cfg) if surface else None
+
     def body(state: SharedMapState, frame: Frame, draws, out, host_gate):
         mc = cfg.matcher
         normals, u0, inj = local_draws(engine, mesh, draws)
         prep = engine._scan_inputs(frame)
         odom = frame.odom
         if surface:
-            # the center from the mesh's weighted mean (the tail's plain
-            # fixed order across ranks), its window in tensor ops; the
-            # temperature inside F4
-            mean, _ = global_weighted_mean(state.poses, state.log_weights,
-                                           mesh)
-            center = apply_odometry(mean, odom)
-            c_vol, kw, kc = surface_volume(cfg, engine.taps, state.logodds,
-                                           prep, center)
+            # the volume's window around the mesh's weighted mean (F7's
+            # mesh form's center call); the temperature inside F4
+            c_vol, kw, kc = surface_volume(
+                cfg, engine.taps, state.logodds, prep,
+                window=mesh_window(state, odom, mesh, spec))
             pose_s = sample_motion(state.poses, odom, cfg.motion, normals)
             poses, scores = fusions.score_on_volume(
                 c_vol, pose_s, steps=mc.surface_refine_steps, **kw)
@@ -371,13 +379,13 @@ def make_shmap_step(engine: SharedMapSLAM, mesh, surface: bool = False,
                                             prep, odom, chunk)
             crop, fraction = 0, cfg.resample_fraction
 
-        def integrate(pose, into):
+        def integrate(pose, into, win):
             return engine._integrate(state.logodds, pose, prep.tables,
-                                     prep.keep, crop, out=into)
+                                     prep.keep, crop, out=into, win=win)
 
         return finish_step(engine, mesh, state, poses, scores, integrate,
-                           u0, inj, fraction, out=out,
-                           host_gate=host_gate)
+                           u0, inj, fraction, out=out, host_gate=host_gate,
+                           crop=engine._crop_spec(crop))
 
     return MeshStep(body, engine._draw, engine.device, jit)
 
@@ -389,4 +397,4 @@ def init_shmap(engine: SharedMapSLAM, mesh, pose=(0.0, 0.0, 0.0)):
 
 
 __all__ = ["make_shmap_step", "init_shmap", "finish_step", "MeshStep",
-           "global_weighted_mean", "local_draws", "local_particles"]
+           "collectives", "mesh_window", "local_draws", "local_particles"]

@@ -6,7 +6,8 @@ The map is split into column tiles over 'm' (the layout of
 parallel/tiled.py) and the particles over 'p'.  Per scan:
 
 - volume centre: the previous cloud's global weighted mean, propagated by
-  the odometry (psums over 'p');
+  the odometry, and the volume's window around it: F7's mesh form's center
+  call (a pmax and two psums over 'p'), the window placed on the card;
 - crop: the raw log-odds crop, extended by the blur radius, assembled from
   the owning tiles by a masked column gather and one psum over 'm'
   (surface_sharded.py:151-166); the crop's place is a tensor on the card;
@@ -33,13 +34,12 @@ from ..models.shared import SharedMapSLAM, _window
 from ..ops.cuda.grid_update import integrate_scan_window
 from ..ops.cuda.likelihood import log_likelihood_field_batch
 from ..ops.cuda import fusions
-from ..ops.motion import apply_odometry, sample_motion
-from ..ops.surface import (crop_center_cells, endpoint_images, scan_surface,
-                           theta_grid)
+from ..ops.motion import sample_motion
+from ..ops.surface import endpoint_images, scan_surface, theta_grid
 from ..types import Frame
 from .mesh import all_gather, axis_index, axis_size, psum, shard_state
-from .shmap import (MeshStep, finish_step, global_weighted_mean,
-                    local_draws, local_particles)
+from .shmap import (MeshStep, finish_step, local_draws, local_particles,
+                    mesh_window)
 from .tiled import tile_geometry
 
 
@@ -76,21 +76,28 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh,
     r = cfg.map.likelihood_radius
     hce, wce = min(hc + 2 * r, h), min(wc + 2 * r, w_total)
 
+    # the volume's window: the crop, the crop plus the blur radius (each
+    # side clamped to the map apart) and the theta bins
+    spec = fusions.WindowSpec(crop=(hc, wc), full=(h, w_total),
+                              resolution=res, origin=origin, volume=True,
+                              radius=r, ext=(hce, wce), nt=nt, t_off=t_off,
+                              dtheta=dtheta)
+    # this rank's theta bins (a padded bin repeats the last bin's theta)
+    bins = torch.clamp(j * nt_loc + torch.arange(nt_loc), max=nt - 1).to(
+        engine.device)
+
     def body(state, frame: Frame, draws, out, host_gate):
         normals, u0, inj = local_draws(engine, mesh, draws)
         prep = engine._scan_inputs(frame)
         odom = frame.odom
         dev = state.logodds.device
-        mean, _ = global_weighted_mean(state.poses, state.log_weights, mesh)
-        center = apply_odometry(mean, odom)
+        # the window around the mesh's weighted mean propagated by the
+        # odometry (F7's mesh form's center call)
+        win = mesh_window(state, odom, mesh, spec)
 
         # the raw crop plus blur radius, from the tiles that own its columns
-        iy0, ix0 = crop_center_cells(center[:2], (hc, wc), (h, w_total), res,
-                                     origin)
-        ey0 = torch.clamp(iy0 - r, 0, h - hce)
-        ex0 = torch.clamp(ix0 - r, 0, w_total - wce)
-        rows = ey0 + torch.arange(hce, device=dev)
-        cols = ex0 + torch.arange(wce, device=dev) - c0
+        rows = win.ey0 + torch.arange(hce, device=dev)
+        cols = win.ex0 + torch.arange(wce, device=dev) - c0
         owned = (cols >= 0) & (cols < w_loc)
         piece = (state.logodds[rows[:, None],
                                cols.clamp(0, w_loc - 1)[None, :]]
@@ -99,28 +106,27 @@ def make_surface_sharded_step(engine: SharedMapSLAM, mesh,
         llf_ext = log_likelihood_field_batch(
             lo_ext[None], engine.taps, z_hit=mc.z_hit,
             max_range=s.max_range)[0]
-        llf_crop = _window(llf_ext, iy0 - ey0, ix0 - ex0, hc, wc)
+        llf_crop = _window(llf_ext, win.oy, win.ox, hc, wc)
 
         # this rank's theta bins, then the whole volume
-        theta0 = center[2] + t_off
-        bins = j * nt_loc + torch.arange(nt_loc, device=dev)
-        thetas = theta0 + dtheta * torch.clamp(bins, max=nt - 1).to(
-            torch.float32)
         e_stack = endpoint_images(*fusions.endpoint_factors(
-            prep.px, prep.py, prep.wgt, thetas, kc, res))
+            prep.px, prep.py, prep.wgt, win.thetas[bins], kc, res))
         c_local = scan_surface(llf_crop, e_stack, ll_outside,
                                bf16=mc.surface_bf16, fft=use_fft)
         c_vol = all_gather(c_local, mesh, "m", tiled=True)[:nt]
-        kw = dict(theta0=theta0, dtheta=dtheta, crop_iy0=iy0, crop_ix0=ix0,
-                  resolution=res, origin=origin, wrap_theta=wrap_theta,
-                  temp=mc.surface_weight_temp, n_used=prep.n_used)
+        kw = dict(theta0=win.theta0, dtheta=dtheta, crop_iy0=win.iy0,
+                  crop_ix0=win.ix0, resolution=res, origin=origin,
+                  wrap_theta=wrap_theta, temp=mc.surface_weight_temp,
+                  n_used=prep.n_used)
 
         # the sample, the climb and the weights' temperature (F4)
         pose_s = sample_motion(state.poses, odom, cfg.motion, normals)
         poses, scores = fusions.score_on_volume(
             c_vol, pose_s, steps=mc.surface_refine_steps, **kw)
 
-        def integrate(pose, into):
+        def integrate(pose, into, _):
+            # the tile-local crop around the integration pose (F7's crop is
+            # the whole map's)
             cx = (pose[0] - origin[0]) / res
             cy = (pose[1] - origin[1]) / res
             win = torch.stack([

@@ -152,7 +152,7 @@ def make_tiled_step(engine: SharedMapSLAM, mesh, jit: bool = False):
                                         prep, frame.odom, ch,
                                         stage=tile_stage(mesh))
 
-        def integrate(pose, into):
+        def integrate(pose, into, win):
             return integrate_scan_batch(
                 state.logodds[None], pose[None], prep.keep, *prep.tables,
                 resolution=res, origin=t_origin, l_free=s.l_free,

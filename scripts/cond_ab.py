@@ -17,7 +17,8 @@ then:
   state's map bytes;
 - device ms a scan: the device records of REPLAYS replays under
   torch.profiler, over their scans, and among them each F1-F8 kernel's
-  (fusion_ms_a_scan; F3's and F7's apart); host ms a scan by CUDA events around
+  (fusion_ms_a_scan; F3's, F7's and F7's mesh form's apart, the last
+  F7's mesh passes, fusion_mesh_*); host ms a scan by CUDA events around
   the same number of replays (host loop included), and the same of
   EAGER_REPLAYS eager replays (the engine's `replay`, a Python loop of
   steps; after one warm-up);
@@ -301,6 +302,9 @@ def child(name: str) -> dict:
                 f7_ms_a_scan=sum(v for k, v in fusion_us.items()
                                  if k.startswith("weights")) / 1e3
                 / (REPLAYS * n),
+                f7_mesh_ms_a_scan=sum(v for k, v in fusion_us.items()
+                                      if k.startswith("mesh")) / 1e3
+                / (REPLAYS * n),
                 host_ms_a_scan=host_ms, scans_per_sec=1e3 / host_ms,
                 eager_ms_a_scan=eager_ms, eager_scans_per_sec=1e3 / eager_ms,
                 peak_bytes=peak, map_bytes=map_bytes,
@@ -358,6 +362,7 @@ def main():
                 print(json.dumps(row), flush=True)
                 rows[side].setdefault(row["path"], []).append(row)
     keys = ("device_ms_a_scan", "f3_ms_a_scan", "f7_ms_a_scan",
+            "f7_mesh_ms_a_scan",
             "host_ms_a_scan", "scans_per_sec",
             "eager_scans_per_sec", "kernel_nodes_a_scan", "peak_bytes",
             "peak_over_map_bytes", "ms_a_rebuild", "device_ms_a_rebuild",

@@ -586,7 +586,8 @@ def test_signatures_name_each_c_entry_of_fusions_cu():
     assert {name for name, _ in entries} == {
         "gs_fusion_motion", "gs_fusion_pool", "gs_fusion_pick",
         "gs_fusion_sample", "gs_fusion_splat", "gs_fusion_scan",
-        "gs_fusion_weights", "gs_fusion_walk", "gs_fusion_exp"}
+        "gs_fusion_weights", "gs_fusion_walk", "gs_fusion_exp",
+        "gs_fusion_weights_mesh", "gs_fusion_walk_mesh"}
     for name, params in entries:
         assert len(_build.SIGNATURES[name]) == len(params.split(",")), name
     assert Path(_build.CSRC) / "fusions.cu" in _build.sources()
